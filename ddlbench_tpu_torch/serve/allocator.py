@@ -1,0 +1,121 @@
+"""Refcounted free-list page allocator for the shared serving KV pool.
+
+The port's copy of ``ddlbench_tpu/serve/allocator.py`` (pure host code),
+without the prefix-cache sharing calls and the SDC quarantine hooks, which
+the port does not carry yet.
+
+A serving engine cannot give every row a private stripe of the pool: a
+request's KV history lives exactly as long as the request, and "pool
+exhausted" must mean the card's cache memory is genuinely full. This
+allocator is the host-side free list that turns the pool into per-request
+page-granular memory: requests allocate pages as their streams grow, free
+them all on completion or eviction, and admission backpressure falls out of
+``alloc`` returning ``None``.
+
+All decisions are plain Python on the host (the device only ever sees the
+resulting page TABLE as an int32 input), so allocation order — and with it
+every downstream scheduling decision — is deterministic: slots are handed
+out lowest-first and freed slots are reused LIFO, exactly as in the
+reference, so both engines schedule the same traffic identically.
+
+Slot 0 is reserved as the SCRATCH page (ops/paged_decode.SCRATCH_SLOT):
+inactive rows' table entries point at it so their masked writes land
+somewhere harmless. It is never handed out and never counted as capacity.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+# ops/paged_decode.SCRATCH_SLOT, duplicated so this module stays torch-free
+SCRATCH_SLOT = 0
+
+
+class PageAllocator:
+    """All-or-nothing page allocation with per-slot refcounts and exact
+    occupancy accounting."""
+
+    def __init__(self, n_pages: int):
+        if n_pages < 2:
+            raise ValueError(
+                f"pool needs >= 2 pages (1 scratch + 1 usable), got {n_pages}")
+        self.n_pages = int(n_pages)
+        # descending so .pop() hands out the lowest slot first; freed slots
+        # are appended (LIFO reuse) — both choices only matter for
+        # determinism, which they guarantee
+        self._free: List[int] = [s for s in range(self.n_pages - 1, 0, -1)]
+        self._owned: Dict[int, List[int]] = {}  # rid -> slots, alloc order
+        self._ref: Dict[int, int] = {}  # slot -> refcount (live slots only)
+        self.allocs = 0
+        self.frees = 0
+        self.peak_in_use = 0
+
+    @property
+    def capacity(self) -> int:
+        """Usable pages (the scratch slot is not capacity)."""
+        return self.n_pages - 1
+
+    @property
+    def in_use(self) -> int:
+        return self.capacity - len(self._free)
+
+    @property
+    def free_pages(self) -> int:
+        return len(self._free)
+
+    def occupancy(self) -> float:
+        return self.in_use / self.capacity
+
+    def owned(self, rid: int) -> List[int]:
+        return list(self._owned.get(rid, ()))
+
+    def refcount(self, slot: int) -> int:
+        return self._ref.get(slot, 0)
+
+    def alloc(self, rid: int, n: int = 1) -> Optional[List[int]]:
+        """Allocate ``n`` fresh pages for request ``rid``; all-or-nothing.
+
+        Returns the slot list (each at refcount 1), or None when the pool
+        cannot supply ``n`` pages (admission/step backpressure — nothing
+        is allocated).
+        """
+        if n <= 0:
+            raise ValueError(f"alloc n must be positive, got {n}")
+        if n > len(self._free):
+            return None
+        slots = [self._free.pop() for _ in range(n)]
+        assert SCRATCH_SLOT not in slots
+        self._owned.setdefault(rid, []).extend(slots)
+        for s in slots:
+            self._ref[s] = 1
+        self.allocs += n
+        self.peak_in_use = max(self.peak_in_use, self.in_use)
+        return slots
+
+    def decref(self, slot: int) -> bool:
+        """Drop one reference; returns True when the slot actually
+        returned to the free list (last reference dropped). Dropping a
+        reference a holder does not have is a double-free and raises."""
+        c = self._ref.get(slot, 0)
+        if c < 1:
+            raise ValueError(f"double free: slot {slot} has no references")
+        if c == 1:
+            del self._ref[slot]
+            self.frees += 1
+            self._free.append(slot)
+            return True
+        self._ref[slot] = c - 1
+        return False
+
+    def free_request(self, rid: int) -> int:
+        """Drop ``rid``'s reference on every page it holds (completion or
+        eviction). Returns how many pages physically returned to the free
+        list.
+
+        Freeing a request that owns nothing is a double-free — the engine
+        frees exactly once per retirement — and raises.
+        """
+        slots = self._owned.pop(rid, None)
+        if slots is None:
+            raise ValueError(f"double free: request {rid} owns no pages")
+        return sum(1 for s in slots if self.decref(s))
