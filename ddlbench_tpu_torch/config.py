@@ -1,22 +1,22 @@
-"""Typed configuration of the PyTorch serving path.
+"""Typed configuration of the PyTorch serving and token-training paths.
 
-The port's own copy of the pieces of ``ddlbench_tpu/config.py`` the serving
-path reads: :class:`DatasetSpec` with the ``synthtext`` token workload, and
-:class:`ServeConfig` with its resolvers and validation. The field names,
-defaults and error messages are the reference's, so a config built for one
-package means the same thing to the other.
+The port's own copy of the pieces of ``ddlbench_tpu/config.py`` those paths
+read: :class:`DatasetSpec` with the token workloads, ``DEFAULT_BATCH`` for
+the ``single`` strategy, :class:`ServeConfig` and :class:`RunConfig` with
+their resolvers and validation. The field names, defaults and error
+messages are the reference's, so a config built for one package means the
+same thing to the other (one deliberate divergence: ``fused_head_loss``,
+see :class:`RunConfig`).
 
-Serving features the port does not carry yet (prefix cache, speculative
-verify, sampling, the int8 pool, the SDC ledger, tp > 1, replicas > 1,
-heartbeat, tracing) keep their fields, and :meth:`ServeConfig.validate`
-raises ``NotImplementedError`` when one is set away from its default, so a
-knob is never silently ignored.
+Features the port does not carry yet keep their fields where the reference
+has them, and ``validate`` raises ``NotImplementedError`` when one is set
+away from its default, so a knob is never silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +41,21 @@ DATASETS: Mapping[str, DatasetSpec] = {
     # a standard LM context (ddlbench_tpu/config.py "synthtext")
     "synthtext": DatasetSpec("synthtext", (1024,), 32_768, 100_000, 10_000,
                              kind="tokens"),
+    # long-context stressors (one card trains them through the flash
+    # kernels, whose memory does not grow with the score matrix)
+    "longctx": DatasetSpec("longctx", (8192,), 32_768, 20_000, 2_000,
+                           kind="tokens"),
+    "longctx32k": DatasetSpec("longctx32k", (32_768,), 32_768, 5_000, 500,
+                              kind="tokens"),
+}
+
+# "auto" = the flash kernels for CUDA tensors, the plain einsum for CPU
+# tensors; "flash"/"xla" force one (models/transformer.py)
+ATTENTION_BACKENDS = ("auto", "flash", "xla")
+
+# the reference's per-strategy default batch, token workloads of "single"
+DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
+    "single": {"synthtext": 16, "longctx": 2, "longctx32k": 1},
 }
 
 
@@ -151,3 +166,121 @@ class ServeConfig:
 
     def replace(self, **kw: Any) -> "ServeConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """One training run = dataset x strategy x model, with the fields the
+    port's token-training path reads (the reference's names and defaults).
+
+    Deliberate divergence: ``fused_head_loss`` defaults to False here (True
+    in the reference). The fused LM-head loss runs the Pallas kernels B4-B6
+    (``ops/fused_xent.py``), which are not ported yet; until they are, the
+    port trains through the materialised logits, and ``validate`` refuses
+    True. ``benchmark`` and ``arch`` default to the token path's
+    ``synthtext`` / ``transformer_s`` (the reference's mnist / resnet18 are
+    not ported).
+    """
+
+    benchmark: str = "synthtext"
+    strategy: str = "single"
+    arch: str = "transformer_s"
+    batch_size: Optional[int] = None
+    steps_per_epoch: Optional[int] = None
+    # None = per-workload default (resolved_*): sgd, lr 0.01, momentum 0.5,
+    # weight decay 0 for the token workloads
+    optimizer: Optional[str] = None  # sgd | adam
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    lr: Optional[float] = None
+    momentum: Optional[float] = None
+    weight_decay: Optional[float] = None
+    label_smoothing: Optional[float] = None
+    compute_dtype: str = "bfloat16"
+    attention_backend: str = "auto"  # auto | flash | xla
+    fused_head_loss: bool = False  # the reference's default is True
+    # torch.utils.checkpoint per layer: the backward recomputes each layer
+    remat_layers: bool = False
+    seed: int = 1
+    grad_accum_steps: int = 1
+    # the stability guard (not ported; validate() refuses both)
+    anomaly_policy: Optional[str] = None
+    loss_scale: Optional[Any] = None
+
+    def dataset(self) -> DatasetSpec:
+        return DATASETS[self.benchmark]
+
+    def resolved_optimizer(self) -> str:
+        if self.optimizer is not None:
+            return self.optimizer
+        return "adam" if self.dataset().kind == "seq2seq" else "sgd"
+
+    def resolved_lr(self) -> float:
+        if self.lr is not None:
+            return self.lr
+        if self.resolved_optimizer() == "adam":
+            return 1e-3
+        return 0.01  # the reference's token-workload default
+
+    def resolved_label_smoothing(self) -> float:
+        if self.label_smoothing is not None:
+            return self.label_smoothing
+        return 0.1 if self.dataset().kind == "seq2seq" else 0.0
+
+    def resolved_momentum(self) -> float:
+        if self.momentum is not None:
+            return self.momentum
+        return 0.5  # the reference's default outside imagenet/highres
+
+    def resolved_weight_decay(self) -> float:
+        if self.weight_decay is not None:
+            return self.weight_decay
+        return 0.0  # the reference's default outside imagenet/highres
+
+    def global_batch(self) -> int:
+        """The step's batch: ``single`` runs one batch of batch_size (or
+        the reference's default for the benchmark) per step."""
+        return int(self.batch_size or DEFAULT_BATCH["single"][self.benchmark])
+
+    def validate(self) -> None:
+        if self.benchmark not in DATASETS:
+            raise ValueError(f"unknown benchmark {self.benchmark!r}")
+        if self.strategy != "single":
+            raise NotImplementedError(
+                f"strategy {self.strategy!r} is not ported to the PyTorch "
+                "training path yet (only 'single')")
+        if self.grad_accum_steps > 1:
+            raise NotImplementedError(
+                "gradient accumulation (grad_accum_steps > 1) is not ported "
+                "to the PyTorch training path yet")
+        if self.grad_accum_steps < 1:
+            raise ValueError("grad_accum_steps must be >= 1")
+        if self.anomaly_policy is not None or self.loss_scale is not None:
+            raise NotImplementedError(
+                "the stability guard (anomaly_policy / loss_scale) is not "
+                "ported to the PyTorch training path yet")
+        if "moe" in self.arch:
+            raise NotImplementedError(
+                f"MoE arch {self.arch!r} is not ported to the PyTorch "
+                "training path yet")
+        if self.fused_head_loss:
+            raise NotImplementedError(
+                "fused_head_loss=True runs the fused LM-head kernels B4-B6 "
+                "(ops/fused_xent.py), which are not ported yet; train with "
+                "fused_head_loss=False (the materialised logits)")
+        if self.attention_backend not in ATTENTION_BACKENDS:
+            raise ValueError(
+                f"unknown attention_backend {self.attention_backend!r}")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype must be float32|bfloat16, got "
+                f"{self.compute_dtype!r}")
+        if self.optimizer is not None and self.optimizer not in ("sgd",
+                                                                 "adam"):
+            raise ValueError(f"unknown optimizer {self.optimizer!r}")
+        if (self.label_smoothing is not None
+                and not 0.0 <= self.label_smoothing < 1.0):
+            raise ValueError("label_smoothing must be in [0, 1)")
+        if self.dataset().kind != "tokens":
+            raise ValueError(f"{self.benchmark} is not a token workload")

@@ -1,10 +1,12 @@
-"""Flat-layer model container and the serving-layer protocol.
+"""Flat-layer model container, the training apply and the serving-layer
+protocol.
 
 The port's counterpart of ``ddlbench_tpu/models/layers.py``'s
-``LayerModel`` and ``ServeOps``. A model is a named flat stack of
-``nn.Module`` layers; the serving engine walks the stack itself, calling each
-serving layer's two serve ops and plain ``forward`` on pointwise layers (the
-LM head).
+``LayerModel``, ``apply_slice``/``apply_model`` and ``ServeOps``. A model is
+a named flat stack of ``nn.Module`` layers; training applies it through
+:func:`apply_model`, and the serving engine walks the stack itself, calling
+each serving layer's two serve ops and plain ``forward`` on pointwise layers
+(the LM head).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 
 class ServeLayer(nn.Module):
@@ -64,3 +67,36 @@ class LayerModel(nn.Module):
             x = layer(x)
         return x
 
+
+def _call(layer: nn.Module, params: dict, x: torch.Tensor) -> torch.Tensor:
+    return torch.func.functional_call(layer, params, (x,))
+
+
+def apply_slice(layers: Sequence[nn.Module], x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None,
+                remat: bool = False) -> torch.Tensor:
+    """Run ``layers`` in order on casts of their parameters.
+
+    Every floating-point parameter is cast to ``compute_dtype`` (None keeps
+    it) before its layer runs, as the reference applies its model on
+    ``cast_params`` (parallel/common.py): the embedding tables and the
+    LayerNorm scales and biases too, so activations come out in the
+    compute dtype. The casts are inside autograd, so gradients land on the
+    float32 master parameters. With ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): the backward recomputes the
+    layer instead of keeping its interior activations."""
+    for layer in layers:
+        params = {n: p.to(compute_dtype)
+                  if compute_dtype is not None and p.is_floating_point()
+                  else p for n, p in layer.named_parameters()}
+        if remat:
+            x = checkpoint(_call, layer, params, x, use_reentrant=False)
+        else:
+            x = _call(layer, params, x)
+    return x
+
+
+def apply_model(model: LayerModel, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None,
+                remat: bool = False) -> torch.Tensor:
+    return apply_slice(model.layers, x, compute_dtype, remat)

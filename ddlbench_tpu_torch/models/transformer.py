@@ -1,11 +1,17 @@
 """Decoder-only transformer LM as a flat layer chain (PyTorch port).
 
-The port of the serving pieces of ``ddlbench_tpu/models/transformer.py``:
-an embedding, pre-LN blocks (learned positions, GELU MLP 4x) and an untied
-LM head, each an ``nn.Module`` whose parameters keep the reference's names
-and layouts — dense weights are ``[in, out]`` and every projection is
-``x @ W``, as in the JAX code, so converted weights (convert.py) are used
-as they are.
+The port of the training and serving pieces of
+``ddlbench_tpu/models/transformer.py``: an embedding, pre-LN blocks
+(learned positions, GELU MLP 4x) and an untied LM head, each an
+``nn.Module`` whose parameters keep the reference's names and layouts —
+dense weights are ``[in, out]`` and every projection is ``x @ W``, as in
+the JAX code, so converted weights (convert.py) are used as they are.
+
+Attention dispatches like the reference's (:func:`set_attention_backend`):
+``"flash"`` takes the flash kernels (ops/flash_attention.py), ``"xla"`` the
+plain einsum, and ``"auto"`` the kernels for a CUDA tensor and the plain
+einsum for a CPU tensor. The reference's TPU-measured length crossover for
+``"auto"`` is not carried over; the card's is still to be measured.
 
 Three numerics of the reference are kept on purpose (tests pin them):
 
@@ -27,7 +33,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddlbench_tpu_torch.config import ATTENTION_BACKENDS
 from ddlbench_tpu_torch.models.layers import LayerModel, ServeLayer
+from ddlbench_tpu_torch.ops.flash_attention import flash_attention
 from ddlbench_tpu_torch.ops.paged_decode import (paged_attention,
                                                  paged_chunk_attention,
                                                  paged_table_chunk_write,
@@ -70,16 +78,42 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.scale, self.bias)
 
 
+_ATTENTION_BACKEND = ["auto"]
+
+
+def set_attention_backend(backend: str) -> None:
+    """Select the attention path of every block: auto | flash | xla."""
+    if backend not in ATTENTION_BACKENDS:
+        raise ValueError(f"unknown attention backend {backend!r}")
+    _ATTENTION_BACKEND[0] = backend
+
+
+def _use_flash(q: torch.Tensor) -> bool:
+    mode = _ATTENTION_BACKEND[0]
+    if mode == "auto":
+        return q.device.type == "cuda"
+    return mode == "flash"
+
+
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     q_offset: int = 0, k_offset: int = 0) -> torch.Tensor:
-    """Masked attention for blocks of a causal sequence: q [B, H, Tq, dh],
-    k/v [B, H, Tk, dh]; offsets give each block's absolute position. The
-    reference's plain (non-flash) path; a fully masked row returns 0."""
+                     q_offset: int = 0, k_offset: int = 0,
+                     prefix_len: int = 0) -> torch.Tensor:
+    """Masked attention for blocks of a causal (or prefix-LM) sequence:
+    q [B, H, Tq, dh], k/v [B, H, Tk, dh]; offsets give each block's
+    absolute position, and key positions < ``prefix_len`` are visible to
+    every query. Takes the flash kernels when the backend says so (module
+    docstring); else the reference's plain path, where a fully masked row
+    returns 0."""
+    if _use_flash(q):
+        return flash_attention(q, k, v, q_offset, k_offset, prefix_len)
     dh = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(dh)
     q_pos = q_offset + torch.arange(q.shape[2], device=q.device)[:, None]
     k_pos = k_offset + torch.arange(k.shape[2], device=q.device)[None, :]
-    scores = scores.masked_fill(~(q_pos >= k_pos), -math.inf)
+    ok = q_pos >= k_pos
+    if prefix_len:
+        ok = ok | (k_pos < prefix_len)
+    scores = scores.masked_fill(~ok, -math.inf)
     m = scores.amax(-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     e = torch.exp(scores - m)
@@ -88,7 +122,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class Embed(ServeLayer):
-    """Token + learned position embedding: x [B, T] int -> [B, T, d]."""
+    """Token + learned position embedding: x [B, T] int -> [B, T, d], in
+    the tables' dtype (the compute dtype under layers.apply_model's cast,
+    as in the reference's apply on cast params)."""
 
     def __init__(self, vocab: int, d_model: int, max_len: int,
                  gen: torch.Generator):
@@ -113,12 +149,15 @@ class Embed(ServeLayer):
 
 
 class TransformerBlock(ServeLayer):
-    """Pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x)) + b2."""
+    """Pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x)) + b2.
+    ``prefix_len`` > 0 switches the attention to the prefix-LM mask (the
+    seq2seq workload; the serve ops are causal-LM only)."""
 
     def __init__(self, d_model: int, n_heads: int, gen: torch.Generator,
-                 mlp_ratio: int = 4):
+                 mlp_ratio: int = 4, prefix_len: int = 0):
         super().__init__()
         self.n_heads = n_heads
+        self.prefix_len = prefix_len
         self.dh = d_model // n_heads
         d, f = d_model, mlp_ratio * d_model
         self.ln1 = LayerNorm(d)
@@ -152,7 +191,7 @@ class TransformerBlock(ServeLayer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, d = x.shape
         q, k, v = self._qkv_heads(x)
-        o = causal_attention(q, k, v)
+        o = causal_attention(q, k, v, prefix_len=self.prefix_len)
         x = self._proj(o.transpose(1, 2).reshape(B, T, d), x)
         return self.mlp(x)
 

@@ -1,7 +1,8 @@
 """Model registry of the port: (arch, dataset) -> LayerModel.
 
-The port serves the causal-LM ``transformer_*`` arches of
-``ddlbench_tpu/models/zoo.py``; the other families wait for later slices.
+The port trains and serves the causal-LM ``transformer_*`` arches of
+``ddlbench_tpu/models/zoo.py`` on the token benchmarks (synthtext,
+longctx, longctx32k); the other families wait for later slices.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ def get_model(arch: str, dataset, seed: int = 0) -> LayerModel:
     DatasetSpec) with random weights from ``seed``."""
     spec = dataset if isinstance(dataset, DatasetSpec) else DATASETS[dataset]
     if arch not in _VARIANTS:
-        raise ValueError(f"unknown arch {arch!r}; the port serves "
+        raise ValueError(f"unknown arch {arch!r}; the port builds "
                          f"{MODEL_NAMES}")
     if spec.kind != "tokens":
         raise ValueError(f"{arch} requires a token dataset, got {spec.name}")

@@ -42,6 +42,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # tstride, scale, ktype, stream
         "ddl_paged_chunk": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     },
+    "flash_attention": {
+        # q, k, v, o, lse, BH, Tq, Tk, dh, q_offset, k_offset, prefix_len,
+        # scale, dtype, stream
+        "ddl_flash_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, dq, then as above
+        "ddl_flash_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+        # q, k, v, do, lse, delta, dk, dv, then as above
+        "ddl_flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

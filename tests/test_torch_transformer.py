@@ -136,6 +136,29 @@ def test_trap_gelu_is_tanh_approximation():
     assert not np.allclose(erf, want, **TOL)
 
 
+@pytest.mark.parametrize("prefix_len", [0, 5])
+def test_block_forward_matches_jax(prefix_len):
+    """A block's training forward, the prefix-LM mask included (seq2seq's),
+    against the reference's transformer_block with the same weights; the
+    prefix block measurably differs from the causal one."""
+    from ddlbench_tpu_torch.models.transformer import TransformerBlock
+
+    T = 12
+    jb = jtr.transformer_block("b", D, 4, prefix_len=prefix_len)
+    p, _, _ = jb.init(jax.random.key(1), (T, D))
+    x = np.random.default_rng(10).standard_normal((2, T, D)).astype(np.float32)
+    want, _ = jb.apply(p, {}, jnp.asarray(x), False)
+    blocks = [TransformerBlock(D, 4, torch.Generator().manual_seed(0),
+                               prefix_len=n) for n in (prefix_len, 0)]
+    with torch.no_grad():
+        for blk in blocks:
+            for name, arr in _flat(jax.device_get(p)):
+                blk.get_parameter(name).copy_(torch.from_numpy(np.array(arr)))
+        got, causal = (blk(torch.from_numpy(x)).numpy() for blk in blocks)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    assert np.allclose(causal, np.asarray(want), **TOL) == (prefix_len == 0)
+
+
 def test_trap_qkv_split_is_contiguous_thirds(pair):
     """wqkv's output splits into contiguous thirds q | k | v, each viewed
     [B, T, H, dh] (not interleaved per head)."""
