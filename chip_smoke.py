@@ -68,24 +68,59 @@ one JSON line; any failure raises and exits non-zero:
              the larger of the bytes over 3.35 TB/s and the flops over
              989 TFLOP/s (4, 6 and 8 x dh flops per visible (query, key)
              pair for the forward, dQ and dK/dV).
-7. train   — zeroes the flash counters and trains lmbench's main path on
-             the card: transformer_s on synthtext (B 16, T 1024, full
-             width and depth), bf16, flash+logits, random weights from
-             seed 0, 2 warm-up and 10 timed steps through make_strategy /
-             train_step / timed_steps. Requires every step's loss finite
-             and each flash kernel launched 8 times a step (once per
-             layer). Then one step's loss and gradients from the same
-             weights and batch under "flash" and under "xla" must agree:
-             the loss within 1e-2 absolute, each gradient leaf within 5e-2
-             relative L2 (both run bf16 activations; the xla path also
-             rounds its scores and probabilities to bf16). Then prints the
-             port lmbench rows for flash+logits and xla+logits.
-8. train_profile — 3 warm flash+logits steps under torch.profiler: the
+7. fxent_kernels — holds each fused LM-head kernel (forward, dh, dW)
+             against its plain version, float32 and bfloat16, both
+             cotangents non-zero (0.7 on the objective, 0.3 on the CE): at
+             lmbench's head (N 16 384 = B 16 x T 1024, D 512, V 32 768,
+             smoothing 0), the same shape with synthmt's masking (label -1
+             at positions < 127 of each 256-row segment, smoothing 0.1), a
+             ragged case (N 1 000, D 64, V 1 000: tail rows and a tail vocab
+             tile; every 5th row masked; smoothing 0 and 0.1), all rows
+             masked (sums 0, dh and dW exactly 0) and W = 0 (every logit
+             ties: correct = the valid rows labelled 0). Tolerance: float32
+             the objective and CE sums within rtol 1e-5, correct exact, lse
+             within 1e-4, dh and dW within 1e-4 max abs; bfloat16 the lse
+             within 1e-4, each dh row and each dW column within 2^-6
+             relative L2, an argmax mismatch only at a near-tie (the two
+             logits within 1e-3; the count is reported). The check must
+             reject the plain versions with planted faults on synthmt's
+             case: the last vocab tile skipped (forward, dh) and the label
+             mask dropped (dh, dW).
+8. fxent_times — each fused kernel, its plain version and a PyTorch
+             library yardstick (torch.matmul then F.cross_entropy on the
+             float32 logits; for dh and dW the backward of that pair
+             through torch.autograd.grad, which computes both, so both
+             rows carry the pair's time), CUDA events, L2 flushed, at
+             lmbench's head in bf16, beside bound_ms (2 N D V flops for the
+             forward, 4 N D V for dh and dW, at 989 TFLOP/s; the bytes of
+             each input and output once at 3.35 TB/s).
+9. train   — zeroes the flash and fused-head counters and trains
+             lmbench's main path on the card: transformer_s on synthtext
+             (B 16, T 1024, full width and depth), bf16, flash+fused (the
+             default), random weights from seed 0, 2 warm-up and 10 timed
+             steps through make_strategy / train_step / timed_steps.
+             Requires every step's loss finite, each flash kernel launched
+             8 times a step (once per layer) and each fused-head kernel
+             once a step. Then one step's loss and gradients from the same
+             weights and batch must agree between the fused head and the
+             logits (flash both) and between flash and xla attention (fused
+             both): the loss within 1e-2 absolute, each gradient leaf within
+             5e-2 relative L2 (bf16 activations on every path). Reports the
+             peak device memory of one step's forward and backward each
+             way, then prints the port's lmbench rows for the four forced
+             cells.
+10. seq2seq — the same on seq2seq_s / synthmt (B 64, T 256, 128-token
+             source: the prefix path of the flash kernels), flash+fused,
+             Adam, label smoothing 0.1, 2 warm-up and 5 timed steps:
+             finite losses, the same launch counts, 64 x 129 = 8 256 valid
+             labels a batch, the fused-vs-logits agreement; then lmbench
+             rows for flash+fused and flash+logits on synthmt.
+11. train_profile — 3 warm flash+fused steps under torch.profiler: the
              device's busy share and the top device kernels.
 
-Then it prints the kernels table (one JSON object, the paged and the flash
-kernels), the card's name and power limit as nvidia-smi reports them, and,
-last, the device record.
+Then it prints the kernels table (one JSON object: the paged, the flash
+and the fused-head kernels), the card's name and power limit as nvidia-smi
+reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
 """
@@ -132,7 +167,32 @@ FLASH_CASES = (
 LONG_T, LONG_Q = 32_768, 256
 TRAIN_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--steps", "10",
               "--warmup", "2"]
-LAYERS = 8  # transformer_s: one launch of each flash kernel per layer
+S2S_ARGS = ["-m", "seq2seq_s", "-b", "synthmt", "--steps", "5", "--warmup",
+            "2"]
+LAYERS = 8  # transformer_s, seq2seq_s: one launch of each flash kernel per
+# layer, and one of each fused-head kernel a step
+FX_SOURCE = "ddlbench_tpu_torch/ops/csrc/fused_xent.cu"
+# each fused-head kernel -> the pallas_call it replaces
+FX_KERNELS = {
+    "fxent_fwd": "ddlbench_tpu/ops/fused_xent.py:443",
+    "fxent_dh": "ddlbench_tpu/ops/fused_xent.py:565",
+    "fxent_dw": "ddlbench_tpu/ops/fused_xent.py:581",
+}
+FX_FLOPS_PER_NDV = {"fxent_fwd": 2, "fxent_dh": 4, "fxent_dw": 4}
+FX_HEAD = (16_384, 512, 32_768)  # lmbench's head: N = B 16 x T 1024, D, V
+FX_SUM_RTOL = 1e-5  # float32 objective and CE sums
+FX_TOL = 1e-4  # float32 dh/dW max abs; the lse in both types
+FX_TIE = 1e-3  # bfloat16: an argmax may differ where two logits are this close
+FX_COT = (0.7, 0.3)  # the cotangents of the objective and the CE sums
+# (name, N, D, V, smoothing, masking) of the fused-head checks
+FX_CASES = (
+    ("lmbench", *FX_HEAD, 0.0, "none"),
+    ("synthmt", *FX_HEAD, 0.1, "synthmt"),
+    ("ragged", 1000, 64, 1000, 0.1, "every5"),
+    ("ragged_s0", 1000, 64, 1000, 0.0, "every5"),
+    ("all_masked", 1000, 64, 1000, 0.1, "all"),
+    ("zero_head", 1000, 64, 1000, 0.0, "every5"),
+)
 
 
 def emit(obj) -> None:
@@ -629,36 +689,334 @@ def phase_flash_times(torch, fa, dev):
     return {name: rows[0] for name, rows in times.items()}
 
 
-def phase_train(torch, fa, dev):
-    """lmbench's main path on the card (flash+logits), with the flash
-    launch counters zeroed just before it and read just after."""
+def fx_inputs(torch, gen, dev, dtype, N, D, V, masking, zero_head=False):
+    """h [N, D], W [D, V] (scaled so the logits have unit-order spread) and
+    int64 labels [N] with the case's masking."""
+    h = torch.randn(N, D, generator=gen).to(dev, dtype)
+    w = (torch.randn(D, V, generator=gen) * D ** -0.5).to(dev, dtype)
+    if zero_head:
+        w.zero_()
+    labels = torch.randint(0, V, (N,), generator=gen)
+    if masking == "every5":
+        labels[::5] = -1
+        labels[1::7] = 0  # label-0 rows for the zero-head case
+    elif masking == "synthmt":
+        labels[torch.arange(N) % 256 < 127] = -1
+    elif masking == "all":
+        labels[:] = -1
+    return h, w, labels.to(dev)
+
+
+def fx_coef(torch, smoothing, V, dev):
+    """(c_p, c_oh, c_sm) of the backward for the cotangents FX_COT."""
+    go, gce = FX_COT
+    return torch.tensor([go + gce, go * (1 - smoothing) + gce,
+                         go * smoothing / V], device=dev)
+
+
+def col_rel_err(got, want) -> float:
+    """row_rel_err over columns (one vocab entry's D values of dW)."""
+    return row_rel_err(got.T, want.T)
+
+
+def argmax_near_ties(torch, h, w, got, want):
+    """(mismatches, mismatches not at a near-tie): rows whose argmaxes
+    differ, and of those the rows whose two chosen logits (float32, plain)
+    are more than FX_TIE apart."""
+    rows = (got != want).nonzero()[:, 0]
+    if rows.numel() == 0:
+        return 0, 0
+    z = h[rows].float() @ w.float()
+    gap = (z.gather(1, got[rows].long()[:, None])
+           - z.gather(1, want[rows].long()[:, None])).abs()[:, 0]
+    return rows.numel(), int((gap > FX_TIE).sum())
+
+
+def fx_compare(torch, fx, h, w, labels, smoothing, coef):
+    """{kernel: {max_abs_err, ..., ok}} of the three fused-head kernels
+    against their plain versions (the backward pair on the plain lse), and
+    the kernels' and plain outputs."""
+    V = w.shape[1]
+    got = fx.fxent_fwd(h, w, labels)
+    want = fx._fxent_fwd_ref(h, w, labels)
+    lse = want[0]
+    dh = fx.fxent_dh(h, w, labels, lse, coef)
+    dw = fx.fxent_dw(h, w, labels, lse, coef)
+    dh_ref = fx._fxent_dh_ref(h, w, labels, lse, coef)
+    dw_ref = fx._fxent_dw_ref(h, w, labels, lse, coef)
+    torch.cuda.synchronize()
+    f32 = h.dtype == torch.float32
+    sums = fx.loss_sums(*got, labels, smoothing, V)
+    sums_ref = fx.loss_sums(*want, labels, smoothing, V)
+    sum_err = max(abs(a.item() - b.item()) / max(abs(b.item()), 1e-30)
+                  for a, b in zip(sums[:2], sums_ref[:2]))
+    lse_err = (got[0] - want[0]).abs().max().item()
+    n_mis, n_far = argmax_near_ties(torch, h, w, got[3], want[3])
+    fwd = {"max_abs_err": lse_err, "sum_rel_err": sum_err,
+           "correct": int(sums[2]), "correct_plain": int(sums_ref[2]),
+           "argmax_mismatches": n_mis, "argmax_mismatches_not_near_tie":
+           n_far}
+    if f32:
+        fwd["ok"] = (lse_err <= FX_TOL and sum_err <= FX_SUM_RTOL
+                     and n_mis == 0)
+    else:
+        fwd["ok"] = lse_err <= FX_TOL and n_far == 0
+    out = {"fxent_fwd": fwd}
+    for name, a, b, rel in (("fxent_dh", dh, dh_ref, row_rel_err),
+                            ("fxent_dw", dw, dw_ref, col_rel_err)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name}: {a.dtype} {tuple(a.shape)} vs "
+                                 f"{b.dtype} {tuple(b.shape)}")
+        err = (a.float() - b.float()).abs().max().item()
+        r = rel(a, b)
+        ok = err <= FX_TOL if f32 else r <= BF16_ROW_RTOL
+        finite = math.isfinite(err) and math.isfinite(r)
+        out[name] = {"max_abs_err": err if finite else math.inf,
+                     "rel_err": r if finite else math.inf,
+                     "ok": ok and finite}
+    return out, (got, dh, dw), (want, dh_ref, dw_ref)
+
+
+def fx_unmasked_plain(torch, fx, h, w, labels, lse, coef):
+    """The plain dh and dW with the label mask dropped: masked rows take
+    dz = c_p p - c_sm (no label matches) instead of 0."""
+    dh, dw = [], torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+    for i in range(0, h.shape[0], fx.ROW_CHUNK):
+        h_c, lab = h[i:i + fx.ROW_CHUNK], labels[i:i + fx.ROW_CHUNK].long()
+        z = h_c.float() @ w.float()
+        onehot = torch.zeros_like(z).scatter_(1, lab.clamp(min=0)[:, None],
+                                              1.0) * (lab >= 0)[:, None]
+        dz = (coef[0] * torch.exp(z - lse[i:i + fx.ROW_CHUNK, None])
+              - coef[1] * onehot - coef[2]).to(h.dtype).float()
+        dh.append((dz @ w.float().T).to(h.dtype))
+        dw += h_c.float().T @ dz
+    return torch.cat(dh), dw.to(w.dtype)
+
+
+def fx_planted_faults(torch, fx, h, w, labels, coef, outs):
+    """The bfloat16 check must reject the kernels' outputs held against
+    plain versions with planted faults: the last vocab tile (64 columns)
+    skipped (forward: its lse; dh) and the label mask dropped (dh, dW).
+    Returns what the check says of each."""
+    got, dh, dw = outs
+    V = w.shape[1]
+    lse = fx._fxent_fwd_ref(h, w, labels)[0]
+    lse_cut = fx._fxent_fwd_ref(h, w[:, :V - 64].contiguous(),
+                                torch.full_like(labels, -1))[0]
+    w_tail0 = w.clone()
+    w_tail0[:, V - 64:] = 0  # z of the last tile contributes nothing to dh
+    dh_cut = fx._fxent_dh_ref(h, w_tail0, labels, lse, coef)
+    dh_nomask, dw_nomask = fx_unmasked_plain(torch, fx, h, w, labels, lse,
+                                             coef)
+    torch.cuda.synchronize()
+    checks = {
+        "fxent_fwd_last_tile_skipped":
+            ("lse_abs_err", (got[0] - lse_cut).abs().max().item(), FX_TOL),
+        "fxent_dh_last_tile_skipped":
+            ("row_rel_err", row_rel_err(dh, dh_cut), BF16_ROW_RTOL),
+        "fxent_dh_mask_dropped":
+            ("row_rel_err", row_rel_err(dh, dh_nomask), BF16_ROW_RTOL),
+        "fxent_dw_mask_dropped":
+            ("col_rel_err", col_rel_err(dw, dw_nomask), BF16_ROW_RTOL),
+    }
+    verdicts = {}
+    for name, (what, err, tol) in checks.items():
+        verdicts[name] = {what: err, "tol": tol, "rejected": not err <= tol}
+        if err <= tol:
+            raise AssertionError(f"{name}: the check accepts a planted "
+                                 f"fault ({what} {err} <= {tol})")
+    return verdicts
+
+
+def phase_fxent_kernels(torch, fx, dev):
+    gen = torch.Generator().manual_seed(3)
+    worst = {name: 0.0 for name in FX_KERNELS}
+    checks, faults = [], None
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for case, N, D, V, s, masking in FX_CASES:
+            h, w, labels = fx_inputs(torch, gen, dev, dtype, N, D, V, masking,
+                                     zero_head=case == "zero_head")
+            coef = fx_coef(torch, s, V, dev)
+            errs, outs, _ = fx_compare(torch, fx, h, w, labels, s, coef)
+            valid = int((labels >= 0).sum())
+            if case == "all_masked":
+                zeros = (int(torch.count_nonzero(outs[1])) == 0
+                         and int(torch.count_nonzero(outs[2])) == 0)
+                sums = [t.item() for t in fx.loss_sums(*outs[0], labels, s,
+                                                       V)]
+                errs["fxent_fwd"]["ok"] &= sums == [0.0, 0.0, 0]
+                errs["fxent_dh"]["ok"] &= zeros
+                errs["fxent_dw"]["ok"] &= zeros
+            if case == "zero_head":
+                want = int(((labels == 0)).sum())
+                errs["fxent_fwd"]["ok"] &= (
+                    errs["fxent_fwd"]["correct"] == want > 0)
+            for name, e in errs.items():
+                checks.append({"kernel": name, "case": case, "N": N, "D": D,
+                               "V": V, "smoothing": s, "valid_rows": valid,
+                               "dtype": dname, **e})
+                if not e["ok"]:
+                    raise AssertionError(
+                        f"{name} {case} {dname}: {e} (float32 sums rtol "
+                        f"{FX_SUM_RTOL}, lse and dh/dW {FX_TOL}; bfloat16 "
+                        f"lse {FX_TOL}, rows/columns {BF16_ROW_RTOL})")
+                if dtype == torch.bfloat16:
+                    worst[name] = max(worst[name], e["max_abs_err"])
+            if dtype == torch.bfloat16 and case == "synthmt":
+                faults = fx_planted_faults(torch, fx, h, w, labels, coef,
+                                           outs)
+            del h, w, labels, outs
+    torch.cuda.empty_cache()
+    emit({"phase": "fxent_kernels", "float32_sum_rtol": FX_SUM_RTOL,
+          "float32_max_abs_tol": FX_TOL, "lse_tol": FX_TOL,
+          "bfloat16_rel_tol": BF16_ROW_RTOL, "near_tie": FX_TIE,
+          "cotangents": FX_COT, "checks": checks, "planted_faults": faults})
+    return worst
+
+
+def fx_bound(name, N, D, V, elt):
+    """(bound_ms, bound_by) of one fused-head call at [N, D] x [D, V]:
+    each input read once and each output written once (labels int64, the
+    per-row outputs and lse float32) over the memory rate; the flops over
+    the bf16 peak."""
+    nbytes = (N * D + D * V) * elt + N * 8
+    nbytes += {"fxent_fwd": 4 * N * 4, "fxent_dh": N * 4 + 12 + N * D * elt,
+               "fxent_dw": N * 4 + 12 + D * V * elt}[name]
+    flops = FX_FLOPS_PER_NDV[name] * N * D * V
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_fxent_times(torch, fx, dev):
+    import torch.nn.functional as F
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    gen = torch.Generator().manual_seed(4)
+    N, D, V = FX_HEAD
+    h, w, labels = fx_inputs(torch, gen, dev, torch.bfloat16, N, D, V, "none")
+    coef = fx_coef(torch, 0.0, V, dev)
+    lse = fx.fxent_fwd(h, w, labels)[0]
+    hg, wg = (t.detach().requires_grad_() for t in (h, w))
+    loss = F.cross_entropy(torch.matmul(hg, wg).float(), labels,
+                           ignore_index=-1, reduction="sum")
+    lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        loss, (hg, wg), retain_graph=True), flush, iters=10)
+    runs = {
+        "fxent_fwd": (lambda: fx.fxent_fwd(h, w, labels),
+                      lambda: fx._fxent_fwd_ref(h, w, labels),
+                      time_ms(torch, lambda: F.cross_entropy(
+                          torch.matmul(h, w).float(), labels,
+                          ignore_index=-1, reduction="sum"), flush,
+                          iters=10)),
+        "fxent_dh": (lambda: fx.fxent_dh(h, w, labels, lse, coef),
+                     lambda: fx._fxent_dh_ref(h, w, labels, lse, coef),
+                     lib_bwd),
+        "fxent_dw": (lambda: fx.fxent_dw(h, w, labels, lse, coef),
+                     lambda: fx._fxent_dw_ref(h, w, labels, lse, coef),
+                     lib_bwd),
+    }
+    del loss
+    times = {}
+    for name, (kern, plain, lib_ms) in runs.items():
+        b_ms, b_by = fx_bound(name, N, D, V, 2)
+        times[name] = {
+            "N": N, "D": D, "V": V, "dtype": "bfloat16",
+            "ms": time_ms(torch, kern, flush, iters=10),
+            "plain_ms": time_ms(torch, plain, flush, iters=3, warmup=1),
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by}
+    del hg, wg
+    torch.cuda.empty_cache()
+    emit({"phase": "fxent_times", "times": times,
+          "library_note": "library_ms: torch.matmul then F.cross_entropy on "
+                          "the float32 logits (fxent_fwd); the backward of "
+                          "that pair through torch.autograd.grad, which "
+                          "computes dh and dW together (fxent_dh, "
+                          "fxent_dw)"})
+    return times
+
+
+def one_step(torch, strategy, cfg, x, y, attn, fused):
+    """One step's unsmoothed loss and gradients (forward and backward, no
+    update) under attention ``attn`` and the fused head or the logits, and
+    the peak device memory it took: (loss, grads, peak bytes, bytes
+    allocated at its start)."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.models.transformer import set_attention_backend
+    from ddlbench_tpu_torch.parallel.common import loss_and_grads
+
+    set_attention_backend(attn)
+    strategy.model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    try:
+        ce, _, grads = loss_and_grads(
+            strategy.model, dataclasses.replace(cfg, fused_head_loss=fused),
+            x, y, torch.bfloat16, strategy.smoothing)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        set_attention_backend("auto")
+    out = (ce.item(), [g.float().clone() for g in grads], peak, start)
+    strategy.model.zero_grad(set_to_none=True)
+    return out
+
+
+def agreement(a, b, names):
+    """Loss and worst gradient-leaf gap of two one_step results; raises
+    past the flash-vs-xla bars (1e-2 absolute, 5e-2 relative L2)."""
+    loss_gap = abs(a[0] - b[0])
+    grad_rel = max(((g - h).norm() / h.norm().clamp(min=1e-30)).item()
+                   for g, h in zip(a[1], b[1]))
+    rec = {f"loss_{names[0]}": a[0], f"loss_{names[1]}": b[0],
+           "loss_abs_diff": loss_gap, "loss_tol": 1e-2,
+           "worst_grad_rel_l2": grad_rel, "grad_tol": 5e-2}
+    if not (loss_gap <= 1e-2 and grad_rel <= 5e-2):
+        raise AssertionError(f"{names[0]} and {names[1]} disagree on one "
+                             f"step: {rec}")
+    return rec
+
+
+def train_cell(torch, fa, fx, dev, argv, phase):
+    """Train lmbench's cell ``argv`` on the card, flash+fused (the
+    default), with every flash and fused-head launch counter zeroed just
+    before the timed run and read just after; a seq2seq batch must carry
+    B x (T - src_len + 1) valid labels. Then the one-step agreements and
+    peak memory. Emits the phase's line and returns (launches, strategy,
+    data)."""
     from ddlbench_tpu_torch.config import RunConfig
     from ddlbench_tpu_torch.data.synthetic import make_synthetic
-    from ddlbench_tpu_torch.models.transformer import set_attention_backend
     from ddlbench_tpu_torch.parallel.api import make_strategy
-    from ddlbench_tpu_torch.parallel.common import loss_and_grads
     from ddlbench_tpu_torch.tools import lmbench
     from ddlbench_tpu_torch.tools.timing import timed_steps
 
-    args = lmbench.build_parser().parse_args(TRAIN_ARGS)
+    args = lmbench.build_parser().parse_args(argv)
     cfg = RunConfig(benchmark=args.benchmark, arch=args.model,
                     batch_size=args.batch_size, compute_dtype=args.dtype,
                     attention_backend="flash", steps_per_epoch=args.steps,
                     seed=0)
-    counters = {name: getattr(fa, name) for name in FLASH_KERNELS}
-    for fn in counters.values():
-        fn.launches = 0
     strategy = make_strategy(cfg, dev)
-    B, T = cfg.global_batch(), cfg.dataset().seq_len
+    spec = cfg.dataset()
+    B, T = cfg.global_batch(), spec.seq_len
+    valid_per_batch = (B * (T - spec.src_len + 1) if spec.kind == "seq2seq"
+                       else B * T)
     data = make_synthetic(cfg.dataset(), B, dev, seed=0,
                           steps_per_epoch=args.steps)
-    lr, losses = cfg.resolved_lr(), []
+    lr, losses, valid = cfg.resolved_lr(), [], []
 
     def run_step(x, y):
         m = strategy.train_step(x, y, lr)
         losses.append(m["loss"])
+        valid.append((y >= 0).sum())
         return m
 
+    counters = {**{name: getattr(fa, name) for name in FLASH_KERNELS},
+                **{name: getattr(fx, name) for name in FX_KERNELS}}
+    for fn in counters.values():
+        fn.launches = 0
     dt = timed_steps(run_step, data.batch, args.steps, args.warmup)
     launches = {name: fn.launches for name, fn in counters.items()}
     steps_run = len(losses)
@@ -666,47 +1024,78 @@ def phase_train(torch, fa, dev):
     if not all(math.isfinite(x) for x in loss_vals):
         raise AssertionError(f"non-finite training loss: {loss_vals}")
     for name, n in launches.items():
-        if n != LAYERS * steps_run:
+        per_step = LAYERS if name in FLASH_KERNELS else 1
+        if n != per_step * steps_run:
             raise AssertionError(f"{name} launched {n} times in {steps_run} "
-                                 f"steps, not {LAYERS} a step")
+                                 f"steps, not {per_step} a step")
+    valid_vals = torch.stack(valid).tolist()
+    if set(valid_vals) != {valid_per_batch}:
+        raise AssertionError(f"valid labels per batch {valid_vals}, not "
+                             f"{valid_per_batch}")
 
-    # one step's loss and gradients, same weights and batch, both backends
+    # one step from the same weights and batch: fused vs logits (flash),
+    # flash vs xla (fused), and the peak memory of each head
     x, y = data.batch(2, 0)
-    got = {}
-    for backend in ("flash", "xla"):
-        set_attention_backend(backend)
-        ce, _, grads = loss_and_grads(strategy.model, cfg, x, y,
-                                      torch.bfloat16, 0.0)
-        got[backend] = (ce.item(), [g.float().clone() for g in grads])
-    set_attention_backend("auto")
-    strategy.model.zero_grad(set_to_none=True)
-    loss_gap = abs(got["flash"][0] - got["xla"][0])
-    grad_rel = max(((a - b).norm() / b.norm().clamp(min=1e-30)).item()
-                   for a, b in zip(got["flash"][1], got["xla"][1]))
-    agree = {"loss_flash": got["flash"][0], "loss_xla": got["xla"][0],
-             "loss_abs_diff": loss_gap, "loss_tol": 1e-2,
-             "worst_grad_rel_l2": grad_rel, "grad_tol": 5e-2}
-    if not (loss_gap <= 1e-2 and grad_rel <= 5e-2):
-        raise AssertionError(f"flash and xla disagree on one step: {agree}")
-    emit({"phase": "train", "model": args.model, "benchmark": args.benchmark,
+    fused = one_step(torch, strategy, cfg, x, y, "flash", True)
+    logits = one_step(torch, strategy, cfg, x, y, "flash", False)
+    xla = one_step(torch, strategy, cfg, x, y, "xla", True)
+    gib = 2.0 ** 30
+    emit({"phase": phase, "model": args.model, "benchmark": args.benchmark,
           "batch": B, "seq_len": T, "dtype": args.dtype,
-          "config": "flash+logits", "steps": steps_run,
-          "launches": launches, "launches_per_step": LAYERS,
+          "config": "flash+fused", "optimizer": cfg.resolved_optimizer(),
+          "label_smoothing": cfg.resolved_label_smoothing(),
+          "steps": steps_run, "launches": launches,
+          "launches_per_step": {name: LAYERS if name in FLASH_KERNELS else 1
+                                for name in launches},
+          "valid_labels_per_batch": sorted(set(valid_vals)),
           "losses": loss_vals,
           "timed_tokens_per_sec": args.steps * B * T / dt,
           "timed_ms_per_step": 1e3 * dt / args.steps,
-          "flash_vs_xla": agree})
-    del got, grads
+          "fused_vs_logits": agreement(fused, logits, ("fused", "logits")),
+          "flash_vs_xla": agreement(fused, xla, ("flash", "xla")),
+          "step_peak_memory_gib": {
+              "flash+fused": fused[2] / gib, "flash+logits": logits[2] / gib,
+              "xla+fused": xla[2] / gib},
+          "step_peak_over_start_gib": {
+              "flash+fused": (fused[2] - fused[3]) / gib,
+              "flash+logits": (logits[2] - logits[3]) / gib,
+              "xla+fused": (xla[2] - xla[3]) / gib}})
+    del fused, logits, xla
     torch.cuda.empty_cache()
-    # the port's lmbench rows for the two configurations of the slice
-    rc = lmbench.main(TRAIN_ARGS + ["--configs", "flash+logits,xla+logits"])
+    return launches, strategy, data
+
+
+def phase_train(torch, fa, fx, dev):
+    """lmbench's main path (transformer_s / synthtext, flash+fused), then
+    the port's lmbench rows for the four forced cells."""
+    from ddlbench_tpu_torch.tools import lmbench
+
+    launches, strategy, data = train_cell(torch, fa, fx, dev, TRAIN_ARGS,
+                                          "train")
+    rc = lmbench.main(TRAIN_ARGS)
     if rc != 0:
         raise AssertionError(f"lmbench exited {rc}")
     return launches, strategy, data
 
 
+def phase_seq2seq(torch, fa, fx, dev):
+    """seq2seq_s / synthmt through the prefix path and the fused head
+    (Adam, smoothing 0.1; B 64 x 129 = 8 256 valid labels a batch), then
+    its lmbench rows."""
+    from ddlbench_tpu_torch.tools import lmbench
+
+    launches, strategy, data = train_cell(torch, fa, fx, dev, S2S_ARGS,
+                                          "seq2seq")
+    del strategy, data
+    torch.cuda.empty_cache()
+    rc = lmbench.main(S2S_ARGS + ["--configs", "flash+fused,flash+logits"])
+    if rc != 0:
+        raise AssertionError(f"lmbench exited {rc}")
+    return launches
+
+
 def phase_train_profile(torch, strategy, data):
-    """Where a flash+logits training step's device time goes."""
+    """Where a flash+fused training step's device time goes."""
     from torch.profiler import ProfilerActivity, profile
 
     from ddlbench_tpu_torch.models.transformer import set_attention_backend
@@ -753,6 +1142,7 @@ def main() -> int:
         from ddlbench_tpu_torch.device import resolve_device
         from ddlbench_tpu_torch.ops import _build
         from ddlbench_tpu_torch.ops import flash_attention as fa
+        from ddlbench_tpu_torch.ops import fused_xent as fx
         from ddlbench_tpu_torch.ops import paged_decode as pd
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -772,7 +1162,10 @@ def main() -> int:
     phase_profile(torch, dev)
     flash_worst = phase_flash_kernels(torch, fa, dev)
     flash_timed = phase_flash_times(torch, fa, dev)
-    flash_launches, strategy, data = phase_train(torch, fa, dev)
+    fx_worst = phase_fxent_kernels(torch, fx, dev)
+    fx_timed = phase_fxent_times(torch, fx, dev)
+    train_launches, strategy, data = phase_train(torch, fa, fx, dev)
+    phase_seq2seq(torch, fa, fx, dev)
     phase_train_profile(torch, strategy, data)
 
     def row(name, source, replaces, n, err, t):
@@ -785,8 +1178,11 @@ def main() -> int:
     emit({"kernels": [
         row(name, SOURCE, KERNELS[name], launches[name], worst[name],
             timed[name]) for name in KERNELS] + [
-        row(name, FLASH_SOURCE, FLASH_KERNELS[name], flash_launches[name],
-            flash_worst[name], flash_timed[name]) for name in FLASH_KERNELS]})
+        row(name, FLASH_SOURCE, FLASH_KERNELS[name], train_launches[name],
+            flash_worst[name], flash_timed[name])
+        for name in FLASH_KERNELS] + [
+        row(name, FX_SOURCE, FX_KERNELS[name], train_launches[name],
+            fx_worst[name], fx_timed[name]) for name in FX_KERNELS]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

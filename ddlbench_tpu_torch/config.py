@@ -5,8 +5,7 @@ read: :class:`DatasetSpec` with the token workloads, ``DEFAULT_BATCH`` for
 the ``single`` strategy, :class:`ServeConfig` and :class:`RunConfig` with
 their resolvers and validation. The field names, defaults and error
 messages are the reference's, so a config built for one package means the
-same thing to the other (one deliberate divergence: ``fused_head_loss``,
-see :class:`RunConfig`).
+same thing to the other.
 
 Features the port does not carry yet keep their fields where the reference
 has them, and ``validate`` raises ``NotImplementedError`` when one is set
@@ -21,19 +20,33 @@ from typing import Any, Mapping, Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class DatasetSpec:
-    """Shape/size blueprint of one benchmark dataset (tokens only here:
-    ``image_size`` is ``(T,)``, ``num_classes`` the vocabulary)."""
+    """Shape/size blueprint of one benchmark dataset (token and seq2seq
+    streams only here: ``image_size`` is ``(T,)``, ``num_classes`` the
+    vocabulary)."""
 
     name: str
     image_size: Tuple[int, ...]
     num_classes: int
     train_size: int
     test_size: int
-    kind: str = "image"
+    kind: str = "image"  # "image" | "tokens" | "seq2seq"
+    # seq2seq only: length of the source segment within the T-token stream
+    # (positions < src_len are the source; loss is masked there).
+    src_len: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.kind == "seq2seq":
+            if self.src_len is None:
+                raise ValueError("kind='seq2seq' requires src_len")
+            if not 0 < self.src_len < self.image_size[0]:
+                raise ValueError(
+                    f"src_len {self.src_len} must be inside the "
+                    f"{self.image_size[0]}-token stream"
+                )
 
     @property
     def seq_len(self) -> int:
-        assert self.kind == "tokens"
+        assert self.kind in ("tokens", "seq2seq")
         return self.image_size[0]
 
 
@@ -47,6 +60,10 @@ DATASETS: Mapping[str, DatasetSpec] = {
                            kind="tokens"),
     "longctx32k": DatasetSpec("longctx32k", (32_768,), 32_768, 5_000, 500,
                               kind="tokens"),
+    # synthetic translation: the seq2seq workload (the reference's GNMT
+    # analog) as a prefix-LM stream, 128 source + 128 target tokens
+    "synthmt": DatasetSpec("synthmt", (256,), 32_768, 200_000, 20_000,
+                           kind="seq2seq", src_len=128),
 }
 
 # "auto" = the flash kernels for CUDA tensors, the plain einsum for CPU
@@ -55,7 +72,8 @@ ATTENTION_BACKENDS = ("auto", "flash", "xla")
 
 # the reference's per-strategy default batch, token workloads of "single"
 DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
-    "single": {"synthtext": 16, "longctx": 2, "longctx32k": 1},
+    "single": {"synthtext": 16, "longctx": 2, "longctx32k": 1,
+               "synthmt": 64},
 }
 
 
@@ -173,13 +191,11 @@ class RunConfig:
     """One training run = dataset x strategy x model, with the fields the
     port's token-training path reads (the reference's names and defaults).
 
-    Deliberate divergence: ``fused_head_loss`` defaults to False here (True
-    in the reference). The fused LM-head loss runs the Pallas kernels B4-B6
-    (``ops/fused_xent.py``), which are not ported yet; until they are, the
-    port trains through the materialised logits, and ``validate`` refuses
-    True. ``benchmark`` and ``arch`` default to the token path's
-    ``synthtext`` / ``transformer_s`` (the reference's mnist / resnet18 are
-    not ported).
+    ``fused_head_loss`` (the default, as in the reference) trains through
+    the fused projection + cross-entropy head (ops/fused_xent.py), which
+    never materialises the [B*T, V] logits; False takes the full logits.
+    ``benchmark`` and ``arch`` default to the token path's ``synthtext`` /
+    ``transformer_s`` (the reference's mnist / resnet18 are not ported).
     """
 
     benchmark: str = "synthtext"
@@ -199,7 +215,9 @@ class RunConfig:
     label_smoothing: Optional[float] = None
     compute_dtype: str = "bfloat16"
     attention_backend: str = "auto"  # auto | flash | xla
-    fused_head_loss: bool = False  # the reference's default is True
+    # fused projection+loss head (ops/fused_xent.py); applies to models
+    # whose head supports it (the token/seq2seq workloads)
+    fused_head_loss: bool = True
     # torch.utils.checkpoint per layer: the backward recomputes each layer
     remat_layers: bool = False
     seed: int = 1
@@ -264,11 +282,6 @@ class RunConfig:
             raise NotImplementedError(
                 f"MoE arch {self.arch!r} is not ported to the PyTorch "
                 "training path yet")
-        if self.fused_head_loss:
-            raise NotImplementedError(
-                "fused_head_loss=True runs the fused LM-head kernels B4-B6 "
-                "(ops/fused_xent.py), which are not ported yet; train with "
-                "fused_head_loss=False (the materialised logits)")
         if self.attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(
                 f"unknown attention_backend {self.attention_backend!r}")
@@ -282,5 +295,6 @@ class RunConfig:
         if (self.label_smoothing is not None
                 and not 0.0 <= self.label_smoothing < 1.0):
             raise ValueError("label_smoothing must be in [0, 1)")
-        if self.dataset().kind != "tokens":
-            raise ValueError(f"{self.benchmark} is not a token workload")
+        if self.dataset().kind not in ("tokens", "seq2seq"):
+            raise ValueError(f"{self.benchmark} is not a token or seq2seq "
+                             "workload")

@@ -4,13 +4,16 @@
 param list — each layer's dict of arrays, as numpy (``jax.device_get`` of
 ``init_model``'s params) — into the port's ``LayerModel``:
 
-* embed: ``tok``, ``pos``;
+* embed: ``tok``, ``pos`` (and ``seg``, the seq2seq embedding's segment
+  table);
 * block: ``ln1``/``ln2`` ``scale``/``bias``, ``wqkv``, ``wo``, ``w1``,
   ``b1``, ``w2``, ``b2``;
 * head: ``ln_f`` ``scale``/``bias``, ``head``.
 
-Dense weights stay ``[in, out]`` — the port computes ``x @ W`` exactly as
-the JAX code does — so every array is copied as it is, nothing transposed.
+Parameters are matched by name, so a layer is covered whatever its
+family (transformer or seq2seq). Dense weights stay ``[in, out]`` — the
+port computes ``x @ W`` exactly as the JAX code does — so every array is
+copied as it is, nothing transposed.
 
 ``from_jax_opt_state(optimizer, model, opt_np)`` carries the reference's
 optimizer state (``TrainState.opt``: SGD ``{"m"}``, Adam ``{"m", "v",

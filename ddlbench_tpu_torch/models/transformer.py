@@ -36,6 +36,8 @@ from torch import nn
 from ddlbench_tpu_torch.config import ATTENTION_BACKENDS
 from ddlbench_tpu_torch.models.layers import LayerModel, ServeLayer
 from ddlbench_tpu_torch.ops.flash_attention import flash_attention
+from ddlbench_tpu_torch.ops.fused_xent import (fused_linear_xent,
+                                              fused_linear_xent_eval)
 from ddlbench_tpu_torch.ops.paged_decode import (paged_attention,
                                                  paged_chunk_attention,
                                                  paged_table_chunk_write,
@@ -226,7 +228,10 @@ class TransformerBlock(ServeLayer):
 
 class LMHead(nn.Module):
     """Final LayerNorm + untied vocabulary projection (pointwise: the
-    serving engine applies it with ``forward``)."""
+    serving engine applies it with ``forward``). ``fused_loss`` and
+    ``fused_eval`` take the loss without the [B*T, V] logits
+    (ops/fused_xent.py); both run on casts of the head's parameters to x's
+    dtype inside autograd, so gradients land on the float32 masters."""
 
     def __init__(self, d_model: int, vocab: int, gen: torch.Generator):
         super().__init__()
@@ -235,6 +240,21 @@ class LMHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln_f(x) @ self.head.to(x.dtype)
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        return self.ln_f(x).reshape(-1, x.shape[-1])
+
+    def fused_loss(self, x: torch.Tensor, labels: torch.Tensor,
+                   smoothing: float):
+        """(objective_sum, ce_sum, correct) over valid label positions:
+        the projection + CE fused, the kernels B4-B6 on the card."""
+        return fused_linear_xent(self._rows(x), self.head.to(x.dtype),
+                                 labels.reshape(-1), smoothing)
+
+    def fused_eval(self, x: torch.Tensor, labels: torch.Tensor):
+        """(ce_sum, correct, correct5, valid), one logit chunk at a time."""
+        return fused_linear_xent_eval(self._rows(x), self.head.to(x.dtype),
+                                      labels.reshape(-1))
 
 
 def build_transformer(arch: str, in_shape, vocab: int,

@@ -51,6 +51,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # q, k, v, do, lse, delta, dk, dv, then as above
         "ddl_flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     },
+    "fused_xent": {
+        # h, w, labels, lse, gold, zsum, amax, N, D, V, dtype, stream
+        "ddl_fxent_fwd": [_P] * 7 + [_I] * 4 + [_P],
+        # h, w, labels, lse, coef, dh, then as above
+        "ddl_fxent_dh": [_P] * 6 + [_I] * 4 + [_P],
+        # h, w, labels, lse, coef, dw, then as above
+        "ddl_fxent_dw": [_P] * 6 + [_I] * 4 + [_P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

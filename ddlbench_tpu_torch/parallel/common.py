@@ -1,15 +1,17 @@
 """Shared train-step machinery of the port: loss, metrics, optimizers.
 
 The port of the one-apply pieces of ``ddlbench_tpu/parallel/common.py``:
-the cross-entropy loss and the top-1/top-k counts, the dense non-fused
-branch of ``loss_with_moe_aux``, the single-apply ``loss_and_grads``,
-``eval_metrics``' logits branch, and ``make_optimizer`` as
-``torch.optim.SGD`` / ``torch.optim.Adam``, whose update rules the
-reference reimplements (``tests/test_optimizers.py`` pins them equal).
+the cross-entropy loss and the top-1/top-k counts, the dense branches of
+``loss_with_moe_aux`` (the fused LM head and the full logits), the
+single-apply ``loss_and_grads``, ``eval_metrics`` (fused and logits), and
+``make_optimizer`` as ``torch.optim.SGD`` / ``torch.optim.Adam``, whose
+update rules the reference reimplements (``tests/test_optimizers.py`` pins
+them equal).
 
 The model is applied on compute-dtype casts of its float32 parameters
-(models/layers.apply_model); the loss upcasts the logits to float32.
-Metrics stay tensors: nothing here waits for the device.
+(models/layers.apply_slice); the logits loss upcasts the logits to
+float32, the fused head (ops/fused_xent.py) computes in float32 without
+them. Metrics stay tensors: nothing here waits for the device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from ddlbench_tpu_torch.config import RunConfig
-from ddlbench_tpu_torch.models.layers import LayerModel, apply_model
+from ddlbench_tpu_torch.models.layers import (LayerModel, apply_model,
+                                             apply_slice)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -60,14 +63,47 @@ def correct_topk(logits: torch.Tensor, labels: torch.Tensor,
     return ((higher + tie_before < k) & (labels >= 0)).sum()
 
 
+def head_fusable(model: LayerModel) -> bool:
+    """True when the model's last layer offers the fused projection+loss
+    path (ops/fused_xent.py): the LM heads of the token/seq2seq
+    workloads."""
+    return hasattr(model.layers[-1], "fused_loss")
+
+
+def fused_head_loss_sums(model: LayerModel, x: torch.Tensor,
+                         y: torch.Tensor, compute_dtype: torch.dtype,
+                         smoothing: float, remat: bool = False):
+    """Apply layers[:-1] (with remat as configured), then the head's fused
+    projection+CE. Returns (obj_sum, ce_sum, correct, valid): sums over
+    valid label positions; callers normalise."""
+    h = apply_slice(model.layers[:-1], x, compute_dtype, remat)
+    obj_sum, ce_sum, correct = model.layers[-1].fused_loss(h, y, smoothing)
+    return obj_sum, ce_sum, correct, (y >= 0).sum()
+
+
+def fused_head_eval_sums(model: LayerModel, x: torch.Tensor,
+                         y: torch.Tensor, compute_dtype: torch.dtype):
+    """Eval twin of fused_head_loss_sums: (ce_sum, correct, correct5,
+    valid)."""
+    h = apply_slice(model.layers[:-1], x, compute_dtype)
+    return model.layers[-1].fused_eval(h, y)
+
+
 def loss_with_moe_aux(model: LayerModel, x: torch.Tensor, y: torch.Tensor,
                       compute_dtype: torch.dtype, smoothing: float = 0.0,
-                      remat: bool = False):
+                      fused: bool = False, remat: bool = False):
     """Apply the model and return (objective, ce, (correct, valid)): the
-    reference's dense, non-fused branch. The objective is the (optionally
+    reference's dense branches. The objective is the (optionally
     label-smoothed) CE; ``ce`` is the unsmoothed CE, the headline metric.
-    MoE archs (whose router aux losses this would add) and the fused head
-    are refused by RunConfig.validate."""
+    With ``fused`` (and a head that supports it) the projection+loss runs
+    the fused path and the full logits are never materialised. MoE archs
+    (whose router aux losses this would add) are refused by
+    RunConfig.validate."""
+    if fused and head_fusable(model):
+        obj_sum, ce_sum, correct, valid = fused_head_loss_sums(
+            model, x, y, compute_dtype, smoothing, remat)
+        denom = valid.clamp(min=1).float()
+        return obj_sum / denom, ce_sum / denom, (correct, valid)
     logits = apply_model(model, x, compute_dtype, remat)
     ce = cross_entropy_loss(logits, y)
     obj = cross_entropy_loss(logits, y, smoothing) if smoothing else ce
@@ -84,16 +120,24 @@ def loss_and_grads(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
     for p in params:
         p.grad = None
     obj, ce, stats = loss_with_moe_aux(model, x, y, compute_dtype, smoothing,
-                                       cfg.remat_layers)
+                                       cfg.fused_head_loss, cfg.remat_layers)
     obj.backward()
     return ce.detach(), stats, [p.grad for p in params]
 
 
-def eval_metrics(model: LayerModel, x: torch.Tensor, y: torch.Tensor,
+def eval_metrics(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
+                 y: torch.Tensor,
                  compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """The eval step's {loss, correct, correct5, count} through the full
-    logits (the reference's non-fused branch)."""
+    """The eval step's {loss, correct, correct5, count}: through the fused
+    head (no [N, V] logits) when it is enabled and the head supports it,
+    else through the full logits."""
     with torch.no_grad():
+        if cfg.fused_head_loss and head_fusable(model):
+            ce_sum, correct, correct5, count = fused_head_eval_sums(
+                model, x, y, compute_dtype)
+            return {"loss": ce_sum / count.clamp(min=1).float(),
+                    "correct": correct, "correct5": correct5,
+                    "count": count}
         logits = apply_model(model, x, compute_dtype)
         correct, count = correct_and_count(logits, y)
         return {"loss": cross_entropy_loss(logits, y), "correct": correct,

@@ -49,4 +49,4 @@ class SingleStrategy:
 
     def eval_step(self, x: torch.Tensor,
                   y: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return eval_metrics(self.model, x, y, self.compute_dtype)
+        return eval_metrics(self.model, self.cfg, x, y, self.compute_dtype)

@@ -7,12 +7,14 @@ JSON line each:
 
     {"config": "flash+logits", "tokens_per_sec": N, "ms_per_step": N, ...}
 
-Configurations: ``flash+logits`` (the hand-written flash kernels,
-ops/flash_attention.py) and ``xla+logits`` (the plain einsum attention),
-both through the materialised logits; ``auto`` (the kernels on the card,
-the plain path on the CPU) on request. ``flash+fused`` and ``xla+fused``
-need the fused LM-head kernels B4-B6, which are not ported yet, and are
-refused.
+Configurations, attention backend x LM-head loss: ``flash`` (the
+hand-written flash kernels, ops/flash_attention.py) or ``xla`` (the plain
+einsum attention), each with ``fused`` (the fused projection + CE kernels,
+ops/fused_xent.py, no [B*T, V] logits) or ``logits`` (the materialised
+logits). The default sweep is the four forced cells; ``auto`` (the
+dispatch a default run gets: the kernels for CUDA tensors, the plain
+versions for CPU tensors, and the fused head) on request. Token (synthtext,
+longctx, longctx32k) and seq2seq (synthmt) benchmarks.
 
 Same flags and row keys as the reference, except ``--device`` (cuda by
 default; with no card the tool raises unless ``--device cpu`` is given) in
@@ -23,7 +25,7 @@ backend record. A configuration that runs out of device memory prints an
 Usage:
     python -m ddlbench_tpu_torch.tools.lmbench [-m transformer_s]
         [-b synthtext] [--batch-size 16] [--steps 20] [--dtype bfloat16]
-        [--configs flash+logits,xla+logits] [--device cpu]
+        [--configs flash+fused,flash+logits] [--device cpu]
 """
 
 from __future__ import annotations
@@ -47,11 +49,12 @@ CONFIGS = {
     "flash+logits": ("flash", False),
     "xla+fused": ("xla", True),
     "xla+logits": ("xla", False),
-    # the dispatch a default run gets; through the logits, the port's
-    # default until B4-B6 land (the reference's auto cell is fused)
-    "auto": ("auto", False),
+    # the dispatch a default run gets, with the fused head (not in the
+    # default sweep: it duplicates one of the forced cells)
+    "auto": ("auto", True),
 }
-DEFAULT_SWEEP = ("flash+logits", "xla+logits")
+DEFAULT_SWEEP = ("flash+fused", "flash+logits", "xla+fused", "xla+logits")
+STREAM_KINDS = ("tokens", "seq2seq")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,9 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--label-smoothing", type=float, default=None)
     p.add_argument("--configs", default=None,
-                   help="comma list among flash+logits,xla+logits,auto "
-                        "(default: flash+logits,xla+logits; the fused "
-                        "configs need kernels B4-B6, not ported yet)")
+                   help="comma list among flash+fused,flash+logits,"
+                        "xla+fused,xla+logits,auto (default: the four "
+                        "forced cells)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; without a card the tool "
                         "raises unless cpu is asked for")
@@ -115,9 +118,9 @@ def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     token_benchmarks = sorted(n for n, s in DATASETS.items()
-                              if s.kind == "tokens")
+                              if s.kind in STREAM_KINDS)
     if (args.benchmark not in DATASETS
-            or DATASETS[args.benchmark].kind != "tokens"):
+            or DATASETS[args.benchmark].kind not in STREAM_KINDS):
         p.error(f"-b {args.benchmark!r} is not a token workload; lmbench "
                 f"sweeps token workloads (pick one of {token_benchmarks})")
     if args.configs:
@@ -126,11 +129,6 @@ def main(argv=None) -> int:
         if unknown:
             p.error(f"unknown --configs {unknown}; choose from "
                     f"{sorted(CONFIGS)}")
-        fused = [c for c in names if CONFIGS[c][1]]
-        if fused:
-            p.error(f"--configs {fused}: the fused LM-head loss runs kernels "
-                    "B4-B6 (ops/fused_xent.py), which are not ported to "
-                    "the PyTorch path yet; use flash+logits or xla+logits")
     else:
         names = list(DEFAULT_SWEEP)
     device = resolve_device(args.device)

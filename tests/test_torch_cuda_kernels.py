@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels (ops/csrc/paged_attention.cu,
-ops/csrc/flash_attention.cu) held against their plain PyTorch versions on
-an NVIDIA GPU.
+ops/csrc/flash_attention.cu, ops/csrc/fused_xent.cu) held against their
+plain PyTorch versions on an NVIDIA GPU.
 
 Every test here needs the card and skips without one. This file imports
 neither jax nor the JAX package, so it also runs where JAX is not
@@ -20,12 +20,20 @@ in float32). A per-row bound, unlike one scaled by the tensor's largest
 value, also catches a fault confined to a few rows, such as a dropped tail
 key tile. A row under 1e-3 of the mean row norm (a fully masked query, a
 key no query sees: 0 in both) is measured against that floor.
+
+The fused LM-head kernels: in float32 the row statistics within 1e-5
+relative of their scale (lse, gold; zsum within 1e-5 of the row's sum of
+|z|), the argmax exact, dh and dW within 1e-4 max abs; in bfloat16 the lse
+within 1e-4, each dh row and each dW column within 2^-6 relative L2 (dz and
+the outputs rounded to bfloat16, as above), and an argmax mismatch only at
+a near-tie (the two top logits within 1e-3).
 """
 
 import pytest
 import torch
 
 import ddlbench_tpu_torch.ops.flash_attention as fa
+import ddlbench_tpu_torch.ops.fused_xent as fx
 import ddlbench_tpu_torch.ops.paged_decode as port
 
 pytestmark = [pytest.mark.torchport, pytest.mark.cuda]
@@ -196,3 +204,138 @@ def test_flash_wrapper_refuses_what_the_kernels_do_not_take(dev):
         fa.flash_fwd(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="mixed dtypes"):
         fa.flash_fwd(q, k.bfloat16(), v.bfloat16())
+
+
+# (N, D, V, smoothing, masking): masking "every5" masks rows 0, 5, 10, ...;
+# "synthmt" the positions < 127 of each 256-row segment; "all" every row
+FX_CASES = [
+    (1000, 64, 1000, 0.0, "every5"),    # tail rows and a tail vocab tile
+    (1000, 64, 1000, 0.1, "every5"),
+    (512, 768, 504, 0.1, "every5"),     # the widest head the kernels take
+    (70, 16, 40, 0.1, "every5"),        # less than one tile each way
+    (2048, 512, 4096, 0.1, "synthmt"),
+    (300, 64, 200, 0.1, "all"),
+]
+
+
+def _fx_case(dev, dtype, N, D, V, masking, seed, zero_head=False):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(N, D, generator=g).to(dev, dtype)
+    w = (torch.randn(D, V, generator=g) * 0.05).to(dev, dtype)
+    if zero_head:
+        w.zero_()
+    labels = torch.randint(0, V, (N,), generator=g)
+    pos = torch.arange(N)
+    if masking == "every5":
+        labels[::5] = -1
+    elif masking == "synthmt":
+        labels[pos % 256 < 127] = -1
+    elif masking == "all":
+        labels[:] = -1
+    return h, w, labels.to(dev)
+
+
+def _col_rel_err(got, want):
+    return _row_rel_err(got.T, want.T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FX_CASES)
+def test_fused_xent_kernels_match_plain_versions(dev, dtype, case):
+    N, D, V, s, masking = case
+    h, w, labels = _fx_case(dev, dtype, N, D, V, masking, seed=N + D + V)
+    coef = torch.tensor([0.7 + 0.3, 0.7 * (1 - s) + 0.3, 0.7 * s / V],
+                        device=dev)
+    got = fx.fxent_fwd(h, w, labels)
+    want = fx._fxent_fwd_ref(h, w, labels)
+    lse = want[0]
+    dh = fx.fxent_dh(h, w, labels, lse, coef)
+    dw = fx.fxent_dw(h, w, labels, lse, coef)
+    dh_ref = fx._fxent_dh_ref(h, w, labels, lse, coef)
+    dw_ref = fx._fxent_dw_ref(h, w, labels, lse, coef)
+    torch.cuda.synchronize()
+    assert dh.dtype == dw.dtype == dtype
+    assert dh.shape == h.shape and dw.shape == w.shape
+    for t in (*got[:3], dh, dw):
+        assert torch.isfinite(t.float()).all()
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    if masking == "all":
+        assert torch.count_nonzero(dh) == 0 and torch.count_nonzero(dw) == 0
+        return
+    if dtype == torch.float32:
+        scale = (h.float() @ w.float()).abs().sum(-1)
+        assert ((got[2] - want[2]).abs() <= 1e-5 * scale + 1e-5).all()
+        assert (got[1] - want[1]).abs().max().item() <= 1e-4
+        assert torch.equal(got[3], want[3])
+        assert (dh - dh_ref).abs().max().item() <= 1e-4
+        assert (dw - dw_ref).abs().max().item() <= 1e-4
+    else:
+        z = h.float() @ w.float()
+        top2 = z.topk(2, -1).values
+        near_tie = (top2[:, 0] - top2[:, 1]) <= 1e-3
+        assert not ((got[3] != want[3]) & ~near_tie).any()
+        assert _row_rel_err(dh, dh_ref) <= 2.0 ** -6
+        assert _col_rel_err(dw, dw_ref) <= 2.0 ** -6
+
+
+def test_fused_xent_float32_takes_any_vocabulary(dev):
+    """The float32 kernels take a vocabulary that is no multiple of 8 (the
+    bfloat16 ones refuse it: test below)."""
+    h, w, labels = _fx_case(dev, torch.float32, 300, 64, 1003, "every5", 8)
+    coef = torch.tensor([1.0, 0.9, 0.1 / 1003], device=dev)
+    got = fx.fxent_fwd(h, w, labels)
+    want = fx._fxent_fwd_ref(h, w, labels)
+    lse = want[0]
+    dh = fx.fxent_dh(h, w, labels, lse, coef)
+    dw = fx.fxent_dw(h, w, labels, lse, coef)
+    torch.cuda.synchronize()
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    assert torch.equal(got[3], want[3])
+    dh_ref = fx._fxent_dh_ref(h, w, labels, lse, coef)
+    dw_ref = fx._fxent_dw_ref(h, w, labels, lse, coef)
+    assert (dh - dh_ref).abs().max().item() <= 1e-4
+    assert (dw - dw_ref).abs().max().item() <= 1e-4
+
+
+def test_fused_xent_zero_head_counts_label_zero_rows(dev):
+    """W = 0: all logits tie, the argmax is class 0 in every row."""
+    h, w, labels = _fx_case(dev, torch.bfloat16, 1000, 64, 1000, "every5",
+                            seed=5, zero_head=True)
+    labels[1::7] = 0
+    lse, gold, zsum, amax = fx.fxent_fwd(h, w, labels)
+    assert (amax == 0).all() and (gold == 0).all() and (zsum == 0).all()
+    _, _, correct = fx.loss_sums(lse, gold, zsum, amax, labels, 0.0, 1000)
+    assert int(correct) == int(((labels == 0)).sum())
+
+
+def test_fused_xent_launch_counters_count_kernel_launches_only(dev):
+    h, w, labels = _fx_case(dev, torch.bfloat16, 256, 64, 512, "every5", 6)
+    counters = (fx.fxent_fwd, fx.fxent_dh, fx.fxent_dw)
+    before = [f.launches for f in counters]
+    ht, wt = h.clone().requires_grad_(), w.clone().requires_grad_()
+    obj, ce, _ = fx.fused_linear_xent(ht, wt, labels, 0.1)
+    (obj + ce).backward()
+    lse = fx._fxent_fwd_ref(h, w, labels)[0]
+    fx._fxent_dh_ref(h, w, labels, lse, torch.ones(3, device=dev))
+    fx.fused_linear_xent_eval(h, w, labels)
+    fx.fused_linear_xent(h.cpu(), w.cpu(), labels.cpu())
+    assert [f.launches for f in counters] == [n + 1 for n in before]
+
+
+def test_fused_xent_wrapper_refuses_what_the_kernels_do_not_take(dev):
+    h, w, labels = _fx_case(dev, torch.float32, 64, 32, 100, "every5", 7)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fx.fxent_fwd(h[:, :24].contiguous(), w[:24], labels)
+    with pytest.raises(ValueError, match="KERNEL_MAX_D"):
+        big = torch.zeros(64, 784, device=dev)
+        fx.fxent_fwd(big, torch.zeros(784, 100, device=dev), labels)
+    with pytest.raises(ValueError, match="mixed devices"):
+        fx.fxent_fwd(h, w, labels.cpu())
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        fx.fxent_fwd(h, w.bfloat16(), labels)
+    with pytest.raises(ValueError, match="integer"):
+        fx.fxent_fwd(h, w, labels.float())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fx.fxent_fwd(h.half(), w.half(), labels)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fx.fxent_fwd(h.bfloat16(), w[:, :99].bfloat16(), labels)

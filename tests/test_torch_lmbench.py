@@ -1,6 +1,7 @@
 """The port's lmbench (ddlbench_tpu_torch/tools/lmbench.py) end to end on
 the CPU, following tests/test_lmbench.py: one row per configuration with
-the reference row's keys, and the fused configurations refused by name."""
+the reference row's keys, for the four forced cells (flash/xla attention x
+fused head/logits), ``auto``, and a seq2seq (prefix-LM) benchmark."""
 
 import json
 
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 import ddlbench_tpu_torch.config as config
+import ddlbench_tpu_torch.models.seq2seq as s2s
 from ddlbench_tpu_torch.tools import lmbench
 from tiny_models import TINY_LM
 
@@ -31,28 +33,51 @@ def tinylm():
     del config.DEFAULT_BATCH["single"]["tinylm"]
 
 
-@pytest.mark.parametrize("extra,configs", [
-    (["--dtype", "float32"], {"flash+logits", "xla+logits"}),
-    (["--configs", "auto"], {"auto"}),
-])
-def test_lmbench_rows(capsys, tinylm, extra, configs):
-    assert lmbench.main(tinylm + extra) == 0
+def _rows(capsys, argv, configs, seq_len):
+    assert lmbench.main(argv) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()
             if line.startswith("{")]
-    assert {r["config"] for r in rows} == configs and len(rows) == len(configs)
+    assert [r["config"] for r in rows] == list(configs)
     for r in rows:
         assert ROW_KEYS <= set(r)
         assert r["tokens_per_sec"] > 0 and r["ms_per_step"] > 0
-        assert r["seq_len"] == TINY_LM.seq_len and r["batch"] == 2
+        assert r["seq_len"] == seq_len and r["batch"] == 2
         assert r["platform"] == "cpu" and r["remat"] is False
+    return rows
+
+
+@pytest.mark.parametrize("extra,configs", [
+    (["--dtype", "float32"], lmbench.DEFAULT_SWEEP),
+    (["--configs", "auto"], ("auto",)),
+])
+def test_lmbench_rows(capsys, tinylm, extra, configs):
+    _rows(capsys, tinylm + extra, configs, TINY_LM.seq_len)
 
 
 @pytest.mark.parametrize("configs", ["flash+fused", "xla+logits,xla+fused"])
-def test_lmbench_refuses_fused_configs(capsys, tinylm, configs):
-    with pytest.raises(SystemExit) as e:
-        lmbench.main(tinylm + ["--configs", configs])
-    assert e.value.code != 0
-    assert "B4-B6" in capsys.readouterr().err
+def test_lmbench_fused_config_rows(capsys, tinylm, configs):
+    _rows(capsys, tinylm + ["--dtype", "float32", "--configs", configs],
+          configs.split(","), TINY_LM.seq_len)
+
+
+@pytest.fixture
+def tinymt(monkeypatch):
+    """A tiny synthmt: T 16 with an 8-token source, vocab 64, and the
+    seq2seq_t model (tests/test_seq2seq.py's sizes)."""
+    monkeypatch.setitem(config.DATASETS, "tinymt", config.DatasetSpec(
+        "tinymt", (16,), 64, 1000, 100, kind="seq2seq", src_len=8))
+    monkeypatch.setitem(config.DEFAULT_BATCH["single"], "tinymt", 2)
+    monkeypatch.setitem(s2s._VARIANTS, "seq2seq_t",
+                        dict(d_model=32, n_layers=2, n_heads=4))
+    return ["-m", "seq2seq_t", "-b", "tinymt", "--steps", "2", "--warmup",
+            "1", "--device", "cpu", "--dtype", "float32"]
+
+
+def test_lmbench_seq2seq_rows(capsys, tinymt):
+    """A seq2seq benchmark trains through the prefix path and the fused
+    head (label smoothing 0.1 and Adam by default)."""
+    _rows(capsys, tinymt + ["--configs", "flash+fused,flash+logits"],
+          ["flash+fused", "flash+logits"], 16)
 
 
 def test_lmbench_without_gpu_or_cpu_flag_raises(monkeypatch, tinylm):

@@ -4,11 +4,13 @@
 params, parallel/common.py's loss and torch.optim) against
 ``ddlbench_tpu.parallel.single.SingleStrategy`` on the tiny LM of
 tests/tiny_models.py (transformer_t, T 32, vocab 64), from the same weights
-(convert.from_jax_params) and the same numpy batches, with
-``fused_head_loss=False``: the loss, the accuracy, every gradient leaf and
-every parameter after each update, for two SGD and two Adam steps, under
-the flash backend (the reference's Pallas kernels in interpret mode, the
-port's plain versions) and the xla backend.
+(convert.from_jax_params) and the same numpy batches, through the
+materialised logits (``fused_head_loss=False``) and the fused LM head
+(``True``, the default; the reference's chunked fused path on the CPU, the
+port's plain versions of kernels B4-B6): the loss, the accuracy, every
+gradient leaf and every parameter after each update, for two SGD and two
+Adam steps, under the flash backend (the reference's Pallas kernels in
+interpret mode, the port's plain versions) and the xla backend.
 
 Tolerance in float32: rtol 1e-4, atol 1e-6 — the two sides run the same
 math in different summation orders. The bfloat16 case has its own stated
@@ -78,11 +80,12 @@ def jax_model():
     return jm, params, states
 
 
-def _pair(jax_model, backend, optimizer, dtype="float32", remat=False):
+def _pair(jax_model, backend, optimizer, dtype="float32", remat=False,
+          fused=False):
     jm, params, _ = jax_model
     jcfg = JaxRunConfig(benchmark="synthtext", arch="transformer_t",
                         compute_dtype=dtype, attention_backend=backend,
-                        fused_head_loss=False, optimizer=optimizer,
+                        fused_head_loss=fused, optimizer=optimizer,
                         label_smoothing=0.0)
     js = JaxSingle(jm, jcfg)
     ts = js.init(jax.random.key(0))
@@ -92,7 +95,7 @@ def _pair(jax_model, backend, optimizer, dtype="float32", remat=False):
     from_jax_params(model, jax.device_get(params))
     cfg = RunConfig(arch="transformer_t", compute_dtype=dtype,
                     attention_backend=backend, optimizer=optimizer,
-                    remat_layers=remat)
+                    remat_layers=remat, fused_head_loss=fused)
     cfg.validate()
     ps = SingleStrategy(model, cfg)
     ps.init()
@@ -101,18 +104,23 @@ def _pair(jax_model, backend, optimizer, dtype="float32", remat=False):
 
 @pytest.fixture
 def backend(request):
-    jtr.set_attention_backend(request.param)
-    ttr.set_attention_backend(request.param)
-    yield request.param
+    """The attention backend of both packages; a "+fused" suffix also
+    trains through the fused LM head (fused_head_loss=True)."""
+    name, _, fused = request.param.partition("+")
+    jtr.set_attention_backend(name)
+    ttr.set_attention_backend(name)
+    yield name, fused == "fused"
     jtr.set_attention_backend("auto")
     ttr.set_attention_backend("auto")
 
 
-@pytest.mark.parametrize("backend", ["flash", "xla"], indirect=True)
+@pytest.mark.parametrize("backend", ["flash", "xla", "flash+fused",
+                                     "xla+fused"], indirect=True)
 @pytest.mark.parametrize("optimizer", ["sgd", "adam"])
 def test_two_steps_match_jax(jax_model, backend, optimizer):
     jm, _, states = jax_model
-    js, jcfg, ts, ps = _pair(jax_model, backend, optimizer)
+    backend, fused = backend
+    js, jcfg, ts, ps = _pair(jax_model, backend, optimizer, fused=fused)
     jgrads = jax.jit(lambda p, x, y: jax_loss_and_grads(
         jm, jcfg, p, states, x, y, jnp.float32, 0.0)[3])
     for step in range(2):
@@ -136,7 +144,17 @@ def test_two_steps_match_jax(jax_model, backend, optimizer):
 
 def test_eval_step_matches_jax(jax_model):
     """eval_step's logits branch: loss, top-1 and top-5 counts, count."""
-    js, _, ts, ps = _pair(jax_model, "xla", "sgd")
+    _check_eval_step(jax_model, fused=False)
+
+
+def test_fused_eval_step_matches_jax(jax_model):
+    """eval_step's fused branch (fused_linear_xent_eval, no [N, V]
+    logits): the same metrics as the reference's fused eval."""
+    _check_eval_step(jax_model, fused=True)
+
+
+def _check_eval_step(jax_model, fused):
+    js, _, ts, ps = _pair(jax_model, "xla", "sgd", fused=fused)
     x, y = _batch(50)
     y[0, :5] = -1  # masked label positions count nowhere
     want = js.eval_step(ts, jnp.asarray(x), jnp.asarray(y))
@@ -169,7 +187,7 @@ def test_resume_from_jax_opt_state(jax_model, optimizer):
         np.testing.assert_allclose(p.detach().numpy(), w, **TOL)
 
 
-def test_bf16_step_matches_jax(jax_model):
+def test_bf16_step_matches_jax(jax_model, fused=False):
     """One bfloat16 SGD step (flash backend), float32 master weights.
 
     Tolerances: the loss within rtol 1e-3 — bfloat16 keeps 8 significant
@@ -184,7 +202,8 @@ def test_bf16_step_matches_jax(jax_model):
     jtr.set_attention_backend("flash")
     ttr.set_attention_backend("flash")
     try:
-        js, _, ts, ps = _pair(jax_model, "flash", "sgd", dtype="bfloat16")
+        js, _, ts, ps = _pair(jax_model, "flash", "sgd", dtype="bfloat16",
+                                 fused=fused)
         x, y = _batch(20)
         ts, jm_metrics = js.train_step(ts, jnp.asarray(x), jnp.asarray(y),
                                        jnp.float32(0.01))
@@ -198,6 +217,14 @@ def test_bf16_step_matches_jax(jax_model):
     for p, w in _leaves(ps.model, ts.params):
         assert p.dtype == torch.float32  # the master copy stays float32
         np.testing.assert_allclose(p.detach().numpy(), w, rtol=0, atol=1e-4)
+
+
+def test_bf16_fused_step_matches_jax(jax_model):
+    """The same bfloat16 SGD step through the fused LM head (the
+    reference's chunked fused path, the port's plain versions of B4-B6),
+    at the same stated tolerances: both round dz to bfloat16 before the
+    head's products, as the logits path rounds its logits."""
+    test_bf16_step_matches_jax(jax_model, fused=True)
 
 
 def test_embed_returns_compute_dtype_under_bf16_apply(jax_model):
@@ -251,13 +278,18 @@ def test_synthetic_tokens():
 @pytest.mark.parametrize("knob", [
     dict(strategy="dp"), dict(grad_accum_steps=2),
     dict(anomaly_policy="skip"), dict(loss_scale="dynamic"),
-    dict(arch="transformer_moe_t"), dict(fused_head_loss=True),
+    dict(arch="transformer_moe_t"),
 ])
 def test_unported_train_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
         RunConfig(**knob).validate()
 
 
-def test_fused_head_refusal_names_the_kernels():
-    with pytest.raises(NotImplementedError, match="B4-B6"):
-        RunConfig(fused_head_loss=True).validate()
+def test_run_config_defaults_to_the_fused_head():
+    """As in the reference, training takes the fused LM-head loss by
+    default, and the default config validates."""
+    cfg = RunConfig()
+    assert cfg.fused_head_loss is True
+    assert JaxRunConfig().fused_head_loss is True
+    cfg.validate()
+    RunConfig(benchmark="synthmt", arch="seq2seq_s").validate()
