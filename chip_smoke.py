@@ -181,7 +181,9 @@ FX_KERNELS = {
 FX_FLOPS_PER_NDV = {"fxent_fwd": 2, "fxent_dh": 4, "fxent_dw": 4}
 FX_HEAD = (16_384, 512, 32_768)  # lmbench's head: N = B 16 x T 1024, D, V
 FX_SUM_RTOL = 1e-5  # float32 objective and CE sums
-FX_TOL = 1e-4  # float32 dh/dW max abs; the lse in both types
+FX_TOL = 1e-4  # float32 dh/dW max abs; each row's lse and gold in both types
+FX_ZSUM_RTOL = 1e-5  # each row's zsum within this of the row's sum of |z|
+# (and as much absolute), in both types
 FX_TIE = 1e-3  # bfloat16: an argmax may differ where two logits are this close
 FX_COT = (0.7, 0.3)  # the cotangents of the objective and the CE sums
 # (name, N, D, V, smoothing, masking) of the fused-head checks
@@ -732,10 +734,20 @@ def argmax_near_ties(torch, h, w, got, want):
     return rows.numel(), int((gap > FX_TIE).sum())
 
 
+def zsum_over_tol(torch, fx, h, w, zsum, zsum_ref) -> float:
+    """The worst row's zsum error over its tolerance, FX_ZSUM_RTOL times
+    (1 + the row's sum of |z|, float32 plain): above 1 fails."""
+    scale = torch.cat([fx._logits(h[i:i + fx.ROW_CHUNK], w).abs().sum(-1)
+                       for i in range(0, h.shape[0], fx.ROW_CHUNK)])
+    return ((zsum - zsum_ref).abs() / (FX_ZSUM_RTOL * (scale + 1))
+            ).max().item()
+
+
 def fx_compare(torch, fx, h, w, labels, smoothing, coef):
     """{kernel: {max_abs_err, ..., ok}} of the three fused-head kernels
     against their plain versions (the backward pair on the plain lse), and
-    the kernels' and plain outputs."""
+    the kernels' and plain outputs. The forward is held row by row on lse,
+    gold and zsum in both types."""
     V = w.shape[1]
     got = fx.fxent_fwd(h, w, labels)
     want = fx._fxent_fwd_ref(h, w, labels)
@@ -751,16 +763,20 @@ def fx_compare(torch, fx, h, w, labels, smoothing, coef):
     sum_err = max(abs(a.item() - b.item()) / max(abs(b.item()), 1e-30)
                   for a, b in zip(sums[:2], sums_ref[:2]))
     lse_err = (got[0] - want[0]).abs().max().item()
+    gold_err = (got[1] - want[1]).abs().max().item()
+    zsum_err = (got[2] - want[2]).abs().max().item()
+    zsum_ratio = zsum_over_tol(torch, fx, h, w, got[2], want[2])
     n_mis, n_far = argmax_near_ties(torch, h, w, got[3], want[3])
-    fwd = {"max_abs_err": lse_err, "sum_rel_err": sum_err,
+    fwd = {"max_abs_err": lse_err, "gold_max_abs_err": gold_err,
+           "zsum_max_abs_err": zsum_err, "zsum_err_over_tol": zsum_ratio,
+           "sum_rel_err": sum_err,
            "correct": int(sums[2]), "correct_plain": int(sums_ref[2]),
            "argmax_mismatches": n_mis, "argmax_mismatches_not_near_tie":
            n_far}
-    if f32:
-        fwd["ok"] = (lse_err <= FX_TOL and sum_err <= FX_SUM_RTOL
-                     and n_mis == 0)
-    else:
-        fwd["ok"] = lse_err <= FX_TOL and n_far == 0
+    fwd["ok"] = (lse_err <= FX_TOL and gold_err <= FX_TOL
+                 and zsum_ratio <= 1.0
+                 and (sum_err <= FX_SUM_RTOL and n_mis == 0 if f32
+                      else n_far == 0))
     out = {"fxent_fwd": fwd}
     for name, a, b, rel in (("fxent_dh", dh, dh_ref, row_rel_err),
                             ("fxent_dw", dw, dw_ref, col_rel_err)):
@@ -777,41 +793,49 @@ def fx_compare(torch, fx, h, w, labels, smoothing, coef):
     return out, (got, dh, dw), (want, dh_ref, dw_ref)
 
 
-def fx_unmasked_plain(torch, fx, h, w, labels, lse, coef):
+def fx_unmasked_plain(torch, fx, h, w, labels, lse, coef, dh_ref, dw_ref):
     """The plain dh and dW with the label mask dropped: masked rows take
-    dz = c_p p - c_sm (no label matches) instead of 0."""
-    dh, dw = [], torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-    for i in range(0, h.shape[0], fx.ROW_CHUNK):
-        h_c, lab = h[i:i + fx.ROW_CHUNK], labels[i:i + fx.ROW_CHUNK].long()
-        z = h_c.float() @ w.float()
-        onehot = torch.zeros_like(z).scatter_(1, lab.clamp(min=0)[:, None],
-                                              1.0) * (lab >= 0)[:, None]
-        dz = (coef[0] * torch.exp(z - lse[i:i + fx.ROW_CHUNK, None])
-              - coef[1] * onehot - coef[2]).to(h.dtype).float()
-        dh.append((dz @ w.float().T).to(h.dtype))
-        dw += h_c.float().T @ dz
-    return torch.cat(dh), dw.to(w.dtype)
+    dz = c_p p - c_sm (no label matches) instead of 0. Their part is the
+    plain versions' on those rows with label 0 and no one-hot term, put in
+    dh's rows and added to dW."""
+    rows = labels < 0
+    part = (h[rows], w, torch.zeros_like(labels[rows]), lse[rows],
+            coef * torch.tensor([1.0, 0.0, 1.0], device=coef.device))
+    dh = dh_ref.clone()
+    dh[rows] = fx._fxent_dh_ref(*part)
+    dw = (dw_ref.float() + fx._fxent_dw_ref(*part).float()).to(w.dtype)
+    return dh, dw
 
 
-def fx_planted_faults(torch, fx, h, w, labels, coef, outs):
+def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
     """The bfloat16 check must reject the kernels' outputs held against
     plain versions with planted faults: the last vocab tile (64 columns)
-    skipped (forward: its lse; dh) and the label mask dropped (dh, dW).
-    Returns what the check says of each."""
+    skipped (forward: its lse and zsum; dh), gold read from the next
+    column, and the label mask dropped (dh, dW). Returns what the check
+    says of each."""
     got, dh, dw = outs
+    want, dh_ref, dw_ref = refs
     V = w.shape[1]
-    lse = fx._fxent_fwd_ref(h, w, labels)[0]
-    lse_cut = fx._fxent_fwd_ref(h, w[:, :V - 64].contiguous(),
-                                torch.full_like(labels, -1))[0]
+    lse = want[0]
+    lse_cut, _, zsum_cut, _ = fx._fxent_fwd_ref(
+        h, w[:, :V - 64].contiguous(), torch.full_like(labels, -1))
+    gold_next = fx._fxent_fwd_ref(
+        h, w, torch.where(labels >= 0, (labels + 1) % V, labels))[1]
     w_tail0 = w.clone()
     w_tail0[:, V - 64:] = 0  # z of the last tile contributes nothing to dh
     dh_cut = fx._fxent_dh_ref(h, w_tail0, labels, lse, coef)
     dh_nomask, dw_nomask = fx_unmasked_plain(torch, fx, h, w, labels, lse,
-                                             coef)
+                                             coef, dh_ref, dw_ref)
     torch.cuda.synchronize()
     checks = {
         "fxent_fwd_last_tile_skipped":
             ("lse_abs_err", (got[0] - lse_cut).abs().max().item(), FX_TOL),
+        "fxent_fwd_zsum_last_tile_skipped":
+            ("zsum_err_over_tol",
+             zsum_over_tol(torch, fx, h, w, got[2], zsum_cut), 1.0),
+        "fxent_fwd_gold_next_column":
+            ("gold_abs_err", (got[1] - gold_next).abs().max().item(),
+             FX_TOL),
         "fxent_dh_last_tile_skipped":
             ("row_rel_err", row_rel_err(dh, dh_cut), BF16_ROW_RTOL),
         "fxent_dh_mask_dropped":
@@ -838,7 +862,7 @@ def phase_fxent_kernels(torch, fx, dev):
             h, w, labels = fx_inputs(torch, gen, dev, dtype, N, D, V, masking,
                                      zero_head=case == "zero_head")
             coef = fx_coef(torch, s, V, dev)
-            errs, outs, _ = fx_compare(torch, fx, h, w, labels, s, coef)
+            errs, outs, refs = fx_compare(torch, fx, h, w, labels, s, coef)
             valid = int((labels >= 0).sum())
             if case == "all_masked":
                 zeros = (int(torch.count_nonzero(outs[1])) == 0
@@ -858,18 +882,20 @@ def phase_fxent_kernels(torch, fx, dev):
                                "dtype": dname, **e})
                 if not e["ok"]:
                     raise AssertionError(
-                        f"{name} {case} {dname}: {e} (float32 sums rtol "
-                        f"{FX_SUM_RTOL}, lse and dh/dW {FX_TOL}; bfloat16 "
-                        f"lse {FX_TOL}, rows/columns {BF16_ROW_RTOL})")
+                        f"{name} {case} {dname}: {e} (lse and gold "
+                        f"{FX_TOL}, zsum {FX_ZSUM_RTOL} of 1 + sum |z|; "
+                        f"float32 sums rtol {FX_SUM_RTOL}, dh/dW {FX_TOL}; "
+                        f"bfloat16 rows/columns {BF16_ROW_RTOL})")
                 if dtype == torch.bfloat16:
                     worst[name] = max(worst[name], e["max_abs_err"])
             if dtype == torch.bfloat16 and case == "synthmt":
                 faults = fx_planted_faults(torch, fx, h, w, labels, coef,
-                                           outs)
-            del h, w, labels, outs
+                                           outs, refs)
+            del h, w, labels, outs, refs
     torch.cuda.empty_cache()
     emit({"phase": "fxent_kernels", "float32_sum_rtol": FX_SUM_RTOL,
           "float32_max_abs_tol": FX_TOL, "lse_tol": FX_TOL,
+          "gold_tol": FX_TOL, "zsum_rtol_of_abs_sum": FX_ZSUM_RTOL,
           "bfloat16_rel_tol": BF16_ROW_RTOL, "near_tie": FX_TIE,
           "cotangents": FX_COT, "checks": checks, "planted_faults": faults})
     return worst
@@ -1005,12 +1031,11 @@ def train_cell(torch, fa, fx, dev, argv, phase):
                        else B * T)
     data = make_synthetic(cfg.dataset(), B, dev, seed=0,
                           steps_per_epoch=args.steps)
-    lr, losses, valid = cfg.resolved_lr(), [], []
+    lr, losses = cfg.resolved_lr(), []
 
     def run_step(x, y):
         m = strategy.train_step(x, y, lr)
         losses.append(m["loss"])
-        valid.append((y >= 0).sum())
         return m
 
     counters = {**{name: getattr(fa, name) for name in FLASH_KERNELS},
@@ -1028,7 +1053,9 @@ def train_cell(torch, fa, fx, dev, argv, phase):
         if n != per_step * steps_run:
             raise AssertionError(f"{name} launched {n} times in {steps_run} "
                                  f"steps, not {per_step} a step")
-    valid_vals = torch.stack(valid).tolist()
+    # the batches the run took (timed_steps: epoch 0 step 0 warms up)
+    valid_vals = [int((data.batch(*key)[1] >= 0).sum()) for key in
+                  [(0, 0)] + [(1, step) for step in range(args.steps)]]
     if set(valid_vals) != {valid_per_batch}:
         raise AssertionError(f"valid labels per batch {valid_vals}, not "
                              f"{valid_per_batch}")

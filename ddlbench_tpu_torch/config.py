@@ -18,6 +18,11 @@ import dataclasses
 from typing import Any, Mapping, Optional, Tuple
 
 
+# the dataset kinds the port trains: token streams (next-token LM) and
+# seq2seq streams (prefix-LM with masked source labels)
+STREAM_KINDS = ("tokens", "seq2seq")
+
+
 @dataclasses.dataclass(frozen=True)
 class DatasetSpec:
     """Shape/size blueprint of one benchmark dataset (token and seq2seq
@@ -46,7 +51,7 @@ class DatasetSpec:
 
     @property
     def seq_len(self) -> int:
-        assert self.kind in ("tokens", "seq2seq")
+        assert self.kind in STREAM_KINDS
         return self.image_size[0]
 
 
@@ -295,6 +300,6 @@ class RunConfig:
         if (self.label_smoothing is not None
                 and not 0.0 <= self.label_smoothing < 1.0):
             raise ValueError("label_smoothing must be in [0, 1)")
-        if self.dataset().kind not in ("tokens", "seq2seq"):
+        if self.dataset().kind not in STREAM_KINDS:
             raise ValueError(f"{self.benchmark} is not a token or seq2seq "
                              "workload")

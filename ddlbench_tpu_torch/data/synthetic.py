@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ddlbench_tpu_torch.config import DatasetSpec
+from ddlbench_tpu_torch.config import STREAM_KINDS, DatasetSpec
 
 # odd multiplier that folds (seed, epoch, step) into one generator seed
 _FOLD = 1_000_003
@@ -76,7 +76,7 @@ def make_synthetic(spec: DatasetSpec, batch_size: int, device: torch.device,
                    steps_per_epoch: Optional[int] = None) -> SyntheticData:
     """Build a SyntheticData; ``steps_per_epoch`` overrides the dataset-size
     step counts, as in the reference."""
-    if spec.kind not in ("tokens", "seq2seq"):
+    if spec.kind not in STREAM_KINDS:
         raise ValueError(f"{spec.name}: the port makes token and seq2seq "
                          "batches only")
     train = steps_per_epoch * batch_size if steps_per_epoch else None

@@ -36,7 +36,7 @@ import sys
 
 import torch
 
-from ddlbench_tpu_torch.config import DATASETS, RunConfig
+from ddlbench_tpu_torch.config import DATASETS, STREAM_KINDS, RunConfig
 from ddlbench_tpu_torch.data.synthetic import make_synthetic
 from ddlbench_tpu_torch.device import provenance, resolve_device
 from ddlbench_tpu_torch.models.transformer import set_attention_backend
@@ -54,7 +54,6 @@ CONFIGS = {
     "auto": ("auto", True),
 }
 DEFAULT_SWEEP = ("flash+fused", "flash+logits", "xla+fused", "xla+logits")
-STREAM_KINDS = ("tokens", "seq2seq")
 
 
 def build_parser() -> argparse.ArgumentParser:
