@@ -10,21 +10,29 @@ one JSON line; any failure raises and exits non-zero:
              checkout (ops/csrc/*.cu: paged_attention and flash_attention,
              one nvcc each, started together, for sm_90a) and reports the
              time.
-2. kernels — holds each kernel against its plain PyTorch version at the
-             serving slice's shapes (rows 8, H 8, dh 64, page 16, a 64-page
-             pool, scattered random tables, per-row positions with partial
-             pages, npl 1/3/16; the chunk kernel at C 16 and 256; float32
-             queries over float32 and bfloat16 pools) within 1e-4 max abs
-             error. Then times the kernel, its plain version and one
+2. kernels — holds each paged kernel against its plain PyTorch version at
+             the serving slice's shapes (rows 8, H 8, dh 64, page 16, a
+             64-page pool, scattered random tables, per-row positions with
+             partial pages, npl 1/3/16; the chunk kernel at C 16 and 256;
+             float32 queries over float32, bfloat16 and int8 pools, the
+             int8 pools written by the port's own quantising chunk write so
+             their scales are real; and the verify pass's shape, rows 8,
+             C 5, per-row unaligned starts, over float32 and int8 pools)
+             within 1e-4 max abs error. Two planted faults over an int8
+             pool, built from the plain versions, must be rejected: the K
+             scale ignored (scale 1), and each page's scales read from the
+             next slot. Then times the kernel, its plain version and one
              PyTorch library call computing the same function
-             (scaled_dot_product_attention over the pre-gathered pages — a
-             yardstick, never used by the port) with CUDA events, the L2
-             cache flushed before every launch, at the deepest shapes the
-             main path's pool can hold (decode: 8 rows over all 63 usable
-             slots, npl 16; chunk: the C-16 chunk that ends a 16-page
-             stream; float32, and besides bfloat16 and the 256-query
-             unchunked chunk), beside the least time the card could take
-             (bound_ms: the larger of the bytes over 3.35 TB/s and the
+             (scaled_dot_product_attention over the pre-gathered pages,
+             dequantised beforehand for an int8 pool — a yardstick, never
+             used by the port) with CUDA events, the L2 cache flushed
+             before every launch, at the deepest shapes the main path's
+             pool can hold (decode: 8 rows over all 63 usable slots, npl
+             16; chunk: the C-16 chunk that ends a 16-page stream; float32
+             and int8, and besides bfloat16, the 256-query unchunked chunk
+             and the verify pass over float32 and int8), beside the least
+             time the card could take (bound_ms: the larger of the bytes,
+             an int8 pool's scale rows included, over 3.35 TB/s and the
              operations over the peak rate for their type).
 3. serve   — zeroes the kernels' launch counters, runs servebench's main
              path (transformer_s on synthtext at full width and depth,
@@ -35,7 +43,30 @@ one JSON line; any failure raises and exits non-zero:
              einsum attention, no kernel) run on prompt + emitted tokens
              (each emitted token's logit within 1e-3 of its position's max
              logit).
-
+3b. serve_levers — servebench with the serving levers on the card: the
+             same model and traffic with 4 shared 64-token prefixes
+             (--shared-prefix 4:64), the prefix cache and speculative
+             verify (ngram:N:4). (b) over an int8 pool, at N = 3, 2, 1 in
+             turn until the traffic's drafts are accepted: N is the first
+             whose drafts are accepted, else the first that drafts (none
+             drafting fails); every request completed, prefix hits, both
+             int8 kernels launched (counted apart from float-pool
+             launches, which must be 0). (a) over a float32 pool at that
+             N: pool_bytes exactly four times (b)'s. (c) as (b), with token
+             streams bitwise equal to (b)'s. These counters, launches and
+             the digits gate read servebench's run alone. Then, through
+             each run's server, three requests whose prompt is a cached
+             prefix exactly (full hits: binds and copy-on-write), counted
+             apart. Every request
+             of (a), the follow-up's included, is held by the
+             teacher-forced check above. The digits gate: servebench's
+             int8 streams must agree with (a)'s at >= 0.75 of positions
+             (the reference's int8 gate); a miss is reported, and passes
+             only if each stream's first flip lies within the int8 pool's
+             logit noise there (the two tokens' float32 logit gap at most
+             twice the largest |int8 - float32| logit difference, both
+             through the serving path on the shared prefix). Prints the
+             three rows' counters and wall-clock step times.
 4. profile — the same path (8 requests, warm) under torch.profiler: the
              device's busy share and the device time by kernel.
 5. flash_kernels — holds each flash kernel (forward, dQ, dK/dV) against
@@ -118,9 +149,10 @@ one JSON line; any failure raises and exits non-zero:
 11. train_profile — 3 warm flash+fused steps under torch.profiler: the
              device's busy share and the top device kernels.
 
-Then it prints the kernels table (one JSON object: the paged, the flash
-and the fused-head kernels), the card's name and power limit as nvidia-smi
-reports them, and, last, the device record.
+Then it prints the kernels table (one JSON object: the paged kernels over
+float pools and over int8 pools, the flash and the fused-head kernels; the
+int8 rows' launches are serve_levers (b)'s), the card's name and power
+limit as nvidia-smi reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
 """
@@ -141,10 +173,27 @@ TOL = 1e-4  # max abs error, float32 queries over either pool dtype
 # the 64-page pool (slot 0 is scratch), one row at the 16-page max_len
 DECODE_LIVE = (16, 9, 8, 8, 8, 6, 4, 4)
 SOURCE = "ddlbench_tpu_torch/ops/csrc/paged_attention.cu"
+# each paged row of the kernels table -> the TPU kernel it replaces (the
+# int8 rows: the same two kernels over int8 pools)
 KERNELS = {
     "paged_attention": "ddlbench_tpu/ops/paged_decode.py:318",
     "paged_chunk_attention": "ddlbench_tpu/ops/paged_decode.py:703",
+    "paged_attention_int8":
+        "ddlbench_tpu/ops/paged_decode.py:318 (int8 branch, :323-340)",
+    "paged_chunk_attention_int8":
+        "ddlbench_tpu/ops/paged_decode.py:703 (int8 branch, :714-731)",
 }
+SPEC_K = 4  # drafted tokens a verify pass checks
+VERIFY_C = SPEC_K + 1  # the verify pass: the pending token + SPEC_K drafts
+# the n-gram lengths serve_levers tries, in order: the reference's 3 first
+SPEC_NGRAMS = (3, 2, 1)
+# servebench with the serving levers (the reference's raw-speed levers and
+# prefix-cache A/B), run at float32, int8, and int8 again
+LEVER_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--policies",
+              "continuous", "--arrival", "closed", "--requests", "16",
+              "--seed", "0", "--shared-prefix", "4:64", "--prefix-cache",
+              "--wall-clock"]
+DIGITS_GATE_INT8 = 0.75  # the reference's tests/test_serve_quant.py gate
 FLASH_SOURCE = "ddlbench_tpu_torch/ops/csrc/flash_attention.cu"
 # each flash kernel -> the pallas_call it replaces
 FLASH_KERNELS = {
@@ -208,21 +257,41 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def make_case(torch, dtype, npl, C, gen, dev):
+def make_pools(torch, pd, dtype, gen, dev):
+    """Random K/V pools [POOL_PAGES, PAGE, H, DH] of ``dtype``. An int8
+    pool holds random float32 rows as the port's own chunk write
+    quantises them (layer seed 1), so its scales are real sidecars."""
+    pk = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen).to(dev)
+    pv = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen).to(dev)
+    if dtype != torch.int8:
+        return {"pool_k": pk.to(dtype), "pool_v": pv.to(dtype)}
+    pool = pd.serve_pool_init(POOL_PAGES, PAGE, H, DH, torch.int8, dev)
+    n = POOL_PAGES * PAGE
+    pool.update(kv_seed=1, kv_u=pd.kv_u_table(1, n, H, DH, dev))
+    every = {**pool, "table": torch.arange(POOL_PAGES, dtype=torch.int32,
+                                           device=dev)[None]}
+    pd.paged_table_chunk_write(every, pk.reshape(1, n, H, DH),
+                               pv.reshape(1, n, H, DH), 0, PAGE)
+    return {k: pool[k] for k in ("pool_k", "pool_v", "scale_k", "scale_v")}
+
+
+def make_case(torch, pd, dtype, npl, C, gen, dev, aligned=True):
     """Pools, a scattered table drawn with replacement, a float32 query
-    and per-row positions (decode, C None) or page-aligned chunk starts."""
-    pk = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen).to(dev, dtype)
-    pv = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen).to(dev, dtype)
+    and per-row positions (decode, C None) or chunk starts: page-aligned
+    (prefill), or any start whose span fits the live pages (verify)."""
+    cache = make_pools(torch, pd, dtype, gen, dev)
     table = torch.randint(1, POOL_PAGES, (ROWS, NPG), generator=gen)
-    cache = {"pool_k": pk, "pool_v": pv,
-             "table": table.to(dev, torch.int32)}
+    cache["table"] = table.to(dev, torch.int32)
     if C is None:
         q = torch.randn(ROWS, H, DH, generator=gen).to(dev)
         pos = torch.randint(0, npl * PAGE, (ROWS,), generator=gen)
-    else:
+    elif aligned:
         q = torch.randn(ROWS, H, C, DH, generator=gen).to(dev)
         pos = torch.randint(0, (npl * PAGE - C) // PAGE + 1, (ROWS,),
                             generator=gen) * PAGE
+    else:
+        q = torch.randn(ROWS, H, C, DH, generator=gen).to(dev)
+        pos = torch.randint(0, npl * PAGE - C + 1, (ROWS,), generator=gen)
     return q, cache, pos.to(dev, torch.int32)
 
 
@@ -239,15 +308,22 @@ def run_plain(pd, q, cache, pos, npl, C):
 
 
 def library_call(torch, q, cache, pos, npl, C):
-    """scaled_dot_product_attention over the pages gathered beforehand,
-    with the same absolute causal mask: returns the timed closure."""
+    """scaled_dot_product_attention over the pages gathered (and, for an
+    int8 pool, dequantised) beforehand, with the same absolute causal
+    mask: returns the timed closure."""
     import torch.nn.functional as F
 
     tbl = cache["table"][:, :npl].long()
     L = npl * PAGE
     rows = q.shape[0]
-    k = cache["pool_k"][tbl].reshape(rows, L, H, DH).transpose(1, 2)
-    v = cache["pool_v"][tbl].reshape(rows, L, H, DH).transpose(1, 2)
+
+    def pages(name):  # an int8 pool dequantised here, outside the timing
+        x = cache["pool_" + name][tbl].float()
+        if "scale_" + name in cache:
+            x = x * cache["scale_" + name][tbl][..., None, None]
+        return x.reshape(rows, L, H, DH).transpose(1, 2)
+
+    k, v = pages("k"), pages("v")
     qq = q[:, :, None] if C is None else q
     k, v = k.to(q.dtype).contiguous(), v.to(q.dtype).contiguous()
     cq = 1 if C is None else C
@@ -286,7 +362,8 @@ def bound(q, cache, pos, npl, C):
     name once — a slot two rows share is one read) and the output written
     once, over the memory rate; the QK and PV products over the visible
     (query, key) pairs, over the peak rate for float32 (the query's type;
-    the kernel computes in float32 over either pool)."""
+    the kernel computes in float32 over any pool). An int8 pool adds each
+    distinct slot's two float32 scale rows."""
     elt = cache["pool_k"].element_size()
     cq = 1 if C is None else C
     nbytes = 2 * q.numel() * q.element_size()  # q read + out written
@@ -299,6 +376,8 @@ def bound(q, cache, pos, npl, C):
         slots.update(cache["table"][r, :live].tolist())
         pairs += sum(min(p0 + c, npl * PAGE - 1) + 1 for c in range(cq))
     nbytes += len(slots) * 2 * PAGE * H * DH * elt  # K, V of each slot
+    if "scale_k" in cache:
+        nbytes += len(slots) * 2 * PAGE * 4  # its K and V scale rows
     flops = 4 * pairs * H * DH
     dt = "float32"
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -306,40 +385,79 @@ def bound(q, cache, pos, npl, C):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def int8_planted_faults(torch, pd, gen, dev):
+    """The check must reject two faults built from the plain versions
+    over an int8 pool: the K scale ignored (scale 1), and each page's
+    scales read from the next slot."""
+    out = []
+    for C, aligned in ((None, True), (16, True), (VERIFY_C, False)):
+        q, cache, pos = make_case(torch, pd, torch.int8, NPG, C, gen, dev,
+                                  aligned)
+        want = run_plain(pd, q, cache, pos, NPG, C)
+        faults = {
+            "k_scale_ignored": {**cache, "scale_k": torch.ones_like(
+                cache["scale_k"])},
+            "scales_from_next_slot": {
+                **cache, "scale_k": cache["scale_k"].roll(-1, 0),
+                "scale_v": cache["scale_v"].roll(-1, 0)},
+        }
+        for fault, bad in faults.items():
+            err = (run_plain(pd, q, bad, pos, NPG, C) - want).abs().max()
+            err = err.item()
+            rec = {"fault": fault, "C": C, "max_abs_err": err, "tol": TOL,
+                   "rejected": not err <= TOL}
+            out.append(rec)
+            if not rec["rejected"]:
+                raise AssertionError(f"planted fault {fault} C={C} passed "
+                                     f"the check: {err} <= {TOL}")
+    return out
+
+
 def phase_kernels(torch, pd, dev):
     gen = torch.Generator().manual_seed(0)
     worst = {name: 0.0 for name in KERNELS}
     checks = []
-    for dtype in (torch.float32, torch.bfloat16):
+    cases = [(dtype, C, npl, True)
+             for dtype in (torch.float32, torch.bfloat16, torch.int8)
+             for C, npls in ((None, (1, 3, 16)), (16, (1, 3, 16)),
+                             (256, (16,)))
+             for npl in npls]
+    # the verify pass: rows 8, C 5, per-row unaligned starts
+    cases += [(dtype, VERIFY_C, npl, False)
+              for dtype in (torch.float32, torch.int8) for npl in (3, 16)]
+    for dtype, C, npl, aligned in cases:
         dname = str(dtype).split(".")[-1]
-        for C, npls in ((None, (1, 3, 16)), (16, (1, 3, 16)), (256, (16,))):
-            name = "paged_attention" if C is None else "paged_chunk_attention"
-            for npl in npls:
-                q, cache, pos = make_case(torch, dtype, npl, C, gen, dev)
-                got = run_kernel(pd, q, cache, pos, npl, C)
-                want = run_plain(pd, q, cache, pos, npl, C)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = math.isfinite(err) and err <= TOL
-                checks.append({"kernel": name, "pool": dname, "npl": npl,
-                               "C": C, "max_abs_err": err, "tol": TOL,
-                               "ok": ok})
-                if not ok:
-                    raise AssertionError(f"{name} {dname} pool npl={npl} "
-                                         f"C={C}: max abs err {err} > "
-                                         f"{TOL}")
-                if dtype == torch.float32:
-                    worst[name] = max(worst[name], err)
-    emit({"phase": "kernels", "checks": checks})
+        name = "paged_attention" if C is None else "paged_chunk_attention"
+        q, cache, pos = make_case(torch, pd, dtype, npl, C, gen, dev,
+                                  aligned)
+        got = run_kernel(pd, q, cache, pos, npl, C)
+        want = run_plain(pd, q, cache, pos, npl, C)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = math.isfinite(err) and err <= TOL
+        checks.append({"kernel": name, "pool": dname, "npl": npl, "C": C,
+                       "starts": "page-aligned" if aligned else "unaligned",
+                       "max_abs_err": err, "tol": TOL, "ok": ok})
+        if not ok:
+            raise AssertionError(f"{name} {dname} pool npl={npl} C={C}: "
+                                 f"max abs err {err} > {TOL}")
+        if dtype == torch.int8:
+            worst[name + "_int8"] = max(worst[name + "_int8"], err)
+        elif dtype == torch.float32:
+            worst[name] = max(worst[name], err)
+    faults = int8_planted_faults(torch, pd, gen, dev)
+    emit({"phase": "kernels", "checks": checks, "planted_faults": faults})
 
     # timing at the deepest shapes the main path's pool can hold, float32
-    # pool (the slice's) — these are the kernels table's. Decode: the 8
-    # rows hold all 63 usable slots, each slot in one row only, every row
-    # at the last position of its last page, one row at the 16-page
-    # max_len (npl 16). Prefill chunk: 1 row, C 16, the chunk that ends a
-    # 16-page stream over 16 distinct slots. Then, for the record, the same
-    # over a bfloat16 pool and the unchunked admission's one 256-query
-    # chunk. Table columns past a row's live pages name the scratch slot.
+    # and int8 pools — these are the kernels table's. Decode: the 8 rows
+    # hold all 63 usable slots, each slot in one row only, every row at
+    # the last position of its last page, one row at the 16-page max_len
+    # (npl 16). Prefill chunk: 1 row, C 16, the chunk that ends a 16-page
+    # stream over 16 distinct slots. Then, for the record, the same over a
+    # bfloat16 pool, the unchunked admission's one 256-query chunk, and
+    # the verify pass (8 rows, C 5, each row's span ending 0-2 positions
+    # before the end of its live pages). Table columns past a row's live
+    # pages name the scratch slot.
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     perm = (torch.randperm(POOL_PAGES - 1, generator=gen) + 1).tolist()
     table = torch.zeros(ROWS, NPG, dtype=torch.int32)
@@ -348,21 +466,28 @@ def phase_kernels(torch, pd, dev):
         perm = perm[live:]
     decode_pos = torch.tensor([live * PAGE - 1 for live in DECODE_LIVE],
                               dtype=torch.int32)
+    verify_pos = torch.tensor([live * PAGE - VERIFY_C - r % 3
+                               for r, live in enumerate(DECODE_LIVE)],
+                              dtype=torch.int32)
     timed, more = {}, []
-    for name, C, rows, dtype in (
+    for key, C, rows, dtype in (
             ("paged_attention", None, ROWS, torch.float32),
             ("paged_chunk_attention", 16, 1, torch.float32),
+            ("paged_attention_int8", None, ROWS, torch.int8),
+            ("paged_chunk_attention_int8", 16, 1, torch.int8),
             ("paged_attention", None, ROWS, torch.bfloat16),
             ("paged_chunk_attention", 16, 1, torch.bfloat16),
-            ("paged_chunk_attention", 256, 1, torch.float32)):
-        pk = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen)
-        pv = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen)
-        cache = {"pool_k": pk.to(dev, dtype), "pool_v": pv.to(dev, dtype),
-                 "table": table[:rows].to(dev)}
+            ("paged_chunk_attention", 256, 1, torch.float32),
+            ("verify", VERIFY_C, ROWS, torch.float32),
+            ("verify_int8", VERIFY_C, ROWS, torch.int8)):
+        cache = make_pools(torch, pd, dtype, gen, dev)
+        cache["table"] = table[:rows].to(dev)
         shape = (rows, H, DH) if C is None else (rows, H, C, DH)
         q = torch.randn(*shape, generator=gen).to(dev)
         if C is None:
             pos = decode_pos.to(dev)
+        elif C == VERIFY_C:
+            pos = verify_pos.to(dev)
         else:  # row 0 holds 16 pages: the chunk ending its stream
             pos = torch.full((rows,), NPG * PAGE - C, dtype=torch.int32,
                              device=dev)
@@ -380,14 +505,18 @@ def phase_kernels(torch, pd, dev):
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": {"rows": rows, "H": H, "dh": DH, "C": C, "page": PAGE,
                       "npl": NPG, "pool": str(dtype).split(".")[-1],
-                      "live_pages": (list(DECODE_LIVE) if C is None
-                                     else [NPG])},
+                      "live_pages": (list(DECODE_LIVE)
+                                     if C in (None, VERIFY_C) else [NPG])},
         }
-        if name in timed:
-            more.append({"kernel": name, **rec})
+        if key in timed or key.startswith("verify"):
+            more.append({"kernel": key, **rec})
         else:
-            timed[name] = rec
-    emit({"phase": "kernel_times", "times": timed, "more": more})
+            timed[key] = rec
+    emit({"phase": "kernel_times", "times": timed, "more": more,
+          "library_note": "library_ms: scaled_dot_product_attention over "
+                          "the live pages gathered beforehand; for an int8 "
+                          "pool also dequantised beforehand (int8 * scale "
+                          "outside the timed call)"})
     return worst, timed
 
 
@@ -446,6 +575,196 @@ def phase_serve(torch, dev):
     gap = teacher_forced_check(torch, model, server, reqs, dev)
     emit({"phase": "serve", "launches": launches,
           "teacher_forced_max_gap": gap, "row": rec})
+    return launches
+
+
+def lever_followup(server, reqs, clock):
+    """Three more requests through a server that has finished servebench's
+    run: the first request's 64-token shared prefix (4 pages) alone (a
+    full hit if its pages are still cached, else a prefill that caches
+    them), then that prompt twice, admitted together, each a full
+    page-aligned hit that binds 3 pages and copies the 4th: the
+    copy-on-write path, which servebench's unique prompt tails never take.
+    Returns the new requests."""
+    from ddlbench_tpu_torch.serve.workload import ServeRequest
+
+    head = reqs[0].prompt[:64].copy()
+    extra = []
+    for batch in ([head], [head, head]):
+        for p in batch:
+            extra.append(ServeRequest(rid=len(reqs) + len(extra), prompt=p,
+                                      max_new=8, arrival=clock))
+            server.submit(extra[-1], now=clock)
+        while server.has_work():
+            clock += server.step(clock).cost
+    return extra
+
+
+def serve_logits(torch, engine, toks):
+    """The float32 logits [T, V] at every position of ``toks`` through
+    ``engine``'s model and pools (one unchunked prefill at position 0 over
+    pages 1.., the paged chunk kernel reading back what it wrote)."""
+    from ddlbench_tpu_torch.models.layers import ServeLayer
+
+    page, T = engine.page, len(toks)
+    npl = -(-T // page)
+    dev = engine.device
+    table = torch.zeros((1, engine.npg_max), dtype=torch.int32, device=dev)
+    table[0, :npl] = torch.arange(1, npl + 1, dtype=torch.int32)
+    h = torch.zeros((1, npl * page), dtype=torch.int32, device=dev)
+    h[0, :T] = torch.tensor(toks, dtype=torch.int32)
+    with torch.no_grad():
+        for layer, pool in zip(engine.model.layers, engine.pools):
+            h = (layer.serve_prefill(pool, table, h, 0, npl, page)
+                 if isinstance(layer, ServeLayer) else layer(h))
+    return h[0, :T].float()
+
+
+def divergences(torch, model, dev, reqs, toks_a, toks_b):
+    """Where an int8 stream first leaves its float32 stream, the two
+    tokens' logit gap through the float32 serving path on the shared
+    prefix, and the int8 pool's perturbation of that position's logits
+    (the largest |int8 - float32| over the vocabulary, both through the
+    serving path). A flip is within the int8 noise when the gap is at
+    most twice that perturbation."""
+    from ddlbench_tpu_torch.config import ServeConfig
+    from ddlbench_tpu_torch.serve.engine import ServeEngine
+
+    engines = {kv: ServeEngine(model, ServeConfig(kv_dtype=kv), dev)
+               for kv in ("float32", "int8")}
+    out = {}
+    for rid, want in toks_a.items():
+        got = toks_b[rid]
+        i = next((i for i, (x, y) in enumerate(zip(want, got)) if x != y),
+                 None)
+        if i is None:
+            continue
+        toks = reqs[rid].prompt.tolist() + want[:i]
+        z32, z8 = (serve_logits(torch, engines[kv], toks)[-1]
+                   for kv in ("float32", "int8"))
+        a, b = want[i], got[i]
+        gap = (z32[a] - z32[b]).item()
+        noise = (z8 - z32).abs().max().item()
+        out[rid] = {"position": i, "float32_gap": gap,
+                    "int8_logit_noise": noise,
+                    "int8_gap": (z8[a] - z8[b]).item(),
+                    "within_noise": gap <= 2 * noise}
+    return out
+
+
+def phase_serve_levers(torch, pd, dev):
+    """servebench with the int8 pool, the prefix cache and speculative
+    verify on the card: (b) int8 at the first n-gram length of SPEC_NGRAMS
+    whose traffic drafts and accepts (else the first that drafts); (a)
+    float32, held against the plain full-forward model; (c) int8 again,
+    bitwise (b). Counters, launches and the digits gate read servebench's
+    run alone; the copy-on-write follow-up after it is counted apart."""
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.tools import servebench
+
+    model = get_model("transformer_s", "synthtext", seed=0).to(dev)
+    kernels = (pd.paged_attention, pd.paged_chunk_attention)
+
+    def run(kv, n):
+        args = servebench.build_parser().parse_args(
+            LEVER_ARGS + ["--kv-dtype", kv,
+                          "--speculative", f"ngram:{n}:{SPEC_K}"])
+        for fn in kernels:
+            fn.launches = fn.launches_int8 = 0
+        (rec, server, reqs), = servebench.run(args, model, dev)
+        launches = {"paged_attention_int8": pd.paged_attention.launches_int8,
+                    "paged_chunk_attention_int8":
+                        pd.paged_chunk_attention.launches_int8,
+                    "float_pool_launches": sum(fn.launches
+                                               for fn in kernels)}
+        if rec["completed"] != args.requests:
+            raise AssertionError(f"{kv}: completed {rec['completed']} of "
+                                 f"{args.requests} requests")
+        if rec["prefix_hits"] <= 0:
+            raise AssertionError(f"{kv}: no prefix hit")
+        toks = {f["rid"]: f["tokens"] for f in server.finished}
+        return rec, server, reqs, toks, launches
+
+    def followup(kv, rec, server, reqs):
+        extra = lever_followup(server, reqs, rec["duration"])
+        stats = server.stats_summary()
+        delta = {k: stats[k] - rec[k] for k in ("prefix_hits",
+                                                 "cow_copies")}
+        if delta["cow_copies"] <= 0:
+            raise AssertionError(f"{kv} follow-up: no copy-on-write copy")
+        toks = {f["rid"]: f["tokens"] for f in server.finished
+                if f["rid"] >= len(reqs)}
+        return reqs + extra, toks, delta
+
+    tried = {}
+    for n in SPEC_NGRAMS:
+        tried[n] = run("int8", n)
+        if tried[n][0]["spec_accepted"] > 0:
+            break
+    accepting = [n for n in tried if tried[n][0]["spec_accepted"] > 0]
+    drafting = [n for n in tried if tried[n][0]["spec_drafted"] > 0]
+    if not drafting:
+        raise AssertionError(f"int8: no n-gram length of {SPEC_NGRAMS} "
+                             "drafts on servebench's traffic")
+    ngram = (accepting or drafting)[0]
+    rec_b, server_b, reqs_b, toks_b, launches = tried[ngram]
+    for name in ("paged_attention_int8", "paged_chunk_attention_int8"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} never launched on the main path")
+    if launches["float_pool_launches"]:
+        raise AssertionError("an int8 run launched the float-pool kernels")
+    _, follow_b, delta_b = followup("int8", rec_b, server_b, reqs_b)
+    rec_a, server_a, reqs_a, toks_a, _ = run("float32", ngram)
+    reqs_a, follow_a, delta_a = followup("float32", rec_a, server_a, reqs_a)
+    gap = teacher_forced_check(torch, model, server_a, reqs_a, dev,
+                               n_check=len(reqs_a))
+    if rec_b["pool_bytes"] * 4 != rec_a["pool_bytes"]:
+        raise AssertionError(f"int8 pool_bytes {rec_b['pool_bytes']} is "
+                             f"not a quarter of {rec_a['pool_bytes']}")
+    rec_c, server_c, reqs_c, toks_c, _ = run("int8", ngram)
+    _, follow_c, _ = followup("int8", rec_c, server_c, reqs_c)
+    if toks_c != toks_b or follow_c != follow_b:
+        raise AssertionError("int8 token streams differ between two runs")
+    # the reference's digits gate: positional agreement of servebench's
+    # int8 streams with its float32 ones. A miss must be explained: each
+    # stream's first flip lies within the int8 pool's logit noise
+    total = sum(len(t) for t in toks_a.values())
+    agree = sum(x == y for rid, t in toks_a.items()
+                for x, y in zip(t, toks_b[rid]))
+    digits = agree / total
+    flips = divergences(torch, model, dev, reqs_a, toks_a, toks_b)
+    if digits < DIGITS_GATE_INT8 and not all(
+            f["within_noise"] for f in flips.values()):
+        raise AssertionError(
+            f"int8 digits gate: {agree}/{total} tokens match float32, "
+            f"gate {DIGITS_GATE_INT8}, and a flip lies outside the int8 "
+            f"noise: {flips}")
+    keys = ("kv_dtype", "speculative", "completed", "output_tokens",
+            "duration", "goodput_tokens_per_unit", "ttft_p50", "itl_p50",
+            "prefill_tokens", "prefix_hits", "prefix_tokens_saved",
+            "cow_copies", "spec_passes", "spec_drafted", "spec_accepted",
+            "spec_accept_rate", "tokens_per_pass", "pool_bytes",
+            "decode_calls", "prefill_calls", "wall_s", "wall_tokens_per_s",
+            "decode_step_ms", "verify_step_ms", "prefill_chunk_ms")
+    emit({"phase": "serve_levers", "speculative": f"ngram:{ngram}:{SPEC_K}",
+          "int8_ngrams_tried": {f"ngram:{n}:{SPEC_K}": {
+              k: t[0][k] for k in ("spec_passes", "spec_drafted",
+                                   "spec_accepted")}
+              for n, t in tried.items()},
+          "launches": launches, "teacher_forced_max_gap": gap,
+          "digits_int8_vs_float32": digits, "digits_agree": agree,
+          "digits_total": total, "digits_gate": DIGITS_GATE_INT8,
+          "digits_gate_met": digits >= DIGITS_GATE_INT8,
+          "first_flips": flips,
+          "int8_runs_bitwise": True,
+          "followup": {"float32": delta_a, "int8": delta_b,
+                       "int8_tokens_agree_float32": sum(
+                           x == y for rid, t in follow_a.items()
+                           for x, y in zip(t, follow_b[rid]))
+                       / sum(len(t) for t in follow_a.values())},
+          "rows": {name: {k: rec.get(k) for k in keys}
+                   for name, rec in (("a_float32", rec_a), ("b_int8", rec_b),
+                                     ("c_int8", rec_c))}})
     return launches
 
 
@@ -1186,6 +1505,7 @@ def main() -> int:
 
     worst, timed = phase_kernels(torch, pd, dev)
     launches = phase_serve(torch, dev)
+    launches.update(phase_serve_levers(torch, pd, dev))
     phase_profile(torch, dev)
     flash_worst = phase_flash_kernels(torch, fa, dev)
     flash_timed = phase_flash_times(torch, fa, dev)

@@ -87,14 +87,12 @@ DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
 _NOT_PORTED = (
     ("tp", 1, "tensor-parallel serving (tp > 1)"),
     ("replicas", 1, "multi-replica serving (replicas > 1)"),
-    ("prefix_cache", False, "the cross-request prefix cache"),
     ("temperature", 0.0, "sampling (temperature > 0)"),
     ("top_k", 0, "top-k sampling"),
     ("trace", False, "request-lifecycle tracing"),
     ("heartbeat", 0.0, "the straggler heartbeat"),
     ("integrity", False, "the SDC checksum ledger"),
     ("scrub", 0, "the SDC scrubber"),
-    ("speculative", "none", "speculative verify"),
 )
 
 
@@ -115,8 +113,18 @@ class ServeConfig:
     # padded call ("unchunked admission")
     prefill_chunk: int = 16
     policy: str = "continuous"  # "continuous" | "static" (the A/B baseline)
-    # KV-pool storage dtype: float32 or bfloat16 ("int8" is not ported yet)
+    # KV-pool storage dtype: float32, bfloat16, or int8 (quantised at the
+    # write boundary with a per-page scale sidecar; ops/paged_decode.py)
     kv_dtype: str = "float32"
+    # the cross-request prefix cache (serve/prefix.py): admissions bind the
+    # resident pages of their longest cached prompt prefix and prefill only
+    # the tail. Continuous policy only.
+    prefix_cache: bool = False
+    # "none", or "ngram:N:K": self-drafting speculative decoding — an
+    # N-gram drafter proposes up to K tokens per decode row and one
+    # K+1-wide verify pass scores them; greedy acceptance keeps the token
+    # streams those of plain decoding
+    speculative: str = "none"
     # SLOs in virtual time units (observability only; 0 = no SLO)
     slo_ttft: float = 0.0
     slo_itl: float = 0.0
@@ -124,7 +132,6 @@ class ServeConfig:
     # validate() raises NotImplementedError when one leaves its default
     replicas: int = 1
     tp: int = 1
-    prefix_cache: bool = False
     temperature: float = 0.0
     top_k: int = 0
     sample_seed: int = 0
@@ -132,10 +139,17 @@ class ServeConfig:
     heartbeat: float = 0.0
     integrity: bool = False
     scrub: int = 0
-    speculative: str = "none"
 
     def npg_max(self) -> int:
         return -(-self.max_len // self.page)
+
+    def spec_params(self) -> Optional[Tuple[int, int]]:
+        """(ngram_n, draft_k) when speculative decoding is on, else None.
+        ``validate`` rejects malformed specs; this parses a valid one."""
+        if self.speculative == "none":
+            return None
+        _, n, k = self.speculative.split(":")
+        return int(n), int(k)
 
     def resolved_token_budget(self) -> int:
         if self.token_budget:
@@ -153,10 +167,6 @@ class ServeConfig:
                 raise NotImplementedError(
                     f"{what} ({name}={getattr(self, name)!r}) is not ported "
                     "to the PyTorch serving path yet")
-        if self.kv_dtype == "int8":
-            raise NotImplementedError(
-                "the int8 KV pool (kv_dtype='int8') is not ported to the "
-                "PyTorch serving path yet")
         if self.policy not in ("continuous", "static"):
             raise ValueError(
                 f"policy must be continuous|static, got {self.policy!r}")
@@ -179,13 +189,37 @@ class ServeConfig:
                 "token_budget below one prefill chunk starves admission "
                 f"({self.resolved_token_budget()} < "
                 f"{self.resolved_prefill_chunk()})")
+        if self.prefix_cache and self.policy != "continuous":
+            raise ValueError(
+                "prefix_cache requires the continuous policy — the static "
+                "baseline measures cache-off scheduling (run it cache-off)")
         if self.slo_ttft < 0 or self.slo_itl < 0:
             raise ValueError(
                 "slo_ttft and slo_itl must be >= 0 (0 = no SLO)")
-        if self.kv_dtype not in ("float32", "bfloat16"):
+        if self.kv_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"kv_dtype must be float32|bfloat16|int8, got "
                 f"{self.kv_dtype!r}")
+        if self.speculative != "none":
+            parts = self.speculative.split(":")
+            if len(parts) != 3 or parts[0] != "ngram":
+                raise ValueError(
+                    f"speculative must be 'none' or 'ngram:N:K', got "
+                    f"{self.speculative!r}")
+            try:
+                n, k = int(parts[1]), int(parts[2])
+            except ValueError:
+                raise ValueError(
+                    f"speculative ngram wants integer N:K, got "
+                    f"{self.speculative!r}") from None
+            if n < 1 or k < 1:
+                raise ValueError(
+                    f"speculative ngram needs N >= 1 and K >= 1, got "
+                    f"N={n} K={k}")
+            if k + 1 > self.max_len:
+                raise ValueError(
+                    f"speculative draft width K+1 ({k + 1}) exceeds "
+                    f"max_len {self.max_len}")
 
     def replace(self, **kw: Any) -> "ServeConfig":
         return dataclasses.replace(self, **kw)

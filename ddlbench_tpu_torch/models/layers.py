@@ -5,7 +5,7 @@ The port's counterpart of ``ddlbench_tpu/models/layers.py``'s
 ``LayerModel``, ``apply_slice``/``apply_model`` and ``ServeOps``. A model is
 a named flat stack of ``nn.Module`` layers; training applies it through
 :func:`apply_model`, and the serving engine walks the stack itself, calling
-each serving layer's two serve ops and plain ``forward`` on pointwise layers
+each serving layer's serve ops and plain ``forward`` on pointwise layers
 (the LM head).
 """
 
@@ -32,6 +32,10 @@ class ServeLayer(nn.Module):
       page-aligned prompt chunk x [R, C] at positions [start, start + C).
     * ``serve_decode(pool, table, x, pos, npl, page)`` — one token per row,
       x [B, 1] at per-row positions ``pos`` [B] (an int32 tensor).
+    * ``serve_verify(pool, table, x, pos0, npl, page)`` — the speculative
+      verify pass: a span of W tokens per row, x [B, W] at per-row
+      positions [pos0, pos0 + W), page-unaligned (the reference's
+      ``ServeOps.verify``).
 
     ``npl`` is the number of live table pages the attention walks.
     """
@@ -45,6 +49,10 @@ class ServeLayer(nn.Module):
         raise NotImplementedError
 
     def serve_decode(self, pool, table, x, pos, npl: int,
+                     page: int) -> torch.Tensor:
+        raise NotImplementedError
+
+    def serve_verify(self, pool, table, x, pos0, npl: int,
                      page: int) -> torch.Tensor:
         raise NotImplementedError
 

@@ -41,6 +41,7 @@ from ddlbench_tpu_torch.ops.fused_xent import (fused_linear_xent,
 from ddlbench_tpu_torch.ops.paged_decode import (paged_attention,
                                                  paged_chunk_attention,
                                                  paged_table_chunk_write,
+                                                 paged_table_span_write,
                                                  paged_table_write,
                                                  serve_pool_init)
 
@@ -149,6 +150,14 @@ class Embed(ServeLayer):
         # x [B, 1] at PER-ROW positions pos [B]
         return self.tok[x] + self.pos[pos.long()][:, None]
 
+    def serve_verify(self, pool, table, x, pos0, npl, page):
+        # x [B, W] draft spans at per-row positions [pos0, pos0 + W); pad
+        # positions past the position table are clamped as in
+        # serve_prefill (their outputs are discarded)
+        idx = pos0.long()[:, None] + torch.arange(x.shape[1],
+                                                  device=x.device)
+        return self.tok[x] + self.pos[idx.clamp(max=self.pos.shape[0] - 1)]
+
 
 class TransformerBlock(ServeLayer):
     """Pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x)) + b2.
@@ -223,6 +232,20 @@ class TransformerBlock(ServeLayer):
                           page)
         o = paged_attention(q[:, :, 0].contiguous(), cache, pos, npl, page)
         x = self._proj(o.reshape(B, 1, d), x)
+        return self.mlp(x)
+
+    def serve_verify(self, pool, table, x, pos0, npl, page):
+        """The speculative verify pass: write the W-token span's K/V at
+        page-unaligned per-row positions [pos0, pos0 + W), then attend all
+        W queries causally at their absolute positions (the chunk kernel
+        with per-row starts)."""
+        B, W, d = x.shape
+        q, k, v = self._qkv_heads(x)  # [B, H, W, dh]
+        cache = {**pool, "table": table}
+        paged_table_span_write(cache, k.transpose(1, 2), v.transpose(1, 2),
+                               pos0, page)
+        o = paged_chunk_attention(q.contiguous(), cache, pos0, npl, page)
+        x = self._proj(o.transpose(1, 2).reshape(B, W, d), x)
         return self.mlp(x)
 
 

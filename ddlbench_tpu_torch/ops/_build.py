@@ -35,12 +35,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # cudaError_t as int
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "paged_attention": {
-        # q, pool_k, pool_v, table, pos, out, rows, H, dh, page, npl,
-        # tstride, scale, ktype, stream
-        "ddl_paged_decode": [_P] * 6 + [_I] * 6 + [_F, _I, _P],
-        # q, pool_k, pool_v, table, start, out, rows, H, C, dh, page, npl,
-        # tstride, scale, ktype, stream
-        "ddl_paged_chunk": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+        # q, pool_k, pool_v, scale_k, scale_v, table, pos, out, rows, H,
+        # dh, page, npl, tstride, scale, ktype, stream
+        "ddl_paged_decode": [_P] * 8 + [_I] * 6 + [_F, _I, _P],
+        # q, pool_k, pool_v, scale_k, scale_v, table, start, out, rows, H,
+        # C, dh, page, npl, tstride, scale, ktype, stream
+        "ddl_paged_chunk": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     },
     "flash_attention": {
         # q, k, v, o, lse, BH, Tq, Tk, dh, q_offset, k_offset, prefix_len,

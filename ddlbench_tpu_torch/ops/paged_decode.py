@@ -19,49 +19,149 @@ PyTorch version beside it:
 
 A wrapper takes the plain version when its query lies on the CPU (the
 tests); on a CUDA tensor it launches the kernel or raises. Each wrapper
-counts its launches in ``launches``, so a run can show that the main path
+counts its launches, over float32 and bfloat16 pools in ``launches`` and
+over int8 pools in ``launches_int8``, so a run can show that the main path
 went through the kernel.
 
-The int8 pool and its fused dequant are not ported yet
-(``ServeConfig.validate`` refuses ``kv_dtype='int8'``).
+An int8 pool (the reference's EQuARX-lite pages) stores ``pool_k``/
+``pool_v`` as int8 plus a scale SIDECAR ``scale_k``/``scale_v`` [n_pages,
+page] float32: one absmax/127 scale per written position row, so a page's
+scales travel with it through :func:`serve_page_copy` and prefix binds.
+Rows quantise at the write boundary with unbiased stochastic rounding whose
+uniforms are the reference's own ``jax.random`` bits (ops/threefry.py),
+keyed by (layer seed ``kv_seed``, k/v tag, stream position): the port
+writes the reference's int8 bytes exactly, and a recomputed page equals the
+evicted one. The bits do not depend on the values, so the engine computes
+them once into a per-layer table ``kv_u`` [2, n_pos, H, dh] instead of
+hashing at every write. The attention kernels dequantise in the page walk
+(``int8 * scale`` per key and value row); the plain versions dequantise in
+:func:`_gather`. ``pool_page_bytes`` counts the payload only, so an int8
+pool is exactly a quarter of a float32 one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 import torch.nn.functional as F
 
+from ddlbench_tpu_torch.ops import threefry
+
 NEG_INF = -1e30
 SCRATCH_SLOT = 0
 
+KV_QMAX = 127.0
 # pool dtype codes of the C launchers
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# the per-slot tensors of a pool (what a page copy moves)
+_SLOT_KEYS = ("pool_k", "pool_v", "scale_k", "scale_v")
 # the one head dim the kernels are built for (every transformer variant's)
 KERNEL_DH = 64
 
 Pool = Dict[str, torch.Tensor]
 
 
+def pool_quantized(pool: Pool) -> bool:
+    """True for an int8 serve pool (the scale sidecar is the marker)."""
+    return "scale_k" in pool
+
+
 def serve_pool_init(n_pages: int, page: int, n_heads: int, dh: int,
                     dtype: torch.dtype, device: torch.device) -> Pool:
     """A shared K/V pool of ``n_pages`` free-list-managed slots, zeroed
     (slot 0 is the scratch page — serve/allocator.py never hands it
-    out). ``dtype`` is float32 or bfloat16."""
+    out). ``dtype`` float32 or bfloat16, or int8 for the quantised layout:
+    the int8 payload plus zeroed scale sidecars (an unwritten position
+    dequantises to exactly 0)."""
     if dtype not in _DTYPE_CODE:
-        raise NotImplementedError(
-            f"serve pool dtype {dtype} (float32 and bfloat16 are ported)")
+        raise ValueError(f"serve pool dtype {dtype} must be float32, "
+                         "bfloat16 or int8")
     shape = (n_pages, page, n_heads, dh)
-    return {"pool_k": torch.zeros(shape, dtype=dtype, device=device),
+    pool = {"pool_k": torch.zeros(shape, dtype=dtype, device=device),
             "pool_v": torch.zeros(shape, dtype=dtype, device=device)}
+    if dtype == torch.int8:
+        for name in ("scale_k", "scale_v"):
+            pool[name] = torch.zeros(n_pages, page, device=device)
+    return pool
 
 
 def pool_page_bytes(pool: Pool) -> int:
-    """K/V payload bytes per page slot of ``pool``."""
+    """K/V payload bytes per page slot of ``pool`` (the scale sidecars
+    excluded, so an int8 pool is exactly a quarter of a float32 one)."""
     return sum(pool[n].element_size() * pool[n][0].numel()
                for n in ("pool_k", "pool_v"))
+
+
+# ---------------------------------------------------------------------------
+# int8 quantisation at the write boundary.
+# ---------------------------------------------------------------------------
+
+
+def _kv_key(kv_seed: int, tag: int):
+    return threefry.fold_in(threefry.prng_key(kv_seed), tag)
+
+
+def kv_u_table(kv_seed: int, n_pos: int, n_heads: int, dh: int,
+               device: torch.device) -> torch.Tensor:
+    """The rounding uniforms of positions [0, n_pos) for the K (tag 0)
+    and V (tag 1) rows of a layer seeded ``kv_seed``: [2, n_pos, H, dh],
+    the rows :func:`_kv_quantize` would draw one write at a time."""
+    pos = torch.arange(n_pos, dtype=torch.int64)
+    return torch.stack([
+        threefry.uniform(threefry.fold_in(_kv_key(kv_seed, tag), pos),
+                         (n_heads, dh))
+        for tag in (0, 1)]).to(device)
+
+
+def _kv_quantize(x: torch.Tensor, pos: torch.Tensor, kv_seed: int,
+                 tag: int, u_table: Optional[torch.Tensor] = None):
+    """Quantise K or V rows ``x`` [..., H, dh] (one leading index per
+    stream position ``pos``, of x's leading shape) to (int8 of x's shape,
+    float32 scale [...]), bit for bit as the reference does: per-position
+    absmax scale (the largest element maps to +-127; an all-zero row gets
+    scale 1), unbiased stochastic rounding with the uniforms of
+    ``fold_in(fold_in(PRNGKey(kv_seed), tag), position)``. ``u_table``
+    [n_pos, H, dh] holds those uniforms precomputed (:func:`kv_u_table`);
+    without it they are hashed here. Every position must lie inside the
+    table: the engine checks its writes against it before every pass."""
+    absmax = x.float().abs().amax(dim=(-2, -1))
+    scale = torch.where(absmax > 0, absmax / KV_QMAX,
+                        torch.ones_like(absmax))
+    v = x.float() / scale[..., None, None]
+    flat = pos.reshape(-1).long()
+    if u_table is None:
+        u = threefry.uniform(threefry.fold_in(_kv_key(kv_seed, tag),
+                                              flat.cpu()), x.shape[-2:])
+        u = u.to(x.device)
+    else:
+        u = u_table[flat]
+    u = u.reshape(x.shape)
+    lo = torch.floor(v)
+    q = lo + (u < (v - lo)).float()
+    return q.clamp(-KV_QMAX, KV_QMAX).to(torch.int8), scale
+
+
+def _pool_write(cache: Pool, k: torch.Tensor, v: torch.Tensor,
+                pos: torch.Tensor, write_payload, write_scale) -> Pool:
+    """The write dispatch of the three table writes: ``write_payload(pool,
+    x)`` scatters value rows in place, and on an int8 pool the rows are
+    quantised first and ``write_scale(scales, s)`` scatters their scales.
+    ``pos`` holds the absolute position of every row (k's leading
+    shape)."""
+    if pool_quantized(cache):
+        seed = cache.get("kv_seed", 0)
+        u = cache.get("kv_u")
+        for tag, (name, x) in enumerate((("k", k), ("v", v))):
+            qx, sx = _kv_quantize(x, pos, seed, tag,
+                                  None if u is None else u[tag])
+            write_payload(cache["pool_" + name], qx)
+            write_scale(cache["scale_" + name], sx)
+    else:
+        write_payload(cache["pool_k"], k)
+        write_payload(cache["pool_v"], v)
+    return cache
 
 
 def _rows_vector(x: Union[int, torch.Tensor], rows: int,
@@ -88,10 +188,14 @@ def paged_table_write(cache: Pool, k1: torch.Tensor, v1: torch.Tensor,
     pos = _rows_vector(pos, table.shape[0], table.device).long()
     slots = table.long().gather(1, (pos // page)[:, None])[:, 0]
     off = pos % page
-    for name, x in (("pool_k", k1), ("pool_v", v1)):
-        pool = cache[name]
+
+    def write(pool, x):
         pool[slots, off] = x[:, 0].to(pool.dtype)
-    return cache
+
+    def write_scale(scales, s):
+        scales[slots, off] = s[:, 0]
+
+    return _pool_write(cache, k1, v1, pos[:, None], write, write_scale)
 
 
 def paged_table_chunk_write(cache: Pool, k: torch.Tensor, v: torch.Tensor,
@@ -110,10 +214,52 @@ def paged_table_chunk_write(cache: Pool, k: torch.Tensor, v: torch.Tensor,
     # pad, a padded tail page past the table resolves to the scratch slot
     tbl = F.pad(cache["table"], (0, npg_c), value=SCRATCH_SLOT)
     slots = tbl[:, start // page:start // page + npg_c].long()
-    for name, x in (("pool_k", k), ("pool_v", v)):
-        pool = cache[name]
+
+    def write(pool, x):
         pool[slots] = x.reshape(rows, npg_c, page, H, dh).to(pool.dtype)
-    return cache
+
+    def write_scale(scales, s):
+        scales[slots] = s.reshape(rows, npg_c, page)
+
+    pos = start + torch.arange(C, device=k.device)
+    return _pool_write(cache, k, v, pos.expand(rows, C), write, write_scale)
+
+
+def paged_table_span_write(cache: Pool, k: torch.Tensor, v: torch.Tensor,
+                           pos0: Union[int, torch.Tensor], page: int) -> Pool:
+    """Write a span of W tokens' K/V [rows, W, H, dh] at per-row positions
+    [pos0_r, pos0_r + W) through the table, page-UNALIGNED (the verify
+    pass: the pending token plus the drafts start mid-page). Each position
+    scatters by (page, offset); a position whose page index runs past the
+    table lands on the scratch slot, like the chunk write's padded
+    tail."""
+    table = cache["table"]
+    rows, W = k.shape[:2]
+    npg = table.shape[1]
+    pos = (_rows_vector(pos0, rows, table.device).long()[:, None]
+           + torch.arange(W, device=table.device)[None, :])  # [rows, W]
+    pg, off = pos // page, pos % page
+    slots = table.long().gather(1, pg.clamp(0, npg - 1))
+    slots = torch.where(pg < npg, slots, torch.zeros_like(slots))
+
+    def write(pool, x):
+        pool[slots, off] = x.to(pool.dtype)
+
+    def write_scale(scales, s):
+        scales[slots, off] = s
+
+    return _pool_write(cache, k, v, pos, write, write_scale)
+
+
+def serve_page_copy(pool: Pool, src: int, dst: int) -> Pool:
+    """Copy-on-write: copy pool slot ``src`` into slot ``dst`` in place,
+    in every per-slot tensor — the payload and, on an int8 pool, the scale
+    sidecars, so the copy dequantises bit-identically to its source. The
+    layer's ``kv_seed`` and rounding table are not per-slot and stay."""
+    for name in _SLOT_KEYS:
+        if name in pool:
+            pool[name][dst] = pool[name][src]
+    return pool
 
 
 # ---------------------------------------------------------------------------
@@ -126,10 +272,14 @@ def paged_table_chunk_write(cache: Pool, k: torch.Tensor, v: torch.Tensor,
 
 def _gather(cache: Pool, name: str, tbl: torch.Tensor) -> torch.Tensor:
     """The live pages of ``name`` through ``tbl`` [rows, np], as float32
-    [rows, np * page, H, dh]."""
-    pages = cache[name][tbl.long()]  # [rows, np, page, H, dh]
+    [rows, np * page, H, dh]; an int8 pool dequantised with its sidecar
+    (``int8 * scale`` per position row, the kernels' arithmetic)."""
+    pages = cache[name][tbl.long()].float()  # [rows, np, page, H, dh]
+    if pool_quantized(cache):
+        scale = cache["scale_" + name[-1]][tbl.long()]  # [rows, np, page]
+        pages = pages * scale[..., None, None]
     rows, n, page, H, dh = pages.shape
-    return pages.reshape(rows, n * page, H, dh).float()
+    return pages.reshape(rows, n * page, H, dh)
 
 
 def _paged_attention_ref(q: torch.Tensor, cache: Pool,
@@ -187,10 +337,23 @@ def _check_kernel_args(q: torch.Tensor, cache: Pool, npages_live: int,
         raise ValueError(f"{what}: q {q.dtype} must be float32 (the "
                          "serving model's dtype)")
     if pk.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{what}: pool {pk.dtype} must be float32 or "
-                         "bfloat16")
+        raise ValueError(f"{what}: pool {pk.dtype} must be float32, "
+                         "bfloat16 or int8")
     if pv.dtype != pk.dtype or pv.shape != pk.shape:
         raise ValueError(f"{what}: pool_k and pool_v differ")
+    if (pk.dtype == torch.int8) != pool_quantized(cache):
+        raise ValueError(f"{what}: an int8 pool needs its scale sidecars, "
+                         "and only an int8 pool has them")
+    if pool_quantized(cache):
+        for name in ("scale_k", "scale_v"):
+            t = cache[name]
+            if (t.device != q.device or t.dtype != torch.float32
+                    or not t.is_contiguous() or t.data_ptr() % 4
+                    or tuple(t.shape) != tuple(pk.shape[:2])):
+                raise ValueError(
+                    f"{what}: {name} must be a contiguous float32 "
+                    f"[n_pages, page] = {tuple(pk.shape[:2])} tensor on "
+                    f"{q.device}")
     if table.dtype != torch.int32 or table.dim() != 2:
         raise ValueError(f"{what}: table must be int32 [rows, npg]")
     _, pg, H, dh = pk.shape
@@ -205,6 +368,20 @@ def _check_kernel_args(q: torch.Tensor, cache: Pool, npages_live: int,
     if table.shape[0] != q.shape[0]:
         raise ValueError(f"{what}: table has {table.shape[0]} rows, q "
                          f"{q.shape[0]}")
+
+
+def _scale_ptrs(cache: Pool):
+    """The sidecar pointers of an int8 pool (NULL for the others)."""
+    if pool_quantized(cache):
+        return cache["scale_k"].data_ptr(), cache["scale_v"].data_ptr()
+    return None, None
+
+
+def _count(fn, cache: Pool) -> None:
+    if pool_quantized(cache):
+        fn.launches_int8 += 1
+    else:
+        fn.launches += 1
 
 
 def paged_attention(q: torch.Tensor, cache: Pool,
@@ -225,12 +402,12 @@ def paged_attention(q: torch.Tensor, cache: Pool,
     lib = _build.library("paged_attention")
     code = lib.ddl_paged_decode(
         q.data_ptr(), cache["pool_k"].data_ptr(), cache["pool_v"].data_ptr(),
-        table.data_ptr(), posv.data_ptr(), out.data_ptr(), rows, H, dh, page,
-        npages_live, table.shape[1], 1.0 / math.sqrt(dh),
-        _DTYPE_CODE[cache["pool_k"].dtype],
+        *_scale_ptrs(cache), table.data_ptr(), posv.data_ptr(),
+        out.data_ptr(), rows, H, dh, page, npages_live, table.shape[1],
+        1.0 / math.sqrt(dh), _DTYPE_CODE[cache["pool_k"].dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_attention")
-    paged_attention.launches += 1
+    _count(paged_attention, cache)
     return out
 
 
@@ -253,14 +430,17 @@ def paged_chunk_attention(q: torch.Tensor, cache: Pool,
     lib = _build.library("paged_attention")
     code = lib.ddl_paged_chunk(
         q.data_ptr(), cache["pool_k"].data_ptr(), cache["pool_v"].data_ptr(),
-        table.data_ptr(), startv.data_ptr(), out.data_ptr(), rows, H, C, dh,
-        page, npages_live, table.shape[1], 1.0 / math.sqrt(dh),
-        _DTYPE_CODE[cache["pool_k"].dtype],
+        *_scale_ptrs(cache), table.data_ptr(), startv.data_ptr(),
+        out.data_ptr(), rows, H, C, dh, page, npages_live, table.shape[1],
+        1.0 / math.sqrt(dh), _DTYPE_CODE[cache["pool_k"].dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_chunk_attention")
-    paged_chunk_attention.launches += 1
+    _count(paged_chunk_attention, cache)
     return out
 
 
+# kernel launches over float32/bfloat16 pools, and over int8 pools
 paged_attention.launches = 0
+paged_attention.launches_int8 = 0
 paged_chunk_attention.launches = 0
+paged_chunk_attention.launches_int8 = 0

@@ -1,8 +1,8 @@
 """Refcounted free-list page allocator for the shared serving KV pool.
 
 The port's copy of ``ddlbench_tpu/serve/allocator.py`` (pure host code),
-without the prefix-cache sharing calls and the SDC quarantine hooks, which
-the port does not carry yet.
+with the refcount calls the prefix cache and speculative rollback use, and
+without the SDC quarantine, which the port does not carry yet.
 
 A serving engine cannot give every row a private stripe of the pool: a
 request's KV history lives exactly as long as the request, and "pool
@@ -63,6 +63,13 @@ class PageAllocator:
     def free_pages(self) -> int:
         return len(self._free)
 
+    @property
+    def shared_pages(self) -> int:
+        """Slots referenced more than once right now (the prefix index's
+        own reference counts, so a cached page one live request binds is
+        shared)."""
+        return sum(1 for c in self._ref.values() if c >= 2)
+
     def occupancy(self) -> float:
         return self.in_use / self.capacity
 
@@ -92,6 +99,29 @@ class PageAllocator:
         self.peak_in_use = max(self.peak_in_use, self.in_use)
         return slots
 
+    def bind(self, rid: int, slots: List[int]) -> None:
+        """Take a reference on already-resident ``slots`` for request
+        ``rid`` (the prefix-cache hit path). Binding a dead slot is a
+        bookkeeping bug and raises."""
+        for s in slots:
+            if self._ref.get(s, 0) < 1:
+                raise ValueError(f"bind of dead slot {s} for request {rid}")
+        self._owned.setdefault(rid, []).extend(slots)
+        for s in slots:
+            self._ref[s] += 1
+
+    def incref(self, slot: int) -> None:
+        """Extra reference on a live slot (the prefix index pinning a page
+        it caches; request-side references go through ``bind``)."""
+        if self._ref.get(slot, 0) < 1:
+            raise ValueError(f"incref of dead slot {slot}")
+        self._ref[slot] += 1
+
+    def holders(self, slot: int) -> List[int]:
+        """Request ids currently holding a reference on ``slot``, in rid
+        order."""
+        return sorted(r for r, slots in self._owned.items() if slot in slots)
+
     def decref(self, slot: int) -> bool:
         """Drop one reference; returns True when the slot actually
         returned to the free list (last reference dropped). Dropping a
@@ -107,10 +137,28 @@ class PageAllocator:
         self._ref[slot] = c - 1
         return False
 
+    def release(self, rid: int, slots: List[int]) -> int:
+        """Drop ``rid``'s reference on a SUBSET of its pages (the
+        speculative rollback: pages allocated ahead for rejected drafts go
+        back without retiring the request). Releasing a slot the request
+        does not hold is a double-free and raises. A fully released rid
+        keeps its empty ownership entry, so its eventual
+        ``free_request`` is not a double-free. Returns how many pages
+        physically freed."""
+        owned = self._owned.get(rid)
+        freed = 0
+        for s in slots:
+            if owned is None or s not in owned:
+                raise ValueError(
+                    f"double free: request {rid} does not hold slot {s}")
+            owned.remove(s)
+            freed += self.decref(s)
+        return freed
+
     def free_request(self, rid: int) -> int:
         """Drop ``rid``'s reference on every page it holds (completion or
         eviction). Returns how many pages physically returned to the free
-        list.
+        list; shared pages survive until their last holder lets go.
 
         Freeing a request that owns nothing is a double-free — the engine
         frees exactly once per retirement — and raises.

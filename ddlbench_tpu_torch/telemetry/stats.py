@@ -73,8 +73,7 @@ def serve_summary(records: List[Dict], *, duration: float,
         "goodput_tokens_per_unit": (good_tokens / duration
                                     if duration > 0 else 0.0),
         "slo_attainment": n_ok / len(records) if records else 0.0,
-        # prompt tokens served from a prefix cache: 0 (the port has none
-        # yet), kept so the row's key set matches the reference
+        # prompt tokens served from the prefix cache
         "prefix_cached_tokens": sum(
             r.get("cached_tokens", 0) for r in records),
     }

@@ -1,18 +1,31 @@
 """Serving benchmark: continuous batching vs static batching under load.
 
-The port of ``ddlbench_tpu/tools/servebench.py`` for a plain row. It drives
-the continuous-batching engine (serve/engine.py) with a seeded open- or
-closed-loop workload (serve/workload.py) and prints one JSON line per
-policy with TTFT and inter-token-latency p50/p95/p99 and **goodput under
-SLO** (telemetry/stats.serve_summary), under the same keys as the
-reference's plain row; the reference's JAX provenance keys are replaced by
-the port's device fields (device.provenance).
+The port of ``ddlbench_tpu/tools/servebench.py`` for the plain row and the
+reference's raw-speed levers. It drives the continuous-batching engine
+(serve/engine.py) with a seeded open- or closed-loop workload
+(serve/workload.py) and prints one JSON line per policy with TTFT and
+inter-token-latency p50/p95/p99 and **goodput under SLO**
+(telemetry/stats.serve_summary), under the reference's keys; the
+reference's JAX provenance keys are replaced by the port's device fields
+(device.provenance).
+
+The levers, as in the reference: ``--kv-dtype`` stores the KV pool in
+bfloat16 or int8 (a quarter of the float32 bytes, quantised at the write,
+dequantised inside the attention kernels; the row gains ``kv_dtype``);
+``--shared-prefix G:P`` makes G groups of requests that share a P-token
+prompt head, and ``--prefix-cache`` serves cached heads from resident pages
+on the continuous policy (compare ``prefill_tokens``, ``ttft_p50`` and the
+``prefix_*`` fields with and without it); ``--speculative ngram:N:K`` turns
+the decode step into a drafted verify pass (token streams those of plain
+decoding; the row gains ``speculative``, the ``spec_*`` counters,
+``spec_accept_rate`` and ``tokens_per_pass``).
 
 Time is VIRTUAL: one unit = one model pass (a [max_batch, 1] decode step or
 one prefill chunk), so every virtual-time number is reproducible under a
 fixed seed and equal to the reference's for the same traffic.
 ``--wall-clock`` adds real seconds: the run's wall time, wall-clock output
-tokens per second, and the mean decode-step and prefill-chunk times.
+tokens per second, and the mean decode-step and prefill-chunk times (and
+with ``--speculative`` the mean verify-pass time).
 
 The model runs on the card unless ``--device cpu`` is given; with no card
 and no ``--device cpu`` the tool raises.
@@ -21,8 +34,9 @@ Usage:
     python -m ddlbench_tpu_torch.tools.servebench [-m transformer_s]
         [-b synthtext] [--arrival poisson|bursty|closed] [--rate 0.5]
         [--requests 64] [--max-batch 8] [--pool-pages 64] [--page 16]
-        [--max-len 256] [--slo-ttft 16] [--slo-itl 2.0] [--wall-clock]
-        [--device cpu]
+        [--max-len 256] [--slo-ttft 16] [--slo-itl 2.0]
+        [--shared-prefix 4:64] [--prefix-cache] [--kv-dtype int8]
+        [--speculative ngram:3:4] [--wall-clock] [--device cpu]
 """
 
 from __future__ import annotations
@@ -42,6 +56,12 @@ from ddlbench_tpu_torch.models.zoo import get_model
 from ddlbench_tpu_torch.serve.engine import ReplicatedServer, make_server
 from ddlbench_tpu_torch.serve.workload import ServeRequest, make_workload
 from ddlbench_tpu_torch.telemetry.stats import serve_summary
+
+# engine stats keys that only carry signal under --speculative: left out
+# of the other rows, as in the reference, so their key set is unchanged
+_SPEC_FIELDS = frozenset((
+    "spec_passes", "spec_drafted", "spec_accepted", "decode_tokens",
+    "spec_accept_rate", "tokens_per_pass"))
 
 
 def run_open_loop(server, reqs) -> float:
@@ -137,6 +157,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--out-lens", default="2,16,64",
                    help="lo,typical,hi of the heavy-tail output mixture")
     p.add_argument("--tail-frac", type=float, default=0.25)
+    p.add_argument("--shared-prefix", default=None, metavar="G:P",
+                   help="shared-prefix traffic: G prefix groups of P "
+                        "tokens each; every prompt = one group's prefix + "
+                        "a unique heavy-tail tail")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="the cross-request prefix cache on the continuous "
+                        "policy (the static baseline always runs without "
+                        "it and reports the cache counters as 0)")
+    p.add_argument("--kv-dtype", default=None,
+                   choices=("float32", "bfloat16", "int8"),
+                   help="KV-pool storage dtype: bfloat16 halves the pool "
+                        "bytes, int8 quarters them; the row gains a "
+                        "kv_dtype field")
+    p.add_argument("--speculative", default=None, metavar="ngram:N:K",
+                   help="self-drafting speculative decoding: an N-gram "
+                        "drafter proposes up to K tokens per decode row, "
+                        "verified in one K+1-wide pass priced as one model "
+                        "pass; the row gains speculative/spec_*/"
+                        "tokens_per_pass fields")
     p.add_argument("--slo-ttft", type=float, default=16.0,
                    help="TTFT SLO in time units (model passes)")
     p.add_argument("--slo-itl", type=float, default=2.0,
@@ -161,17 +200,31 @@ def run(args: argparse.Namespace, model: LayerModel,
     plo, ptyp, phi = (int(x) for x in args.prompt_lens.split(","))
     olo, otyp, ohi = (int(x) for x in args.out_lens.split(","))
     policies = [s.strip() for s in args.policies.split(",") if s.strip()]
+    groups = prefix_len = 0
+    if args.shared_prefix:
+        try:
+            groups, prefix_len = (int(x)
+                                  for x in args.shared_prefix.split(":"))
+        except ValueError:
+            raise ValueError("--shared-prefix wants G:P (groups:prefix_"
+                             f"tokens), got {args.shared_prefix!r}") from None
     base = ServeConfig(
         max_batch=args.max_batch, pool_pages=args.pool_pages,
         page=args.page, max_len=min(args.max_len, spec.seq_len),
         token_budget=args.token_budget,
         prefill_chunk=(args.page if args.prefill_chunk is None
                        else args.prefill_chunk),
-        slo_ttft=args.slo_ttft, slo_itl=args.slo_itl)
+        slo_ttft=args.slo_ttft, slo_itl=args.slo_itl,
+        kv_dtype=args.kv_dtype or "float32",
+        speculative=args.speculative or "none")
     prov = provenance(device)
     out = []
     for policy in policies:
-        cfg = base.replace(policy=policy)
+        # the static baseline is cache-off by definition; its row still
+        # carries the prefix counters, as zeros
+        cfg = base.replace(
+            policy=policy,
+            prefix_cache=args.prefix_cache and policy == "continuous")
         cfg.validate()
         # fresh workload per policy: the closed-loop driver stamps
         # arrivals, and both policies must see identical traffic
@@ -181,7 +234,8 @@ def run(args: argparse.Namespace, model: LayerModel,
             burst_size=args.burst_size, burst_factor=args.burst_factor,
             prompt_lo=plo, prompt_typical=ptyp, prompt_hi=phi,
             out_lo=olo, out_typical=otyp, out_hi=ohi,
-            tail_frac=args.tail_frac, max_len=cfg.max_len)
+            tail_frac=args.tail_frac, prefix_groups=groups,
+            prefix_len=prefix_len, max_len=cfg.max_len)
         server = make_server(model, cfg, device)
         t0 = time.perf_counter()
         if args.arrival == "closed":
@@ -213,14 +267,20 @@ def run(args: argparse.Namespace, model: LayerModel,
             "token_budget": cfg.resolved_token_budget(),
             "replicas": cfg.replicas,
             "prefix_cache": cfg.prefix_cache,
-            "shared_prefix": None,
+            "shared_prefix": args.shared_prefix,
             "sample": None,
             "time_unit": "model_pass",
             **{k: (round(v, 6) if isinstance(v, float) else v)
                for k, v in summary.items()},
-            # serve_summary already reports completed
+            # serve_summary already reports completed; the speculative
+            # counters only show under --speculative
             **{k: (round(v, 6) if isinstance(v, float) else v)
-               for k, v in eng_stats.items() if k != "completed"},
+               for k, v in eng_stats.items()
+               if k != "completed"
+               and (args.speculative or k not in _SPEC_FIELDS)},
+            **({"kv_dtype": cfg.kv_dtype} if args.kv_dtype else {}),
+            **({"speculative": cfg.speculative}
+               if args.speculative else {}),
             **prov,
         }
         if args.wall_clock:
@@ -235,6 +295,10 @@ def run(args: argparse.Namespace, model: LayerModel,
             rec["prefill_chunk_ms"] = round(
                 1e3 * eng.wall["prefill_s"] / st["prefill_calls"], 4) \
                 if st["prefill_calls"] else 0.0
+            if args.speculative:
+                rec["verify_step_ms"] = round(
+                    1e3 * eng.wall["verify_s"] / st["spec_passes"], 4) \
+                    if st["spec_passes"] else 0.0
         out.append((rec, server, reqs))
     return out
 

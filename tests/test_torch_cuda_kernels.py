@@ -8,17 +8,20 @@ installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerance (max abs error) 1e-4 for the paged kernels over float32 and
-bfloat16 pools alike: the query and output are float32, and the kernel only
-sums in another order than the plain einsum. The flash kernels: 1e-4 max
-abs in float32, and on the lse in bfloat16. On the bfloat16 outputs, each
-row (one query's or key's dh values) within 2^-6 of its own L2 norm in L2
-error: four bfloat16 unit roundoffs (2^-8), for the output's rounding and
-the kernels' rounding of P and dS to bfloat16 before the products they feed
-(the reference's bfloat16 path does the same; the plain versions keep them
-in float32). A per-row bound, unlike one scaled by the tensor's largest
-value, also catches a fault confined to a few rows, such as a dropped tail
-key tile. A row under 1e-3 of the mean row norm (a fully masked query, a
+Tolerance (max abs error) 1e-4 for the paged kernels over float32,
+bfloat16 and int8 pools alike: the query and output are float32, the int8
+rows are dequantised (int8 * scale) as in the plain version, and the kernel
+only sums in another order than the plain einsum. Two planted int8 faults
+(the K scale ignored, each page's scales read from the next slot) must fail
+that check. The flash kernels: 1e-4 max abs in float32, and on the lse in
+bfloat16. On the bfloat16 outputs, each row (one query's or key's dh
+values) within 2^-6 of its own L2 norm in L2 error: four bfloat16 unit
+roundoffs (2^-8), for the output's rounding and the kernels' rounding of
+P and dS to bfloat16 before the products they feed (the reference's
+bfloat16 path does the same; the plain versions keep them in float32). A
+per-row bound, unlike one scaled by the tensor's largest value, also
+catches a fault confined to a few rows, such as a dropped tail key tile. A
+row under 1e-3 of the mean row norm (a fully masked query, a
 key no query sees: 0 in both) is measured against that floor.
 
 The fused LM-head kernels, in both types: each row's lse and gold logit
@@ -127,6 +130,89 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
                                 11)
     with pytest.raises(ValueError, match="head dim"):
         port.paged_attention(q32, cache32, pos32, NPG, PAGE)
+
+
+VERIFY_C = 5  # the verify pass at K = 4: the pending token + 4 drafts
+
+
+def _int8_case(dev, C, seed, aligned=True):
+    """An int8 pool holding random rows as the port's own chunk write
+    quantises them (real scale sidecars), with a case's table, query and
+    positions; ``aligned=False`` gives per-row unaligned starts (the
+    verify pass)."""
+    q, f32, pos = _case(dev, torch.float32, torch.float32, 64, C, seed)
+    pool = port.serve_pool_init(N_PAGES, PAGE, H, 64, torch.int8, dev)
+    pool["kv_u"] = port.kv_u_table(1, N_PAGES * PAGE, H, 64, dev)
+    every = {**pool, "table": torch.arange(N_PAGES, dtype=torch.int32,
+                                           device=dev)[None]}
+    n = N_PAGES * PAGE
+    port.paged_table_chunk_write(every, f32["pool_k"].reshape(1, n, H, 64),
+                                 f32["pool_v"].reshape(1, n, H, 64), 0, PAGE)
+    cache = {k: pool[k] for k in ("pool_k", "pool_v", "scale_k", "scale_v")}
+    cache["table"] = f32["table"]
+    if not aligned:
+        g = torch.Generator().manual_seed(seed)
+        pos = torch.randint(0, NPG * PAGE - C + 1, (ROWS,), generator=g,
+                            dtype=torch.int32).to(dev)
+    return q, cache, pos
+
+
+@pytest.mark.parametrize("C,npl,aligned", [
+    (None, 1, True), (None, 3, True), (None, 16, True),
+    (16, 1, True), (16, 3, True), (16, 16, True), (256, 16, True),
+    (VERIFY_C, 3, False), (VERIFY_C, 16, False)])
+def test_int8_kernels_match_plain_versions(dev, C, npl, aligned):
+    q, cache, pos = _int8_case(dev, C, 20 + npl, aligned)
+    n0 = (port.paged_attention.launches_int8,
+          port.paged_chunk_attention.launches_int8)
+    got, want = _both(q, cache, pos, npl, C)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+    grew = (port.paged_attention.launches_int8 - n0[0],
+            port.paged_chunk_attention.launches_int8 - n0[1])
+    assert grew == ((1, 0) if C is None else (0, 1))
+
+
+@pytest.mark.parametrize("C", [VERIFY_C, 16])
+def test_verify_shape_float32_matches_plain_version(dev, C):
+    q, cache, _ = _case(dev, torch.float32, torch.float32, 64, C, 31)
+    g = torch.Generator().manual_seed(C)
+    pos = torch.randint(0, NPG * PAGE - C + 1, (ROWS,), generator=g,
+                        dtype=torch.int32).to(dev)
+    got, want = _both(q, cache, pos, NPG, C)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("fault", ["k_scale_ignored",
+                                   "scales_from_next_slot"])
+@pytest.mark.parametrize("C", [None, VERIFY_C])
+def test_int8_check_rejects_planted_faults(dev, fault, C):
+    """The 1e-4 check must reject the plain version over a faulty int8
+    pool: the K scale ignored (scale 1), or every page's scales read from
+    the next slot."""
+    q, cache, pos = _int8_case(dev, C, 41, aligned=C is None)
+    got, _ = _both(q, cache, pos, NPG, C)
+    if fault == "k_scale_ignored":
+        bad = {**cache, "scale_k": torch.ones_like(cache["scale_k"])}
+    else:
+        bad = {**cache, "scale_k": cache["scale_k"].roll(-1, 0),
+               "scale_v": cache["scale_v"].roll(-1, 0)}
+    _, planted = _both(q, bad, pos, NPG, C)
+    torch.cuda.synchronize()
+    assert (got - planted).abs().max().item() > 1e-4
+
+
+def test_int8_wrapper_refuses_a_pool_without_its_sidecars(dev):
+    q, cache, pos = _int8_case(dev, None, 51)
+    with pytest.raises(ValueError, match="sidecar"):
+        port.paged_attention(q, {k: v for k, v in cache.items()
+                                 if not k.startswith("scale")}, pos, NPG,
+                             PAGE)
+    with pytest.raises(ValueError, match="scale_k"):
+        port.paged_attention(q, {**cache, "scale_k": cache["scale_k"][:-1]},
+                             pos, NPG, PAGE)
 
 
 # (B, H, Tq, Tk, q_offset, k_offset, prefix_len)

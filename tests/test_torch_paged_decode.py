@@ -171,5 +171,18 @@ def test_pool_init_and_page_bytes():
     want = ref.pool_page_bytes(ref.serve_pool_init(5, PAGE, H, DH,
                                                    jnp.bfloat16))
     assert port.pool_page_bytes(pool) == want == 2 * PAGE * H * DH * 2
-    with pytest.raises(NotImplementedError):
-        port.serve_pool_init(5, PAGE, H, DH, torch.int8, torch.device("cpu"))
+    # int8: the payload plus zeroed scale sidecars, and the payload bytes
+    # only, as in the reference
+    pool8 = port.serve_pool_init(5, PAGE, H, DH, torch.int8,
+                                 torch.device("cpu"))
+    ref8 = ref.serve_pool_init(5, PAGE, H, DH, jnp.int8)
+    assert sorted(pool8) == sorted(ref8)
+    for name in ref8:
+        assert tuple(pool8[name].shape) == ref8[name].shape
+        assert not pool8[name].any()
+    assert pool8["scale_k"].dtype == torch.float32
+    assert port.pool_page_bytes(pool8) == ref.pool_page_bytes(ref8) \
+        == want // 2
+    with pytest.raises(ValueError, match="int8"):
+        port.serve_pool_init(5, PAGE, H, DH, torch.float16,
+                             torch.device("cpu"))

@@ -176,10 +176,8 @@ def test_servebench_without_gpu_or_cpu_flag_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tp=2), dict(replicas=2), dict(prefix_cache=True),
-    dict(temperature=0.8), dict(speculative="ngram:3:4"),
-    dict(kv_dtype="int8"), dict(integrity=True), dict(trace=True),
-    dict(heartbeat=4.0),
+    dict(tp=2), dict(replicas=2), dict(temperature=0.8),
+    dict(integrity=True), dict(trace=True), dict(heartbeat=4.0),
 ])
 def test_unported_serve_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
