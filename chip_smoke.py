@@ -7,9 +7,14 @@ Drives the port (ddlbench_tpu_torch/) on the card, in phases, each printing
 one JSON line; any failure raises and exits non-zero:
 
 1. build   — compiles the hand-written CUDA kernels from the sources in the
-             checkout (ops/csrc/*.cu: paged_attention and flash_attention,
-             one nvcc each, started together, for sm_90a) and reports the
-             time.
+             checkout (ops/csrc/*.cu: paged_attention, flash_attention and
+             fused_xent, one nvcc each, started together, for sm_90a) and
+             reports the time; then, for each flash kernel, its registers
+             and spill bytes (the -Xptxas -v log) and its counts of wgmma
+             (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions
+             (cuobjdump -sass). Fails if the bfloat16 forward or dK/dV
+             kernel has no HGMMA or no UTMALDG; without cuobjdump the line
+             says so and checks nothing.
 2. kernels — holds each paged kernel against its plain PyTorch version at
              the serving slice's shapes (rows 8, H 8, dh 64, page 16, a
              64-page pool, scattered random tables, per-row positions with
@@ -71,9 +76,13 @@ one JSON line; any failure raises and exits non-zero:
              device's busy share and the device time by kernel.
 5. flash_kernels — holds each flash kernel (forward, dQ, dK/dV) against
              its plain version: H 8, dh 64, float32 and bfloat16; causal at
-             lmbench's own shape (B 16, T 1024), at B 2, T 1024 and T 1000
-             (tail tiles), a query block at an offset, a key offset that
-             leaves rows fully masked, and prefix_len 100. Tolerance:
+             lmbench's own shape (B 16, T 1024), at B 2, T 1024, T 1000
+             (tail tiles) and T 960 (a multiple of 64, not of 128), a query
+             block at an offset, a key offset that leaves rows fully masked,
+             prefix_len 100, seq2seq_s's own shape (B 64, T 256, prefix
+             128: the prefix ends on a 128-key tile) and a 48-row query
+             block at offset 952 over 1000 keys (fewer rows than one
+             warpgroup). Tolerance:
              float32 1e-4 max abs error; bfloat16 1e-4 max abs on the lse
              and, on every output, each row's (one query's or key's dh
              values) L2 error within 2^-6 of that row's L2 norm: four
@@ -147,7 +156,8 @@ one JSON line; any failure raises and exits non-zero:
              labels a batch, the fused-vs-logits agreement; then lmbench
              rows for flash+fused and flash+logits on synthmt.
 11. train_profile — 3 warm flash+fused steps under torch.profiler: the
-             device's busy share and the top device kernels.
+             device's busy share, the top device kernels, and each port
+             kernel's device time and launches per step.
 
 Then it prints the kernels table (one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
@@ -161,9 +171,13 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, per type
@@ -212,7 +226,20 @@ FLASH_CASES = (
     (2, 8, 512, 1000, 488, 0, 0),
     (2, 8, 1000, 1000, 0, 100, 0),
     (2, 8, 1000, 1000, 0, 0, 100),
+    (64, 8, 256, 256, 0, 0, 128),  # seq2seq_s: the prefix ends on a tile
+    (2, 8, 960, 960, 0, 0, 0),  # a multiple of 64, not of 128
+    (2, 8, 48, 1000, 952, 0, 0),  # under one warpgroup of rows, at an offset
 )
+# the flash library's kernels by name (the build phase's report), and the
+# bfloat16 ones that must be compiled to wgmma (HGMMA) and TMA (UTMALDG)
+FLASH_BUILT = ("flash_fwd_wgmma", "flash_dkv_wgmma", "flash_dq_mma",
+               "flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
+               "wgmma_tile_test")
+FLASH_HOPPER = ("flash_fwd_wgmma", "flash_dkv_wgmma")
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# the port's kernels of a training step, as the profiler names them
+TRAIN_KERNELS = ("flash_fwd_wgmma", "flash_dq_mma", "flash_dkv_wgmma",
+                 "fx_fwd_mma", "fx_dh_mma", "fx_dw_mma")
 LONG_T, LONG_Q = 32_768, 256
 TRAIN_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--steps", "10",
               "--warmup", "2"]
@@ -244,6 +271,88 @@ FX_CASES = (
     ("all_masked", 1000, 64, 1000, 0.1, "all"),
     ("zero_head", 1000, 64, 1000, 0.0, "every5"),
 )
+
+
+def ptxas_report(log: str) -> dict:
+    """{mangled kernel: {registers, spill_bytes}} from nvcc's -Xptxas -v
+    log."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def cuobjdump() -> str | None:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    path = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                "cuobjdump")
+    return str(path) if path.exists() else None
+
+
+def sass_counts(tool: str, lib: Path) -> dict:
+    """{mangled kernel: {opcode: count}} of the SASS_OPS in a built
+    library's machine code (cuobjdump -sass)."""
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+        elif cur is not None:
+            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
+                cur[op] += 1
+    return out
+
+
+def short_name(mangled: str) -> str | None:
+    return next((k for k in FLASH_BUILT if k in mangled), None)
+
+
+def phase_build(_build):
+    """Compile every kernel library (one nvcc each, started together),
+    then show what the flash library's kernels were compiled to: registers
+    and spill bytes from the -Xptxas -v log, and the counts of wgmma
+    (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions from
+    cuobjdump. Fails if the bfloat16 forward or dK/dV kernel lacks HGMMA
+    or UTMALDG."""
+    t0 = time.perf_counter()
+    built = _build.build()
+    seconds = time.perf_counter() - t0
+    for name in built:
+        print(_build._target(name).with_suffix(".log").read_text(),
+              file=sys.stderr)
+    lib = _build._target("flash_attention")
+    kernels = {}
+    for mangled, rec in ptxas_report(lib.with_suffix(".log").read_text()
+                                     ).items():
+        if short_name(mangled):
+            kernels[short_name(mangled)] = dict(rec)
+    tool = cuobjdump()
+    if tool is not None:
+        for mangled, counts in sass_counts(tool, lib).items():
+            if short_name(mangled):
+                kernels.setdefault(short_name(mangled), {}).update(counts)
+        for name in FLASH_HOPPER:
+            rec = kernels.get(name, {})
+            if not (rec.get("HGMMA") and rec.get("UTMALDG")):
+                raise AssertionError(f"{name} was not compiled to wgmma and "
+                                     f"TMA loads: {rec}")
+    emit({"phase": "build", "seconds": seconds, "nvcc_seconds": built,
+          "cuobjdump": tool or "not found: instruction counts not checked",
+          "flash_attention_kernels": kernels})
 
 
 def emit(obj) -> None:
@@ -1464,9 +1573,18 @@ def phase_train_profile(torch, strategy, data):
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
+    port = {}  # each port kernel's device ms and launches per step
+    for e in kern:
+        name = next((k for k in TRAIN_KERNELS if k in e.key), None)
+        if name:
+            rec = port.setdefault(name, {"ms_per_step": 0.0,
+                                         "calls_per_step": 0.0})
+            rec["ms_per_step"] += e.self_device_time_total / 1e3 / steps
+            rec["calls_per_step"] += e.count / steps
     emit({"phase": "train_profile", "steps": steps, "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if kern else None,
           "device_busy_share": busy_ms / wall_ms if kern else None,
+          "port_kernels": port,
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "ms": e.self_device_time_total / 1e3,
                            "share_of_busy": (e.self_device_time_total / 1e3
@@ -1495,13 +1613,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
-    t0 = time.perf_counter()
-    built = _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": built})
-    for name in built:
-        log = _build._target(name).with_suffix(".log")
-        print(log.read_text(), file=sys.stderr)
+    phase_build(_build)
 
     worst, timed = phase_kernels(torch, pd, dev)
     launches = phase_serve(torch, dev)

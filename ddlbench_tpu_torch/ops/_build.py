@@ -4,9 +4,11 @@ Each source under ``ops/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, and loaded with
 ``ctypes``. The build happens at first use, into ``build/torch_kernels/`` at
 the repository root (listed in ``.gitignore``), keyed by a hash of the
-source and the compiler flags, so a fresh checkout builds what it runs and
-an edited source is rebuilt. Nothing is built or loaded at import time: the
-CPU tests import every module on a machine with no ``nvcc``.
+source, the headers under ``ops/csrc/`` it includes (``#include "..."``,
+followed through headers) and the compiler flags, so a fresh checkout
+builds what it runs and an edited source or header is rebuilt. Nothing is
+built or loaded at import time: the CPU tests import every module on a
+machine with no ``nvcc``.
 
 Every launcher in a library returns ``cudaGetLastError()``; :func:`check`
 turns a non-zero code into an exception.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -50,6 +53,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ddl_flash_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
         # q, k, v, do, lse, delta, dk, dv, then as above
         "ddl_flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        # a, b, c, mode, stream: the card tests' wgmma operand-form check
+        "ddl_wgmma_tile_test": [_P] * 3 + [_I, _P],
     },
     "fused_xent": {
         # h, w, labels, lse, gold, zsum, amax, N, D, V, dtype, stream
@@ -76,10 +81,29 @@ def _nvcc() -> str:
         "kernels build on a machine with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``name``.cu and every file under ``_CSRC`` it includes with quotes,
+    directly or through another such header, in the order first met."""
+    found, todo = [], [_CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in found or not path.is_file():
+            continue
+        found.append(path)
+        todo += [_CSRC / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    key = hashlib.sha256()
+    for path in _sources(name):
+        key.update(path.name.encode() + b"\0" + path.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> Dict[str, float]:

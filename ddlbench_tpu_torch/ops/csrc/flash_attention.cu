@@ -32,32 +32,61 @@
 // tile (the forward and dQ), and a key tile starts at the first query tile
 // that can see it, or at 0 when it overlaps the prefix (dK/dV). Any Tq and
 // Tk: tail tiles are masked here (the TPU's divisor rule is not carried
-// over), and rows past the end are staged as zeros and never written. Tiles
-// are 64 x 64 and shared memory per block is fixed whatever T is: the TPU's
-// resident/streaming split is a VMEM artifact, and one streaming design
-// serves every length.
+// over), and rows past the end are read as zeros and never written. Shared
+// memory per block is fixed whatever T is: the TPU's resident/streaming
+// split is a VMEM artifact, and one streaming design serves every length.
 //
 // Bound: at the training shape (B 16, H 8, T 1024, dh 64, bf16, causal) one
 // call must move its operands once (about 67 MB for the forward, 20 us at
 // 3.35 TB/s) and do 4 (forward), 6 (dQ) or 8 (dK/dV) * dh flops per visible
 // (query, key) pair (17 to 34 GFLOP, 17 to 35 us at the bf16 tensor-core
-// rate): memory and the tensor cores are both near their limit.
+// rate of 989 TFLOP/s).
 //
-// bfloat16 build (the training path): the tile products run on the tensor
-// cores, mma.sync m16n8k16 (bf16 in, f32 accumulate), with the FlashAttention-2
-// register layout. One block of 4 warps per (64-row tile, batch*head); each
-// warp owns 16 rows of the tile and keeps its operand fragments of the fixed
-// side (Q in the forward; Q and dO in dQ; K and V in dK/dV) in registers for
-// the whole sweep. Score fragments become the next product's A fragments in
-// registers (the m16n8 accumulator layout of two adjacent key columns is
-// the m16k16 A layout), so P and dS never touch shared memory. The swept
-// tiles are staged in shared memory as bfloat16 rows of stride kLdh = 72
-// (the 8-element pad puts the 32 lanes' fragment words on 32 banks), plus a
-// transposed copy where a product needs the tile as its B operand along the
-// other axis (V^T in the forward, K^T in dQ, Q^T and dO^T in dK/dV). Row
-// max and sum are two xor shuffles over a row's 4 owner lanes. No cp.async,
-// TMA or wgmma yet, and no double buffering: a tile's loads and its
-// products do not overlap.
+// bfloat16 builds (the training path), each bounded at lmbench's shape:
+//
+//   forward (flash_fwd_wgmma) <- _flash_fwd_impl. Bound by bytes: 0.0202
+//   ms (Q, K, V read once, O and lse written once), the flops at 0.0174
+//   ms. The mma.sync kernel it replaces took 0.2820-0.2856 ms. Design: a
+//   Q-stationary sweep by a persistent grid, one block per SM walking the
+//   (128-query tile, batch*head) items longest first; two consumer
+//   warpgroups of 64 query rows and one producer warp. TMA loads each
+//   item's Q tile (double-buffered, so the next item's Q arrives during the
+//   current one) and streams 128-key K and V tiles through a 2-stage ring
+//   of 32 KB stages (full/empty mbarriers), so loads run ahead of the
+//   products. S = Q K^T is wgmma m64n128k16 from shared memory, both
+//   operands K-major; the online softmax runs in registers in the exp2
+//   domain (scores scaled once by scale * log2 e, ex2.approx), with the
+//   mask evaluated only on tiles that need it (diagonal, tail, straddling
+//   prefix_len). O += P V is wgmma m64n64k16 with P from registers (the S
+//   accumulator packed to bf16 is the A fragment) and V as it lies,
+//   MN-major through the transpose flag: no transposed copy.
+//
+//   dK/dV (flash_dkv_wgmma) <- _flash_bwd_core's second call. Bound by
+//   operations: 0.0348 ms (8 x dh flops a visible pair). The mma.sync
+//   kernel it replaces took 0.4410-0.4463 ms. Design: a KV-stationary sweep
+//   by a persistent grid over (128-key tile, batch*head) items, early key
+//   tiles (the most work) first; two consumer warpgroups of 64 keys and
+//   one producer warp. TMA loads each item's K and V (double-buffered);
+//   64-query Q and dO tiles stream through a 3-stage ring, the producer
+//   warp writing their lse (times log2 e) and delta beside them. S^T = K
+//   Q^T and dP^T = V dO^T are wgmma with both operands K-major as they lie
+//   (P^T computed while dP^T runs); P^T and dS^T stay in registers and
+//   feed dV += P^T dO and dK += dS^T Q as register A operands against dO
+//   and Q MN-major: no transposed staging.
+//
+// Both use 3-D tensor maps over [B*H, T, 64] with the 128-byte swizzle, so a
+// tail box reads zeros past T (never the next head's rows); those rows and
+// columns are still masked, and rows past T are never written. Tensor
+// maps are built on the host (cuTensorMapEncodeTiled via the runtime's
+// driver entry point) and passed by value as __grid_constant__. The
+// Hopper plumbing is in hopper.cuh.
+//
+// dQ (flash_dq_mma) keeps the first port's design: mma.sync m16n8k16
+// (bf16 in, f32 accumulate) with the FlashAttention-2 register layout, one
+// block of 4 warps per 64-row query tile, each warp holding its 16 rows' Q
+// and dO fragments for the whole sweep; K is staged in shared memory as
+// rows of stride kLdh = 72 plus a transposed copy (K^T) for the dS K
+// product; no cp.async, TMA or wgmma, and no double buffering.
 //
 // float32 build (the tests' plain comparisons and --dtype float32): the
 // same sweep with float32 FMAs on the CUDA cores. One block of 256 threads;
@@ -77,6 +106,8 @@
 
 #include <cstring>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -89,25 +120,27 @@ __device__ __forceinline__ bool visible(int q_pos, int k_pos, int prefix_len) {
   return q_pos >= k_pos || k_pos < prefix_len;
 }
 
-// Number of leading key tiles a query at absolute position <= q_hi_pos can
-// see (flash_attention.py _causal_kv_bound).
+// Number of leading key tiles of `tile` keys a query at absolute position
+// <= q_hi_pos can see (flash_attention.py _causal_kv_bound).
 __device__ __forceinline__ int kv_tiles(int q_hi_pos, int k_offset,
-                                        int prefix_len, int num_k) {
+                                        int prefix_len, int num_k,
+                                        int tile = kTile) {
   int vis = q_hi_pos - k_offset + 1;
   if (prefix_len) vis = max(vis, prefix_len - k_offset);
   if (vis <= 0) return 0;
-  return min((vis + kTile - 1) / kTile, num_k);
+  return min((vis + tile - 1) / tile, num_k);
 }
 
-// First query tile whose last row can see key tile kt's first key, 0 when
-// the tile overlaps the prefix (flash_attention.py :272-275).
-__device__ __forceinline__ int first_q_tile(int kt, int q_offset, int k_offset,
-                                            int prefix_len, int num_q) {
-  const int k_lo = k_offset + kt * kTile;
+// First query tile of `tile` rows whose last row can see the key at
+// absolute position k_lo, 0 when that key lies in the prefix
+// (flash_attention.py :272-275).
+__device__ __forceinline__ int first_q_tile(int k_lo, int q_offset,
+                                            int prefix_len, int num_q,
+                                            int tile = kTile) {
   if (prefix_len && k_lo < prefix_len) return 0;
   const int rel = k_lo - q_offset;
   if (rel <= 0) return 0;
-  return min(rel / kTile, num_q);
+  return min(rel / tile, num_q);
 }
 
 // ===========================================================================
@@ -251,93 +284,6 @@ __device__ __forceinline__ void store_rows(const float (&acc)[8][4],
   }
 }
 
-// Fragment element i of column group nt sits at row row0 + 8 (i >> 1) and
-// column 8 nt + 2 t + (i & 1) of the 64 x 64 score tile.
-
-__global__ void __launch_bounds__(kThreadsMma)
-    flash_fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o,
-                  float* __restrict__ lse, int Tq, int Tk, int q_offset,
-                  int k_offset, int prefix_len, float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* ks = qs + kTileHalves;
-  bf16* vt = ks + kTileHalves;  // V^T
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * (threadIdx.x >> 5) + g;
-  const int num_q = (Tq + kTile - 1) / kTile;
-  const int num_k = (Tk + kTile - 1) / kTile;
-  const int qt = num_q - 1 - static_cast<int>(blockIdx.x);  // longest first
-  const long bh = blockIdx.y;
-  const int q0 = qt * kTile;
-  const int nq = min(kTile, Tq - q0);
-  stage(q + (bh * Tq + q0) * kDh, nq, qs);
-  __syncthreads();
-  unsigned qa[4][4];
-  load_a(qs, row0, t, qa);
-  const int n_kt = kv_tiles(q_offset + q0 + nq - 1, k_offset, prefix_len, num_k);
-
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    const int nk = min(kTile, Tk - k0);
-    __syncthreads();  // every warp is done with the previous ks, vt
-    stage(k + (bh * Tk + k0) * kDh, nk, ks);
-    stage_t(v + (bh * Tk + k0) * kDh, nk, vt);
-    __syncthreads();
-    float s[8][4];
-    scores(qa, ks, g, t, s);
-    unsigned ok = 0;  // bit 4 nt + i: element (nt, i) is visible
-    float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, kc = 8 * nt + 2 * t + (i & 1);
-        const bool vis = kc < nk && visible(q_offset + q0 + row0 + 8 * h,
-                                            k_offset + k0 + kc, prefix_len);
-        ok |= static_cast<unsigned>(vis) << (4 * nt + i);
-        s[nt][i] = vis ? s[nt][i] * scale : kNegInf;
-        mx[h] = fmaxf(mx[h], s[nt][i]);
-      }
-    float corr[2], sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float m_new = fmaxf(m[h], quad_max(mx[h]));
-      corr[h] = expf(m[h] - m_new);
-      m[h] = m_new;
-    }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1;
-        s[nt][i] = (ok >> (4 * nt + i)) & 1u ? expf(s[nt][i] - m[h]) : 0.f;
-        sum[h] += s[nt][i];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + quad_sum(sum[h]);
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[dt][i] *= corr[i >> 1];
-    accumulate(s, vt, g, t, acc);
-  }
-  float inv[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float l_safe = fmaxf(l[h], 1e-20f);
-    inv[h] = 1.f / l_safe;
-    const int r = row0 + 8 * h;
-    if (t == 0 && r < nq) lse[bh * Tq + q0 + r] = m[h] + logf(l_safe);
-  }
-  store_rows(acc, inv, row0, nq, t, o + (bh * Tq + q0) * kDh);
-}
-
 __global__ void __launch_bounds__(kThreadsMma)
     flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -405,77 +351,524 @@ __global__ void __launch_bounds__(kThreadsMma)
   store_rows(acc, one, row0, nq, t, dq + (bh * Tq + q0) * kDh);
 }
 
-__global__ void __launch_bounds__(kThreadsMma)
-    flash_dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dk,
-                  bf16* __restrict__ dv, int Tq, int Tk, int q_offset,
-                  int k_offset, int prefix_len, float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dos = qs + kTileHalves;
-  bf16* qt_s = dos + kTileHalves;   // Q^T
-  bf16* dot_s = qt_s + kTileHalves;  // dO^T
-  float* lse_s = reinterpret_cast<float*>(dot_s + kTileHalves);
-  float* delta_s = lse_s + kTile;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * (threadIdx.x >> 5) + g;  // this warp's keys
-  const int num_q = (Tq + kTile - 1) / kTile;
-  const int kt = blockIdx.x;  // early key tiles have the most query tiles
-  const long bh = blockIdx.y;
-  const int k0 = kt * kTile;
-  const int nk = min(kTile, Tk - k0);
-  // K and V pass through the Q and dO buffers into registers
-  stage(k + (bh * Tk + k0) * kDh, nk, qs);
-  stage(v + (bh * Tk + k0) * kDh, nk, dos);
-  __syncthreads();
-  unsigned ka[4][4], va[4][4];
-  load_a(qs, row0, t, ka);
-  load_a(dos, row0, t, va);
-  const int start = first_q_tile(kt, q_offset, k_offset, prefix_len, num_q);
+// ===========================================================================
+// bfloat16, forward and dK/dV: wgmma, TMA and an mbarrier ring
+// ===========================================================================
 
-  float dk_acc[8][4], dv_acc[8][4];
+using hopper::desc_sw128;
+using hopper::fence_regs;
+using hopper::kKMajorStep;
+using hopper::kMnMajorStep;
+
+// depth of the streamed-tile rings: a third stage sped dK/dV up 2-9 % and
+// the forward 2 % at T 1024 but slowed it 4 % at T 8192
+constexpr int kFwdStages = 2;
+constexpr int kDkvStages = 3;
+constexpr int kConsumers = 256;      // two warpgroups
+constexpr int kThreadsWs = kConsumers + 32;  // and one producer warp
+constexpr int kRowBytes = kDh * 2;   // one bf16 row: 128 bytes, one swizzle row
+constexpr int kBM = 128;             // forward: query rows of a block
+constexpr int kBN = 128;             // forward: keys of a streamed K/V tile
+constexpr int kBK = 128;             // dK/dV: keys of a block
+constexpr int kBQ = 64;              // dK/dV: queries of a streamed Q/dO tile
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf2 = kNegInf * kLog2e;  // the mask value, exp2 domain
+
+// bf16 pairs of an m64 accumulator's columns 16 kk .. 16 kk + 15: the A
+// fragment of k step kk (hopper.cuh).
+template <int KS>
+__device__ __forceinline__ void pack_a(const float* d, uint32_t (&a)[KS][4]) {
 #pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) dk_acc[dt][i] = dv_acc[dt][i] = 0.f;
-  for (int qt = start; qt < num_q; ++qt) {
-    const int q0 = qt * kTile;
-    const int nq = min(kTile, Tq - q0);
-    __syncthreads();
-    stage(q + (bh * Tq + q0) * kDh, nq, qs);
-    stage(dout + (bh * Tq + q0) * kDh, nq, dos);
-    stage_t(q + (bh * Tq + q0) * kDh, nq, qt_s);
-    stage_t(dout + (bh * Tq + q0) * kDh, nq, dot_s);
-    const int tr = threadIdx.x;
-    if (tr < kTile) {
-      lse_s[tr] = tr < nq ? lse[bh * Tq + q0 + tr] : 0.f;
-      delta_s[tr] = tr < nq ? delta[bh * Tq + q0 + tr] : 0.f;
-    }
-    __syncthreads();
-    // transposed scores: keys as rows, queries as columns
-    float p[8][4], ds[8][4];
-    scores(ka, qs, g, t, p);
-    scores(va, dos, g, t, ds);
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// Write the rows of a 64 x 64 accumulator (this thread's rows r0 and
+// r0 + 8 of out, those below n_rows), times mul[h], as bf16.
+__device__ __forceinline__ void store_acc(const float (&acc)[32],
+                                          const float (&mul)[2], int r0,
+                                          int n_rows, int t,
+                                          bf16* __restrict__ out) {
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    if (r >= n_rows) continue;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kr = row0 + 8 * (i >> 1), qc = 8 * nt + 2 * t + (i & 1);
-        const bool vis = qc < nq && kr < nk &&
-                         visible(q_offset + q0 + qc, k_offset + k0 + kr,
-                                 prefix_len);
-        const float pv = vis ? expf(p[nt][i] * scale - lse_s[qc]) : 0.f;
-        ds[nt][i] = pv * (ds[nt][i] - delta_s[qc]) * scale;
-        p[nt][i] = pv;
-      }
-    accumulate(p, dot_s, g, t, dv_acc);   // dV += P^T dO
-    accumulate(ds, qt_s, g, t, dk_acc);   // dK += dS^T Q
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<unsigned*>(out + static_cast<long>(r) * kDh + 8 * j +
+                                   2 * t) =
+          pack_bf16(acc[4 * j + 2 * h] * mul[h],
+                    acc[4 * j + 2 * h + 1] * mul[h]);
   }
-  const float one[2] = {1.f, 1.f};
-  store_rows(dk_acc, one, row0, nk, t, dk + (bh * Tk + k0) * kDh);
-  store_rows(dv_acc, one, row0, nk, t, dv + (bh * Tk + k0) * kDh);
+}
+
+// Shared memory: two Q tiles (one per work item in flight), kFwdStages K
+// tiles and kFwdStages V tiles (128 rows each, 16 KB), then the barriers;
+// 1 KB of alignment slack.
+constexpr int kFwdTile = kBN * kRowBytes;
+constexpr int kFwdSmem = (2 + 2 * kFwdStages) * kFwdTile +
+                         (4 + 2 * kFwdStages) * 8 + 1024;
+
+// 2^x on the special-function unit, results below 2^-126 flushed to 0 (a
+// probability that small is 0 in bf16 and in the row sum).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Persistent: gridDim.x blocks (at most one per SM) walk the work items
+// (128-query tile, batch*head), longest tiles first, item w going to block
+// w % gridDim.x. The producer loads the next item's Q tile and first K/V
+// tiles while the consumers finish the current one.
+__global__ void __launch_bounds__(kThreadsWs, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    bf16* __restrict__ o, float* __restrict__ lse, int BH,
+                    int Tq, int Tk, int q_offset, int k_offset,
+                    int prefix_len, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);  // 2 tiles
+  bf16* ks = reinterpret_cast<bf16*>(smem + 2 * kFwdTile);
+  bf16* vs = reinterpret_cast<bf16*>(smem + (2 + kFwdStages) * kFwdTile);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + (2 + 2 * kFwdStages) *
+                                                            kFwdTile);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kFwdStages;
+
+  const int num_q = (Tq + kBM - 1) / kBM;
+  const int num_k = (Tk + kBN - 1) / kBN;
+  const int items = num_q * BH;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&q_full[b], 1);
+      hopper::mbar_init(&q_empty[b], kConsumers);
+    }
+    for (int s = 0; s < kFwdStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp: one lane issues TMA
+    if (threadIdx.x == kConsumers) {
+      int step = 0;  // K/V tiles loaded so far, over every item
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        const int q0 = (num_q - 1 - w / BH) * kBM, bh = w % BH;
+        const int b = n & 1;
+        hopper::mbar_wait(&q_empty[b], ((n >> 1) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&q_full[b], kBM * kRowBytes);
+        hopper::tma_load_3d(qs + b * kBM * kDh, &tm_q, &q_full[b], 0, q0, bh);
+        const int n_kt = kv_tiles(q_offset + min(q0 + kBM, Tq) - 1, k_offset,
+                                  prefix_len, num_k, kBN);
+        for (int kt = 0; kt < n_kt; ++kt, ++step) {
+          const int s = step % kFwdStages;
+          hopper::mbar_wait(&empty[s], ((step / kFwdStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * kFwdTile);
+          hopper::tma_load_3d(ks + s * kBN * kDh, &tm_k, &full[s], 0,
+                              kt * kBN, bh);
+          hopper::tma_load_3d(vs + s * kBN * kDh, &tm_v, &full[s], 0,
+                              kt * kBN, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows qw0 .. qw0 + 63 of an item
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;
+  int step = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const int q0 = (num_q - 1 - w / BH) * kBM, bh = w % BH;
+    const int b = n & 1;
+    const int n_kt = kv_tiles(q_offset + min(q0 + kBM, Tq) - 1, k_offset,
+                              prefix_len, num_k, kBN);
+    const int qw0 = q0 + 64 * wg;
+    const int r0 = qw0 + 16 * warp + g;  // this thread's rows: r0, r0 + 8
+    const int wg_kt = qw0 < Tq ? kv_tiles(q_offset + min(qw0 + 64, Tq) - 1,
+                                          k_offset, prefix_len, num_k, kBN)
+                               : 0;
+    const uint64_t q_desc = desc_sw128(qs + (b * kBM + 64 * wg) * kDh);
+
+    float m[2] = {kNegInf2, kNegInf2}, l[2] = {0.f, 0.f}, acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    hopper::mbar_wait(&q_full[b], (n >> 1) & 1);
+    for (int kt = 0; kt < n_kt; ++kt, ++step) {
+      const int s = step % kFwdStages;
+      hopper::mbar_wait(&full[s], (step / kFwdStages) & 1);
+      if (kt < wg_kt) {  // uniform over the warpgroup
+        const int k0 = kt * kBN;
+        float sc[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+        const uint64_t k_desc = desc_sw128(ks + s * kBN * kDh);
+        fence_regs(sc);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n128k16_ss(sc, q_desc + kk * kKMajorStep,
+                                      k_desc + kk * kKMajorStep, kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_regs(sc);
+
+        // every key of the tile visible to every row of the warpgroup?
+        const int k_hi = k_offset + k0 + kBN - 1;
+        const bool open = k0 + kBN <= Tk &&
+                          (q_offset + qw0 >= k_hi || k_hi < prefix_len);
+        float mx[2] = {kNegInf2, kNegInf2};
+        if (open) {  // the max of the raw scores, scaled once (c > 0)
+#pragma unroll
+          for (int i = 0; i < 64; ++i)
+            mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+          mx[0] *= c;
+          mx[1] *= c;
+        } else {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int h = (i >> 1) & 1, kc = 8 * (i >> 2) + 2 * t + (i & 1);
+            const bool vis = k0 + kc < Tk &&
+                             visible(q_offset + r0 + 8 * h, k_offset + k0 + kc,
+                                     prefix_len);
+            sc[i] = vis ? sc[i] * c : kNegInf2;
+            mx[h] = fmaxf(mx[h], sc[i]);
+          }
+        }
+        float corr[2], base[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float m_new = fmaxf(m[h], quad_max(mx[h]));
+          corr[h] = exp2_ftz(m[h] - m_new);
+          m[h] = m_new;
+          // a row with nothing visible yet: every score is the mask value,
+          // and exp2(mask - 0) = 0 keeps its p at 0
+          base[h] = m_new == kNegInf2 ? 0.f : m_new;
+        }
+        if (open) {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int h = (i >> 1) & 1;
+            sc[i] = exp2_ftz(fmaf(sc[i], c, -base[h]));
+            sum[h] += sc[i];
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 64; ++i) {
+            const int h = (i >> 1) & 1;
+            sc[i] = exp2_ftz(sc[i] - base[h]);
+            sum[h] += sc[i];
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[i] *= corr[(i >> 1) & 1];
+
+        uint32_t pa[8][4];  // P as bf16 A fragments
+        pack_a<8>(sc, pa);
+        const uint64_t v_desc = desc_sw128(vs + s * kBN * kDh);
+        fence_regs(acc);
+        fence_regs(pa);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk],
+                                        v_desc + kk * kMnMajorStep);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(pa);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+    hopper::mbar_arrive(&q_empty[b]);  // this item's S products are done
+
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float l_safe = fmaxf(quad_sum(l[h]), 1e-20f);
+      inv[h] = 1.f / l_safe;
+      const int r = r0 + 8 * h;
+      if (t == 0 && r < Tq)
+        lse[static_cast<long>(bh) * Tq + r] = m[h] * kLn2 + logf(l_safe);
+    }
+    store_acc(acc, inv, r0, Tq, t, o + static_cast<long>(bh) * Tq * kDh);
+  }
+}
+
+// Shared memory: two K and two V tiles (128 rows; one pair per work item
+// in flight), kDkvStages Q and kDkvStages dO tiles (64 rows), kDkvStages
+// rows of lse * log2 e and of delta, the barriers.
+constexpr int kDkvKvTile = kBK * kRowBytes;
+constexpr int kDkvQTile = kBQ * kRowBytes;
+constexpr int kDkvSmem = 4 * kDkvKvTile + 2 * kDkvStages * kDkvQTile +
+                         2 * kDkvStages * kBQ * 4 + (4 + 2 * kDkvStages) * 8 +
+                         1024;
+
+// Persistent like the forward: blocks walk the work items (128-key tile,
+// batch*head), the early key tiles (the most query tiles) first.
+__global__ void __launch_bounds__(kThreadsWs, 1)
+    flash_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int BH, int Tq, int Tk,
+                    int q_offset, int k_offset, int prefix_len, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // 2 tiles
+  bf16* vs = reinterpret_cast<bf16*>(smem + 2 * kDkvKvTile);  // 2 tiles
+  bf16* qs = reinterpret_cast<bf16*>(smem + 4 * kDkvKvTile);
+  bf16* dos = qs + kDkvStages * kBQ * kDh;
+  float* lse_s = reinterpret_cast<float*>(smem + 4 * kDkvKvTile +
+                                          2 * kDkvStages * kDkvQTile);
+  float* delta_s = lse_s + kDkvStages * kBQ;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(delta_s + kDkvStages * kBQ);
+  uint64_t* kv_empty = kv_full + 2;
+  uint64_t* full = kv_empty + 2;
+  uint64_t* empty = full + kDkvStages;
+
+  const int num_q = (Tq + kBQ - 1) / kBQ;
+  const int items = ((Tk + kBK - 1) / kBK) * BH;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&kv_full[b], 1);
+      hopper::mbar_init(&kv_empty[b], kConsumers);
+    }
+    for (int s = 0; s < kDkvStages; ++s) {
+      hopper::mbar_init(&full[s], 32);  // the producer warp's lanes
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    int step = 0;  // Q/dO tiles loaded so far, over every item
+    for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+      const int k0 = (w / BH) * kBK, bh = w % BH;
+      const int b = n & 1;
+      if (lane == 0) {
+        hopper::mbar_wait(&kv_empty[b], ((n >> 1) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&kv_full[b], 2 * kDkvKvTile);
+        hopper::tma_load_3d(ks + b * kBK * kDh, &tm_k, &kv_full[b], 0, k0, bh);
+        hopper::tma_load_3d(vs + b * kBK * kDh, &tm_v, &kv_full[b], 0, k0, bh);
+      }
+      const int start = first_q_tile(k_offset + k0, q_offset, prefix_len,
+                                     num_q, kBQ);
+      for (int qt = start; qt < num_q; ++qt, ++step) {
+        const int s = step % kDkvStages;
+        const int q0 = qt * kBQ;
+        hopper::mbar_wait(&empty[s], ((step / kDkvStages) & 1) ^ 1);
+        // each lane writes 2 of the tile's lse and delta rows, 0 past Tq;
+        // its arrival below publishes them
+        for (int r = lane; r < kBQ; r += 32) {
+          const bool in = q0 + r < Tq;
+          const long at = static_cast<long>(bh) * Tq + q0 + r;
+          lse_s[s * kBQ + r] = in ? lse[at] * kLog2e : 0.f;
+          delta_s[s * kBQ + r] = in ? delta[at] : 0.f;
+        }
+        if (lane == 0) {
+          hopper::mbar_arrive_expect_tx(&full[s], 2 * kDkvQTile);
+          hopper::tma_load_3d(qs + s * kBQ * kDh, &tm_q, &full[s], 0, q0, bh);
+          hopper::tma_load_3d(dos + s * kBQ * kDh, &tm_do, &full[s], 0, q0,
+                              bh);
+        } else {
+          hopper::mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns keys kw0 .. kw0 + 63 of an item
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;
+  int step = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const int k0 = (w / BH) * kBK, bh = w % BH;
+    const int b = n & 1;
+    const int start = first_q_tile(k_offset + k0, q_offset, prefix_len, num_q,
+                                   kBQ);
+    const int kw0 = k0 + 64 * wg;
+    const int r0 = kw0 + 16 * warp + g;  // this thread's keys: r0, r0 + 8
+    const int wg_start = kw0 < Tk ? first_q_tile(k_offset + kw0, q_offset,
+                                                 prefix_len, num_q, kBQ)
+                                  : num_q;
+    const int k_hi = k_offset + kw0 + 63;  // the warpgroup's last key
+    const uint64_t k_desc = desc_sw128(ks + (b * kBK + 64 * wg) * kDh);
+    const uint64_t v_desc = desc_sw128(vs + (b * kBK + 64 * wg) * kDh);
+
+    float dk_acc[32], dv_acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    hopper::mbar_wait(&kv_full[b], (n >> 1) & 1);
+    for (int qt = start; qt < num_q; ++qt, ++step) {
+      const int s = step % kDkvStages;
+      hopper::mbar_wait(&full[s], (step / kDkvStages) & 1);
+      if (qt >= wg_start) {  // uniform over the warpgroup
+        const int q0 = qt * kBQ;
+        const uint64_t q_desc = desc_sw128(qs + s * kBQ * kDh);
+        const uint64_t do_desc = desc_sw128(dos + s * kBQ * kDh);
+        const float* lse2 = lse_s + s * kBQ;
+        const float* dl = delta_s + s * kBQ;
+        // transposed scores: this warpgroup's keys as rows, queries as
+        // columns
+        float st[32], dpt[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+        fence_regs(st);
+        fence_regs(dpt);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n64k16_ss(st, k_desc + kk * kKMajorStep,
+                                     q_desc + kk * kKMajorStep, kk);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          hopper::wgmma_m64n64k16_ss(dpt, v_desc + kk * kKMajorStep,
+                                     do_desc + kk * kKMajorStep, kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // S^T is in; dP^T may still run
+        fence_regs(st);
+
+        // every (key, query) pair of the tile visible and inside both ends?
+        const bool open = q0 + kBQ <= Tq && kw0 + 64 <= Tk &&
+                          (q_offset + q0 >= k_hi || k_hi < prefix_len);
+        if (open) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+            st[i] = exp2_ftz(fmaf(st[i], c, -lse2[qc]));
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int kr = r0 + 8 * ((i >> 1) & 1);
+            const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+            const bool vis = q0 + qc < Tq && kr < Tk &&
+                             visible(q_offset + q0 + qc, k_offset + kr,
+                                     prefix_len);
+            st[i] = vis ? exp2_ftz(fmaf(st[i], c, -lse2[qc])) : 0.f;  // P^T
+          }
+        }
+        hopper::wgmma_wait<0>();
+        fence_regs(dpt);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int qc = 8 * (i >> 2) + 2 * t + (i & 1);
+          dpt[i] = st[i] * (dpt[i] - dl[qc]) * scale;  // dS^T
+        }
+        uint32_t pa[4][4], da[4][4];
+        pack_a<4>(st, pa);
+        pack_a<4>(dpt, da);
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pa);
+        fence_regs(da);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO
+          hopper::wgmma_m64n64k16_rs_tb(dv_acc, pa[kk],
+                                        do_desc + kk * kMnMajorStep);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q
+          hopper::wgmma_m64n64k16_rs_tb(dk_acc, da[kk],
+                                        q_desc + kk * kMnMajorStep);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pa);
+        fence_regs(da);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+    hopper::mbar_arrive(&kv_empty[b]);  // this item's K and V reads are done
+    const float one[2] = {1.f, 1.f};
+    store_acc(dk_acc, one, r0, Tk, t, dk + static_cast<long>(bh) * Tk * kDh);
+    store_acc(dv_acc, one, r0, Tk, t, dv + static_cast<long>(bh) * Tk * kDh);
+  }
+}
+
+// One 64 x 64 x 64 product in each operand form the kernels use, for the
+// card tests: mode 0, c = a b^T with a and b from shared memory, both
+// K-major (the score products); mode 1, c = a b with a from registers and
+// b MN-major (the P V-shaped products). One warpgroup; a, b bf16 [64, 64]
+// row-major, c float32 [64, 64].
+__global__ void __launch_bounds__(128)
+    wgmma_tile_test(const __grid_constant__ CUtensorMap tm_a,
+                    const __grid_constant__ CUtensorMap tm_b,
+                    const bf16* __restrict__ a, float* __restrict__ c,
+                    int mode) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  bf16* as = reinterpret_cast<bf16*>(smem);
+  bf16* bs = reinterpret_cast<bf16*>(smem + 64 * kRowBytes);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 128 * kRowBytes);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_arrive_expect_tx(bar, 128 * kRowBytes);
+    hopper::tma_load_3d(as, &tm_a, bar, 0, 0, 0);
+    hopper::tma_load_3d(bs, &tm_b, bar, 0, 0, 0);
+  }
+  hopper::mbar_wait(bar, 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  uint32_t fa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      fa[kk][r] = *reinterpret_cast<const uint32_t*>(
+          a + (r0 + 8 * (r & 1)) * kDh + 16 * kk + 8 * (r >> 1) + 2 * t);
+  const uint64_t a_desc = desc_sw128(as), b_desc = desc_sw128(bs);
+  fence_regs(d);
+  fence_regs(fa);
+  hopper::wgmma_fence();
+  if (mode == 0) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_ss(d, a_desc + kk * kKMajorStep,
+                                 b_desc + kk * kKMajorStep, 1);
+  } else {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_rs_tb(d, fa[kk], b_desc + kk * kMnMajorStep);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs(d);
+  fence_regs(fa);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    c[(r0 + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
 }
 
 // ===========================================================================
@@ -749,7 +1142,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nk = min(kTile, Tk - k0);
   load_tile(k + (bh * Tk + k0) * kDh, nk, ks);
   load_tile(v + (bh * Tk + k0) * kDh, nk, vs);
-  const int start = first_q_tile(kt, q_offset, k_offset, prefix_len, num_q);
+  const int start = first_q_tile(k_offset + k0, q_offset, prefix_len, num_q);
 
   float dk_acc[4][4], dv_acc[4][4];
 #pragma unroll
@@ -825,7 +1218,31 @@ cudaError_t launch(Kernel kernel, int tiles, int BH, int threads, int bytes,
 constexpr int kF32Bytes = static_cast<int>(sizeof(float));
 constexpr int kBf16Bytes = static_cast<int>(sizeof(bf16));
 
-int tiles(int T) { return (T + kTile - 1) / kTile; }
+int tiles(int T, int tile = kTile) { return (T + tile - 1) / tile; }
+
+// Blocks of a persistent kernel: one per SM of the current device, and no
+// more than there are work items.
+int persistent_blocks(int items) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    sms = 1;
+  return min(items, sms);
+}
+
+// Tensor maps over bf16 [BH, T, 64] tensors: `maps[i]` over ptrs[i] with
+// T = rows[i] and boxes of box[i] rows.
+template <int N>
+cudaError_t row_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N],
+                     const int (&rows)[N], const int (&box)[N], int BH) {
+  for (int i = 0; i < N; ++i) {
+    const cudaError_t e =
+        hopper::bf16_rows_map(&maps[i], ptrs[i], BH, rows[i], box[i]);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -846,12 +1263,15 @@ extern "C" int ddl_flash_fwd(const void* q, const void* k, const void* v,
                     static_cast<const float*>(q), static_cast<const float*>(k),
                     static_cast<const float*>(v), static_cast<float*>(o), lse,
                     Tq, Tk, q_offset, k_offset, prefix_len, scale);
-    case 1:
-      return launch(flash_fwd_mma, tiles(Tq), BH, kThreadsMma,
-                    3 * kTileHalves * kBf16Bytes, s,
-                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v), static_cast<bf16*>(o), lse,
-                    Tq, Tk, q_offset, k_offset, prefix_len, scale);
+    case 1: {
+      CUtensorMap m[3];
+      e = row_maps<3>(m, {q, k, v}, {Tq, Tk, Tk}, {kBM, kBN, kBN}, BH);
+      if (e != cudaSuccess) return e;
+      return launch(flash_fwd_wgmma, persistent_blocks(tiles(Tq, kBM) * BH),
+                    1, kThreadsWs, kFwdSmem, s, m[0], m[1], m[2],
+                    static_cast<bf16*>(o), lse, BH, Tq, Tk, q_offset,
+                    k_offset, prefix_len, scale);
+    }
     default:
       return cudaErrorInvalidValue;
   }
@@ -906,17 +1326,31 @@ extern "C" int ddl_flash_dkv(const void* q, const void* k, const void* v,
                     static_cast<const float*>(dout), lse, delta,
                     static_cast<float*>(dkp), static_cast<float*>(dvp), Tq, Tk,
                     q_offset, k_offset, prefix_len, scale);
-    case 1:
-      return launch(flash_dkv_mma, tiles(Tk), BH, kThreadsMma,
-                    4 * kTileHalves * kBf16Bytes + 2 * kTile * kF32Bytes, s,
-                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v),
-                    static_cast<const bf16*>(dout), lse, delta,
-                    static_cast<bf16*>(dkp), static_cast<bf16*>(dvp), Tq, Tk,
-                    q_offset, k_offset, prefix_len, scale);
+    case 1: {
+      CUtensorMap m[4];
+      e = row_maps<4>(m, {q, k, v, dout}, {Tq, Tk, Tk, Tq},
+                      {kBQ, kBK, kBK, kBQ}, BH);
+      if (e != cudaSuccess) return e;
+      return launch(flash_dkv_wgmma, persistent_blocks(tiles(Tk, kBK) * BH),
+                    1, kThreadsWs, kDkvSmem, s, m[0], m[1], m[2], m[3], lse,
+                    delta, static_cast<bf16*>(dkp), static_cast<bf16*>(dvp),
+                    BH, Tq, Tk, q_offset, k_offset, prefix_len, scale);
+    }
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The card tests' check of the two wgmma operand forms: c [64, 64] float32
+// from a, b bf16 [64, 64] (mode 0: a b^T, mode 1: a b).
+extern "C" int ddl_wgmma_tile_test(const void* a, const void* b, float* c,
+                                   int mode, void* stream) {
+  CUtensorMap m[2];
+  cudaError_t e = row_maps<2>(m, {a, b}, {64, 64}, {64, 64}, 1);
+  if (e != cudaSuccess) return e;
+  return launch(wgmma_tile_test, 1, 1, 128, 128 * kRowBytes + 8 + 1024,
+                static_cast<cudaStream_t>(stream), m[0], m[1],
+                static_cast<const bf16*>(a), c, mode);
 }
 
 extern "C" const char* ddl_error_string(int code) {

@@ -19,6 +19,10 @@ the query at ``q_offset + i`` when ``q_pos >= k_pos`` or
 ``k_pos < prefix_len``; a fully masked row gives 0 output and finite
 gradients. Any Tq and Tk; head dim 64 only on the card.
 
+On the card, the bfloat16 forward and dK/dV run on Hopper's wgmma with TMA
+loads through an mbarrier ring (``csrc/hopper.cuh``); dQ is still
+``mma.sync``; the float32 builds are CUDA-core kernels.
+
 Each wrapper takes its plain PyTorch version (``_flash_*_ref``, float32
 math, beside it) when its query lies on the CPU — the tests' route — and on
 a CUDA tensor launches its kernel or raises; it counts its launches in

@@ -223,6 +223,9 @@ FLASH_CASES = [
     (1, 8, 70, 150, 80, 0, 0),      # a query block at an offset
     (1, 8, 100, 100, 0, 0, 37),     # prefix-LM, prefix inside a tile
     (1, 8, 96, 96, 0, 30, 0),       # key offset: early rows fully masked
+    (64, 8, 256, 256, 0, 0, 128),   # seq2seq_s: the prefix ends on a tile
+    (2, 8, 960, 960, 0, 0, 0),      # a multiple of 64, not of 128
+    (2, 8, 48, 1000, 952, 0, 0),    # under one warpgroup of rows, offset
 ]
 
 
@@ -269,6 +272,29 @@ def test_flash_kernels_match_plain_versions(dev, dtype, case):
         else:
             err = _row_rel_err(a, b)
             assert err <= 2.0 ** -6, (name, err)
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+def test_wgmma_operand_forms_match_matmul(dev, mode):
+    """The two wgmma forms the bf16 forward and dK/dV kernels issue, on one
+    64 x 64 x 64 tile loaded by TMA with the 128-byte swizzle: mode 0, a b^T
+    with both operands K-major in shared memory (the score products);
+    mode 1, a b with a from registers and b MN-major (P V, P^T dO, dS^T Q).
+    bf16 products are exact in float32; only the order of the sums
+    differs."""
+    from ddlbench_tpu_torch.ops import _build
+
+    g = torch.Generator().manual_seed(12 + mode)
+    a, b = (torch.randn(64, 64, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    c = torch.empty(64, 64, device=dev)
+    lib = _build.library("flash_attention")
+    _build.check(lib, lib.ddl_wgmma_tile_test(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), mode,
+        torch.cuda.current_stream().cuda_stream), "wgmma_tile_test")
+    want = a.float() @ (b.float().T if mode == 0 else b.float())
+    torch.cuda.synchronize()
+    assert (c - want).abs().max().item() <= 1e-4
 
 
 def test_flash_launch_counters_count_kernel_launches_only(dev):
