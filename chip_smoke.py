@@ -9,12 +9,15 @@ one JSON line; any failure raises and exits non-zero:
 1. build   — compiles the hand-written CUDA kernels from the sources in the
              checkout (ops/csrc/*.cu: paged_attention, flash_attention and
              fused_xent, one nvcc each, started together, for sm_90a) and
-             reports the time; then, for each flash kernel, its registers
-             and spill bytes (the -Xptxas -v log) and its counts of wgmma
-             (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions
-             (cuobjdump -sass). Fails if the bfloat16 forward or dK/dV
-             kernel has no HGMMA or no UTMALDG; without cuobjdump the line
-             says so and checks nothing.
+             reports the time; then, for each flash and fused-head kernel
+             (each template instance of the bfloat16 dh and dW kernels, one
+             per D chunk count), its registers and spill bytes (the
+             -Xptxas -v log) and its counts of wgmma (HGMMA), TMA load
+             (UTMALDG) and mma.sync (HMMA) instructions (cuobjdump -sass).
+             Fails if the bfloat16 flash forward or dK/dV kernel, or the
+             bfloat16 fused-head dh or dW kernel, has no HGMMA, no UTMALDG
+             or any HMMA; without cuobjdump the line says so and checks
+             nothing.
 2. kernels — holds each paged kernel against its plain PyTorch version at
              the serving slice's shapes (rows 8, H 8, dh 64, page 16, a
              64-page pool, scattered random tables, per-row positions with
@@ -43,7 +46,8 @@ one JSON line; any failure raises and exits non-zero:
              path (transformer_s on synthtext at full width and depth,
              random weights from seed 0, continuous policy, closed loop, 16
              requests) on the card, and requires every request completed,
-             both kernels launched, and two requests' emitted tokens to be
+             both kernels launched, no call on the plain path, and two
+             requests' emitted tokens to be
              the greedy choice of the plain full-forward model (the "xla"
              einsum attention, no kernel) run on prompt + emitted tokens
              (each emitted token's logit within 1e-3 of its position's max
@@ -116,16 +120,21 @@ one JSON line; any failure raises and exits non-zero:
              at positions < 127 of each 256-row segment, smoothing 0.1), a
              ragged case (N 1 000, D 64, V 1 000: tail rows and a tail vocab
              tile; every 5th row masked; smoothing 0 and 0.1), all rows
-             masked (sums 0, dh and dW exactly 0) and W = 0 (every logit
-             ties: correct = the valid rows labelled 0). Tolerance: float32
+             masked (sums 0, dh and dW exactly 0), W = 0 (every logit
+             ties: correct = the valid rows labelled 0), and transformer_m's
+             and transformer_t's heads (N 4 096, V 32 768, D 768 with
+             synthmt's masking, D 32). Tolerance: float32
              the objective and CE sums within rtol 1e-5, correct exact, lse
              within 1e-4, dh and dW within 1e-4 max abs; bfloat16 the lse
              within 1e-4, each dh row and each dW column within 2^-6
              relative L2, an argmax mismatch only at a near-tie (the two
              logits within 1e-3; the count is reported). The check must
              reject the plain versions with planted faults on synthmt's
-             case: the last vocab tile skipped (forward, dh) and the label
-             mask dropped (dh, dW).
+             case: the last vocab tile skipped (forward, dh), gold read
+             from the next column, the label mask dropped (dh, dW), the last
+             D half of dh dropped and the last row tile of dW skipped. In
+             bfloat16, dh and dW run again on synthmt's and the D-768 case
+             must give the same bits (no atomics).
 8. fxent_times — each fused kernel, its plain version and a PyTorch
              library yardstick (torch.matmul then F.cross_entropy on the
              float32 logits; for dh and dW the backward of that pair
@@ -141,11 +150,12 @@ one JSON line; any failure raises and exits non-zero:
              steps through make_strategy / train_step / timed_steps.
              Requires every step's loss finite, each flash kernel launched
              8 times a step (once per layer) and each fused-head kernel
-             once a step. Then one step's loss and gradients from the same
-             weights and batch must agree between the fused head and the
-             logits (flash both) and between flash and xla attention (fused
-             both): the loss within 1e-2 absolute, each gradient leaf within
-             5e-2 relative L2 (bf16 activations on every path). Reports the
+             once a step, and no call on the plain path. Then one step's
+             loss and gradients from the same weights and batch must agree
+             between the fused head and the logits (flash both) and
+             between flash and xla attention (fused both): the loss
+             within 1e-2 absolute, each gradient leaf within 5e-2
+             relative L2 (bf16 activations on every path). Reports the
              peak device memory of one step's forward and backward each
              way, then prints the port's lmbench rows for the four forced
              cells.
@@ -155,6 +165,12 @@ one JSON line; any failure raises and exits non-zero:
              finite losses, the same launch counts, 64 x 129 = 8 256 valid
              labels a batch, the fused-vs-logits agreement; then lmbench
              rows for flash+fused and flash+logits on synthmt.
+10b. tiny_dispatch — transformer_t (head dim 8, which the flash and
+             paged kernels do not take) on the card: lmbench's auto cell
+             (B 4, T 1024, 1 + 3 steps) through the plain attention and the
+             fused-head kernels at D 32, servebench (8 requests) through
+             the plain paged attention, both rows' plain_launches > 0, and
+             a forced flash backend raising on head dim 8.
 11. train_profile — 3 warm flash+fused steps under torch.profiler: the
              device's busy share, the top device kernels, and each port
              kernel's device time and launches per step.
@@ -236,10 +252,16 @@ FLASH_BUILT = ("flash_fwd_wgmma", "flash_dkv_wgmma", "flash_dq_mma",
                "flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
                "wgmma_tile_test")
 FLASH_HOPPER = ("flash_fwd_wgmma", "flash_dkv_wgmma")
+# the fused-head library's kernels (the bfloat16 backward ones built for
+# each D chunk count: fx_dh_wgmma<8> is D 449-512), and the bfloat16
+# backward ones that must be wgmma and TMA, with no mma.sync
+FX_BUILT = ("fx_dh_wgmma", "fx_dw_wgmma", "fx_fwd_mma", "fx_fwd_f32",
+            "fx_dh_f32", "fx_dw_f32", "fx_wgmma_tile_test")
+FX_HOPPER = ("fx_dh_wgmma", "fx_dw_wgmma")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 # the port's kernels of a training step, as the profiler names them
 TRAIN_KERNELS = ("flash_fwd_wgmma", "flash_dq_mma", "flash_dkv_wgmma",
-                 "fx_fwd_mma", "fx_dh_mma", "fx_dw_mma")
+                 "fx_fwd_mma", "fx_dh_wgmma", "fx_dw_wgmma")
 LONG_T, LONG_Q = 32_768, 256
 TRAIN_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--steps", "10",
               "--warmup", "2"]
@@ -270,6 +292,8 @@ FX_CASES = (
     ("ragged_s0", 1000, 64, 1000, 0.0, "every5"),
     ("all_masked", 1000, 64, 1000, 0.1, "all"),
     ("zero_head", 1000, 64, 1000, 0.0, "every5"),
+    ("wide", 4096, 768, 32_768, 0.1, "synthmt"),  # transformer_m's head
+    ("narrow", 4096, 32, 32_768, 0.0, "every5"),  # transformer_t's head
 )
 
 
@@ -317,42 +341,62 @@ def sass_counts(tool: str, lib: Path) -> dict:
     return out
 
 
-def short_name(mangled: str) -> str | None:
-    return next((k for k in FLASH_BUILT if k in mangled), None)
+def short_name(mangled: str, names) -> str | None:
+    """The kernel of ``names`` a mangled name is, with its template
+    argument where it has one (``fx_dh_wgmma<8>``)."""
+    name = next((k for k in names if k in mangled), None)
+    m = name and re.search(name + r"ILi(\d+)E", mangled)
+    return f"{name}<{m.group(1)}>" if m else name
+
+
+def library_kernels(_build, tool, lib_name, names, hopper):
+    """{kernel: registers, spill bytes, HGMMA / UTMALDG / HMMA counts} of
+    one library; raises if a kernel named in ``hopper`` (each of its
+    template instances) lacks HGMMA or UTMALDG, or has HMMA."""
+    lib = _build._target(lib_name)
+    kernels = {}
+    for mangled, rec in ptxas_report(lib.with_suffix(".log").read_text()
+                                     ).items():
+        if short_name(mangled, names):
+            kernels[short_name(mangled, names)] = dict(rec)
+    if tool is None:
+        return kernels
+    for mangled, counts in sass_counts(tool, lib).items():
+        if short_name(mangled, names):
+            kernels.setdefault(short_name(mangled, names), {}).update(counts)
+    for name, rec in kernels.items():
+        if name.split("<")[0] in hopper and not (
+                rec.get("HGMMA") and rec.get("UTMALDG")
+                and rec.get("HMMA") == 0):
+            raise AssertionError(f"{name} was not compiled to wgmma and TMA "
+                                 f"loads alone: {rec}")
+    if not all(any(k.split("<")[0] == h for k in kernels) for h in hopper):
+        raise AssertionError(f"{lib_name}: a kernel of {hopper} is missing "
+                             f"from {sorted(kernels)}")
+    return kernels
 
 
 def phase_build(_build):
     """Compile every kernel library (one nvcc each, started together),
-    then show what the flash library's kernels were compiled to: registers
-    and spill bytes from the -Xptxas -v log, and the counts of wgmma
-    (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA) instructions from
-    cuobjdump. Fails if the bfloat16 forward or dK/dV kernel lacks HGMMA
-    or UTMALDG."""
+    then show what the flash and fused-head libraries' kernels were
+    compiled to: registers and spill bytes from the -Xptxas -v log, and the
+    counts of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
+    instructions from cuobjdump. Fails if the bfloat16 flash forward or
+    dK/dV kernel, or the bfloat16 fused-head dh or dW kernel, lacks HGMMA
+    or UTMALDG or has HMMA."""
     t0 = time.perf_counter()
     built = _build.build()
     seconds = time.perf_counter() - t0
     for name in built:
         print(_build._target(name).with_suffix(".log").read_text(),
               file=sys.stderr)
-    lib = _build._target("flash_attention")
-    kernels = {}
-    for mangled, rec in ptxas_report(lib.with_suffix(".log").read_text()
-                                     ).items():
-        if short_name(mangled):
-            kernels[short_name(mangled)] = dict(rec)
     tool = cuobjdump()
-    if tool is not None:
-        for mangled, counts in sass_counts(tool, lib).items():
-            if short_name(mangled):
-                kernels.setdefault(short_name(mangled), {}).update(counts)
-        for name in FLASH_HOPPER:
-            rec = kernels.get(name, {})
-            if not (rec.get("HGMMA") and rec.get("UTMALDG")):
-                raise AssertionError(f"{name} was not compiled to wgmma and "
-                                     f"TMA loads: {rec}")
     emit({"phase": "build", "seconds": seconds, "nvcc_seconds": built,
           "cuobjdump": tool or "not found: instruction counts not checked",
-          "flash_attention_kernels": kernels})
+          "flash_attention_kernels": library_kernels(
+              _build, tool, "flash_attention", FLASH_BUILT, FLASH_HOPPER),
+          "fused_xent_kernels": library_kernels(
+              _build, tool, "fused_xent", FX_BUILT, FX_HOPPER)})
 
 
 def emit(obj) -> None:
@@ -678,6 +722,9 @@ def phase_serve(torch, dev):
     if rec["completed"] != args.requests:
         raise AssertionError(f"completed {rec['completed']} of "
                              f"{args.requests} requests")
+    if rec["plain_launches"]:
+        raise AssertionError(f"{rec['plain_launches']} paged calls took the "
+                             "plain path on the main path")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} never launched on the main path")
@@ -1239,8 +1286,10 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
     """The bfloat16 check must reject the kernels' outputs held against
     plain versions with planted faults: the last vocab tile (64 columns)
     skipped (forward: its lse and zsum; dh), gold read from the next
-    column, and the label mask dropped (dh, dW). Returns what the check
-    says of each."""
+    column, the label mask dropped (dh, dW), and two aimed at the wgmma
+    design's split of the work: the last D half of dh dropped (one
+    warpgroup's output chunks), and the last row tile of dW skipped. Returns
+    what the check says of each."""
     got, dh, dw = outs
     want, dh_ref, dw_ref = refs
     V = w.shape[1]
@@ -1254,6 +1303,11 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
     dh_cut = fx._fxent_dh_ref(h, w_tail0, labels, lse, coef)
     dh_nomask, dw_nomask = fx_unmasked_plain(torch, fx, h, w, labels, lse,
                                              coef, dh_ref, dw_ref)
+    dh_half = dh_ref.clone()
+    dh_half[:, h.shape[1] // 2:] = 0
+    n_cut = (h.shape[0] - 1) // 64 * 64  # the rows before the last tile
+    dw_cut = fx._fxent_dw_ref(h[:n_cut], w, labels[:n_cut], lse[:n_cut],
+                              coef)
     torch.cuda.synchronize()
     checks = {
         "fxent_fwd_last_tile_skipped":
@@ -1270,6 +1324,10 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
             ("row_rel_err", row_rel_err(dh, dh_nomask), BF16_ROW_RTOL),
         "fxent_dw_mask_dropped":
             ("col_rel_err", col_rel_err(dw, dw_nomask), BF16_ROW_RTOL),
+        "fxent_dh_last_d_half_dropped":
+            ("row_rel_err", row_rel_err(dh, dh_half), BF16_ROW_RTOL),
+        "fxent_dw_last_row_tile_skipped":
+            ("col_rel_err", col_rel_err(dw, dw_cut), BF16_ROW_RTOL),
     }
     verdicts = {}
     for name, (what, err, tol) in checks.items():
@@ -1280,10 +1338,23 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
     return verdicts
 
 
+def fx_rerun_bitwise(torch, fx, h, w, labels, lse, coef, outs):
+    """dh and dW run again on the same inputs must give the same bits (no
+    atomics); raises if not."""
+    dh = fx.fxent_dh(h, w, labels, lse, coef)
+    dw = fx.fxent_dw(h, w, labels, lse, coef)
+    torch.cuda.synchronize()
+    same = {"fxent_dh": bool(torch.equal(dh, outs[1])),
+            "fxent_dw": bool(torch.equal(dw, outs[2]))}
+    if not all(same.values()):
+        raise AssertionError(f"a rerun changed the bits: {same}")
+    return same
+
+
 def phase_fxent_kernels(torch, fx, dev):
     gen = torch.Generator().manual_seed(3)
     worst = {name: 0.0 for name in FX_KERNELS}
-    checks, faults = [], None
+    checks, faults, reruns = [], None, {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for case, N, D, V, s, masking in FX_CASES:
@@ -1319,13 +1390,17 @@ def phase_fxent_kernels(torch, fx, dev):
             if dtype == torch.bfloat16 and case == "synthmt":
                 faults = fx_planted_faults(torch, fx, h, w, labels, coef,
                                            outs, refs)
+            if dtype == torch.bfloat16 and case in ("synthmt", "wide"):
+                reruns[case] = fx_rerun_bitwise(torch, fx, h, w, labels,
+                                                refs[0][0], coef, outs)
             del h, w, labels, outs, refs
     torch.cuda.empty_cache()
     emit({"phase": "fxent_kernels", "float32_sum_rtol": FX_SUM_RTOL,
           "float32_max_abs_tol": FX_TOL, "lse_tol": FX_TOL,
           "gold_tol": FX_TOL, "zsum_rtol_of_abs_sum": FX_ZSUM_RTOL,
           "bfloat16_rel_tol": BF16_ROW_RTOL, "near_tie": FX_TIE,
-          "cotangents": FX_COT, "checks": checks, "planted_faults": faults})
+          "cotangents": FX_COT, "checks": checks, "planted_faults": faults,
+          "reruns_bitwise_equal": reruns})
     return worst
 
 
@@ -1470,8 +1545,12 @@ def train_cell(torch, fa, fx, dev, argv, phase):
                 **{name: getattr(fx, name) for name in FX_KERNELS}}
     for fn in counters.values():
         fn.launches = 0
+    plain0 = lmbench.plain_launches()
     dt = timed_steps(run_step, data.batch, args.steps, args.warmup)
     launches = {name: fn.launches for name, fn in counters.items()}
+    if lmbench.plain_launches() != plain0:
+        raise AssertionError(f"{lmbench.plain_launches() - plain0} calls "
+                             "took the plain path on the main path")
     steps_run = len(losses)
     loss_vals = torch.stack(losses).float().tolist()
     if not all(math.isfinite(x) for x in loss_vals):
@@ -1547,6 +1626,55 @@ def phase_seq2seq(torch, fa, fx, dev):
     if rc != 0:
         raise AssertionError(f"lmbench exited {rc}")
     return launches
+
+
+def phase_tiny_dispatch(torch, dev):
+    """transformer_t (d 32, 4 heads: head dim 8, which the flash and paged
+    kernels do not take) on the card: lmbench's ``auto`` cell trains a few
+    steps through the plain attention and the fused-head kernels (D 32),
+    servebench serves through the plain paged attention, each row
+    reporting its plain-path calls (> 0), and a forced ``flash`` raises."""
+    from ddlbench_tpu_torch.models.transformer import (causal_attention,
+                                                       set_attention_backend)
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.ops import fused_xent as fx
+    from ddlbench_tpu_torch.tools import lmbench, servebench
+
+    lm_args = lmbench.build_parser().parse_args(
+        ["-m", "transformer_t", "-b", "synthtext", "--batch-size", "4",
+         "--steps", "3", "--warmup", "1", "--configs", "auto"])
+    fx.fxent_dh.launches = fx.fxent_dw.launches = 0
+    try:
+        lm = lmbench.run_config(lm_args, "auto", False, dev)
+    finally:
+        set_attention_backend("auto")
+    fused = {"fxent_dh": fx.fxent_dh.launches,
+             "fxent_dw": fx.fxent_dw.launches}
+    sv_args = servebench.build_parser().parse_args(
+        ["-m", "transformer_t", "-b", "synthtext", "--policies",
+         "continuous", "--arrival", "closed", "--requests", "8", "--seed",
+         "0"])
+    model = get_model(sv_args.model, sv_args.benchmark,
+                      seed=sv_args.seed).to(dev)
+    (sv, _, _), = servebench.run(sv_args, model, dev)
+    q = torch.zeros(1, 4, 16, 8, dtype=torch.bfloat16, device=dev)
+    set_attention_backend("flash")
+    try:
+        causal_attention(q, q, q)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    finally:
+        set_attention_backend("auto")
+    rec = {"phase": "tiny_dispatch", "lmbench_row": lm,
+           "fused_head_launches": fused, "servebench_row": sv,
+           "forced_flash_dh8_raises": raised}
+    if not (lm["plain_launches"] > 0 and sv["plain_launches"] > 0
+            and sv["completed"] == sv_args.requests and raised
+            and all(n > 0 for n in fused.values())
+            and math.isfinite(lm["ms_per_step"])):
+        raise AssertionError(f"transformer_t on the card: {rec}")
+    emit(rec)
 
 
 def phase_train_profile(torch, strategy, data):
@@ -1625,6 +1753,7 @@ def main() -> int:
     fx_timed = phase_fxent_times(torch, fx, dev)
     train_launches, strategy, data = phase_train(torch, fa, fx, dev)
     phase_seq2seq(torch, fa, fx, dev)
+    phase_tiny_dispatch(torch, dev)
     phase_train_profile(torch, strategy, data)
 
     def row(name, source, replaces, n, err, t):

@@ -8,10 +8,17 @@ dense weights are ``[in, out]`` and every projection is ``x @ W``, as in
 the JAX code, so converted weights (convert.py) are used as they are.
 
 Attention dispatches like the reference's (:func:`set_attention_backend`):
-``"flash"`` takes the flash kernels (ops/flash_attention.py), ``"xla"`` the
-plain einsum, and ``"auto"`` the kernels for a CUDA tensor and the plain
-einsum for a CPU tensor. The reference's TPU-measured length crossover for
-``"auto"`` is not carried over; the card's is still to be measured.
+``"flash"`` takes the flash kernels (ops/flash_attention.py) and raises on
+CUDA operands they refuse, ``"xla"`` the plain einsum, and ``"auto"`` the
+kernels exactly where they take the operands
+(``flash_attention.kernel_takes``: a CUDA device, head dim 64, float32 or
+bfloat16), else the plain einsum, as the reference's ``auto`` takes its XLA
+path for shapes its kernel does not take. An ``"auto"`` call on CUDA
+operands the kernels refuse is counted in
+``flash_attention.plain_launches``. The serving passes dispatch the paged
+ops the same way (``paged_decode.kernel_takes``). The reference's
+TPU-measured length crossover for ``"auto"`` is not carried over; the
+card's is still to be measured.
 
 Three numerics of the reference are kept on purpose (tests pin them):
 
@@ -35,11 +42,12 @@ from torch import nn
 
 from ddlbench_tpu_torch.config import ATTENTION_BACKENDS
 from ddlbench_tpu_torch.models.layers import LayerModel, ServeLayer
+from ddlbench_tpu_torch.ops import flash_attention as fa
 from ddlbench_tpu_torch.ops.flash_attention import flash_attention
 from ddlbench_tpu_torch.ops.fused_xent import (fused_linear_xent,
                                               fused_linear_xent_eval)
-from ddlbench_tpu_torch.ops.paged_decode import (paged_attention,
-                                                 paged_chunk_attention,
+from ddlbench_tpu_torch.ops.paged_decode import (paged_attention_auto,
+                                                 paged_chunk_attention_auto,
                                                  paged_table_chunk_write,
                                                  paged_table_span_write,
                                                  paged_table_write,
@@ -91,11 +99,25 @@ def set_attention_backend(backend: str) -> None:
     _ATTENTION_BACKEND[0] = backend
 
 
-def _use_flash(q: torch.Tensor) -> bool:
+def _use_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether :func:`causal_attention` takes the flash kernels under the
+    current backend (module docstring). Counts an ``"auto"`` call the
+    kernels refuse on CUDA; raises for a forced ``"flash"`` one."""
     mode = _ATTENTION_BACKEND[0]
-    if mode == "auto":
-        return q.device.type == "cuda"
-    return mode == "flash"
+    if mode == "xla":
+        return False
+    if q.device.type == "cpu":
+        return mode == "flash"  # the wrappers' plain versions
+    if fa.kernel_takes(q, k, v):
+        return True
+    if mode == "flash":
+        raise ValueError(
+            f"attention backend 'flash': the flash kernels do not take q "
+            f"{tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype} on "
+            f"{q.device} (head dim {fa.KERNEL_DH}, float32 or bfloat16); use "
+            "'auto' or 'xla'")
+    flash_attention.plain_launches += 1
+    return False
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,7 +129,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     every query. Takes the flash kernels when the backend says so (module
     docstring); else the reference's plain path, where a fully masked row
     returns 0."""
-    if _use_flash(q):
+    if _use_flash(q, k, v):
         return flash_attention(q, k, v, q_offset, k_offset, prefix_len)
     dh = q.shape[-1]
     scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(dh)
@@ -218,7 +240,8 @@ class TransformerBlock(ServeLayer):
         cache = {**pool, "table": table}
         paged_table_chunk_write(cache, k.transpose(1, 2), v.transpose(1, 2),
                                 start, page)
-        o = paged_chunk_attention(q.contiguous(), cache, start, npl, page)
+        o = paged_chunk_attention_auto(q.contiguous(), cache, start, npl,
+                                       page)
         x = self._proj(o.transpose(1, 2).reshape(B, C, d), x)
         return self.mlp(x)
 
@@ -230,7 +253,8 @@ class TransformerBlock(ServeLayer):
         cache = {**pool, "table": table}
         paged_table_write(cache, k.transpose(1, 2), v.transpose(1, 2), pos,
                           page)
-        o = paged_attention(q[:, :, 0].contiguous(), cache, pos, npl, page)
+        o = paged_attention_auto(q[:, :, 0].contiguous(), cache, pos, npl,
+                                 page)
         x = self._proj(o.reshape(B, 1, d), x)
         return self.mlp(x)
 
@@ -244,7 +268,8 @@ class TransformerBlock(ServeLayer):
         cache = {**pool, "table": table}
         paged_table_span_write(cache, k.transpose(1, 2), v.transpose(1, 2),
                                pos0, page)
-        o = paged_chunk_attention(q.contiguous(), cache, pos0, npl, page)
+        o = paged_chunk_attention_auto(q.contiguous(), cache, pos0, npl,
+                                       page)
         x = self._proj(o.transpose(1, 2).reshape(B, W, d), x)
         return self.mlp(x)
 

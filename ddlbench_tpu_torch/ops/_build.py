@@ -63,6 +63,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ddl_fxent_dh": [_P] * 6 + [_I] * 4 + [_P],
         # h, w, labels, lse, coef, dw, then as above
         "ddl_fxent_dw": [_P] * 6 + [_I] * 4 + [_P],
+        # a, b, c, mode, stream: the card tests' wgmma operand-form check
+        "ddl_fx_wgmma_tile_test": [_P] * 3 + [_I, _P],
     },
 }
 

@@ -584,8 +584,8 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
-          hopper::wgmma_m64n64k16_rs_tb(acc, pa[kk],
-                                        v_desc + kk * kMnMajorStep);
+          hopper::wgmma_m64n64k16_rs<1>(acc, pa[kk],
+                                         v_desc + kk * kMnMajorStep);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         fence_regs(acc);
@@ -739,13 +739,13 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          hopper::wgmma_m64n64k16_ss(st, k_desc + kk * kKMajorStep,
-                                     q_desc + kk * kKMajorStep, kk);
+          hopper::wgmma_m64n64k16_ss<0, 0>(st, k_desc + kk * kKMajorStep,
+                                           q_desc + kk * kKMajorStep, kk);
         hopper::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          hopper::wgmma_m64n64k16_ss(dpt, v_desc + kk * kKMajorStep,
-                                     do_desc + kk * kKMajorStep, kk);
+          hopper::wgmma_m64n64k16_ss<0, 0>(
+              dpt, v_desc + kk * kKMajorStep, do_desc + kk * kKMajorStep, kk);
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();  // S^T is in; dP^T may still run
         fence_regs(st);
@@ -787,12 +787,12 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)  // dV += P^T dO
-          hopper::wgmma_m64n64k16_rs_tb(dv_acc, pa[kk],
-                                        do_desc + kk * kMnMajorStep);
+          hopper::wgmma_m64n64k16_rs<1>(dv_acc, pa[kk],
+                                         do_desc + kk * kMnMajorStep);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)  // dK += dS^T Q
-          hopper::wgmma_m64n64k16_rs_tb(dk_acc, da[kk],
-                                        q_desc + kk * kMnMajorStep);
+          hopper::wgmma_m64n64k16_rs<1>(dk_acc, da[kk],
+                                         q_desc + kk * kMnMajorStep);
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         fence_regs(dv_acc);
@@ -855,12 +855,12 @@ __global__ void __launch_bounds__(128)
   if (mode == 0) {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_ss(d, a_desc + kk * kKMajorStep,
-                                 b_desc + kk * kKMajorStep, 1);
+      hopper::wgmma_m64n64k16_ss<0, 0>(d, a_desc + kk * kKMajorStep,
+                                       b_desc + kk * kKMajorStep, 1);
   } else {
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_rs_tb(d, fa[kk], b_desc + kk * kMnMajorStep);
+      hopper::wgmma_m64n64k16_rs<1>(d, fa[kk], b_desc + kk * kMnMajorStep);
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();

@@ -27,36 +27,43 @@
 // (dW over all N rows, as the reference casts its float32 dW to w's dtype).
 //
 // Blocks run in no order, so each carried sum of a Pallas grid is a loop
-// inside one block: the forward and dh take one row tile per block and
-// sweep the vocabulary inside it; dW takes one 64-column vocab tile per
-// block and sweeps the rows inside it. No atomics: dW is deterministic.
+// inside one block: the forward and dh sweep the vocabulary inside a row
+// tile; dW sweeps the rows inside a 64-column vocab tile. No atomics: dW is
+// deterministic, and reruns are bitwise equal.
 //
 // Bound: at lmbench's shape (N 16 384, D 512, V 32 768, bf16) the forward
 // does 2 N D V = 5.5e11 flops (0.556 ms at 989 TFLOP/s), dh and dW 4 N D V
 // each (the recomputed z and the product: 1.11 ms); the bytes (h 16.8 MB,
-// W 33.5 MB) take about 0.015 ms. All three are bound by the tensor cores,
-// so the design keeps them fed: operands reach shared memory by cp.async
-// (16 bytes a thread, no registers, zero-filled past the edges) ahead of
-// their use, fragments come out of it by ldmatrix, and every accumulator
-// stays in registers.
+// W 33.5 MB) take about 0.015 ms. All three are bound by the tensor cores.
 //
 // bfloat16 build (the training path; V a multiple of 8, so W's rows are
-// 16-byte aligned): mma.sync m16n8k16 (bf16 in, f32 accumulate), 8 warps a
-// block. D is cut into 64-wide chunks (NK of them, D rounded up, the rest
-// zero), staged as bf16 rows of stride 72 (ldmatrix conflict-free).
-//   forward: 128 rows a block, resident; a ring of kFwdStages W chunks
-//     streams the vocabulary. Warp w owns rows 16 w..16 w + 15 of every
+// 16-byte aligned). D is cut into 64-wide chunks.
+//   forward (fx_fwd_mma): mma.sync m16n8k16 (bf16 in, f32 accumulate), 8
+//     warps a block, 128 rows a block resident as bf16 rows of stride 72
+//     (ldmatrix conflict-free), W chunks streamed by cp.async through a
+//     ring of kFwdStages. Warp w owns rows 16 w..16 w + 15 of every
 //     64-column score tile and folds it into its rows' statistics.
-//   dh: 64 rows a block, resident; the vocab tile's W (all NK chunks)
-//     resident too, read by both passes: z = h W (each warp 16 rows x 32
-//     columns), dz to shared memory as bf16, then dh += dz W^T (each warp
-//     16 rows x the 32-wide half of every D chunk, NK x 16 float32
-//     registers). Chunk kc of the next tile is loaded as soon as the
-//     second pass is done with chunk kc, under the rest of the pass.
-//   dW: the same turned over: the 64-column W tile resident, the 64-row
-//     tiles of h streaming through both passes; dW^T += dz^T h in
-//     registers over all rows.
-// No TMA, wgmma or warp specialisation yet.
+//   dh and dW (fx_dh_wgmma<NK>, fx_dw_wgmma<NK>; the mma.sync kernels
+//     they replace took 5.6 ms each at lmbench's head): Hopper's
+//     wgmma with TMA loads through an mbarrier ring (hopper.cuh), one
+//     persistent block per SM walking the work items. A block is two
+//     consumer warpgroups and a producer warpgroup that keeps one lane
+//     issuing TMA and gives its registers to the consumers (setmaxnreg).
+//     dh takes 64 rows of h resident and streams W's vocab tiles as
+//     [64 d][64 v] chunks; each warpgroup computes the whole 64 x 64 score
+//     tile (wgmma from shared memory), turns it into dz in registers, and
+//     multiplies dz as the register A operand into its half of D (4 x 32
+//     float32 accumulator registers at D 512): dz never touches shared
+//     memory. dW is the same turned over: 64 vocab columns of W resident,
+//     h's row tiles streamed, the transposed scores z^T = W^T h^T (W read
+//     MN-major) so that dz^T is the A operand of dW^T += dz^T h. Both
+//     warpgroups recompute the scores (1.5x the flops): splitting the
+//     reduction between them and adding the halves through shared memory
+//     was measured slower, and so was issuing the next tile's scores
+//     behind a warpgroup's products (PERF.md). D 576-768 take two D slabs
+//     per tile, each recomputing the scores. Each wgmma sequence is
+//     straight-line code (the chunk counts are template arguments), which
+//     ptxas needs to keep the products in flight back to back.
 //
 // float32 build (the tests' comparisons and --dtype float32; any V): the
 // same sweeps with float32 FMAs on the CUDA cores (no TF32: the float32
@@ -75,7 +82,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -83,7 +93,6 @@ constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kTile = 64;         // rows and columns of a score tile, D chunk
 constexpr int kMaxD = 768;        // the widest head the shared memory holds
-constexpr int kMaxNK = kMaxD / kTile;
 constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use
 
 using bf16 = __nv_bfloat16;
@@ -513,18 +522,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// cp_async_wait<n> for a count known only after unrolling (n < kMaxNK).
-template <int N = 0>
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  if constexpr (N < kMaxNK - 1) {
-    if (n > N) {
-      cp_async_wait_n<N + 1>(n);
-      return;
-    }
-  }
-  cp_async_wait<N>();
-}
-
 // Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8 and receives, of matrix i, register i: row
 // l / 4, columns 2 (l % 4) and + 1 (transposed: rows 2 (l % 4) and + 1 of
@@ -545,28 +542,15 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
 }
 
 // The A fragment (rows m0.., k0..: 16 x 16) of a buffer holding A
-// row-major [m][k] (frag_a) or transposed [k][m] (frag_a_t), stride ld.
+// row-major [m][k], stride ld.
 __device__ __forceinline__ void frag_a(unsigned (&a)[4], const bf16* buf,
                                        int ld, int m0, int k0) {
   const int l = threadIdx.x & 31, i = l >> 3, r = l & 7;
   ldsm_x4(a, buf + (m0 + r + 8 * (i & 1)) * ld + k0 + 8 * (i >> 1));
 }
 
-__device__ __forceinline__ void frag_a_t(unsigned (&a)[4], const bf16* buf,
-                                         int ld, int m0, int k0) {
-  const int l = threadIdx.x & 31, i = l >> 3, r = l & 7;
-  ldsm_x4_t(a, buf + (k0 + r + 8 * (i >> 1)) * ld + m0 + 8 * (i & 1));
-}
-
 // The B fragments of two n8 tiles (n0 and n0 + 8; b[0..1] and b[2..3]) over
-// k0..k0 + 15, from a buffer holding B transposed [n][k] (frag_b) or
-// row-major [k][n] (frag_b_t), stride ld.
-__device__ __forceinline__ void frag_b(unsigned (&b)[4], const bf16* buf,
-                                       int ld, int n0, int k0) {
-  const int l = threadIdx.x & 31, i = l >> 3, r = l & 7;
-  ldsm_x4(b, buf + (n0 + r + 8 * (i >> 1)) * ld + k0 + 8 * (i & 1));
-}
-
+// k0..k0 + 15, from a buffer holding B row-major [k][n], stride ld.
 __device__ __forceinline__ void frag_b_t(unsigned (&b)[4], const bf16* buf,
                                          int ld, int n0, int k0) {
   const int l = threadIdx.x & 31, i = l >> 3, r = l & 7;
@@ -574,24 +558,17 @@ __device__ __forceinline__ void frag_b_t(unsigned (&b)[4], const bf16* buf,
 }
 
 // acc[2 np], acc[2 np + 1] += A (rows m0.., k0..k0 + 15 of abuf) times B
-// (k0.., columns n0 + 16 np.. of bbuf) for np < NP; AT and BT pick the
-// transposed buffer layouts.
-template <int NP, bool AT, bool BT>
+// (k0.., columns n0 + 16 np.. of bbuf) for np < NP.
+template <int NP>
 __device__ __forceinline__ void mma_k16(float (*acc)[4], const bf16* abuf,
                                         int lda, int m0, const bf16* bbuf,
                                         int ldb, int n0, int k0) {
   unsigned a[4];
-  if (AT)
-    frag_a_t(a, abuf, lda, m0, k0);
-  else
-    frag_a(a, abuf, lda, m0, k0);
+  frag_a(a, abuf, lda, m0, k0);
 #pragma unroll
   for (int np = 0; np < NP; ++np) {
     unsigned b[4];
-    if (BT)
-      frag_b_t(b, bbuf, ldb, n0 + 16 * np, k0);
-    else
-      frag_b(b, bbuf, ldb, n0 + 16 * np, k0);
+    frag_b_t(b, bbuf, ldb, n0 + 16 * np, k0);
     mma_bf16(acc[2 * np], a, b[0], b[1]);
     mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
   }
@@ -628,44 +605,6 @@ __device__ __forceinline__ void zero(float (&acc)[N][4]) {
   for (int j = 0; j < N; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-}
-
-// The labels and lse of this thread's two rows m0 + g, m0 + g + 8 of the
-// row tile at r0 (nr live).
-__device__ __forceinline__ void row_labels(const int* labels,
-                                           const float* lse, long r0, int nr,
-                                           int row, int (&lab)[2],
-                                           float (&lse_r)[2]) {
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = row + 8 * hh;
-    lab[hh] = r < nr ? labels[r0 + r] : -1;
-    lse_r[hh] = r < nr ? lse[r0 + r] : 0.f;
-  }
-}
-
-// dz of this thread's fragment elements of a 16 x 32 score part (rows
-// m0 + g + 8 hh, columns n0 + 8 nt + 2 t + e of the vocab tile at c0, nc
-// of them live), into the bf16 dz tile (stride kLdc).
-__device__ __forceinline__ void write_dz(const float (&z)[4][4],
-                                         const int (&lab)[2],
-                                         const float (&lse_r)[2], int m0,
-                                         int n0, int c0, int nc, float c_p,
-                                         float c_oh, float c_sm, bf16* dzs) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int col = n0 + 8 * nt + 2 * t;
-      float dz[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        dz[e] = dz_of(z[nt][2 * hh + e], lab[hh], lse_r[hh], c0 + col + e,
-                      col + e < nc, c_p, c_oh, c_sm);
-      *reinterpret_cast<unsigned*>(dzs + (m0 + g + 8 * hh) * kLdc + col) =
-          pack_bf16(dz[0], dz[1]);
-    }
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -708,7 +647,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bf16* wc = ring + (q % kFwdStages) * kChunk;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_k16<4, false, true>(s, hres + kc * kTile, ldr, m0, wc, kLdc, 0,
+      mma_k16<4>(s, hres + kc * kTile, ldr, m0, wc, kLdc, 0,
                               16 * kk);
     if (kc == nk - 1) stats_fold(st, s, vt * kTile, min(kTile, V - vt * kTile),
                                  t);
@@ -716,160 +655,463 @@ __global__ void __launch_bounds__(kThreads, 1)
   stats_write(st, r0, m0 + g, nr, t, lse, gold, zsum, amax);
 }
 
-// dh for 64 rows a block, NK = D chunks. Warp w owns rows 16 (w % 4).. and,
-// of every 64-wide tile, the 32-wide half w / 4: of the vocab tile's
-// scores, and of each D chunk of dh, whose float32 accumulator stays in
-// registers for the whole sweep.
+// ===========================================================================
+// bfloat16 backward: wgmma, TMA and an mbarrier ring
+// ===========================================================================
+
+using hopper::desc_sw128;
+using hopper::fence_regs;
+using hopper::kKMajorStep;
+using hopper::kMnMajorStep;
+
+constexpr int kConsumers = 256;  // two warpgroups
+constexpr int kThreadsWs = kConsumers + 128;  // and a producer warpgroup
+// registers a thread after setmaxnreg: the producer gives up what the
+// consumers' accumulators need (40 x 128 + 232 x 256 <= 65 536)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kChunkBytes = kTile * kTile * 2;  // a [64][64] bf16 chunk
+constexpr int kMaxStages = 16;                  // streamed chunks in flight
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The D chunk counts the kernels are built for (D rounded up; the chunks
+// past D are zeros from TMA's out-of-bounds fill), and how each splits. A
+// work item covers 2 kNC chunks of the output, kNC a warpgroup (4 x 32
+// accumulator registers at most), in kSlabs items for the whole of D: one
+// up to D 512, two for D 576-768 (each recomputing the scores).
 template <int NK>
-__global__ void __launch_bounds__(kThreads, 1)
-    fx_dh_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
-              const int* __restrict__ labels, const float* __restrict__ lse,
-              const float* __restrict__ coef, bf16* __restrict__ dh, int N,
-              int D, int V) {
-  extern __shared__ float4 smem4[];
-  constexpr int ldr = NK * kTile + 8;
-  bf16* hres = reinterpret_cast<bf16*>(smem4);  // [64 rows][ldr]
-  bf16* wt = hres + kTile * ldr;                // NK chunks [64 d][64 c]
-  bf16* dzs = wt + NK * kChunk;                 // [64 rows][64 c]
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
-  const long r0 = static_cast<long>(blockIdx.x) * kTile;
-  const int nr = static_cast<int>(min(static_cast<long>(kTile), N - r0));
-  const float c_p = coef[0], c_oh = coef[1], c_sm = coef[2];
-  int lab[2];
-  float lse_r[2];
-  row_labels(labels, lse, r0, nr, m0 + g, lab, lse_r);
-  float acc[NK][4][4];
-#pragma unroll
-  for (int kc = 0; kc < NK; ++kc) zero(acc[kc]);
-  const int nv = (V + kTile - 1) / kTile;
-  load_rows(h + r0 * D, D, nr, D, kTile, NK * kTile, ldr, hres);
-#pragma unroll
-  for (int kc = 0; kc < NK; ++kc) {
-    load_chunk(w + static_cast<long>(kc) * kTile * V, V, D - kc * kTile, V,
-               wt + kc * kChunk);
-    cp_async_commit();
-  }
-  for (int vt = 0; vt < nv; ++vt) {
-    const int c0 = vt * kTile;
-    float z[4][4];
-    zero(z);
-#pragma unroll
-    for (int kc = 0; kc < NK; ++kc) {  // z = h @ W[:, tile]
-      cp_async_wait_n(NK - 1 - kc);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_k16<2, false, true>(z, hres + kc * kTile, ldr, m0,
-                                wt + kc * kChunk, kLdc, n0, 16 * kk);
-    }
-    write_dz(z, lab, lse_r, m0, n0, c0, min(kTile, V - c0), c_p, c_oh, c_sm,
-             dzs);
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < NK; ++kc) {  // dh[:, chunk] += dz @ W[chunk]^T
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_k16<2, false, false>(acc[kc], dzs, kLdc, m0, wt + kc * kChunk,
-                                 kLdc, n0, 16 * kk);
-      __syncthreads();  // every warp is done with chunk kc
-      if (vt + 1 < nv)
-        load_chunk(w + static_cast<long>(kc) * kTile * V + c0 + kTile, V,
-                   D - kc * kTile, V - c0 - kTile, wt + kc * kChunk);
-      cp_async_commit();
-    }
-  }
-#pragma unroll
-  for (int kc = 0; kc < NK; ++kc)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = m0 + g + 8 * hh, d = kc * kTile + n0 + 8 * nt + 2 * t;
-        if (r < nr && d < D)
-          *reinterpret_cast<unsigned*>(dh + (r0 + r) * D + d) =
-              pack_bf16(acc[kc][nt][2 * hh], acc[kc][nt][2 * hh + 1]);
-      }
+struct BwdTiling {
+  static constexpr int kNC = NK <= 8 ? NK / 2 : NK / 4;
+  static constexpr int kSlabs = NK / (2 * kNC);
+  static_assert(kSlabs * 2 * kNC == NK, "D chunks split evenly");
+};
+
+// 2^x on the special-function unit, results below 2^-126 flushed to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// dW for 64 vocab columns a block. In the first pass warp w owns rows
-// 16 (w % 4).. and columns 32 (w / 4).. of the scores; in the second,
-// vocab columns 16 (w % 4).. and the 32-wide half w / 4 of each D chunk of
-// dW^T, accumulated in registers over all rows.
+// bf16 pairs of an m64 accumulator's columns 16 kk .. 16 kk + 15: the A
+// fragment of k step kk (hopper.cuh).
+template <int KS>
+__device__ __forceinline__ void pack_a(const float* d, uint32_t (&a)[KS][4]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+}
+
+// Shared memory of both backward kernels: NK resident chunks (h's rows for
+// dh, W's vocab columns for dW), a ring of `stages` streamed chunks (W for
+// dh, h for dW), the barriers of the resident buffer and of the ring; 1 KB
+// of alignment slack.
+struct BwdSmem {
+  uint8_t* res;
+  uint8_t* ring;
+  uint64_t* res_full;
+  uint64_t* res_empty;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+__host__ __device__ constexpr int bwd_smem_bytes(int nk, int stages) {
+  return (nk + stages) * kChunkBytes + (2 + 2 * stages) * 8 + 1024;
+}
+
+__device__ __forceinline__ BwdSmem bwd_smem(uint8_t* raw, int nk,
+                                            int stages) {
+  BwdSmem m;
+  m.res = hopper::align1024(raw);
+  m.ring = m.res + nk * kChunkBytes;
+  m.res_full = reinterpret_cast<uint64_t*>(m.ring + stages * kChunkBytes);
+  m.res_empty = m.res_full + 1;
+  m.full = m.res_empty + 1;
+  m.empty = m.full + stages;
+  return m;
+}
+
+// Thread 0 initialises the barriers; then the warpgroups trade registers.
+// True for the producer warpgroup.
+__device__ __forceinline__ bool bwd_init(const BwdSmem& m, int stages) {
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(m.res_full, 1);
+    hopper::mbar_init(m.res_empty, kConsumers);
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&m.full[s], 1);
+      hopper::mbar_init(&m.empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    return true;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  return false;
+}
+
+// The ring stage of streamed chunk number `step`.
+__device__ __forceinline__ int stage_of(int step, int stages) {
+  return step % stages;
+}
+
+// Wait for streamed chunks step .. step + NK - 1 (one vocab or row tile).
 template <int NK>
-__global__ void __launch_bounds__(kThreads, 1)
-    fx_dw_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
-              const int* __restrict__ labels, const float* __restrict__ lse,
-              const float* __restrict__ coef, bf16* __restrict__ dw, int N,
-              int D, int V) {
-  extern __shared__ float4 smem4[];
-  bf16* wres = reinterpret_cast<bf16*>(smem4);  // NK chunks [64 d][64 c]
-  bf16* hc = wres + NK * kChunk;                // NK chunks [64 r][64 d]
-  bf16* dzs = hc + NK * kChunk;                 // [64 r][64 c]
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  const int m0 = 16 * (warp & 3), n0 = 32 * (warp >> 2);
-  const int c0 = blockIdx.x * kTile, nc = min(kTile, V - c0);
-  const float c_p = coef[0], c_oh = coef[1], c_sm = coef[2];
-  float acc[NK][4][4];
-#pragma unroll
-  for (int kc = 0; kc < NK; ++kc) zero(acc[kc]);
-  const int nrt = (N + kTile - 1) / kTile;
-#pragma unroll
-  for (int kc = 0; kc < NK; ++kc) {
-    load_chunk(w + static_cast<long>(kc) * kTile * V + c0, V, D - kc * kTile,
-               nc, wres + kc * kChunk);
-    load_chunk(h + kc * kTile, D, min(kTile, N), D - kc * kTile,
-               hc + kc * kChunk);
-    cp_async_commit();
-  }
-  for (int rt = 0; rt < nrt; ++rt) {
-    const long r0 = static_cast<long>(rt) * kTile;
-    const int nr = static_cast<int>(min(static_cast<long>(kTile), N - r0));
-    int lab[2];
-    float lse_r[2];
-    row_labels(labels, lse, r0, nr, m0 + g, lab, lse_r);
-    float z[4][4];
-    zero(z);
-#pragma unroll
-    for (int kc = 0; kc < NK; ++kc) {  // z = h[tile] @ W[:, c0..]
-      cp_async_wait_n(NK - 1 - kc);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_k16<2, false, true>(z, hc + kc * kChunk, kLdc, m0,
-                                wres + kc * kChunk, kLdc, n0, 16 * kk);
-    }
-    write_dz(z, lab, lse_r, m0, n0, c0, nc, c_p, c_oh, c_sm, dzs);
-    __syncthreads();
-#pragma unroll
-    for (int kc = 0; kc < NK; ++kc) {  // dW^T[:, chunk] += dz^T @ h[tile]
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_k16<2, true, true>(acc[kc], dzs, kLdc, m0, hc + kc * kChunk,
-                               kLdc, n0, 16 * kk);
-      __syncthreads();  // every warp is done with chunk kc
-      if (rt + 1 < nrt)
-        load_chunk(h + (r0 + kTile) * D + kc * kTile, D,
-                   static_cast<int>(min(static_cast<long>(kTile),
-                                        N - r0 - kTile)),
-                   D - kc * kTile, hc + kc * kChunk);
-      cp_async_commit();
-    }
-  }
+__device__ __forceinline__ void wait_tile(const BwdSmem& sm, int step,
+                                          int stages) {
 #pragma unroll
   for (int kc = 0; kc < NK; ++kc)
+    hopper::mbar_wait(&sm.full[stage_of(step + kc, stages)],
+                      ((step + kc) / stages) & 1);
+}
+
+// The 64 x 64 score tile of the streamed chunks step.. into s: A (resident
+// chunk kc) times B (streamed chunk kc), each MN-major where TA / TB is 1,
+// summed over the NK chunks.
+template <int NK, int TA, int TB>
+__device__ __forceinline__ void score_tile(const BwdSmem& sm, int step,
+                                           int stages, float (&s)[32]) {
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+  for (int j = 0; j < 32; ++j) s[j] = 0.f;
+  fence_regs(s);
+  hopper::wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int c = m0 + g + 8 * (i >> 1);
-        const int d = kc * kTile + n0 + 8 * nt + 2 * t + (i & 1);
-        if (c < nc && d < D)
-          dw[static_cast<long>(d) * V + c0 + c] =
-              __float2bfloat16_rn(acc[kc][nt][i]);
+  for (int kc = 0; kc < NK; ++kc) {
+    const uint64_t a_desc = desc_sw128(sm.res + kc * kChunkBytes);
+    const uint64_t b_desc =
+        desc_sw128(sm.ring + stage_of(step + kc, stages) * kChunkBytes);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_ss<TA, TB>(
+          s, a_desc + kk * (TA ? kMnMajorStep : kKMajorStep),
+          b_desc + kk * (TB ? kMnMajorStep : kKMajorStep), 1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs(s);
+}
+
+// dz of one accumulator element: 0 on a masked row (label < 0) or past the
+// vocabulary, else c_p exp(z - lse) - c_oh [col == label] - c_sm, with
+// lse2 = lse * log2 e.
+__device__ __forceinline__ float dz_of2(float z, int label, float lse2,
+                                        int col, int V, float c_p, float c_oh,
+                                        float c_sm) {
+  if (label < 0 || col >= V) return 0.f;
+  return c_p * exp2_ftz(fmaf(z, kLog2e, -lse2)) -
+         (col == label ? c_oh : 0.f) - c_sm;
+}
+
+// acc[i] += dz * the streamed chunk c_lo + i, i < NC (B MN-major where TB
+// is 1), then the chunks are released.
+template <int NC, int TB>
+__device__ __forceinline__ void add_products(const BwdSmem& sm, int step,
+                                             int stages, int c_lo,
+                                             const float (&dz)[32],
+                                             float (&acc)[NC][32]) {
+  uint32_t a[4][4];  // dz as bf16 A fragments
+  pack_a<4>(dz, a);
+#pragma unroll
+  for (int i = 0; i < NC; ++i) fence_regs(acc[i]);
+  fence_regs(a);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const uint64_t b_desc = desc_sw128(
+        sm.ring + stage_of(step + c_lo + i, stages) * kChunkBytes);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_m64n64k16_rs<TB>(
+          acc[i], a[kk], b_desc + kk * (TB ? kMnMajorStep : kKMajorStep));
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < NC; ++i) fence_regs(acc[i]);
+  fence_regs(a);
+  for (int i = 0; i < NC; ++i)
+    hopper::mbar_arrive(&sm.empty[stage_of(step + c_lo + i, stages)]);
+}
+
+// Release the tile's chunks this warpgroup does not multiply (its own,
+// [c_lo, c_lo + NC), go after its product).
+template <int NK, int NC>
+__device__ __forceinline__ void release_others(const BwdSmem& sm, int step,
+                                               int stages, int c_lo) {
+  for (int kc = 0; kc < NK; ++kc)
+    if (kc < c_lo || kc >= c_lo + NC)
+      hopper::mbar_arrive(&sm.empty[stage_of(step + kc, stages)]);
+}
+
+// dh: persistent blocks walk the work items (64-row tile, D slab), item w
+// going to block w % gridDim.x. The producer loads the item's h rows (NK
+// chunks, resident) and streams W's vocab tiles as NK chunks [64 d][64 v]
+// each through the ring. The warpgroups compute the score tile z = h
+// W[:, tile] (64 x 64, wgmma with h K-major and the W chunk MN-major), turn
+// it into dz in registers, and add dz W[:, tile]^T to their own kNC chunks
+// of dh (wgmma with dz as the register A operand and the W chunk K-major).
+// Every wgmma sequence is straight-line code (NK and kNC compile-time, the
+// tile's barriers waited first), so ptxas keeps the products back to back.
+template <int NK>
+__global__ void __launch_bounds__(kThreadsWs, 1)
+    fx_dh_wgmma(const __grid_constant__ CUtensorMap tm_h,
+                const __grid_constant__ CUtensorMap tm_w,
+                const int* __restrict__ labels, const float* __restrict__ lse,
+                const float* __restrict__ coef, bf16* __restrict__ dh, int N,
+                int D, int V, int stages) {
+  constexpr int NC = BwdTiling<NK>::kNC, slabs = BwdTiling<NK>::kSlabs;
+  extern __shared__ uint8_t smem_raw[];
+  const int nv = (V + kTile - 1) / kTile;
+  const int items = ((N + kTile - 1) / kTile) * slabs;
+  const BwdSmem sm = bwd_smem(smem_raw, NK, stages);
+
+  if (bwd_init(sm, stages)) {  // the producer: one lane issues TMA
+    if (threadIdx.x == kConsumers) {
+      int step = 0;  // W chunks loaded so far, over every item
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        const int r0 = (w / slabs) * kTile;
+        hopper::mbar_wait(sm.res_empty, (n & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(sm.res_full, NK * kChunkBytes);
+        for (int kc = 0; kc < NK; ++kc)
+          hopper::tma_load_2d(sm.res + kc * kChunkBytes, &tm_h, sm.res_full,
+                              kc * kTile, r0);
+        for (int vt = 0; vt < nv; ++vt)
+          for (int kc = 0; kc < NK; ++kc, ++step) {
+            const int s = stage_of(step, stages);
+            hopper::mbar_wait(&sm.empty[s], ((step / stages) & 1) ^ 1);
+            hopper::mbar_arrive_expect_tx(&sm.full[s], kChunkBytes);
+            hopper::tma_load_2d(sm.ring + s * kChunkBytes, &tm_w,
+                                &sm.full[s], vt * kTile, kc * kTile);
+          }
       }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = 16 * warp + g;  // this thread's rows: row, row + 8
+  const float c_p = coef[0], c_oh = coef[1], c_sm = coef[2];
+  int step = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const long r0 = static_cast<long>(w / slabs) * kTile;
+    const int c_lo = (2 * (w % slabs) + wg) * NC;  // own chunks: c_lo + i
+    int lab[2];
+    float lse2[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long r = r0 + row + 8 * hh;
+      lab[hh] = r < N ? labels[r] : -1;
+      lse2[hh] = r < N ? lse[r] * kLog2e : 0.f;
+    }
+    float acc[NC][32];
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[i][j] = 0.f;
+    hopper::mbar_wait(sm.res_full, n & 1);
+    for (int vt = 0; vt < nv; ++vt, step += NK) {
+      wait_tile<NK>(sm, step, stages);
+      float z[32];
+      score_tile<NK, 0, 1>(sm, step, stages, z);  // z = h W[:, tile]
+      if (vt == nv - 1) hopper::mbar_arrive(sm.res_empty);  // h reads done
+      release_others<NK, NC>(sm, step, stages, c_lo);
+      const int c0 = vt * kTile;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1;
+        z[i] = dz_of2(z[i], lab[hh], lse2[hh],
+                      c0 + 8 * (i >> 2) + 2 * t + (i & 1), V, c_p, c_oh,
+                      c_sm);
+      }
+      // dh[:, chunk] += dz W[chunk, tile]^T
+      add_products<NC, 0>(sm, step, stages, c_lo, z, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long r = r0 + row + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int d = (c_lo + i) * kTile + 8 * j + 2 * t;
+          if (r < N && d < D)
+            *reinterpret_cast<unsigned*>(dh + r * D + d) =
+                pack_bf16(acc[i][4 * j + 2 * hh], acc[i][4 * j + 2 * hh + 1]);
+        }
+      }
+  }
+}
+
+// dW: the same turned over. Work items are (64-column vocab tile, D slab);
+// the item's W columns are resident (NK chunks [64 d][64 v]) and the rows
+// of h stream through the ring as NK chunks [64 rows][64 d] per row tile.
+// The warpgroups compute the transposed scores z^T = W[:, tile]^T
+// h_tile^T (64 vocab columns x 64 rows; wgmma with the W chunk MN-major as
+// A and the h chunk K-major as B), so dz^T is in the accumulator layout and
+// feeds dW^T[:, chunk] += dz^T h[tile, chunk] as the register A operand
+// against the h chunk MN-major. lse and labels are per accumulator column:
+// each thread loads its 16 rows' while the score product runs. Each
+// warpgroup keeps its kNC chunks of dW^T in registers over all rows: no
+// atomics, so reruns are bitwise equal.
+template <int NK>
+__global__ void __launch_bounds__(kThreadsWs, 1)
+    fx_dw_wgmma(const __grid_constant__ CUtensorMap tm_h,
+                const __grid_constant__ CUtensorMap tm_w,
+                const int* __restrict__ labels, const float* __restrict__ lse,
+                const float* __restrict__ coef, bf16* __restrict__ dw, int N,
+                int D, int V, int stages) {
+  constexpr int NC = BwdTiling<NK>::kNC, slabs = BwdTiling<NK>::kSlabs;
+  extern __shared__ uint8_t smem_raw[];
+  const int nrt = (N + kTile - 1) / kTile;
+  const int items = ((V + kTile - 1) / kTile) * slabs;
+  const BwdSmem sm = bwd_smem(smem_raw, NK, stages);
+
+  if (bwd_init(sm, stages)) {  // the producer: one lane issues TMA
+    if (threadIdx.x == kConsumers) {
+      int step = 0;  // h chunks loaded so far, over every item
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        const int c0 = (w / slabs) * kTile;
+        hopper::mbar_wait(sm.res_empty, (n & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(sm.res_full, NK * kChunkBytes);
+        for (int kc = 0; kc < NK; ++kc)
+          hopper::tma_load_2d(sm.res + kc * kChunkBytes, &tm_w, sm.res_full,
+                              c0, kc * kTile);
+        for (int rt = 0; rt < nrt; ++rt)
+          for (int kc = 0; kc < NK; ++kc, ++step) {
+            const int s = stage_of(step, stages);
+            hopper::mbar_wait(&sm.empty[s], ((step / stages) & 1) ^ 1);
+            hopper::mbar_arrive_expect_tx(&sm.full[s], kChunkBytes);
+            hopper::tma_load_2d(sm.ring + s * kChunkBytes, &tm_h,
+                                &sm.full[s], kc * kTile, rt * kTile);
+          }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int col = 16 * warp + g;  // this thread's vocab columns: col, +8
+  const float c_p = coef[0], c_oh = coef[1], c_sm = coef[2];
+  int step = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const int c0 = (w / slabs) * kTile;
+    const int c_lo = (2 * (w % slabs) + wg) * NC;  // own chunks: c_lo + i
+    float acc[NC][32];
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc[i][j] = 0.f;
+    hopper::mbar_wait(sm.res_full, n & 1);
+    for (int rt = 0; rt < nrt; ++rt, step += NK) {
+      wait_tile<NK>(sm, step, stages);
+      float lse2[16];  // accumulator column 8 (j / 2) + 2 t + j % 2's
+      int lab[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int r = rt * kTile + 8 * (j >> 1) + 2 * t + (j & 1);
+        lab[j] = r < N ? labels[r] : -1;
+        lse2[j] = r < N ? lse[r] * kLog2e : 0.f;
+      }
+      float zt[32];  // z^T = W[:, tile]^T h[tile]^T
+      score_tile<NK, 1, 0>(sm, step, stages, zt);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int j = 2 * (i >> 2) + (i & 1);
+        zt[i] = dz_of2(zt[i], lab[j], lse2[j], c0 + col + 8 * ((i >> 1) & 1),
+                       V, c_p, c_oh, c_sm);
+      }
+      if (rt == nrt - 1) hopper::mbar_arrive(sm.res_empty);  // W reads done
+      release_others<NK, NC>(sm, step, stages, c_lo);
+      // dW^T[:, chunk] += dz^T h[tile, chunk]
+      add_products<NC, 1>(sm, step, stages, c_lo, zt, acc);
+    }
+#pragma unroll
+    for (int i = 0; i < NC; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int v = c0 + col + 8 * hh;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = (c_lo + i) * kTile + 8 * j + 2 * t + e;
+            if (v < V && d < D)
+              dw[static_cast<long>(d) * V + v] =
+                  __float2bfloat16_rn(acc[i][4 * j + 2 * hh + e]);
+          }
+      }
+  }
+}
+
+// One 64 x 64 x 64 product in each wgmma form the backward kernels issue,
+// for the card tests; a, b bf16 [64, 64] row-major, loaded by TMA with the
+// 128-byte swizzle, c float32 [64, 64]. Mode 0: c = a b, a K-major and b
+// MN-major from shared memory (dh's scores); mode 1: c = a b^T, a from
+// registers and b K-major (dh's product); mode 2: c = a^T b^T, a MN-major
+// and b K-major from shared memory (dW's transposed scores).
+__global__ void __launch_bounds__(128)
+    fx_wgmma_tile_test(const __grid_constant__ CUtensorMap tm_a,
+                       const __grid_constant__ CUtensorMap tm_b,
+                       const bf16* __restrict__ a, float* __restrict__ c,
+                       int mode) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + 2 * kChunkBytes);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::mbar_arrive_expect_tx(bar, 2 * kChunkBytes);
+    hopper::tma_load_2d(smem, &tm_a, bar, 0, 0);
+    hopper::tma_load_2d(smem + kChunkBytes, &tm_b, bar, 0, 0);
+  }
+  hopper::mbar_wait(bar, 0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g;
+  float d[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  uint32_t fa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      fa[kk][r] = *reinterpret_cast<const uint32_t*>(
+          a + (r0 + 8 * (r & 1)) * kTile + 16 * kk + 8 * (r >> 1) + 2 * t);
+  const uint64_t a_desc = desc_sw128(smem);
+  const uint64_t b_desc = desc_sw128(smem + kChunkBytes);
+  fence_regs(d);
+  fence_regs(fa);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (mode == 0)
+      hopper::wgmma_m64n64k16_ss<0, 1>(d, a_desc + kk * kKMajorStep,
+                                         b_desc + kk * kMnMajorStep, 1);
+    else if (mode == 1)
+      hopper::wgmma_m64n64k16_rs<0>(d, fa[kk], b_desc + kk * kKMajorStep);
+    else
+      hopper::wgmma_m64n64k16_ss<1, 0>(d, a_desc + kk * kMnMajorStep,
+                                         b_desc + kk * kKMajorStep, 1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  fence_regs(d);
+  fence_regs(fa);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    c[(r0 + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
 }
 
 // ===========================================================================
@@ -906,43 +1148,73 @@ int f32_bwd_bytes(int acc_ld) {
   return (kTile * acc_ld + 2 * kTileF + 2 * kTile) * 4;
 }
 
-// The D chunk counts the bf16 backward kernels are built for: D is
-// rounded up to the next (the chunks past D are zero).
-constexpr int next_nk(int nk) {
-  return nk < 2 ? nk + 1 : nk < 4 ? 4 : nk < 8 ? 8 : kMaxNK;
+// Blocks of a persistent kernel: one per SM of the current device, and no
+// more than there are work items.
+int persistent_blocks(int items) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms < 1)
+    sms = 1;
+  return min(items, sms);
 }
+
+// The D chunk count a head is built for: D rounded up to the next of
+// 2, 4, 6, 8 and 12 chunks of 64.
 int nk_built(int D) {
-  int nk = 1;
-  while (nk < tiles(D)) nk = next_nk(nk);
-  return nk;
+  const int nk = tiles(D);
+  return nk <= 2 ? 2 : nk <= 4 ? 4 : nk <= 6 ? 6 : nk <= 8 ? 8 : 12;
 }
 
-template <int NK>
-cudaError_t dh_mma(const bf16* h, const bf16* w, const int* labels,
-                   const float* lse, const float* coef, bf16* out, int N,
-                   int D, int V, int nk, cudaStream_t s) {
-  if constexpr (NK < kMaxNK) {
-    if (nk != NK)
-      return dh_mma<next_nk(NK)>(h, w, labels, lse, coef, out, N, D, V, nk,
-                                 s);
-  }
-  const int bytes = (kTile * (NK * kTile + 8) + (NK + 1) * kChunk) * 2;
-  return launch(fx_dh_mma<NK>, tiles(N), kThreads, bytes, s, h, w, labels,
-                lse, coef, out, N, D, V);
+// Ring depth: as many stages as shared memory holds beside the resident
+// chunks, at most kMaxStages; a whole vocab or row tile (nk) must fit.
+int bwd_stages(int nk) {
+  const int per_stage = bwd_smem_bytes(nk, 1) - bwd_smem_bytes(nk, 0);
+  return min(kMaxStages, (kMaxSmem - bwd_smem_bytes(nk, 0)) / per_stage);
 }
 
+constexpr int next_nk(int nk) { return nk < 8 ? nk + 2 : 12; }
+
+// A backward launch's operands: tensor maps over h and W, and the rest.
+struct BwdArgs {
+  CUtensorMap h, w;
+  const int* labels;
+  const float* lse;
+  const float* coef;
+  bf16* out;
+  int N, D, V;
+};
+
 template <int NK>
-cudaError_t dw_mma(const bf16* h, const bf16* w, const int* labels,
-                   const float* lse, const float* coef, bf16* out, int N,
-                   int D, int V, int nk, cudaStream_t s) {
-  if constexpr (NK < kMaxNK) {
-    if (nk != NK)
-      return dw_mma<next_nk(NK)>(h, w, labels, lse, coef, out, N, D, V, nk,
-                                 s);
+cudaError_t bwd_wgmma_nk(bool dw, const BwdArgs& a, int nk, cudaStream_t s) {
+  if constexpr (NK < 12) {
+    if (nk != NK) return bwd_wgmma_nk<next_nk(NK)>(dw, a, nk, s);
   }
-  const int bytes = (2 * NK + 1) * kChunk * 2;
-  return launch(fx_dw_mma<NK>, tiles(V), kThreads, bytes, s, h, w, labels,
-                lse, coef, out, N, D, V);
+  const int stages = bwd_stages(NK);
+  if (nk != NK || stages < NK) return cudaErrorInvalidValue;
+  const int items = (dw ? tiles(a.V) : tiles(a.N)) * BwdTiling<NK>::kSlabs;
+  return launch(dw ? fx_dw_wgmma<NK> : fx_dh_wgmma<NK>,
+                persistent_blocks(items), kThreadsWs,
+                bwd_smem_bytes(NK, stages), s, a.h, a.w, a.labels, a.lse,
+                a.coef, a.out, a.N, a.D, a.V, stages);
+}
+
+// The bfloat16 dh (dw false) or dW (dw true) kernel.
+cudaError_t bwd_wgmma(bool dw, const bf16* h, const bf16* w,
+                      const int* labels, const float* lse, const float* coef,
+                      bf16* out, int N, int D, int V, cudaStream_t s) {
+  BwdArgs a;
+  a.labels = labels;
+  a.lse = lse;
+  a.coef = coef;
+  a.out = out;
+  a.N = N;
+  a.D = D;
+  a.V = V;
+  cudaError_t e = hopper::bf16_2d_map(&a.h, h, D, N, kTile);
+  if (e == cudaSuccess) e = hopper::bf16_2d_map(&a.w, w, V, D, kTile);
+  if (e != cudaSuccess) return e;
+  return bwd_wgmma_nk<2>(dw, a, nk_built(D), s);
 }
 
 }  // namespace
@@ -988,9 +1260,9 @@ extern "C" int ddl_fxent_dh(const void* h, const void* w, const int* labels,
                     static_cast<float*>(out), N, D, V, ld);
     }
     case 1:
-      return dh_mma<1>(static_cast<const bf16*>(h),
+      return bwd_wgmma(false, static_cast<const bf16*>(h),
                        static_cast<const bf16*>(w), labels, lse, coef,
-                       static_cast<bf16*>(out), N, D, V, nk_built(D), s);
+                       static_cast<bf16*>(out), N, D, V, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1011,12 +1283,26 @@ extern "C" int ddl_fxent_dw(const void* h, const void* w, const int* labels,
                     static_cast<float*>(out), N, D, V, ld);
     }
     case 1:
-      return dw_mma<1>(static_cast<const bf16*>(h),
+      return bwd_wgmma(true, static_cast<const bf16*>(h),
                        static_cast<const bf16*>(w), labels, lse, coef,
-                       static_cast<bf16*>(out), N, D, V, nk_built(D), s);
+                       static_cast<bf16*>(out), N, D, V, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The card tests' check of the three wgmma forms of the backward kernels:
+// c [64, 64] float32 from a, b bf16 [64, 64] (mode 0: a b, 1: a b^T, 2:
+// a^T b^T).
+extern "C" int ddl_fx_wgmma_tile_test(const void* a, const void* b, float* c,
+                                      int mode, void* stream) {
+  CUtensorMap ma, mb;
+  cudaError_t e = hopper::bf16_2d_map(&ma, a, kTile, kTile, kTile);
+  if (e == cudaSuccess) e = hopper::bf16_2d_map(&mb, b, kTile, kTile, kTile);
+  if (e != cudaSuccess) return e;
+  return launch(fx_wgmma_tile_test, 1, 128, 2 * kChunkBytes + 8 + 1024,
+                static_cast<cudaStream_t>(stream), ma, mb,
+                static_cast<const bf16*>(a), c, mode);
 }
 
 extern "C" const char* ddl_error_string(int code) {

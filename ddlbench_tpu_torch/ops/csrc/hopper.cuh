@@ -15,6 +15,8 @@
 //   MN-major (the rows are the reduction axis, tnsp = 1): SBO = 1024 bytes
 //   (the next 8 rows of the reduction axis), LBO unused while the 64
 //   columns are one swizzle atom wide; one k16 step is 16 rows, desc + 128.
+//   Either operand of a shared-memory product may be MN-major (tnspA for
+//   A, tnspB for B); the card tests pin each form the kernels use.
 //
 // Register layouts (per warpgroup, warp w, lane = 4 g + t): the m64nN f32
 // accumulator element d[4 j + 2 h + e] is row 16 w + g + 8 h, column
@@ -112,6 +114,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Load the box at coordinates (c0, c1) (innermost first) of a 2-D tensor
+// map into dst; completion is counted in bytes on bar.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -196,12 +210,13 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// d (+)= A * B for one k16 step, A and B from shared memory, both
-// K-major (tnspA = tnspB = 0). scale_d 0 overwrites d.
+// d (+)= A * B for one k16 step, A and B from shared memory; TA / TB = 1
+// reads A / B MN-major (tnspA / tnspB), 0 K-major. scale_d 0 overwrites d.
+template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int scale_d) {
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -212,7 +227,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -221,14 +236,16 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
-// d += A * B for one k16 step, A from registers (the m64k16 fragment),
-// B from shared memory MN-major (tnspB = 1). Always accumulates.
-__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
-                                                      const uint32_t (&a)[4],
-                                                      uint64_t desc_b) {
+// d += A * B for one k16 step, A from registers (the m64k16 fragment), B
+// from shared memory, MN-major for TB = 1 (tnspB), K-major for TB = 0.
+// Always accumulates.
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -239,7 +256,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
@@ -248,8 +265,8 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TB));
 }
 
 // ---------------------------------------------------------------------------
@@ -299,6 +316,26 @@ inline cudaError_t bf16_rows_map(CUtensorMap* map, const void* base,
   const cuuint32_t step[3] = {1, 1, 1};
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D bf16 tensor map over a row-major [outer, inner] tensor (inner * 2
+// bytes a multiple of 16), with a box of box_outer rows x 64 columns and
+// the 128-byte swizzle. A box that runs past either edge reads zeros there.
+inline cudaError_t bf16_2d_map(CUtensorMap* map, const void* base, int inner,
+                               int outer, int box_outer) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

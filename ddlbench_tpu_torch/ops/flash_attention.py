@@ -17,7 +17,10 @@ Semantics are the reference's: scale 1/sqrt(dh), float32 accumulation,
 mask value -1e30, the key at absolute position ``k_offset + j`` visible to
 the query at ``q_offset + i`` when ``q_pos >= k_pos`` or
 ``k_pos < prefix_len``; a fully masked row gives 0 output and finite
-gradients. Any Tq and Tk; head dim 64 only on the card.
+gradients. Any Tq and Tk; head dim 64 only on the card:
+:func:`kernel_takes` says whether the kernels take a set of operands, and
+the model's ``"auto"`` dispatch (models/transformer.py) takes the plain
+path for operands they refuse, counted in ``flash_attention.plain_launches``.
 
 On the card, the bfloat16 forward and dK/dV run on Hopper's wgmma with TMA
 loads through an mbarrier ring (``csrc/hopper.cuh``); dQ is still
@@ -113,6 +116,18 @@ def _flash_dkv_ref(q, k, v, do, lse, delta, q_offset: int = 0,
 # ---------------------------------------------------------------------------
 # Wrappers: the plain version for CPU tensors, the CUDA kernel otherwise.
 # ---------------------------------------------------------------------------
+
+
+def kernel_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Whether the kernels take these operands: all on one CUDA device,
+    [B, H, T, KERNEL_DH] with k and v alike, one dtype, float32 or
+    bfloat16. It looks at shapes, devices and dtypes only, never at whether
+    a kernel builds or launches."""
+    return (q.device.type == "cuda" and k.device == v.device == q.device
+            and q.dim() == 4 and k.dim() == 4 and v.shape == k.shape
+            and q.shape[-1] == k.shape[-1] == KERNEL_DH
+            and q.shape[:2] == k.shape[:2]
+            and q.dtype in _DTYPE_CODE and k.dtype == v.dtype == q.dtype)
 
 
 def _kernel_operand(t: torch.Tensor) -> torch.Tensor:
@@ -264,3 +279,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Offsets give each block's absolute position; key positions below
     ``prefix_len`` are visible to every query."""
     return _FlashAttention.apply(q, k, v, q_offset, k_offset, prefix_len)
+
+
+# attention calls on CUDA tensors the kernels refuse, which the model's
+# "auto" dispatch sends down the plain path instead
+flash_attention.plain_launches = 0

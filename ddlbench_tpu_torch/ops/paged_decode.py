@@ -21,7 +21,11 @@ A wrapper takes the plain version when its query lies on the CPU (the
 tests); on a CUDA tensor it launches the kernel or raises. Each wrapper
 counts its launches, over float32 and bfloat16 pools in ``launches`` and
 over int8 pools in ``launches_int8``, so a run can show that the main path
-went through the kernel.
+went through the kernel. The kernels take head dim 64 only
+(:func:`kernel_takes`); the serving passes call :func:`paged_attention_auto`
+and :func:`paged_chunk_attention_auto`, which take the plain version for a
+CUDA query the kernel refuses (the reference's paged ops take any head dim)
+and count those calls in the wrapper's ``plain_launches``.
 
 An int8 pool (the reference's EQuARX-lite pages) stores ``pool_k``/
 ``pool_v`` as int8 plus a scale SIDECAR ``scale_k``/``scale_v`` [n_pages,
@@ -370,6 +374,17 @@ def _check_kernel_args(q: torch.Tensor, cache: Pool, npages_live: int,
                          f"{q.shape[0]}")
 
 
+def kernel_takes(q: torch.Tensor, cache: Pool) -> bool:
+    """Whether the paged kernels take query ``q`` over ``cache``: both on
+    one CUDA device, a float32 query of head dim KERNEL_DH, a float32,
+    bfloat16 or int8 pool. It looks at shapes, devices and dtypes only,
+    never at whether a kernel builds or launches."""
+    pk = cache["pool_k"]
+    return (q.device.type == "cuda" and pk.device == q.device
+            and q.dtype == torch.float32 and q.shape[-1] == KERNEL_DH
+            and pk.dtype in _DTYPE_CODE and pk.shape[-1] == KERNEL_DH)
+
+
 def _scale_ptrs(cache: Pool):
     """The sidecar pointers of an int8 pool (NULL for the others)."""
     if pool_quantized(cache):
@@ -439,8 +454,37 @@ def paged_chunk_attention(q: torch.Tensor, cache: Pool,
     return out
 
 
-# kernel launches over float32/bfloat16 pools, and over int8 pools
+def _auto(fn, plain, q, cache, where, npages_live, page):
+    if q.device.type == "cuda" and not kernel_takes(q, cache):
+        fn.plain_launches += 1
+        return plain(q, cache, where, npages_live, page)
+    return fn(q, cache, where, npages_live, page)
+
+
+def paged_attention_auto(q: torch.Tensor, cache: Pool,
+                         pos: Union[int, torch.Tensor], npages_live: int,
+                         page: int) -> torch.Tensor:
+    """:func:`paged_attention`, or on a CUDA query its kernel refuses
+    (:func:`kernel_takes`) the plain version, counted in
+    ``paged_attention.plain_launches``."""
+    return _auto(paged_attention, _paged_attention_ref, q, cache, pos,
+                 npages_live, page)
+
+
+def paged_chunk_attention_auto(q: torch.Tensor, cache: Pool,
+                               start: Union[int, torch.Tensor],
+                               npages_live: int, page: int) -> torch.Tensor:
+    """:func:`paged_chunk_attention`, or on a CUDA query its kernel refuses
+    the plain version, counted in ``paged_chunk_attention.plain_launches``."""
+    return _auto(paged_chunk_attention, _paged_chunk_attention_ref, q, cache,
+                 start, npages_live, page)
+
+
+# kernel launches over float32/bfloat16 pools, and over int8 pools; calls
+# on CUDA queries the kernels refuse, which took the plain versions
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
+paged_attention.plain_launches = 0
 paged_chunk_attention.launches = 0
 paged_chunk_attention.launches_int8 = 0
+paged_chunk_attention.plain_launches = 0

@@ -28,7 +28,10 @@ tokens per second, and the mean decode-step and prefill-chunk times (and
 with ``--speculative`` the mean verify-pass time).
 
 The model runs on the card unless ``--device cpu`` is given; with no card
-and no ``--device cpu`` the tool raises.
+and no ``--device cpu`` the tool raises. Each row carries
+``plain_launches``: the paged attention calls of the run that took the
+plain path on CUDA tensors the kernels refuse (a head dim other than 64; 0
+on the CPU).
 
 Usage:
     python -m ddlbench_tpu_torch.tools.servebench [-m transformer_s]
@@ -53,6 +56,8 @@ from ddlbench_tpu_torch.config import DATASETS, ServeConfig
 from ddlbench_tpu_torch.device import provenance, resolve_device
 from ddlbench_tpu_torch.models.layers import LayerModel
 from ddlbench_tpu_torch.models.zoo import get_model
+from ddlbench_tpu_torch.ops.paged_decode import (paged_attention,
+                                                 paged_chunk_attention)
 from ddlbench_tpu_torch.serve.engine import ReplicatedServer, make_server
 from ddlbench_tpu_torch.serve.workload import ServeRequest, make_workload
 from ddlbench_tpu_torch.telemetry.stats import serve_summary
@@ -191,6 +196,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def plain_launches() -> int:
+    """Paged attention calls so far that took the plain path on CUDA
+    tensors the kernels refuse."""
+    return (paged_attention.plain_launches
+            + paged_chunk_attention.plain_launches)
+
+
 def run(args: argparse.Namespace, model: LayerModel,
         device: torch.device
         ) -> List[Tuple[dict, ReplicatedServer, List[ServeRequest]]]:
@@ -237,6 +249,7 @@ def run(args: argparse.Namespace, model: LayerModel,
             tail_frac=args.tail_frac, prefix_groups=groups,
             prefix_len=prefix_len, max_len=cfg.max_len)
         server = make_server(model, cfg, device)
+        plain0 = plain_launches()
         t0 = time.perf_counter()
         if args.arrival == "closed":
             duration = run_closed_loop(server, reqs, args.concurrency)
@@ -281,6 +294,7 @@ def run(args: argparse.Namespace, model: LayerModel,
             **({"kv_dtype": cfg.kv_dtype} if args.kv_dtype else {}),
             **({"speculative": cfg.speculative}
                if args.speculative else {}),
+            "plain_launches": plain_launches() - plain0,
             **prov,
         }
         if args.wall_clock:

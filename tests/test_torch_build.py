@@ -65,3 +65,7 @@ def test_target_covers_the_compiler_flags(csrc, monkeypatch):
 def test_flash_library_names_its_hopper_header():
     assert "hopper.cuh" in [p.name for p in _build._sources(
         "flash_attention")]
+
+
+def test_fused_xent_library_names_its_hopper_header():
+    assert "hopper.cuh" in [p.name for p in _build._sources("fused_xent")]

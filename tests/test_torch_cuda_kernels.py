@@ -328,6 +328,11 @@ FX_CASES = [
     (70, 16, 40, 0.1, "every5"),        # less than one tile each way
     (2048, 512, 4096, 0.1, "synthmt"),
     (300, 64, 200, 0.1, "all"),
+    (1000, 768, 1000, 0.1, "synthmt"),  # D 768 (two D slabs), ragged
+    (1000, 32, 1000, 0.1, "every5"),    # D 32 (transformer_t)
+    (40, 32, 136, 0.0, "every5"),       # N < 64, V a multiple of 8 only
+    (1100, 576, 2056, 0.1, "every5"),   # D 576: the narrowest two slabs
+    (700, 320, 520, 0.1, "synthmt"),    # an odd D chunk count
 ]
 
 
@@ -391,6 +396,46 @@ def test_fused_xent_kernels_match_plain_versions(dev, dtype, case):
         assert _col_rel_err(dw, dw_ref) <= 2.0 ** -6
 
 
+@pytest.mark.parametrize("D", [32, 512, 768])
+def test_fused_xent_backward_reruns_are_bitwise_equal(dev, D):
+    """dh and dW take no atomics: two runs on the same inputs give the same
+    bits."""
+    h, w, labels = _fx_case(dev, torch.bfloat16, 1000, D, 2048, "synthmt",
+                            seed=D)
+    coef = torch.tensor([1.0, 0.9, 0.1 / 2048], device=dev)
+    lse = fx._fxent_fwd_ref(h, w, labels)[0]
+    runs = [(fx.fxent_dh(h, w, labels, lse, coef),
+             fx.fxent_dw(h, w, labels, lse, coef)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_fx_wgmma_operand_forms_match_matmul(dev, mode):
+    """The three wgmma forms the bf16 dh and dW kernels issue, on one 64 x
+    64 x 64 tile loaded by TMA (2-D tensor maps, 128-byte swizzle): mode 0,
+    a b with a K-major and b MN-major from shared memory (dh's scores);
+    mode 1, a b^T with a from registers and b K-major (dh's product); mode
+    2, a^T b^T with a MN-major and b K-major from shared memory (dW's
+    transposed scores). dW's product is the flash kernels' register form
+    (test_wgmma_operand_forms_match_matmul, mode 1)."""
+    from ddlbench_tpu_torch.ops import _build
+
+    g = torch.Generator().manual_seed(22 + mode)
+    a, b = (torch.randn(64, 64, generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    c = torch.empty(64, 64, device=dev)
+    lib = _build.library("fused_xent")
+    _build.check(lib, lib.ddl_fx_wgmma_tile_test(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), mode,
+        torch.cuda.current_stream().cuda_stream), "fx_wgmma_tile_test")
+    af, bf = a.float(), b.float()
+    want = {0: af @ bf, 1: af @ bf.T, 2: af.T @ bf.T}[mode]
+    torch.cuda.synchronize()
+    assert (c - want).abs().max().item() <= 1e-4
+
+
 def test_fused_xent_float32_takes_any_vocabulary(dev):
     """The float32 kernels take a vocabulary that is no multiple of 8 (the
     bfloat16 ones refuse it: test below)."""
@@ -452,3 +497,45 @@ def test_fused_xent_wrapper_refuses_what_the_kernels_do_not_take(dev):
         fx.fxent_fwd(h.half(), w.half(), labels)
     with pytest.raises(ValueError, match="multiple of 8"):
         fx.fxent_fwd(h.bfloat16(), w[:, :99].bfloat16(), labels)
+
+
+def test_transformer_t_trains_through_lmbench_on_the_plain_attention(dev):
+    """transformer_t's head dim 8 is not the flash kernels': lmbench's
+    ``auto`` cell takes the plain attention, counted in its row, and the
+    fused-head kernels (D 32)."""
+    from ddlbench_tpu_torch.tools import lmbench
+
+    args = lmbench.build_parser().parse_args(
+        ["-m", "transformer_t", "-b", "synthtext", "--batch-size", "2",
+         "--steps", "2", "--warmup", "1", "--configs", "auto"])
+    before = fx.fxent_dw.launches
+    row = lmbench.run_config(args, "auto", False, dev)
+    assert row["plain_launches"] > 0 and row["platform"] == "gpu"
+    assert row["tokens_per_sec"] > 0
+    assert fx.fxent_dw.launches > before
+
+
+def test_transformer_t_serves_through_servebench_on_the_plain_paged_ops(dev):
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.tools import servebench
+
+    args = servebench.build_parser().parse_args(
+        ["-m", "transformer_t", "-b", "synthtext", "--policies",
+         "continuous", "--arrival", "closed", "--requests", "4",
+         "--max-len", "64", "--seed", "0"])
+    model = get_model(args.model, args.benchmark, seed=0).to(dev)
+    (row, _, _), = servebench.run(args, model, dev)
+    assert row["completed"] == 4 and row["plain_launches"] > 0
+
+
+def test_forced_flash_raises_on_head_dim_8(dev):
+    from ddlbench_tpu_torch.models.transformer import (causal_attention,
+                                                       set_attention_backend)
+
+    q = torch.zeros(1, 4, 16, 8, dtype=torch.bfloat16, device=dev)
+    set_attention_backend("flash")
+    try:
+        with pytest.raises(ValueError, match="flash kernels do not take"):
+            causal_attention(q, q, q)
+    finally:
+        set_attention_backend("auto")

@@ -43,6 +43,8 @@ def _rows(capsys, argv, configs, seq_len):
         assert r["tokens_per_sec"] > 0 and r["ms_per_step"] > 0
         assert r["seq_len"] == seq_len and r["batch"] == 2
         assert r["platform"] == "cpu" and r["remat"] is False
+        # the CPU path is the plain versions by design, never counted
+        assert r["plain_launches"] == 0
     return rows
 
 

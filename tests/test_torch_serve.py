@@ -123,8 +123,9 @@ SERVEBENCH_ARGS = [
 ]
 _JAX_PROV = {"schema_version", "jax_backend", "jax_device_count",
              "cpu_requested", "cpu_fallback"}
+# the port's provenance keys, and its count of plain-path calls on CUDA
 _PORT_PROV = {"schema_version", "platform", "device_kind", "device_count",
-              "torch_version", "cuda_version"}
+              "torch_version", "cuda_version", "plain_launches"}
 
 
 def test_servebench_row_equals_jax_row(capsys, serve_factory, port_lm):
@@ -167,6 +168,7 @@ def test_servebench_main_prints_rows_on_cpu(capsys):
     rows = [json.loads(l) for l in capsys.readouterr().out.splitlines()]
     assert len(rows) == 1 and rows[0]["completed"] == 8
     assert rows[0]["decode_step_ms"] > 0 and rows[0]["wall_s"] > 0
+    assert rows[0]["plain_launches"] == 0  # the CPU path is never counted
 
 
 def test_servebench_without_gpu_or_cpu_flag_raises(monkeypatch):

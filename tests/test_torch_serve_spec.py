@@ -192,8 +192,9 @@ SERVEBENCH_ARGS = [
 ]
 _JAX_PROV = {"schema_version", "jax_backend", "jax_device_count",
              "cpu_requested", "cpu_fallback"}
+# the port's provenance keys, and its count of plain-path calls on CUDA
 _PORT_PROV = {"schema_version", "platform", "device_kind", "device_count",
-              "torch_version", "cuda_version"}
+              "torch_version", "cuda_version", "plain_launches"}
 
 
 def test_servebench_levers_row_equals_jax_row(capsys, serve_factory,
