@@ -60,7 +60,8 @@ one JSON line; any failure raises and exits non-zero:
              whose drafts are accepted, else the first that drafts (none
              drafting fails); every request completed, prefix hits, both
              int8 kernels launched (counted apart from float-pool
-             launches, which must be 0). (a) over a float32 pool at that
+             launches, which must be 0), no paged call on the plain path
+             (the follow-up's included). (a) over a float32 pool at that
              N: pool_bytes exactly four times (b)'s. (c) as (b), with token
              streams bitwise equal to (b)'s. These counters, launches and
              the digits gate read servebench's run alone. Then, through
@@ -836,13 +837,20 @@ def phase_serve_levers(torch, pd, dev):
         if rec["completed"] != args.requests:
             raise AssertionError(f"{kv}: completed {rec['completed']} of "
                                  f"{args.requests} requests")
+        if rec["plain_launches"]:
+            raise AssertionError(f"{kv}: {rec['plain_launches']} paged calls "
+                                 "took the plain path")
         if rec["prefix_hits"] <= 0:
             raise AssertionError(f"{kv}: no prefix hit")
         toks = {f["rid"]: f["tokens"] for f in server.finished}
         return rec, server, reqs, toks, launches
 
     def followup(kv, rec, server, reqs):
+        plain0 = sum(fn.plain_launches for fn in kernels)
         extra = lever_followup(server, reqs, rec["duration"])
+        if sum(fn.plain_launches for fn in kernels) != plain0:
+            raise AssertionError(f"{kv} follow-up: paged calls took the "
+                                 "plain path")
         stats = server.stats_summary()
         delta = {k: stats[k] - rec[k] for k in ("prefix_hits",
                                                  "cow_copies")}
@@ -1545,12 +1553,13 @@ def train_cell(torch, fa, fx, dev, argv, phase):
                 **{name: getattr(fx, name) for name in FX_KERNELS}}
     for fn in counters.values():
         fn.launches = 0
-    plain0 = lmbench.plain_launches()
+    plain0 = fa.flash_attention.plain_launches
     dt = timed_steps(run_step, data.batch, args.steps, args.warmup)
     launches = {name: fn.launches for name, fn in counters.items()}
-    if lmbench.plain_launches() != plain0:
-        raise AssertionError(f"{lmbench.plain_launches() - plain0} calls "
-                             "took the plain path on the main path")
+    if fa.flash_attention.plain_launches != plain0:
+        raise AssertionError(f"{fa.flash_attention.plain_launches - plain0} "
+                             "attention calls took the plain path on the "
+                             "main path")
     steps_run = len(losses)
     loss_vals = torch.stack(losses).float().tolist()
     if not all(math.isfinite(x) for x in loss_vals):

@@ -43,10 +43,9 @@
 //     (ldmatrix conflict-free), W chunks streamed by cp.async through a
 //     ring of kFwdStages. Warp w owns rows 16 w..16 w + 15 of every
 //     64-column score tile and folds it into its rows' statistics.
-//   dh and dW (fx_dh_wgmma<NK>, fx_dw_wgmma<NK>; the mma.sync kernels
-//     they replace took 5.6 ms each at lmbench's head): Hopper's
-//     wgmma with TMA loads through an mbarrier ring (hopper.cuh), one
-//     persistent block per SM walking the work items. A block is two
+//   dh and dW (fx_dh_wgmma<NK>, fx_dw_wgmma<NK>): Hopper's wgmma with
+//     TMA loads through an mbarrier ring (hopper.cuh), one persistent
+//     block per SM walking the work items. A block is two
 //     consumer warpgroups and a producer warpgroup that keeps one lane
 //     issuing TMA and gives its registers to the consumers (setmaxnreg).
 //     dh takes 64 rows of h resident and streams W's vocab tiles as
@@ -60,10 +59,12 @@
 //     warpgroups recompute the scores (1.5x the flops): splitting the
 //     reduction between them and adding the halves through shared memory
 //     was measured slower, and so was issuing the next tile's scores
-//     behind a warpgroup's products (PERF.md). D 576-768 take two D slabs
-//     per tile, each recomputing the scores. Each wgmma sequence is
-//     straight-line code (the chunk counts are template arguments), which
-//     ptxas needs to keep the products in flight back to back.
+//     behind a warpgroup's products (PERF.md). Past D 512 a warpgroup's
+//     share of the accumulator (160 or 192 registers) leaves no room for a
+//     64 x 64 score tile, so it takes each tile in two 64 x 32 halves,
+//     scores then products. Each wgmma sequence is straight-line code (the
+//     chunk counts and the ring depth are compile-time), which ptxas needs
+//     to keep the products in flight back to back.
 //
 // float32 build (the tests' comparisons and --dtype float32; any V): the
 // same sweeps with float32 FMAs on the CUDA cores (no TF32: the float32
@@ -667,23 +668,27 @@ using hopper::kMnMajorStep;
 constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kThreadsWs = kConsumers + 128;  // and a producer warpgroup
 // registers a thread after setmaxnreg: the producer gives up what the
-// consumers' accumulators need (40 x 128 + 232 x 256 <= 65 536)
-constexpr int kProducerRegs = 40;
-constexpr int kConsumerRegs = 232;
+// consumers' accumulators need (24 x 128 + 240 x 256 <= 65 536)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 constexpr int kChunkBytes = kTile * kTile * 2;  // a [64][64] bf16 chunk
-constexpr int kMaxStages = 16;                  // streamed chunks in flight
+constexpr int kMaxStages = 16;  // the ring: streamed chunks in flight
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The D chunk counts the kernels are built for (D rounded up; the chunks
-// past D are zeros from TMA's out-of-bounds fill), and how each splits. A
-// work item covers 2 kNC chunks of the output, kNC a warpgroup (4 x 32
-// accumulator registers at most), in kSlabs items for the whole of D: one
-// up to D 512, two for D 576-768 (each recomputing the scores).
+// past D are zeros from TMA's out-of-bounds fill), and how each splits.
+// Each warpgroup owns kNC = NK / 2 chunks of the output (32 kNC float32
+// accumulator registers). Up to D 512 (at most 128 of them) it takes a
+// tile's scores whole (64 x 64: 32 registers); past D 512 (160 or 192) in
+// two halves of 32 streamed columns (dh) or rows (dW), each half's scores
+// (16 registers) multiplied before the next half's are computed, so no
+// score is computed twice by a warpgroup at any D.
 template <int NK>
 struct BwdTiling {
-  static constexpr int kNC = NK <= 8 ? NK / 2 : NK / 4;
-  static constexpr int kSlabs = NK / (2 * kNC);
-  static_assert(kSlabs * 2 * kNC == NK, "D chunks split evenly");
+  static constexpr int kNC = NK / 2;
+  static constexpr int kSubW = NK <= 8 ? kTile : kTile / 2;  // score width
+  static constexpr int kSubs = kTile / kSubW;
+  static_assert(2 * kNC == NK, "D chunks split evenly");
 };
 
 // 2^x on the special-function unit, results below 2^-126 flushed to 0.
@@ -769,24 +774,28 @@ __device__ __forceinline__ void wait_tile(const BwdSmem& sm, int step,
                       ((step + kc) / stages) & 1);
 }
 
-// The 64 x 64 score tile of the streamed chunks step.. into s: A (resident
-// chunk kc) times B (streamed chunk kc), each MN-major where TA / TB is 1,
-// summed over the NK chunks.
-template <int NK, int TA, int TB>
+// The 64 x (R / 2) scores of the streamed chunks step.. into s: A
+// (resident chunk kc) times B (streamed chunk kc), each MN-major where TA /
+// TB is 1, summed over the NK chunks. At R 16 (N 32) B is the half `sub`
+// of each streamed chunk (hopper.cuh: its columns, MN-major; its rows,
+// K-major).
+template <int NK, int TA, int TB, int R>
 __device__ __forceinline__ void score_tile(const BwdSmem& sm, int step,
-                                           int stages, float (&s)[32]) {
+                                           int stages, int sub,
+                                           float (&s)[R]) {
+  const int b_off = R == 32 ? 0 : TB ? sub * kTile : sub * kChunkBytes / 2;
 #pragma unroll
-  for (int j = 0; j < 32; ++j) s[j] = 0.f;
+  for (int j = 0; j < R; ++j) s[j] = 0.f;
   fence_regs(s);
   hopper::wgmma_fence();
 #pragma unroll
   for (int kc = 0; kc < NK; ++kc) {
     const uint64_t a_desc = desc_sw128(sm.res + kc * kChunkBytes);
-    const uint64_t b_desc =
-        desc_sw128(sm.ring + stage_of(step + kc, stages) * kChunkBytes);
+    const uint64_t b_desc = desc_sw128(
+        sm.ring + stage_of(step + kc, stages) * kChunkBytes + b_off);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      hopper::wgmma_m64n64k16_ss<TA, TB>(
+      hopper::wgmma_ss<TA, TB>(
           s, a_desc + kk * (TA ? kMnMajorStep : kKMajorStep),
           b_desc + kk * (TB ? kMnMajorStep : kKMajorStep), 1);
   }
@@ -807,14 +816,16 @@ __device__ __forceinline__ float dz_of2(float z, int label, float lse2,
 }
 
 // acc[i] += dz * the streamed chunk c_lo + i, i < NC (B MN-major where TB
-// is 1), then the chunks are released.
-template <int NC, int TB>
+// is 1), over the chunk's 64 or (R 16) its 32 rows of the reduction axis
+// starting at 32 sub; then, after the last half, the chunks are released.
+template <int NC, int TB, int R>
 __device__ __forceinline__ void add_products(const BwdSmem& sm, int step,
-                                             int stages, int c_lo,
-                                             const float (&dz)[32],
+                                             int stages, int c_lo, int sub,
+                                             const float (&dz)[R],
                                              float (&acc)[NC][32]) {
-  uint32_t a[4][4];  // dz as bf16 A fragments
-  pack_a<4>(dz, a);
+  constexpr int KS = R / 8;  // k16 steps
+  uint32_t a[KS][4];  // dz as bf16 A fragments
+  pack_a<KS>(dz, a);
 #pragma unroll
   for (int i = 0; i < NC; ++i) fence_regs(acc[i]);
   fence_regs(a);
@@ -824,17 +835,19 @@ __device__ __forceinline__ void add_products(const BwdSmem& sm, int step,
     const uint64_t b_desc = desc_sw128(
         sm.ring + stage_of(step + c_lo + i, stages) * kChunkBytes);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+    for (int kk = 0; kk < KS; ++kk)
       hopper::wgmma_m64n64k16_rs<TB>(
-          acc[i], a[kk], b_desc + kk * (TB ? kMnMajorStep : kKMajorStep));
+          acc[i], a[kk],
+          b_desc + (KS * sub + kk) * (TB ? kMnMajorStep : kKMajorStep));
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
 #pragma unroll
   for (int i = 0; i < NC; ++i) fence_regs(acc[i]);
   fence_regs(a);
-  for (int i = 0; i < NC; ++i)
-    hopper::mbar_arrive(&sm.empty[stage_of(step + c_lo + i, stages)]);
+  if (KS * (sub + 1) == 4)
+    for (int i = 0; i < NC; ++i)
+      hopper::mbar_arrive(&sm.empty[stage_of(step + c_lo + i, stages)]);
 }
 
 // Release the tile's chunks this warpgroup does not multiply (its own,
@@ -847,13 +860,14 @@ __device__ __forceinline__ void release_others(const BwdSmem& sm, int step,
       hopper::mbar_arrive(&sm.empty[stage_of(step + kc, stages)]);
 }
 
-// dh: persistent blocks walk the work items (64-row tile, D slab), item w
-// going to block w % gridDim.x. The producer loads the item's h rows (NK
-// chunks, resident) and streams W's vocab tiles as NK chunks [64 d][64 v]
-// each through the ring. The warpgroups compute the score tile z = h
-// W[:, tile] (64 x 64, wgmma with h K-major and the W chunk MN-major), turn
-// it into dz in registers, and add dz W[:, tile]^T to their own kNC chunks
-// of dh (wgmma with dz as the register A operand and the W chunk K-major).
+// dh: persistent blocks walk the 64-row tiles, tile w going to block
+// w % gridDim.x. The producer loads the tile's h rows (NK chunks,
+// resident) and streams W's vocab tiles as NK chunks [64 d][64 v] each
+// through the ring. The warpgroups compute the score tile z = h W[:, tile]
+// (64 x 64, or two 64 x 32 halves past D 512; wgmma with h K-major and the
+// W chunk MN-major), turn it into dz in registers, and add dz W[:, tile]^T
+// to their own kNC chunks of dh (wgmma with dz as the register A operand
+// and the W chunk K-major).
 // Every wgmma sequence is straight-line code (NK and kNC compile-time, the
 // tile's barriers waited first), so ptxas keeps the products back to back.
 template <int NK>
@@ -862,18 +876,20 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
                 const __grid_constant__ CUtensorMap tm_w,
                 const int* __restrict__ labels, const float* __restrict__ lse,
                 const float* __restrict__ coef, bf16* __restrict__ dh, int N,
-                int D, int V, int stages) {
-  constexpr int NC = BwdTiling<NK>::kNC, slabs = BwdTiling<NK>::kSlabs;
+                int D, int V) {
+  constexpr int NC = BwdTiling<NK>::kNC, SW = BwdTiling<NK>::kSubW;
+  constexpr int SUBS = BwdTiling<NK>::kSubs;
   extern __shared__ uint8_t smem_raw[];
   const int nv = (V + kTile - 1) / kTile;
-  const int items = ((N + kTile - 1) / kTile) * slabs;
+  const int items = (N + kTile - 1) / kTile;
+  constexpr int stages = kMaxStages;
   const BwdSmem sm = bwd_smem(smem_raw, NK, stages);
 
   if (bwd_init(sm, stages)) {  // the producer: one lane issues TMA
     if (threadIdx.x == kConsumers) {
       int step = 0;  // W chunks loaded so far, over every item
       for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
-        const int r0 = (w / slabs) * kTile;
+        const int r0 = w * kTile;
         hopper::mbar_wait(sm.res_empty, (n & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(sm.res_full, NK * kChunkBytes);
         for (int kc = 0; kc < NK; ++kc)
@@ -899,8 +915,8 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
   const float c_p = coef[0], c_oh = coef[1], c_sm = coef[2];
   int step = 0;
   for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
-    const long r0 = static_cast<long>(w / slabs) * kTile;
-    const int c_lo = (2 * (w % slabs) + wg) * NC;  // own chunks: c_lo + i
+    const long r0 = static_cast<long>(w) * kTile;
+    const int c_lo = wg * NC;  // own chunks: c_lo + i
     int lab[2];
     float lse2[2];
 #pragma unroll
@@ -917,20 +933,25 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
     hopper::mbar_wait(sm.res_full, n & 1);
     for (int vt = 0; vt < nv; ++vt, step += NK) {
       wait_tile<NK>(sm, step, stages);
-      float z[32];
-      score_tile<NK, 0, 1>(sm, step, stages, z);  // z = h W[:, tile]
-      if (vt == nv - 1) hopper::mbar_arrive(sm.res_empty);  // h reads done
-      release_others<NK, NC>(sm, step, stages, c_lo);
-      const int c0 = vt * kTile;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int hh = (i >> 1) & 1;
-        z[i] = dz_of2(z[i], lab[hh], lse2[hh],
-                      c0 + 8 * (i >> 2) + 2 * t + (i & 1), V, c_p, c_oh,
-                      c_sm);
+      for (int sub = 0; sub < SUBS; ++sub) {
+        float z[SW / 2];
+        score_tile<NK, 0, 1>(sm, step, stages, sub, z);  // z = h W[:, cols]
+        if (sub == SUBS - 1) {
+          if (vt == nv - 1) hopper::mbar_arrive(sm.res_empty);  // h read
+          release_others<NK, NC>(sm, step, stages, c_lo);
+        }
+        const int c0 = vt * kTile + sub * SW;
+#pragma unroll
+        for (int i = 0; i < SW / 2; ++i) {
+          const int hh = (i >> 1) & 1;
+          z[i] = dz_of2(z[i], lab[hh], lse2[hh],
+                        c0 + 8 * (i >> 2) + 2 * t + (i & 1), V, c_p, c_oh,
+                        c_sm);
+        }
+        // dh[:, chunk] += dz W[chunk, cols]^T
+        add_products<NC, 0>(sm, step, stages, c_lo, sub, z, acc);
       }
-      // dh[:, chunk] += dz W[chunk, tile]^T
-      add_products<NC, 0>(sm, step, stages, c_lo, z, acc);
     }
 #pragma unroll
     for (int i = 0; i < NC; ++i)
@@ -948,15 +969,16 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
   }
 }
 
-// dW: the same turned over. Work items are (64-column vocab tile, D slab);
-// the item's W columns are resident (NK chunks [64 d][64 v]) and the rows
-// of h stream through the ring as NK chunks [64 rows][64 d] per row tile.
+// dW: the same turned over. Work items are 64-column vocab tiles; the
+// item's W columns are resident (NK chunks [64 d][64 v]) and the rows of h
+// stream through the ring as NK chunks [64 rows][64 d] per row tile (taken
+// in two halves of 32 rows past D 512).
 // The warpgroups compute the transposed scores z^T = W[:, tile]^T
 // h_tile^T (64 vocab columns x 64 rows; wgmma with the W chunk MN-major as
 // A and the h chunk K-major as B), so dz^T is in the accumulator layout and
 // feeds dW^T[:, chunk] += dz^T h[tile, chunk] as the register A operand
 // against the h chunk MN-major. lse and labels are per accumulator column:
-// each thread loads its 16 rows' while the score product runs. Each
+// each thread loads its 16 (8 a half) rows' before the score product. Each
 // warpgroup keeps its kNC chunks of dW^T in registers over all rows: no
 // atomics, so reruns are bitwise equal.
 template <int NK>
@@ -965,18 +987,20 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
                 const __grid_constant__ CUtensorMap tm_w,
                 const int* __restrict__ labels, const float* __restrict__ lse,
                 const float* __restrict__ coef, bf16* __restrict__ dw, int N,
-                int D, int V, int stages) {
-  constexpr int NC = BwdTiling<NK>::kNC, slabs = BwdTiling<NK>::kSlabs;
+                int D, int V) {
+  constexpr int NC = BwdTiling<NK>::kNC, SW = BwdTiling<NK>::kSubW;
+  constexpr int SUBS = BwdTiling<NK>::kSubs;
   extern __shared__ uint8_t smem_raw[];
   const int nrt = (N + kTile - 1) / kTile;
-  const int items = ((V + kTile - 1) / kTile) * slabs;
+  const int items = (V + kTile - 1) / kTile;
+  constexpr int stages = kMaxStages;
   const BwdSmem sm = bwd_smem(smem_raw, NK, stages);
 
   if (bwd_init(sm, stages)) {  // the producer: one lane issues TMA
     if (threadIdx.x == kConsumers) {
       int step = 0;  // h chunks loaded so far, over every item
       for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
-        const int c0 = (w / slabs) * kTile;
+        const int c0 = w * kTile;
         hopper::mbar_wait(sm.res_empty, (n & 1) ^ 1);
         hopper::mbar_arrive_expect_tx(sm.res_full, NK * kChunkBytes);
         for (int kc = 0; kc < NK; ++kc)
@@ -1002,8 +1026,8 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
   const float c_p = coef[0], c_oh = coef[1], c_sm = coef[2];
   int step = 0;
   for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
-    const int c0 = (w / slabs) * kTile;
-    const int c_lo = (2 * (w % slabs) + wg) * NC;  // own chunks: c_lo + i
+    const int c0 = w * kTile;
+    const int c_lo = wg * NC;  // own chunks: c_lo + i
     float acc[NC][32];
 #pragma unroll
     for (int i = 0; i < NC; ++i)
@@ -1012,26 +1036,32 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
     hopper::mbar_wait(sm.res_full, n & 1);
     for (int rt = 0; rt < nrt; ++rt, step += NK) {
       wait_tile<NK>(sm, step, stages);
-      float lse2[16];  // accumulator column 8 (j / 2) + 2 t + j % 2's
-      int lab[16];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        const int r = rt * kTile + 8 * (j >> 1) + 2 * t + (j & 1);
-        lab[j] = r < N ? labels[r] : -1;
-        lse2[j] = r < N ? lse[r] * kLog2e : 0.f;
-      }
-      float zt[32];  // z^T = W[:, tile]^T h[tile]^T
-      score_tile<NK, 1, 0>(sm, step, stages, zt);
+      for (int sub = 0; sub < SUBS; ++sub) {
+        float lse2[SW / 4];  // accumulator column 8 (j / 2) + 2 t + j % 2's
+        int lab[SW / 4];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int j = 2 * (i >> 2) + (i & 1);
-        zt[i] = dz_of2(zt[i], lab[j], lse2[j], c0 + col + 8 * ((i >> 1) & 1),
-                       V, c_p, c_oh, c_sm);
+        for (int j = 0; j < SW / 4; ++j) {
+          const int r =
+              rt * kTile + sub * SW + 8 * (j >> 1) + 2 * t + (j & 1);
+          lab[j] = r < N ? labels[r] : -1;
+          lse2[j] = r < N ? lse[r] * kLog2e : 0.f;
+        }
+        float zt[SW / 2];  // z^T = W[:, tile]^T h[rows]^T
+        score_tile<NK, 1, 0>(sm, step, stages, sub, zt);
+#pragma unroll
+        for (int i = 0; i < SW / 2; ++i) {
+          const int j = 2 * (i >> 2) + (i & 1);
+          zt[i] = dz_of2(zt[i], lab[j], lse2[j],
+                         c0 + col + 8 * ((i >> 1) & 1), V, c_p, c_oh, c_sm);
+        }
+        if (sub == SUBS - 1) {
+          if (rt == nrt - 1) hopper::mbar_arrive(sm.res_empty);  // W read
+          release_others<NK, NC>(sm, step, stages, c_lo);
+        }
+        // dW^T[:, chunk] += dz^T h[rows, chunk]
+        add_products<NC, 1>(sm, step, stages, c_lo, sub, zt, acc);
       }
-      if (rt == nrt - 1) hopper::mbar_arrive(sm.res_empty);  // W reads done
-      release_others<NK, NC>(sm, step, stages, c_lo);
-      // dW^T[:, chunk] += dz^T h[tile, chunk]
-      add_products<NC, 1>(sm, step, stages, c_lo, zt, acc);
     }
 #pragma unroll
     for (int i = 0; i < NC; ++i)
@@ -1056,7 +1086,9 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
 // 128-byte swizzle, c float32 [64, 64]. Mode 0: c = a b, a K-major and b
 // MN-major from shared memory (dh's scores); mode 1: c = a b^T, a from
 // registers and b K-major (dh's product); mode 2: c = a^T b^T, a MN-major
-// and b K-major from shared memory (dW's transposed scores).
+// and b K-major from shared memory (dW's transposed scores); modes 3 and 4:
+// modes 0 and 2 as two N 32 halves, each reading half of b (the scores
+// past D 512).
 __global__ void __launch_bounds__(128)
     fx_wgmma_tile_test(const __grid_constant__ CUtensorMap tm_a,
                        const __grid_constant__ CUtensorMap tm_b,
@@ -1101,7 +1133,7 @@ __global__ void __launch_bounds__(128)
                                          b_desc + kk * kMnMajorStep, 1);
     else if (mode == 1)
       hopper::wgmma_m64n64k16_rs<0>(d, fa[kk], b_desc + kk * kKMajorStep);
-    else
+    else if (mode == 2)
       hopper::wgmma_m64n64k16_ss<1, 0>(d, a_desc + kk * kMnMajorStep,
                                          b_desc + kk * kKMajorStep, 1);
   }
@@ -1109,9 +1141,41 @@ __global__ void __launch_bounds__(128)
   hopper::wgmma_wait<0>();
   fence_regs(d);
   fence_regs(fa);
+  if (mode < 3) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i)
-    c[(r0 + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
+    for (int i = 0; i < 32; ++i)
+      c[(r0 + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * t + (i & 1)] =
+          d[i];
+    return;
+  }
+  for (int sub = 0; sub < 2; ++sub) {
+    float e[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) e[i] = 0.f;
+    fence_regs(e);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (mode == 3)
+        hopper::wgmma_m64n32k16_ss<0, 1>(
+            e, a_desc + kk * kKMajorStep,
+            desc_sw128(smem + kChunkBytes + sub * kTile) + kk * kMnMajorStep,
+            1);
+      else
+        hopper::wgmma_m64n32k16_ss<1, 0>(
+            e, a_desc + kk * kMnMajorStep,
+            desc_sw128(smem + kChunkBytes + sub * kChunkBytes / 2) +
+                kk * kKMajorStep,
+            1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    fence_regs(e);
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      c[(r0 + 8 * ((i >> 1) & 1)) * 64 + 32 * sub + 8 * (i >> 2) + 2 * t +
+        (i & 1)] = e[i];
+  }
 }
 
 // ===========================================================================
@@ -1159,21 +1223,11 @@ int persistent_blocks(int items) {
   return min(items, sms);
 }
 
-// The D chunk count a head is built for: D rounded up to the next of
-// 2, 4, 6, 8 and 12 chunks of 64.
-int nk_built(int D) {
-  const int nk = tiles(D);
-  return nk <= 2 ? 2 : nk <= 4 ? 4 : nk <= 6 ? 6 : nk <= 8 ? 8 : 12;
-}
+// The D chunk count a head is built for: D rounded up to an even number
+// of chunks of 64 (2 to 12).
+int nk_built(int D) { return max(2, (tiles(D) + 1) / 2 * 2); }
 
-// Ring depth: as many stages as shared memory holds beside the resident
-// chunks, at most kMaxStages; a whole vocab or row tile (nk) must fit.
-int bwd_stages(int nk) {
-  const int per_stage = bwd_smem_bytes(nk, 1) - bwd_smem_bytes(nk, 0);
-  return min(kMaxStages, (kMaxSmem - bwd_smem_bytes(nk, 0)) / per_stage);
-}
 
-constexpr int next_nk(int nk) { return nk < 8 ? nk + 2 : 12; }
 
 // A backward launch's operands: tensor maps over h and W, and the rest.
 struct BwdArgs {
@@ -1188,15 +1242,17 @@ struct BwdArgs {
 template <int NK>
 cudaError_t bwd_wgmma_nk(bool dw, const BwdArgs& a, int nk, cudaStream_t s) {
   if constexpr (NK < 12) {
-    if (nk != NK) return bwd_wgmma_nk<next_nk(NK)>(dw, a, nk, s);
+    if (nk != NK) return bwd_wgmma_nk<NK + 2>(dw, a, nk, s);
   }
-  const int stages = bwd_stages(NK);
-  if (nk != NK || stages < NK) return cudaErrorInvalidValue;
-  const int items = (dw ? tiles(a.V) : tiles(a.N)) * BwdTiling<NK>::kSlabs;
+  static_assert(NK <= kMaxStages &&
+                    bwd_smem_bytes(NK, kMaxStages) <= kMaxSmem,
+                "the resident chunks and the ring fit");
+  if (nk != NK) return cudaErrorInvalidValue;
+  const int items = dw ? tiles(a.V) : tiles(a.N);
   return launch(dw ? fx_dw_wgmma<NK> : fx_dh_wgmma<NK>,
                 persistent_blocks(items), kThreadsWs,
-                bwd_smem_bytes(NK, stages), s, a.h, a.w, a.labels, a.lse,
-                a.coef, a.out, a.N, a.D, a.V, stages);
+                bwd_smem_bytes(NK, kMaxStages), s, a.h, a.w, a.labels, a.lse,
+                a.coef, a.out, a.N, a.D, a.V);
 }
 
 // The bfloat16 dh (dw false) or dW (dw true) kernel.
@@ -1291,9 +1347,9 @@ extern "C" int ddl_fxent_dw(const void* h, const void* w, const int* labels,
   }
 }
 
-// The card tests' check of the three wgmma forms of the backward kernels:
-// c [64, 64] float32 from a, b bf16 [64, 64] (mode 0: a b, 1: a b^T, 2:
-// a^T b^T).
+// The card tests' check of the wgmma forms of the backward kernels: c
+// [64, 64] float32 from a, b bf16 [64, 64] (mode 0: a b, 1: a b^T, 2:
+// a^T b^T, 3: a b and 4: a^T b^T in two N 32 halves).
 extern "C" int ddl_fx_wgmma_tile_test(const void* a, const void* b, float* c,
                                       int mode, void* stream) {
   CUtensorMap ma, mb;

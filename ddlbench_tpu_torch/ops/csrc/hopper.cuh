@@ -16,7 +16,10 @@
 //   (the next 8 rows of the reduction axis), LBO unused while the 64
 //   columns are one swizzle atom wide; one k16 step is 16 rows, desc + 128.
 //   Either operand of a shared-memory product may be MN-major (tnspA for
-//   A, tnspB for B); the card tests pin each form the kernels use.
+//   A, tnspB for B); the card tests pin each form the kernels use. An N 32
+//   operand is half such a tile: K-major, rows 32.. start 4096 bytes on;
+//   MN-major, columns 32.. start 64 bytes on (the swizzle is a function of
+//   the address bits, so an offset inside the atom reads the right half).
 //
 // Register layouts (per warpgroup, warp w, lane = 4 g + t): the m64nN f32
 // accumulator element d[4 j + 2 h + e] is row 16 w + g + 8 h, column
@@ -237,6 +240,40 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same product at N 32 (d is the m64n32 accumulator).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
+                                                     uint64_t desc_a,
+                                                     uint64_t desc_b,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The m64nN product at N 64 or 32, by the accumulator's size.
+template <int TA, int TB, int R>
+__device__ __forceinline__ void wgmma_ss(float (&d)[R], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(R == 32 || R == 16, "N 64 or 32");
+  if constexpr (R == 32)
+    wgmma_m64n64k16_ss<TA, TB>(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n32k16_ss<TA, TB>(d, desc_a, desc_b, scale_d);
 }
 
 // d += A * B for one k16 step, A from registers (the m64k16 fragment), B

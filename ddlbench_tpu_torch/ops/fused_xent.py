@@ -26,12 +26,9 @@ torch (no kernel in the reference either).
 Each wrapper takes its plain PyTorch version (``_fxent_*_ref``, float32
 math chunked over rows, beside it) when ``h`` lies on the CPU — the tests'
 route — and on a CUDA tensor launches its kernel or raises; it counts its
-launches in ``launches``. :func:`fused_linear_xent` takes the kernels
-exactly where :func:`kernel_takes` holds, and on CUDA tensors they refuse
-the plain versions, counted in ``fused_linear_xent.plain_launches``. The
-TPU's dispatch and VMEM budgeting (``_use_pallas``, ``_budget_v_block``,
-row padding) have no counterpart: the kernels mask ragged rows and vocab
-tiles themselves.
+launches in ``launches``. The TPU's dispatch and VMEM budgeting
+(``_use_pallas``, ``_budget_v_block``, row padding) have no counterpart:
+the kernels mask ragged rows and vocab tiles themselves.
 """
 
 from __future__ import annotations
@@ -157,19 +154,6 @@ def _check_kernel_args(what: str, h: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"{what}: sizes past the kernels' int32 indices")
 
 
-def kernel_takes(h: torch.Tensor, w: torch.Tensor) -> bool:
-    """Whether the kernels take h [N, D] and w [D, V]: both on one CUDA
-    device, one dtype, float32 or bfloat16, D a multiple of 16 and at most
-    KERNEL_MAX_D, V a multiple of 8 in bfloat16. It looks at shapes,
-    devices and dtypes only, never at whether a kernel builds or
-    launches."""
-    return (h.device.type == "cuda" and w.device == h.device
-            and h.dim() == 2 and w.dim() == 2 and w.shape[0] == h.shape[1]
-            and h.shape[1] % 16 == 0 and h.shape[1] <= KERNEL_MAX_D
-            and h.dtype in _DTYPE_CODE and w.dtype == h.dtype
-            and (h.dtype != torch.bfloat16 or w.shape[1] % 8 == 0))
-
-
 def _operands(h, w, labels):
     return (_kernel_operand(h), _kernel_operand(w),
             _kernel_operand(labels.to(torch.int32)))
@@ -265,11 +249,7 @@ def loss_sums(lse, gold, zsum, amax, labels, smoothing: float, V: int):
 class _FusedLinearXent(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, w, labels, smoothing):
-        ctx.plain = h.device.type == "cuda" and not kernel_takes(h, w)
-        if ctx.plain:
-            fused_linear_xent.plain_launches += 1
-        fwd = _fxent_fwd_ref if ctx.plain else fxent_fwd
-        lse, gold, zsum, amax = fwd(h, w, labels)
+        lse, gold, zsum, amax = fxent_fwd(h, w, labels)
         obj_s, ce_s, correct = loss_sums(lse, gold, zsum, amax, labels,
                                          smoothing, w.shape[1])
         ctx.save_for_backward(h, w, labels, lse)
@@ -286,12 +266,10 @@ class _FusedLinearXent(torch.autograd.Function):
         gce = zero if gce is None else gce.float()
         coef = torch.stack([go + gce, go * (1.0 - s) + gce, go * (s / V)])
         dh = dw = None
-        dh_fn, dw_fn = ((_fxent_dh_ref, _fxent_dw_ref) if ctx.plain
-                        else (fxent_dh, fxent_dw))
         if ctx.needs_input_grad[0]:
-            dh = dh_fn(h, w, labels, lse, coef)
+            dh = fxent_dh(h, w, labels, lse, coef)
         if ctx.needs_input_grad[1]:
-            dw = dw_fn(h, w, labels, lse, coef)
+            dw = fxent_dw(h, w, labels, lse, coef)
         return dh, dw, None, None
 
 
@@ -303,10 +281,6 @@ def fused_linear_xent(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     is not. (The reference's ``row_chunk``, ``backend`` and ``interpret``
     choose among its XLA and Pallas paths; here the device of h does.)"""
     return _FusedLinearXent.apply(h, w, labels, float(smoothing))
-
-
-# calls on CUDA tensors the kernels refuse, which took the plain versions
-fused_linear_xent.plain_launches = 0
 
 
 @torch.no_grad()

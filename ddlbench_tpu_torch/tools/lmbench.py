@@ -21,9 +21,9 @@ default; with no card the tool raises unless ``--device cpu`` is given) in
 place of ``--platform``, and ``device.provenance()`` in place of the JAX
 backend record. A configuration that runs out of device memory prints an
 ``"error": "hbm-oom"`` row and is retried with per-layer remat. Each row
-also carries ``plain_launches``: the attention and fused-head calls of the
-run that took the plain path on CUDA tensors the kernels refuse (``auto``
-with a head dim the flash kernels do not take; 0 on the CPU).
+also carries ``plain_launches``: the attention calls of the run that took
+the plain path on CUDA tensors the flash kernels refuse (``auto`` with a
+head dim they do not take; 0 on the CPU).
 
 Usage:
     python -m ddlbench_tpu_torch.tools.lmbench [-m transformer_s]
@@ -44,7 +44,6 @@ from ddlbench_tpu_torch.data.synthetic import make_synthetic
 from ddlbench_tpu_torch.device import provenance, resolve_device
 from ddlbench_tpu_torch.models.transformer import set_attention_backend
 from ddlbench_tpu_torch.ops.flash_attention import flash_attention
-from ddlbench_tpu_torch.ops.fused_xent import fused_linear_xent
 from ddlbench_tpu_torch.parallel.api import make_strategy
 from ddlbench_tpu_torch.tools.timing import timed_steps
 
@@ -80,12 +79,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def plain_launches() -> int:
-    """Attention and fused-head calls so far that took the plain path on
-    CUDA tensors the kernels refuse."""
-    return flash_attention.plain_launches + fused_linear_xent.plain_launches
-
-
 def run_config(args: argparse.Namespace, name: str, remat: bool,
                device: torch.device) -> dict:
     """Time ``args.steps`` training steps of configuration ``name`` and
@@ -108,7 +101,7 @@ def run_config(args: argparse.Namespace, name: str, remat: bool,
     B = cfg.global_batch()
     data = make_synthetic(spec, B, device, steps_per_epoch=args.steps)
     lr = cfg.resolved_lr()
-    plain0 = plain_launches()
+    plain0 = flash_attention.plain_launches
     dt = timed_steps(lambda x, y: strategy.train_step(x, y, lr), data.batch,
                      args.steps, args.warmup)
     tokens = args.steps * B * spec.seq_len
@@ -121,7 +114,7 @@ def run_config(args: argparse.Namespace, name: str, remat: bool,
         "remat": remat,
         "tokens_per_sec": round(tokens / dt, 1),
         "ms_per_step": round(1000 * dt / args.steps, 2),
-        "plain_launches": plain_launches() - plain0,
+        "plain_launches": flash_attention.plain_launches - plain0,
         **provenance(device),
     }
 

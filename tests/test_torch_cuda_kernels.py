@@ -328,10 +328,10 @@ FX_CASES = [
     (70, 16, 40, 0.1, "every5"),        # less than one tile each way
     (2048, 512, 4096, 0.1, "synthmt"),
     (300, 64, 200, 0.1, "all"),
-    (1000, 768, 1000, 0.1, "synthmt"),  # D 768 (two D slabs), ragged
+    (1000, 768, 1000, 0.1, "synthmt"),  # D 768 (scores in halves), ragged
     (1000, 32, 1000, 0.1, "every5"),    # D 32 (transformer_t)
     (40, 32, 136, 0.0, "every5"),       # N < 64, V a multiple of 8 only
-    (1100, 576, 2056, 0.1, "every5"),   # D 576: the narrowest two slabs
+    (1100, 576, 2056, 0.1, "every5"),   # D 576: the narrowest in halves
     (700, 320, 520, 0.1, "synthmt"),    # an odd D chunk count
 ]
 
@@ -411,15 +411,16 @@ def test_fused_xent_backward_reruns_are_bitwise_equal(dev, D):
     assert torch.equal(runs[0][1], runs[1][1])
 
 
-@pytest.mark.parametrize("mode", [0, 1, 2])
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
 def test_fx_wgmma_operand_forms_match_matmul(dev, mode):
-    """The three wgmma forms the bf16 dh and dW kernels issue, on one 64 x
-    64 x 64 tile loaded by TMA (2-D tensor maps, 128-byte swizzle): mode 0,
-    a b with a K-major and b MN-major from shared memory (dh's scores);
-    mode 1, a b^T with a from registers and b K-major (dh's product); mode
-    2, a^T b^T with a MN-major and b K-major from shared memory (dW's
-    transposed scores). dW's product is the flash kernels' register form
-    (test_wgmma_operand_forms_match_matmul, mode 1)."""
+    """The wgmma forms the bf16 dh and dW kernels issue, on one 64 x 64 x
+    64 tile loaded by TMA (2-D tensor maps, 128-byte swizzle): mode 0, a b
+    with a K-major and b MN-major from shared memory (dh's scores); mode 1,
+    a b^T with a from registers and b K-major (dh's product); mode 2, a^T
+    b^T with a MN-major and b K-major from shared memory (dW's transposed
+    scores); modes 3 and 4, modes 0 and 2 in two N 32 halves, each reading
+    half of b (the scores past D 512). dW's product is the flash kernels'
+    register form (test_wgmma_operand_forms_match_matmul, mode 1)."""
     from ddlbench_tpu_torch.ops import _build
 
     g = torch.Generator().manual_seed(22 + mode)
@@ -431,7 +432,8 @@ def test_fx_wgmma_operand_forms_match_matmul(dev, mode):
         a.data_ptr(), b.data_ptr(), c.data_ptr(), mode,
         torch.cuda.current_stream().cuda_stream), "fx_wgmma_tile_test")
     af, bf = a.float(), b.float()
-    want = {0: af @ bf, 1: af @ bf.T, 2: af.T @ bf.T}[mode]
+    want = {0: af @ bf, 1: af @ bf.T, 2: af.T @ bf.T, 3: af @ bf,
+            4: af.T @ bf.T}[mode]
     torch.cuda.synchronize()
     assert (c - want).abs().max().item() <= 1e-4
 

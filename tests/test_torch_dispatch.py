@@ -1,16 +1,17 @@
 """The card's dispatch between the port's kernels and their plain paths,
 on the CPU.
 
-Each kernel module has one predicate, ``kernel_takes``, that says from
-devices, shapes and dtypes alone whether its kernels take a set of
-tensors. On CUDA tensors, ``"auto"`` attention takes the flash kernels
-exactly when the predicate holds and the plain einsum otherwise (the
-reference's ``_flash_dispatch`` takes its XLA path for shapes its kernel
-does not take), counting each such call; a forced ``"flash"`` raises. The
-serving passes dispatch the paged ops the same way, and the fused head its
-kernels. No card is needed: a stand-in that reports a CUDA device is
-enough for the predicates and the dispatch functions, which read nothing
-else.
+The attention and paged kernel modules each have one predicate,
+``kernel_takes``, that says from devices, shapes and dtypes alone whether
+its kernels take a set of tensors. On CUDA tensors, ``"auto"`` attention
+takes the flash kernels exactly when the predicate holds and the plain
+einsum otherwise (the reference's ``_flash_dispatch`` takes its XLA path
+for shapes its kernel does not take), counting each such call; a forced
+``"flash"`` raises. The serving passes dispatch the paged ops the same
+way. The fused head has no plain path on the card: its wrappers raise on
+what its kernels refuse. No card is needed: a stand-in that reports a CUDA
+device is enough for the predicates and the dispatch functions, which
+read nothing else.
 """
 
 import pytest
@@ -37,6 +38,9 @@ class OnCard:
 
     def dim(self):
         return len(self.shape)
+
+    def numel(self):
+        return self.shape.numel()
 
 
 def _qkv(dh, dtype, T=16):
@@ -77,15 +81,22 @@ def test_paged_kernel_takes(dh, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D", [24, 32, 512, 784])
-def test_fused_head_kernel_takes(D, dtype):
-    want = (D % 16 == 0 and D <= fx.KERNEL_MAX_D
-            and dtype != torch.float16)
-    assert fx.kernel_takes(OnCard((128, D), dtype),
-                           OnCard((D, 1000), dtype)) is want
-    # a bfloat16 vocabulary must be a multiple of 8; float32 any
-    assert fx.kernel_takes(OnCard((128, 32), dtype),
-                           OnCard((32, 1001), dtype)) is (
-        dtype == torch.float32)
+def test_fused_head_wrappers_raise_where_the_kernels_refuse(D, dtype):
+    """The fused head has no plain path on the card: each kernel wrapper
+    takes a CUDA tensor to its kernel or raises, before anything builds."""
+    takes = (D % 16 == 0 and D <= fx.KERNEL_MAX_D
+             and dtype != torch.float16)
+    lse, coef = OnCard((128,)), OnCard((3,))
+    for V in (1000, 1001):  # a bfloat16 vocabulary must be a multiple of 8
+        args = (OnCard((128, D), dtype), OnCard((D, V), dtype),
+                OnCard((128,), torch.int32))
+        if takes and (V % 8 == 0 or dtype == torch.float32):
+            fx._check_kernel_args("fxent_dh", *args, lse, coef)
+            continue
+        for wrapper in (fx.fxent_fwd, fx.fxent_dh, fx.fxent_dw):
+            with pytest.raises(ValueError):
+                wrapper(*args, *(() if wrapper is fx.fxent_fwd
+                                 else (lse, coef)))
 
 
 @pytest.fixture
