@@ -10,14 +10,15 @@ one JSON line; any failure raises and exits non-zero:
              checkout (ops/csrc/*.cu: paged_attention, flash_attention and
              fused_xent, one nvcc each, started together, for sm_90a) and
              reports the time; then, for each flash and fused-head kernel
-             (each template instance of the bfloat16 dh and dW kernels, one
-             per D chunk count), its registers and spill bytes (the
+             (each template instance of the bfloat16 fused-head kernels,
+             one per D chunk count), its registers and spill bytes (the
              -Xptxas -v log) and its counts of wgmma (HGMMA), TMA load
              (UTMALDG) and mma.sync (HMMA) instructions (cuobjdump -sass).
-             Fails if the bfloat16 flash forward or dK/dV kernel, or the
-             bfloat16 fused-head dh or dW kernel, has no HGMMA, no UTMALDG
-             or any HMMA; without cuobjdump the line says so and checks
-             nothing.
+             Fails if a bfloat16 flash or fused-head kernel (forward, dQ,
+             dK/dV; forward, dh, dW) has no HGMMA, no UTMALDG or any HMMA,
+             or if ptxas serialised its wgmma products (a C7520 note);
+             without cuobjdump the line says so and checks only the
+             notes.
 2. kernels — holds each paged kernel against its plain PyTorch version at
              the serving slice's shapes (rows 8, H 8, dh 64, page 16, a
              64-page pool, scattered random tables, per-row positions with
@@ -97,7 +98,10 @@ one JSON line; any failure raises and exits non-zero:
              than the others is measured against 1e-3 of the mean row
              norm. The check must reject the plain versions with a planted
              tail fault at T 1000: the last 8 keys dropped (forward, dQ)
-             or the last 8 queries (dK/dV). Then longctx32k: the forward
+             or the last 8 queries (dK/dV); and dQ with the second
+             warpgroup's 64 rows of a 128-query item (queries 64-127)
+             zeroed. In bfloat16, dQ run again at lmbench's shape must
+             give the same bits (no atomics). Then longctx32k: the forward
              at T 32768, B 1, its last 256 rows against the plain version
              of those queries (q_offset T - 256 over the full K/V), and
              the backward kernels on that query block against theirs. The
@@ -131,11 +135,13 @@ one JSON line; any failure raises and exits non-zero:
              relative L2, an argmax mismatch only at a near-tie (the two
              logits within 1e-3; the count is reported). The check must
              reject the plain versions with planted faults on synthmt's
-             case: the last vocab tile skipped (forward, dh), gold read
-             from the next column, the label mask dropped (dh, dW), the last
-             D half of dh dropped and the last row tile of dW skipped. In
-             bfloat16, dh and dW run again on synthmt's and the D-768 case
-             must give the same bits (no atomics).
+             case: the last vocab tile skipped (forward, dh), the
+             forward's odd vocab tiles dropped (one warpgroup's share),
+             gold read from the next column, the label mask dropped (dh,
+             dW), the last D half of dh dropped and the last row tile of
+             dW skipped. In bfloat16, the forward (all four outputs), dh
+             and dW run again on synthmt's and the D-768 case must give
+             the same bits (no atomics).
 8. fxent_times — each fused kernel, its plain version and a PyTorch
              library yardstick (torch.matmul then F.cross_entropy on the
              float32 logits; for dh and dW the backward of that pair
@@ -249,20 +255,20 @@ FLASH_CASES = (
 )
 # the flash library's kernels by name (the build phase's report), and the
 # bfloat16 ones that must be compiled to wgmma (HGMMA) and TMA (UTMALDG)
-FLASH_BUILT = ("flash_fwd_wgmma", "flash_dkv_wgmma", "flash_dq_mma",
+FLASH_BUILT = ("flash_fwd_wgmma", "flash_dkv_wgmma", "flash_dq_wgmma",
                "flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
                "wgmma_tile_test")
-FLASH_HOPPER = ("flash_fwd_wgmma", "flash_dkv_wgmma")
-# the fused-head library's kernels (the bfloat16 backward ones built for
-# each D chunk count: fx_dh_wgmma<8> is D 449-512), and the bfloat16
-# backward ones that must be wgmma and TMA, with no mma.sync
-FX_BUILT = ("fx_dh_wgmma", "fx_dw_wgmma", "fx_fwd_mma", "fx_fwd_f32",
+FLASH_HOPPER = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
+# the fused-head library's kernels (the bfloat16 ones built for each D
+# chunk count: fx_dh_wgmma<8> is D 449-512), and the bfloat16 ones that
+# must be wgmma and TMA, with no mma.sync
+FX_BUILT = ("fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma", "fx_fwd_f32",
             "fx_dh_f32", "fx_dw_f32", "fx_wgmma_tile_test")
-FX_HOPPER = ("fx_dh_wgmma", "fx_dw_wgmma")
+FX_HOPPER = ("fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
 # the port's kernels of a training step, as the profiler names them
-TRAIN_KERNELS = ("flash_fwd_wgmma", "flash_dq_mma", "flash_dkv_wgmma",
-                 "fx_fwd_mma", "fx_dh_wgmma", "fx_dw_wgmma")
+TRAIN_KERNELS = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
+                 "fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma")
 LONG_T, LONG_Q = 32_768, 256
 TRAIN_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--steps", "10",
               "--warmup", "2"]
@@ -300,9 +306,16 @@ FX_CASES = (
 
 def ptxas_report(log: str) -> dict:
     """{mangled kernel: {registers, spill_bytes}} from nvcc's -Xptxas -v
-    log."""
+    log, and ``wgmma_serialized`` for a kernel that ptxas names in a C7520
+    note (its wgmma products serialised: a wait after each). A C7520 note
+    that names no kernel is filed under the key ``""``."""
     out, cur = {}, None
     for line in log.splitlines():
+        if "C7520" in line:
+            m = re.search(r"'(\w+)'", line)
+            out.setdefault(m.group(1) if m else "", {})[
+                "wgmma_serialized"] = True
+            continue
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             cur = out.setdefault(m.group(1), {})
@@ -353,11 +366,18 @@ def short_name(mangled: str, names) -> str | None:
 def library_kernels(_build, tool, lib_name, names, hopper):
     """{kernel: registers, spill bytes, HGMMA / UTMALDG / HMMA counts} of
     one library; raises if a kernel named in ``hopper`` (each of its
-    template instances) lacks HGMMA or UTMALDG, or has HMMA."""
+    template instances) lacks HGMMA or UTMALDG, has HMMA, or had its wgmma
+    products serialised by ptxas (C7520, or such a note naming no
+    kernel)."""
     lib = _build._target(lib_name)
     kernels = {}
     for mangled, rec in ptxas_report(lib.with_suffix(".log").read_text()
                                      ).items():
+        if rec.get("wgmma_serialized") and (
+                not mangled or short_name(mangled, hopper)):
+            raise AssertionError(f"{lib_name}: ptxas serialised the wgmma "
+                                 f"products of {mangled or 'a kernel'} "
+                                 "(C7520)")
         if short_name(mangled, names):
             kernels[short_name(mangled, names)] = dict(rec)
     if tool is None:
@@ -382,9 +402,9 @@ def phase_build(_build):
     then show what the flash and fused-head libraries' kernels were
     compiled to: registers and spill bytes from the -Xptxas -v log, and the
     counts of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-    instructions from cuobjdump. Fails if the bfloat16 flash forward or
-    dK/dV kernel, or the bfloat16 fused-head dh or dW kernel, lacks HGMMA
-    or UTMALDG or has HMMA."""
+    instructions from cuobjdump. Fails if a bfloat16 flash or fused-head
+    kernel lacks HGMMA or UTMALDG, has HMMA, or had its wgmma products
+    serialised (C7520)."""
     t0 = time.perf_counter()
     built = _build.build()
     seconds = time.perf_counter() - t0
@@ -1041,18 +1061,24 @@ def planted_faults(torch, fa, q, k, v, do, outs, lse_ref, delta, n=8):
     """The bfloat16 check must reject the kernels' causal outputs held
     against plain versions with a tail fault: the last ``n`` keys dropped
     (forward, dQ; the last queries' rows change) or the last ``n`` queries
-    (dK/dV). Returns what the check says of each, and what a bound scaled
-    by the tensor's largest value says (2e-2 x max(1, max |plain|) on the
-    max abs error), which a fault confined to a few rows can pass."""
+    (dK/dV); and one aimed at dQ's split of a 128-query item between two
+    warpgroups: the second warpgroup's 64 rows (queries 64-127) zeroed.
+    Returns what the check says of each, and what a bound scaled by the
+    tensor's largest value says (2e-2 x max(1, max |plain|) on the max abs
+    error), which a fault confined to a few rows can pass."""
     o, dq, dk, dv = outs
     k_cut, v_cut = k[:, :, :-n], v[:, :, :-n]
     o_bad, _ = fa._flash_fwd_ref(q, k_cut, v_cut)
     dq_bad = fa._flash_dq_ref(q, k_cut, v_cut, do, lse_ref, delta)
     dk_bad, dv_bad = fa._flash_dkv_ref(q[:, :, :-n], k, v, do[:, :, :-n],
                                        lse_ref[..., :-n], delta[..., :-n])
+    dq_half = fa._flash_dq_ref(q, k, v, do, lse_ref, delta)
+    dq_half[:, :, 64:128] = 0
     verdicts = {}
     for name, pairs in (("flash_fwd", ((o, o_bad),)),
                         ("flash_dq", ((dq, dq_bad),)),
+                        ("flash_dq_second_warpgroup_zeroed",
+                         ((dq, dq_half),)),
                         ("flash_dkv", ((dk, dk_bad), (dv, dv_bad)))):
         e = flash_errs(torch, pairs)
         scaled = all((g.float() - w.float()).abs().max().item()
@@ -1067,10 +1093,21 @@ def planted_faults(torch, fa, q, k, v, do, outs, lse_ref, delta, n=8):
     return verdicts
 
 
+def flash_rerun_bitwise(torch, fa, q, k, v, do, lse_ref, delta, dq):
+    """dQ run again on the same inputs must give the same bits (no
+    atomics); raises if not."""
+    again = fa.flash_dq(q, k, v, do, lse_ref, delta)
+    torch.cuda.synchronize()
+    same = {"flash_dq": bool(torch.equal(again, dq))}
+    if not all(same.values()):
+        raise AssertionError(f"a rerun changed the bits: {same}")
+    return same
+
+
 def phase_flash_kernels(torch, fa, dev):
     gen = torch.Generator().manual_seed(1)
     worst = {name: 0.0 for name in FLASH_KERNELS}
-    checks, faults = [], None
+    checks, faults, reruns = [], None, None
 
     def record(case, dtype, errs):
         for name, e in errs.items():
@@ -1094,6 +1131,9 @@ def phase_flash_kernels(torch, fa, dev):
                                                     0):
                 faults = planted_faults(torch, fa, q, k, v, do, outs,
                                         lse_ref, delta)
+            if dtype == torch.bfloat16 and case == FLASH_CASES[0]:
+                reruns = flash_rerun_bitwise(torch, fa, q, k, v, do, lse_ref,
+                                             delta, outs[1])
             del q, k, v, do, outs, lse_ref, delta
     torch.cuda.empty_cache()
     # longctx32k: the kernel forward over the whole sequence, its last
@@ -1111,7 +1151,7 @@ def phase_flash_kernels(torch, fa, dev):
     record(["longctx32k", 1, H, LONG_T, LONG_T, qo, 0, 0], dtype, errs)
     emit({"phase": "flash_kernels", "float32_max_abs_tol": FLASH_TOL,
           "bfloat16_row_rel_tol": BF16_ROW_RTOL, "checks": checks,
-          "planted_faults": faults})
+          "planted_faults": faults, "reruns_bitwise_equal": reruns})
     return worst
 
 
@@ -1294,10 +1334,11 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
     """The bfloat16 check must reject the kernels' outputs held against
     plain versions with planted faults: the last vocab tile (64 columns)
     skipped (forward: its lse and zsum; dh), gold read from the next
-    column, the label mask dropped (dh, dW), and two aimed at the wgmma
-    design's split of the work: the last D half of dh dropped (one
-    warpgroup's output chunks), and the last row tile of dW skipped. Returns
-    what the check says of each."""
+    column, the label mask dropped (dh, dW), and three aimed at the wgmma
+    designs' split of the work: the forward's odd 64-column vocab tiles
+    dropped (one warpgroup's share), the last D half of dh dropped (one
+    warpgroup's output chunks), and the last row tile of dW skipped.
+    Returns what the check says of each."""
     got, dh, dw = outs
     want, dh_ref, dw_ref = refs
     V = w.shape[1]
@@ -1316,6 +1357,9 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
     n_cut = (h.shape[0] - 1) // 64 * 64  # the rows before the last tile
     dw_cut = fx._fxent_dw_ref(h[:n_cut], w, labels[:n_cut], lse[:n_cut],
                               coef)
+    even = (torch.arange(V, device=w.device) // 64) % 2 == 0
+    lse_even = fx._fxent_fwd_ref(h, w[:, even].contiguous(),
+                                 torch.full_like(labels, -1))[0]
     torch.cuda.synchronize()
     checks = {
         "fxent_fwd_last_tile_skipped":
@@ -1323,6 +1367,8 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
         "fxent_fwd_zsum_last_tile_skipped":
             ("zsum_err_over_tol",
              zsum_over_tol(torch, fx, h, w, got[2], zsum_cut), 1.0),
+        "fxent_fwd_odd_vocab_tiles_dropped":
+            ("lse_abs_err", (got[0] - lse_even).abs().max().item(), FX_TOL),
         "fxent_fwd_gold_next_column":
             ("gold_abs_err", (got[1] - gold_next).abs().max().item(),
              FX_TOL),
@@ -1347,13 +1393,17 @@ def fx_planted_faults(torch, fx, h, w, labels, coef, outs, refs):
 
 
 def fx_rerun_bitwise(torch, fx, h, w, labels, lse, coef, outs):
-    """dh and dW run again on the same inputs must give the same bits (no
-    atomics); raises if not."""
+    """The forward's four outputs, dh and dW run again on the same inputs
+    must give the same bits (no atomics); raises if not."""
+    fwd = fx.fxent_fwd(h, w, labels)
     dh = fx.fxent_dh(h, w, labels, lse, coef)
     dw = fx.fxent_dw(h, w, labels, lse, coef)
     torch.cuda.synchronize()
-    same = {"fxent_dh": bool(torch.equal(dh, outs[1])),
-            "fxent_dw": bool(torch.equal(dw, outs[2]))}
+    same = {f"fxent_fwd_{name}": bool(torch.equal(a, b))
+            for name, a, b in zip(("lse", "gold", "zsum", "argmax"), fwd,
+                                  outs[0])}
+    same.update({"fxent_dh": bool(torch.equal(dh, outs[1])),
+                 "fxent_dw": bool(torch.equal(dw, outs[2]))})
     if not all(same.values()):
         raise AssertionError(f"a rerun changed the bits: {same}")
     return same

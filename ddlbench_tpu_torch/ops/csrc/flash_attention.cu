@@ -74,19 +74,28 @@
 //   feed dV += P^T dO and dK += dS^T Q as register A operands against dO
 //   and Q MN-major: no transposed staging.
 //
-// Both use 3-D tensor maps over [B*H, T, 64] with the 128-byte swizzle, so a
-// tail box reads zeros past T (never the next head's rows); those rows and
-// columns are still masked, and rows past T are never written. Tensor
-// maps are built on the host (cuTensorMapEncodeTiled via the runtime's
-// driver entry point) and passed by value as __grid_constant__. The
-// Hopper plumbing is in hopper.cuh.
+//   dQ (flash_dq_wgmma) <- _flash_bwd_core's first call. Bound by
+//   operations: 0.0261 ms (6 x dh flops a visible pair). The mma.sync
+//   kernel it replaces took 0.2638-0.2683 ms. Design: the mirror of
+//   dK/dV, Q-stationary, on the forward's plumbing: persistent blocks over
+//   (128-query tile, batch*head) items, longest first; two consumer
+//   warpgroups of 64 query rows and one producer warp. TMA loads each
+//   item's Q and dO tiles (double-buffered), the producer warp writing the
+//   item's lse (times log2 e) and delta rows beside them; 64-key K and V
+//   tiles stream through a 4-stage ring. S = Q K^T and dP = dO V^T are
+//   wgmma with both operands K-major as they lie (P computed while dP
+//   runs, the mask only on tiles that need it); dS stays in registers and
+//   feeds dQ += dS K as the register A operand against K read MN-major, as
+//   the forward's P V. dQ is written once, in bf16. No atomics: reruns are
+//   bitwise equal (folding dQ into dK/dV's KV-stationary sweep would need
+//   atomic adds in a varying order).
 //
-// dQ (flash_dq_mma) keeps the first port's design: mma.sync m16n8k16
-// (bf16 in, f32 accumulate) with the FlashAttention-2 register layout, one
-// block of 4 warps per 64-row query tile, each warp holding its 16 rows' Q
-// and dO fragments for the whole sweep; K is staged in shared memory as
-// rows of stride kLdh = 72 plus a transposed copy (K^T) for the dS K
-// product; no cp.async, TMA or wgmma, and no double buffering.
+// All three use 3-D tensor maps over [B*H, T, 64] with the 128-byte
+// swizzle, so a tail box reads zeros past T (never the next head's rows);
+// those rows and columns are still masked, and rows past T are never
+// written. Tensor maps are built on the host (cuTensorMapEncodeTiled via
+// the runtime's driver entry point) and passed by value as
+// __grid_constant__. The Hopper plumbing is in hopper.cuh.
 //
 // float32 build (the tests' plain comparisons and --dtype float32): the
 // same sweep with float32 FMAs on the CUDA cores. One block of 256 threads;
@@ -144,25 +153,10 @@ __device__ __forceinline__ int first_q_tile(int k_lo, int q_offset,
 }
 
 // ===========================================================================
-// bfloat16: tensor cores
+// bfloat16: wgmma, TMA and an mbarrier ring
 // ===========================================================================
 
 using bf16 = __nv_bfloat16;
-constexpr int kWarpsMma = 4;  // 16 tile rows per warp
-constexpr int kThreadsMma = 32 * kWarpsMma;
-constexpr int kLdh = kDh + 8;  // bf16 row stride of a staged tile
-constexpr int kTileHalves = kTile * kLdh;
-
-// d += a * b for one m16n8k16 tile: a is the 16 x 16 bf16 A fragment, b0/b1
-// the 16 x 8 bf16 B fragment, d the 16 x 8 float32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Two floats as a bf16 pair, the first in the low half (the fragment order).
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -170,90 +164,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   unsigned u;
   memcpy(&u, &v, 4);
   return u;
-}
-
-// The 32-bit word holding tile[row][col] and tile[row][col + 1] (col even).
-__device__ __forceinline__ unsigned word(const bf16* tile, int row, int col) {
-  return *reinterpret_cast<const unsigned*>(tile + row * kLdh + col);
-}
-
-// Stage rows [0, n_rows) of a kTile x kDh tile (row r at src + r * kDh) into
-// dst (stride kLdh); rows past n_rows become zeros. 16-byte chunks, eight
-// lanes to a row: coalesced.
-__device__ __forceinline__ void stage(const bf16* __restrict__ src, int n_rows,
-                                      bf16* __restrict__ dst) {
-  for (int c = threadIdx.x; c < kTile * 8; c += kThreadsMma) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows)
-      u = *reinterpret_cast<const uint4*>(src + static_cast<long>(r) * kDh + col);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + col) = u;
-  }
-}
-
-// The same tile transposed: dst[d][r] = src[r][d]. Consecutive lanes take
-// consecutive rows, so each 2-byte store of a warp lands in one 64-byte run.
-__device__ __forceinline__ void stage_t(const bf16* __restrict__ src,
-                                        int n_rows, bf16* __restrict__ dst) {
-  for (int c = threadIdx.x; c < kTile * 8; c += kThreadsMma) {
-    const int r = c & (kTile - 1), col = (c / kTile) * 8;
-    uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n_rows)
-      u = *reinterpret_cast<const uint4*>(src + static_cast<long>(r) * kDh + col);
-    bf16 e[8];
-    memcpy(e, &u, 16);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(col + i) * kLdh + r] = e[i];
-  }
-}
-
-// A fragments of this warp's 16 rows (row0 = 16 warp + g) of a staged tile,
-// for the four 16-wide chunks of the head dim.
-__device__ __forceinline__ void load_a(const bf16* tile, int row0, int t,
-                                       unsigned (&a)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = word(tile, row0, 16 * kk + 2 * t);
-    a[kk][1] = word(tile, row0 + 8, 16 * kk + 2 * t);
-    a[kk][2] = word(tile, row0, 16 * kk + 8 + 2 * t);
-    a[kk][3] = word(tile, row0 + 8, 16 * kk + 8 + 2 * t);
-  }
-}
-
-// s[nt] = a * b^T over the head dim for the 8 column groups nt of 8 rows of
-// the staged tile b (row-major [column][dh]): the score-shaped products
-// Q K^T, dO V^T, K Q^T and V dO^T.
-__device__ __forceinline__ void scores(const unsigned (&a)[4][4],
-                                       const bf16* b, int g, int t,
-                                       float (&s)[8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_bf16(s[nt], a[kk], word(b, 8 * nt + g, 16 * kk + 2 * t),
-               word(b, 8 * nt + g, 16 * kk + 8 + 2 * t));
-  }
-}
-
-// acc[dt] += p * w over the tile's 64 columns, p the score-shaped fragments
-// (rounded to bf16 here), w staged transposed ([head dim][column]): the
-// output-shaped products P V, dS K, P^T dO and dS^T Q.
-__device__ __forceinline__ void accumulate(const float (&p)[8][4],
-                                           const bf16* wt, int g, int t,
-                                           float (&acc)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const unsigned a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-      mma_bf16(acc[dt], a, word(wt, 8 * dt + g, 16 * kk + 2 * t),
-               word(wt, 8 * dt + g, 16 * kk + 8 + 2 * t));
-  }
 }
 
 // Reductions over the 4 lanes that own a fragment row.
@@ -265,95 +175,6 @@ __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(kFullMask, x, 1);
   return x + __shfl_xor_sync(kFullMask, x, 2);
 }
-
-// Write rows row0 and row0 + 8 (those below n_rows) of an output-shaped
-// accumulator, times mul[h], to out (row-major [row][dh]).
-__device__ __forceinline__ void store_rows(const float (&acc)[8][4],
-                                           const float (&mul)[2], int row0,
-                                           int n_rows, int t,
-                                           bf16* __restrict__ out) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + 8 * h;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt)
-      *reinterpret_cast<unsigned*>(out + static_cast<long>(r) * kDh + 8 * dt +
-                                   2 * t) =
-          pack_bf16(acc[dt][2 * h] * mul[h], acc[dt][2 * h + 1] * mul[h]);
-  }
-}
-
-__global__ void __launch_bounds__(kThreadsMma)
-    flash_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 bf16* __restrict__ dq, int Tq, int Tk, int q_offset,
-                 int k_offset, int prefix_len, float scale) {
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);
-  bf16* dos = qs + kTileHalves;
-  bf16* ks = dos + kTileHalves;
-  bf16* kt_s = ks + kTileHalves;  // K^T
-  bf16* vs = kt_s + kTileHalves;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int row0 = 16 * (threadIdx.x >> 5) + g;
-  const int num_q = (Tq + kTile - 1) / kTile;
-  const int num_k = (Tk + kTile - 1) / kTile;
-  const int qt = num_q - 1 - static_cast<int>(blockIdx.x);
-  const long bh = blockIdx.y;
-  const int q0 = qt * kTile;
-  const int nq = min(kTile, Tq - q0);
-  stage(q + (bh * Tq + q0) * kDh, nq, qs);
-  stage(dout + (bh * Tq + q0) * kDh, nq, dos);
-  __syncthreads();
-  unsigned qa[4][4], doa[4][4];
-  load_a(qs, row0, t, qa);
-  load_a(dos, row0, t, doa);
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row0 + 8 * h;
-    lse_r[h] = r < nq ? lse[bh * Tq + q0 + r] : 0.f;
-    delta_r[h] = r < nq ? delta[bh * Tq + q0 + r] : 0.f;
-  }
-  const int n_kt = kv_tiles(q_offset + q0 + nq - 1, k_offset, prefix_len, num_k);
-
-  float acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[dt][i] = 0.f;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kTile;
-    const int nk = min(kTile, Tk - k0);
-    __syncthreads();
-    stage(k + (bh * Tk + k0) * kDh, nk, ks);
-    stage_t(k + (bh * Tk + k0) * kDh, nk, kt_s);
-    stage(v + (bh * Tk + k0) * kDh, nk, vs);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-    scores(qa, ks, g, t, s);
-    scores(doa, vs, g, t, dp);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int h = i >> 1, kc = 8 * nt + 2 * t + (i & 1);
-        const bool vis = kc < nk && visible(q_offset + q0 + row0 + 8 * h,
-                                            k_offset + k0 + kc, prefix_len);
-        const float p = vis ? expf(s[nt][i] * scale - lse_r[h]) : 0.f;
-        s[nt][i] = p * (dp[nt][i] - delta_r[h]) * scale;  // ds
-      }
-    accumulate(s, kt_s, g, t, acc);
-  }
-  const float one[2] = {1.f, 1.f};
-  store_rows(acc, one, row0, nq, t, dq + (bh * Tq + q0) * kDh);
-}
-
-// ===========================================================================
-// bfloat16, forward and dK/dV: wgmma, TMA and an mbarrier ring
-// ===========================================================================
 
 using hopper::desc_sw128;
 using hopper::fence_regs;
@@ -371,6 +192,11 @@ constexpr int kBM = 128;             // forward: query rows of a block
 constexpr int kBN = 128;             // forward: keys of a streamed K/V tile
 constexpr int kBK = 128;             // dK/dV: keys of a block
 constexpr int kBQ = 64;              // dK/dV: queries of a streamed Q/dO tile
+// dQ: keys of a streamed K/V tile (128 spilled and was slower) and the
+// tiles in flight (2 and 6 were slower at T 1024)
+constexpr int kDqBN = 64;
+constexpr int kDqStages = 4;
+static_assert(kDqBN == 64, "dQ's score tiles are m64n64 products");
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = kNegInf * kLog2e;  // the mask value, exp2 domain
@@ -809,6 +635,196 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
   }
 }
 
+// Shared memory: two Q and two dO tiles (128 rows; one pair per work item
+// in flight), their rows of lse * log2 e and of delta, kDqStages K and
+// kDqStages V tiles (kDqBN keys), the barriers.
+constexpr int kDqQTile = kBM * kRowBytes;
+constexpr int kDqKvTile = kDqBN * kRowBytes;
+constexpr int kDqSmem = 4 * kDqQTile + 2 * kDqStages * kDqKvTile +
+                        4 * kBM * 4 + (4 + 2 * kDqStages) * 8 + 1024;
+
+// Q-stationary, the mirror of flash_dkv_wgmma: persistent blocks walk the
+// work items (128-query tile, batch*head) longest first, as the forward
+// does. The producer warp loads each item's Q and dO tiles (double-
+// buffered) and writes their lse (times log2 e) and delta rows beside
+// them; K and V tiles of kDqBN keys stream through a kDqStages ring.
+__global__ void __launch_bounds__(kThreadsWs, 1)
+    flash_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq,
+                   int BH, int Tq, int Tk, int q_offset, int k_offset,
+                   int prefix_len, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hopper::align1024(smem_raw);
+  bf16* qs = reinterpret_cast<bf16*>(smem);                  // 2 tiles
+  bf16* dos = reinterpret_cast<bf16*>(smem + 2 * kDqQTile);  // 2 tiles
+  bf16* ks = reinterpret_cast<bf16*>(smem + 4 * kDqQTile);
+  bf16* vs = ks + kDqStages * kDqBN * kDh;
+  float* lse_s = reinterpret_cast<float*>(smem + 4 * kDqQTile +
+                                          2 * kDqStages * kDqKvTile);
+  float* delta_s = lse_s + 2 * kBM;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(delta_s + 2 * kBM);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* full = q_empty + 2;
+  uint64_t* empty = full + kDqStages;
+
+  const int num_q = (Tq + kBM - 1) / kBM;
+  const int num_k = (Tk + kDqBN - 1) / kDqBN;
+  const int items = num_q * BH;
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(&q_full[b], 32);  // the producer warp's lanes
+      hopper::mbar_init(&q_empty[b], kConsumers);
+    }
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    const int lane = threadIdx.x - kConsumers;
+    int step = 0;  // K/V tiles loaded so far, over every item (lane 0)
+    for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+      const int q0 = (num_q - 1 - w / BH) * kBM, bh = w % BH;
+      const int b = n & 1;
+      hopper::mbar_wait(&q_empty[b], ((n >> 1) & 1) ^ 1);
+      // each lane writes 4 of the item's lse and delta rows, 0 past Tq;
+      // its arrival below publishes them
+      for (int r = lane; r < kBM; r += 32) {
+        const bool in = q0 + r < Tq;
+        const long at = static_cast<long>(bh) * Tq + q0 + r;
+        lse_s[b * kBM + r] = in ? lse[at] * kLog2e : 0.f;
+        delta_s[b * kBM + r] = in ? delta[at] : 0.f;
+      }
+      if (lane != 0) {
+        hopper::mbar_arrive(&q_full[b]);
+        continue;
+      }
+      hopper::mbar_arrive_expect_tx(&q_full[b], 2 * kDqQTile);
+      hopper::tma_load_3d(qs + b * kBM * kDh, &tm_q, &q_full[b], 0, q0, bh);
+      hopper::tma_load_3d(dos + b * kBM * kDh, &tm_do, &q_full[b], 0, q0,
+                          bh);
+      const int n_kt = kv_tiles(q_offset + min(q0 + kBM, Tq) - 1, k_offset,
+                                prefix_len, num_k, kDqBN);
+      for (int kt = 0; kt < n_kt; ++kt, ++step) {
+        const int s = step % kDqStages;
+        hopper::mbar_wait(&empty[s], ((step / kDqStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * kDqKvTile);
+        hopper::tma_load_3d(ks + s * kDqBN * kDh, &tm_k, &full[s], 0,
+                            kt * kDqBN, bh);
+        hopper::tma_load_3d(vs + s * kDqBN * kDh, &tm_v, &full[s], 0,
+                            kt * kDqBN, bh);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows qw0 .. qw0 + 63 of an item
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float c = scale * kLog2e;
+  int step = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const int q0 = (num_q - 1 - w / BH) * kBM, bh = w % BH;
+    const int b = n & 1;
+    const int n_kt = kv_tiles(q_offset + min(q0 + kBM, Tq) - 1, k_offset,
+                              prefix_len, num_k, kDqBN);
+    const int qw0 = q0 + 64 * wg;
+    const int r0 = qw0 + 16 * warp + g;  // this thread's rows: r0, r0 + 8
+    const int wg_kt = qw0 < Tq ? kv_tiles(q_offset + min(qw0 + 64, Tq) - 1,
+                                          k_offset, prefix_len, num_k, kDqBN)
+                               : 0;
+    const uint64_t q_desc = desc_sw128(qs + (b * kBM + 64 * wg) * kDh);
+    const uint64_t do_desc = desc_sw128(dos + (b * kBM + 64 * wg) * kDh);
+
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    hopper::mbar_wait(&q_full[b], (n >> 1) & 1);
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lse2[h] = lse_s[b * kBM + r0 - q0 + 8 * h];
+      dl[h] = delta_s[b * kBM + r0 - q0 + 8 * h];
+    }
+    for (int kt = 0; kt < n_kt; ++kt, ++step) {
+      const int s = step % kDqStages;
+      hopper::mbar_wait(&full[s], (step / kDqStages) & 1);
+      if (kt < wg_kt) {  // uniform over the warpgroup
+        const int k0 = kt * kDqBN;
+        const uint64_t k_desc = desc_sw128(ks + s * kDqBN * kDh);
+        const uint64_t v_desc = desc_sw128(vs + s * kDqBN * kDh);
+        float sc[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+        fence_regs(sc);
+        fence_regs(dp);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // S = Q K^T
+          hopper::wgmma_m64n64k16_ss<0, 0>(sc, q_desc + kk * kKMajorStep,
+                                           k_desc + kk * kKMajorStep, kk);
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dP = dO V^T
+          hopper::wgmma_m64n64k16_ss<0, 0>(dp, do_desc + kk * kKMajorStep,
+                                           v_desc + kk * kKMajorStep, kk);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // S is in; dP may still run
+        fence_regs(sc);
+
+        // every key of the tile visible to every row of the warpgroup?
+        const int k_hi = k_offset + k0 + kDqBN - 1;
+        const bool open = k0 + kDqBN <= Tk &&
+                          (q_offset + qw0 >= k_hi || k_hi < prefix_len);
+        if (open) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            sc[i] = exp2_ftz(fmaf(sc[i], c, -lse2[(i >> 1) & 1]));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int h = (i >> 1) & 1, kc = 8 * (i >> 2) + 2 * t + (i & 1);
+            const bool vis = k0 + kc < Tk &&
+                             visible(q_offset + r0 + 8 * h,
+                                     k_offset + k0 + kc, prefix_len);
+            sc[i] = vis ? exp2_ftz(fmaf(sc[i], c, -lse2[h])) : 0.f;  // P
+          }
+        }
+        hopper::wgmma_wait<0>();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)  // dS
+          dp[i] = sc[i] * (dp[i] - dl[(i >> 1) & 1]) * scale;
+        uint32_t da[4][4];
+        pack_a<4>(dp, da);
+        fence_regs(acc);
+        fence_regs(da);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)  // dQ += dS K
+          hopper::wgmma_m64n64k16_rs<1>(acc, da[kk],
+                                         k_desc + kk * kMnMajorStep);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(da);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+    hopper::mbar_arrive(&q_empty[b]);  // this item's Q and dO reads are done
+    const float one[2] = {1.f, 1.f};
+    store_acc(acc, one, r0, Tq, t, dq + static_cast<long>(bh) * Tq * kDh);
+  }
+}
+
 // One 64 x 64 x 64 product in each operand form the kernels use, for the
 // card tests: mode 0, c = a b^T with a and b from shared memory, both
 // K-major (the score products); mode 1, c = a b with a from registers and
@@ -1216,7 +1232,6 @@ cudaError_t launch(Kernel kernel, int tiles, int BH, int threads, int bytes,
 }
 
 constexpr int kF32Bytes = static_cast<int>(sizeof(float));
-constexpr int kBf16Bytes = static_cast<int>(sizeof(bf16));
 
 int tiles(int T, int tile = kTile) { return (T + tile - 1) / tile; }
 
@@ -1295,14 +1310,16 @@ extern "C" int ddl_flash_dq(const void* q, const void* k, const void* v,
                     static_cast<const float*>(dout), lse, delta,
                     static_cast<float*>(dqp), Tq, Tk, q_offset, k_offset,
                     prefix_len, scale);
-    case 1:
-      return launch(flash_dq_mma, tiles(Tq), BH, kThreadsMma,
-                    5 * kTileHalves * kBf16Bytes, s,
-                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v),
-                    static_cast<const bf16*>(dout), lse, delta,
-                    static_cast<bf16*>(dqp), Tq, Tk, q_offset, k_offset,
+    case 1: {
+      CUtensorMap m[4];
+      e = row_maps<4>(m, {q, k, v, dout}, {Tq, Tk, Tk, Tq},
+                      {kBM, kDqBN, kDqBN, kBM}, BH);
+      if (e != cudaSuccess) return e;
+      return launch(flash_dq_wgmma, persistent_blocks(tiles(Tq, kBM) * BH), 1,
+                    kThreadsWs, kDqSmem, s, m[0], m[1], m[2], m[3], lse, delta,
+                    static_cast<bf16*>(dqp), BH, Tq, Tk, q_offset, k_offset,
                     prefix_len, scale);
+    }
     default:
       return cudaErrorInvalidValue;
   }

@@ -38,16 +38,23 @@
 //
 // bfloat16 build (the training path; V a multiple of 8, so W's rows are
 // 16-byte aligned). D is cut into 64-wide chunks.
-//   forward (fx_fwd_mma): mma.sync m16n8k16 (bf16 in, f32 accumulate), 8
-//     warps a block, 128 rows a block resident as bf16 rows of stride 72
-//     (ldmatrix conflict-free), W chunks streamed by cp.async through a
-//     ring of kFwdStages. Warp w owns rows 16 w..16 w + 15 of every
-//     64-column score tile and folds it into its rows' statistics.
-//   dh and dW (fx_dh_wgmma<NK>, fx_dw_wgmma<NK>): Hopper's wgmma with
-//     TMA loads through an mbarrier ring (hopper.cuh), one persistent
-//     block per SM walking the work items. A block is two
-//     consumer warpgroups and a producer warpgroup that keeps one lane
-//     issuing TMA and gives its registers to the consumers (setmaxnreg).
+//   All three (fx_fwd_wgmma<NK>, fx_dh_wgmma<NK>, fx_dw_wgmma<NK>) are
+//   Hopper's wgmma with TMA loads through mbarrier rings (hopper.cuh),
+//   one persistent block per SM walking the work items, built for the D
+//   chunk counts NK = 2, 4, ..., 12.
+//   forward: 64 rows of h resident (one item); W's vocab tiles stream as
+//     [64 d][64 v] chunks, the even tiles through warpgroup 0's ring and
+//     the odd ones through warpgroup 1's, each fed by its own producer
+//     warp. Each warpgroup computes its tiles' 64 x 64 scores once (1.0x
+//     the flops; h K-major, the W chunk MN-major) and folds them into its
+//     threads' statistics (running max and exp2 sum, gold, zsum, argmax
+//     over the columns a thread holds) while the other warpgroup's
+//     products run. At the item's end the statistics are reduced over each
+//     row's four lanes and the two warpgroups' merged through shared
+//     memory in a fixed order: reruns are bitwise equal.
+//   dh and dW: a block is two consumer warpgroups and a producer
+//     warpgroup that keeps one lane issuing TMA and gives its registers to
+//     the consumers (setmaxnreg).
 //     dh takes 64 rows of h resident and streams W's vocab tiles as
 //     [64 d][64 v] chunks; each warpgroup computes the whole 64 x 64 score
 //     tile (wgmma from shared memory), turns it into dz in registers, and
@@ -85,6 +92,7 @@
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -103,6 +111,10 @@ using bf16 = __nv_bfloat16;
 // g = lane / 4, t = lane % 4.
 
 // Reductions over the 4 lanes that own a fragment row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFullMask, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
+}
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(kFullMask, x, 1);
   return x + __shfl_xor_sync(kFullMask, x, 2);
@@ -472,25 +484,8 @@ __global__ void __launch_bounds__(kThreadsF)
 }
 
 // ===========================================================================
-// bfloat16: tensor cores
+// bfloat16: wgmma, TMA and mbarrier rings
 // ===========================================================================
-
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kLdc = kTile + 8;  // bf16 stride of a staged [64][64] chunk
-constexpr int kChunk = kTile * kLdc;
-constexpr int kFwdRows = 128;    // rows of a forward block: 8 warps x 16
-constexpr int kFwdStages = 3;    // W chunks in flight in the forward
-
-// d += a * b for one m16n8k16 tile: a the 16 x 16 bf16 A fragment, b0/b1
-// the 16 x 8 bf16 B fragment, d the 16 x 8 float32 accumulator.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Two floats as a bf16 pair, the first in the low half (the fragment order).
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -499,166 +494,6 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   memcpy(&u, &v, 4);
   return u;
 }
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without registers; zero bytes read (the
-// destination zero-filled) when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8 and receives, of matrix i, register i: row
-// l / 4, columns 2 (l % 4) and + 1 (transposed: rows 2 (l % 4) and + 1 of
-// column l / 4).
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// The A fragment (rows m0.., k0..: 16 x 16) of a buffer holding A
-// row-major [m][k], stride ld.
-__device__ __forceinline__ void frag_a(unsigned (&a)[4], const bf16* buf,
-                                       int ld, int m0, int k0) {
-  const int l = threadIdx.x & 31, i = l >> 3, r = l & 7;
-  ldsm_x4(a, buf + (m0 + r + 8 * (i & 1)) * ld + k0 + 8 * (i >> 1));
-}
-
-// The B fragments of two n8 tiles (n0 and n0 + 8; b[0..1] and b[2..3]) over
-// k0..k0 + 15, from a buffer holding B row-major [k][n], stride ld.
-__device__ __forceinline__ void frag_b_t(unsigned (&b)[4], const bf16* buf,
-                                         int ld, int n0, int k0) {
-  const int l = threadIdx.x & 31, i = l >> 3, r = l & 7;
-  ldsm_x4_t(b, buf + (k0 + r + 8 * (i & 1)) * ld + n0 + 8 * (i >> 1));
-}
-
-// acc[2 np], acc[2 np + 1] += A (rows m0.., k0..k0 + 15 of abuf) times B
-// (k0.., columns n0 + 16 np.. of bbuf) for np < NP.
-template <int NP>
-__device__ __forceinline__ void mma_k16(float (*acc)[4], const bf16* abuf,
-                                        int lda, int m0, const bf16* bbuf,
-                                        int ldb, int n0, int k0) {
-  unsigned a[4];
-  frag_a(a, abuf, lda, m0, k0);
-#pragma unroll
-  for (int np = 0; np < NP; ++np) {
-    unsigned b[4];
-    frag_b_t(b, bbuf, ldb, n0 + 16 * np, k0);
-    mma_bf16(acc[2 * np], a, b[0], b[1]);
-    mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-  }
-}
-
-// A [64 rows][64 cols] block at src (row stride ld; rows < nr and columns <
-// nc read, nc a multiple of 8) into a chunk buffer, asynchronously.
-__device__ __forceinline__ void load_chunk(const bf16* src, long ld, int nr,
-                                           int nc, bf16* dst) {
-#pragma unroll
-  for (int i = 0; i < kTile * 8 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads, r = c >> 3, col = (c & 7) * 8;
-    const bool ok = r < nr && col < nc;
-    cp_async16(dst + r * kLdc + col, ok ? src + r * ld + col : src, ok);
-  }
-}
-
-// Rows [0, rows) x columns [0, width) of a row-major block at src into dst
-// (stride ldd), asynchronously; rows >= nr and columns >= nc zero-filled.
-__device__ __forceinline__ void load_rows(const bf16* src, long ld, int nr,
-                                          int nc, int rows, int width,
-                                          int ldd, bf16* dst) {
-  const int per = width / 8;
-  for (int c = threadIdx.x; c < rows * per; c += kThreads) {
-    const int r = c / per, col = (c % per) * 8;
-    const bool ok = r < nr && col < nc;
-    cp_async16(dst + r * ldd + col, ok ? src + r * ld + col : src, ok);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void zero(float (&acc)[N][4]) {
-#pragma unroll
-  for (int j = 0; j < N; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-    fx_fwd_mma(const bf16* __restrict__ h, const bf16* __restrict__ w,
-               const int* __restrict__ labels, float* __restrict__ lse,
-               float* __restrict__ gold, float* __restrict__ zsum,
-               int* __restrict__ amax, int N, int D, int V) {
-  extern __shared__ float4 smem4[];
-  const int nk = (D + kTile - 1) / kTile, ldr = nk * kTile + 8;
-  bf16* hres = reinterpret_cast<bf16*>(smem4);  // [128 rows][ldr], resident
-  bf16* ring = hres + kFwdRows * ldr;           // kFwdStages W chunks
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int m0 = 16 * (threadIdx.x >> 5);
-  const long r0 = static_cast<long>(blockIdx.x) * kFwdRows;
-  const int nr = static_cast<int>(min(static_cast<long>(kFwdRows), N - r0));
-  RowStats st;
-  stats_init(st, labels, r0, m0 + g, nr);
-  const int nv = (V + kTile - 1) / kTile, Q = nv * nk;
-  // the flat stream of W chunks: q -> (vocab tile q / nk, D chunk q % nk)
-  auto load_q = [&](int q) {
-    const int vt = q / nk, kc = q % nk;
-    load_chunk(w + static_cast<long>(kc) * kTile * V + vt * kTile, V,
-               D - kc * kTile, V - vt * kTile,
-               ring + (q % kFwdStages) * kChunk);
-  };
-  load_rows(h + r0 * D, D, nr, D, kFwdRows, nk * kTile, ldr, hres);
-#pragma unroll
-  for (int s = 0; s < kFwdStages - 1; ++s) {
-    if (s < Q) load_q(s);
-    cp_async_commit();  // the first group carries the resident rows too
-  }
-  float s[8][4];
-  for (int q = 0; q < Q; ++q) {
-    cp_async_wait<kFwdStages - 2>();
-    __syncthreads();  // chunk q has landed; every warp is done with q - 1
-    if (q + kFwdStages - 1 < Q) load_q(q + kFwdStages - 1);
-    cp_async_commit();
-    const int vt = q / nk, kc = q % nk;
-    if (kc == 0) zero(s);
-    const bf16* wc = ring + (q % kFwdStages) * kChunk;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_k16<4>(s, hres + kc * kTile, ldr, m0, wc, kLdc, 0,
-                              16 * kk);
-    if (kc == nk - 1) stats_fold(st, s, vt * kTile, min(kTile, V - vt * kTile),
-                                 t);
-  }
-  stats_write(st, r0, m0 + g, nr, t, lse, gold, zsum, amax);
-}
-
-// ===========================================================================
-// bfloat16 backward: wgmma, TMA and an mbarrier ring
-// ===========================================================================
 
 using hopper::desc_sw128;
 using hopper::fence_regs;
@@ -1081,6 +916,273 @@ __global__ void __launch_bounds__(kThreadsWs, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The forward
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdThreads = kConsumers + 64;  // and two producer warps
+constexpr int kFwdMaxStages = 8;  // chunks in flight in each ring
+constexpr int kMergeFloats = 5 * kTile;  // a warpgroup's row statistics
+// shared memory beside the resident chunks and the rings: the alignment
+// slack, two items' merge rows, the barriers
+constexpr int kFwdFixed = 1024 + 2 * kMergeFloats * 4 +
+                          (2 + 4 * kFwdMaxStages) * 8;
+
+// The forward's rings at NK D chunks: each warpgroup's depth kStages
+// (what shared memory leaves beside the NK resident chunks, at most
+// kFwdMaxStages), and kGroup, the chunks of a score tile issued between two
+// waits: the largest divisor of NK of which three groups fit in a ring, so
+// two groups' chunks are in flight while one group's products run (fewer
+// chunks a group drain the products more often; PERF.md §6).
+template <int NK>
+struct FwdTiling {
+  static constexpr int stages() {
+    const int s = (kMaxSmem - kFwdFixed - NK * kChunkBytes) /
+                  (2 * kChunkBytes);
+    return s < kFwdMaxStages ? s : kFwdMaxStages;
+  }
+  static constexpr int kStages = stages();
+  static constexpr int group() {
+    for (int gs = NK; gs > 1; --gs)
+      if (NK % gs == 0 && 3 * gs <= kStages) return gs;
+    return 1;
+  }
+  static constexpr int kGroup = group();
+  static constexpr int kSmem = (NK + 2 * kStages) * kChunkBytes + kFwdFixed;
+  static_assert(kGroup <= kStages && kSmem <= kMaxSmem,
+                "the resident chunks and the rings fit");
+};
+
+// Fold this thread's 32 scores of a 64 x 64 tile (vocab columns c0..c0 +
+// 63; those >= V excluded) into its running statistics of rows hh = 0, 1
+// over the columns it holds: the max m and the sum l of exp(z - m) (exp2
+// domain), zsum, the gold logit, and the argmax (strict >: the first
+// column of the maximum).
+__device__ __forceinline__ void fwd_fold(const float (&z)[32], int c0, int V,
+                                         int t, const int (&lab)[2],
+                                         float (&m)[2], float (&l)[2],
+                                         float (&zs)[2], float (&gd)[2],
+                                         int (&arg)[2]) {
+  const bool whole = c0 + kTile <= V;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rel = lab[hh] - c0;  // the gold column within the tile
+    float mx = kNegInf;
+    int ai = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float v = z[4 * j + 2 * hh + e];
+        if (whole || c0 + col < V) {
+          zs[hh] += v;
+          gd[hh] += col == rel ? v : 0.f;
+          if (v > mx) {
+            mx = v;
+            ai = c0 + col;
+          }
+        }
+      }
+    if (mx > m[hh]) arg[hh] = ai;  // strict: an earlier tile keeps a tie
+    const float m_new = fmaxf(m[hh], mx);
+    const float m2 = m_new * kLog2e;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (whole || c0 + 8 * j + 2 * t + e < V)
+          sum += exp2_ftz(fmaf(z[4 * j + 2 * hh + e], kLog2e, -m2));
+    l[hh] = l[hh] * exp2_ftz((m[hh] - m_new) * kLog2e) + sum;
+    m[hh] = m_new;
+  }
+}
+
+// The forward: persistent blocks walk the 64-row tiles, tile w going to
+// block w % gridDim.x. Producer warp 0 loads the tile's h rows (NK
+// chunks, resident); W's vocab tiles stream as NK chunks [64 d][64 v]
+// each, the even tiles through warpgroup 0's ring and the odd ones through
+// warpgroup 1's, each ring fed by its own producer warp, so neither ring
+// waits on the other's consumer. Each warpgroup computes its tiles' 64 x 64 scores once
+// (wgmma, h K-major and the W chunk MN-major, in groups of kGroup chunks)
+// and folds them into its threads' statistics while the other
+// warpgroup's products run. At the item's end the statistics are reduced
+// over each row's four lanes, and warpgroup 1 hands its rows to warpgroup
+// 0 through shared memory, which merges them in a fixed order and writes
+// the row's lse, gold, zsum and argmax.
+template <int NK>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fx_fwd_wgmma(const __grid_constant__ CUtensorMap tm_h,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const int* __restrict__ labels, float* __restrict__ lse,
+                 float* __restrict__ gold, float* __restrict__ zsum,
+                 int* __restrict__ amax, int N, int V) {
+  using T = FwdTiling<NK>;
+  constexpr int S = T::kStages, GS = T::kGroup;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* res = hopper::align1024(smem_raw);
+  uint8_t* ring = res + NK * kChunkBytes;  // warpgroup w's: w S chunks on
+  float* merge = reinterpret_cast<float*>(ring + 2 * S * kChunkBytes);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(merge + 2 * kMergeFloats);
+  uint64_t* res_empty = res_full + 1;
+  uint64_t* full = res_empty + 1;  // [2][S]
+  uint64_t* empty = full + 2 * S;  // [2][S]
+  const int nv = (V + kTile - 1) / kTile;
+  const int items = (N + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(res_full, 1);
+    hopper::mbar_init(res_empty, kConsumers);
+    for (int s = 0; s < 2 * S; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers / 2);  // one warpgroup
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // producer warp q feeds ring q
+    const int q = (threadIdx.x - kConsumers) >> 5;
+    if ((threadIdx.x & 31) == 0) {  // one lane issues TMA
+      int step = 0;  // chunks loaded into ring q so far
+      for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+        if (q == 0) {  // and warp 0 the item's h rows
+          hopper::mbar_wait(res_empty, (n & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(res_full, NK * kChunkBytes);
+          for (int kc = 0; kc < NK; ++kc)
+            hopper::tma_load_2d(res + kc * kChunkBytes, &tm_h, res_full,
+                                kc * kTile, w * kTile);
+        }
+        for (int vt = q; vt < nv; vt += 2)
+          for (int kc = 0; kc < NK; ++kc, ++step) {
+            const int s = q * S + step % S;
+            hopper::mbar_wait(&empty[s], ((step / S) & 1) ^ 1);
+            hopper::mbar_arrive_expect_tx(&full[s], kChunkBytes);
+            hopper::tma_load_2d(ring + s * kChunkBytes, &tm_w, &full[s],
+                                vt * kTile, kc * kTile);
+          }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row = 16 * warp + g;  // this thread's rows: row, row + 8
+  uint8_t* my_ring = ring + wg * S * kChunkBytes;
+  uint64_t* my_full = full + wg * S;
+  uint64_t* my_empty = empty + wg * S;
+  int step = 0;  // chunks of this warpgroup's ring consumed so far
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const long r0 = static_cast<long>(w) * kTile;
+    int lab[2], arg[2] = {0, 0};
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float zs[2] = {0.f, 0.f}, gd[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long r = r0 + row + 8 * hh;
+      lab[hh] = r < N ? labels[r] : -1;
+    }
+    hopper::mbar_wait(res_full, n & 1);
+    for (int vt = wg; vt < nv; vt += 2, step += NK) {
+      float z[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) z[i] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < NK; k0 += GS) {
+#pragma unroll
+        for (int kc = k0; kc < k0 + GS; ++kc)
+          hopper::mbar_wait(&my_full[(step + kc) % S], ((step + kc) / S) & 1);
+        fence_regs(z);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kc = k0; kc < k0 + GS; ++kc) {
+          const uint64_t a_desc = desc_sw128(res + kc * kChunkBytes);
+          const uint64_t b_desc =
+              desc_sw128(my_ring + ((step + kc) % S) * kChunkBytes);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)  // z (+)= h W[:, tile]
+            hopper::wgmma_m64n64k16_ss<0, 1>(
+                z, a_desc + kk * kKMajorStep, b_desc + kk * kMnMajorStep,
+                kc + kk > 0 ? 1 : 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        fence_regs(z);
+#pragma unroll
+        for (int kc = k0; kc < k0 + GS; ++kc)
+          hopper::mbar_arrive(&my_empty[(step + kc) % S]);
+      }
+      if (vt + 2 >= nv) hopper::mbar_arrive(res_empty);  // h read
+      fwd_fold(z, vt * kTile, V, t, lab, m, l, zs, gd, arg);
+    }
+    if (wg >= nv) hopper::mbar_arrive(res_empty);  // no tile of this item
+
+    // each row over its quad
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float mq = quad_max(m[hh]);
+      l[hh] = quad_sum(l[hh] * exp2_ftz((m[hh] - mq) * kLog2e));
+      zs[hh] = quad_sum(zs[hh]);
+      gd[hh] = quad_sum(gd[hh]);
+      float bv = m[hh];
+      int bi = arg[hh];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {  // ties take the smaller index
+        const float ov = __shfl_xor_sync(kFullMask, bv, off);
+        const int oi = __shfl_xor_sync(kFullMask, bi, off);
+        if (ov > bv || (ov == bv && oi < bi)) {
+          bv = ov;
+          bi = oi;
+        }
+      }
+      m[hh] = mq;
+      arg[hh] = bi;
+    }
+    // warpgroup 1's rows to warpgroup 0, which merges them
+    float* mb = merge + (n & 1) * kMergeFloats;
+    if (wg == 1 && t == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = row + 8 * hh;
+        mb[r] = m[hh];
+        mb[kTile + r] = l[hh];
+        mb[2 * kTile + r] = zs[hh];
+        mb[3 * kTile + r] = gd[hh];
+        mb[4 * kTile + r] = __int_as_float(arg[hh]);
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+    if (wg == 1) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row + 8 * hh;
+      const float m1 = mb[r], l1 = mb[kTile + r];
+      const int a1 = __float_as_int(mb[4 * kTile + r]);
+      const float mm = fmaxf(m[hh], m1);
+      l[hh] = l[hh] * exp2_ftz((m[hh] - mm) * kLog2e) +
+              l1 * exp2_ftz((m1 - mm) * kLog2e);
+      if (m1 > m[hh] || (m1 == m[hh] && a1 < arg[hh])) arg[hh] = a1;
+      m[hh] = mm;
+      zs[hh] += mb[2 * kTile + r];
+      gd[hh] += mb[3 * kTile + r];
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const long r = r0 + row + 8 * hh;
+        if (r < N) {
+          lse[r] = m[hh] + logf(fmaxf(l[hh], 1e-20f));
+          gold[r] = gd[hh];
+          zsum[r] = zs[hh];
+          amax[r] = arg[hh];
+        }
+      }
+    }
+  }
+}
+
 // One 64 x 64 x 64 product in each wgmma form the backward kernels issue,
 // for the card tests; a, b bf16 [64, 64] row-major, loaded by TMA with the
 // 128-byte swizzle, c float32 [64, 64]. Mode 0: c = a b, a K-major and b
@@ -1227,50 +1329,56 @@ int persistent_blocks(int items) {
 // of chunks of 64 (2 to 12).
 int nk_built(int D) { return max(2, (tiles(D) + 1) / 2 * 2); }
 
+// Tensor maps over h [N, D] and W [D, V], boxes of 64 x 64.
+cudaError_t head_maps(CUtensorMap& mh, CUtensorMap& mw, const bf16* h,
+                      const bf16* w, int N, int D, int V) {
+  const cudaError_t e = hopper::bf16_2d_map(&mh, h, D, N, kTile);
+  return e == cudaSuccess ? hopper::bf16_2d_map(&mw, w, V, D, kTile) : e;
+}
 
-
-// A backward launch's operands: tensor maps over h and W, and the rest.
-struct BwdArgs {
-  CUtensorMap h, w;
-  const int* labels;
-  const float* lse;
-  const float* coef;
-  bf16* out;
-  int N, D, V;
-};
-
-template <int NK>
-cudaError_t bwd_wgmma_nk(bool dw, const BwdArgs& a, int nk, cudaStream_t s) {
+// f(std::integral_constant<int, NK>()) for NK = nk, one of the D chunk
+// counts the bfloat16 kernels are built for (2, 4, ..., 12).
+template <int NK = 2, typename F>
+cudaError_t with_nk(int nk, F f) {
   if constexpr (NK < 12) {
-    if (nk != NK) return bwd_wgmma_nk<NK + 2>(dw, a, nk, s);
+    if (nk != NK) return with_nk<NK + 2>(nk, f);
   }
-  static_assert(NK <= kMaxStages &&
-                    bwd_smem_bytes(NK, kMaxStages) <= kMaxSmem,
-                "the resident chunks and the ring fit");
   if (nk != NK) return cudaErrorInvalidValue;
-  const int items = dw ? tiles(a.V) : tiles(a.N);
-  return launch(dw ? fx_dw_wgmma<NK> : fx_dh_wgmma<NK>,
-                persistent_blocks(items), kThreadsWs,
-                bwd_smem_bytes(NK, kMaxStages), s, a.h, a.w, a.labels, a.lse,
-                a.coef, a.out, a.N, a.D, a.V);
+  return f(std::integral_constant<int, NK>());
+}
+
+// The bfloat16 forward.
+cudaError_t fwd_wgmma(const bf16* h, const bf16* w, const int* labels,
+                      float* lse, float* gold, float* zsum, int* amax, int N,
+                      int D, int V, cudaStream_t s) {
+  CUtensorMap mh, mw;
+  const cudaError_t e = head_maps(mh, mw, h, w, N, D, V);
+  if (e != cudaSuccess) return e;
+  return with_nk(nk_built(D), [&](auto nk) {
+    constexpr int NK = decltype(nk)::value;
+    return launch(fx_fwd_wgmma<NK>, persistent_blocks(tiles(N)), kFwdThreads,
+                  FwdTiling<NK>::kSmem, s, mh, mw, labels, lse, gold, zsum,
+                  amax, N, V);
+  });
 }
 
 // The bfloat16 dh (dw false) or dW (dw true) kernel.
 cudaError_t bwd_wgmma(bool dw, const bf16* h, const bf16* w,
                       const int* labels, const float* lse, const float* coef,
                       bf16* out, int N, int D, int V, cudaStream_t s) {
-  BwdArgs a;
-  a.labels = labels;
-  a.lse = lse;
-  a.coef = coef;
-  a.out = out;
-  a.N = N;
-  a.D = D;
-  a.V = V;
-  cudaError_t e = hopper::bf16_2d_map(&a.h, h, D, N, kTile);
-  if (e == cudaSuccess) e = hopper::bf16_2d_map(&a.w, w, V, D, kTile);
+  CUtensorMap mh, mw;
+  const cudaError_t e = head_maps(mh, mw, h, w, N, D, V);
   if (e != cudaSuccess) return e;
-  return bwd_wgmma_nk<2>(dw, a, nk_built(D), s);
+  return with_nk(nk_built(D), [&](auto nk) {
+    constexpr int NK = decltype(nk)::value;
+    static_assert(NK <= kMaxStages &&
+                      bwd_smem_bytes(NK, kMaxStages) <= kMaxSmem,
+                  "the resident chunks and the ring fit");
+    return launch(dw ? fx_dw_wgmma<NK> : fx_dh_wgmma<NK>,
+                  persistent_blocks(dw ? tiles(V) : tiles(N)), kThreadsWs,
+                  bwd_smem_bytes(NK, kMaxStages), s, mh, mw, labels, lse,
+                  coef, out, N, D, V);
+  });
 }
 
 }  // namespace
@@ -1290,12 +1398,9 @@ extern "C" int ddl_fxent_fwd(const void* h, const void* w, const int* labels,
                     static_cast<const float*>(w), labels, lse, gold, zsum,
                     amax, N, D, V);
     case 1:
-      return launch(fx_fwd_mma, tiles(N, kFwdRows), kThreads,
-                    (kFwdRows * (tiles(D) * kTile + 8) + kFwdStages * kChunk) *
-                        2,
-                    s, static_cast<const bf16*>(h),
-                    static_cast<const bf16*>(w), labels, lse, gold, zsum,
-                    amax, N, D, V);
+      return fwd_wgmma(static_cast<const bf16*>(h),
+                       static_cast<const bf16*>(w), labels, lse, gold, zsum,
+                       amax, N, D, V, s);
     default:
       return cudaErrorInvalidValue;
   }

@@ -22,9 +22,9 @@ gradients. Any Tq and Tk; head dim 64 only on the card:
 the model's ``"auto"`` dispatch (models/transformer.py) takes the plain
 path for operands they refuse, counted in ``flash_attention.plain_launches``.
 
-On the card, the bfloat16 forward and dK/dV run on Hopper's wgmma with TMA
-loads through an mbarrier ring (``csrc/hopper.cuh``); dQ is still
-``mma.sync``; the float32 builds are CUDA-core kernels.
+On the card, the bfloat16 forward, dQ and dK/dV run on Hopper's wgmma with
+TMA loads through mbarrier rings (``csrc/hopper.cuh``); the float32 builds
+are CUDA-core kernels.
 
 Each wrapper takes its plain PyTorch version (``_flash_*_ref``, float32
 math, beside it) when its query lies on the CPU — the tests' route — and on

@@ -14,8 +14,8 @@ checkout's ``chip_smoke.time_ms`` (CUDA events, the L2 flushed before
 every launch), and prints one JSON line: the family, the root, the card's
 name and power limit, and the times in ms.
 
-* ``flash``: ``flash_fwd`` and ``flash_dkv`` at lmbench's shape (B 16, H 8,
-  T 1024, dh 64, causal) and at B 2, T 8192;
+* ``flash``: ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` at lmbench's
+  shape (B 16, H 8, T 1024, dh 64, causal) and at B 2, T 8192;
 * ``fxent``: ``fxent_fwd``, ``fxent_dh`` and ``fxent_dw`` at lmbench's head
   (N 16 384 = B 16 x T 1 024, D 512, V 32 768) and at D 768 (transformer_m's
   width).
@@ -43,6 +43,8 @@ def flash_times(torch, cs, dev, flush):
         delta = (do.float() * o.float()).sum(-1)
         times[f"flash_fwd_B{B}_T{T}"] = cs.time_ms(
             torch, lambda: fa.flash_fwd(q, k, v), flush)
+        times[f"flash_dq_B{B}_T{T}"] = cs.time_ms(
+            torch, lambda: fa.flash_dq(q, k, v, do, lse, delta), flush)
         times[f"flash_dkv_B{B}_T{T}"] = cs.time_ms(
             torch, lambda: fa.flash_dkv(q, k, v, do, lse, delta), flush)
     return times

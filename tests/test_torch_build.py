@@ -2,9 +2,15 @@
 
 A library is rebuilt when its name changes, so the name must cover every
 file that goes into the build: the ``.cu`` source and the headers under
-``ops/csrc/`` it includes, directly or through another header. Runs on the
+``ops/csrc/`` it includes, directly or through another header. Also: the
+training step's bf16 kernels are all Hopper kernels (wgmma and TMA, no
+mma.sync), read from chip_smoke.py's constants and the sources. Runs on the
 CPU: nothing is compiled.
 """
+
+import importlib.util
+import re
+from pathlib import Path
 
 import pytest
 
@@ -69,3 +75,61 @@ def test_flash_library_names_its_hopper_header():
 
 def test_fused_xent_library_names_its_hopper_header():
     assert "hopper.cuh" in [p.name for p in _build._sources("fused_xent")]
+
+
+def _chip_smoke():
+    """chip_smoke.py (top level of the repository) as a module; importing
+    it runs nothing and needs no torch."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _reached(source: str, name: str, depth: int = 3) -> str:
+    """The body of function ``name`` in ``source`` (defined from the first
+    column), with the bodies of the file's functions it calls, followed
+    ``depth`` calls deep."""
+    m = re.search(r"^\w[^\n;(]*\b" + name + r"\s*\([^;{]*\)\s*\{",
+                  source, re.M)
+    if m is None:
+        return ""
+    end = source.index("\n}\n", m.end())
+    body = source[m.start():end]
+    if depth:
+        for callee in set(re.findall(r"\b(\w+)\s*(?:<[^>]*>)?\s*\(", body)):
+            if callee != name:
+                body += _reached(source, callee, depth - 1)
+    return body
+
+
+def test_training_step_kernels_are_all_hopper_kernels():
+    """Every bf16 kernel of a training step is one the build phase holds
+    to wgmma and TMA with no mma.sync."""
+    cs = _chip_smoke()
+    assert set(cs.TRAIN_KERNELS) <= set(cs.FLASH_HOPPER) | set(cs.FX_HOPPER)
+    assert set(cs.FLASH_HOPPER) | set(cs.FX_HOPPER) <= (
+        set(cs.FLASH_BUILT) | set(cs.FX_BUILT))
+
+
+@pytest.mark.parametrize("lib,launcher,kernel", [
+    ("flash_attention", "ddl_flash_fwd", "flash_fwd_wgmma"),
+    ("flash_attention", "ddl_flash_dq", "flash_dq_wgmma"),
+    ("flash_attention", "ddl_flash_dkv", "flash_dkv_wgmma"),
+    ("fused_xent", "ddl_fxent_fwd", "fx_fwd_wgmma"),
+    ("fused_xent", "ddl_fxent_dh", "fx_dh_wgmma"),
+    ("fused_xent", "ddl_fxent_dw", "fx_dw_wgmma"),
+])
+def test_launchers_reach_the_hopper_kernels(lib, launcher, kernel):
+    source = (_build._CSRC / f"{lib}.cu").read_text()
+    body = _reached(source, launcher)
+    assert body, launcher
+    assert kernel in body
+    assert not re.search(r"\w+_mma\b", body), launcher
+
+
+@pytest.mark.parametrize("lib", ["flash_attention", "fused_xent"])
+def test_no_mma_sync_is_left_in_the_training_libraries(lib):
+    code = re.sub(r"//[^\n]*", "", (_build._CSRC / f"{lib}.cu").read_text())
+    assert "mma.sync" not in code and "ldmatrix" not in code

@@ -274,6 +274,20 @@ def test_flash_kernels_match_plain_versions(dev, dtype, case):
             assert err <= 2.0 ** -6, (name, err)
 
 
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[6]])
+def test_flash_dq_reruns_are_bitwise_equal(dev, case):
+    """dQ takes no atomics: two runs on the same inputs give the same bits
+    (lmbench's shape, and seq2seq_s's prefix case)."""
+    B, H, Tq, Tk, qo, ko, pre = case
+    q, k, v, do = _flash_case(dev, torch.bfloat16, B, H, Tq, Tk, sum(case))
+    o, lse = fa.flash_fwd(q, k, v, qo, ko, pre)
+    delta = (do.float() * o.float()).sum(-1)
+    runs = [fa.flash_dq(q, k, v, do, lse, delta, qo, ko, pre)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
 @pytest.mark.parametrize("mode", [0, 1])
 def test_wgmma_operand_forms_match_matmul(dev, mode):
     """The two wgmma forms the bf16 forward and dK/dV kernels issue, on one
@@ -409,6 +423,19 @@ def test_fused_xent_backward_reruns_are_bitwise_equal(dev, D):
     torch.cuda.synchronize()
     assert torch.equal(runs[0][0], runs[1][0])
     assert torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("D", [32, 512, 768])
+def test_fused_xent_forward_reruns_are_bitwise_equal(dev, D):
+    """The forward's two warpgroups merge their statistics in a fixed
+    order: two runs on the same inputs give the same bits in all four
+    outputs."""
+    h, w, labels = _fx_case(dev, torch.bfloat16, 1000, D, 2048, "synthmt",
+                            seed=D + 1)
+    runs = [fx.fxent_fwd(h, w, labels) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
