@@ -18,7 +18,10 @@ one JSON line; any failure raises and exits non-zero:
              dK/dV; forward, dh, dW) has no HGMMA, no UTMALDG or any HMMA,
              or if ptxas serialised its wgmma products (a C7520 note);
              without cuobjdump the line says so and checks only the
-             notes.
+             notes. The same for the paged kernels (each pool type's
+             instance), with their counts of cp.async copies (LDGSTS):
+             fails if the chunk kernel (paged_chunk_tiled) spills or has
+             no LDGSTS.
 2. kernels — holds each paged kernel against its plain PyTorch version at
              the serving slice's shapes (rows 8, H 8, dh 64, page 16, a
              64-page pool, scattered random tables, per-row positions with
@@ -27,10 +30,20 @@ one JSON line; any failure raises and exits non-zero:
              int8 pools written by the port's own quantising chunk write so
              their scales are real; and the verify pass's shape, rows 8,
              C 5, per-row unaligned starts, over float32 and int8 pools)
-             within 1e-4 max abs error. Two planted faults over an int8
-             pool, built from the plain versions, must be rejected: the K
-             scale ignored (scale 1), and each page's scales read from the
-             next slot. Then times the kernel, its plain version and one
+             within 1e-4 max abs error; and the chunk kernel's edges over
+             float32 and int8 pools: C 1, a partial last query tile (C 17,
+             33), npl 9 (not a multiple of the 8 warps). The chunk kernel
+             run again at C 16, C 256 and the verify shape, over float32
+             and int8, must give the same bits. Planted faults over an
+             int8 pool, built from the plain versions, must be rejected:
+             the K scale ignored (scale 1), and each page's scales read
+             from the next slot; and three aimed at the chunk kernel's
+             design, each held against its output: one warp's pages
+             dropped (pages j = 7 mod 8 masked out), the last 16-query
+             tile at C 256 attending with positions 16 too early, and on
+             an int8 pool each page's scales taken from the previous page
+             of its warp's walk (page j - 8). Then times the kernel, its
+             plain version and one
              PyTorch library call computing the same function
              (scaled_dot_product_attention over the pre-gathered pages,
              dequantised beforehand for an int8 pool — a yardstick, never
@@ -266,6 +279,11 @@ FX_BUILT = ("fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma", "fx_fwd_f32",
             "fx_dh_f32", "fx_dw_f32", "fx_wgmma_tile_test")
 FX_HOPPER = ("fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
+# the paged library's kernels (an instance per pool type), and the one
+# that must copy its pages by cp.async (LDGSTS) with no spill
+PAGED_BUILT = ("paged_chunk_tiled", "paged_decode_kernel")
+PAGED_ASYNC = "paged_chunk_tiled"
+PAGED_TYPES = {"IfE": "float", "I13__nv_bfloat16E": "bf16", "IaE": "int8"}
 # the port's kernels of a training step, as the profiler names them
 TRAIN_KERNELS = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
                  "fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma")
@@ -339,18 +357,18 @@ def cuobjdump() -> str | None:
     return str(path) if path.exists() else None
 
 
-def sass_counts(tool: str, lib: Path) -> dict:
-    """{mangled kernel: {opcode: count}} of the SASS_OPS in a built
-    library's machine code (cuobjdump -sass)."""
+def sass_counts(tool: str, lib: Path, ops=SASS_OPS) -> dict:
+    """{mangled kernel: {opcode: count}} of ``ops`` in a built library's
+    machine code (cuobjdump -sass)."""
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     out, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = out.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+            cur = out.setdefault(m.group(1), dict.fromkeys(ops, 0))
         elif cur is not None:
-            for op in re.findall(r"\b(" + "|".join(SASS_OPS) + r")\b", line):
+            for op in re.findall(r"\b(" + "|".join(ops) + r")\b", line):
                 cur[op] += 1
     return out
 
@@ -397,14 +415,48 @@ def library_kernels(_build, tool, lib_name, names, hopper):
     return kernels
 
 
+def paged_kernels(_build, tool):
+    """{kernel<pool type>: registers, spill bytes, LDGSTS count} of the
+    paged library; raises if an instance of the chunk kernel spills or,
+    with cuobjdump, has no LDGSTS (cp.async) instruction."""
+    lib = _build._target("paged_attention")
+
+    def name(mangled):
+        base = next((k for k in PAGED_BUILT if k in mangled), None)
+        kind = next((v for k, v in PAGED_TYPES.items()
+                     if base and base + k in mangled), "?")
+        return base and f"{base}<{kind}>"
+
+    kernels = {}
+    for mangled, rec in ptxas_report(lib.with_suffix(".log").read_text()
+                                     ).items():
+        if name(mangled):
+            kernels[name(mangled)] = dict(rec)
+    if tool is not None:
+        for mangled, counts in sass_counts(tool, lib, ("LDGSTS",)).items():
+            if name(mangled):
+                kernels.setdefault(name(mangled), {}).update(counts)
+    chunk = {k: v for k, v in kernels.items() if k.startswith(PAGED_ASYNC)}
+    if len(chunk) != len(PAGED_TYPES):
+        raise AssertionError(f"paged_attention: {PAGED_ASYNC} instances "
+                             f"missing from {sorted(kernels)}")
+    for k, rec in chunk.items():
+        if rec.get("spill_bytes", 0) or (tool and not rec.get("LDGSTS")):
+            raise AssertionError(f"{k} spills or has no cp.async (LDGSTS): "
+                                 f"{rec}")
+    return kernels
+
+
 def phase_build(_build):
     """Compile every kernel library (one nvcc each, started together),
     then show what the flash and fused-head libraries' kernels were
     compiled to: registers and spill bytes from the -Xptxas -v log, and the
     counts of wgmma (HGMMA), TMA load (UTMALDG) and mma.sync (HMMA)
-    instructions from cuobjdump. Fails if a bfloat16 flash or fused-head
+    instructions from cuobjdump, and the paged kernels' registers, spills
+    and cp.async (LDGSTS) counts. Fails if a bfloat16 flash or fused-head
     kernel lacks HGMMA or UTMALDG, has HMMA, or had its wgmma products
-    serialised (C7520)."""
+    serialised (C7520), or if the paged chunk kernel spills or has no
+    LDGSTS."""
     t0 = time.perf_counter()
     built = _build.build()
     seconds = time.perf_counter() - t0
@@ -417,7 +469,8 @@ def phase_build(_build):
           "flash_attention_kernels": library_kernels(
               _build, tool, "flash_attention", FLASH_BUILT, FLASH_HOPPER),
           "fused_xent_kernels": library_kernels(
-              _build, tool, "fused_xent", FX_BUILT, FX_HOPPER)})
+              _build, tool, "fused_xent", FX_BUILT, FX_HOPPER),
+          "paged_attention_kernels": paged_kernels(_build, tool)})
 
 
 def emit(obj) -> None:
@@ -587,6 +640,87 @@ def int8_planted_faults(torch, pd, gen, dev):
     return out
 
 
+def chunk_plain(torch, q, cache, pos, npl, drop_mod8=None, late_tile=False,
+                scale_lag=0):
+    """The chunk attention's plain arithmetic with an optional planted
+    fault: keys of pages j = ``drop_mod8`` mod 8 masked out (one warp's
+    pages); the last 16 queries' positions 16 too early (the last query
+    tile at the wrong offset); on an int8 pool, page j's scales taken
+    from the slot of page j - ``scale_lag`` (pages before ``scale_lag``
+    keep their own)."""
+    rows, _, C, _ = q.shape
+    tbl = cache["table"][:, :npl].long()
+    L = npl * PAGE
+
+    def pages(name):
+        x = cache["pool_" + name][tbl].float()  # [rows, npl, PAGE, H, DH]
+        if "scale_" + name in cache:
+            stbl = tbl.clone()
+            if scale_lag:
+                stbl[:, scale_lag:] = tbl[:, :-scale_lag]
+            x = x * cache["scale_" + name][stbl][..., None, None]
+        return x.reshape(rows, L, H, DH).transpose(1, 2)
+
+    k, v = pages("k"), pages("v")
+    scores = torch.einsum("rhqd,rhkd->rhqk", q, k) / math.sqrt(DH)
+    qpos = pos[:, None].long() + torch.arange(C, device=q.device)[None, :]
+    if late_tile:
+        qpos[:, -16:] -= 16
+    kpos = torch.arange(L, device=q.device)
+    ok = kpos[None, None, None, :] <= qpos[:, None, :, None]
+    if drop_mod8 is not None:
+        ok = ok & ((kpos // PAGE) % 8 != drop_mod8)[None, None, None, :]
+    probs = torch.softmax(scores.masked_fill(~ok, -math.inf), -1)
+    return torch.einsum("rhqk,rhkd->rhqd", probs, v)
+
+
+def chunk_planted_faults(torch, pd, gen, dev):
+    """The 1e-4 check that passes the chunk kernel must reject the plain
+    arithmetic with a fault aimed at one part of the kernel's design: one
+    warp's pages dropped, the last query tile at positions 16 too early
+    (C 256), each page's scales from the previous page of its warp's walk
+    (int8). The fault-free plain arithmetic (the controls) must pass.
+    Returns (faults, controls)."""
+    faults, controls = [], []
+    for fault, dtype, C, kw in (
+            ("control", torch.float32, 16, {}),
+            ("warp_7_pages_dropped", torch.float32, 16, {"drop_mod8": 7}),
+            ("last_tile_16_early", torch.float32, 256, {"late_tile": True}),
+            ("control_int8", torch.int8, 16, {}),
+            ("scales_from_previous_page_of_warp", torch.int8, 16,
+             {"scale_lag": 8})):
+        q, cache, pos = make_case(torch, pd, dtype, NPG, C, gen, dev)
+        got = run_kernel(pd, q, cache, pos, NPG, C)
+        err = (chunk_plain(torch, q, cache, pos, NPG, **kw) - got).abs()
+        err = err.max().item()
+        rec = {"fault": fault, "C": C, "pool": str(dtype).split(".")[-1],
+               "max_abs_err": err, "tol": TOL, "rejected": not err <= TOL}
+        control = fault.startswith("control")
+        (controls if control else faults).append(rec)
+        if control == rec["rejected"]:
+            raise AssertionError(f"chunk planted fault {fault}: {rec}")
+    return faults, controls
+
+
+def chunk_reruns(torch, pd, gen, dev):
+    """The chunk kernel run twice on the same inputs gives the same bits
+    (the warps merge in a fixed order): C 16, C 256, the verify shape."""
+    out = []
+    for dtype in (torch.float32, torch.int8):
+        for C, aligned in ((16, True), (256, True), (VERIFY_C, False)):
+            q, cache, pos = make_case(torch, pd, dtype, NPG, C, gen, dev,
+                                      aligned)
+            a = run_kernel(pd, q, cache, pos, NPG, C)
+            b = run_kernel(pd, q, cache, pos, NPG, C)
+            same = bool(torch.equal(a, b))
+            out.append({"C": C, "pool": str(dtype).split(".")[-1],
+                        "reruns_bitwise_equal": same})
+            if not same:
+                raise AssertionError(f"chunk kernel reruns differ: C={C} "
+                                     f"{dtype}")
+    return out
+
+
 def phase_kernels(torch, pd, dev):
     gen = torch.Generator().manual_seed(0)
     worst = {name: 0.0 for name in KERNELS}
@@ -599,6 +733,12 @@ def phase_kernels(torch, pd, dev):
     # the verify pass: rows 8, C 5, per-row unaligned starts
     cases += [(dtype, VERIFY_C, npl, False)
               for dtype in (torch.float32, torch.int8) for npl in (3, 16)]
+    # the chunk kernel's edges: one query, partial last query tiles, npl 9
+    cases += [(dtype, C, npl, aligned)
+              for dtype in (torch.float32, torch.int8)
+              for C, npl, aligned in ((1, 16, False), (17, 16, True),
+                                      (33, 16, False), (1, 9, False),
+                                      (16, 9, True), (33, 9, True))]
     for dtype, C, npl, aligned in cases:
         dname = str(dtype).split(".")[-1]
         name = "paged_attention" if C is None else "paged_chunk_attention"
@@ -620,7 +760,11 @@ def phase_kernels(torch, pd, dev):
         elif dtype == torch.float32:
             worst[name] = max(worst[name], err)
     faults = int8_planted_faults(torch, pd, gen, dev)
-    emit({"phase": "kernels", "checks": checks, "planted_faults": faults})
+    chunk_faults, controls = chunk_planted_faults(torch, pd, gen, dev)
+    emit({"phase": "kernels", "checks": checks,
+          "planted_faults": faults + chunk_faults,
+          "fault_free_controls": controls,
+          "chunk_reruns": chunk_reruns(torch, pd, gen, dev)})
 
     # timing at the deepest shapes the main path's pool can hold, float32
     # and int8 pools — these are the kernels table's. Decode: the 8 rows

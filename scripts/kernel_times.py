@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Time the port's bfloat16 flash or fused LM-head kernels of several
-checkouts on one card.
+"""Time the port's bfloat16 flash, fused LM-head or paged chunk kernels of
+several checkouts on one card.
 
-    python3 scripts/kernel_times.py flash|fxent ROOT [ROOT ...]
+    python3 scripts/kernel_times.py flash|fxent|paged ROOT [ROOT ...]
 
 ROOT is the root of a checkout (the repository itself, or a parent commit
 unpacked with ``git archive`` into a directory ``.gitignore`` lists). Each
@@ -18,7 +18,16 @@ name and power limit, and the times in ms.
   shape (B 16, H 8, T 1024, dh 64, causal) and at B 2, T 8192;
 * ``fxent``: ``fxent_fwd``, ``fxent_dh`` and ``fxent_dw`` at lmbench's head
   (N 16 384 = B 16 x T 1 024, D 512, V 32 768) and at D 768 (transformer_m's
-  width).
+  width);
+* ``paged``: ``paged_chunk_attention`` at chip_smoke's timed shapes (its
+  ``make_pools`` pools, page 16, H 8, dh 64, one table row holding 16
+  distinct slots): the C-16 chunk that ends a 16-page stream over float32,
+  bfloat16 and int8 pools, the 256-query unchunked chunk over float32, and
+  the verify pass (8 rows over the 63 usable slots, C 5, unaligned starts)
+  over float32 and int8; and, as a yardstick, chip_smoke's
+  ``library_call`` (scaled_dot_product_attention over the gathered pages)
+  at C 256; and ``floor_memset``, a one-element memset timed the same
+  way: the harness's floor (launch and event overhead).
 """
 
 import json
@@ -71,7 +80,51 @@ def fxent_times(torch, cs, dev, flush):
     return times
 
 
-FAMILIES = {"flash": flash_times, "fxent": fxent_times}
+def paged_times(torch, cs, dev, flush):
+    from ddlbench_tpu_torch.ops import paged_decode as pd
+
+    gen = torch.Generator().manual_seed(3)
+    # chip_smoke's timing table: each row's live pages distinct slots, row
+    # 0 at the 16-page max_len, columns past a row's pages the scratch slot
+    perm = (torch.randperm(cs.POOL_PAGES - 1, generator=gen) + 1).tolist()
+    table = torch.zeros(cs.ROWS, cs.NPG, dtype=torch.int32)
+    for r, live in enumerate(cs.DECODE_LIVE):
+        table[r, :live] = torch.tensor(perm[:live])
+        perm = perm[live:]
+    verify_pos = torch.tensor([live * cs.PAGE - cs.VERIFY_C - r % 3
+                               for r, live in enumerate(cs.DECODE_LIVE)],
+                              dtype=torch.int32, device=dev)
+    tiny = torch.zeros(1, device=dev)
+    cs.time_ms(torch, tiny.zero_, flush)  # a first timed call reads high
+    times = {"floor_memset": cs.time_ms(torch, tiny.zero_, flush)}
+    for name, C, rows, dtype in (
+            ("chunk16_float32", 16, 1, torch.float32),
+            ("chunk16_bfloat16", 16, 1, torch.bfloat16),
+            ("chunk16_int8", 16, 1, torch.int8),
+            ("chunk256_float32", 256, 1, torch.float32),
+            ("verify_float32", cs.VERIFY_C, cs.ROWS, torch.float32),
+            ("verify_int8", cs.VERIFY_C, cs.ROWS, torch.int8)):
+        cache = cs.make_pools(torch, pd, dtype, gen, dev)
+        cache["table"] = table[:rows].to(dev)
+        q = torch.randn(rows, cs.H, C, cs.DH, generator=gen).to(dev)
+        pos = (verify_pos if C == cs.VERIFY_C else
+               torch.full((rows,), cs.NPG * cs.PAGE - C, dtype=torch.int32,
+                          device=dev))
+
+        def run():
+            return pd.paged_chunk_attention(q, cache, pos, cs.NPG, cs.PAGE)
+
+        if len(times) == 1:
+            cs.time_ms(torch, run, flush)
+        times[name] = cs.time_ms(torch, run, flush)
+        if C == 256:
+            times["library_" + name] = cs.time_ms(
+                torch, cs.library_call(torch, q, cache, pos, cs.NPG, C),
+                flush)
+    return times
+
+
+FAMILIES = {"flash": flash_times, "fxent": fxent_times, "paged": paged_times}
 
 
 def one(family: str, root: str) -> None:

@@ -120,6 +120,8 @@ def test_training_step_kernels_are_all_hopper_kernels():
     ("fused_xent", "ddl_fxent_fwd", "fx_fwd_wgmma"),
     ("fused_xent", "ddl_fxent_dh", "fx_dh_wgmma"),
     ("fused_xent", "ddl_fxent_dw", "fx_dw_wgmma"),
+    ("paged_attention", "ddl_paged_chunk", "paged_chunk_tiled"),
+    ("paged_attention", "ddl_paged_decode", "paged_decode_kernel"),
 ])
 def test_launchers_reach_the_hopper_kernels(lib, launcher, kernel):
     source = (_build._CSRC / f"{lib}.cu").read_text()
@@ -133,3 +135,15 @@ def test_launchers_reach_the_hopper_kernels(lib, launcher, kernel):
 def test_no_mma_sync_is_left_in_the_training_libraries(lib):
     code = re.sub(r"//[^\n]*", "", (_build._CSRC / f"{lib}.cu").read_text())
     assert "mma.sync" not in code and "ldmatrix" not in code
+
+
+def test_paged_chunk_kernel_copies_its_pages_by_cp_async():
+    """The chunk kernel's ring is filled by cp.async (16-byte copies, waited
+    by group); the kernel it replaced, one block per query, is gone."""
+    source = (_build._CSRC / "paged_attention.cu").read_text()
+    m = re.search(r"__global__[^;{]*?\bpaged_chunk_tiled\s*\(", source)
+    assert m, "paged_chunk_tiled"
+    body = source[m.start():source.index("\n}\n", m.end())]
+    assert "cp_async16(" in body and "cp_async_wait<" in body
+    assert "cp.async.cg.shared.global" in _reached(source, "cp_async16")
+    assert "paged_chunk_kernel" not in source

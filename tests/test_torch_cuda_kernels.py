@@ -204,6 +204,102 @@ def test_int8_check_rejects_planted_faults(dev, fault, C):
     assert (got - planted).abs().max().item() > 1e-4
 
 
+def _chunk_case(dev, ktype, page, npl, C, seed, aligned=True, n_slots=None):
+    """A pool of ``page``-position pages (int8: written by the port's own
+    quantising chunk write), a table drawn with replacement from slots
+    1 .. ``n_slots`` (default: every non-scratch slot), a float32 chunk
+    query and per-row starts, page-aligned or not."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (N_PAGES, page, H, 64)
+    pk = torch.randn(*shape, generator=g).to(dev)
+    pv = torch.randn(*shape, generator=g).to(dev)
+    if ktype == torch.int8:
+        pool = port.serve_pool_init(N_PAGES, page, H, 64, torch.int8, dev)
+        pool["kv_u"] = port.kv_u_table(1, N_PAGES * page, H, 64, dev)
+        n = N_PAGES * page
+        port.paged_table_chunk_write(
+            {**pool, "table": torch.arange(N_PAGES, dtype=torch.int32,
+                                           device=dev)[None]},
+            pk.reshape(1, n, H, 64), pv.reshape(1, n, H, 64), 0, page)
+        cache = {k: pool[k] for k in ("pool_k", "pool_v", "scale_k",
+                                      "scale_v")}
+    else:
+        cache = {"pool_k": pk.to(ktype), "pool_v": pv.to(ktype)}
+    cache["table"] = torch.randint(1, n_slots or N_PAGES, (ROWS, npl + 1),
+                                   generator=g, dtype=torch.int32).to(dev)
+    q = torch.randn(ROWS, H, C, 64, generator=g).to(dev)
+    if aligned:
+        pos = torch.randint(0, max(1, (npl * page - C) // page + 1), (ROWS,),
+                            generator=g) * page
+    else:
+        pos = torch.randint(0, max(1, npl * page - C + 1), (ROWS,),
+                            generator=g)
+    return q, cache, pos.to(dev, torch.int32)
+
+
+# (page, npl, C, page-aligned starts): a single query, partial last query
+# tiles (C 17, 33), npl 9 (not a multiple of the 8 warps), pages of 32 (two
+# 16-key chunks) and of 8 (one partial chunk)
+CHUNK_EDGES = [(16, 16, 1, False), (16, 16, 17, True), (16, 16, 33, False),
+               (16, 9, 16, True), (16, 9, 33, False), (32, 3, 33, False),
+               (32, 5, 17, True), (8, 9, 1, False), (8, 16, 33, True),
+               (8, 9, 5, False)]
+
+
+@pytest.mark.parametrize("ktype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("page,npl,C,aligned", CHUNK_EDGES)
+def test_chunk_kernel_edge_shapes_match_plain_version(dev, ktype, page, npl,
+                                                      C, aligned):
+    q, cache, pos = _chunk_case(dev, ktype, page, npl, C, 60 + C + npl,
+                                aligned)
+    got = port.paged_chunk_attention(q, cache, pos, npl, page)
+    want = port._paged_chunk_attention_ref(q, cache, pos, npl, page)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("ktype", [torch.float32, torch.int8])
+@pytest.mark.parametrize("C,aligned", [(16, True), (256, True),
+                                       (VERIFY_C, False)])
+def test_chunk_kernel_reruns_are_bitwise_equal(dev, ktype, C, aligned):
+    """The warps' states merge in a fixed order: a rerun gives the same
+    bits."""
+    q, cache, pos = _chunk_case(dev, ktype, PAGE, NPG, C, 70 + C, aligned)
+    first = port.paged_chunk_attention(q, cache, pos, NPG, PAGE)
+    again = port.paged_chunk_attention(q, cache, pos, NPG, PAGE)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("ktype", [torch.float32, torch.int8])
+def test_chunk_kernel_reads_pages_past_its_staged_table(dev, ktype):
+    """Pages of one position and 2 100 live pages: the block stages the
+    first 2 048 table entries and looks the later ones up in device
+    memory; every row's chunk ends past entry 2 048."""
+    npl, C = 2100, 16
+    q, cache, _ = _chunk_case(dev, ktype, 1, npl, C, 91)
+    pos = torch.tensor([npl - C - 5 * r for r in range(ROWS)],
+                       dtype=torch.int32, device=dev)
+    got = port.paged_chunk_attention(q, cache, pos, npl, 1)
+    want = port._paged_chunk_attention_ref(q, cache, pos, npl, 1)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("ktype", [torch.float32, torch.int8])
+def test_chunk_kernel_rows_sharing_slots_match_plain_version(dev, ktype):
+    """Every row's table drawn with replacement from three slots: rows
+    (and pages of one row) share slots, as prefix-cache binds make them."""
+    q, cache, pos = _chunk_case(dev, ktype, PAGE, NPG, 33, 81, False,
+                                n_slots=4)
+    got = port.paged_chunk_attention(q, cache, pos, NPG, PAGE)
+    want = port._paged_chunk_attention_ref(q, cache, pos, NPG, PAGE)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
 def test_int8_wrapper_refuses_a_pool_without_its_sidecars(dev):
     q, cache, pos = _int8_case(dev, None, 51)
     with pytest.raises(ValueError, match="sidecar"):
