@@ -20,8 +20,9 @@ one JSON line; any failure raises and exits non-zero:
              without cuobjdump the line says so and checks only the
              notes. The same for the paged kernels (each pool type's
              instance), with their counts of cp.async copies (LDGSTS):
-             fails if the chunk kernel (paged_chunk_tiled) spills or has
-             no LDGSTS.
+             fails if an instance of the chunk kernel (paged_chunk_tiled)
+             or of the decode kernel (paged_decode_ring) is missing,
+             spills or has no LDGSTS.
 2. kernels — holds each paged kernel against its plain PyTorch version at
              the serving slice's shapes (rows 8, H 8, dh 64, page 16, a
              64-page pool, scattered random tables, per-row positions with
@@ -32,18 +33,23 @@ one JSON line; any failure raises and exits non-zero:
              C 5, per-row unaligned starts, over float32 and int8 pools)
              within 1e-4 max abs error; and the chunk kernel's edges over
              float32 and int8 pools: C 1, a partial last query tile (C 17,
-             33), npl 9 (not a multiple of the 8 warps). The chunk kernel
-             run again at C 16, C 256 and the verify shape, over float32
-             and int8, must give the same bits. Planted faults over an
-             int8 pool, built from the plain versions, must be rejected:
-             the K scale ignored (scale 1), and each page's scales read
-             from the next slot; and three aimed at the chunk kernel's
-             design, each held against its output: one warp's pages
-             dropped (pages j = 7 mod 8 masked out), the last 16-query
-             tile at C 256 attending with positions 16 too early, and on
-             an int8 pool each page's scales taken from the previous page
-             of its warp's walk (page j - 8). Then times the kernel, its
-             plain version and one
+             33), npl 9 (not a multiple of the 8 warps); the decode
+             kernel's edges over float32, bfloat16 and int8 pools: pages
+             of 8, 16 and 32, npl 1, 9 and 16, positions on a page's first
+             and last key, a row on page 0 (warps 1-7 walk nothing). The
+             chunk kernel run again at C 16, C 256 and the verify shape,
+             and the decode kernel, over float32 and int8, must give the
+             same bits. Planted faults over an int8 pool, built from the
+             plain versions, must be rejected: the K scale ignored (scale
+             1), and each page's scales read from the next slot; and six
+             aimed at the two kernels' design, each held against its
+             output: one warp's pages dropped (pages j = 7 mod 8 masked
+             out; chunk and decode), the last 16-query tile at C 256
+             attending with positions 16 too early, the decode query's
+             last visible page skipped, and on an int8 pool each page's
+             scales taken from the previous page of its warp's walk (page
+             j - 8; chunk and decode); four fault-free controls must
+             pass. Then times the kernel, its plain version and one
              PyTorch library call computing the same function
              (scaled_dot_product_attention over the pre-gathered pages,
              dequantised beforehand for an int8 pool — a yardstick, never
@@ -92,7 +98,8 @@ one JSON line; any failure raises and exits non-zero:
              through the serving path on the shared prefix). Prints the
              three rows' counters and wall-clock step times.
 4. profile — the same path (8 requests, warm) under torch.profiler: the
-             device's busy share and the device time by kernel.
+             device's busy share, the device time by kernel, and each
+             paged kernel instance's calls and device time.
 5. flash_kernels — holds each flash kernel (forward, dQ, dK/dV) against
              its plain version: H 8, dh 64, float32 and bfloat16; causal at
              lmbench's own shape (B 16, T 1024), at B 2, T 1024, T 1000
@@ -233,6 +240,11 @@ KERNELS = {
     "paged_chunk_attention_int8":
         "ddlbench_tpu/ops/paged_decode.py:703 (int8 branch, :714-731)",
 }
+# (page, npl, the key of its page a row's position is on) of the decode
+# kernel's edge checks
+DECODE_EDGES = ((16, 16, "last"), (16, 16, "first"), (16, 9, "last"),
+                (16, 1, "first"), (8, 9, "first"), (8, 16, "last"),
+                (32, 9, "last"), (32, 16, "first"), (32, 1, "last"))
 SPEC_K = 4  # drafted tokens a verify pass checks
 VERIFY_C = SPEC_K + 1  # the verify pass: the pending token + SPEC_K drafts
 # the n-gram lengths serve_levers tries, in order: the reference's 3 first
@@ -279,10 +291,9 @@ FX_BUILT = ("fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma", "fx_fwd_f32",
             "fx_dh_f32", "fx_dw_f32", "fx_wgmma_tile_test")
 FX_HOPPER = ("fx_fwd_wgmma", "fx_dh_wgmma", "fx_dw_wgmma")
 SASS_OPS = ("HGMMA", "UTMALDG", "HMMA")
-# the paged library's kernels (an instance per pool type), and the one
-# that must copy its pages by cp.async (LDGSTS) with no spill
-PAGED_BUILT = ("paged_chunk_tiled", "paged_decode_kernel")
-PAGED_ASYNC = "paged_chunk_tiled"
+# the paged library's kernels (an instance per pool type), each of which
+# must copy its pages by cp.async (LDGSTS) with no spill
+PAGED_BUILT = ("paged_chunk_tiled", "paged_decode_ring")
 PAGED_TYPES = {"IfE": "float", "I13__nv_bfloat16E": "bf16", "IaE": "int8"}
 # the port's kernels of a training step, as the profiler names them
 TRAIN_KERNELS = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma",
@@ -417,8 +428,8 @@ def library_kernels(_build, tool, lib_name, names, hopper):
 
 def paged_kernels(_build, tool):
     """{kernel<pool type>: registers, spill bytes, LDGSTS count} of the
-    paged library; raises if an instance of the chunk kernel spills or,
-    with cuobjdump, has no LDGSTS (cp.async) instruction."""
+    paged library; raises if an instance of a paged kernel is missing,
+    spills or, with cuobjdump, has no LDGSTS (cp.async) instruction."""
     lib = _build._target("paged_attention")
 
     def name(mangled):
@@ -436,11 +447,11 @@ def paged_kernels(_build, tool):
         for mangled, counts in sass_counts(tool, lib, ("LDGSTS",)).items():
             if name(mangled):
                 kernels.setdefault(name(mangled), {}).update(counts)
-    chunk = {k: v for k, v in kernels.items() if k.startswith(PAGED_ASYNC)}
-    if len(chunk) != len(PAGED_TYPES):
-        raise AssertionError(f"paged_attention: {PAGED_ASYNC} instances "
-                             f"missing from {sorted(kernels)}")
-    for k, rec in chunk.items():
+    want = {f"{k}<{v}>" for k in PAGED_BUILT for v in PAGED_TYPES.values()}
+    if not want <= set(kernels):
+        raise AssertionError(f"paged_attention: instances "
+                             f"{sorted(want - set(kernels))} missing")
+    for k, rec in kernels.items():
         if rec.get("spill_bytes", 0) or (tool and not rec.get("LDGSTS")):
             raise AssertionError(f"{k} spills or has no cp.async (LDGSTS): "
                                  f"{rec}")
@@ -455,8 +466,8 @@ def phase_build(_build):
     instructions from cuobjdump, and the paged kernels' registers, spills
     and cp.async (LDGSTS) counts. Fails if a bfloat16 flash or fused-head
     kernel lacks HGMMA or UTMALDG, has HMMA, or had its wgmma products
-    serialised (C7520), or if the paged chunk kernel spills or has no
-    LDGSTS."""
+    serialised (C7520), or if an instance of a paged kernel (chunk,
+    decode) spills or has no LDGSTS."""
     t0 = time.perf_counter()
     built = _build.build()
     seconds = time.perf_counter() - t0
@@ -484,21 +495,21 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def make_pools(torch, pd, dtype, gen, dev):
-    """Random K/V pools [POOL_PAGES, PAGE, H, DH] of ``dtype``. An int8
+def make_pools(torch, pd, dtype, gen, dev, page=PAGE):
+    """Random K/V pools [POOL_PAGES, page, H, DH] of ``dtype``. An int8
     pool holds random float32 rows as the port's own chunk write
     quantises them (layer seed 1), so its scales are real sidecars."""
-    pk = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen).to(dev)
-    pv = torch.randn(POOL_PAGES, PAGE, H, DH, generator=gen).to(dev)
+    pk = torch.randn(POOL_PAGES, page, H, DH, generator=gen).to(dev)
+    pv = torch.randn(POOL_PAGES, page, H, DH, generator=gen).to(dev)
     if dtype != torch.int8:
         return {"pool_k": pk.to(dtype), "pool_v": pv.to(dtype)}
-    pool = pd.serve_pool_init(POOL_PAGES, PAGE, H, DH, torch.int8, dev)
-    n = POOL_PAGES * PAGE
+    pool = pd.serve_pool_init(POOL_PAGES, page, H, DH, torch.int8, dev)
+    n = POOL_PAGES * page
     pool.update(kv_seed=1, kv_u=pd.kv_u_table(1, n, H, DH, dev))
     every = {**pool, "table": torch.arange(POOL_PAGES, dtype=torch.int32,
                                            device=dev)[None]}
     pd.paged_table_chunk_write(every, pk.reshape(1, n, H, DH),
-                               pv.reshape(1, n, H, DH), 0, PAGE)
+                               pv.reshape(1, n, H, DH), 0, page)
     return {k: pool[k] for k in ("pool_k", "pool_v", "scale_k", "scale_v")}
 
 
@@ -522,16 +533,31 @@ def make_case(torch, pd, dtype, npl, C, gen, dev, aligned=True):
     return q, cache, pos.to(dev, torch.int32)
 
 
-def run_kernel(pd, q, cache, pos, npl, C):
-    if C is None:
-        return pd.paged_attention(q, cache, pos, npl, PAGE)
-    return pd.paged_chunk_attention(q, cache, pos, npl, PAGE)
+def decode_edge_case(torch, pd, dtype, page, npl, key, gen, dev):
+    """A decode case at the decode kernel's edges: pools of ``page``-position
+    pages, a scattered table drawn with replacement, row 0 on the last live
+    page, row 1 on page 0 (warps 1-7 walk nothing), the others on random
+    live pages, each row on its page's ``key`` ("first" or "last") key."""
+    cache = make_pools(torch, pd, dtype, gen, dev, page)
+    cache["table"] = torch.randint(1, POOL_PAGES, (ROWS, npl),
+                                   generator=gen).to(dev, torch.int32)
+    q = torch.randn(ROWS, H, DH, generator=gen).to(dev)
+    pages = torch.randint(0, npl, (ROWS,), generator=gen)
+    pages[0], pages[1] = npl - 1, 0
+    pos = pages * page + (0 if key == "first" else page - 1)
+    return q, cache, pos.to(dev, torch.int32)
 
 
-def run_plain(pd, q, cache, pos, npl, C):
+def run_kernel(pd, q, cache, pos, npl, C, page=PAGE):
     if C is None:
-        return pd._paged_attention_ref(q, cache, pos, npl, PAGE)
-    return pd._paged_chunk_attention_ref(q, cache, pos, npl, PAGE)
+        return pd.paged_attention(q, cache, pos, npl, page)
+    return pd.paged_chunk_attention(q, cache, pos, npl, page)
+
+
+def run_plain(pd, q, cache, pos, npl, C, page=PAGE):
+    if C is None:
+        return pd._paged_attention_ref(q, cache, pos, npl, page)
+    return pd._paged_chunk_attention_ref(q, cache, pos, npl, page)
 
 
 def library_call(torch, q, cache, pos, npl, C):
@@ -640,14 +666,18 @@ def int8_planted_faults(torch, pd, gen, dev):
     return out
 
 
-def chunk_plain(torch, q, cache, pos, npl, drop_mod8=None, late_tile=False,
-                scale_lag=0):
+def paged_plain(torch, q, cache, pos, npl, drop_mod8=None, late_tile=False,
+                scale_lag=0, skip_last_page=False):
     """The chunk attention's plain arithmetic with an optional planted
     fault: keys of pages j = ``drop_mod8`` mod 8 masked out (one warp's
     pages); the last 16 queries' positions 16 too early (the last query
     tile at the wrong offset); on an int8 pool, page j's scales taken
     from the slot of page j - ``scale_lag`` (pages before ``scale_lag``
-    keep their own)."""
+    keep their own); each query's last visible page skipped (where it is
+    not page 0). A decode query [rows, H, DH] is a chunk of one."""
+    if q.dim() == 3:
+        return paged_plain(torch, q[:, :, None], cache, pos, npl, drop_mod8,
+                           late_tile, scale_lag, skip_last_page)[:, :, 0]
     rows, _, C, _ = q.shape
     tbl = cache["table"][:, :npl].long()
     L = npl * PAGE
@@ -670,17 +700,24 @@ def chunk_plain(torch, q, cache, pos, npl, drop_mod8=None, late_tile=False,
     ok = kpos[None, None, None, :] <= qpos[:, None, :, None]
     if drop_mod8 is not None:
         ok = ok & ((kpos // PAGE) % 8 != drop_mod8)[None, None, None, :]
+    if skip_last_page:
+        last = (qpos // PAGE)[:, :, None]  # [rows, C, 1]
+        ok = ok & (((kpos // PAGE)[None, None, :] != last)
+                   | (last == 0))[:, None]
     probs = torch.softmax(scores.masked_fill(~ok, -math.inf), -1)
     return torch.einsum("rhqk,rhkd->rhqd", probs, v)
 
 
-def chunk_planted_faults(torch, pd, gen, dev):
-    """The 1e-4 check that passes the chunk kernel must reject the plain
-    arithmetic with a fault aimed at one part of the kernel's design: one
-    warp's pages dropped, the last query tile at positions 16 too early
-    (C 256), each page's scales from the previous page of its warp's walk
-    (int8). The fault-free plain arithmetic (the controls) must pass.
-    Returns (faults, controls)."""
+def paged_planted_faults(torch, pd, gen, dev):
+    """The 1e-4 check that passes a paged kernel must reject the plain
+    arithmetic with a fault aimed at one part of the kernel's design. The
+    chunk kernel: one warp's pages dropped, the last query tile at
+    positions 16 too early (C 256), each page's scales from the previous
+    page of its warp's walk (int8). The decode kernel (C None, row 0 at the
+    last key of its 16 pages): one warp's pages dropped, each query's last
+    visible page skipped, each page's scales from the previous page of its
+    warp's walk (int8). The fault-free plain arithmetic (the controls) must
+    pass. Returns (faults, controls)."""
     faults, controls = [], []
     for fault, dtype, C, kw in (
             ("control", torch.float32, 16, {}),
@@ -688,26 +725,38 @@ def chunk_planted_faults(torch, pd, gen, dev):
             ("last_tile_16_early", torch.float32, 256, {"late_tile": True}),
             ("control_int8", torch.int8, 16, {}),
             ("scales_from_previous_page_of_warp", torch.int8, 16,
+             {"scale_lag": 8}),
+            ("decode_control", torch.float32, None, {}),
+            ("decode_warp_7_pages_dropped", torch.float32, None,
+             {"drop_mod8": 7}),
+            ("decode_last_page_skipped", torch.float32, None,
+             {"skip_last_page": True}),
+            ("decode_control_int8", torch.int8, None, {}),
+            ("decode_scales_from_previous_page_of_warp", torch.int8, None,
              {"scale_lag": 8})):
         q, cache, pos = make_case(torch, pd, dtype, NPG, C, gen, dev)
+        if C is None:
+            pos[0] = NPG * PAGE - 1
         got = run_kernel(pd, q, cache, pos, NPG, C)
-        err = (chunk_plain(torch, q, cache, pos, NPG, **kw) - got).abs()
+        err = (paged_plain(torch, q, cache, pos, NPG, **kw) - got).abs()
         err = err.max().item()
         rec = {"fault": fault, "C": C, "pool": str(dtype).split(".")[-1],
                "max_abs_err": err, "tol": TOL, "rejected": not err <= TOL}
-        control = fault.startswith("control")
+        control = "control" in fault
         (controls if control else faults).append(rec)
         if control == rec["rejected"]:
-            raise AssertionError(f"chunk planted fault {fault}: {rec}")
+            raise AssertionError(f"paged planted fault {fault}: {rec}")
     return faults, controls
 
 
-def chunk_reruns(torch, pd, gen, dev):
-    """The chunk kernel run twice on the same inputs gives the same bits
-    (the warps merge in a fixed order): C 16, C 256, the verify shape."""
+def paged_reruns(torch, pd, gen, dev):
+    """A paged kernel run twice on the same inputs gives the same bits (the
+    warps merge in a fixed order): the chunk kernel at C 16, C 256 and the
+    verify shape, the decode kernel (C None)."""
     out = []
     for dtype in (torch.float32, torch.int8):
-        for C, aligned in ((16, True), (256, True), (VERIFY_C, False)):
+        for C, aligned in ((16, True), (256, True), (VERIFY_C, False),
+                           (None, True)):
             q, cache, pos = make_case(torch, pd, dtype, NPG, C, gen, dev,
                                       aligned)
             a = run_kernel(pd, q, cache, pos, NPG, C)
@@ -716,7 +765,7 @@ def chunk_reruns(torch, pd, gen, dev):
             out.append({"C": C, "pool": str(dtype).split(".")[-1],
                         "reruns_bitwise_equal": same})
             if not same:
-                raise AssertionError(f"chunk kernel reruns differ: C={C} "
+                raise AssertionError(f"paged kernel reruns differ: C={C} "
                                      f"{dtype}")
     return out
 
@@ -739,32 +788,43 @@ def phase_kernels(torch, pd, dev):
               for C, npl, aligned in ((1, 16, False), (17, 16, True),
                                       (33, 16, False), (1, 9, False),
                                       (16, 9, True), (33, 9, True))]
-    for dtype, C, npl, aligned in cases:
+
+    def check(dtype, C, npl, page, starts, q, cache, pos):
         dname = str(dtype).split(".")[-1]
         name = "paged_attention" if C is None else "paged_chunk_attention"
-        q, cache, pos = make_case(torch, pd, dtype, npl, C, gen, dev,
-                                  aligned)
-        got = run_kernel(pd, q, cache, pos, npl, C)
-        want = run_plain(pd, q, cache, pos, npl, C)
+        got = run_kernel(pd, q, cache, pos, npl, C, page)
+        want = run_plain(pd, q, cache, pos, npl, C, page)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ok = math.isfinite(err) and err <= TOL
         checks.append({"kernel": name, "pool": dname, "npl": npl, "C": C,
-                       "starts": "page-aligned" if aligned else "unaligned",
-                       "max_abs_err": err, "tol": TOL, "ok": ok})
+                       "page": page, "starts": starts, "max_abs_err": err,
+                       "tol": TOL, "ok": ok})
         if not ok:
-            raise AssertionError(f"{name} {dname} pool npl={npl} C={C}: "
-                                 f"max abs err {err} > {TOL}")
+            raise AssertionError(f"{name} {dname} pool page={page} npl={npl} "
+                                 f"C={C}: max abs err {err} > {TOL}")
         if dtype == torch.int8:
             worst[name + "_int8"] = max(worst[name + "_int8"], err)
         elif dtype == torch.float32:
             worst[name] = max(worst[name], err)
+
+    for dtype, C, npl, aligned in cases:
+        check(dtype, C, npl, PAGE, "page-aligned" if aligned else "unaligned",
+              *make_case(torch, pd, dtype, npl, C, gen, dev, aligned))
+    # the decode kernel's edges: pages of 8 (one partial chunk), 16 and 32
+    # (two chunks), npl 1, 9 and 16, positions on a page's first and last
+    # key, a row whose warps 1-7 walk nothing
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for page, npl, key in DECODE_EDGES:
+            check(dtype, None, npl, page, f"{key} key of a page",
+                  *decode_edge_case(torch, pd, dtype, page, npl, key, gen,
+                                    dev))
     faults = int8_planted_faults(torch, pd, gen, dev)
-    chunk_faults, controls = chunk_planted_faults(torch, pd, gen, dev)
+    design_faults, controls = paged_planted_faults(torch, pd, gen, dev)
     emit({"phase": "kernels", "checks": checks,
-          "planted_faults": faults + chunk_faults,
+          "planted_faults": faults + design_faults,
           "fault_free_controls": controls,
-          "chunk_reruns": chunk_reruns(torch, pd, gen, dev)})
+          "paged_reruns": paged_reruns(torch, pd, gen, dev)})
 
     # timing at the deepest shapes the main path's pool can hold, float32
     # and int8 pools — these are the kernels table's. Decode: the 8 rows
@@ -1098,8 +1158,9 @@ def phase_serve_levers(torch, pd, dev):
 
 def phase_profile(torch, dev):
     """Where a serving run's time goes: the same main path (warm kernels,
-    8 requests) under torch.profiler — device time by kernel name, and
-    the device's busy share of the profiled wall time."""
+    8 requests) under torch.profiler — device time by kernel name, each
+    paged kernel instance's calls and device ms, and the device's busy
+    share of the profiled wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from ddlbench_tpu_torch.models.zoo import get_model
@@ -1121,6 +1182,14 @@ def phase_profile(torch, dev):
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    paged = {}  # each paged kernel instance, as the profiler names it
+    for e in kern:
+        name = next((k for k in PAGED_BUILT if k in e.key), None)
+        if name:
+            name += e.key[e.key.index(name) + len(name):].split("(")[0]
+            rec = paged.setdefault(name, {"calls": 0, "ms": 0.0})
+            rec["calls"] += e.count
+            rec["ms"] += e.self_device_time_total / 1e3
     st = server.engines[0].stats
     emit({"phase": "profile", "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if kern else None,
@@ -1128,6 +1197,7 @@ def phase_profile(torch, dev):
           "decode_calls": st["decode_calls"],
           "prefill_calls": st["prefill_calls"],
           "kernel_launches": sum(e.count for e in kern),
+          "paged_kernels": paged,
           "top_kernels": [{"name": e.key[:80], "calls": e.count,
                            "ms": e.self_device_time_total / 1e3}
                           for e in top]})

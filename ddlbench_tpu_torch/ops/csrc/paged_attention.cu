@@ -2,7 +2,7 @@
 //
 // Two kernels, each replacing a Pallas TPU kernel of the JAX package:
 //
-//   paged_decode_kernel  <- ddlbench_tpu/ops/paged_decode.py
+//   paged_decode_ring    <- ddlbench_tpu/ops/paged_decode.py
 //                           _paged_attn_kernel (:318), launched by
 //                           paged_attention (:361): single-query
 //                           flash-decode, one query per (row, head) at
@@ -28,42 +28,49 @@
 // (query, key); over an int8 pool (a quarter of the bytes) a 16-query
 // chunk's float32 operations, at 67 TFLOP/s, bound it instead.
 //
-// Decode (simple, not yet fast): one block per (row, head). The block's
-// kWarps warps split the live pages (warp w takes pages w, w + kWarps, ...)
-// with an online-softmax state each, merged at the end (attend). A warp
-// folds kKeys = 16 keys of a page at a time with two lanes per key: lane
-// (key, half) dots half of the head dim (vector loads of one key row's
-// half), one shuffle adds the halves, and four shuffles give the keys' max
-// and sum. For P.V each lane owns dh/32 adjacent output dims and walks the
-// 16 keys with independent, coalesced V-row loads. The loop stops at the
-// last page the query can see: later pages are fully masked and contribute
-// exactly zero.
+// Both kernels walk pages the same way. Warp w of a block's kWarps takes
+// the live pages w, w + 8, ... up to the last page its queries can see (later
+// pages are fully masked and contribute exactly zero), one 16-key chunk at
+// a time (a page of 32 is two chunks, a page of 8 one partial chunk),
+// through a ring of stages of its own filled by 16-byte cp.async copies
+// (copy_chunk): a chunk's K rows, V rows and, on an int8 pool, its 16 K and
+// 16 V scales. Rows past a partial chunk are zero-filled by the copy (V 0,
+// scale 0) and their probabilities are 0. A bfloat16 or int8 chunk is first
+// dequantised once into a float chunk of the warp's (dequant_chunk; int8 by
+// byte permute and a subtract, not the quarter-rate I2F). Rows in shared
+// memory are padded by 16 bytes against bank conflicts. A key a query
+// cannot see weighs an explicit 0, so a warp with no visible key holds m =
+// -1e30, l = 0, acc = 0. The warps' states are merged in warp order at the
+// end, so reruns give the same bits. No tensor cores (the query and the
+// reference's arithmetic are float32), no TMA (a head's slice of a page is
+// 16 rows 2 KiB apart, and a tensor map over the pool would be encoded at
+// every call on a host-bound path), no split across blocks.
+//
+// Decode (paged_decode_ring): one block per (row, head). At the serving
+// shape a row holds 4-16 pages, so a warp walks at most two: the time is
+// latency, not bandwidth, and the design counts trips to device memory.
+// The block copies its query, pos[r] and the row's first kTable table
+// entries into shared memory in one trip; then each warp fills its whole
+// ring (kStages chunks: every chunk of a two-page walk) before it computes
+// the first, and refills a stage as soon as it is read. The scores: lane
+// (key, half) dots half of key `key`'s row with its half of the query (kept
+// in registers), one shuffle adds the halves, four shuffles give the
+// chunk's max and sum. P.V: each lane owns 2 adjacent output dims and walks
+// the 16 keys, each probability brought by a shuffle.
 //
 // Chunk (paged_chunk_tiled): one block per (row, head, tile of up to
 // kTileQ = 16 chunk queries), so each live page of a head is read from
 // device memory once per tile and shared by every query of the tile (the
-// TPU kernel's grid step likewise attends all C queries against one page);
-// the parent design, one block per query, read every page C times through
-// L2. The block stages its queries and its row's table entries in shared
-// memory. Warp w walks pages w, w + 8, ... up to the tile's last visible
-// page, one 16-key chunk at a time (a page of 32 is two chunks, a page of 8
-// one partial chunk), through a ring of kStages stages of its own filled by
-// 16-byte cp.async copies, so the next chunk loads while the current one is
-// computed. A bfloat16 or int8 chunk is first dequantised once into a float
-// chunk of the warp's. The arithmetic is float32 SIMT, and what bounds a
-// block is shared-memory loads: so the scores are register-blocked, lane
-// (half, cg, kg) dotting queries cg + 4i against keys kg + 4j over half the
-// dims (every value loaded feeds 4 products); one shuffle exchange adds the
-// halves, and each lane then keeps the online softmax (m, l) of two queries
-// over the chunk's 16 keys, reduced over 4 lanes by shuffles. For P.V each
-// lane owns 4 dims of 8 queries and reads the probabilities and the V rows
-// from shared memory. The warps' states are merged in warp order at the
-// end, so reruns give the same bits. Rows past a partial chunk are
-// zero-filled by the copy (V 0, scale 0) and their probabilities are 0.
-// Rows in shared memory are padded by 16 bytes against bank conflicts. No
-// tensor cores (the query and the reference's arithmetic are float32), no
-// TMA (a tensor map over the pool would be encoded at every call on a
-// host-bound path), no split across blocks.
+// TPU kernel's grid step likewise attends all C queries against one page).
+// The block stages its queries and its row's table entries in shared
+// memory; each warp keeps kStages - 1 chunks in flight ahead of the one it
+// computes. What bounds a block is shared-memory loads: so the scores are
+// register-blocked, lane (half, cg, kg) dotting queries cg + 4i against
+// keys kg + 4j over half the dims (every value loaded feeds 4 products);
+// one shuffle exchange adds the halves, and each lane then keeps the online
+// softmax (m, l) of two queries over the chunk's 16 keys, reduced over 4
+// lanes by shuffles. For P.V each lane owns 4 dims of 8 queries and reads
+// the probabilities and the V rows from shared memory.
 //
 // Types: the pool element type KT is float, __nv_bfloat16 or int8_t; the
 // query and output are float (the serving model runs in float32), and
@@ -73,14 +80,12 @@
 //
 // The int8 pool (dtype code 2) replaces the int8 branches of the same two
 // TPU kernels (paged_decode.py:323-340 and :714-731, scale blocks :398-402
-// and :805-809): each key and value row is dequantised as it is used,
-// k[d] = float(int8) * scale_k[slot * page + p] (the same for v), before
-// the dot product or the P.V update uses it: the TPU kernels' arithmetic.
-// The sidecars are [n_pages, page] float32; only slots of the row's live
-// pages are read (the chunk kernel copies a chunk's 16 K and 16 V scales
-// into its ring stage with the rows). Masked keys inside the last visible
-// page (stale rejected-draft bytes, or zero scales) dequantise to finite
-// values and weigh 0.
+// and :805-809): each key and value row is dequantised before use, k[d] =
+// float(int8) * scale_k[slot * page + p] (the same for v): the TPU kernels'
+// arithmetic. The sidecars are [n_pages, page] float32; only slots of the
+// row's live pages are read. Masked keys inside the last visible page
+// (stale rejected-draft bytes, or zero scales) dequantise to finite values
+// and weigh 0.
 //
 // Plain C interface, bound with ctypes: each launcher returns
 // cudaGetLastError() and launches on the stream it is given.
@@ -97,49 +102,22 @@ namespace {
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kWarps = 8;  // warps of one block, splitting the pages
-constexpr int kKeys = 16;  // keys a warp folds at once (two lanes each)
+constexpr int kKeys = 16;  // keys of one chunk of a warp's walk
 constexpr int kDh = 64;    // head dim of every transformer variant
 constexpr int kTileQ = 16;  // chunk queries of one block
 constexpr int kStages = 2;  // cp.async ring depth of one warp
-constexpr int kTable = 2048;  // table entries a chunk block stages
+constexpr int kTable = 2048;  // table entries a block stages
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f32(int8_t x) {
-  return static_cast<float>(x);
-}
-
-// N consecutive elements at p (aligned to their byte size, 2 to 16) as
-// float, in vector loads of up to 16 bytes.
-template <typename T, int N>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  constexpr int kBytes = N * static_cast<int>(sizeof(T));
-  constexpr int kChunk = kBytes >= 16 ? 16 : kBytes;
-  constexpr int kPer = kChunk / static_cast<int>(sizeof(T));
-  static_assert(kBytes % kChunk == 0, "vector width");
+// kDh / 2 bfloat16 values at p (16-byte aligned) as float
+__device__ __forceinline__ void load_bf16_half_row(
+    const __nv_bfloat16* p, float (&out)[kDh / 2]) {
 #pragma unroll
-  for (int i = 0; i < kBytes / kChunk; ++i) {
-    T e[kPer];
-    if constexpr (kChunk == 16) {
-      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
-      memcpy(e, &u, 16);
-    } else if constexpr (kChunk == 8) {
-      const uint2 u = reinterpret_cast<const uint2*>(p)[i];
-      memcpy(e, &u, 8);
-    } else if constexpr (kChunk == 4) {
-      const unsigned u = reinterpret_cast<const unsigned*>(p)[i];
-      memcpy(e, &u, 4);
-    } else {
-      // an int8 lane's two value dims
-      static_assert(kChunk == 2, "vector width");
-      const unsigned short u = reinterpret_cast<const unsigned short*>(p)[i];
-      memcpy(e, &u, 2);
-    }
+  for (int i = 0; i < kDh / 16; ++i) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+    __nv_bfloat16 e[8];
+    memcpy(e, &u, 16);
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) out[i * kPer + k] = to_f32(e[k]);
+    for (int k = 0; k < 8; ++k) out[8 * i + k] = __bfloat162float(e[k]);
   }
 }
 
@@ -173,146 +151,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One query (q: dh elements, at stream position qpos) against pages
-// [0, n_live) of one table row, for one head; writes dh outputs to o.
-// Key row p of the page in slot s starts at pool + ((s * page + p) * H + h)
-// * kDh; on an int8 pool its scale is sk[s * page + p] (and sv[...] for
-// the value row). Shared memory: kWarps * (kDh + 2) floats.
-template <typename KT>
-__device__ __forceinline__ void attend(const float* __restrict__ q,
-                                       const KT* __restrict__ pool_k,
-                                       const KT* __restrict__ pool_v,
-                                       const float* __restrict__ sk,
-                                       const float* __restrict__ sv,
-                                       const int* __restrict__ trow, int H,
-                                       int h, int page, int n_live, int qpos,
-                                       float scale, float* __restrict__ o,
-                                       float* smem) {
-  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  constexpr int kHalf = kDh / 2;  // dims one lane dots per key
-  constexpr int kOwn = kDh / 32;  // output dims one lane owns
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int key = lane & (kKeys - 1);
-  const int half = lane >> 4;
-  const long stride = static_cast<long>(H) * kDh;  // between key rows
-
-  float qv[kHalf];
-  load_vec<float, kHalf>(q + half * kHalf, qv);
-  float m = kNegInf, l = 0.f;
-  float acc[kOwn];
-#pragma unroll
-  for (int i = 0; i < kOwn; ++i) acc[i] = 0.f;
-
-  for (int j = warp; j < n_live; j += kWarps) {
-    const long slot_row = static_cast<long>(trow[j]) * page;  // sidecar row
-    const long page_base = (slot_row * H + h) * kDh;
-    for (int p0 = 0; p0 < page; p0 += kKeys) {
-      const int n_keys = min(kKeys, page - p0);
-      const long base = page_base + p0 * stride;
-      // scores: lane (key, half) dots its half of the key row
-      float s = 0.f;
-      float vscale = 1.f;  // lane `key`'s value-row scale (int8 pools)
-      if (key < n_keys) {
-        float kv[kHalf];
-        load_vec<KT, kHalf>(pool_k + base + key * stride + half * kHalf, kv);
-        if constexpr (kQuant) {
-          const float ks = sk[slot_row + p0 + key];
-          vscale = sv[slot_row + p0 + key];
-#pragma unroll
-          for (int d = 0; d < kHalf; ++d) kv[d] *= ks;
-        }
-#pragma unroll
-        for (int d = 0; d < kHalf; ++d) s += qv[d] * kv[d];
-      }
-      s += __shfl_xor_sync(kFullMask, s, 16);
-      const int kpos = j * page + p0 + key;
-      s = (key < n_keys && kpos <= qpos) ? s * scale : kNegInf;
-      // the 16 keys' max and sum (each value sits in both halves)
-      float m_blk = s;
-#pragma unroll
-      for (int x = 8; x > 0; x >>= 1)
-        m_blk = fmaxf(m_blk, __shfl_xor_sync(kFullMask, m_blk, x));
-      const float m_new = fmaxf(m, m_blk);
-      const float alpha = expf(m - m_new);
-      const float e = expf(s - m_new);
-      float l_blk = e;
-#pragma unroll
-      for (int x = 8; x > 0; x >>= 1)
-        l_blk += __shfl_xor_sync(kFullMask, l_blk, x);
-      l = alpha * l + l_blk;
-      m = m_new;
-#pragma unroll
-      for (int i = 0; i < kOwn; ++i) acc[i] *= alpha;
-      // P.V: every lane walks the keys over its own dims
-#pragma unroll
-      for (int p = 0; p < kKeys; ++p) {
-        const float ep = __shfl_sync(kFullMask, e, p);
-        float vs = 1.f;
-        if constexpr (kQuant) vs = __shfl_sync(kFullMask, vscale, p);
-        if (p < n_keys) {
-          float vv[kOwn];
-          load_vec<KT, kOwn>(pool_v + base + p * stride + lane * kOwn, vv);
-          if constexpr (kQuant) {
-#pragma unroll
-            for (int i = 0; i < kOwn; ++i) vv[i] *= vs;
-          }
-#pragma unroll
-          for (int i = 0; i < kOwn; ++i) acc[i] += ep * vv[i];
-        }
-      }
-    }
-  }
-
-  // merge the warps' states: m = max m_w; l, acc rescaled by exp(m_w - m).
-  // A warp left without pages holds m = -1e30, l = 0, acc = 0 and adds 0.
-  float* sacc = smem;              // [kWarps][kDh]
-  float* sml = smem + kWarps * kDh;  // [kWarps][2]: m, l
-#pragma unroll
-  for (int i = 0; i < kOwn; ++i) sacc[warp * kDh + lane * kOwn + i] = acc[i];
-  if (lane == 0) {
-    sml[2 * warp] = m;
-    sml[2 * warp + 1] = l;
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < kDh; d += blockDim.x) {
-    float m_all = kNegInf;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sml[2 * w]);
-    float l_all = 0.f, od = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(sml[2 * w] - m_all);
-      l_all += f * sml[2 * w + 1];
-      od += f * sacc[w * kDh + d];
-    }
-    o[d] = od / fmaxf(l_all, 1e-20f);
-  }
-}
-
-// q, out: [rows, H, dh]; pools: [n_pages, page, H, dh]; table: [rows,
-// tstride] int32; pos: [rows] int32. One block per (row, head).
-template <typename KT>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_kernel(const float* __restrict__ q,
-                        const KT* __restrict__ pool_k,
-                        const KT* __restrict__ pool_v,
-                        const float* __restrict__ sk,
-                        const float* __restrict__ sv,
-                        const int* __restrict__ table,
-                        const int* __restrict__ pos, float* __restrict__ out,
-                        int H, int page, int npl, int tstride, float scale) {
-  __shared__ float smem[kWarps * (kDh + 2)];
-  const int r = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int t = pos[r];
-  const int n_live = min(npl, t / page + 1);
-  const long qo = static_cast<long>(blockIdx.x) * kDh;
-  attend<KT>(q + qo, pool_k, pool_v, sk, sv,
-             table + static_cast<long>(r) * tstride, H, h, page, n_live, t,
-             scale, out + qo, smem);
-}
-
 // Four int8 values packed in w (little-endian) as float, exactly, without
 // the quarter-rate integer conversion: the float with bit pattern
 // 0x4B000000 | (b ^ 0x80) is 2^23 + b + 128.
@@ -338,7 +176,7 @@ __device__ __forceinline__ void load_half_row(const KT* p,
       int8x4_to_f32(u.w, out + 16 * i + 12);
     }
   } else {
-    load_vec<KT, kDh / 2>(p, out);
+    load_bf16_half_row(p, out);
   }
 }
 
@@ -356,8 +194,9 @@ __device__ __forceinline__ void load_half_row(const KT* p,
 //             looked up in device memory)
 // Every row is padded by 16 bytes, so that 8 lanes touching 8 rows at once
 // hit 8 different bank groups. A float32 stage has the float chunk's
-// layout (kPoolRow = kRow floats), so the float32 kernel computes on its
-// ring stages directly.
+// layout (kPoolRow = kRow floats), so the float32 kernels compute on their
+// ring stages directly. The decode kernel's stages and float chunks have
+// the same layout (kStage, kChunkF32).
 template <typename KT>
 struct ChunkSmem {
   static constexpr bool kQuant = std::is_same<KT, int8_t>::value;
@@ -380,6 +219,78 @@ struct ChunkSmem {
   static_assert(!kF32 || kPoolRow == kRow * 4, "float32 stage layout");
 };
 
+// Chunk i of warp `warp`'s walk (page warp + kWarps * (i / nch), keys
+// 16 * (i % nch) .., head h), copied by the warp's lanes into ring stage st
+// with 16-byte cp.async copies; rows past the page's end (and their scales)
+// are zero-filled. The page's slot is stab[j] for the first kTable pages,
+// trow[j] in device memory past them.
+template <typename KT>
+__device__ __forceinline__ void copy_chunk(
+    unsigned char* st, int i, int nch, int warp, int lane, const int* stab,
+    const int* __restrict__ trow, const KT* __restrict__ pool_k,
+    const KT* __restrict__ pool_v, const float* __restrict__ sk,
+    const float* __restrict__ sv, int H, int h, int page) {
+  using L = ChunkSmem<KT>;
+  constexpr int kPieces = kDh * sizeof(KT) / 16;  // 16-byte copies a row
+  static_assert(kKeys * kPieces % 32 == 0, "whole copies a lane");
+  const long stride = static_cast<long>(H) * kDh;  // elements between rows
+  const int p0 = kKeys * (i % nch);
+  const int n_keys = min(kKeys, page - p0);
+  const int j = warp + kWarps * (i / nch);
+  const long srow = static_cast<long>(j < kTable ? stab[j] : trow[j]) *
+                    page + p0;  // sidecar index of the chunk's key 0
+  const char* gk = reinterpret_cast<const char*>(pool_k + (srow * H + h) *
+                                                 kDh);
+  const char* gv = reinterpret_cast<const char*>(pool_v + (srow * H + h) *
+                                                 kDh);
+#pragma unroll
+  for (int y = 0; y < kKeys * kPieces / 32; ++y) {
+    const int row = (lane + 32 * y) / kPieces;
+    const int piece = (lane + 32 * y) % kPieces;
+    const bool ok = row < n_keys;
+    const long off = (ok ? row * stride : 0) * sizeof(KT) + piece * 16;
+    cp_async16(st + row * L::kPoolRow + piece * 16, gk + off, ok ? 16 : 0);
+    cp_async16(st + (kKeys + row) * L::kPoolRow + piece * 16, gv + off,
+               ok ? 16 : 0);
+  }
+  if constexpr (L::kQuant) {  // lanes 0-15 the K scales, 16-31 the V
+    const int key = lane & (kKeys - 1);
+    const bool ok = key < n_keys;
+    cp_async4(st + 2 * kKeys * L::kPoolRow + lane * 4,
+              (lane >> 4 ? sv : sk) + srow + (ok ? key : 0), ok ? 4 : 0);
+  }
+}
+
+// The bfloat16 or int8 chunk in ring stage st as float into cv: K rows,
+// then V rows, kRow floats apart. Lane (half, row) converts its half K row
+// and half V row once, an int8 row times its scale.
+template <typename KT>
+__device__ __forceinline__ void dequant_chunk(const unsigned char* st,
+                                              float* cv, int lane) {
+  using L = ChunkSmem<KT>;
+  constexpr int kHalf = kDh / 2;
+  const float* ssc = reinterpret_cast<const float*>(
+      st + 2 * kKeys * L::kPoolRow);  // K scales, then V scales
+  const int row = lane & (kKeys - 1), hh = lane >> 4;
+#pragma unroll
+  for (int kv = 0; kv < 2; ++kv) {  // K, then V
+    float x[kHalf];
+    load_half_row<KT>(reinterpret_cast<const KT*>(
+                          st + (kv * kKeys + row) * L::kPoolRow) + hh * kHalf,
+                      x);
+    if constexpr (L::kQuant) {
+      const float s = ssc[kv * kKeys + row];
+#pragma unroll
+      for (int d = 0; d < kHalf; ++d) x[d] *= s;
+    }
+#pragma unroll
+    for (int d = 0; d < kHalf / 4; ++d)
+      reinterpret_cast<float4*>(cv + (kv * kKeys + row) * L::kRow +
+                                hh * kHalf)[d] =
+          make_float4(x[4 * d], x[4 * d + 1], x[4 * d + 2], x[4 * d + 3]);
+  }
+}
+
 // q, out: [rows, H, C, dh]; start: [rows] int32. One block per
 // (row, head, tile of kTileQ queries): blockIdx.x = (r * H + h) * n_tiles
 // + t. Block size kWarps * 32; dynamic shared memory ChunkSmem<KT>::kBytes.
@@ -398,10 +309,8 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   using L = ChunkSmem<KT>;
   constexpr int kHalf = kDh / 2;
   constexpr int kR4 = L::kRow / 4;        // float4s between padded rows
-  constexpr int kPieces = kDh * sizeof(KT) / 16;  // 16-byte copies a row
   static_assert(kTileQ * kDh / 4 == kWarps * 32, "one float4 a thread");
   static_assert(kTileQ == 16 && kKeys == 16, "lane layouts");
-  static_assert(kKeys * kPieces % 32 == 0, "whole copies a lane");
   extern __shared__ __align__(16) unsigned char smem[];
   float* sq = reinterpret_cast<float*>(smem);
   float* spb = reinterpret_cast<float*>(smem + L::kQ);
@@ -438,44 +347,14 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   const int hd = lane >> 4, cg = (lane >> 2) & 3, kg = lane & 3;
   // P.V: lane (qh, dg) owns dims 4 dg .. 4 dg + 3 of queries 8 qh .. 8 qh + 7
   const int qh = lane >> 4, dg = lane & 15;
-  const long stride = static_cast<long>(H) * kDh;  // elements between rows
   const int nch = (page + kKeys - 1) / kKeys;      // chunks a page
   const int n_pages = n_live > warp ? (n_live - warp - 1) / kWarps + 1 : 0;
   const int n_chunks = n_pages * nch;
   unsigned char* wring = ring + warp * kStages * L::kStage;
   float* pb = spb + warp * L::kPbWarp;  // [kKeys][kTileQ], then alphas
-
-  // chunk i of this warp's walk (page warp + kWarps * (i / nch), keys
-  // 16 * (i % nch) ..) into stage i % kStages; rows past the page's end
-  // (and their scales) are zero-filled
   auto issue = [&](int i) {
-    const int p0 = kKeys * (i % nch);
-    const int n_keys = min(kKeys, page - p0);
-    const int j = warp + kWarps * (i / nch);
-    const long srow = static_cast<long>(j < kTable ? stab[j] : trow[j]) *
-                      page + p0;  // sidecar index of the chunk's key 0
-    const char* gk = reinterpret_cast<const char*>(pool_k + (srow * H + h) *
-                                                   kDh);
-    const char* gv = reinterpret_cast<const char*>(pool_v + (srow * H + h) *
-                                                   kDh);
-    unsigned char* st = wring + (i % kStages) * L::kStage;
-#pragma unroll
-    for (int y = 0; y < kKeys * kPieces / 32; ++y) {
-      const int row = (lane + 32 * y) / kPieces;
-      const int piece = (lane + 32 * y) % kPieces;
-      const bool ok = row < n_keys;
-      const long off = (ok ? row * stride : 0) * sizeof(KT) + piece * 16;
-      cp_async16(st + row * L::kPoolRow + piece * 16, gk + off,
-                 ok ? 16 : 0);
-      cp_async16(st + (kKeys + row) * L::kPoolRow + piece * 16, gv + off,
-                 ok ? 16 : 0);
-    }
-    if constexpr (L::kQuant) {  // lanes 0-15 the K scales, 16-31 the V
-      const int key = lane & (kKeys - 1);
-      const bool ok = key < n_keys;
-      cp_async4(st + 2 * kKeys * L::kPoolRow + lane * 4,
-                (lane >> 4 ? sv : sk) + srow + (ok ? key : 0), ok ? 4 : 0);
-    }
+    copy_chunk<KT>(wring + (i % kStages) * L::kStage, i, nch, warp, lane,
+                   stab, trow, pool_k, pool_v, sk, sv, H, h, page);
   };
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // queries kept
@@ -500,37 +379,9 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
     const float* kf;
     if constexpr (L::kF32) {
       kf = reinterpret_cast<const float*>(st);
-    } else {  // lane (half, row) dequantises its half K and V rows once
+    } else {
       float* cv = sconv + warp * L::kChunkF32;
-      const float* ssc = reinterpret_cast<const float*>(
-          st + 2 * kKeys * L::kPoolRow);  // K scales, then V scales
-      const int row = lane & (kKeys - 1), hh = lane >> 4;
-      float x[kHalf];
-      load_half_row<KT>(
-          reinterpret_cast<const KT*>(st + row * L::kPoolRow) + hh * kHalf,
-          x);
-      if constexpr (L::kQuant) {
-        const float ks = ssc[row];
-#pragma unroll
-        for (int d = 0; d < kHalf; ++d) x[d] *= ks;
-      }
-#pragma unroll
-      for (int d = 0; d < kHalf / 4; ++d)
-        reinterpret_cast<float4*>(cv + row * L::kRow + hh * kHalf)[d] =
-            make_float4(x[4 * d], x[4 * d + 1], x[4 * d + 2], x[4 * d + 3]);
-      load_half_row<KT>(reinterpret_cast<const KT*>(
-                            st + (kKeys + row) * L::kPoolRow) + hh * kHalf,
-                        x);
-      if constexpr (L::kQuant) {
-        const float vs = ssc[kKeys + row];
-#pragma unroll
-        for (int d = 0; d < kHalf; ++d) x[d] *= vs;
-      }
-#pragma unroll
-      for (int d = 0; d < kHalf / 4; ++d)
-        reinterpret_cast<float4*>(cv + (kKeys + row) * L::kRow +
-                                  hh * kHalf)[d] =
-            make_float4(x[4 * d], x[4 * d + 1], x[4 * d + 2], x[4 * d + 3]);
+      dequant_chunk<KT>(st, cv, lane);
       __syncwarp();
       kf = cv;
     }
@@ -680,6 +531,202 @@ __global__ void __launch_bounds__(kWarps * 32, 1)
   }
 }
 
+// Shared memory of paged_decode_ring<KT>, in bytes, in this order:
+//   query     [kDh] float, then pos[r] (padded to 16 bytes)
+//   per warp  (bfloat16 and int8 pools) the current chunk as float
+//   ring      per warp kStages stages (ChunkSmem's); after the walk, the
+//             merge area [kWarps][kDh] acc, [kWarps][2] m and l
+//   table     the row's first kTable entries, int
+template <typename KT>
+struct DecodeSmem {
+  using L = ChunkSmem<KT>;
+  static constexpr int kQ = kDh * 4 + 16;
+  static constexpr int kRing = kWarps * kStages * L::kStage;
+  static constexpr int kMerge = kWarps * (kDh + 2) * 4;
+  static constexpr int kRingOrMerge = kRing > kMerge ? kRing : kMerge;
+  static constexpr int kTableAt = kQ + L::kConv + kRingOrMerge;
+  static constexpr int kBytes = kTableAt + 4 * kTable;
+  static_assert(kQ % 16 == 0 && kTableAt % 16 == 0, "16-byte alignment");
+};
+
+// q, out: [rows, H, dh]; pools: [n_pages, page, H, dh]; table: [rows,
+// tstride] int32; pos: [rows] int32. One block per (row, head):
+// blockIdx.x = r * H + h. Block size kWarps * 32; dynamic shared memory
+// DecodeSmem<KT>::kBytes, so one block per SM.
+template <typename KT>
+__global__ void __launch_bounds__(kWarps * 32, 1)
+    paged_decode_ring(const float* __restrict__ q,
+                      const KT* __restrict__ pool_k,
+                      const KT* __restrict__ pool_v,
+                      const float* __restrict__ sk,
+                      const float* __restrict__ sv,
+                      const int* __restrict__ table,
+                      const int* __restrict__ pos, float* __restrict__ out,
+                      int H, int page, int npl, int tstride, float scale) {
+  using L = ChunkSmem<KT>;
+  using D = DecodeSmem<KT>;
+  constexpr int kHalf = kDh / 2;  // dims one lane dots per key
+  static_assert(kKeys == 16 && kDh == 64, "lane layouts");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sq = reinterpret_cast<float*>(smem);
+  int* spos = reinterpret_cast<int*>(smem + kDh * 4);
+  float* sconv = reinterpret_cast<float*>(smem + D::kQ);
+  unsigned char* ring = smem + D::kQ + L::kConv;
+  int* stab = reinterpret_cast<int*>(smem + D::kTableAt);
+
+  const int r = blockIdx.x / H;
+  const int h = blockIdx.x % H;
+  const long qo = static_cast<long>(blockIdx.x) * kDh;
+  const int* trow = table + static_cast<long>(r) * tstride;
+  // one trip: the query, pos[r] and the row's first table entries
+  if (threadIdx.x < kDh / 4)
+    cp_async16(sq + 4 * threadIdx.x, q + qo + 4 * threadIdx.x, 16);
+  else if (threadIdx.x == kDh / 4)
+    cp_async4(spos, pos + r, 4);
+  for (int j = threadIdx.x; j < min(npl, kTable); j += blockDim.x)
+    cp_async4(stab + j, trow + j, 4);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int qpos = *spos;
+  const int n_live = min(npl, qpos / page + 1);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int key = lane & (kKeys - 1), half = lane >> 4;  // scores
+  const int nch = (page + kKeys - 1) / kKeys;  // chunks a page
+  const int n_pages = n_live > warp ? (n_live - warp - 1) / kWarps + 1 : 0;
+  const int n_chunks = n_pages * nch;
+  unsigned char* wring = ring + warp * kStages * L::kStage;
+  auto issue = [&](int i) {
+    copy_chunk<KT>(wring + (i % kStages) * L::kStage, i, nch, warp, lane,
+                   stab, trow, pool_k, pool_v, sk, sv, H, h, page);
+  };
+  // the whole ring in flight before the first chunk is computed
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_chunks) issue(i);
+    cp_async_commit();
+  }
+
+  float qv[kHalf];  // this lane's half of the query
+#pragma unroll
+  for (int d = 0; d < kHalf / 4; ++d) {
+    const float4 x = reinterpret_cast<const float4*>(sq + half * kHalf)[d];
+    qv[4 * d] = x.x;
+    qv[4 * d + 1] = x.y;
+    qv[4 * d + 2] = x.z;
+    qv[4 * d + 3] = x.w;
+  }
+  float m = kNegInf, l = 0.f;
+  float2 acc = make_float2(0.f, 0.f);  // output dims 2 lane, 2 lane + 1
+
+  for (int i = 0; i < n_chunks; ++i) {
+    cp_async_wait<kStages - 1>();  // this lane's copies of chunk i
+    __syncwarp();                  // ... and every lane's
+    unsigned char* st = wring + (i % kStages) * L::kStage;
+    // the chunk's K rows as float, kRow apart, then its V rows
+    const float* kf;
+    if constexpr (L::kF32) {
+      kf = reinterpret_cast<const float*>(st);
+    } else {  // converted once; the stage is then free for chunk i + kStages
+      float* cv = sconv + warp * L::kChunkF32;
+      dequant_chunk<KT>(st, cv, lane);
+      __syncwarp();
+      if (i + kStages < n_chunks) issue(i + kStages);
+      cp_async_commit();
+      kf = cv;
+    }
+    const float* vf = kf + kKeys * L::kRow;
+    const int p0 = kKeys * (i % nch);
+    const int kpos = (warp + kWarps * (i / nch)) * page + p0 + key;
+    const bool vis = key < min(kKeys, page - p0) && kpos <= qpos;
+
+    // score of key `key` over half the dims; one shuffle adds the halves
+    const float4* k4 =
+        reinterpret_cast<const float4*>(kf + key * L::kRow + half * kHalf);
+    float s = 0.f;
+#pragma unroll
+    for (int d = 0; d < kHalf / 4; ++d) {
+      const float4 kv = k4[d];
+      s += qv[4 * d] * kv.x;
+      s += qv[4 * d + 1] * kv.y;
+      s += qv[4 * d + 2] * kv.z;
+      s += qv[4 * d + 3] * kv.w;
+    }
+    s += __shfl_xor_sync(kFullMask, s, 16);
+    s = vis ? s * scale : kNegInf;
+    // the 16 keys' max and sum (each value sits in both halves)
+    float m_blk = s;
+#pragma unroll
+    for (int x = 8; x > 0; x >>= 1)
+      m_blk = fmaxf(m_blk, __shfl_xor_sync(kFullMask, m_blk, x));
+    const float m_new = fmaxf(m, m_blk);
+    const float alpha = expf(m - m_new);
+    const float p = vis ? expf(s - m_new) : 0.f;
+    float l_blk = p;
+#pragma unroll
+    for (int x = 8; x > 0; x >>= 1)
+      l_blk += __shfl_xor_sync(kFullMask, l_blk, x);
+    l = alpha * l + l_blk;
+    m = m_new;
+    acc.x *= alpha;
+    acc.y *= alpha;
+    // P.V: every lane walks the 16 keys over its own 2 dims
+#pragma unroll
+    for (int k = 0; k < kKeys; ++k) {
+      const float pk = __shfl_sync(kFullMask, p, k);
+      const float2 v = reinterpret_cast<const float2*>(vf + k * L::kRow)[lane];
+      acc.x += pk * v.x;
+      acc.y += pk * v.y;
+    }
+    __syncwarp();  // the stage and the float chunk are read
+    if constexpr (L::kF32) {
+      if (i + kStages < n_chunks) issue(i + kStages);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+
+  // merge the warps' states in warp order into the ring's space: m = max
+  // m_w; l, acc rescaled by exp(m_w - m). A warp left without pages holds
+  // m = -1e30, l = 0, acc = 0 and adds 0.
+  __syncthreads();
+  float* sacc = reinterpret_cast<float*>(ring);  // [kWarps][kDh]
+  float* sml = sacc + kWarps * kDh;              // [kWarps][2]: m, l
+  reinterpret_cast<float2*>(sacc + warp * kDh)[lane] = acc;
+  if (lane == 0) {
+    sml[2 * warp] = m;
+    sml[2 * warp + 1] = l;
+  }
+  __syncthreads();
+  if (threadIdx.x < kDh) {
+    const int d = threadIdx.x;
+    float m_all = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) m_all = fmaxf(m_all, sml[2 * w]);
+    float l_all = 0.f, od = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(sml[2 * w] - m_all);
+      l_all += f * sml[2 * w + 1];
+      od += f * sacc[w * kDh + d];
+    }
+    out[qo + d] = od / fmaxf(l_all, 1e-20f);
+  }
+}
+
+// Lets `kernel` use `bytes` of dynamic shared memory, once: `allowed`
+// remembers that it was set.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& allowed) {
+  if (allowed) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  allowed = e == cudaSuccess;
+  return e;
+}
+
 template <typename KT>
 cudaError_t launch(const float* q, const void* pk, const void* pv,
                    const float* sk, const float* sv, const int* table,
@@ -696,20 +743,19 @@ cudaError_t launch(const float* q, const void* pk, const void* pv,
   const unsigned blocks = static_cast<unsigned>(n);
   const KT* k = static_cast<const KT*>(pk);
   const KT* v = static_cast<const KT*>(pv);
+  static bool chunk_allowed = false, decode_allowed = false;
+  cudaError_t e;
   if (chunk) {
     constexpr int bytes = ChunkSmem<KT>::kBytes;
-    static bool allowed = false;  // the kernel may use `bytes` (set once)
-    if (!allowed) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          paged_chunk_tiled<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          bytes);
-      if (e != cudaSuccess) return e;
-      allowed = true;
-    }
+    e = allow_smem(paged_chunk_tiled<KT>, bytes, chunk_allowed);
+    if (e != cudaSuccess) return e;
     paged_chunk_tiled<KT><<<blocks, kWarps * 32, bytes, stream>>>(
         q, k, v, sk, sv, table, pos, out, H, C, page, npl, tstride, scale);
   } else {
-    paged_decode_kernel<KT><<<blocks, kWarps * 32, 0, stream>>>(
+    constexpr int bytes = DecodeSmem<KT>::kBytes;
+    e = allow_smem(paged_decode_ring<KT>, bytes, decode_allowed);
+    if (e != cudaSuccess) return e;
+    paged_decode_ring<KT><<<blocks, kWarps * 32, bytes, stream>>>(
         q, k, v, sk, sv, table, pos, out, H, page, npl, tstride, scale);
   }
   return cudaGetLastError();

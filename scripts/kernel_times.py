@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's bfloat16 flash, fused LM-head or paged chunk kernels of
-several checkouts on one card.
+"""Time the port's bfloat16 flash, fused LM-head or paged kernels of several
+checkouts on one card.
 
     python3 scripts/kernel_times.py flash|fxent|paged ROOT [ROOT ...]
 
@@ -24,10 +24,14 @@ name and power limit, and the times in ms.
   distinct slots): the C-16 chunk that ends a 16-page stream over float32,
   bfloat16 and int8 pools, the 256-query unchunked chunk over float32, and
   the verify pass (8 rows over the 63 usable slots, C 5, unaligned starts)
-  over float32 and int8; and, as a yardstick, chip_smoke's
-  ``library_call`` (scaled_dot_product_attention over the gathered pages)
-  at C 256; and ``floor_memset``, a one-element memset timed the same
-  way: the harness's floor (launch and event overhead).
+  over float32 and int8; ``paged_attention`` (decode) at chip_smoke's
+  decode shape (the same 8 rows, each at the last position of its last
+  page) over float32, bfloat16 and int8 pools, and the chunk kernel at
+  C 1 on that shape (``q[:, :, None]``, start = pos) over float32 and
+  int8; and, as a yardstick, chip_smoke's ``library_call``
+  (scaled_dot_product_attention over the gathered pages) at C 256; and
+  ``floor_memset``, a one-element memset timed the same way: the
+  harness's floor (launch and event overhead).
 """
 
 import json
@@ -94,6 +98,8 @@ def paged_times(torch, cs, dev, flush):
     verify_pos = torch.tensor([live * cs.PAGE - cs.VERIFY_C - r % 3
                                for r, live in enumerate(cs.DECODE_LIVE)],
                               dtype=torch.int32, device=dev)
+    decode_pos = torch.tensor([live * cs.PAGE - 1 for live in cs.DECODE_LIVE],
+                              dtype=torch.int32, device=dev)
     tiny = torch.zeros(1, device=dev)
     cs.time_ms(torch, tiny.zero_, flush)  # a first timed call reads high
     times = {"floor_memset": cs.time_ms(torch, tiny.zero_, flush)}
@@ -103,15 +109,25 @@ def paged_times(torch, cs, dev, flush):
             ("chunk16_int8", 16, 1, torch.int8),
             ("chunk256_float32", 256, 1, torch.float32),
             ("verify_float32", cs.VERIFY_C, cs.ROWS, torch.float32),
-            ("verify_int8", cs.VERIFY_C, cs.ROWS, torch.int8)):
+            ("verify_int8", cs.VERIFY_C, cs.ROWS, torch.int8),
+            ("decode_float32", None, cs.ROWS, torch.float32),
+            ("decode_bfloat16", None, cs.ROWS, torch.bfloat16),
+            ("decode_int8", None, cs.ROWS, torch.int8),
+            ("decode_chunk1_float32", 1, cs.ROWS, torch.float32),
+            ("decode_chunk1_int8", 1, cs.ROWS, torch.int8)):
         cache = cs.make_pools(torch, pd, dtype, gen, dev)
         cache["table"] = table[:rows].to(dev)
-        q = torch.randn(rows, cs.H, C, cs.DH, generator=gen).to(dev)
+        q = torch.randn(rows, cs.H, C or 1, cs.DH, generator=gen).to(dev)
         pos = (verify_pos if C == cs.VERIFY_C else
+               decode_pos if name.startswith("decode") else
                torch.full((rows,), cs.NPG * cs.PAGE - C, dtype=torch.int32,
                           device=dev))
+        if C is None:
+            q = q[:, :, 0].contiguous()
 
         def run():
+            if C is None:
+                return pd.paged_attention(q, cache, pos, cs.NPG, cs.PAGE)
             return pd.paged_chunk_attention(q, cache, pos, cs.NPG, cs.PAGE)
 
         if len(times) == 1:

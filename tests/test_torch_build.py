@@ -121,7 +121,7 @@ def test_training_step_kernels_are_all_hopper_kernels():
     ("fused_xent", "ddl_fxent_dh", "fx_dh_wgmma"),
     ("fused_xent", "ddl_fxent_dw", "fx_dw_wgmma"),
     ("paged_attention", "ddl_paged_chunk", "paged_chunk_tiled"),
-    ("paged_attention", "ddl_paged_decode", "paged_decode_kernel"),
+    ("paged_attention", "ddl_paged_decode", "paged_decode_ring"),
 ])
 def test_launchers_reach_the_hopper_kernels(lib, launcher, kernel):
     source = (_build._CSRC / f"{lib}.cu").read_text()
@@ -137,13 +137,34 @@ def test_no_mma_sync_is_left_in_the_training_libraries(lib):
     assert "mma.sync" not in code and "ldmatrix" not in code
 
 
+def _kernel(source: str, name: str) -> str:
+    """The body of __global__ kernel ``name`` in ``source``, with the bodies
+    of the file's functions it calls (``_reached``)."""
+    m = re.search(r"__global__[^;{]*?\b" + name + r"\s*\(", source)
+    assert m, name
+    body = source[m.start():source.index("\n}\n", m.end())]
+    for callee in set(re.findall(r"\b(\w+)\s*(?:<[^>]*>)?\s*\(", body)):
+        if callee != name:
+            body += _reached(source, callee)
+    return body
+
+
 def test_paged_chunk_kernel_copies_its_pages_by_cp_async():
     """The chunk kernel's ring is filled by cp.async (16-byte copies, waited
     by group); the kernel it replaced, one block per query, is gone."""
     source = (_build._CSRC / "paged_attention.cu").read_text()
-    m = re.search(r"__global__[^;{]*?\bpaged_chunk_tiled\s*\(", source)
-    assert m, "paged_chunk_tiled"
-    body = source[m.start():source.index("\n}\n", m.end())]
+    body = _kernel(source, "paged_chunk_tiled")
     assert "cp_async16(" in body and "cp_async_wait<" in body
     assert "cp.async.cg.shared.global" in _reached(source, "cp_async16")
     assert "paged_chunk_kernel" not in source
+
+
+def test_paged_decode_kernel_copies_its_pages_by_cp_async():
+    """The decode kernel stages pos and its table row by cp.async in one
+    trip, and fills its warps' rings by 16-byte cp.async copies, waited by
+    group; the kernel it replaced, a chain of loads per page, is gone."""
+    source = (_build._CSRC / "paged_attention.cu").read_text()
+    body = _kernel(source, "paged_decode_ring")
+    assert "cp_async4(spos" in body and "cp_async4(stab" in body
+    assert "cp_async16(" in body and "cp_async_wait<" in body
+    assert "paged_decode_kernel" not in source

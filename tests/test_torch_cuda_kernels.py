@@ -300,6 +300,63 @@ def test_chunk_kernel_rows_sharing_slots_match_plain_version(dev, ktype):
     assert (got - want).abs().max().item() <= 1e-4
 
 
+def _decode_case(dev, ktype, page, npl, key, seed):
+    """A decode query over ``_chunk_case``'s pools and table: row 0 on the
+    last live page, row 1 on page 0 (warps 1-7 walk nothing), the others on
+    random live pages; each row on its page's first or last key."""
+    q, cache, _ = _chunk_case(dev, ktype, page, npl, 1, seed)
+    g = torch.Generator().manual_seed(seed)
+    pages = torch.randint(0, npl, (ROWS,), generator=g)
+    pages[0], pages[1] = npl - 1, 0
+    pos = pages * page + (0 if key == "first" else page - 1)
+    return q[:, :, 0].contiguous(), cache, pos.to(dev, torch.int32)
+
+
+# (page, npl, the key of its page each row's position is on)
+DECODE_EDGES = [(16, 16, "last"), (16, 16, "first"), (16, 9, "last"),
+                (16, 1, "first"), (8, 9, "first"), (8, 16, "last"),
+                (32, 9, "last"), (32, 16, "first"), (32, 1, "last")]
+
+
+@pytest.mark.parametrize("ktype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+@pytest.mark.parametrize("page,npl,key", DECODE_EDGES)
+def test_decode_kernel_edge_shapes_match_plain_version(dev, ktype, page, npl,
+                                                       key):
+    q, cache, pos = _decode_case(dev, ktype, page, npl, key, 100 + npl + page)
+    got = port.paged_attention(q, cache, pos, npl, page)
+    want = port._paged_attention_ref(q, cache, pos, npl, page)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("ktype", [torch.float32, torch.int8])
+def test_decode_kernel_reruns_are_bitwise_equal(dev, ktype):
+    """The warps' states merge in a fixed order: a rerun gives the same
+    bits."""
+    q, cache, pos = _decode_case(dev, ktype, PAGE, NPG, "last", 110)
+    first = port.paged_attention(q, cache, pos, NPG, PAGE)
+    again = port.paged_attention(q, cache, pos, NPG, PAGE)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("ktype", [torch.float32, torch.int8])
+def test_decode_kernel_reads_pages_past_its_staged_table(dev, ktype):
+    """Pages of one position and 2 100 live pages: the block stages the
+    first 2 048 table entries and looks the later ones up in device
+    memory; every row's position is past entry 2 048."""
+    npl = 2100
+    q, cache, _ = _decode_case(dev, ktype, 1, npl, "first", 120)
+    pos = torch.tensor([npl - 1 - 7 * r for r in range(ROWS)],
+                       dtype=torch.int32, device=dev)
+    got = port.paged_attention(q, cache, pos, npl, 1)
+    want = port._paged_attention_ref(q, cache, pos, npl, 1)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-4
+
+
 def test_int8_wrapper_refuses_a_pool_without_its_sidecars(dev):
     q, cache, pos = _int8_case(dev, None, 51)
     with pytest.raises(ValueError, match="sidecar"):
