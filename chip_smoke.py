@@ -201,8 +201,47 @@ one JSON line; any failure raises and exits non-zero:
 11. train_profile — 3 warm flash+fused steps under torch.profiler: the
              device's busy share, the top device kernels, and each port
              kernel's device time and launches per step.
+12. image  — image training, which runs no port kernel (convolutions and
+             BatchNorm are cuDNN's). (a) image_check: resnet50/imagenet
+             from seed 0, one training step (forward, backward, running
+             statistics) at B 4 on the card (channels_last) and on the
+             CPU from the same weights and batch, in float32 and in
+             float64. float64: the card's loss, every gradient leaf and
+             every running statistic within 1e-9 relative L2 of the
+             CPU's. float32: the loss within 1e-4 relative and each
+             running statistic within 1e-4 relative L2 of the CPU's
+             float32 step; the card's worst gradient leaf within 1e-3
+             relative L2 of the CPU's float64 step, or within twice the
+             CPU float32 step's own worst leaf where that is larger
+             (resnet50's float32 gradients at init lie a few per cent
+             from float64 on any device: BatchNorm's backward cancels at
+             every layer). A leaf under 1e-3 of the largest leaf of its
+             kind is measured against that floor. Three planted faults
+             must be rejected: the stride-2 convolutions padded
+             symmetrically (torch's padding=k//2 in place of XLA's SAME),
+             the running variance updated with the biased batch variance,
+             and BatchNorm's backward without its mean term (only the
+             gradients show it). (b) image:
+             the main path at full width, resnet50/imagenet, B 128,
+             bfloat16 on float32 masters, channels_last, cudnn.benchmark
+             on, through make_strategy / train_step / timed_steps, 2
+             warm-up and 10 timed steps: every loss finite; images/sec,
+             step p50/p95 (CUDA events) and one step's peak memory. (c)
+             image_profile: 3 warm steps under torch.profiler: the
+             device's busy share and its time by kernel group
+             (convolutions and GEMMs, BatchNorm, pooling and reductions,
+             elementwise and casts, optimizer, other) and by kernel. (d) image_cli:
+             ``python -m ddlbench_tpu_torch.cli -b imagenet -f single -m
+             resnet50 -e 1 --steps-per-epoch 20`` in-process: its train,
+             epoch, valid and summary lines and the result line, every
+             logged loss finite. (e) image_bench: tools/bench's headline
+             record (resnet50/imagenet, B 128, 30 steps, 5 warm-up, median
+             of 3), then image_models: one short bench row (B 32, 3 warm-up
+             and 5 steps) for each of resnet18, resnet152, vgg11, vgg16
+             and mobilenetv2 on imagenet.
 
-Then it prints the kernels table (one JSON object: the paged kernels over
+Then it prints the script's wall time from the build on, the kernels table
+(one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
@@ -320,6 +359,25 @@ FX_ZSUM_RTOL = 1e-5  # each row's zsum within this of the row's sum of |z|
 # (and as much absolute), in both types
 FX_TIE = 1e-3  # bfloat16: an argmax may differ where two logits are this close
 FX_COT = (0.7, 0.3)  # the cotangents of the objective and the CE sums
+# image training (phase 12): the card-vs-CPU float32 check's batch and
+# tolerances, the main path's batch and steps, the CLI's arguments, and
+# the short bench rows of the other five reference models
+IMAGE_CHECK_B = 4
+IMAGE_LOSS_RTOL, IMAGE_GRAD_RTOL, IMAGE_STAT_RTOL = 1e-4, 1e-3, 1e-4
+# the float64 card step against the float64 CPU step: loss, every gradient
+# leaf and every running statistic
+IMAGE_F64_RTOL = 1e-9
+# a leaf under this share of the largest leaf of its kind is measured
+# against that floor (zero up to rounding: the bias of a BatchNorm that
+# feeds another one), as tests/test_torch_image_train.py does
+IMAGE_FLOOR = 1e-3
+IMAGE_B, IMAGE_STEPS, IMAGE_WARMUP = 128, 10, 2
+IMAGE_CLI_ARGS = ["-b", "imagenet", "-f", "single", "-m", "resnet50", "-e",
+                  "1", "--steps-per-epoch", "20"]
+IMAGE_SHORT_ARCHS = ("resnet18", "resnet152", "vgg11", "vgg16",
+                     "mobilenetv2")
+IMAGE_SHORT_ARGS = ["--benchmark", "imagenet", "--batch-size", "32",
+                    "--warmup", "3", "--steps", "5", "--repeats", "1"]
 # (name, N, D, V, smoothing, masking) of the fused-head checks
 FX_CASES = (
     ("lmbench", *FX_HEAD, 0.0, "none"),
@@ -1993,6 +2051,343 @@ def phase_train_profile(torch, strategy, data):
                           for e in top]})
 
 
+def image_step(torch, model, x, y, cfg, dtype):
+    """One training step's forward and backward of ``model`` on (x, y) in
+    ``dtype`` (None: the model's own), train mode: (loss, gradient
+    leaves, the running statistics it leaves), on the host."""
+    from ddlbench_tpu_torch.parallel.common import loss_and_grads
+
+    ce, _, grads = loss_and_grads(model, cfg, x, y, dtype, 0.0)
+    return (ce.item(), [g.detach().double().cpu() for g in grads],
+            [b.detach().double().cpu() for b in model.buffers()])
+
+
+def image_agreement(card, card64, cpu, f64):
+    """The card's float32 and float64 steps against the CPU's. float64:
+    the loss, every gradient leaf and every running statistic within
+    IMAGE_F64_RTOL (relative L2) of the CPU's float64 step. float32: the
+    loss within IMAGE_LOSS_RTOL relative and each running statistic within
+    IMAGE_STAT_RTOL of the CPU's float32 step, and the card's worst
+    gradient leaf no further from the CPU's float64 step than
+    IMAGE_GRAD_RTOL or twice the CPU float32 step's worst leaf, whichever
+    is larger. Leaves are measured with the IMAGE_FLOOR of their kind.
+    Returns the record with "ok"."""
+    def worst(got, want):
+        floor = max(IMAGE_FLOOR * max(b.norm().item() for b in want), 1e-30)
+        return max(((a - b).norm() / max(b.norm().item(), floor)).item()
+                   for a, b in zip(got, want))
+
+    def loss_rel(a, b):
+        return abs(a[0] - b[0]) / abs(b[0])
+
+    f64_rec = {"loss_rel": loss_rel(card64, f64),
+               "worst_grad_rel_l2": worst(card64[1], f64[1]),
+               "worst_stat_rel_l2": worst(card64[2], f64[2])}
+    grad_card = worst(card[1], f64[1])
+    grad_cpu = worst(cpu[1], f64[1])
+    grad_bar = max(IMAGE_GRAD_RTOL, 2 * grad_cpu)
+    rec = {"loss_card": card[0], "loss_cpu": cpu[0],
+           "loss_rel": loss_rel(card, cpu),
+           "worst_stat_rel_l2": worst(card[2], cpu[2]),
+           "worst_grad_rel_l2_vs_f64": grad_card,
+           "cpu_f32_worst_grad_rel_l2_vs_f64": grad_cpu,
+           "grad_bar": grad_bar,
+           "worst_grad_rel_l2_vs_cpu": worst(card[1], cpu[1]),
+           "float64_card_vs_cpu": f64_rec}
+    rec["ok_float32"] = (rec["loss_rel"] <= IMAGE_LOSS_RTOL
+                         and rec["worst_stat_rel_l2"] <= IMAGE_STAT_RTOL
+                         and grad_card <= grad_bar)
+    rec["ok_float64"] = all(v <= IMAGE_F64_RTOL for v in f64_rec.values())
+    rec["ok"] = rec["ok_float32"] and rec["ok_float64"]
+    return rec
+
+
+def image_card_vs_cpu(torch, dev):
+    """resnet50/imagenet from seed 0, one training step at B 4 on the card
+    (channels_last) and on the CPU from the same weights, running
+    statistics and batch, in float32 and in float64 (module docstring,
+    phase 12); then the same card steps with three planted faults, each
+    of which must be rejected: the stride-2 convolutions padded
+    symmetrically (torch's padding=k//2, not XLA's SAME), the running
+    variance updated with the biased batch variance, and BatchNorm's
+    backward without its mean term (the batch mean taken as a constant: a
+    fault only the gradients show)."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.models import layers
+    from ddlbench_tpu_torch.models.zoo import get_model
+
+    cfg = RunConfig(benchmark="imagenet", arch="resnet50",
+                    compute_dtype="float32", seed=0)
+    cfg.validate()
+    initial = get_model(cfg.arch, cfg.benchmark, seed=0)
+    x, y = make_synthetic(cfg.dataset(), IMAGE_CHECK_B, torch.device("cpu"),
+                          seed=0).batch(0, 0)
+    t0 = time.perf_counter()
+    cpu = image_step(torch, copy.deepcopy(initial), x, y, cfg,
+                     torch.float32)
+    f64 = image_step(torch, copy.deepcopy(initial).double(), x.double(), y,
+                     cfg, None)
+    cpu_s = time.perf_counter() - t0
+
+    def on_card():
+        steps = []
+        for dtype in (torch.float32, torch.float64):
+            model = copy.deepcopy(initial).to(dev, dtype).to(
+                memory_format=torch.channels_last)
+            steps.append(image_step(
+                torch, model, x.to(dev, dtype), y.to(dev), cfg,
+                torch.float32 if dtype == torch.float32 else None))
+        return steps
+
+    card = image_agreement(*on_card(), cpu, f64)
+    if not card["ok"]:
+        raise AssertionError(f"resnet50 card step disagrees with the CPU "
+                             f"step: {card}")
+    conv2d = layers.conv2d
+
+    def symmetric_conv2d(x, kernel, stride=1, groups=1):
+        if stride == 1:
+            return conv2d(x, kernel, stride, groups)
+        return F.conv2d(x, kernel, stride=stride,
+                        padding=kernel.shape[2] // 2, groups=groups)
+
+    def biased_bn(self, x):
+        y = F.batch_norm(x, None, None, self.scale, self.bias, True, 0.0,
+                         layers.BN_EPS)
+        with torch.no_grad():
+            self.mean.mul_(0.9).add_(0.1 * x.mean((0, 2, 3)))
+            self.var.mul_(0.9).add_(0.1 * x.var((0, 2, 3), unbiased=False))
+        return y
+
+    def bn_without_mean_gradient(self, x):
+        n = x.numel() // x.shape[1]
+        mean = x.mean((0, 2, 3)).detach()
+        xc = x - mean[None, :, None, None]
+        var = (xc * xc).mean((0, 2, 3))
+        with torch.no_grad():
+            self.mean.mul_(0.9).add_(0.1 * mean)
+            self.var.mul_(0.9).add_(0.1 * var * n / (n - 1))
+        inv = torch.rsqrt(var + layers.BN_EPS) * self.scale
+        return xc * inv[None, :, None, None] + self.bias[None, :, None, None]
+
+    faults = {}
+    for name, target, attr, fault in (
+            ("symmetric_stride2_padding", layers, "conv2d",
+             symmetric_conv2d),
+            ("biased_running_var", layers.BatchNorm, "forward", biased_bn),
+            ("batchnorm_without_mean_gradient", layers.BatchNorm, "forward",
+             bn_without_mean_gradient)):
+        original = getattr(target, attr)
+        setattr(target, attr, fault)
+        try:
+            rec = image_agreement(*on_card(), cpu, f64)
+        finally:
+            setattr(target, attr, original)
+        rec["rejected"] = not rec.pop("ok")
+        faults[name] = rec
+    if not all(f["rejected"] for f in faults.values()):
+        raise AssertionError(f"a planted fault passed the card-vs-CPU "
+                             f"check: {faults}")
+    return {"model": cfg.arch, "benchmark": cfg.benchmark,
+            "batch": IMAGE_CHECK_B, "dtypes": ["float32", "float64"],
+            "loss_rtol": IMAGE_LOSS_RTOL, "grad_rtol": IMAGE_GRAD_RTOL,
+            "stat_rtol": IMAGE_STAT_RTOL, "float64_rtol": IMAGE_F64_RTOL,
+            "floor": IMAGE_FLOOR, "cpu_steps_s": cpu_s,
+            "card_vs_cpu": card, "planted_faults": faults}
+
+
+def image_main_path(torch, dev):
+    """resnet50/imagenet at B 128, bfloat16 on float32 masters,
+    channels_last, cudnn.benchmark on, through make_strategy / train_step
+    / timed_steps: 2 warm-up and 10 timed steps, every loss finite; then
+    one more step's peak device memory."""
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.telemetry.stats import percentile
+    from ddlbench_tpu_torch.tools.timing import timed_steps_detail
+
+    torch.backends.cudnn.benchmark = True
+    cfg = RunConfig(benchmark="imagenet", arch="resnet50",
+                    batch_size=IMAGE_B, compute_dtype="bfloat16", seed=0)
+    strategy = make_strategy(cfg, dev)
+    data = make_synthetic(cfg.dataset(), IMAGE_B, dev, seed=0,
+                          steps_per_epoch=IMAGE_STEPS)
+    lr, losses = cfg.resolved_lr(), []
+
+    def run_step(x, y):
+        m = strategy.train_step(x, y, lr)
+        losses.append(m["loss"])
+        return m
+
+    dt, stall_s, step_s = timed_steps_detail(run_step, data.batch,
+                                             IMAGE_STEPS, IMAGE_WARMUP)
+    loss_vals = torch.stack(losses).float().tolist()
+    if not all(math.isfinite(v) for v in loss_vals):
+        raise AssertionError(f"non-finite resnet50 loss: {loss_vals}")
+    layout = next(strategy.model.parameters()).is_contiguous(
+        memory_format=torch.channels_last)
+    x, y = data.batch(2, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    float(strategy.train_step(x, y, lr)["loss"])
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [t * 1e3 for t in step_s]
+    return strategy, data, {
+        "model": cfg.arch, "benchmark": cfg.benchmark, "batch": IMAGE_B,
+        "dtype": cfg.compute_dtype, "channels_last": layout,
+        "cudnn_benchmark": torch.backends.cudnn.benchmark,
+        "steps": IMAGE_STEPS, "warmup": IMAGE_WARMUP, "losses": loss_vals,
+        "images_per_sec": IMAGE_STEPS * IMAGE_B / dt,
+        "ms_per_step": 1e3 * dt / IMAGE_STEPS,
+        "step_ms_p50": percentile(step_ms, 50),
+        "step_ms_p95": percentile(step_ms, 95), "input_stall_s": stall_s,
+        "step_peak_memory_gib": peak / 2 ** 30,
+        "step_peak_over_start_gib": (peak - start) / 2 ** 30}
+
+
+def image_cli(torch):
+    """The training CLI in-process on the card: resnet50/imagenet, one
+    epoch of 20 steps at the reference's default batch (32); its lines
+    must carry the reference's schema and the summary a finite loss."""
+    import contextlib
+    import io
+
+    from ddlbench_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(IMAGE_CLI_ARGS)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    kinds = {k: sum(line.startswith(k) for line in lines)
+             for k in ("train | ", "epoch 1/1 done", "valid | ",
+                       "valid accuracy: ", "result: ")}
+    result = json.loads(lines[-1][len("result: "):])
+    losses = [float(re.search(r"loss (\S+)", line).group(1))
+              for line in lines if line.startswith("train | ")]
+    if not (rc == 0 and kinds["train | "] >= 1
+            and all(kinds[k] == 1 for k in kinds if k != "train | ")
+            and all(math.isfinite(v) for v in losses)):
+        raise AssertionError(f"the CLI run on the card: rc {rc}, {kinds}, "
+                             f"losses {losses}")
+    return {"argv": IMAGE_CLI_ARGS, "line_counts": kinds,
+            "train_losses": losses, "result": result}
+
+
+def image_bench(torch, argv):
+    """tools/bench in-process: its one JSON record."""
+    import contextlib
+    import io
+
+    from ddlbench_tpu_torch.tools import bench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench.main(argv)
+    rec = json.loads(out.getvalue().splitlines()[-1])
+    if rc != 0 or not (rec["value"] > 0 and rec["platform"] == "gpu"):
+        raise AssertionError(f"bench {argv}: rc {rc}, {rec}")
+    torch.cuda.empty_cache()
+    return rec
+
+
+# the step's device kernels by what they compute, matched on their names
+# in this order (first match wins)
+# (cuDNN runs the 1x1 convolutions as cuBLASLt GEMMs, "nvjet" kernels)
+IMAGE_KERNEL_GROUPS = (
+    ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("optimizer", ("foreach", "multi_tensor", "sgd")),
+    ("convolution_and_gemm", ("conv", "cudnn", "xmma", "gemm", "wgrad",
+                              "dgrad", "fprop", "cutlass", "winograd",
+                              "implicit", "nvjet", "cublas")),
+    ("pool_and_reduce", ("pool", "reduce_kernel", "mean")),
+    ("elementwise_and_cast", ("elementwise", "vectorized", "copy", "cast",
+                              "fill", "where", "clamp", "threshold")),
+)
+
+
+def image_profile(torch, strategy, data):
+    """Three warm resnet50 B 128 steps under torch.profiler: the device's
+    busy share, its time by kernel group (with each group's largest
+    kernels) and by kernel. Only kernels count: a user annotation's
+    device range (``Optimizer.step#SGD.step``) spans kernels counted
+    already."""
+    from torch.profiler import ProfilerActivity, profile
+
+    lr = strategy.cfg.resolved_lr()
+    float(strategy.train_step(*data.batch(3, 0), lr)["loss"])
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            m = strategy.train_step(*data.batch(3, i + 1), lr)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = {}  # kernel name -> [calls, device ms]
+    for e in prof.events():
+        if (e.device_type.name != "CUDA" or e.self_device_time_total <= 0
+                or getattr(e, "is_user_annotation", False)
+                or e.name.startswith("Optimizer.")):
+            continue
+        rec = kern.setdefault(e.name, [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.self_device_time_total / 1e3
+    if not kern:
+        raise AssertionError("torch.profiler recorded no device time")
+    busy_ms = sum(ms for _, ms in kern.values())
+    groups = {}
+    for name, (calls, ms) in sorted(kern.items(), key=lambda kv: -kv[1][1]):
+        key = name.lower()
+        group = next((g for g, words in IMAGE_KERNEL_GROUPS
+                      if any(w in key for w in words)), "other")
+        rec = groups.setdefault(group, {"ms_per_step": 0.0,
+                                        "launches_per_step": 0.0,
+                                        "largest": []})
+        rec["ms_per_step"] += ms / steps
+        rec["launches_per_step"] += calls / steps
+        if len(rec["largest"]) < 3:
+            rec["largest"].append(name[:90])
+    for rec in groups.values():
+        rec["share_of_busy"] = rec["ms_per_step"] * steps / busy_ms
+    top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:15]
+    return {"steps": steps, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "launches_per_step": sum(c for c, _ in kern.values()) / steps,
+            "groups": dict(sorted(groups.items(),
+                                  key=lambda kv: -kv[1]["ms_per_step"])),
+            "top_kernels": [{"name": name[:90], "calls": calls, "ms": ms,
+                             "share_of_busy": ms / busy_ms}
+                            for name, (calls, ms) in top]}
+
+
+def phase_image(torch, dev):
+    """Image training on the card (phase 12 of the docstring)."""
+    t0 = time.perf_counter()
+    check = image_card_vs_cpu(torch, dev)
+    emit({"phase": "image_check", **check})
+    strategy, data, main_path = image_main_path(torch, dev)
+    emit({"phase": "image", **main_path})
+    emit({"phase": "image_profile", **image_profile(torch, strategy, data)})
+    del strategy, data
+    torch.cuda.empty_cache()
+    emit({"phase": "image_cli", **image_cli(torch)})
+    torch.cuda.empty_cache()
+    emit({"phase": "image_bench", "headline": image_bench(torch, [])})
+    rows = [image_bench(torch, ["--arch", arch] + IMAGE_SHORT_ARGS)
+            for arch in IMAGE_SHORT_ARCHS]
+    emit({"phase": "image_models", "rows": rows})
+    emit({"phase": "image_seconds", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     try:
         import torch
@@ -2014,6 +2409,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
     phase_build(_build)
 
     worst, timed = phase_kernels(torch, pd, dev)
@@ -2028,6 +2424,10 @@ def main() -> int:
     phase_seq2seq(torch, fa, fx, dev)
     phase_tiny_dispatch(torch, dev)
     phase_train_profile(torch, strategy, data)
+    del strategy, data
+    torch.cuda.empty_cache()
+    phase_image(torch, dev)
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def row(name, source, replaces, n, err, t):
         return {"name": name, "route": "cuda", "source": source,

@@ -1,0 +1,135 @@
+"""Training CLI of the port: the ``single`` subset of ``ddlbench_tpu/cli.py``.
+
+    python -m ddlbench_tpu_torch.cli -b imagenet -f single -m resnet50 \\
+        -e 1 --steps-per-epoch 20
+
+trains on the card (``--device cpu`` runs on the CPU; with no card and no
+``--device cpu`` it raises) and prints the reference's lines: a ``run
+manifest: {...}`` line, the ``train | ...`` interval lines, ``epoch ...
+done``, ``valid | ...`` and ``valid accuracy: ...`` (train/metrics.py),
+then ``result: {...}``, the summary as JSON.
+
+The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
+25, seed 1, bfloat16) and the knobs the image loop reads (``-e -p
+--batch-size --steps-per-epoch --lr --optimizer --dtype --seed
+--jsonl``); ``--device`` stands in for ``--platform``;
+``--momentum`` and ``--weight-decay`` override the per-workload defaults.
+Every other flag of the reference is refused by name (an error naming it),
+never ignored; so are ``-f`` strategies other than ``single`` and the
+arches the port does not build (RunConfig.validate, models/zoo.py).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from ddlbench_tpu_torch.config import DATASETS, RunConfig
+from ddlbench_tpu_torch.models.zoo import MODEL_NAMES, NOT_PORTED
+
+# the reference's strategies: all but "single" raise NotImplementedError
+STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
+
+# the reference's flags the port does not carry
+NOT_PORTED_FLAGS = (
+    ("-g", "--devices"), ("-s", "--real-data"), ("--data-dir",),
+    ("--no-augment",), ("--prefetch-depth",), ("--no-prefetch",),
+    ("--micro-batch-size",), ("--num-microbatches",), ("--stages",),
+    ("--virtual-stages",), ("--pipe-schedule",), ("--zb-h2-stash",),
+    ("--sched-search-budget",), ("--sched-search-seed",), ("--pipe-costs",),
+    ("--schedule-trace",), ("--dp-replicas",), ("--tp-size",),
+    ("--stage-replication",), ("--update-interval",),
+    ("--shard-opt-state",), ("--dp-shard-update",), ("--allreduce-dtype",),
+    ("--comm-buckets",), ("--moe-aux-weight",), ("--moe-capacity-factor",),
+    ("--grad-accum-steps",), ("--label-smoothing",), ("--warmup-epochs",),
+    ("--attention-backend",), ("--no-fused-head-loss",),
+    ("--remat-layers",),
+    ("--auto-partition",), ("--plan",), ("--plan-bounds",), ("--hbm-gb",),
+    ("--profile-mode",), ("--trace-dir",), ("--xla-trace-steps",),
+    ("--trace",), ("--trace-capacity",), ("--audit",), ("--checkpoint-dir",),
+    ("--resume",), ("--checkpoint-every-steps",), ("--keep-checkpoints",),
+    ("--elastic-resume",), ("--elastic-slices",), ("--inject",),
+    ("--anomaly-policy",), ("--anomaly-budget",), ("--loss-scale",),
+    ("--grad-spike-factor",), ("--nan-policy",), ("--hang-timeout-s",),
+    ("--log-activations-dir",), ("--log-activations-freq",),
+    ("--log-activations-steps",), ("--platform",),
+)
+
+
+class _NotPorted(argparse.Action):
+    """A reference flag the port lacks: using it is an error naming it."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        hint = " (use --device)" if option_string == "--platform" else ""
+        parser.error(f"{option_string} is not ported to the PyTorch "
+                     f"training path yet{hint}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="ddlbench_tpu_torch", description=__doc__,
+                                formatter_class=argparse.RawTextHelpFormatter,
+                                allow_abbrev=False)
+    p.add_argument("-b", "--benchmark", default="mnist",
+                   choices=sorted(DATASETS))
+    p.add_argument("-f", "--framework", default="single", choices=STRATEGIES,
+                   help="strategy (only single is ported)")
+    p.add_argument("-m", "--model", default="resnet18",
+                   choices=MODEL_NAMES + tuple(NOT_PORTED))
+    p.add_argument("-p", "--log-interval", type=int, default=25)
+    p.add_argument("-e", "--epochs", type=int, default=3)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--optimizer", default=None, choices=("sgd", "adam"))
+    p.add_argument("--momentum", type=float, default=None)
+    p.add_argument("--weight-decay", type=float, default=None)
+    p.add_argument("--dtype", default="bfloat16",
+                   choices=("float32", "bfloat16"))
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--jsonl", default=None,
+                   help="also write the metric records here, one JSON "
+                        "object a line")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; without a card the run "
+                        "raises unless cpu is asked for")
+    for flags in NOT_PORTED_FLAGS:
+        p.add_argument(*flags, nargs="*", action=_NotPorted,
+                       default=argparse.SUPPRESS, help=argparse.SUPPRESS)
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> RunConfig:
+    return RunConfig(
+        benchmark=args.benchmark, strategy=args.framework, arch=args.model,
+        epochs=args.epochs, log_interval=args.log_interval,
+        batch_size=args.batch_size, steps_per_epoch=args.steps_per_epoch,
+        lr=args.lr, optimizer=args.optimizer, momentum=args.momentum,
+        weight_decay=args.weight_decay, compute_dtype=args.dtype,
+        seed=args.seed)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    cfg.validate()
+
+    from ddlbench_tpu_torch.device import resolve_device
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.train.loop import run_benchmark
+    from ddlbench_tpu_torch.train.metrics import MetricLogger
+
+    device = resolve_device(args.device)
+    print("run manifest: " + json.dumps(vars(args)), flush=True)
+    logger = MetricLogger(cfg.epochs, cfg.log_interval,
+                          jsonl_path=args.jsonl, device=device)
+    try:
+        result = run_benchmark(cfg, make_strategy(cfg, device), logger)
+    finally:
+        logger.close()
+    print("result: " + json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

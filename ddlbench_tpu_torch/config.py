@@ -1,9 +1,9 @@
-"""Typed configuration of the PyTorch serving and token-training paths.
+"""Typed configuration of the PyTorch serving and training paths.
 
 The port's own copy of the pieces of ``ddlbench_tpu/config.py`` those paths
-read: :class:`DatasetSpec` with the token workloads, ``DEFAULT_BATCH`` for
-the ``single`` strategy, :class:`ServeConfig` and :class:`RunConfig` with
-their resolvers and validation. The field names, defaults and error
+read: :class:`DatasetSpec` with the image and token workloads,
+``DEFAULT_BATCH`` for the ``single`` strategy, :class:`ServeConfig` and
+:class:`RunConfig` with their resolvers and validation. The field names, defaults and error
 messages are the reference's, so a config built for one package means the
 same thing to the other.
 
@@ -18,16 +18,17 @@ import dataclasses
 from typing import Any, Mapping, Optional, Tuple
 
 
-# the dataset kinds the port trains: token streams (next-token LM) and
+# the stream kinds beside "image": token streams (next-token LM) and
 # seq2seq streams (prefix-LM with masked source labels)
 STREAM_KINDS = ("tokens", "seq2seq")
 
 
 @dataclasses.dataclass(frozen=True)
 class DatasetSpec:
-    """Shape/size blueprint of one benchmark dataset (token and seq2seq
-    streams only here: ``image_size`` is ``(T,)``, ``num_classes`` the
-    vocabulary)."""
+    """Shape/size blueprint of one benchmark dataset: ``image_size`` is
+    ``(H, W, C)`` for images (the reference's NHWC order; the port's
+    batches are NCHW) and ``(T,)`` for token streams, ``num_classes`` the
+    classes or the vocabulary."""
 
     name: str
     image_size: Tuple[int, ...]
@@ -56,6 +57,12 @@ class DatasetSpec:
 
 
 DATASETS: Mapping[str, DatasetSpec] = {
+    "mnist": DatasetSpec("mnist", (28, 28, 1), 10, 60_000, 10_000),
+    "cifar10": DatasetSpec("cifar10", (32, 32, 3), 10, 50_000, 10_000),
+    "imagenet": DatasetSpec("imagenet", (224, 224, 3), 1000, 1_281_167,
+                            50_000),
+    # the reference's activation-memory stressor: 512x512x3, 1000 classes
+    "highres": DatasetSpec("highres", (512, 512, 3), 1000, 50_000, 10_000),
     # a standard LM context (ddlbench_tpu/config.py "synthtext")
     "synthtext": DatasetSpec("synthtext", (1024,), 32_768, 100_000, 10_000,
                              kind="tokens"),
@@ -75,9 +82,10 @@ DATASETS: Mapping[str, DatasetSpec] = {
 # tensors; "flash"/"xla" force one (models/transformer.py)
 ATTENTION_BACKENDS = ("auto", "flash", "xla")
 
-# the reference's per-strategy default batch, token workloads of "single"
+# the reference's per-strategy default batch, of "single"
 DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
-    "single": {"synthtext": 16, "longctx": 2, "longctx32k": 1,
+    "single": {"mnist": 128, "cifar10": 64, "imagenet": 32, "highres": 32,
+               "synthtext": 16, "longctx": 2, "longctx32k": 1,
                "synthmt": 64},
 }
 
@@ -93,6 +101,25 @@ _NOT_PORTED = (
     ("heartbeat", 0.0, "the straggler heartbeat"),
     ("integrity", False, "the SDC checksum ledger"),
     ("scrub", 0, "the SDC scrubber"),
+)
+
+
+# (field, default, what it is) for every RunConfig knob of the reference's
+# training loop the port keeps for schema parity but does not implement
+_TRAIN_NOT_PORTED = (
+    ("synthetic", True, "on-disk data (-s, synthetic=False)"),
+    ("plan", "manual", "the --plan auto solver"),
+    ("auto_partition", False, "auto-partition"),
+    ("trace", None, "step-level tracing"),
+    ("trace_dir", None, "profiler trace capture"),
+    ("audit", None, "the compiled-program audit"),
+    ("checkpoint_dir", None, "checkpoints"),
+    ("resume", False, "resume from a checkpoint"),
+    ("checkpoint_every_steps", None, "step-granular checkpoints"),
+    ("hang_timeout_s", None, "the hang watchdog"),
+    ("inject", (), "fault injection and preemption"),
+    ("activation_log_dir", None, "activation logging"),
+    ("warmup_epochs", 0, "gradual lr warmup (it needs a dp strategy)"),
 )
 
 
@@ -228,22 +255,28 @@ class ServeConfig:
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """One training run = dataset x strategy x model, with the fields the
-    port's token-training path reads (the reference's names and defaults).
+    port's training loop reads (the reference's names and defaults).
 
-    ``fused_head_loss`` (the default, as in the reference) trains through
-    the fused projection + cross-entropy head (ops/fused_xent.py), which
-    never materialises the [B*T, V] logits; False takes the full logits.
+    ``fused_head_loss`` (the default, as in the reference) trains the token
+    workloads through the fused projection + cross-entropy head
+    (ops/fused_xent.py), which never materialises the [B*T, V] logits;
+    False takes the full logits; image models have no fused head.
     ``benchmark`` and ``arch`` default to the token path's ``synthtext`` /
-    ``transformer_s`` (the reference's mnist / resnet18 are not ported).
+    ``transformer_s``; the reference's defaults, ``mnist`` / ``resnet18``,
+    are the CLI's (cli.py).
     """
 
     benchmark: str = "synthtext"
     strategy: str = "single"
     arch: str = "transformer_s"
+    # the training protocol (the reference's EPOCHS=3, LOGINTER=25)
+    epochs: int = 3
+    log_interval: int = 25
     batch_size: Optional[int] = None
     steps_per_epoch: Optional[int] = None
-    # None = per-workload default (resolved_*): sgd, lr 0.01, momentum 0.5,
-    # weight decay 0 for the token workloads
+    # None = per-workload default (resolved_*): sgd everywhere but seq2seq
+    # (adam); lr 0.1, momentum 0.9 and weight decay 1e-4 on imagenet and
+    # highres, else lr 0.01, momentum 0.5, no weight decay
     optimizer: Optional[str] = None  # sgd | adam
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999
@@ -251,6 +284,13 @@ class RunConfig:
     lr: Optional[float] = None
     momentum: Optional[float] = None
     weight_decay: Optional[float] = None
+    # step decay: lr x gamma every lr_step_epochs epochs
+    lr_step_epochs: int = 30
+    lr_step_gamma: float = 0.1
+    # Goyal-et-al gradual warmup epochs: the ramp undoes a data-parallel
+    # world's lr scaling, so it waits for a dp strategy (validate() refuses
+    # it until then)
+    warmup_epochs: int = 0
     label_smoothing: Optional[float] = None
     compute_dtype: str = "bfloat16"
     attention_backend: str = "auto"  # auto | flash | xla
@@ -258,12 +298,28 @@ class RunConfig:
     # whose head supports it (the token/seq2seq workloads)
     fused_head_loss: bool = True
     # torch.utils.checkpoint per layer: the backward recomputes each layer
+    # (token models only: the recomputation would update BatchNorm's
+    # running statistics a second time)
     remat_layers: bool = False
     seed: int = 1
     grad_accum_steps: int = 1
     # the stability guard (not ported; validate() refuses both)
     anomaly_policy: Optional[str] = None
     loss_scale: Optional[Any] = None
+    # knobs of the reference's training loop the port does not implement
+    # yet: validate() raises NotImplementedError when one leaves its default
+    synthetic: bool = True
+    plan: str = "manual"
+    auto_partition: bool = False
+    trace: Optional[str] = None
+    trace_dir: Optional[str] = None
+    audit: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    resume: bool = False
+    checkpoint_every_steps: Optional[int] = None
+    hang_timeout_s: Optional[float] = None
+    inject: Tuple[str, ...] = ()
+    activation_log_dir: Optional[str] = None
 
     def dataset(self) -> DatasetSpec:
         return DATASETS[self.benchmark]
@@ -278,7 +334,9 @@ class RunConfig:
             return self.lr
         if self.resolved_optimizer() == "adam":
             return 1e-3
-        return 0.01  # the reference's token-workload default
+        if self.dataset().kind in STREAM_KINDS:
+            return 0.01
+        return 0.1 if self.benchmark in ("imagenet", "highres") else 0.01
 
     def resolved_label_smoothing(self) -> float:
         if self.label_smoothing is not None:
@@ -288,12 +346,12 @@ class RunConfig:
     def resolved_momentum(self) -> float:
         if self.momentum is not None:
             return self.momentum
-        return 0.5  # the reference's default outside imagenet/highres
+        return 0.9 if self.benchmark in ("imagenet", "highres") else 0.5
 
     def resolved_weight_decay(self) -> float:
         if self.weight_decay is not None:
             return self.weight_decay
-        return 0.0  # the reference's default outside imagenet/highres
+        return 1e-4 if self.benchmark in ("imagenet", "highres") else 0.0
 
     def global_batch(self) -> int:
         """The step's batch: ``single`` runs one batch of batch_size (or
@@ -307,6 +365,11 @@ class RunConfig:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported to the PyTorch "
                 "training path yet (only 'single')")
+        for name, default, what in _TRAIN_NOT_PORTED:
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{what} ({name}={getattr(self, name)!r}) is not ported "
+                    "to the PyTorch training path yet")
         if self.grad_accum_steps > 1:
             raise NotImplementedError(
                 "gradient accumulation (grad_accum_steps > 1) is not ported "
@@ -334,6 +397,12 @@ class RunConfig:
         if (self.label_smoothing is not None
                 and not 0.0 <= self.label_smoothing < 1.0):
             raise ValueError("label_smoothing must be in [0, 1)")
-        if self.dataset().kind not in STREAM_KINDS:
-            raise ValueError(f"{self.benchmark} is not a token or seq2seq "
-                             "workload")
+        if self.epochs < 1 or self.log_interval < 1:
+            raise ValueError("epochs and log_interval must be >= 1")
+        if self.lr_step_epochs < 1:
+            raise ValueError("lr_step_epochs must be >= 1")
+        if self.remat_layers and self.dataset().kind == "image":
+            raise NotImplementedError(
+                "per-layer remat (remat_layers) of the image models is not "
+                "ported: torch.utils.checkpoint's recomputation would "
+                "update BatchNorm's running statistics a second time")

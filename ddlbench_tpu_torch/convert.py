@@ -8,12 +8,23 @@ param list — each layer's dict of arrays, as numpy (``jax.device_get`` of
   table);
 * block: ``ln1``/``ln2`` ``scale``/``bias``, ``wqkv``, ``wo``, ``w1``,
   ``b1``, ``w2``, ``b2``;
-* head: ``ln_f`` ``scale``/``bias``, ``head``.
+* head: ``ln_f`` ``scale``/``bias``, ``head``;
+* image layers: ``kernel``, ``conv1``.. ``conv3``, ``proj``, ``expand``,
+  ``dw``, ``project`` (convolution kernels), ``bn*.scale``/``bias``,
+  ``w``/``b`` (dense).
 
 Parameters are matched by name, so a layer is covered whatever its
-family (transformer or seq2seq). Dense weights stay ``[in, out]`` — the
-port computes ``x @ W`` exactly as the JAX code does — so every array is
-copied as it is, nothing transposed.
+family. Dense weights stay ``[in, out]`` — the port computes ``x @ W``
+exactly as the JAX code does — and are copied as they are. Convolution
+kernels, the only 4-D arrays, go from the reference's HWIO to the port's
+OIHW (``permute(3, 2, 0, 1)``; a depthwise ``(3, 3, 1, hidden)`` becomes
+``(hidden, 1, 3, 3)``, convolved with ``groups=hidden``). The port
+flattens VGG's map in the reference's (H, W, C) order, so the
+classifier's first dense rows need no reordering.
+
+``from_jax_state(model, states_np)`` copies the reference's per-layer
+state list (``init_model``'s second output: BatchNorm's running ``mean``
+and ``var``) into the port's buffers the same way.
 
 ``from_jax_opt_state(optimizer, model, opt_np)`` carries the reference's
 optimizer state (``TrainState.opt``: SGD ``{"m"}``, Adam ``{"m", "v",
@@ -45,21 +56,30 @@ def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
             yield name, val
 
 
-def _pairs(model: LayerModel, tree_np: List[Dict]
-           ) -> Iterator[Tuple[str, torch.nn.Parameter, np.ndarray]]:
-    """(name, port parameter, reference array) for every parameter of
-    ``model`` against ``tree_np`` (one nested dict of arrays per layer),
-    which must cover exactly the port's parameters at their shapes."""
+def to_port_layout(arr) -> np.ndarray:
+    """A reference array in the port's layout: a 4-D (HWIO convolution)
+    kernel as OIHW, anything else as it is."""
+    arr = np.asarray(arr)
+    return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+
+
+def _pairs(model: LayerModel, tree_np: List[Dict], buffers: bool = False
+           ) -> Iterator[Tuple[str, torch.Tensor, np.ndarray]]:
+    """(name, port tensor, reference array in the port's layout) for every
+    parameter of ``model`` (every buffer with ``buffers``) against
+    ``tree_np`` (one nested dict of arrays per layer), which must cover
+    exactly the port's tensors at their shapes."""
     if len(tree_np) != len(model.layers):
-        raise ValueError(f"{len(tree_np)} param dicts for "
+        raise ValueError(f"{len(tree_np)} dicts for "
                          f"{len(model.layers)} layers")
     for i, (layer, tree) in enumerate(zip(model.layers, tree_np)):
-        own = dict(layer.named_parameters())
-        given = dict(_flatten(tree))
+        own = dict(layer.named_buffers() if buffers
+                   else layer.named_parameters())
+        given = {n: to_port_layout(a) for n, a in _flatten(tree)}
         if set(own) != set(given):
             raise ValueError(
-                f"layer {i}: params {sorted(given)} do not match the "
-                f"port's {sorted(own)}")
+                f"layer {i}: {sorted(given)} do not match the port's "
+                f"{sorted(own)}")
         for name, arr in given.items():
             if tuple(np.shape(arr)) != tuple(own[name].shape):
                 raise ValueError(
@@ -80,6 +100,16 @@ def from_jax_params(model: LayerModel, params_np: List[Dict]) -> LayerModel:
     of the same shape, and every parameter must be covered."""
     for _, p, arr in list(_pairs(model, params_np)):
         p.copy_(_tensor_like(arr, p))
+    return model
+
+
+@torch.no_grad()
+def from_jax_state(model: LayerModel, states_np: List[Dict]) -> LayerModel:
+    """Copy the reference's per-layer state list ``states_np`` (BatchNorm
+    running statistics; ``{}`` for a stateless layer) into ``model``'s
+    buffers in place and return it. Every buffer must be covered."""
+    for _, b, arr in list(_pairs(model, states_np, buffers=True)):
+        b.copy_(_tensor_like(arr, b))
     return model
 
 

@@ -1,13 +1,15 @@
-"""Synthetic token batches made on the device (the token and seq2seq
-branches of ``ddlbench_tpu/data/synthetic.py``).
+"""Synthetic batches made on the device (``ddlbench_tpu/data/synthetic.py``).
 
 Each batch comes from a ``torch.Generator`` seeded per (seed, epoch, step),
 so every batch is distinct and reproducible, and is drawn on the device the
-model runs on: no host I/O. Next-token setup: T+1 tokens are drawn, and the
+model runs on: no host I/O. Images: uniform [0, 1) pixels normalised as
+``(x - 0.5) / 0.2887`` (the std of U[0, 1)), float32 ``[B, C, H, W]``
+(channels_last on the card, the layout the image models run in there), and
+labels uniform over the classes. Tokens: T+1 tokens are drawn, and the
 inputs and labels are their two length-T shifts; a seq2seq stream
 ([source | target]) also masks the source-internal labels
-(:func:`mask_source_labels`). The stream is not JAX's (the two generators
-differ); tests feed both packages one numpy batch.
+(:func:`mask_source_labels`). The streams are not JAX's (the two
+generators differ); tests feed both packages one numpy batch.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ddlbench_tpu_torch.config import STREAM_KINDS, DatasetSpec
+from ddlbench_tpu_torch.config import DatasetSpec
 
 # odd multiplier that folds (seed, epoch, step) into one generator seed
 _FOLD = 1_000_003
@@ -34,7 +36,7 @@ def mask_source_labels(labels: torch.Tensor, src_len: int) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticData:
-    """Synthetic token dataset bound to one DatasetSpec and device."""
+    """Synthetic dataset bound to one DatasetSpec and device."""
 
     spec: DatasetSpec
     batch_size: int
@@ -57,11 +59,22 @@ class SyntheticData:
 
     def batch(self, epoch: int, step: int,
               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(x, y) int64 [batch, T] on the device: y is x shifted by one
+        """(x, y) on the device: images float32 [batch, C, H, W] and int64
+        labels [batch]; tokens int64 [batch, T], y being x shifted by one
         (source positions masked for a seq2seq stream)."""
         seed = self.seed + (0 if train else 1_000_003)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(((seed * _FOLD + epoch) * _FOLD + step) % (1 << 63))
+        if self.spec.kind == "image":
+            h, w, c = self.spec.image_size
+            x = torch.rand((self.batch_size, c, h, w), generator=gen,
+                           device=self.device)
+            x = (x - 0.5) / 0.2887
+            if self.device.type == "cuda":
+                x = x.contiguous(memory_format=torch.channels_last)
+            y = torch.randint(0, self.spec.num_classes, (self.batch_size,),
+                              generator=gen, device=self.device)
+            return x, y
         T = self.spec.seq_len
         seq = torch.randint(0, self.spec.num_classes, (self.batch_size, T + 1),
                             generator=gen, device=self.device)
@@ -76,9 +89,6 @@ def make_synthetic(spec: DatasetSpec, batch_size: int, device: torch.device,
                    steps_per_epoch: Optional[int] = None) -> SyntheticData:
     """Build a SyntheticData; ``steps_per_epoch`` overrides the dataset-size
     step counts, as in the reference."""
-    if spec.kind not in STREAM_KINDS:
-        raise ValueError(f"{spec.name}: the port makes token and seq2seq "
-                         "batches only")
     train = steps_per_epoch * batch_size if steps_per_epoch else None
     test = (max(batch_size, steps_per_epoch * batch_size // 5)
             if steps_per_epoch else None)

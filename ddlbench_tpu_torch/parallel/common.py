@@ -3,20 +3,23 @@
 The port of the one-apply pieces of ``ddlbench_tpu/parallel/common.py``:
 the cross-entropy loss and the top-1/top-k counts, the dense branches of
 ``loss_with_moe_aux`` (the fused LM head and the full logits), the
-single-apply ``loss_and_grads``, ``eval_metrics`` (fused and logits), and
+single-apply ``loss_and_grads``, ``eval_metrics`` (fused and logits),
 ``make_optimizer`` as ``torch.optim.SGD`` / ``torch.optim.Adam``, whose
 update rules the reference reimplements (``tests/test_optimizers.py`` pins
-them equal).
+them equal), the step-decay learning rate (``step_decay_lr``) and ``cast_input``.
 
 The model is applied on compute-dtype casts of its float32 parameters
-(models/layers.apply_slice); the logits loss upcasts the logits to
-float32, the fused head (ops/fused_xent.py) computes in float32 without
-them. Metrics stay tensors: nothing here waits for the device.
+(models/layers.apply_slice) and of a floating-point input (images); the
+logits loss upcasts the logits to float32, the fused head
+(ops/fused_xent.py) computes in float32 without them. The loss applies the
+model in train mode (BatchNorm normalises with the batch statistics and
+updates its running ones), the eval metrics in eval mode. Metrics stay
+tensors: nothing here waits for the device.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,12 +29,29 @@ from ddlbench_tpu_torch.models.layers import (LayerModel, apply_model,
                                              apply_slice)
 
 
+def step_decay_lr(base_lr: float, epoch: int, step_epochs: int,
+                  gamma: float) -> float:
+    """lr x gamma every ``step_epochs`` epochs (``epoch`` 0-based)."""
+    return base_lr * (gamma ** (epoch // step_epochs))
+
+
+def cast_input(x: torch.Tensor, dtype: Optional[torch.dtype]
+               ) -> torch.Tensor:
+    """A batch in the compute dtype; integer inputs (token ids) pass
+    through."""
+    if dtype is None or not x.is_floating_point():
+        return x
+    return x.to(dtype)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        smoothing: float = 0.0) -> torch.Tensor:
-    """Mean CE over valid label positions (``labels >= 0``), in float32;
-    logits [..., V], labels [...]. ``smoothing`` is GNMT-style label
-    smoothing: loss_tok = (1-s)*NLL(gold) - s*mean_v(logp_v)."""
-    logp = F.log_softmax(logits.float(), dim=-1)
+    """Mean CE over valid label positions (``labels >= 0``), in float32
+    (float64 logits stay float64); logits [..., V], labels [...].
+    ``smoothing`` is GNMT-style label smoothing: loss_tok =
+    (1-s)*NLL(gold) - s*mean_v(logp_v)."""
+    logp = F.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0).long()
     nll = -logp.gather(-1, safe[..., None])[..., 0]
@@ -99,6 +119,8 @@ def loss_with_moe_aux(model: LayerModel, x: torch.Tensor, y: torch.Tensor,
     the fused path and the full logits are never materialised. MoE archs
     (whose router aux losses this would add) are refused by
     RunConfig.validate."""
+    model.train()
+    x = cast_input(x, compute_dtype)
     if fused and head_fusable(model):
         obj_sum, ce_sum, correct, valid = fused_head_loss_sums(
             model, x, y, compute_dtype, smoothing, remat)
@@ -128,9 +150,11 @@ def loss_and_grads(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
 def eval_metrics(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
                  y: torch.Tensor,
                  compute_dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """The eval step's {loss, correct, correct5, count}: through the fused
-    head (no [N, V] logits) when it is enabled and the head supports it,
-    else through the full logits."""
+    """The eval step's {loss, correct, correct5, count}, the model in eval
+    mode: through the fused head (no [N, V] logits) when it is enabled and
+    the head supports it, else through the full logits."""
+    model.eval()
+    x = cast_input(x, compute_dtype)
     with torch.no_grad():
         if cfg.fused_head_loss and head_fusable(model):
             ce_sum, correct, correct5, count = fused_head_eval_sums(

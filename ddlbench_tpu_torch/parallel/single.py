@@ -2,9 +2,11 @@
 
 The port of ``ddlbench_tpu/parallel/single.py``. The reference jits the
 whole step over an immutable TrainState; here the model's float32 master
-parameters and the torch.optim state live in the strategy and are updated
-in place, so ``train_step`` takes only the batch and the learning rate.
-The step holds no host sync: its metrics are device tensors.
+parameters, its BatchNorm running statistics (the reference's
+``model_state``) and the torch.optim state live in the strategy and are
+updated in place, so ``train_step`` takes only the batch and the learning
+rate. ``train_step`` applies the model in train mode, ``eval_step`` in
+eval mode. The step holds no host sync: its metrics are device tensors.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
-"""Serving latency/goodput aggregation.
+"""Step-latency and serving latency/goodput aggregation.
 
-The port's copy of ``percentile``, ``request_slo_ok`` and ``serve_summary``
-from ``ddlbench_tpu/telemetry/stats.py`` (without the per-tier split, since
-the port has no SLO tiers yet). Pure host arithmetic: the same finished
+The port's copy of ``percentile``, ``latency_summary``, ``request_slo_ok``
+and ``serve_summary`` from ``ddlbench_tpu/telemetry/stats.py`` (without the
+per-tier split, since the port has no SLO tiers yet). Pure host arithmetic: the same finished
 records give the same summary in both packages, bit for bit.
 """
 
@@ -25,6 +25,19 @@ def percentile(samples: List[float], q: float) -> float:
     if lo == hi:
         return s[int(k)]
     return s[lo] + (s[hi] - s[lo]) * (k - lo)
+
+
+def latency_summary(samples_s: List[float]) -> Dict[str, float]:
+    """p50/p95/p99/max (milliseconds) and the count of one sample set (in
+    seconds)."""
+    ms = [t * 1e3 for t in samples_s]
+    return {
+        "p50_ms": percentile(ms, 50.0),
+        "p95_ms": percentile(ms, 95.0),
+        "p99_ms": percentile(ms, 99.0),
+        "max_ms": max(ms) if ms else 0.0,
+        "steps": len(ms),
+    }
 
 
 def request_slo_ok(rec: Dict, slo_ttft: Optional[float] = None,
