@@ -224,8 +224,9 @@ one JSON line; any failure raises and exits non-zero:
              gradients show it). (b) image:
              the main path at full width, resnet50/imagenet, B 128,
              bfloat16 on float32 masters, channels_last, cudnn.benchmark
-             on, through make_strategy / train_step / timed_steps, 2
-             warm-up and 10 timed steps: every loss finite; images/sec,
+             on, through make_strategy / train_step /
+             timed_steps_prefetched at depth 0, 2 warm-up and 10 timed
+             steps: every loss finite; images/sec,
              step p50/p95 (CUDA events) and one step's peak memory. (c)
              image_profile: 3 warm steps under torch.profiler: the
              device's busy share and its time by kernel group
@@ -239,6 +240,49 @@ one JSON line; any failure raises and exits non-zero:
              of 3), then image_models: one short bench row (B 32, 3 warm-up
              and 5 steps) for each of resnet18, resnet152, vgg11, vgg16
              and mobilenetv2 on imagenet.
+13. real_data — on-disk images, which run no port kernel either (the
+             native loader is host C++ built by g++ from
+             native/dataloader.cpp; augmentation and normalisation are
+             torch ops on the card). (a) real_ingest: an MNIST IDX pair
+             and CIFAR-10 data_batch_*/test_batch pickles of seeded uint8
+             images, written with struct and pickle to a temporary
+             directory, imported through the port: each store's bytes,
+             labels, shape and count as written. (b) real_augment:
+             cifar10's pad-4 crop + flip and imagenet's flip of a seeded
+             B 128 uint8 batch on the card against the same function on
+             the CPU at three (epoch, step) keys: the uint8 batch bitwise,
+             the normalised bfloat16 batch exactly; planted faults, each
+             rejected: the flip over H, an exclusive randint upper bound,
+             and the loader's ring handed over without a copy (batch 0's
+             bytes change after depth + 2 further batches; at depths 1
+             and 2). (c) real_data_cli, the main path at full width:
+             ``python -m ddlbench_tpu_torch.cli -b imagenet -f single -m
+             resnet50 -s --data-dir D -e 1 --steps-per-epoch 20
+             --batch-size 128 --dtype bfloat16`` in-process on a store of
+             20 x 128 train and 2 x 128 test images written by the port's
+             generate_dataset (about 390 MB, removed after), at prefetch
+             depth 2 and with --no-prefetch: images/s, step p50/p95, the
+             input stall and its share of the epoch, peak memory, the
+             reference's lines, every logged loss finite; before them,
+             what a batch costs the producer alone (the host ms of the
+             copy out of the ring and of queueing the upload, augmentation
+             and normalisation, and the device ms of that work). (d) real_accum:
+             resnet50/imagenet, one step of 2 micro-steps of 2 rows
+             (--grad-accum-steps 2) in float64 on the card against the
+             CPU: loss, every gradient leaf and every running statistic
+             within 1e-9 (floored as in 12). (e) image_bench_prefetch:
+             tools/bench's headline record at --prefetch-depth 2 (12's)
+             and at 0.
+14. image_zoo — lenet, alexnet, squeezenet, resnext50, densenet121,
+             inception and nasnet at imagenet width (the CPU's float64
+             step takes a few seconds for each): one training step at B 2
+             in float64 on the card against the CPU's from the same
+             weights, within 1e-9 as in 12; three planted faults, each
+             rejected: AvgPool excluding the padding (nasnet), densenet's
+             concat in the wrong order, resnext's grouped kernel with its
+             group axes swapped; then a short bench row for each (B 32,
+             bf16, channels_last, 3 warm-up and 5 steps): images/s, step
+             p50/p95, peak memory.
 
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
@@ -251,6 +295,7 @@ prints no result.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -378,6 +423,22 @@ IMAGE_SHORT_ARCHS = ("resnet18", "resnet152", "vgg11", "vgg16",
                      "mobilenetv2")
 IMAGE_SHORT_ARGS = ["--benchmark", "imagenet", "--batch-size", "32",
                     "--warmup", "3", "--steps", "5", "--repeats", "1"]
+# real data (phase 13): the main path's batch and store (steps of train,
+# of test), the CLI's arguments (the store's directory added), the
+# augmentation check's batch and (epoch, step) keys, the accumulation
+# check's micro-batch and K, and the ring fault's prefetch depths
+REAL_B, REAL_STEPS, REAL_TEST_STEPS = 128, 20, 2
+REAL_CLI_ARGS = ["-b", "imagenet", "-f", "single", "-m", "resnet50", "-s",
+                 "-e", "1", "--steps-per-epoch", str(REAL_STEPS),
+                 "--batch-size", str(REAL_B), "--dtype", "bfloat16", "-p",
+                 "5"]
+AUG_B, AUG_KEYS = 128, ((0, 0), (1, 7), (3, 19))
+ACCUM_MICRO_B, ACCUM_K = 2, 2
+RING_DEPTHS = (1, 2)
+# the rest of the image zoo (phase 14), each checked at imagenet width
+ZOO_ARCHS = ("lenet", "alexnet", "squeezenet", "resnext50", "densenet121",
+             "inception", "nasnet")
+ZOO_CHECK_B = 2
 # (name, N, D, V, smoothing, masking) of the fused-head checks
 FX_CASES = (
     ("lmbench", *FX_HEAD, 0.0, "none"),
@@ -2062,6 +2123,17 @@ def image_step(torch, model, x, y, cfg, dtype):
             [b.detach().double().cpu() for b in model.buffers()])
 
 
+def worst_leaf(got, want) -> float:
+    """The largest relative L2 error of ``got``'s leaves against
+    ``want``'s, each leaf measured against at least IMAGE_FLOOR of the
+    largest leaf of ``want`` (0 for no leaves)."""
+    if not want:
+        return 0.0
+    floor = max(IMAGE_FLOOR * max(b.norm().item() for b in want), 1e-30)
+    return max(((a - b).norm() / max(b.norm().item(), floor)).item()
+               for a, b in zip(got, want))
+
+
 def image_agreement(card, card64, cpu, f64):
     """The card's float32 and float64 steps against the CPU's. float64:
     the loss, every gradient leaf and every running statistic within
@@ -2072,10 +2144,7 @@ def image_agreement(card, card64, cpu, f64):
     IMAGE_GRAD_RTOL or twice the CPU float32 step's worst leaf, whichever
     is larger. Leaves are measured with the IMAGE_FLOOR of their kind.
     Returns the record with "ok"."""
-    def worst(got, want):
-        floor = max(IMAGE_FLOOR * max(b.norm().item() for b in want), 1e-30)
-        return max(((a - b).norm() / max(b.norm().item(), floor)).item()
-                   for a, b in zip(got, want))
+    worst = worst_leaf
 
     def loss_rel(a, b):
         return abs(a[0] - b[0]) / abs(b[0])
@@ -2204,13 +2273,15 @@ def image_card_vs_cpu(torch, dev):
 def image_main_path(torch, dev):
     """resnet50/imagenet at B 128, bfloat16 on float32 masters,
     channels_last, cudnn.benchmark on, through make_strategy / train_step
-    / timed_steps: 2 warm-up and 10 timed steps, every loss finite; then
-    one more step's peak device memory."""
+    / timed_steps_prefetched at depth 0 (each batch made inline): 2
+    warm-up and 10 timed steps, every loss finite; then one more step's
+    peak device memory."""
     from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.prefetch import Prefetcher
     from ddlbench_tpu_torch.data.synthetic import make_synthetic
     from ddlbench_tpu_torch.parallel.api import make_strategy
     from ddlbench_tpu_torch.telemetry.stats import percentile
-    from ddlbench_tpu_torch.tools.timing import timed_steps_detail
+    from ddlbench_tpu_torch.tools.timing import timed_steps_prefetched
 
     torch.backends.cudnn.benchmark = True
     cfg = RunConfig(benchmark="imagenet", arch="resnet50",
@@ -2225,11 +2296,12 @@ def image_main_path(torch, dev):
         losses.append(m["loss"])
         return m
 
-    dt, stall_s, step_s = timed_steps_detail(run_step, data.batch,
-                                             IMAGE_STEPS, IMAGE_WARMUP)
+    dt, stall_s, steps, step_s = timed_steps_prefetched(
+        run_step, Prefetcher(data, depth=0), IMAGE_WARMUP)
     loss_vals = torch.stack(losses).float().tolist()
-    if not all(math.isfinite(v) for v in loss_vals):
-        raise AssertionError(f"non-finite resnet50 loss: {loss_vals}")
+    if steps != IMAGE_STEPS or not all(math.isfinite(v) for v in loss_vals):
+        raise AssertionError(f"{steps} resnet50 steps of {IMAGE_STEPS}, "
+                             f"losses {loss_vals}")
     layout = next(strategy.model.parameters()).is_contiguous(
         memory_format=torch.channels_last)
     x, y = data.batch(2, 0)
@@ -2381,11 +2453,449 @@ def phase_image(torch, dev):
     torch.cuda.empty_cache()
     emit({"phase": "image_cli", **image_cli(torch)})
     torch.cuda.empty_cache()
-    emit({"phase": "image_bench", "headline": image_bench(torch, [])})
+    headline = image_bench(torch, [])
+    emit({"phase": "image_bench", "headline": headline})
     rows = [image_bench(torch, ["--arch", arch] + IMAGE_SHORT_ARGS)
             for arch in IMAGE_SHORT_ARCHS]
     emit({"phase": "image_models", "rows": rows})
     emit({"phase": "image_seconds", "seconds": time.perf_counter() - t0})
+    return headline
+
+
+def f64_agreement(card, cpu):
+    """The float64 card step against the float64 CPU step: the loss's
+    relative error and the worst gradient leaf's and running statistic's
+    relative L2 (with the IMAGE_FLOOR of their kind); "ok" when all are
+    within IMAGE_F64_RTOL."""
+    rec = {"loss_card": card[0], "loss_cpu": cpu[0],
+           "loss_rel": abs(card[0] - cpu[0]) / abs(cpu[0]),
+           "worst_grad_rel_l2": worst_leaf(card[1], cpu[1]),
+           "worst_stat_rel_l2": worst_leaf(card[2], cpu[2])}
+    rec["ok"] = all(rec[k] <= IMAGE_F64_RTOL for k in
+                    ("loss_rel", "worst_grad_rel_l2", "worst_stat_rel_l2"))
+    return rec
+
+
+def f64_card_step(torch, initial, x, y, cfg, dev):
+    """image_step of a float64 copy of ``initial`` on the card
+    (channels_last)."""
+    import copy
+
+    model = copy.deepcopy(initial).to(dev, torch.float64).to(
+        memory_format=torch.channels_last)
+    xd = x.to(dev, torch.float64).contiguous(
+        memory_format=torch.channels_last)
+    return image_step(torch, model, xd, y.to(dev), cfg, None)
+
+
+def real_ingest(root: Path):
+    """13a: an MNIST IDX pair and CIFAR-10 pickles of seeded uint8 images,
+    written here with struct and pickle, imported through the port
+    (resolve_split): each store's bytes, labels, shape and count must be
+    what was written."""
+    import pickle
+    import struct
+
+    import numpy as np
+
+    from ddlbench_tpu_torch.config import DATASETS
+    from ddlbench_tpu_torch.data.imagefolder import resolve_split
+
+    rng = np.random.default_rng(0)
+    src = root / "ingest"
+    src.mkdir()
+    written = {}
+    for prefix, split, n in (("train", "train", 60), ("t10k", "test", 20)):
+        imgs = rng.integers(0, 256, (n, 28, 28), dtype=np.uint8)
+        labels = rng.integers(0, 10, n, dtype=np.uint8)
+        with open(src / f"{prefix}-images-idx3-ubyte", "wb") as f:
+            f.write(struct.pack(">BBBB3I", 0, 0, 8, 3, n, 28, 28))
+            f.write(imgs.tobytes())
+        with open(src / f"{prefix}-labels-idx1-ubyte", "wb") as f:
+            f.write(struct.pack(">BBBBI", 0, 0, 8, 1, n))
+            f.write(labels.tobytes())
+        written[("mnist", split)] = (imgs[..., None], labels)
+    cifar = src / "cifar-10-batches-py"
+    cifar.mkdir()
+    parts = {"train": [], "test": []}
+    for name, n in [(f"data_batch_{i}", 10) for i in range(1, 6)] + [
+            ("test_batch", 8)]:
+        rows = rng.integers(0, 256, (n, 3072), dtype=np.uint8)
+        labels = rng.integers(0, 10, n).tolist()
+        with open(cifar / name, "wb") as f:
+            pickle.dump({b"data": rows, b"labels": labels}, f)
+        parts["test" if name == "test_batch" else "train"].append(
+            (rows, labels))
+    for split, got in parts.items():
+        rows = np.concatenate([r for r, _ in got])
+        written[("cifar10", split)] = (
+            rows.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1),
+            np.concatenate([lb for _, lb in got]))
+    stores = {}
+    for (name, split), (imgs, labels) in written.items():
+        d = Path(resolve_split(str(src), DATASETS[name], split))
+        meta = json.loads((d / "meta.json").read_text())
+        ok = ((d / "images.bin").read_bytes()
+              == np.ascontiguousarray(imgs).tobytes()
+              and np.array_equal(np.fromfile(d / "labels.bin", np.int32),
+                                 labels.astype(np.int32))
+              and (meta["h"], meta["w"], meta["c"])
+              == tuple(DATASETS[name].image_size)
+              and meta["count"] == len(labels))
+        stores[f"{name}/{split}"] = {"count": meta["count"], "ok": ok}
+        if not ok:
+            raise AssertionError(f"the {name} {split} import is not what "
+                                 f"was written: {meta}")
+    return stores
+
+
+def ring_check(torch, dev, root: Path, depth, fault):
+    """Batch 0's raw bytes of an on-disk cifar10 stream on the card,
+    held while depth + 2 more batches are drawn through the prefetcher,
+    against a fresh stream's batch 0. ``fault``: the loader's ring handed
+    over without a copy. Returns whether they are equal."""
+    from ddlbench_tpu_torch.config import DATASETS
+    from ddlbench_tpu_torch.data import ondisk
+    from ddlbench_tpu_torch.data.prefetch import Prefetcher
+
+    kw = dict(train_count=64, test_count=8, seed=4, augment=False)
+    data = ondisk.OnDiskData(str(root), DATASETS["cifar10"], 8, dev, **kw)
+    if fault:  # the reference's ring of max(2, depth + 1) buffer pairs
+        loader, turn = data._loaders["train"], itertools.count()
+        ring = [(torch.empty(loader.shape, dtype=torch.uint8),
+                 torch.empty(loader.batch_size, dtype=torch.int32))
+                for _ in range(max(2, depth + 1))]
+
+        def raw(train=True):
+            return loader.next(into=ring[next(turn) % len(ring)])
+
+        data.raw = raw
+    held, prepare = [], data.prepare
+
+    def keep(imgs, labels, *a, **k):
+        held.append(imgs)
+        return prepare(imgs, labels, *a, **k)
+
+    data.prepare = keep
+    stream = Prefetcher(data, depth=depth).stream(1)
+    for _ in range(depth + 3):
+        next(stream)
+    stream.close()
+    data.close()
+    fresh = ondisk.OnDiskData(str(root), DATASETS["cifar10"], 8,
+                              torch.device("cpu"), **kw)
+    want = fresh.raw()[0]
+    fresh.close()
+    return torch.equal(held[0].cpu(), want)
+
+
+def real_augment(torch, dev, root: Path):
+    """13b: cifar10's pad-crop + flip and imagenet's flip of a seeded uint8
+    batch of AUG_B on the card against the same function on the CPU, at
+    AUG_KEYS: the uint8 batch bitwise, the normalised bfloat16 batch
+    exactly. Planted faults, each rejected: the flip over H, an exclusive
+    randint upper bound (cifar10), and the loader's ring handed over
+    without a copy (batch 0 changes after depth + 2 further batches)."""
+    from ddlbench_tpu_torch.data import ondisk
+    from ddlbench_tpu_torch.ops import threefry
+
+    def flip_over_h(imgs, key, pad, flip):
+        m = threefry.bernoulli(threefry.split(key)[1], 0.5,
+                               (imgs.shape[0],)).to(imgs.device)
+        return torch.where(m[:, None, None, None], imgs.flip(1), imgs)
+
+    def exclusive_randint(imgs, key, pad, flip):
+        real = threefry.randint
+        threefry.randint = lambda k, s, lo, hi: real(k, s, lo, hi - 1)
+        try:
+            return ondisk.augment_u8(imgs, key, pad, flip)
+        finally:
+            threefry.randint = real
+
+    g = torch.Generator().manual_seed(0)
+    table = ondisk.normalize_table().to(torch.bfloat16)
+    table_card = table.to(dev)
+    out = {}
+    for name, hwc in (("cifar10", (32, 32, 3)), ("imagenet", (224, 224, 3))):
+        pol = ondisk.AUGMENT[name]
+        imgs = torch.randint(0, 256, (AUG_B, *hwc), generator=g,
+                             dtype=torch.uint8)
+        card = imgs.to(dev)
+        faults = {"flip_over_h": flip_over_h}
+        if pol["pad"]:
+            faults["exclusive_randint"] = exclusive_randint
+        rejected = dict.fromkeys(faults, False)
+        u8_equal = bf16_equal = True
+        for epoch, step in AUG_KEYS:
+            key = ondisk.augment_key(1, epoch, REAL_STEPS, step)
+            want = ondisk.augment_u8(imgs, key, **pol)
+            got = ondisk.augment_u8(card, key, **pol)
+            u8_equal &= torch.equal(got.cpu(), want)
+            bf16_equal &= torch.equal(table_card[got.int()].cpu(),
+                                      table[want.int()])
+            for f, fn in faults.items():
+                rejected[f] |= not torch.equal(fn(card, key, **pol).cpu(),
+                                               want)
+        out[name] = {"policy": pol, "u8_bitwise": u8_equal,
+                     "bf16_exact": bf16_equal, "planted_faults": rejected}
+    ring = {f"depth{d}": {"copied_unchanged": ring_check(torch, dev, root, d,
+                                                         False),
+                          "ring_view_rejected": not ring_check(
+                              torch, dev, root, d, True)}
+            for d in RING_DEPTHS}
+    ok = (all(r["u8_bitwise"] and r["bf16_exact"]
+              and all(r["planted_faults"].values()) for r in out.values())
+          and all(all(r.values()) for r in ring.values()))
+    if not ok:
+        raise AssertionError(f"on-device augmentation: {out} {ring}")
+    return {"batch": AUG_B, "keys": AUG_KEYS, "datasets": out,
+            "ring": ring}
+
+
+def real_cli(torch, root: Path):
+    """13c: the main path at full width: the CLI on an on-disk imagenet
+    store of REAL_STEPS x REAL_B train and REAL_TEST_STEPS x REAL_B test
+    images (the port's generate_dataset), at prefetch depth 2 and with
+    --no-prefetch: images/s, step p50/p95, the input stall and its share
+    of the epoch, peak memory; every logged loss finite, the reference's
+    lines."""
+    import contextlib
+    import io
+
+    from ddlbench_tpu_torch import cli
+    from ddlbench_tpu_torch.config import DATASETS
+    from ddlbench_tpu_torch.data.native_loader import generate_dataset
+
+    spec = DATASETS["imagenet"]
+    t0 = time.perf_counter()
+    for split, n in (("train", REAL_STEPS), ("test", REAL_TEST_STEPS)):
+        generate_dataset(str(root), spec, split, count=n * REAL_B, seed=1)
+    gen_s = time.perf_counter() - t0
+    store_bytes = sum(f.stat().st_size for f in
+                      (root / "imagenet").rglob("*.bin"))
+    producer = producer_costs(torch, root, spec)
+    runs = {}
+    for label, extra in (("prefetch_depth_2", ["--prefetch-depth", "2"]),
+                         ("no_prefetch", ["--no-prefetch"])):
+        argv = REAL_CLI_ARGS + ["--data-dir", str(root)] + extra
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(argv)
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            print(line, flush=True)
+        kinds = {k: sum(line.startswith(k) for line in lines)
+                 for k in ("train | ", "epoch 1/1 done", "valid | ",
+                           "valid accuracy: ", "result: ")}
+        result = json.loads(lines[-1][len("result: "):])
+        losses = [float(re.search(r"loss (\S+)", line).group(1))
+                  for line in lines if line.startswith("train | ")]
+        if not (rc == 0 and kinds["train | "] == REAL_STEPS // 5
+                and all(kinds[k] == 1 for k in kinds if k != "train | ")
+                and all(math.isfinite(v) for v in losses)):
+            raise AssertionError(f"the real-data CLI ({label}): rc {rc}, "
+                                 f"{kinds}, losses {losses}")
+        runs[label] = {
+            "argv": argv, "train_losses": losses,
+            "images_per_sec": result["samples_per_sec"],
+            "step_ms_p50": result["step_time_p50_ms"],
+            "step_ms_p95": result["step_time_p95_ms"],
+            "input_stall_ms": result["input_stall_ms_per_epoch"],
+            "stall_frac": result["input_stall_ms_per_epoch"]
+            / (1e3 * result["sec_per_epoch"]),
+            "sec_per_epoch": result["sec_per_epoch"],
+            "valid_history": result["valid_history"],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    return {"store_images": (REAL_STEPS + REAL_TEST_STEPS) * REAL_B,
+            "store_bytes": store_bytes, "generate_seconds": gen_s,
+            "producer_ms_per_batch": producer, "runs": runs}
+
+
+def producer_costs(torch, root: Path, spec):
+    """The host milliseconds a batch of the store costs the producer, on
+    this thread with no step running, the mean over an epoch: copying it
+    out of the loader's ring into pinned memory (``raw``) and queueing its
+    upload, augmentation and normalisation (``prepare``); then the device
+    milliseconds of that queued work for the epoch, per batch."""
+    from ddlbench_tpu_torch.data.ondisk import OnDiskData
+
+    data = OnDiskData(str(root), spec, REAL_B, torch.device("cuda"),
+                      seed=1, dtype=torch.bfloat16)
+    raw_s = prep_s = 0.0
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for step in range(REAL_STEPS):
+        t0 = time.perf_counter()
+        imgs, labels = data.raw()
+        t1 = time.perf_counter()
+        data.prepare(imgs, labels, 1, step)
+        raw_s += t1 - t0
+        prep_s += time.perf_counter() - t1
+    end.record()
+    torch.cuda.synchronize()
+    data.close()
+    return {"raw_host": 1e3 * raw_s / REAL_STEPS,
+            "prepare_host": 1e3 * prep_s / REAL_STEPS,
+            "device": start.elapsed_time(end) / REAL_STEPS}
+
+
+def real_accum(torch, dev):
+    """13d: resnet50/imagenet, one step of ACCUM_K micro-steps of
+    ACCUM_MICRO_B rows (grad_accum_steps), float64, on the card against
+    the CPU: loss, every gradient leaf and every running statistic within
+    IMAGE_F64_RTOL; the K-step must differ from the one-batch step."""
+    import copy
+
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.models.zoo import get_model
+
+    cfg = RunConfig(benchmark="imagenet", arch="resnet50", seed=0,
+                    batch_size=ACCUM_MICRO_B, grad_accum_steps=ACCUM_K,
+                    compute_dtype="float32")
+    cfg.validate()
+    initial = get_model(cfg.arch, cfg.benchmark, seed=0)
+    x, y = make_synthetic(cfg.dataset(), cfg.global_batch(),
+                          torch.device("cpu"), seed=0).batch(0, 0)
+    cpu = image_step(torch, copy.deepcopy(initial).double(), x.double(), y,
+                     cfg, None)
+    card = f64_card_step(torch, initial, x, y, cfg, dev)
+    rec = f64_agreement(card, cpu)
+    one = image_step(torch, copy.deepcopy(initial).double(), x.double(), y,
+                     RunConfig(benchmark="imagenet", arch="resnet50",
+                               batch_size=cfg.global_batch()), None)
+    rec["one_batch_loss"] = one[0]
+    if not (rec["ok"] and one[0] != cpu[0]):
+        raise AssertionError(f"grad accumulation on the card: {rec}")
+    return {"model": cfg.arch, "global_batch": cfg.global_batch(),
+            "grad_accum_steps": ACCUM_K, "dtype": "float64",
+            "rtol": IMAGE_F64_RTOL, **rec}
+
+
+def phase_real_data(torch, dev):
+    """Real image data on the card (phase 13 of the docstring)."""
+    import tempfile
+
+    from ddlbench_tpu_torch.data import native_loader
+
+    t0 = time.perf_counter()
+    native_loader.build()
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_data_") as tmp:
+        root = Path(tmp)
+        emit({"phase": "real_ingest", "loader_build_seconds": build_s,
+              "stores": real_ingest(root)})
+        emit({"phase": "real_augment",
+              **real_augment(torch, dev, root / "ring")})
+        emit({"phase": "real_data_cli", **real_cli(torch, root / "store")})
+    emit({"phase": "real_accum", **real_accum(torch, dev)})
+    torch.cuda.empty_cache()
+    return {"seconds": time.perf_counter() - t0}
+
+
+def zoo_faults(torch, dev, cpu_steps, batches, cfgs, initial):
+    """14's planted faults, each on the card against its arch's CPU float64
+    step, each rejected: AvgPool excluding the padding (nasnet),
+    densenet's concat in the wrong order, and resnext's grouped kernel
+    with its group axes swapped."""
+    import torch.nn.functional as F
+
+    from ddlbench_tpu_torch.models import extra, layers
+
+    def avg_excluding(self, x):
+        return F.avg_pool2d(x, self.window, self.stride,
+                            padding=self.window // 2,
+                            count_include_pad=False)
+
+    def dense_reversed(self, x):
+        feats = x
+        for i in range(self.n_layers):
+            y = F.relu(getattr(self, f"l{i}_bn1")(feats))
+            y = layers.conv2d(y, getattr(self, f"l{i}_c1"))
+            y = F.relu(getattr(self, f"l{i}_bn2")(y))
+            y = layers.conv2d(y, getattr(self, f"l{i}_c2"))
+            feats = torch.cat([y.to(feats.dtype), feats], dim=1)
+        return feats
+
+    def groups_swapped(self, x):
+        w = self.c2
+        swapped = w.reshape(self.groups, w.shape[0] // self.groups,
+                            *w.shape[1:]).transpose(0, 1).reshape(w.shape)
+        y = F.relu(self.bn1(layers.conv2d(x, self.c1)))
+        y = F.relu(self.bn2(layers.conv2d(y, swapped, self.stride,
+                                          self.groups)))
+        y = self.bn3(layers.conv2d(y, self.c3))
+        sc = (x if self.proj is None
+              else self.bnp(layers.conv2d(x, self.proj, self.stride)))
+        return F.relu(y + sc)
+
+    out = {}
+    for name, arch, target, fault in (
+            ("avgpool_excluding_padding", "nasnet", layers.AvgPool,
+             avg_excluding),
+            ("densenet_concat_reversed", "densenet121", extra.DenseBlock,
+             dense_reversed),
+            ("resnext_group_axes_swapped", "resnext50", extra.ResNeXtBlock,
+             groups_swapped)):
+        original = target.forward
+        target.forward = fault
+        try:
+            rec = f64_agreement(f64_card_step(
+                torch, initial[arch], *batches[arch], cfgs[arch], dev),
+                cpu_steps[arch])
+        finally:
+            target.forward = original
+        rec["rejected"] = not rec.pop("ok")
+        out[name] = {"arch": arch, **rec}
+    if not all(r["rejected"] for r in out.values()):
+        raise AssertionError(f"a planted zoo fault passed: {out}")
+    return out
+
+
+def phase_image_zoo(torch, dev):
+    """The rest of the image zoo (phase 14 of the docstring)."""
+    import copy
+
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.models.zoo import get_model
+
+    t0 = time.perf_counter()
+    checks, rows = {}, []
+    cpu_steps, batches, cfgs, initial = {}, {}, {}, {}
+    for arch in ZOO_ARCHS:
+        cfg = RunConfig(benchmark="imagenet", arch=arch, seed=0,
+                        compute_dtype="float32")
+        cfg.validate()
+        model = get_model(arch, cfg.benchmark, seed=0)
+        x, y = make_synthetic(cfg.dataset(), ZOO_CHECK_B,
+                              torch.device("cpu"), seed=0).batch(0, 0)
+        tc = time.perf_counter()
+        cpu = image_step(torch, copy.deepcopy(model).double(), x.double(),
+                         y, cfg, None)
+        cpu_s = time.perf_counter() - tc
+        rec = f64_agreement(f64_card_step(torch, model, x, y, cfg, dev), cpu)
+        checks[arch] = {"width": "imagenet", "batch": ZOO_CHECK_B,
+                        "cpu_float64_step_s": cpu_s, **rec}
+        if not rec["ok"]:
+            raise AssertionError(f"{arch}: the card's float64 step "
+                                 f"disagrees with the CPU's: {rec}")
+        if arch in ("nasnet", "densenet121", "resnext50"):
+            cpu_steps[arch], batches[arch] = cpu, (x, y)
+            cfgs[arch], initial[arch] = cfg, model
+        torch.cuda.empty_cache()
+        rows.append(image_bench(torch, ["--arch", arch] + IMAGE_SHORT_ARGS))
+    faults = zoo_faults(torch, dev, cpu_steps, batches, cfgs, initial)
+    emit({"phase": "image_zoo", "float64_rtol": IMAGE_F64_RTOL,
+          "floor": IMAGE_FLOOR, "checks": checks, "planted_faults": faults,
+          "rows": [{k: r[k] for k in (
+              "metric", "value", "step_time_p50_ms", "step_time_p95_ms",
+              "stall_frac", "peak_memory_gib", "batch", "dtype",
+              "channels_last", "prefetch_depth")} for r in rows],
+          "seconds": time.perf_counter() - t0})
 
 
 def main() -> int:
@@ -2426,7 +2936,18 @@ def main() -> int:
     phase_train_profile(torch, strategy, data)
     del strategy, data
     torch.cuda.empty_cache()
-    phase_image(torch, dev)
+    headline = phase_image(torch, dev)
+    real = phase_real_data(torch, dev)
+    keys = ("value", "input_stall_ms_per_epoch", "stall_frac",
+            "step_time_p50_ms", "step_time_p95_ms", "run_seconds",
+            "peak_memory_gib", "prefetch_depth")
+    inline = image_bench(torch, ["--prefetch-depth", "0"])
+    emit({"phase": "image_bench_prefetch", "note": "tools/bench's headline "
+          "record at prefetch depth 2 (phase 12's) and at 0",
+          "depth_2": {k: headline[k] for k in keys},
+          "depth_0": {k: inline[k] for k in keys}})
+    emit({"phase": "real_data_seconds", **real})
+    phase_image_zoo(torch, dev)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def row(name, source, replaces, n, err, t):

@@ -9,10 +9,20 @@ manifest: {...}`` line, the ``train | ...`` interval lines, ``epoch ...
 done``, ``valid | ...`` and ``valid accuracy: ...`` (train/metrics.py),
 then ``result: {...}``, the summary as JSON.
 
+    python -m ddlbench_tpu_torch.cli -b imagenet -f single -m resnet50 -s \
+        --data-dir D -e 1 --steps-per-epoch 20
+
+trains on on-disk images (``-s``): a store or a recognised layout
+(ImageFolder, MNIST IDX, CIFAR-10 batches) under ``--data-dir``, else a
+synthetic store generated there, read by the native loader, augmented
+on the device (``--no-augment`` turns that off) and prefetched
+``--prefetch-depth`` batches ahead (2; ``--no-prefetch`` is 0).
+
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 25, seed 1, bfloat16) and the knobs the image loop reads (``-e -p
---batch-size --steps-per-epoch --lr --optimizer --dtype --seed
---jsonl``); ``--device`` stands in for ``--platform``;
+--batch-size --steps-per-epoch --grad-accum-steps --lr --optimizer
+--dtype --seed --jsonl`` and the data flags above); ``--device`` stands
+in for ``--platform``;
 ``--momentum`` and ``--weight-decay`` override the per-workload defaults.
 Every other flag of the reference is refused by name (an error naming it),
 never ignored; so are ``-f`` strategies other than ``single`` and the
@@ -33,16 +43,14 @@ STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
 
 # the reference's flags the port does not carry
 NOT_PORTED_FLAGS = (
-    ("-g", "--devices"), ("-s", "--real-data"), ("--data-dir",),
-    ("--no-augment",), ("--prefetch-depth",), ("--no-prefetch",),
-    ("--micro-batch-size",), ("--num-microbatches",), ("--stages",),
+    ("-g", "--devices"), ("--micro-batch-size",), ("--num-microbatches",), ("--stages",),
     ("--virtual-stages",), ("--pipe-schedule",), ("--zb-h2-stash",),
     ("--sched-search-budget",), ("--sched-search-seed",), ("--pipe-costs",),
     ("--schedule-trace",), ("--dp-replicas",), ("--tp-size",),
     ("--stage-replication",), ("--update-interval",),
     ("--shard-opt-state",), ("--dp-shard-update",), ("--allreduce-dtype",),
     ("--comm-buckets",), ("--moe-aux-weight",), ("--moe-capacity-factor",),
-    ("--grad-accum-steps",), ("--label-smoothing",), ("--warmup-epochs",),
+    ("--label-smoothing",), ("--warmup-epochs",),
     ("--attention-backend",), ("--no-fused-head-loss",),
     ("--remat-layers",),
     ("--auto-partition",), ("--plan",), ("--plan-bounds",), ("--hbm-gb",),
@@ -77,9 +85,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--model", default="resnet18",
                    choices=MODEL_NAMES + tuple(NOT_PORTED))
     p.add_argument("-p", "--log-interval", type=int, default=25)
+    p.add_argument("-s", "--real-data", action="store_true",
+                   help="on-disk data through the native loader")
+    p.add_argument("--data-dir", default=None,
+                   help="on-disk dataset root (-s; ./data when unset)")
+    p.add_argument("--no-augment", action="store_true",
+                   help="no training augmentation in -s mode")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="batches made ahead of the step by a producer "
+                        "thread; 0 = inline")
+    p.add_argument("--no-prefetch", action="store_true",
+                   help="--prefetch-depth 0")
     p.add_argument("-e", "--epochs", type=int, default=3)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--grad-accum-steps", type=int, default=1,
+                   help="micro-steps of --batch-size rows per update")
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--optimizer", default=None, choices=("sgd", "adam"))
     p.add_argument("--momentum", type=float, default=None)
@@ -106,7 +127,10 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         batch_size=args.batch_size, steps_per_epoch=args.steps_per_epoch,
         lr=args.lr, optimizer=args.optimizer, momentum=args.momentum,
         weight_decay=args.weight_decay, compute_dtype=args.dtype,
-        seed=args.seed)
+        seed=args.seed, synthetic=not args.real_data,
+        data_dir=args.data_dir, augment=not args.no_augment,
+        prefetch_depth=0 if args.no_prefetch else args.prefetch_depth,
+        grad_accum_steps=args.grad_accum_steps)
 
 
 def main(argv=None) -> int:

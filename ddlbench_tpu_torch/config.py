@@ -107,7 +107,6 @@ _NOT_PORTED = (
 # (field, default, what it is) for every RunConfig knob of the reference's
 # training loop the port keeps for schema parity but does not implement
 _TRAIN_NOT_PORTED = (
-    ("synthetic", True, "on-disk data (-s, synthetic=False)"),
     ("plan", "manual", "the --plan auto solver"),
     ("auto_partition", False, "auto-partition"),
     ("trace", None, "step-level tracing"),
@@ -302,13 +301,25 @@ class RunConfig:
     # running statistics a second time)
     remat_layers: bool = False
     seed: int = 1
+    # gradient accumulation: each update averages K micro-steps of
+    # batch_size rows (every K-th row of the step's batch; the global batch
+    # is batch_size x K)
     grad_accum_steps: int = 1
+    # False = on-disk data (-s) through the native loader: a store or a
+    # recognised layout under data_dir ("./data" when None), else a
+    # synthetic store generated there (data/ondisk.py); images only
+    synthetic: bool = True
+    data_dir: Optional[str] = None
+    # the on-disk path's training augmentation (crop/flip per dataset)
+    augment: bool = True
+    # batches prepared ahead of the step by a producer thread
+    # (data/prefetch.py); 0 = made inline (--no-prefetch)
+    prefetch_depth: int = 2
     # the stability guard (not ported; validate() refuses both)
     anomaly_policy: Optional[str] = None
     loss_scale: Optional[Any] = None
     # knobs of the reference's training loop the port does not implement
     # yet: validate() raises NotImplementedError when one leaves its default
-    synthetic: bool = True
     plan: str = "manual"
     auto_partition: bool = False
     trace: Optional[str] = None
@@ -354,9 +365,11 @@ class RunConfig:
         return 1e-4 if self.benchmark in ("imagenet", "highres") else 0.0
 
     def global_batch(self) -> int:
-        """The step's batch: ``single`` runs one batch of batch_size (or
-        the reference's default for the benchmark) per step."""
-        return int(self.batch_size or DEFAULT_BATCH["single"][self.benchmark])
+        """The step's batch: ``single`` runs batch_size (or the reference's
+        default for the benchmark) rows per micro-step, grad_accum_steps
+        micro-steps per step."""
+        b = self.batch_size or DEFAULT_BATCH["single"][self.benchmark]
+        return int(b) * self.grad_accum_steps
 
     def validate(self) -> None:
         if self.benchmark not in DATASETS:
@@ -370,12 +383,15 @@ class RunConfig:
                 raise NotImplementedError(
                     f"{what} ({name}={getattr(self, name)!r}) is not ported "
                     "to the PyTorch training path yet")
-        if self.grad_accum_steps > 1:
-            raise NotImplementedError(
-                "gradient accumulation (grad_accum_steps > 1) is not ported "
-                "to the PyTorch training path yet")
         if self.grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1")
+        if self.prefetch_depth < 0:
+            raise ValueError("prefetch_depth must be >= 0 (0 = synchronous)")
+        if not self.synthetic and self.dataset().kind != "image":
+            raise NotImplementedError(
+                f"on-disk {self.dataset().kind} data (synthetic=False on "
+                f"{self.benchmark}) is not ported to the PyTorch training "
+                "path yet (ROADMAP A.5)")
         if self.anomaly_policy is not None or self.loss_scale is not None:
             raise NotImplementedError(
                 "the stability guard (anomaly_policy / loss_scale) is not "

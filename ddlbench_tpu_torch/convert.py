@@ -10,21 +10,29 @@ param list — each layer's dict of arrays, as numpy (``jax.device_get`` of
   ``b1``, ``w2``, ``b2``;
 * head: ``ln_f`` ``scale``/``bias``, ``head``;
 * image layers: ``kernel``, ``conv1``.. ``conv3``, ``proj``, ``expand``,
-  ``dw``, ``project`` (convolution kernels), ``bn*.scale``/``bias``,
-  ``w``/``b`` (dense).
+  ``dw``, ``project``, ``pw``, ``c1``.. ``c3``, ``sq``, ``e1``, ``e3``,
+  ``l<i>_c1``/``l<i>_c2``, ``conv`` (convolution kernels), ``bn*.scale``/
+  ``bias``, ``w``/``b`` (dense; ``b`` also a plain convolution's bias);
+* the composite layers of the branchy models (models/branchy.py): a list
+  of such dicts, one per node of the span, whose k-th entry lands on the
+  parameters named ``<k>.<name>``.
 
 Parameters are matched by name, so a layer is covered whatever its
 family. Dense weights stay ``[in, out]`` — the port computes ``x @ W``
 exactly as the JAX code does — and are copied as they are. Convolution
 kernels, the only 4-D arrays, go from the reference's HWIO to the port's
-OIHW (``permute(3, 2, 0, 1)``; a depthwise ``(3, 3, 1, hidden)`` becomes
-``(hidden, 1, 3, 3)``, convolved with ``groups=hidden``). The port
+OIHW (``permute(3, 2, 0, 1)``; a depthwise ``(k, k, 1, c)`` becomes
+``(c, 1, k, k)``, convolved with ``groups=c``, and resnext's grouped
+``(3, 3, width / 32, width)`` becomes ``(width, width / 32, 3, 3)``,
+convolved with ``groups=32``: both packages split the output channels
+into contiguous groups). The port
 flattens VGG's map in the reference's (H, W, C) order, so the
 classifier's first dense rows need no reordering.
 
 ``from_jax_state(model, states_np)`` copies the reference's per-layer
 state list (``init_model``'s second output: BatchNorm's running ``mean``
-and ``var``) into the port's buffers the same way.
+and ``var``, of every BatchNorm, a composite layer's nodes' too) into the
+port's buffers the same way.
 
 ``from_jax_opt_state(optimizer, model, opt_np)`` carries the reference's
 optimizer state (``TrainState.opt``: SGD ``{"m"}``, Adam ``{"m", "v",
@@ -45,12 +53,15 @@ import torch
 from ddlbench_tpu_torch.models.layers import LayerModel
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, object]]:
+def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
     """Dotted names of a nested param dict: {"ln1": {"scale": a}} ->
-    ("ln1.scale", a) — the port's module parameter names."""
-    for key, val in tree.items():
+    ("ln1.scale", a) — the port's module parameter names; a list's k-th
+    entry is named "k" (a composite layer's nodes)."""
+    items = (tree.items() if isinstance(tree, Mapping)
+             else enumerate(tree))
+    for key, val in items:
         name = f"{prefix}{key}"
-        if isinstance(val, Mapping):
+        if isinstance(val, (Mapping, list, tuple)):
             yield from _flatten(val, name + ".")
         else:
             yield name, val

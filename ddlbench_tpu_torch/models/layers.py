@@ -42,6 +42,15 @@ of the reference are kept on purpose (tests pin them):
   first. The running statistics are buffers, never cast.
 * :class:`Flatten` flattens in the reference's NHWC order (H, W, C): the
   classifier's first dense rows stay as the reference lays them out.
+* :class:`AvgPool` counts the padding: a SAME window at the map's edge
+  is the sum of its in-map values over window², as the reference's
+  ``reduce_window`` sum divided by window² is (torch's
+  ``count_include_pad``). It pads with zeros through ``F.pad`` (XLA's
+  SAME sides, uneven at stride 2 on an even size) and pools unpadded;
+  ``F.avg_pool2d(padding=k // 2)`` would pad both sides alike.
+* Channel concatenations (squeezenet's fire module, densenet's blocks,
+  the branchy models' joins) are on dim 1 in the reference's order on its
+  last (C) axis.
 """
 
 from __future__ import annotations
@@ -292,22 +301,93 @@ class GlobalAvgPool(ImageLayer):
 
 class Flatten(ImageLayer):
     """[B, C, H, W] -> [B, H*W*C] in the reference's (H, W, C) order (free
-    on a channels_last tensor)."""
+    on a channels_last tensor); [B, features] passes through."""
 
     def __init__(self, name: str, in_shape):
         super().__init__(name, (math.prod(in_shape),))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        if x.dim() == 4:
+            x = x.permute(0, 2, 3, 1)
+        return x.reshape(x.shape[0], -1)
+
+
+class AvgPool(ImageLayer):
+    """Average pooling that counts the padding (module docstring)."""
+
+    def __init__(self, name: str, in_shape, window: int = 3,
+                 stride: int = 1, padding: str = "SAME"):
+        h, w, c = in_shape
+        super().__init__(name, (*out_hw(name, h, w, window, stride, padding),
+                                c))
+        self.window, self.stride, self.padding = window, stride, padding
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.padding == "SAME":
+            top, bottom = same_pads(x.shape[2], self.window, self.stride)
+            left, right = same_pads(x.shape[3], self.window, self.stride)
+            x = F.pad(x, (left, right, top, bottom))
+        return F.avg_pool2d(x, self.window, self.stride)
+
+
+class Identity(ImageLayer):
+    """The identity: a branchy model's join node (models/branchy.py)."""
+
+    def __init__(self, name: str, in_shape):
+        super().__init__(name, in_shape)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+
+class ConvReLU(ImageLayer):
+    """A plain SAME convolution with a bias and no BatchNorm [-> ReLU]
+    (LeNet, AlexNet, SqueezeNet: the architectures that predate it)."""
+
+    def __init__(self, name: str, in_shape, out_ch: int, kernel: int,
+                 stride: int = 1, relu: bool = True, *,
+                 gen: torch.Generator):
+        h, w, c = in_shape
+        super().__init__(name, (*out_hw(name, h, w, kernel, stride, "SAME"),
+                                out_ch))
+        self.kernel = _conv_kernel(gen, kernel, kernel, c, out_ch)
+        self.b = nn.Parameter(torch.zeros(out_ch))
+        self.stride, self.relu = stride, relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d(x, self.kernel, self.stride) + self.b[None, :, None, None]
+        return F.relu(y) if self.relu else y
+
+
+class SepConvBN(ImageLayer):
+    """Depthwise-separable convolution, NASNet's cell operation: ReLU ->
+    depthwise k x k (stride; ``dw`` is (c, 1, k, k), convolved with
+    ``groups=c``) -> pointwise 1x1 -> BatchNorm."""
+
+    def __init__(self, name: str, in_shape, out_ch: int, kernel: int = 3,
+                 stride: int = 1, *, gen: torch.Generator):
+        h, w, c = in_shape
+        super().__init__(name, (*out_hw(name, h, w, kernel, stride, "SAME"),
+                                out_ch))
+        self.dw = _conv_kernel(gen, kernel, kernel, 1, c)
+        self.pw = _conv_kernel(gen, 1, 1, c, out_ch)
+        self.bn = BatchNorm(out_ch)
+        self.stride, self.c = stride, c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d(F.relu(x), self.dw, self.stride, self.c)
+        return self.bn(conv2d(y, self.pw))
 
 
 class Dense(ImageLayer):
     """``x @ w + b`` over [B, features] (after GlobalAvgPool or Flatten),
     ``w`` ``[in, out]`` as in the reference, uniform +-1/sqrt(in) init.
-    The reference's dropout is a no-op there too."""
+    ``dropout`` is accepted and does nothing, as in the reference (a
+    documented no-op there)."""
 
     def __init__(self, name: str, in_shape, out_features: int,
-                 relu: bool = False, *, gen: torch.Generator):
+                 relu: bool = False, dropout: float = 0.0, *,
+                 gen: torch.Generator):
         super().__init__(name, (out_features,))
         cin = math.prod(in_shape)
         bound = 1.0 / math.sqrt(cin)

@@ -1,5 +1,6 @@
-"""The three pieces of ``jax.random`` that the int8 KV pool's stochastic
-rounding uses, in plain torch integer ops, bit for bit.
+"""The pieces of ``jax.random`` that the port reproduces, in plain torch
+integer ops, bit for bit: those the int8 KV pool's stochastic rounding uses
+and those the on-disk image path's augmentation draws (data/ondisk.py).
 
 The reference quantises a K or V row at stream position p with the uniform
 draws ``jax.random.uniform(fold_in(fold_in(PRNGKey(seed), tag), p),
@@ -14,7 +15,13 @@ addition is masked back to 32 bits.
 * ``fold_in(key, d)`` is ``threefry2x32(key, 0, d)``;
 * ``uniform(key, shape)`` hashes the flat index i of each element as the
   counter ``(i >> 32, i & 0xffffffff)``, XORs the two output words, and
-  maps the top 23 bits to a float32 in [0, 1).
+  maps the top 23 bits to a float32 in [0, 1);
+* ``split(key, n)`` is the n keys ``threefry2x32(key, 0, i)``;
+* ``randint(key, shape, lo, hi)`` (int32) hashes two words per element,
+  one under each key of ``split(key)``, and folds them into [lo, hi) with
+  JAX's uint32 arithmetic: ``((a % span) * m + b % span) % span`` with
+  ``m = (2^16 % span)^2 % span``, every product wrapped to 32 bits;
+* ``bernoulli(key, p, shape)`` is ``uniform(key, shape) < p``.
 
 Keys broadcast: a key may be a pair of ``[N]`` tensors, which gives N
 independent streams in one call (the engine's per-position table).
@@ -22,7 +29,7 @@ independent streams in one call (the engine's per-position table).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import List, Sequence, Tuple, Union
 
 import torch
 
@@ -70,16 +77,47 @@ def fold_in(key: Key, data: Word) -> Key:
     return threefry2x32(key[0], key[1], 0, data)
 
 
-def uniform(key: Key, shape: Sequence[int]) -> torch.Tensor:
-    """``jax.random.uniform(key, shape, float32)``. A key of ``[N]`` word
-    tensors gives ``[N, *shape]``."""
+def split(key: Key, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)`` as a list of ``num`` keys."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+
+
+def random_bits(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as an int64 tensor of 32-bit
+    words: the flat index i of each element hashed as the counter
+    ``(i >> 32, i & 0xffffffff)``, the two output words XORed. A key of
+    ``[N]`` word tensors gives ``[N, *shape]``."""
     n = 1
     for s in shape:
         n *= int(s)
     i = torch.arange(n, dtype=torch.int64, device=key[1].device)
     k0, k1 = (k.reshape(-1, 1) if k.dim() else k for k in key)
     a, b = threefry2x32(k0, k1, i >> 32, i & _MASK)
-    bits = ((a ^ b) >> 9) | 0x3F800000
-    f = bits.to(torch.int32).view(torch.float32) - 1.0
     lead = tuple(key[0].shape)
-    return f.reshape(*lead, *shape)
+    return (a ^ b).reshape(*lead, *shape)
+
+
+def uniform(key: Key, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32)``. A key of ``[N]`` word
+    tensors gives ``[N, *shape]``."""
+    bits = (random_bits(key, shape) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def randint(key: Key, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32, the
+    default type; ``minval <= maxval <= 2^31 - 1``) as an int64 tensor."""
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = max(maxval - minval, 1) & _MASK
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & _MASK) % span
+    off = (((hi % span) * mult) & _MASK) + lo % span
+    return minval + (off & _MASK) % span
+
+
+def bernoulli(key: Key, p: float, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (float32 draws): a bool
+    tensor."""
+    return uniform(key, shape) < torch.tensor(p, dtype=torch.float32)

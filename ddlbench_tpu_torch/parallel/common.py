@@ -132,12 +132,60 @@ def loss_with_moe_aux(model: LayerModel, x: torch.Tensor, y: torch.Tensor,
     return obj, ce, correct_and_count(logits, y)
 
 
+def _micro_batch(t: torch.Tensor, K: int, k: int) -> torch.Tensor:
+    """Rows k, k + K, k + 2K, ... of ``t`` (the reference's reshape to
+    [B // K, K, ...] indexed on axis 1), in ``t``'s memory format."""
+    part = t.reshape(t.shape[0] // K, K, *t.shape[1:])[:, k]
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
+        return part.contiguous(memory_format=torch.channels_last)
+    return part.contiguous()
+
+
+def accum_loss_and_grads(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
+                         y: torch.Tensor, compute_dtype: torch.dtype,
+                         smoothing: float, accum_steps: int):
+    """K-way gradient accumulation (the reference's
+    ``accum_loss_and_grads``): micro-step k takes every K-th row of the
+    batch, starting at row k; the micro-steps run in order, so BatchNorm's
+    running statistics take K updates as K separate batches would; the
+    gradients are averaged with weights equal to each micro-step's count
+    of valid labels, and so is the reported CE. Returns (ce, (correct,
+    valid), grads) as loss_and_grads does."""
+    K, B = accum_steps, x.shape[0]
+    if B % K:
+        raise ValueError(f"batch {B} not divisible by grad_accum_steps {K}")
+    params = list(model.parameters())
+    gsum, ces, wks, corr, valid = None, [], [], 0, 0
+    for k in range(K):
+        xk, yk = _micro_batch(x, K, k), _micro_batch(y, K, k)
+        obj, ce, (c, v) = loss_with_moe_aux(model, xk, yk, compute_dtype,
+                                            smoothing, cfg.fused_head_loss,
+                                            cfg.remat_layers)
+        grads = torch.autograd.grad(obj, params)
+        wk = v.float()
+        gsum = ([wk * g for g in grads] if gsum is None
+                else [a + wk * g for a, g in zip(gsum, grads)])
+        ces.append(ce.detach())
+        wks.append(wk)
+        corr, valid = corr + c, valid + v
+    wks = torch.stack(wks)
+    total = wks.sum().clamp(min=1.0)
+    for p, g in zip(params, gsum):
+        p.grad = g / total
+    return ((torch.stack(ces) * wks).sum() / total, (corr, valid),
+            [p.grad for p in params])
+
+
 def loss_and_grads(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
                    y: torch.Tensor, compute_dtype: torch.dtype,
                    smoothing: float):
     """One-apply training loss and gradients: returns (ce, (correct,
     valid), grads), ``grads`` one tensor per ``model.parameters()`` (also
-    left in each parameter's ``.grad``)."""
+    left in each parameter's ``.grad``). ``cfg.grad_accum_steps`` > 1
+    takes :func:`accum_loss_and_grads`."""
+    if cfg.grad_accum_steps > 1:
+        return accum_loss_and_grads(model, cfg, x, y, compute_dtype,
+                                    smoothing, cfg.grad_accum_steps)
     params = list(model.parameters())
     for p in params:
         p.grad = None

@@ -7,6 +7,9 @@ parameters, its BatchNorm running statistics (the reference's
 updated in place, so ``train_step`` takes only the batch and the learning
 rate. ``train_step`` applies the model in train mode, ``eval_step`` in
 eval mode. The step holds no host sync: its metrics are device tensors.
+With ``cfg.grad_accum_steps`` K > 1 one update averages K micro-steps
+(parallel/common.py ``accum_loss_and_grads``) at the learning rate it is
+given: the reference scales the rate by K only under ``dp`` with SGD.
 """
 
 from __future__ import annotations

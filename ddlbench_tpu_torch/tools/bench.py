@@ -3,8 +3,8 @@
 
     python -m ddlbench_tpu_torch.tools.bench [--arch resnet50]
         [--benchmark imagenet] [--batch-size 128] [--steps 30]
-        [--warmup 5] [--repeats 3] [--dtype bfloat16] [--quick]
-        [--device cpu]
+        [--warmup 5] [--repeats 3] [--dtype bfloat16] [--prefetch-depth 2]
+        [--quick] [--device cpu]
 
 prints one JSON line with ``bench.py``'s record fields:
 
@@ -13,17 +13,20 @@ prints one JSON line with ``bench.py``'s record fields:
 
 ``vs_baseline`` divides by 200 images/sec, the figure bench.py takes for
 the reference's GTX 1080 Ti. The value is the median of ``--repeats``
-timed loops of ``--steps`` chained train steps (tools/timing.py), each
-after ``--warmup`` steps outside the clock, and the record keeps that
-loop's own input stall, stall fraction and device step-time p50/p95. The
-step trains bfloat16 activations on float32 master weights (the default
-``--dtype``), channels_last on the card, with ``cudnn.benchmark`` on there
-(the record says so); the synthetic batches are made on the device inside
-the timed loop (``prefetch_depth`` 0: no input pipeline). ``--quick`` is
-batch 32, 5 steps, 2 warm-up. Without a card the tool raises unless
+timed loops of one epoch of ``--steps`` chained train steps
+(tools/timing.py ``timed_steps_prefetched``), each after ``--warmup``
+steps outside the clock, and the record keeps that loop's own input
+stall (the time it waited for batches), stall fraction and device
+step-time p50/p95. The synthetic batches are made on the device by the
+input pipeline (data/prefetch.py), ``--prefetch-depth`` batches ahead on
+a producer thread and a side CUDA stream (2, as bench.py; 0 makes each
+inline in the timed loop). The step trains bfloat16 activations on
+float32 master weights (the default ``--dtype``), channels_last on the
+card, with ``cudnn.benchmark`` on there (the record says so). ``--quick``
+is batch 32, 5 steps, 2 warm-up. Without a card the tool raises unless
 ``--device cpu`` is given. The reference's flags the port lacks (``-g``,
-the dp engine's, ``--prefetch-depth``, ``--probe-timeout-s``,
-``--audit``) are refused by name.
+the dp engine's, ``--probe-timeout-s``, ``--audit``) are refused by
+name.
 """
 
 from __future__ import annotations
@@ -37,16 +40,17 @@ import torch
 
 from ddlbench_tpu_torch.cli import _NotPorted
 from ddlbench_tpu_torch.config import DATASETS, RunConfig
+from ddlbench_tpu_torch.data.prefetch import Prefetcher
 from ddlbench_tpu_torch.data.synthetic import make_synthetic
 from ddlbench_tpu_torch.device import provenance, resolve_device
 from ddlbench_tpu_torch.parallel.api import make_strategy
 from ddlbench_tpu_torch.telemetry.stats import percentile
-from ddlbench_tpu_torch.tools.timing import timed_steps_detail
+from ddlbench_tpu_torch.tools.timing import timed_steps_prefetched
 
 REFERENCE_1080TI_RESNET50_IPS = 200.0
 NOT_PORTED_FLAGS = (("-g", "--devices"), ("--dp-shard-update",),
                     ("--allreduce-dtype",), ("--comm-buckets",),
-                    ("--prefetch-depth",), ("--probe-timeout-s",),
+                    ("--probe-timeout-s",),
                     ("--audit",))
 
 
@@ -62,6 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", type=int, default=5)
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--dtype", default="bfloat16")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="batches made ahead of the step (data/prefetch.py)"
+                        "; 0 = inline")
     p.add_argument("--quick", action="store_true",
                    help="batch 32, 5 steps, 2 warm-up")
     p.add_argument("--device", default=None,
@@ -88,13 +95,13 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
     lr = cfg.resolved_lr()
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
-    runs = sorted((timed_steps_detail(
-        lambda x, y: strategy.train_step(x, y, lr), data.batch, args.steps,
-        args.warmup) for _ in range(max(1, args.repeats))),
-        key=lambda r: r[0])
+    prefetcher = Prefetcher(data, depth=args.prefetch_depth)
+    runs = sorted((timed_steps_prefetched(
+        lambda x, y: strategy.train_step(x, y, lr), prefetcher, args.warmup)
+        for _ in range(max(1, args.repeats))), key=lambda r: r[0])
     # the median run, with its own stall and step times
-    dt, stall_s, step_s = runs[len(runs) // 2]
-    ips = args.steps * B / dt
+    dt, stall_s, steps, step_s = runs[len(runs) // 2]
+    ips = steps * B / dt
     step_ms = [t * 1e3 for t in step_s]
     return {
         "metric": f"{args.arch}_{args.benchmark}_images_per_sec_per_chip",
@@ -105,11 +112,11 @@ def run(args: argparse.Namespace, device: torch.device) -> dict:
         "step_time_p50_ms": percentile(step_ms, 50),
         "step_time_p95_ms": percentile(step_ms, 95),
         "stall_frac": stall_s / dt if dt else 0.0,
-        "prefetch_depth": 0,
+        "prefetch_depth": args.prefetch_depth,
         "strategy": args.framework,
         "devices": 1,
         "batch": B,
-        "steps": args.steps,
+        "steps": steps,
         "warmup": args.warmup,
         "repeats": len(runs),
         "run_seconds": [r[0] for r in runs],

@@ -1,21 +1,30 @@
 """The benchmark training loop (the core of ``ddlbench_tpu/train/loop.py``
-``run_benchmark``, ``_run_benchmark`` and ``evaluate``).
+``run_benchmark``, ``_run_benchmark``, ``_make_data`` and ``evaluate``).
 
-``run_benchmark`` warms the step up on a throwaway copy of the state,
-restores the initial weights, running statistics and a fresh optimizer,
-then runs ``cfg.epochs`` epochs of ``steps_per_epoch`` steps at the
-step-decay learning rate (``lr_step_gamma`` every ``lr_step_epochs``
-epochs), logging every ``log_interval`` steps and at the epoch's end, and
-validates once per epoch. Losses are summed on the device and read once per
-log interval, so the host waits for the card only there; a non-finite
+The data is synthetic (made on the device) or, with ``cfg.synthetic``
+False, on-disk images through the native loader (data/ondisk.py), the
+reference's ``_make_data``. ``run_benchmark`` warms the step up on a
+throwaway copy of the state, restores the initial weights, running
+statistics and a fresh optimizer, then runs ``cfg.epochs`` epochs of
+``steps_per_epoch`` steps at the step-decay learning rate
+(``lr_step_gamma`` every ``lr_step_epochs`` epochs), logging every
+``log_interval`` steps and at the epoch's end, and validates once per
+epoch on the test split. Losses are summed on the device and read once
+per log interval, so the host waits for the card only there; a non-finite
 interval loss stops the run (the reference's default ``nan_policy``).
 
-Per step the loop records the wall time of its body (the batch excluded:
-that is the input stall, the time spent making batches, on the device here)
-for the p50/p95 fields; between syncs it is the host's dispatch time, as in
-the reference. Plans, auto-partition, tracing, checkpoints, the watchdog,
-the guard and preemption are not ported: RunConfig.validate refuses their
-knobs.
+The warm-up reads epoch 0's first synthetic batch of the run's shape even
+when the run reads on-disk data: the on-disk stream is sequential, and a
+warm-up batch taken from it would shift every batch of the run by one.
+(The reference warms up on the real stream's first batch.)
+
+Batches come through the prefetcher (data/prefetch.py), ``prefetch_depth``
+ahead of the step on a producer thread (0: inline). The input stall is
+the time the loop waited for a batch; per step the loop records the wall
+time of its body, the wait excluded, for the p50/p95 fields (between
+syncs, the host's dispatch time, as in the reference). Plans,
+auto-partition, tracing, checkpoints, the watchdog, the guard and
+preemption are not ported: RunConfig.validate refuses their knobs.
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from ddlbench_tpu_torch.config import RunConfig
-from ddlbench_tpu_torch.data.synthetic import SyntheticData, make_synthetic
+from ddlbench_tpu_torch.data.prefetch import Prefetcher
+from ddlbench_tpu_torch.data.synthetic import make_synthetic
 from ddlbench_tpu_torch.device import resolve_device
 from ddlbench_tpu_torch.parallel.api import make_strategy
 from ddlbench_tpu_torch.parallel.common import step_decay_lr
@@ -40,14 +50,35 @@ def _device_of(strategy: SingleStrategy) -> torch.device:
     return next(strategy.model.parameters()).device
 
 
-def _warmup(strategy: SingleStrategy, data: SyntheticData, lr: float,
+def make_data(cfg: RunConfig, device: torch.device):
+    """The run's data source: synthetic, or the on-disk images under
+    ``cfg.data_dir`` ("./data" when None) in the compute dtype; a store
+    generated there holds ``steps_per_epoch`` batches of train and a fifth
+    as many (at least one batch) of test samples."""
+    B, spec = cfg.global_batch(), cfg.dataset()
+    if cfg.synthetic:
+        return make_synthetic(spec, B, device, seed=cfg.seed,
+                              steps_per_epoch=cfg.steps_per_epoch)
+    from ddlbench_tpu_torch.data.ondisk import OnDiskData
+
+    train_count = (cfg.steps_per_epoch or 0) * B or None
+    test_count = max(B, train_count // 5) if train_count else None
+    return OnDiskData(cfg.data_dir or "./data", spec, B, device,
+                      seed=cfg.seed, dtype=getattr(torch, cfg.compute_dtype),
+                      train_count=train_count, test_count=test_count,
+                      augment=cfg.augment)
+
+
+def _warmup(strategy: SingleStrategy, cfg: RunConfig, lr: float,
             steps: int) -> float:
-    """Run ``steps`` train steps on epoch 0's first batch, then restore the
-    model's weights and running statistics and start a fresh optimizer, so
-    the measured run starts from the initial state. Returns the seconds."""
+    """Run ``steps`` train steps on epoch 0's first synthetic batch of the
+    run's shape (module docstring), then restore the model's weights and
+    running statistics and start a fresh optimizer, so the measured run
+    starts from the initial state. Returns the seconds."""
     t0 = time.perf_counter()
     initial = {k: v.clone() for k, v in strategy.model.state_dict().items()}
-    x, y = data.batch(0, 0)
+    x, y = make_synthetic(cfg.dataset(), cfg.global_batch(),
+                          _device_of(strategy), seed=cfg.seed).batch(0, 0)
     for _ in range(steps):
         m = strategy.train_step(x, y, lr)
     float(m["loss"])
@@ -56,61 +87,42 @@ def _warmup(strategy: SingleStrategy, data: SyntheticData, lr: float,
     return time.perf_counter() - t0
 
 
-def evaluate(strategy: SingleStrategy, data: SyntheticData,
+def evaluate(strategy: SingleStrategy, prefetch: Prefetcher,
              epoch: int) -> Dict[str, Optional[float]]:
-    """One validation epoch: the eval step's sums accumulate on the device
-    and are read once. Returns loss, accuracy and top5."""
+    """One validation epoch over the test split: the eval step's sums
+    accumulate on the device and are read once. Returns loss, accuracy
+    and top5."""
     loss_sum = correct = correct5 = count = None
-    for step in range(data.steps_per_epoch(train=False)):
-        m = strategy.eval_step(*data.batch(epoch, step, train=False))
-        part = (m["loss"] * m["count"], m["correct"], m["correct5"],
-                m["count"])
-        if loss_sum is None:
-            loss_sum, correct, correct5, count = part
-        else:
-            loss_sum, correct, correct5, count = (
-                loss_sum + part[0], correct + part[1], correct5 + part[2],
-                count + part[3])
+    with prefetch.stream(epoch, train=False) as stream:
+        for x, y in stream:
+            m = strategy.eval_step(x, y)
+            part = (m["loss"] * m["count"], m["correct"], m["correct5"],
+                    m["count"])
+            if loss_sum is None:
+                loss_sum, correct, correct5, count = part
+            else:
+                loss_sum, correct, correct5, count = (
+                    loss_sum + part[0], correct + part[1],
+                    correct5 + part[2], count + part[3])
     n = int(count)
     return {"loss": float(loss_sum) / max(1, n),
             "accuracy": int(correct) / max(1, n),
             "top5": int(correct5) / n if n else None}
 
 
-def run_benchmark(cfg: RunConfig, strategy: Optional[SingleStrategy] = None,
-                  logger: Optional[MetricLogger] = None,
-                  warmup_steps: int = 1,
-                  device: Optional[str] = None) -> Dict[str, Any]:
-    """Run the benchmark protocol for ``cfg`` and return the summary dict
-    (MetricLogger.summary). The strategy is built on ``device`` (cuda
-    unless "cpu" is asked for) when none is given."""
-    cfg.validate()
-    if strategy is None:
-        strategy = make_strategy(cfg, resolve_device(device))
-    dev = _device_of(strategy)
-    B = cfg.global_batch()
-    data = make_synthetic(cfg.dataset(), B, dev, seed=cfg.seed,
-                          steps_per_epoch=cfg.steps_per_epoch)
-    logger = logger or MetricLogger(cfg.epochs, cfg.log_interval,
-                                    device=dev)
-    base_lr = cfg.resolved_lr()
-    warmup_s = (_warmup(strategy, data, base_lr, warmup_steps)
-                if warmup_steps > 0 else None)
-
-    all_steps = []
-    accuracy = 0.0
-    for epoch in range(1, cfg.epochs + 1):
-        lr = step_decay_lr(base_lr, epoch - 1, cfg.lr_step_epochs,
-                           cfg.lr_step_gamma)
-        steps = data.steps_per_epoch(train=True)
-        tick = time.perf_counter()
-        interval_tick, interval_samples = tick, 0
-        loss_sum, interval_steps, stall_s, step_s = None, 0, 0.0, []
-        for step in range(steps):
-            t0 = time.perf_counter()
-            x, y = data.batch(epoch, step)
+def _epoch(cfg: RunConfig, strategy: SingleStrategy, prefetch: Prefetcher,
+           logger: MetricLogger, epoch: int, base_lr: float, B: int):
+    """One training epoch and its validation; returns (the steps' body
+    seconds, the validation accuracy)."""
+    lr = step_decay_lr(base_lr, epoch - 1, cfg.lr_step_epochs,
+                       cfg.lr_step_gamma)
+    tick = time.perf_counter()
+    interval_tick, interval_samples = tick, 0
+    loss_sum, interval_steps, step_s = None, 0, []
+    with prefetch.stream(epoch, train=True) as stream:
+        steps = stream.steps
+        for step, (x, y) in enumerate(stream):
             t1 = time.perf_counter()
-            stall_s += t1 - t0
             m = strategy.train_step(x, y, lr)
             loss_sum = m["loss"] if loss_sum is None else loss_sum + m["loss"]
             interval_steps += 1
@@ -128,15 +140,42 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[SingleStrategy] = None,
                 interval_tick, interval_samples = now, 0
                 loss_sum, interval_steps = None, 0
             step_s.append(time.perf_counter() - t1)
-        epoch_time = time.perf_counter() - tick
-        all_steps += step_s
-        logger.epoch_done(epoch, steps * B / epoch_time, epoch_time,
-                          input_stall_ms=stall_s * 1e3,
-                          step_ms=latency_summary(step_s))
-        val = evaluate(strategy, data, epoch)
-        logger.valid_epoch(epoch, val["loss"], val["accuracy"],
-                           top5=val["top5"])
-        accuracy = val["accuracy"]
+    epoch_time = time.perf_counter() - tick
+    logger.epoch_done(epoch, steps * B / epoch_time, epoch_time,
+                      input_stall_ms=stream.stall_ms,
+                      step_ms=latency_summary(step_s))
+    val = evaluate(strategy, prefetch, epoch)
+    logger.valid_epoch(epoch, val["loss"], val["accuracy"], top5=val["top5"])
+    return step_s, val["accuracy"]
+
+
+def run_benchmark(cfg: RunConfig, strategy: Optional[SingleStrategy] = None,
+                  logger: Optional[MetricLogger] = None,
+                  warmup_steps: int = 1,
+                  device: Optional[str] = None) -> Dict[str, Any]:
+    """Run the benchmark protocol for ``cfg`` and return the summary dict
+    (MetricLogger.summary). The strategy is built on ``device`` (cuda
+    unless "cpu" is asked for) when none is given."""
+    cfg.validate()
+    if strategy is None:
+        strategy = make_strategy(cfg, resolve_device(device))
+    dev = _device_of(strategy)
+    B = cfg.global_batch()
+    logger = logger or MetricLogger(cfg.epochs, cfg.log_interval,
+                                    device=dev)
+    base_lr = cfg.resolved_lr()
+    warmup_s = (_warmup(strategy, cfg, base_lr, warmup_steps)
+                if warmup_steps > 0 else None)
+    data = make_data(cfg, dev)
+    try:
+        prefetch = Prefetcher(data, depth=cfg.prefetch_depth)
+        all_steps, accuracy = [], 0.0
+        for epoch in range(1, cfg.epochs + 1):
+            s, accuracy = _epoch(cfg, strategy, prefetch, logger, epoch,
+                                 base_lr, B)
+            all_steps += s
+    finally:
+        getattr(data, "close", lambda: None)()
 
     step_time = latency_summary(all_steps)
     if warmup_s is not None:

@@ -199,11 +199,11 @@ def test_cli_covers_every_reference_flag():
     assert "--device" in ours
 
 
-@pytest.mark.parametrize("argv", [["-g", "2"], ["--real-data"],
+@pytest.mark.parametrize("argv", [["-g", "2"], ["--label-smoothing", "0.1"],
                                   ["--stages", "2"], ["--checkpoint-dir",
                                                       "d"],
                                   ["--platform", "cpu"],
-                                  ["--grad-accum-steps", "2"],
+                                  ["--trace", "t.json"],
                                   ["--warmup-epochs", "2"],
                                   ["--remat-layers"]])
 def test_cli_refuses_unported_flags_by_name(capsys, argv):
@@ -212,7 +212,9 @@ def test_cli_refuses_unported_flags_by_name(capsys, argv):
     assert f"{argv[0]} is not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["-f", "dp"], ["-m", "lenet"],
+@pytest.mark.parametrize("argv", [["-f", "dp"],
+                                  ["-m", "transformer_moe_s", "-b",
+                                   "synthtext"],
                                   ["-m", "seq2seq_lstm_s", "-b",
                                    "synthmt"]])
 def test_cli_refuses_unported_runs(argv):
@@ -279,7 +281,7 @@ def test_bench_quick_prints_the_reference_record(capsys, tinyimg):
     assert rec["platform"] == "cpu" and rec["devices"] == 1
 
 
-@pytest.mark.parametrize("argv", [["-g", "4"], ["--prefetch-depth", "0"],
+@pytest.mark.parametrize("argv", [["-g", "4"], ["--probe-timeout-s", "5"],
                                   ["--audit", "x"]])
 def test_bench_refuses_unported_flags_by_name(capsys, argv):
     with pytest.raises(SystemExit):
@@ -288,6 +290,7 @@ def test_bench_refuses_unported_flags_by_name(capsys, argv):
 
 
 # a value away from its default for each loop knob the port refuses
+# (synthetic=False only on a token benchmark: on-disk images are ported)
 LOOP_KNOBS = {"synthetic": False, "plan": "auto", "auto_partition": True,
               "trace": "t.json", "trace_dir": "d", "audit": "a.json",
               "checkpoint_dir": "d", "resume": True,
@@ -298,10 +301,53 @@ LOOP_KNOBS = {"synthetic": False, "plan": "auto", "auto_partition": True,
 
 @pytest.mark.parametrize("name", sorted(LOOP_KNOBS))
 def test_unported_loop_knobs_raise(name):
-    assert set(LOOP_KNOBS) == {n for n, _, _ in config._TRAIN_NOT_PORTED}
+    assert set(LOOP_KNOBS) - {"synthetic"} == {
+        n for n, _, _ in config._TRAIN_NOT_PORTED}
+    bench_name, arch = (("synthtext", "transformer_t") if name == "synthetic"
+                        else ("cifar10", "resnet18"))
     with pytest.raises(NotImplementedError, match=name):
-        RunConfig(benchmark="cifar10", arch="resnet18",
+        RunConfig(benchmark=bench_name, arch=arch,
                   **{name: LOOP_KNOBS[name]}).validate()
+
+
+def test_real_data_knobs_validate_with_the_reference_defaults():
+    """-s on an image benchmark, accumulation, the prefetch depth and
+    augmentation validate, with the reference's defaults and global
+    batch."""
+    from ddlbench_tpu.config import RunConfig as JaxRunConfig
+
+    cfg, jcfg = RunConfig(), JaxRunConfig()
+    assert (cfg.synthetic, cfg.data_dir, cfg.augment, cfg.prefetch_depth,
+            cfg.grad_accum_steps) == (
+        jcfg.synthetic, jcfg.data_dir, jcfg.augment, jcfg.prefetch_depth,
+        jcfg.grad_accum_steps)
+    kw = dict(benchmark="cifar10", arch="resnet18", synthetic=False,
+              data_dir="d", augment=False, prefetch_depth=0,
+              grad_accum_steps=4, batch_size=8)
+    RunConfig(**kw).validate()
+    assert RunConfig(**kw).global_batch() == JaxRunConfig(
+        **kw).global_batch() == 32
+    with pytest.raises(ValueError, match="prefetch_depth"):
+        RunConfig(prefetch_depth=-1).validate()
+    args = cli.build_parser().parse_args(
+        ["-b", "cifar10", "-s", "--data-dir", "d", "--no-augment",
+         "--no-prefetch", "--grad-accum-steps", "2"])
+    got = cli.config_from_args(args)
+    assert (got.synthetic, got.data_dir, got.augment, got.prefetch_depth,
+            got.grad_accum_steps) == (False, "d", False, 0, 2)
+    args = cli.build_parser().parse_args(["--prefetch-depth", "3"])
+    assert cli.config_from_args(args).prefetch_depth == 3
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+def test_bench_records_its_prefetch_depth(capsys, tinyimg, depth):
+    assert bench.main(["--quick", "--arch", "resnet18", "--benchmark",
+                       "tinyimg", "--repeats", "1", "--dtype", "float32",
+                       "--device", "cpu", "--prefetch-depth",
+                       str(depth)]) == 0
+    rec = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert rec["prefetch_depth"] == depth and rec["steps"] == 5
+    assert rec["input_stall_ms_per_epoch"] >= 0 and rec["value"] > 0
 
 
 def test_average_meter():

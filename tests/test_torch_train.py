@@ -276,7 +276,7 @@ def test_synthetic_tokens():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(strategy="dp"), dict(grad_accum_steps=2),
+    dict(strategy="dp"), dict(synthetic=False),
     dict(anomaly_policy="skip"), dict(loss_scale="dynamic"),
     dict(arch="transformer_moe_t"),
 ])
