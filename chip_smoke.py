@@ -97,6 +97,38 @@ one JSON line; any failure raises and exits non-zero:
              twice the largest |int8 - float32| logit difference, both
              through the serving path on the shared prefix). Prints the
              three rows' counters and wall-clock step times.
+3c. serve_slo — servebench's SLO surface on the card: transformer_s at
+             full width, open-loop poisson arrivals under the diurnal
+             shape at rate 0.5, 32 requests (cut from 64), deadlines
+             (slack 64) with the driver's retry (2:8), a 0.3 batch-tier
+             mix, top-k 40 sampling at temperature 0.8, traced with the
+             timeline. Over a float32 and an int8 pool, with the launch
+             counters zeroed before the first run: (a) the card's row
+             equals the port's row of the same command on the CPU on
+             every virtual-time field (all but the wall-clock fields,
+             provenance and plain_launches), and so do the timeout and
+             shed records; (b) a second card run gives bitwise-equal
+             sampled streams, and a run of the same traffic without
+             deadlines on a 20-page pool, which evicts, gives the
+             requests it completed the streams they have in the first
+             run, evicted ones among them; (c) completed + timeouts +
+             rejected = requests, each shed submission was retried or
+             rejected, and every page is back on the free list; (d)
+             serveview's TTFT components on the card's trace file sum
+             exactly (in the trace's integer units) to each request's
+             TTFT; (e) both paged kernels of the pool's type launched,
+             neither of the other type's, and no call on the plain path.
+             (f) planted faults, each run on the card and each required
+             to fail its check: the sampler keyed by engine step in place
+             of token index (b), batch admitted ahead of interactive (a),
+             and a timeout that keeps its pages (c). Reports the first
+             token index at which each pool's card streams leave the
+             CPU's (not required: the kernels' summation order moves the
+             logits); then wall_tokens_per_s and decode_step_ms of the
+             command sampled against the same command greedy, in turns
+             (greedy, sampled, sampled, greedy) over a float32 pool,
+             beside the card's nvidia-smi line, with sample_ms (the
+             host's time for one draw).
 4. profile — the same path (8 requests, warm) under torch.profiler: the
              device's busy share, the device time by kernel, and each
              paged kernel instance's calls and device time.
@@ -340,6 +372,28 @@ LEVER_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--policies",
               "--seed", "0", "--shared-prefix", "4:64", "--prefix-cache",
               "--wall-clock"]
 DIGITS_GATE_INT8 = 0.75  # the reference's tests/test_serve_quant.py gate
+# phase 3c, serve_slo: the SLO surface's command at 32 requests (cut from
+# 64 to keep the script inside its time limit); --kv-dtype and --trace are
+# added per run
+SLO_TRAFFIC = [
+    "-m", "transformer_s", "-b", "synthtext", "--policies", "continuous",
+    "--arrival", "poisson", "--shape", "diurnal", "--rate", "0.5",
+    "--requests", "32", "--tier-mix", "0.3", "--timeline", "--wall-clock",
+    "--seed", "0"]
+SLO_DEADLINES = ["--deadline-slack", "64", "--retry", "2:8"]
+SLO_SAMPLE = ["--sample", "temperature:0.8,top-k:40"]
+SLO_ARGS = SLO_TRAFFIC + SLO_DEADLINES + SLO_SAMPLE
+SLO_GREEDY_ARGS = SLO_TRAFFIC + SLO_DEADLINES
+# (b)'s eviction run: a pool of 20 pages evicts on this traffic; without
+# deadlines every evicted request completes on the recompute path (with
+# them, the evicted ones time out)
+SLO_EVICT_ARGS = SLO_TRAFFIC + SLO_SAMPLE + ["--pool-pages", "20"]
+# row fields that are not virtual time: wall clock, provenance, and the
+# plain-path count (0 on the CPU by definition)
+SLO_NOT_VIRTUAL = frozenset((
+    "wall_s", "wall_tokens_per_s", "decode_step_ms", "prefill_chunk_ms",
+    "sample_ms", "schema_version", "platform", "device_kind",
+    "device_count", "torch_version", "cuda_version", "plain_launches"))
 FLASH_SOURCE = "ddlbench_tpu_torch/ops/csrc/flash_attention.cu"
 # each flash kernel -> the pallas_call it replaces
 FLASH_KERNELS = {
@@ -1273,6 +1327,251 @@ def phase_serve_levers(torch, pd, dev):
                    for name, rec in (("a_float32", rec_a), ("b_int8", rec_b),
                                      ("c_int8", rec_c))}})
     return launches
+
+
+def slo_run(model, dev, kv, trace_dir, extra=(), argv=SLO_ARGS):
+    """servebench's SLO command (``argv``) over a ``kv`` pool on ``dev``,
+    traced into a new file of ``trace_dir``. Returns (row, server, trace
+    path, {rid: tokens})."""
+    from ddlbench_tpu_torch.tools import servebench
+
+    path = str(Path(trace_dir) / f"slo_{len(os.listdir(trace_dir))}.json")
+    args = servebench.build_parser().parse_args(
+        argv + ["--kv-dtype", kv, "--trace", path] + list(extra))
+    (rec, server, _), = servebench.run(args, model, dev)
+    return rec, server, path, {f["rid"]: f["tokens"]
+                               for f in server.finished}
+
+
+def slo_row_diff(card, cpu):
+    """(a): the virtual-time fields on which two rows differ."""
+    keys = (set(card) | set(cpu)) - SLO_NOT_VIRTUAL
+    return sorted(k for k in keys if card.get(k) != cpu.get(k))
+
+
+def slo_conserved(rec, server):
+    """(c): every request reached one terminal state (completed, timed
+    out, or rejected after its retries), each shed submission was retried
+    or rejected, and every page is back on the free list."""
+    eng = server.engines[0]
+    al = eng.allocator
+    shed, retries, rejected, timeouts = (
+        rec.get(k, 0) for k in ("shed", "retries", "rejected", "timeouts"))
+    return (rec["completed"] + timeouts + rejected == rec["requests"]
+            and rec.get("requests_lost", 0) == 0
+            and shed == retries + rejected
+            and al.free_pages == al.capacity and al.in_use == 0
+            and not eng.has_work())
+
+
+def slo_regenerates(base, evicting, server):
+    """(b), the eviction half: the requests an evicting run completed
+    carry the sampled streams they have in ``base``, evicted ones among
+    them."""
+    evicted = {e["rid"] for e in server.engines[0].evicted_log}
+    both = set(base) & set(evicting)
+    return bool(evicted & both) and all(base[r] == evicting[r]
+                                        for r in both)
+
+
+def slo_decomposition(path, server):
+    """(d): serveview's TTFT components on a trace file sum exactly to
+    each request's TTFT, which is the finished record's. The trace stamps
+    one model pass as 1000 integer units, so the sums are taken there.
+    Returns (ok, requests decomposed)."""
+    from ddlbench_tpu_torch.serve.engine import _vns
+    from ddlbench_tpu_torch.telemetry.serveview import breakdown
+
+    with open(path) as f:
+        bd = breakdown(json.load(f))
+    fin = {f["rid"]: f for f in server.finished}
+    ok = (bd["decomp_exact"] and bd["dropped_events"] == 0
+          and bd["requests"] >= len(fin))
+    for d in bd["per_request"]:
+        parts = sum(_vns(d[k]) for k in ("queue", "prefill", "decode",
+                                         "sched_gap"))
+        ok = ok and d["exact"] and parts == _vns(d["ttft"])
+        f = fin.get(d["rid"])
+        if f is not None:
+            ok = ok and _vns(d["ttft"]) == (_vns(f["first_token_t"])
+                                            - _vns(f["arrival"]))
+    return ok, bd["requests"]
+
+
+def first_forks(card, cpu):
+    """For each request completed on both: the first token index at which
+    the card's sampled stream leaves the CPU's (absent where they agree)."""
+    out = {}
+    for rid in sorted(set(card) & set(cpu)):
+        i = next((i for i, (a, b) in enumerate(zip(card[rid], cpu[rid]))
+                  if a != b), None)
+        if i is not None:
+            out[rid] = i
+    return out
+
+
+def slo_faults(model, dev, trace_dir, cpu_rec):
+    """(f): planted faults, each run on the card over a float32 pool and
+    each required to fail its check: the sampler keyed by engine step in
+    place of token index (b), batch admitted ahead of interactive (a),
+    and a timeout that keeps its pages (c)."""
+    from ddlbench_tpu_torch.serve.engine import ServeEngine, sample_token
+
+    def keyed_by_step(self, raw, rid, token_index):
+        return sample_token(raw, self.cfg.temperature, self.cfg.top_k,
+                            self.cfg.sample_seed, rid,
+                            int(self.stats["steps"]))
+
+    def batch_first(self):
+        for i, r in enumerate(self.queue):
+            if r.tier == "batch":
+                return i
+        return 0
+
+    def keeps_pages(self, now, rep):
+        expired = [r for r in self.queue
+                   if r.deadline is not None and now >= r.deadline]
+        dead = {id(r) for r in expired}
+        kept = [r for r in self.queue if id(r) not in dead]
+        self.queue.clear()
+        self.queue.extend(kept)
+        for r in expired:
+            self._record_timeout(r.rid, now, r.deadline, "queued", 0,
+                                 r.tier, rep)
+        for a in [a for a in self._active()
+                  if a.req.deadline is not None and now >= a.req.deadline]:
+            self.table[a.row, :] = 0  # its pages are never freed
+            self.rows[a.row] = None
+            self._record_timeout(a.req.rid, now, a.req.deadline, a.state,
+                                 len(a.out), a.req.tier, rep)
+
+    def caught_b():
+        _, _, _, base = slo_run(model, dev, "float32", trace_dir)
+        _, server, _, ev = slo_run(model, dev, "float32", trace_dir,
+                                   argv=SLO_EVICT_ARGS)
+        return not slo_regenerates(base, ev, server)
+
+    def caught_a():
+        rec, _, _, _ = slo_run(model, dev, "float32", trace_dir)
+        return bool(slo_row_diff(rec, cpu_rec))
+
+    def caught_c():
+        rec, server, _, _ = slo_run(model, dev, "float32", trace_dir)
+        return rec["timeouts"] > 0 and not slo_conserved(rec, server)
+
+    out = {}
+    for name, attr, fault, caught in (
+            ("sampler_keyed_by_step", "_emit_token", keyed_by_step,
+             caught_b),
+            ("batch_admitted_first", "_next_admission_index", batch_first,
+             caught_a),
+            ("timeout_keeps_pages", "_cancel_expired", keeps_pages,
+             caught_c)):
+        original = getattr(ServeEngine, attr)
+        setattr(ServeEngine, attr, fault)
+        try:
+            out[name] = "rejected" if caught() else "PASSED"
+        finally:
+            setattr(ServeEngine, attr, original)
+    return out
+
+
+SLO_ROW_KEYS = (
+    "completed", "shed", "timeouts", "retries", "rejected", "requests_lost",
+    "shed_rate", "timeout_rate", "retry_amplification", "duration",
+    "ttft_p50", "ttft_p95", "itl_p50", "goodput_tokens_per_unit",
+    "slo_attainment", "interactive_completed", "batch_completed",
+    "interactive_slo_attainment", "batch_slo_attainment", "evicted",
+    "decomp_exact", "wall_s", "wall_tokens_per_s", "decode_step_ms",
+    "prefill_chunk_ms", "sample_ms")
+
+
+def phase_serve_slo(torch, pd, dev):
+    """servebench's SLO surface on the card (phase 3c of the docstring):
+    per pool type, checks (a)-(e); then sampled against greedy in turns
+    and the planted faults (f)."""
+    import tempfile
+
+    from ddlbench_tpu_torch.models.zoo import get_model
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cpu_model = get_model("transformer_s", "synthtext", seed=0)
+    card_model = get_model("transformer_s", "synthtext", seed=0).to(dev)
+    kernels = (pd.paged_attention, pd.paged_chunk_attention)
+    pools, checks, cpu_rows = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slo_") as tmp:
+        for kv in ("float32", "int8"):
+            for fn in kernels:
+                fn.launches = fn.launches_int8 = fn.plain_launches = 0
+            rec, server, path, toks = slo_run(card_model, dev, kv, tmp)
+            launches = {
+                "paged_attention": pd.paged_attention.launches,
+                "paged_chunk_attention": pd.paged_chunk_attention.launches,
+                "paged_attention_int8": pd.paged_attention.launches_int8,
+                "paged_chunk_attention_int8":
+                    pd.paged_chunk_attention.launches_int8,
+                "plain_launches": rec["plain_launches"]}
+            mine, other = (("_int8", "") if kv == "int8" else ("", "_int8"))
+            # (e): both paged kernels of this pool type launched, neither
+            # of the other type's, no call on the plain path
+            checks[f"{kv}_e_launches"] = (
+                launches[f"paged_attention{mine}"] > 0
+                and launches[f"paged_chunk_attention{mine}"] > 0
+                and launches[f"paged_attention{other}"] == 0
+                and launches[f"paged_chunk_attention{other}"] == 0
+                and launches["plain_launches"] == 0)
+            _, _, _, toks2 = slo_run(card_model, dev, kv, tmp)
+            rec_ev, server_ev, _, toks_ev = slo_run(
+                card_model, dev, kv, tmp, argv=SLO_EVICT_ARGS)
+            cpu_rec, cpu_server, _, cpu_toks = slo_run(cpu_model, cpu, kv,
+                                                       tmp)
+            cpu_rows[kv] = cpu_rec
+            diff = slo_row_diff(rec, cpu_rec)
+            decomp_ok, decomposed = slo_decomposition(path, server)
+            checks[f"{kv}_a_row_equals_cpu"] = not diff
+            checks[f"{kv}_a_terminal_records_equal_cpu"] = (
+                server.timed_out == cpu_server.timed_out
+                and server.shed_records == cpu_server.shed_records)
+            checks[f"{kv}_b_reruns_bitwise"] = toks == toks2
+            checks[f"{kv}_b_eviction_regenerates"] = slo_regenerates(
+                toks, toks_ev, server_ev)
+            checks[f"{kv}_c_conserved"] = (slo_conserved(rec, server)
+                                           and slo_conserved(rec_ev,
+                                                             server_ev))
+            checks[f"{kv}_d_decomposition_exact"] = decomp_ok
+            forks = first_forks(toks, cpu_toks)
+            pools[kv] = {
+                "launches": launches, "row_diff_vs_cpu": diff,
+                "row": {k: rec.get(k) for k in SLO_ROW_KEYS},
+                "evict_run": {k: rec_ev[k] for k in (
+                    "evicted", "completed", "duration")},
+                "evicted_and_completed": sorted(
+                    {e["rid"] for e in server_ev.engines[0].evicted_log}
+                    & set(toks_ev)),
+                "decomposed_requests": decomposed,
+                "streams_forked_vs_cpu": len(forks),
+                "first_fork_index": min(forks.values()) if forks else None}
+        # the command sampled against greedy over a float32 pool, in
+        # turns (greedy, sampled, sampled, greedy), all warm
+        turns = {"sampled": [], "greedy": []}
+        for name in ("greedy", "sampled", "sampled", "greedy"):
+            rec, _, _, _ = slo_run(
+                card_model, dev, "float32", tmp,
+                argv=SLO_ARGS if name == "sampled" else SLO_GREEDY_ARGS)
+            turns[name].append({k: rec.get(k) for k in (
+                "wall_s", "wall_tokens_per_s", "decode_step_ms",
+                "prefill_chunk_ms", "sample_ms", "output_tokens")})
+        faults = slo_faults(card_model, dev, tmp, cpu_rows["float32"])
+    emit({"phase": "serve_slo", "argv": SLO_ARGS,
+          "evict_argv": SLO_EVICT_ARGS, "checks": checks,
+          "planted_faults": faults, "pools": pools,
+          "sampled_vs_greedy": {"card": card_line(), **turns},
+          "seconds": time.perf_counter() - t0})
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, v in faults.items() if v != "rejected"]
+    if failed:
+        raise AssertionError(f"serve_slo: failed {failed}")
 
 
 def phase_profile(torch, dev):
@@ -2925,6 +3224,7 @@ def main() -> int:
     worst, timed = phase_kernels(torch, pd, dev)
     launches = phase_serve(torch, dev)
     launches.update(phase_serve_levers(torch, pd, dev))
+    phase_serve_slo(torch, pd, dev)
     phase_profile(torch, dev)
     flash_worst = phase_flash_kernels(torch, fa, dev)
     flash_timed = phase_flash_times(torch, fa, dev)

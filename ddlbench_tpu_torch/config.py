@@ -95,9 +95,6 @@ DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
 _NOT_PORTED = (
     ("tp", 1, "tensor-parallel serving (tp > 1)"),
     ("replicas", 1, "multi-replica serving (replicas > 1)"),
-    ("temperature", 0.0, "sampling (temperature > 0)"),
-    ("top_k", 0, "top-k sampling"),
-    ("trace", False, "request-lifecycle tracing"),
     ("heartbeat", 0.0, "the straggler heartbeat"),
     ("integrity", False, "the SDC checksum ledger"),
     ("scrub", 0, "the SDC scrubber"),
@@ -151,6 +148,20 @@ class ServeConfig:
     # K+1-wide verify pass scores them; greedy acceptance keeps the token
     # streams those of plain decoding
     speculative: str = "none"
+    # sampling (0.0 = greedy argmax). temperature > 0 samples from
+    # softmax(logits / T) on the host with counter-based per-request
+    # seeds (sample_seed, request id, token index), so streams are
+    # reproducible per seed and eviction/recompute regenerates them
+    temperature: float = 0.0
+    top_k: int = 0  # 0 = full vocab; > 0 restricts sampling to the k best
+    sample_seed: int = 0
+    # request-lifecycle tracing (telemetry/tracer.py): the engine emits
+    # its decisions into the process-global tracer in virtual time; token
+    # streams and virtual-time numbers are the same traced or not
+    trace: bool = False
+    # ring of the most recent per-step engine states kept for
+    # ServeEngine.snapshot(); 0 disables the ring
+    flight_recorder: int = 64
     # SLOs in virtual time units (observability only; 0 = no SLO)
     slo_ttft: float = 0.0
     slo_itl: float = 0.0
@@ -158,10 +169,6 @@ class ServeConfig:
     # validate() raises NotImplementedError when one leaves its default
     replicas: int = 1
     tp: int = 1
-    temperature: float = 0.0
-    top_k: int = 0
-    sample_seed: int = 0
-    trace: bool = False
     heartbeat: float = 0.0
     integrity: bool = False
     scrub: int = 0
@@ -219,6 +226,21 @@ class ServeConfig:
             raise ValueError(
                 "prefix_cache requires the continuous policy — the static "
                 "baseline measures cache-off scheduling (run it cache-off)")
+        if self.temperature < 0.0:
+            raise ValueError(
+                f"temperature must be >= 0 (0 = greedy), got "
+                f"{self.temperature}")
+        if self.top_k < 0:
+            raise ValueError(f"top_k must be >= 0 (0 = full vocab), got "
+                             f"{self.top_k}")
+        if self.top_k and self.temperature == 0.0:
+            raise ValueError(
+                "top_k without temperature has no sampling to restrict "
+                "(greedy already takes the argmax)")
+        if self.flight_recorder < 0:
+            raise ValueError(
+                f"flight_recorder must be >= 0 (0 disables the ring), "
+                f"got {self.flight_recorder}")
         if self.slo_ttft < 0 or self.slo_itl < 0:
             raise ValueError(
                 "slo_ttft and slo_itl must be >= 0 (0 = no SLO)")
@@ -242,6 +264,11 @@ class ServeConfig:
                 raise ValueError(
                     f"speculative ngram needs N >= 1 and K >= 1, got "
                     f"N={n} K={k}")
+            if self.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only (acceptance "
+                    "compares draft tokens against greedy argmax); drop "
+                    "temperature or speculative")
             if k + 1 > self.max_len:
                 raise ValueError(
                     f"speculative draft width K+1 ({k + 1}) exceeds "

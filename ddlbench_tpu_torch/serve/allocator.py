@@ -1,8 +1,9 @@
 """Refcounted free-list page allocator for the shared serving KV pool.
 
 The port's copy of ``ddlbench_tpu/serve/allocator.py`` (pure host code),
-with the refcount calls the prefix cache and speculative rollback use, and
-without the SDC quarantine, which the port does not carry yet.
+with the refcount calls the prefix cache and speculative rollback use and
+the ``on_event`` hook request tracing hangs off, without the SDC
+quarantine, which the port does not carry yet.
 
 A serving engine cannot give every row a private stripe of the pool: a
 request's KV history lives exactly as long as the request, and "pool
@@ -25,7 +26,7 @@ somewhere harmless. It is never handed out and never counted as capacity.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 # ops/paged_decode.SCRATCH_SLOT, duplicated so this module stays torch-free
 SCRATCH_SLOT = 0
@@ -49,6 +50,9 @@ class PageAllocator:
         self.allocs = 0
         self.frees = 0
         self.peak_in_use = 0
+        # optional (name, **args) sink for pool lifecycle instants: the
+        # engine wires it to the virtual-time tracer when cfg.trace is on
+        self.on_event: Optional[Callable[..., None]] = None
 
     @property
     def capacity(self) -> int:
@@ -97,6 +101,9 @@ class PageAllocator:
             self._ref[s] = 1
         self.allocs += n
         self.peak_in_use = max(self.peak_in_use, self.in_use)
+        if self.on_event is not None:
+            self.on_event("pool_alloc", rid=rid, pages=n,
+                          free=len(self._free))
         return slots
 
     def bind(self, rid: int, slots: List[int]) -> None:
@@ -153,6 +160,9 @@ class PageAllocator:
                     f"double free: request {rid} does not hold slot {s}")
             owned.remove(s)
             freed += self.decref(s)
+        if slots and self.on_event is not None:
+            self.on_event("pool_rollback", rid=rid, held=len(slots),
+                          freed=freed, free=len(self._free))
         return freed
 
     def free_request(self, rid: int) -> int:
@@ -166,4 +176,8 @@ class PageAllocator:
         slots = self._owned.pop(rid, None)
         if slots is None:
             raise ValueError(f"double free: request {rid} owns no pages")
-        return sum(1 for s in slots if self.decref(s))
+        freed = sum(1 for s in slots if self.decref(s))
+        if self.on_event is not None:
+            self.on_event("pool_release", rid=rid, held=len(slots),
+                          freed=freed, free=len(self._free))
+        return freed

@@ -1,11 +1,13 @@
 """Continuous-batching serving engine over the paged KV pool (PyTorch port).
 
-The port of ``ddlbench_tpu/serve/engine.py`` for one replica, tp = 1,
-greedy decoding: float32, bfloat16 and int8 pools, the continuous policy
-and the static baseline, the cross-request prefix cache and self-drafting
-speculative verify. The scheduler is the reference's, line for line, so
-both engines make the same decisions on the same traffic and — with the
-same weights — emit the same token streams.
+The port of ``ddlbench_tpu/serve/engine.py`` for one replica, tp = 1:
+float32, bfloat16 and int8 pools, the continuous policy and the static
+baseline, the cross-request prefix cache, self-drafting speculative
+verify, sampling, deadlines with shedding and timeouts, SLO tiers,
+request-lifecycle tracing and the flight recorder. The scheduler is the
+reference's, line for line, so both engines make the same decisions on
+the same traffic and — with the same weights — emit the same token
+streams.
 
 Structure (host schedules, device computes):
 
@@ -34,11 +36,31 @@ Structure (host schedules, device computes):
   drafter proposes up to K tokens per decode row, and ONE [max_batch, K+1]
   verify pass scores them; the longest draft prefix matching greedy argmax
   is accepted, and pages past the accepted frontier roll back.
+* Sampling (``cfg.temperature > 0``): the decode and prefill passes copy
+  the float32 logits to the host (one synchronous copy per pass) in place
+  of the on-device argmax, and the host draws each token from the float64
+  softmax with a seed keyed by (sample_seed, request id, token index), so
+  streams are reproducible and eviction/recompute regenerates them.
+  Speculative verify stays greedy-only.
 * Eviction closes the loop on pool exhaustion: when a growing request needs
   a page and the free list is empty, the engine first reclaims prefix-cache
-  pages no live request holds, then evicts the NEWEST-admitted request (its
-  references dropped, the request re-queued at the front for recomputation,
-  which greedy decoding regenerates identically).
+  pages no live request holds, then evicts the NEWEST-admitted request —
+  a batch-tier one first — (its references dropped, the request re-queued
+  at the front for recomputation, which greedy decoding and seeded sampling
+  both regenerate identically).
+* Deadlines and SLO tiers: a request whose projected completion already
+  misses its deadline is SHED at submit (``submit`` returns False, the
+  named rejection the driver retries), and one whose deadline passes is
+  cancelled into the ``timeout`` terminal state with every page freed.
+  Interactive requests admit ahead of batch ones. Plain traffic (no
+  deadlines, one tier) schedules as before.
+* Observability (``cfg.trace``): the engine emits its lifecycle decisions
+  into the process-global tracer (telemetry/tracer.py) in virtual time —
+  one track per request, pool and prefix instants on a pool track, per-step
+  counters — and keeps a ring of recent step states (``cfg.
+  flight_recorder``) for :meth:`ServeEngine.snapshot`. Tracing only
+  records decisions already made: streams and virtual times are the same
+  traced or not.
 * ``policy="static"`` is the A/B baseline: admission only when every row is
   free, with full worst-case page reservation, draining the batch before
   the next fill.
@@ -48,13 +70,14 @@ or one prefill chunk; a verify pass costs one unit, like the decode step it
 replaces). All latency/goodput metrics are in these units — deterministic,
 and framework-independent. The engine also keeps the host wall-clock
 seconds of its decode, verify and prefill passes (``wall``), each ending in
-the device-to-host copy of the emitted tokens, so on a card they are
-device-synchronised step times.
+the device-to-host copy of the emitted tokens (or logits), so on a card
+they are device-synchronised step times.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import random
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
@@ -71,10 +94,43 @@ from ddlbench_tpu_torch.ops.paged_decode import (kv_u_table,
 from ddlbench_tpu_torch.serve.allocator import PageAllocator
 from ddlbench_tpu_torch.serve.draft import NgramDrafter
 from ddlbench_tpu_torch.serve.prefix import PrefixIndex
-from ddlbench_tpu_torch.serve.workload import ServeRequest
+from ddlbench_tpu_torch.serve.workload import TIERS, ServeRequest
+from ddlbench_tpu_torch.telemetry.stats import request_slo_ok
+from ddlbench_tpu_torch.telemetry.tracer import get_tracer
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
+
+
+def _vns(t: float) -> int:
+    """Virtual time -> trace 'nanoseconds': one model pass is 1000 ns, so
+    the exporter's /1e3 renders it as 1 µs and every timestamp is an exact
+    integer (serveview's decompositions tile without float drift)."""
+    return int(round(t * 1000.0))
+
+
+def sample_token(logits: np.ndarray, temperature: float, top_k: int,
+                 sample_seed: int, rid: int, token_index: int) -> int:
+    """Temperature/top-k sampling with a counter-based seed: one uniform
+    from ``random.Random(f"{sample_seed}:{rid}:{token_index}")`` (CPython
+    seeds strings through SHA-512), inverse-transformed over the float64
+    softmax CDF. Keyed by TOKEN INDEX, not engine step, so
+    eviction/recompute re-draws the same stream. Deterministic given the
+    logits' bytes."""
+    scaled = logits.astype(np.float64) / temperature
+    if top_k:
+        # ties broken by vocab index (stable sort)
+        order = np.argsort(-scaled, kind="stable")
+        mask = np.full_like(scaled, -np.inf)
+        keep = order[:top_k]
+        mask[keep] = scaled[keep]
+        scaled = mask
+    scaled -= scaled.max()
+    probs = np.exp(scaled)
+    probs /= probs.sum()
+    u = random.Random(f"{sample_seed}:{rid}:{token_index}").random()
+    idx = int(np.searchsorted(np.cumsum(probs), u, side="right"))
+    return min(idx, len(probs) - 1)
 
 
 @dataclasses.dataclass
@@ -112,6 +168,9 @@ class StepReport:
     evicted: int = 0
     backpressure: int = 0
     completed: List[int] = dataclasses.field(default_factory=list)
+    # rids cancelled into the `timeout` terminal state this step (the
+    # closed-loop driver releases the next request on these too)
+    timed_out: List[int] = dataclasses.field(default_factory=list)
 
 
 class ServeEngine:
@@ -171,11 +230,41 @@ class ServeEngine:
         self.prefix: Optional[PrefixIndex] = (
             PrefixIndex(self.allocator, self.page)
             if cfg.prefix_cache else None)
+        self._sampling = cfg.temperature > 0.0
         self.queue: deque = deque()
         self.rows: List[Optional[_Active]] = [None] * cfg.max_batch
         self.finished: List[Dict[str, Any]] = []
         self._admit_seq = 0
         self._filling = False  # static policy: whole-batch fill phase
+        # observability: host bookkeeping the scheduler never reads. The
+        # port serves one replica, 0, whose tracks are the reference's
+        # "r0/..."
+        self.replica = 0
+        self._trk = "r0"  # per-replica trace-track prefix
+        self._now = 0.0  # current step's start (mid-schedule instants)
+        self._last_t = 0.0  # last step's end: snapshot()'s clock
+        # when each queued request entered the queue (arrival, or the
+        # eviction instant): the queue_wait span's left edge
+        self._queued_at: Dict[int, float] = {}
+        # rids evicted and not yet re-admitted (the `recompute` instant)
+        self._evicted_rids: set = set()
+        self._flight: Optional[deque] = (
+            deque(maxlen=cfg.flight_recorder) if cfg.flight_recorder
+            else None)
+        if cfg.trace:
+            # pool/prefix lifecycle instants ride the same virtual clock
+            self.allocator.on_event = self._pool_event
+            if self.prefix is not None:
+                self.prefix.on_event = self._pool_event
+        # deadlines: the expiry scan only runs once a deadlined request
+        # has been accepted
+        self._has_deadlines = False
+        # `timeout` terminal records (rid/t/deadline/state/out_tokens/
+        # tier) and `shed` admission rejections (rid/t/deadline/tier)
+        self.timed_out: List[Dict[str, Any]] = []
+        self.shed: List[Dict[str, Any]] = []
+        # every eviction (rid/t/tier/batch_active): the tier-order ledger
+        self.evicted_log: List[Dict[str, Any]] = []
         # prompt tokens served from the cache per request, accumulated
         # across re-admissions (eviction/recompute)
         self._cached_tokens: Dict[int, int] = {}
@@ -183,6 +272,8 @@ class ServeEngine:
             "steps": 0, "model_calls": 0, "prefill_calls": 0,
             "decode_calls": 0, "decode_row_slots": 0, "admitted": 0,
             "completed": 0, "evicted": 0, "backpressure": 0,
+            # deadline counters (0 without deadlines)
+            "shed": 0, "timeouts": 0,
             "peak_occupancy": 0.0, "frag_sum": 0.0, "frag_samples": 0,
             # prefix-cache counters (0 with the cache off)
             "prefix_hits": 0, "prefix_tokens_saved": 0, "cow_copies": 0,
@@ -193,10 +284,12 @@ class ServeEngine:
             "spec_passes": 0, "spec_drafted": 0, "spec_accepted": 0,
             "decode_tokens": 0,
         }
-        # host seconds spent in model passes (synchronised by the token
-        # copy-back at the end of each pass)
+        # host seconds spent in model passes (synchronised by the token or
+        # logits copy-back at the end of each pass), and in host sampling
+        # (``sampled`` draws)
         self.wall: Dict[str, float] = {"decode_s": 0.0, "verify_s": 0.0,
-                                       "prefill_s": 0.0}
+                                       "prefill_s": 0.0, "sample_s": 0.0,
+                                       "sampled": 0}
 
     # -- model passes --------------------------------------------------------
 
@@ -211,11 +304,15 @@ class ServeEngine:
     @torch.no_grad()
     def _decode_pass(self, table: np.ndarray, toks: np.ndarray,
                      pos: np.ndarray, npl: int) -> np.ndarray:
+        """Greedy: each row's argmax token [B]; sampling: the float32
+        logits [B, V], one copy to the host for the whole pass."""
         dev = self.device
         logits = self._walk(self.model.layers, self.pools,
                             torch.from_numpy(table).to(dev),
                             torch.from_numpy(toks).to(dev), "serve_decode",
                             torch.from_numpy(pos).to(dev), npl)
+        if self._sampling:
+            return logits[:, 0, :].float().cpu().numpy()
         return logits[:, 0, :].argmax(-1).cpu().numpy()
 
     @torch.no_grad()
@@ -230,7 +327,9 @@ class ServeEngine:
 
     @torch.no_grad()
     def _prefill_pass(self, table: np.ndarray, chunk: np.ndarray, start: int,
-                      want: int, npl: int) -> int:
+                      want: int, npl: int):
+        """Greedy: the argmax token at chunk position ``want``; sampling:
+        that position's float32 logits [V] on the host."""
         dev = self.device
         nb = self._n_body
         layers = self.model.layers
@@ -241,7 +340,21 @@ class ServeEngine:
         h = h[:, want:want + 1]  # [1, 1, d]
         for layer in layers[nb:]:
             h = layer(h)
+        if self._sampling:
+            return h[0, 0, :].float().cpu().numpy()
         return int(h[0, 0, :].argmax(-1).item())
+
+    def _emit_token(self, raw, rid: int, token_index: int) -> int:
+        """One emitted token from a pass's output: the argmax in greedy
+        mode, a host-sampled draw from the logits otherwise."""
+        if self._sampling:
+            t0 = time.perf_counter()
+            tok = sample_token(raw, self.cfg.temperature, self.cfg.top_k,
+                               self.cfg.sample_seed, rid, token_index)
+            self.wall["sample_s"] += time.perf_counter() - t0
+            self.wall["sampled"] += 1
+            return tok
+        return int(raw)
 
     @torch.no_grad()
     def _page_copy(self, src: int, dst: int) -> None:
@@ -260,6 +373,51 @@ class ServeEngine:
                 f"write position {hi} outside the int8 rounding table's "
                 f"[0, {self.n_write_pos})")
 
+    # -- request-lifecycle tracing (virtual time, metrics-neutral) ---------
+
+    def _tr(self):
+        """The live tracer, or None (``cfg.trace`` off, or the process
+        tracer disabled)."""
+        if not self.cfg.trace:
+            return None
+        tr = get_tracer()
+        return tr if tr.enabled else None
+
+    def _req_track(self, rid: int) -> str:
+        """One Chrome-trace track per request per replica."""
+        return f"{self._trk}/req{rid}"
+
+    def _pool_event(self, name: str, **args: Any) -> None:
+        """Allocator/prefix hook target: pool lifecycle instants on the
+        replica's pool track, stamped at the current step's start."""
+        tr = self._tr()
+        if tr is not None:
+            tr.emit("i", name, _vns(self._now), track=f"{self._trk}/pool",
+                    args=args)
+
+    def _trace_admit(self, a: _Active, cached: int) -> None:
+        """Close the request's queue_wait span and mark the admission (and
+        the recompute marker on a re-admission after eviction). Also runs
+        the queue bookkeeping snapshot()'s ages use, so it is called on
+        EVERY admission, traced or not."""
+        rid = a.req.rid
+        q0 = self._queued_at.pop(rid, self._now)
+        recompute = rid in self._evicted_rids
+        self._evicted_rids.discard(rid)
+        tr = self._tr()
+        if tr is None:
+            return
+        trk = self._req_track(rid)
+        t_ns = _vns(self._now)
+        tr.emit("X", "queue_wait", _vns(q0), t_ns - _vns(q0), track=trk,
+                args={"rid": rid,
+                      "reason": "recompute" if recompute else "arrival"})
+        if recompute:
+            tr.emit("i", "recompute", t_ns, track=trk, args={"rid": rid})
+        tr.emit("i", "admit", t_ns, track=trk,
+                args={"rid": rid, "row": a.row, "seq": a.admit_seq,
+                      "cached_tokens": cached})
+
     # -- request lifecycle -------------------------------------------------
 
     def _pages_for(self, n_positions: int) -> int:
@@ -271,11 +429,59 @@ class ServeEngine:
         # is never fed back, so its K/V is never written
         return req.prompt_len + req.max_new - 1
 
+    def min_service_passes(self, req: ServeRequest) -> int:
+        """Lower bound on the model passes ``req`` needs end to end on an
+        IDLE engine: one prefill call per chunk of the uncached prompt
+        tail (the first token rides the last chunk) plus one decode pass
+        per remaining token. With the prefix cache, a full page-aligned hit
+        needs ``max_new`` decode passes, a partial hit prefills the tail."""
+        C = self.cfg.resolved_prefill_chunk()
+        S = req.prompt_len
+        if self.prefix is not None:
+            hit = self.prefix.match(req.prompt)
+            if hit and len(hit) * self.page >= S:
+                return req.max_new  # full hit: straight to decode
+            cached = min(len(hit), (S - 1) // self.page) * self.page
+            S -= cached
+        return -(-S // C) + req.max_new - 1
+
+    def projected_finish(self, req: ServeRequest, now: float) -> float:
+        """Deterministic completion projection for admission control:
+        ``now + max(congestion_delay, own_min_passes)``. The own term is
+        an exact lower bound (a request hopeless even on an idle engine is
+        always shed); the congestion term — token work ahead of this
+        request (in flight, plus queued requests that admit before it: not
+        queued batch ones when this request is interactive, not queued
+        ones already past their deadline) over the per-step token budget —
+        is a heuristic that may over-shed under contention, a reported
+        policy choice (shed_rate; the driver's retry is the recourse)."""
+        ahead = 0
+        for a in self.rows:
+            if a is not None:
+                ahead += (a.req.prompt_len - a.prefill_done) \
+                    + (a.req.max_new - len(a.out))
+        for r in self.queue:
+            if r.deadline is not None and now >= r.deadline:
+                continue  # expires before it could consume budget
+            if req.tier != "batch" and r.tier == "batch":
+                continue  # this submission admits ahead of queued batch
+            ahead += r.prompt_len + r.max_new
+        congestion = ahead // self.cfg.resolved_token_budget()
+        return now + max(congestion, self.min_service_passes(req))
+
     def submit(self, req: ServeRequest, now: Optional[float] = None) -> bool:
-        """Enqueue ``req``; always accepted (the port has no deadlines)."""
+        """Enqueue ``req``; returns True when accepted. A request with a
+        deadline whose projected completion (:meth:`projected_finish`)
+        already misses it is SHED: recorded in ``shed`` and refused with
+        False, the driver's retry policy owning what happens next.
+        Deadline-free requests are always accepted."""
         if req.prompt_len < 1 or req.max_new < 1:
             raise ValueError("request needs a non-empty prompt and "
                              "max_new >= 1")
+        if req.tier not in TIERS:
+            raise ValueError(
+                f"request {req.rid}: tier must be one of {TIERS}, got "
+                f"{req.tier!r}")
         if req.prompt_len + req.max_new > self.cfg.max_len:
             raise ValueError(
                 f"request {req.rid}: prompt {req.prompt_len} + max_new "
@@ -285,7 +491,29 @@ class ServeEngine:
             raise ValueError(
                 f"request {req.rid} can never fit the pool "
                 f"({self.allocator.capacity} usable pages)")
+        t0 = req.arrival if req.arrival is not None else 0.0
+        if req.deadline is not None:
+            t_sub = now if now is not None else t0
+            if self.projected_finish(req, t_sub) > req.deadline:
+                self.stats["shed"] += 1
+                self.shed.append({"rid": req.rid, "t": t_sub,
+                                  "deadline": req.deadline,
+                                  "tier": req.tier})
+                tr = self._tr()
+                if tr is not None:
+                    tr.emit("i", "shed", _vns(t_sub),
+                            track=self._req_track(req.rid),
+                            args={"rid": req.rid, "deadline": req.deadline,
+                                  "tier": req.tier})
+                return False
+            self._has_deadlines = True
         self.queue.append(req)
+        self._queued_at[req.rid] = t0
+        tr = self._tr()
+        if tr is not None:
+            tr.emit("i", "submit", _vns(t0), track=self._req_track(req.rid),
+                    args={"rid": req.rid, "prompt_len": req.prompt_len,
+                          "max_new": req.max_new})
         return True
 
     def has_work(self) -> bool:
@@ -322,21 +550,41 @@ class ServeEngine:
 
     def _evict(self, victim: _Active, rep: StepReport) -> None:
         """Drop the victim's page references and re-queue it (front) for
-        recomputation — greedy decode regenerates the same tokens (shared
-        pages survive for their other holders)."""
+        recomputation — greedy decode and seeded sampling regenerate the
+        same tokens (shared pages survive for their other holders)."""
         self.allocator.free_request(victim.req.rid)
         self.table[victim.row, :] = 0
         self.rows[victim.row] = None
         self.queue.appendleft(victim.req)
         rep.evicted += 1
         self.stats["evicted"] += 1
+        rid = victim.req.rid
+        # batch_active = co-resident batch-tier actives the victim hunt
+        # passed over: > 0 with an interactive victim would break the tier
+        # preemption order
+        self.evicted_log.append({
+            "rid": rid, "t": self._now, "tier": victim.req.tier,
+            "batch_active": sum(1 for a in self._active()
+                                if a is not victim
+                                and a.req.tier == "batch")})
+        self._queued_at[rid] = self._now  # requeued: the wait restarts now
+        self._evicted_rids.add(rid)
+        tr = self._tr()
+        if tr is not None:
+            tr.emit("i", "evict", _vns(self._now), track=self._req_track(rid),
+                    args={"rid": rid, "prefill_done": victim.prefill_done,
+                          "out_tokens": len(victim.out)})
 
     def _evict_newest(self, rep: StepReport) -> Optional[_Active]:
-        """Evict the newest-admitted in-flight request."""
+        """Preemption order: BATCH-tier actives go first, newest-admitted
+        first within the tier; only with no batch request in flight does
+        an interactive one go (newest first, which all-interactive traffic
+        reduces to)."""
         active = self._active()
         if not active:
             return None
-        victim = max(active, key=lambda a: a.admit_seq)
+        batch = [a for a in active if a.req.tier == "batch"]
+        victim = max(batch or active, key=lambda a: a.admit_seq)
         self._evict(victim, rep)
         return victim
 
@@ -359,9 +607,67 @@ class ServeEngine:
             # prompt tokens served from the prefix cache, over all
             # admissions of this request
             "cached_tokens": self._cached_tokens.pop(a.req.rid, 0),
+            # SLO tier: serve_summary's per-tier split keys on it
+            "tier": a.req.tier,
         })
         rep.completed.append(a.req.rid)
         self.stats["completed"] += 1
+        tr = self._tr()
+        if tr is not None:
+            f = self.finished[-1]
+            tr.emit("i", "finish", _vns(t), track=self._req_track(a.req.rid),
+                    args={"rid": a.req.rid, "n_tokens": f["n_tokens"],
+                          "arrival": f["arrival"],
+                          "first_token_t": f["first_token_t"],
+                          "cached_tokens": f["cached_tokens"]})
+
+    # -- deadlines: expiry cancellation (the `timeout` terminal state) -----
+
+    def _record_timeout(self, rid: int, now: float, deadline: float,
+                        state: str, out_tokens: int, tier: str,
+                        rep: StepReport) -> None:
+        self.timed_out.append({"rid": rid, "t": now, "deadline": deadline,
+                               "state": state, "out_tokens": out_tokens,
+                               "tier": tier})
+        self.stats["timeouts"] += 1
+        rep.timed_out.append(rid)
+        self._queued_at.pop(rid, None)
+        self._evicted_rids.discard(rid)
+        self._cached_tokens.pop(rid, None)
+        tr = self._tr()
+        if tr is not None:
+            tr.emit("i", "timeout", _vns(now), track=self._req_track(rid),
+                    args={"rid": rid, "deadline": deadline, "state": state,
+                          "out_tokens": out_tokens})
+
+    def _cancel_expired(self, now: float, rep: StepReport) -> None:
+        """Deadline enforcement at step boundaries: a request whose
+        deadline has passed can no longer complete in time (this step's
+        emissions stamp at ``now + cost``), so it cancels into the
+        ``timeout`` terminal state — queued entries leave the queue,
+        in-flight ones free every page (prefix-registered pages survive on
+        the index's own references). A request that completed late in an
+        earlier step stays completed."""
+        expired = [r for r in self.queue
+                   if r.deadline is not None and now >= r.deadline]
+        if expired:
+            dead = {id(r) for r in expired}  # identity, never dataclass ==
+            kept = [r for r in self.queue if id(r) not in dead]
+            self.queue.clear()
+            self.queue.extend(kept)
+            for r in expired:
+                self._record_timeout(r.rid, now, r.deadline, "queued", 0,
+                                     r.tier, rep)
+        for a in [a for a in self._active()
+                  if a.req.deadline is not None and now >= a.req.deadline]:
+            self.allocator.free_request(a.req.rid)
+            self.table[a.row, :] = 0
+            self.rows[a.row] = None
+            # static policy: a freed row ends the fill phase like a
+            # completion does
+            self._filling = False
+            self._record_timeout(a.req.rid, now, a.req.deadline, a.state,
+                                 len(a.out), a.req.tier, rep)
 
     # -- the step: ensure pages -> pack -> prefill/decode -> retire --------
 
@@ -414,7 +720,7 @@ class ServeEngine:
                 return False  # evicted ourselves; the queue will retry
 
     def _admit_full_hit(self, req: ServeRequest, hit: List[int],
-                        rep: StepReport) -> Optional[_Active]:
+                        rep: StepReport, qi: int = 0) -> Optional[_Active]:
         """Admit a request whose WHOLE (page-aligned) prompt is cached:
         bind every cached page, copy the last one into a private slot (the
         decode pass is about to re-derive position S-1's K/V into it, and
@@ -436,7 +742,7 @@ class ServeEngine:
             self.stats["backpressure"] += 1
             return None
         self.allocator.bind(req.rid, hit[:nblk - 1])
-        self.queue.popleft()
+        del self.queue[qi]
         row = self._free_row()
         a = _Active(req=req, row=row, admit_seq=self._admit_seq)
         self._admit_seq += 1
@@ -465,7 +771,18 @@ class ServeEngine:
         self.stats["prefix_tokens_saved"] += S - 1
         self._cached_tokens[req.rid] = \
             self._cached_tokens.get(req.rid, 0) + S - 1
+        self._trace_admit(a, S - 1)
         return a
+
+    def _next_admission_index(self) -> int:
+        """Queue position of the next request to admit: INTERACTIVE
+        admits ahead of batch (FIFO within a tier); with no interactive
+        request waiting, the head batch request goes. All-interactive
+        traffic always returns 0, the FIFO order."""
+        for i, r in enumerate(self.queue):
+            if r.tier != "batch":
+                return i
+        return 0
 
     def _admission_open(self) -> bool:
         if self.cfg.policy == "continuous":
@@ -479,6 +796,11 @@ class ServeEngine:
         """One engine step. Returns what ran; emission/completion times are
         stamped at ``now + cost`` (the step's end in virtual time)."""
         rep = StepReport()
+        self._now = now  # mid-schedule instants (evict, pool, admit)
+        # deadline expiry first: freed pages and rows are capacity this
+        # very step (the scan arms once a deadlined request was accepted)
+        if self._has_deadlines:
+            self._cancel_expired(now, rep)
         C = self.cfg.resolved_prefill_chunk()
 
         # 1) decode set: every decode row gets its next page (evictions may
@@ -518,14 +840,15 @@ class ServeEngine:
         #    hit skips prefill (budget 1, the bookkeeping slot).
         while (self.queue and self._free_row() is not None
                and self._admission_open()):
-            req = self.queue[0]
+            qi = self._next_admission_index()
+            req = self.queue[qi]
             hit = self.prefix.match(req.prompt) if self.prefix else []
             S = req.prompt_len
             full_hit = bool(hit) and len(hit) * self.page >= S
             if budget < (1 if full_hit else C):
                 break
             if full_hit:
-                if self._admit_full_hit(req, hit, rep) is None:
+                if self._admit_full_hit(req, hit, rep, qi) is None:
                     break  # backpressure: not even one copy page
                 budget -= 1
                 continue
@@ -557,7 +880,7 @@ class ServeEngine:
                 break
             if nbind:
                 self.allocator.bind(req.rid, hit[:nbind])
-            self.queue.popleft()
+            del self.queue[qi]
             row = self._free_row()
             a = _Active(req=req, row=row, admit_seq=self._admit_seq)
             self._admit_seq += 1
@@ -577,6 +900,7 @@ class ServeEngine:
             budget -= C
             rep.admitted += 1
             self.stats["admitted"] += 1
+            self._trace_admit(a, cached if nbind else 0)
         if self.cfg.policy == "static" and (
                 self._free_row() is None or not self.queue):
             self._filling = False
@@ -608,6 +932,40 @@ class ServeEngine:
             self.stats["frag_sum"] += 1.0 - live / cap
             self.stats["frag_samples"] += 1
         rep.cost = cost
+
+        # 6) flight recorder + counter tracks (host-only observability:
+        #    nothing below feeds back into scheduling)
+        self._last_t = t_end
+        occ = self.allocator.occupancy()
+        if self._flight is not None:
+            self._flight.append({
+                "step": int(self.stats["steps"]), "t": t_end, "cost": cost,
+                "occupancy": occ, "free_pages": self.allocator.free_pages,
+                "queue_depth": len(self.queue),
+                "active": sum(1 for x in self.rows if x is not None),
+                "decode_rows": len(decode_set),
+                "prefill_calls": len(prefill_calls),
+                "admitted": rep.admitted, "evicted": rep.evicted,
+                "backpressure": rep.backpressure,
+            })
+        tr = self._tr()
+        if tr is not None:
+            t_ns = _vns(t_end)
+            trk = f"{self._trk}/engine"
+            B = self.cfg.resolved_token_budget()
+            used = B - budget  # decode rows + admitted/continued chunks
+            for cname, v in (
+                    ("pool_occupancy", occ),
+                    ("free_pages", float(self.allocator.free_pages)),
+                    ("decode_batch_util",
+                     len(decode_set) / self.cfg.max_batch),
+                    ("token_budget_fill", min(1.0, max(0.0, used / B))),
+                    ("prefix_hits", float(self.stats["prefix_hits"])),
+                    ("shared_pages", float(self.allocator.shared_pages)),
+                    ("queue_depth", float(len(self.queue))),
+            ):
+                tr.emit("C", f"{cname}[{self._trk}]", t_ns, track=trk,
+                        args={"value": v})
         return rep
 
     def _plan_drafts(self, decode_set: List[_Active]):
@@ -647,6 +1005,13 @@ class ServeEngine:
                 drafts = drafts[:max(0, fit)]
             if drafts:
                 self.stats["spec_drafted"] += len(drafts)
+                tr = self._tr()
+                if tr is not None:
+                    tr.emit("i", "draft", _vns(self._now),
+                            track=self._req_track(a.req.rid),
+                            args={"rid": a.req.rid,
+                                  "proposed": len(drafts),
+                                  "tok": len(a.out)})
             plan.append((a, drafts, pre_pages))
         return plan
 
@@ -683,6 +1048,8 @@ class ServeEngine:
         rep.decode_rows = len(plan)
         self.stats["spec_passes"] += 1
         self.stats["decode_row_slots"] += len(plan)
+        tr = self._tr()
+        d0, d1 = _vns(self._now), _vns(t_end)
         for a, drafts, pre_pages in plan:
             y = nxt[a.row]  # y[j] = greedy token after span slot j
             emitted = [int(y[0])]  # slot 0 (the pending token) is exact
@@ -692,14 +1059,31 @@ class ServeEngine:
                 if int(drafts[j - 1]) != emitted[j - 1]:
                     break
                 emitted.append(int(y[j]))
-            self.stats["spec_accepted"] += len(emitted) - 1
+            accepted = len(emitted) - 1
+            self.stats["spec_accepted"] += accepted
             self.stats["decode_tokens"] += len(emitted)
+            if tr is not None:
+                trk = self._req_track(a.req.rid)
+                tr.emit("X", "verify", d0, d1 - d0, track=trk,
+                        args={"rid": a.req.rid, "tok": len(a.out),
+                              "pos": int(a.decode_pos),
+                              "drafted": len(drafts),
+                              "emitted": len(emitted),
+                              "step": int(self.stats["steps"])})
+                tr.emit("i", "accept", d1, track=trk,
+                        args={"rid": a.req.rid, "accepted": accepted,
+                              "drafted": len(drafts)})
+            first = a.first_token_t is None
             for tok in emitted:
                 a.out.append(tok)
                 a.token_times.append(t_end)
-            if a.first_token_t is None:
+            if first:
                 # a full-hit admission's first token comes from this pass
                 a.first_token_t = t_end
+                if tr is not None:
+                    tr.emit("i", "first_token", d1,
+                            track=self._req_track(a.req.rid),
+                            args={"rid": a.req.rid, "t": t_end})
             if len(a.out) >= a.req.max_new:
                 self._complete(a, t_end, rep)
             else:
@@ -729,13 +1113,26 @@ class ServeEngine:
         npl = self._pages_for(end_real)
         self._check_write_positions(start + C - 1)
         t0 = time.perf_counter()
-        tok = self._prefill_pass(self.table[a.row:a.row + 1], chunk, start,
+        nxt = self._prefill_pass(self.table[a.row:a.row + 1], chunk, start,
                                  want, npl)
         self.wall["prefill_s"] += time.perf_counter() - t0
         a.prefill_done = end_real
         rep.prefill_calls += 1
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += end_real - start
+        tr = self._tr()
+        if tr is not None:
+            # the span covers the whole step window [now, t_end): in the
+            # virtual cost model the request is being prefilled for the
+            # step it is packed into
+            tr.emit("X", "prefill_chunk", _vns(self._now),
+                    _vns(t_end) - _vns(self._now),
+                    track=self._req_track(a.req.rid),
+                    args={"rid": a.req.rid, "chunk": start // max(C, 1),
+                          "start": start, "tokens": end_real - start,
+                          "cached_tokens":
+                              self._cached_tokens.get(a.req.rid, 0),
+                          "step": int(self.stats["steps"])})
         if self.prefix is not None:
             # register newly completed prompt pages (every position prompt
             # content, never written again)
@@ -745,9 +1142,14 @@ class ServeEngine:
             a.registered_blocks = max(a.registered_blocks,
                                       end_real // self.page)
         if last:
+            tok = self._emit_token(nxt, a.req.rid, len(a.out))
             a.out.append(tok)
             a.token_times.append(t_end)
             a.first_token_t = t_end
+            if tr is not None:
+                tr.emit("i", "first_token", _vns(t_end),
+                        track=self._req_track(a.req.rid),
+                        args={"rid": a.req.rid, "t": t_end})
             if len(a.out) >= a.req.max_new:
                 self._complete(a, t_end, rep)
             else:
@@ -758,6 +1160,18 @@ class ServeEngine:
                     rep: StepReport) -> None:
         assert all(self.rows[a.row] is a for a in decode_set), \
             "scheduled a dead (evicted) row"
+        tr = self._tr()
+        if tr is not None:
+            # one span per participating request over the step window;
+            # `tok` is the index of the token this pass emits, so
+            # serveview can rebuild per-token times
+            d0, d1 = _vns(self._now), _vns(t_end)
+            for a in decode_set:
+                tr.emit("X", "decode", d0, d1 - d0,
+                        track=self._req_track(a.req.rid),
+                        args={"rid": a.req.rid, "tok": len(a.out),
+                              "pos": int(a.decode_pos),
+                              "step": int(self.stats["steps"])})
         B = self.cfg.max_batch
         toks = np.zeros((B, 1), np.int32)
         pos = np.zeros((B,), np.int32)
@@ -780,13 +1194,17 @@ class ServeEngine:
         self.stats["decode_row_slots"] += len(decode_set)
         self.stats["decode_tokens"] += len(decode_set)
         for a in decode_set:
-            tok = int(nxt[a.row])
+            tok = self._emit_token(nxt[a.row], a.req.rid, len(a.out))
             a.out.append(tok)
             a.token_times.append(t_end)
             if a.first_token_t is None:
                 # a full-hit admission skips prefill: its first token
                 # comes from this decode pass
                 a.first_token_t = t_end
+                if tr is not None:
+                    tr.emit("i", "first_token", _vns(t_end),
+                            track=self._req_track(a.req.rid),
+                            args={"rid": a.req.rid, "t": t_end})
             if len(a.out) >= a.req.max_new:
                 self._complete(a, t_end, rep)
             else:
@@ -817,11 +1235,57 @@ class ServeEngine:
             s["decode_tokens"] / slots if slots else 0.0)
         return s
 
+    def snapshot(self) -> Dict[str, Any]:
+        """Live state of this replica, host work only (no device traffic):
+        occupancy, queue depth, per-request ages at the engine's virtual
+        clock, SLO attainment so far (``cfg.slo_ttft``/``slo_itl``; 0 = no
+        SLO) and the ring of recent per-step states."""
+        now = self._last_t
+        reqs: List[Dict[str, Any]] = []
+        for a in sorted(self._active(), key=lambda x: x.admit_seq):
+            reqs.append({
+                "rid": a.req.rid, "state": a.state,
+                "age": now - (a.req.arrival if a.req.arrival is not None
+                              else 0.0),
+                "prefill_done": a.prefill_done,
+                "out_tokens": len(a.out), "pages": a.n_pages,
+            })
+        for r in self.queue:
+            # queued age = time since (re)enqueue: the arrival, or for a
+            # requeued victim its current wait (the queue_wait span's)
+            q0 = self._queued_at.get(
+                r.rid, r.arrival if r.arrival is not None else 0.0)
+            reqs.append({
+                "rid": r.rid, "state": "queued", "age": now - q0,
+                "prefill_done": 0, "out_tokens": 0, "pages": 0,
+            })
+        slo_t = self.cfg.slo_ttft or None
+        slo_i = self.cfg.slo_itl or None
+        ok = sum(1 for f in self.finished
+                 if request_slo_ok(f, slo_t, slo_i))
+        return {
+            "t": now, "replica": self.replica,
+            "occupancy": self.allocator.occupancy(),
+            "free_pages": self.allocator.free_pages,
+            "shared_pages": self.allocator.shared_pages,
+            "queue_depth": len(self.queue),
+            "active": len(self._active()),
+            "completed": len(self.finished),
+            "evicted": int(self.stats["evicted"]),
+            "slo_attainment": ok / len(self.finished)
+            if self.finished else 0.0,
+            "requests": reqs,
+            "recent_steps": (list(self._flight)
+                             if self._flight is not None else []),
+        }
+
 
 class ReplicatedServer:
     """The reference's fleet interface (``submit``/``step``/``finished``/
-    ``stats_summary``), which servebench drives, over exactly one replica:
-    multi-replica serving is not ported yet."""
+    ``timed_out``/``shed_records``/``snapshot``/``stats_summary``), which
+    servebench drives, over exactly one replica: multi-replica serving is
+    not ported yet. With one replica the reference's fleet-wide deadline
+    probe reduces to that replica's own ``submit``."""
 
     def __init__(self, engines: List[ServeEngine]):
         if len(engines) != 1:
@@ -841,6 +1305,26 @@ class ReplicatedServer:
     @property
     def finished(self) -> List[Dict[str, Any]]:
         return list(self.engines[0].finished)
+
+    @property
+    def timed_out(self) -> List[Dict[str, Any]]:
+        """Every ``timeout`` terminal record."""
+        return list(self.engines[0].timed_out)
+
+    @property
+    def shed_records(self) -> List[Dict[str, Any]]:
+        """Every ``shed`` admission rejection."""
+        return list(self.engines[0].shed)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """Fleet snapshot under the reference's keys: the replicas'
+        snapshots and the aggregates a dispatcher reads (queue depth,
+        active count, worst occupancy, SLO attainment so far), which for
+        the one replica are its own."""
+        s = self.engines[0].snapshot()
+        return {"t": s["t"], "replicas": [s],
+                **{k: s[k] for k in ("queue_depth", "active", "completed",
+                                     "occupancy", "slo_attainment")}}
 
     def stats_summary(self) -> Dict[str, float]:
         return self.engines[0].stats_summary()

@@ -2,7 +2,7 @@
 blocks (the PagedAttention copy-on-write lineage of Kwon et al., SOSP'23).
 
 The port's copy of ``ddlbench_tpu/serve/prefix.py`` (pure host code), less
-the SDC quarantine's ``drop_slot`` and the tracer hook.
+the SDC quarantine's ``drop_slot``.
 
 A newly admitted request CLAIMS the resident, immutable KV pages of its
 longest cached prompt prefix: the engine binds those pool slots into the
@@ -31,7 +31,7 @@ it (the full-hit path).
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -58,6 +58,9 @@ class PrefixIndex:
         self.lookups = 0
         self.hit_blocks = 0
         self.reclaimed = 0
+        # optional (name, **args) sink for hit/reclaim instants, wired to
+        # the tracer like PageAllocator.on_event
+        self.on_event: Optional[Callable[..., None]] = None
 
     def __len__(self) -> int:
         return len(self._slots)
@@ -73,6 +76,9 @@ class PrefixIndex:
                 break
             slots.append(slot)
         self.hit_blocks += len(slots)
+        if slots and self.on_event is not None:
+            self.on_event("prefix_hit", blocks=len(slots),
+                          tokens=len(slots) * self.page)
         return slots
 
     def register(self, prompt: np.ndarray, block: int, slot: int) -> bool:
@@ -103,6 +109,9 @@ class PrefixIndex:
             self.allocator.decref(slot)
             self.reclaimed += 1
             freed += 1
+        if self.on_event is not None:
+            self.on_event("prefix_reclaim", asked=n_pages, freed=freed,
+                          entries=len(self._slots))
         return freed
 
     def drop_all(self) -> int:

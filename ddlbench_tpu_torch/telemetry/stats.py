@@ -1,9 +1,9 @@
 """Step-latency and serving latency/goodput aggregation.
 
 The port's copy of ``percentile``, ``latency_summary``, ``request_slo_ok``
-and ``serve_summary`` from ``ddlbench_tpu/telemetry/stats.py`` (without the
-per-tier split, since the port has no SLO tiers yet). Pure host arithmetic: the same finished
-records give the same summary in both packages, bit for bit.
+and ``serve_summary`` (with its per-tier split) from
+``ddlbench_tpu/telemetry/stats.py``. Pure host arithmetic: the same
+finished records give the same summary in both packages, bit for bit.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ def request_slo_ok(rec: Dict, slo_ttft: Optional[float] = None,
 
 def serve_summary(records: List[Dict], *, duration: float,
                   slo_ttft: Optional[float] = None,
-                  slo_itl: Optional[float] = None) -> Dict[str, float]:
+                  slo_itl: Optional[float] = None,
+                  per_tier: bool = False) -> Dict[str, float]:
     """Serving-side latency/goodput aggregation over completed requests.
 
     TTFT (arrival -> first token) and ITL (gap between consecutive tokens
@@ -64,19 +65,39 @@ def serve_summary(records: List[Dict], *, duration: float,
     serving headline — **goodput under SLO**: output tokens per time unit
     counting ONLY requests that met BOTH SLOs (:func:`request_slo_ok`).
     Zero records and/or zero duration return the same key set with zeros.
+
+    ``per_tier=True`` adds ``{interactive,batch}_{completed,
+    output_tokens, ttft_p50, ttft_p95, itl_p50, slo_attainment,
+    goodput_tokens_per_unit}``: the same definitions over each tier's
+    records (a record without ``tier`` counts as interactive), both tiers
+    always present.
     """
     ttfts, itls, good_tokens, total_tokens, n_ok = [], [], 0, 0, 0
+    by_tier = {t: {"ttft": [], "itl": [], "completed": 0, "tokens": 0,
+                   "ok": 0, "good": 0} for t in ("interactive", "batch")}
     for r in records:
         arrival = r["arrival"]
         ttft = r["first_token_t"] - (arrival if arrival is not None
                                      else 0.0)
         times = r["token_times"]
+        gaps = [b - a for a, b in zip(times, times[1:])]
+        ok = request_slo_ok(r, slo_ttft, slo_itl)
         ttfts.append(ttft)
-        itls.extend(b - a for a, b in zip(times, times[1:]))
+        itls.extend(gaps)
         total_tokens += r["n_tokens"]
-        if request_slo_ok(r, slo_ttft, slo_itl):
+        if ok:
             n_ok += 1
             good_tokens += r["n_tokens"]
+        if per_tier:
+            b = by_tier.get(r.get("tier", "interactive"))
+            if b is not None:  # unknown tier labels fall in no bucket
+                b["ttft"].append(ttft)
+                b["itl"].extend(gaps)
+                b["completed"] += 1
+                b["tokens"] += r["n_tokens"]
+                if ok:
+                    b["ok"] += 1
+                    b["good"] += r["n_tokens"]
     out = {
         "completed": len(records),
         "output_tokens": total_tokens,
@@ -97,4 +118,15 @@ def serve_summary(records: List[Dict], *, duration: float,
         out["slo_ttft"] = slo_ttft
     if slo_itl is not None:
         out["slo_itl"] = slo_itl
+    if per_tier:
+        for tier, b in by_tier.items():
+            out[f"{tier}_completed"] = b["completed"]
+            out[f"{tier}_output_tokens"] = b["tokens"]
+            out[f"{tier}_ttft_p50"] = percentile(b["ttft"], 50.0)
+            out[f"{tier}_ttft_p95"] = percentile(b["ttft"], 95.0)
+            out[f"{tier}_itl_p50"] = percentile(b["itl"], 50.0)
+            out[f"{tier}_slo_attainment"] = (
+                b["ok"] / b["completed"] if b["completed"] else 0.0)
+            out[f"{tier}_goodput_tokens_per_unit"] = (
+                b["good"] / duration if duration > 0 else 0.0)
     return out

@@ -1,11 +1,11 @@
 """Serving benchmark: continuous batching vs static batching under load.
 
-The port of ``ddlbench_tpu/tools/servebench.py`` for the plain row and the
-reference's raw-speed levers. It drives the continuous-batching engine
-(serve/engine.py) with a seeded open- or closed-loop workload
-(serve/workload.py) and prints one JSON line per policy with TTFT and
-inter-token-latency p50/p95/p99 and **goodput under SLO**
-(telemetry/stats.serve_summary), under the reference's keys; the
+The port of ``ddlbench_tpu/tools/servebench.py`` for one replica: the
+plain row, the reference's raw-speed levers and its SLO surface. It drives
+the continuous-batching engine (serve/engine.py) with a seeded open- or
+closed-loop workload (serve/workload.py) and prints one JSON line per
+policy with TTFT and inter-token-latency p50/p95/p99 and **goodput under
+SLO** (telemetry/stats.serve_summary), under the reference's keys; the
 reference's JAX provenance keys are replaced by the port's device fields
 (device.provenance).
 
@@ -20,12 +20,29 @@ the decode step into a drafted verify pass (token streams those of plain
 decoding; the row gains ``speculative``, the ``spec_*`` counters,
 ``spec_accept_rate`` and ``tokens_per_pass``).
 
+The SLO surface, as in the reference (each field flag-gated, so a plain
+row keeps its key set): ``--sample temperature:T[,top-k:K]`` samples on the
+host with counter-based seeds (run seed, request id, token index);
+``--deadline-slack S`` stamps every request with a completion deadline
+(arrival + S): hopeless requests are SHED at admission and retried by the
+driver under ``--retry N:B`` (the k-th retry after B*2^k units, then
+rejected), expired ones cancel into the ``timeout`` terminal state (the
+row gains shed/timeouts/retries/rejected/requests_lost and their rates);
+``--tier-mix F`` draws that fraction into the preemptible ``batch`` tier
+(the row gains the per-tier split); ``--shape diurnal|ramp|spike`` shapes
+the poisson arrivals. ``--trace PATH`` records the request-lifecycle trace
+in virtual time and writes it as Chrome trace-event JSON (``PATH.<policy>``
+when several policies run); ``--timeline`` reduces it in-process
+(telemetry/serveview.py) into the windowed SLO/goodput table and the
+TTFT/ITL breakdowns in the row. Tracing changes no field of the row.
+
 Time is VIRTUAL: one unit = one model pass (a [max_batch, 1] decode step or
 one prefill chunk), so every virtual-time number is reproducible under a
 fixed seed and equal to the reference's for the same traffic.
 ``--wall-clock`` adds real seconds: the run's wall time, wall-clock output
 tokens per second, and the mean decode-step and prefill-chunk times (and
-with ``--speculative`` the mean verify-pass time).
+with ``--speculative`` the mean verify-pass time, with ``--sample`` the
+mean host time of one draw).
 
 The model runs on the card unless ``--device cpu`` is given; with no card
 and no ``--device cpu`` the tool raises. Each row carries
@@ -39,12 +56,16 @@ Usage:
         [--requests 64] [--max-batch 8] [--pool-pages 64] [--page 16]
         [--max-len 256] [--slo-ttft 16] [--slo-itl 2.0]
         [--shared-prefix 4:64] [--prefix-cache] [--kv-dtype int8]
-        [--speculative ngram:3:4] [--wall-clock] [--device cpu]
+        [--speculative ngram:3:4] [--sample temperature:0.8,top-k:40]
+        [--deadline-slack 64] [--retry 2:8] [--tier-mix 0.3]
+        [--shape diurnal] [--trace PATH [--timeline] [--window 32]]
+        [--wall-clock] [--device cpu]
 """
 
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import sys
 import time
@@ -60,7 +81,10 @@ from ddlbench_tpu_torch.ops.paged_decode import (paged_attention,
                                                  paged_chunk_attention)
 from ddlbench_tpu_torch.serve.engine import ReplicatedServer, make_server
 from ddlbench_tpu_torch.serve.workload import ServeRequest, make_workload
+from ddlbench_tpu_torch.telemetry.export import export_chrome_trace
+from ddlbench_tpu_torch.telemetry.serveview import breakdown
 from ddlbench_tpu_torch.telemetry.stats import serve_summary
+from ddlbench_tpu_torch.telemetry.tracer import Tracer, get_tracer, set_tracer
 
 # engine stats keys that only carry signal under --speculative: left out
 # of the other rows, as in the reference, so their key set is unchanged
@@ -68,67 +92,228 @@ _SPEC_FIELDS = frozenset((
     "spec_passes", "spec_drafted", "spec_accepted", "decode_tokens",
     "spec_accept_rate", "tokens_per_pass"))
 
+# engine stats keys that only carry signal under --deadline-slack
+_CHAOS_FIELDS = frozenset(("shed", "timeouts"))
 
-def run_open_loop(server, reqs) -> float:
-    """Release requests at their arrival times; returns the final clock."""
+
+def _round6(v):
+    """round(_, 6) through nested timeline/breakdown structures, so the
+    row stays reproducible and diff-friendly."""
+    if isinstance(v, float):
+        return round(v, 6)
+    if isinstance(v, dict):
+        return {k: _round6(x) for k, x in v.items()}
+    if isinstance(v, list):
+        return [_round6(x) for x in v]
+    return v
+
+
+def parse_retry(spec, perr):
+    """Parse a ``--retry N:B`` spec: N >= 1 resubmissions, base backoff
+    B >= 0. Returns (N, B) or None for an absent spec."""
+    if not spec:
+        return None
+    try:
+        n_s, b_s = spec.split(":")
+        retry = (int(n_s), float(b_s))
+    except ValueError:
+        perr(f"--retry wants N:B (retries:base_backoff), got {spec!r}")
+    if retry[0] < 1 or retry[1] < 0:
+        perr(f"--retry {spec!r}: N >= 1 and B >= 0")
+    return retry
+
+
+def parse_sample(spec, perr) -> Tuple[float, int]:
+    """Parse ``--sample temperature:T[,top-k:K]`` into (T, K); (0.0, 0),
+    greedy, for an absent spec."""
+    temperature, top_k = 0.0, 0
+    if not spec:
+        return temperature, top_k
+    for part in spec.split(","):
+        key, _, val = part.partition(":")
+        if key == "temperature":
+            temperature = float(val)
+        elif key == "top-k":
+            top_k = int(val)
+        else:
+            perr(f"--sample parts are temperature:T and top-k:K, "
+                 f"got {part!r}")
+    if temperature <= 0.0:
+        perr("--sample needs temperature:T with T > 0 "
+             "(omit --sample for greedy)")
+    return temperature, top_k
+
+
+def parse_shared_prefix(spec, perr) -> Tuple[int, int]:
+    """Parse ``--shared-prefix G:P``; (0, 0) for an absent spec."""
+    if not spec:
+        return 0, 0
+    try:
+        groups, prefix_len = (int(x) for x in spec.split(":"))
+    except ValueError:
+        perr("--shared-prefix wants G:P (groups:prefix_tokens), "
+             f"got {spec!r}")
+    return groups, prefix_len
+
+
+def check_args(args: argparse.Namespace, perr) -> None:
+    """The reference's argument errors, reported through ``perr`` (the
+    parser's ``error`` from the command line)."""
+    if args.timeline and not args.trace:
+        perr("--timeline reduces a recorded trace; pass --trace PATH")
+    if args.window <= 0:
+        perr("--window must be > 0 time units")
+    parse_shared_prefix(args.shared_prefix, perr)
+    parse_retry(args.retry, perr)
+    if args.shape and args.arrival != "poisson":
+        perr("--shape modulates the poisson arrival process; pass "
+             "--arrival poisson")
+    if args.deadline_slack is not None and args.deadline_slack <= 0:
+        perr("--deadline-slack must be > 0 time units")
+    if args.retry and args.deadline_slack is None:
+        perr("--retry retries SHED submissions; nothing is ever shed "
+             "without --deadline-slack")
+    if args.tier_mix is not None and not 0.0 <= args.tier_mix <= 1.0:
+        perr("--tier-mix is a probability in [0, 1]")
+    parse_sample(args.sample, perr)
+
+
+def shed_accounting(requests, completed, shed, timeouts, driver_stats):
+    """Terminal-state accounting: every request ends completed, timed out
+    or rejected; anything else is lost (``requests_lost == 0`` is the
+    invariant)."""
+    retries = driver_stats.get("retries", 0)
+    rejected = driver_stats.get("rejected", 0)
+    submissions = requests + retries
+    return {
+        "retries": retries,
+        "rejected": rejected,
+        "requests_lost": requests - completed - timeouts - rejected,
+        # zero-request rows keep the schema with all-zero rates
+        "shed_rate": (round(shed / submissions, 6) if submissions else 0.0),
+        "timeout_rate": (round(timeouts / requests, 6)
+                         if requests else 0.0),
+        "retry_amplification": (round(submissions / requests, 6)
+                                if requests else 1.0),
+    }
+
+
+class _Submitter:
+    """Driver-side admission with the bounded retry-with-backoff policy: a
+    SHED submission (deadline admission control refused it) retries after
+    ``backoff * 2**attempt`` time units, up to ``retries`` times, then
+    goes terminal as REJECTED; ``stats`` collects ``retries`` and
+    ``rejected`` for the row. With no deadlines nothing is shed and this
+    is plain ``server.submit``."""
+
+    def __init__(self, server, retry=None, deadline_slack=None, stats=None):
+        self.server = server
+        self.retries, self.backoff = retry if retry else (0, 1.0)
+        self.slack = deadline_slack
+        self.pending = []  # (due, rid, attempt, req), sorted by due
+        self.stats = stats if stats is not None else {}
+        self.stats.setdefault("retries", 0)
+        self.stats.setdefault("rejected", 0)
+
+    def offer(self, req, clock: float, attempt: int = 0) -> str:
+        """One submission attempt -> "ok" | "retry" | "rejected"."""
+        if req.arrival is None:
+            req.arrival = clock  # closed loop stamps at release
+        if self.slack is not None and req.deadline is None:
+            # closed-loop deadline stamp: the workload could not know the
+            # release time (open-loop requests arrive stamped)
+            req.deadline = req.arrival + self.slack
+        if self.server.submit(req, now=clock):
+            return "ok"
+        if attempt < self.retries:
+            self.stats["retries"] += 1
+            bisect.insort(self.pending,
+                          (clock + self.backoff * (2 ** attempt),
+                           req.rid, attempt + 1, req))
+            return "retry"
+        self.stats["rejected"] += 1
+        return "rejected"
+
+    def release_due(self, clock: float) -> int:
+        """Fire due retries; returns how many went terminal (rejected)."""
+        dead = 0
+        while self.pending and self.pending[0][0] <= clock:
+            _, _, attempt, req = self.pending.pop(0)
+            if self.offer(req, clock, attempt) == "rejected":
+                dead += 1
+        return dead
+
+    def next_due(self):
+        return self.pending[0][0] if self.pending else None
+
+
+def run_open_loop(server, reqs, retry=None, deadline_slack=None,
+                  driver_stats=None) -> float:
+    """Release requests at their arrival times; returns the final clock.
+    ``retry=(N, backoff)`` arms the shed retry policy and
+    ``driver_stats`` (a dict) receives its counters."""
     clock, i = 0.0, 0
-    sub = _Submitter(server)
+    sub = _Submitter(server, retry, deadline_slack, driver_stats)
     pend = sorted(reqs, key=lambda r: (r.arrival, r.rid))
-    while i < len(pend) or server.has_work():
+    while i < len(pend) or sub.pending or server.has_work():
+        sub.release_due(clock)
         while i < len(pend) and pend[i].arrival <= clock:
             sub.offer(pend[i], clock)
             i += 1
         if not server.has_work():
-            # idle: jump to the next arrival
-            if i >= len(pend):
+            # idle: jump to the next arrival or pending retry
+            nxts = [t for t in (
+                pend[i].arrival if i < len(pend) else None,
+                sub.next_due()) if t is not None]
+            if not nxts:
                 break
-            clock = max(clock, pend[i].arrival)
+            clock = max(clock, min(nxts))
             continue
         rep = server.step(clock)
         clock += rep.cost
     return clock
 
 
-def run_closed_loop(server, reqs, concurrency: int) -> float:
-    """Keep ``concurrency`` requests in flight; each completion releases
-    the next. Returns the final clock."""
+def run_closed_loop(server, reqs, concurrency: int, retry=None,
+                    deadline_slack=None, driver_stats=None) -> float:
+    """Keep ``concurrency`` requests in flight; each TERMINAL event —
+    completion, timeout, or a shed request exhausting its retries —
+    releases the next. Returns the final clock."""
     clock, nxt, done = 0.0, 0, 0
-    sub = _Submitter(server)
+    sub = _Submitter(server, retry, deadline_slack, driver_stats)
     n = len(reqs)
-    outstanding = 0
+    outstanding = 0  # released and not yet terminal (incl. pending retry)
 
     def top_up():
-        nonlocal nxt, outstanding
+        nonlocal nxt, done, outstanding
         while nxt < n and outstanding < concurrency:
-            sub.offer(reqs[nxt], clock)
+            st = sub.offer(reqs[nxt], clock)
             nxt += 1
-            outstanding += 1
+            if st == "rejected":
+                done += 1
+            else:
+                outstanding += 1
 
     top_up()
     while done < n:
+        dead = sub.release_due(clock)
+        done += dead
+        outstanding -= dead
+        top_up()
         if not server.has_work():
+            # jump to the next pending retry
+            due = sub.next_due()
+            if due is not None:
+                clock = max(clock, due)
+                continue
             break  # everything released went terminal
         rep = server.step(clock)
         clock += rep.cost
-        done += len(rep.completed)
-        outstanding -= len(rep.completed)
+        term = len(rep.completed) + len(rep.timed_out)
+        done += term
+        outstanding -= term
         top_up()
     return clock
-
-
-class _Submitter:
-    """Driver-side admission: stamps a closed-loop request's arrival at
-    release and submits it. (The reference's retry-with-backoff for shed
-    requests needs deadlines, which the port does not have yet.)"""
-
-    def __init__(self, server):
-        self.server = server
-
-    def offer(self, req, clock: float) -> None:
-        if req.arrival is None:
-            req.arrival = clock  # closed loop stamps at release
-        if not self.server.submit(req, now=clock):
-            raise RuntimeError(f"request {req.rid} was refused")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -150,8 +335,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "prefill chunks)")
     p.add_argument("--arrival", default="poisson",
                    choices=("poisson", "bursty", "closed"))
+    p.add_argument("--shape", default=None,
+                   choices=("diurnal", "ramp", "spike"),
+                   help="traffic shape layered on --arrival poisson: the "
+                        "rate curve (daily cycle / linear ramp / flash "
+                        "crowd) scales inter-arrivals drawn from a "
+                        "separate seeded stream, so prompts are the same "
+                        "for every shape")
     p.add_argument("--rate", type=float, default=0.5,
-                   help="open-loop arrival rate (requests per model pass)")
+                   help="open-loop arrival rate (requests per model pass; "
+                        "with --shape, the peak rate)")
     p.add_argument("--burst-size", type=int, default=8)
     p.add_argument("--burst-factor", type=float, default=4.0)
     p.add_argument("--concurrency", type=int, default=16,
@@ -181,19 +374,64 @@ def build_parser() -> argparse.ArgumentParser:
                         "verified in one K+1-wide pass priced as one model "
                         "pass; the row gains speculative/spec_*/"
                         "tokens_per_pass fields")
+    p.add_argument("--sample", default=None, metavar="temperature:T[,top-k:K]",
+                   help="sample instead of greedy argmax: softmax(logits/T)"
+                        " with optional top-k restriction, counter-based "
+                        "per-request seeds (run seed + request id + token "
+                        "index) so streams are reproducible; default greedy")
     p.add_argument("--slo-ttft", type=float, default=16.0,
                    help="TTFT SLO in time units (model passes)")
     p.add_argument("--slo-itl", type=float, default=2.0,
                    help="mean inter-token-latency SLO in time units")
+    p.add_argument("--deadline-slack", type=float, default=None,
+                   metavar="S",
+                   help="per-request completion deadline = arrival + S "
+                        "time units: the engine SHEDS a request at "
+                        "admission when its projected completion already "
+                        "misses the deadline (see --retry) and cancels an "
+                        "expired one into the `timeout` terminal state "
+                        "with all pages freed; the row gains shed/"
+                        "timeouts/retries/rejected/requests_lost and rates")
+    p.add_argument("--retry", default=None, metavar="N:B",
+                   help="bounded retry-with-backoff for SHED requests: up "
+                        "to N resubmissions, the k-th after B*2^k time "
+                        "units, then rejected. Needs --deadline-slack")
+    p.add_argument("--tier-mix", type=float, default=None, metavar="F",
+                   help="SLO tiers: each request is tier=batch with "
+                        "probability F (else interactive); interactive "
+                        "admits ahead of batch and batch is evicted first. "
+                        "The row gains per-tier TTFT/ITL/goodput/"
+                        "attainment")
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record the request-lifecycle trace (virtual-time "
+                        "spans and counters, one track per request) and "
+                        "write Chrome trace-event JSON here — PATH.<policy> "
+                        "when several policies run. The row is the same "
+                        "with or without it")
+    p.add_argument("--trace-capacity", type=int, default=200_000,
+                   help="trace ring size in events (the ring keeps the "
+                        "newest window and the metadata records drops)")
+    p.add_argument("--timeline", action="store_true",
+                   help="with --trace: reduce the trace (telemetry/"
+                        "serveview.py) and put the windowed SLO/goodput "
+                        "table and the TTFT/ITL breakdowns in the row")
+    p.add_argument("--window", type=float, default=32.0,
+                   help="timeline bucket width in time units "
+                        "(with --timeline)")
     p.add_argument("--seed", type=int, default=0,
                    help="seeds the traffic and the random weights")
     p.add_argument("--wall-clock", action="store_true",
                    help="also report real elapsed seconds, wall-clock "
-                        "tokens/s and mean decode-step / prefill-chunk ms")
+                        "tokens/s, mean decode-step / prefill-chunk ms and "
+                        "with --sample the mean host ms of one draw")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; no card and no --device "
                         "cpu raises")
     return p
+
+
+def _value_error(msg):
+    raise ValueError(msg)
 
 
 def plain_launches() -> int:
@@ -208,24 +446,23 @@ def run(args: argparse.Namespace, model: LayerModel,
         ) -> List[Tuple[dict, ReplicatedServer, List[ServeRequest]]]:
     """Serve the workload under each policy with ``model`` (already on
     ``device``). Returns one (JSON row, server, requests) per policy."""
+    check_args(args, _value_error)
     spec = DATASETS[args.benchmark]
     plo, ptyp, phi = (int(x) for x in args.prompt_lens.split(","))
     olo, otyp, ohi = (int(x) for x in args.out_lens.split(","))
     policies = [s.strip() for s in args.policies.split(",") if s.strip()]
-    groups = prefix_len = 0
-    if args.shared_prefix:
-        try:
-            groups, prefix_len = (int(x)
-                                  for x in args.shared_prefix.split(":"))
-        except ValueError:
-            raise ValueError("--shared-prefix wants G:P (groups:prefix_"
-                             f"tokens), got {args.shared_prefix!r}") from None
+    groups, prefix_len = parse_shared_prefix(args.shared_prefix,
+                                             _value_error)
+    retry = parse_retry(args.retry, _value_error)
+    temperature, top_k = parse_sample(args.sample, _value_error)
     base = ServeConfig(
         max_batch=args.max_batch, pool_pages=args.pool_pages,
         page=args.page, max_len=min(args.max_len, spec.seq_len),
         token_budget=args.token_budget,
         prefill_chunk=(args.page if args.prefill_chunk is None
                        else args.prefill_chunk),
+        temperature=temperature, top_k=top_k, sample_seed=args.seed,
+        trace=bool(args.trace),
         slo_ttft=args.slo_ttft, slo_itl=args.slo_itl,
         kv_dtype=args.kv_dtype or "float32",
         speculative=args.speculative or "none")
@@ -243,30 +480,81 @@ def run(args: argparse.Namespace, model: LayerModel,
         reqs = make_workload(
             seed=args.seed, n_requests=args.requests,
             vocab=spec.num_classes, arrival=args.arrival, rate=args.rate,
-            burst_size=args.burst_size, burst_factor=args.burst_factor,
+            shape=args.shape, burst_size=args.burst_size,
+            burst_factor=args.burst_factor,
             prompt_lo=plo, prompt_typical=ptyp, prompt_hi=phi,
             out_lo=olo, out_typical=otyp, out_hi=ohi,
             tail_frac=args.tail_frac, prefix_groups=groups,
-            prefix_len=prefix_len, max_len=cfg.max_len)
+            prefix_len=prefix_len, max_len=cfg.max_len,
+            deadline_slack=args.deadline_slack,
+            batch_frac=args.tier_mix or 0.0)
         server = make_server(model, cfg, device)
+        # one fresh bounded ring per policy row, installed process-global
+        # (the engine looks it up lazily) and restored afterwards
+        tracer = prev_tracer = None
+        if args.trace:
+            prev_tracer = get_tracer()
+            tracer = set_tracer(Tracer(args.trace_capacity)).enable()
+        dstats: dict = {}
         plain0 = plain_launches()
         t0 = time.perf_counter()
-        if args.arrival == "closed":
-            duration = run_closed_loop(server, reqs, args.concurrency)
-        else:
-            duration = run_open_loop(server, reqs)
+        try:
+            if args.arrival == "closed":
+                duration = run_closed_loop(
+                    server, reqs, args.concurrency, retry=retry,
+                    deadline_slack=args.deadline_slack, driver_stats=dstats)
+            else:
+                duration = run_open_loop(
+                    server, reqs, retry=retry,
+                    deadline_slack=args.deadline_slack, driver_stats=dstats)
+        finally:
+            if tracer is not None:
+                tracer.disable()
+                set_tracer(prev_tracer)
         wall = time.perf_counter() - t0
+        timeline_fields = {}
+        if tracer is not None:
+            if args.timeline:
+                bd = breakdown(tracer, slo_ttft=args.slo_ttft,
+                               slo_itl=args.slo_itl, window=args.window,
+                               per_request=False)
+                timeline_fields = {
+                    "window": args.window,
+                    "timeline": _round6(bd["timeline"]),
+                    "ttft_breakdown": _round6(bd["ttft"]),
+                    "itl_breakdown": _round6(bd["itl"]),
+                    "decomp_exact": bd["decomp_exact"],
+                }
+            path = (args.trace if len(policies) == 1
+                    else f"{args.trace}.{policy}")
+            n = export_chrome_trace(tracer, path, extra_metadata={
+                "serve": {"tool": "servebench", "policy": policy,
+                          "tp": cfg.tp, "replicas": cfg.replicas,
+                          "slo_ttft": args.slo_ttft,
+                          "slo_itl": args.slo_itl,
+                          "time_unit": "model_pass",
+                          "seed": args.seed}})
+            print(f"servebench: {n} trace events written to {path}"
+                  + (f" ({tracer.dropped_events} dropped: ring full)"
+                     if tracer.dropped_events else ""),
+                  file=sys.stderr, flush=True)
         fin = server.finished
         summary = serve_summary(fin, duration=duration,
                                 slo_ttft=args.slo_ttft,
-                                slo_itl=args.slo_itl)
+                                slo_itl=args.slo_itl,
+                                per_tier=args.tier_mix is not None)
         eng_stats = server.stats_summary()
+        chaos = args.deadline_slack is not None
+        acct = shed_accounting(args.requests, len(fin),
+                               int(eng_stats["shed"]),
+                               int(eng_stats["timeouts"]), dstats)
         rec = {
             "tool": "servebench",
             "model": args.model,
             "benchmark": args.benchmark,
             "policy": policy,
             "arrival": args.arrival,
+            **({"shape": args.shape} if args.shape else {}),
             "rate": args.rate if args.arrival != "closed" else None,
             "concurrency": (args.concurrency if args.arrival == "closed"
                             else None),
@@ -281,19 +569,31 @@ def run(args: argparse.Namespace, model: LayerModel,
             "replicas": cfg.replicas,
             "prefix_cache": cfg.prefix_cache,
             "shared_prefix": args.shared_prefix,
-            "sample": None,
+            "sample": args.sample,
             "time_unit": "model_pass",
             **{k: (round(v, 6) if isinstance(v, float) else v)
                for k, v in summary.items()},
             # serve_summary already reports completed; the speculative
-            # counters only show under --speculative
+            # counters only show under --speculative, the deadline ones
+            # under --deadline-slack
             **{k: (round(v, 6) if isinstance(v, float) else v)
                for k, v in eng_stats.items()
                if k != "completed"
-               and (args.speculative or k not in _SPEC_FIELDS)},
+               and (args.speculative or k not in _SPEC_FIELDS)
+               and (chaos or k not in _CHAOS_FIELDS)},
             **({"kv_dtype": cfg.kv_dtype} if args.kv_dtype else {}),
             **({"speculative": cfg.speculative}
                if args.speculative else {}),
+            # --timeline only: windowed SLO/goodput series + TTFT/ITL
+            # component breakdowns
+            **timeline_fields,
+            # --deadline-slack only: the knob, the driver's retry outcome
+            # and the shed/timeout economics
+            **({"deadline_slack": args.deadline_slack,
+                "retry": args.retry, **acct} if chaos else {}),
+            # --tier-mix only: the per-tier split rides serve_summary
+            **({"tier_mix": args.tier_mix}
+               if args.tier_mix is not None else {}),
             "plain_launches": plain_launches() - plain0,
             **prov,
         }
@@ -313,6 +613,10 @@ def run(args: argparse.Namespace, model: LayerModel,
                 rec["verify_step_ms"] = round(
                     1e3 * eng.wall["verify_s"] / st["spec_passes"], 4) \
                     if st["spec_passes"] else 0.0
+            if args.sample:
+                rec["sample_ms"] = round(
+                    1e3 * eng.wall["sample_s"] / eng.wall["sampled"], 4) \
+                    if eng.wall["sampled"] else 0.0
         out.append((rec, server, reqs))
     return out
 
@@ -320,6 +624,7 @@ def run(args: argparse.Namespace, model: LayerModel,
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
+    check_args(args, p.error)
     spec = DATASETS.get(args.benchmark)
     if spec is None or spec.kind != "tokens":
         p.error(f"-b {args.benchmark!r} is not a causal-LM token workload; "

@@ -375,8 +375,21 @@ def _within(got, want, ref32, floor_of):
     return bad
 
 
-@pytest.mark.parametrize("arch", EXTRA_ARCHS)
+# the step-and-eval cases of the slowest arches run from files of their
+# own (test_torch_image_zoo_densenet121.py, test_torch_image_zoo_deep.py),
+# so that under pytest-xdist's --dist loadfile no one file holds them all
+SPLIT_STEP_ARCHS = ("densenet121", "resnext50", "inception", "nasnet")
+
+
+@pytest.mark.parametrize(
+    "arch", [a for a in EXTRA_ARCHS if a not in SPLIT_STEP_ARCHS])
 def test_cifar10_step_and_eval_match_jax(arch, monkeypatch):
+    check_step_and_eval(arch, monkeypatch)
+
+
+def check_step_and_eval(arch, monkeypatch):
+    """One float32 SGD step and an eval of ``arch`` at cifar10 width
+    against the reference (the module docstring's last item)."""
     jm = jax_get_model(arch, "cifar10")
     tm = get_model(arch, "cifar10")
     js, jcfg, ts0, ps = _pair_strategies(jm, tm)

@@ -1,0 +1,17 @@
+"""The float32 SGD step and eval of resnext50, inception and nasnet held
+against the JAX reference at cifar10 width: test_torch_image_zoo.py's
+``test_cifar10_step_and_eval_match_jax`` for these arches, in a file of
+their own so that pytest-xdist's ``--dist loadfile`` runs them beside the
+rest of the zoo's cases rather than after them on one worker.
+"""
+
+import pytest
+
+from test_torch_image_zoo import check_step_and_eval
+
+pytestmark = pytest.mark.torchport
+
+
+@pytest.mark.parametrize("arch", ("resnext50", "inception", "nasnet"))
+def test_cifar10_step_and_eval_match_jax(arch, monkeypatch):
+    check_step_and_eval(arch, monkeypatch)

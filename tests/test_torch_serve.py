@@ -178,8 +178,8 @@ def test_servebench_without_gpu_or_cpu_flag_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tp=2), dict(replicas=2), dict(temperature=0.8),
-    dict(integrity=True), dict(trace=True), dict(heartbeat=4.0),
+    dict(tp=2), dict(replicas=2), dict(scrub=1),
+    dict(integrity=True), dict(replicas=4, tp=2), dict(heartbeat=4.0),
 ])
 def test_unported_serve_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
