@@ -129,6 +129,45 @@ one JSON line; any failure raises and exits non-zero:
              (greedy, sampled, sampled, greedy) over a float32 pool,
              beside the card's nvidia-smi line, with sample_ms (the
              host's time for one draw).
+3d. serve_fleet — the replicated fleet on the card: transformer_s at full
+             width (random weights, seed 0) over a float32 and an int8
+             pool, five commands with the traffic of the reference's
+             own end-to-end fleet tests (the seed-5 tiny traffic of
+             tests/test_serve_chaos.py, test_elastic.py and
+             test_autoscale.py): (i) servechaos --replicas 3 --kill 6:2
+             --stall 10:0:40 --heartbeat 4, 10 requests; (ii) the same
+             under --deadline-slack 64 --retry 2:8 --tier-mix 0.3 with
+             poisson arrivals at rate 0.5; (iii) servechaos --replicas 2
+             --kill 8:1 --autoscale 2:2 (with its scripted-recovery
+             baseline); (iv) servebench --replicas 2 --resize 8:1
+             --resize 24:3, 16 requests; (v) servebench --shape diurnal
+             --autoscale 1:2, 8 requests. With the launch counters zeroed
+             before a pool type's card runs: (a) each card row equals the
+             port's row of the same command on the CPU on every
+             virtual-time field (the fail, heartbeat, resize and
+             autoscale events among them), and so do the fleet's stall
+             events, timeouts and sheds; (b) no request lost, and the
+             streams equal the card's own control (servechaos's
+             unfaulted run; for (iv) and (v) the same command without
+             --resize or --autoscale); under (iii) the auto-repair MTTR at
+             most the scripted one; (c) every live and retired engine
+             holds no work, the live and drained ones have every page
+             back, and every retired one has released its pool; (d) both
+             paged kernels of the pool's type launched, neither of the
+             other type's, no call on the plain path; (e) every engine of
+             (i)'s 3-replica fleet holds the one model (the same
+             parameter storage), and building that fleet grows
+             torch.cuda.memory_allocated by its pools' bytes within 10 %.
+             A stream that leaves its control is reported with its first
+             fork and the top-2 logit margin there. Planted faults, each
+             run on the card and each required to fail its check: a kill
+             that drops the killed replica's queue (b), a step that kicks
+             a stalled replica's monitor (a) and dispatch to the
+             most-loaded replica (a). Then the serve_slo command greedy
+             over a float32 pool at 1 and 2 replicas, warm, in turns
+             (1, 2, 2, 1), with wall_tokens_per_s and decode_step_ms
+             beside the card's nvidia-smi line: the replicas share one
+             card and take turns on its stream.
 4. profile — the same path (8 requests, warm) under torch.profiler: the
              device's busy share, the device time by kernel, and each
              paged kernel instance's calls and device time.
@@ -327,6 +366,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import math
@@ -1572,6 +1612,312 @@ def phase_serve_slo(torch, pd, dev):
     failed += [k for k, v in faults.items() if v != "rejected"]
     if failed:
         raise AssertionError(f"serve_slo: failed {failed}")
+
+
+# phase 3d, serve_fleet: the reference's fleet end-to-end tests' traffic
+# (tests/test_serve_chaos.py's servechaos runs, tests/test_elastic.py's
+# servebench --resize, tests/test_autoscale.py's servebench --autoscale)
+# on transformer_s; --kv-dtype is added per pool
+CHAOS_BASE = [
+    "-m", "transformer_s", "-b", "synthtext", "--arrival", "closed",
+    "--concurrency", "4", "--requests", "10", "--max-batch", "2",
+    "--pool-pages", "9", "--page", "4", "--max-len", "16",
+    "--prompt-lens", "2,4,8", "--out-lens", "2,4,8", "--seed", "5"]
+BENCH_BASE = CHAOS_BASE[:8] + [
+    "--requests", "8", "--max-batch", "2", "--pool-pages", "9", "--page",
+    "4", "--max-len", "16", "--prompt-lens", "2,4,8", "--out-lens", "2,4,8",
+    "--slo-ttft", "8", "--slo-itl", "2.5", "--seed", "5", "--policies",
+    "continuous"]
+# name -> (tool, argv, the flags (with their values) a control run drops)
+FLEET_RUNS = {
+    "i_kill_stall": ("servechaos", CHAOS_BASE + [
+        "--replicas", "3", "--kill", "6:2", "--stall", "10:0:40",
+        "--heartbeat", "4"], None),
+    "ii_kill_stall_slo": ("servechaos", CHAOS_BASE + [
+        "--replicas", "3", "--kill", "6:2", "--stall", "10:0:40",
+        "--heartbeat", "4", "--deadline-slack", "64", "--retry", "2:8",
+        "--tier-mix", "0.3", "--arrival", "poisson", "--rate", "0.5"], None),
+    "iii_autoscale_repair": ("servechaos", CHAOS_BASE + [
+        "--replicas", "2", "--kill", "8:1", "--autoscale", "2:2"], None),
+    "iv_resize": ("servebench", [
+        "-m", "transformer_s", "-b", "synthtext", "--policies",
+        "continuous", "--arrival", "closed", "--concurrency", "6",
+        "--requests", "16", "--max-batch", "4", "--pool-pages", "24",
+        "--page", "8", "--max-len", "64", "--prompt-lens", "2,6,12",
+        "--out-lens", "2,4,8", "--replicas", "2", "--resize", "8:1",
+        "--resize", "24:3"], ("--resize",)),
+    "v_autoscale_diurnal": ("servebench", BENCH_BASE + [
+        "--arrival", "poisson", "--rate", "0.4", "--shape", "diurnal",
+        "--autoscale", "1:2", "--scale-window", "8", "--scale-cooldown",
+        "8"], ("--autoscale", "--scale-window", "--scale-cooldown")),
+}
+MEMORY_RTOL = 0.10  # (e): a fleet's allocation against its pools' bytes
+FLEET_ROW_KEYS = (
+    "completed", "requests_lost", "streams_match", "streams_compared",
+    "kills_fired", "stalls_fired", "heartbeat_drains", "mttr_replica_s",
+    "mttr_scripted_s", "repair_mttr_le_scripted", "repairs",
+    "scale_events", "replica_hours", "final_replicas", "resize_events",
+    "shed", "timeouts", "duration", "goodput_tokens_per_unit")
+
+
+def without(argv, flags):
+    """``argv`` with each of ``flags`` and its value left out."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in flags:
+            skip = True
+        else:
+            out.append(a)
+    return out
+
+
+def fleet_run(model, dev, tool, argv, kv):
+    """One fleet command over a ``kv`` pool on ``dev``. Returns (row,
+    {name: server}, {rid: tokens} of the run's own server, {rid: prompt
+    tokens})."""
+    from ddlbench_tpu_torch.tools import servebench, servechaos
+
+    argv = argv + ["--kv-dtype", kv]
+    if tool == "servechaos":
+        args = servechaos.build_parser().parse_args(argv)
+        rec, servers, reqs = servechaos.run(args, model, dev)
+    else:
+        args = servebench.build_parser().parse_args(argv)
+        (rec, server, reqs), = servebench.run(args, model, dev)
+        servers = {"chaos": server}
+    return (rec, servers,
+            {f["rid"]: f["tokens"] for f in servers["chaos"].finished},
+            {r.rid: r.prompt.tolist() for r in reqs})
+
+
+def fleet_idle(servers) -> bool:
+    """(c): every live and retired engine of every server holds no work;
+    the live and the drained ones have every page back on the free list;
+    every retired one (drained or killed) has released its pool."""
+    for srv in servers.values():
+        killed = {ev["replica_id"] for ev in srv.fail_events}
+        for eng in srv.engines + srv.retired:
+            al = eng.allocator
+            if eng.has_work():
+                return False
+            if eng.replica not in killed and not (
+                    al.free_pages == al.capacity and al.in_use == 0):
+                return False
+        if any(p is not None for e in srv.retired for p in e.pools):
+            return False
+    return True
+
+
+def fleet_memory(torch, model, dev, kv):
+    """(e): build the 3-replica fleet of run (i) and return (every
+    engine's model is ``model`` with the same parameter storage,
+    allocated bytes, the pools' bytes)."""
+    from ddlbench_tpu_torch.config import ServeConfig
+    from ddlbench_tpu_torch.serve.engine import make_server
+
+    cfg = ServeConfig(max_batch=2, pool_pages=9, page=4, max_len=16,
+                      prefill_chunk=4, replicas=3, kv_dtype=kv)
+    # earlier phases' traced servers hold reference cycles: collect them
+    # now, and let no collection free device memory inside the window
+    gc.collect()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        server = make_server(model, cfg, dev)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated(dev) - m0
+    finally:
+        gc.enable()
+    ptrs = {p.data_ptr() for p in model.parameters()}
+    shared = all(e.model is model and {p.data_ptr() for p in
+                                       e.model.parameters()} == ptrs
+                 for e in server.engines)
+    seen, pool_bytes = set(), 0
+    for e in server.engines:
+        for pool in e.pools:
+            for t in (pool or {}).values():
+                if torch.is_tensor(t) and t.data_ptr() not in seen:
+                    seen.add(t.data_ptr())
+                    pool_bytes += t.numel() * t.element_size()
+    del server
+    return shared, grown, pool_bytes
+
+
+def fleet_forks(torch, model, dev, prompts, card, control):
+    """The first fork of each stream that left its control: the token
+    index and the control's top-2 logit margin there (both through the
+    plain full-forward model)."""
+    from ddlbench_tpu_torch.models.transformer import set_attention_backend
+
+    out = []
+    set_attention_backend("xla")
+    try:
+        for rid in sorted(set(card) & set(control)):
+            a, b = card[rid], control[rid]
+            i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+            if i is None:
+                continue
+            toks = prompts[rid] + b[:i]
+            with torch.no_grad():
+                row = model(torch.tensor([toks], device=dev))[0, -1].float()
+            top = torch.topk(row, 2).values
+            out.append({"rid": rid, "index": i,
+                        "top2_margin": (top[0] - top[1]).item()})
+    finally:
+        set_attention_backend("auto")
+    return out
+
+
+def fleet_faults(model, dev, cpu_row):
+    """Planted faults, each run on the card (run (i), float32 pool) and
+    each required to fail its check: a kill that drops the killed
+    replica's queue (b: a request is lost), a step that kicks a stalled
+    replica's monitor (a: no heartbeat drain) and dispatch to the
+    most-loaded replica (a)."""
+    from ddlbench_tpu_torch.serve.engine import ReplicatedServer
+
+    real_fail, real_step = ReplicatedServer.fail, ReplicatedServer.step
+
+    def drops_queue(self, replica, now=0.0, dispatch=None):
+        self.engines[replica].queue.clear()
+        return real_fail(self, replica, now, dispatch)
+
+    def kicks_stalled(self, now=0.0):
+        rep = real_step(self, now)
+        for e in self.engines:
+            if e.monitor is not None:
+                e.monitor.kick(now + rep.cost)
+        return rep
+
+    def most_loaded(self):
+        return max(enumerate(self.engines),
+                   key=lambda ie: (ie[1].load(), -ie[0]))[1]
+
+    tool, argv, _ = FLEET_RUNS["i_kill_stall"]
+    out = {}
+    for name, attr, fault, check in (
+            ("fail_drops_queue", "fail", drops_queue, "b"),
+            ("step_kicks_stalled", "step", kicks_stalled, "a"),
+            ("dispatch_most_loaded", "_least_loaded", most_loaded, "a")):
+        original = ReplicatedServer.__dict__[attr]
+        setattr(ReplicatedServer, attr, fault)
+        try:
+            rec, _, _, _ = fleet_run(model, dev, tool, argv, "float32")
+        finally:
+            setattr(ReplicatedServer, attr, original)
+        caught = (rec["requests_lost"] != 0 if check == "b"
+                  else bool(slo_row_diff(rec, cpu_row)))
+        out[name] = "rejected" if caught else "PASSED"
+    return out
+
+
+def phase_serve_fleet(torch, pd, dev):
+    """The replicated fleet on the card (phase 3d of the docstring): per
+    pool type, the five fleet commands with checks (a)-(e); the planted
+    faults; then 1 against 2 replicas, warm, in turns."""
+    import tempfile
+
+    from ddlbench_tpu_torch.models.zoo import get_model
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cpu_model = get_model("transformer_s", "synthtext", seed=0)
+    card_model = get_model("transformer_s", "synthtext", seed=0).to(dev)
+    kernels = (pd.paged_attention, pd.paged_chunk_attention)
+    checks, pools, cpu_rows = {}, {}, {}
+    for kv in ("float32", "int8"):
+        for fn in kernels:
+            fn.launches = fn.launches_int8 = fn.plain_launches = 0
+        runs, plain = {}, 0
+        for name, (tool, argv, drop) in FLEET_RUNS.items():
+            rec, servers, toks, prompts = fleet_run(card_model, dev, tool,
+                                                    argv, kv)
+            plain += rec["plain_launches"]
+            if drop:  # the card's own control: the run without the flags
+                ctrl_rec, ctrl_servers, ctrl, _ = fleet_run(
+                    card_model, dev, tool, without(argv, drop), kv)
+                plain += ctrl_rec["plain_launches"]
+                servers["control"] = ctrl_servers["chaos"]
+                match = toks == ctrl
+            else:
+                ctrl = {f["rid"]: f["tokens"]
+                        for f in servers["control"].finished}
+                match = rec["streams_match"] is True
+            runs[name] = (rec, servers, toks, ctrl, match, prompts)
+        launches = {
+            "paged_attention": pd.paged_attention.launches,
+            "paged_chunk_attention": pd.paged_chunk_attention.launches,
+            "paged_attention_int8": pd.paged_attention.launches_int8,
+            "paged_chunk_attention_int8":
+                pd.paged_chunk_attention.launches_int8,
+            "plain_launches": plain}
+        mine, other = (("_int8", "") if kv == "int8" else ("", "_int8"))
+        checks[f"{kv}_d_launches"] = (
+            launches[f"paged_attention{mine}"] > 0
+            and launches[f"paged_chunk_attention{mine}"] > 0
+            and launches[f"paged_attention{other}"] == 0
+            and launches[f"paged_chunk_attention{other}"] == 0
+            and plain == 0
+            and pd.paged_attention.plain_launches == 0
+            and pd.paged_chunk_attention.plain_launches == 0)
+        rows, forks = {}, {}
+        for name, (rec, servers, toks, ctrl, match, prompts) in \
+                runs.items():
+            tool, argv, _ = FLEET_RUNS[name]
+            cpu_rec, cpu_servers, _, _ = fleet_run(cpu_model, cpu, tool,
+                                                   argv, kv)
+            cpu_rows[(kv, name)] = cpu_rec
+            diff = slo_row_diff(rec, cpu_rec)
+            srv, cpu_srv = servers["chaos"], cpu_servers["chaos"]
+            checks[f"{kv}_{name}_a_row_equals_cpu"] = not diff and all(
+                getattr(srv, k) == getattr(cpu_srv, k) for k in (
+                    "fail_events", "stall_events", "heartbeat_events",
+                    "resize_events", "timed_out", "shed_records"))
+            ok_b = rec["requests_lost"] == 0 and match
+            if name == "iii_autoscale_repair":
+                ok_b = ok_b and rec["repair_mttr_le_scripted"] is True
+            checks[f"{kv}_{name}_b_no_loss_streams_match"] = ok_b
+            checks[f"{kv}_{name}_c_idle_and_freed"] = fleet_idle(servers)
+            if not match:
+                forks[name] = fleet_forks(torch, card_model, dev, prompts,
+                                          toks, ctrl)
+            rows[name] = {k: rec[k] for k in FLEET_ROW_KEYS if k in rec}
+            if diff:
+                rows[name]["row_diff_vs_cpu"] = diff
+        shared, grown, pool_bytes = fleet_memory(torch, card_model, dev, kv)
+        checks[f"{kv}_e_one_weight_copy"] = (
+            shared and abs(grown - pool_bytes) <= MEMORY_RTOL * pool_bytes)
+        pools[kv] = {"launches": launches, "rows": rows, "forks": forks,
+                     "memory": {"allocated_bytes": grown,
+                                "pool_bytes": pool_bytes}}
+    faults = fleet_faults(card_model, dev,
+                          cpu_rows[("float32", "i_kill_stall")])
+    # 1 against 2 replicas on the card, warm, in turns (1, 2, 2, 1): the
+    # serve_slo command greedy over a float32 pool
+    turns = {"1": [], "2": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        slo_run(card_model, dev, "float32", tmp, argv=SLO_GREEDY_ARGS)
+        for n in ("1", "2", "2", "1"):
+            rec, _, _, _ = slo_run(card_model, dev, "float32", tmp,
+                                   extra=["--replicas", n],
+                                   argv=SLO_GREEDY_ARGS)
+            turns[n].append({k: rec.get(k) for k in (
+                "wall_s", "wall_tokens_per_s", "decode_step_ms",
+                "prefill_chunk_ms", "output_tokens", "duration",
+                "decode_batch_util", "decode_calls")})
+    emit({"phase": "serve_fleet", "runs": {k: [t, a] for k, (t, a, _) in
+                                           FLEET_RUNS.items()},
+          "checks": checks, "planted_faults": faults, "pools": pools,
+          "replicas_1_vs_2": {"card": card_line(), **turns},
+          "seconds": time.perf_counter() - t0})
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, v in faults.items() if v != "rejected"]
+    if failed:
+        raise AssertionError(f"serve_fleet: failed {failed}")
 
 
 def phase_profile(torch, dev):
@@ -3225,6 +3571,7 @@ def main() -> int:
     launches = phase_serve(torch, dev)
     launches.update(phase_serve_levers(torch, pd, dev))
     phase_serve_slo(torch, pd, dev)
+    phase_serve_fleet(torch, pd, dev)
     phase_profile(torch, dev)
     flash_worst = phase_flash_kernels(torch, fa, dev)
     flash_timed = phase_flash_times(torch, fa, dev)

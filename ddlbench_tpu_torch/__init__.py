@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of ddlbench_tpu for one NVIDIA H100.
 
 A second package beside the JAX reference, mirroring its paths: the
-serving path (config, models, ops, serve, telemetry, tools/servebench),
+serving path (config, models, ops, serve with its replicated fleet and
+autoscaler, telemetry, tools/{servebench,servechaos}, train/watchdog),
 the token-training path (data/synthetic, parallel/{common,single,api},
 tools/{lmbench,timing}) and image training (models/{resnet,vgg,
 mobilenetv2}, train/{loop,metrics}, cli, tools/bench), with hand-written

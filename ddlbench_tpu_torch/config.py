@@ -90,14 +90,15 @@ DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
 }
 
 
-# (field, default, what it is) for every ServeConfig knob the port keeps
-# for schema parity but does not implement yet
+# (field, default, what it is, the ROADMAP item it waits on) for every
+# ServeConfig knob the port keeps for schema parity but does not implement
+# yet
 _NOT_PORTED = (
-    ("tp", 1, "tensor-parallel serving (tp > 1)"),
-    ("replicas", 1, "multi-replica serving (replicas > 1)"),
-    ("heartbeat", 0.0, "the straggler heartbeat"),
-    ("integrity", False, "the SDC checksum ledger"),
-    ("scrub", 0, "the SDC scrubber"),
+    ("tp", 1, "tensor-parallel serving (tp > 1)",
+     "A.7: a replica needs tp devices"),
+    ("integrity", False, "the SDC checksum ledger",
+     "A.4: the SDC ledger and scrub"),
+    ("scrub", 0, "the SDC scrubber", "A.4: the SDC ledger and scrub"),
 )
 
 
@@ -165,11 +166,13 @@ class ServeConfig:
     # SLOs in virtual time units (observability only; 0 = no SLO)
     slo_ttft: float = 0.0
     slo_itl: float = 0.0
+    replicas: int = 1  # serving replicas (least-loaded dispatch)
+    # serve-side heartbeat: a replica that holds work but makes no progress
+    # for more than this many time units is drained (0 = off)
+    heartbeat: float = 0.0
     # knobs of the reference config the port does not implement yet:
     # validate() raises NotImplementedError when one leaves its default
-    replicas: int = 1
     tp: int = 1
-    heartbeat: float = 0.0
     integrity: bool = False
     scrub: int = 0
 
@@ -195,16 +198,19 @@ class ServeConfig:
         return self.npg_max() * self.page  # whole-stream padded chunk
 
     def validate(self) -> None:
-        for name, default, what in _NOT_PORTED:
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{what} ({name}={getattr(self, name)!r}) is not ported "
-                    "to the PyTorch serving path yet")
         if self.policy not in ("continuous", "static"):
             raise ValueError(
                 f"policy must be continuous|static, got {self.policy!r}")
-        if min(self.max_batch, self.page, self.max_len) < 1:
-            raise ValueError("max_batch, page, and max_len must be positive")
+        if min(self.max_batch, self.page, self.max_len, self.replicas,
+               self.tp) < 1:
+            raise ValueError(
+                "max_batch, page, max_len, replicas, and tp must be "
+                "positive")
+        for name, default, what, item in _NOT_PORTED:
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{what} ({name}={getattr(self, name)!r}) is not ported "
+                    f"to the PyTorch serving path yet (ROADMAP {item})")
         if self.prefill_chunk < 0 or self.token_budget < 0:
             raise ValueError(
                 "prefill_chunk and token_budget must be >= 0")
@@ -244,6 +250,10 @@ class ServeConfig:
         if self.slo_ttft < 0 or self.slo_itl < 0:
             raise ValueError(
                 "slo_ttft and slo_itl must be >= 0 (0 = no SLO)")
+        if self.heartbeat < 0:
+            raise ValueError(
+                f"heartbeat must be >= 0 time units (0 disables straggler "
+                f"detection), got {self.heartbeat}")
         if self.kv_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"kv_dtype must be float32|bfloat16|int8, got "

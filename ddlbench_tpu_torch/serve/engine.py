@@ -1,13 +1,14 @@
 """Continuous-batching serving engine over the paged KV pool (PyTorch port).
 
-The port of ``ddlbench_tpu/serve/engine.py`` for one replica, tp = 1:
-float32, bfloat16 and int8 pools, the continuous policy and the static
-baseline, the cross-request prefix cache, self-drafting speculative
-verify, sampling, deadlines with shedding and timeouts, SLO tiers,
-request-lifecycle tracing and the flight recorder. The scheduler is the
-reference's, line for line, so both engines make the same decisions on
-the same traffic and — with the same weights — emit the same token
-streams.
+The port of ``ddlbench_tpu/serve/engine.py`` at tp = 1: float32, bfloat16
+and int8 pools, the continuous policy and the static baseline, the
+cross-request prefix cache, self-drafting speculative verify, sampling,
+deadlines with shedding and timeouts, SLO tiers, request-lifecycle tracing
+and the flight recorder, and the replicated fleet over them
+(:class:`ReplicatedServer`: least-loaded dispatch, live resize, replica
+kill and stall, the heartbeat drain). The scheduler is the reference's,
+line for line, so both engines make the same decisions on the same traffic
+and — with the same weights — emit the same token streams.
 
 Structure (host schedules, device computes):
 
@@ -61,6 +62,12 @@ Structure (host schedules, device computes):
   flight_recorder``) for :meth:`ServeEngine.snapshot`. Tracing only
   records decisions already made: streams and virtual times are the same
   traced or not.
+* The fleet: every replica of a server is built on the one device and
+  shares the one model object (its weights live there once); each has its
+  own KV pool, allocator, scheduler and flight recorder. A global step runs
+  the replicas one after another on the device's stream and costs the
+  maximum of their costs in virtual time, as if they ran in parallel, as
+  the reference's replicas do on devices of their own.
 * ``policy="static"`` is the A/B baseline: admission only when every row is
   free, with full worst-case page reservation, draining the batch before
   the next fill.
@@ -97,6 +104,7 @@ from ddlbench_tpu_torch.serve.prefix import PrefixIndex
 from ddlbench_tpu_torch.serve.workload import TIERS, ServeRequest
 from ddlbench_tpu_torch.telemetry.stats import request_slo_ok
 from ddlbench_tpu_torch.telemetry.tracer import get_tracer
+from ddlbench_tpu_torch.train.watchdog import ProgressMonitor
 
 _KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
               "int8": torch.int8}
@@ -172,15 +180,30 @@ class StepReport:
     # closed-loop driver releases the next request on these too)
     timed_out: List[int] = dataclasses.field(default_factory=list)
 
+    def merge(self, other: "StepReport") -> None:
+        """Fold one replica's report into the fleet's global step: the
+        replicas run in parallel in virtual time, so the cost is the
+        maximum; the counts add up."""
+        self.cost = max(self.cost, other.cost)
+        self.prefill_calls += other.prefill_calls
+        self.decode_rows += other.decode_rows
+        self.admitted += other.admitted
+        self.evicted += other.evicted
+        self.backpressure += other.backpressure
+        self.completed.extend(other.completed)
+        self.timed_out.extend(other.timed_out)
+
 
 class ServeEngine:
     """One serving replica: scheduler + allocator + the model passes.
 
     ``model`` must already live on ``device``; the pools are built there.
+    ``replica`` is the replica's id in its fleet: its trace tracks are
+    ``r{replica}/...``.
     """
 
     def __init__(self, model: LayerModel, cfg: ServeConfig,
-                 device: torch.device):
+                 device: torch.device, replica: int = 0):
         cfg.validate()
         if cfg.max_len > model.in_shape[0]:
             raise ValueError(
@@ -236,11 +259,9 @@ class ServeEngine:
         self.finished: List[Dict[str, Any]] = []
         self._admit_seq = 0
         self._filling = False  # static policy: whole-batch fill phase
-        # observability: host bookkeeping the scheduler never reads. The
-        # port serves one replica, 0, whose tracks are the reference's
-        # "r0/..."
-        self.replica = 0
-        self._trk = "r0"  # per-replica trace-track prefix
+        # observability: host bookkeeping the scheduler never reads
+        self.replica = replica
+        self._trk = f"r{replica}"  # per-replica trace-track prefix
         self._now = 0.0  # current step's start (mid-schedule instants)
         self._last_t = 0.0  # last step's end: snapshot()'s clock
         # when each queued request entered the queue (arrival, or the
@@ -265,6 +286,16 @@ class ServeEngine:
         self.shed: List[Dict[str, Any]] = []
         # every eviction (rid/t/tier/batch_active): the tier-order ledger
         self.evicted_log: List[Dict[str, Any]] = []
+        # straggler injection: ReplicatedServer.stall sets this; while it
+        # is positive the server skips this replica's steps (it holds its
+        # requests but makes no progress), one tick per global step
+        self._stall_ticks = 0
+        # serve-side heartbeat (cfg.heartbeat > 0): the server kicks this
+        # monitor every step it schedules the replica, on the virtual
+        # clock; an expired monitor on a replica that holds work is the
+        # straggler verdict
+        self.monitor: Optional[ProgressMonitor] = (
+            ProgressMonitor(cfg.heartbeat) if cfg.heartbeat > 0 else None)
         # prompt tokens served from the cache per request, accumulated
         # across re-admissions (eviction/recompute)
         self._cached_tokens: Dict[int, int] = {}
@@ -520,7 +551,8 @@ class ServeEngine:
         return bool(self.queue) or any(a is not None for a in self.rows)
 
     def load(self) -> int:
-        """Remaining token work (queued + in flight)."""
+        """Remaining token work (queued + in flight): the least-loaded
+        dispatch key."""
         tot = sum(r.prompt_len + r.max_new for r in self.queue)
         for a in self.rows:
             if a is not None:
@@ -1210,6 +1242,37 @@ class ServeEngine:
             else:
                 a.pending_tok = tok
 
+    def drain(self, now: float = 0.0):
+        """Retire this replica under live load (a resize's scale-down, a
+        heartbeat drain): every in-flight request is EVICTED onto the
+        recompute path, oldest-admitted first (pages freed; its tokens
+        regenerate identically on whichever replica re-admits it), and the
+        whole queue is handed back for least-loaded redistribution.
+        Finished records stay on the engine, which the server keeps among
+        its retired engines. Returns ``(requests, evicted_count,
+        handoff)``: ``handoff[rid] = (queued_at, evicted)`` lets the
+        receiving engine keep the queue-wait baseline and the recompute
+        marker."""
+        self._now = now
+        rep = StepReport()
+        for a in sorted(self._active(), key=lambda x: x.admit_seq):
+            if self.rows[a.row] is a:
+                self._evict(a, rep)
+        reqs = list(self.queue)
+        self.queue.clear()
+        handoff = {r.rid: (self._queued_at.get(r.rid, now),
+                           r.rid in self._evicted_rids) for r in reqs}
+        self._queued_at.clear()
+        return reqs, rep.evicted, handoff
+
+    def release_pools(self) -> None:
+        """Drop a retired engine's KV pools, so their device memory goes
+        back to the allocator: the replicas of a fleet share one card,
+        and the fleet's ``pool_bytes`` counts the live engines only. The
+        engine keeps its records and counters, and is never stepped
+        again."""
+        self.pools = [None] * len(self.pools)
+
     def stats_summary(self) -> Dict[str, float]:
         s = dict(self.stats)
         calls = s.pop("decode_calls")
@@ -1280,57 +1343,377 @@ class ServeEngine:
         }
 
 
-class ReplicatedServer:
-    """The reference's fleet interface (``submit``/``step``/``finished``/
-    ``timed_out``/``shed_records``/``snapshot``/``stats_summary``), which
-    servebench drives, over exactly one replica: multi-replica serving is
-    not ported yet. With one replica the reference's fleet-wide deadline
-    probe reduces to that replica's own ``submit``."""
 
-    def __init__(self, engines: List[ServeEngine]):
-        if len(engines) != 1:
-            raise NotImplementedError(
-                "multi-replica serving is not ported yet (one engine)")
+
+class ReplicatedServer:
+    """N independent replicas with a least-loaded dispatcher. Replicas step
+    in lockstep; a global step costs the maximum of the replicas' costs
+    (they run in parallel in virtual time; on the card the port runs them
+    one after another on one device).
+
+    LIVE RESIZE (:meth:`resize`): scale-down drains the highest-index
+    replicas — in-flight requests are evicted onto the recompute path and
+    the drained queues redistribute least-loaded over the survivors — so
+    no request is lost and the token streams stay those of an un-resized
+    run (greedy and seeded sampling are pure functions of (weights,
+    prompt, rid, token index)). Scale-up spawns replicas through the
+    ``engine_factory`` :func:`make_server` installs, sharing the one model.
+    Drained engines are retired, not discarded: their finished records and
+    counters stay in ``finished`` and ``stats_summary``.
+
+    CHAOS: :meth:`fail` hard-kills a replica (its pool is lost, its
+    requests fail over), :meth:`stall` makes one stop progressing, and
+    with ``cfg.heartbeat > 0`` a replica that holds work without progress
+    for longer than the window is drained like a scale-down.
+    """
+
+    def __init__(self, engines: List[ServeEngine], engine_factory=None):
+        if not engines:
+            raise ValueError("need at least one engine")
         self.engines = list(engines)
+        self._factory = engine_factory
+        self._retired: List[ServeEngine] = []
+        self._next_replica = len(engines)
+        # (t, from, to, evicted, redistributed, shed)
+        self.resize_events: List[Dict[str, Any]] = []
+        # chaos ledgers: hard kills, injected stalls and heartbeat drains
+        self.fail_events: List[Dict[str, Any]] = []
+        self.stall_events: List[Dict[str, Any]] = []
+        self.heartbeat_events: List[Dict[str, Any]] = []
+
+    @property
+    def retired(self) -> List[ServeEngine]:
+        """Engines drained, failed or resized away, in retirement order."""
+        return list(self._retired)
+
+    def _retire(self, eng: ServeEngine) -> None:
+        eng.release_pools()
+        self._retired.append(eng)
+
+    def _least_loaded(self) -> ServeEngine:
+        return min(enumerate(self.engines), key=lambda ie: (ie[1].load(),
+                                                            ie[0]))[1]
+
+    def _dispatch(self, req: ServeRequest,
+                  now: Optional[float] = None) -> Optional[ServeEngine]:
+        """Fleet dispatch returning the ACCEPTING engine (None = shed).
+        For a DEADLINED request the fleet sheds only when NO replica
+        projects the deadline as makeable: replicas are probed in (load,
+        index) order and the first whose projection fits takes the
+        request; if none fits, the least-loaded replica records the ONE
+        shed. Deadline-free requests go straight to the least-loaded
+        replica. Every fleet-side submission (driver traffic and the
+        resubmissions of fail, the heartbeat drain and resize) routes
+        through here."""
+        if req.deadline is not None:
+            order = sorted(enumerate(self.engines),
+                           key=lambda ie: (ie[1].load(), ie[0]))
+            t_sub = now if now is not None else (
+                req.arrival if req.arrival is not None else 0.0)
+            for _, e in order:
+                if e.projected_finish(req, t_sub) <= req.deadline:
+                    return e if e.submit(req, now=now) else None
+            order[0][1].submit(req, now=now)  # records the one shed
+            return None
+        e = self._least_loaded()
+        return e if e.submit(req, now=now) else None
 
     def submit(self, req: ServeRequest, now: Optional[float] = None) -> bool:
-        return self.engines[0].submit(req, now=now)
+        """Least-loaded dispatch with the fleet-wide deadline probe
+        (:meth:`_dispatch`): False means the request was SHED."""
+        return self._dispatch(req, now=now) is not None
 
     def has_work(self) -> bool:
-        return self.engines[0].has_work()
+        return any(e.has_work() for e in self.engines)
 
     def step(self, now: float = 0.0) -> StepReport:
-        return self.engines[0].step(now)
+        rep = StepReport()
+        stalled_work = False
+        progressed: List[ServeEngine] = []
+        for e in self.engines:
+            if e._stall_ticks > 0:
+                # straggler injection: the replica holds its requests but
+                # schedules nothing this global step, and its monitor is
+                # NOT kicked
+                e._stall_ticks -= 1
+                stalled_work = stalled_work or e.has_work()
+                continue
+            if e.has_work():
+                rep.merge(e.step(now))
+            progressed.append(e)
+        if rep.cost == 0 and stalled_work:
+            # every replica holding work is stalled: the fleet still burns
+            # a virtual time unit, or the clock would freeze and the
+            # heartbeat could never fire
+            rep.cost = 1
+        t_end = now + rep.cost
+        for e in progressed:
+            if e.monitor is not None:
+                # scheduled (or idle: an empty replica is healthy) counts
+                # as progress as of the step's END, where expiry is judged
+                e.monitor.kick(t_end)
+        if self.engines[0].cfg.heartbeat > 0:
+            for e in [x for x in self.engines
+                      if x.monitor is not None and x.has_work()
+                      and x.monitor.expired(t_end)]:
+                if len(self.engines) == 1:
+                    break  # no survivor to redistribute onto
+                self._drain_straggler(e, t_end)
+        return rep
+
+    # -- serving-fleet chaos: hard kill, straggler stall, heartbeat --------
+
+    def fail(self, replica: int, now: float = 0.0,
+             dispatch=None) -> Dict[str, Any]:
+        """HARD-KILL the replica at fleet index ``replica``: the engine is
+        discarded with its pool (all resident KV, prefix cache included),
+        and only host state survives. Its finished records are SALVAGED
+        (the engine retires into the summary), and every request it still
+        held is RESUBMITTED through the dispatcher onto the survivors:
+        in-flight requests oldest-admitted first, then the queue in order.
+        The recompute path regenerates their streams from scratch. A
+        resubmission the survivors shed by deadline is counted in the
+        event's ``shed_on_failover``. ``dispatch`` overrides where the
+        displaced requests go."""
+        if not 0 <= replica < len(self.engines):
+            raise IndexError(
+                f"fail: no replica at fleet index {replica} "
+                f"(fleet size {len(self.engines)})")
+        if len(self.engines) == 1 and dispatch is None:
+            raise ValueError(
+                "cannot fail the last replica — no survivor to fail over "
+                "to (the fleet analog of losing the whole pod)")
+        eng = self.engines.pop(replica)
+        inflight = sorted(eng._active(), key=lambda a: a.admit_seq)
+        queued = list(eng.queue)
+        # queued requests' wait baselines and recompute markers are host
+        # state and survive the kill (drain()'s handoff convention)
+        handoff = {r.rid: (eng._queued_at.get(r.rid, now),
+                           r.rid in eng._evicted_rids) for r in queued}
+        # the engine is dead: clear its live bookkeeping (its pool is
+        # garbage with it) but keep its finished records and counters
+        eng.queue.clear()
+        for a in inflight:
+            eng.rows[a.row] = None
+        eng._queued_at.clear()
+        eng._evicted_rids.clear()
+        eng._cached_tokens.clear()
+        eng._stall_ticks = 0
+        self._retire(eng)
+        resubmitted = shed_n = 0
+        dispatch = dispatch if dispatch is not None else self._dispatch
+        moves = [(a.req, True) for a in inflight] \
+            + [(r, False) for r in queued]
+        for r, was_active in moves:
+            tgt = dispatch(r, now=now)
+            if tgt is not None:
+                resubmitted += 1
+                if was_active:
+                    # the failover is the eviction analog: the wait
+                    # restarts at the kill, the re-admission is a recompute
+                    tgt._queued_at[r.rid] = now
+                    tgt._evicted_rids.add(r.rid)
+                else:
+                    q0, was_evicted = handoff[r.rid]
+                    tgt._queued_at[r.rid] = q0
+                    if was_evicted:
+                        tgt._evicted_rids.add(r.rid)
+            else:
+                shed_n += 1
+        ev = {"t": now, "replica_id": eng.replica, "fleet_index": replica,
+              "salvaged": len(eng.finished),
+              "displaced_inflight": [a.req.rid for a in inflight],
+              "displaced_queued": len(queued),
+              "resubmitted": resubmitted, "shed_on_failover": shed_n}
+        self.fail_events.append(ev)
+        return ev
+
+    def stall(self, replica: int, ticks: int, now: float = 0.0) -> None:
+        """Inject a STRAGGLER: the replica at fleet index ``replica`` makes
+        no progress for ``ticks`` global steps while holding its requests.
+        With ``cfg.heartbeat > 0`` the no-progress detector drains it
+        within the window; without, the stall just delays its requests."""
+        if not 0 <= replica < len(self.engines):
+            raise IndexError(
+                f"stall: no replica at fleet index {replica} "
+                f"(fleet size {len(self.engines)})")
+        if ticks < 1:
+            raise ValueError(f"stall needs ticks >= 1, got {ticks}")
+        eng = self.engines[replica]
+        eng._stall_ticks = ticks
+        self.stall_events.append({"t": now, "replica_id": eng.replica,
+                                  "fleet_index": replica, "ticks": ticks})
+
+    def _drain_straggler(self, eng: ServeEngine, now: float) -> None:
+        """Heartbeat verdict: drain a no-progress replica like a
+        scale-down (unlike :meth:`fail`, its host state is intact, so its
+        pages free cleanly) and retire it with its records."""
+        idx = self.engines.index(eng)
+        self.engines.remove(eng)
+        reqs, evicted, handoff = eng.drain(now)
+        self._retire(eng)
+        shed_n = 0
+        for r in reqs:
+            tgt = self._dispatch(r, now=now)
+            if tgt is not None:
+                q0, was_evicted = handoff[r.rid]
+                tgt._queued_at[r.rid] = q0
+                if was_evicted:
+                    tgt._evicted_rids.add(r.rid)
+            else:
+                shed_n += 1
+        self.heartbeat_events.append({
+            "t": now, "replica_id": eng.replica, "fleet_index": idx,
+            "stalled_for": eng.monitor.stalled_for(now),
+            "evicted": evicted, "redistributed": len(reqs) - shed_n,
+            "shed": shed_n})
+
+    def resize(self, n: int, now: float = 0.0) -> Dict[str, Any]:
+        """Scale the live fleet to ``n`` replicas under load. Scale-down
+        drains the highest-index replicas first and resubmits every
+        displaced request through the dispatcher; scale-up appends
+        factory-built replicas. Returns the event's report."""
+        if n < 1:
+            raise ValueError(f"resize needs >= 1 replica, got {n}")
+        before = len(self.engines)
+        drained: List[ServeEngine] = []
+        while len(self.engines) > n:
+            drained.append(self.engines.pop())
+        reqs: List[ServeRequest] = []
+        evicted = 0
+        handoff: Dict[int, Any] = {}
+        # drain in ascending replica order for a deterministic resubmit
+        # sequence; within one engine the evicted actives come newest-first
+        # (the eviction requeue stacks them at the queue's front), then
+        # the waiting queue in order
+        for eng in reversed(drained):
+            r, ev, h = eng.drain(now)
+            reqs.extend(r)
+            evicted += ev
+            handoff.update(h)
+        for eng in reversed(drained):
+            self._retire(eng)
+        shed_n = 0
+        for r in reqs:
+            eng = self._dispatch(r, now=now)
+            if eng is None:
+                shed_n += 1  # deadline admission control shed the move
+                continue
+            # keep the queue-wait baseline and the recompute marker across
+            # the replica move
+            q0, was_evicted = handoff[r.rid]
+            eng._queued_at[r.rid] = q0
+            if was_evicted:
+                eng._evicted_rids.add(r.rid)
+        while len(self.engines) < n:
+            if self._factory is None:
+                raise RuntimeError(
+                    "resize: scale-up needs the engine factory make_server "
+                    "installs (this server was built from bare engines)")
+            # replica ids grow monotonically (unique trace tracks)
+            eng = self._factory(self._next_replica, n, len(self.engines))
+            if eng.monitor is not None:
+                # the heartbeat baseline starts at the grow instant, not 0
+                eng.monitor.kick(now)
+            self.engines.append(eng)
+            self._next_replica += 1
+        report = {"t": now, "from": before, "to": n, "evicted": evicted,
+                  "redistributed": len(reqs) - shed_n, "shed": shed_n}
+        self.resize_events.append(report)
+        return report
 
     @property
     def finished(self) -> List[Dict[str, Any]]:
-        return list(self.engines[0].finished)
+        out = []
+        for e in self.engines + self._retired:
+            out.extend(e.finished)
+        return out
 
     @property
     def timed_out(self) -> List[Dict[str, Any]]:
-        """Every ``timeout`` terminal record."""
-        return list(self.engines[0].timed_out)
+        """Every ``timeout`` terminal record across the fleet, retired
+        replicas included."""
+        out = []
+        for e in self.engines + self._retired:
+            out.extend(e.timed_out)
+        return out
 
     @property
     def shed_records(self) -> List[Dict[str, Any]]:
-        """Every ``shed`` admission rejection."""
-        return list(self.engines[0].shed)
+        """Every ``shed`` admission rejection across the fleet."""
+        out = []
+        for e in self.engines + self._retired:
+            out.extend(e.shed)
+        return out
 
     def snapshot(self) -> Dict[str, Any]:
-        """Fleet snapshot under the reference's keys: the replicas'
-        snapshots and the aggregates a dispatcher reads (queue depth,
-        active count, worst occupancy, SLO attainment so far), which for
-        the one replica are its own."""
-        s = self.engines[0].snapshot()
-        return {"t": s["t"], "replicas": [s],
-                **{k: s[k] for k in ("queue_depth", "active", "completed",
-                                     "occupancy", "slo_attainment")}}
+        """Fleet snapshot: the replicas' snapshots plus the aggregates a
+        dispatcher or autoscaler reads — total queue depth and active
+        count, the WORST replica's occupancy, and fleet-wide SLO
+        attainment so far."""
+        snaps = [e.snapshot() for e in self.engines]
+        fin = self.finished
+        slo_t = self.engines[0].cfg.slo_ttft or None
+        slo_i = self.engines[0].cfg.slo_itl or None
+        ok = sum(1 for f in fin if request_slo_ok(f, slo_t, slo_i))
+        return {
+            "t": max(s["t"] for s in snaps),
+            "replicas": snaps,
+            "queue_depth": sum(s["queue_depth"] for s in snaps),
+            "active": sum(s["active"] for s in snaps),
+            "completed": len(fin),
+            "occupancy": max(s["occupancy"] for s in snaps),
+            "slo_attainment": ok / len(fin) if fin else 0.0,
+        }
 
     def stats_summary(self) -> Dict[str, float]:
-        return self.engines[0].stats_summary()
+        return fleet_stats(self.engines, self._retired)
+
+
+def fleet_stats(live: List[ServeEngine],
+                retired: List[ServeEngine]) -> Dict[str, float]:
+    """Fleet-wide summary over live and retired engines: counters add up,
+    ``decode_batch_util`` and ``mean_page_fragmentation`` are averaged,
+    the peaks take the maximum, ``pool_bytes`` counts the live fleet's
+    pools only (a retired engine's pool is released with it), and the
+    rates are re-derived from the summed counters."""
+    sums: Dict[str, float] = {}
+    fleet = live + retired  # resize and failure never lose counters
+    for e in fleet:
+        for k, v in e.stats_summary().items():
+            sums[k] = sums.get(k, 0) + v
+    for k in ("decode_batch_util", "mean_page_fragmentation"):
+        sums[k] /= len(fleet)
+    sums["peak_occupancy"] = max(
+        e.stats["peak_occupancy"] for e in fleet)
+    sums["shared_pages"] = max(
+        e.stats["shared_pages"] for e in fleet)
+    sums["bytes_per_page"] = fleet[0].bytes_per_page
+    sums["pool_bytes"] = sum(
+        e.bytes_per_page * e.cfg.pool_pages for e in live)
+    row_passes = sum(e.stats["decode_row_slots"] for e in fleet)
+    sums["spec_accept_rate"] = (
+        sums["spec_accepted"] / sums["spec_drafted"]
+        if sums["spec_drafted"] else 0.0)
+    sums["tokens_per_pass"] = (
+        sums["decode_tokens"] / row_passes if row_passes else 0.0)
+    return sums
 
 
 def make_server(model: LayerModel, cfg: ServeConfig,
                 device: torch.device) -> ReplicatedServer:
-    """A one-replica server for ``model`` (already on ``device``)."""
-    return ReplicatedServer([ServeEngine(model, cfg, device)])
+    """A server of ``cfg.replicas`` replicas for ``model`` (already on
+    ``device``). Every replica is built on ``device`` and shares ``model``:
+    the weights live there once, and each replica adds only its KV pool.
+    The server carries an ENGINE FACTORY so ``resize`` (and the
+    autoscaler's repairs) can grow the fleet under live load the same
+    way."""
+    cfg.validate()
+    rep_cfg = cfg.replace(replicas=1)
+
+    def factory(replica: int, fleet_size: int, slot: int) -> ServeEngine:
+        return ServeEngine(model, rep_cfg, device, replica=replica)
+
+    return ReplicatedServer([factory(i, cfg.replicas, i)
+                             for i in range(cfg.replicas)],
+                            engine_factory=factory)

@@ -1,9 +1,9 @@
 """Serving benchmark: continuous batching vs static batching under load.
 
-The port of ``ddlbench_tpu/tools/servebench.py`` for one replica: the
-plain row, the reference's raw-speed levers and its SLO surface. It drives
-the continuous-batching engine (serve/engine.py) with a seeded open- or
-closed-loop workload (serve/workload.py) and prints one JSON line per
+The port of ``ddlbench_tpu/tools/servebench.py``: the plain row, the
+reference's raw-speed levers, its SLO surface and its serving fleet. It
+drives the continuous-batching engines (serve/engine.py) with a seeded
+open- or closed-loop workload (serve/workload.py) and prints one JSON line per
 policy with TTFT and inter-token-latency p50/p95/p99 and **goodput under
 SLO** (telemetry/stats.serve_summary), under the reference's keys; the
 reference's JAX provenance keys are replaced by the port's device fields
@@ -36,6 +36,26 @@ when several policies run); ``--timeline`` reduces it in-process
 (telemetry/serveview.py) into the windowed SLO/goodput table and the
 TTFT/ITL breakdowns in the row. Tracing changes no field of the row.
 
+The fleet, as in the reference: ``--replicas N`` serves with N replicas
+behind a least-loaded dispatcher, ``--resize AT:N`` (repeatable) scales
+the live fleet at virtual time AT (scale-down drains replicas onto the
+recompute path; no request is lost and the streams are those of an
+un-resized run; the row gains ``resize_events``, ``final_replicas``,
+``requests_lost``), ``--heartbeat W`` drains a replica that holds work
+without progress for more than W units, and ``--autoscale LO:HI`` puts a
+FleetController (serve/autoscaler.py) in the loop, which resizes the
+fleet within [LO, HI] from windowed SLO signals and repairs killed or
+drained replicas (the row gains ``replica_hours``, ``scale_events``,
+``repairs``, ``autoscale_attainment``, ``autoscale_events``; the tool
+exits nonzero if an autoscaled run loses a request). Every replica sits
+on the one card and shares the one copy of the weights, each with its
+own KV pool; a global step runs the replicas one after another, so the
+wall-clock numbers are those of N engines taking turns on one card.
+tools/servechaos.py injects replica kills and stalls into the same
+drivers. The reference's ``--serve-tp``, ``--disaggregate``, ``--scrub``,
+``--paged-kernel`` and ``--audit`` wait for later slices and fail naming
+their ROADMAP item.
+
 Time is VIRTUAL: one unit = one model pass (a [max_batch, 1] decode step or
 one prefill chunk), so every virtual-time number is reproducible under a
 fixed seed and equal to the reference's for the same traffic.
@@ -59,6 +79,8 @@ Usage:
         [--speculative ngram:3:4] [--sample temperature:0.8,top-k:40]
         [--deadline-slack 64] [--retry 2:8] [--tier-mix 0.3]
         [--shape diurnal] [--trace PATH [--timeline] [--window 32]]
+        [--replicas 2] [--resize 8:1] [--heartbeat 4]
+        [--autoscale 1:3 [--scale-window 32] [--scale-cooldown 64]]
         [--wall-clock] [--device cpu]
 """
 
@@ -79,6 +101,10 @@ from ddlbench_tpu_torch.models.layers import LayerModel
 from ddlbench_tpu_torch.models.zoo import get_model
 from ddlbench_tpu_torch.ops.paged_decode import (paged_attention,
                                                  paged_chunk_attention)
+from ddlbench_tpu_torch.serve.autoscaler import (AutoscalePolicy,
+                                                 combined_attainment,
+                                                 make_controllers,
+                                                 replica_hours)
 from ddlbench_tpu_torch.serve.engine import ReplicatedServer, make_server
 from ddlbench_tpu_torch.serve.workload import ServeRequest, make_workload
 from ddlbench_tpu_torch.telemetry.export import export_chrome_trace
@@ -123,6 +149,37 @@ def parse_retry(spec, perr):
     return retry
 
 
+def parse_autoscale(spec, perr):
+    """Parse ``--autoscale LO:HI`` (the controller's replica clamps).
+    Returns (lo, hi) or None for an absent spec."""
+    if not spec:
+        return None
+    try:
+        lo_s, hi_s = spec.split(":")
+        lohi = (int(lo_s), int(hi_s))
+    except ValueError:
+        perr(f"--autoscale wants LO:HI (min:max replicas), got {spec!r}")
+    if lohi[0] < 1 or lohi[1] < lohi[0]:
+        perr(f"--autoscale {spec!r}: needs 1 <= LO <= HI")
+    return lohi
+
+
+def parse_resizes(specs, perr) -> List[Tuple[float, int]]:
+    """Parse the ``--resize AT:N`` specs into a time-sorted schedule."""
+    resizes = []
+    for rspec in specs:
+        try:
+            at_s, n_s = rspec.split(":")
+            at, nrep = float(at_s), int(n_s)
+        except ValueError:
+            perr(f"--resize wants AT:N (virtual_time:replicas), "
+                 f"got {rspec!r}")
+        if at < 0 or nrep < 1:
+            perr(f"--resize {rspec!r}: AT >= 0 and N >= 1")
+        resizes.append((at, nrep))
+    return sorted(resizes)
+
+
 def parse_sample(spec, perr) -> Tuple[float, int]:
     """Parse ``--sample temperature:T[,top-k:K]`` into (T, K); (0.0, 0),
     greedy, for an absent spec."""
@@ -165,6 +222,14 @@ def check_args(args: argparse.Namespace, perr) -> None:
         perr("--window must be > 0 time units")
     parse_shared_prefix(args.shared_prefix, perr)
     parse_retry(args.retry, perr)
+    if parse_autoscale(args.autoscale, perr):
+        if args.resize:
+            perr("--autoscale closes the resize loop itself; it does "
+                 "not compose with a scripted --resize schedule")
+        if args.scale_window <= 0:
+            perr("--scale-window must be > 0 time units")
+        if args.scale_cooldown < 0:
+            perr("--scale-cooldown must be >= 0 time units")
     if args.shape and args.arrival != "poisson":
         perr("--shape modulates the poisson arrival process; pass "
              "--arrival poisson")
@@ -175,6 +240,9 @@ def check_args(args: argparse.Namespace, perr) -> None:
              "without --deadline-slack")
     if args.tier_mix is not None and not 0.0 <= args.tier_mix <= 1.0:
         perr("--tier-mix is a probability in [0, 1]")
+    if args.heartbeat < 0:
+        perr("--heartbeat must be >= 0 time units (0 = off)")
+    parse_resizes(args.resize, perr)
     parse_sample(args.sample, perr)
 
 
@@ -247,39 +315,89 @@ class _Submitter:
         return self.pending[0][0] if self.pending else None
 
 
-def run_open_loop(server, reqs, retry=None, deadline_slack=None,
-                  driver_stats=None) -> float:
+def _resize_fn(n: int):
+    def fire(server, clock):
+        rep = server.resize(n, now=clock)
+        print(f"servebench: resize @ {clock:g} -> {n} replicas "
+              f"(evicted {rep['evicted']}, redistributed "
+              f"{rep['redistributed']})", file=sys.stderr, flush=True)
+    return fire
+
+
+def _merge_events(resizes, events):
+    """One sorted ``(at, fn(server, clock))`` schedule from the ``(at, n)``
+    resize specs plus other timed injections (servechaos passes its kill
+    and stall closures through ``events``)."""
+    ev = [(at, _resize_fn(n)) for at, n in (resizes or [])]
+    ev.extend(events or [])
+    ev.sort(key=lambda e: e[0])
+    return ev
+
+
+def _fire_events(server, clock: float, events):
+    """Fire every due ``(at, fn)`` event of a sorted list the caller
+    consumes: resizes, replica kills, stalls."""
+    while events and clock >= events[0][0]:
+        _, fn = events.pop(0)
+        fn(server, clock)
+
+
+def _advance_controllers(controllers, clock: float):
+    """Bring every autoscale controller up to the virtual clock, after
+    each global step and idle jump, so its decisions land at
+    deterministic instants."""
+    for c in controllers or ():
+        c.advance(clock)
+
+
+def run_open_loop(server, reqs, resizes=None, events=None, retry=None,
+                  deadline_slack=None, driver_stats=None,
+                  controllers=None) -> float:
     """Release requests at their arrival times; returns the final clock.
+    ``events`` is a list of timed ``(at, fn(server, clock))`` injections
+    (``resizes``, ``(at, n)`` pairs, are sugar for them);
     ``retry=(N, backoff)`` arms the shed retry policy and
-    ``driver_stats`` (a dict) receives its counters."""
+    ``driver_stats`` (a dict) receives its counters; ``controllers`` are
+    autoscale controllers advanced in lockstep with the virtual clock."""
     clock, i = 0.0, 0
+    ev = _merge_events(resizes, events)
     sub = _Submitter(server, retry, deadline_slack, driver_stats)
     pend = sorted(reqs, key=lambda r: (r.arrival, r.rid))
     while i < len(pend) or sub.pending or server.has_work():
+        _fire_events(server, clock, ev)
         sub.release_due(clock)
         while i < len(pend) and pend[i].arrival <= clock:
             sub.offer(pend[i], clock)
             i += 1
         if not server.has_work():
-            # idle: jump to the next arrival or pending retry
+            # idle: jump to the next arrival, pending retry or scheduled
+            # injection (an injection fires under the load its schedule
+            # names; one dated past the end of all work never fires)
             nxts = [t for t in (
                 pend[i].arrival if i < len(pend) else None,
-                sub.next_due()) if t is not None]
+                sub.next_due(),
+                ev[0][0] if ev else None) if t is not None]
             if not nxts:
                 break
             clock = max(clock, min(nxts))
+            # the controllers see idle time too: the diurnal trough's
+            # scale-downs come from it
+            _advance_controllers(controllers, clock)
             continue
         rep = server.step(clock)
         clock += rep.cost
+        _advance_controllers(controllers, clock)
     return clock
 
 
-def run_closed_loop(server, reqs, concurrency: int, retry=None,
-                    deadline_slack=None, driver_stats=None) -> float:
+def run_closed_loop(server, reqs, concurrency: int, resizes=None,
+                    events=None, retry=None, deadline_slack=None,
+                    driver_stats=None, controllers=None) -> float:
     """Keep ``concurrency`` requests in flight; each TERMINAL event —
     completion, timeout, or a shed request exhausting its retries —
     releases the next. Returns the final clock."""
     clock, nxt, done = 0.0, 0, 0
+    ev = _merge_events(resizes, events)
     sub = _Submitter(server, retry, deadline_slack, driver_stats)
     n = len(reqs)
     outstanding = 0  # released and not yet terminal (incl. pending retry)
@@ -296,24 +414,57 @@ def run_closed_loop(server, reqs, concurrency: int, retry=None,
 
     top_up()
     while done < n:
+        _fire_events(server, clock, ev)
         dead = sub.release_due(clock)
         done += dead
         outstanding -= dead
         top_up()
         if not server.has_work():
-            # jump to the next pending retry
-            due = sub.next_due()
-            if due is not None:
-                clock = max(clock, due)
+            # jump to the next retry or scheduled injection
+            nxts = [t for t in (sub.next_due(), ev[0][0] if ev else None)
+                    if t is not None]
+            if nxts:
+                clock = max(clock, min(nxts))
+                _advance_controllers(controllers, clock)
+                continue
+            if outstanding:
+                # a server-internal shed (a failover, drain or resize
+                # under deadlines) retires a request with no completion
+                # or timeout the driver sees; it would hold its slot
+                # forever. The vanished requests are terminal (they show
+                # in requests_lost) and their slots release the tail
+                done += outstanding
+                outstanding = 0
+                top_up()
                 continue
             break  # everything released went terminal
         rep = server.step(clock)
         clock += rep.cost
+        _advance_controllers(controllers, clock)
         term = len(rep.completed) + len(rep.timed_out)
         done += term
         outstanding -= term
         top_up()
     return clock
+
+
+# the reference's flags that wait for a later slice -> the ROADMAP item
+NOT_PORTED_FLAGS = {
+    "--serve-tp": "A.7: a tp > 1 replica needs tp devices",
+    "--disaggregate": "A.4: disaggregation, serve/handoff.py",
+    "--scrub": "A.4: the SDC ledger and scrub, serve/integrity.py",
+    "--paged-kernel": "A.8: the Pallas kernels' math formulations",
+    "--audit": "A.8: telemetry/audit.py",
+}
+
+
+class NotPorted(argparse.Action):
+    """A reference flag the port lacks: using it is an error that names
+    the ROADMAP item it waits on (the action's ``const``)."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string} is not ported to the PyTorch "
+                     f"serving path yet (ROADMAP {self.const})")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -333,6 +484,37 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--token-budget", type=int, default=0,
                    help="tokens one step may pack (0 = max_batch + 2 "
                         "prefill chunks)")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="independent serving replicas (least-loaded "
+                        "dispatch); all of them share the one card and "
+                        "the one copy of the weights, each with its own "
+                        "KV pool")
+    p.add_argument("--resize", action="append", default=[], metavar="AT:N",
+                   help="live replica resize schedule (repeatable): at "
+                        "virtual time AT scale the fleet to N replicas "
+                        "under load — scale-down drains replicas (in-"
+                        "flight requests evicted onto the recompute path, "
+                        "queues redistributed least-loaded). No request is "
+                        "lost and token streams are those of an "
+                        "un-resized run; the row gains resize_events/"
+                        "final_replicas/requests_lost fields")
+    p.add_argument("--autoscale", default=None, metavar="LO:HI",
+                   help="close the loop: a FleetController "
+                        "(serve/autoscaler.py) watches windowed SLO "
+                        "attainment/goodput and shed/timeout/queue signals "
+                        "and resizes the fleet live within [LO, HI], "
+                        "auto-repairing killed or heartbeat-drained "
+                        "replicas. The row gains replica_hours/"
+                        "scale_events/repairs/autoscale_attainment and the "
+                        "decision ledger; the tool exits nonzero if the "
+                        "run loses a request. Excludes --resize")
+    p.add_argument("--scale-window", type=float, default=32.0, metavar="W",
+                   help="autoscale observation-window width in time units "
+                        "(one decision per window)")
+    p.add_argument("--scale-cooldown", type=float, default=64.0,
+                   metavar="C",
+                   help="min time between same-direction autoscale "
+                        "actuations (repairs are exempt)")
     p.add_argument("--arrival", default="poisson",
                    choices=("poisson", "bursty", "closed"))
     p.add_argument("--shape", default=None,
@@ -402,6 +584,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "admits ahead of batch and batch is evicted first. "
                         "The row gains per-tier TTFT/ITL/goodput/"
                         "attainment")
+    p.add_argument("--heartbeat", type=float, default=0.0, metavar="W",
+                   help="serve-side straggler heartbeat: a replica "
+                        "holding work with no progress for > W time units "
+                        "is drained and its requests redistribute to the "
+                        "survivors (0 = off)")
     p.add_argument("--trace", default=None, metavar="PATH",
                    help="record the request-lifecycle trace (virtual-time "
                         "spans and counters, one track per request) and "
@@ -427,6 +614,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; no card and no --device "
                         "cpu raises")
+    for flag, item in NOT_PORTED_FLAGS.items():
+        p.add_argument(flag, action=NotPorted, const=item,
+                       help=argparse.SUPPRESS)
     return p
 
 
@@ -454,13 +644,20 @@ def run(args: argparse.Namespace, model: LayerModel,
     groups, prefix_len = parse_shared_prefix(args.shared_prefix,
                                              _value_error)
     retry = parse_retry(args.retry, _value_error)
+    autoscale = parse_autoscale(args.autoscale, _value_error)
+    resizes = parse_resizes(args.resize, _value_error)
     temperature, top_k = parse_sample(args.sample, _value_error)
+    # under --autoscale the initial fleet is --replicas clamped into the
+    # band; the controller takes it from there
+    replicas0 = (max(autoscale[0], min(autoscale[1], args.replicas))
+                 if autoscale else args.replicas)
     base = ServeConfig(
         max_batch=args.max_batch, pool_pages=args.pool_pages,
         page=args.page, max_len=min(args.max_len, spec.seq_len),
         token_budget=args.token_budget,
         prefill_chunk=(args.page if args.prefill_chunk is None
                        else args.prefill_chunk),
+        replicas=replicas0, heartbeat=args.heartbeat,
         temperature=temperature, top_k=top_k, sample_seed=args.seed,
         trace=bool(args.trace),
         slo_ttft=args.slo_ttft, slo_itl=args.slo_itl,
@@ -489,6 +686,12 @@ def run(args: argparse.Namespace, model: LayerModel,
             deadline_slack=args.deadline_slack,
             batch_frac=args.tier_mix or 0.0)
         server = make_server(model, cfg, device)
+        controllers = None
+        if autoscale:
+            controllers = make_controllers(server, AutoscalePolicy(
+                lo=autoscale[0], hi=autoscale[1], window=args.scale_window,
+                cooldown_up=args.scale_cooldown,
+                cooldown_down=args.scale_cooldown))
         # one fresh bounded ring per policy row, installed process-global
         # (the engine looks it up lazily) and restored afterwards
         tracer = prev_tracer = None
@@ -501,17 +704,28 @@ def run(args: argparse.Namespace, model: LayerModel,
         try:
             if args.arrival == "closed":
                 duration = run_closed_loop(
-                    server, reqs, args.concurrency, retry=retry,
-                    deadline_slack=args.deadline_slack, driver_stats=dstats)
+                    server, reqs, args.concurrency, resizes=resizes,
+                    retry=retry, deadline_slack=args.deadline_slack,
+                    driver_stats=dstats, controllers=controllers)
             else:
                 duration = run_open_loop(
-                    server, reqs, retry=retry,
-                    deadline_slack=args.deadline_slack, driver_stats=dstats)
+                    server, reqs, resizes=resizes, retry=retry,
+                    deadline_slack=args.deadline_slack, driver_stats=dstats,
+                    controllers=controllers)
+            # settle the controllers' ledgers at the final clock
+            _advance_controllers(controllers, duration)
         finally:
             if tracer is not None:
                 tracer.disable()
                 set_tracer(prev_tracer)
         wall = time.perf_counter() - t0
+        if len(server.resize_events) < len(resizes):
+            unfired = [f"{at:g}:{n}" for at, n in
+                       resizes[len(server.resize_events):]]
+            print(f"servebench: WARNING {len(unfired)} --resize event(s) "
+                  f"dated past the end of work never fired "
+                  f"({', '.join(unfired)}); the run drained at "
+                  f"{duration:g}", file=sys.stderr, flush=True)
         timeline_fields = {}
         if tracer is not None:
             if args.timeline:
@@ -548,6 +762,7 @@ def run(args: argparse.Namespace, model: LayerModel,
         acct = shed_accounting(args.requests, len(fin),
                                int(eng_stats["shed"]),
                                int(eng_stats["timeouts"]), dstats)
+        lost = acct["requests_lost"]
         rec = {
             "tool": "servebench",
             "model": args.model,
@@ -594,29 +809,62 @@ def run(args: argparse.Namespace, model: LayerModel,
             # --tier-mix only: the per-tier split rides serve_summary
             **({"tier_mix": args.tier_mix}
                if args.tier_mix is not None else {}),
+            # --heartbeat only: straggler drains
+            **({"heartbeat": args.heartbeat,
+                "heartbeat_drains": len(server.heartbeat_events)}
+               if args.heartbeat else {}),
+            # --resize only: the schedule, what each event displaced, the
+            # schedule entries dated past the end of work (never fired),
+            # the final fleet size and the no-request-lost invariant
+            **({"resize": args.resize,
+                "resize_events": server.resize_events,
+                "resizes_unfired": len(resizes) - len(server.resize_events),
+                "final_replicas": len(server.engines),
+                "requests_lost": lost}
+               if args.resize else {}),
+            # --autoscale only: the replica-hours used, every decision
+            # with its signal, and the no-loss invariant the exit code
+            # gates on
+            **({"autoscale": args.autoscale,
+                "scale_window": args.scale_window,
+                "scale_cooldown": args.scale_cooldown,
+                "replica_hours": round(replica_hours(controllers), 6),
+                "scale_events": sum(c.scale_events for c in controllers),
+                "repairs": sum(c.repairs for c in controllers),
+                "autoscale_attainment": round(
+                    combined_attainment(controllers), 6),
+                "autoscale_events": _round6(
+                    [e for c in controllers for e in c.events]),
+                "final_replicas": len(server.engines),
+                "requests_lost": lost}
+               if autoscale else {}),
             "plain_launches": plain_launches() - plain0,
             **prov,
         }
         if args.wall_clock:
-            eng = server.engines[0]
-            st = eng.stats
+            # every replica's passes, retired ones included; on one card
+            # the replicas take turns, so these are per-pass times
+            engines = server.engines + server.retired
+            w = {k: sum(e.wall[k] for e in engines) for k in engines[0].wall}
+            st = {k: sum(e.stats[k] for e in engines)
+                  for k in ("decode_calls", "prefill_calls", "spec_passes")}
             rec["wall_s"] = round(wall, 3)
             rec["wall_tokens_per_s"] = round(
                 summary["output_tokens"] / wall, 3) if wall > 0 else 0.0
             rec["decode_step_ms"] = round(
-                1e3 * eng.wall["decode_s"] / st["decode_calls"], 4) \
+                1e3 * w["decode_s"] / st["decode_calls"], 4) \
                 if st["decode_calls"] else 0.0
             rec["prefill_chunk_ms"] = round(
-                1e3 * eng.wall["prefill_s"] / st["prefill_calls"], 4) \
+                1e3 * w["prefill_s"] / st["prefill_calls"], 4) \
                 if st["prefill_calls"] else 0.0
             if args.speculative:
                 rec["verify_step_ms"] = round(
-                    1e3 * eng.wall["verify_s"] / st["spec_passes"], 4) \
+                    1e3 * w["verify_s"] / st["spec_passes"], 4) \
                     if st["spec_passes"] else 0.0
             if args.sample:
                 rec["sample_ms"] = round(
-                    1e3 * eng.wall["sample_s"] / eng.wall["sampled"], 4) \
-                    if eng.wall["sampled"] else 0.0
+                    1e3 * w["sample_s"] / w["sampled"], 4) \
+                    if w["sampled"] else 0.0
         out.append((rec, server, reqs))
     return out
 
@@ -631,9 +879,17 @@ def main(argv=None) -> int:
                 "the serving engine serves causal LMs (e.g. synthtext)")
     device = resolve_device(args.device)
     model = get_model(args.model, spec, seed=args.seed).to(device)
+    rc = 0
     for rec, _, _ in run(args, model, device):
         print(json.dumps(rec), flush=True)
-    return 0
+        if args.autoscale and rec["requests_lost"] != 0:
+            # a self-scaling fleet that loses requests is a broken
+            # controller
+            print(f"servebench: FAILED no-loss gate under --autoscale: "
+                  f"requests_lost={rec['requests_lost']} on policy "
+                  f"{rec['policy']}", file=sys.stderr, flush=True)
+            rc = 1
+    return rc
 
 
 if __name__ == "__main__":

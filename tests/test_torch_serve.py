@@ -9,7 +9,9 @@ must equal the JAX row on every virtual-time field: those are model-pass
 units, so they do not depend on the framework. Also pinned: the entry
 point refuses to fall back to the CPU silently, the port imports neither
 jax nor the JAX package, and the reference's ServeConfig knobs the port
-does not carry raise instead of being ignored.
+does not carry (tp > 1 and the SDC ledger) raise instead of being
+ignored, while the fleet's (replicas, heartbeat) validate as the
+reference's do.
 """
 
 import ast
@@ -178,12 +180,30 @@ def test_servebench_without_gpu_or_cpu_flag_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tp=2), dict(replicas=2), dict(scrub=1),
-    dict(integrity=True), dict(replicas=4, tp=2), dict(heartbeat=4.0),
+    dict(tp=2), dict(scrub=1), dict(integrity=True),
+    dict(replicas=4, tp=2),
 ])
 def test_unported_serve_knobs_raise(knob):
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
         ServeConfig(**knob).validate()
+
+
+@pytest.mark.parametrize("knob,error", [
+    (dict(replicas=2), None), (dict(heartbeat=4.0), None),
+    (dict(replicas=0), ValueError), (dict(heartbeat=-1.0), ValueError),
+])
+def test_fleet_serve_knobs_validate_as_the_reference(knob, error):
+    """The fleet's knobs are ported: they validate where the reference's
+    do and raise its ValueError where it raises."""
+    if error is None:
+        ServeConfig(**knob).validate()
+        JaxServeConfig(**knob).validate()
+        return
+    with pytest.raises(error) as got:
+        ServeConfig(**knob).validate()
+    with pytest.raises(error) as want:
+        JaxServeConfig(**knob).validate()
+    assert str(got.value) == str(want.value)
 
 
 def _port_files():
