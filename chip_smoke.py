@@ -168,6 +168,46 @@ one JSON line; any failure raises and exits non-zero:
              (1, 2, 2, 1), with wall_tokens_per_s and decode_step_ms
              beside the card's nvidia-smi line: the replicas share one
              card and take turns on its stream.
+3e. serve_disagg — disaggregated serving and the SDC ledger on the card:
+             transformer_s at full width (random weights, seed 0) over a
+             float32 and an int8 pool, with the traffic of the
+             reference's own disaggregation and SDC end-to-end tests (the
+             seed-5 tiny traffic of tests/test_serve_disagg.py and
+             test_serve_sdc.py, 10 requests, 12-page pools of page 4):
+             servebench --disaggregate 1:1, --disaggregate 2:1
+             --autoscale 1:2, servechaos --disaggregate 2:2 --kill 2:p0
+             --kill 8:d0. With the launch counters zeroed before a pool
+             type's card runs: (a) each row equals the port's row of the
+             same command on the CPU on every virtual-time field and on
+             the shipped_* counts, and the int8 payload shipped is a
+             quarter of the float32 one for the same pages; (b) no
+             request lost, and the streams equal the same traffic's on
+             the aggregated fleet of P + D replicas; (c) servechaos
+             --corrupt at payload, sidecar (int8), prefix, ship, the
+             decode fleet's pool, and a prefill-side page with boundary
+             checks only (caught at its export, never on the wire): each
+             flip detected, nothing escaped or lost, the streams equal
+             the unfaulted control's, every quarantined slot out of use
+             for good; the payload flip's time is the first of 3, 2, 4-8
+             whose flip escapes under --no-detect, which float32 must
+             find (int8 tries float32's time and reports); (d) servebench --scrub 4 on
+             clean traffic (also on a 6-page pool that evicts, so
+             re-prefills meet the recompute check, and on 1:1) detects
+             nothing and keeps the streams of the run without the ledger;
+             (e) both paged kernels of the pool's type launched, neither
+             of the other type's, no call on the plain path;
+             flip_pool_bit changes exactly one bit of the card's bytes;
+             a 2:2 server holds the one model and grows
+             torch.cuda.memory_allocated by its pools' bytes within 10 %.
+             Planted faults, each run on the card and each required to
+             fail its check: an export that skips its verify (c), a
+             write_pages that drops the scale sidecars (b) and a
+             page_checksum that leaves out the sidecar keys (c). Then
+             the serve_slo command greedy over a float32 pool, warm, in
+             turns: 1 and 2 replicas against --disaggregate 1:1 (1, 2,
+             1:1, 1:1, 2, 1), and the ledger off against --scrub 0 and
+             --scrub 4 (off, 0, 4, 4, 0, off), with wall_tokens_per_s
+             and decode_step_ms beside the card's nvidia-smi line.
 4. profile — the same path (8 requests, warm) under torch.profiler: the
              device's busy share, the device time by kernel, and each
              paged kernel instance's calls and device time.
@@ -1710,15 +1750,16 @@ def fleet_idle(servers) -> bool:
     return True
 
 
-def fleet_memory(torch, model, dev, kv):
-    """(e): build the 3-replica fleet of run (i) and return (every
-    engine's model is ``model`` with the same parameter storage,
-    allocated bytes, the pools' bytes)."""
+def fleet_memory(torch, model, dev, kv, build=None):
+    """(e): build the 3-replica fleet of run (i) (or the server ``build``
+    returns) and return (every engine's model is ``model`` with the same
+    parameter storage, allocated bytes, the pools' bytes)."""
     from ddlbench_tpu_torch.config import ServeConfig
     from ddlbench_tpu_torch.serve.engine import make_server
 
     cfg = ServeConfig(max_batch=2, pool_pages=9, page=4, max_len=16,
                       prefill_chunk=4, replicas=3, kv_dtype=kv)
+    build = build or (lambda: make_server(model, cfg, dev))
     # earlier phases' traced servers hold reference cycles: collect them
     # now, and let no collection free device memory inside the window
     gc.collect()
@@ -1726,7 +1767,7 @@ def fleet_memory(torch, model, dev, kv):
     try:
         torch.cuda.synchronize()
         m0 = torch.cuda.memory_allocated(dev)
-        server = make_server(model, cfg, dev)
+        server = build()
         torch.cuda.synchronize()
         grown = torch.cuda.memory_allocated(dev) - m0
     finally:
@@ -1918,6 +1959,361 @@ def phase_serve_fleet(torch, pd, dev):
     failed += [k for k, v in faults.items() if v != "rejected"]
     if failed:
         raise AssertionError(f"serve_fleet: failed {failed}")
+
+
+# phase 3e, serve_disagg: the reference's disaggregation and SDC
+# end-to-end tests' traffic (tests/test_serve_disagg.py and
+# tests/test_serve_sdc.py: the seed-5 tiny traffic, 10 requests) on
+# transformer_s; --kv-dtype is added per pool
+DISAGG_BASE = [
+    "-m", "transformer_s", "-b", "synthtext", "--arrival", "closed",
+    "--concurrency", "4", "--requests", "10", "--max-batch", "2",
+    "--pool-pages", "12", "--page", "4", "--max-len", "16",
+    "--prompt-lens", "2,4,8", "--out-lens", "2,4,8", "--seed", "5"]
+DISAGG_BENCH = DISAGG_BASE + ["--policies", "continuous", "--slo-ttft", "8",
+                              "--slo-itl", "2.5"]
+# name -> (tool, argv, the replica count of its aggregated control)
+DISAGG_RUNS = {
+    "i_bench_1_1": ("servebench", DISAGG_BENCH + ["--disaggregate", "1:1"],
+                    2),
+    "ii_bench_2_1_autoscale": ("servebench", DISAGG_BENCH + [
+        "--disaggregate", "2:1", "--autoscale", "1:2", "--scale-window",
+        "4", "--scale-cooldown", "4"], 3),
+    "iii_chaos_2_2_kills": ("servechaos", DISAGG_BASE + [
+        "--disaggregate", "2:2", "--kill", "2:p0", "--kill", "8:d0"], 4),
+}
+# servechaos --corrupt with detection on; "{t}" is the payload flip's time
+# (the first candidate whose flip escapes under --no-detect on the card)
+SDC_RUNS = {
+    "payload": DISAGG_BASE + ["--replicas", "2", "--corrupt",
+                              "{t}:0:payload"],
+    "sidecar": DISAGG_BASE + ["--replicas", "2", "--corrupt",
+                              "3:0:sidecar"],
+    "prefix": DISAGG_BASE + [
+        "--replicas", "2", "--corrupt", "5:0:prefix", "--prefix-cache",
+        "--shared-prefix", "2:8", "--max-len", "24", "--pool-pages", "20"],
+    "ship": DISAGG_BASE + ["--disaggregate", "1:1", "--corrupt",
+                           "6:0:ship"],
+    "decode_pool": DISAGG_BASE + ["--disaggregate", "1:1", "--corrupt",
+                                  "6:d0:payload"],
+    # boundary checks only, prompts long enough that a prefill-side page
+    # settles between chunks: the export's verify catches the flip
+    "export": DISAGG_BASE + [
+        "--disaggregate", "1:1", "--corrupt", "1:p0:payload", "--scrub", "0",
+        "--pool-pages", "20", "--max-len", "32", "--prompt-lens", "8,12,16"],
+}
+PAYLOAD_TIMES = (3, 2, 4, 5, 6, 7, 8)  # the reference's 3 first
+# clean traffic with the ledger armed, each against the same command
+# without --scrub; the 6-page pool evicts, so re-prefills meet the
+# recompute check
+SCRUB_RUNS = {
+    "bench": DISAGG_BENCH + ["--scrub", "4"],
+    "bench_evicting": DISAGG_BENCH + ["--scrub", "4", "--pool-pages", "6"],
+    "bench_disagg_1_1": DISAGG_BENCH + ["--scrub", "4", "--disaggregate",
+                                        "1:1"],
+}
+DISAGG_ROW_KEYS = (
+    "completed", "requests_lost", "streams_match", "duration",
+    "goodput_tokens_per_unit", "shipped_requests", "shipped_pages",
+    "shipped_payload_bytes", "shipped_sidecar_bytes",
+    "shipped_checksum_bytes", "kills_fired", "repairs", "scale_events",
+    "sdc_injected", "sdc_detected", "sdc_quarantined", "sdc_recovered",
+    "sdc_scrubbed", "sdc_recompute_checks", "sdc_wire_detected",
+    "sdc_wire_repaired", "sdc_escaped", "mttd_sdc", "mttr_sdc_s")
+TURN_KEYS = ("wall_s", "wall_tokens_per_s", "decode_step_ms",
+             "prefill_chunk_ms", "output_tokens", "duration", "decode_calls",
+             "prefill_calls", "ledger_s")
+
+
+def sdc_caught(rec, target) -> bool:
+    """(c): the flip was detected (at the wire for a ship), nothing
+    escaped or was lost, and every stream equals the unfaulted control;
+    a prefill-side flip is caught at the export, never on the wire."""
+    det = (rec["sdc_wire_detected"] >= 1 and rec["sdc_wire_repaired"] >= 1
+           if target == "ship" else rec["sdc_detected"] >= 1)
+    ok = (det and rec["corrupts_fired"] >= 1 and rec["sdc_escaped"] == 0
+          and rec["requests_lost"] == 0 and rec["streams_match"] is True)
+    if target == "export":
+        ok = ok and rec["sdc_wire_detected"] == 0 and [
+            e["where"] for e in rec["sdc_events"]][:1] == ["export"]
+    return ok
+
+
+def quarantine_held(server) -> bool:
+    """(c): every quarantined slot stayed out of use (off the free list
+    and out of every page table), and each pool detection quarantined."""
+    n_pool = sum(1 for e in server.sdc_events
+                 if e["where"] not in ("wire", "recompute"))
+    held = 0
+    for eng in server.engines + server.retired:
+        al = eng.allocator
+        held += al.quarantined
+        if al._quarantined & (set(al._free)
+                              | set(eng.table.ravel().tolist())):
+            return False
+    return held >= n_pool
+
+
+def flip_one_bit(torch, model, dev, kv):
+    """(e): flip_pool_bit changes exactly one bit of the device bytes of
+    the payload (and of the sidecar for int8), read back from the card."""
+    import numpy as np
+
+    from ddlbench_tpu_torch.config import ServeConfig
+    from ddlbench_tpu_torch.serve import integrity
+    from ddlbench_tpu_torch.serve.engine import ServeEngine
+
+    eng = ServeEngine(model, ServeConfig(
+        max_batch=2, pool_pages=12, page=4, max_len=16, prefill_chunk=4,
+        kv_dtype=kv, integrity=True), dev)
+    li = integrity.pool_layers(eng)[0]
+    bits = {}
+    for key in ("pool_k",) + (("scale_k",) if kv == "int8" else ()):
+        t = eng.pools[li][key]
+        t.copy_(torch.randn(t.shape, device=dev).to(t.dtype))
+        before = t.reshape(-1).view(torch.uint8).cpu().clone().numpy()
+        integrity.flip_pool_bit(eng, li, 3, key=key, index=3, bit=6)
+        after = t.reshape(-1).view(torch.uint8).cpu().clone().numpy()
+        bits[key] = int(np.unpackbits(before ^ after).sum())
+    return bits
+
+
+def disagg_faults(model, dev, ctrl_int8):
+    """Planted faults, each run on the card and each required to fail its
+    check: an export that skips its verify (the prefill-side flip reaches
+    the wire: (c)), a write_pages that drops the scale sidecars (int8
+    streams leave the aggregated control: (b)) and a page_checksum that
+    leaves out the sidecar keys (a sidecar flip escapes: (c))."""
+    from ddlbench_tpu_torch.serve import engine, integrity
+
+    eng_cls = engine.ServeEngine
+    real_verify, real_write = eng_cls._verify_slot, eng_cls.write_pages
+    real_checksum = integrity.page_checksum
+
+    def export_skips_verify(self, slot, where, rep=None):
+        return True if where == "export" else real_verify(self, slot,
+                                                          where, rep)
+
+    def write_drops_sidecars(self, slots, pages):
+        return real_write(self, slots, [
+            None if rows is None else
+            {k: v for k, v in rows.items() if k.startswith("pool")}
+            for rows in pages])
+
+    def checksum_skips_sidecars(rows):
+        return real_checksum({k: v for k, v in rows.items()
+                              if not k.startswith("scale")})
+
+    out = {}
+    for name, patches, (tool, argv, kv), caught in (
+            ("export_skips_verify",
+             [(eng_cls, "_verify_slot", export_skips_verify)],
+             ("servechaos", SDC_RUNS["export"], "float32"),
+             lambda rec, toks: not sdc_caught(rec, "export")),
+            ("write_drops_sidecars",
+             [(eng_cls, "write_pages", write_drops_sidecars)],
+             DISAGG_RUNS["i_bench_1_1"][:2] + ("int8",),
+             lambda rec, toks: toks != ctrl_int8),
+            ("checksum_skips_sidecars",
+             [(engine, "page_checksum", checksum_skips_sidecars),
+              (integrity, "page_checksum", checksum_skips_sidecars)],
+             ("servechaos", SDC_RUNS["sidecar"], "int8"),
+             lambda rec, toks: not sdc_caught(rec, "sidecar"))):
+        originals = [(obj, attr, getattr(obj, attr))
+                     for obj, attr, _ in patches]
+        for obj, attr, fault in patches:
+            setattr(obj, attr, fault)
+        try:
+            rec, _, toks, _ = fleet_run(model, dev, tool, argv, kv)
+        finally:
+            for obj, attr, original in originals:
+                setattr(obj, attr, original)
+        out[name] = "rejected" if caught(rec, toks) else "PASSED"
+    return out
+
+
+def phase_serve_disagg(torch, pd, dev):
+    """Disaggregated serving and the SDC ledger on the card (phase 3e of
+    the docstring): per pool type, checks (a)-(e); the planted faults;
+    then 1 and 2 replicas against 1:1, and integrity off against --scrub
+    0 and --scrub 4, warm, in turns."""
+    import tempfile
+
+    from ddlbench_tpu_torch.config import ServeConfig
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.serve.handoff import make_disaggregated
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    cpu_model = get_model("transformer_s", "synthtext", seed=0)
+    card_model = get_model("transformer_s", "synthtext", seed=0).to(dev)
+    kernels = (pd.paged_attention, pd.paged_chunk_attention)
+    checks, pools, ctrl_streams = {}, {}, {}
+    for kv in ("float32", "int8"):
+        for fn in kernels:
+            fn.launches = fn.launches_int8 = fn.plain_launches = 0
+        rows, forks, plain = {}, {}, 0
+        runs = {}
+        for name, (tool, argv, n_agg) in DISAGG_RUNS.items():
+            rec, servers, toks, prompts = fleet_run(card_model, dev, tool,
+                                                    argv, kv)
+            # (b)'s control: the same traffic on the aggregated fleet of
+            # P + D replicas
+            ctrl_rec, _, ctrl, _ = fleet_run(
+                card_model, dev, "servebench",
+                DISAGG_BENCH + ["--replicas", str(n_agg)], kv)
+            plain += rec["plain_launches"] + ctrl_rec["plain_launches"]
+            runs[name] = (rec, servers, toks, ctrl, prompts)
+            ok_b = (rec["requests_lost"] if "requests_lost" in rec
+                    else rec["requests"] - rec["completed"]) == 0 \
+                and len(toks) == rec["requests"] and toks == ctrl
+            if tool == "servechaos":
+                ok_b = ok_b and rec["streams_match"] is True
+            checks[f"{kv}_{name}_b_no_loss_streams_bitwise"] = ok_b
+            if toks != ctrl:
+                forks[name] = fleet_forks(torch, card_model, dev, prompts,
+                                          toks, ctrl)
+            rows[name] = {k: rec[k] for k in DISAGG_ROW_KEYS if k in rec}
+        ctrl_streams[kv] = runs["i_bench_1_1"][3]
+        # (c): each target detected, quarantined for good, nothing escaped.
+        # The payload flip's time is the first whose flip escapes without
+        # the ledger; the float32 flip must escape (the reference's
+        # disarmed twin is float32). int8 tries float32's time: a flip
+        # there moves one element by 64 steps of its row's scale and may
+        # move no argmax, so its escape is reported only
+        t_flip = None
+        for t in (PAYLOAD_TIMES if kv == "float32" else
+                  (pools["float32"]["payload_flip_t"],)):
+            argv = [a.format(t=t) for a in SDC_RUNS["payload"]]
+            rec, _, _, _ = fleet_run(card_model, dev, "servechaos",
+                                     argv + ["--no-detect"], kv)
+            plain += rec["plain_launches"]
+            if rec["corrupts_fired"] and rec["sdc_escaped"] >= 1:
+                t_flip = t
+                rows["payload_no_detect"] = {
+                    k: rec[k] for k in DISAGG_ROW_KEYS if k in rec}
+                break
+        if kv == "float32":
+            checks["float32_c_no_detect_escapes"] = t_flip is not None
+        escaped = t_flip is not None
+        t_flip = t_flip or pools.get("float32", {}).get(
+            "payload_flip_t") or PAYLOAD_TIMES[0]
+        for target in ("payload", "sidecar", "prefix", "ship",
+                       "decode_pool", "export"):
+            if target == "sidecar" and kv != "int8":
+                continue
+            argv = [a.format(t=t_flip) for a in SDC_RUNS[target]]
+            rec, servers, _, _ = fleet_run(card_model, dev, "servechaos",
+                                           argv, kv)
+            plain += rec["plain_launches"]
+            checks[f"{kv}_c_{target}_caught"] = sdc_caught(rec, target)
+            checks[f"{kv}_c_{target}_quarantine_held"] = quarantine_held(
+                servers["chaos"])
+            rows[f"corrupt_{target}"] = {
+                "corrupt": rec["corrupt"],
+                "where": [e["where"] for e in rec["sdc_events"]],
+                **{k: rec[k] for k in DISAGG_ROW_KEYS if k in rec}}
+        # (d): clean traffic with the ledger armed
+        for name, argv in SCRUB_RUNS.items():
+            rec, servers, toks, _ = fleet_run(card_model, dev, "servebench",
+                                              argv, kv)
+            plain_rec, _, plain_toks, _ = fleet_run(
+                card_model, dev, "servebench", without(argv, ("--scrub",)),
+                kv)
+            plain += rec["plain_launches"] + plain_rec["plain_launches"]
+            where = [e["where"] for e in servers["chaos"].sdc_events]
+            ok = (rec["sdc_detected"] == 0 and rec["sdc_scrubbed"] > 0
+                  and "recompute" not in where and toks == plain_toks
+                  and len(toks) == rec["requests"])
+            if name == "bench_evicting":
+                ok = ok and rec["sdc_recompute_checks"] > 0
+            checks[f"{kv}_d_{name}_clean"] = ok
+            rows[f"scrub_{name}"] = {k: rec[k] for k in DISAGG_ROW_KEYS
+                                     if k in rec}
+        launches = {
+            "paged_attention": pd.paged_attention.launches,
+            "paged_chunk_attention": pd.paged_chunk_attention.launches,
+            "paged_attention_int8": pd.paged_attention.launches_int8,
+            "paged_chunk_attention_int8":
+                pd.paged_chunk_attention.launches_int8,
+            "plain_launches": plain}
+        mine, other = (("_int8", "") if kv == "int8" else ("", "_int8"))
+        checks[f"{kv}_e_launches"] = (
+            launches[f"paged_attention{mine}"] > 0
+            and launches[f"paged_chunk_attention{mine}"] > 0
+            and launches[f"paged_attention{other}"] == 0
+            and launches[f"paged_chunk_attention{other}"] == 0
+            and plain == 0
+            and pd.paged_attention.plain_launches == 0
+            and pd.paged_chunk_attention.plain_launches == 0)
+        bits = flip_one_bit(torch, card_model, dev, kv)
+        checks[f"{kv}_e_flip_one_bit"] = all(b == 1 for b in bits.values())
+        cfg = ServeConfig(max_batch=2, pool_pages=12, page=4, max_len=16,
+                          prefill_chunk=4, kv_dtype=kv)
+        shared, grown, pool_bytes = fleet_memory(
+            torch, card_model, dev, kv,
+            build=lambda: make_disaggregated(card_model, cfg, dev, 2, 2))
+        checks[f"{kv}_e_one_weight_copy"] = (
+            shared and abs(grown - pool_bytes) <= MEMORY_RTOL * pool_bytes)
+        # (a): each card row against the port's row on the CPU
+        for name, (rec, servers, _, _, _) in runs.items():
+            tool, argv, _ = DISAGG_RUNS[name]
+            cpu_rec, cpu_servers, _, _ = fleet_run(cpu_model, cpu, tool,
+                                                   argv, kv)
+            diff = slo_row_diff(rec, cpu_rec)
+            srv, cpu_srv = servers["chaos"], cpu_servers["chaos"]
+            checks[f"{kv}_{name}_a_row_equals_cpu"] = not diff and all(
+                getattr(srv, k) == getattr(cpu_srv, k) for k in (
+                    "fail_events", "resize_events", "timed_out",
+                    "shed_records"))
+            if diff:
+                rows[name]["row_diff_vs_cpu"] = diff
+        pools[kv] = {"launches": launches, "rows": rows, "forks": forks,
+                     "payload_flip_t": t_flip,
+                     "payload_no_detect_escaped": escaped,
+                     "flip_bits": bits,
+                     "memory": {"allocated_bytes": grown,
+                                "pool_bytes": pool_bytes}}
+    f32 = pools["float32"]["rows"]["i_bench_1_1"]
+    i8 = pools["int8"]["rows"]["i_bench_1_1"]
+    checks["a_int8_ships_quarter_payload"] = (
+        i8["shipped_pages"] == f32["shipped_pages"] > 0
+        and 4 * i8["shipped_payload_bytes"] == f32["shipped_payload_bytes"])
+    faults = disagg_faults(card_model, dev, ctrl_streams["int8"])
+    # 1 and 2 replicas against 1:1, then integrity off against --scrub 0
+    # and 4, on the card, warm, in turns: the serve_slo command greedy
+    # over a float32 pool
+    layouts = {"1": ["--replicas", "1"], "2": ["--replicas", "2"],
+               "1:1": ["--disaggregate", "1:1"]}
+    ledger = {"off": [], "scrub_0": ["--scrub", "0"],
+              "scrub_4": ["--scrub", "4"]}
+    turns = {"layout": {k: [] for k in layouts},
+             "integrity": {k: [] for k in ledger}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_disagg_") as tmp:
+        slo_run(card_model, dev, "float32", tmp, argv=SLO_GREEDY_ARGS)
+        for group, opts, order in (
+                ("layout", layouts, ("1", "2", "1:1", "1:1", "2", "1")),
+                ("integrity", ledger, ("off", "scrub_0", "scrub_4",
+                                       "scrub_4", "scrub_0", "off"))):
+            for n in order:
+                rec, server, _, _ = slo_run(card_model, dev, "float32", tmp,
+                                            extra=opts[n],
+                                            argv=SLO_GREEDY_ARGS)
+                ledgers = [e.integrity for e in server.engines
+                           + server.retired if e.integrity is not None]
+                turns[group][n].append({
+                    **{k: rec.get(k) for k in TURN_KEYS if k in rec},
+                    "stamps_and_verifies": sum(g.stamps + g.verifies
+                                               for g in ledgers)})
+    emit({"phase": "serve_disagg",
+          "runs": {k: [t, a] for k, (t, a, _) in DISAGG_RUNS.items()},
+          "checks": checks, "planted_faults": faults, "pools": pools,
+          "turns": {"card": card_line(), **turns},
+          "seconds": time.perf_counter() - t0})
+    failed = [k for k, ok in checks.items() if not ok]
+    failed += [k for k, v in faults.items() if v != "rejected"]
+    if failed:
+        raise AssertionError(f"serve_disagg: failed {failed}")
 
 
 def phase_profile(torch, dev):
@@ -3572,6 +3968,7 @@ def main() -> int:
     launches.update(phase_serve_levers(torch, pd, dev))
     phase_serve_slo(torch, pd, dev)
     phase_serve_fleet(torch, pd, dev)
+    phase_serve_disagg(torch, pd, dev)
     phase_profile(torch, dev)
     flash_worst = phase_flash_kernels(torch, fa, dev)
     flash_timed = phase_flash_times(torch, fa, dev)

@@ -96,9 +96,6 @@ DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
 _NOT_PORTED = (
     ("tp", 1, "tensor-parallel serving (tp > 1)",
      "A.7: a replica needs tp devices"),
-    ("integrity", False, "the SDC checksum ledger",
-     "A.4: the SDC ledger and scrub"),
-    ("scrub", 0, "the SDC scrubber", "A.4: the SDC ledger and scrub"),
 )
 
 
@@ -170,11 +167,20 @@ class ServeConfig:
     # serve-side heartbeat: a replica that holds work but makes no progress
     # for more than this many time units is drained (0 = off)
     heartbeat: float = 0.0
+    # silent-data-corruption defence (serve/integrity.py): a host-side
+    # crc32 ledger over every pool page's payload and sidecar rows, stamped
+    # at each pool write and verified at every trust boundary (page
+    # shipping, prefix-hit binds, eviction-recompute, the scrubber). A
+    # mismatch quarantines the slot for the rest of the run and recovers
+    # every request that references it through the re-prefill path. Off
+    # (the default) keeps no ledger and makes no checks.
+    integrity: bool = False
+    # background scrub budget: verify up to this many stamped pages per
+    # step, round-robin (0 = off; > 0 requires integrity)
+    scrub: int = 0
     # knobs of the reference config the port does not implement yet:
     # validate() raises NotImplementedError when one leaves its default
     tp: int = 1
-    integrity: bool = False
-    scrub: int = 0
 
     def npg_max(self) -> int:
         return -(-self.max_len // self.page)
@@ -254,6 +260,14 @@ class ServeConfig:
             raise ValueError(
                 f"heartbeat must be >= 0 time units (0 disables straggler "
                 f"detection), got {self.heartbeat}")
+        if self.scrub < 0:
+            raise ValueError(
+                f"scrub must be >= 0 pages/step (0 disables the "
+                f"scrubber), got {self.scrub}")
+        if self.scrub and not self.integrity:
+            raise ValueError(
+                "scrub without integrity has no checksum ledger to "
+                "verify against — enable integrity or drop scrub")
         if self.kv_dtype not in ("float32", "bfloat16", "int8"):
             raise ValueError(
                 f"kv_dtype must be float32|bfloat16|int8, got "

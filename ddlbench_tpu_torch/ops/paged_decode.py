@@ -98,6 +98,15 @@ def pool_page_bytes(pool: Pool) -> int:
                for n in ("pool_k", "pool_v"))
 
 
+def pool_checksum_keys(pool: Pool) -> tuple:
+    """Keys of ``pool`` covered by the SDC checksum ledger
+    (serve/integrity.py): the per-slot arrays the table writes scatter,
+    payload rows plus the int8 scale sidecars, in sorted order (the CRC
+    chain order). The layer's ``kv_seed`` and its rounding table ``kv_u``
+    are not per-slot state and stay out."""
+    return tuple(sorted(k for k in _SLOT_KEYS if k in pool))
+
+
 # ---------------------------------------------------------------------------
 # int8 quantisation at the write boundary.
 # ---------------------------------------------------------------------------

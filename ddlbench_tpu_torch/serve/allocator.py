@@ -1,9 +1,11 @@
 """Refcounted free-list page allocator for the shared serving KV pool.
 
 The port's copy of ``ddlbench_tpu/serve/allocator.py`` (pure host code),
-with the refcount calls the prefix cache and speculative rollback use and
-the ``on_event`` hook request tracing hangs off, without the SDC
-quarantine, which the port does not carry yet.
+with the refcount calls the prefix cache and speculative rollback use, the
+``on_event`` hook request tracing hangs off, and the SDC quarantine the
+page-checksum ledger (serve/integrity.py) drives: a quarantined slot never
+returns to the free list, and ``on_slot_free`` tells the ledger when a
+slot's tenancy ends.
 
 A serving engine cannot give every row a private stripe of the pool: a
 request's KV history lives exactly as long as the request, and "pool
@@ -47,12 +49,22 @@ class PageAllocator:
         self._free: List[int] = [s for s in range(self.n_pages - 1, 0, -1)]
         self._owned: Dict[int, List[int]] = {}  # rid -> slots, alloc order
         self._ref: Dict[int, int] = {}  # slot -> refcount (live slots only)
+        # slots pulled from circulation by SDC quarantine: when the last
+        # reference drops they do NOT return to the free list, so a
+        # corrupted page is never handed to another request. Quarantined
+        # capacity stays counted as in_use: the pool genuinely shrank.
+        self._quarantined: set = set()
         self.allocs = 0
         self.frees = 0
         self.peak_in_use = 0
         # optional (name, **args) sink for pool lifecycle instants: the
         # engine wires it to the virtual-time tracer when cfg.trace is on
         self.on_event: Optional[Callable[..., None]] = None
+        # optional hook fired with the slot id whenever a slot PHYSICALLY
+        # returns to the free list (never for a quarantined retire): the
+        # engine wires it to the SDC ledger's drop_slot, so stale checksum
+        # expectations die with the tenancy
+        self.on_slot_free: Optional[Callable[[int], None]] = None
 
     @property
     def capacity(self) -> int:
@@ -66,6 +78,12 @@ class PageAllocator:
     @property
     def free_pages(self) -> int:
         return len(self._free)
+
+    @property
+    def quarantined(self) -> int:
+        """Slots pulled from circulation by SDC quarantine (live references
+        may still be draining; the count never shrinks within a run)."""
+        return len(self._quarantined)
 
     @property
     def shared_pages(self) -> int:
@@ -126,20 +144,43 @@ class PageAllocator:
 
     def holders(self, slot: int) -> List[int]:
         """Request ids currently holding a reference on ``slot``, in rid
-        order."""
+        order: the quarantine walk of a corrupted SHARED page (every holder
+        read poisoned bytes and must take the recompute path)."""
         return sorted(r for r, slots in self._owned.items() if slot in slots)
+
+    def quarantine(self, slot: int) -> None:
+        """Pull ``slot`` out of circulation (SDC detection): if it is on
+        the free list it leaves at once; if references are still live it
+        leaves when the last one drops (see ``decref``). Either way it is
+        never allocated again this run. Idempotent; the scratch slot
+        cannot be quarantined (it holds no real data)."""
+        if slot == SCRATCH_SLOT:
+            raise ValueError("cannot quarantine the scratch slot")
+        if slot in self._quarantined:
+            return
+        self._quarantined.add(slot)
+        if slot in self._free:
+            self._free.remove(slot)
+        if self.on_event is not None:
+            self.on_event("pool_quarantine", slot=slot,
+                          free=len(self._free))
 
     def decref(self, slot: int) -> bool:
         """Drop one reference; returns True when the slot actually
-        returned to the free list (last reference dropped). Dropping a
-        reference a holder does not have is a double-free and raises."""
+        returned to the free list (last reference dropped). A quarantined
+        slot never returns: its last decref retires it for good (counted as
+        freed: the holder genuinely let go). Dropping a reference a holder
+        does not have is a double-free and raises."""
         c = self._ref.get(slot, 0)
         if c < 1:
             raise ValueError(f"double free: slot {slot} has no references")
         if c == 1:
             del self._ref[slot]
             self.frees += 1
-            self._free.append(slot)
+            if slot not in self._quarantined:
+                self._free.append(slot)
+                if self.on_slot_free is not None:
+                    self.on_slot_free(slot)
             return True
         self._ref[slot] = c - 1
         return False

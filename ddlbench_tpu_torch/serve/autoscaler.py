@@ -35,9 +35,9 @@ Repair exactly once: the controller consumes the fail and heartbeat
 ledgers by index, so an expiry that spans two windows is still one entry
 and can never spawn twice.
 
-The reference's per-fleet controllers for a disaggregated server wait for
-the disaggregated server itself (ROADMAP A.4); :func:`make_controllers`
-builds the one controller of a replicated fleet.
+:func:`make_controllers` builds one controller for a replicated fleet and
+one PER FLEET for a disaggregated server (serve/handoff.py): prefill and
+decode scale independently, each clamped to the same band.
 """
 
 from __future__ import annotations
@@ -372,12 +372,18 @@ class FleetController:
 
 def make_controllers(server, policy: AutoscalePolicy,
                      start: float = 0.0) -> List[FleetController]:
-    """The controllers of a replicated fleet: one."""
+    """Controllers for any driver-compatible server: one for a
+    ReplicatedServer, one per fleet for a disaggregated server
+    (``DisaggregatedServer.controllers``)."""
+    if hasattr(server, "controllers"):
+        return server.controllers(policy, start=start)
     return [FleetController(server, policy, start=start)]
 
 
 def combined_attainment(controllers: List[FleetController]) -> float:
-    """Online attainment over a controller set's ingested records."""
+    """Online attainment over a controller set's ingested records (in the
+    disaggregated layout completions land on the decode fleet's
+    controller; the union is the fleet-wide figure)."""
     ok = sum(c.timeline.slo_ok_total for c in controllers)
     done = sum(c.timeline.completed_total for c in controllers)
     return ok / done if done else 0.0

@@ -4,7 +4,9 @@ The port of ``ddlbench_tpu/serve/engine.py`` at tp = 1: float32, bfloat16
 and int8 pools, the continuous policy and the static baseline, the
 cross-request prefix cache, self-drafting speculative verify, sampling,
 deadlines with shedding and timeouts, SLO tiers, request-lifecycle tracing
-and the flight recorder, and the replicated fleet over them
+and the flight recorder, the SDC checksum ledger with quarantine and
+scrub, page shipping between engines (serve/handoff.py builds the
+disaggregated server on it), and the replicated fleet over them
 (:class:`ReplicatedServer`: least-loaded dispatch, live resize, replica
 kill and stall, the heartbeat drain). The scheduler is the reference's,
 line for line, so both engines make the same decisions on the same traffic
@@ -62,6 +64,17 @@ Structure (host schedules, device computes):
   flight_recorder``) for :meth:`ServeEngine.snapshot`. Tracing only
   records decisions already made: streams and virtual times are the same
   traced or not.
+* The SDC ledger (``cfg.integrity``; serve/integrity.py): every pool write
+  stamps the written (layer, slot) with a checksum of its rows, copied to
+  the host synchronously; prefix-hit binds, exports and the scrubber
+  (``cfg.scrub`` slots a step) verify against it. A mismatch quarantines
+  the slot for good and evicts every request that holds it onto the
+  recompute path, whose re-prefill is itself held to the words the
+  evicted pages had.
+* Page shipping: :meth:`ServeEngine.extract_request` copies a decode-state
+  request's pages to the host and frees them; :meth:`ServeEngine.
+  import_request` writes them into another engine's pool verbatim and
+  resumes the request there.
 * The fleet: every replica of a server is built on the one device and
   shares the one model object (its weights live there once); each has its
   own KV pool, allocator, scheduler and flight recorder. A global step runs
@@ -87,7 +100,7 @@ import dataclasses
 import random
 import time
 from collections import deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,11 +108,15 @@ import torch
 from ddlbench_tpu_torch.config import ServeConfig
 from ddlbench_tpu_torch.models.layers import LayerModel, ServeLayer
 from ddlbench_tpu_torch.ops.paged_decode import (kv_u_table,
+                                                 pool_checksum_keys,
                                                  pool_page_bytes,
                                                  pool_quantized,
                                                  serve_page_copy)
 from ddlbench_tpu_torch.serve.allocator import PageAllocator
 from ddlbench_tpu_torch.serve.draft import NgramDrafter
+from ddlbench_tpu_torch.serve.integrity import (PageLedger, host_rows,
+                                                page_checksum,
+                                                ship_checksums)
 from ddlbench_tpu_torch.serve.prefix import PrefixIndex
 from ddlbench_tpu_torch.serve.workload import TIERS, ServeRequest
 from ddlbench_tpu_torch.telemetry.stats import request_slo_ok
@@ -299,6 +316,22 @@ class ServeEngine:
         # prompt tokens served from the cache per request, accumulated
         # across re-admissions (eviction/recompute)
         self._cached_tokens: Dict[int, int] = {}
+        # SDC defence (serve/integrity.py): with cfg.integrity off there is
+        # no ledger, no stamp and no verify
+        self.integrity: Optional[PageLedger] = (
+            PageLedger() if cfg.integrity else None)
+        # detection/quarantine records (t/slot/where/displaced rids):
+        # servechaos derives time-to-detect and recovery from them
+        self.sdc_events: List[Dict[str, Any]] = []
+        self._scrub_cursor = 0
+        # eviction-recompute expectations: rid -> {(layer, page index):
+        # crc} of the fully written prompt pages at eviction; the replayed
+        # prefill must regenerate the same bytes
+        self._recompute_expect: Dict[int, Dict[Tuple[int, int], int]] = {}
+        if self.integrity is not None:
+            # a slot returning to the free list drops its ledger entries
+            # (the next tenant re-stamps at its own write)
+            self.allocator.on_slot_free = self.integrity.drop_slot
         self.stats: Dict[str, float] = {
             "steps": 0, "model_calls": 0, "prefill_calls": 0,
             "decode_calls": 0, "decode_row_slots": 0, "admitted": 0,
@@ -314,13 +347,18 @@ class ServeEngine:
             # tokens excluded)
             "spec_passes": 0, "spec_drafted": 0, "spec_accepted": 0,
             "decode_tokens": 0,
+            # SDC counters (0 with integrity off)
+            "sdc_injected": 0, "sdc_detected": 0, "sdc_quarantined": 0,
+            "sdc_recovered": 0, "sdc_scrubbed": 0,
+            "sdc_recompute_checks": 0,
         }
         # host seconds spent in model passes (synchronised by the token or
-        # logits copy-back at the end of each pass), and in host sampling
-        # (``sampled`` draws)
+        # logits copy-back at the end of each pass), in host sampling
+        # (``sampled`` draws), and in the SDC ledger's slot reads (the
+        # device-to-host copies and checksums of its stamps and verifies)
         self.wall: Dict[str, float] = {"decode_s": 0.0, "verify_s": 0.0,
                                        "prefill_s": 0.0, "sample_s": 0.0,
-                                       "sampled": 0}
+                                       "sampled": 0, "ledger_s": 0.0}
 
     # -- model passes --------------------------------------------------------
 
@@ -394,6 +432,145 @@ class ServeEngine:
         for pool in self.pools:
             if pool is not None:
                 serve_page_copy(pool, src, dst)
+
+    # -- SDC defence: stamp / verify / quarantine (serve/integrity.py) -----
+
+    def _slot_crc(self, li: int, slot: int) -> int:
+        """Checksum of (layer, slot)'s current device bytes: the payload
+        and sidecar rows copied to the host, chained in sorted key order
+        (ops/paged_decode.pool_checksum_keys)."""
+        t0 = time.perf_counter()
+        pool = self.pools[li]
+        crc = page_checksum({k: host_rows(pool[k][slot])
+                             for k in pool_checksum_keys(pool)})
+        self.wall["ledger_s"] += time.perf_counter() - t0
+        return crc
+
+    def _stamp_slot(self, slot: int) -> None:
+        """Stamp every serving layer's ledger entry for ``slot`` from the
+        bytes just written: the pool-write hook."""
+        for li, pool in enumerate(self.pools):
+            if pool is not None:
+                self.integrity.stamp(li, slot, self._slot_crc(li, slot))
+
+    def _verify_slot(self, slot: int, where: str,
+                     rep: Optional[StepReport] = None) -> bool:
+        """Trust-boundary check of ``slot`` against the ledger. True =
+        intact (or never stamped); on any layer's mismatch the slot is
+        quarantined, every holder recovered, and False returns: the caller
+        must not serve it."""
+        for li, pool in enumerate(self.pools):
+            if pool is None:
+                continue
+            if self.integrity.verify(li, slot,
+                                     self._slot_crc(li, slot)) is False:
+                self._quarantine_slot(slot, where, rep)
+                return False
+        return True
+
+    def _quarantine_slot(self, slot: int, where: str,
+                         rep: Optional[StepReport] = None) -> None:
+        """Detection -> quarantine -> recovery: retire the slot for good,
+        purge its prefix-index entry, and EVICT every request that holds
+        it (a corrupted SHARED page walks its refcounts) onto the
+        recompute path, which regenerates the pages and the streams."""
+        if rep is None:
+            rep = StepReport()  # a detection outside step() (export)
+        holders = self.allocator.holders(slot)
+        self.allocator.quarantine(slot)
+        if self.prefix is not None:
+            self.prefix.drop_slot(slot)
+        displaced: List[int] = []
+        for rid in holders:
+            victim = next((x for x in self._active()
+                           if x.req.rid == rid), None)
+            if victim is not None and self.rows[victim.row] is victim:
+                self._evict(victim, rep)
+                displaced.append(rid)
+        self.integrity.drop_slot(slot)
+        self.stats["sdc_detected"] += 1
+        self.stats["sdc_quarantined"] += 1
+        self.stats["sdc_recovered"] += len(displaced)
+        self.sdc_events.append({"t": self._now, "slot": int(slot),
+                                "where": where, "displaced": displaced})
+        self._sdc_trace("detect", slot=int(slot), where=where)
+        self._sdc_trace("quarantine", slot=int(slot),
+                        displaced=len(displaced))
+
+    def _sdc_trace(self, kind: str, **args: Any) -> None:
+        """``sdc:*`` instants on the replica's sdc track (the
+        telemetry/export.sdc_events reducer reads them)."""
+        tr = self._tr()
+        if tr is not None:
+            tr.emit("i", f"sdc:{kind}", _vns(self._now),
+                    track=f"{self._trk}/sdc", args=args)
+
+    def _capture_recompute_expect(self, victim: _Active) -> None:
+        """At eviction, keep the ledger words of the victim's FULLY
+        prefilled prompt pages: the recompute replay's chunk writes must
+        regenerate exactly these bytes (:meth:`_stamp_prefill_pages`)."""
+        exp: Dict[Tuple[int, int], int] = {}
+        full = min(victim.prefill_done, victim.req.prompt_len) // self.page
+        for idx in range(full):
+            slot = int(self.table[victim.row, idx])
+            if not slot:
+                continue
+            for li, pool in enumerate(self.pools):
+                if pool is None:
+                    continue
+                crc = self.integrity.expected(li, slot)
+                if crc is not None:
+                    exp[(li, idx)] = crc
+        if exp:
+            self._recompute_expect[victim.req.rid] = exp
+
+    def _stamp_prefill_pages(self, a: _Active, start: int,
+                             end_real: int) -> None:
+        """Stamp the pages a prefill chunk wrote ([start, end_real) plus
+        the padded tail inside the last allocated page) and hold every
+        FULLY rewritten page to its eviction-recompute expectation."""
+        exp = self._recompute_expect.get(a.req.rid)
+        full_end = end_real // self.page
+        for idx in range(start // self.page, self._pages_for(end_real)):
+            slot = int(self.table[a.row, idx])
+            if not slot:
+                continue
+            for li, pool in enumerate(self.pools):
+                if pool is None:
+                    continue
+                crc = self._slot_crc(li, slot)
+                self.integrity.stamp(li, slot, crc)
+                if exp is None or idx >= full_end:
+                    continue
+                want = exp.pop((li, idx), None)
+                if want is None:
+                    continue
+                self.stats["sdc_recompute_checks"] += 1
+                if crc != want:
+                    # the replay did NOT regenerate the original bytes:
+                    # the original write was corrupt, or re-derivation is
+                    # not deterministic. Recorded as a detection, not
+                    # quarantined: the fresh bytes are the re-derived truth
+                    self.stats["sdc_detected"] += 1
+                    self.sdc_events.append({
+                        "t": self._now, "slot": slot,
+                        "where": "recompute", "displaced": []})
+                    self._sdc_trace("recompute_mismatch", slot=slot,
+                                    layer=li, page=idx)
+
+    def _scrub(self, rep: StepReport) -> None:
+        """Budgeted background scrubber: verify up to ``cfg.scrub`` stamped
+        slots a step, round-robin over the sorted stamped slots, so latent
+        corruption on cold pages is caught before a hit or a ship serves
+        it."""
+        for _ in range(self.cfg.scrub):
+            slots = self.integrity.stamped_slots()
+            if not slots:
+                return
+            slot = slots[self._scrub_cursor % len(slots)]
+            self._scrub_cursor += 1
+            self.stats["sdc_scrubbed"] += 1
+            self._verify_slot(slot, "scrub", rep)
 
     def _check_write_positions(self, hi: int) -> None:
         """The rounding table of an int8 pool covers positions
@@ -584,6 +761,10 @@ class ServeEngine:
         """Drop the victim's page references and re-queue it (front) for
         recomputation — greedy decode and seeded sampling regenerate the
         same tokens (shared pages survive for their other holders)."""
+        if self.integrity is not None:
+            # before the frees drop the ledger entries: the recompute
+            # replay is held to these words
+            self._capture_recompute_expect(victim)
         self.allocator.free_request(victim.req.rid)
         self.table[victim.row, :] = 0
         self.rows[victim.row] = None
@@ -761,6 +942,14 @@ class ServeEngine:
         prefill calls; the first output token costs one decode pass."""
         S = req.prompt_len
         nblk = S // self.page
+        # trust boundary: a full hit serves these pages without any
+        # recompute, so verify them first. A mismatch quarantines the slot
+        # (its index entry purged, holders recovered) and the admission
+        # bails; the next step's match misses the purged block
+        if self.integrity is not None:
+            for s in hit[:nblk]:
+                if not self._verify_slot(int(s), "prefix_hit", rep):
+                    return None
         # pin every matched page (the copy's source included) before
         # allocating: _alloc's reclaim frees index-only pages, which the
         # hit slots are once their owner completed
@@ -790,6 +979,16 @@ class ServeEngine:
         # the source page is pinned above, so the alloc's reclaim cannot
         # have freed it between match and this copy
         self._page_copy(int(hit[nblk - 1]), priv[0])
+        if self.integrity is not None:
+            # the copy moves bytes verbatim: the destination inherits the
+            # just-verified source's words without another fetch
+            src = int(hit[nblk - 1])
+            for li, pool in enumerate(self.pools):
+                if pool is None:
+                    continue
+                crc = self.integrity.expected(li, src)
+                if crc is not None:
+                    self.integrity.stamp(li, priv[0], crc)
         # release the admission pins (the bind keeps its own references;
         # the copy's source drops back to its cache reference)
         for s in hit[:nblk]:
@@ -833,6 +1032,11 @@ class ServeEngine:
         # very step (the scan arms once a deadlined request was accepted)
         if self._has_deadlines:
             self._cancel_expired(now, rep)
+        # budgeted scrub BEFORE any pass reads the pool this step: a flip
+        # on a settled page is caught ahead of the pass that would attend
+        # over it (detection evicts its holders onto the recompute path)
+        if self.integrity is not None and self.cfg.scrub:
+            self._scrub(rep)
         C = self.cfg.resolved_prefill_chunk()
 
         # 1) decode set: every decode row gets its next page (evictions may
@@ -888,6 +1092,14 @@ class ServeEngine:
             # first-token logits need the last prompt position to run
             # through a prefill chunk anyway
             nbind = min(len(hit), (S - 1) // self.page)
+            # trust boundary: verify the hit pages before binding. A
+            # mismatch quarantines the slot (possibly evicting holders to
+            # the queue front, which shifts qi), so admission stops for
+            # this step; the next match misses the purged block
+            if nbind and self.integrity is not None and not all(
+                    self._verify_slot(int(s), "prefix_hit", rep)
+                    for s in hit[:nbind]):
+                break
             cached = nbind * self.page
             end0 = min(cached + C, S)  # first tail chunk's frontier
             if self.cfg.policy == "static":
@@ -939,6 +1151,16 @@ class ServeEngine:
 
         # 4) price the step, then run it. A verify pass is ONE model pass,
         #    the price of the decode step it replaces
+        if self.integrity is not None:
+            # an admission-time check may have quarantined a shared page
+            # and evicted a holder already scheduled this step: never run
+            # a dead row
+            prefill_calls = [a for a in prefill_calls
+                             if self.rows[a.row] is a]
+            decode_set = [a for a in decode_set if self.rows[a.row] is a]
+            if draft_plan is not None:
+                draft_plan = [p for p in draft_plan
+                              if self.rows[p[0].row] is p[0]]
         cost = len(prefill_calls) + (1 if decode_set else 0)
         t_end = now + cost
         for a in prefill_calls:
@@ -1094,6 +1316,18 @@ class ServeEngine:
             accepted = len(emitted) - 1
             self.stats["spec_accepted"] += accepted
             self.stats["decode_tokens"] += len(emitted)
+            if self.integrity is not None:
+                # the span write touched every allocated page under
+                # [pos0, pos0 + W): stamp them (rejected-tail bytes are
+                # real device state too) before completion or rollback
+                # can free any of them
+                p0 = int(pos0[a.row]) // self.page
+                p1 = min(a.n_pages,
+                         (int(pos0[a.row]) + W - 1) // self.page + 1)
+                for idx in range(p0, p1):
+                    slot = int(self.table[a.row, idx])
+                    if slot:
+                        self._stamp_slot(slot)
             if tr is not None:
                 trk = self._req_track(a.req.rid)
                 tr.emit("X", "verify", d0, d1 - d0, track=trk,
@@ -1149,6 +1383,8 @@ class ServeEngine:
                                  want, npl)
         self.wall["prefill_s"] += time.perf_counter() - t0
         a.prefill_done = end_real
+        if self.integrity is not None:
+            self._stamp_prefill_pages(a, start, end_real)
         rep.prefill_calls += 1
         self.stats["prefill_calls"] += 1
         self.stats["prefill_tokens"] += end_real - start
@@ -1221,6 +1457,13 @@ class ServeEngine:
         t0 = time.perf_counter()
         nxt = self._decode_pass(dec_table, toks, pos, npl)
         self.wall["decode_s"] += time.perf_counter() - t0
+        if self.integrity is not None:
+            # stamp each row's written page from the saved positions,
+            # before the emission loop can complete (and free) a request
+            for a in decode_set:
+                slot = int(self.table[a.row, pos[a.row] // self.page])
+                if slot:
+                    self._stamp_slot(slot)
         rep.decode_rows = len(decode_set)
         self.stats["decode_calls"] += 1
         self.stats["decode_row_slots"] += len(decode_set)
@@ -1264,6 +1507,155 @@ class ServeEngine:
                            r.rid in self._evicted_rids) for r in reqs}
         self._queued_at.clear()
         return reqs, rep.evicted, handoff
+
+    # -- cross-engine page shipping (serve/handoff.py) ---------------------
+
+    @torch.no_grad()
+    def fetch_pages(self, slots: List[int]) -> List[Optional[Dict[str,
+                                                                  Any]]]:
+        """Device-to-host copy of the given pool slots: payload and scale
+        sidecar rows (bfloat16 as its int16 bytes), one dict per serving
+        layer (None for layers with no pool). The layer's ``kv_seed`` and
+        rounding table never ship: they are the layer's own and the same
+        on every engine of the model, which is what makes re-quantisation
+        after a decode-fleet failover bitwise."""
+        out: List[Optional[Dict[str, Any]]] = []
+        for pool in self.pools:
+            if pool is None:
+                out.append(None)
+                continue
+            idx = torch.tensor(slots, dtype=torch.long,
+                               device=pool["pool_k"].device)
+            out.append({k: host_rows(pool[k][idx])
+                        for k in pool_checksum_keys(pool)})
+        return out
+
+    @torch.no_grad()
+    def write_pages(self, slots: List[int], pages) -> None:
+        """Host-to-device import of :meth:`fetch_pages` rows into this
+        engine's pool at ``slots`` (the importer's own allocator grants),
+        in place. The bytes land verbatim: int8 payload and float32 scale
+        sidecars are bit-identical to the exporter's, so later decode
+        reads match the aggregated engine exactly."""
+        for pool, rows in zip(self.pools, pages):
+            if pool is None:
+                continue
+            idx = torch.tensor(slots, dtype=torch.long,
+                               device=pool["pool_k"].device)
+            for k, v in rows.items():
+                dst = pool[k]
+                t = torch.from_numpy(np.ascontiguousarray(v)).to(dst.device)
+                pool[k][idx] = t.view(dst.dtype)
+
+    def extract_request(self, rid: int) -> Optional[Dict[str, Any]]:
+        """Pop an in-flight DECODE-state request off this engine for
+        shipping: copy its table-row pages to the host
+        (:meth:`fetch_pages`), then free the row and its page references
+        (prefix-registered blocks survive on the index's own references,
+        as on eviction). Returns the ship :meth:`import_request` takes.
+        Extraction is not a terminal state: nothing lands in ``finished``.
+
+        With integrity on, export is a trust boundary: every page is
+        verified against the ledger BEFORE it can ship. A mismatch
+        quarantines the slot, which evicts this very request onto the
+        local recompute path, and returns None: corrupt bytes never leave
+        the engine. Clean ships carry per-(layer, page) ``checksums`` the
+        importer re-verifies and stamps from."""
+        a = next((x for x in self._active() if x.req.rid == rid), None)
+        if a is None or a.state != "decode":
+            raise ValueError(
+                f"extract_request: rid {rid} is not an in-flight decode "
+                "request")
+        slots = [int(s) for s in self.table[a.row, :a.n_pages]]
+        if self.integrity is not None:
+            for s in slots:
+                if not self._verify_slot(s, "export"):
+                    return None  # quarantined and evicted: nothing ships
+        ship = {
+            "rid": rid, "req": a.req, "out": list(a.out),
+            "token_times": list(a.token_times),
+            "first_token_t": a.first_token_t,
+            "pending_tok": a.pending_tok,
+            "prefill_done": a.prefill_done,
+            "n_pages": a.n_pages,
+            "cached_tokens": self._cached_tokens.pop(rid, 0),
+            "pages": self.fetch_pages(slots),
+        }
+        if self.integrity is not None:
+            # wire words straight from the just-verified ledger: one per
+            # (layer, page); None for poolless layers and for partial
+            # tail pages not stamped yet
+            ship["checksums"] = [
+                None if pool is None else
+                [self.integrity.expected(li, s) for s in slots]
+                for li, pool in enumerate(self.pools)]
+        self.allocator.free_request(rid)
+        self.table[a.row, :] = 0
+        self.rows[a.row] = None
+        self._queued_at.pop(rid, None)
+        self._evicted_rids.discard(rid)
+        return ship
+
+    def import_request(self, ship: Dict[str, Any], now: float) -> bool:
+        """Bind a shipped request's pages into this engine and resume it
+        mid-stream in decode state. All or nothing: returns False (engine
+        unchanged) when there is no free row or not enough free pages, or
+        when the ship fails its checksums; the caller parks the ship and
+        retries next step. The imported request joins the admission order
+        at the tail, like any admission."""
+        row = self._free_row()
+        if row is None:
+            return False
+        req: ServeRequest = ship["req"]
+        if self.integrity is not None and \
+                ship.get("checksums") is not None:
+            # trust boundary: re-checksum the ship's host bytes against the
+            # exporter's words BEFORE any allocation or pool write
+            self._now = now
+            calc = ship_checksums(ship["pages"])
+            for li, want in enumerate(ship["checksums"]):
+                if want is None:
+                    continue
+                for p, w in enumerate(want):
+                    if w is not None and w != calc[li][p]:
+                        self.stats["sdc_detected"] += 1
+                        self._sdc_trace("ship_reject", rid=req.rid,
+                                        layer=li, page=p)
+                        return False
+        slots = self._alloc(req.rid, ship["n_pages"])
+        if slots is None:
+            return False
+        self._now = now
+        self.write_pages(slots, ship["pages"])
+        if self.integrity is not None and \
+                ship.get("checksums") is not None:
+            # the scatter is verbatim: the destination slots inherit the
+            # ship's verified words without a fresh device fetch
+            for li, want in enumerate(ship["checksums"]):
+                if want is None:
+                    continue
+                for p, w in enumerate(want):
+                    if w is not None:
+                        self.integrity.stamp(li, slots[p], w)
+        a = _Active(req=req, row=row, admit_seq=self._admit_seq)
+        self._admit_seq += 1
+        a.state = "decode"
+        a.prefill_done = ship["prefill_done"]
+        a.n_pages = ship["n_pages"]
+        a.pending_tok = ship["pending_tok"]
+        a.out = list(ship["out"])
+        a.token_times = list(ship["token_times"])
+        a.first_token_t = ship["first_token_t"]
+        self.table[row, :] = 0
+        self.table[row, :a.n_pages] = slots
+        self.rows[row] = a
+        if ship["cached_tokens"]:
+            self._cached_tokens[req.rid] = ship["cached_tokens"]
+        if req.deadline is not None:
+            self._has_deadlines = True
+        self.stats["admitted"] += 1
+        self._trace_admit(a, ship["cached_tokens"])
+        return True
 
     def release_pools(self) -> None:
         """Drop a retired engine's KV pools, so their device memory goes
@@ -1645,6 +2037,15 @@ class ReplicatedServer:
         for e in self.engines + self._retired:
             out.extend(e.shed)
         return out
+
+    @property
+    def sdc_events(self) -> List[Dict[str, Any]]:
+        """Every SDC detection/quarantine record across the fleet
+        (retired replicas included), time-ordered."""
+        out = []
+        for e in self.engines + self._retired:
+            out.extend(e.sdc_events)
+        return sorted(out, key=lambda ev: ev["t"])
 
     def snapshot(self) -> Dict[str, Any]:
         """Fleet snapshot: the replicas' snapshots plus the aggregates a

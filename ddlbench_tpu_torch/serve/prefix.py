@@ -114,6 +114,20 @@ class PrefixIndex:
                           entries=len(self._slots))
         return freed
 
+    def drop_slot(self, slot: int) -> int:
+        """Purge the entry (at most one: a slot appears in the index at
+        most once) mapping to pool ``slot`` and drop the index's
+        reference, whatever other holders remain: the SDC quarantine path,
+        where the page's CONTENT is bad and must never be hit again.
+        Returns how many entries were purged (0 or 1)."""
+        dead = [k for k, s in self._slots.items() if s == slot]
+        for key in dead:
+            del self._slots[key]
+            self.allocator.decref(slot)
+        if dead and self.on_event is not None:
+            self.on_event("prefix_drop", slot=slot, entries=len(self._slots))
+        return len(dead)
+
     def drop_all(self) -> int:
         """Release every entry the cache can release."""
         return self.reclaim(len(self._slots))

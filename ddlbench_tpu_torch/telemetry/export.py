@@ -1,8 +1,8 @@
 """Chrome trace-event JSON export — the Perfetto-loadable trace format.
 
 The port's copy of ``chrome_trace_dict``, ``export_chrome_trace``,
-``autoscale_decisions``, ``trace_truncation`` and ``warn_if_truncated``
-from ``ddlbench_tpu/telemetry/export.py``. Emits the JSON Object Format of the
+``autoscale_decisions``, ``sdc_events``, ``trace_truncation`` and
+``warn_if_truncated`` from ``ddlbench_tpu/telemetry/export.py``. Emits the JSON Object Format of the
 Trace Event spec (``chrome://tracing`` and https://ui.perfetto.dev load it):
 
 * one ``"X"`` (complete) event per span with ``ts``/``dur`` in
@@ -97,6 +97,31 @@ def export_chrome_trace(tracer: Tracer, path: str,
 
 
 AUTOSCALE_PREFIX = "autoscale:"
+SDC_PREFIX = "sdc:"
+
+
+def _instants(doc: Any, prefix: str) -> List[Dict[str, Any]]:
+    """The ``"i"`` instants whose name starts with ``prefix``, in trace
+    order, as ``{"t": <model passes>, "kind": <name less prefix>,
+    **args}``. Accepts a live Tracer or an exported trace dict or event
+    list."""
+    out: List[Dict[str, Any]] = []
+    if hasattr(doc, "events"):  # a live Tracer
+        for phase, name, t0_ns, _dur, _tid, _tname, args in doc.events():
+            if phase == "i" and name.startswith(prefix):
+                out.append({"t": t0_ns / 1e3, "kind": name[len(prefix):],
+                            **(args or {})})
+        return out
+    events = doc.get("traceEvents", []) if isinstance(doc, dict) else doc
+    for e in events:
+        name = str(e.get("name", ""))
+        if e.get("ph") == "i" and name.startswith(prefix):
+            # serve traces stamp 1 model pass as 1000 trace-ns and the
+            # exporter writes ts in us, so ts IS virtual model passes
+            out.append({"t": float(e.get("ts", 0.0)),
+                        "kind": name[len(prefix):],
+                        **(e.get("args") or {})})
+    return out
 
 
 def autoscale_decisions(doc: Any) -> List[Dict[str, Any]]:
@@ -105,27 +130,20 @@ def autoscale_decisions(doc: Any) -> List[Dict[str, Any]]:
     serve/autoscaler.py emits one ``"i"`` instant per actuation
     (``autoscale:scale_up`` / ``:scale_down`` / ``:repair`` /
     ``:budget_exhausted``) on an ``autoscale/<fleet>`` track, with the
-    ledger event (its triggering signal included) in ``args``. Returned
-    in trace order as ``{"t": <model passes>, "kind": ..., **args}``.
-    Accepts a live Tracer or an exported trace dict or event list."""
-    out: List[Dict[str, Any]] = []
-    if hasattr(doc, "events"):  # a live Tracer
-        for phase, name, t0_ns, _dur, _tid, _tname, args in doc.events():
-            if phase == "i" and name.startswith(AUTOSCALE_PREFIX):
-                out.append({"t": t0_ns / 1e3,
-                            "kind": name[len(AUTOSCALE_PREFIX):],
-                            **(args or {})})
-        return out
-    events = doc.get("traceEvents", []) if isinstance(doc, dict) else doc
-    for e in events:
-        name = str(e.get("name", ""))
-        if e.get("ph") == "i" and name.startswith(AUTOSCALE_PREFIX):
-            # serve traces stamp 1 model pass as 1000 trace-ns and the
-            # exporter writes ts in us, so ts IS virtual model passes
-            out.append({"t": float(e.get("ts", 0.0)),
-                        "kind": name[len(AUTOSCALE_PREFIX):],
-                        **(e.get("args") or {})})
-    return out
+    ledger event (its triggering signal included) in ``args``."""
+    return _instants(doc, AUTOSCALE_PREFIX)
+
+
+def sdc_events(doc: Any) -> List[Dict[str, Any]]:
+    """The SDC defence's instants, read back out of a trace.
+
+    serve/engine.py emits one ``"i"`` instant per ledger event
+    (``sdc:detect`` / ``:quarantine`` / ``:recompute_mismatch`` /
+    ``:ship_reject``) on a ``<replica>/sdc`` track, with the slot, the
+    trust boundary and the displaced-request count in ``args``, so "which
+    boundary caught the flip at t 6?" is answerable from the trace
+    alone."""
+    return _instants(doc, SDC_PREFIX)
 
 
 def trace_truncation(doc: Any) -> int:

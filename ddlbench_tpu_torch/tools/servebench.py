@@ -51,10 +51,22 @@ exits nonzero if an autoscaled run loses a request). Every replica sits
 on the one card and shares the one copy of the weights, each with its
 own KV pool; a global step runs the replicas one after another, so the
 wall-clock numbers are those of N engines taking turns on one card.
-tools/servechaos.py injects replica kills and stalls into the same
-drivers. The reference's ``--serve-tp``, ``--disaggregate``, ``--scrub``,
-``--paged-kernel`` and ``--audit`` wait for later slices and fail naming
-their ROADMAP item.
+tools/servechaos.py injects replica kills, stalls and bit flips into the
+same drivers.
+
+Disaggregation and the SDC ledger, as in the reference: ``--disaggregate
+P:D`` serves with a P-replica prefill fleet feeding a D-replica decode
+fleet by KV-page shipping (serve/handoff.py; continuous policy only,
+replaces ``--replicas``, excludes ``--resize``; the streams equal the
+aggregated fleet's, an int8 pool ships a quarter of the float32 payload
+bytes; the row gains ``disaggregate``, ``prefill_replicas``,
+``decode_replicas`` and the ``shipped_*`` counters), and ``--scrub N``
+arms the page-checksum ledger (serve/integrity.py) and scrubs N stamped
+pages a step (0 = boundary checks only; the row gains ``scrub`` and the
+``sdc_*`` counters, all 0 on clean traffic). With ``--autoscale`` a
+disaggregated server gets one controller per fleet. The reference's
+``--serve-tp``, ``--paged-kernel`` and ``--audit`` wait for later slices
+and fail naming their ROADMAP item.
 
 Time is VIRTUAL: one unit = one model pass (a [max_batch, 1] decode step or
 one prefill chunk), so every virtual-time number is reproducible under a
@@ -62,7 +74,8 @@ fixed seed and equal to the reference's for the same traffic.
 ``--wall-clock`` adds real seconds: the run's wall time, wall-clock output
 tokens per second, and the mean decode-step and prefill-chunk times (and
 with ``--speculative`` the mean verify-pass time, with ``--sample`` the
-mean host time of one draw).
+mean host time of one draw, with ``--scrub`` the seconds the SDC ledger
+spent reading and checksumming slots, ``ledger_s``).
 
 The model runs on the card unless ``--device cpu`` is given; with no card
 and no ``--device cpu`` the tool raises. Each row carries
@@ -81,7 +94,7 @@ Usage:
         [--shape diurnal] [--trace PATH [--timeline] [--window 32]]
         [--replicas 2] [--resize 8:1] [--heartbeat 4]
         [--autoscale 1:3 [--scale-window 32] [--scale-cooldown 64]]
-        [--wall-clock] [--device cpu]
+        [--disaggregate 1:1] [--scrub 4] [--wall-clock] [--device cpu]
 """
 
 from __future__ import annotations
@@ -106,6 +119,7 @@ from ddlbench_tpu_torch.serve.autoscaler import (AutoscalePolicy,
                                                  make_controllers,
                                                  replica_hours)
 from ddlbench_tpu_torch.serve.engine import ReplicatedServer, make_server
+from ddlbench_tpu_torch.serve.handoff import make_disaggregated
 from ddlbench_tpu_torch.serve.workload import ServeRequest, make_workload
 from ddlbench_tpu_torch.telemetry.export import export_chrome_trace
 from ddlbench_tpu_torch.telemetry.serveview import breakdown
@@ -120,6 +134,19 @@ _SPEC_FIELDS = frozenset((
 
 # engine stats keys that only carry signal under --deadline-slack
 _CHAOS_FIELDS = frozenset(("shed", "timeouts"))
+
+# stats keys only the disaggregated server emits (the wire-byte counts)
+_DISAGG_FIELDS = frozenset((
+    "shipped_requests", "shipped_pages", "shipped_payload_bytes",
+    "shipped_sidecar_bytes", "shipped_checksum_bytes"))
+
+# stats keys that only carry signal with the SDC ledger armed (--scrub
+# here, --corrupt in servechaos): the engine always counts, the row shows
+# them only when the flag asked
+_SDC_FIELDS = frozenset((
+    "sdc_injected", "sdc_detected", "sdc_quarantined", "sdc_recovered",
+    "sdc_scrubbed", "sdc_recompute_checks", "sdc_wire_detected",
+    "sdc_wire_repaired"))
 
 
 def _round6(v):
@@ -162,6 +189,22 @@ def parse_autoscale(spec, perr):
     if lohi[0] < 1 or lohi[1] < lohi[0]:
         perr(f"--autoscale {spec!r}: needs 1 <= LO <= HI")
     return lohi
+
+
+def parse_disaggregate(spec, perr):
+    """Parse ``--disaggregate P:D`` (prefill:decode replica counts), shared
+    with servechaos. Returns (P, D) or None for an absent spec."""
+    if not spec:
+        return None
+    try:
+        p_s, d_s = spec.split(":")
+        pd = (int(p_s), int(d_s))
+    except ValueError:
+        perr(f"--disaggregate wants P:D (prefill:decode replicas), "
+             f"got {spec!r}")
+    if pd[0] < 1 or pd[1] < 1:
+        perr(f"--disaggregate {spec!r}: both fleets need >= 1 replica")
+    return pd
 
 
 def parse_resizes(specs, perr) -> List[Tuple[float, int]]:
@@ -222,6 +265,7 @@ def check_args(args: argparse.Namespace, perr) -> None:
         perr("--window must be > 0 time units")
     parse_shared_prefix(args.shared_prefix, perr)
     parse_retry(args.retry, perr)
+    disagg = parse_disaggregate(args.disaggregate, perr)
     if parse_autoscale(args.autoscale, perr):
         if args.resize:
             perr("--autoscale closes the resize loop itself; it does "
@@ -233,6 +277,18 @@ def check_args(args: argparse.Namespace, perr) -> None:
     if args.shape and args.arrival != "poisson":
         perr("--shape modulates the poisson arrival process; pass "
              "--arrival poisson")
+    if disagg:
+        if [s.strip() for s in args.policies.split(",")
+                if s.strip()] != ["continuous"]:
+            perr("--disaggregate serves the continuous policy only "
+                 "(pass --policies continuous); the static baseline's "
+                 "fill/drain barrier has no phase boundary to ship at")
+        if args.replicas != 1:
+            perr("--disaggregate P:D sets both fleet sizes; drop "
+                 "--replicas")
+        if args.resize:
+            perr("--resize scales one aggregated fleet; it does not "
+                 "compose with --disaggregate")
     if args.deadline_slack is not None and args.deadline_slack <= 0:
         perr("--deadline-slack must be > 0 time units")
     if args.retry and args.deadline_slack is None:
@@ -242,6 +298,9 @@ def check_args(args: argparse.Namespace, perr) -> None:
         perr("--tier-mix is a probability in [0, 1]")
     if args.heartbeat < 0:
         perr("--heartbeat must be >= 0 time units (0 = off)")
+    if args.scrub is not None and args.scrub < 0:
+        perr("--scrub must be >= 0 pages per step (0 arms the ledger "
+             "with boundary verification only)")
     parse_resizes(args.resize, perr)
     parse_sample(args.sample, perr)
 
@@ -451,8 +510,6 @@ def run_closed_loop(server, reqs, concurrency: int, resizes=None,
 # the reference's flags that wait for a later slice -> the ROADMAP item
 NOT_PORTED_FLAGS = {
     "--serve-tp": "A.7: a tp > 1 replica needs tp devices",
-    "--disaggregate": "A.4: disaggregation, serve/handoff.py",
-    "--scrub": "A.4: the SDC ledger and scrub, serve/integrity.py",
     "--paged-kernel": "A.8: the Pallas kernels' math formulations",
     "--audit": "A.8: telemetry/audit.py",
 }
@@ -498,6 +555,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "lost and token streams are those of an "
                         "un-resized run; the row gains resize_events/"
                         "final_replicas/requests_lost fields")
+    p.add_argument("--disaggregate", default=None, metavar="P:D",
+                   help="disaggregated serving: a P-replica PREFILL fleet "
+                        "feeds a D-replica DECODE fleet by KV-page "
+                        "shipping (serve/handoff.py); int8 pools ship a "
+                        "quarter of the float32 payload bytes. The streams "
+                        "equal the aggregated fleet's; the row gains "
+                        "disaggregate/prefill_replicas/decode_replicas and "
+                        "shipped_* fields. Continuous policy only; "
+                        "replaces --replicas and excludes --resize")
     p.add_argument("--autoscale", default=None, metavar="LO:HI",
                    help="close the loop: a FleetController "
                         "(serve/autoscaler.py) watches windowed SLO "
@@ -556,6 +622,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "verified in one K+1-wide pass priced as one model "
                         "pass; the row gains speculative/spec_*/"
                         "tokens_per_pass fields")
+    p.add_argument("--scrub", type=int, default=None, metavar="N",
+                   help="arm the SDC checksum ledger (serve/integrity.py) "
+                        "and scrub N stamped pool pages per step (0 = "
+                        "boundary verification only): the clean-traffic "
+                        "cost of the defence servechaos exercises under "
+                        "--corrupt. The row gains scrub and the sdc_* "
+                        "counters (all zero without injected faults)")
     p.add_argument("--sample", default=None, metavar="temperature:T[,top-k:K]",
                    help="sample instead of greedy argmax: softmax(logits/T)"
                         " with optional top-k restriction, counter-based "
@@ -647,6 +720,7 @@ def run(args: argparse.Namespace, model: LayerModel,
     autoscale = parse_autoscale(args.autoscale, _value_error)
     resizes = parse_resizes(args.resize, _value_error)
     temperature, top_k = parse_sample(args.sample, _value_error)
+    disagg = parse_disaggregate(args.disaggregate, _value_error)
     # under --autoscale the initial fleet is --replicas clamped into the
     # band; the controller takes it from there
     replicas0 = (max(autoscale[0], min(autoscale[1], args.replicas))
@@ -662,7 +736,8 @@ def run(args: argparse.Namespace, model: LayerModel,
         trace=bool(args.trace),
         slo_ttft=args.slo_ttft, slo_itl=args.slo_itl,
         kv_dtype=args.kv_dtype or "float32",
-        speculative=args.speculative or "none")
+        speculative=args.speculative or "none",
+        integrity=args.scrub is not None, scrub=args.scrub or 0)
     prov = provenance(device)
     out = []
     for policy in policies:
@@ -685,7 +760,10 @@ def run(args: argparse.Namespace, model: LayerModel,
             prefix_len=prefix_len, max_len=cfg.max_len,
             deadline_slack=args.deadline_slack,
             batch_frac=args.tier_mix or 0.0)
-        server = make_server(model, cfg, device)
+        if disagg:
+            server = make_disaggregated(model, cfg, device, *disagg)
+        else:
+            server = make_server(model, cfg, device)
         controllers = None
         if autoscale:
             controllers = make_controllers(server, AutoscalePolicy(
@@ -759,6 +837,7 @@ def run(args: argparse.Namespace, model: LayerModel,
                                 per_tier=args.tier_mix is not None)
         eng_stats = server.stats_summary()
         chaos = args.deadline_slack is not None
+        sdc = args.scrub is not None
         acct = shed_accounting(args.requests, len(fin),
                                int(eng_stats["shed"]),
                                int(eng_stats["timeouts"]), dstats)
@@ -790,15 +869,24 @@ def run(args: argparse.Namespace, model: LayerModel,
                for k, v in summary.items()},
             # serve_summary already reports completed; the speculative
             # counters only show under --speculative, the deadline ones
-            # under --deadline-slack
+            # under --deadline-slack, the shipping ones under
+            # --disaggregate and the SDC ones under --scrub
             **{k: (round(v, 6) if isinstance(v, float) else v)
                for k, v in eng_stats.items()
                if k != "completed"
                and (args.speculative or k not in _SPEC_FIELDS)
-               and (chaos or k not in _CHAOS_FIELDS)},
+               and (chaos or k not in _CHAOS_FIELDS)
+               and (disagg or k not in _DISAGG_FIELDS)
+               and (sdc or k not in _SDC_FIELDS)},
+            # --disaggregate only: the fleet split
+            **({"disaggregate": args.disaggregate,
+                "prefill_replicas": disagg[0],
+                "decode_replicas": disagg[1]} if disagg else {}),
             **({"kv_dtype": cfg.kv_dtype} if args.kv_dtype else {}),
             **({"speculative": cfg.speculative}
                if args.speculative else {}),
+            # --scrub only: the budget behind the sdc_* counters
+            **({"scrub": cfg.scrub} if sdc else {}),
             # --timeline only: windowed SLO/goodput series + TTFT/ITL
             # component breakdowns
             **timeline_fields,
@@ -865,6 +953,9 @@ def run(args: argparse.Namespace, model: LayerModel,
                 rec["sample_ms"] = round(
                     1e3 * w["sample_s"] / w["sampled"], 4) \
                     if w["sampled"] else 0.0
+            if sdc:
+                # the SDC ledger's device reads and checksums, in all
+                rec["ledger_s"] = round(w["ledger_s"], 4)
         out.append((rec, server, reqs))
     return out
 

@@ -21,6 +21,23 @@ Faults (virtual-time schedule, repeatable flags):
   virtual clock) drains it within the window.
 * ``--deadline-slack S`` / ``--retry N:B`` / ``--tier-mix F`` — the
   deadline and SLO-tier load shape shared with servebench.
+* ``--corrupt T:R:TARGET[@L.S]`` — SILENT DATA CORRUPTION: flip one real
+  bit at time T in replica R's data plane (serve/integrity.py). TARGET is
+  ``payload`` (a settled KV pool page), ``sidecar`` (an int8 scale row;
+  needs ``--kv-dtype int8``), ``prefix`` (a prefix-cache page, shared when
+  one is) or ``ship`` (an in-flight handoff ship; needs
+  ``--disaggregate``, and R is 0: the wire has no replica index). ``@L.S``
+  pins the model layer and pool slot; without it a settled resident page
+  is picked at fire time. Any ``--corrupt`` arms the checksum ledger
+  unless ``--no-detect`` asks for the run without a defence; ``--scrub N``
+  budgets the scrubber at N pages a step (default: the whole pool). With
+  detection on, the gate is ``--kill``'s: streams equal the control's and
+  ``requests_lost == 0``; with ``--no-detect`` the row reports the
+  divergence that escaped (``sdc_escaped``).
+* ``--disaggregate P:D`` — chaos on the disaggregated layout
+  (serve/handoff.py): a P-replica prefill fleet feeding a D-replica decode
+  fleet. ``--kill`` then takes ``T:pR`` or ``T:dR`` to name the fleet (a
+  decode kill routes its requests back through the prefill fleet).
 
 Reported: ``mttr_replica_s`` — per kill, the virtual time from the kill
 until the LAST displaced in-flight request emits its first post-failover
@@ -41,14 +58,13 @@ All replicas share one device and the one copy of the weights, each with
 its own KV pool; on the card a global step runs them one after another,
 so ``--wall-clock`` times N replicas taking turns on one card. The model
 runs on the card unless ``--device cpu`` is given; with no card and no
-``--device cpu`` the tool raises. The reference's ``--corrupt``,
-``--no-detect``, ``--scrub`` (the SDC ledger) and ``--disaggregate``
-wait for later slices and fail with an error naming their ROADMAP item.
+``--device cpu`` the tool raises.
 
 Usage:
     python -m ddlbench_tpu_torch.tools.servechaos [-m transformer_s]
         [-b synthtext] [--replicas 2] [--kill 12:1] [--stall 8:0:6]
-        [--heartbeat 4] [--deadline-slack 32] [--retry 2:4]
+        [--corrupt 10:0:payload] [--no-detect] [--scrub 4]
+        [--disaggregate 1:2 --kill 6:d0] [--heartbeat 4] [--deadline-slack 32] [--retry 2:4]
         [--tier-mix 0.5] [--autoscale 2:2] [--arrival poisson|closed]
         [--rate 0.5] [--requests 64] [--no-control] [--wall-clock]
         [--device cpu]
@@ -71,12 +87,14 @@ from ddlbench_tpu_torch.models.zoo import get_model
 from ddlbench_tpu_torch.serve.autoscaler import (AutoscalePolicy,
                                                  make_controllers,
                                                  replica_hours)
+from ddlbench_tpu_torch.serve import integrity as I
 from ddlbench_tpu_torch.serve.engine import make_server
+from ddlbench_tpu_torch.serve.handoff import make_disaggregated
 from ddlbench_tpu_torch.serve.workload import ServeRequest, make_workload
 from ddlbench_tpu_torch.telemetry.stats import serve_summary
-from ddlbench_tpu_torch.tools.servebench import (NotPorted, _round6,
-                                                 _value_error,
+from ddlbench_tpu_torch.tools.servebench import (_round6, _value_error,
                                                  parse_autoscale,
+                                                 parse_disaggregate,
                                                  parse_retry,
                                                  parse_shared_prefix,
                                                  plain_launches,
@@ -84,33 +102,109 @@ from ddlbench_tpu_torch.tools.servebench import (NotPorted, _round6,
                                                  run_open_loop,
                                                  shed_accounting)
 
-# the reference's flags that wait for a later slice -> the ROADMAP item
-NOT_PORTED_FLAGS = {
-    "--corrupt": "A.4: the SDC ledger and scrub, serve/integrity.py",
-    "--no-detect": "A.4: the SDC ledger and scrub, serve/integrity.py",
-    "--scrub": "A.4: the SDC ledger and scrub, serve/integrity.py",
-    "--disaggregate": "A.4: disaggregation, serve/handoff.py",
-}
-
-# the SDC counters the reference's engines carry in every stats summary
-# (and so in its rows); the port has no SDC ledger and refuses --corrupt,
-# so nothing is injected or detected and each reads 0
-SDC_COUNTERS = ("sdc_injected", "sdc_detected", "sdc_quarantined",
-                "sdc_recovered", "sdc_scrubbed", "sdc_recompute_checks")
-
-
-def _parse_kills(specs, perr) -> List[Tuple[float, int]]:
-    """``--kill T:R`` specs as (t, fleet index) pairs."""
+def _parse_kills(specs, perr, disagg=False):
+    """Kill specs as (t, fleet, index) triples. The aggregated grammar is
+    ``T:R`` (fleet None); under --disaggregate the index names its fleet:
+    ``T:pR`` kills prefill replica R, ``T:dR`` decode replica R."""
     out = []
     for s in specs:
         try:
             t_s, r_s = s.split(":")
-            out.append((float(t_s), int(r_s)))
+            if disagg:
+                fleet = r_s[:1]
+                if fleet not in ("p", "d") or not r_s[1:]:
+                    raise ValueError
+                out.append((float(t_s), fleet, int(r_s[1:])))
+            else:
+                out.append((float(t_s), None, int(r_s)))
         except ValueError:
+            if disagg:
+                perr(f"--kill under --disaggregate wants T:pR or T:dR "
+                     f"(virtual_time:fleet+index), got {s!r}")
             perr(f"--kill wants T:R (virtual_time:fleet_index), got {s!r}")
-        if out[-1][0] < 0 or out[-1][1] < 0:
+        if out[-1][0] < 0 or out[-1][2] < 0:
             perr(f"--kill {s!r}: T >= 0 and R >= 0")
     return out
+
+
+_CORRUPT_TARGETS = ("payload", "sidecar", "prefix", "ship")
+
+
+def _parse_corrupts(specs, perr, disagg=False):
+    """Corrupt specs as (t, fleet, index, target, layer, slot) tuples.
+    Grammar ``T:R:TARGET[@L.S]``; under --disaggregate pool targets name
+    their fleet like --kill (``T:pR:...`` / ``T:dR:...``) while the
+    ``ship`` target keeps ``T:0:ship``."""
+    out = []
+    for s in specs:
+        try:
+            t_s, r_s, rest = s.split(":", 2)
+            layer = slot = None
+            if "@" in rest:
+                tgt, at = rest.split("@", 1)
+                l_s, p_s = at.split(".")
+                layer, slot = int(l_s), int(p_s)
+            else:
+                tgt = rest
+            t = float(t_s)
+            if disagg and tgt != "ship":
+                fleet = r_s[:1]
+                if fleet not in ("p", "d") or not r_s[1:]:
+                    raise ValueError
+                r = int(r_s[1:])
+            else:
+                fleet, r = None, int(r_s)
+            out.append((t, fleet, r, tgt, layer, slot))
+        except ValueError:
+            if disagg:
+                perr(f"--corrupt under --disaggregate wants "
+                     f"T:pR:TARGET[@L.S], T:dR:TARGET[@L.S] or T:0:ship, "
+                     f"got {s!r}")
+            perr(f"--corrupt wants T:R:TARGET[@LAYER.SLOT] "
+                 f"(virtual_time:fleet_index:target), got {s!r}")
+        t, fleet, r, tgt, layer, slot = out[-1]
+        if tgt not in _CORRUPT_TARGETS:
+            perr(f"--corrupt {s!r}: target must be one of "
+                 f"{'/'.join(_CORRUPT_TARGETS)}, got {tgt!r}")
+        if t < 0 or r < 0:
+            perr(f"--corrupt {s!r}: T >= 0 and R >= 0")
+        if slot is not None and slot < 1:
+            perr(f"--corrupt {s!r}: slot 0 is the scratch page (it holds "
+                 f"no request data); slots start at 1")
+        if layer is not None and layer < 0:
+            perr(f"--corrupt {s!r}: layer must be >= 0")
+    return out
+
+
+def _pick_slot(eng, target):
+    """The deterministic fire-time victim: a SETTLED resident page (below
+    every active row's write frontier: a flip into the page about to be
+    appended to races the next write's re-stamp, which would bless the
+    corruption; see integrity.stable_stamped_slots). For ``prefix`` the
+    victim is a prefix-indexed page, a shared one (refcount >= 2) when one
+    exists. None when nothing is resident yet."""
+    if target == "prefix":
+        idx = sorted(set(eng.prefix._slots.values()))
+        shared = [s for s in idx if eng.allocator.refcount(s) >= 2]
+        return (shared or idx or [None])[0]
+    hot, cand = set(), []
+    for a in eng._active():
+        if a.state == "decode":
+            p0 = a.decode_pos // eng.page
+            for i in range(a.n_pages):
+                s = int(eng.table[a.row, i])
+                (hot.add(s) if i >= p0 else cand.append(s))
+        else:
+            fp = a.prefill_done // eng.page
+            for i in range(min(a.n_pages, fp)):
+                cand.append(int(eng.table[a.row, i]))
+            if fp < a.n_pages:
+                hot.add(int(eng.table[a.row, fp]))
+    picks = sorted(set(cand) - hot - {0})
+    if eng.integrity is not None:
+        stamped = set(eng.integrity.stamped_slots())
+        picks = [s for s in picks if s in stamped]
+    return picks[0] if picks else None
 
 
 def _parse_stalls(specs, perr) -> List[Tuple[float, int, int]]:
@@ -134,10 +228,16 @@ def _fault_events(kills, stalls):
     specs address the surviving fleet's positions."""
     ev = []
 
-    def kill_fn(r):
+    def kill_fn(fleet, r):
         def fire(server, clock):
-            rep = server.fail(r, now=clock)
-            print(f"servechaos: kill @ {clock:g} -> replica "
+            if fleet == "p":
+                rep = server.fail_prefill(r, now=clock)
+            elif fleet == "d":
+                rep = server.fail_decode(r, now=clock)
+            else:
+                rep = server.fail(r, now=clock)
+            which = {"p": "prefill ", "d": "decode "}.get(fleet, "")
+            print(f"servechaos: kill @ {clock:g} -> {which}replica "
                   f"{rep['replica_id']} (salvaged {rep['salvaged']}, "
                   f"displaced {len(rep['displaced_inflight'])} in-flight "
                   f"+ {rep['displaced_queued']} queued)",
@@ -151,12 +251,67 @@ def _fault_events(kills, stalls):
                   f"for {d} steps", file=sys.stderr, flush=True)
         return fire
 
-    for t, r in kills:
-        ev.append((t, kill_fn(r)))
+    for t, fleet, r in kills:
+        ev.append((t, kill_fn(fleet, r)))
     for t, r, d in stalls:
         ev.append((t, stall_fn(r, d)))
     ev.sort(key=lambda e: e[0])
     return ev
+
+
+def _corrupt_events(corrupts, fired):
+    """SDC injections as ``(at, fn(server, clock))`` closures. Each fire
+    flips ONE real bit (the serve/integrity.py flip helpers) and appends a
+    record to ``fired``; a fire that finds no resident victim records
+    nothing and warns. Byte 3, bit 6 of the first element lands in the
+    float32 exponent (and moves an int8 value by 64): an ESCAPED flip
+    visibly changes the argmax stream."""
+
+    def corrupt_fn(spec):
+        t, fleet, r, tgt, layer, slot = spec
+
+        def fire(server, clock):
+            if tgt == "ship":
+                def hook(ship):
+                    if server.wire_fault_hook is not hook:
+                        return  # one-shot: a later spec re-armed it
+                    li = (layer if layer is not None else
+                          I.pool_layers(server.prefill.engines[0])[0])
+                    rec = I.flip_ship_bit(ship, layer=li, index=3, bit=6)
+                    fired.append({"t": clock, "target": tgt,
+                                  "rid": ship["rid"], **rec})
+                    server.wire_fault_hook = None
+                    print(f"servechaos: corrupt @ {clock:g} -> in-flight "
+                          f"ship rid {ship['rid']} layer {rec['layer']} "
+                          f"(bit {rec['bit']} of byte {rec['byte']})",
+                          file=sys.stderr, flush=True)
+                server.wire_fault_hook = hook
+                return
+            if fleet == "p":
+                eng = server.prefill.engines[r]
+            elif fleet == "d":
+                eng = server.decode.engines[r]
+            else:
+                eng = server.engines[r]
+            li = layer if layer is not None else I.pool_layers(eng)[0]
+            key = "scale_k" if tgt == "sidecar" else None
+            s = slot if slot is not None else _pick_slot(eng, tgt)
+            if s is None:
+                print(f"servechaos: WARNING corrupt @ {clock:g} "
+                      f"({tgt}): no settled resident page to flip yet — "
+                      f"injection skipped", file=sys.stderr, flush=True)
+                return
+            rec = I.flip_pool_bit(eng, li, s, key=key, index=3, bit=6)
+            eng.stats["sdc_injected"] += 1
+            fired.append({"t": clock, "target": tgt, **rec})
+            print(f"servechaos: corrupt @ {clock:g} -> {tgt} layer "
+                  f"{rec['layer']} slot {rec['slot']} key {rec['key']} "
+                  f"(bit {rec['bit']} of byte {rec['byte']}, refcount "
+                  f"{eng.allocator.refcount(s)})",
+                  file=sys.stderr, flush=True)
+        return fire
+
+    return [(spec[0], corrupt_fn(spec)) for spec in corrupts]
 
 
 def _run(server, reqs, args, retry, events=None, driver_stats=None,
@@ -177,15 +332,16 @@ def _run(server, reqs, args, retry, events=None, driver_stats=None,
     return dur
 
 
-def _static_walk_ok(kills, replicas: int) -> bool:
-    """Would this kill schedule survive on a fleet that never repairs
-    (every kill shrinks it for good)? The feasibility check of the
+def _static_walk_ok(kills, sizes) -> bool:
+    """Would this kill schedule survive on fleets that never repair (every
+    kill shrinks its fleet for good)? ``sizes`` maps each fleet (None, or
+    "p" and "d") to its size. The feasibility check of the
     scripted-recovery baseline under --autoscale."""
-    size = replicas
-    for _, r in sorted(kills, key=lambda k: k[0]):
-        if size <= 1 or r >= size:
+    sizes = dict(sizes)
+    for _, fleet, r in sorted(kills, key=lambda k: k[0]):
+        if sizes[fleet] <= 1 or r >= sizes[fleet]:
             return False
-        size -= 1
+        sizes[fleet] -= 1
     return True
 
 
@@ -204,15 +360,92 @@ def mttr_from_events(fail_events, finished):
     return out
 
 
+def _sdc_block(args, corrupts, fired, detect, cfg, server, fin, control,
+               streams_diverged, acct):
+    """The --corrupt row fields (spread AFTER the engine stats, so the
+    tool-counted ``sdc_injected``, which includes wire injections no
+    engine sees, wins over the fleet sum). ``sdc_escaped`` comes from
+    OBSERVED outcomes, never from injected minus detected: a flip the next
+    write overwrote hurt nobody, a flip that reached a stream shows as
+    divergence or loss."""
+    if not corrupts:
+        return {}
+    sdc_evs = server.sdc_events
+    fin_by = {f["rid"]: f for f in fin}
+    # time to detect: each injection paired with the first detection at
+    # or after it
+    mttds = []
+    for f_ev in fired:
+        det = [ev["t"] for ev in sdc_evs if ev["t"] >= f_ev["t"]]
+        mttds.append(round(min(det) - f_ev["t"], 6) if det else None)
+    mttd_ok = [m for m in mttds if m is not None]
+    # quarantine recovery: per detection that displaced requests, the time
+    # until the LAST displaced request's recovered stream re-emitted its
+    # first token (mttr_from_events's definition, on the SDC events)
+    mttr_sdc = []
+    for ev in sdc_evs:
+        disp = ev.get("displaced") or []
+        if not disp:
+            continue
+        recov = [fin_by[rid]["first_token_t"] - ev["t"]
+                 for rid in disp if rid in fin_by]
+        mttr_sdc.append(round(max(recov), 6) if recov else None)
+    mttr_ok = [m for m in mttr_sdc if m is not None]
+    return {
+        "corrupt": args.corrupt,
+        "sdc_detect": detect,
+        "scrub": cfg.scrub,
+        "corrupts_fired": len(fired),
+        "corrupt_events": _round6(fired),
+        "sdc_injected": len(fired),
+        "sdc_escaped": (None if control is None else
+                        streams_diverged + acct["requests_lost"]),
+        "sdc_events": _round6(sdc_evs),
+        "mttd_sdc": mttds,
+        "mttd_sdc_mean": (round(sum(mttd_ok) / len(mttd_ok), 6)
+                          if mttd_ok else None),
+        "mttr_sdc_s": mttr_sdc,
+        "mttr_sdc_s_mean": (round(sum(mttr_ok) / len(mttr_ok), 6)
+                            if mttr_ok else None),
+    }
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("-m", "--model", default="transformer_s")
     p.add_argument("-b", "--benchmark", default="synthtext")
     p.add_argument("--replicas", type=int, default=2)
+    p.add_argument("--disaggregate", default=None, metavar="P:D",
+                   help="chaos on the disaggregated layout "
+                        "(serve/handoff.py): a P-replica prefill fleet "
+                        "feeding a D-replica decode fleet by KV-page "
+                        "shipping. Replaces --replicas; --kill takes T:pR "
+                        "/ T:dR to name the fleet (a decode kill routes "
+                        "its requests back through the prefill fleet, "
+                        "where re-prefill regenerates the pages)")
     p.add_argument("--kill", action="append", default=[], metavar="T:R",
                    help="hard-kill the replica at fleet index R at "
                         "virtual time T (repeatable; pool lost, records "
-                        "salvaged, requests failed over)")
+                        "salvaged, requests failed over). Under "
+                        "--disaggregate: T:pR (prefill) / T:dR (decode)")
+    p.add_argument("--corrupt", action="append", default=[],
+                   metavar="T:R:TARGET[@L.S]",
+                   help="flip one bit at virtual time T in replica R's "
+                        "data plane (repeatable). TARGET: payload | "
+                        "sidecar (int8 scale row, needs --kv-dtype int8) "
+                        "| prefix (a prefix-cache page, needs "
+                        "--prefix-cache) | ship (an in-flight handoff "
+                        "ship, needs --disaggregate and R=0). @L.S pins "
+                        "the model layer and pool slot. Arms the checksum "
+                        "ledger unless --no-detect")
+    p.add_argument("--no-detect", action="store_true",
+                   help="run --corrupt WITHOUT the checksum ledger: the "
+                        "row reports the escaped divergence instead of "
+                        "recovery")
+    p.add_argument("--scrub", type=int, default=None, metavar="N",
+                   help="scrubber budget in pages a step (needs "
+                        "--corrupt; default: the whole pool each step "
+                        "when detection is armed)")
     p.add_argument("--stall", action="append", default=[], metavar="T:R:D",
                    help="straggler: replica at fleet index R makes no "
                         "progress for D global steps starting at time T "
@@ -284,25 +517,57 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu; no card and no --device "
                         "cpu raises")
-    for flag, item in NOT_PORTED_FLAGS.items():
-        p.add_argument(flag, action=NotPorted, const=item,
-                       help=argparse.SUPPRESS,
-                       nargs=0 if flag == "--no-detect" else None)
     return p
 
 
 def check_args(args: argparse.Namespace, perr) -> None:
-    """The reference's argument errors, reported through ``perr`` (the
-    parser's ``error`` from the command line)."""
-    kills = _parse_kills(args.kill, perr)
+    """The reference's argument errors, in its order, reported through
+    ``perr`` (the parser's ``error`` from the command line)."""
+    disagg = parse_disaggregate(args.disaggregate, perr)
+    kills = _parse_kills(args.kill, perr, disagg=bool(disagg))
     stalls = _parse_stalls(args.stall, perr)
+    corrupts = _parse_corrupts(args.corrupt, perr, disagg=bool(disagg))
     parse_retry(args.retry, perr)
     autoscale = parse_autoscale(args.autoscale, perr)
+    if args.no_detect and not corrupts:
+        perr("--no-detect needs --corrupt (there is nothing to not "
+             "detect)")
+    if args.scrub is not None:
+        if args.scrub < 0:
+            perr("--scrub must be >= 0 pages/step")
+        if not corrupts:
+            perr("--scrub needs --corrupt (measure clean scrub "
+                 "overhead with servebench --scrub instead)")
+        if args.no_detect and args.scrub:
+            perr("--scrub needs the checksum ledger; drop --no-detect")
+    for t, fleet, r, tgt, layer, slot in corrupts:
+        if tgt == "ship":
+            if not disagg:
+                perr(f"--corrupt {t:g}:{r}:ship: the ship target "
+                     f"corrupts an in-flight handoff payload — it "
+                     f"needs --disaggregate")
+            if r != 0:
+                perr(f"--corrupt {t:g}:{r}:ship: the wire has no "
+                     f"replica index; use T:0:ship")
+        if tgt == "sidecar" and (args.kv_dtype or "float32") != "int8":
+            perr(f"--corrupt {t:g}:...:sidecar: the scale sidecar "
+                 f"only exists for --kv-dtype int8")
+        if tgt == "prefix" and not args.prefix_cache:
+            perr(f"--corrupt {t:g}:...:prefix: the prefix target "
+                 f"flips a cache-shared page — it needs "
+                 f"--prefix-cache")
+        if slot is not None and slot >= args.pool_pages:
+            perr(f"--corrupt @{layer}.{slot}: slot {slot} out of "
+                 f"range for --pool-pages {args.pool_pages} "
+                 f"(valid slots: 1..{args.pool_pages - 1})")
     if autoscale:
         if args.scale_window <= 0:
             perr("--scale-window must be > 0 time units")
         if args.scale_cooldown < 0:
             perr("--scale-cooldown must be >= 0 time units")
+    if disagg and stalls:
+        perr("--stall addresses one aggregated fleet; it does not "
+             "compose with --disaggregate")
     if args.deadline_slack is not None and args.deadline_slack <= 0:
         perr("--deadline-slack must be > 0 time units")
     if args.retry and args.deadline_slack is None:
@@ -311,24 +576,29 @@ def check_args(args: argparse.Namespace, perr) -> None:
         perr("--tier-mix is a probability in [0, 1]")
     if args.heartbeat < 0:
         perr("--heartbeat must be >= 0 (0 = off)")
-    if args.replicas < 2 and kills:
+    if not disagg and args.replicas < 2 and kills:
         perr("--kill needs --replicas >= 2 (a survivor to fail over to)")
+    sizes = _fleet_sizes(args, disagg)
     if not autoscale:
-        # every kill shrinks the fleet by one, so walking the kills in
+        # every kill shrinks its fleet by one, so walking the kills in
         # time order (stable: equal-time kills fire in spec order) bounds
         # each spec's valid indices exactly
-        size = args.replicas
-        for t, r in sorted(kills, key=lambda k: k[0]):
-            if size <= 1:
-                perr(f"--kill {t:g}:{r}: the fleet is already down to its "
-                     f"last replica by t={t:g}")
-            if r >= size:
-                perr(f"--kill {t:g}:{r}: fleet index {r} out of range — "
-                     f"at most {size} replicas remain by t={t:g}")
-            size -= 1
+        for t, fleet, r in sorted(kills, key=lambda k: k[0]):
+            name = {"p": "prefill ", "d": "decode "}.get(fleet, "")
+            if sizes[fleet] <= 1:
+                # a decode fleet keeps a survivor too: ships need a live
+                # decode replica to bind into
+                perr(f"--kill {t:g}:{fleet or ''}{r}: the {name}fleet "
+                     f"is already down to its last replica by t={t:g}")
+            if r >= sizes[fleet]:
+                perr(f"--kill {t:g}:{fleet or ''}{r}: {name}fleet "
+                     f"index {r} out of range — at most {sizes[fleet]} "
+                     f"replicas remain by t={t:g}")
+            sizes[fleet] -= 1
         for t, r, d in stalls:
             # a kill at the same instant fires first (the event sort)
-            size_at_t = args.replicas - sum(1 for kt, _ in kills if kt <= t)
+            size_at_t = args.replicas - sum(1 for kt, _, _ in kills
+                                            if kt <= t)
             if r >= size_at_t:
                 perr(f"--stall {t:g}:{r}:{d}: fleet index {r} out of "
                      f"range — at most {size_at_t} replicas remain by "
@@ -337,27 +607,52 @@ def check_args(args: argparse.Namespace, perr) -> None:
     else:
         # a repairing controller re-grows the fleet between faults: each
         # spec just has to address the full fleet
-        for t, r in kills:
-            if r >= args.replicas:
-                perr(f"--kill {t:g}:{r}: fleet index {r} out of range for "
-                     f"a {args.replicas}-replica fleet")
+        for t, fleet, r in kills:
+            if r >= sizes[fleet]:
+                name = {"p": "prefill ", "d": "decode "}.get(fleet, "")
+                perr(f"--kill {t:g}:{fleet or ''}{r}: {name}fleet "
+                     f"index {r} out of range for a {sizes[fleet]}-"
+                     f"replica fleet")
         for t, r, d in stalls:
             if r >= args.replicas:
                 perr(f"--stall {t:g}:{r}:{d}: fleet index {r} out of "
                      f"range for a {args.replicas}-replica fleet")
+    # corrupt specs address the kill-walked fleet: a replica dead by T
+    # cannot host a flip (under --autoscale only the full size applies)
+    for t, fleet, r, tgt, layer, slot in corrupts:
+        if tgt == "ship":
+            continue
+        full = _fleet_sizes(args, disagg)[fleet]
+        dead = (0 if autoscale else
+                sum(1 for kt, kf, _ in kills if kf == fleet and kt <= t))
+        if r >= full - dead:
+            name = {"p": "prefill ", "d": "decode "}.get(fleet, "")
+            perr(f"--corrupt {t:g}:{fleet or ''}{r}:{tgt}: "
+                 f"{name}fleet index {r} out of range — at most "
+                 f"{full - dead} replicas remain by t={t:g}")
     parse_shared_prefix(args.shared_prefix, perr)
 
 
+def _fleet_sizes(args, disagg):
+    """Each fleet's size: ``{None: replicas}``, or under --disaggregate
+    ``{"p": P, "d": D}``."""
+    return ({"p": disagg[0], "d": disagg[1]} if disagg
+            else {None: args.replicas})
+
+
 def run(args: argparse.Namespace, model: LayerModel,
-        device: torch.device
+        device: torch.device, perr=_value_error
         ) -> Tuple[Dict[str, Any], Dict[str, Any], List[ServeRequest]]:
     """Run the control, the scripted baseline (under --autoscale) and the
     chaos run with ``model`` (already on ``device``). Returns the JSON
     row, the servers by name (``control``, ``baseline``, ``chaos``; the
-    ones that ran) and the chaos run's requests."""
-    check_args(args, _value_error)
-    kills = _parse_kills(args.kill, _value_error)
-    stalls = _parse_stalls(args.stall, _value_error)
+    ones that ran) and the chaos run's requests. ``perr`` reports an
+    argument error (the parser's ``error`` from the command line)."""
+    check_args(args, perr)
+    disagg = parse_disaggregate(args.disaggregate, perr)
+    kills = _parse_kills(args.kill, perr, disagg=bool(disagg))
+    stalls = _parse_stalls(args.stall, perr)
+    corrupts = _parse_corrupts(args.corrupt, perr, disagg=bool(disagg))
     retry = parse_retry(args.retry, _value_error)
     autoscale = parse_autoscale(args.autoscale, _value_error)
     groups, prefix_len = parse_shared_prefix(args.shared_prefix,
@@ -369,16 +664,23 @@ def run(args: argparse.Namespace, model: LayerModel,
     spec = DATASETS[args.benchmark]
     plo, ptyp, phi = (int(x) for x in args.prompt_lens.split(","))
     olo, otyp, ohi = (int(x) for x in args.out_lens.split(","))
+    # --corrupt arms the checksum ledger unless --no-detect asks for the
+    # run without a defence; the scrubber defaults to a whole-pool sweep a
+    # step, so a flip on a settled page is caught within one step
+    detect = bool(corrupts) and not args.no_detect
+    scrub = (0 if not detect else
+             (args.scrub if args.scrub is not None else args.pool_pages))
     cfg = ServeConfig(
         max_batch=args.max_batch, pool_pages=args.pool_pages,
         page=args.page, max_len=min(args.max_len, spec.seq_len),
         token_budget=args.token_budget,
         prefill_chunk=(args.page if args.prefill_chunk is None
                        else args.prefill_chunk),
-        replicas=args.replicas, slo_ttft=args.slo_ttft,
+        replicas=1 if disagg else args.replicas, slo_ttft=args.slo_ttft,
         slo_itl=args.slo_itl, heartbeat=args.heartbeat,
         kv_dtype=args.kv_dtype or "float32",
         prefix_cache=args.prefix_cache,
+        integrity=detect, scrub=scrub,
         speculative=args.speculative or "none")
     cfg.validate()
 
@@ -395,6 +697,20 @@ def run(args: argparse.Namespace, model: LayerModel,
             deadline_slack=args.deadline_slack,
             batch_frac=args.tier_mix or 0.0)
 
+    def build():
+        if disagg:
+            return make_disaggregated(model, cfg, device, *disagg)
+        return make_server(model, cfg, device)
+
+    def check_layers(srv):
+        # an explicit @L pin must name a layer that owns a KV pool:
+        # checked on the first server built, before any run
+        valid = I.pool_layers(srv.engines[0])
+        for t, fleet, r, tgt, layer, slot in corrupts:
+            if layer is not None and layer not in valid:
+                perr(f"--corrupt @{layer}.{slot}: model layer {layer} "
+                     f"owns no KV pool (attention layers: {valid})")
+
     prov = provenance(device)
     plain0 = plain_launches()
     servers: Dict[str, Any] = {}
@@ -402,14 +718,15 @@ def run(args: argparse.Namespace, model: LayerModel,
     # -- control: the same workload, no faults: the stream reference
     control = None
     if not args.no_control:
-        control = servers["control"] = make_server(model, cfg, device)
+        control = servers["control"] = build()
+        check_layers(control)
         _run(control, workload(), args, retry)
     # -- scripted-recovery baseline (--autoscale only): the same faults
     # with NO controller, so a killed replica stays dead
     scripted_mttrs = None
     if autoscale and kills:
-        if _static_walk_ok(kills, args.replicas):
-            baseline = servers["baseline"] = make_server(model, cfg, device)
+        if _static_walk_ok(kills, _fleet_sizes(args, disagg)):
+            baseline = servers["baseline"] = build()
             _run(baseline, workload(), args, retry,
                  events=_fault_events(kills, stalls))
             scripted_mttrs = mttr_from_events(baseline.fail_events,
@@ -420,7 +737,9 @@ def run(args: argparse.Namespace, model: LayerModel,
                   "recovery baseline (mttr_scripted_* reported as null)",
                   file=sys.stderr, flush=True)
     # -- the chaos run
-    server = servers["chaos"] = make_server(model, cfg, device)
+    server = servers["chaos"] = build()
+    if args.no_control:
+        check_layers(server)
     controllers = None
     if autoscale:
         controllers = make_controllers(server, AutoscalePolicy(
@@ -428,9 +747,13 @@ def run(args: argparse.Namespace, model: LayerModel,
             cooldown_up=args.scale_cooldown,
             cooldown_down=args.scale_cooldown))
     dstats: Dict[str, int] = {}
+    corrupts_fired: List[Dict[str, Any]] = []
     reqs = workload()
     duration = _run(server, reqs, args, retry,
-                    events=_fault_events(kills, stalls),
+                    events=sorted(
+                        _fault_events(kills, stalls)
+                        + _corrupt_events(corrupts, corrupts_fired),
+                        key=lambda e: e[0]),
                     driver_stats=dstats, controllers=controllers)
     wall = time.perf_counter() - t0
 
@@ -475,6 +798,9 @@ def run(args: argparse.Namespace, model: LayerModel,
         "requests": args.requests,
         "seed": args.seed,
         "replicas": args.replicas,
+        **({"disaggregate": args.disaggregate,
+            "prefill_replicas": disagg[0],
+            "decode_replicas": disagg[1]} if disagg else {}),
         "max_batch": cfg.max_batch,
         "pool_pages": cfg.pool_pages,
         "page": cfg.page,
@@ -539,7 +865,8 @@ def run(args: argparse.Namespace, model: LayerModel,
         **{k: (round(v, 6) if isinstance(v, float) else v)
            for k, v in eng_stats.items()
            if k not in ("completed", "timeouts", "shed")},
-        **{k: 0 for k in SDC_COUNTERS},
+        **_sdc_block(args, corrupts, corrupts_fired, detect, cfg, server,
+                     fin, control, streams_diverged, acct),
         # paged attention calls of the tool's runs that took the plain
         # path on CUDA tensors (0 on the CPU)
         "plain_launches": plain_launches() - plain0,
@@ -559,7 +886,7 @@ def main(argv=None) -> int:
         p.error(f"-b {args.benchmark!r} is not a causal-LM token workload")
     device = resolve_device(args.device)
     model = get_model(args.model, spec, seed=args.seed).to(device)
-    rec, _, _ = run(args, model, device)
+    rec, _, _ = run(args, model, device, perr=p.error)
     print(json.dumps(rec), flush=True)
     return 0
 

@@ -8,10 +8,10 @@ unchunked admission and eviction/recompute, and the port's servebench row
 must equal the JAX row on every virtual-time field: those are model-pass
 units, so they do not depend on the framework. Also pinned: the entry
 point refuses to fall back to the CPU silently, the port imports neither
-jax nor the JAX package, and the reference's ServeConfig knobs the port
-does not carry (tp > 1 and the SDC ledger) raise instead of being
-ignored, while the fleet's (replicas, heartbeat) validate as the
-reference's do.
+jax nor the JAX package, and the reference's ServeConfig knob the port
+does not carry (tp > 1) raises instead of being ignored, while the
+fleet's (replicas, heartbeat) and the SDC ledger's (integrity, scrub)
+validate as the reference's do.
 """
 
 import ast
@@ -180,12 +180,32 @@ def test_servebench_without_gpu_or_cpu_flag_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(tp=2), dict(scrub=1), dict(integrity=True),
-    dict(replicas=4, tp=2),
+    dict(tp=2), dict(replicas=4, tp=2),
 ])
 def test_unported_serve_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         ServeConfig(**knob).validate()
+
+
+@pytest.mark.parametrize("knob,error", [
+    (dict(integrity=True), None), (dict(integrity=True, scrub=4), None),
+    (dict(scrub=1), ValueError), (dict(integrity=True, scrub=-1),
+                                  ValueError),
+])
+def test_sdc_serve_knobs_validate_as_the_reference(knob, error):
+    """The SDC ledger's knobs are ported: they validate where the
+    reference's do (integrity alone is the boundary-only ledger) and raise
+    its ValueError where it raises (scrub without integrity, a negative
+    scrub)."""
+    if error is None:
+        ServeConfig(**knob).validate()
+        JaxServeConfig(**knob).validate()
+        return
+    with pytest.raises(error) as got:
+        ServeConfig(**knob).validate()
+    with pytest.raises(error) as want:
+        JaxServeConfig(**knob).validate()
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("knob,error", [

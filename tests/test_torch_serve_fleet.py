@@ -63,10 +63,6 @@ VOCAB = TINY_LM.num_classes
 # tests/test_elastic.py's and test_serve_chaos.py's fleet shapes
 FLEET = dict(max_batch=4, pool_pages=20, page=4, max_len=16,
              prefill_chunk=4, replicas=2)
-# the SDC counters only the reference's engines carry (the port has no
-# SDC ledger: ServeConfig refuses integrity and scrub)
-SDC_KEYS = {"sdc_injected", "sdc_detected", "sdc_quarantined",
-            "sdc_recovered", "sdc_scrubbed", "sdc_recompute_checks"}
 
 
 def _servers(serve_factory, port_lm, **kw):
@@ -89,7 +85,7 @@ def _streams(srv):
 
 def same_fleet(jsrv, tsrv):
     """Every record and ledger of two fleets, and their stats summaries
-    (the reference's SDC counters aside)."""
+    (the SDC counters, all 0 here, included)."""
     for key in ("finished", "timed_out", "shed_records", "resize_events",
                 "fail_events", "stall_events", "heartbeat_events"):
         assert getattr(tsrv, key) == getattr(jsrv, key), key
@@ -98,7 +94,7 @@ def same_fleet(jsrv, tsrv):
     assert [e.replica for e in tall] == [e.replica for e in jall]
     assert [e.evicted_log for e in tall] == [e.evicted_log for e in jall]
     js, ts = jsrv.stats_summary(), tsrv.stats_summary()
-    assert set(js) - set(ts) == SDC_KEYS and set(ts) <= set(js)
+    assert set(ts) == set(js)
     for k in ts:
         assert ts[k] == js[k], k
 
@@ -624,9 +620,37 @@ def test_servebench_fleet_argument_errors_are_the_references(capsys):
         assert errs[0] == errs[1], extra
 
 
+@pytest.mark.parametrize("extra", [
+    ["--disaggregate", "1"], ["--disaggregate", "0:1"],
+    ["--disaggregate", "1:1"],
+    ["--disaggregate", "1:1", "--policies", "continuous",
+     "--replicas", "2"],
+    ["--disaggregate", "1:1", "--policies", "continuous",
+     "--resize", "4:2"],
+    ["--scrub", "-1"]], ids=lambda e: " ".join(e))
+def test_servebench_disagg_and_scrub_errors_are_the_references(capsys,
+                                                               extra):
+    """--disaggregate and --scrub are ported: their argument errors (a
+    malformed or empty fleet, the static policy, --replicas, --resize, a
+    negative scrub) are the reference's, word for word."""
+    import ddlbench_tpu.config as jconfig
+    from ddlbench_tpu.tools import servebench as jax_servebench
+
+    patched = dict(jconfig.DATASETS)
+    patched["tinylm"] = TINY_LM
+    errs = []
+    for main, tail in ((jax_servebench.main, ["--platform", "cpu"]),
+                       (servebench.main, ["--device", "cpu"])):
+        with mock.patch.dict("ddlbench_tpu.config.DATASETS", patched), \
+                mock.patch.dict(tconfig.DATASETS, {"tinylm": TINY}), \
+                pytest.raises(SystemExit):
+            main(ROW_ARGS + extra + tail)
+        errs.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert errs[0] == errs[1]
+
+
 @pytest.mark.parametrize("flag,value,item", [
-    ("--serve-tp", "2", "A.7"), ("--disaggregate", "1:1", "A.4"),
-    ("--scrub", "4", "A.4"), ("--paged-kernel", "dots", "A.8"),
+    ("--serve-tp", "2", "A.7"), ("--paged-kernel", "dots", "A.8"),
     ("--audit", "x.json", "A.8")])
 def test_servebench_flags_of_later_slices_name_their_item(capsys, flag,
                                                           value, item):
