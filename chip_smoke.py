@@ -35,8 +35,10 @@ one JSON line; any failure raises and exits non-zero:
              float32 and int8 pools: C 1, a partial last query tile (C 17,
              33), npl 9 (not a multiple of the 8 warps); the decode
              kernel's edges over float32, bfloat16 and int8 pools: pages
-             of 8, 16 and 32, npl 1, 9 and 16, positions on a page's first
-             and last key, a row on page 0 (warps 1-7 walk nothing). The
+             of 8, 16 and 32, npl 1, 9 and 16, and pages of 64 (the beam
+             cache's: four 16-key chunks, the ring refilled inside a page),
+             npl 1-4, positions on a page's first and last key, a row on
+             page 0 (warps 1-7 walk nothing). The
              chunk kernel run again at C 16, C 256 and the verify shape,
              and the decode kernel, over float32 and int8, must give the
              same bits. Planted faults over an int8 pool, built from the
@@ -208,6 +210,43 @@ one JSON line; any failure raises and exits non-zero:
              1:1, 1:1, 2, 1), and the ledger off against --scrub 0 and
              --scrub 4 (off, 0, 4, 4, 0, off), with wall_tokens_per_s
              and decode_step_ms beside the card's nvidia-smi line.
+3f. decode — KV-cached greedy and beam decoding (models/decode.py) on
+             seq2seq_s / synthmt at full width (d 512, 8 layers, 8 heads,
+             dh 64, vocab 32 768, T 256, source 128; random weights, seed
+             0), B 8, beam 4: decodebench's defaults. (a) On the card, the
+             full-forward greedy and beam loops are the oracle of the dense
+             cached and the paged greedy and beam over float32 caches; the
+             dense cached greedy and beam over a bfloat16 cache (the same
+             rounding of every cached K/V, plain attention) are the oracle
+             of the paged ones over a bfloat16 cache (their distance from
+             the float32 loops is reported). Tokens must be equal, and beam
+             scores within rtol 1e-4, but for a fork whose evidence, printed,
+             shows a near tie: teacher-forced on the shared prefix, the
+             oracle's top-2 logit margin below the two paths' logit
+             distance on the gap between the two chosen tokens, and the
+             path within 1e-3 of the oracle on every logit. (b) Launches,
+             the counters zeroed before each run: every paged run launches
+             the decode kernel 127 x 8 = 1 016 times (positions 128-254,
+             8 layers) and the flash forward 8 times (the prompt's
+             prefill), a dense cached run the flash forward 8 times and
+             the decode kernel none, and no run takes a plain path. (c)
+             The decode kernel at the beam cache's last step (32 rows, 4
+             pages of 64, position 254) over float32 and bfloat16, timed
+             with its plain version and SDPA over the pre-gathered pages,
+             beside its bound (phase 2's edges include pages of 64). (d)
+             decodebench at its defaults plus --chunk-prefill --kv-dtype
+             float32,bfloat16,int8: exit 0, the six decode rows, 8 chunk
+             and 12 kv-dtype rows, none erred or skipped, no plain call,
+             each paged kernel launched over float and int8 pools
+             (counted apart from (a)). Reported: one warm paged beam
+             run (float32) under torch.profiler: the device's busy share,
+             launches and top kernels.
+             (e) mtacc at its defaults (seq2seq_t trained 400 steps on
+             the card): the gate passes. (f) The engine's greedy streams
+             on transformer_s (4 requests, 32 new tokens each, a float32
+             pool of 16-position pages) equal models/decode.py's paged
+             greedy_decode (pages of 64) on the same prompts, with the
+             near-tie rule of (a).
 4. profile — the same path (8 requests, warm) under torch.profiler: the
              device's busy share, the device time by kernel, and each
              paged kernel instance's calls and device time.
@@ -398,7 +437,8 @@ one JSON line; any failure raises and exits non-zero:
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
-int8 rows' launches are serve_levers (b)'s), the card's name and power
+int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
+plus decode (a)'s), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -440,7 +480,10 @@ KERNELS = {
 # kernel's edge checks
 DECODE_EDGES = ((16, 16, "last"), (16, 16, "first"), (16, 9, "last"),
                 (16, 1, "first"), (8, 9, "first"), (8, 16, "last"),
-                (32, 9, "last"), (32, 16, "first"), (32, 1, "last"))
+                (32, 9, "last"), (32, 16, "first"), (32, 1, "last")) + tuple(
+    # the beam cache's page of 64: four 16-key chunks, the two-stage ring
+    # refilled inside a page (models/decode.py, phase decode)
+    (64, npl, key) for npl in (1, 2, 3, 4) for key in ("first", "last"))
 SPEC_K = 4  # drafted tokens a verify pass checks
 VERIFY_C = SPEC_K + 1  # the verify pass: the pending token + SPEC_K drafts
 # the n-gram lengths serve_levers tries, in order: the reference's 3 first
@@ -748,6 +791,9 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
+KV_U = {}
+
+
 def make_pools(torch, pd, dtype, gen, dev, page=PAGE):
     """Random K/V pools [POOL_PAGES, page, H, DH] of ``dtype``. An int8
     pool holds random float32 rows as the port's own chunk write
@@ -758,7 +804,9 @@ def make_pools(torch, pd, dtype, gen, dev, page=PAGE):
         return {"pool_k": pk.to(dtype), "pool_v": pv.to(dtype)}
     pool = pd.serve_pool_init(POOL_PAGES, page, H, DH, torch.int8, dev)
     n = POOL_PAGES * page
-    pool.update(kv_seed=1, kv_u=pd.kv_u_table(1, n, H, DH, dev))
+    if n not in KV_U:  # the rounding table of n positions, hashed once
+        KV_U[n] = pd.kv_u_table(1, n, H, DH, dev)
+    pool.update(kv_seed=1, kv_u=KV_U[n])
     every = {**pool, "table": torch.arange(POOL_PAGES, dtype=torch.int32,
                                            device=dev)[None]}
     pd.paged_table_chunk_write(every, pk.reshape(1, n, H, DH),
@@ -813,14 +861,14 @@ def run_plain(pd, q, cache, pos, npl, C, page=PAGE):
     return pd._paged_chunk_attention_ref(q, cache, pos, npl, page)
 
 
-def library_call(torch, q, cache, pos, npl, C):
+def library_call(torch, q, cache, pos, npl, C, page=PAGE):
     """scaled_dot_product_attention over the pages gathered (and, for an
     int8 pool, dequantised) beforehand, with the same absolute causal
     mask: returns the timed closure."""
     import torch.nn.functional as F
 
     tbl = cache["table"][:, :npl].long()
-    L = npl * PAGE
+    L = npl * page
     rows = q.shape[0]
 
     def pages(name):  # an int8 pool dequantised here, outside the timing
@@ -862,7 +910,7 @@ def time_ms(torch, fn, flush, iters=20, warmup=5) -> float:
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
-def bound(q, cache, pos, npl, C):
+def bound(q, cache, pos, npl, C, page=PAGE):
     """(bound_ms, bound_by) for one call on these inputs: bytes each input
     read once (the live table entries, and each distinct pool slot they
     name once — a slot two rows share is one read) and the output written
@@ -876,14 +924,14 @@ def bound(q, cache, pos, npl, C):
     nbytes += pos.numel() * 4
     pairs, slots = 0, set()
     for r, p0 in enumerate(pos.tolist()):
-        last = min(p0 + cq - 1, npl * PAGE - 1)
-        live = last // PAGE + 1
+        last = min(p0 + cq - 1, npl * page - 1)
+        live = last // page + 1
         nbytes += live * 4  # table entries
         slots.update(cache["table"][r, :live].tolist())
-        pairs += sum(min(p0 + c, npl * PAGE - 1) + 1 for c in range(cq))
-    nbytes += len(slots) * 2 * PAGE * H * DH * elt  # K, V of each slot
+        pairs += sum(min(p0 + c, npl * page - 1) + 1 for c in range(cq))
+    nbytes += len(slots) * 2 * page * H * DH * elt  # K, V of each slot
     if "scale_k" in cache:
-        nbytes += len(slots) * 2 * PAGE * 4  # its K and V scale rows
+        nbytes += len(slots) * 2 * page * 4  # its K and V scale rows
     flops = 4 * pairs * H * DH
     dt = "float32"
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2316,6 +2364,389 @@ def phase_serve_disagg(torch, pd, dev):
         raise AssertionError(f"serve_disagg: failed {failed}")
 
 
+# phase decode: models/decode.py at seq2seq_s's full width (d 512, 8 layers,
+# 8 heads, dh 64, vocab 32 768, T 256, source 128), decodebench's defaults
+DECODE_MODEL = ("seq2seq_s", "synthmt")
+DECODE_B, DECODE_BEAM = 8, 4
+# beam scores against their oracle's, relative: the paths sum in other
+# orders (float32 noise), and a bfloat16 cache's oracle rounds K/V alike
+DECODE_SCORE_RTOL = 1e-4
+# the largest |logit| distance between a path and its oracle at a fork,
+# teacher-forced on the shared prefix: float32 summation-order noise; a
+# path farther off than this is wrong, not tied
+DECODE_LOGIT_TOL = 1e-3
+DECODE_BENCH_ARGS = ["--chunk-prefill", "--kv-dtype",
+                     "float32,bfloat16,int8"]
+# (f): the engine's requests on transformer_s, prompt lengths and new
+# tokens each
+ORACLE_PROMPTS, ORACLE_NEW = (17, 64, 100, 33), 32
+# B7 at the beam cache's last decode step: rows B x beam, npl, page
+BEAM_SHAPE = (DECODE_B * DECODE_BEAM, 4, 64)
+
+
+def path_logits(torch, dec, pd, model, toks, variant, dtype, S, T):
+    """The float32 logits predicting position len(toks) after the prefix
+    ``toks`` [n], one row alone through one decoding path, teacher-forced:
+    ``full`` (one forward over the zero-padded stream), ``cached`` or
+    ``paged`` (the prompt's prefill, then one decode step a token)."""
+    x = toks[None].long()
+    n = x.shape[1]
+    with torch.no_grad():
+        if variant == "full":
+            pad = torch.zeros(1, T, dtype=torch.long, device=x.device)
+            pad[:, :n] = x
+            return model(pad)[0, n - 1].float()
+        paged = variant == "paged"
+        init = dec.init_paged_caches if paged else dec.init_caches
+        caches = init(model, 1, T, dtype)
+        logits, caches = (dec.paged_prefill if paged else dec.prefill)(
+            model, caches, x[:, :S])
+        for t in range(S, n):
+            if paged:
+                logits, caches = dec.paged_decode_one(
+                    model, caches, x[:, t:t + 1], t, t // pd.PAGE + 1)
+            else:
+                logits, caches = dec.decode_one(model, caches,
+                                                x[:, t:t + 1], t)
+    return logits[0, -1].float()
+
+
+def fork_evidence(torch, z_want, z_got, a, b):
+    """Whether a fork (the oracle chose token a, the path b) is a near tie
+    the paths' own numerics explain: the oracle's top-2 logit margin below
+    the two paths' logit distance at that step — the distance measured on
+    the gap that decides the choice, |(z_want[a] - z_want[b]) - (z_got[a]
+    - z_got[b])| — and the path within DECODE_LOGIT_TOL of the oracle on
+    every logit (a wrong path is far off, not tied)."""
+    top2 = torch.topk(z_want, 2).values
+    margin = (top2[0] - top2[1]).item()
+    gap_want = (z_want[a] - z_want[b]).item()
+    gap_got = (z_got[a] - z_got[b]).item()
+    distance = abs(gap_want - gap_got)
+    max_abs = (z_got - z_want).abs().max().item()
+    return {"oracle_token": a, "path_token": b, "top2_margin": margin,
+            "gap_oracle": gap_want, "gap_path": gap_got,
+            "logit_distance": distance, "max_abs_logit_diff": max_abs,
+            "accepted": margin < distance and max_abs <= DECODE_LOGIT_TOL}
+
+
+def decode_forks(torch, got, want, logits_of):
+    """Each row's first fork between ``got`` and ``want`` [rows, T], with
+    its evidence: ``logits_of(prefix, side)`` gives the logits predicting
+    the fork's position after the shared prefix, side "want" or "got"."""
+    forks = {}
+    for r in range(want.shape[0]):
+        diff = (got[r] != want[r]).nonzero()
+        if len(diff) == 0:
+            continue
+        i = int(diff[0])
+        prefix = want[r, :i]
+        ev = fork_evidence(torch, logits_of(prefix, "want"),
+                           logits_of(prefix, "got"), int(want[r, i]),
+                           int(got[r, i]))
+        forks[r] = {"position": i, **ev}
+    return forks
+
+
+def beam_time(torch, pd, dev, dtype, flush):
+    """B7 at the beam cache's last decode step (BEAM_SHAPE: 32 rows, 4
+    live pages of 64, position 254 in every row, each row on its own
+    slots): the kernel, its plain version and SDPA over the pre-gathered
+    pages, with the bound."""
+    rows, npl, page = BEAM_SHAPE
+    gen = torch.Generator().manual_seed(4)
+    cache = pd.paged_cache_init(rows, npl * page, H, DH, dtype, page=page,
+                                device=dev)
+    for name in ("pool_k", "pool_v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=gen))
+    q = torch.randn(rows, H, DH, generator=gen).to(dev)
+    pos = torch.full((rows,), npl * page - 2, dtype=torch.int32, device=dev)
+    b_ms, b_by = bound(q, cache, pos, npl, None, page)
+    time_ms(torch, lambda: pd.paged_attention(q, cache, pos, npl, page),
+            flush)  # the first timed call reads high
+    return {
+        "ms": time_ms(torch, lambda: pd.paged_attention(q, cache, pos, npl,
+                                                        page), flush),
+        "plain_ms": time_ms(torch, lambda: pd._paged_attention_ref(
+            q, cache, pos, npl, page), flush),
+        "library_ms": time_ms(torch, library_call(torch, q, cache, pos, npl,
+                                                  None, page), flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "shape": {"rows": rows, "H": H, "dh": DH, "page": page, "npl": npl,
+                  "pos": npl * page - 2, "pool": str(dtype).split(".")[-1]}}
+
+
+def device_kernels(prof):
+    """The device kernels a torch.profiler run recorded, and their summed
+    device milliseconds."""
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    return kern, sum(e.self_device_time_total for e in kern) / 1e3
+
+
+def decode_profile(torch, dec, model, src, T, beam):
+    """Where a paged beam run's time goes (float32 cache, warm): the
+    device's busy share of its wall time under torch.profiler, its
+    launches, and the device time of the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def run():
+        dec.beam_search_decode(model, src, T, beam=beam, paged=True)
+        torch.cuda.synchronize()
+
+    run()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern, busy_ms = device_kernels(prof)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms if kern else None,
+            "device_busy_share": busy_ms / wall_ms if kern else None,
+            "kernel_launches": sum(e.count for e in kern),
+            "top_kernels": [{"name": e.key[:80], "calls": e.count,
+                             "ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def decode_bench_rows(torch):
+    """decodebench at its defaults plus DECODE_BENCH_ARGS, in-process:
+    (exit code, rows)."""
+    import contextlib
+    import io
+
+    from ddlbench_tpu_torch.tools import decodebench
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = decodebench.main(DECODE_BENCH_ARGS)
+    rows = [json.loads(line) for line in out.getvalue().splitlines()]
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    return rc, rows
+
+
+def serve_oracle(torch, dec, pd, dev):
+    """(f): the engine's greedy streams on transformer_s (a float32 pool of
+    16-position pages) against models/decode.py's paged greedy_decode
+    (pages of 64) on each request's prompt; a fork must be a near tie
+    (fork_evidence: the decode path's logits as the oracle, the serving
+    path's, through serve_logits, as the other)."""
+    from ddlbench_tpu_torch.config import ServeConfig
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.serve.engine import ServeEngine
+    from ddlbench_tpu_torch.serve.workload import ServeRequest
+
+    model = get_model("transformer_s", "synthtext", seed=0).to(dev)
+    engine = ServeEngine(model, ServeConfig(), dev)
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, model.num_classes, (n,), generator=gen)
+               for n in ORACLE_PROMPTS]
+    for rid, p in enumerate(prompts):
+        engine.submit(ServeRequest(rid=rid, prompt=p.numpy().astype("int32"),
+                                   max_new=ORACLE_NEW, arrival=0.0))
+    clock = 0.0
+    while engine.has_work():
+        clock += engine.step(clock).cost
+    got = {f["rid"]: f["tokens"] for f in engine.finished}
+    T = model.in_shape[0]
+    forks = {}
+    for rid, p in enumerate(prompts):
+        S = len(p)
+        want = dec.greedy_decode(model, p[None].to(dev), S + ORACLE_NEW,
+                                 paged=True)[0]
+        stream = torch.tensor(p.tolist() + got[rid], device=dev)
+
+        def logits_of(prefix, side, S=S):
+            if side == "want":
+                return path_logits(torch, dec, pd, model, prefix, "paged",
+                                   torch.float32, S, T)
+            with torch.no_grad():
+                return serve_logits(torch, engine, prefix.tolist())[-1]
+
+        fork = decode_forks(torch, stream[None], want[None], logits_of)
+        if fork:
+            forks[rid] = fork[0]
+    return {"requests": len(prompts), "new_tokens": ORACLE_NEW,
+            "prompt_lens": list(ORACLE_PROMPTS), "forks": forks,
+            "ok": len(got) == len(prompts)
+            and all(f["accepted"] for f in forks.values())}
+
+
+def phase_decode(torch, pd, fa, dev):
+    """KV-cached greedy and beam decoding on the card (phase 3f of the
+    docstring): (a) paths against their oracles, (b) launches, (c) B7 at
+    the beam shape, (d) decodebench, (e) mtacc, (f) the serving oracle.
+    Returns B7's launches over (a)'s paged runs."""
+    from ddlbench_tpu_torch.config import DATASETS
+    from ddlbench_tpu_torch.models import decode as dec
+    from ddlbench_tpu_torch.models import seq2seq as s2s
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.tools import mtacc
+
+    t0 = time.perf_counter()
+    arch, bench = DECODE_MODEL
+    spec = DATASETS[bench]
+    T, S, B, beam = spec.seq_len, spec.src_len, DECODE_B, DECODE_BEAM
+    model = get_model(arch, bench, seed=0).to(dev)
+    src = torch.randint(0, spec.num_classes, (B, S),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def zero():
+        pd.paged_attention.launches = pd.paged_attention.plain_launches = 0
+        fa.flash_fwd.launches = fa.flash_attention.plain_launches = 0
+
+    def counts():
+        return {"paged_attention": pd.paged_attention.launches,
+                "flash_fwd": fa.flash_fwd.launches,
+                "plain": pd.paged_attention.plain_launches
+                + fa.flash_attention.plain_launches}
+
+    # name -> (mode, variant, cache dtype, oracle run)
+    runs = {
+        "full_greedy": ("greedy", "full", f32, None),
+        "full_beam": ("beam", "full", f32, None),
+        "cached_greedy": ("greedy", "cached", f32, "full_greedy"),
+        "cached_beam": ("beam", "cached", f32, "full_beam"),
+        "paged_greedy": ("greedy", "paged", f32, "full_greedy"),
+        "paged_beam": ("beam", "paged", f32, "full_beam"),
+        # a bfloat16 cache's oracle is the dense cache in bfloat16: the
+        # same rounding of every cached K/V, the plain attention
+        "cached_greedy_bf16": ("greedy", "cached", bf16, None),
+        "cached_beam_bf16": ("beam", "cached", bf16, None),
+        "paged_greedy_bf16": ("greedy", "paged", bf16, "cached_greedy_bf16"),
+        "paged_beam_bf16": ("beam", "paged", bf16, "cached_beam_bf16"),
+    }
+    out, launches, seconds = {}, {}, {}
+    for name, (mode, variant, dtype, _) in runs.items():
+        zero()
+        tr = time.perf_counter()
+        if variant == "full":
+            res = (s2s.greedy_decode(model, src, T, use_cache=False)
+                   if mode == "greedy" else s2s.beam_search_decode(
+                       model, src, T, beam=beam, use_cache=False))
+        elif mode == "greedy":
+            res = dec.greedy_decode(model, src, T, dtype=dtype,
+                                    paged=variant == "paged")
+        else:
+            res = dec.beam_search_decode(model, src, T, beam=beam,
+                                         dtype=dtype,
+                                         paged=variant == "paged")
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - tr
+        launches[name] = counts()
+        out[name] = res if mode == "beam" else (res, None)
+
+    # (a) each path against its oracle: tokens equal but for near-tie
+    # forks; beam scores of the rows without a fork within the rtol
+    checks, compared = {}, {}
+    for name, (mode, variant, dtype, oracle) in runs.items():
+        if oracle is None:
+            continue
+        got_x, got_s = out[name]
+        want_x, want_s = out[oracle]
+        o_variant, o_dtype = runs[oracle][1], runs[oracle][2]
+
+        def logits_of(prefix, side, variant=variant, dtype=dtype,
+                      o_variant=o_variant, o_dtype=o_dtype):
+            v, d = (o_variant, o_dtype) if side == "want" else (variant,
+                                                                  dtype)
+            return path_logits(torch, dec, pd, model, prefix, v, d, S, T)
+
+        forks = decode_forks(torch, got_x, want_x, logits_of)
+        rec = {"oracle": oracle, "forks": forks,
+               "tokens_equal_rows": B - len(forks)}
+        ok = all(f["accepted"] for f in forks.values())
+        if mode == "beam":
+            keep = [r for r in range(B) if r not in forks]
+            rel = ((got_s[keep] - want_s[keep]).abs()
+                   / want_s[keep].abs()).max().item() if keep else 0.0
+            rec.update(score_max_rel=rel, score_rtol=DECODE_SCORE_RTOL)
+            ok = ok and rel <= DECODE_SCORE_RTOL
+        rec["ok"] = ok
+        compared[name] = rec
+    checks["a_paths_against_oracles"] = all(r["ok"] for r in
+                                            compared.values())
+    # the bfloat16 cache's distance from the float32 loops: reported only
+    bf16_vs_f32 = {
+        name: {"tokens_equal_frac": (out[name][0] == out[ref][0]).float()
+               .mean().item()}
+        for name, ref in (("paged_greedy_bf16", "full_greedy"),
+                          ("paged_beam_bf16", "full_beam"))}
+    bf16_vs_f32["paged_beam_bf16"]["score_max_rel"] = (
+        (out["paged_beam_bf16"][1] - out["full_beam"][1]).abs()
+        / out["full_beam"][1].abs()).max().item()
+
+    # (b) launches: a paged run B7 once a layer a decode step (positions
+    # S .. T - 2), B1 once a layer (the prompt's prefill); no plain call
+    want_b7, want_b1 = (T - 1 - S) * LAYERS, LAYERS
+    checks["b_launches"] = all(
+        launches[n]["plain"] == 0 for n in runs) and all(
+        launches[n]["paged_attention"] == (want_b7 if runs[n][1] == "paged"
+                                           else 0)
+        and launches[n]["flash_fwd"] == want_b1
+        for n in runs if runs[n][1] != "full")
+    b7 = sum(launches[n]["paged_attention"] for n in runs)
+    del out
+    torch.cuda.empty_cache()
+    profile = decode_profile(torch, dec, model, src, T, beam)
+
+    # (c) B7 at the beam shape
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    times = {str(d).split(".")[-1]: beam_time(torch, pd, dev, d, flush)
+             for d in (f32, bf16)}
+    del flush, model
+    torch.cuda.empty_cache()
+
+    # (d) decodebench on the card, its launches counted apart
+    kernels = (pd.paged_attention, pd.paged_chunk_attention)
+    for fn in kernels:
+        fn.launches = fn.launches_int8 = fn.plain_launches = 0
+    rc, rows = decode_bench_rows(torch)
+    bench_launches = {f"{fn.__name__}{sfx}": getattr(fn, "launches" + sfx)
+                      for fn in kernels for sfx in ("", "_int8")}
+    kinds = {"decode": sum("mode" in r for r in rows),
+             "chunk": sum(r["variant"].startswith("chunk-") for r in rows),
+             "kv_dtype": sum(r["variant"] == "kv-dtype" for r in rows)}
+    checks["d_decodebench"] = (
+        rc == 0 and kinds == {"decode": 6, "chunk": 8, "kv_dtype": 12}
+        and not any("error" in r or "skipped" in r for r in rows)
+        and all(r.get("plain_launches", 0) == 0 for r in rows)
+        and all(n > 0 for n in bench_launches.values())
+        and not any(fn.plain_launches for fn in kernels))
+
+    # (e) mtacc on the card
+    doc = mtacc.run(mtacc.build_parser().parse_args([]), dev)
+    checks["e_mtacc"] = bool(doc["pass"])
+
+    # (f) the serving oracle on transformer_s
+    oracle = serve_oracle(torch, dec, pd, dev)
+    checks["f_serve_oracle"] = oracle["ok"]
+
+    emit({"phase": "decode", "model": arch, "benchmark": bench, "batch": B,
+          "beam": beam, "total_len": T, "prompt_len": S, "checks": checks,
+          "compared": compared, "bf16_vs_float32_loops": bf16_vs_f32,
+          "launches": launches,
+          "expected_paged": {"paged_attention": want_b7, "flash_fwd": want_b1,
+                             "plain": 0},
+          "run_seconds": seconds, "paged_beam_profile": profile,
+          "b7_beam_shape": times,
+          "decodebench": {"rc": rc, "rows": kinds,
+                          "launches": bench_launches},
+          "mtacc": {k: doc[k] for k in ("seq_accuracy", "token_accuracy",
+                                        "final_loss", "train_steps",
+                                        "greedy_equals_full_forward",
+                                        "pass")},
+          "serve_oracle": oracle, "card": card_line(),
+          "seconds": time.perf_counter() - t0})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"decode: failed {failed}")
+    return b7
+
+
 def phase_profile(torch, dev):
     """Where a serving run's time goes: the same main path (warm kernels,
     8 requests) under torch.profiler — device time by kernel name, each
@@ -2338,9 +2769,7 @@ def phase_profile(torch, dev):
         (rec, server, _), = servebench.run(args, model, dev)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    kern, busy_ms = device_kernels(prof)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     paged = {}  # each paged kernel instance, as the profiler names it
     for e in kern:
@@ -3130,9 +3559,7 @@ def phase_train_profile(torch, strategy, data):
         float(m["loss"])
         wall_ms = (time.perf_counter() - t0) * 1e3
     set_attention_backend("auto")
-    kern = [e for e in prof.key_averages()
-            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    kern, busy_ms = device_kernels(prof)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:12]
     port = {}  # each port kernel's device ms and launches per step
     for e in kern:
@@ -3969,6 +4396,7 @@ def main() -> int:
     phase_serve_slo(torch, pd, dev)
     phase_serve_fleet(torch, pd, dev)
     phase_serve_disagg(torch, pd, dev)
+    launches["paged_attention"] += phase_decode(torch, pd, fa, dev)
     phase_profile(torch, dev)
     flash_worst = phase_flash_kernels(torch, fa, dev)
     flash_timed = phase_flash_times(torch, fa, dev)

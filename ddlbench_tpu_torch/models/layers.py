@@ -1,12 +1,14 @@
-"""Flat-layer model container, the training apply, the serving-layer
-protocol and the image layers.
+"""Flat-layer model container, the training apply, the serving-layer and
+cached-decode protocols and the image layers.
 
 The port's counterpart of ``ddlbench_tpu/models/layers.py``'s
-``LayerModel``, ``apply_slice``/``apply_model``, ``ServeOps`` and its image
-primitives. A model is a named flat stack of ``nn.Module`` layers; training
-applies it through :func:`apply_model`, and the serving engine walks the
-stack itself, calling each serving layer's serve ops and plain ``forward``
-on pointwise layers (the LM head).
+``LayerModel``, ``apply_slice``/``apply_model``, ``ServeOps``, the
+``init_cache``/``prefill``/``decode`` fields with ``PagedOps``
+(:class:`DecodeLayer`) and its image primitives. A model is a named flat
+stack of ``nn.Module`` layers; training applies it through
+:func:`apply_model`, and the serving engine and the decoders
+(models/decode.py) walk the stack themselves, calling each layer's serve
+or decode ops and plain ``forward`` on pointwise layers (the LM head).
 
 The image layers compute in NCHW (channels_last on the card is a memory
 format of the same tensors) with OIHW convolution kernels; their
@@ -87,6 +89,10 @@ class ServeLayer(nn.Module):
       ``ServeOps.verify``).
 
     ``npl`` is the number of live table pages the attention walks.
+
+    The batch decoders of models/decode.py use :class:`DecodeLayer`'s
+    protocol instead: every row one hypothesis at one shared position,
+    each layer with its own cache.
     """
 
     def pool_init(self, n_pages: int, page: int, dtype: torch.dtype,
@@ -106,19 +112,73 @@ class ServeLayer(nn.Module):
         raise NotImplementedError
 
 
+class DecodeLayer(nn.Module):
+    """A layer the KV-cached decoders (models/decode.py) can run one
+    position at a time: the reference's ``Layer.init_cache``/``prefill``/
+    ``decode`` fields and its ``PagedOps``. Every row is one hypothesis,
+    and all rows sit at one position ``pos`` (a Python int). A layer that
+    carries a cache sets ``cached``; one that also has the paged four sets
+    ``paged``. A layer outside this protocol takes part only if it is
+    ``pointwise`` (its forward on one position equals its full-sequence
+    result, e.g. the LM head) and is then run through ``forward``.
+
+    * ``init_cache(batch, max_len, dtype, device)`` — the layer's dense
+      cache, or None (a cache-free layer, the embedding).
+    * ``prefill(cache, x, start) -> (y, cache)`` — the whole prompt from
+      position ``start`` (0: the prompt opens the stream), recording the
+      cache; a cache-free layer runs ``forward``.
+    * ``decode(cache, x, pos) -> (y, cache)`` — one token x [B, 1, ...]
+      at position ``pos`` against the cache.
+    * ``paged_init_cache``/``paged_prefill``/``paged_decode``/
+      ``paged_reorder`` — the same over the row-owned beam cache
+      (ops/paged_decode.py); ``paged_decode`` also takes ``npl``, the live
+      pages the attention walks, and ``paged_reorder(cache, parent, pos)``
+      is the copy-on-write replacement of the dense cache's gather.
+    """
+
+    cached = False
+    paged = False
+
+    def init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
+                   device: torch.device) -> Optional[dict]:
+        return None
+
+    def prefill(self, cache, x: torch.Tensor, start: int):
+        return self(x), cache
+
+    def decode(self, cache, x: torch.Tensor, pos: int):
+        raise NotImplementedError
+
+    def paged_init_cache(self, batch: int, max_len: int, dtype: torch.dtype,
+                         device: torch.device) -> Optional[dict]:
+        raise NotImplementedError
+
+    def paged_prefill(self, cache, x: torch.Tensor, start: int):
+        raise NotImplementedError
+
+    def paged_decode(self, cache, x: torch.Tensor, pos: int, npl: int):
+        raise NotImplementedError
+
+    def paged_reorder(self, cache, parent: torch.Tensor, pos: int):
+        raise NotImplementedError
+
+
 class LayerModel(nn.Module):
     """A named flat stack of layers plus the metadata the tools need:
     ``in_shape`` is ``(H, W, C)`` for image models (the reference's order)
     and ``(T,)`` for token models; ``num_classes`` the classes or the
-    vocabulary. ``forward`` applies every layer in order."""
+    vocabulary; ``src_len`` the source length of a seq2seq model (None
+    otherwise). ``forward`` applies every layer in order."""
 
     def __init__(self, name: str, layers: Sequence[nn.Module],
-                 in_shape: Tuple[int, ...], num_classes: int):
+                 in_shape: Tuple[int, ...], num_classes: int,
+                 src_len: Optional[int] = None):
         super().__init__()
         self.name = name
         self.layers = nn.ModuleList(layers)
         self.in_shape = tuple(in_shape)
         self.num_classes = num_classes
+        self.src_len = src_len
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:

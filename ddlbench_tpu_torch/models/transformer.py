@@ -1,8 +1,11 @@
 """Decoder-only transformer LM as a flat layer chain (PyTorch port).
 
-The port of the training and serving pieces of
-``ddlbench_tpu/models/transformer.py``: an embedding, pre-LN blocks
-(learned positions, GELU MLP 4x) and an untied LM head, each an
+The port of ``ddlbench_tpu/models/transformer.py``: an embedding, pre-LN
+blocks (learned positions, GELU MLP 4x) and an untied LM head, for
+training, serving (the ``ServeLayer`` ops) and cached decoding (the
+``DecodeLayer`` ops of models/decode.py: the dense cache, read by plain
+masked attention as the reference's ``attn_decode_op`` is, and the paged
+beam cache, read by the decode kernel), each an
 ``nn.Module`` whose parameters keep the reference's names and layouts —
 dense weights are ``[in, out]`` and every projection is ``x @ W``, as in
 the JAX code, so converted weights (convert.py) are used as they are.
@@ -15,8 +18,9 @@ kernels exactly where they take the operands
 bfloat16), else the plain einsum, as the reference's ``auto`` takes its XLA
 path for shapes its kernel does not take. An ``"auto"`` call on CUDA
 operands the kernels refuse is counted in
-``flash_attention.plain_launches``. The serving passes dispatch the paged
-ops the same way (``paged_decode.kernel_takes``). The reference's
+``flash_attention.plain_launches``. The serving passes and the paged
+decode step dispatch the paged ops the same way
+(``paged_decode.kernel_takes``). The reference's
 TPU-measured length crossover for ``"auto"`` is not carried over; the
 card's is still to be measured.
 
@@ -41,13 +45,18 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddlbench_tpu_torch.config import ATTENTION_BACKENDS
-from ddlbench_tpu_torch.models.layers import LayerModel, ServeLayer
+from ddlbench_tpu_torch.models.layers import (DecodeLayer, LayerModel,
+                                              ServeLayer)
 from ddlbench_tpu_torch.ops import flash_attention as fa
 from ddlbench_tpu_torch.ops.flash_attention import flash_attention
 from ddlbench_tpu_torch.ops.fused_xent import (fused_linear_xent,
                                               fused_linear_xent_eval)
 from ddlbench_tpu_torch.ops.paged_decode import (paged_attention_auto,
+                                                 paged_cache_init,
                                                  paged_chunk_attention_auto,
+                                                 paged_decode_write,
+                                                 paged_prefill_write,
+                                                 paged_reorder,
                                                  paged_table_chunk_write,
                                                  paged_table_span_write,
                                                  paged_table_write,
@@ -146,10 +155,11 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", e / torch.clamp(z, min=1e-20), v)
 
 
-class Embed(ServeLayer):
+class Embed(ServeLayer, DecodeLayer):
     """Token + learned position embedding: x [B, T] int -> [B, T, d], in
     the tables' dtype (the compute dtype under layers.apply_model's cast,
-    as in the reference's apply on cast params)."""
+    as in the reference's apply on cast params). Cache-free in both the
+    serving and the decode protocol."""
 
     def __init__(self, vocab: int, d_model: int, max_len: int,
                  gen: torch.Generator):
@@ -159,6 +169,10 @@ class Embed(ServeLayer):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.tok[x] + self.pos[:x.shape[1]]
+
+    def decode(self, cache, x, pos):
+        # x [B, 1] at absolute position pos
+        return self.tok[x] + self.pos[pos:pos + 1], cache
 
     def serve_prefill(self, pool, table, x, start, npl, page):
         # chunk x [R, C] at positions [start, start + C). Padded positions
@@ -181,10 +195,17 @@ class Embed(ServeLayer):
         return self.tok[x] + self.pos[idx.clamp(max=self.pos.shape[0] - 1)]
 
 
-class TransformerBlock(ServeLayer):
+class TransformerBlock(ServeLayer, DecodeLayer):
     """Pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x)) + b2.
     ``prefix_len`` > 0 switches the attention to the prefix-LM mask (the
-    seq2seq workload; the serve ops are causal-LM only)."""
+    seq2seq workload; the serve ops are causal-LM only). The decode ops
+    (models/decode.py) take either mask: a prompt's prefill attends
+    through :func:`causal_attention` with ``prefix_len``, and a decoded
+    position sees every cached key before it, which the prefix rule adds
+    nothing to."""
+
+    cached = True
+    paged = True
 
     def __init__(self, d_model: int, n_heads: int, gen: torch.Generator,
                  mlp_ratio: int = 4, prefix_len: int = 0):
@@ -227,6 +248,81 @@ class TransformerBlock(ServeLayer):
         o = causal_attention(q, k, v, prefix_len=self.prefix_len)
         x = self._proj(o.transpose(1, 2).reshape(B, T, d), x)
         return self.mlp(x)
+
+    # -- the cached-decode protocol (models/decode.py) ---------------------
+
+    def _prompt(self, x, start, record):
+        """The attention sublayer over a whole prompt, K/V handed to
+        ``record(k, v)`` as [B, H, T, dh], then the MLP. The prompt must
+        open the stream: attention runs within it."""
+        assert start == 0, "chunked prefill (start > 0) is not implemented"
+        B, T, d = x.shape
+        q, k, v = self._qkv_heads(x)
+        record(k, v)
+        o = causal_attention(q, k, v, start, start, self.prefix_len)
+        return self.mlp(self._proj(o.transpose(1, 2).reshape(B, T, d), x))
+
+    def init_cache(self, batch, max_len, dtype, device):
+        shape = (batch, self.n_heads, max_len, self.dh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    def prefill(self, cache, x, start):
+        def record(k, v):
+            T = k.shape[2]
+            cache["k"][:, :, start:start + T] = k
+            cache["v"][:, :, start:start + T] = v
+
+        return self._prompt(x, start, record), cache
+
+    def decode(self, cache, x, pos):
+        """One token at position ``pos`` against the dense cache: the
+        reference's plain masked attention over the whole cache (keys at
+        positions <= pos), no kernel."""
+        B, _, d = x.shape
+        q, k, v = self._qkv_heads(x)  # [B, H, 1, dh]
+        cache["k"][:, :, pos] = k[:, :, 0]
+        cache["v"][:, :, pos] = v[:, :, 0]
+        kc, vc = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        scores = torch.einsum("bhqd,bhkd->bhqk", q, kc) / math.sqrt(self.dh)
+        k_pos = torch.arange(kc.shape[2], device=x.device)
+        scores = scores.masked_fill(k_pos > pos, -math.inf)
+        probs = torch.softmax(scores.float(), -1).to(x.dtype)
+        o = torch.einsum("bhqk,bhkd->bhqd", probs, vc)
+        x = self._proj(o.transpose(1, 2).reshape(B, 1, d), x)
+        return self.mlp(x), cache
+
+    def paged_init_cache(self, batch, max_len, dtype, device):
+        return paged_cache_init(batch, max_len, self.n_heads, self.dh, dtype,
+                                device=device)
+
+    def paged_prefill(self, cache, x, start):
+        page = cache["pool_k"].shape[1]
+
+        def record(k, v):
+            paged_prefill_write(cache, k.transpose(1, 2), v.transpose(1, 2),
+                                page, start)
+
+        return self._prompt(x, start, record), cache
+
+    def paged_decode(self, cache, x, pos, npl):
+        """Write the token's K/V into each row's own slot, then
+        single-query attention over the ``npl`` live pages (the decode
+        kernel on the card)."""
+        B, _, d = x.shape
+        page = cache["pool_k"].shape[1]
+        q, k, v = self._qkv_heads(x)  # [B, H, 1, dh]
+        paged_decode_write(cache, k.transpose(1, 2), v.transpose(1, 2), pos,
+                           page)
+        o = paged_attention_auto(q[:, :, 0].contiguous(), cache, pos, npl,
+                                 page)
+        x = self._proj(o.reshape(B, 1, d), x)
+        return self.mlp(x), cache
+
+    def paged_reorder(self, cache, parent, pos):
+        return paged_reorder(cache, parent, pos, cache["pool_k"].shape[1])
+
+    # -- the serving protocol (serve/engine.py) ----------------------------
 
     def pool_init(self, n_pages, page, dtype, device):
         return serve_pool_init(n_pages, page, self.n_heads, self.dh, dtype,
@@ -279,7 +375,11 @@ class LMHead(nn.Module):
     serving engine applies it with ``forward``). ``fused_loss`` and
     ``fused_eval`` take the loss without the [B*T, V] logits
     (ops/fused_xent.py); both run on casts of the head's parameters to x's
-    dtype inside autograd, so gradients land on the float32 masters."""
+    dtype inside autograd, so gradients land on the float32 masters.
+    ``pointwise``: the decoders (models/decode.py) run it on one position
+    through ``forward`` too."""
+
+    pointwise = True
 
     def __init__(self, d_model: int, vocab: int, gen: torch.Generator):
         super().__init__()

@@ -7,8 +7,8 @@ and nasnet from models/branchy.py, run as their chains of composite
 layers) on the image benchmarks (mnist, cifar10, imagenet, highres),
 trains and serves the causal-LM
 ``transformer_*`` arches on the token benchmarks (synthtext, longctx,
-longctx32k) and trains the prefix-LM ``seq2seq_*`` arches on the seq2seq
-benchmark (synthmt). The reference's other arches (:data:`NOT_PORTED`)
+longctx32k) and trains and decodes the prefix-LM ``seq2seq_*`` arches on
+the seq2seq benchmark (synthmt). The reference's other arches (:data:`NOT_PORTED`)
 raise ``NotImplementedError``.
 """
 

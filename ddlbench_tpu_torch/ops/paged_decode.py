@@ -1,8 +1,19 @@
-"""Shared paged KV pool for the serving engine, and attention over it.
+"""Shared paged KV pool for the serving engine, the row-owned beam cache,
+and attention over both.
 
-The port of the serving half of ``ddlbench_tpu/ops/paged_decode.py``. The
-cache is a POOL of fixed-size pages ``[n_pages, page, H, dh]`` per layer
-plus one int32 page TABLE ``[rows, npg]`` shared by every layer: row r's
+The port of ``ddlbench_tpu/ops/paged_decode.py``. The beam cache
+(:func:`paged_cache_init`, :func:`paged_prefill_write`,
+:func:`paged_decode_write`, :func:`paged_reorder`; pages of :data:`PAGE`)
+is models/decode.py's: every row owns a stripe of slots, and a beam
+reorder copies table pointers plus one partial page per row. Its layout
+is the serving pool's, so the decode kernel walks it as it is. The
+reference's ``live_pages`` context and kernel-style switch are trace-time
+devices of JAX and Pallas; here the decode loop passes each step's live
+page count (``pos // page + 1``) as ``npages_live``.
+
+The serving cache is a POOL of fixed-size pages ``[n_pages, page, H, dh]``
+per layer plus one int32 page TABLE ``[rows, npg]`` shared by every layer:
+row r's
 positions ``[j*page, (j+1)*page)`` live in pool slot ``table[r, j]``. Slots
 are handed out per request by the host free list (serve/allocator.py); slot
 0 is the SCRATCH page, where inactive rows' masked writes land.
@@ -55,6 +66,10 @@ from ddlbench_tpu_torch.ops import threefry
 
 NEG_INF = -1e30
 SCRATCH_SLOT = 0
+# positions per page of the beam cache; module-level so tests can shrink it
+# (every beam-cache entry point resolves it at call time)
+PAGE = 64
+BEAM_CACHE_DTYPES = (torch.float32, torch.bfloat16)
 
 KV_QMAX = 127.0
 # pool dtype codes of the C launchers
@@ -273,6 +288,125 @@ def serve_page_copy(pool: Pool, src: int, dst: int) -> Pool:
         if name in pool:
             pool[name][dst] = pool[name][src]
     return pool
+
+
+# ---------------------------------------------------------------------------
+# The row-owned beam cache (models/decode.py's paged loops). Every row owns
+# one slot per page index, slot r * npg + j; completed pages are immutable
+# (positions only grow), so a beam reorder copies table POINTERS for them
+# and physically copies only the one partial page per row. Writes land in
+# place, in the row's own slots.
+# ---------------------------------------------------------------------------
+
+
+def num_pages(total_len: int, page: Optional[int] = None) -> int:
+    page = page or PAGE
+    return -(-total_len // page)
+
+
+def _own_table(rows: int, npg: int, device) -> torch.Tensor:
+    return (torch.arange(rows, dtype=torch.int32, device=device)[:, None]
+            * npg + torch.arange(npg, dtype=torch.int32,
+                                 device=device)[None, :])
+
+
+def paged_cache_init(rows: int, total_len: int, n_heads: int, dh: int,
+                     dtype: torch.dtype, page: Optional[int] = None,
+                     device=None) -> Pool:
+    """A beam cache: pool_k/pool_v [rows * npg, page, H, dh] of ``dtype``
+    (float32 or bfloat16), zeroed, and the int32 table [rows, npg] with
+    every row on its own slots. ``table[r, j]`` is the slot holding row
+    r's positions [j * page, (j + 1) * page); :func:`paged_reorder` keeps
+    the entries of the current and later pages on the row's own slots, so
+    writes never collide across rows."""
+    if dtype not in BEAM_CACHE_DTYPES:
+        raise ValueError(
+            f"beam cache dtype {dtype}: float32 or bfloat16 only. The "
+            "reference's beam cache has no scale sidecars, so an int8 cache "
+            "would truncate K/V to integers (ROADMAP C.10); the int8 pool "
+            "is the serving engine's")
+    page = page or PAGE
+    npg = num_pages(total_len, page)
+    shape = (rows * npg, page, n_heads, dh)
+    return {"pool_k": torch.zeros(shape, dtype=dtype, device=device),
+            "pool_v": torch.zeros(shape, dtype=dtype, device=device),
+            "table": _own_table(rows, npg, device)}
+
+
+def _own_pages(pool: torch.Tensor, rows: int) -> torch.Tensor:
+    """``pool`` viewed as [rows, npg, page, H, dh]: each row's own slots."""
+    n, page, H, dh = pool.shape
+    return pool.view(rows, n // rows, page, H, dh)
+
+
+def paged_prefill_write(cache: Pool, k: torch.Tensor, v: torch.Tensor,
+                        page: Optional[int] = None, start: int = 0) -> Pool:
+    """Write a prompt chunk's K/V [rows, S, H, dh] at positions
+    [start, start + S) into each row's own pages, in place. A chunk past
+    the cache's capacity is refused (the reference's assert: its scatter
+    would drop the positions past the pool)."""
+    page = page or PAGE
+    start = int(start)
+    table = cache["table"]
+    rows, S = k.shape[:2]
+    capacity = table.shape[1] * page
+    assert start + S <= capacity, (
+        f"prefill chunk [{start}, {start + S}) exceeds the paged cache "
+        f"capacity {capacity} ({table.shape[1]} pages x {page}); allocate "
+        "the cache for the full prompt before chunked prefill")
+    pos = torch.arange(start, start + S, device=table.device)
+    pg, off = pos // page, pos % page
+    for name, x in (("pool_k", k), ("pool_v", v)):
+        pool = cache[name]
+        _own_pages(pool, rows)[:, pg, off] = x.to(pool.dtype)
+    return cache
+
+
+def paged_decode_write(cache: Pool, k1: torch.Tensor, v1: torch.Tensor,
+                       pos: int, page: Optional[int] = None) -> Pool:
+    """Write one token's K/V [rows, 1, H, dh] at position ``pos`` (an int)
+    into each row's own slot for its page, in place. Where the reference's
+    dynamic_update_slice would clamp a position past the cache, this
+    raises."""
+    page = page or PAGE
+    pos = int(pos)
+    rows, npg = cache["table"].shape
+    assert 0 <= pos < npg * page, (
+        f"decode position {pos} outside the paged cache's {npg * page} "
+        f"positions ({npg} pages x {page})")
+    for name, x in (("pool_k", k1), ("pool_v", v1)):
+        pool = cache[name]
+        _own_pages(pool, rows)[:, pos // page, pos % page] = (
+            x[:, 0].to(pool.dtype))
+    return cache
+
+
+def paged_reorder(cache: Pool, parent: torch.Tensor, pos: int,
+                  page: Optional[int] = None) -> Pool:
+    """Copy-on-write beam reorder before decoding position ``pos``:
+    ``parent[r]`` is the row whose history row r continues. Completed
+    pages (< pos // page) take the parent's table entries; the current
+    page, if partly filled (pos % page > 0), is copied from the parent's
+    own slot into row r's. Every source block is gathered before any is
+    written: two rows may swap parents, and a copy one row at a time would
+    overwrite a source before it is read. Returns the cache with the new
+    table (a contiguous int32 [rows, npg]); the pools change in place."""
+    page = page or PAGE
+    pos = int(pos)
+    table = cache["table"]
+    rows, npg = table.shape
+    p, off = pos // page, pos % page
+    parent = parent.to(table.device, torch.long)
+    page_idx = torch.arange(npg, device=table.device)[None, :]
+    new = torch.where(page_idx >= p, _own_table(rows, npg, table.device),
+                      table[parent]).contiguous()
+    if off > 0:
+        src = table[parent, p].long()  # a parent owns its partial page
+        for name in ("pool_k", "pool_v"):
+            pool = cache[name]
+            blocks = pool[src]  # gathered: a new tensor
+            _own_pages(pool, rows)[:, p] = blocks
+    return {**cache, "table": new}
 
 
 # ---------------------------------------------------------------------------
