@@ -37,7 +37,7 @@ one JSON line; any failure raises and exits non-zero:
              kernel's edges over float32, bfloat16 and int8 pools: pages
              of 8, 16 and 32, npl 1, 9 and 16, and pages of 64 (the beam
              cache's: four 16-key chunks, the ring refilled inside a page),
-             npl 1-4, positions on a page's first and last key, a row on
+             npl 1-8 (transformer_moe_s's beam holds 8), positions on a page's first and last key, a row on
              page 0 (warps 1-7 walk nothing). The
              chunk kernel run again at C 16, C 256 and the verify shape,
              and the decode kernel, over float32 and int8, must give the
@@ -235,7 +235,8 @@ one JSON line; any failure raises and exits non-zero:
              with its plain version and SDPA over the pre-gathered pages,
              beside its bound (phase 2's edges include pages of 64). (d)
              decodebench at its defaults plus --chunk-prefill --kv-dtype
-             float32,bfloat16,int8: exit 0, the six decode rows, 8 chunk
+             float32,bfloat16,int8 --repeats 1: exit 0, the six decode
+             rows, 8 chunk
              and 12 kv-dtype rows, none erred or skipped, no plain call,
              each paged kernel launched over float and int8 pools
              (counted apart from (a)). Reported: one warm paged beam
@@ -342,7 +343,51 @@ one JSON line; any failure raises and exits non-zero:
              finite losses, the same launch counts, 64 x 129 = 8 256 valid
              labels a batch, the fused-vs-logits agreement; then lmbench
              rows for flash+fused and flash+logits on synthmt.
-10b. tiny_dispatch — transformer_t (head dim 8, which the flash and
+10b. moe_train — the same on transformer_moe_s / synthtext (d 512, 8
+             layers, 8 heads, 4 Switch MoE blocks of 8 experts, capacity
+             factor 1.25, aux weight 0.01; B 16, T 1024, bf16), 2 warm-up
+             and 10 timed steps: finite losses, each flash kernel 8
+             launches a step and each fused-head kernel 1, no plain-path
+             call; each MoE block's aux loss (reported apart from the CE)
+             and drop share (tokens past capacity) in the last step; the
+             one-step agreements at the dense cells' bars, the compared
+             run's MoE blocks pinned to the fused flash run's experts;
+             beside each, the tokens whose expert differs in a run left
+             to its own router (a flip in a token whose expert and drop
+             agreed in every earlier block passes only where its top-2
+             router probabilities lie within 2^-5) and that run's loss
+             gap (within 1e-2); peak memory;
+             one profiled step (moe_train_profile); lmbench's four rows
+             (no remat retry for an MoE arch).
+10c. lstm_train — seq2seq_lstm_s / synthmt (d 512, 4 LSTM layers on
+             torch.lstm, one cross-attention; B 64, T 256, Adam,
+             smoothing 0.1), 2 + 5 steps: no flash launch, each
+             fused-head kernel once a step, 64 x 129 valid labels a
+             batch, the agreements; each LSTM layer on the card (bf16,
+             cuDNN) against the same layer in float32 on the CPU, on one
+             batch's embedding (lstm_vs_cpu: max abs error within 2^-5 of
+             the largest output, relative L2 within 1e-2); one profiled
+             step (lstm_train_profile); lmbench rows for flash+fused and
+             flash+logits.
+10d. moe_decode — transformer_moe_s built at capacity factor 8 (so its
+             full forward drops nothing), B 8, greedy and beam 4 from 256
+             prompt tokens to 512: the paged and the dense cache's tokens
+             against the full-forward loop (over the unpadded prefix), a
+             fork only at an accepted near tie and beam scores within
+             1e-4; each paged run B7 (512 - 1 - 256) x 8 times and B1 8
+             (the prompt's prefill), each dense run B1 8, no plain-path
+             call; B7 at the beam cache's last step (32 rows, 8 pages of
+             64) in f32 and bf16, held against its plain version within
+             1e-4, beside its bound, the plain version's time and SDPA's; decodebench's rows (four timed, the full-forward rows
+             skipped for a causal LM).
+10e. text_data — writes a made-up corpus from a seed (a train.txt and a
+             train.src/train.tgt pair, 4 000 lines) and runs the CLI's
+             -s --data-dir on it: transformer_moe_s on the text corpus,
+             seq2seq_lstm_s on the parallel corpus and transformer_moe_s
+             on a generated token store, 3 steps of B 8 each, finite
+             losses and the source's line; each source's first batch on
+             the card must equal the CPU's bitwise.
+10f. tiny_dispatch — transformer_t (head dim 8, which the flash and
              paged kernels do not take) on the card: lmbench's auto cell
              (B 4, T 1024, 1 + 3 steps) through the plain attention and the
              fused-head kernels at D 32, servebench (8 requests) through
@@ -438,7 +483,9 @@ Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
-plus decode (a)'s), the card's name and power
+plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
+train's, moe_train's and lstm_train's, the flash forward's moe_decode's
+too), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -446,6 +493,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -482,8 +530,10 @@ DECODE_EDGES = ((16, 16, "last"), (16, 16, "first"), (16, 9, "last"),
                 (16, 1, "first"), (8, 9, "first"), (8, 16, "last"),
                 (32, 9, "last"), (32, 16, "first"), (32, 1, "last")) + tuple(
     # the beam cache's page of 64: four 16-key chunks, the two-stage ring
-    # refilled inside a page (models/decode.py, phase decode)
-    (64, npl, key) for npl in (1, 2, 3, 4) for key in ("first", "last"))
+    # refilled inside a page (models/decode.py, phase decode), up to the 8
+    # live pages of transformer_moe_s's beam (phase moe_decode), where each
+    # of the kernel's 8 warps holds a page
+    (64, npl, key) for npl in range(1, 9) for key in ("first", "last"))
 SPEC_K = 4  # drafted tokens a verify pass checks
 VERIFY_C = SPEC_K + 1  # the verify pass: the pending token + SPEC_K drafts
 # the n-gram lengths serve_levers tries, in order: the reference's 3 first
@@ -566,6 +616,40 @@ S2S_ARGS = ["-m", "seq2seq_s", "-b", "synthmt", "--steps", "5", "--warmup",
             "2"]
 LAYERS = 8  # transformer_s, seq2seq_s: one launch of each flash kernel per
 # layer, and one of each fused-head kernel a step
+# the rest of token training: transformer_moe_s (8 attention layers, 4 of
+# them Switch MoE blocks of 8 experts, capacity factor 1.25) and
+# seq2seq_lstm_s (4 LSTM layers and one cross-attention: no flash call)
+MOE_ARGS = ["-m", "transformer_moe_s", "-b", "synthtext", "--steps", "10",
+            "--warmup", "2"]
+LSTM_ARGS = ["-m", "seq2seq_lstm_s", "-b", "synthmt", "--steps", "5",
+             "--warmup", "2"]
+# a token whose expert differs between two one-step runs (fused vs
+# logits, flash vs xla), and whose expert and drop agreed in every
+# earlier MoE block, is accepted only where its top-2 router
+# probabilities lie this close in the first run: bfloat16 activations
+# move a router probability by far less
+MOE_FLIP_MARGIN = 2.0 ** -5
+# lstm_vs_cpu: an LSTM layer in bfloat16 on the card (cuDNN) against the
+# same layer in float32 on the CPU over 256 recurrent steps: max abs error
+# within 2^-5 of the largest output (4 bfloat16 ulps there), relative L2
+# within 1e-2
+LSTM_TOL_ABS, LSTM_TOL_REL = 2.0 ** -5, 1e-2
+# moe_decode: the model at capacity factor E, so that its full forward
+# (the oracle) drops nothing; decodebench's rows at B 8, beam 4, from 256
+# prompt tokens to 512 (the beam cache's last step: 32 rows, 8 pages of 64)
+MOE_DECODE_CF = 8.0
+MOE_DECODE_ARGS = ["-m", "transformer_moe_s", "-b", "synthtext", "--batch",
+                   "8", "--beam", "4", "--total-len", "512", "--repeats",
+                   "1"]
+# text_data: the CLI on on-disk text (-s --data-dir), a few steps each
+TEXT_LINES = 4000
+TEXT_CLI = {
+    "text_corpus": ["-b", "synthtext", "-m", "transformer_moe_s"],
+    "translation_corpus": ["-b", "synthmt", "-m", "seq2seq_lstm_s"],
+    "token_store": ["-b", "synthtext", "-m", "transformer_moe_s"],
+}
+TEXT_CLI_COMMON = ["-s", "-e", "1", "--steps-per-epoch", "3", "-p", "1",
+                   "--batch-size", "8"]
 FX_SOURCE = "ddlbench_tpu_torch/ops/csrc/fused_xent.cu"
 # each fused-head kernel -> the pallas_call it replaces
 FX_KERNELS = {
@@ -1113,8 +1197,8 @@ def phase_kernels(torch, pd, dev):
         check(dtype, C, npl, PAGE, "page-aligned" if aligned else "unaligned",
               *make_case(torch, pd, dtype, npl, C, gen, dev, aligned))
     # the decode kernel's edges: pages of 8 (one partial chunk), 16 and 32
-    # (two chunks), npl 1, 9 and 16, positions on a page's first and last
-    # key, a row whose warps 1-7 walk nothing
+    # (two chunks), npl 1, 9 and 16, pages of 64 at npl 1-8, positions on
+    # a page's first and last key, a row whose warps 1-7 walk nothing
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
         for page, npl, key in DECODE_EDGES:
             check(dtype, None, npl, page, f"{key} key of a page",
@@ -2375,8 +2459,10 @@ DECODE_SCORE_RTOL = 1e-4
 # teacher-forced on the shared prefix: float32 summation-order noise; a
 # path farther off than this is wrong, not tied
 DECODE_LOGIT_TOL = 1e-3
+# (one timed call a row after the warm one: the script's time limit is
+# shared with every later phase)
 DECODE_BENCH_ARGS = ["--chunk-prefill", "--kv-dtype",
-                     "float32,bfloat16,int8"]
+                     "float32,bfloat16,int8", "--repeats", "1"]
 # (f): the engine's requests on transformer_s, prompt lengths and new
 # tokens each
 ORACLE_PROMPTS, ORACLE_NEW = (17, 64, 100, 33), 32
@@ -2448,12 +2534,33 @@ def decode_forks(torch, got, want, logits_of):
     return forks
 
 
-def beam_time(torch, pd, dev, dtype, flush):
-    """B7 at the beam cache's last decode step (BEAM_SHAPE: 32 rows, 4
-    live pages of 64, position 254 in every row, each row on its own
-    slots): the kernel, its plain version and SDPA over the pre-gathered
-    pages, with the bound."""
-    rows, npl, page = BEAM_SHAPE
+def held_to_oracle(torch, got, want, logits_of):
+    """A decoding path's (tokens, beam scores or None) against its
+    oracle's: each row's first fork (decode_forks), accepted only at a
+    near tie, and the beam scores of the rows without a fork within
+    DECODE_SCORE_RTOL. Returns the record, "ok" among its keys."""
+    (got_x, got_s), (want_x, want_s) = got, want
+    forks = decode_forks(torch, got_x, want_x, logits_of)
+    rows = want_x.shape[0]
+    rec = {"forks": forks, "tokens_equal_rows": rows - len(forks)}
+    ok = all(f["accepted"] for f in forks.values())
+    if got_s is not None:
+        keep = [r for r in range(rows) if r not in forks]
+        rel = ((got_s[keep] - want_s[keep]).abs()
+               / want_s[keep].abs()).max().item() if keep else 0.0
+        rec.update(score_max_rel=rel, score_rtol=DECODE_SCORE_RTOL)
+        ok = ok and rel <= DECODE_SCORE_RTOL
+    return {**rec, "ok": ok}
+
+
+def beam_time(torch, pd, dev, dtype, flush, shape=BEAM_SHAPE):
+    """B7 at a beam cache's last decode step (``shape``: rows, live pages,
+    page; BEAM_SHAPE is seq2seq_s's: 32 rows, 4 live pages of 64,
+    position 254 in every row, each row on its own slots): the kernel
+    held against its plain version within TOL, then the kernel, the
+    plain version and SDPA over the pre-gathered pages timed, with the
+    bound."""
+    rows, npl, page = shape
     gen = torch.Generator().manual_seed(4)
     cache = pd.paged_cache_init(rows, npl * page, H, DH, dtype, page=page,
                                 device=dev)
@@ -2462,9 +2569,17 @@ def beam_time(torch, pd, dev, dtype, flush):
     q = torch.randn(rows, H, DH, generator=gen).to(dev)
     pos = torch.full((rows,), npl * page - 2, dtype=torch.int32, device=dev)
     b_ms, b_by = bound(q, cache, pos, npl, None, page)
+    err = (pd.paged_attention(q, cache, pos, npl, page)
+           - pd._paged_attention_ref(q, cache, pos, npl, page)
+           ).abs().max().item()
+    if not err <= TOL:
+        raise AssertionError(f"paged_attention at the beam shape {shape} "
+                             f"over a {dtype} pool: max abs err {err} > "
+                             f"{TOL}")
     time_ms(torch, lambda: pd.paged_attention(q, cache, pos, npl, page),
             flush)  # the first timed call reads high
     return {
+        "max_abs_err": err, "tol": TOL,
         "ms": time_ms(torch, lambda: pd.paged_attention(q, cache, pos, npl,
                                                         page), flush),
         "plain_ms": time_ms(torch, lambda: pd._paged_attention_ref(
@@ -2645,8 +2760,6 @@ def phase_decode(torch, pd, fa, dev):
     for name, (mode, variant, dtype, oracle) in runs.items():
         if oracle is None:
             continue
-        got_x, got_s = out[name]
-        want_x, want_s = out[oracle]
         o_variant, o_dtype = runs[oracle][1], runs[oracle][2]
 
         def logits_of(prefix, side, variant=variant, dtype=dtype,
@@ -2655,18 +2768,8 @@ def phase_decode(torch, pd, fa, dev):
                                                                   dtype)
             return path_logits(torch, dec, pd, model, prefix, v, d, S, T)
 
-        forks = decode_forks(torch, got_x, want_x, logits_of)
-        rec = {"oracle": oracle, "forks": forks,
-               "tokens_equal_rows": B - len(forks)}
-        ok = all(f["accepted"] for f in forks.values())
-        if mode == "beam":
-            keep = [r for r in range(B) if r not in forks]
-            rel = ((got_s[keep] - want_s[keep]).abs()
-                   / want_s[keep].abs()).max().item() if keep else 0.0
-            rec.update(score_max_rel=rel, score_rtol=DECODE_SCORE_RTOL)
-            ok = ok and rel <= DECODE_SCORE_RTOL
-        rec["ok"] = ok
-        compared[name] = rec
+        compared[name] = {"oracle": oracle, **held_to_oracle(
+            torch, out[name], out[oracle], logits_of)}
     checks["a_paths_against_oracles"] = all(r["ok"] for r in
                                             compared.values())
     # the bfloat16 cache's distance from the float32 loops: reported only
@@ -3327,13 +3430,41 @@ def phase_fxent_times(torch, fx, dev):
     return times
 
 
-def one_step(torch, strategy, cfg, x, y, attn, fused):
+@contextlib.contextmanager
+def pinned_experts(torch, experts):
+    """Route the MoE blocks' tokens to ``experts`` (one [S] tensor a
+    block, in forward order) in place of the router's argmax, the gate
+    staying the router's probability of that expert: two runs pinned to
+    one routing compute the same function, so their gap is rounding, not
+    router flips."""
+    from ddlbench_tpu_torch.models import moe
+
+    pending, top1 = list(experts), moe.top1_gate
+
+    def pinned(gate_logits):
+        probs = torch.softmax(gate_logits.float(), -1)
+        expert = pending.pop(0)
+        return probs, expert, probs.gather(-1, expert[:, None])[:, 0]
+
+    moe.top1_gate = pinned
+    try:
+        yield
+    finally:
+        moe.top1_gate = top1
+    if pending:
+        raise AssertionError(f"{len(pending)} pinned MoE blocks never ran")
+
+
+def one_step(torch, strategy, cfg, x, y, attn, fused, pin=()):
     """One step's unsmoothed loss and gradients (forward and backward, no
-    update) under attention ``attn`` and the fused head or the logits, and
-    the peak device memory it took: (loss, grads, peak bytes, bytes
-    allocated at its start)."""
+    update) under attention ``attn`` and the fused head or the logits,
+    each MoE block's experts pinned to ``pin`` where given
+    (pinned_experts), and the peak device memory it took: (loss, grads,
+    peak bytes, bytes allocated at its start, each MoE block's (experts,
+    router probabilities, kept mask))."""
     import dataclasses
 
+    from ddlbench_tpu_torch.models.moe import moe_blocks
     from ddlbench_tpu_torch.models.transformer import set_attention_backend
     from ddlbench_tpu_torch.parallel.common import loss_and_grads
 
@@ -3343,16 +3474,48 @@ def one_step(torch, strategy, cfg, x, y, attn, fused):
     torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.memory_allocated()
     try:
-        ce, _, grads = loss_and_grads(
-            strategy.model, dataclasses.replace(cfg, fused_head_loss=fused),
-            x, y, torch.bfloat16, strategy.smoothing)
+        with (pinned_experts(torch, pin) if pin
+              else contextlib.nullcontext()):
+            ce, _, grads = loss_and_grads(
+                strategy.model,
+                dataclasses.replace(cfg, fused_head_loss=fused), x, y,
+                torch.bfloat16, strategy.smoothing)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
     finally:
         set_attention_backend("auto")
-    out = (ce.item(), [g.float().clone() for g in grads], peak, start)
+    routes = [(b.last_route.expert.clone(), b.last_route.probs.clone(),
+               b.last_route.keep.clone())
+              for b in moe_blocks(strategy.model)]
+    out = (ce.item(), [g.float().clone() for g in grads], peak, start,
+           routes)
     strategy.model.zero_grad(set_to_none=True)
     return out
+
+
+def router_flips(torch, a, b):
+    """The tokens whose expert differs between two one_step runs, each MoE
+    block's count and how many of them had already changed expert or
+    drop in an earlier block (whose input then differs by more than
+    noise), and the largest top-2 router-probability margin in run ``a``
+    among the others (raises past MOE_FLIP_MARGIN)."""
+    per_layer, cascaded, worst, clean = [], [], 0.0, None
+    for (ea, pa, ka), (eb, _, kb) in zip(a[4], b[4]):
+        clean = torch.ones_like(ka) if clean is None else clean
+        flipped = ea != eb
+        fresh = (flipped & clean).nonzero()[:, 0]
+        per_layer.append(int(flipped.sum()))
+        cascaded.append(int((flipped & ~clean).sum()))
+        if fresh.numel():
+            top2 = pa[fresh].topk(2, -1).values
+            worst = max(worst, (top2[:, 0] - top2[:, 1]).max().item())
+        clean = clean & ~flipped & (ka == kb)
+    rec = {"flipped_tokens": per_layer, "after_earlier_change": cascaded,
+           "tokens": int(a[4][0][0].numel()),
+           "worst_fresh_flip_margin": worst, "margin_tol": MOE_FLIP_MARGIN}
+    if worst > MOE_FLIP_MARGIN:
+        raise AssertionError(f"a router flip beyond the noise: {rec}")
+    return rec
 
 
 def agreement(a, b, names):
@@ -3361,10 +3524,11 @@ def agreement(a, b, names):
     loss_gap = abs(a[0] - b[0])
     grad_rel = max(((g - h).norm() / h.norm().clamp(min=1e-30)).item()
                    for g, h in zip(a[1], b[1]))
+    grad_tol = 5e-2
     rec = {f"loss_{names[0]}": a[0], f"loss_{names[1]}": b[0],
            "loss_abs_diff": loss_gap, "loss_tol": 1e-2,
-           "worst_grad_rel_l2": grad_rel, "grad_tol": 5e-2}
-    if not (loss_gap <= 1e-2 and grad_rel <= 5e-2):
+           "worst_grad_rel_l2": grad_rel, "grad_tol": grad_tol}
+    if not (loss_gap <= 1e-2 and grad_rel <= grad_tol):
         raise AssertionError(f"{names[0]} and {names[1]} disagree on one "
                              f"step: {rec}")
     return rec
@@ -3379,6 +3543,8 @@ def train_cell(torch, fa, fx, dev, argv, phase):
     data)."""
     from ddlbench_tpu_torch.config import RunConfig
     from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.models.moe import moe_blocks
+    from ddlbench_tpu_torch.models.transformer import AttentionBlock
     from ddlbench_tpu_torch.parallel.api import make_strategy
     from ddlbench_tpu_torch.tools import lmbench
     from ddlbench_tpu_torch.tools.timing import timed_steps
@@ -3389,6 +3555,11 @@ def train_cell(torch, fa, fx, dev, argv, phase):
                     attention_backend="flash", steps_per_epoch=args.steps,
                     seed=0)
     strategy = make_strategy(cfg, dev)
+    # each flash kernel launches once per attention layer a step
+    layers = sum(isinstance(m, AttentionBlock)
+                 for m in strategy.model.modules())
+    per_step = {**{name: layers for name in FLASH_KERNELS},
+                **{name: 1 for name in FX_KERNELS}}
     spec = cfg.dataset()
     B, T = cfg.global_batch(), spec.seq_len
     valid_per_batch = (B * (T - spec.src_len + 1) if spec.kind == "seq2seq"
@@ -3418,10 +3589,18 @@ def train_cell(torch, fa, fx, dev, argv, phase):
     if not all(math.isfinite(x) for x in loss_vals):
         raise AssertionError(f"non-finite training loss: {loss_vals}")
     for name, n in launches.items():
-        per_step = LAYERS if name in FLASH_KERNELS else 1
-        if n != per_step * steps_run:
+        if n != per_step[name] * steps_run:
             raise AssertionError(f"{name} launched {n} times in {steps_run} "
-                                 f"steps, not {per_step} a step")
+                                 f"steps, not {per_step[name]} a step")
+    # the MoE blocks' routing in the last timed step
+    blocks = moe_blocks(strategy.model)
+    moe = {"aux_weight": cfg.moe_aux_weight,
+           "capacity_factor": cfg.moe_capacity_factor,
+           "aux": [b.last_route.aux.item() for b in blocks],
+           "drop_share": [(~b.last_route.keep).float().mean().item()
+                          for b in blocks]} if blocks else None
+    if moe:
+        moe["aux_term"] = cfg.moe_aux_weight * sum(moe["aux"])
     # the batches the run took (timed_steps: epoch 0 step 0 warms up)
     valid_vals = [int((data.batch(*key)[1] >= 0).sum()) for key in
                   [(0, 0)] + [(1, step) for step in range(args.steps)]]
@@ -3430,25 +3609,44 @@ def train_cell(torch, fa, fx, dev, argv, phase):
                              f"{valid_per_batch}")
 
     # one step from the same weights and batch: fused vs logits (flash),
-    # flash vs xla (fused), and the peak memory of each head
+    # flash vs xla (fused), and the peak memory of each head. The MoE
+    # blocks of the compared runs route as the fused flash run did, so
+    # every gradient leaf is held to the same bar; a run left to its own
+    # router counts the router flips and its loss gap
     x, y = data.batch(2, 0)
     fused = one_step(torch, strategy, cfg, x, y, "flash", True)
-    logits = one_step(torch, strategy, cfg, x, y, "flash", False)
-    xla = one_step(torch, strategy, cfg, x, y, "xla", True)
+    pin = [route[0] for route in fused[4]]
+    logits = one_step(torch, strategy, cfg, x, y, "flash", False, pin)
+    xla = one_step(torch, strategy, cfg, x, y, "xla", True, pin)
     gib = 2.0 ** 30
+    pairs = {}
+    for key, other, names, attn, head in (
+            ("fused_vs_logits", logits, ("fused", "logits"), "flash", False),
+            ("flash_vs_xla", xla, ("flash", "xla"), "xla", True)):
+        pairs[key] = agreement(fused, other, names)
+        if blocks:
+            free = one_step(torch, strategy, cfg, x, y, attn, head)
+            router = router_flips(torch, fused, free)
+            router["unpinned_loss_abs_diff"] = abs(fused[0] - free[0])
+            if not router["unpinned_loss_abs_diff"] <= 1e-2:
+                raise AssertionError(f"{key}: the unpinned runs' losses "
+                                     f"disagree: {router}")
+            pairs[key]["router"] = router
+            del free
+    fused_vs_logits, flash_vs_xla = pairs["fused_vs_logits"], \
+        pairs["flash_vs_xla"]
     emit({"phase": phase, "model": args.model, "benchmark": args.benchmark,
           "batch": B, "seq_len": T, "dtype": args.dtype,
           "config": "flash+fused", "optimizer": cfg.resolved_optimizer(),
           "label_smoothing": cfg.resolved_label_smoothing(),
           "steps": steps_run, "launches": launches,
-          "launches_per_step": {name: LAYERS if name in FLASH_KERNELS else 1
-                                for name in launches},
+          "launches_per_step": per_step,
           "valid_labels_per_batch": sorted(set(valid_vals)),
-          "losses": loss_vals,
+          "losses": loss_vals, "moe": moe,
           "timed_tokens_per_sec": args.steps * B * T / dt,
           "timed_ms_per_step": 1e3 * dt / args.steps,
-          "fused_vs_logits": agreement(fused, logits, ("fused", "logits")),
-          "flash_vs_xla": agreement(fused, xla, ("flash", "xla")),
+          "fused_vs_logits": fused_vs_logits,
+          "flash_vs_xla": flash_vs_xla,
           "step_peak_memory_gib": {
               "flash+fused": fused[2] / gib, "flash+logits": logits[2] / gib,
               "xla+fused": xla[2] / gib},
@@ -3488,6 +3686,295 @@ def phase_seq2seq(torch, fa, fx, dev):
     if rc != 0:
         raise AssertionError(f"lmbench exited {rc}")
     return launches
+
+
+def phase_moe_train(torch, fa, fx, dev):
+    """transformer_moe_s / synthtext at full width (B 16, T 1 024, 8
+    experts, capacity factor 1.25), flash+fused, then one profiled step
+    and its lmbench rows (no remat retry). Returns the launches."""
+    from ddlbench_tpu_torch.tools import lmbench
+
+    launches, strategy, data = train_cell(torch, fa, fx, dev, MOE_ARGS,
+                                          "moe_train")
+    phase_train_profile(torch, strategy, data, "moe_train_profile", 1)
+    del strategy, data
+    torch.cuda.empty_cache()
+    rc = lmbench.main(MOE_ARGS)
+    if rc != 0:
+        raise AssertionError(f"lmbench exited {rc}")
+    return launches
+
+
+def lstm_vs_cpu(torch, strategy, data):
+    """Each LSTM layer of the trained model on the card (bf16: cuDNN's
+    recurrence over weights re-packed at the call) against the same layer
+    in float32 on the CPU (PyTorch's own cell), both fed one batch's
+    embedding rounded to bf16 at the cell's shape; raises past
+    LSTM_TOL_ABS times the largest output or past LSTM_TOL_REL."""
+    import copy
+
+    from ddlbench_tpu_torch.models.lstm import LSTMLayer
+
+    model = strategy.model
+    x, _ = data.batch(2, 0)
+    layers = []
+    with torch.no_grad():
+        h = model.layers[0](x).to(torch.bfloat16)
+        for i, layer in enumerate(model.layers):
+            if not isinstance(layer, LSTMLayer):
+                continue
+            got = layer(h).float().cpu()
+            want = copy.deepcopy(layer).cpu().float()(h.float().cpu())
+            layers.append({
+                "layer": i, "residual": layer.residual,
+                "max_abs_err": (got - want).abs().max().item(),
+                "rel_l2": ((got - want).norm() / want.norm()).item(),
+                "max_abs_out": want.abs().max().item()})
+    rec = {"phase": "lstm_vs_cpu", "shape": list(h.shape),
+           "layers": layers, "tol_abs": LSTM_TOL_ABS,
+           "tol_rel": LSTM_TOL_REL}
+    emit(rec)
+    if not all(r["max_abs_err"] <= LSTM_TOL_ABS * r["max_abs_out"]
+               and r["rel_l2"] <= LSTM_TOL_REL for r in layers):
+        raise AssertionError(f"an LSTM layer on the card disagrees with "
+                             f"the CPU: {rec}")
+
+
+def phase_lstm_train(torch, fa, fx, dev):
+    """seq2seq_lstm_s / synthmt (B 64, T 256, 4 LSTM layers on
+    torch.lstm), flash+fused, Adam, smoothing 0.1: no flash launch, the
+    fused head once a step; one profiled step; its lmbench rows. Returns
+    the launches."""
+    from ddlbench_tpu_torch.tools import lmbench
+
+    launches, strategy, data = train_cell(torch, fa, fx, dev, LSTM_ARGS,
+                                          "lstm_train")
+    lstm_vs_cpu(torch, strategy, data)
+    phase_train_profile(torch, strategy, data, "lstm_train_profile", 1)
+    del strategy, data
+    torch.cuda.empty_cache()
+    rc = lmbench.main(LSTM_ARGS + ["--configs", "flash+fused,flash+logits"])
+    if rc != 0:
+        raise AssertionError(f"lmbench exited {rc}")
+    return launches
+
+
+def full_forward_decode(torch, dec, model, src, T, beam=None):
+    """The full-forward oracle of a causal LM: one forward over the
+    unpadded prefix per position, greedy, or beam search with
+    models/decode.py's expansion. Returns (tokens, scores or None)."""
+    with torch.no_grad():
+        if beam is None:
+            x = src.long()
+            for _ in range(src.shape[1], T):
+                x = torch.cat([x, model(x)[:, -1].argmax(-1)[:, None]], 1)
+            return x, None
+        B, S = src.shape
+        x = torch.zeros(B * beam, T, dtype=torch.long, device=src.device)
+        x[:, :S] = src.long().repeat_interleave(beam, 0)
+        score = dec.first_scores(B, beam, src.device)
+        for t in range(S, T):
+            x, score, _ = dec.beam_expand(x, score, model(x[:, :t])[:, -1],
+                                          t, B, beam)
+        return dec.best_beam(x, score, B, beam, T - S, 0.6)
+
+
+def phase_moe_decode(torch, pd, fa, dev):
+    """transformer_moe_s decoding on the card (random weights, seed 0,
+    capacity factor 8): greedy and beam 4 at B 8 from 256 prompt tokens
+    to 512, over the paged (B7 at page 64, B1 on the prefill) and the
+    dense caches, each against the full-forward loop (near-tie forks
+    only); the launches; B7 at the beam cache's last step; decodebench's
+    rows. Returns B7's and B1's launches over the cached runs."""
+    from ddlbench_tpu_torch.config import DATASETS
+    from ddlbench_tpu_torch.device import provenance
+    from ddlbench_tpu_torch.models import decode as dec
+    from ddlbench_tpu_torch.models.moe import moe_blocks
+    from ddlbench_tpu_torch.models.transformer import AttentionBlock
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.tools import decodebench
+
+    t0 = time.perf_counter()
+    args = decodebench.build_parser().parse_args(MOE_DECODE_ARGS)
+    spec = DATASETS[args.benchmark]
+    T, B, beam = args.total_len, args.batch, args.beam
+    S = T // 2
+    model = get_model(args.model, spec, seed=0,
+                      moe_capacity_factor=MOE_DECODE_CF).to(dev)
+    layers = sum(isinstance(m, AttentionBlock) for m in model.modules())
+    src = torch.randint(0, spec.num_classes, (B, S),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+
+    def zero():
+        pd.paged_attention.launches = pd.paged_attention.plain_launches = 0
+        fa.flash_fwd.launches = fa.flash_attention.plain_launches = 0
+
+    def counts():
+        return {"paged_attention": pd.paged_attention.launches,
+                "flash_fwd": fa.flash_fwd.launches,
+                "plain": pd.paged_attention.plain_launches
+                + fa.flash_attention.plain_launches}
+
+    out, launches, seconds = {}, {}, {}
+    for mode in ("greedy", "beam"):
+        tr = time.perf_counter()
+        out[f"full_{mode}"] = full_forward_decode(
+            torch, dec, model, src, T, beam if mode == "beam" else None)
+        torch.cuda.synchronize()
+        seconds[f"full_{mode}"] = time.perf_counter() - tr
+        dropped = sum(int((~b.last_route.keep).sum())
+                      for b in moe_blocks(model))
+        if dropped:
+            raise AssertionError(f"the full forward dropped {dropped} tokens "
+                                 f"at capacity factor {MOE_DECODE_CF}")
+        for variant in ("cached", "paged"):
+            name = f"{variant}_{mode}"
+            zero()
+            tr = time.perf_counter()
+            paged = variant == "paged"
+            res = (dec.greedy_decode(model, src, T, paged=paged)
+                   if mode == "greedy" else dec.beam_search_decode(
+                       model, src, T, beam=beam, paged=paged))
+            torch.cuda.synchronize()
+            seconds[name] = time.perf_counter() - tr
+            launches[name] = counts()
+            out[name] = res if mode == "beam" else (res, None)
+
+    checks, compared = {}, {}
+    for name in ("cached_greedy", "paged_greedy", "cached_beam",
+                 "paged_beam"):
+        variant, mode = name.split("_")
+
+        def logits_of(prefix, side, variant=variant):
+            return path_logits(torch, dec, pd, model, prefix,
+                               "full" if side == "want" else variant,
+                               torch.float32, S, T)
+
+        compared[name] = held_to_oracle(torch, out[name],
+                                        out[f"full_{mode}"], logits_of)
+    checks["paths_against_full_forward"] = all(r["ok"] for r in
+                                               compared.values())
+    want_b7, want_b1 = (T - 1 - S) * layers, layers
+    checks["launches"] = all(
+        launches[n]["plain"] == 0 and launches[n]["flash_fwd"] == want_b1
+        and launches[n]["paged_attention"] == (want_b7 if "paged" in n
+                                               else 0) for n in launches)
+    b7 = sum(launches[n]["paged_attention"] for n in launches)
+    del out
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    shape = (B * beam, (T - 2) // 64 + 1, 64)
+    times = {str(d).split(".")[-1]: beam_time(torch, pd, dev, d, flush,
+                                               shape)
+             for d in (torch.float32, torch.bfloat16)}
+    del flush
+    torch.cuda.empty_cache()
+
+    rows = list(decodebench.decode_rows(args, model, spec, dev,
+                                        provenance(dev)))
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    timed = [r for r in rows if "skipped" not in r]
+    checks["decodebench"] = (
+        len(timed) == 4 and not any("error" in r for r in rows)
+        and all(r["plain_launches"] == 0 for r in timed)
+        and {r["variant"] for r in rows if "skipped" in r} == {"full"})
+    emit({"phase": "moe_decode", "model": args.model,
+          "benchmark": args.benchmark, "capacity_factor": MOE_DECODE_CF,
+          "batch": B, "beam": beam, "prompt_len": S, "total_len": T,
+          "checks": checks, "compared": compared, "launches": launches,
+          "expected_paged": {"paged_attention": want_b7,
+                             "flash_fwd": want_b1, "plain": 0},
+          "run_seconds": seconds, "b7_moe_beam_shape": times,
+          "decodebench": [{k: r.get(k) for k in (
+              "mode", "variant", "tokens_per_sec", "ms_per_token",
+              "plain_launches", "skipped")} for r in rows],
+          "card": card_line(), "seconds": time.perf_counter() - t0})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"moe_decode: failed {failed}")
+    return b7, sum(launches[n]["flash_fwd"] for n in launches)
+
+
+def write_text_corpus(root: Path, seed: int = 0) -> None:
+    """A made-up text corpus from ``seed``: ``train.txt`` (TEXT_LINES
+    lines of a 200-word vocabulary) and a ``train.src``/``train.tgt``
+    pair whose target reverses the source's words."""
+    import random
+
+    rng = random.Random(seed)
+    letters = "abcdefghiklmnoprstuvy"
+    words = ["".join(rng.choice(letters) for _ in range(rng.randint(2, 9)))
+             for _ in range(200)]
+    lines = [" ".join(rng.choice(words) for _ in range(rng.randint(4, 16)))
+             for _ in range(TEXT_LINES)]
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "train.txt").write_text("\n".join(lines) + "\n")
+    (root / "train.src").write_text("\n".join(lines) + "\n")
+    (root / "train.tgt").write_text("\n".join(
+        " ".join(w[::-1] for w in line.split()[::-1]) for line in lines)
+        + "\n")
+
+
+def phase_text_data(torch, dev):
+    """On-disk text on the card (phase 10e of the docstring): the CLI's
+    -s --data-dir on a text corpus, a parallel corpus and a generated
+    token store, a few steps each; each source's first batch on the card
+    equal to the CPU's bitwise."""
+    import contextlib
+    import io
+    import tempfile
+
+    from ddlbench_tpu_torch import cli
+    from ddlbench_tpu_torch.train.loop import make_data
+
+    t0 = time.perf_counter()
+    runs, first_equal = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_text_") as tmp:
+        corpus = Path(tmp) / "corpus"
+        write_text_corpus(corpus)
+        for name, argv in TEXT_CLI.items():
+            root = corpus if "corpus" in name else Path(tmp) / "store"
+            argv = argv + TEXT_CLI_COMMON + ["--data-dir", str(root)]
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv)
+            lines = out.getvalue().splitlines()
+            for line in lines:
+                print(line, flush=True)
+            losses = [float(re.search(r"loss (\S+)", line).group(1))
+                      for line in lines if line.startswith("train | ")]
+            source = next((line for line in lines if line.startswith(
+                ("text corpus: ", "translation data: "))), None)
+            result = json.loads(lines[-1][len("result: "):])
+            if not (rc == 0 and len(losses) == 3
+                    and all(math.isfinite(v) for v in losses)
+                    and (source is not None) == ("corpus" in name)):
+                raise AssertionError(f"text_data {name}: rc {rc}, losses "
+                                     f"{losses}, source line {source!r}")
+            # the first batch of the run's source, on the card and on the
+            # CPU (a store: two readers of the same sequential stream)
+            cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+            batches = []
+            for d in (dev, torch.device("cpu")):
+                data = make_data(cfg, d)
+                try:
+                    batches.append([t.cpu() for t in data.batch(0, 0)])
+                finally:
+                    getattr(data, "close", lambda: None)()
+            first_equal[name] = all(torch.equal(a, b) and a.dtype == b.dtype
+                                    for a, b in zip(*batches))
+            runs[name] = {"argv": argv, "source": source,
+                          "train_losses": losses,
+                          "samples_per_sec": result["samples_per_sec"],
+                          "first_batch_shape": list(batches[0][0].shape)}
+    emit({"phase": "text_data", "runs": runs,
+          "first_batch_equal_cpu": first_equal,
+          "seconds": time.perf_counter() - t0})
+    if not all(first_equal.values()):
+        raise AssertionError(f"text_data: first batches differ from the "
+                             f"CPU's: {first_equal}")
 
 
 def phase_tiny_dispatch(torch, dev):
@@ -3539,8 +4026,10 @@ def phase_tiny_dispatch(torch, dev):
     emit(rec)
 
 
-def phase_train_profile(torch, strategy, data):
-    """Where a flash+fused training step's device time goes."""
+def phase_train_profile(torch, strategy, data, phase="train_profile",
+                        steps=3):
+    """Where a flash+fused training step's device time goes: ``steps``
+    warm steps under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from ddlbench_tpu_torch.models.transformer import set_attention_backend
@@ -3550,7 +4039,6 @@ def phase_train_profile(torch, strategy, data):
     x, y = data.batch(3, 0)
     strategy.train_step(x, y, lr)
     torch.cuda.synchronize()
-    steps = 3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3569,7 +4057,8 @@ def phase_train_profile(torch, strategy, data):
                                          "calls_per_step": 0.0})
             rec["ms_per_step"] += e.self_device_time_total / 1e3 / steps
             rec["calls_per_step"] += e.count / steps
-    emit({"phase": "train_profile", "steps": steps, "wall_ms": wall_ms,
+    emit({"phase": phase, "model": strategy.cfg.arch, "steps": steps,
+          "wall_ms": wall_ms,
           "device_busy_ms": busy_ms if kern else None,
           "device_busy_share": busy_ms / wall_ms if kern else None,
           "port_kernels": port,
@@ -4404,6 +4893,14 @@ def main() -> int:
     fx_timed = phase_fxent_times(torch, fx, dev)
     train_launches, strategy, data = phase_train(torch, fa, fx, dev)
     phase_seq2seq(torch, fa, fx, dev)
+    for more in (phase_moe_train(torch, fa, fx, dev),
+                 phase_lstm_train(torch, fa, fx, dev)):
+        for name, n in more.items():
+            train_launches[name] += n
+    b7, b1 = phase_moe_decode(torch, pd, fa, dev)
+    launches["paged_attention"] += b7
+    train_launches["flash_fwd"] += b1
+    phase_text_data(torch, dev)
     phase_tiny_dispatch(torch, dev)
     phase_train_profile(torch, strategy, data)
     del strategy, data

@@ -12,17 +12,26 @@ then ``result: {...}``, the summary as JSON.
     python -m ddlbench_tpu_torch.cli -b imagenet -f single -m resnet50 -s \
         --data-dir D -e 1 --steps-per-epoch 20
 
-trains on on-disk images (``-s``): a store or a recognised layout
-(ImageFolder, MNIST IDX, CIFAR-10 batches) under ``--data-dir``, else a
-synthetic store generated there, read by the native loader, augmented
-on the device (``--no-augment`` turns that off) and prefetched
-``--prefetch-depth`` batches ahead (2; ``--no-prefetch`` is 0).
+trains on on-disk data (``-s``): for a seq2seq benchmark a parallel
+corpus (``train.src``/``train.tgt``) under ``--data-dir``, for a token
+benchmark a text corpus (``train.txt``), both tokenized with a BPE
+vocabulary trained on the corpus and cached beside it; otherwise a store
+or a recognised image layout (ImageFolder, MNIST IDX, CIFAR-10 batches)
+there, else a synthetic store generated there, read by the native
+loader, augmented on the device (images; ``--no-augment`` turns that
+off) and prefetched ``--prefetch-depth`` batches ahead (2;
+``--no-prefetch`` is 0).
+
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_moe_s \
+        -e 1 --steps-per-epoch 20 --moe-capacity-factor 1.25
 
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
-25, seed 1, bfloat16) and the knobs the image loop reads (``-e -p
+25, seed 1, bfloat16) and the knobs the loop reads (``-e -p
 --batch-size --steps-per-epoch --grad-accum-steps --lr --optimizer
---dtype --seed --jsonl`` and the data flags above); ``--device`` stands
-in for ``--platform``;
+--dtype --seed --jsonl``, the data flags above and the token knobs
+``--label-smoothing --attention-backend --no-fused-head-loss
+--remat-layers --moe-aux-weight --moe-capacity-factor``, with the
+reference's defaults); ``--device`` stands in for ``--platform``;
 ``--momentum`` and ``--weight-decay`` override the per-workload defaults.
 Every other flag of the reference is refused by name (an error naming it),
 never ignored; so are ``-f`` strategies other than ``single`` and the
@@ -35,8 +44,8 @@ import argparse
 import json
 import sys
 
-from ddlbench_tpu_torch.config import DATASETS, RunConfig
-from ddlbench_tpu_torch.models.zoo import MODEL_NAMES, NOT_PORTED
+from ddlbench_tpu_torch.config import ATTENTION_BACKENDS, DATASETS, RunConfig
+from ddlbench_tpu_torch.models.zoo import MODEL_NAMES
 
 # the reference's strategies: all but "single" raise NotImplementedError
 STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
@@ -49,11 +58,7 @@ NOT_PORTED_FLAGS = (
     ("--schedule-trace",), ("--dp-replicas",), ("--tp-size",),
     ("--stage-replication",), ("--update-interval",),
     ("--shard-opt-state",), ("--dp-shard-update",), ("--allreduce-dtype",),
-    ("--comm-buckets",), ("--moe-aux-weight",), ("--moe-capacity-factor",),
-    ("--label-smoothing",), ("--warmup-epochs",),
-    ("--attention-backend",), ("--no-fused-head-loss",),
-    ("--remat-layers",),
-    ("--auto-partition",), ("--plan",), ("--plan-bounds",), ("--hbm-gb",),
+    ("--comm-buckets",), ("--warmup-epochs",), ("--auto-partition",), ("--plan",), ("--plan-bounds",), ("--hbm-gb",),
     ("--profile-mode",), ("--trace-dir",), ("--xla-trace-steps",),
     ("--trace",), ("--trace-capacity",), ("--audit",), ("--checkpoint-dir",),
     ("--resume",), ("--checkpoint-every-steps",), ("--keep-checkpoints",),
@@ -83,7 +88,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-f", "--framework", default="single", choices=STRATEGIES,
                    help="strategy (only single is ported)")
     p.add_argument("-m", "--model", default="resnet18",
-                   choices=MODEL_NAMES + tuple(NOT_PORTED))
+                   choices=MODEL_NAMES)
     p.add_argument("-p", "--log-interval", type=int, default=25)
     p.add_argument("-s", "--real-data", action="store_true",
                    help="on-disk data through the native loader")
@@ -105,8 +110,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--optimizer", default=None, choices=("sgd", "adam"))
     p.add_argument("--momentum", type=float, default=None)
     p.add_argument("--weight-decay", type=float, default=None)
+    p.add_argument("--moe-aux-weight", type=float, default=0.01,
+                   help="MoE router load-balance loss weight (MoE archs)")
+    p.add_argument("--moe-capacity-factor", type=float, default=1.25,
+                   help="MoE expert capacity = ceil(cf * tokens / experts)")
+    p.add_argument("--label-smoothing", type=float, default=None,
+                   help="training-objective label smoothing (default: 0.1 "
+                        "for seq2seq benchmarks — GNMT parity — else 0)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=("float32", "bfloat16"))
+    p.add_argument("--attention-backend", default="auto",
+                   choices=ATTENTION_BACKENDS,
+                   help="auto = the flash kernels where they take the "
+                        "operands (a CUDA device, head dim 64)")
+    p.add_argument("--no-fused-head-loss", action="store_true",
+                   help="disable the fused LM-head projection+cross-entropy "
+                        "(materialize full logits instead)")
+    p.add_argument("--remat-layers", action="store_true",
+                   help="checkpoint every layer (recompute activations in "
+                        "the backward; token models, not MoE)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--jsonl", default=None,
                    help="also write the metric records here, one JSON "
@@ -130,7 +152,13 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         seed=args.seed, synthetic=not args.real_data,
         data_dir=args.data_dir, augment=not args.no_augment,
         prefetch_depth=0 if args.no_prefetch else args.prefetch_depth,
-        grad_accum_steps=args.grad_accum_steps)
+        grad_accum_steps=args.grad_accum_steps,
+        moe_aux_weight=args.moe_aux_weight,
+        moe_capacity_factor=args.moe_capacity_factor,
+        label_smoothing=args.label_smoothing,
+        attention_backend=args.attention_backend,
+        fused_head_loss=not args.no_fused_head_loss,
+        remat_layers=args.remat_layers)
 
 
 def main(argv=None) -> int:

@@ -341,24 +341,35 @@ class RunConfig:
     # world's lr scaling, so it waits for a dp strategy (validate() refuses
     # it until then)
     warmup_epochs: int = 0
+    # MoE (transformer_moe_* archs): the router load-balance loss weight
+    # and the static capacity ceil(cf * tokens / experts) an expert
+    moe_aux_weight: float = 0.01
+    moe_capacity_factor: float = 1.25
     label_smoothing: Optional[float] = None
     compute_dtype: str = "bfloat16"
     attention_backend: str = "auto"  # auto | flash | xla
     # fused projection+loss head (ops/fused_xent.py); applies to models
     # whose head supports it (the token/seq2seq workloads)
     fused_head_loss: bool = True
+    # the reference's schema: its training reads param_dtype nowhere, and
+    # remat_stages only in the pipeline strategies; validate() refuses any
+    # other value than these defaults, which is what the port does
+    param_dtype: str = "float32"
+    remat_stages: bool = True
     # torch.utils.checkpoint per layer: the backward recomputes each layer
     # (token models only: the recomputation would update BatchNorm's
-    # running statistics a second time)
+    # running statistics a second time, and an MoE block's aux loss)
     remat_layers: bool = False
     seed: int = 1
     # gradient accumulation: each update averages K micro-steps of
     # batch_size rows (every K-th row of the step's batch; the global batch
     # is batch_size x K)
     grad_accum_steps: int = 1
-    # False = on-disk data (-s) through the native loader: a store or a
-    # recognised layout under data_dir ("./data" when None), else a
-    # synthetic store generated there (data/ondisk.py); images only
+    # False = on-disk data (-s): a text corpus (train.txt) or a parallel
+    # corpus (train.src/train.tgt) under data_dir for a token or seq2seq
+    # benchmark, else a store or a recognised image layout there
+    # ("./data" when None), else a synthetic store generated there
+    # (train/loop.make_data)
     synthetic: bool = True
     data_dir: Optional[str] = None
     # the on-disk path's training augmentation (crop/flip per dataset)
@@ -438,19 +449,24 @@ class RunConfig:
             raise ValueError("grad_accum_steps must be >= 1")
         if self.prefetch_depth < 0:
             raise ValueError("prefetch_depth must be >= 0 (0 = synchronous)")
-        if not self.synthetic and self.dataset().kind != "image":
-            raise NotImplementedError(
-                f"on-disk {self.dataset().kind} data (synthetic=False on "
-                f"{self.benchmark}) is not ported to the PyTorch training "
-                "path yet (ROADMAP A.5)")
         if self.anomaly_policy is not None or self.loss_scale is not None:
             raise NotImplementedError(
                 "the stability guard (anomaly_policy / loss_scale) is not "
                 "ported to the PyTorch training path yet")
-        if "moe" in self.arch:
+        if self.param_dtype != "float32":
             raise NotImplementedError(
-                f"MoE arch {self.arch!r} is not ported to the PyTorch "
-                "training path yet")
+                f"param_dtype={self.param_dtype!r}: parameters are float32 "
+                "(the reference's training reads param_dtype nowhere)")
+        if not self.remat_stages:
+            raise NotImplementedError(
+                "remat_stages=False acts on the pipeline strategies, which "
+                "are not ported to the PyTorch training path yet "
+                "(ROADMAP A.7)")
+        if self.remat_layers and "moe" in self.arch:
+            raise ValueError(
+                "remat_layers is incompatible with MoE archs (a "
+                "checkpointed forward would record each router's aux loss "
+                "twice)")
         if self.attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(
                 f"unknown attention_backend {self.attention_backend!r}")

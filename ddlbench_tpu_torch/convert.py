@@ -7,7 +7,11 @@ param list — each layer's dict of arrays, as numpy (``jax.device_get`` of
 * embed: ``tok``, ``pos`` (and ``seg``, the seq2seq embedding's segment
   table);
 * block: ``ln1``/``ln2`` ``scale``/``bias``, ``wqkv``, ``wo``, ``w1``,
-  ``b1``, ``w2``, ``b2``;
+  ``b1``, ``w2``, ``b2``; an MoE block's ``gate`` [d, E] and its stacked
+  ``experts`` ``w1``/``b1``/``w2``/``b2`` [E, ...] (models/moe.py);
+* the LSTM seq2seq (models/lstm.py): an LSTM layer's ``wx``, ``wh``,
+  ``b``, the cross-attention's ``q``, ``k``, ``v``, ``o``, the
+  embedding's ``tok`` and ``seg``;
 * head: ``ln_f`` ``scale``/``bias``, ``head``;
 * image layers: ``kernel``, ``conv1``.. ``conv3``, ``proj``, ``expand``,
   ``dw``, ``project``, ``pw``, ``c1``.. ``c3``, ``sq``, ``e1``, ``e3``,

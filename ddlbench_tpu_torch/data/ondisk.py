@@ -1,5 +1,5 @@
-"""On-disk image data with SyntheticData's interface
-(``ddlbench_tpu/data/ondisk.py``, image stores).
+"""On-disk data with SyntheticData's interface
+(``ddlbench_tpu/data/ondisk.py``): image, token and seq2seq stores.
 
 Behind the CLI's ``-s``: raw uint8 batches come from the native loader
 (data/native_loader.py), which copies each into a fresh host buffer
@@ -28,8 +28,12 @@ float32 batch equals the reference's exactly and every device gives the
 same bits. Batches are NCHW: the NHWC bytes permuted, which on the card
 is the channels_last layout the models run in; labels are int64.
 
-Only image stores are ported: a token or seq2seq store raises (ROADMAP
-A.5).
+A token or seq2seq store (native_loader.store_hwc: (T+1, 4, 1) bytes a
+sample) holds T+1 token ids a sample as little-endian int32, reduced
+modulo the vocabulary, as in the reference; a batch is the two length-T
+next-token shifts (int64, on the device), and a seq2seq stream masks its
+source-internal labels (data/synthetic.mask_source_labels). Its store
+labels are not read.
 """
 
 from __future__ import annotations
@@ -42,10 +46,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ddlbench_tpu_torch.config import DatasetSpec
+from ddlbench_tpu_torch.config import STREAM_KINDS, DatasetSpec
 from ddlbench_tpu_torch.data.imagefolder import resolve_split
 from ddlbench_tpu_torch.data.native_loader import (NativeDataLoader,
-                                                   generate_dataset)
+                                                   generate_dataset,
+                                                   store_hwc)
+from ddlbench_tpu_torch.data.synthetic import mask_source_labels
 from ddlbench_tpu_torch.ops import threefry
 
 # dataset -> training augmentation (module docstring)
@@ -113,7 +119,8 @@ def augment_u8(imgs: torch.Tensor, key: threefry.Key, pad: int,
 class OnDiskData:
     """SyntheticData's interface over raw stores: ``batch(epoch, step,
     train)`` returns (x [B, C, H, W] in ``dtype``, y [B] int64) on
-    ``device``. Each split's store is the one :func:`resolve_split` finds
+    ``device``, or for a token stream (x, y) int64 [B, T] (module
+    docstring). Each split's store is the one :func:`resolve_split` finds
     under ``data_dir`` (a store, an earlier import, or a recognised layout
     imported now), else a synthetic store of ``train_count``/``test_count``
     samples generated there."""
@@ -127,10 +134,6 @@ class OnDiskData:
                  dtype: torch.dtype = torch.float32,
                  train_count: Optional[int] = None,
                  test_count: Optional[int] = None, augment: bool = True):
-        if spec.kind != "image":
-            raise NotImplementedError(
-                f"on-disk {spec.kind} stores ({spec.name}) are not ported "
-                "to the PyTorch path yet (ROADMAP A.5)")
         self.spec, self.batch_size = spec, batch_size
         self.device, self.seed, self.dtype = torch.device(device), seed, dtype
         self.augment_policy = AUGMENT.get(spec.name) if augment else None
@@ -147,14 +150,13 @@ class OnDiskData:
                                      seed=seed)
             with open(os.path.join(split_dir, "meta.json")) as f:
                 meta = json.load(f)
-            got = (meta["h"], meta["w"], meta["c"])
-            if (got != tuple(spec.image_size)
-                    or meta.get("kind", "image") != "image"):
+            got, want = (meta["h"], meta["w"], meta["c"]), store_hwc(spec)
+            if got != want or meta.get("kind", "image") != spec.kind:
                 raise ValueError(
                     f"the store at {split_dir} holds kind="
                     f"{meta.get('kind', 'image')} shape={got}, but the spec "
-                    f"wants kind=image shape={tuple(spec.image_size)}; "
-                    "delete the directory or point --data-dir elsewhere")
+                    f"wants kind={spec.kind} shape={want}; delete the "
+                    "directory or point --data-dir elsewhere")
             self._loaders[split] = NativeDataLoader(
                 split_dir, batch_size, seed=seed, shuffle=split == "train")
 
@@ -202,8 +204,21 @@ class OnDiskData:
             x = x.contiguous()
         return x, labels.to(self.device, non_blocking=True).long()
 
+    def tokens(self, raw: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """A token store's raw batch [B, T+1, 4, 1] as the (inputs,
+        labels) shifts on the device (module docstring)."""
+        flat = raw.numpy().reshape(raw.shape[0], -1)
+        ids = torch.from_numpy(flat.view("<i4") % self.spec.num_classes)
+        ids = ids.to(self.device).long()
+        labels = ids[:, 1:]
+        if self.spec.kind == "seq2seq":
+            labels = mask_source_labels(labels, self.spec.src_len)
+        return ids[:, :-1], labels
+
     def batch(self, epoch: int, step: int,
               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        if self.spec.kind in STREAM_KINDS:
+            return self.tokens(self.raw(train)[0])
         return self.prepare(*self.raw(train), epoch, step, train)
 
     def close(self) -> None:

@@ -27,8 +27,9 @@ Ties: greedy takes the first maximum (``argmax``, as ``jnp.argmax``), and
 a beam step ranks its candidates by a stable descending sort, so equal
 scores keep the lower index first, as ``lax.top_k`` does. The cache dtype
 is float32 or bfloat16; the reference's int8 beam cache would truncate
-K/V (it has no scales) and is refused. MoE blocks wait for models/moe.py
-(ROADMAP A.5), and image models have no decode protocol.
+K/V (it has no scales) and is refused. MoE blocks (models/moe.py) decode
+each position's top-1 expert with no capacity limit; the LSTM seq2seq
+and the image models have no decode protocol.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """Decoder-only transformer LM as a flat layer chain (PyTorch port).
 
 The port of ``ddlbench_tpu/models/transformer.py``: an embedding, pre-LN
-blocks (learned positions, GELU MLP 4x) and an untied LM head, for
+blocks (learned positions, GELU MLP 4x; :class:`AttentionBlock` is the
+attention half with the cache ops, which models/moe.py's expert block
+shares) and an untied LM head, for
 training, serving (the ``ServeLayer`` ops) and cached decoding (the
 ``DecodeLayer`` ops of models/decode.py: the dense cache, read by plain
 masked attention as the reference's ``attn_decode_op`` is, and the paged
@@ -195,33 +197,30 @@ class Embed(ServeLayer, DecodeLayer):
         return self.tok[x] + self.pos[idx.clamp(max=self.pos.shape[0] - 1)]
 
 
-class TransformerBlock(ServeLayer, DecodeLayer):
-    """Pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x)) + b2.
+class AttentionBlock(DecodeLayer):
+    """The attention half of a pre-LN block, x + attn(ln1(x)), then the
+    subclass's feed-forward sublayer: ``mlp(x)`` over a whole sequence
+    (the residual included) and ``mlp_one(x)`` over one decoded position.
     ``prefix_len`` > 0 switches the attention to the prefix-LM mask (the
-    seq2seq workload; the serve ops are causal-LM only). The decode ops
-    (models/decode.py) take either mask: a prompt's prefill attends
-    through :func:`causal_attention` with ``prefix_len``, and a decoded
-    position sees every cached key before it, which the prefix rule adds
-    nothing to."""
+    seq2seq workload). The decode ops (models/decode.py) take either
+    mask: a prompt's prefill attends through :func:`causal_attention`
+    with ``prefix_len``, and a decoded position sees every cached key
+    before it, which the prefix rule adds nothing to."""
 
     cached = True
     paged = True
 
     def __init__(self, d_model: int, n_heads: int, gen: torch.Generator,
-                 mlp_ratio: int = 4, prefix_len: int = 0):
+                 prefix_len: int = 0):
         super().__init__()
         self.n_heads = n_heads
         self.prefix_len = prefix_len
         self.dh = d_model // n_heads
-        d, f = d_model, mlp_ratio * d_model
+        d = d_model
         self.ln1 = LayerNorm(d)
         self.wqkv = _normal(gen, d, 3 * d)
         self.wo = _normal(gen, d, d)
         self.ln2 = LayerNorm(d)
-        self.w1 = _normal(gen, d, f)
-        self.b1 = nn.Parameter(torch.zeros(f))
-        self.w2 = _normal(gen, f, d)
-        self.b2 = nn.Parameter(torch.zeros(d))
 
     def _qkv_heads(self, x: torch.Tensor) -> List[torch.Tensor]:
         """q, k, v as [B, H, T, dh] from contiguous thirds of ln1(x) @
@@ -230,12 +229,6 @@ class TransformerBlock(ServeLayer, DecodeLayer):
         qkv = self.ln1(x) @ self.wqkv.to(x.dtype)
         return [t.reshape(B, T, self.n_heads, self.dh).transpose(1, 2)
                 for t in qkv.split(d, dim=-1)]
-
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.ln2(x)
-        h = F.gelu(h @ self.w1.to(x.dtype) + self.b1.to(x.dtype),
-                   approximate="tanh")
-        return x + h @ self.w2.to(x.dtype) + self.b2.to(x.dtype)
 
     def _proj(self, o2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Output projection + residual of the attention sublayer; ``o2``
@@ -290,7 +283,7 @@ class TransformerBlock(ServeLayer, DecodeLayer):
         probs = torch.softmax(scores.float(), -1).to(x.dtype)
         o = torch.einsum("bhqk,bhkd->bhqd", probs, vc)
         x = self._proj(o.transpose(1, 2).reshape(B, 1, d), x)
-        return self.mlp(x), cache
+        return self.mlp_one(x), cache
 
     def paged_init_cache(self, batch, max_len, dtype, device):
         return paged_cache_init(batch, max_len, self.n_heads, self.dh, dtype,
@@ -317,10 +310,32 @@ class TransformerBlock(ServeLayer, DecodeLayer):
         o = paged_attention_auto(q[:, :, 0].contiguous(), cache, pos, npl,
                                  page)
         x = self._proj(o.reshape(B, 1, d), x)
-        return self.mlp(x), cache
+        return self.mlp_one(x), cache
 
     def paged_reorder(self, cache, parent, pos):
         return paged_reorder(cache, parent, pos, cache["pool_k"].shape[1])
+
+
+class TransformerBlock(AttentionBlock, ServeLayer):
+    """Pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x)) + b2 (the
+    dense GELU MLP, 4x), with the serving ops (causal-LM only)."""
+
+    def __init__(self, d_model: int, n_heads: int, gen: torch.Generator,
+                 mlp_ratio: int = 4, prefix_len: int = 0):
+        super().__init__(d_model, n_heads, gen, prefix_len)
+        d, f = d_model, mlp_ratio * d_model
+        self.w1 = _normal(gen, d, f)
+        self.b1 = nn.Parameter(torch.zeros(f))
+        self.w2 = _normal(gen, f, d)
+        self.b2 = nn.Parameter(torch.zeros(d))
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.ln2(x)
+        h = F.gelu(h @ self.w1.to(x.dtype) + self.b1.to(x.dtype),
+                   approximate="tanh")
+        return x + h @ self.w2.to(x.dtype) + self.b2.to(x.dtype)
+
+    mlp_one = mlp
 
     # -- the serving protocol (serve/engine.py) ----------------------------
 

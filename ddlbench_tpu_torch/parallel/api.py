@@ -20,7 +20,8 @@ def make_strategy(cfg: RunConfig, device: torch.device) -> SingleStrategy:
     are."""
     cfg.validate()
     set_attention_backend(cfg.attention_backend)
-    model = get_model(cfg.arch, cfg.benchmark, seed=cfg.seed).to(device)
+    model = get_model(cfg.arch, cfg.benchmark, seed=cfg.seed,
+                      moe_capacity_factor=cfg.moe_capacity_factor).to(device)
     if device.type == "cuda" and cfg.dataset().kind == "image":
         model = model.to(memory_format=torch.channels_last)
     strategy = SingleStrategy(model, cfg)

@@ -1,8 +1,9 @@
 """Shared train-step machinery of the port: loss, metrics, optimizers.
 
 The port of the one-apply pieces of ``ddlbench_tpu/parallel/common.py``:
-the cross-entropy loss and the top-1/top-k counts, the dense branches of
-``loss_with_moe_aux`` (the fused LM head and the full logits), the
+the cross-entropy loss and the top-1/top-k counts, ``loss_with_moe_aux``
+(the fused LM head or the full logits, plus the MoE router's aux losses,
+which each MoE block records on its forward: models/moe.py), the
 single-apply ``loss_and_grads``, ``eval_metrics`` (fused and logits),
 ``make_optimizer`` as ``torch.optim.SGD`` / ``torch.optim.Adam``, whose
 update rules the reference reimplements (``tests/test_optimizers.py`` pins
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.models.layers import (LayerModel, apply_model,
                                              apply_slice)
+from ddlbench_tpu_torch.models.moe import aux_losses
 
 
 def step_decay_lr(base_lr: float, epoch: int, step_epochs: int,
@@ -111,25 +113,31 @@ def fused_head_eval_sums(model: LayerModel, x: torch.Tensor,
 
 def loss_with_moe_aux(model: LayerModel, x: torch.Tensor, y: torch.Tensor,
                       compute_dtype: torch.dtype, smoothing: float = 0.0,
-                      fused: bool = False, remat: bool = False):
-    """Apply the model and return (objective, ce, (correct, valid)): the
-    reference's dense branches. The objective is the (optionally
-    label-smoothed) CE; ``ce`` is the unsmoothed CE, the headline metric.
-    With ``fused`` (and a head that supports it) the projection+loss runs
-    the fused path and the full logits are never materialised. MoE archs
-    (whose router aux losses this would add) are refused by
-    RunConfig.validate."""
+                      fused: bool = False, remat: bool = False,
+                      aux_weight: float = 0.0):
+    """Apply the model and return (objective, ce, (correct, valid)). The
+    objective is the (optionally label-smoothed) CE plus ``aux_weight``
+    times the sum of the MoE blocks' router load-balance losses of this
+    forward (none for a dense model); ``ce`` is the unsmoothed CE, the
+    headline metric, without them. With ``fused`` (and a head that
+    supports it) the projection+loss runs the fused path and the full
+    logits are never materialised."""
     model.train()
     x = cast_input(x, compute_dtype)
     if fused and head_fusable(model):
         obj_sum, ce_sum, correct, valid = fused_head_loss_sums(
             model, x, y, compute_dtype, smoothing, remat)
         denom = valid.clamp(min=1).float()
-        return obj_sum / denom, ce_sum / denom, (correct, valid)
-    logits = apply_model(model, x, compute_dtype, remat)
-    ce = cross_entropy_loss(logits, y)
-    obj = cross_entropy_loss(logits, y, smoothing) if smoothing else ce
-    return obj, ce, correct_and_count(logits, y)
+        obj, ce, stats = obj_sum / denom, ce_sum / denom, (correct, valid)
+    else:
+        logits = apply_model(model, x, compute_dtype, remat)
+        ce = cross_entropy_loss(logits, y)
+        obj = cross_entropy_loss(logits, y, smoothing) if smoothing else ce
+        stats = correct_and_count(logits, y)
+    aux = aux_losses(model)
+    if aux:  # summed in layer order, as the reference's collector
+        obj = obj + aux_weight * sum(aux)
+    return obj, ce, stats
 
 
 def _micro_batch(t: torch.Tensor, K: int, k: int) -> torch.Tensor:
@@ -149,8 +157,10 @@ def accum_loss_and_grads(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
     batch, starting at row k; the micro-steps run in order, so BatchNorm's
     running statistics take K updates as K separate batches would; the
     gradients are averaged with weights equal to each micro-step's count
-    of valid labels, and so is the reported CE. Returns (ce, (correct,
-    valid), grads) as loss_and_grads does."""
+    of valid labels, and so is the reported CE. An MoE arch routes each
+    micro-step with its own capacity (over the micro-batch's tokens), as
+    in the reference. Returns (ce, (correct, valid), grads) as
+    loss_and_grads does."""
     K, B = accum_steps, x.shape[0]
     if B % K:
         raise ValueError(f"batch {B} not divisible by grad_accum_steps {K}")
@@ -160,7 +170,8 @@ def accum_loss_and_grads(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
         xk, yk = _micro_batch(x, K, k), _micro_batch(y, K, k)
         obj, ce, (c, v) = loss_with_moe_aux(model, xk, yk, compute_dtype,
                                             smoothing, cfg.fused_head_loss,
-                                            cfg.remat_layers)
+                                            cfg.remat_layers,
+                                            cfg.moe_aux_weight)
         grads = torch.autograd.grad(obj, params)
         wk = v.float()
         gsum = ([wk * g for g in grads] if gsum is None
@@ -190,7 +201,8 @@ def loss_and_grads(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
     for p in params:
         p.grad = None
     obj, ce, stats = loss_with_moe_aux(model, x, y, compute_dtype, smoothing,
-                                       cfg.fused_head_loss, cfg.remat_layers)
+                                       cfg.fused_head_loss, cfg.remat_layers,
+                                       cfg.moe_aux_weight)
     obj.backward()
     return ce.detach(), stats, [p.grad for p in params]
 

@@ -211,6 +211,15 @@ class StepReport:
         self.timed_out.extend(other.timed_out)
 
 
+def unservable_layers(model: LayerModel) -> List[str]:
+    """The names of ``model``'s layers without serving ops (neither a
+    ServeLayer nor pointwise): an MoE model's blocks, as in the
+    reference. The engine refuses a model with any."""
+    return [type(l).__name__ for l in model.layers
+            if not (isinstance(l, ServeLayer)
+                    or getattr(l, "pointwise", False))]
+
+
 class ServeEngine:
     """One serving replica: scheduler + allocator + the model passes.
 
@@ -222,6 +231,12 @@ class ServeEngine:
     def __init__(self, model: LayerModel, cfg: ServeConfig,
                  device: torch.device, replica: int = 0):
         cfg.validate()
+        missing = unservable_layers(model)
+        if missing:
+            raise NotImplementedError(
+                f"{model.name} has layers without serving support: "
+                f"{missing}; the serving engine is wired for causal-LM "
+                "transformer stacks")
         if cfg.max_len > model.in_shape[0]:
             raise ValueError(
                 f"max_len {cfg.max_len} exceeds the model's stream length "

@@ -10,7 +10,11 @@ KV-cached paths (models/decode.py) against the full-forward loop
 
 The six rows are greedy and beam x ``paged`` (the copy-on-write page
 tables, the decode kernel over the live pages), ``cached`` (the dense
-cache, gathered along the parent beams) and ``full``. ``--chunk-prefill``
+cache, gathered along the parent beams) and ``full``. A causal LM
+(``transformer_*``, ``transformer_moe_*`` on a token benchmark) decodes
+from half the stream and skips the ``full`` rows (the full-forward loop
+is seq2seq's); a model without the decode protocol
+(``seq2seq_lstm_*``) skips the ``paged`` and ``cached`` rows. ``--chunk-prefill``
 adds the serving chunk attention, kernel against its plain version
 (``chunk-kernel``, ``chunk-xla``) over a synthetic serving pool, and
 ``--kv-dtype`` the pool-dtype sweep of the decode and chunk attention
@@ -161,6 +165,11 @@ def decode_rows(args, model, spec, device, prov):
                 **prov}
         if variant == "paged" and not dec.supports_paged(model):
             yield {**base, "skipped": f"{args.model} lacks paged support"}
+            continue
+        if variant == "cached" and not dec.supports_cache(model):
+            # the reference records this row as an error (its cached
+            # decoder raises); the port skips it, as the paged rows
+            yield {**base, "skipped": f"{args.model} lacks cached support"}
             continue
         if causal and variant == "full":
             # the full-forward loop is seq2seq's; tests pin the causal

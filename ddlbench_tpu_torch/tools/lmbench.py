@@ -14,7 +14,10 @@ ops/fused_xent.py, no [B*T, V] logits) or ``logits`` (the materialised
 logits). The default sweep is the four forced cells; ``auto`` (the
 dispatch a default run gets: the kernels for CUDA tensors, the plain
 versions for CPU tensors, and the fused head) on request. Token (synthtext,
-longctx, longctx32k) and seq2seq (synthmt) benchmarks.
+longctx, longctx32k) and seq2seq (synthmt) benchmarks; the MoE
+(``transformer_moe_s``) and LSTM (``seq2seq_lstm_s``) arches too, the
+LSTM's recurrence on ``torch.lstm`` under every attention config (its
+one attention layer is plain cross-attention).
 
 Same flags and row keys as the reference, except ``--device`` (cuda by
 default; with no card the tool raises unless ``--device cpu`` is given) in
@@ -142,9 +145,9 @@ def main(argv=None) -> int:
     for name in names:
         # An OOM in one configuration must not lose the others' rows:
         # record it, then retry the cell with per-layer remat, which caps
-        # live activations at one layer. MoE archs are refused by
-        # RunConfig.validate, so every cell may retry.
-        for remat in (False, True):
+        # live activations at one layer. MoE archs cannot remat (their
+        # blocks record the router's aux loss on the forward): no retry.
+        for remat in (False,) if "moe" in args.model else (False, True):
             try:
                 print(json.dumps(run_config(args, name, remat, device)),
                       flush=True)

@@ -970,8 +970,12 @@ def main(argv=None) -> int:
                 "the serving engine serves causal LMs (e.g. synthtext)")
     device = resolve_device(args.device)
     model = get_model(args.model, spec, seed=args.seed).to(device)
+    try:
+        results = run(args, model, device)
+    except NotImplementedError as e:  # a model without serving ops
+        p.error(str(e))
     rc = 0
-    for rec, _, _ in run(args, model, device):
+    for rec, _, _ in results:
         print(json.dumps(rec), flush=True)
         if args.autoscale and rec["requests_lost"] != 0:
             # a self-scaling fleet that loses requests is a broken

@@ -886,7 +886,10 @@ def main(argv=None) -> int:
         p.error(f"-b {args.benchmark!r} is not a causal-LM token workload")
     device = resolve_device(args.device)
     model = get_model(args.model, spec, seed=args.seed).to(device)
-    rec, _, _ = run(args, model, device, perr=p.error)
+    try:
+        rec, _, _ = run(args, model, device, perr=p.error)
+    except NotImplementedError as e:  # a model without serving ops
+        p.error(str(e))
     print(json.dumps(rec), flush=True)
     return 0
 

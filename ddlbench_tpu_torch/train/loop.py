@@ -2,8 +2,11 @@
 ``run_benchmark``, ``_run_benchmark``, ``_make_data`` and ``evaluate``).
 
 The data is synthetic (made on the device) or, with ``cfg.synthetic``
-False, on-disk images through the native loader (data/ondisk.py), the
-reference's ``_make_data``. ``run_benchmark`` warms the step up on a
+False, read from ``cfg.data_dir`` as the reference's ``_make_data``
+reads it: a parallel corpus (train.src/train.tgt) for a seq2seq
+benchmark (data/translation.py), a text corpus (train.txt) for a token
+benchmark (data/textcorpus.py), else a store through the native loader
+(data/ondisk.py: images, or token ids). ``run_benchmark`` warms the step up on a
 throwaway copy of the state, restores the initial weights, running
 statistics and a fresh optimizer, then runs ``cfg.epochs`` epochs of
 ``steps_per_epoch`` steps at the step-decay learning rate
@@ -13,10 +16,10 @@ epoch on the test split. Losses are summed on the device and read once
 per log interval, so the host waits for the card only there; a non-finite
 interval loss stops the run (the reference's default ``nan_policy``).
 
-The warm-up reads epoch 0's first synthetic batch of the run's shape even
-when the run reads on-disk data: the on-disk stream is sequential, and a
-warm-up batch taken from it would shift every batch of the run by one.
-(The reference warms up on the real stream's first batch.)
+The warm-up reads the source's batch (0, 0), as the reference does,
+unless the source is a sequential stream (``stateful_stream``: the
+on-disk stores), where a warm-up batch would shift every batch of the run
+by one: it then reads epoch 0's first synthetic batch of the run's shape.
 
 Batches come through the prefetcher (data/prefetch.py), ``prefetch_depth``
 ahead of the step on a producer thread (0: inline). The input stall is
@@ -51,14 +54,44 @@ def _device_of(strategy: SingleStrategy) -> torch.device:
 
 
 def make_data(cfg: RunConfig, device: torch.device):
-    """The run's data source: synthetic, or the on-disk images under
-    ``cfg.data_dir`` ("./data" when None) in the compute dtype; a store
-    generated there holds ``steps_per_epoch`` batches of train and a fifth
-    as many (at least one batch) of test samples."""
+    """The run's data source: synthetic; or under ``cfg.data_dir`` a
+    parallel corpus (seq2seq benchmarks) or a text corpus (token
+    benchmarks), each printing the reference's line about it; else the
+    on-disk store under ``cfg.data_dir`` ("./data" when None), images in
+    the compute dtype. A store generated there holds ``steps_per_epoch``
+    batches of train and a fifth as many (at least one batch) of test
+    samples."""
     B, spec = cfg.global_batch(), cfg.dataset()
     if cfg.synthetic:
         return make_synthetic(spec, B, device, seed=cfg.seed,
                               steps_per_epoch=cfg.steps_per_epoch)
+    if spec.kind == "seq2seq" and cfg.data_dir:
+        from ddlbench_tpu_torch.data.translation import (
+            TranslationData, find_parallel_corpus)
+
+        if find_parallel_corpus(cfg.data_dir, "train"):
+            data = TranslationData(cfg.data_dir, spec, B, device,
+                                   seed=cfg.seed,
+                                   steps_per_epoch=cfg.steps_per_epoch)
+            rep = data.bucketing_report()
+            print(f"translation data: vocab {data.tokenizer.vocab_size}, "
+                  f"padding efficiency {rep['fixed_efficiency']:.3f} fixed "
+                  f"vs {rep['bucketed_efficiency']:.3f} bucketed "
+                  f"({rep['num_compiles_bucketed']} bucket compiles)",
+                  flush=True)
+            return data
+    if spec.kind == "tokens" and cfg.data_dir:
+        from ddlbench_tpu_torch.data.textcorpus import (TextCorpusData,
+                                                        find_text_corpus)
+
+        if find_text_corpus(cfg.data_dir, "train"):
+            data = TextCorpusData(cfg.data_dir, spec, B, device,
+                                  seed=cfg.seed,
+                                  steps_per_epoch=cfg.steps_per_epoch)
+            print(f"text corpus: {data.num_tokens} tokens, vocab "
+                  f"{data.tokenizer.vocab_size}, "
+                  f"{data.steps_per_epoch()} steps/epoch", flush=True)
+            return data
     from ddlbench_tpu_torch.data.ondisk import OnDiskData
 
     train_count = (cfg.steps_per_epoch or 0) * B or None
@@ -69,16 +102,19 @@ def make_data(cfg: RunConfig, device: torch.device):
                       augment=cfg.augment)
 
 
-def _warmup(strategy: SingleStrategy, cfg: RunConfig, lr: float,
+def _warmup(strategy: SingleStrategy, cfg: RunConfig, data, lr: float,
             steps: int) -> float:
-    """Run ``steps`` train steps on epoch 0's first synthetic batch of the
-    run's shape (module docstring), then restore the model's weights and
-    running statistics and start a fresh optimizer, so the measured run
-    starts from the initial state. Returns the seconds."""
+    """Run ``steps`` train steps on the batch (0, 0) of ``data``, or of the
+    synthetic data of the run's shape when ``data`` is a sequential stream
+    (module docstring), then restore the model's weights and running
+    statistics and start a fresh optimizer, so the measured run starts
+    from the initial state. Returns the seconds."""
     t0 = time.perf_counter()
     initial = {k: v.clone() for k, v in strategy.model.state_dict().items()}
-    x, y = make_synthetic(cfg.dataset(), cfg.global_batch(),
-                          _device_of(strategy), seed=cfg.seed).batch(0, 0)
+    if getattr(data, "stateful_stream", False):
+        data = make_synthetic(cfg.dataset(), cfg.global_batch(),
+                              _device_of(strategy), seed=cfg.seed)
+    x, y = data.batch(0, 0)
     for _ in range(steps):
         m = strategy.train_step(x, y, lr)
     float(m["loss"])
@@ -164,10 +200,10 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[SingleStrategy] = None,
     logger = logger or MetricLogger(cfg.epochs, cfg.log_interval,
                                     device=dev)
     base_lr = cfg.resolved_lr()
-    warmup_s = (_warmup(strategy, cfg, base_lr, warmup_steps)
-                if warmup_steps > 0 else None)
     data = make_data(cfg, dev)
     try:
+        warmup_s = (_warmup(strategy, cfg, data, base_lr, warmup_steps)
+                    if warmup_steps > 0 else None)
         prefetch = Prefetcher(data, depth=cfg.prefetch_depth)
         all_steps, accuracy = [], 0.0
         for epoch in range(1, cfg.epochs + 1):

@@ -411,8 +411,17 @@ def test_ondisk_compute_dtype_and_no_augment(tmp_path):
 
 
 def test_ondisk_refuses_token_stores_and_wrong_shapes(tmp_path):
-    with pytest.raises(NotImplementedError, match="A.5"):
-        ondisk.OnDiskData(str(tmp_path), DATASETS["synthtext"], 2, CPU)
+    # token stores are ported: a generated synthtext store serves the two
+    # next-token shifts of each sample's ids
+    toks = ondisk.OnDiskData(str(tmp_path), DATASETS["synthtext"], 2, CPU,
+                             train_count=4, test_count=2)
+    try:
+        x, y = toks.batch(0, 0)
+        assert x.shape == y.shape == (2, 1024) and x.dtype == torch.int64
+        assert torch.equal(x[:, 1:], y[:, :-1])
+        assert 0 <= int(x.min()) and int(x.max()) < 32_768
+    finally:
+        toks.close()
     tnl.generate_dataset(str(tmp_path), DatasetSpec(
         "cifar10", (16, 16, 3), 10, 8, 8), "train", count=8)
     with pytest.raises(ValueError, match="shape"):

@@ -184,8 +184,11 @@ def test_zoo_builds_seq2seq_on_seq2seq_data_only():
         get_model("seq2seq_t", "synthtext")
     with pytest.raises(ValueError, match="token dataset"):
         get_model("transformer_t", TINY_MT)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("seq2seq_lstm_s", "synthmt")
+    # the recurrent arches are ported too, on seq2seq data only
+    assert type(get_model("seq2seq_lstm_t", TINY_MT).layers[1]).__name__ \
+        == "LSTMLayer"
+    with pytest.raises(ValueError, match="seq2seq dataset"):
+        get_model("seq2seq_lstm_s", "synthtext")
     with pytest.raises(ValueError, match="src_len"):
         JaxDatasetSpec("bad", (T,), VOCAB, 1, 1, kind="seq2seq", src_len=T)
     with pytest.raises(ValueError, match="src_len"):

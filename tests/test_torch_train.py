@@ -276,9 +276,9 @@ def test_synthetic_tokens():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(strategy="dp"), dict(synthetic=False),
+    dict(strategy="dp"), dict(checkpoint_dir="d"),
     dict(anomaly_policy="skip"), dict(loss_scale="dynamic"),
-    dict(arch="transformer_moe_t"),
+    dict(strategy="ep", arch="transformer_moe_t"),
 ])
 def test_unported_train_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
