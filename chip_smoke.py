@@ -478,14 +478,51 @@ one JSON line; any failure raises and exits non-zero:
              group axes swapped; then a short bench row for each (B 32,
              bf16, channels_last, 3 warm-up and 5 steps): images/s, step
              p50/p95, peak memory.
+15. dp_train — data parallel (parallel/dp.py) on the one card: ranks are
+             processes (distributed.spawn), spawned after the build, at
+             world 2 over gloo with both ranks on cuda:0 (NCCL refuses two
+             ranks on one card; gloo takes the CUDA tensors of all-reduce
+             and broadcast, and reduce-scatter and all-gather go through
+             pinned host memory, which the line records), then at world 1
+             over NCCL. transformer_s / synthtext at full width, bf16, the
+             fused head, "auto" attention, a global batch of 32 rows (16 a
+             rank), from one init (seed 0) and one set of batches, three
+             steps each of six engine runs: replicated f32, sharded
+             (--dp-shard-update), overlapped (sharded, --comm-buckets 4),
+             bf16 wire, int8 wire, and int8 again. Per engine: losses, ms
+             a step (steps 2-3) and global tokens/s. (a) step 1 of
+             replicated dp against single on the same 32 rows: the loss
+             within 1e-3 relative; each gradient leaf within 1e-6
+             (relative L2) of single's on the two ranks' 16-row halves
+             combined, and within 1e-3 of the 32-row step's or twice the
+             halves' own distance to it (bf16 rounds a 16-row step apart
+             from a 32-row one). (b) sharded and overlapped against
+             replicated after three steps: the parameters bitwise, or
+             within 1e-6 relative L2; the line says which. (c) bf16 and
+             int8 losses finite and within rtol 0.05 of replicated f32's;
+             the two int8 runs bitwise equal. (d) replicated dp at NCCL
+             world 1 against single, each step's loss within 1e-6 of
+             single with dp's update formulas (single through torch.optim
+             printed beside it). (e) every rank launches B1-B6 8/8/8/1/1/1
+             times a step in every engine run, with no attention call on
+             the plain path. Both ranks' losses equal.
+16. dp_image — sync-BN on the card. resnet18 / cifar10 in float64,
+             replicated dp at world 2 (shared card), one step on 8 rows a
+             rank: the loss, every gradient leaf and every running
+             statistic within 1e-9 of single on the 16 rows (floored as in
+             12). Then resnet50 / imagenet, bf16, B 128, replicated dp at
+             NCCL world 1 and single, 2 warm-up and 10 timed steps each:
+             images/s, finite losses, and a torch.profiler breakdown of 3
+             more steps each (busy share, launches, time by kernel group):
+             the cost of the dp machinery on one card.
 
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
 plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
-train's, moe_train's and lstm_train's, the flash forward's moe_decode's
-too), the card's name and power
+train's, moe_train's, lstm_train's and every dp_train rank's, the flash
+forward's moe_decode's too), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -4332,6 +4369,7 @@ def image_bench(torch, argv):
 # in this order (first match wins)
 # (cuDNN runs the 1x1 convolutions as cuBLASLt GEMMs, "nvjet" kernels)
 IMAGE_KERNEL_GROUPS = (
+    ("collective", ("nccl",)),
     ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     ("optimizer", ("foreach", "multi_tensor", "sgd")),
     ("convolution_and_gemm", ("conv", "cudnn", "xmma", "gemm", "wgrad",
@@ -4855,6 +4893,419 @@ def phase_image_zoo(torch, dev):
           "seconds": time.perf_counter() - t0})
 
 
+# ---- phases 15-16: data-parallel training (ROADMAP A.6) -------------------
+#
+# One card: the world-2 runs share it over gloo, every rank on cuda:0
+# (distributed.spawn(shared_card=True), whose reduce-scatter and
+# all-gather go through pinned host memory), and NCCL runs at world 1
+# (its collectives run; nothing short-circuits a world of one). The ranks
+# are processes of their own, spawned after phase 1 built the kernels,
+# which they load.
+
+# dp_train: transformer_s / synthtext at full width, bf16, the fused head,
+# "auto" attention (the flash kernels), a global batch of 32 rows (16 a
+# rank at world 2), three steps of each engine from one init (seed 0) and
+# one set of batches; int8 twice, for the replay
+DP_TOKEN_MODEL = ("transformer_s", "synthtext")
+DP_ROWS, DP_STEPS, DP_LR = 32, 3, 0.01
+DP_ENGINES = (("replicated", {}),
+              ("sharded", {"dp_shard_update": True}),
+              ("overlapped", {"dp_shard_update": True, "comm_buckets": 4}),
+              ("bf16", {"allreduce_dtype": "bf16"}),
+              ("int8", {"allreduce_dtype": "int8"}),
+              ("int8_replay", {"allreduce_dtype": "int8"}))
+# (a): step 1 of replicated dp at world 2 against single on the same 32
+# rows. The loss within DP_SINGLE_REL; each gradient leaf (relative L2)
+# within DP_HALVES_REL of single's gradients of the two ranks' 16-row
+# halves combined, which is what dp computes, and within DP_SINGLE_REL of
+# the 32-row step's or twice the halves' own distance to it, whichever is
+# larger: in bfloat16 a 16-row step's activations round apart from a
+# 32-row step's, 2.8e-3 on an H100 (PERF.md §6) and 3.0e-3 on the CPU,
+# with dp equal to the halves to 0.0 on both
+DP_SINGLE_REL, DP_HALVES_REL = 1e-3, 1e-6
+DP_ENGINE_REL = 1e-6  # (b): where the parameters are not bitwise
+DP_WIRE_RTOL = 0.05  # (c): the reference's bar for bf16 and int8 losses
+# (d): NCCL world 1 against single, each step's loss: against single with
+# the reference's update formulas (parallel/common.flat_optimizer, dp's
+# own) within this; single through torch.optim is printed beside it (its
+# fused multiply-adds round the update apart: 2.6e-6 at step 3 on an
+# H100, PERF.md §6)
+DP_NCCL_RTOL = 1e-6
+# dp_image: resnet18 / cifar10 in float64, 8 rows a rank at world 2,
+# held to single on the 16 rows within IMAGE_F64_RTOL; then resnet50 /
+# imagenet bf16 B 128 through replicated dp at NCCL world 1 and through
+# single, images/s over DP_IMAGE_STEPS timed steps each
+DP_F64_MODEL, DP_F64_ROWS = ("resnet18", "cifar10"), 8
+DP_IMAGE_MODEL = ("resnet50", "imagenet")
+DP_IMAGE_B, DP_IMAGE_STEPS, DP_IMAGE_WARMUP = 128, 10, 2
+DP_COUNTERS = tuple(FLASH_KERNELS) + tuple(FX_KERNELS)
+
+
+def dp_token_cfg(world, **kw):
+    from ddlbench_tpu_torch.config import RunConfig
+
+    return RunConfig(benchmark=DP_TOKEN_MODEL[1], arch=DP_TOKEN_MODEL[0],
+                     strategy="dp", num_devices=world,
+                     batch_size=DP_ROWS // world, compute_dtype="bfloat16",
+                     attention_backend="auto", seed=0, **kw)
+
+
+def dp_counters():
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.ops import fused_xent as fx
+
+    return {name: getattr(fa if name in FLASH_KERNELS else fx, name)
+            for name in DP_COUNTERS}
+
+
+def dp_steps(torch, strategy, batches, lr):
+    """``strategy``'s train steps on ``batches``, the launch counters
+    zeroed just before and read just after: (losses, ms per step,
+    launches, plain-path attention calls)."""
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+
+    counters = dp_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    plain0 = fa.flash_attention.plain_launches
+    losses, ms = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(strategy.train_step(x, y, lr)["loss"].item())
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return (losses, ms, {n: fn.launches for n, fn in counters.items()},
+            fa.flash_attention.plain_launches - plain0)
+
+
+def param_vector(torch, model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def rel_l2(torch, a, b) -> float:
+    return ((a.double() - b.double()).norm()
+            / b.double().norm().clamp(min=1e-30)).item()
+
+
+def dp_vs_single(torch, comm, batch):
+    """(a): replicated dp's step-1 loss and reduced gradient on the global
+    batch against single's on the same rows; on rank 0 also single on each
+    rank's half, combined, to show the split's own distance."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.parallel.common import loss_and_grads, unpack_flat
+
+    dev = comm.device
+    strat = make_strategy(dp_token_cfg(comm.world), dev, comm)
+    m, gred = strat.reduced_grads(*batch)
+    by_id = {id(p): g for p, g in zip(strat.params,
+                                      unpack_flat(gred, strat.meta))}
+    dp_grads = [by_id[id(p)].float() for p in strat.model.parameters()]
+    dp_loss = m["loss"].item()
+    del strat, gred, by_id
+    if comm.rank:
+        return None
+    single_cfg = dataclasses.replace(dp_token_cfg(1), strategy="single",
+                                     batch_size=DP_ROWS)
+    single = make_strategy(single_cfg, dev)
+
+    def step(x, y):
+        ce, _, grads = loss_and_grads(single.model, single_cfg, x, y,
+                                      torch.bfloat16, 0.0)
+        return ce.item(), [g.detach().float().clone() for g in grads]
+
+    loss32, g32 = step(*batch)
+    half = DP_ROWS // 2
+    halves = [step(batch[0][i:i + half], batch[1][i:i + half])
+              for i in (0, half)]
+    g_half = [(a + b) / 2 for a, b in zip(halves[0][1], halves[1][1])]
+    rec = {"loss_dp": dp_loss, "loss_single": loss32,
+           "loss_rel": abs(dp_loss - loss32) / abs(loss32),
+           "worst_grad_rel_l2": max(rel_l2(torch, a, b)
+                                    for a, b in zip(dp_grads, g32)),
+           "halves_vs_single_worst_grad_rel_l2": max(
+               rel_l2(torch, a, b) for a, b in zip(g_half, g32)),
+           "dp_vs_halves_worst_grad_rel_l2": max(
+               rel_l2(torch, a, b) for a, b in zip(dp_grads, g_half))}
+    rec["grad_bar"] = max(DP_SINGLE_REL,
+                          2 * rec["halves_vs_single_worst_grad_rel_l2"])
+    rec["ok"] = (rec["loss_rel"] <= DP_SINGLE_REL
+                 and rec["dp_vs_halves_worst_grad_rel_l2"] <= DP_HALVES_REL
+                 and rec["worst_grad_rel_l2"] <= rec["grad_bar"])
+    return rec
+
+
+def dp_engines(torch, comm):
+    """Three steps of each engine of DP_ENGINES from one init and one set
+    of batches: the losses, ms per step, global tokens/s, the launches of
+    B1-B6 on this rank, and the parameters against the replicated run's
+    (bitwise, and relative L2) and the second int8 run's against the
+    first's."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    cfg0 = dp_token_cfg(comm.world)
+    T = cfg0.dataset().seq_len
+    data = make_synthetic(cfg0.dataset(), DP_ROWS, comm.device, seed=0)
+    batches = [data.batch(0, s) for s in range(DP_STEPS)]
+    out = {"vs_single": dp_vs_single(torch, comm, batches[0])}
+    kept = {}
+    for name, kw in DP_ENGINES:
+        strat = make_strategy(dataclasses.replace(cfg0, **kw), comm.device,
+                              comm)
+        losses, ms, launches, plain = dp_steps(torch, strat, batches, DP_LR)
+        strat.materialize_params()
+        flat = param_vector(torch, strat.model)
+        base = kept.get("int8" if name == "int8_replay" else "replicated")
+        rec = {"losses": losses, "ms_per_step": ms,
+               "timed_ms_per_step": sum(ms[1:]) / (len(ms) - 1),
+               "launches": launches, "plain_launches": plain}
+        rec["global_tokens_per_s"] = (DP_ROWS * T * 1e3
+                                      / rec["timed_ms_per_step"])
+        if base is not None:
+            rec["params_bitwise"] = bool(torch.equal(flat, base))
+            rec["params_rel_l2"] = rel_l2(torch, flat, base)
+        if name in ("replicated", "int8"):
+            kept[name] = flat
+        out[name] = rec
+        del strat, flat
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_image_f64(torch, comm):
+    """dp_image's float64 check: resnet18 / cifar10, one step of
+    replicated dp on DP_F64_ROWS rows a rank (sync-BN) against single on
+    all the rows: the loss, every gradient leaf and every running
+    statistic (rank 0 compares)."""
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.parallel.common import unpack_flat
+    from ddlbench_tpu_torch.parallel.dp import DPStrategy
+
+    dev, rows = comm.device, DP_F64_ROWS * comm.world
+    arch, bench = DP_F64_MODEL
+    cfg = RunConfig(benchmark=bench, arch=arch, strategy="dp",
+                    num_devices=comm.world, batch_size=DP_F64_ROWS, seed=0)
+
+    def model64():
+        return get_model(arch, bench, seed=0).to(
+            dev, torch.float64).to(memory_format=torch.channels_last)
+
+    x, y = make_synthetic(cfg.dataset(), rows, dev, seed=0).batch(0, 0)
+    x = x.to(torch.float64).contiguous(memory_format=torch.channels_last)
+    strat = DPStrategy(model64(), cfg, comm)
+    strat.compute_dtype = torch.float64  # the model's own type
+    strat.init()
+    m, gred = strat.reduced_grads(x, y)
+    by_id = {id(p): g for p, g in zip(strat.params,
+                                      unpack_flat(gred, strat.meta))}
+    dp = (m["loss"].item(),
+          [by_id[id(p)].detach().cpu() for p in strat.model.parameters()],
+          [b.detach().cpu() for b in strat.model.buffers()])
+    if comm.rank:
+        return None
+    import dataclasses
+
+    single_cfg = dataclasses.replace(cfg, strategy="single", num_devices=1,
+                                     batch_size=rows)
+    rec = f64_agreement(dp, image_step(torch, model64(), x, y, single_cfg,
+                                       None))
+    rec["rows_per_rank"] = DP_F64_ROWS
+    return rec
+
+
+def dp_shared_rank(comm):
+    """A rank of the world-2 shared-card run: dp_train's engines and
+    dp_image's float64 check."""
+    import torch
+
+    return {"rank": comm.rank, "comm": comm.record(),
+            "train": dp_engines(torch, comm),
+            "image_f64": dp_image_f64(torch, comm)}
+
+
+def single_ref_update_losses(torch, cfg, batches, lr, dev):
+    """single's losses over ``batches`` with the reference's update
+    formulas (parallel/common.flat_optimizer, what dp runs) in place of
+    torch.optim: dp at world 1 without its collectives."""
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.parallel.common import (flat_optimizer,
+                                                    loss_and_grads)
+
+    model = get_model(cfg.arch, cfg.benchmark, seed=cfg.seed).to(dev)
+    params = list(model.parameters())
+    init, update = flat_optimizer(cfg)
+    state, losses = init(params), []
+    for x, y in batches:
+        ce, _, grads = loss_and_grads(model, cfg, x, y, torch.bfloat16, 0.0)
+        losses.append(ce.item())
+        with torch.no_grad():
+            new, state = update(params, grads, state, lr)
+            for p, t in zip(params, new):
+                p.copy_(t)
+    return losses
+
+
+def dp_nccl_rank(comm):
+    """The world-1 NCCL run: (d) replicated dp's three steps against
+    single's on the same rows, then resnet50 / imagenet bf16 B 128 through
+    replicated dp and through single, images/s each and one profile
+    each."""
+    import dataclasses
+
+    import torch
+
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.tools.timing import timed_steps
+
+    dev = comm.device
+    cfg = dp_token_cfg(1)
+    data = make_synthetic(cfg.dataset(), DP_ROWS, dev, seed=0)
+    batches = [data.batch(0, s) for s in range(DP_STEPS)]
+    runs = {}
+    for name, c in (("dp", cfg), ("single", dataclasses.replace(
+            cfg, strategy="single"))):
+        strat = make_strategy(c, dev, comm if name == "dp" else None)
+        runs[name] = dp_steps(torch, strat, batches, DP_LR)
+        del strat
+        torch.cuda.empty_cache()
+    dl, sl = runs["dp"][0], runs["single"][0]
+    rl = single_ref_update_losses(
+        torch, dataclasses.replace(cfg, strategy="single"), batches, DP_LR,
+        dev)
+
+    def worst(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    train = {"losses_dp": dl, "losses_single_ref_update": rl,
+             "losses_single_torch_optim": sl,
+             "worst_loss_rel": worst(dl, rl),
+             "worst_loss_rel_vs_torch_optim": worst(dl, sl),
+             "launches": runs["dp"][2], "plain_launches": runs["dp"][3]}
+    train["ok"] = train["worst_loss_rel"] <= DP_NCCL_RTOL
+    image = {}
+    for name, strategy in (("dp", "dp"), ("single", "single")):
+        icfg = RunConfig(benchmark=DP_IMAGE_MODEL[1], arch=DP_IMAGE_MODEL[0],
+                         strategy=strategy, batch_size=DP_IMAGE_B,
+                         compute_dtype="bfloat16", seed=0)
+        strat = make_strategy(icfg, dev, comm if name == "dp" else None)
+        idata = make_synthetic(icfg.dataset(), DP_IMAGE_B, dev, seed=0)
+        lr, losses = icfg.resolved_lr(), []
+
+        def run_step(x, y, strat=strat, lr=lr, losses=losses):
+            m = strat.train_step(x, y, lr)
+            losses.append(m["loss"])
+            return m
+
+        dt = timed_steps(run_step, idata.batch, DP_IMAGE_STEPS,
+                         DP_IMAGE_WARMUP)
+        image[name] = {"images_per_s": DP_IMAGE_STEPS * DP_IMAGE_B / dt,
+                       "ms_per_step": 1e3 * dt / DP_IMAGE_STEPS,
+                       "finite": all(math.isfinite(v) for v in
+                                     torch.stack(losses).float().tolist())}
+        if dev.type == "cuda":
+            prof = image_profile(torch, strat, idata)
+            image[name]["profile"] = {
+                k: prof[k] for k in ("device_busy_share", "launches_per_step",
+                                     "groups")}
+            image[name]["profile"]["device_ms_per_step"] = (
+                prof["device_busy_ms"] / prof["steps"])
+        del strat, idata, losses
+        torch.cuda.empty_cache()
+    image["dp_over_single"] = (image["dp"]["images_per_s"]
+                               / image["single"]["images_per_s"])
+    return {"comm": comm.record(), "train": train, "image": image}
+
+
+def phase_dp(torch):
+    """Phases 15-16 (module docstring): the world-2 shared-card ranks,
+    then the world-1 NCCL rank. Emits dp_train and dp_image and returns
+    the B1-B6 launches of every rank's main-path steps."""
+    from ddlbench_tpu_torch import distributed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shared = distributed.spawn(dp_shared_rank, 2, "cuda", shared_card=True)
+    t1 = time.perf_counter()
+    (nccl,) = distributed.spawn(dp_nccl_rank, 1, "cuda")
+    t2 = time.perf_counter()
+    per_step = {**{n: LAYERS for n in FLASH_KERNELS},
+                **{n: 1 for n in FX_KERNELS}}
+    launches = {n: 0 for n in DP_COUNTERS}
+    checks, engines = {}, {}
+    for rank in shared:
+        for name, _ in DP_ENGINES:
+            rec = rank["train"][name]
+            ok = (rec["plain_launches"] == 0 and all(
+                rec["launches"][n] == per_step[n] * DP_STEPS
+                for n in DP_COUNTERS))
+            checks[f"e_rank{rank['rank']}_{name}"] = ok
+            for n in DP_COUNTERS:
+                launches[n] += rec["launches"][n]
+    for n in DP_COUNTERS:
+        launches[n] += nccl["train"]["launches"][n]
+    checks["e_nccl"] = nccl["train"]["plain_launches"] == 0 and all(
+        nccl["train"]["launches"][n] == per_step[n] * DP_STEPS
+        for n in DP_COUNTERS)
+    r0 = shared[0]["train"]
+    for name, _ in DP_ENGINES:
+        engines[name] = {k: r0[name].get(k) for k in (
+            "losses", "timed_ms_per_step", "global_tokens_per_s",
+            "params_bitwise", "params_rel_l2")}
+    checks["a_vs_single"] = r0["vs_single"]["ok"]
+    for name in ("sharded", "overlapped"):
+        checks[f"b_{name}"] = (r0[name]["params_bitwise"]
+                               or r0[name]["params_rel_l2"] <= DP_ENGINE_REL)
+    f32 = r0["replicated"]["losses"]
+    for name in ("bf16", "int8"):
+        got = r0[name]["losses"]
+        checks[f"c_{name}"] = all(
+            math.isfinite(a) and abs(a - b) <= DP_WIRE_RTOL * abs(b)
+            for a, b in zip(got, f32))
+    checks["c_int8_replay"] = (r0["int8_replay"]["params_bitwise"] and
+                               r0["int8_replay"]["losses"]
+                               == r0["int8"]["losses"])
+    checks["same_losses_on_both_ranks"] = all(
+        shared[1]["train"][n]["losses"] == r0[n]["losses"]
+        for n, _ in DP_ENGINES)
+    checks["d_nccl_vs_single"] = nccl["train"]["ok"]
+    emit({"phase": "dp_train", "model": DP_TOKEN_MODEL[0],
+          "benchmark": DP_TOKEN_MODEL[1], "global_batch": DP_ROWS,
+          "world": 2, "dtype": "bfloat16", "steps": DP_STEPS,
+          "comm_shared": shared[0]["comm"], "comm_nccl": nccl["comm"],
+          "vs_single": r0["vs_single"], "engines": engines,
+          "nccl_world1": nccl["train"],
+          "launches_per_rank": {f"rank{r['rank']}": {
+              n: r["train"][n]["launches"] for n, _ in DP_ENGINES}
+              for r in shared},
+          "bitwise_b": {n: r0[n]["params_bitwise"]
+                        for n in ("sharded", "overlapped")},
+          "checks": checks, "spawn_s": {"shared": t1 - t0,
+                                        "nccl": t2 - t1}})
+    f64 = shared[0]["image_f64"]
+    image_checks = {"f64_sync_bn_vs_single": f64["ok"],
+                    "resnet50_finite": all(v["finite"] for k, v in
+                                           nccl["image"].items()
+                                           if isinstance(v, dict))}
+    emit({"phase": "dp_image", "float64_world2": {
+              "model": DP_F64_MODEL, **f64},
+          "bf16_nccl_world1": {"model": DP_IMAGE_MODEL,
+                               "batch": DP_IMAGE_B, **nccl["image"]},
+          "checks": image_checks})
+    failed = [k for k, v in {**checks, **image_checks}.items() if not v]
+    if failed:
+        raise AssertionError(f"data-parallel checks failed: {failed}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4917,6 +5368,8 @@ def main() -> int:
           "depth_0": {k: inline[k] for k in keys}})
     emit({"phase": "real_data_seconds", **real})
     phase_image_zoo(torch, dev)
+    for name, n in phase_dp(torch).items():
+        train_launches[name] += n
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def row(name, source, replaces, n, err, t):

@@ -1,4 +1,5 @@
-"""Training CLI of the port: the ``single`` subset of ``ddlbench_tpu/cli.py``.
+"""Training CLI of the port: the ``single`` and ``dp`` subset of
+``ddlbench_tpu/cli.py``.
 
     python -m ddlbench_tpu_torch.cli -b imagenet -f single -m resnet50 \\
         -e 1 --steps-per-epoch 20
@@ -25,17 +26,27 @@ off) and prefetched ``--prefetch-depth`` batches ahead (2;
     python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_moe_s \
         -e 1 --steps-per-epoch 20 --moe-capacity-factor 1.25
 
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f dp \
+        -g 4 -e 1 --steps-per-epoch 20 --dp-shard-update --comm-buckets 4
+
+trains data-parallel on ``-g`` ranks, one process each (NCCL, rank r on
+card r; ``--device cpu``: gloo ranks on the CPU); a machine with fewer
+cards than ``-g`` is an error. Rank 0 prints the lines; ``result:`` is its
+summary.
+
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 25, seed 1, bfloat16) and the knobs the loop reads (``-e -p
 --batch-size --steps-per-epoch --grad-accum-steps --lr --optimizer
---dtype --seed --jsonl``, the data flags above and the token knobs
+--dtype --seed --jsonl``, the data flags above, the token knobs
 ``--label-smoothing --attention-backend --no-fused-head-loss
---remat-layers --moe-aux-weight --moe-capacity-factor``, with the
-reference's defaults); ``--device`` stands in for ``--platform``;
-``--momentum`` and ``--weight-decay`` override the per-workload defaults.
-Every other flag of the reference is refused by name (an error naming it),
-never ignored; so are ``-f`` strategies other than ``single`` and the
-arches the port does not build (RunConfig.validate, models/zoo.py).
+--remat-layers --moe-aux-weight --moe-capacity-factor`` and the dp knobs
+``-g --dp-shard-update --allreduce-dtype --comm-buckets
+--shard-opt-state --warmup-epochs``, with the reference's defaults);
+``--device`` stands in for ``--platform``; ``--momentum`` and
+``--weight-decay`` override the per-workload defaults. Every other flag
+of the reference is refused by name (an error naming it), never ignored;
+so are ``-f`` strategies other than ``single`` and ``dp`` and the arches
+the port does not build (RunConfig.validate, models/zoo.py).
 """
 
 from __future__ import annotations
@@ -47,18 +58,18 @@ import sys
 from ddlbench_tpu_torch.config import ATTENTION_BACKENDS, DATASETS, RunConfig
 from ddlbench_tpu_torch.models.zoo import MODEL_NAMES
 
-# the reference's strategies: all but "single" raise NotImplementedError
+# the reference's strategies: all but "single" and "dp" raise
+# NotImplementedError
 STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
 
 # the reference's flags the port does not carry
 NOT_PORTED_FLAGS = (
-    ("-g", "--devices"), ("--micro-batch-size",), ("--num-microbatches",), ("--stages",),
+    ("--micro-batch-size",), ("--num-microbatches",), ("--stages",),
     ("--virtual-stages",), ("--pipe-schedule",), ("--zb-h2-stash",),
     ("--sched-search-budget",), ("--sched-search-seed",), ("--pipe-costs",),
     ("--schedule-trace",), ("--dp-replicas",), ("--tp-size",),
     ("--stage-replication",), ("--update-interval",),
-    ("--shard-opt-state",), ("--dp-shard-update",), ("--allreduce-dtype",),
-    ("--comm-buckets",), ("--warmup-epochs",), ("--auto-partition",), ("--plan",), ("--plan-bounds",), ("--hbm-gb",),
+    ("--auto-partition",), ("--plan",), ("--plan-bounds",), ("--hbm-gb",),
     ("--profile-mode",), ("--trace-dir",), ("--xla-trace-steps",),
     ("--trace",), ("--trace-capacity",), ("--audit",), ("--checkpoint-dir",),
     ("--resume",), ("--checkpoint-every-steps",), ("--keep-checkpoints",),
@@ -86,7 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--benchmark", default="mnist",
                    choices=sorted(DATASETS))
     p.add_argument("-f", "--framework", default="single", choices=STRATEGIES,
-                   help="strategy (only single is ported)")
+                   help="strategy (single and dp are ported)")
+    p.add_argument("-g", "--devices", type=int, default=1,
+                   help="ranks of -f dp, one process and one card each")
     p.add_argument("-m", "--model", default="resnet18",
                    choices=MODEL_NAMES)
     p.add_argument("-p", "--log-interval", type=int, default=25)
@@ -129,6 +142,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remat-layers", action="store_true",
                    help="checkpoint every layer (recompute activations in "
                         "the backward; token models, not MoE)")
+    p.add_argument("--shard-opt-state", action="store_true",
+                   help="ZeRO-1 on dp: shard optimizer state over the ranks "
+                        "(params stay replicated)")
+    p.add_argument("--dp-shard-update", action="store_true",
+                   help="explicit sharded weight update (ZeRO-1): "
+                        "reduce-scatter grads and update a 1/world slice of "
+                        "the packed params and optimizer state per rank")
+    p.add_argument("--allreduce-dtype", default="f32",
+                   choices=("f32", "float32", "bf16", "bfloat16", "int8"),
+                   help="wire dtype of dp's gradient collectives (int8: "
+                        "global-absmax scaling and stochastic rounding)")
+    p.add_argument("--comm-buckets", type=int, default=1, metavar="K",
+                   help="split the packed flat gradient into K "
+                        "layer-aligned buckets, one collective each; with "
+                        "--dp-shard-update the params stay sharded between "
+                        "steps and each bucket is all-gathered before the "
+                        "forward")
+    p.add_argument("--warmup-epochs", type=int, default=0,
+                   help="gradual lr warmup epochs (Horovod ImageNet parity: "
+                        "base lr -> base*world over this many epochs)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--jsonl", default=None,
                    help="also write the metric records here, one JSON "
@@ -145,7 +178,8 @@ def build_parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> RunConfig:
     return RunConfig(
         benchmark=args.benchmark, strategy=args.framework, arch=args.model,
-        epochs=args.epochs, log_interval=args.log_interval,
+        num_devices=args.devices, epochs=args.epochs,
+        log_interval=args.log_interval,
         batch_size=args.batch_size, steps_per_epoch=args.steps_per_epoch,
         lr=args.lr, optimizer=args.optimizer, momentum=args.momentum,
         weight_decay=args.weight_decay, compute_dtype=args.dtype,
@@ -158,7 +192,28 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         label_smoothing=args.label_smoothing,
         attention_backend=args.attention_backend,
         fused_head_loss=not args.no_fused_head_loss,
-        remat_layers=args.remat_layers)
+        remat_layers=args.remat_layers, shard_opt_state=args.shard_opt_state,
+        dp_shard_update=args.dp_shard_update,
+        allreduce_dtype=args.allreduce_dtype,
+        comm_buckets=args.comm_buckets, warmup_epochs=args.warmup_epochs)
+
+
+def _train_rank(comm, cfg: RunConfig, jsonl: str, device=None) -> dict:
+    """The run of :func:`main` on ``device``, or on dp rank ``comm`` (a
+    spawned process): its strategy, the loop, its summary (rank 0's is
+    printed)."""
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.train.loop import run_benchmark
+    from ddlbench_tpu_torch.train.metrics import MetricLogger
+
+    if comm is not None:
+        device = comm.device
+    logger = MetricLogger(cfg.epochs, cfg.log_interval, jsonl_path=jsonl,
+                          device=device, rank=comm.rank if comm else 0)
+    try:
+        return run_benchmark(cfg, make_strategy(cfg, device, comm), logger)
+    finally:
+        logger.close()
 
 
 def main(argv=None) -> int:
@@ -166,22 +221,20 @@ def main(argv=None) -> int:
     cfg = config_from_args(args)
     cfg.validate()
 
+    from ddlbench_tpu_torch import distributed
     from ddlbench_tpu_torch.device import resolve_device
-    from ddlbench_tpu_torch.parallel.api import make_strategy
-    from ddlbench_tpu_torch.train.loop import run_benchmark
-    from ddlbench_tpu_torch.train.metrics import MetricLogger
 
+    if cfg.strategy == "dp":
+        distributed.check_world(args.device or "cuda", cfg.num_devices)
     device = resolve_device(args.device)
     print("run manifest: " + json.dumps(vars(args)), flush=True)
-    logger = MetricLogger(cfg.epochs, cfg.log_interval,
-                          jsonl_path=args.jsonl, device=device)
-    try:
-        result = run_benchmark(cfg, make_strategy(cfg, device), logger)
-    finally:
-        logger.close()
+    if cfg.strategy == "dp":
+        result = distributed.spawn(_train_rank, cfg.num_devices,
+                                   device.type, args=(cfg, args.jsonl))[0]
+    else:
+        result = _train_rank(None, cfg, args.jsonl, device)
     print("result: " + json.dumps(result), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

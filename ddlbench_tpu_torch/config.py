@@ -2,8 +2,9 @@
 
 The port's own copy of the pieces of ``ddlbench_tpu/config.py`` those paths
 read: :class:`DatasetSpec` with the image and token workloads,
-``DEFAULT_BATCH`` for the ``single`` strategy, :class:`ServeConfig` and
-:class:`RunConfig` with their resolvers and validation. The field names, defaults and error
+``DEFAULT_BATCH`` for the ``single`` and ``dp`` strategies,
+:class:`ServeConfig` and :class:`RunConfig` with their resolvers and
+validation. The field names, defaults and error
 messages are the reference's, so a config built for one package means the
 same thing to the other.
 
@@ -82,12 +83,22 @@ DATASETS: Mapping[str, DatasetSpec] = {
 # tensors; "flash"/"xla" force one (models/transformer.py)
 ATTENTION_BACKENDS = ("auto", "flash", "xla")
 
-# the reference's per-strategy default batch, of "single"
+# the reference's per-strategy default batch of "single" and "dp" (per
+# device: a dp step takes num_devices x this many rows)
 DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
     "single": {"mnist": 128, "cifar10": 64, "imagenet": 32, "highres": 32,
                "synthtext": 16, "longctx": 2, "longctx32k": 1,
                "synthmt": 64},
+    "dp": {"mnist": 128, "cifar10": 64, "imagenet": 32, "highres": 32,
+           "synthtext": 16, "longctx": 2, "longctx32k": 1, "synthmt": 64},
 }
+
+# the strategies the port's training path runs
+PORTED_STRATEGIES = ("single", "dp")
+
+# the canonical names of the dp gradient wire dtypes (allreduce_dtype)
+_WIRE_DTYPES = {"f32": "float32", "float32": "float32",
+                "bf16": "bfloat16", "bfloat16": "bfloat16", "int8": "int8"}
 
 
 # (field, default, what it is, the ROADMAP item it waits on) for every
@@ -113,7 +124,9 @@ _TRAIN_NOT_PORTED = (
     ("hang_timeout_s", None, "the hang watchdog"),
     ("inject", (), "fault injection and preemption"),
     ("activation_log_dir", None, "activation logging"),
-    ("warmup_epochs", 0, "gradual lr warmup (it needs a dp strategy)"),
+    ("elastic_slices", None,
+     "the elastic world-invariant reduction (ROADMAP A.8: it needs "
+     "train/reshard.py and checkpoints)"),
 )
 
 
@@ -317,8 +330,10 @@ class RunConfig:
     """
 
     benchmark: str = "synthtext"
-    strategy: str = "single"
+    strategy: str = "single"  # single | dp
     arch: str = "transformer_s"
+    # ranks of a dp run (the reference's chips: gpus x nodes)
+    num_devices: int = 1
     # the training protocol (the reference's EPOCHS=3, LOGINTER=25)
     epochs: int = 3
     log_interval: int = 25
@@ -337,10 +352,27 @@ class RunConfig:
     # step decay: lr x gamma every lr_step_epochs epochs
     lr_step_epochs: int = 30
     lr_step_gamma: float = 0.1
-    # Goyal-et-al gradual warmup epochs: the ramp undoes a data-parallel
-    # world's lr scaling, so it waits for a dp strategy (validate() refuses
-    # it until then)
+    # Goyal-et-al gradual warmup: over this many leading epochs the lr
+    # ramps per step from base to base x world (train/loop.py); it undoes
+    # exactly dp's world scaling, so it is the identity elsewhere
     warmup_epochs: int = 0
+    # Horovod parity: under dp with SGD the lr is scaled by the world size
+    # and by grad_accum_steps (train/loop.py)
+    scale_lr_by_world: bool = True
+    # dp (parallel/dp.py). shard_opt_state: the optimizer state sliced per
+    # leaf over the ranks, the updated slices all-gathered (params stay
+    # replicated). dp_shard_update: the explicit sharded update (ZeRO-1):
+    # the packed flat gradient reduce-scatters, each rank updates a
+    # 1/world slice of the flat params and optimizer state, the slices
+    # all-gather back. allreduce_dtype: the gradient wire dtype (f32,
+    # bf16, int8: global-absmax scaling and stochastic rounding).
+    # comm_buckets: K layer-aligned buckets, one collective each; with
+    # dp_shard_update the params stay sharded between steps and each
+    # bucket is all-gathered before the forward (the overlapped engine)
+    shard_opt_state: bool = False
+    dp_shard_update: bool = False
+    allreduce_dtype: str = "float32"
+    comm_buckets: int = 1
     # MoE (transformer_moe_* archs): the router load-balance loss weight
     # and the static capacity ceil(cf * tokens / experts) an expert
     moe_aux_weight: float = 0.01
@@ -393,6 +425,7 @@ class RunConfig:
     hang_timeout_s: Optional[float] = None
     inject: Tuple[str, ...] = ()
     activation_log_dir: Optional[str] = None
+    elastic_slices: Optional[int] = None
 
     def dataset(self) -> DatasetSpec:
         return DATASETS[self.benchmark]
@@ -426,20 +459,56 @@ class RunConfig:
             return self.weight_decay
         return 1e-4 if self.benchmark in ("imagenet", "highres") else 0.0
 
+    def resolved_allreduce_dtype(self) -> str:
+        """Canonical allreduce_dtype: 'float32', 'bfloat16', or 'int8'."""
+        try:
+            return _WIRE_DTYPES[self.allreduce_dtype]
+        except KeyError:
+            raise ValueError(
+                f"unknown allreduce_dtype {self.allreduce_dtype!r} "
+                f"(choose f32/float32, bf16/bfloat16, or int8)") from None
+
+    def dp_explicit_collectives(self) -> bool:
+        """True when dp runs the explicit collective engine (sharded
+        update, a narrowed wire, or bucketed collectives) rather than the
+        reference's GSPMD one; in the port both are parallel/dp.py's one
+        engine, and this says which knobs its validation gates apply
+        to."""
+        return self.strategy == "dp" and (
+            self.dp_shard_update
+            or self.comm_buckets > 1
+            or self.resolved_allreduce_dtype() != "float32")
+
+    def dp_overlap_engine(self) -> bool:
+        """True when dp keeps the params sharded between steps and
+        all-gathers each bucket before the forward: the sharded update
+        with more than one bucket."""
+        return (self.dp_explicit_collectives() and self.dp_shard_update
+                and self.comm_buckets > 1)
+
     def global_batch(self) -> int:
-        """The step's batch: ``single`` runs batch_size (or the reference's
-        default for the benchmark) rows per micro-step, grad_accum_steps
-        micro-steps per step."""
-        b = self.batch_size or DEFAULT_BATCH["single"][self.benchmark]
-        return int(b) * self.grad_accum_steps
+        """The step's batch: batch_size (or the reference's default for
+        the benchmark) rows per micro-step and device, grad_accum_steps
+        micro-steps per step; ``dp`` takes num_devices devices' rows."""
+        key = "dp" if self.strategy == "dp" else "single"
+        b = int(self.batch_size or DEFAULT_BATCH[key][self.benchmark])
+        devices = self.num_devices if self.strategy == "dp" else 1
+        return b * devices * self.grad_accum_steps
 
     def validate(self) -> None:
         if self.benchmark not in DATASETS:
             raise ValueError(f"unknown benchmark {self.benchmark!r}")
-        if self.strategy != "single":
+        if self.strategy not in PORTED_STRATEGIES:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported to the PyTorch "
-                "training path yet (only 'single')")
+                f"training path yet (only {', '.join(PORTED_STRATEGIES)})")
+        if self.strategy == "single" and self.num_devices != 1:
+            raise ValueError("single strategy uses exactly 1 device")
+        if self.num_devices < 1:
+            raise ValueError("num_devices must be >= 1")
+        if self.warmup_epochs < 0:
+            raise ValueError("warmup_epochs must be >= 0")
+        self._validate_dp()
         for name, default, what in _TRAIN_NOT_PORTED:
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -489,3 +558,59 @@ class RunConfig:
                 "per-layer remat (remat_layers) of the image models is not "
                 "ported: torch.utils.checkpoint's recomputation would "
                 "update BatchNorm's running statistics a second time")
+
+    def _validate_dp(self) -> None:
+        """The reference's dp gates, worded as it words them, then the
+        port's own refusal of MoE archs under dp."""
+        if self.shard_opt_state and self.strategy != "dp":
+            raise ValueError(
+                "shard_opt_state (ZeRO-1) applies to the dp strategy "
+                "(fsdp already shards everything)")
+        self.resolved_allreduce_dtype()  # raises on unknown values
+        if self.comm_buckets < 1:
+            raise ValueError("comm_buckets must be >= 1")
+        if self.comm_buckets > 1 and self.strategy != "dp":
+            raise ValueError(
+                "comm_buckets > 1 (bucketed gradient collectives) applies "
+                "to the dp strategy's explicit collective engine (-f dp; "
+                "combine with --dp-shard-update for the fully overlapped "
+                "just-in-time all-gather) or to -f gpipe with "
+                "--dp-shard-update (hybrid PP x ZeRO-1 bucket count)")
+        if self.dp_shard_update and self.strategy != "dp":
+            raise ValueError(
+                "dp_shard_update (sharded weight update) applies to the dp "
+                "strategy or to -f gpipe (hybrid PP x ZeRO-1 over the pipe "
+                "mesh's 'data' axis; fsdp already shards everything)")
+        if self.dp_shard_update and self.shard_opt_state:
+            raise ValueError(
+                "dp_shard_update supersedes shard_opt_state: the explicit "
+                "engine already shards the optimizer state (pick one)")
+        if self.shard_opt_state and self.strategy == "dp" and \
+                self.resolved_allreduce_dtype() != "float32":
+            raise ValueError(
+                "shard_opt_state is a GSPMD placement knob; the compressed-"
+                "allreduce engine pins the optimizer state replicated — "
+                "use dp_shard_update for sharded state with bf16 wire")
+        if self.resolved_allreduce_dtype() != "float32" and \
+                self.strategy != "dp":
+            raise ValueError(
+                "allreduce_dtype applies to the dp strategy's gradient "
+                "collectives")
+        if self.dp_explicit_collectives():
+            if "moe" in self.arch:
+                raise ValueError(
+                    "dp_shard_update / compressed allreduce run the train "
+                    "step under shard_map, where MoE router statistics "
+                    "would become per-shard (replicated dp routes over the "
+                    "global batch); use replicated dp for MoE archs")
+            if self.remat_layers:
+                raise ValueError(
+                    "remat_layers is incompatible with the explicit dp "
+                    "collective engine (checkpointed traces cannot carry "
+                    "the shard_map axis context); use replicated dp")
+        if self.strategy == "dp" and "moe" in self.arch:
+            raise NotImplementedError(
+                f"{self.arch} under dp is not ported to the PyTorch "
+                "training path yet (ROADMAP A.6b: the reference routes "
+                "over the global batch, which needs cross-rank capacity "
+                "positions and a global aux mean)")

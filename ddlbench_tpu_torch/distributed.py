@@ -1,0 +1,265 @@
+"""Process groups for the port's data-parallel training (the counterpart of
+``ddlbench_tpu/distributed.py``'s multi-process pieces).
+
+The reference runs one process per host over a JAX mesh; the port runs one
+process per rank over ``torch.distributed``, the reference's own
+mechanism (Horovod: one process per GPU). :func:`spawn` starts the ranks
+with ``torch.multiprocessing``'s spawn start method and a rendezvous file
+(``init_method="file://..."``) in a fresh temporary directory, so two runs
+on one machine never share a port or a file. Each rank gets a :class:`Comm`:
+its group, rank, world and device, and the collectives the dp strategy
+calls (parallel/dp.py).
+
+Backends and devices:
+
+* ``cpu``: gloo, every rank on the CPU (the tests);
+* ``cuda``: NCCL, rank r on ``cuda:r``; a world larger than the machine's
+  card count is an error naming the count, never a silent fall back to
+  gloo or the CPU;
+* ``cuda`` with ``shared_card=True``: gloo, every rank on ``cuda:0``. NCCL
+  refuses two ranks on one card, so this is how one card runs a world of
+  2 (chip_smoke.py). It exists only for a caller that asks for it; the CLI
+  does not offer it. gloo takes CUDA tensors directly for all_reduce and
+  broadcast (:data:`GLOO_CUDA_DIRECT`); reduce-scatter and all-gather are
+  always staged through pinned host memory, by the table, never on an
+  exception. Its wire is the host's, so it says nothing of NCCL's speed.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import queue
+import tempfile
+import traceback
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+# the collectives gloo runs on CUDA tensors itself (PyTorch's backend
+# table); the others are staged through pinned host memory
+GLOO_CUDA_DIRECT = ("all_reduce", "broadcast")
+COLLECTIVES = ("all_reduce", "broadcast", "reduce_scatter", "all_gather")
+TIMEOUT_S = 300.0  # a collective's wait before gloo or NCCL gives up
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def local_batch_slice(global_batch: int, rank: int, world: int) -> slice:
+    """Rank ``rank``'s contiguous rows of a global batch of
+    ``global_batch`` rows (the reference's ``local_batch_slice``)."""
+    if global_batch % world:
+        raise ValueError(f"global batch {global_batch} does not split "
+                         f"over {world} ranks")
+    per = global_batch // world
+    return slice(rank * per, (rank + 1) * per)
+
+
+def rank_device(device: str, rank: int, world: int,
+                shared_card: bool = False) -> torch.device:
+    """The device of rank ``rank``: the CPU, ``cuda:rank``, or ``cuda:0``
+    for every rank of a shared card. Raises where the machine lacks the
+    cards (module docstring)."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        if shared_card:
+            raise ValueError("shared_card is a mode of the card (cuda)")
+        return dev
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if shared_card and have:
+        return torch.device("cuda", 0)
+    if have < world or not have:
+        need = 1 if shared_card else world
+        raise RuntimeError(
+            f"-g {world} needs {need} CUDA device(s) ("
+            + ("gloo, every rank on one card" if shared_card
+               else "NCCL, one rank a card")
+            + f"); this machine has {have} (--device cpu runs the ranks "
+            "on the CPU)")
+    return torch.device("cuda", rank)
+
+
+def check_world(device: str, world: int, shared_card: bool = False) -> None:
+    """Raise before any process starts where ``world`` ranks cannot run on
+    ``device``."""
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    rank_device(device, world - 1, world, shared_card)
+
+
+def _reduce_scatter(out, inp, op, group):
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    fn(out, inp, op=op, group=group)
+
+
+def _all_gather(out, inp, group):
+    fn = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    fn(out, inp, group=group)
+
+
+@dataclasses.dataclass
+class Comm:
+    """One rank's view of its group: ``rank`` of ``world`` on ``device``,
+    and the collectives of the dp strategy. ``staged`` names the
+    collectives this rank copies through pinned host memory (a shared
+    card's gloo: module docstring). A Comm with no ``group`` describes a
+    world without running one (comm_stats, layouts); its collectives
+    raise."""
+
+    group: Optional[Any]
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+    staged: frozenset = frozenset()
+
+    @classmethod
+    def describe(cls, world: int, rank: int = 0,
+                 device: str = "cpu") -> "Comm":
+        return cls(None, rank, world, torch.device(device), "none")
+
+    def record(self) -> dict:
+        """Which collectives took the device's tensors directly and which
+        were staged through host memory."""
+        direct = [c for c in COLLECTIVES if c not in self.staged]
+        return {"backend": self.backend, "world": self.world,
+                "device": str(self.device), "direct": direct,
+                "host_staged": sorted(self.staged)}
+
+    def _run(self, name: str, fn: Callable, *tensors: torch.Tensor):
+        """Run ``fn`` on ``tensors`` (the last one receives the result),
+        through pinned host copies where ``name`` is staged."""
+        if self.group is None:
+            raise RuntimeError(f"{name}: this Comm describes a world of "
+                               f"{self.world} and runs no collective")
+        if name not in self.staged or tensors[0].device.type != "cuda":
+            fn(*tensors)
+            return tensors[-1]
+        host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                for t in tensors]
+        for h, t in zip(host, tensors):
+            h.copy_(t)
+        fn(*host)
+        tensors[-1].copy_(host[-1])
+        return tensors[-1]
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """In place: the sum (or max) of ``t`` over the ranks."""
+        return self._run("all_reduce", lambda x: dist.all_reduce(
+            x, op=_OPS[op], group=self.group), t)
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """In place: rank ``src``'s ``t`` on every rank."""
+        return self._run("broadcast", lambda x: dist.broadcast(
+            x, dist.get_global_rank(self.group, src), group=self.group), t)
+
+    def reduce_scatter(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's 1/world contiguous slice of the sum of the flat
+        ``t`` over the ranks."""
+        out = torch.empty(t.numel() // self.world, dtype=t.dtype,
+                          device=t.device)
+        return self._run("reduce_scatter", lambda x, o: _reduce_scatter(
+            o, x, dist.ReduceOp.SUM, self.group), t.reshape(-1), out)
+
+    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' flat ``t`` concatenated in rank order."""
+        out = torch.empty(t.numel() * self.world, dtype=t.dtype,
+                          device=t.device)
+        return self._run("all_gather", lambda x, o: _all_gather(
+            o, x, self.group), t.reshape(-1), out)
+
+
+def init_rank(rank: int, world: int, init_file: str, device: str,
+              shared_card: bool = False) -> Comm:
+    """Join the default process group as ``rank`` of ``world`` through the
+    rendezvous file ``init_file`` and return the rank's Comm."""
+    dev = rank_device(device, rank, world, shared_card)
+    if dev.type == "cuda":
+        from ddlbench_tpu_torch.device import resolve_device
+
+        resolve_device(str(dev))  # float32 pinned to full float32 (no TF32)
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" and not shared_card else "gloo"
+    kw = {"device_id": dev} if backend == "nccl" else {}
+    dist.init_process_group(
+        backend, init_method=f"file://{init_file}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S),
+        **kw)
+    staged = (frozenset(c for c in COLLECTIVES if c not in GLOO_CUDA_DIRECT)
+              if shared_card else frozenset())
+    return Comm(dist.group.WORLD, rank, world, dev, backend, staged)
+
+
+def _rank_main(fn, rank, world, init_file, device, shared_card, results,
+               args):
+    try:
+        comm = init_rank(rank, world, init_file, device, shared_card)
+        try:
+            out = fn(comm, *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:  # reported to the parent, which raises
+        results.put((rank, False, traceback.format_exc()))
+
+
+def spawn(fn: Callable, world: int, device: str = "cuda", *,
+          shared_card: bool = False, args: Sequence = ()) -> List[Any]:
+    """Run ``fn(comm, *args)`` on ``world`` ranks, each a process of its own
+    (spawn start method), and return their results in rank order. ``fn``
+    and ``args`` are pickled by import path (a module-level function).
+    Raises with every failed rank's traceback, or where a rank died without
+    a word."""
+    check_world(device, world, shared_card)
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="ddlb_rdv_") as tmp:
+        results = ctx.Queue()
+        procs = [ctx.Process(target=_rank_main,
+                             args=(fn, r, world, os.path.join(tmp, "rdv"),
+                                   device, shared_card, results, tuple(args)))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        got, errors = {}, []
+        waited, grace = 0.0, None
+        try:
+            while len(got) < world:
+                try:
+                    rank, ok, out = results.get(timeout=1.0)
+                except queue.Empty:
+                    waited += 1.0
+                    dead = [r for r, p in enumerate(procs)
+                            if r not in got and p.exitcode not in (None, 0)]
+                    if dead:
+                        raise RuntimeError(
+                            f"rank(s) {dead} died without a result "
+                            f"(exit codes {[procs[r].exitcode for r in dead]})"
+                            + "".join(errors))
+                    # after a failure the others may wait in a collective
+                    # the failed rank never joins: give them a few seconds
+                    if grace is not None and waited > grace:
+                        break
+                    continue
+                got[rank] = out
+                if not ok:
+                    errors.append(f"\n--- rank {rank} ---\n{out}")
+                    grace = waited + 10.0
+            if not errors:
+                for p in procs:
+                    p.join()
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if errors:
+        raise RuntimeError(f"{len(errors)} of {world} ranks failed"
+                           f" ({world - len(got)} stopped):"
+                           + "".join(errors))
+    return [got[r] for r in range(world)]

@@ -41,7 +41,12 @@ of the reference are kept on purpose (tests pin them):
   weights and statistics beside bfloat16 activations (it refuses bfloat16
   weights beside float32 statistics). The output is rounded to the
   compute dtype once, where the reference rounds ``inv`` and ``shift``
-  first. The running statistics are buffers, never cast.
+  first. The running statistics are buffers, never cast. Under
+  data parallelism (:class:`batch_parallel`) the statistics are the
+  global batch's, reduced across the ranks: on the card through
+  PyTorch's batch-norm kernels (Welford statistics, as nn.SyncBatchNorm
+  computes them), on the CPU with the reference's one-pass formula
+  (:meth:`BatchNorm.sync_forward`).
 * :class:`Flatten` flattens in the reference's NHWC order (H, W, C): the
   classifier's first dense rows stay as the reference lays them out.
 * :class:`AvgPool` counts the padding: a SAME window at the map's edge
@@ -284,11 +289,125 @@ def conv2d(x: torch.Tensor, kernel: torch.Tensor, stride: int = 1,
                     stride=stride, groups=groups)
 
 
+class batch_parallel:
+    """Context in which BatchNorm's training statistics are those of the
+    global batch of a data-parallel group (the reference's
+    ``batch_parallel`` with ``sync_batch_mean``): the model runs on one
+    rank's rows and ``comm`` (distributed.Comm) all-reduces the statistics.
+    parallel/dp.py applies the model inside it, in every dp engine, as the
+    reference gets sync-BN from GSPMD in every dp mode."""
+
+    _stack: list = []
+
+    def __init__(self, comm):
+        self.comm = comm
+
+    def __enter__(self):
+        type(self)._stack.append(self.comm)
+        return self
+
+    def __exit__(self, *exc):
+        type(self)._stack.pop()
+        return False
+
+    @classmethod
+    def current(cls):
+        return cls._stack[-1] if cls._stack else None
+
+
+class _SyncBatchStats(torch.autograd.Function):
+    """(E[x], E[x^2]) per channel (dim 1) over the global batch: the local
+    sums in ``dtype`` all-reduced in one collective and divided by the
+    local count x the world. The backward all-reduces the two cotangents
+    the same way (each rank's holds only its rows' part), divides by the
+    same count and broadcasts them over the local rows: the reference's
+    ``sync_batch_mean`` forward and backward, for x and x^2."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dtype):
+        dims = [d for d in range(x.dim()) if d != 1]
+        xs = x.to(dtype)
+        sums = torch.cat([xs.sum(dims), (xs * xs).sum(dims)])
+        comm.all_reduce(sums)
+        count = (x.numel() // x.shape[1]) * comm.world
+        ctx.save_for_backward(x)
+        ctx.comm, ctx.count, ctx.dtype = comm, count, dtype
+        mean, mean2 = (sums / count).chunk(2)
+        return mean, mean2
+
+    @staticmethod
+    def backward(ctx, g_mean, g_mean2):
+        (x,) = ctx.saved_tensors
+        c = x.shape[1]
+        zero = torch.zeros(c, dtype=ctx.dtype, device=x.device)
+        ct = torch.cat([zero if g_mean is None else g_mean,
+                        zero if g_mean2 is None else g_mean2])
+        ctx.comm.all_reduce(ct)
+        ct_m, ct_m2 = (ct / ctx.count).chunk(2)
+        shape = [1] * x.dim()
+        shape[1] = c
+        dx = (ct_m.view(shape).to(x.dtype).expand_as(x)
+              + (2.0 * x.to(ctx.dtype) * ct_m2.view(shape)).to(x.dtype))
+        return dx, None, None
+
+
+class _SyncBatchNormCuda(torch.autograd.Function):
+    """Sync-BN on the card with PyTorch's batch-norm kernels (those of
+    ``nn.SyncBatchNorm``): each rank's Welford statistics
+    (``batch_norm_stats``), gathered through one all-reduce of a
+    [world, 2C + 1] table in which each rank fills its row (gloo takes CUDA
+    tensors for all-reduce, not for all-gather), combined into the global
+    mean and inverse std with the running statistics updated in place
+    (``batch_norm_gather_stats_with_counts``: the unbiased variance over
+    the global count), and ``batch_norm_elemt``; the backward reduces each
+    rank's (sum dy, sum dy (x - mean)), all-reduces them and runs
+    ``batch_norm_backward_elemt``. The weight and bias gradients stay the
+    rank's own sums: dp reduces them with every other gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, comm):
+        if not x.is_contiguous(memory_format=torch.channels_last):
+            x = x.contiguous()
+        c = x.shape[1]
+        mean, invstd = torch.batch_norm_stats(x, BN_EPS)
+        table = torch.zeros(comm.world, 2 * c + 1, dtype=mean.dtype,
+                            device=x.device)
+        table[comm.rank, :c] = mean
+        table[comm.rank, c:2 * c] = invstd
+        table[comm.rank, 2 * c] = x.numel() // c
+        comm.all_reduce(table)
+        counts = table[:, 2 * c]
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, table[:, :c], table[:, c:2 * c], running_mean, running_var,
+            BN_MOMENTUM, BN_EPS, counts.to(running_mean.dtype))
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              counts.to(torch.int32))
+        ctx.comm = comm
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, BN_EPS)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not grad.is_contiguous(memory_format=torch.channels_last):
+            grad = grad.contiguous()
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        sum_dy, sum_dy_xmu, grad_w, grad_b = torch.batch_norm_backward_reduce(
+            grad, x, mean, invstd, weight, True, True, True)
+        both = ctx.comm.all_reduce(torch.cat([sum_dy, sum_dy_xmu]))
+        sum_dy, sum_dy_xmu = both.chunk(2)
+        dx = torch.batch_norm_backward_elemt(grad, x, mean, invstd, weight,
+                                             sum_dy, sum_dy_xmu, counts)
+        return dx, grad_w, grad_b, None, None, None
+
+
 class BatchNorm(nn.Module):
     """The reference's ``batchnorm`` (module docstring): ``scale`` and
     ``bias`` parameters, ``mean`` and ``var`` running statistics (buffers,
     float32). Train mode normalises with the batch statistics and updates
-    the running ones in place; eval mode reads them."""
+    the running ones in place; eval mode reads them. Inside
+    :class:`batch_parallel` the training statistics are the global
+    batch's: on the card through PyTorch's batch-norm kernels
+    (:class:`_SyncBatchNormCuda`), on the CPU as the reference writes them
+    out (:meth:`sync_forward`)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -298,10 +417,42 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(c))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        comm = batch_parallel.current() if self.training else None
         dtype = self.mean.dtype  # the weights take the statistics' type
+        if comm is not None and x.is_cuda:
+            return _SyncBatchNormCuda.apply(x, self.scale.to(dtype),
+                                            self.bias.to(dtype), self.mean,
+                                            self.var, comm)
+        if comm is not None:
+            return self.sync_forward(x, comm)
         return F.batch_norm(x, self.mean, self.var, self.scale.to(dtype),
                             self.bias.to(dtype), self.training, BN_MOMENTUM,
                             BN_EPS)
+
+    def sync_forward(self, x: torch.Tensor, comm) -> torch.Tensor:
+        """The reference's sync branch written out (the CPU's path):
+        one-pass global statistics in the running statistics' type (float32, or float64
+        for a float64 model), ``var = max(E[x^2] - E[x]^2, 0)``, the
+        biased variance for normalising and the unbiased one (over the
+        global count) for the running variance; ``inv = rsqrt(var + eps) *
+        scale`` and ``shift = bias - mean * inv`` in that type, applied
+        to x in its own."""
+        dtype = self.mean.dtype
+        mean, mean2 = _SyncBatchStats.apply(x, comm, dtype)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        n = (x.numel() // x.shape[1]) * comm.world
+        with torch.no_grad():
+            unbiased = var * (n / max(1, n - 1))
+            self.mean.copy_((1 - BN_MOMENTUM) * self.mean
+                            + BN_MOMENTUM * mean)
+            self.var.copy_((1 - BN_MOMENTUM) * self.var
+                           + BN_MOMENTUM * unbiased)
+        inv = torch.rsqrt(var + BN_EPS) * self.scale
+        shift = self.bias - mean * inv
+        shape = [1] * x.dim()
+        shape[1] = x.shape[1]
+        return (x * inv.to(x.dtype).view(shape)
+                + shift.to(x.dtype).view(shape))
 
 
 class ImageLayer(nn.Module):

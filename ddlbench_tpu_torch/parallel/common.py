@@ -7,7 +7,11 @@ which each MoE block records on its forward: models/moe.py), the
 single-apply ``loss_and_grads``, ``eval_metrics`` (fused and logits),
 ``make_optimizer`` as ``torch.optim.SGD`` / ``torch.optim.Adam``, whose
 update rules the reference reimplements (``tests/test_optimizers.py`` pins
-them equal), the step-decay learning rate (``step_decay_lr``) and ``cast_input``.
+them equal), the step-decay learning rate (``step_decay_lr``) and ``cast_input``;
+and the data-parallel pieces: the flat-vector layout of dp's collectives
+(``FlatMeta`` .. ``from_device_major``), the int8 wire's quantisation, the
+gradual warmup, and ``flat_optimizer``, the reference's update formulas on
+tensors.
 
 The model is applied on compute-dtype casts of its float32 parameters
 (models/layers.apply_slice) and of a floating-point input (images); the
@@ -20,8 +24,10 @@ tensors: nothing here waits for the device.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -29,6 +35,7 @@ from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.models.layers import (LayerModel, apply_model,
                                              apply_slice)
 from ddlbench_tpu_torch.models.moe import aux_losses
+from ddlbench_tpu_torch.ops import threefry
 
 
 def step_decay_lr(base_lr: float, epoch: int, step_epochs: int,
@@ -245,3 +252,369 @@ def make_optimizer(cfg: RunConfig,
     return torch.optim.Adam(params, lr=lr,
                             betas=(cfg.adam_beta1, cfg.adam_beta2),
                             eps=cfg.adam_eps, weight_decay=wd)
+
+
+# ---- the flat-vector layout of dp's explicit collectives -------------------
+#
+# The port of the reference's FlatMeta machinery (parallel/common.py
+# flat_meta .. shard_bucket_slice). The packed vector lays the leaves out
+# as the reference does: per layer, the leaves in jax.tree.leaves order
+# (dict keys sorted, list entries in order: :func:`ref_param_order`), each
+# raveled in the reference's layout (a convolution kernel as HWIO, where
+# the port keeps OIHW), so bucket boundaries, pads and the int8 wire's
+# rounding bits fall where the reference's do.
+
+
+class FlatMeta(NamedTuple):
+    """Packing recipe for a list of leaves <-> one flat float32 vector.
+
+    ``shapes`` are the leaves' shapes in the reference's layout, ``sizes``
+    their element counts; ``length`` is the unpadded element count. The
+    vector is ``num_buckets`` contiguous leaf-aligned buckets, bucket b
+    holding leaves ``bucket_leaves[b]`` (a (start, stop) range) then pad
+    zeros up to ``bucket_padded[b]`` elements (a multiple of the world),
+    from offset ``bucket_offsets[b]``; ``padded`` is the total. The pads
+    are inert through SGD and Adam: zero params with zero grads stay zero.
+    """
+
+    shapes: tuple
+    sizes: tuple
+    length: int
+    padded: int
+    bucket_leaves: tuple = ((0, 0),)
+    bucket_padded: tuple = (0,)
+    bucket_offsets: tuple = (0,)
+
+    @property
+    def num_buckets(self) -> int:
+        return len(self.bucket_padded)
+
+
+def _bucket_bounds(group_sizes: Sequence[int], buckets: int) -> List[int]:
+    """Greedy contiguous split of ``group_sizes`` (elements per leaf group)
+    into <= ``buckets`` group-aligned chunks balancing element counts:
+    boundary k falls where the cumulative count crosses k/buckets of the
+    total, never leaving fewer groups than buckets still to fill, and no
+    bucket is opened empty. Returns group-index boundaries
+    [0, ..., len(group_sizes)]."""
+    total = sum(group_sizes)
+    buckets = max(1, min(buckets, len(group_sizes) or 1))
+    bounds = [0]
+    cum = 0
+    acc = 0
+    for i, s in enumerate(group_sizes):
+        remaining_groups = len(group_sizes) - i
+        remaining_buckets = buckets - len(bounds) + 1
+        if (len(bounds) <= buckets - 1 and acc > 0
+                and (cum >= total * len(bounds) / buckets
+                     or remaining_groups <= remaining_buckets)):
+            bounds.append(i)
+            acc = 0
+        cum += s
+        acc += s
+    bounds.append(len(group_sizes))
+    return bounds
+
+
+def flat_meta(shapes: Sequence[Sequence[int]], world: int, buckets: int = 1,
+              leaf_groups: Optional[Sequence[int]] = None) -> FlatMeta:
+    """The FlatMeta of leaves of ``shapes`` over ``world`` ranks in
+    ``buckets`` buckets whose boundaries fall between ``leaf_groups``
+    (leaves per group, e.g. per model layer; None: every leaf its own
+    group). An empty bucket folds into its predecessor; one bucket is one
+    tail pad."""
+    shapes = tuple(tuple(int(d) for d in s) for s in shapes)
+    sizes = tuple(math.prod(s) for s in shapes)
+    length = int(sum(sizes))
+    if leaf_groups is None:
+        leaf_groups = [1] * len(shapes)
+    if sum(leaf_groups) != len(shapes):
+        raise ValueError(f"leaf_groups {list(leaf_groups)} do not cover "
+                         f"{len(shapes)} leaves")
+    group_sizes, li = [], 0
+    for g in leaf_groups:
+        group_sizes.append(int(sum(sizes[li:li + g])))
+        li += g
+    gbounds = _bucket_bounds(group_sizes, buckets)
+    leaf_starts = [0]
+    for g in leaf_groups:
+        leaf_starts.append(leaf_starts[-1] + g)
+    bucket_leaves, bucket_padded, bucket_offsets = [], [], []
+    off = 0
+    for b in range(len(gbounds) - 1):
+        l0, l1 = leaf_starts[gbounds[b]], leaf_starts[gbounds[b + 1]]
+        blen = int(sum(sizes[l0:l1]))
+        bpad = -(-blen // world) * world if blen else 0
+        if bpad == 0 and bucket_leaves:
+            bucket_leaves[-1] = (bucket_leaves[-1][0], l1)
+            continue
+        bucket_leaves.append((l0, l1))
+        bucket_padded.append(bpad)
+        bucket_offsets.append(off)
+        off += bpad
+    if not bucket_leaves:  # a model with no parameters
+        bucket_leaves, bucket_padded, bucket_offsets = [(0, 0)], [0], [0]
+    return FlatMeta(shapes, sizes, length, int(sum(bucket_padded)),
+                    tuple(bucket_leaves), tuple(bucket_padded),
+                    tuple(bucket_offsets))
+
+
+def _key_part(part: str):
+    return (0, int(part), "") if part.isdigit() else (1, 0, part)
+
+
+def ref_param_order(model: LayerModel
+                    ) -> Tuple[List[torch.nn.Parameter], List[int]]:
+    """``model``'s parameters in the reference's leaf order and the leaf
+    count of each layer: per layer, the dotted names (the reference's
+    nested keys, convert.py) sorted part by part, a list index by its
+    number."""
+    params, groups = [], []
+    for layer in model.layers:
+        named = sorted(layer.named_parameters(),
+                       key=lambda kv: tuple(map(_key_part,
+                                                kv[0].split("."))))
+        params += [p for _, p in named]
+        groups.append(len(named))
+    return params, groups
+
+
+def to_ref_layout(t: torch.Tensor) -> torch.Tensor:
+    """A port tensor as a view in the reference's layout: a 4-D
+    convolution kernel OIHW -> HWIO, anything else as it is."""
+    return t.permute(2, 3, 1, 0) if t.dim() == 4 else t
+
+
+def from_ref_layout(t: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_ref_layout`: HWIO -> OIHW, as a view."""
+    return t.permute(3, 2, 0, 1) if t.dim() == 4 else t
+
+
+def model_flat_meta(model: LayerModel, world: int,
+                    buckets: int = 1) -> Tuple[FlatMeta,
+                                               List[torch.nn.Parameter]]:
+    """The model's layer-aligned FlatMeta and its parameters in the
+    packing order."""
+    params, groups = ref_param_order(model)
+    shapes = [to_ref_layout(p).shape for p in params]
+    return flat_meta(shapes, world, buckets, groups), params
+
+
+def pack_flat(leaves: Sequence[torch.Tensor], meta: FlatMeta
+              ) -> torch.Tensor:
+    """The leaves (port layout) raveled in the reference's layout, bucket
+    by bucket, each bucket followed by its pad zeros; float32 (float64
+    for a float64 model's leaves)."""
+    dtype = torch.promote_types(leaves[0].dtype, torch.float32)
+    parts = []
+    for (l0, l1), bpad in zip(meta.bucket_leaves, meta.bucket_padded):
+        parts += [to_ref_layout(t).to(dtype).reshape(-1)
+                  for t in leaves[l0:l1]]
+        blen = int(sum(meta.sizes[l0:l1]))
+        if bpad > blen:
+            parts.append(leaves[0].new_zeros(bpad - blen, dtype=dtype))
+    return torch.cat(parts)
+
+
+def unpack_buckets(bucket_arrays: Sequence[torch.Tensor], meta: FlatMeta
+                   ) -> List[torch.Tensor]:
+    """The leaves (port layout, views) from per-bucket stretches, each
+    ``bucket_padded[b]`` long: every leaf reads only its bucket's."""
+    out = []
+    for (l0, l1), arr in zip(meta.bucket_leaves, bucket_arrays):
+        off = 0
+        for i in range(l0, l1):
+            out.append(from_ref_layout(
+                arr[off:off + meta.sizes[i]].view(meta.shapes[i])))
+            off += meta.sizes[i]
+    return out
+
+
+def bucket_slice(flat: torch.Tensor, meta: FlatMeta, b: int
+                 ) -> torch.Tensor:
+    """Bucket b's ``bucket_padded[b]`` stretch of a packed vector."""
+    o = meta.bucket_offsets[b]
+    return flat[o:o + meta.bucket_padded[b]]
+
+
+def unpack_flat(flat: torch.Tensor, meta: FlatMeta) -> List[torch.Tensor]:
+    """Inverse of :func:`pack_flat` (the pads dropped; views of ``flat``)."""
+    return unpack_buckets([bucket_slice(flat, meta, b)
+                           for b in range(meta.num_buckets)], meta)
+
+
+def bucket_content_lengths(meta: FlatMeta) -> List[int]:
+    """Each bucket's unpadded element count."""
+    return [int(sum(meta.sizes[l0:l1])) for l0, l1 in meta.bucket_leaves]
+
+
+def shard_bucket_slice(shard: torch.Tensor, meta: FlatMeta, world: int,
+                       b: int) -> torch.Tensor:
+    """Bucket b's segment of one rank's ``padded / world`` shard (the
+    concatenation of its 1/world slice of each bucket)."""
+    o = meta.bucket_offsets[b] // world
+    return shard[o:o + meta.bucket_padded[b] // world]
+
+
+def device_major_perm(meta: FlatMeta, world: int):
+    """Index permutation ``p`` (numpy int64) with ``flat[p] ==
+    to_device_major(flat)``, and its inverse."""
+    idx = []
+    for d in range(world):
+        for b in range(meta.num_buckets):
+            o = meta.bucket_offsets[b]
+            bl = meta.bucket_padded[b] // world
+            idx.extend(range(o + d * bl, o + (d + 1) * bl))
+    perm = np.asarray(idx, np.int64)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size, dtype=np.int64)
+    return perm, inv
+
+
+def to_device_major(flat: torch.Tensor, meta: FlatMeta, world: int
+                    ) -> torch.Tensor:
+    """Bucket layout -> device-major layout: rank d's stretch is the
+    concatenation over buckets of its 1/world slice of each (the layout a
+    per-bucket reduce-scatter leaves, and the overlapped engine's params
+    between steps). One bucket: the identity."""
+    parts = []
+    for d in range(world):
+        for b in range(meta.num_buckets):
+            o = meta.bucket_offsets[b]
+            bl = meta.bucket_padded[b] // world
+            parts.append(flat[o + d * bl:o + (d + 1) * bl])
+    return torch.cat(parts) if parts else flat
+
+
+def from_device_major(flat_dm: torch.Tensor, meta: FlatMeta, world: int
+                      ) -> torch.Tensor:
+    """Inverse of :func:`to_device_major`."""
+    shard_len = meta.padded // world
+    parts = []
+    for b in range(meta.num_buckets):
+        bo = meta.bucket_offsets[b] // world
+        bl = meta.bucket_padded[b] // world
+        parts += [flat_dm[d * shard_len + bo:d * shard_len + bo + bl]
+                  for d in range(world)]
+    return torch.cat(parts) if parts else flat_dm
+
+
+# ---- the int8 wire ----------------------------------------------------------
+
+
+def sum_safe_qmax(world: int) -> int:
+    """The largest per-rank quantised magnitude whose sum over ``world``
+    ranks fits int8 (the collective sums in int8): 127 // world."""
+    if world > 127:
+        raise ValueError(
+            f"int8 wire supports up to 127 devices (got {world}): the "
+            f"in-dtype collective sum would overflow")
+    return max(1, 127 // world)
+
+
+def stochastic_round_int8(v: torch.Tensor, key, qmax: int = 127
+                          ) -> torch.Tensor:
+    """Unbiased stochastic rounding of ``v`` (scaled into [-qmax, qmax])
+    to int8: floor(v) + (u < frac(v)) with ``u`` the uniform draws of
+    ``jax.random.uniform(key, v.shape)`` (ops/threefry.py, bit for bit),
+    clipped at qmax against division round-off."""
+    lo = torch.floor(v)
+    frac = v - lo
+    u = threefry.uniform(tuple(k.to(v.device) for k in key), v.shape)
+    r = lo + (u < frac).float()
+    return torch.clamp(r, -float(qmax), float(qmax)).to(torch.int8)
+
+
+def quantize_int8(g: torch.Tensor, key, qmax: int = 127,
+                  absmax: Optional[torch.Tensor] = None):
+    """(q int8, scale float32): ``scale = absmax / qmax`` (1 for an
+    all-zero block) and ``q`` the stochastic rounding of ``g / scale``.
+    ``absmax`` defaults to ``max|g|``; dp passes the ranks' global one, so
+    every rank shares the scale. Dequantise with ``q.float() * scale``."""
+    if absmax is None:
+        absmax = g.abs().max()
+    absmax = absmax.float()
+    scale = torch.where(absmax > 0, absmax / qmax,
+                        torch.ones((), device=g.device))
+    return stochastic_round_int8(g / scale, key, qmax), scale
+
+
+def gradual_warmup_lr(scaled_lr: float, world: int, epoch0: int, step: int,
+                      steps_per_epoch: int, warmup_epochs: int) -> float:
+    """Goyal et al.'s gradual warmup: over the first ``warmup_epochs``
+    (``epoch0`` 0-based) the lr ramps linearly, per step, from
+    ``scaled_lr / world`` to the world-scaled ``scaled_lr``; untouched
+    past the warmup or at world 1."""
+    if epoch0 >= warmup_epochs or world <= 1:
+        return scaled_lr
+    frac = epoch0 + (step + 1) / max(1, steps_per_epoch)
+    lr_adj = (1.0 / world) * (frac * (world - 1) / warmup_epochs + 1.0)
+    return scaled_lr * lr_adj
+
+
+# ---- the optimizers on tensors (dp) -----------------------------------------
+
+
+def flat_optimizer(cfg: RunConfig):
+    """(init, update) of cfg.resolved_optimizer() with the reference's
+    ``make_optimizer`` formulas, for any tensor of parameters (a leaf, a
+    slice of one, or a packed flat shard), so every dp engine runs the
+    same arithmetic element for element:
+
+    * sgd: ``g += wd * p; m = mu * m + g; p -= lr * m``;
+    * adam: ``g += wd * p; m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2;
+      p -= (lr / bc1) m / (sqrt(v) / sqrt(bc2) + eps)``, the bias
+      corrections ``bc = 1 - b^step`` in float32.
+
+    Each product and sum is its own op (no fused multiply-add), so an
+    element's result does not depend on which tensor it sits in; the ops
+    run over the whole list at once (``torch._foreach_*``: a few launches
+    for every leaf). ``init(like)`` returns the state of tensors like
+    those (``m``, and for adam ``v`` and the shared ``step``);
+    ``update(params, grads, state, lr)`` takes lists of tensors and
+    returns (new params, new state)."""
+    name = cfg.resolved_optimizer()
+    mom, wd = cfg.resolved_momentum(), cfg.resolved_weight_decay()
+    b1, b2, eps = cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps
+
+    def init(like: Sequence[torch.Tensor]) -> Dict[str, Any]:
+        state = {"m": [torch.zeros_like(t) for t in like]}
+        if name == "adam":
+            state["v"] = [torch.zeros_like(t) for t in like]
+            state["step"] = 0
+        return state
+
+    def decayed(params, grads):
+        grads = list(grads)
+        if wd:  # g + wd * p
+            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
+        return grads
+
+    def sgd(params, grads, state, lr):
+        params = list(params)
+        m2 = torch._foreach_add(torch._foreach_mul(state["m"], mom),
+                                decayed(params, grads))
+        new_p = torch._foreach_sub(params, torch._foreach_mul(m2, lr))
+        return new_p, {"m": m2}
+
+    def adam(params, grads, state, lr):
+        params = list(params)
+        step = state["step"] + 1
+        stepf = torch.tensor(float(step), dtype=torch.float32)
+        bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** stepf
+        bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** stepf
+        # float32 scalars, exact as Python floats
+        rate, root_bc2 = (lr / bc1).item(), torch.sqrt(bc2).item()
+        g = decayed(params, grads)
+        m2 = torch._foreach_add(torch._foreach_mul(state["m"], b1),
+                                torch._foreach_mul(g, 1.0 - b1))
+        v2 = torch._foreach_add(
+            torch._foreach_mul(state["v"], b2),
+            torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
+        denom = torch._foreach_add(
+            torch._foreach_div(torch._foreach_sqrt(v2), root_bc2), eps)
+        step_ = torch._foreach_div(torch._foreach_mul(m2, rate), denom)
+        return (torch._foreach_sub(params, step_),
+                {"m": m2, "v": v2, "step": step})
+
+    return init, (sgd if name == "sgd" else adam)

@@ -1,0 +1,392 @@
+"""Data-parallel strategy of the port (``ddlbench_tpu/parallel/dp.py``) on
+``torch.distributed``.
+
+One process per rank (distributed.py), each holding the whole model. A
+step takes the global batch, keeps the rank's contiguous rows
+(``local_batch_slice``), and with ``grad_accum_steps`` K > 1 micro-step k
+takes every K-th of those rows, as the reference's sharded batch does.
+Every rank builds the model from ``cfg.seed`` and rank 0 broadcasts it
+(the reference's broadcast-init). BatchNorm's statistics are the global
+batch's in every engine (models/layers.batch_parallel): the reference gets
+sync-BN from GSPMD in every dp mode.
+
+The loss a rank differentiates is its rows' sum over the global count of
+valid labels (one all-reduce before the backward), so the ranks'
+gradients sum to the global mean's; the metrics are all-reduced sums. The
+gradients are packed into the reference's flat layout (parallel/common.py
+``FlatMeta``: leaf order, convolution kernels as HWIO, layer-aligned
+buckets padded to the world) and reduced once per micro-step, after the
+backward (no hook overlaps a collective with the backward):
+
+* the replicated engine (the default; the reference's GSPMD path): one
+  all-reduce per bucket, then the reference's update formulas
+  (``flat_optimizer``) on the packed float32 parameters, which every
+  rank keeps and copies into the model. With ``shard_opt_state`` each rank
+  keeps the optimizer state of a 1/world slice of each leaf along the
+  reference's ``_leaf_spec`` dimension, updates that slice and all-gathers
+  the leaf back: the same arithmetic, element for element;
+* ``dp_shard_update`` (ZeRO-1): one reduce-scatter per bucket, so each
+  rank holds its 1/world slice of every bucket (the device-major shard),
+  updates its shard of the packed params with a shard of flat optimizer
+  state, and all-gathers the buckets back;
+* the overlapped engine (``dp_shard_update`` with ``comm_buckets`` > 1):
+  the params stay sharded between steps, and each bucket is all-gathered
+  into the model before the forward;
+* ``allreduce_dtype`` bf16: the gradient is cast before its collective and
+  summed in bf16; int8: per bucket a global absmax (an all-reduce MAX),
+  the shared scale ``absmax / (127 // world)``, stochastic rounding keyed
+  ``fold_in(fold_in(fold_in(key(seed), 0x1A8), qstep), rank)``, then
+  ``fold_in(k)`` per micro-step and ``fold_in(b)`` per bucket (the
+  reference's threefry bits, ops/threefry.py), the collective in int8,
+  and dequantisation; ``qstep`` counts steps in the optimizer state.
+
+Every engine's update is the same elementwise arithmetic and only the
+collectives differ, so the f32 sharded and overlapped engines equal the
+replicated one bit for bit wherever their collectives sum in the same
+order (any two ranks do). ``elastic_slices`` is refused (ROADMAP A.8).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ddlbench_tpu_torch.config import RunConfig
+from ddlbench_tpu_torch.distributed import Comm, local_batch_slice
+from ddlbench_tpu_torch.models.layers import (LayerModel, apply_model,
+                                             batch_parallel)
+from ddlbench_tpu_torch.ops import threefry
+from ddlbench_tpu_torch.parallel.common import (
+    _micro_batch, bucket_slice, cast_input, correct_and_count, correct_topk,
+    flat_optimizer, fused_head_eval_sums, fused_head_loss_sums,
+    head_fusable, model_flat_meta, pack_flat, quantize_int8,
+    shard_bucket_slice, sum_safe_qmax, to_ref_layout, unpack_buckets,
+    unpack_flat)
+
+WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+               "int8": torch.int8}
+INT8_TAG = 0x1A8  # the reference's int8 rounding-stream tag
+
+
+def leaf_spec_dim(shape, world: int) -> Optional[int]:
+    """The dimension ``shard_opt_state`` slices a leaf of ``shape`` (the
+    reference's layout) along: the reference's ``_leaf_spec`` with
+    ``prefer_last=False``, the largest dimension the world divides (the
+    first of equal ones); None where none does (the state stays whole)."""
+    best = None
+    for d, n in enumerate(shape):
+        if n % world == 0 and n >= world and (best is None
+                                              or n > shape[best]):
+            best = d
+    return best
+
+
+class DPStrategy:
+    """strategy='dp' on rank ``comm.rank`` of ``comm.world``. ``model`` must
+    already be on ``comm.device``; call :meth:`init` before the first
+    step."""
+
+    def __init__(self, model: LayerModel, cfg: RunConfig, comm: Comm):
+        if comm.world != cfg.num_devices:
+            raise ValueError(f"a world of {comm.world} ranks for "
+                             f"num_devices={cfg.num_devices}")
+        self.model = model
+        self.cfg = cfg
+        self.comm = comm
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.smoothing = cfg.resolved_label_smoothing()
+        self.shard_update = cfg.dp_shard_update
+        self.wire = cfg.resolved_allreduce_dtype()
+        self.int8 = self.wire == "int8"
+        self.explicit = cfg.dp_explicit_collectives()
+        self.overlap = cfg.dp_overlap_engine()
+        self.meta, self.params = model_flat_meta(model, comm.world,
+                                                 cfg.comm_buckets)
+        self.qmax = sum_safe_qmax(comm.world) if self.int8 else None
+        self._opt_init, self._opt_update = flat_optimizer(cfg)
+        self.opt: Optional[Dict] = None
+        # the packed parameters the update runs on (float32, or float64 for
+        # a float64 model): the whole vector (replicated), this rank's
+        # device-major shard (sharded update), or None (shard_opt_state:
+        # per leaf)
+        self.flat: Optional[torch.Tensor] = None
+
+    # -- the reference's introspection --------------------------------------
+
+    @property
+    def world_size(self) -> int:
+        return self.comm.world
+
+    @property
+    def wire_dtype(self) -> str:
+        return self.wire
+
+    @property
+    def _flat_meta(self):
+        """The packed layout of the explicit engine (None for the
+        replicated one, as the reference's GSPMD path has none)."""
+        return self.meta if self.explicit else None
+
+    # -- state ---------------------------------------------------------------
+
+    def _broadcast_model(self) -> None:
+        """Rank 0's parameters and buffers on every rank, one collective
+        each for the packed parameters and the buffers."""
+        with torch.no_grad():
+            self._load(unpack_flat(self.comm.broadcast(
+                pack_flat(self.params, self.meta)), self.meta))
+            bufs = [b for b in self.model.buffers() if b.is_floating_point()]
+            if bufs:
+                cat = self.comm.broadcast(
+                    torch.cat([b.reshape(-1).double() for b in bufs]))
+                off = 0
+                for b in bufs:
+                    b.copy_(cat[off:off + b.numel()].view_as(b))
+                    off += b.numel()
+
+    def _shard_of(self, flat: torch.Tensor) -> torch.Tensor:
+        """This rank's device-major shard of a bucket-layout vector."""
+        n, r = self.comm.world, self.comm.rank
+        return torch.cat([
+            bucket_slice(flat, self.meta, b)[
+                r * self.meta.bucket_padded[b] // n:
+                (r + 1) * self.meta.bucket_padded[b] // n]
+            for b in range(self.meta.num_buckets)])
+
+    def init(self) -> None:
+        """Broadcast the model from rank 0, pack its parameters and start
+        fresh optimizer state for them: on the packed vector, 1/world of
+        it per rank under the sharded update, per leaf slice with
+        shard_opt_state."""
+        self._broadcast_model()
+        with torch.no_grad():
+            flat = pack_flat(self.params, self.meta)
+            if self.shard_update:
+                self.flat = self._shard_of(flat)
+            elif self.cfg.shard_opt_state:
+                self.flat = None
+            else:
+                self.flat = flat
+            self.opt = self._opt_init(
+                [self.flat] if self.flat is not None else
+                [self._state_slice(p) for p in self.params])
+        if self.int8:
+            self.opt["qstep"] = 0
+
+    def _state_slice(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard_opt_state slice of leaf ``t`` (reference
+        layout), or the whole leaf where no dimension divides."""
+        v = to_ref_layout(t)
+        d = leaf_spec_dim(tuple(v.shape), self.comm.world)
+        if d is None:
+            return v
+        per = v.shape[d] // self.comm.world
+        return v.narrow(d, self.comm.rank * per, per)
+
+    def opt_state_bytes(self) -> int:
+        """The bytes of optimizer-state tensors this rank holds."""
+        return sum(t.numel() * t.element_size()
+                   for key in ("m", "v") for t in self.opt.get(key, ()))
+
+    def materialize_params(self) -> LayerModel:
+        """The model with the current parameters in it: under the
+        overlapped engine, the shards all-gathered into it."""
+        if self.overlap:
+            self._gather_params()
+        return self.model
+
+    def _load(self, leaves: List[torch.Tensor]) -> None:
+        with torch.no_grad():
+            torch._foreach_copy_(self.params, leaves)
+
+    def _gather_params(self) -> None:
+        """The ranks' device-major shards into the model: one all-gather
+        per bucket, each leaf copied from its bucket's stretch (the
+        overlapped engine does this before each forward)."""
+        n = self.comm.world
+        self._load(unpack_buckets([self.comm.all_gather(
+            shard_bucket_slice(self.flat, self.meta, n, b))
+            for b in range(self.meta.num_buckets)], self.meta))
+
+    # -- the step ------------------------------------------------------------
+
+    def _local_rows(self, x: torch.Tensor, y: torch.Tensor):
+        rows = local_batch_slice(x.shape[0], self.comm.rank, self.comm.world)
+        return x[rows], y[rows]
+
+    def _local_loss_sums(self, x: torch.Tensor, y: torch.Tensor):
+        """(obj_sum, ce_sum, correct, valid) over this rank's rows: the
+        reference's ``_local_loss_sums``, through the fused head where it
+        is enabled and the head supports it, else the logits."""
+        cfg = self.cfg
+        self.model.train()
+        xc = cast_input(x, self.compute_dtype)
+        if cfg.fused_head_loss and head_fusable(self.model):
+            return fused_head_loss_sums(self.model, xc, y,
+                                        self.compute_dtype, self.smoothing,
+                                        cfg.remat_layers)
+        logits = apply_model(self.model, xc, self.compute_dtype,
+                             cfg.remat_layers)
+        logp = F.log_softmax(
+            logits.to(torch.promote_types(logits.dtype, torch.float32)),
+            dim=-1)
+        maskf = (y >= 0).to(logp.dtype)
+        nll = -logp.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+        ce_sum = (nll * maskf).sum()
+        obj_sum = ce_sum
+        if self.smoothing:
+            s = self.smoothing
+            obj_sum = (((1.0 - s) * nll - s * logp.mean(-1)) * maskf).sum()
+        correct, valid = correct_and_count(logits, y)
+        return obj_sum, ce_sum, correct, valid
+
+    def _reduce(self, gf: torch.Tensor, qkey) -> torch.Tensor:
+        """A rank's packed gradient -> the summed one, float32: per bucket
+        the wire-dtype cast (int8: global absmax, shared scale, stochastic
+        rounding under ``fold_in(qkey, b)``) and one collective, a
+        reduce-scatter (the device-major shard) or an all-reduce (the
+        whole vector)."""
+        comm, meta = self.comm, self.meta
+        # float32 on the wire is the packed type (float64 for such a model)
+        wire = gf.dtype if self.wire == "float32" else WIRE_DTYPES[self.wire]
+        parts = []
+        for b in range(meta.num_buckets):
+            gb = bucket_slice(gf, meta, b)
+            scale = None
+            if self.int8:
+                absmax = comm.all_reduce(gb.abs().max(), op="max")
+                gw, scale = quantize_int8(
+                    gb, threefry.fold_in(qkey, b), self.qmax, absmax)
+            else:
+                gw = gb.to(wire)
+            red = (comm.reduce_scatter(gw) if self.shard_update
+                   else comm.all_reduce(gw))
+            red = red.to(gf.dtype)
+            parts.append(red * scale if scale is not None else red)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def _micro_step(self, x, y, qkey):
+        """One micro-step: (global ce, global correct, global valid, the
+        reduced gradient of the rows' sum over the global valid count)."""
+        obj_sum, ce_sum, correct, valid = self._local_loss_sums(x, y)
+        counts = self.comm.all_reduce(
+            torch.stack([correct.to(torch.int64), valid.to(torch.int64)]))
+        denom = counts[1].float().clamp(min=1.0)
+        grads = torch.autograd.grad(obj_sum / denom, self.params)
+        ce = self.comm.all_reduce(ce_sum.detach().to(
+            torch.promote_types(ce_sum.dtype, torch.float32)).clone()) / denom
+        gred = self._reduce(pack_flat(grads, self.meta), qkey)
+        return ce, counts[0], counts[1], gred
+
+    def _grads(self, x, y, qkey):
+        """(ce, correct, valid, reduced gradient) of the step: one
+        micro-step, or K of every K-th local row weighted by their global
+        valid counts (the reference's accumulation, each micro-step's
+        gradient reduced)."""
+        K = self.cfg.grad_accum_steps
+        if K == 1:
+            return self._micro_step(x, y, qkey)
+        if x.shape[0] % K:
+            raise ValueError(f"local batch {x.shape[0]} not divisible by "
+                             f"grad_accum_steps {K}")
+        gsum, ces, wks, corr, valid = None, [], [], 0, 0
+        for k in range(K):
+            qk = threefry.fold_in(qkey, k) if qkey is not None else None
+            ce_k, c, v, g = self._micro_step(_micro_batch(x, K, k),
+                                             _micro_batch(y, K, k), qk)
+            wk = v.float()
+            gsum = wk * g if gsum is None else gsum + wk * g
+            ces.append(ce_k)
+            wks.append(wk)
+            corr, valid = corr + c, valid + v
+        wks = torch.stack(wks)
+        total = wks.sum().clamp(min=1.0)
+        return (torch.stack(ces) * wks).sum() / total, corr, valid, \
+            gsum / total
+
+    def _update_slices(self, grads: List[torch.Tensor], lr: float) -> None:
+        """shard_opt_state's update: this rank's slice of each leaf,
+        all-gathered back."""
+        ps = [self._state_slice(p) for p in self.params]
+        gs = [self._state_slice(g) for g in grads]
+        new_s, self.opt = self._opt_update(ps, gs, self.opt, lr)
+        n = self.comm.world
+        with torch.no_grad():
+            for p, s in zip(self.params, new_s):
+                v = to_ref_layout(p)
+                d = leaf_spec_dim(tuple(v.shape), n)
+                if d is None:
+                    v.copy_(s)
+                    continue
+                parts = self.comm.all_gather(s.contiguous()).view(n, *s.shape)
+                v.copy_(torch.cat(parts.unbind(0), dim=d))
+
+    def reduced_grads(self, x: torch.Tensor, y: torch.Tensor):
+        """The step's forward, backward and gradient collectives on the
+        global batch (x, y), without the update: (metrics, the reduced
+        flat gradient: the whole vector, or this rank's device-major
+        shard under the sharded update)."""
+        x, y = self._local_rows(x, y)
+        qkey = None
+        if self.int8:
+            qkey = threefry.fold_in(threefry.fold_in(threefry.fold_in(
+                threefry.prng_key(self.cfg.seed), INT8_TAG),
+                self.opt["qstep"]), self.comm.rank)
+        if self.overlap:
+            self._gather_params()
+        with batch_parallel(self.comm):
+            ce, correct, valid, gred = self._grads(x, y, qkey)
+        return {"loss": ce.detach(),
+                "accuracy": correct.float() / valid.clamp(min=1).float()}, \
+            gred
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor,
+                   lr: float) -> Dict[str, torch.Tensor]:
+        """One update on the global batch (x, y) at learning rate ``lr``;
+        returns {"loss": the unsmoothed global CE, "accuracy": global
+        top-1 over valid labels}, equal on every rank."""
+        metrics, gred = self.reduced_grads(x, y)
+        qstep = self.opt.pop("qstep", None)
+        with torch.no_grad():
+            if self.flat is None:
+                self._update_slices(unpack_flat(gred, self.meta), lr)
+            else:
+                (self.flat,), self.opt = self._opt_update(
+                    [self.flat], [gred], self.opt, lr)
+                if not self.shard_update:
+                    self._load(unpack_flat(self.flat, self.meta))
+                elif not self.overlap:
+                    self._gather_params()
+        if qstep is not None:  # advanced after the update, as the reference
+            self.opt["qstep"] = qstep + 1
+        return metrics
+
+    def eval_step(self, x: torch.Tensor,
+                  y: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The eval step's {loss, correct, correct5, count} over the global
+        batch: each rank's rows' sums, all-reduced."""
+        self.materialize_params()
+        x, y = self._local_rows(x, y)
+        self.model.eval()
+        xc = cast_input(x, self.compute_dtype)
+        with torch.no_grad():
+            if self.cfg.fused_head_loss and head_fusable(self.model):
+                ce_sum, correct, correct5, count = fused_head_eval_sums(
+                    self.model, xc, y, self.compute_dtype)
+            else:
+                logits = apply_model(self.model, xc, self.compute_dtype)
+                logp = F.log_softmax(logits.to(torch.promote_types(
+                    logits.dtype, torch.float32)), dim=-1)
+                nll = -logp.gather(-1, y.clamp(min=0).long()[..., None])[
+                    ..., 0]
+                ce_sum = (nll * (y >= 0).to(nll.dtype)).sum()
+                correct, count = correct_and_count(logits, y)
+                correct5 = correct_topk(logits, y)
+        ce = self.comm.all_reduce(ce_sum.to(torch.promote_types(
+            ce_sum.dtype, torch.float32)).reshape(1).clone())[0]
+        ints = self.comm.all_reduce(torch.stack(
+            [t.to(torch.int64) for t in (correct, correct5, count)]))
+        return {"loss": ce / ints[2].clamp(min=1).float(),
+                "correct": ints[0], "correct5": ints[1], "count": ints[2]}

@@ -12,9 +12,16 @@ statistics and a fresh optimizer, then runs ``cfg.epochs`` epochs of
 ``steps_per_epoch`` steps at the step-decay learning rate
 (``lr_step_gamma`` every ``lr_step_epochs`` epochs), logging every
 ``log_interval`` steps and at the epoch's end, and validates once per
-epoch on the test split. Losses are summed on the device and read once
-per log interval, so the host waits for the card only there; a non-finite
-interval loss stops the run (the reference's default ``nan_policy``).
+epoch on the test split. Under ``dp`` with SGD the base rate is scaled by
+the world and by ``grad_accum_steps`` (Horovod's linear scaling, the
+reference's ``_scaled_lr``; Adam's is not), ``warmup_epochs`` ramps it per
+step (``gradual_warmup_lr``), every rank makes the same global batch and
+trains on its rows of it (parallel/dp.py), throughput counts the global
+batch, and only rank 0 prints. Each run prints the reference's ``comm
+volume/step`` line (train/comm_stats.py). Losses are summed on the
+device and read once per log interval, so the host waits for the card
+only there; a non-finite interval loss stops the run (the reference's
+default ``nan_policy``).
 
 The warm-up reads the source's batch (0, 0), as the reference does,
 unless the source is a sequential stream (``stateful_stream``: the
@@ -34,7 +41,7 @@ from __future__ import annotations
 
 import math
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -43,17 +50,39 @@ from ddlbench_tpu_torch.data.prefetch import Prefetcher
 from ddlbench_tpu_torch.data.synthetic import make_synthetic
 from ddlbench_tpu_torch.device import resolve_device
 from ddlbench_tpu_torch.parallel.api import make_strategy
-from ddlbench_tpu_torch.parallel.common import step_decay_lr
+from ddlbench_tpu_torch.parallel.common import (gradual_warmup_lr,
+                                                step_decay_lr)
+from ddlbench_tpu_torch.parallel.dp import DPStrategy
 from ddlbench_tpu_torch.parallel.single import SingleStrategy
 from ddlbench_tpu_torch.telemetry.stats import latency_summary
+from ddlbench_tpu_torch.train.comm_stats import comm_line, comm_stats
 from ddlbench_tpu_torch.train.metrics import MetricLogger
 
+Strategy = Union[SingleStrategy, DPStrategy]
 
-def _device_of(strategy: SingleStrategy) -> torch.device:
+
+def _device_of(strategy: Strategy) -> torch.device:
     return next(strategy.model.parameters()).device
 
 
-def make_data(cfg: RunConfig, device: torch.device):
+def _rank(strategy: Strategy) -> int:
+    return strategy.comm.rank if isinstance(strategy, DPStrategy) else 0
+
+
+def scaled_lr(cfg: RunConfig, world: int) -> Tuple[float, int]:
+    """(the base learning rate, the warmup's world): under dp with SGD
+    and ``scale_lr_by_world`` the rate x world x grad_accum_steps and the
+    warmup ramping over ``world``, else the rate as configured and a
+    world of 1 (the warmup is then the identity), as the reference's
+    ``_scaled_lr``."""
+    lr = cfg.resolved_lr()
+    if (cfg.strategy == "dp" and cfg.scale_lr_by_world
+            and cfg.resolved_optimizer() == "sgd"):
+        return lr * world * cfg.grad_accum_steps, world
+    return lr, 1
+
+
+def make_data(cfg: RunConfig, device: torch.device, verbose: bool = True):
     """The run's data source: synthetic; or under ``cfg.data_dir`` a
     parallel corpus (seq2seq benchmarks) or a text corpus (token
     benchmarks), each printing the reference's line about it; else the
@@ -62,6 +91,7 @@ def make_data(cfg: RunConfig, device: torch.device):
     batches of train and a fifth as many (at least one batch) of test
     samples."""
     B, spec = cfg.global_batch(), cfg.dataset()
+    say = print if verbose else (lambda *a, **k: None)
     if cfg.synthetic:
         return make_synthetic(spec, B, device, seed=cfg.seed,
                               steps_per_epoch=cfg.steps_per_epoch)
@@ -74,11 +104,11 @@ def make_data(cfg: RunConfig, device: torch.device):
                                    seed=cfg.seed,
                                    steps_per_epoch=cfg.steps_per_epoch)
             rep = data.bucketing_report()
-            print(f"translation data: vocab {data.tokenizer.vocab_size}, "
-                  f"padding efficiency {rep['fixed_efficiency']:.3f} fixed "
-                  f"vs {rep['bucketed_efficiency']:.3f} bucketed "
-                  f"({rep['num_compiles_bucketed']} bucket compiles)",
-                  flush=True)
+            say(f"translation data: vocab {data.tokenizer.vocab_size}, "
+                f"padding efficiency {rep['fixed_efficiency']:.3f} fixed "
+                f"vs {rep['bucketed_efficiency']:.3f} bucketed "
+                f"({rep['num_compiles_bucketed']} bucket compiles)",
+                flush=True)
             return data
     if spec.kind == "tokens" and cfg.data_dir:
         from ddlbench_tpu_torch.data.textcorpus import (TextCorpusData,
@@ -88,9 +118,9 @@ def make_data(cfg: RunConfig, device: torch.device):
             data = TextCorpusData(cfg.data_dir, spec, B, device,
                                   seed=cfg.seed,
                                   steps_per_epoch=cfg.steps_per_epoch)
-            print(f"text corpus: {data.num_tokens} tokens, vocab "
-                  f"{data.tokenizer.vocab_size}, "
-                  f"{data.steps_per_epoch()} steps/epoch", flush=True)
+            say(f"text corpus: {data.num_tokens} tokens, vocab "
+                f"{data.tokenizer.vocab_size}, "
+                f"{data.steps_per_epoch()} steps/epoch", flush=True)
             return data
     from ddlbench_tpu_torch.data.ondisk import OnDiskData
 
@@ -102,7 +132,7 @@ def make_data(cfg: RunConfig, device: torch.device):
                       augment=cfg.augment)
 
 
-def _warmup(strategy: SingleStrategy, cfg: RunConfig, data, lr: float,
+def _warmup(strategy: Strategy, cfg: RunConfig, data, lr: float,
             steps: int) -> float:
     """Run ``steps`` train steps on the batch (0, 0) of ``data``, or of the
     synthetic data of the run's shape when ``data`` is a sequential stream
@@ -123,7 +153,7 @@ def _warmup(strategy: SingleStrategy, cfg: RunConfig, data, lr: float,
     return time.perf_counter() - t0
 
 
-def evaluate(strategy: SingleStrategy, prefetch: Prefetcher,
+def evaluate(strategy: Strategy, prefetch: Prefetcher,
              epoch: int) -> Dict[str, Optional[float]]:
     """One validation epoch over the test split: the eval step's sums
     accumulate on the device and are read once. Returns loss, accuracy
@@ -146,12 +176,14 @@ def evaluate(strategy: SingleStrategy, prefetch: Prefetcher,
             "top5": int(correct5) / n if n else None}
 
 
-def _epoch(cfg: RunConfig, strategy: SingleStrategy, prefetch: Prefetcher,
-           logger: MetricLogger, epoch: int, base_lr: float, B: int):
+def _epoch(cfg: RunConfig, strategy: Strategy, prefetch: Prefetcher,
+           logger: MetricLogger, epoch: int, base_lr: float, B: int,
+           warmup_world: int = 1):
     """One training epoch and its validation; returns (the steps' body
     seconds, the validation accuracy)."""
     lr = step_decay_lr(base_lr, epoch - 1, cfg.lr_step_epochs,
                        cfg.lr_step_gamma)
+    warming = cfg.warmup_epochs and epoch - 1 < cfg.warmup_epochs
     tick = time.perf_counter()
     interval_tick, interval_samples = tick, 0
     loss_sum, interval_steps, step_s = None, 0, []
@@ -159,7 +191,10 @@ def _epoch(cfg: RunConfig, strategy: SingleStrategy, prefetch: Prefetcher,
         steps = stream.steps
         for step, (x, y) in enumerate(stream):
             t1 = time.perf_counter()
-            m = strategy.train_step(x, y, lr)
+            step_lr = (gradual_warmup_lr(lr, warmup_world, epoch - 1, step,
+                                         steps, cfg.warmup_epochs)
+                       if warming else lr)
+            m = strategy.train_step(x, y, step_lr)
             loss_sum = m["loss"] if loss_sum is None else loss_sum + m["loss"]
             interval_steps += 1
             interval_samples += B
@@ -185,22 +220,27 @@ def _epoch(cfg: RunConfig, strategy: SingleStrategy, prefetch: Prefetcher,
     return step_s, val["accuracy"]
 
 
-def run_benchmark(cfg: RunConfig, strategy: Optional[SingleStrategy] = None,
+def run_benchmark(cfg: RunConfig, strategy: Optional[Strategy] = None,
                   logger: Optional[MetricLogger] = None,
                   warmup_steps: int = 1,
                   device: Optional[str] = None) -> Dict[str, Any]:
     """Run the benchmark protocol for ``cfg`` and return the summary dict
     (MetricLogger.summary). The strategy is built on ``device`` (cuda
-    unless "cpu" is asked for) when none is given."""
+    unless "cpu" is asked for) when none is given; a dp strategy comes
+    built, on its rank (distributed.spawn)."""
     cfg.validate()
     if strategy is None:
         strategy = make_strategy(cfg, resolve_device(device))
     dev = _device_of(strategy)
+    rank = _rank(strategy)
     B = cfg.global_batch()
     logger = logger or MetricLogger(cfg.epochs, cfg.log_interval,
-                                    device=dev)
-    base_lr = cfg.resolved_lr()
-    data = make_data(cfg, dev)
+                                    device=dev, rank=rank)
+    base_lr, warmup_world = scaled_lr(
+        cfg, getattr(strategy, "world_size", 1))
+    if rank == 0:
+        print(comm_line(comm_stats(strategy)), flush=True)
+    data = make_data(cfg, dev, verbose=rank == 0)
     try:
         warmup_s = (_warmup(strategy, cfg, data, base_lr, warmup_steps)
                     if warmup_steps > 0 else None)
@@ -208,7 +248,7 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[SingleStrategy] = None,
         all_steps, accuracy = [], 0.0
         for epoch in range(1, cfg.epochs + 1):
             s, accuracy = _epoch(cfg, strategy, prefetch, logger, epoch,
-                                 base_lr, B)
+                                 base_lr, B, warmup_world)
             all_steps += s
     finally:
         getattr(data, "close", lambda: None)()

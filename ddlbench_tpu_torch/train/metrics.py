@@ -12,7 +12,8 @@ character so its scrapers parse the port's output:
 * at the end: ``valid accuracy: <A> | <X> samples/sec, <S> sec/epoch
   (average)``.
 
-Each line also goes, as a JSON record, to an optional JSONL file. Device
+Each line also goes, as a JSON record, to an optional JSONL file. In a
+dp run only rank 0 prints and writes. Device
 memory is ``torch.cuda.memory_stats`` (allocated bytes: current and peak)
 with the card's total memory as the limit; on the CPU it reads 0.
 """
@@ -66,11 +67,14 @@ class MetricLogger:
 
     def __init__(self, total_epochs: int, log_interval: int = 25,
                  jsonl_path: Optional[str] = None,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, rank: int = 0):
         self.total_epochs = total_epochs
         self.log_interval = log_interval
         self.device = device
-        self._jsonl = open(jsonl_path, "a") if jsonl_path else None
+        # a dp run's ranks all keep the records; only rank 0 emits them
+        self.rank = rank
+        self._jsonl = (open(jsonl_path, "a") if jsonl_path and rank == 0
+                       else None)
         self.epoch_throughputs: list[float] = []
         self.epoch_times: list[float] = []
         # per-epoch time the loop spent making its batches
@@ -78,6 +82,8 @@ class MetricLogger:
         self.valid_history: list[Dict[str, float]] = []
 
     def _emit(self, line: str, record: Dict[str, Any]) -> None:
+        if self.rank != 0:
+            return
         print(line, flush=True)
         if self._jsonl:
             self._jsonl.write(json.dumps(record) + "\n")

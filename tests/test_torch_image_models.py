@@ -201,12 +201,13 @@ def test_cli_covers_every_reference_flag():
     assert "--device" in ours
 
 
-@pytest.mark.parametrize("argv", [["-g", "2"], ["--micro-batch-size", "4"],
+@pytest.mark.parametrize("argv", [["--elastic-slices", "2"],
+                                  ["--micro-batch-size", "4"],
                                   ["--stages", "2"], ["--checkpoint-dir",
                                                       "d"],
                                   ["--platform", "cpu"],
                                   ["--trace", "t.json"],
-                                  ["--warmup-epochs", "2"],
+                                  ["--elastic-resume"],
                                   ["--num-microbatches", "2"]])
 def test_cli_refuses_unported_flags_by_name(capsys, argv):
     with pytest.raises(SystemExit):
@@ -214,7 +215,8 @@ def test_cli_refuses_unported_flags_by_name(capsys, argv):
     assert f"{argv[0]} is not ported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["-f", "dp"],
+@pytest.mark.parametrize("argv", [["-f", "dp", "-g", "2", "-m",
+                                   "transformer_moe_s", "-b", "synthtext"],
                                   ["-f", "ep", "-m", "transformer_moe_s",
                                    "-b", "synthtext"],
                                   ["-f", "pipedream", "-m", "seq2seq_lstm_s",
@@ -299,16 +301,22 @@ LOOP_KNOBS = {"synthetic": False, "plan": "auto", "auto_partition": True,
               "checkpoint_dir": "d", "resume": True,
               "checkpoint_every_steps": 5, "hang_timeout_s": 60.0,
               "inject": ("kill@1:1",), "activation_log_dir": "d",
-              "warmup_epochs": 2}
+              "warmup_epochs": 2, "elastic_slices": 2}
+# knobs once refused here that now validate: synthetic=False on a token
+# benchmark (on-disk token and text data), and warmup_epochs (the dp
+# strategy's gradual warmup)
+NOW_PORTED = {"synthetic": dict(benchmark="synthtext", arch="transformer_t"),
+              "warmup_epochs": dict(benchmark="cifar10", arch="resnet18",
+                                    strategy="dp", num_devices=2)}
 
 
 @pytest.mark.parametrize("name", sorted(LOOP_KNOBS))
 def test_unported_loop_knobs_raise(name):
-    assert set(LOOP_KNOBS) - {"synthetic"} == {
+    assert set(LOOP_KNOBS) - set(NOW_PORTED) == {
         n for n, _, _ in config._TRAIN_NOT_PORTED}
-    if name == "synthetic":
-        RunConfig(benchmark="synthtext", arch="transformer_t",
-                  synthetic=False).validate()
+    if name in NOW_PORTED:
+        RunConfig(**NOW_PORTED[name],
+                  **{name: LOOP_KNOBS[name]}).validate()
         return
     with pytest.raises(NotImplementedError, match=name):
         RunConfig(benchmark="cifar10", arch="resnet18",

@@ -276,9 +276,11 @@ def test_synthetic_tokens():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(strategy="dp"), dict(checkpoint_dir="d"),
+    dict(strategy="dp", num_devices=2, elastic_slices=2),
+    dict(checkpoint_dir="d"),
     dict(anomaly_policy="skip"), dict(loss_scale="dynamic"),
     dict(strategy="ep", arch="transformer_moe_t"),
+    dict(strategy="dp", num_devices=2, arch="transformer_moe_t"),
 ])
 def test_unported_train_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
