@@ -516,13 +516,44 @@ one JSON line; any failure raises and exits non-zero:
              more steps each (busy share, launches, time by kernel group):
              the cost of the dp machinery on one card.
 
+17. pipe_train — the pipelines (parallel/gpipe.py, pipeline_rt.py,
+             pipedream.py) through make_strategy, every one of four stages
+             on the one card (shared_card): transformer_s / synthtext at
+             full width, bf16, the fused head, "auto" attention, from seed
+             0's weights; gpipe fill-drain and zero-bubble at mb 4 x M 8,
+             pipedream at the global 64 (mb 8 x M 8); three steps each
+             (the first a warm-up), every B1-B6 counter zeroed before the
+             three rows and read after: (d) each kernel's launches exactly
+             what the events imply (pipe_expected: under zero-bubble dh
+             and dW once per last-chunk microbatch, each in its own event)
+             and no attention call on the plain path. (a) gpipe's step 1
+             against single's on the same 32 rows: the loss within 1e-4
+             relative, the update (parameters after minus before) within
+             1e-2 relative L2 (bf16: 4-row microbatches round apart from
+             one 32-row batch). (b) zero-bubble's step gradient against
+             fill-drain's in float32 within 1e-6 relative L2 (only the
+             order of the microbatch sums differs). (c) pipedream's first
+             two steps against a sequential replay of the same events on
+             the card (pipedream_replay, written apart from the engine:
+             weight versions per microbatch, per-microbatch momentum SGD),
+             the parameters' change within 1e-3 relative L2. (e) tokens/s
+             of each row beside the nvidia-smi line.
+18. pipe_image — resnet50 / imagenet on four stages of the one card. (a)
+             gpipe's step in float64 at mb 2 x M 2 on the card against the
+             same step on the CPU: the loss, every gradient leaf and every
+             running statistic within 1e-9 (BatchNorm normalises each
+             microbatch alone, so the step is not single's). Then gpipe at
+             mb 24 x M 12 and pipedream at the global 128 (mb 16 x M 8),
+             bf16, three steps each: (c) pipedream's first two against the
+             replay, as in 17; (e) images/s beside the nvidia-smi line.
+
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
 plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
-train's, moe_train's, lstm_train's and every dp_train rank's, the flash
-forward's moe_decode's too), the card's name and power
+train's, moe_train's, lstm_train's, every dp_train rank's and pipe_train's,
+the flash forward's moe_decode's too), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -5306,6 +5337,409 @@ def phase_dp(torch):
     return launches
 
 
+PIPE_S = 4  # stages, every one on the one card (distributed.stage_devices)
+PIPE_TOKEN = ("transformer_s", "synthtext")
+PIPE_IMAGE = ("resnet50", "imagenet")
+PIPE_TIMED = 2  # timed steps of each row, after its first (warm-up) step
+PIPE_F64_BATCH = (2, 2)  # resnet50's float64 gpipe check: mb, M
+PIPE_COUNTERS = tuple(FLASH_KERNELS) + tuple(FX_KERNELS)
+# (a) transformer_s: gpipe's step 1 against single's on the same 32 rows,
+# bfloat16 (4-row microbatches round apart from one 32-row batch): the
+# loss's relative error and the update's (params after minus before)
+# relative L2 over every leaf. Measured on the H100 (PERF.md, PR 19):
+# 0 and 2.55e-3; the bars are those with room
+PIPE_SINGLE_LOSS_RTOL = 1e-4
+PIPE_SINGLE_UPDATE_REL = 1e-2
+# (b) zero-bubble's step gradient against fill-drain's, float32: only the
+# order of the microbatch sums differs (relative L2 over every leaf;
+# measured 7.7e-8)
+PIPE_F32_GRAD_REL = 1e-6
+# (c) pipedream's first two steps against the replay (relative L2 of the
+# parameters' change over the two steps, every leaf; measured 0 on both
+# models, with cuDNN's algorithm choice left to chance here)
+PIPE_REPLAY_REL = 1e-3
+
+
+def pipe_strategy(torch, model, benchmark, strategy, dev, dtype="bfloat16",
+                  **kw):
+    """make_strategy for a pipeline of PIPE_S stages on the one card
+    (shared_card), random weights from seed 0."""
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    cfg = RunConfig(benchmark=benchmark, arch=model, strategy=strategy,
+                    num_devices=PIPE_S, compute_dtype=dtype, seed=0, **kw)
+    return make_strategy(cfg, dev, shared_card=dev.type == "cuda")
+
+
+def recording_updates(strategy):
+    """Wrap ``strategy._update`` so each chunk's gradient of the step is
+    kept (float64, on the host) as it is applied; returns the dict."""
+    grads = {}
+    update = strategy._update
+
+    def record(c, g, lr):
+        grads[c] = [t.detach().double().cpu() for t in g]
+        return update(c, g, lr)
+
+    strategy._update = record
+    return grads
+
+
+def flat(torch, tensors):
+    return torch.cat([t.detach().double().reshape(-1).cpu()
+                      for t in tensors])
+
+
+def rel_change(torch, after, before, want_after):
+    """Relative L2 of (after - before) against (want_after - before)."""
+    d = flat(torch, after) - flat(torch, before)
+    w = flat(torch, want_after) - flat(torch, before)
+    return ((d - w).norm() / w.norm()).item()
+
+
+def pipe_expected(strategy, schedule, steps):
+    """The B1-B6 launches ``steps`` steps of ``strategy`` make: each
+    (chunk, microbatch) forward runs its attention blocks' flash forward
+    and, on the last chunk, the fused head's forward; a recompute runs
+    them again; a backward of a block (to its input or its weights) runs
+    dQ and dK/dV; the head's backward runs dh and dW once each per
+    microbatch, in one event (fill-drain, pipedream) or in its B and W
+    events (zero-bubble: B recomputes every chunk but the first, W every
+    chunk)."""
+    from ddlbench_tpu_torch.models.transformer import AttentionBlock
+
+    blocks = [sum(isinstance(m, AttentionBlock)
+                  for layer in strategy.chunk_layers(c)
+                  for m in layer.modules())
+              for c in range(strategy.num_chunks)]
+    tot, rest = sum(blocks), sum(blocks[1:])
+    if schedule == "zero-bubble":
+        fwd, bwd, fx_fwd = 2 * tot + rest, tot + rest, 3
+    else:
+        fwd, bwd, fx_fwd = 2 * tot, tot, 2
+    n = strategy.num_microbatches * steps
+    return {"flash_fwd": n * fwd, "flash_dq": n * bwd, "flash_dkv": n * bwd,
+            "fxent_fwd": n * fx_fwd, "fxent_dh": n, "fxent_dw": n}
+
+
+def pipe_timed(torch, strategy, batches, lr, snap=None):
+    """Step 1 of ``batches`` warms up, the rest are timed: (seconds,
+    losses). ``snap``: (k, fn), fn() called after step k (1-based)."""
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        if i == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(strategy.train_step(x, y, lr)["loss"])
+        if snap is not None and snap[0] == i + 1:
+            snap[1]()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    vals = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"non-finite pipeline loss: {vals}")
+    return dt, vals
+
+
+def params_of(strategy):
+    return [p.detach().clone() for p in strategy.model.parameters()]
+
+
+def pipedream_replay(torch, strategy, initial, batches, lr):
+    """The reference tests' sequential replay of PipeDream
+    (tests/test_pipedream.py ``simulate_pipedream``), written apart from
+    parallel/pipedream.py, on ``initial``'s weights (a copy of the
+    strategy's starting model on its device): its closed-form timetable
+    F(c, f) = c + f for f <= C-1-c, else c + 2f, and B(c, b) = 2b + 2C-1-c
+    over C chunks and 2M + 2C - 2 half-ticks; dicts of weight versions by
+    (chunk, microbatch); each backward at its forward's weights,
+    recomputed with the running statistics frozen; a momentum SGD update
+    (m = mu m + g + wd p; p -= lr m) after every backward. Returns the
+    model's parameters after ``batches``."""
+    from ddlbench_tpu_torch.models.layers import apply_chunk
+    from ddlbench_tpu_torch.parallel.common import (cross_entropy_loss,
+                                                    fused_chunk_loss_sums)
+
+    cfg, cd = strategy.cfg, strategy.compute_dtype
+    bounds, C, M = strategy.bounds, strategy.num_chunks, \
+        strategy.num_microbatches
+    mu, wd = cfg.resolved_momentum(), cfg.resolved_weight_decay()
+    layers = [initial.layers[bounds[c]:bounds[c + 1]] for c in range(C)]
+    names = [[(i, n) for i, layer in enumerate(layers[c])
+              for n, _ in layer.named_parameters()] for c in range(C)]
+    cur = [[p.detach().clone() for layer in layers[c]
+            for p in layer.parameters()] for c in range(C)]
+    mom = [[torch.zeros_like(p) for p in ps] for ps in cur]
+    F, B = {}, {}
+    for c in range(C):
+        for f in range(M):
+            F[(c + f if f <= C - 1 - c else c + 2 * f, c)] = f
+            B[(2 * f + 2 * C - 1 - c, c)] = f
+
+    def run(c, ps, x, y, update_stats):
+        dicts = [{} for _ in layers[c]]
+        for (i, n), p in zip(names[c], ps):
+            dicts[i][n] = p
+        if c < C - 1:
+            return apply_chunk(layers[c], x, cd, dicts, update_stats)
+        if strategy.fused:
+            s, _, _, v = fused_chunk_loss_sums(
+                layers[c], x, y, cd, strategy.smoothing, dicts,
+                update_stats)
+            return s / v.clamp(min=1).float()
+        return cross_entropy_loss(
+            apply_chunk(layers[c], x, cd, dicts, update_stats), y,
+            strategy.smoothing)
+
+    initial.train()
+    for x_all, y_all in batches:
+        xs = [t.to(cd) if t.is_floating_point() else t
+              for t in x_all.split(strategy.mb)]
+        ys = y_all.split(strategy.mb)
+        versions, inputs, acts, cots = {}, {}, {}, {}
+        for h in range(2 * M + 2 * C - 2):
+            for c in range(C):
+                if (h, c) in F:
+                    f = F[(h, c)]
+                    x = xs[f] if c == 0 else acts.pop((c, f))
+                    versions[(c, f)] = [p.clone() for p in cur[c]]
+                    inputs[(c, f)] = x
+                    with torch.no_grad():
+                        out = run(c, cur[c], x, ys[f], True)
+                    if c < C - 1:
+                        acts[(c + 1, f)] = out
+                if (h, c) in B:
+                    b = B[(h, c)]
+                    ps = [p.requires_grad_(True)
+                          for p in versions.pop((c, b))]
+                    x = inputs.pop((c, b))
+                    if c > 0:
+                        x = x.detach().requires_grad_(True)
+                    with torch.enable_grad():
+                        out = run(c, ps, x, ys[b], False)
+                        wrt = ps + ([x] if c > 0 else [])
+                        g = torch.autograd.grad(
+                            out, wrt, None if c == C - 1
+                            else cots.pop((c, b)), allow_unused=True)
+                    g = [torch.zeros_like(t) if gi is None else gi
+                         for gi, t in zip(g, wrt)]
+                    if c > 0:
+                        cots[(c - 1, b)] = g[-1].to(cd)
+                    with torch.no_grad():
+                        for i, p in enumerate(cur[c]):
+                            mom[c][i] = mom[c][i] * mu + (
+                                g[i].float() + p * wd)
+                            cur[c][i] = p - mom[c][i] * lr
+    return [p for ps in cur for p in ps]
+
+
+def pipe_counted(fa, fx):
+    counters = {**{n: getattr(fa, n) for n in FLASH_KERNELS},
+                **{n: getattr(fx, n) for n in FX_KERNELS}}
+    for fn in counters.values():
+        fn.launches = 0
+    return counters, fa.flash_attention.plain_launches
+
+
+def phase_pipe_train(torch, fa, fx, dev):
+    """Phase 17 (module docstring): transformer_s / synthtext on four
+    stages of the one card. Returns the B1-B6 launches of its main-path
+    runs."""
+    import copy
+
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    model, bench = PIPE_TOKEN
+    t_start = time.perf_counter()
+    runs = {"gpipe_fill_drain": ("gpipe", {}),
+            "gpipe_zero_bubble": ("gpipe", {"pipe_schedule": "zero-bubble"}),
+            "pipedream": ("pipedream", {})}
+    strategies = {k: pipe_strategy(torch, model, bench, st, dev, **kw)
+                  for k, (st, kw) in runs.items()}
+    gpipe, pdream = strategies["gpipe_fill_drain"], strategies["pipedream"]
+    lr, T = gpipe.cfg.resolved_lr(), gpipe.cfg.dataset().seq_len
+    initial = params_of(gpipe)  # seed 0: every strategy's start
+    pd_initial = {k: v.clone() for k, v in pdream.model.state_dict().items()}
+    batches = {}
+    for k, s in strategies.items():
+        data = make_synthetic(s.cfg.dataset(), s.mb * s.num_microbatches,
+                              dev, seed=0)
+        batches[k] = [data.batch(1, i) for i in range(1 + PIPE_TIMED)]
+
+    # the main path: each row's steps, every B1-B6 counter zeroed before
+    # and read after
+    snaps = {}
+    counters, plain0 = pipe_counted(fa, fx)
+    rows = {}
+    for k, s in strategies.items():
+        k_snap = 1 if k == "gpipe_fill_drain" else 2
+        snap = (k_snap, lambda k=k, s=s: snaps.__setitem__(k, params_of(s)))
+        rows[k] = pipe_timed(torch, s, batches[k], lr, snap)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    plain = fa.flash_attention.plain_launches - plain0
+    want = {n: 0 for n in PIPE_COUNTERS}
+    for k, s in strategies.items():
+        sched = "pipedream" if k == "pipedream" else s.cfg.pipe_schedule
+        for n, c in pipe_expected(s, sched, 1 + PIPE_TIMED).items():
+            want[n] += c
+    checks = {"d_launches": launches == want and plain == 0}
+    shape = {k: (s.mb * s.num_microbatches, s.mb, s.num_microbatches,
+                 s.bounds) for k, s in strategies.items()}
+    del strategies, gpipe
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) gpipe's step 1 against single's on the same rows (32)
+    B = shape["gpipe_fill_drain"][0]
+    single = make_strategy(RunConfig(benchmark=bench, arch=model,
+                                     batch_size=B, seed=0), dev)
+    loss_s = float(single.train_step(*batches["gpipe_fill_drain"][0],
+                                     lr)["loss"])
+    a_rec = {"loss_gpipe": rows["gpipe_fill_drain"][1][0],
+             "loss_single": loss_s,
+             "update_rel_l2": rel_change(torch, snaps["gpipe_fill_drain"],
+                                         initial, params_of(single))}
+    a_rec["loss_rel"] = abs(a_rec["loss_gpipe"] - loss_s) / abs(loss_s)
+    checks["a_vs_single"] = (a_rec["loss_rel"] <= PIPE_SINGLE_LOSS_RTOL
+                             and a_rec["update_rel_l2"]
+                             <= PIPE_SINGLE_UPDATE_REL)
+    del single
+    torch.cuda.empty_cache()
+
+    # (b) zero-bubble's gradient against fill-drain's, float32
+    grads = {}
+    for sched in ("fill-drain", "zero-bubble"):
+        s = pipe_strategy(torch, model, bench, "gpipe", dev,
+                          dtype="float32", pipe_schedule=sched)
+        rec = recording_updates(s)
+        s.train_step(*batches["gpipe_fill_drain"][0], lr)
+        grads[sched] = torch.cat([g.reshape(-1) for c in sorted(rec)
+                                  for g in rec[c]])
+        del s, rec
+        torch.cuda.empty_cache()
+    b_rel = ((grads["zero-bubble"] - grads["fill-drain"]).norm()
+             / grads["fill-drain"].norm()).item()
+    checks["b_zero_bubble_vs_fill_drain_f32"] = b_rel <= PIPE_F32_GRAD_REL
+    del grads
+
+    # (c) pipedream's first two steps against the replay on the card
+    replica = copy.deepcopy(pdream.model)
+    replica.load_state_dict(pd_initial)
+    replay = pipedream_replay(torch, pdream, replica,
+                              batches["pipedream"][:2], lr)
+    c_rel = rel_change(torch, snaps["pipedream"],
+                       [pd_initial[n] for n, _ in
+                        pdream.model.named_parameters()], replay)
+    checks["c_pipedream_vs_replay"] = c_rel <= PIPE_REPLAY_REL
+    del replica, replay, pdream
+    card = card_line()
+    emit({"phase": "pipe_train", "model": model, "benchmark": bench,
+          "stages": PIPE_S, "shared_card": True, "dtype": "bfloat16",
+          "rows": {k: {"tokens_per_sec": PIPE_TIMED * b * T / dt,
+                       "ms_per_step": 1e3 * dt / PIPE_TIMED, "losses": ls,
+                       "global_batch": b, "microbatch": mb,
+                       "microbatches": m, "bounds": bd, "card": card}
+                   for k, (dt, ls, b, mb, m, bd) in (
+                       (k, rows[k] + shape[k]) for k in rows)},
+          "a_vs_single": {**a_rec, "loss_rtol": PIPE_SINGLE_LOSS_RTOL,
+                          "update_rel_bar": PIPE_SINGLE_UPDATE_REL},
+          "b_grad_rel_l2_f32": b_rel, "b_bar": PIPE_F32_GRAD_REL,
+          "c_replay_rel_l2": c_rel, "c_bar": PIPE_REPLAY_REL,
+          "launches": launches, "launches_expected": want,
+          "plain_launches": plain, "checks": checks,
+          "seconds": time.perf_counter() - t_start})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"pipeline checks failed: {failed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pipe_f64_step(torch, dev):
+    """resnet50/imagenet gpipe (fill-drain) at mb 2, M 2 in float64 from
+    seed 0's weights, one step on one batch: (loss, every chunk's
+    gradient, the running statistics) on the host."""
+    mb, M = PIPE_F64_BATCH
+    s = pipe_strategy(torch, *PIPE_IMAGE, "gpipe", dev, dtype="float32",
+                      micro_batch_size=mb, num_microbatches=M)
+    s.model.double()
+    s.compute_dtype = torch.float64
+    s.init()
+    rec = recording_updates(s)
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+
+    x, y = make_synthetic(s.cfg.dataset(), mb * M, torch.device("cpu"),
+                          seed=0).batch(0, 0)
+    x = x.double()
+    if dev.type == "cuda":
+        x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    loss = float(s.train_step(x, y.to(dev), s.cfg.resolved_lr())["loss"])
+    return (loss, [g for c in sorted(rec) for g in rec[c]],
+            [b.detach().double().cpu() for b in s.model.buffers()])
+
+
+def phase_pipe_image(torch, dev):
+    """Phase 18 (module docstring): resnet50 / imagenet on four stages of
+    the one card."""
+    import copy
+
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+
+    model, bench = PIPE_IMAGE
+    t_start = time.perf_counter()
+    # (a) the card's float64 gpipe step against the CPU's
+    t0 = time.perf_counter()
+    cpu = pipe_f64_step(torch, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    f64 = f64_agreement(pipe_f64_step(torch, dev), cpu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows, checks = {}, {"a_float64_card_vs_cpu": f64["ok"]}
+    replay_rel = None
+    card = card_line()
+    for key in ("gpipe", "pipedream"):
+        s = pipe_strategy(torch, model, bench, key, dev)
+        B = s.mb * s.num_microbatches
+        lr = s.cfg.resolved_lr()
+        data = make_synthetic(s.cfg.dataset(), B, dev, seed=0)
+        batches = [data.batch(1, i) for i in range(1 + PIPE_TIMED)]
+        initial = {k: v.clone() for k, v in s.model.state_dict().items()}
+        snap = {}
+        dt, losses = pipe_timed(torch, s, batches, lr, (
+            2, lambda: snap.__setitem__("p", params_of(s))))
+        if key == "pipedream":
+            # (c) the first two steps against the replay on the card
+            replica = copy.deepcopy(s.model)
+            replica.load_state_dict(initial)
+            replay = pipedream_replay(torch, s, replica, batches[:2], lr)
+            replay_rel = rel_change(torch, snap["p"], [
+                initial[n] for n, _ in s.model.named_parameters()], replay)
+            checks["c_pipedream_vs_replay"] = replay_rel <= PIPE_REPLAY_REL
+            del replica, replay
+        rows[key] = {"images_per_sec": PIPE_TIMED * B / dt,
+                     "ms_per_step": 1e3 * dt / PIPE_TIMED,
+                     "losses": losses, "global_batch": B,
+                     "microbatch": s.mb,
+                     "microbatches": s.num_microbatches,
+                     "bounds": s.bounds, "card": card}
+        del s, data, batches, initial, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "pipe_image", "model": model, "benchmark": bench,
+          "stages": PIPE_S, "shared_card": True, "dtype": "bfloat16",
+          "rows": rows, "a_float64": {**f64, "batch": PIPE_F64_BATCH,
+                                      "cpu_seconds": cpu_s},
+          "c_replay_rel_l2": replay_rel, "c_bar": PIPE_REPLAY_REL,
+          "checks": checks, "seconds": time.perf_counter() - t_start})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"pipeline image checks failed: {failed}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5370,6 +5804,9 @@ def main() -> int:
     phase_image_zoo(torch, dev)
     for name, n in phase_dp(torch).items():
         train_launches[name] += n
+    for name, n in phase_pipe_train(torch, fa, fx, dev).items():
+        train_launches[name] += n
+    phase_pipe_image(torch, dev)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def row(name, source, replaces, n, err, t):

@@ -1,5 +1,5 @@
-"""Training CLI of the port: the ``single`` and ``dp`` subset of
-``ddlbench_tpu/cli.py``.
+"""Training CLI of the port: the ``single``, ``dp``, ``gpipe`` and
+``pipedream`` subset of ``ddlbench_tpu/cli.py``.
 
     python -m ddlbench_tpu_torch.cli -b imagenet -f single -m resnet50 \\
         -e 1 --steps-per-epoch 20
@@ -34,6 +34,24 @@ card r; ``--device cpu``: gloo ranks on the CPU); a machine with fewer
 cards than ``-g`` is an error. Rank 0 prints the lines; ``result:`` is its
 summary.
 
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f gpipe \
+        -g 4 -e 1 --steps-per-epoch 20 --pipe-schedule zero-bubble
+    python -m ddlbench_tpu_torch.cli -b imagenet -m resnet50 -f pipedream \
+        -g 4 -e 1 --steps-per-epoch 20
+
+trains a pipeline of ``-g`` stages in one process, stage s on card s
+(``--device cpu``: every stage on the CPU; fewer cards than stages is an
+error), with the reference's batch grammar (``--micro-batch-size``,
+``--num-microbatches``; pipedream's ``--batch-size`` is the global
+batch), ``--virtual-stages``, ``--pipe-schedule`` (gpipe: fill-drain,
+1f1b, interleaved, zero-bubble, zero-bubble-h2 with ``--zb-h2-stash``,
+searched with ``--sched-search-budget`` and ``--sched-search-seed``),
+pipedream's ``--update-interval`` and ``--plan-bounds``. gpipe prints the
+reference's schedule-advisor lines first. ``--dp-replicas``,
+``--stage-replication``, ``--tp-size``, ``--pipe-costs profile`` and
+``--schedule-trace`` are the reference's flags with its defaults; away
+from them the run is refused, naming the ROADMAP item (A.7b, A.8).
+
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 25, seed 1, bfloat16) and the knobs the loop reads (``-e -p
 --batch-size --steps-per-epoch --grad-accum-steps --lr --optimizer
@@ -41,12 +59,13 @@ The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 ``--label-smoothing --attention-backend --no-fused-head-loss
 --remat-layers --moe-aux-weight --moe-capacity-factor`` and the dp knobs
 ``-g --dp-shard-update --allreduce-dtype --comm-buckets
---shard-opt-state --warmup-epochs``, with the reference's defaults);
+--shard-opt-state --warmup-epochs`` and the pipeline flags above, with
+the reference's defaults);
 ``--device`` stands in for ``--platform``; ``--momentum`` and
 ``--weight-decay`` override the per-workload defaults. Every other flag
 of the reference is refused by name (an error naming it), never ignored;
-so are ``-f`` strategies other than ``single`` and ``dp`` and the arches
-the port does not build (RunConfig.validate, models/zoo.py).
+so are ``-f`` strategies other than these four and the arches the port
+does not build (RunConfig.validate, models/zoo.py).
 """
 
 from __future__ import annotations
@@ -57,19 +76,14 @@ import sys
 
 from ddlbench_tpu_torch.config import ATTENTION_BACKENDS, DATASETS, RunConfig
 from ddlbench_tpu_torch.models.zoo import MODEL_NAMES
+from ddlbench_tpu_torch.partition.schedule import PIPE_SCHEDULES
 
-# the reference's strategies: all but "single" and "dp" raise
-# NotImplementedError
+# the reference's strategies: sp, tp, fsdp and ep raise NotImplementedError
 STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
 
 # the reference's flags the port does not carry
 NOT_PORTED_FLAGS = (
-    ("--micro-batch-size",), ("--num-microbatches",), ("--stages",),
-    ("--virtual-stages",), ("--pipe-schedule",), ("--zb-h2-stash",),
-    ("--sched-search-budget",), ("--sched-search-seed",), ("--pipe-costs",),
-    ("--schedule-trace",), ("--dp-replicas",), ("--tp-size",),
-    ("--stage-replication",), ("--update-interval",),
-    ("--auto-partition",), ("--plan",), ("--plan-bounds",), ("--hbm-gb",),
+    ("--auto-partition",), ("--plan",), ("--hbm-gb",),
     ("--profile-mode",), ("--trace-dir",), ("--xla-trace-steps",),
     ("--trace",), ("--trace-capacity",), ("--audit",), ("--checkpoint-dir",),
     ("--resume",), ("--checkpoint-every-steps",), ("--keep-checkpoints",),
@@ -97,9 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--benchmark", default="mnist",
                    choices=sorted(DATASETS))
     p.add_argument("-f", "--framework", default="single", choices=STRATEGIES,
-                   help="strategy (single and dp are ported)")
+                   help="strategy (single, dp, gpipe and pipedream are "
+                        "ported)")
     p.add_argument("-g", "--devices", type=int, default=1,
-                   help="ranks of -f dp, one process and one card each")
+                   help="ranks of -f dp, one process and one card each; "
+                        "stages x dp-replicas x tp-size of a pipeline, "
+                        "one card a stage")
     p.add_argument("-m", "--model", default="resnet18",
                    choices=MODEL_NAMES)
     p.add_argument("-p", "--log-interval", type=int, default=25)
@@ -116,6 +133,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--prefetch-depth 0")
     p.add_argument("-e", "--epochs", type=int, default=3)
     p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--micro-batch-size", type=int, default=None)
+    p.add_argument("--num-microbatches", type=int, default=None)
+    p.add_argument("--stages", type=int, default=None)
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   help="interleaved layout (gpipe or pipedream): model "
+                        "chunks per stage")
+    p.add_argument("--pipe-schedule", default="fill-drain",
+                   choices=PIPE_SCHEDULES,
+                   help="gpipe's timetable: fill-drain (GPipe flush), or "
+                        "an event schedule (1f1b, interleaved, zero-bubble, "
+                        "zero-bubble-h2, searched; "
+                        "parallel/pipeline_rt.py)")
+    p.add_argument("--zb-h2-stash", type=int, default=1,
+                   help="zero-bubble-h2's extra in-flight microbatches "
+                        "per chunk")
+    p.add_argument("--sched-search-budget", type=int, default=256,
+                   help="searched schedule's move-evaluation budget")
+    p.add_argument("--sched-search-seed", type=int, default=0,
+                   help="searched schedule's rng seed")
+    p.add_argument("--pipe-costs", default="unit", choices=("unit", "profile"),
+                   help="timetable cost model (profile: ROADMAP A.8)")
+    p.add_argument("--schedule-trace", default=None, metavar="PATH",
+                   help="measured-bubble advice (ROADMAP A.8)")
+    p.add_argument("--dp-replicas", type=int, default=1,
+                   help="hybrid PP x DP (ROADMAP A.7b)")
+    p.add_argument("--tp-size", type=int, default=1,
+                   help="tensor x pipeline parallelism (ROADMAP A.7b)")
+    p.add_argument("--stage-replication", default=None,
+                   help="uneven hybrid PP x DP (ROADMAP A.7b)")
+    p.add_argument("--update-interval", type=int, default=1,
+                   help="pipedream macrobatch: microbatches per update")
+    p.add_argument("--plan-bounds", default=None, metavar="0,K,...,L",
+                   help="explicit per-chunk layer bounds of a pipeline "
+                        "(stages x virtual-stages + 1 ints from 0)")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--grad-accum-steps", type=int, default=1,
                    help="micro-steps of --batch-size rows per update")
@@ -195,7 +246,21 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
         remat_layers=args.remat_layers, shard_opt_state=args.shard_opt_state,
         dp_shard_update=args.dp_shard_update,
         allreduce_dtype=args.allreduce_dtype,
-        comm_buckets=args.comm_buckets, warmup_epochs=args.warmup_epochs)
+        comm_buckets=args.comm_buckets, warmup_epochs=args.warmup_epochs,
+        micro_batch_size=args.micro_batch_size,
+        num_microbatches=args.num_microbatches, num_stages=args.stages,
+        virtual_stages=args.virtual_stages,
+        pipe_schedule=args.pipe_schedule, zb_h2_stash=args.zb_h2_stash,
+        sched_search_budget=args.sched_search_budget,
+        sched_search_seed=args.sched_search_seed,
+        pipe_costs=args.pipe_costs, schedule_trace=args.schedule_trace,
+        dp_replicas=args.dp_replicas, tp_size=args.tp_size,
+        stage_replication=(tuple(int(r) for r in
+                                 args.stage_replication.split(","))
+                           if args.stage_replication else None),
+        update_interval=args.update_interval,
+        plan_bounds=(tuple(int(b) for b in args.plan_bounds.split(","))
+                     if args.plan_bounds else None))
 
 
 def _train_rank(comm, cfg: RunConfig, jsonl: str, device=None) -> dict:

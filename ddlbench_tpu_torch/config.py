@@ -2,7 +2,8 @@
 
 The port's own copy of the pieces of ``ddlbench_tpu/config.py`` those paths
 read: :class:`DatasetSpec` with the image and token workloads,
-``DEFAULT_BATCH`` for the ``single`` and ``dp`` strategies,
+``DEFAULT_BATCH`` for the ``single``, ``dp``, ``gpipe`` and ``pipedream``
+strategies,
 :class:`ServeConfig` and :class:`RunConfig` with their resolvers and
 validation. The field names, defaults and error
 messages are the reference's, so a config built for one package means the
@@ -17,6 +18,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Any, Mapping, Optional, Tuple
+
+from ddlbench_tpu_torch.partition.schedule import PIPE_SCHEDULES
 
 
 # the stream kinds beside "image": token streams (next-token LM) and
@@ -83,18 +86,34 @@ DATASETS: Mapping[str, DatasetSpec] = {
 # tensors; "flash"/"xla" force one (models/transformer.py)
 ATTENTION_BACKENDS = ("auto", "flash", "xla")
 
-# the reference's per-strategy default batch of "single" and "dp" (per
-# device: a dp step takes num_devices x this many rows)
+# the reference's per-strategy default batch: for "single" and "dp" per
+# device (a dp step takes num_devices x this many rows); for "gpipe" the
+# (micro_batch_size, num_microbatches) pair, the global batch their
+# product; for "pipedream" the global batch
 DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
     "single": {"mnist": 128, "cifar10": 64, "imagenet": 32, "highres": 32,
                "synthtext": 16, "longctx": 2, "longctx32k": 1,
                "synthmt": 64},
     "dp": {"mnist": 128, "cifar10": 64, "imagenet": 32, "highres": 32,
            "synthtext": 16, "longctx": 2, "longctx32k": 1, "synthmt": 64},
+    "gpipe": {
+        "mnist": (128, 24),
+        "cifar10": (64, 32),
+        "imagenet": (24, 12),
+        "highres": (4, 12),
+        "synthtext": (4, 8),
+        "longctx": (1, 8),
+        "longctx32k": (1, 4),
+        "synthmt": (16, 8),
+    },
+    "pipedream": {"mnist": 512, "cifar10": 256, "imagenet": 128,
+                  "highres": 64, "synthtext": 64, "longctx": 8,
+                  "longctx32k": 4, "synthmt": 128},
 }
 
 # the strategies the port's training path runs
-PORTED_STRATEGIES = ("single", "dp")
+PORTED_STRATEGIES = ("single", "dp", "gpipe", "pipedream")
+PIPELINE_STRATEGIES = ("gpipe", "pipedream")
 
 # the canonical names of the dp gradient wire dtypes (allreduce_dtype)
 _WIRE_DTYPES = {"f32": "float32", "float32": "float32",
@@ -106,7 +125,27 @@ _WIRE_DTYPES = {"f32": "float32", "float32": "float32",
 # yet
 _NOT_PORTED = (
     ("tp", 1, "tensor-parallel serving (tp > 1)",
-     "A.7: a replica needs tp devices"),
+     "A.7b: a replica needs tp devices"),
+)
+
+
+# (field, default, what it is, the ROADMAP item it waits on) for every
+# pipeline knob of the reference the port keeps for schema parity but does
+# not implement yet
+_PIPE_NOT_PORTED = (
+    ("dp_replicas", 1, "hybrid PP x DP (dp_replicas > 1)", "A.7b"),
+    ("stage_replication", None, "the hetero pipeline (stage_replication)",
+     "A.7b"),
+    ("tp_size", 1, "composed tensor x pipeline parallelism (tp_size > 1)",
+     "A.7b"),
+    ("pipe_costs", "unit", "cost-weighted timetables (pipe_costs)",
+     "A.8: the costs come from the auto-partition profile"),
+    ("pipe_cost_vectors", None,
+     "cost-weighted timetables (pipe_cost_vectors)",
+     "A.8: the costs come from the auto-partition profile"),
+    ("schedule_trace", None,
+     "measured-bubble schedule advice (schedule_trace)",
+     "A.8: it feeds the auto-partition advisor"),
 )
 
 
@@ -330,14 +369,18 @@ class RunConfig:
     """
 
     benchmark: str = "synthtext"
-    strategy: str = "single"  # single | dp
+    strategy: str = "single"  # single | dp | gpipe | pipedream
     arch: str = "transformer_s"
-    # ranks of a dp run (the reference's chips: gpus x nodes)
+    # ranks of a dp run, stages of a pipeline (the reference's chips: gpus
+    # x nodes)
     num_devices: int = 1
     # the training protocol (the reference's EPOCHS=3, LOGINTER=25)
     epochs: int = 3
     log_interval: int = 25
+    # per device for single/dp; the global batch for pipedream
     batch_size: Optional[int] = None
+    micro_batch_size: Optional[int] = None  # gpipe/pipedream microbatch
+    num_microbatches: Optional[int] = None
     steps_per_epoch: Optional[int] = None
     # None = per-workload default (resolved_*): sgd everywhere but seq2seq
     # (adam); lr 0.1, momentum 0.9 and weight decay 1e-4 on imagenet and
@@ -373,6 +416,34 @@ class RunConfig:
     dp_shard_update: bool = False
     allreduce_dtype: str = "float32"
     comm_buckets: int = 1
+    # Pipelines (parallel/gpipe.py, pipeline_rt.py, pipedream.py): stages
+    # (num_devices // dp_replicas by default), model chunks per stage
+    # (the interleaved layout: chunk c = v*S + s on stage s; needs
+    # num_microbatches % stages == 0 above 1), the gpipe schedule
+    # (fill-drain, or an event schedule of the timetable runtime:
+    # 1f1b, interleaved, zero-bubble, zero-bubble-h2 with zb_h2_stash
+    # extra in-flight microbatches, searched with its budget and seed),
+    # PipeDream's macrobatch (update_interval microbatches' gradients
+    # averaged per update) and explicit per-chunk stage bounds
+    # (plan_bounds: stages x virtual_stages + 1 layer indices from 0).
+    # dp_replicas, stage_replication, tp_size, pipe_costs,
+    # pipe_cost_vectors and schedule_trace are the reference's too;
+    # validate() refuses them away from their defaults
+    num_stages: Optional[int] = None
+    dp_replicas: int = 1
+    stage_replication: Optional[Tuple[int, ...]] = None
+    virtual_stages: int = 1
+    pipe_schedule: str = "fill-drain"
+    zb_h2_stash: int = 1
+    sched_search_budget: int = 256
+    sched_search_seed: int = 0
+    pipe_costs: str = "unit"
+    pipe_cost_vectors: Optional[Tuple[Tuple[int, ...], Tuple[int, ...],
+                                      Tuple[int, ...]]] = None
+    schedule_trace: Optional[str] = None
+    tp_size: int = 1
+    update_interval: int = 1
+    plan_bounds: Optional[Tuple[int, ...]] = None
     # MoE (transformer_moe_* archs): the router load-balance loss weight
     # and the static capacity ceil(cf * tokens / experts) an expert
     moe_aux_weight: float = 0.01
@@ -383,10 +454,13 @@ class RunConfig:
     # fused projection+loss head (ops/fused_xent.py); applies to models
     # whose head supports it (the token/seq2seq workloads)
     fused_head_loss: bool = True
-    # the reference's schema: its training reads param_dtype nowhere, and
-    # remat_stages only in the pipeline strategies; validate() refuses any
-    # other value than these defaults, which is what the port does
+    # the reference's schema: its training reads param_dtype nowhere;
+    # validate() refuses any other value than float32
     param_dtype: str = "float32"
+    # gpipe: recompute each (microbatch, chunk) from its stashed input in
+    # the backward (torchgpipe's checkpointing); False keeps the graphs.
+    # The event schedules and pipedream always recompute, as the
+    # reference's do
     remat_stages: bool = True
     # torch.utils.checkpoint per layer: the backward recomputes each layer
     # (token models only: the recomputation would update BatchNorm's
@@ -486,10 +560,53 @@ class RunConfig:
         return (self.dp_explicit_collectives() and self.dp_shard_update
                 and self.comm_buckets > 1)
 
+    def resolved_stages(self) -> int:
+        """The pipeline's stages: num_stages, else num_devices //
+        (dp_replicas x tp_size)."""
+        if self.stage_replication:
+            return len(self.stage_replication)
+        if self.num_stages is not None:
+            return self.num_stages
+        return max(1, self.num_devices
+                   // (max(1, self.dp_replicas) * max(1, self.tp_size)))
+
+    def resolved_batches(self) -> Tuple[int, int]:
+        """(micro_batch_size, num_microbatches): for single/dp the
+        per-device batch and 1; the reference's rules for gpipe and
+        pipedream."""
+        if self.strategy not in PIPELINE_STRATEGIES:
+            key = "dp" if self.strategy == "dp" else "single"
+            b = self.batch_size or DEFAULT_BATCH[key][self.benchmark]
+            return int(b), 1
+        if self.strategy == "gpipe":
+            if self.micro_batch_size and self.num_microbatches:
+                # fully explicit grammar: the default matrix is not
+                # consulted (benchmarks outside it work with both flags)
+                return int(self.micro_batch_size), int(self.num_microbatches)
+            mb, chunks = DEFAULT_BATCH["gpipe"][self.benchmark]
+            mb = self.micro_batch_size or mb
+            if self.num_microbatches:
+                chunks = self.num_microbatches
+            elif self.batch_size:
+                # interpret batch_size as the effective global batch
+                chunks = max(1, self.batch_size // mb)
+            return int(mb), int(chunks)
+        # pipedream: global batch split into microbatches of micro_batch_size.
+        global_b = (self.batch_size
+                    or DEFAULT_BATCH["pipedream"][self.benchmark])
+        mb = self.micro_batch_size or max(
+            1, global_b // (2 * self.resolved_stages()))
+        chunks = self.num_microbatches or max(1, global_b // mb)
+        return int(mb), int(chunks)
+
     def global_batch(self) -> int:
         """The step's batch: batch_size (or the reference's default for
         the benchmark) rows per micro-step and device, grad_accum_steps
-        micro-steps per step; ``dp`` takes num_devices devices' rows."""
+        micro-steps per step; ``dp`` takes num_devices devices' rows; a
+        pipeline's is micro_batch_size x num_microbatches."""
+        if self.strategy in PIPELINE_STRATEGIES:
+            mb, chunks = self.resolved_batches()
+            return mb * chunks
         key = "dp" if self.strategy == "dp" else "single"
         b = int(self.batch_size or DEFAULT_BATCH[key][self.benchmark])
         devices = self.num_devices if self.strategy == "dp" else 1
@@ -526,11 +643,6 @@ class RunConfig:
             raise NotImplementedError(
                 f"param_dtype={self.param_dtype!r}: parameters are float32 "
                 "(the reference's training reads param_dtype nowhere)")
-        if not self.remat_stages:
-            raise NotImplementedError(
-                "remat_stages=False acts on the pipeline strategies, which "
-                "are not ported to the PyTorch training path yet "
-                "(ROADMAP A.7)")
         if self.remat_layers and "moe" in self.arch:
             raise ValueError(
                 "remat_layers is incompatible with MoE archs (a "
@@ -551,6 +663,7 @@ class RunConfig:
             raise ValueError("label_smoothing must be in [0, 1)")
         if self.epochs < 1 or self.log_interval < 1:
             raise ValueError("epochs and log_interval must be >= 1")
+        self._validate_pipeline()
         if self.lr_step_epochs < 1:
             raise ValueError("lr_step_epochs must be >= 1")
         if self.remat_layers and self.dataset().kind == "image":
@@ -558,6 +671,89 @@ class RunConfig:
                 "per-layer remat (remat_layers) of the image models is not "
                 "ported: torch.utils.checkpoint's recomputation would "
                 "update BatchNorm's running statistics a second time")
+
+    def _validate_pipeline(self) -> None:
+        """The reference's pipeline gates, worded as it words them, after
+        the refusals of what the port does not carry (each naming its
+        ROADMAP item)."""
+        for name, default, what, item in _PIPE_NOT_PORTED:
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"{what} ({name}={getattr(self, name)!r}) is not ported "
+                    f"to the PyTorch training path yet (ROADMAP {item})")
+        if self.remat_layers and self.strategy in PIPELINE_STRATEGIES:
+            raise ValueError(
+                f"remat_layers applies to the one-apply strategies "
+                f"(single/dp/tp/fsdp), not {self.strategy!r} — the pipeline "
+                f"strategies checkpoint per (microbatch, stage) via "
+                f"remat_stages, and sp/ep bound activation memory by "
+                f"sharding the sequence/experts instead")
+        if self.strategy in PIPELINE_STRATEGIES:
+            s = self.resolved_stages()
+            if s * max(1, self.dp_replicas) * max(1, self.tp_size) \
+                    != self.num_devices:
+                raise ValueError(
+                    f"stages ({s}) x dp_replicas ({self.dp_replicas}) x "
+                    f"tp_size ({self.tp_size}) must equal "
+                    f"num_devices ({self.num_devices})"
+                )
+        if self.virtual_stages < 1:
+            raise ValueError("virtual_stages must be >= 1")
+        if self.pipe_schedule not in PIPE_SCHEDULES:
+            raise ValueError(
+                f"unknown pipe_schedule {self.pipe_schedule!r} "
+                f"(choose from {', '.join(PIPE_SCHEDULES)})")
+        if self.pipe_schedule != "fill-drain" and self.strategy != "gpipe":
+            raise ValueError(
+                f"pipe_schedule={self.pipe_schedule!r} runs on the "
+                f"gpipe strategy's schedule runtime "
+                f"(parallel/pipeline_rt.py); pipedream is the ASYNC "
+                f"1F1B engine and {self.strategy!r} has no pipeline")
+        if self.zb_h2_stash < 0:
+            raise ValueError("zb_h2_stash must be >= 0")
+        if self.sched_search_budget < 0:
+            raise ValueError("sched_search_budget must be >= 0")
+        if self.update_interval < 1:
+            raise ValueError("update_interval must be >= 1")
+        if self.update_interval > 1:
+            if self.strategy != "pipedream":
+                raise ValueError(
+                    "update_interval > 1 (PipeDream macrobatch) requires the "
+                    "uniform pipedream strategy")
+            _, chunks = self.resolved_batches()
+            if chunks % self.update_interval:
+                raise ValueError(
+                    f"num_microbatches ({chunks}) must be divisible by "
+                    f"update_interval ({self.update_interval})")
+        if self.grad_accum_steps > 1 and self.strategy in PIPELINE_STRATEGIES:
+            raise ValueError(
+                "grad_accum_steps > 1 is supported on single/dp/tp/fsdp "
+                "(pipeline strategies already micro-batch)")
+        if self.plan_bounds is not None:
+            if self.strategy not in PIPELINE_STRATEGIES:
+                raise ValueError(
+                    "plan_bounds (explicit stage bounds) applies to the "
+                    "pipeline strategies")
+            pb = tuple(int(x) for x in self.plan_bounds)
+            chunks_n = self.resolved_stages() * max(1, self.virtual_stages)
+            if len(pb) != chunks_n + 1:
+                raise ValueError(
+                    f"plan_bounds needs stages x virtual_stages + 1 = "
+                    f"{chunks_n + 1} entries; got {len(pb)}")
+            if pb[0] != 0 or any(a >= b for a, b in zip(pb, pb[1:])):
+                raise ValueError(
+                    f"plan_bounds must strictly increase from 0; got {pb}")
+        if self.virtual_stages > 1:
+            if self.strategy not in PIPELINE_STRATEGIES:
+                raise ValueError(
+                    "virtual_stages (interleaved schedule) requires a "
+                    "pipeline strategy (gpipe or pipedream)")
+            s = self.resolved_stages()
+            _, chunks = self.resolved_batches()
+            if chunks % s:
+                raise ValueError(
+                    f"interleaved schedule needs num_microbatches ({chunks}) "
+                    f"divisible by stages ({s})")
 
     def _validate_dp(self) -> None:
         """The reference's dp gates, worded as it words them, then the
@@ -569,6 +765,11 @@ class RunConfig:
         self.resolved_allreduce_dtype()  # raises on unknown values
         if self.comm_buckets < 1:
             raise ValueError("comm_buckets must be >= 1")
+        if self.dp_shard_update and self.strategy == "gpipe":
+            raise NotImplementedError(
+                "dp_shard_update on gpipe (hybrid PP x ZeRO-1) is not "
+                "ported to the PyTorch training path yet (ROADMAP A.7b: it "
+                "needs dp_replicas > 1)")
         if self.comm_buckets > 1 and self.strategy != "dp":
             raise ValueError(
                 "comm_buckets > 1 (bucketed gradient collectives) applies "

@@ -83,6 +83,34 @@ def rank_device(device: str, rank: int, world: int,
     return torch.device("cuda", rank)
 
 
+def stage_devices(device: str, num_stages: int,
+                  shared_card: bool = False) -> List[torch.device]:
+    """The devices of a pipeline's ``num_stages`` stages, stage s on
+    entry s: ``cuda`` gives ``cuda:0`` .. ``cuda:S-1`` and raises, naming
+    the count, where the machine has fewer cards; ``shared_card=True``
+    puts every stage on ``cuda:0`` (asked for explicitly, never a fall
+    back); ``cpu`` gives the CPU for every stage."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        if shared_card:
+            raise ValueError("shared_card is a mode of the card (cuda)")
+        return [dev] * num_stages
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {device!r} (cuda or cpu)")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if shared_card and have:
+        return [torch.device("cuda", 0)] * num_stages
+    if have < num_stages or not have:
+        need = 1 if shared_card else num_stages
+        raise RuntimeError(
+            f"{num_stages} pipeline stages need {need} CUDA device(s) ("
+            + ("every stage on one card" if shared_card
+               else "one stage a card")
+            + f"); this machine has {have} (--device cpu runs the stages "
+            "on the CPU)")
+    return [torch.device("cuda", s) for s in range(num_stages)]
+
+
 def check_world(device: str, world: int, shared_card: bool = False) -> None:
     """Raise before any process starts where ``world`` ranks cannot run on
     ``device``."""

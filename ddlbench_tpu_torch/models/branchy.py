@@ -11,8 +11,8 @@ in a :class:`Composite` layer, so the strategies see a flat chain; a
 composite's parameters are named ``<k>.<name>`` after the span's k-th
 node, which is how the reference's per-span list of parameter dicts maps
 onto them (convert.py). The packed multi-tensor chain the reference's
-pipeline partitioner uses waits for the pipeline strategies (ROADMAP
-A.7).
+pipeline partitioner uses is not ported: the pipelines refuse these
+arches (ROADMAP A.7b).
 """
 
 from __future__ import annotations

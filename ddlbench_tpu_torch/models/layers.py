@@ -58,6 +58,15 @@ of the reference are kept on purpose (tests pin them):
 * Channel concatenations (squeezenet's fire module, densenet's blocks,
   the branchy models' joins) are on dim 1 in the reference's order on its
   last (C) axis.
+
+The pipelines (parallel/gpipe.py, pipeline_rt.py, pipedream.py) run one
+chunk ``layers[a:b]`` at a time through :func:`apply_chunk`, on the
+layers' own parameters or on given ones (a weight version PipeDream
+stashed), and recompute a chunk for its backward inside
+:class:`frozen_batch_stats`: BatchNorm then normalises with the batch
+statistics, as the first forward did, and leaves its running statistics
+as that forward left them. ``torch.utils.checkpoint`` would update them a
+second time; the reference's recompute is functional and discards them.
 """
 
 from __future__ import annotations
@@ -216,14 +225,81 @@ def apply_slice(layers: Sequence[nn.Module], x: torch.Tensor,
         raise NotImplementedError(
             "per-layer remat of a layer with BatchNorm is not ported: the "
             "recomputation would update the running statistics twice")
+    if not remat:
+        return apply_chunk(layers, x, compute_dtype)
     for layer in layers:
-        params = {n: p.to(compute_dtype)
-                  if compute_dtype is not None and p.is_floating_point()
-                  else p for n, p in layer.named_parameters()}
-        if remat:
-            x = checkpoint(_call, layer, params, x, use_reentrant=False)
-        else:
-            x = _call(layer, params, x)
+        x = checkpoint(_call, layer,
+                       _cast(dict(layer.named_parameters()), compute_dtype),
+                       x, use_reentrant=False)
+    return x
+
+
+def _cast(params: dict, compute_dtype: Optional[torch.dtype]) -> dict:
+    return {n: p.to(compute_dtype)
+            if compute_dtype is not None and p.is_floating_point() else p
+            for n, p in params.items()}
+
+
+class frozen_batch_stats:
+    """While active, BatchNorm in train mode normalises with the batch
+    statistics and leaves its running statistics as they are (the
+    pipelines' recompute: module docstring). Nests; one process-wide
+    flag, as the pipelines run their events on one host thread."""
+
+    depth = 0
+
+    def __enter__(self):
+        frozen_batch_stats.depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        frozen_batch_stats.depth -= 1
+
+
+def call_layer(layer: nn.Module, params: Optional[dict], x: torch.Tensor,
+               method: str = "forward"):
+    """``layer.<method>(x)`` on ``params`` ({name: tensor}, the layer's
+    parameter names) in place of its own parameters, or on its own when
+    None; its buffers stay its own."""
+    if params is None:
+        return getattr(layer, method)(x)
+    if method == "forward":
+        return _call(layer, params, x)
+    return torch.func.functional_call(
+        _Method(layer, method), {f"layer.{n}": t for n, t in params.items()},
+        (x,))
+
+
+class _Method(nn.Module):
+    """Calls one method of ``layer`` as its forward, so functional_call
+    can run it on other parameters."""
+
+    def __init__(self, layer: nn.Module, method: str):
+        super().__init__()
+        self.layer = layer
+        self.method = method
+
+    def forward(self, x):
+        return getattr(self.layer, self.method)(x)
+
+
+def apply_chunk(layers: Sequence[nn.Module], x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None,
+                params: Optional[Sequence[dict]] = None,
+                update_stats: bool = True) -> torch.Tensor:
+    """One pipeline chunk: :func:`apply_slice` over ``layers`` (casts of
+    the parameters to ``compute_dtype`` inside autograd), on ``params``
+    (one {name: tensor} per layer, float32 masters) in place of the
+    layers' own when given. ``update_stats=False`` recomputes: BatchNorm
+    normalises with the batch statistics and leaves its running
+    statistics alone (:class:`frozen_batch_stats`)."""
+    if not update_stats:
+        with frozen_batch_stats():
+            return apply_chunk(layers, x, compute_dtype, params)
+    for i, layer in enumerate(layers):
+        src = (params[i] if params is not None
+               else dict(layer.named_parameters()))
+        x = _call(layer, _cast(src, compute_dtype), x)
     return x
 
 
@@ -425,6 +501,10 @@ class BatchNorm(nn.Module):
                                             self.var, comm)
         if comm is not None:
             return self.sync_forward(x, comm)
+        if self.training and frozen_batch_stats.depth:
+            return F.batch_norm(x, None, None, self.scale.to(dtype),
+                                self.bias.to(dtype), True, BN_MOMENTUM,
+                                BN_EPS)
         return F.batch_norm(x, self.mean, self.var, self.scale.to(dtype),
                             self.bias.to(dtype), self.training, BN_MOMENTUM,
                             BN_EPS)

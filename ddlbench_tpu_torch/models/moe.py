@@ -1,7 +1,7 @@
 """Mixture-of-experts transformer LM (PyTorch port).
 
 The port of ``ddlbench_tpu/models/moe.py`` on one card (the reference's
-expert-parallel all_to_all waits with the ep strategy, ROADMAP A.7):
+expert-parallel all_to_all waits with the ep strategy, ROADMAP A.7b):
 dense and Switch-routed blocks alternate, the MoE blocks at the odd
 indices. An MoE block is the transformer's attention half
 (models/transformer.py ``AttentionBlock``) with a bank of ``E`` expert

@@ -407,12 +407,18 @@ class LMHead(nn.Module):
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln_f(x).reshape(-1, x.shape[-1])
 
+    def fused_parts(self, x: torch.Tensor):
+        """The fused loss's two operands: the normalised rows [N, d] and
+        the projection cast to x's dtype. The pipelines' split backward
+        differentiates the loss in one of them at a time."""
+        return self._rows(x), self.head.to(x.dtype)
+
     def fused_loss(self, x: torch.Tensor, labels: torch.Tensor,
                    smoothing: float):
         """(objective_sum, ce_sum, correct) over valid label positions:
         the projection + CE fused, the kernels B4-B6 on the card."""
-        return fused_linear_xent(self._rows(x), self.head.to(x.dtype),
-                                 labels.reshape(-1), smoothing)
+        return fused_linear_xent(*self.fused_parts(x), labels.reshape(-1),
+                                 smoothing)
 
     def fused_eval(self, x: torch.Tensor, labels: torch.Tensor):
         """(ce_sum, correct, correct5, valid), one logit chunk at a time."""

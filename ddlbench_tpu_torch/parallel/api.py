@@ -1,5 +1,7 @@
 """Strategy factory of the port (``ddlbench_tpu/parallel/api.py``
-``make_strategy``), for the strategies it carries: ``single`` and ``dp``."""
+``make_strategy``), for the strategies it carries: ``single``, ``dp``,
+``gpipe`` (fill-drain, or an event schedule of the timetable runtime)
+and ``pipedream``."""
 
 from __future__ import annotations
 
@@ -7,17 +9,78 @@ from typing import Optional, Union
 
 import torch
 
-from ddlbench_tpu_torch.config import RunConfig
-from ddlbench_tpu_torch.distributed import Comm
+from ddlbench_tpu_torch.config import PIPELINE_STRATEGIES, RunConfig
+from ddlbench_tpu_torch.distributed import Comm, stage_devices
+from ddlbench_tpu_torch.models.branchy import BRANCHY_ARCHS
 from ddlbench_tpu_torch.models.transformer import set_attention_backend
 from ddlbench_tpu_torch.models.zoo import get_model
 from ddlbench_tpu_torch.parallel.dp import DPStrategy
+from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
+from ddlbench_tpu_torch.parallel.pipedream import PipeDreamStrategy
+from ddlbench_tpu_torch.parallel.pipeline_rt import ScheduledPipelineStrategy
 from ddlbench_tpu_torch.parallel.single import SingleStrategy
+from ddlbench_tpu_torch.partition.schedule import (recommend_schedule,
+                                                   recommend_virtual_stages)
+
+Strategy = Union[SingleStrategy, DPStrategy, GPipeStrategy]
+
+
+def schedule_advice(cfg: RunConfig, num_layers: int) -> str:
+    """The reference's two schedule-advisor lines for a gpipe run: the
+    interleaving factors at (S, M) and the best timetable at the run's
+    V."""
+    S = cfg.resolved_stages()
+    _, chunks = cfg.resolved_batches()
+    table = recommend_virtual_stages(S, chunks, num_layers)
+    sched = recommend_schedule(S, chunks, cfg.virtual_stages)
+    best = sched[0]
+    tail = ("" if best["schedule"] == cfg.pipe_schedule else
+            f" (run has --pipe-schedule {cfg.pipe_schedule})")
+    return (f"schedule advisor (S={S}, M={chunks}): {table}\n"
+            f"schedule advisor: best schedule at V={cfg.virtual_stages} is "
+            f"{best['schedule']} (analytic bubble {best['bubble']}){tail}: "
+            f"{sched}")
+
+
+def _pipeline(cfg: RunConfig, model, device: torch.device,
+              shared_card: bool) -> GPipeStrategy:
+    """A gpipe or pipedream strategy over ``cfg``'s stages on ``device``
+    (distributed.stage_devices), split at ``cfg.plan_bounds`` when set,
+    else at the balanced default split."""
+    if cfg.arch in BRANCHY_ARCHS:
+        raise NotImplementedError(
+            f"{cfg.arch} under a pipeline needs the reference's "
+            "node-granular packed chain (models/branchy.py to_packed_chain) "
+            "for its stage split, which is not ported to the PyTorch "
+            "training path yet (ROADMAP A.7b)")
+    bounds = None
+    if cfg.plan_bounds is not None:
+        if cfg.plan_bounds[-1] != len(model.layers):
+            raise ValueError(
+                f"--plan-bounds {list(cfg.plan_bounds)} must end at the "
+                f"model's layer count ({cfg.arch} has "
+                f"{len(model.layers)} layers)")
+        bounds = [int(b) for b in cfg.plan_bounds]
+    if cfg.strategy == "gpipe":
+        print(schedule_advice(cfg, len(model.layers)), flush=True)
+    devices = stage_devices(str(device), cfg.resolved_stages(), shared_card)
+    # on the first stage's device until the strategy has read the layers'
+    # shapes and split them; it then moves each chunk to its own
+    model = model.to(devices[0])
+    if devices[0].type == "cuda" and cfg.dataset().kind == "image":
+        model = model.to(memory_format=torch.channels_last)
+    if cfg.strategy == "pipedream":
+        cls = PipeDreamStrategy
+    elif cfg.pipe_schedule != "fill-drain":
+        cls = ScheduledPipelineStrategy
+    else:
+        cls = GPipeStrategy
+    return cls(model, cfg, devices, stage_bounds=bounds)
 
 
 def make_strategy(cfg: RunConfig, device: torch.device,
-                  comm: Optional[Comm] = None
-                  ) -> Union[SingleStrategy, DPStrategy]:
+                  comm: Optional[Comm] = None,
+                  shared_card: bool = False) -> Strategy:
     """Validate ``cfg``, set the attention backend (which image models do
     not read), build ``cfg.arch`` for ``cfg.benchmark`` with random weights
     from ``cfg.seed`` on ``device``, and return its strategy with fresh
@@ -25,17 +88,27 @@ def make_strategy(cfg: RunConfig, device: torch.device,
     channels_last, the layout cuDNN runs fastest, as the data's images
     are. ``dp`` runs on the rank ``comm`` (distributed.spawn gives each
     rank its own), whose world must be ``cfg.num_devices``; rank 0's
-    weights are broadcast to the others."""
+    weights are broadcast to the others. ``gpipe`` and ``pipedream`` run
+    their stages on ``cfg.resolved_stages()`` devices of ``device``'s
+    type: one card each, or with ``shared_card`` every stage on one card
+    (distributed.stage_devices); the model's chunks are moved there."""
     cfg.validate()
     if cfg.strategy == "dp" and comm is None:
         raise ValueError("strategy 'dp' runs on a rank of a process group: "
                          "pass its Comm (distributed.spawn makes them)")
     set_attention_backend(cfg.attention_backend)
     model = get_model(cfg.arch, cfg.benchmark, seed=cfg.seed,
-                      moe_capacity_factor=cfg.moe_capacity_factor).to(device)
+                      moe_capacity_factor=cfg.moe_capacity_factor)
+    if cfg.strategy in PIPELINE_STRATEGIES:
+        strategy = _pipeline(cfg, model, device, shared_card)
+        strategy.init()
+        return strategy
+    model = model.to(device)
     if device.type == "cuda" and cfg.dataset().kind == "image":
         model = model.to(memory_format=torch.channels_last)
-    strategy = (DPStrategy(model, cfg, comm) if cfg.strategy == "dp"
-                else SingleStrategy(model, cfg))
+    if cfg.strategy == "dp":
+        strategy = DPStrategy(model, cfg, comm)
+    else:
+        strategy = SingleStrategy(model, cfg)
     strategy.init()
     return strategy

@@ -1,7 +1,9 @@
 """Shared train-step machinery of the port: loss, metrics, optimizers.
 
 The port of the one-apply pieces of ``ddlbench_tpu/parallel/common.py``:
-the cross-entropy loss and the top-1/top-k counts, ``loss_with_moe_aux``
+the cross-entropy loss and the top-1/top-k counts, the last pipeline
+chunk's fused-head loss and eval sums (``fused_chunk_loss_sums``,
+``fused_chunk_eval_sums``), ``loss_with_moe_aux``
 (the fused LM head or the full logits, plus the MoE router's aux losses,
 which each MoE block records on its forward: models/moe.py), the
 single-apply ``loss_and_grads``, ``eval_metrics`` (fused and logits),
@@ -32,10 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from ddlbench_tpu_torch.config import RunConfig
-from ddlbench_tpu_torch.models.layers import (LayerModel, apply_model,
-                                             apply_slice)
+from ddlbench_tpu_torch.models.layers import (LayerModel, apply_chunk,
+                                             apply_model, apply_slice,
+                                             call_layer)
 from ddlbench_tpu_torch.models.moe import aux_losses
 from ddlbench_tpu_torch.ops import threefry
+from ddlbench_tpu_torch.ops.fused_xent import fused_linear_xent
 
 
 def step_decay_lr(base_lr: float, epoch: int, step_epochs: int,
@@ -114,8 +118,46 @@ def fused_head_eval_sums(model: LayerModel, x: torch.Tensor,
                          y: torch.Tensor, compute_dtype: torch.dtype):
     """Eval twin of fused_head_loss_sums: (ce_sum, correct, correct5,
     valid)."""
-    h = apply_slice(model.layers[:-1], x, compute_dtype)
-    return model.layers[-1].fused_eval(h, y)
+    return fused_chunk_eval_sums(model.layers, x, y, compute_dtype)
+
+
+def fused_chunk_head_inputs(layers: Sequence[torch.nn.Module],
+                            x: torch.Tensor, compute_dtype: torch.dtype,
+                            params: Optional[Sequence[dict]] = None,
+                            update_stats: bool = True):
+    """The last pipeline chunk up to its fused head: ``layers[:-1]``
+    through models/layers.apply_chunk (on ``params`` when given), then the
+    head's two operands (LMHead.fused_parts: the normalised rows and the
+    projection, on the head's float32 masters as fused_head_loss_sums
+    runs it)."""
+    h = apply_chunk(layers[:-1], x, compute_dtype,
+                    None if params is None else params[:-1], update_stats)
+    return call_layer(layers[-1], None if params is None else params[-1],
+                      h, "fused_parts")
+
+
+def fused_chunk_loss_sums(layers: Sequence[torch.nn.Module],
+                          x: torch.Tensor, y: torch.Tensor,
+                          compute_dtype: torch.dtype, smoothing: float,
+                          params: Optional[Sequence[dict]] = None,
+                          update_stats: bool = True):
+    """The last chunk's fused-head loss (the reference's
+    ``fused_slice_loss_sums``): (obj_sum, ce_sum, correct, valid) over the
+    valid labels of ``y``; callers normalise."""
+    rows, w = fused_chunk_head_inputs(layers, x, compute_dtype, params,
+                                      update_stats)
+    obj_sum, ce_sum, correct = fused_linear_xent(rows, w, y.reshape(-1),
+                                                 smoothing)
+    return obj_sum, ce_sum, correct, (y >= 0).sum()
+
+
+def fused_chunk_eval_sums(layers: Sequence[torch.nn.Module],
+                          x: torch.Tensor, y: torch.Tensor,
+                          compute_dtype: torch.dtype):
+    """Eval twin of :func:`fused_chunk_loss_sums` (the reference's
+    ``fused_slice_eval_sums``): (ce_sum, correct, correct5, valid)."""
+    h = apply_chunk(layers[:-1], x, compute_dtype)
+    return layers[-1].fused_eval(h, y)
 
 
 def loss_with_moe_aux(model: LayerModel, x: torch.Tensor, y: torch.Tensor,

@@ -1,0 +1,360 @@
+"""Synchronous micro-batch pipeline: GPipe's fill-drain
+(``ddlbench_tpu/parallel/gpipe.py`` ``GPipeStrategy``).
+
+The reference compiles the schedule into one SPMD program over a
+``('data', 'stage')`` mesh: a ``lax.scan`` over ticks with a ``ppermute``
+ring, whose meaning its tests pin as a sequential replay of
+per-(chunk, microbatch) events. The port executes that replay: one
+process walks the fill-drain timetable's events (partition/schedule.py),
+chunk ``c = v*S + s`` lives on ``devices[s]``, and an activation crosses a
+stage boundary with ``.to(devices[s+1])`` (a no-op when both stages share
+a card) — torchgpipe's own model, one process over a list of devices. On
+separate cards the host issues each event in the table's order and every
+card runs its queue concurrently.
+
+A train step:
+
+* the global batch splits into M microbatches of ``mb`` contiguous rows
+  (:meth:`shard_batch`);
+* every chunk runs every microbatch in the timetable's forward order,
+  BatchNorm's running statistics updating once per (chunk, microbatch);
+* the objective is the mean over microbatches of each microbatch's loss
+  (its mean over valid labels, label-smoothed as configured) plus
+  ``moe_aux_weight`` x the MoE router losses summed over chunks, over M;
+  the reported loss is the unsmoothed CE, averaged the same way;
+* with ``remat_stages`` (the default, torchgpipe's checkpointing) the
+  forward keeps only each (chunk, microbatch)'s input, and the backward
+  walks the table in reverse, recomputing each chunk from its stashed
+  input with BatchNorm's running statistics frozen
+  (models/layers.py ``apply_chunk``), the cotangent seeded with 1/M as
+  the reference's autodiff seeds it; without, autograd keeps every
+  chunk's graph and one backward runs;
+* one optimizer update per step (parallel/common.py ``flat_optimizer``:
+  the reference's formulas, per chunk on its device).
+
+Eval runs the same fill-drain forward in eval mode (the reference's
+eval step): the loss is the mean of the microbatches' means.
+:class:`ScheduledPipelineStrategy` (parallel/pipeline_rt.py) and
+:class:`PipeDreamStrategy` (parallel/pipedream.py) subclass this one for
+their train steps.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from ddlbench_tpu_torch.config import RunConfig
+from ddlbench_tpu_torch.models.layers import LayerModel, apply_chunk
+from ddlbench_tpu_torch.models.moe import MoEBlock
+from ddlbench_tpu_torch.parallel.common import (
+    cast_input, correct_and_count, correct_topk, cross_entropy_loss,
+    flat_optimizer, fused_chunk_eval_sums, fused_chunk_loss_sums,
+    head_fusable, ref_param_order, to_ref_layout)
+from ddlbench_tpu_torch.parallel.packing import (balanced_stage_bounds,
+                                                 layer_flop_costs,
+                                                 model_shapes)
+from ddlbench_tpu_torch.partition.schedule import fill_drain_timetable
+
+
+def chunk_aux(layers: Sequence[torch.nn.Module]) -> Optional[torch.Tensor]:
+    """Sum, in layer order, of the router losses the chunk's MoE blocks
+    recorded on its last forward; None for a dense chunk."""
+    aux = [m.last_route.aux for layer in layers for m in layer.modules()
+           if isinstance(m, MoEBlock)]
+    return sum(aux) if aux else None
+
+
+class GPipeStrategy:
+    """strategy='gpipe': fill-drain over S stages (V chunks each) on
+    ``devices`` (one per stage; distributed.stage_devices). The model's
+    chunk layers are moved to their devices here."""
+
+    def __init__(self, model: LayerModel, cfg: RunConfig,
+                 devices: Sequence[torch.device],
+                 stage_bounds: Optional[Sequence[int]] = None):
+        self.model = model
+        self.cfg = cfg
+        self.num_stages = S = cfg.resolved_stages()
+        self.vstages = V = max(1, cfg.virtual_stages)
+        self.num_chunks = C = S * V
+        self.devices = [torch.device(d) for d in devices]
+        if len(self.devices) != S:
+            raise ValueError(f"{S} stages need {S} devices, got "
+                             f"{len(self.devices)}")
+        self.compute_dtype = getattr(torch, cfg.compute_dtype)
+        self.mb, self.num_microbatches = cfg.resolved_batches()
+        self.smoothing = cfg.resolved_label_smoothing()
+        self.aux_weight = cfg.moe_aux_weight
+        self.shapes = model_shapes(model)
+        if stage_bounds is None:
+            bounds = balanced_stage_bounds(
+                layer_flop_costs(model, self.shapes), C)
+        else:
+            bounds = [int(b) for b in stage_bounds]
+        assert (len(bounds) == C + 1 and bounds[0] == 0
+                and bounds[-1] == len(model.layers)), bounds
+        self.bounds = bounds
+        # the largest activation crossing a chunk boundary, one microbatch
+        interior = [self.mb * math.prod(self.shapes[bounds[c]])
+                    for c in range(1, C)]
+        self._act_size = max(interior) if interior else 1
+        self.fused = cfg.fused_head_loss and head_fusable(model)
+        for c in range(C):
+            for layer in self.chunk_layers(c):
+                layer.to(self.chunk_device(c))
+        # the train step's table (the event schedules replace it); eval
+        # always walks fill-drain's forward
+        self.timetable = self._fill_drain = fill_drain_timetable(
+            S, self.num_microbatches, V)
+        self._opt_init, self._opt_update = flat_optimizer(cfg)
+        self.opt: Optional[List[dict]] = None
+
+    # -- layout --------------------------------------------------------------
+
+    def chunk_layers(self, c: int) -> Sequence[torch.nn.Module]:
+        return self.model.layers[self.bounds[c]:self.bounds[c + 1]]
+
+    def chunk_device(self, c: int) -> torch.device:
+        return self.devices[c % self.num_stages]
+
+    def chunk_params(self, c: int) -> List[torch.nn.Parameter]:
+        return [p for layer in self.chunk_layers(c)
+                for p in layer.parameters()]
+
+    @property
+    def world_size(self) -> int:
+        return len(self.devices)
+
+    def init(self) -> None:
+        """Fresh optimizer state, one per chunk, for the current
+        parameters."""
+        self.opt = [self._opt_init([p.detach() for p in
+                                    self.chunk_params(c)])
+                    for c in range(self.num_chunks)]
+
+    def materialize_params(self) -> torch.Tensor:
+        """The reference's packed stage-parameter matrix, on the CPU in
+        float32: row c holds chunk c's parameters raveled in the
+        reference's leaf order and layout (parallel/common.py
+        ``ref_param_order``), zero-padded to the longest row; [S, L] at
+        V 1, [V, S, L] (row [v, s] = chunk v*S + s) above."""
+        rows = []
+        for c in range(self.num_chunks):
+            sub = LayerModel("chunk", list(self.chunk_layers(c)), (1,), 1)
+            params, _ = ref_param_order(sub)
+            rows.append(torch.cat(
+                [to_ref_layout(p.detach()).float().reshape(-1).cpu()
+                 for p in params]) if params else torch.zeros(0))
+        L = max(max(r.numel() for r in rows), 1)
+        mat = torch.stack([torch.nn.functional.pad(r, (0, L - r.numel()))
+                           for r in rows])
+        if self.vstages > 1:
+            mat = mat.reshape(self.vstages, self.num_stages, L)
+        return mat
+
+    def shard_batch(self, x: torch.Tensor, y: torch.Tensor
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Global batch [M*mb, ...] -> M microbatches of mb contiguous rows:
+        inputs on chunk 0's device, labels on the last chunk's."""
+        M, mb = self.num_microbatches, self.mb
+        if x.shape[0] != M * mb:
+            raise ValueError(f"batch of {x.shape[0]} rows; the pipeline "
+                             f"takes {M} microbatches of {mb}")
+        last = self.chunk_device(self.num_chunks - 1)
+        xs = [t for t in x.to(self.chunk_device(0)).split(mb)]
+        ys = [t for t in y.to(last).split(mb)]
+        return xs, ys
+
+    # -- one chunk -----------------------------------------------------------
+
+    def _send(self, t: torch.Tensor, c: int) -> torch.Tensor:
+        """An activation or cotangent to chunk c's device, in the compute
+        dtype (the reference's boundary buffers)."""
+        if t.is_floating_point():
+            t = t.to(self.compute_dtype)
+        return t.to(self.chunk_device(c))
+
+    def _chunk_obj(self, c: int, x: torch.Tensor,
+                   labels: Optional[torch.Tensor],
+                   params: Optional[Sequence[dict]] = None,
+                   update_stats: bool = True, train: bool = True
+                   ) -> Dict[str, Optional[torch.Tensor]]:
+        """Chunk c on x (cast to the compute dtype). Returns ``y`` (the
+        output, None on the last chunk), ``aux`` (the chunk's MoE router
+        losses, None for a dense chunk) and on the last chunk ``obj``
+        (this microbatch's training objective: the label-smoothed mean CE
+        over valid labels plus moe_aux_weight x aux), ``ce`` (the
+        unsmoothed mean CE) and ``correct``; in eval mode also
+        ``correct5`` (``train=False``: the objective is the CE)."""
+        layers = self.chunk_layers(c)
+        x = cast_input(x, self.compute_dtype)
+        out: Dict[str, Optional[torch.Tensor]] = {"y": None}
+        if c < self.num_chunks - 1:
+            out["y"] = apply_chunk(layers, x, self.compute_dtype, params,
+                                   update_stats)
+            out["aux"] = chunk_aux(layers)
+            return out
+        if self.fused and train:
+            obj_sum, ce_sum, correct, valid = fused_chunk_loss_sums(
+                layers, x, labels, self.compute_dtype, self.smoothing,
+                params, update_stats)
+            denom = valid.clamp(min=1).float()
+            obj, ce = obj_sum / denom, ce_sum / denom
+        elif self.fused:
+            ce_sum, correct, correct5, valid = fused_chunk_eval_sums(
+                layers, x, labels, self.compute_dtype)
+            obj = ce = ce_sum / valid.clamp(min=1).float()
+            out["correct5"] = correct5
+        else:
+            logits = apply_chunk(layers, x, self.compute_dtype, params,
+                                 update_stats)
+            ce = cross_entropy_loss(logits, labels)
+            obj = (cross_entropy_loss(logits, labels, self.smoothing)
+                   if train and self.smoothing else ce)
+            correct = correct_and_count(logits, labels)[0]
+            if not train:
+                out["correct5"] = correct_topk(logits, labels)
+        aux = chunk_aux(layers)
+        if train and aux is not None:
+            obj = obj + self.aux_weight * aux
+        out.update(aux=aux, obj=obj, ce=ce, correct=correct)
+        return out
+
+    def _aux_part(self, out) -> Optional[torch.Tensor]:
+        return (None if out["aux"] is None
+                else self.aux_weight * out["aux"])
+
+    def _forward_order(self) -> List[Tuple[int, int]]:
+        """(chunk, microbatch) of every forward event, in the fill-drain
+        table's tick order."""
+        tv, tm, valid = self._fill_drain.forward_tick_arrays()
+        S = self.num_stages
+        return [(int(tv[t, s]) * S + s, int(tm[t, s]))
+                for t in range(tv.shape[0]) for s in range(S)
+                if valid[t, s]]
+
+    # -- the step ------------------------------------------------------------
+
+    def _grads(self, c: int) -> List[torch.Tensor]:
+        return [torch.zeros_like(p) if p.grad is None else p.grad
+                for p in self.chunk_params(c)]
+
+    def _update(self, c: int, grads: Sequence[torch.Tensor],
+                lr: float) -> None:
+        """Chunk c's optimizer update with ``grads`` (float32)."""
+        params = self.chunk_params(c)
+        if not params:
+            return
+        with torch.no_grad():
+            new, self.opt[c] = self._opt_update(
+                [p.detach() for p in params], list(grads), self.opt[c], lr)
+            torch._foreach_copy_([p.detach() for p in params], list(new))
+
+    def train_step(self, x: torch.Tensor, y: torch.Tensor,
+                   lr: float) -> Dict[str, torch.Tensor]:
+        """One fill-drain step on the global batch (x, y) at ``lr``;
+        returns {"loss": the unsmoothed CE, "accuracy": top-1 over valid
+        labels}."""
+        xs, ys = self.shard_batch(x, y)
+        self.model.train()
+        M, C = self.num_microbatches, self.num_chunks
+        for c in range(C):
+            for p in self.chunk_params(c):
+                p.grad = None
+        remat = self.cfg.remat_stages
+        order = self._forward_order()
+        acts: Dict[Tuple[int, int], torch.Tensor] = {}
+        stash: Dict[Tuple[int, int], torch.Tensor] = {}
+        parts: List[torch.Tensor] = []
+        ce_acc = correct = None
+        with torch.no_grad() if remat else contextlib.nullcontext():
+            for c, m in order:
+                xin = xs[m] if c == 0 else acts.pop((c - 1, m))
+                if remat:
+                    stash[(c, m)] = xin
+                out = self._chunk_obj(c, xin, ys[m] if c == C - 1 else None)
+                if c < C - 1:
+                    acts[(c, m)] = self._send(out["y"], c + 1)
+                    aux = self._aux_part(out)
+                    if aux is not None:
+                        parts.append(aux)
+                else:
+                    parts.append(out["obj"])
+                    ce_acc = (out["ce"] if ce_acc is None
+                              else ce_acc + out["ce"])
+                    correct = (out["correct"] if correct is None
+                               else correct + out["correct"])
+        if remat:
+            self._remat_backward(order, stash, ys)
+        else:
+            last = self.chunk_device(C - 1)
+            torch.stack([p.to(last) for p in parts]).sum().div(M).backward()
+        for c in range(C):
+            self._update(c, self._grads(c), lr)
+        valid = sum((t >= 0).sum() for t in ys)
+        return {"loss": ce_acc.detach() / M,
+                "accuracy": correct.float() / valid.clamp(min=1).float()}
+
+    def _remat_backward(self, order, stash, ys) -> None:
+        """The fill-drain backward: the forward events in reverse, each
+        chunk recomputed from its stashed input (running statistics
+        frozen), seeded with the downstream cotangent and 1/M for its
+        objective part; parameter gradients accumulate in ``.grad``."""
+        M, C = self.num_microbatches, self.num_chunks
+        seed = 1.0 / M
+        cots: Dict[Tuple[int, int], torch.Tensor] = {}
+        for c, m in reversed(order):
+            xin = stash.pop((c, m))
+            needs_x = c > 0
+            if needs_x:
+                xin = xin.detach().requires_grad_(True)
+            with torch.enable_grad():
+                out = self._chunk_obj(c, xin, ys[m] if c == C - 1 else None,
+                                      update_stats=False)
+                if c == C - 1:
+                    tensors, grads = [out["obj"]], [torch.full_like(
+                        out["obj"], seed)]
+                else:
+                    tensors, grads = [out["y"]], [cots.pop((c, m))]
+                    aux = self._aux_part(out)
+                    if aux is not None:
+                        tensors.append(aux)
+                        grads.append(torch.full_like(aux, seed))
+                keep = [i for i, t in enumerate(tensors) if t.requires_grad]
+                if keep:  # none: a first chunk without parameters
+                    torch.autograd.backward([tensors[i] for i in keep],
+                                            [grads[i] for i in keep])
+            if needs_x:
+                g = (torch.zeros_like(xin) if xin.grad is None
+                     else xin.grad)
+                cots[(c - 1, m)] = self._send(g, c - 1)
+
+    def eval_step(self, x: torch.Tensor,
+                  y: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The fill-drain forward in eval mode: {loss (the mean of the
+        microbatches' mean CEs), correct, correct5, count}."""
+        xs, ys = self.shard_batch(x, y)
+        self.model.eval()
+        M, C = self.num_microbatches, self.num_chunks
+        acts: Dict[Tuple[int, int], torch.Tensor] = {}
+        loss = correct = correct5 = None
+        with torch.no_grad():
+            for c, m in self._forward_order():
+                xin = xs[m] if c == 0 else acts.pop((c - 1, m))
+                out = self._chunk_obj(c, xin, ys[m] if c == C - 1 else None,
+                                      train=False)
+                if c < C - 1:
+                    acts[(c, m)] = self._send(out["y"], c + 1)
+                    continue
+                loss = out["ce"] if loss is None else loss + out["ce"]
+                correct = (out["correct"] if correct is None
+                           else correct + out["correct"])
+                correct5 = (out["correct5"] if correct5 is None
+                            else correct5 + out["correct5"])
+        count = sum((t >= 0).sum() for t in ys)
+        return {"loss": loss / M, "correct": correct, "correct5": correct5,
+                "count": count}

@@ -509,7 +509,7 @@ def run_closed_loop(server, reqs, concurrency: int, resizes=None,
 
 # the reference's flags that wait for a later slice -> the ROADMAP item
 NOT_PORTED_FLAGS = {
-    "--serve-tp": "A.7: a tp > 1 replica needs tp devices",
+    "--serve-tp": "A.7b: a tp > 1 replica needs tp devices",
     "--paged-kernel": "A.8: the Pallas kernels' math formulations",
     "--audit": "A.8: telemetry/audit.py",
 }

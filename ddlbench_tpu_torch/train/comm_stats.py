@@ -1,5 +1,6 @@
 """Per-step communication volume (``ddlbench_tpu/train/comm_stats.py``),
-for the strategies the port carries: ``single`` (none) and ``dp``.
+for the strategies the port carries: ``single`` (none), ``dp`` and the
+pipelines.
 
 The numbers are analytic, from the strategy's world, its wire dtype and
 its model's float32 parameter bytes, as the reference computes them (its
@@ -13,14 +14,25 @@ counterpart of PipeDream's RuntimeStats):
   padded flat vector the explicit engine ships; the explicit engines
   (sharded, bucketed or a narrowed wire) also report ``comm_buckets`` and
   ``wire_dtype``, and the int8 wire the all-reduced f32 scale of each
-  bucket (``scale_bytes``).
-
-The other strategies' branches wait for the pipelines (ROADMAP A.7).
+  bucket (``scale_bytes``);
+* gpipe, the event schedules and pipedream (one replica per stage):
+  every microbatch crosses every interior stage boundary twice (its
+  activation forward, its gradient backward) in the compute dtype. The
+  reference reckons the boundaries at the first S chunk bounds (at
+  V > 1 as at V 1); gpipe's ``physical_boundary_bytes`` prices the
+  reference's conveyor: the largest boundary activation of one
+  microbatch (``_act_size``) over each of the S-1 links, forward and
+  back, on each of the M*V + S - 1 ticks. The port's pipelines ship only
+  the real boundaries; the figure is the reference's, kept for the line's
+  parity.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
+
+import torch
 
 _ITEMSIZE = {"float32": 4, "bfloat16": 2, "int8": 1}
 
@@ -66,9 +78,25 @@ def comm_stats(strategy) -> Dict[str, float]:
                 if wire == "int8":
                     out["scale_bytes"] = _ring_allreduce_bytes(
                         4.0 * meta.num_buckets, r)
+    elif name in ("GPipeStrategy", "ScheduledPipelineStrategy",
+                  "PipeDreamStrategy"):
+        itemsize = torch.empty((), dtype=strategy.compute_dtype
+                               ).element_size()
+        M, mb = strategy.num_microbatches, strategy.mb
+        bounds, shapes = strategy.bounds, strategy.shapes
+        S = strategy.num_stages
+        boundary = 0.0
+        for s in range(1, S):
+            act = mb * math.prod(shapes[bounds[s]]) * itemsize
+            boundary += 2.0 * M * act  # activation fwd + gradient bwd
+        out["boundary_bytes"] = boundary
+        if name == "GPipeStrategy":
+            V = strategy.num_chunks // S
+            T = M * V + S - 1
+            out["physical_boundary_bytes"] = (
+                2.0 * T * (S - 1) * strategy._act_size * itemsize)
     elif name != "SingleStrategy":
-        raise NotImplementedError(
-            f"comm_stats of {name} is not ported (ROADMAP A.7)")
+        raise NotImplementedError(f"comm_stats of {name} is not ported")
     out["total_bytes"] = (out["boundary_bytes"] + out["allreduce_bytes"]
                           + out["reduce_scatter_bytes"]
                           + out["all_gather_bytes"])

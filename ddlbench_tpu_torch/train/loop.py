@@ -12,7 +12,10 @@ statistics and a fresh optimizer, then runs ``cfg.epochs`` epochs of
 ``steps_per_epoch`` steps at the step-decay learning rate
 (``lr_step_gamma`` every ``lr_step_epochs`` epochs), logging every
 ``log_interval`` steps and at the epoch's end, and validates once per
-epoch on the test split. Under ``dp`` with SGD the base rate is scaled by
+epoch on the test split. A pipeline's step takes micro_batch_size x
+num_microbatches rows (``cfg.global_batch``) and makes its own updates
+(one a step, or one a microbatch under pipedream) at the rate it is
+given. Under ``dp`` with SGD the base rate is scaled by
 the world and by ``grad_accum_steps`` (Horovod's linear scaling, the
 reference's ``_scaled_lr``; Adam's is not), ``warmup_epochs`` ramps it per
 step (``gradual_warmup_lr``), every rank makes the same global batch and
@@ -53,15 +56,18 @@ from ddlbench_tpu_torch.parallel.api import make_strategy
 from ddlbench_tpu_torch.parallel.common import (gradual_warmup_lr,
                                                 step_decay_lr)
 from ddlbench_tpu_torch.parallel.dp import DPStrategy
+from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
 from ddlbench_tpu_torch.parallel.single import SingleStrategy
 from ddlbench_tpu_torch.telemetry.stats import latency_summary
 from ddlbench_tpu_torch.train.comm_stats import comm_line, comm_stats
 from ddlbench_tpu_torch.train.metrics import MetricLogger
 
-Strategy = Union[SingleStrategy, DPStrategy]
+Strategy = Union[SingleStrategy, DPStrategy, GPipeStrategy]
 
 
 def _device_of(strategy: Strategy) -> torch.device:
+    """Where the batches are made: the model's first layer's device (a
+    pipeline's first stage)."""
     return next(strategy.model.parameters()).device
 
 

@@ -8,6 +8,8 @@ mma.sync), read from chip_smoke.py's constants and the sources. Runs on the
 CPU: nothing is compiled.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import importlib.util
 import re
 from pathlib import Path

@@ -14,6 +14,8 @@ reference in test_torch_data.py):
   depth 2 and inline: the consumer waits for each upload.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import pytest
 import torch
 

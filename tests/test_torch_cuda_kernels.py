@@ -33,6 +33,8 @@ max abs; in bfloat16 each dh row and each dW column within 2^-6 relative L2
 only at a near-tie (the two top logits within 1e-3).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import pytest
 import torch
 
@@ -721,3 +723,76 @@ def test_forced_flash_raises_on_head_dim_8(dev):
             causal_attention(q, q, q)
     finally:
         set_attention_backend("auto")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("needs", ["dh", "dw"])
+def test_fused_xent_one_sided_backward_matches_plain(dev, dtype, needs):
+    """The pipelines' split backward (parallel/pipeline_rt.py): with only
+    h needing its gradient the head's backward launches the dh kernel
+    alone (a B event), with only w the dW kernel alone (a W event); each
+    is held to the plain version's gradient on the same inputs, at the
+    tolerances of the module docstring."""
+    h, w, labels = _fx_case(dev, dtype, 1000, 512, 2048, "synthmt", 11)
+    s = 0.1
+    ht = h.clone().requires_grad_(needs == "dh")
+    wt = w.clone().requires_grad_(needs == "dw")
+    before = (fx.fxent_dh.launches, fx.fxent_dw.launches)
+    obj = fx.fused_linear_xent(ht, wt, labels, s)[0]
+    (got,) = torch.autograd.grad(obj, [ht if needs == "dh" else wt])
+    torch.cuda.synchronize()
+    assert (fx.fxent_dh.launches - before[0],
+            fx.fxent_dw.launches - before[1]) == (
+        (1, 0) if needs == "dh" else (0, 1))
+    lse = fx._fxent_fwd_ref(h, w, labels)[0]
+    V = w.shape[1]
+    coef = torch.tensor([1.0, 1.0 - s, s / V], device=dev)
+    ref = (fx._fxent_dh_ref if needs == "dh" else fx._fxent_dw_ref)(
+        h, w, labels, lse, coef)
+    assert got.dtype == dtype and got.shape == ref.shape
+    if dtype == torch.float32:
+        assert (got - ref).abs().max().item() <= 1e-4
+    elif needs == "dh":
+        assert _row_rel_err(got, ref) <= 2.0 ** -6
+    else:
+        assert _col_rel_err(got, ref) <= 2.0 ** -6
+
+
+def test_zero_bubble_splits_the_head_kernels_on_the_card(dev):
+    """transformer_t (T 32, vocab 64; head dim 8 takes the plain
+    attention, the fused head D 32 its kernels) under gpipe zero-bubble
+    on two stages of the one card: dh and dW launch once per microbatch
+    each, and the step's loss and parameters agree with the same step on
+    the CPU (float32: rtol 1e-4, atol 1e-6, the kernels sum in other
+    orders than the plain versions)."""
+    import copy
+
+    from ddlbench_tpu_torch.config import DatasetSpec, RunConfig
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.parallel.pipeline_rt import (
+        ScheduledPipelineStrategy)
+
+    spec = DatasetSpec("tinylm", (32,), 64, 1000, 100, kind="tokens")
+    cfg = RunConfig(benchmark="synthtext", arch="transformer_t",
+                    strategy="gpipe", num_devices=2,
+                    pipe_schedule="zero-bubble", micro_batch_size=2,
+                    num_microbatches=4, compute_dtype="float32")
+    model = get_model("transformer_t", spec, seed=0)
+    g = torch.Generator().manual_seed(3)
+    seq = torch.randint(0, 64, (8, 33), generator=g)
+    x, y = seq[:, :-1], seq[:, 1:]
+    out = {}
+    for where in ("cpu", "cuda"):
+        d = torch.device(where)
+        s = ScheduledPipelineStrategy(copy.deepcopy(model).to(d), cfg,
+                                      [d, d])
+        s.init()
+        before = (fx.fxent_dh.launches, fx.fxent_dw.launches)
+        loss = float(s.train_step(x.to(d), y.to(d), 0.05)["loss"])
+        launched = (fx.fxent_dh.launches - before[0],
+                    fx.fxent_dw.launches - before[1])
+        out[where] = (loss, s.materialize_params(), launched)
+    assert out["cuda"][2] == (4, 4) and out["cpu"][2] == (0, 0)
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
+                               atol=1e-6)

@@ -20,6 +20,8 @@
 * A missing PIL and a failed loader build raise.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import gzip
 import itertools
 import json

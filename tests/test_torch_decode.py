@@ -17,6 +17,8 @@ greedy_decode (tests/test_serve.py's oracle), and an int8 cache is
 refused (ROADMAP C.10).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -12,6 +12,8 @@ accuracy >= 0.95, greedy equal to the full-forward greedy) and the noisy
 variant (token accuracy within 0.05 of the Bayes ceiling, below 1).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import unittest.mock as mock
 

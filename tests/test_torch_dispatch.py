@@ -14,6 +14,8 @@ device is enough for the predicates and the dispatch functions, which
 read nothing else.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import pytest
 import torch
 

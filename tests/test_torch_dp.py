@@ -27,6 +27,8 @@ CLI, whose rank 0 alone prints the records and the reference's comm
 volume.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 
 import jax
@@ -215,6 +217,12 @@ def test_loop_lr_matches_jax(ranks, kw):
     assert got[0] == got[1]
     np.testing.assert_allclose(got[0], want, rtol=1e-7, atol=0)
     assert len(got[0]) == 1 + 2 * 3
+
+
+def test_ranks_run_one_thread_each(ranks):
+    """The pool's gloo ranks each run torch on one thread, so the four
+    share the cores with the other test workers."""
+    assert ranks.run("threads", 4) == [1, 1, 1, 1]
 
 
 def test_cli_dp_end_to_end(capfd, tmp_path, monkeypatch):

@@ -24,6 +24,8 @@ tests/test_dp_shard.py::test_validate_gates and
 tests/test_comm_overlap.py::test_comm_bucket_config_gates.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import dataclasses
 
 import jax

@@ -16,6 +16,8 @@ dp held bit for bit to the reference's functions (no processes).
   tests/test_comm_overlap.py).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,8 @@ holds the reference's kernel against its own einsum): the two sides sum
 in different orders, the reference blockwise with an online softmax.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,8 @@ gradient bar). Both sides run the same float32 math in other summation
 orders. The bfloat16 case has its own stated tolerance.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

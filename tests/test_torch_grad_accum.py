@@ -28,6 +28,8 @@ numbers of valid labels and their weights differ. The loss, the
 atol 1e-6); a planted uniform weighting of the micro-steps breaks it.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,8 @@ that vanishes (the reference's VGG on mnist), and the refusal of per-layer
 remat over BatchNorm.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

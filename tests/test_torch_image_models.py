@@ -18,6 +18,8 @@
   unported knob raises.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import math
 import re
@@ -202,13 +204,13 @@ def test_cli_covers_every_reference_flag():
 
 
 @pytest.mark.parametrize("argv", [["--elastic-slices", "2"],
-                                  ["--micro-batch-size", "4"],
-                                  ["--stages", "2"], ["--checkpoint-dir",
+                                  ["--auto-partition"],
+                                  ["--hbm-gb", "4"], ["--checkpoint-dir",
                                                       "d"],
                                   ["--platform", "cpu"],
                                   ["--trace", "t.json"],
                                   ["--elastic-resume"],
-                                  ["--num-microbatches", "2"]])
+                                  ["--plan", "auto"]])
 def test_cli_refuses_unported_flags_by_name(capsys, argv):
     with pytest.raises(SystemExit):
         cli.main(argv + ["--device", "cpu"])
@@ -219,8 +221,8 @@ def test_cli_refuses_unported_flags_by_name(capsys, argv):
                                    "transformer_moe_s", "-b", "synthtext"],
                                   ["-f", "ep", "-m", "transformer_moe_s",
                                    "-b", "synthtext"],
-                                  ["-f", "pipedream", "-m", "seq2seq_lstm_s",
-                                   "-b", "synthmt"]])
+                                  ["-f", "pipedream", "-g", "2", "-m",
+                                   "nasnet", "-b", "cifar10"]])
 def test_cli_refuses_unported_runs(argv):
     with pytest.raises(NotImplementedError):
         cli.main(argv + ["--device", "cpu"])

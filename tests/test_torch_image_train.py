@@ -27,6 +27,8 @@ rounding step, or 5e-2 relative L2 where that is larger
 break those bars.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import functools
 import types
 

@@ -41,6 +41,8 @@ densenet121, inception, nasnet) held against the JAX reference on the CPU.
   weights and statistics on both sides.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import copy
 import math
 

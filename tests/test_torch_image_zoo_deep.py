@@ -5,6 +5,8 @@ their own so that pytest-xdist's ``--dist loadfile`` runs them beside the
 rest of the zoo's cases rather than after them on one worker.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import pytest
 
 from test_torch_image_zoo import check_step_and_eval

@@ -3,6 +3,8 @@ the CPU, following tests/test_lmbench.py: one row per configuration with
 the reference row's keys, for the four forced cells (flash/xla attention x
 fused head/logits), ``auto``, and a seq2seq (prefix-LM) benchmark."""
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 
 import pytest

@@ -17,6 +17,8 @@ Tolerance in float32: rtol 1e-4, atol 1e-6 (the two sides run the same
 math in different summation orders); bfloat16: atol 2^-6 on O(1) outputs.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -24,6 +24,8 @@ Tolerance in float32: rtol 1e-4, atol 1e-6 (the two sides run the same
 math in different summation orders); tokens equal.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import importlib
 from unittest import mock
 
@@ -424,11 +426,12 @@ def test_remat_layers_refused_for_moe():
 
 @pytest.mark.parametrize("name,value,match", [
     ("param_dtype", "bfloat16", "parameters are float32"),
-    ("remat_stages", False, "ROADMAP A.7")])
+    ("tp_size", 2, "ROADMAP A.7b")])
 def test_schema_only_fields_refuse_what_the_port_does_not_do(name, value,
                                                              match):
-    """param_dtype and remat_stages carry the reference's defaults; any
-    other value is refused, not silently ignored."""
+    """param_dtype and tp_size carry the reference's defaults; any other
+    value is refused, not silently ignored (remat_stages, once refused
+    here, acts on the pipelines: tests/test_torch_gpipe.py)."""
     assert getattr(RunConfig(), name) == getattr(JaxRunConfig(), name)
     RunConfig(benchmark="synthtext", arch="transformer_moe_s",
               **{name: getattr(JaxRunConfig(), name)}).validate()

@@ -24,6 +24,8 @@ attention then sums the rounded values in another order, and each step's
 log-prob can move by a few bfloat16 ulps of the logits.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import math
 
 import jax

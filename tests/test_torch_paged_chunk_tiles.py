@@ -17,6 +17,8 @@ plain version on the card (tests/test_torch_cuda_kernels.py,
 chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import math
 
 import jax.numpy as jnp

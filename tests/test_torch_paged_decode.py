@@ -11,6 +11,8 @@ CUDA kernels themselves are held against the plain versions on the card
 (tests/test_torch_cuda_kernels.py, and chip_smoke.py).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,8 @@ MNIST IDX (data/digits.py), imported into the native store and trained.
   and with ``--no-prefetch``.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import contextlib
 import io
 import json

@@ -14,6 +14,8 @@ Tolerance in float32: rtol 1e-4, atol 1e-6 (tests/test_torch_train.py's):
 the two sides run the same math in different summation orders.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

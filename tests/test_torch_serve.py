@@ -14,6 +14,8 @@ fleet's (replicas, heartbeat) and the SDC ledger's (integrity, scrub)
 validate as the reference's do.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import ast
 import json
 import pathlib

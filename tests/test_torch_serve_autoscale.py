@@ -24,6 +24,8 @@ of tests/test_autoscale.py.
   the tool exits nonzero when an autoscaled run loses a request.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import types
 import unittest.mock as mock

@@ -27,6 +27,8 @@ Virtual-time fields are exact (no tolerance). Besides:
   decisions equal the reference's.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import contextlib
 import io
 import json

@@ -23,6 +23,8 @@ a traced run. Besides:
   for a later slice fail naming their ROADMAP item.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import unittest.mock as mock
 

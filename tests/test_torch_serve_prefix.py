@@ -11,6 +11,8 @@ hit, concurrent full-hit siblings, and cache reclaim under pool pressure.
 The helpers here also serve tests/test_torch_serve_spec.py.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import numpy as np
 import pytest

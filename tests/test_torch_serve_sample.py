@@ -16,6 +16,8 @@ is a planted fault the eviction check must reject. Speculative decoding
 with sampling is refused, as in the reference.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import numpy as np
 import pytest
 

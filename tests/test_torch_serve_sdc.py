@@ -30,6 +30,8 @@ sidecars (the streams fork) and a ``page_checksum`` that leaves out the
 sidecar keys (a sidecar flip escapes).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import contextlib
 import io
 import json

@@ -20,6 +20,8 @@ rows under each new flag.
   a timeout that keeps its pages (the free-list check).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import unittest.mock as mock
 

@@ -15,6 +15,8 @@ servebench row with all four flags equal to the JAX row on every
 virtual-time field.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import random
 import unittest.mock as mock

@@ -18,6 +18,8 @@ counterparts of tests/test_serve_trace.py for one replica.
 * ``snapshot()`` and the flight recorder return the reference's dicts.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import unittest.mock as mock
 

@@ -20,6 +20,8 @@ take seconds).
   the most-loaded replica (the row differs).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import contextlib
 import io
 import json

@@ -17,6 +17,8 @@ on a text corpus and a parallel corpus on the CPU. Each of the six token
 flags reaches RunConfig as the reference's CLI maps it.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import json
 import math
 import os

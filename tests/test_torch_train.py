@@ -17,6 +17,8 @@ math in different summation orders. The bfloat16 case has its own stated
 tolerance (test_bf16_step_matches_jax).
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ GELU, one-pass LayerNorm, q|k|v thirds, NaN-filled out-of-range position
 gathers) are pinned by name.
 """
 
+import torch_threads  # noqa: F401  (first: the test process's threads)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

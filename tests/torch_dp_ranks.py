@@ -244,3 +244,8 @@ def loop_lrs(comm, cfg: dict) -> list:
     strat.train_step = recording
     run_benchmark(rc, strat, warmup_steps=1)
     return lrs
+
+
+def threads(comm) -> int:
+    """The rank's torch intra-op thread count (each rank starts at one)."""
+    return torch.get_num_threads()
