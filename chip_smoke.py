@@ -259,7 +259,12 @@ one JSON line; any failure raises and exits non-zero:
              prefix_len 100, seq2seq_s's own shape (B 64, T 256, prefix
              128: the prefix ends on a 128-key tile) and a 48-row query
              block at offset 952 over 1000 keys (fewer rows than one
-             warpgroup). Tolerance:
+             warpgroup), sp_train's two ring blocks (B 16, 512
+             queries over 512 keys: rank 1's fully visible block at
+             q_offset 512, and the diagonal) and the prefix ring's block
+             above the diagonal (seq2seq_s under sp at world 4: B 64, 64
+             queries at offset 0 over 64 keys at offset 64, prefix 128,
+             visible only through the prefix). Tolerance:
              float32 1e-4 max abs error; bfloat16 1e-4 max abs on the lse
              and, on every output, each row's (one query's or key's dh
              values) L2 error within 2^-6 of that row's L2 norm: four
@@ -275,7 +280,14 @@ one JSON line; any failure raises and exits non-zero:
              give the same bits (no atomics). Then longctx32k: the forward
              at T 32768, B 1, its last 256 rows against the plain version
              of those queries (q_offset T - 256 over the full K/V), and
-             the backward kernels on that query block against theirs. The
+             the backward kernels on that query block against theirs.
+             Last, flash_attention_lse on the kernels against its plain
+             version on the three ring blocks under random cotangents of o
+             and of the lse (which shifts delta), at the same
+             tolerances: in float32 end to end (o, lse, dq, dk, dv); in
+             bfloat16 o and lse, and the backward kernels against the
+             plain backward on the plain forward's lse and shifted delta
+             (shared residuals, as above). The
              kernels table carries each kernel's worst bfloat16 max abs
              error (the training path's type).
 6. flash_times — each flash kernel, its plain version and a PyTorch
@@ -484,7 +496,8 @@ one JSON line; any failure raises and exits non-zero:
              ranks on one card; gloo takes the CUDA tensors of all-reduce
              and broadcast, and reduce-scatter and all-gather go through
              pinned host memory, which the line records), then at world 1
-             over NCCL. transformer_s / synthtext at full width, bf16, the
+             over NCCL in the script's own process (nccl_world1).
+             transformer_s / synthtext at full width, bf16, the
              fused head, "auto" attention, a global batch of 32 rows (16 a
              rank), from one init (seed 0) and one set of batches, three
              steps each of six engine runs: replicated f32, sharded
@@ -546,14 +559,52 @@ one JSON line; any failure raises and exits non-zero:
              mb 24 x M 12 and pipedream at the global 128 (mb 16 x M 8),
              bf16, three steps each: (c) pipedream's first two against the
              replay, as in 17; (e) images/s beside the nvidia-smi line.
+19-21. sp_train, ep_train, fsdp_train — the sharded one-program
+             strategies (parallel/sp.py, ep.py, sharded.py) through
+             make_strategy on spawned ranks: world 2 on the one card over
+             gloo (sp's K/V all-gather, ep's all_to_all, fsdp's
+             reduce-scatter and all-gather staged through pinned host
+             memory), then sp at
+             NCCL world 1. sp: transformer_s / synthtext at full width
+             (T 1 024 in two 512-token shards); ep: transformer_moe_s at
+             capacity factor 8 = E (no drops) and aux weight 0; fsdp:
+             transformer_s; float32 (one compared step) and bfloat16 (one
+             compared step and 3 timed ones), "auto" attention, the fused
+             head, SGD, a global batch of 8 rows. (a) rank 0 holds the
+             step against single's on the same rows: float32, the loss
+             within 1e-5 relative and each leaf's update within 1e-4
+             relative L2; bfloat16, the loss within 2e-3 and each update
+             within max(1e-2, twice single's own bf16-to-f32 distance).
+             ep's float32 step routes by its routers; single's float32
+             step and both bfloat16 compared steps are pinned to that
+             routing (pinned_experts), so every ep gap is rounding, held
+             to the dense cells' bars; the tokens each router would have
+             sent elsewhere are reported.
+             (b) sp's float32 step at depth 2 on the card against the
+             same step of two gloo ranks on the CPU (the plain versions):
+             the loss within 1e-5, each update within 1e-3. (c) every
+             rank's launches: B1-B3 once per attention layer a step
+             times rank + 1 under sp (n(n+1)/2 over the ranks: a causal
+             rank runs its diagonal block and the blocks before it), once
+             under ep and fsdp; B4-B6 once a step; no attention call on
+             the plain path. fsdp: each rank holds half of every layer's
+             packed parameters (plus at most one pad element a layer) and
+             of its optimizer state, and gathers every block and the
+             head again for each step's backward; resnet50 / imagenet in
+             float64 at 4 rows (sync-BN) against single's step on the same
+             rows: the loss, every gradient leaf and every running
+             statistic within 1e-9 relative (IMAGE_F64_RTOL). Losses, ms
+             a step and global tokens/s per cell; the two ranks' losses
+             equal.
 
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
 plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
-train's, moe_train's, lstm_train's, every dp_train rank's and pipe_train's,
-the flash forward's moe_decode's too), the card's name and power
+train's, moe_train's, lstm_train's, every dp_train rank's, pipe_train's
+and every sp_train, ep_train and fsdp_train rank's, the flash forward's
+moe_decode's too), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -656,7 +707,18 @@ FLASH_CASES = (
     (64, 8, 256, 256, 0, 0, 128),  # seq2seq_s: the prefix ends on a tile
     (2, 8, 960, 960, 0, 0, 0),  # a multiple of 64, not of 128
     (2, 8, 48, 1000, 952, 0, 0),  # under one warpgroup of rows, at an offset
+    # sp_train's ring at world 2 (T 1024 in two 512-token shards): rank 1's
+    # fully visible block at absolute offsets, and every rank's diagonal
+    (16, 8, 512, 512, 512, 0, 0),
+    (16, 8, 512, 512, 0, 0, 0),
+    # the prefix ring of seq2seq_s / synthmt at world 4 (T 256 in 64-token
+    # shards, prefix 128): rank 0's queries see rank 1's block, above the
+    # diagonal, only through the prefix
+    (64, 8, 64, 64, 0, 64, 128),
 )
+# flash_attention_lse with a random lse cotangent (the delta shift) on
+# the rings' three block shapes above, against its plain version
+FLASH_LSE_CASES = FLASH_CASES[-3:]
 # the flash library's kernels by name (the build phase's report), and the
 # bfloat16 ones that must be compiled to wgmma (HGMMA) and TMA (UTMALDG)
 FLASH_BUILT = ("flash_fwd_wgmma", "flash_dkv_wgmma", "flash_dq_wgmma",
@@ -3123,11 +3185,61 @@ def phase_flash_kernels(torch, fa, dev):
                                do[:, :, qo:].contiguous(), qo, 0, 0,
                                fwd=tail)
     record(["longctx32k", 1, H, LONG_T, LONG_T, qo, 0, 0], dtype, errs)
+    del q, k, v, do, o, lse, tail
+    lse_checks = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_LSE_CASES:
+            errs = flash_lse_compare(torch, fa, gen, dev, dtype, case)
+            lse_checks.append({"case": list(case),
+                               "dtype": str(dtype).split(".")[-1], **errs})
+            for name, e in errs.items():
+                if not e["ok"]:
+                    raise AssertionError(f"flash_attention_lse {name} {case} "
+                                         f"{dtype}: {e}")
+                if dtype == torch.bfloat16 and name in worst:
+                    worst[name] = max(worst[name], e["max_abs_err"])
+    torch.cuda.empty_cache()
     emit({"phase": "flash_kernels", "float32_max_abs_tol": FLASH_TOL,
           "bfloat16_row_rel_tol": BF16_ROW_RTOL, "checks": checks,
+          "lse_cotangent_checks": lse_checks,
           "planted_faults": faults, "reruns_bitwise_equal": reruns})
     return worst
 
+
+def flash_lse_compare(torch, fa, gen, dev, dtype, case):
+    """flash_attention_lse (the kernels B1-B3) against its plain version
+    on one block, under random cotangents of o and of the lse (the lse's
+    shifts delta), each as flash_errs measures it. float32: the two
+    autograd Functions end to end, o, lse, dq, dk and dv. bfloat16: o
+    and lse, and the backward kernels against the plain backward on the
+    plain forward's lse and shifted delta (rowsum(dO * O) - g_lse): the
+    row bar assumes shared residuals, as flash_compare's do (the rows
+    seeing few keys have a dq that is almost only the shift, and two
+    bf16 roundings of O move their delta by more)."""
+    B, Hh, Tq, Tk, qo, ko, pre = case
+    q, k, v, do = flash_inputs(torch, gen, dev, dtype, B, Hh, Tq, Tk)
+    g_lse = torch.randn(B, Hh, Tq, generator=gen).to(dev)
+    outs = {}
+    for name, fn in (("kernel", fa.flash_attention_lse),
+                     ("plain", fa.flash_attention_lse_plain)):
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o, lse = fn(qg, kg, vg, qo, ko, pre)
+        grads = torch.autograd.grad((o, lse), (qg, kg, vg), (do, g_lse))
+        outs[name] = (o.detach(), lse.detach(), *grads)
+    (o, lse, dq, dk, dv), (o_r, lse_r, dq_r, dk_r, dv_r) = (outs["kernel"],
+                                                           outs["plain"])
+    if dtype == torch.bfloat16:
+        delta = (do.float() * o_r.float()).sum(-1) - g_lse
+        dq = fa.flash_dq(q, k, v, do, lse_r, delta, qo, ko, pre)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse_r, delta, qo, ko, pre)
+        dq_r = fa._flash_dq_ref(q, k, v, do, lse_r, delta, qo, ko, pre)
+        dk_r, dv_r = fa._flash_dkv_ref(q, k, v, do, lse_r, delta, qo, ko,
+                                       pre)
+    torch.cuda.synchronize()
+    lse_err = (lse - lse_r).abs().max().item()
+    return {"flash_fwd": flash_errs(torch, ((o, o_r),), lse_err),
+            "flash_dq": flash_errs(torch, ((dq, dq_r),)),
+            "flash_dkv": flash_errs(torch, ((dk, dk_r), (dv, dv_r)))}
 
 def flash_bound(name, B, Hh, T, dtype_bytes):
     """(bound_ms, bound_by) of one causal call at [B, H, T, 64]: each
@@ -5150,6 +5262,24 @@ def dp_image_f64(torch, comm):
     return rec
 
 
+def nccl_world1(fn):
+    """``fn(comm)`` on an NCCL group of one rank in this process (a spawn
+    costs tens of seconds of start-up), joined through a rendezvous file
+    and left after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ddlbench_tpu_torch import distributed
+
+    with tempfile.TemporaryDirectory(prefix="ddlb_nccl1_") as tmp:
+        comm = distributed.init_rank(0, 1, os.path.join(tmp, "rdv"), "cuda")
+        try:
+            return fn(comm)
+        finally:
+            dist.destroy_process_group()
+
+
 def dp_shared_rank(comm):
     """A rank of the world-2 shared-card run: dp_train's engines and
     dp_image's float64 check."""
@@ -5257,8 +5387,9 @@ def dp_nccl_rank(comm):
 
 def phase_dp(torch):
     """Phases 15-16 (module docstring): the world-2 shared-card ranks,
-    then the world-1 NCCL rank. Emits dp_train and dp_image and returns
-    the B1-B6 launches of every rank's main-path steps."""
+    then the world-1 NCCL rank in this process. Emits dp_train and
+    dp_image and returns the B1-B6 launches of every rank's main-path
+    steps."""
     from ddlbench_tpu_torch import distributed
 
     gc.collect()
@@ -5266,7 +5397,7 @@ def phase_dp(torch):
     t0 = time.perf_counter()
     shared = distributed.spawn(dp_shared_rank, 2, "cuda", shared_card=True)
     t1 = time.perf_counter()
-    (nccl,) = distributed.spawn(dp_nccl_rank, 1, "cuda")
+    nccl = nccl_world1(dp_nccl_rank)
     t2 = time.perf_counter()
     per_step = {**{n: LAYERS for n in FLASH_KERNELS},
                 **{n: 1 for n in FX_KERNELS}}
@@ -5319,8 +5450,8 @@ def phase_dp(torch):
               for r in shared},
           "bitwise_b": {n: r0[n]["params_bitwise"]
                         for n in ("sharded", "overlapped")},
-          "checks": checks, "spawn_s": {"shared": t1 - t0,
-                                        "nccl": t2 - t1}})
+          "checks": checks, "seconds": {"shared_spawn": t1 - t0,
+                                        "nccl_world1": t2 - t1}})
     f64 = shared[0]["image_f64"]
     image_checks = {"f64_sync_bn_vs_single": f64["ok"],
                     "resnet50_finite": all(v["finite"] for k, v in
@@ -5740,6 +5871,500 @@ def phase_pipe_image(torch, dev):
         raise AssertionError(f"pipeline image checks failed: {failed}")
 
 
+# ---- 19-21: the sharded one-program strategies (sp, ep, fsdp) ----------
+SHARD_TOKEN = ("transformer_s", "synthtext")
+SHARD_MOE = ("transformer_moe_s", "synthtext")
+SHARD_IMAGE = ("resnet50", "imagenet")
+SHARD_ROWS = 8  # the global batch of every token row (4 a rank under ep/fsdp)
+SHARD_IMAGE_ROWS = 4  # resnet50's float64 global batch (2 a rank)
+SHARD_TIMED = 3  # timed bfloat16 steps after the compared one
+SHARD_LR = 0.01
+SHARD_CUT = 2  # sp (b): transformer_s cut to its first 2 blocks,
+SHARD_CUT_ROWS, SHARD_CUT_T = 1, 256  # one 256-token row
+SHARD_COUNTERS = tuple(FLASH_KERNELS) + tuple(FX_KERNELS)
+# The bars of (a), the sharded step's loss and reduced gradient against
+# single's on the same rows (ep's compared steps pinned to one routing,
+# shard_token_cell). The gradient, not the update: an SGD update measured
+# as parameters after minus before carries the float32 rounding of the
+# new parameters, a floor of about one ulp of the weight against lr x
+# grad, and single (torch.optim) and the sharded strategies
+# (common.flat_optimizer) round it differently from equal gradients
+# (vs_single's "optimizer_rounding" measures that floor). float32:
+# the loss within SHARD_F32_LOSS relative and each leaf's gradient
+# within SHARD_F32_GRAD relative L2, only the order of the sums
+# differing (a misrouted gradient is O(1)); bfloat16: the loss within
+# SHARD_BF16_LOSS and each leaf's gradient within SHARD_BF16_FLOOR or
+# twice single's own bfloat16 distance to its float32 gradient (the ring
+# combines bf16-rounded block outputs, and bf16 rounds a 4-row step apart
+# from an 8-row one), whichever is larger. fsdp's resnet50 step in
+# float64 with sync-BN: the loss, every gradient leaf and every running
+# statistic within IMAGE_F64_RTOL of single's (dp_image's check). (b) sp
+# on the card against the same step of gloo ranks on the CPU (the plain
+# versions, the same optimizer on both), float32, depth SHARD_CUT: the
+# loss within SHARD_F32_LOSS, each update within SHARD_CPU_UPDATE.
+SHARD_F32_LOSS, SHARD_F32_GRAD = 1e-5, 1e-4
+SHARD_BF16_LOSS, SHARD_BF16_FLOOR = 2e-3, 1e-2
+SHARD_CPU_UPDATE = 1e-3
+
+
+def shard_cfg(strategy, world, arch, bench, dtype, rows, **kw):
+    from ddlbench_tpu_torch.config import RunConfig
+
+    per = rows if strategy in ("sp", "single") else rows // world
+    return RunConfig(benchmark=bench, arch=arch, strategy=strategy,
+                     num_devices=world, batch_size=per, compute_dtype=dtype,
+                     attention_backend="auto", seed=0, optimizer="sgd",
+                     moe_aux_weight=0.0, moe_capacity_factor=8.0, **kw)
+
+
+def shard_batches(torch, cfg, rows, n, dev, seed=0):
+    """``n`` global batches of ``rows`` rows of cfg's data, made on the
+    CPU (the same tokens for the card and the CPU ranks) and moved."""
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+
+    data = make_synthetic(cfg.dataset(), rows, torch.device("cpu"),
+                          seed=seed)
+    out = []
+    for i in range(n):
+        x, y = data.batch(0, i)
+        if x.dim() == 4:
+            x = x.contiguous(memory_format=torch.channels_last)
+        out.append((x.to(dev), y.to(dev)))
+    return out
+
+
+def named_of(strategy):
+    if hasattr(strategy, "named_params"):
+        return {k: v.detach().float().clone()
+                for k, v in strategy.named_params().items()}
+    return {f"{i}.{n}": p.detach().float().clone()
+            for i, layer in enumerate(strategy.model.layers)
+            for n, p in layer.named_parameters()}
+
+
+def update_of(torch, strategy, batch, lr):
+    """One train step's (loss, {name: update}) on ``batch``."""
+    before = named_of(strategy)
+    m = strategy.train_step(*batch, lr)
+    loss = m["loss"].item()
+    after = named_of(strategy)
+    return loss, {k: after[k] - before[k] for k in before}
+
+
+def worst_update(torch, got, want):
+    """(the largest relative L2 distance of a leaf of ``got`` from
+    ``want``'s, that leaf's name)."""
+    return max((rel_l2(torch, got[k], want[k]), k) for k in want)
+
+
+def grads_of(torch, strategy, batch):
+    """The sharded step's forward and backward on ``batch`` without the
+    update (``reduced_grads``): (the loss, {"<layer>.<name>": the whole
+    gradient, summed over the ranks}), sharded pieces all-gathered (a
+    collective every rank calls)."""
+    m, grads = strategy.reduced_grads(*batch)
+    out = {}
+    if hasattr(strategy, "shards"):  # fsdp: one flat shard a layer
+        for i, g in enumerate(grads):
+            if strategy.lengths[i]:
+                full = strategy.comm.all_gather(g.contiguous())
+                out.update({f"{i}.{n}": t.detach().clone() for n, t in
+                            strategy._views(i, full).items()})
+    else:
+        for (n, _), g in zip(strategy._named(), grads):
+            if strategy._is_sharded(n):
+                g = strategy._gather_sharded(n, g)
+            out[n] = g.detach().clone()
+    return m["loss"].item(), out
+
+
+def single_grads(torch, single, batch):
+    """single's loss and gradients on ``batch`` (loss_and_grads, no
+    update), by "<layer>.<name>"."""
+    from ddlbench_tpu_torch.parallel.common import loss_and_grads
+
+    ce, _, grads = loss_and_grads(single.model, single.cfg, *batch,
+                                  single.compute_dtype, single.smoothing)
+    names = [f"{i}.{n}" for i, layer in enumerate(single.model.layers)
+             for n, _ in layer.named_parameters()]
+    return ce.item(), {n: g.detach().clone() for n, g in zip(names, grads)}
+
+
+def optimizer_rounding(torch, single, s_grads, grads, lr):
+    """The float32 floor of an update comparison, from single's
+    parameters: the worst leaf's relative L2 distance (and the leaf)
+    between the update common.flat_optimizer (the sharded strategies')
+    makes and the one torch.optim (single's) makes, on single's gradients
+    for both ("same_gradients") and on the sharded step's ``grads`` and
+    single's ``s_grads`` respectively ("own_gradients": what comparing
+    the two train steps' updates would measure)."""
+    from ddlbench_tpu_torch.parallel.common import (flat_optimizer,
+                                                    make_optimizer)
+
+    before = named_of(single)
+    names = list(before)
+    init, update = flat_optimizer(single.cfg)
+
+    def flat_update(gs):
+        ps = [before[n].clone() for n in names]
+        new, _ = update(ps, [gs[n].float() for n in names], init(ps), lr)
+        return {n: t - before[n] for n, t in zip(names, new)}
+
+    qs = [torch.nn.Parameter(before[n].clone()) for n in names]
+    opt = make_optimizer(single.cfg, qs)
+    for q, n in zip(qs, names):
+        q.grad = s_grads[n].float().clone()
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    torch_update = {n: q.detach() - before[n] for n, q in zip(names, qs)}
+    return {"same_gradients": worst_update(torch, flat_update(s_grads),
+                                           torch_update),
+            "own_gradients": worst_update(torch, flat_update(grads),
+                                          torch_update)}
+
+
+def routing_of(torch, strategy):
+    """Each MoE block's routing in its last forward: (the experts, one
+    [S] tensor a block, and how many tokens the router's own argmax
+    would have sent elsewhere, a count a block: nonzero only under
+    pinned_experts)."""
+    from ddlbench_tpu_torch.models.moe import moe_blocks
+
+    routes = [b.last_route for b in moe_blocks(strategy.model)]
+    return ([r.expert.clone() for r in routes],
+            [int((r.probs.argmax(-1) != r.expert).sum()) for r in routes])
+
+
+def shard_run(torch, comm, strategy, model, dtype, rows, batches, pin=()):
+    """The sharded main path on this rank: make_strategy, the counters
+    zeroed, one compared step (grads_of: the forward and backward, its
+    MoE blocks pinned to ``pin``'s experts where given, pinned_experts)
+    and the timed train steps: (loss, gradients, launches, plain-path
+    calls, ms per timed step, the strategy, the compared step's
+    routing_of or None for a dense model)."""
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    cfg = shard_cfg(strategy, comm.world, *model, dtype, rows)
+    strat = make_strategy(cfg, comm.device, comm)
+    counters = dp_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    plain0 = fa.flash_attention.plain_launches
+    with (pinned_experts(torch, pin) if pin else contextlib.nullcontext()):
+        loss, grads = grads_of(torch, strat, batches[0])
+    routing = routing_of(torch, strat) if strategy == "ep" else None
+    ms = []
+    for x, y in batches[1:]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        strat.train_step(x, y, SHARD_LR)["loss"].item()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return (loss, grads, {n: fn.launches for n, fn in counters.items()},
+            fa.flash_attention.plain_launches - plain0, ms, strat, routing)
+
+
+def vs_single(torch, comm, model, dtype, rows, batch, loss, grads,
+              ref=None, pin=()):
+    """(a) on rank 0: the sharded step's loss and gradients against
+    single's on the same rows (the bars above), single's MoE blocks
+    pinned to ``pin``'s experts where given; ``ref`` is single's float32
+    gradients, the bfloat16 bar's reference. Returns (record, single's
+    gradients)."""
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    single = make_strategy(shard_cfg("single", 1, *model, dtype, rows),
+                           comm.device)
+    with (pinned_experts(torch, pin) if pin else contextlib.nullcontext()):
+        s_loss, s_grads = single_grads(torch, single, batch)
+    rec = {"loss": loss, "loss_single": s_loss,
+           "loss_rel": abs(loss - s_loss) / abs(s_loss)}
+    if pin:
+        rec["single_own_router_flips"] = routing_of(torch, single)[1]
+    rec["worst_grad_rel_l2"], rec["worst_grad_leaf"] = worst_update(
+        torch, grads, s_grads)
+    if dtype == "float32":
+        # reported, not a bar: why (a) compares gradients
+        rec["optimizer_rounding"] = optimizer_rounding(
+            torch, single, s_grads, grads, SHARD_LR)
+        del single
+        torch.cuda.empty_cache()
+        rec["ok"] = (rec["loss_rel"] <= SHARD_F32_LOSS
+                     and rec["worst_grad_rel_l2"] <= SHARD_F32_GRAD)
+        return rec, s_grads
+    del single
+    torch.cuda.empty_cache()
+    rec["single_bf16_vs_f32_worst_grad_rel_l2"] = worst_update(
+        torch, s_grads, ref)[0]
+    # reported, not a bar: the sharded bf16 step's own distance to
+    # single's float32 gradients
+    rec["bf16_vs_single_f32_worst_grad_rel_l2"] = worst_update(
+        torch, grads, ref)
+    rec["grad_bar"] = max(SHARD_BF16_FLOOR,
+                          2 * rec["single_bf16_vs_f32_worst_grad_rel_l2"])
+    rec["ok"] = (rec["loss_rel"] <= SHARD_BF16_LOSS
+                 and rec["worst_grad_rel_l2"] <= rec["grad_bar"])
+    return rec, s_grads
+
+
+def shard_steps(dtype):
+    """Steps a cell runs: float32 only its compared one."""
+    return 1 if dtype == "float32" else 1 + SHARD_TIMED
+
+
+def shard_token_cell(torch, comm, strategy, model, tokens):
+    """One strategy's token cell on this rank, float32 then bfloat16 (the
+    float32 single gradients are the bfloat16 bar's reference): shard_run
+    and (a) on rank 0, with the seconds each took. ep: the float32 ep step
+    routes by its own routers, and the three compared steps after it
+    (single's float32, ep's and single's bfloat16) are pinned to that
+    routing (each rank's tokens its own, single's all of them, gathered),
+    so the four compute one function and differ by rounding alone."""
+    out, ref, local, whole = {}, None, (), ()
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        batches = shard_batches(torch, shard_cfg(strategy, comm.world,
+                                                 *model, dtype, SHARD_ROWS),
+                                SHARD_ROWS, shard_steps(dtype), comm.device)
+        loss, grads, launches, plain, ms, strat, routing = shard_run(
+            torch, comm, strategy, model, dtype, SHARD_ROWS, batches, local)
+        rec = {"launches": launches, "plain_launches": plain, "loss": loss}
+        if routing is not None and not local:
+            # the routing every later compared step is pinned to
+            local = routing[0]
+            whole = [comm.all_gather(e) for e in local]
+        elif routing is not None:
+            rec["own_router_flips"] = routing[1]
+        if ms:
+            rec["timed_ms_per_step"] = sum(ms) / len(ms)
+            rec["global_tokens_per_s"] = (SHARD_ROWS * tokens * 1e3
+                                          / rec["timed_ms_per_step"])
+        if strategy == "fsdp":
+            rec.update(param_bytes=strat.param_bytes(),
+                       opt_bytes=strat.opt_state_bytes(),
+                       padded_elements=sum(strat.padded),
+                       whole_elements=sum(strat.lengths),
+                       layers=len(strat.lengths),
+                       regathers=strat.regathers)
+        del strat
+        torch.cuda.empty_cache()
+        rec["run_s"] = time.perf_counter() - t0
+        if comm.rank == 0:
+            t0 = time.perf_counter()
+            rec["vs_single"], s_grads = vs_single(
+                torch, comm, model, dtype, SHARD_ROWS, batches[0], loss,
+                grads, ref, whole)
+            rec["single_s"] = time.perf_counter() - t0
+            if dtype == "float32":
+                ref = s_grads
+        out[dtype] = rec
+        del grads, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_cut_step(torch, comm):
+    """(b)'s step: sp in float32 on transformer_s cut to SHARD_CUT blocks,
+    on SHARD_CUT_ROWS rows of SHARD_CUT_T tokens, on this rank's device:
+    (loss, update on the host)."""
+    from ddlbench_tpu_torch.models.layers import LayerModel
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.parallel.sp import SPStrategy
+
+    full = get_model(*SHARD_TOKEN, seed=0)
+    cut = LayerModel(full.name, list(full.layers[:1 + SHARD_CUT])
+                     + [full.layers[-1]], full.in_shape, full.num_classes)
+    cfg = shard_cfg("sp", comm.world, *SHARD_TOKEN, "float32",
+                    SHARD_CUT_ROWS)
+    strat = SPStrategy(cut.to(comm.device), cfg, comm)
+    strat.init()
+    x, y = shard_batches(torch, cfg, SHARD_CUT_ROWS, 1, comm.device,
+                         seed=5)[0]
+    loss, upd = update_of(torch, strat, (x[:, :SHARD_CUT_T],
+                                         y[:, :SHARD_CUT_T]), SHARD_LR)
+    return loss, {k: v.cpu() for k, v in upd.items()}
+
+
+def sp_card_vs_cpu(torch, comm):
+    """(b): the cut sp step on the card, then the same step on the CPU
+    over the same gloo group (gloo takes CPU tensors as they are; the
+    plain versions run there); rank 0 compares."""
+    import dataclasses
+
+    card = sp_cut_step(torch, comm)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // comm.world))
+    try:
+        cpu = sp_cut_step(torch, dataclasses.replace(
+            comm, device=torch.device("cpu"), staged=frozenset()))
+    finally:
+        torch.set_num_threads(threads)
+    if comm.rank:
+        return None
+    rec = {"loss_card": card[0], "loss_cpu": cpu[0],
+           "loss_rel": abs(card[0] - cpu[0]) / abs(cpu[0])}
+    rec["worst_update_rel_l2"], rec["worst_update_leaf"] = worst_update(
+        torch, card[1], cpu[1])
+    rec["ok"] = (rec["loss_rel"] <= SHARD_F32_LOSS
+                 and rec["worst_update_rel_l2"] <= SHARD_CPU_UPDATE)
+    return rec
+
+
+def fsdp_image_f64(torch, comm):
+    """resnet50 / imagenet under fsdp in float64 on SHARD_IMAGE_ROWS rows
+    (sync-BN): the loss, the reduce-scattered gradient gathered whole and
+    the running statistics against single's on the same rows (rank 0
+    compares, dp_image's f64_agreement)."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.parallel.sharded import FSDPStrategy
+
+    dev = comm.device
+    cfg = shard_cfg("fsdp", comm.world, *SHARD_IMAGE, "float32",
+                    SHARD_IMAGE_ROWS)
+
+    def model64():
+        return get_model(*SHARD_IMAGE, seed=0).to(dev, torch.float64).to(
+            memory_format=torch.channels_last)
+
+    x, y = shard_batches(torch, cfg, SHARD_IMAGE_ROWS, 1, dev)[0]
+    x = x.to(torch.float64).contiguous(memory_format=torch.channels_last)
+    strat = FSDPStrategy(model64(), cfg, comm)
+    strat.compute_dtype = torch.float64  # the model's own type
+    strat.init()
+    loss, grads = grads_of(torch, strat, (x, y))
+    names = [f"{i}.{n}" for i, layer in enumerate(strat.model.layers)
+             for n, _ in layer.named_parameters()]
+    got = (loss, [grads[n].cpu() for n in names],
+           [b.detach().double().cpu() for b in strat.model.buffers()])
+    del strat, grads
+    torch.cuda.empty_cache()
+    if comm.rank:
+        return None
+    single_cfg = dataclasses.replace(cfg, strategy="single", num_devices=1,
+                                     batch_size=SHARD_IMAGE_ROWS)
+    rec = f64_agreement(got, image_step(torch, model64(), x, y, single_cfg,
+                                        None))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_shared_rank(comm):
+    """A rank of the world-2 shared-card run: the sp, ep and fsdp token
+    cells, fsdp's float64 resnet50 step, and sp's (b)."""
+    import torch
+
+    T = 1024
+    out = {"rank": comm.rank, "comm": comm.record()}
+    for strategy, model in (("sp", SHARD_TOKEN), ("ep", SHARD_MOE),
+                            ("fsdp", SHARD_TOKEN)):
+        out[strategy] = shard_token_cell(torch, comm, strategy, model, T)
+    t0 = time.perf_counter()
+    out["fsdp_image"] = fsdp_image_f64(torch, comm)
+    out["fsdp_image_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["b_card_vs_cpu"] = sp_card_vs_cpu(torch, comm)
+    out["b_s"] = time.perf_counter() - t0
+    return out
+
+
+def sharded_nccl_rank(comm):
+    """sp at NCCL world 1: its token cell ((a) against single, launches)."""
+    import torch
+
+    return {"comm": comm.record(),
+            "sp": shard_token_cell(torch, comm, "sp", SHARD_TOKEN, 1024)}
+
+
+def shard_expected(strategy, rank, dtype):
+    """(c): each kernel's launches on one rank over a cell's steps: B4-B6
+    once a step; B1-B3 once per attention layer a step, times rank + 1
+    under sp (a causal rank runs its diagonal block and every block
+    before it)."""
+    steps = shard_steps(dtype)
+    blocks = rank + 1 if strategy == "sp" else 1
+    return {**{n: LAYERS * blocks * steps for n in FLASH_KERNELS},
+            **{n: steps for n in FX_KERNELS}}
+
+
+def phase_sharded(torch):
+    """Phases 19-21 (module docstring): the world-2 shared-card ranks (sp's
+    (b) among them), then sp at NCCL world 1 in this process. Emits
+    sp_train, ep_train and fsdp_train and returns the B1-B6 launches of
+    every rank's main-path steps."""
+    from ddlbench_tpu_torch import distributed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shared = distributed.spawn(sharded_shared_rank, 2, "cuda",
+                               shared_card=True)
+    t1 = time.perf_counter()
+    nccl = nccl_world1(sharded_nccl_rank)
+    t2 = time.perf_counter()
+    cpu_b = shared[0]["b_card_vs_cpu"]
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    failed = []
+    for strategy in ("sp", "ep", "fsdp"):
+        checks, per_rank = {}, {}
+        runs = [(f"rank{r['rank']}", r["rank"], r[strategy]) for r in shared]
+        if strategy == "sp":
+            runs.append(("nccl", 0, nccl["sp"]))
+        for who, rank, cell in runs:
+            for dtype, rec in cell.items():
+                checks[f"c_{who}_{dtype}"] = (
+                    rec["plain_launches"] == 0 and rec["launches"]
+                    == shard_expected(strategy, rank, dtype))
+                per_rank[f"{who}_{dtype}"] = rec["launches"]
+                for n in SHARD_COUNTERS:
+                    launches[n] += rec["launches"][n]
+                if "vs_single" in rec:
+                    checks[f"a_{who}_{dtype}"] = rec["vs_single"]["ok"]
+        r0 = shared[0][strategy]
+        line = {"phase": f"{strategy}_train",
+                "model": (SHARD_MOE if strategy == "ep" else SHARD_TOKEN),
+                "global_batch": SHARD_ROWS, "world": 2,
+                "steps": {d: shard_steps(d) for d in r0},
+                "comm_shared": shared[0]["comm"],
+                "cells": {d: {k: v for k, v in rec.items()
+                              if k != "launches"} for d, rec in r0.items()},
+                "launches": per_rank}
+        checks["same_losses_on_both_ranks"] = all(
+            shared[1][strategy][d]["loss"] == r0[d]["loss"] for d in r0)
+        if strategy == "sp":
+            line["nccl_world1"] = {"comm": nccl["comm"], "cells": {
+                d: {k: v for k, v in rec.items() if k != "launches"}
+                for d, rec in nccl["sp"].items()}}
+            line["b_card_vs_cpu"] = cpu_b
+            checks["b_card_vs_cpu"] = cpu_b["ok"]
+        if strategy == "fsdp":
+            for d, rec in r0.items():
+                half = 4 * rec["padded_elements"] // 2
+                checks[f"bytes_{d}"] = (
+                    rec["param_bytes"] == half == rec["opt_bytes"]
+                    and 4 * rec["whole_elements"] / 2 <= half
+                    <= 4 * (rec["whole_elements"] / 2 + rec["layers"]))
+                # every block and the head gathered again for each step's
+                # backward (the embedding's backward reads no weight)
+                checks[f"regathers_{d}"] = all(
+                    r["fsdp"][d]["regathers"]
+                    == (LAYERS + 1) * shard_steps(d) for r in shared)
+            line["image_float64"] = {
+                "model": SHARD_IMAGE, "global_batch": SHARD_IMAGE_ROWS,
+                "seconds": shared[0]["fsdp_image_s"],
+                **shared[0]["fsdp_image"]}
+            checks["a_image_float64"] = shared[0]["fsdp_image"]["ok"]
+        line["checks"] = checks
+        line["seconds"] = {"shared_spawn": t1 - t0, "b": shared[0]["b_s"],
+                           "nccl_world1": t2 - t1}
+        emit(line)
+        failed += [f"{strategy}:{k}" for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"sharded-strategy checks failed: {failed}")
+    return launches
+
 def main() -> int:
     try:
         import torch
@@ -5807,6 +6432,8 @@ def main() -> int:
     for name, n in phase_pipe_train(torch, fa, fx, dev).items():
         train_launches[name] += n
     phase_pipe_image(torch, dev)
+    for name, n in phase_sharded(torch).items():
+        train_launches[name] += n
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 
     def row(name, source, replaces, n, err, t):

@@ -1,5 +1,6 @@
-"""Training CLI of the port: the ``single``, ``dp``, ``gpipe`` and
-``pipedream`` subset of ``ddlbench_tpu/cli.py``.
+"""Training CLI of the port: the ``single``, ``dp``, ``gpipe``,
+``pipedream``, ``sp``, ``ep`` and ``fsdp`` subset of
+``ddlbench_tpu/cli.py``.
 
     python -m ddlbench_tpu_torch.cli -b imagenet -f single -m resnet50 \\
         -e 1 --steps-per-epoch 20
@@ -34,6 +35,20 @@ card r; ``--device cpu``: gloo ranks on the CPU); a machine with fewer
 cards than ``-g`` is an error. Rank 0 prints the lines; ``result:`` is its
 summary.
 
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f sp \
+        -g 2 -e 1 --steps-per-epoch 20
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_moe_s \
+        -f ep -g 2 -e 1 --steps-per-epoch 20
+    python -m ddlbench_tpu_torch.cli -b imagenet -m resnet50 -f fsdp -g 2 \
+        -e 1 --steps-per-epoch 20
+
+run the sharded one-program strategies on ``-g`` ranks in the same way:
+``sp`` splits every sequence over the ranks (ring attention; token and
+seq2seq benchmarks), ``ep`` splits the batch and every MoE block's
+experts (MoE arches), ``fsdp`` splits the batch and every parameter and
+its optimizer state (ZeRO-3; not MoE arches). Their learning rate is
+not scaled by the world (the reference scales only dp's).
+
     python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f gpipe \
         -g 4 -e 1 --steps-per-epoch 20 --pipe-schedule zero-bubble
     python -m ddlbench_tpu_torch.cli -b imagenet -m resnet50 -f pipedream \
@@ -64,8 +79,8 @@ the reference's defaults);
 ``--device`` stands in for ``--platform``; ``--momentum`` and
 ``--weight-decay`` override the per-workload defaults. Every other flag
 of the reference is refused by name (an error naming it), never ignored;
-so are ``-f`` strategies other than these four and the arches the port
-does not build (RunConfig.validate, models/zoo.py).
+so are ``-f tp`` (ROADMAP A.7b) and the arches the port does not build
+(RunConfig.validate, models/zoo.py).
 """
 
 from __future__ import annotations
@@ -74,11 +89,12 @@ import argparse
 import json
 import sys
 
-from ddlbench_tpu_torch.config import ATTENTION_BACKENDS, DATASETS, RunConfig
+from ddlbench_tpu_torch.config import (ATTENTION_BACKENDS, DATASETS,
+                                      RANK_STRATEGIES, RunConfig)
 from ddlbench_tpu_torch.models.zoo import MODEL_NAMES
 from ddlbench_tpu_torch.partition.schedule import PIPE_SCHEDULES
 
-# the reference's strategies: sp, tp, fsdp and ep raise NotImplementedError
+# the reference's strategies: tp raises NotImplementedError
 STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
 
 # the reference's flags the port does not carry
@@ -111,10 +127,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--benchmark", default="mnist",
                    choices=sorted(DATASETS))
     p.add_argument("-f", "--framework", default="single", choices=STRATEGIES,
-                   help="strategy (single, dp, gpipe and pipedream are "
-                        "ported)")
+                   help="strategy (all but tp are ported)")
     p.add_argument("-g", "--devices", type=int, default=1,
-                   help="ranks of -f dp, one process and one card each; "
+                   help="ranks of -f dp/sp/ep/fsdp, one process and one "
+                        "card each; "
                         "stages x dp-replicas x tp-size of a pipeline, "
                         "one card a stage")
     p.add_argument("-m", "--model", default="resnet18",
@@ -264,7 +280,7 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
 
 
 def _train_rank(comm, cfg: RunConfig, jsonl: str, device=None) -> dict:
-    """The run of :func:`main` on ``device``, or on dp rank ``comm`` (a
+    """The run of :func:`main` on ``device``, or on rank ``comm`` (a
     spawned process): its strategy, the loop, its summary (rank 0's is
     printed)."""
     from ddlbench_tpu_torch.parallel.api import make_strategy
@@ -289,11 +305,12 @@ def main(argv=None) -> int:
     from ddlbench_tpu_torch import distributed
     from ddlbench_tpu_torch.device import resolve_device
 
-    if cfg.strategy == "dp":
+    ranks = cfg.strategy in RANK_STRATEGIES
+    if ranks:
         distributed.check_world(args.device or "cuda", cfg.num_devices)
     device = resolve_device(args.device)
     print("run manifest: " + json.dumps(vars(args)), flush=True)
-    if cfg.strategy == "dp":
+    if ranks:
         result = distributed.spawn(_train_rank, cfg.num_devices,
                                    device.type, args=(cfg, args.jsonl))[0]
     else:

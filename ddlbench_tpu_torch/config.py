@@ -2,8 +2,8 @@
 
 The port's own copy of the pieces of ``ddlbench_tpu/config.py`` those paths
 read: :class:`DatasetSpec` with the image and token workloads,
-``DEFAULT_BATCH`` for the ``single``, ``dp``, ``gpipe`` and ``pipedream``
-strategies,
+``DEFAULT_BATCH`` for the ``single``, ``dp``, ``gpipe``, ``pipedream``,
+``sp`` and ``ep`` strategies (``fsdp`` reads ``dp``'s),
 :class:`ServeConfig` and :class:`RunConfig` with their resolvers and
 validation. The field names, defaults and error
 messages are the reference's, so a config built for one package means the
@@ -109,11 +109,20 @@ DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
     "pipedream": {"mnist": 512, "cifar10": 256, "imagenet": 128,
                   "highres": 64, "synthtext": 64, "longctx": 8,
                   "longctx32k": 4, "synthmt": 128},
+    "sp": {"mnist": 128, "cifar10": 64, "imagenet": 32, "highres": 32,
+           "synthtext": 16, "longctx": 2, "longctx32k": 1, "synthmt": 32},
+    # ep: per-device batch (batch and experts both shard the one rank axis)
+    "ep": {"synthtext": 8, "longctx": 1, "longctx32k": 1},
 }
 
 # the strategies the port's training path runs
-PORTED_STRATEGIES = ("single", "dp", "gpipe", "pipedream")
+PORTED_STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "ep",
+                     "fsdp")
 PIPELINE_STRATEGIES = ("gpipe", "pipedream")
+# the strategies whose ranks are processes of a group (distributed.spawn)
+RANK_STRATEGIES = ("dp", "sp", "ep", "fsdp")
+# the one-apply strategies that accumulate gradients and take remat_layers
+ONE_APPLY_STRATEGIES = ("single", "dp", "tp", "fsdp")
 
 # the canonical names of the dp gradient wire dtypes (allreduce_dtype)
 _WIRE_DTYPES = {"f32": "float32", "float32": "float32",
@@ -571,11 +580,12 @@ class RunConfig:
                    // (max(1, self.dp_replicas) * max(1, self.tp_size)))
 
     def resolved_batches(self) -> Tuple[int, int]:
-        """(micro_batch_size, num_microbatches): for single/dp the
-        per-device batch and 1; the reference's rules for gpipe and
+        """(micro_batch_size, num_microbatches): for the one-apply
+        strategies the per-device batch (the strategy's DEFAULT_BATCH row,
+        dp's for fsdp) and 1; the reference's rules for gpipe and
         pipedream."""
         if self.strategy not in PIPELINE_STRATEGIES:
-            key = "dp" if self.strategy == "dp" else "single"
+            key = self.strategy if self.strategy in DEFAULT_BATCH else "dp"
             b = self.batch_size or DEFAULT_BATCH[key][self.benchmark]
             return int(b), 1
         if self.strategy == "gpipe":
@@ -600,21 +610,28 @@ class RunConfig:
         return int(mb), int(chunks)
 
     def global_batch(self) -> int:
-        """The step's batch: batch_size (or the reference's default for
-        the benchmark) rows per micro-step and device, grad_accum_steps
-        micro-steps per step; ``dp`` takes num_devices devices' rows; a
-        pipeline's is micro_batch_size x num_microbatches."""
+        """The step's batch (the reference's rule): batch_size (or the
+        default for the benchmark) rows per micro-step and device,
+        grad_accum_steps micro-steps per step on single/dp/fsdp; ``dp``,
+        ``fsdp`` and ``ep`` take num_devices devices' rows, ``sp`` shards
+        the sequence, not the batch; a pipeline's is micro_batch_size x
+        num_microbatches."""
+        mb, chunks = self.resolved_batches()
         if self.strategy in PIPELINE_STRATEGIES:
-            mb, chunks = self.resolved_batches()
             return mb * chunks
-        key = "dp" if self.strategy == "dp" else "single"
-        b = int(self.batch_size or DEFAULT_BATCH[key][self.benchmark])
-        devices = self.num_devices if self.strategy == "dp" else 1
-        return b * devices * self.grad_accum_steps
+        accum = (self.grad_accum_steps
+                 if self.strategy in ONE_APPLY_STRATEGIES else 1)
+        devices = (self.num_devices if self.strategy in ("dp", "fsdp", "ep")
+                   else 1)
+        return mb * devices * accum
 
     def validate(self) -> None:
         if self.benchmark not in DATASETS:
             raise ValueError(f"unknown benchmark {self.benchmark!r}")
+        if self.strategy == "tp":
+            raise NotImplementedError(
+                "strategy 'tp' is not ported to the PyTorch training path "
+                "yet (ROADMAP A.7b (tensor parallelism))")
         if self.strategy not in PORTED_STRATEGIES:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported to the PyTorch "
@@ -626,6 +643,7 @@ class RunConfig:
         if self.warmup_epochs < 0:
             raise ValueError("warmup_epochs must be >= 0")
         self._validate_dp()
+        self._validate_sharded()
         for name, default, what in _TRAIN_NOT_PORTED:
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -681,7 +699,7 @@ class RunConfig:
                 raise NotImplementedError(
                     f"{what} ({name}={getattr(self, name)!r}) is not ported "
                     f"to the PyTorch training path yet (ROADMAP {item})")
-        if self.remat_layers and self.strategy in PIPELINE_STRATEGIES:
+        if self.remat_layers and self.strategy not in ONE_APPLY_STRATEGIES:
             raise ValueError(
                 f"remat_layers applies to the one-apply strategies "
                 f"(single/dp/tp/fsdp), not {self.strategy!r} — the pipeline "
@@ -725,7 +743,8 @@ class RunConfig:
                 raise ValueError(
                     f"num_microbatches ({chunks}) must be divisible by "
                     f"update_interval ({self.update_interval})")
-        if self.grad_accum_steps > 1 and self.strategy in PIPELINE_STRATEGIES:
+        if self.grad_accum_steps > 1 and \
+                self.strategy not in ONE_APPLY_STRATEGIES:
             raise ValueError(
                 "grad_accum_steps > 1 is supported on single/dp/tp/fsdp "
                 "(pipeline strategies already micro-batch)")
@@ -754,6 +773,32 @@ class RunConfig:
                 raise ValueError(
                     f"interleaved schedule needs num_microbatches ({chunks}) "
                     f"divisible by stages ({s})")
+
+    def _validate_sharded(self) -> None:
+        """The reference's sp and ep gates, worded as it words them, then
+        the port's own refusals under fsdp."""
+        if self.strategy == "sp" and self.dataset().kind not in ("tokens",
+                                                                 "seq2seq"):
+            raise ValueError("sp (sequence parallelism) requires a token or "
+                             "seq2seq benchmark")
+        if self.strategy == "ep":
+            if self.dataset().kind != "tokens":
+                raise ValueError("ep (expert parallelism) requires a token "
+                                 "benchmark")
+            if "moe" not in self.arch:
+                raise ValueError("ep (expert parallelism) requires an MoE "
+                                 "arch")
+        if self.strategy == "fsdp" and "moe" in self.arch:
+            raise NotImplementedError(
+                f"{self.arch} under fsdp is not ported to the PyTorch "
+                "training path yet (ROADMAP A.6b: the reference routes "
+                "over the global batch, which needs cross-rank capacity "
+                "positions and a global aux mean)")
+        if self.strategy == "fsdp" and self.remat_layers:
+            raise NotImplementedError(
+                "remat_layers under fsdp is not ported to the PyTorch "
+                "training path yet: the recomputation would gather each "
+                "layer a third time under fsdp's saved-tensor hooks")
 
     def _validate_dp(self) -> None:
         """The reference's dp gates, worded as it words them, then the

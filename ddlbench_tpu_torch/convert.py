@@ -44,12 +44,21 @@ optimizer state (``TrainState.opt``: SGD ``{"m"}``, Adam ``{"m", "v",
 ``torch.optim`` state of ``model``'s parameters, so a run can resume the
 port from a JAX TrainState mid-run.
 
+The sharded strategies take the model's whole weights when they start
+(parallel/ep.py, parallel/sharded.py: convert first, then build the
+strategy). To carry the reference's weights into a running rank's shards:
+``from_jax_params(model, params_np, expert_rank=(r, n))`` copies into an
+ep rank's model, whose expert stacks hold experts [r E/n, (r + 1) E/n),
+the reference's stacks sliced so; ``to_fsdp_shards(strategy, params_np)``
+packs each layer as fsdp does and copies the rank's slice into its
+shards.
+
 This module imports no JAX: it takes numpy arrays.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,19 +87,32 @@ def to_port_layout(arr) -> np.ndarray:
     return arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
 
 
-def _pairs(model: LayerModel, tree_np: List[Dict], buffers: bool = False
+def _expert_slice(name: str, arr: np.ndarray,
+                  expert_rank: Optional[Tuple[int, int]]) -> np.ndarray:
+    """An ``experts`` leaf's rows of rank r of n (ep's shard)."""
+    if expert_rank is None or ".experts." not in f".{name}":
+        return arr
+    r, n = expert_rank
+    per = arr.shape[0] // n
+    return arr[r * per:(r + 1) * per]
+
+
+def _pairs(model: LayerModel, tree_np: List[Dict], buffers: bool = False,
+           expert_rank: Optional[Tuple[int, int]] = None
            ) -> Iterator[Tuple[str, torch.Tensor, np.ndarray]]:
     """(name, port tensor, reference array in the port's layout) for every
     parameter of ``model`` (every buffer with ``buffers``) against
     ``tree_np`` (one nested dict of arrays per layer), which must cover
-    exactly the port's tensors at their shapes."""
+    exactly the port's tensors at their shapes (an ``experts`` leaf
+    sliced to ep rank ``expert_rank`` = (r, n) where given)."""
     if len(tree_np) != len(model.layers):
         raise ValueError(f"{len(tree_np)} dicts for "
                          f"{len(model.layers)} layers")
     for i, (layer, tree) in enumerate(zip(model.layers, tree_np)):
         own = dict(layer.named_buffers() if buffers
                    else layer.named_parameters())
-        given = {n: to_port_layout(a) for n, a in _flatten(tree)}
+        given = {n: _expert_slice(n, to_port_layout(a), expert_rank)
+                 for n, a in _flatten(tree)}
         if set(own) != set(given):
             raise ValueError(
                 f"layer {i}: {sorted(given)} do not match the port's "
@@ -109,13 +131,48 @@ def _tensor_like(arr, p: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def from_jax_params(model: LayerModel, params_np: List[Dict]) -> LayerModel:
+def from_jax_params(model: LayerModel, params_np: List[Dict],
+                    expert_rank: Optional[Tuple[int, int]] = None
+                    ) -> LayerModel:
     """Copy ``params_np`` (one nested dict of arrays per layer) into
     ``model`` in place and return it. Every array must land on a parameter
-    of the same shape, and every parameter must be covered."""
-    for _, p, arr in list(_pairs(model, params_np)):
+    of the same shape, and every parameter must be covered; with
+    ``expert_rank`` = (r, n) the ``experts`` leaves land as ep rank r's
+    slice (the model's expert stacks hold E/n)."""
+    for _, p, arr in list(_pairs(model, params_np,
+                                 expert_rank=expert_rank)):
         p.copy_(_tensor_like(arr, p))
     return model
+
+
+@torch.no_grad()
+def to_fsdp_shards(strategy, params_np: List[Dict]):
+    """Copy ``params_np`` into a running fsdp rank's shards
+    (parallel/sharded.FSDPStrategy): each layer's arrays in the port's
+    layout, packed in the strategy's order and padded as it packs them,
+    and this rank's slice copied into its shard. Returns the strategy."""
+    if len(params_np) != len(strategy.shards):
+        raise ValueError(f"{len(params_np)} dicts for "
+                         f"{len(strategy.shards)} layers")
+    n, r = strategy.comm.world, strategy.comm.rank
+    for i, tree in enumerate(params_np):
+        given = {name: to_port_layout(a) for name, a in _flatten(tree)}
+        if set(given) != set(strategy.names[i]):
+            raise ValueError(f"layer {i}: {sorted(given)} do not match the "
+                             f"port's {sorted(strategy.names[i])}")
+        flat = np.zeros(strategy.padded[i], np.float32)
+        off = 0
+        for name, shape in zip(strategy.names[i], strategy.shapes[i]):
+            arr = np.asarray(given[name], np.float32)
+            if tuple(arr.shape) != tuple(shape):
+                raise ValueError(f"layer {i} {name}: shape {arr.shape} vs "
+                                 f"{shape}")
+            flat[off:off + arr.size] = arr.reshape(-1)
+            off += arr.size
+        per = strategy.padded[i] // n
+        strategy.shards[i].copy_(_tensor_like(flat[r * per:(r + 1) * per],
+                                              strategy.shards[i]))
+    return strategy
 
 
 @torch.no_grad()

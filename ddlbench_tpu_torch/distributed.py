@@ -20,9 +20,22 @@ Backends and devices:
   refuses two ranks on one card, so this is how one card runs a world of
   2 (chip_smoke.py). It exists only for a caller that asks for it; the CLI
   does not offer it. gloo takes CUDA tensors directly for all_reduce and
-  broadcast (:data:`GLOO_CUDA_DIRECT`); reduce-scatter and all-gather are
-  always staged through pinned host memory, by the table, never on an
-  exception. Its wire is the host's, so it says nothing of NCCL's speed.
+  broadcast (:data:`GLOO_CUDA_DIRECT`); reduce-scatter, all-gather and
+  all_to_all are always staged through pinned host memory, by the table,
+  never on an exception. Its wire is the host's, so it says nothing of
+  NCCL's speed.
+
+The sharded strategies' collectives inside the model have autograd
+wrappers here: :func:`all_gather_grad` (fsdp's gather of a layer's
+shard and sequence parallelism's gather of the K/V blocks: the backward
+reduce-scatters the gradient) and :func:`all_to_all_experts` (expert
+parallelism's token exchange: the backward is the inverse exchange).
+Collectives are not autograd-aware on their own, so every rank must
+reach the same wrappers in the same order, forward and backward: each
+is one node that every rank's graph holds, whatever the rank computes
+with its output. :class:`AxisContext` is the model's switch into a
+sharded mode (models/transformer.sequence_parallel,
+models/moe.expert_parallel).
 """
 
 from __future__ import annotations
@@ -41,7 +54,8 @@ import torch.distributed as dist
 # the collectives gloo runs on CUDA tensors itself (PyTorch's backend
 # table); the others are staged through pinned host memory
 GLOO_CUDA_DIRECT = ("all_reduce", "broadcast")
-COLLECTIVES = ("all_reduce", "broadcast", "reduce_scatter", "all_gather")
+COLLECTIVES = ("all_reduce", "broadcast", "reduce_scatter", "all_gather",
+               "all_to_all")
 TIMEOUT_S = 300.0  # a collective's wait before gloo or NCCL gives up
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -201,6 +215,108 @@ class Comm:
                           device=t.device)
         return self._run("all_gather", lambda x, o: _all_gather(
             o, x, self.group), t.reshape(-1), out)
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``'s dim 0 in world equal blocks, block j sent to rank j;
+        block i of the result came from rank i."""
+        if self.world == 1:
+            return t
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        return self._run("all_to_all", lambda x, o: dist.all_to_all_single(
+            o, x, group=self.group), t, out)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, on_backward):
+        ctx.comm, ctx.on_backward, ctx.shape = comm, on_backward, t.shape
+        return comm.all_gather(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.on_backward is not None:
+            ctx.on_backward()
+        shard = ctx.comm.reduce_scatter(g.contiguous())
+        return shard.view(ctx.shape), None, None
+
+
+def all_gather_grad(t: torch.Tensor, comm: "Comm",
+                    on_backward: Optional[Callable] = None) -> torch.Tensor:
+    """:meth:`Comm.all_gather` (the ranks' flat ``t`` in rank order),
+    differentiable: the backward reduce-scatters the gradient, so each
+    rank gets the sum over the ranks of its own ``t``'s part, then calls
+    ``on_backward`` (fsdp drops a layer's re-gathered weights there)."""
+    return _AllGather.apply(t, comm, on_backward)
+
+
+class AxisContext:
+    """While active (``with``), the model's layers run sharded over the
+    ranks of ``comm`` in the subclass's mode; :meth:`current` is the
+    innermost active context's Comm, or None. Each subclass keeps its own
+    process-wide stack, so contexts nest."""
+
+    _stack: list = []
+
+    def __init_subclass__(cls, **kw):
+        super().__init_subclass__(**kw)
+        cls._stack = []
+
+    def __init__(self, comm: "Comm"):
+        self.comm = comm
+
+    def __enter__(self):
+        type(self)._stack.append(self.comm)
+        return self
+
+    def __exit__(self, *exc):
+        type(self)._stack.pop()
+        return False
+
+    @classmethod
+    def current(cls) -> Optional["Comm"]:
+        return cls._stack[-1] if cls._stack else None
+
+
+def _experts_there(x: torch.Tensor, comm: "Comm") -> torch.Tensor:
+    """[E, C, ...] -> [E / n, n * C, ...]: rank j gets every rank's block
+    of its experts, rank i's at [i * C, (i + 1) * C) (the reference's tiled
+    ``all_to_all`` splitting axis 0 and concatenating axis 1)."""
+    n = comm.world
+    E, C = x.shape[:2]
+    got = comm.all_to_all(x.reshape(n, E // n, C, *x.shape[2:]))
+    return got.transpose(0, 1).reshape(E // n, n * C, *x.shape[2:])
+
+
+def _experts_back(y: torch.Tensor, comm: "Comm") -> torch.Tensor:
+    """Inverse of :func:`_experts_there`: [E / n, n * C, ...] -> [E, C,
+    ...], each block back on the rank it came from."""
+    n = comm.world
+    El, nC = y.shape[:2]
+    C = nC // n
+    blocks = y.reshape(El, n, C, *y.shape[2:]).transpose(0, 1)
+    return comm.all_to_all(blocks).reshape(n * El, C, *y.shape[2:])
+
+
+class _AllToAllExperts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, back):
+        ctx.comm, ctx.back = comm, back
+        return (_experts_back if back else _experts_there)(x, comm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inverse = _experts_there if ctx.back else _experts_back
+        return inverse(g, ctx.comm), None, None
+
+
+def all_to_all_experts(x: torch.Tensor, comm: "Comm",
+                       back: bool = False) -> torch.Tensor:
+    """Expert parallelism's exchange, differentiable: the dispatch buffer
+    [E, C, ...] to this rank's experts' blocks from every rank [E / n,
+    n * C, ...], or with ``back`` the inverse; each one's backward is the
+    other."""
+    return _AllToAllExperts.apply(x, comm, back)
 
 
 def init_rank(rank: int, world: int, init_file: str, device: str,

@@ -1,8 +1,7 @@
 """Mixture-of-experts transformer LM (PyTorch port).
 
-The port of ``ddlbench_tpu/models/moe.py`` on one card (the reference's
-expert-parallel all_to_all waits with the ep strategy, ROADMAP A.7b):
-dense and Switch-routed blocks alternate, the MoE blocks at the odd
+The port of ``ddlbench_tpu/models/moe.py``: dense and Switch-routed
+blocks alternate, the MoE blocks at the odd
 indices. An MoE block is the transformer's attention half
 (models/transformer.py ``AttentionBlock``) with a bank of ``E`` expert
 MLPs, stacked as ``experts.w1`` [E, d, 4d], ``b1`` [E, 4d], ``w2``
@@ -40,6 +39,14 @@ trace-time collector does. A checkpointed forward would record twice, so
 RunConfig refuses ``remat_layers`` with an MoE arch, as the reference
 does.
 
+Expert parallelism (parallel/ep.py) runs the same blocks inside
+:class:`expert_parallel`, which carries the rank's Comm: each rank's
+``Experts`` hold its E/n experts (``E`` is the router's width), the
+rank routes its own tokens (the capacity counts its S tokens), and the
+[E, C, d] dispatch buffer goes to the experts' ranks as [E/n, n C, d]
+and back by two all_to_alls (distributed.all_to_all_experts, the
+reference's tiled ``lax.all_to_all``) around the local experts' MLPs.
+
 Decoding (models/decode.py): the prompt's prefill runs the
 capacity-limited layer; a decoded position runs its top-1 expert with no
 capacity limit (:meth:`MoEBlock.mlp_one`, the reference's
@@ -59,6 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ddlbench_tpu_torch.distributed import AxisContext, all_to_all_experts
 from ddlbench_tpu_torch.models.layers import LayerModel
 from ddlbench_tpu_torch.models.transformer import (AttentionBlock, Embed,
                                                    LMHead, TransformerBlock,
@@ -71,6 +79,12 @@ _VARIANTS = {
     "transformer_moe_s": dict(d_model=512, n_layers=8, n_heads=8,
                               n_experts=8),
 }
+
+
+class expert_parallel(AxisContext):
+    """While active, the MoE blocks run expert-parallel on the rank of
+    ``comm`` (distributed.Comm; module docstring; the reference's
+    ``expert_parallel`` axis context)."""
 
 
 class Route(NamedTuple):
@@ -169,8 +183,18 @@ def moe_mlp(x: torch.Tensor, gate_w: torch.Tensor, experts: Experts,
     token = torch.full((E * C + 1,), S, dtype=torch.long, device=x.device)
     token = token.scatter_(0, flat, torch.arange(S, device=x.device))[:-1]
     expert_in = _RowGather.apply(xf, token, flat).view(E, C, d)
-    out = _RowGather.apply(experts(expert_in).reshape(E * C, d), flat,
-                           token)
+    comm = expert_parallel.current()
+    if comm is None:
+        if experts.w1.shape[0] != E:
+            raise ValueError(f"{experts.w1.shape[0]}/{E} experts present "
+                             "outside the expert_parallel context")
+        expert_out = experts(expert_in)
+    else:
+        # [E, C, d] -> [E/n, n C, d]: this rank's experts' blocks from
+        # every rank, then back home for the combine
+        expert_out = all_to_all_experts(
+            experts(all_to_all_experts(expert_in, comm)), comm, back=True)
+    out = _RowGather.apply(expert_out.reshape(E * C, d), flat, token)
     w = (route.gate * route.keep).to(x.dtype)
     return (out * w[:, None]).reshape(B, T, d), route
 

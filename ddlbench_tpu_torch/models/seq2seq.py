@@ -28,7 +28,7 @@ import torch
 from ddlbench_tpu_torch.models import decode
 from ddlbench_tpu_torch.models.layers import DecodeLayer, LayerModel
 from ddlbench_tpu_torch.models.transformer import (LMHead, TransformerBlock,
-                                                   _normal)
+                                                   _normal, shard_positions)
 
 _VARIANTS = {
     "seq2seq_s": dict(d_model=512, n_layers=8, n_heads=8),
@@ -51,9 +51,11 @@ class Seq2seqEmbed(DecodeLayer):
         self.seg = _normal(gen, 2, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        abs_pos = torch.arange(x.shape[1], device=x.device)
+        # T is the local shard's length under sequence parallelism; the
+        # position and segment embeddings read absolute positions
+        pos_emb, abs_pos = shard_positions(self.pos, x.shape[1])
         seg_ids = (abs_pos >= self.src_len).long()
-        return self.tok[x] + self.pos[:x.shape[1]] + self.seg[seg_ids]
+        return self.tok[x] + pos_emb + self.seg[seg_ids]
 
     def decode(self, cache, x, pos):
         # x [B, 1] at absolute position pos

@@ -35,6 +35,20 @@ Three numerics of the reference are kept on purpose (tests pin them):
   ``F.layer_norm`` computes the variance differently.
 * ``wqkv``'s output splits into contiguous thirds q | k | v, each viewed as
   ``[B, T, H, dh]``.
+
+Sequence parallelism (parallel/sp.py) runs the same layers inside
+:class:`sequence_parallel`, which carries the rank's Comm: each rank
+holds the contiguous T/n slice ``comm.rank`` of every sequence, the
+embedding takes that slice's positions (:func:`shard_positions`), and
+attention runs :func:`ring_attention` on every rank's K/V block,
+all-gathered as one stacked tensor (the backward reduce-scatters their
+gradients). The rank is a Python int, so each rank knows which of the n
+blocks its queries see: a block masked whole is skipped, the others go
+through :func:`ops.flash_attention.flash_attention_lse` at absolute
+offsets and combine exactly through their logsumexps (the reference's
+flash ring), or, under the ``"xla"`` backend, through the reference's
+float32 online-softmax einsum ring. A causal rank r runs r + 1 blocks,
+so B1-B3 launch n(n+1)/2 times per layer over the ranks.
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ddlbench_tpu_torch.config import ATTENTION_BACKENDS
+from ddlbench_tpu_torch.distributed import AxisContext, all_gather_grad
 from ddlbench_tpu_torch.models.layers import (DecodeLayer, LayerModel,
                                               ServeLayer)
 from ddlbench_tpu_torch.ops import flash_attention as fa
@@ -103,6 +118,24 @@ class LayerNorm(nn.Module):
 _ATTENTION_BACKEND = ["auto"]
 
 
+class sequence_parallel(AxisContext):
+    """While active, the model runs sequence-parallel on the rank of
+    ``comm`` (distributed.Comm): the embedding reads this rank's
+    positions and attention runs the ring (module docstring; the
+    reference's ``sequence_parallel`` axis context)."""
+
+
+def shard_positions(pos_table: torch.Tensor, T: int):
+    """(position embeddings [T, d], absolute positions [T]) of the local
+    sequence shard: rows [0, T) outside sequence parallelism, this rank's
+    contiguous slice (offset rank x T) inside it; every embedding
+    (transformer and seq2seq) reads its positions here."""
+    comm = sequence_parallel.current()
+    offset = 0 if comm is None else comm.rank * T
+    return (pos_table[offset:offset + T],
+            torch.arange(offset, offset + T, device=pos_table.device))
+
+
 def set_attention_backend(backend: str) -> None:
     """Select the attention path of every block: auto | flash | xla."""
     if backend not in ATTENTION_BACKENDS:
@@ -157,6 +190,74 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bhkd->bhqd", e / torch.clamp(z, min=1e-20), v)
 
 
+def _block_visible(r: int, src: int, Tl: int, prefix_len: int) -> bool:
+    """Whether rank r's queries see any key of rank src's block (causal:
+    src <= r; prefix-LM: also a block opening inside the prefix)."""
+    return src <= r or src * Tl < prefix_len
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   prefix_len: int = 0) -> torch.Tensor:
+    """Causal (or prefix-LM) attention over a sequence sharded across the
+    ranks of the active :class:`sequence_parallel` context: q/k/v
+    [B, H, Tl, dh] are this rank's shard. Every rank's stacked K/V block
+    comes in one all-gather (distributed.all_gather_grad: one collective,
+    the same on every rank, forward and backward); rank r combines the
+    blocks its queries see in the reference's ring order r, r - 1, ...
+    (module docstring): through the flash kernels' (o, lse), or, where
+    the backend takes the plain path, the reference's float32 online
+    softmax. Returns [B, H, Tl, dh] in q's dtype."""
+    comm = sequence_parallel.current()
+    r, n = comm.rank, comm.world
+    B, H, Tl, dh = q.shape
+    flash = _use_flash(q, k, v)
+    q_pos = r * Tl + torch.arange(Tl, device=q.device)[:, None]
+    qf = q.float()
+    kv = torch.stack([k, v])
+    # every rank's block in rank order (at world 1 there is none to gather)
+    kvs = (all_gather_grad(kv, comm) if n > 1 else kv).view(n, 2, B, H, Tl,
+                                                            dh)
+    for i in range(n):
+        src = (r - i) % n  # the ring's i-th block: rank src's K/V
+        if not _block_visible(r, src, Tl, prefix_len):
+            continue
+        kb, vb = kvs[src, 0], kvs[src, 1]
+        if flash:
+            o_i, lse_i = fa.flash_attention_lse(q, kb, vb, r * Tl, src * Tl,
+                                                prefix_len)
+            if i == 0:  # the diagonal block: every row sees a key
+                o, lse = o_i.float(), lse_i
+                continue
+            new_lse = torch.logaddexp(lse, lse_i)
+            safe = torch.clamp(new_lse, min=fa.NEG_INF)
+            o = (o * torch.exp(lse - safe)[..., None]
+                 + o_i.float() * torch.exp(lse_i - safe)[..., None])
+            lse = new_lse
+            continue
+        k_pos = src * Tl + torch.arange(Tl, device=q.device)[None, :]
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb.float()) / math.sqrt(dh)
+        ok = q_pos >= k_pos
+        if prefix_len:
+            ok = ok | (k_pos < prefix_len)
+        s = s.masked_fill(~ok, -math.inf)
+        if i == 0:
+            m = torch.full((B, H, Tl, 1), -math.inf, device=q.device)
+            l = torch.zeros((B, H, Tl, 1), device=q.device)
+            acc = torch.zeros((B, H, Tl, dh), device=q.device)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        safe_m = torch.where(torch.isfinite(m_new), m_new,
+                             torch.zeros_like(m_new))
+        p = torch.exp(s - safe_m)
+        corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m),
+                           torch.zeros_like(m))
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vb.float())
+        m = m_new
+    if flash:
+        return o.to(q.dtype)
+    return (acc / torch.clamp(l, min=1e-20)).to(q.dtype)
+
+
 class Embed(ServeLayer, DecodeLayer):
     """Token + learned position embedding: x [B, T] int -> [B, T, d], in
     the tables' dtype (the compute dtype under layers.apply_model's cast,
@@ -170,7 +271,8 @@ class Embed(ServeLayer, DecodeLayer):
         self.pos = _normal(gen, max_len, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.tok[x] + self.pos[:x.shape[1]]
+        # T is the local shard's length under sequence parallelism
+        return self.tok[x] + shard_positions(self.pos, x.shape[1])[0]
 
     def decode(self, cache, x, pos):
         # x [B, 1] at absolute position pos
@@ -238,7 +340,10 @@ class AttentionBlock(DecodeLayer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, d = x.shape
         q, k, v = self._qkv_heads(x)
-        o = causal_attention(q, k, v, prefix_len=self.prefix_len)
+        if sequence_parallel.current() is not None:
+            o = ring_attention(q, k, v, self.prefix_len)
+        else:
+            o = causal_attention(q, k, v, prefix_len=self.prefix_len)
         x = self._proj(o.transpose(1, 2).reshape(B, T, d), x)
         return self.mlp(x)
 

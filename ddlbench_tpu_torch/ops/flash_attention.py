@@ -12,6 +12,9 @@ The port of ``ddlbench_tpu/ops/flash_attention.py``. Three kernels in
 forward saves ``(q, k, v, o, lse)``; the backward computes
 ``delta = rowsum(dO * O)`` in float32 with torch ops (outside the kernels,
 as in the reference) and launches the dQ and the dK/dV kernels.
+:func:`flash_attention_lse` returns the lse too, differentiable: its
+cotangent shifts delta, and the same three kernels run (ring attention's
+building block, models/transformer.py).
 
 Semantics are the reference's: scale 1/sqrt(dh), float32 accumulation,
 mask value -1e30, the key at absolute position ``k_offset + j`` visible to
@@ -255,20 +258,36 @@ flash_dkv.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, q_offset, k_offset, prefix_len):
-        o, lse = flash_fwd(q, k, v, q_offset, k_offset, prefix_len)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.offsets = (q_offset, k_offset, prefix_len)
-        return o
+    """(o, lse), both differentiable. The lse's cotangent g enters the
+    backward as a shift of delta: d lse_i / d s_ij = p_ij, so
+    ds = p * (dp - (delta - g)), and the dQ and dK/dV kernels (or their
+    plain versions, with ``plain``) run unchanged on the shifted delta;
+    where the lse is not used (:func:`flash_attention`) there is no
+    shift."""
 
     @staticmethod
-    def backward(ctx, do):
+    def forward(ctx, q, k, v, q_offset, k_offset, prefix_len, plain):
+        fwd = _flash_fwd_ref if plain else flash_fwd
+        o, lse = fwd(q, k, v, q_offset, k_offset, prefix_len)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.offsets = (q_offset, k_offset, prefix_len)
+        ctx.plain = plain
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
+        if do is None:  # only the lse was used
+            do = torch.zeros_like(o)
         delta = (do.float() * o.float()).sum(-1)
-        dq = flash_dq(q, k, v, do, lse, delta, *ctx.offsets)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta, *ctx.offsets)
-        return dq, dk, dv, None, None, None
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        dq_fn, dkv_fn = ((_flash_dq_ref, _flash_dkv_ref) if ctx.plain
+                         else (flash_dq, flash_dkv))
+        dq = dq_fn(q, k, v, do, lse, delta, *ctx.offsets)
+        dk, dv = dkv_fn(q, k, v, do, lse, delta, *ctx.offsets)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -278,9 +297,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, H, Tk, dh] -> [B, H, Tq, dh], differentiable in q, k and v.
     Offsets give each block's absolute position; key positions below
     ``prefix_len`` are visible to every query."""
-    return _FlashAttention.apply(q, k, v, q_offset, k_offset, prefix_len)
+    return _FlashAttention.apply(q, k, v, q_offset, k_offset, prefix_len,
+                                 False)[0]
 
 
 # attention calls on CUDA tensors the kernels refuse, which the model's
 # "auto" dispatch sends down the plain path instead
 flash_attention.plain_launches = 0
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_offset: int = 0, k_offset: int = 0,
+                        prefix_len: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention` that also returns the row logsumexp: (o
+    [B, H, Tq, dh] in q's dtype, lse [B, H, Tq] float32), both
+    differentiable (the reference's ``flash_attention_lse``). Partial
+    results against different key blocks combine exactly through their
+    lse (ring attention, models/transformer.py). The kernels B1-B3 on a
+    CUDA query, their plain versions on a CPU one."""
+    return _FlashAttention.apply(q, k, v, q_offset, k_offset, prefix_len,
+                                 False)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, q_offset: int = 0,
+                              k_offset: int = 0, prefix_len: int = 0
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`flash_attention_lse` on any device:
+    ``_flash_fwd_ref`` and the plain backward with the same delta shift
+    (what chip_smoke.py holds the kernels' lse path against)."""
+    return _FlashAttention.apply(q, k, v, q_offset, k_offset, prefix_len,
+                                 True)

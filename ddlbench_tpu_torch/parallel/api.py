@@ -1,7 +1,7 @@
 """Strategy factory of the port (``ddlbench_tpu/parallel/api.py``
 ``make_strategy``), for the strategies it carries: ``single``, ``dp``,
-``gpipe`` (fill-drain, or an event schedule of the timetable runtime)
-and ``pipedream``."""
+``gpipe`` (fill-drain, or an event schedule of the timetable runtime),
+``pipedream``, ``sp``, ``ep`` and ``fsdp``."""
 
 from __future__ import annotations
 
@@ -9,20 +9,27 @@ from typing import Optional, Union
 
 import torch
 
-from ddlbench_tpu_torch.config import PIPELINE_STRATEGIES, RunConfig
+from ddlbench_tpu_torch.config import (PIPELINE_STRATEGIES, RANK_STRATEGIES,
+                                      RunConfig)
 from ddlbench_tpu_torch.distributed import Comm, stage_devices
 from ddlbench_tpu_torch.models.branchy import BRANCHY_ARCHS
 from ddlbench_tpu_torch.models.transformer import set_attention_backend
 from ddlbench_tpu_torch.models.zoo import get_model
 from ddlbench_tpu_torch.parallel.dp import DPStrategy
+from ddlbench_tpu_torch.parallel.ep import EPStrategy
 from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
 from ddlbench_tpu_torch.parallel.pipedream import PipeDreamStrategy
 from ddlbench_tpu_torch.parallel.pipeline_rt import ScheduledPipelineStrategy
+from ddlbench_tpu_torch.parallel.sharded import FSDPStrategy
 from ddlbench_tpu_torch.parallel.single import SingleStrategy
+from ddlbench_tpu_torch.parallel.sp import SPStrategy
 from ddlbench_tpu_torch.partition.schedule import (recommend_schedule,
                                                    recommend_virtual_stages)
 
-Strategy = Union[SingleStrategy, DPStrategy, GPipeStrategy]
+Strategy = Union[SingleStrategy, DPStrategy, GPipeStrategy, SPStrategy,
+                 EPStrategy, FSDPStrategy]
+RANK_CLASSES = {"dp": DPStrategy, "sp": SPStrategy, "ep": EPStrategy,
+                "fsdp": FSDPStrategy}
 
 
 def schedule_advice(cfg: RunConfig, num_layers: int) -> str:
@@ -86,16 +93,18 @@ def make_strategy(cfg: RunConfig, device: torch.device,
     from ``cfg.seed`` on ``device``, and return its strategy with fresh
     optimizer state. On the card an image model's convolution kernels are
     channels_last, the layout cuDNN runs fastest, as the data's images
-    are. ``dp`` runs on the rank ``comm`` (distributed.spawn gives each
-    rank its own), whose world must be ``cfg.num_devices``; rank 0's
-    weights are broadcast to the others. ``gpipe`` and ``pipedream`` run
+    are. ``dp``, ``sp``, ``ep`` and ``fsdp`` run on the rank ``comm``
+    (distributed.spawn gives each rank its own), whose world must be
+    ``cfg.num_devices``; rank 0's weights are broadcast to the others.
+    ``gpipe`` and ``pipedream`` run
     their stages on ``cfg.resolved_stages()`` devices of ``device``'s
     type: one card each, or with ``shared_card`` every stage on one card
     (distributed.stage_devices); the model's chunks are moved there."""
     cfg.validate()
-    if cfg.strategy == "dp" and comm is None:
-        raise ValueError("strategy 'dp' runs on a rank of a process group: "
-                         "pass its Comm (distributed.spawn makes them)")
+    if cfg.strategy in RANK_STRATEGIES and comm is None:
+        raise ValueError(f"strategy {cfg.strategy!r} runs on a rank of a "
+                         "process group: pass its Comm (distributed.spawn "
+                         "makes them)")
     set_attention_backend(cfg.attention_backend)
     model = get_model(cfg.arch, cfg.benchmark, seed=cfg.seed,
                       moe_capacity_factor=cfg.moe_capacity_factor)
@@ -106,8 +115,8 @@ def make_strategy(cfg: RunConfig, device: torch.device,
     model = model.to(device)
     if device.type == "cuda" and cfg.dataset().kind == "image":
         model = model.to(memory_format=torch.channels_last)
-    if cfg.strategy == "dp":
-        strategy = DPStrategy(model, cfg, comm)
+    if cfg.strategy in RANK_STRATEGIES:
+        strategy = RANK_CLASSES[cfg.strategy](model, cfg, comm)
     else:
         strategy = SingleStrategy(model, cfg)
     strategy.init()

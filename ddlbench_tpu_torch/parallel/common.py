@@ -189,6 +189,104 @@ def loss_with_moe_aux(model: LayerModel, x: torch.Tensor, y: torch.Tensor,
     return obj, ce, stats
 
 
+# ---- the rank-local sums of the data- and axis-sharded strategies ----------
+
+
+def local_loss_sums(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
+                    y: torch.Tensor, compute_dtype: torch.dtype,
+                    smoothing: float):
+    """(obj_sum, ce_sum, correct, valid) over this rank's rows or sequence
+    shard, the model in train mode (the reference's ``_local_loss_sums``
+    and ``fwd_local``): through the fused head where it is enabled and
+    the head supports it, else the logits; the objective label-smoothed,
+    the CE not. Callers reduce the sums over the ranks
+    (:func:`reduce_loss_sums`)."""
+    model.train()
+    xc = cast_input(x, compute_dtype)
+    if cfg.fused_head_loss and head_fusable(model):
+        return fused_head_loss_sums(model, xc, y, compute_dtype, smoothing,
+                                    cfg.remat_layers)
+    logits = apply_model(model, xc, compute_dtype, cfg.remat_layers)
+    return logits_loss_sums(logits, y, smoothing)
+
+
+def logits_loss_sums(logits: torch.Tensor, y: torch.Tensor,
+                     smoothing: float):
+    """(obj_sum, ce_sum, correct, valid) of ``logits`` against ``y``
+    (valid where ``y >= 0``): the sums :func:`local_loss_sums` takes
+    from the full logits."""
+    logp = F.log_softmax(
+        logits.to(torch.promote_types(logits.dtype, torch.float32)),
+        dim=-1)
+    maskf = (y >= 0).to(logp.dtype)
+    nll = -logp.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+    ce_sum = (nll * maskf).sum()
+    obj_sum = ce_sum
+    if smoothing:
+        s = smoothing
+        obj_sum = (((1.0 - s) * nll - s * logp.mean(-1)) * maskf).sum()
+    correct, valid = correct_and_count(logits, y)
+    return obj_sum, ce_sum, correct, valid
+
+
+def local_eval_sums(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
+                    y: torch.Tensor, compute_dtype: torch.dtype):
+    """(ce_sum, correct, correct5, count) over this rank's rows or
+    sequence shard, the model in eval mode, without gradients: through
+    the fused head where enabled, else the logits."""
+    model.eval()
+    xc = cast_input(x, compute_dtype)
+    with torch.no_grad():
+        if cfg.fused_head_loss and head_fusable(model):
+            return fused_head_eval_sums(model, xc, y, compute_dtype)
+        return logits_eval_sums(apply_model(model, xc, compute_dtype), y)
+
+
+def logits_eval_sums(logits: torch.Tensor, y: torch.Tensor):
+    """(ce_sum, correct, correct5, count) of ``logits`` against ``y``."""
+    logp = F.log_softmax(logits.to(torch.promote_types(
+        logits.dtype, torch.float32)), dim=-1)
+    nll = -logp.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+    ce_sum = (nll * (y >= 0).to(nll.dtype)).sum()
+    correct, count = correct_and_count(logits, y)
+    return ce_sum, correct, correct_topk(logits, y), count
+
+
+def reduce_loss_sums(comm, obj_sum: torch.Tensor, ce_sum: torch.Tensor,
+                     correct: torch.Tensor, valid: torch.Tensor,
+                     aux: Sequence[torch.Tensor] = (),
+                     aux_weight: float = 0.0):
+    """The reference's ``fwd_local`` reductions over ``comm``'s ranks:
+    (this rank's part of the objective, the global CE, global correct,
+    global count). ``count`` is all-reduced before the backward; the
+    rank differentiates its objective sum over it plus ``aux_weight`` x
+    its MoE aux sum over the world, so the ranks' gradients sum to those
+    of ``psum(obj) / count + aux_weight x psum(aux) / n``. The CE is the
+    all-reduced sum over the count (no gradient)."""
+    counts = comm.all_reduce(
+        torch.stack([correct.to(torch.int64), valid.to(torch.int64)]))
+    denom = counts[1].float().clamp(min=1.0)
+    obj = obj_sum / denom
+    if aux:
+        obj = obj + aux_weight * sum(aux) / comm.world
+    ce = comm.all_reduce(ce_sum.detach().to(
+        torch.promote_types(ce_sum.dtype, torch.float32)).clone()) / denom
+    return obj, ce, counts[0], counts[1]
+
+
+def reduce_eval_sums(comm, ce_sum: torch.Tensor, correct: torch.Tensor,
+                     correct5: torch.Tensor, count: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """The eval step's {loss, correct, correct5, count} from each rank's
+    :func:`local_eval_sums`, all-reduced."""
+    ce = comm.all_reduce(ce_sum.to(torch.promote_types(
+        ce_sum.dtype, torch.float32)).reshape(1).clone())[0]
+    ints = comm.all_reduce(torch.stack(
+        [t.to(torch.int64) for t in (correct, correct5, count)]))
+    return {"loss": ce / ints[2].clamp(min=1).float(),
+            "correct": ints[0], "correct5": ints[1], "count": ints[2]}
+
+
 def _micro_batch(t: torch.Tensor, K: int, k: int) -> torch.Tensor:
     """Rows k, k + K, k + 2K, ... of ``t`` (the reference's reshape to
     [B // K, K, ...] indexed on axis 1), in ``t``'s memory format."""

@@ -51,19 +51,16 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.distributed import Comm, local_batch_slice
-from ddlbench_tpu_torch.models.layers import (LayerModel, apply_model,
-                                             batch_parallel)
+from ddlbench_tpu_torch.models.layers import LayerModel, batch_parallel
 from ddlbench_tpu_torch.ops import threefry
 from ddlbench_tpu_torch.parallel.common import (
-    _micro_batch, bucket_slice, cast_input, correct_and_count, correct_topk,
-    flat_optimizer, fused_head_eval_sums, fused_head_loss_sums,
-    head_fusable, model_flat_meta, pack_flat, quantize_int8,
-    shard_bucket_slice, sum_safe_qmax, to_ref_layout, unpack_buckets,
-    unpack_flat)
+    _micro_batch, bucket_slice, flat_optimizer, local_eval_sums,
+    local_loss_sums, model_flat_meta, pack_flat, quantize_int8,
+    reduce_eval_sums, reduce_loss_sums, shard_bucket_slice, sum_safe_qmax,
+    to_ref_layout, unpack_buckets, unpack_flat)
 
 WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "int8": torch.int8}
@@ -216,32 +213,6 @@ class DPStrategy:
         rows = local_batch_slice(x.shape[0], self.comm.rank, self.comm.world)
         return x[rows], y[rows]
 
-    def _local_loss_sums(self, x: torch.Tensor, y: torch.Tensor):
-        """(obj_sum, ce_sum, correct, valid) over this rank's rows: the
-        reference's ``_local_loss_sums``, through the fused head where it
-        is enabled and the head supports it, else the logits."""
-        cfg = self.cfg
-        self.model.train()
-        xc = cast_input(x, self.compute_dtype)
-        if cfg.fused_head_loss and head_fusable(self.model):
-            return fused_head_loss_sums(self.model, xc, y,
-                                        self.compute_dtype, self.smoothing,
-                                        cfg.remat_layers)
-        logits = apply_model(self.model, xc, self.compute_dtype,
-                             cfg.remat_layers)
-        logp = F.log_softmax(
-            logits.to(torch.promote_types(logits.dtype, torch.float32)),
-            dim=-1)
-        maskf = (y >= 0).to(logp.dtype)
-        nll = -logp.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
-        ce_sum = (nll * maskf).sum()
-        obj_sum = ce_sum
-        if self.smoothing:
-            s = self.smoothing
-            obj_sum = (((1.0 - s) * nll - s * logp.mean(-1)) * maskf).sum()
-        correct, valid = correct_and_count(logits, y)
-        return obj_sum, ce_sum, correct, valid
-
     def _reduce(self, gf: torch.Tensor, qkey) -> torch.Tensor:
         """A rank's packed gradient -> the summed one, float32: per bucket
         the wire-dtype cast (int8: global absmax, shared scale, stochastic
@@ -270,15 +241,12 @@ class DPStrategy:
     def _micro_step(self, x, y, qkey):
         """One micro-step: (global ce, global correct, global valid, the
         reduced gradient of the rows' sum over the global valid count)."""
-        obj_sum, ce_sum, correct, valid = self._local_loss_sums(x, y)
-        counts = self.comm.all_reduce(
-            torch.stack([correct.to(torch.int64), valid.to(torch.int64)]))
-        denom = counts[1].float().clamp(min=1.0)
-        grads = torch.autograd.grad(obj_sum / denom, self.params)
-        ce = self.comm.all_reduce(ce_sum.detach().to(
-            torch.promote_types(ce_sum.dtype, torch.float32)).clone()) / denom
+        obj, ce, correct, valid = reduce_loss_sums(
+            self.comm, *local_loss_sums(self.model, self.cfg, x, y,
+                                        self.compute_dtype, self.smoothing))
+        grads = torch.autograd.grad(obj, self.params)
         gred = self._reduce(pack_flat(grads, self.meta), qkey)
-        return ce, counts[0], counts[1], gred
+        return ce, correct, valid, gred
 
     def _grads(self, x, y, qkey):
         """(ce, correct, valid, reduced gradient) of the step: one
@@ -369,24 +337,5 @@ class DPStrategy:
         batch: each rank's rows' sums, all-reduced."""
         self.materialize_params()
         x, y = self._local_rows(x, y)
-        self.model.eval()
-        xc = cast_input(x, self.compute_dtype)
-        with torch.no_grad():
-            if self.cfg.fused_head_loss and head_fusable(self.model):
-                ce_sum, correct, correct5, count = fused_head_eval_sums(
-                    self.model, xc, y, self.compute_dtype)
-            else:
-                logits = apply_model(self.model, xc, self.compute_dtype)
-                logp = F.log_softmax(logits.to(torch.promote_types(
-                    logits.dtype, torch.float32)), dim=-1)
-                nll = -logp.gather(-1, y.clamp(min=0).long()[..., None])[
-                    ..., 0]
-                ce_sum = (nll * (y >= 0).to(nll.dtype)).sum()
-                correct, count = correct_and_count(logits, y)
-                correct5 = correct_topk(logits, y)
-        ce = self.comm.all_reduce(ce_sum.to(torch.promote_types(
-            ce_sum.dtype, torch.float32)).reshape(1).clone())[0]
-        ints = self.comm.all_reduce(torch.stack(
-            [t.to(torch.int64) for t in (correct, correct5, count)]))
-        return {"loss": ce / ints[2].clamp(min=1).float(),
-                "correct": ints[0], "correct5": ints[1], "count": ints[2]}
+        return reduce_eval_sums(self.comm, *local_eval_sums(
+            self.model, self.cfg, x, y, self.compute_dtype))

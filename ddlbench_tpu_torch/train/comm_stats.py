@@ -1,6 +1,8 @@
 """Per-step communication volume (``ddlbench_tpu/train/comm_stats.py``),
 for the strategies the port carries: ``single`` (none), ``dp`` and the
-pipelines.
+pipelines. ``sp``, ``ep`` and ``fsdp`` report zeros, as the reference's
+accounting has no branch for them (their K/V and weight gathers,
+reduce-scatters and all_to_alls are not counted).
 
 The numbers are analytic, from the strategy's world, its wire dtype and
 its model's float32 parameter bytes, as the reference computes them (its
@@ -95,7 +97,8 @@ def comm_stats(strategy) -> Dict[str, float]:
             T = M * V + S - 1
             out["physical_boundary_bytes"] = (
                 2.0 * T * (S - 1) * strategy._act_size * itemsize)
-    elif name != "SingleStrategy":
+    elif name not in ("SingleStrategy", "SPStrategy", "EPStrategy",
+                      "FSDPStrategy"):
         raise NotImplementedError(f"comm_stats of {name} is not ported")
     out["total_bytes"] = (out["boundary_bytes"] + out["allreduce_bytes"]
                           + out["reduce_scatter_bytes"]

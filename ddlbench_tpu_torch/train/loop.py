@@ -72,7 +72,8 @@ def _device_of(strategy: Strategy) -> torch.device:
 
 
 def _rank(strategy: Strategy) -> int:
-    return strategy.comm.rank if isinstance(strategy, DPStrategy) else 0
+    comm = getattr(strategy, "comm", None)
+    return comm.rank if comm is not None else 0
 
 
 def scaled_lr(cfg: RunConfig, world: int) -> Tuple[float, int]:

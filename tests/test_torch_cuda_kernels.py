@@ -381,7 +381,13 @@ FLASH_CASES = [
     (64, 8, 256, 256, 0, 0, 128),   # seq2seq_s: the prefix ends on a tile
     (2, 8, 960, 960, 0, 0, 0),      # a multiple of 64, not of 128
     (2, 8, 48, 1000, 952, 0, 0),    # under one warpgroup of rows, offset
+    (16, 8, 512, 512, 512, 0, 0),   # sp's ring at world 2: a visible block
+    (16, 8, 512, 512, 0, 0, 0),     # and a diagonal one
+    (64, 8, 64, 64, 0, 64, 128),    # seq2seq_s's prefix ring at world 4:
+                                    # a block above the diagonal, seen
+                                    # through the prefix only
 ]
+RING_CASES = FLASH_CASES[-3:]
 
 
 def _flash_case(dev, dtype, B, H, Tq, Tk, seed):
@@ -421,6 +427,47 @@ def test_flash_kernels_match_plain_versions(dev, dtype, case):
     for name, a, b in zip(("o", "dq", "dk", "dv"), got, want):
         assert a.dtype == dtype and a.shape == b.shape, name
         assert torch.isfinite(a).all(), name
+        if dtype == torch.float32:
+            err = (a - b).abs().max().item()
+            assert err <= 1e-4, (name, err)
+        else:
+            err = _row_rel_err(a, b)
+            assert err <= 2.0 ** -6, (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", RING_CASES)
+def test_flash_attention_lse_matches_plain_version(dev, dtype, case):
+    """flash_attention_lse on the kernels against its plain version on the
+    rings' three block shapes under random cotangents of o and of the lse
+    (the lse's shifts delta), at the bars above: float32 end to end (o,
+    lse, dq, dk, dv); bfloat16 o and lse, and the backward kernels on the
+    plain forward's lse and shifted delta (the row bar assumes shared
+    residuals, as test_flash_kernels_match_plain_versions's: a row that
+    sees few keys has a dq that is almost only the shift)."""
+    B, H, Tq, Tk, qo, ko, pre = case
+    q, k, v, do = _flash_case(dev, dtype, B, H, Tq, Tk, sum(case) + 1)
+    g_lse = torch.randn(B, H, Tq, generator=torch.Generator().manual_seed(
+        7)).to(dev)
+    outs = []
+    for fn in (fa.flash_attention_lse, fa.flash_attention_lse_plain):
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o, lse = fn(qg, kg, vg, qo, ko, pre)
+        outs.append((o, lse, *torch.autograd.grad((o, lse), (qg, kg, vg),
+                                                  (do, g_lse))))
+    (o, lse, *grads), (o_ref, lse_ref, *grads_ref) = outs
+    if dtype == torch.bfloat16:
+        delta = (do.float() * o_ref.float()).sum(-1) - g_lse
+        grads = [fa.flash_dq(q, k, v, do, lse_ref, delta, qo, ko, pre),
+                 *fa.flash_dkv(q, k, v, do, lse_ref, delta, qo, ko, pre)]
+        grads_ref = [
+            fa._flash_dq_ref(q, k, v, do, lse_ref, delta, qo, ko, pre),
+            *fa._flash_dkv_ref(q, k, v, do, lse_ref, delta, qo, ko, pre)]
+    torch.cuda.synchronize()
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    for name, a, b in zip(("o", "dq", "dk", "dv"), (o, *grads),
+                          (o_ref, *grads_ref)):
+        assert a.dtype == dtype and torch.isfinite(a).all(), name
         if dtype == torch.float32:
             err = (a - b).abs().max().item()
             assert err <= 1e-4, (name, err)

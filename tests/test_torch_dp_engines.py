@@ -252,13 +252,10 @@ def _jax_cfg(**kw):
 ])
 def test_validate_gates_as_the_reference(kw, match):
     """Each gate raises ValueError with the reference's words, on both
-    sides (fsdp is refused by the port's strategy gate first: it is not
-    ported)."""
+    sides."""
     with pytest.raises(ValueError, match=match):
         _jax_cfg(**kw)
-    err = NotImplementedError if kw.get("strategy") == "fsdp" else ValueError
-    with pytest.raises(err, match=None if err is NotImplementedError
-                       else match):
+    with pytest.raises(ValueError, match=match):
         _cfg(**kw)
 
 

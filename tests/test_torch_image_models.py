@@ -219,8 +219,8 @@ def test_cli_refuses_unported_flags_by_name(capsys, argv):
 
 @pytest.mark.parametrize("argv", [["-f", "dp", "-g", "2", "-m",
                                    "transformer_moe_s", "-b", "synthtext"],
-                                  ["-f", "ep", "-m", "transformer_moe_s",
-                                   "-b", "synthtext"],
+                                  ["-f", "fsdp", "-g", "2", "-m",
+                                   "transformer_moe_s", "-b", "synthtext"],
                                   ["-f", "pipedream", "-g", "2", "-m",
                                    "nasnet", "-b", "cifar10"]])
 def test_cli_refuses_unported_runs(argv):

@@ -281,8 +281,9 @@ def test_synthetic_tokens():
     dict(strategy="dp", num_devices=2, elastic_slices=2),
     dict(checkpoint_dir="d"),
     dict(anomaly_policy="skip"), dict(loss_scale="dynamic"),
-    dict(strategy="ep", arch="transformer_moe_t"),
+    dict(strategy="fsdp", num_devices=2, arch="transformer_moe_t"),
     dict(strategy="dp", num_devices=2, arch="transformer_moe_t"),
+    dict(strategy="tp", num_devices=2),
 ])
 def test_unported_train_knobs_raise(knob):
     with pytest.raises(NotImplementedError):

@@ -6,7 +6,9 @@ one thread, joined through a rendezvous file (distributed.init_rank);
 every rank also joins a subgroup of ranks 0-1, so one pool runs cases at
 world 2 and at its full world. A case is the name of a function here and
 its keyword arguments (numpy arrays, plain values); the ranks of the
-case's world run it and send back what it returns.
+case's world run it and send back what it returns. A case named
+"module:function" is that function of another JAX-free test module
+(tests/torch_shard_ranks.py holds the sharded strategies' cases).
 """
 
 from __future__ import annotations
@@ -106,7 +108,14 @@ def _serve(rank, world, init_file, tasks, results):
             break
         case, w, kw = task
         try:
-            results.put((rank, True, globals()[case](comms[w], **kw)))
+            if ":" in case:
+                import importlib
+
+                mod, name = case.split(":")
+                fn = getattr(importlib.import_module(mod), name)
+            else:
+                fn = globals()[case]
+            results.put((rank, True, fn(comms[w], **kw)))
         except BaseException:
             results.put((rank, False, traceback.format_exc()))
     torch.distributed.destroy_process_group()
