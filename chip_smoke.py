@@ -126,11 +126,17 @@ one JSON line; any failure raises and exits non-zero:
              and a timeout that keeps its pages (c). Reports the first
              token index at which each pool's card streams leave the
              CPU's (not required: the kernels' summation order moves the
-             logits); then wall_tokens_per_s and decode_step_ms of the
-             command sampled against the same command greedy, in turns
-             (greedy, sampled, sampled, greedy) over a float32 pool,
-             beside the card's nvidia-smi line, with sample_ms (the
-             host's time for one draw).
+             logits), and at the first token where each int8 stream of
+             the card leaves the CPU's (ROADMAP C.9), teacher-forced on
+             the shared prefix through the serving path: the card's int8
+             logits' top-2 margin, the two tokens' gap, the int8 pool's
+             perturbation of the card's logits (max |int8 - float32|)
+             and the card's int8 logits' distance from the CPU's
+             ("int8_forks", reported; only the forked steps are read);
+             then wall_tokens_per_s and decode_step_ms of the command
+             sampled against the same command greedy, in turns (greedy,
+             sampled) over a float32 pool, beside the card's nvidia-smi
+             line, with sample_ms (the host's time for one draw).
 3d. serve_fleet — the replicated fleet on the card: transformer_s at full
              width (random weights, seed 0) over a float32 and an int8
              pool, five commands with the traffic of the reference's
@@ -167,7 +173,7 @@ one JSON line; any failure raises and exits non-zero:
              a stalled replica's monitor (a) and dispatch to the
              most-loaded replica (a). Then the serve_slo command greedy
              over a float32 pool at 1 and 2 replicas, warm, in turns
-             (1, 2, 2, 1), with wall_tokens_per_s and decode_step_ms
+             (1, 2), with wall_tokens_per_s and decode_step_ms
              beside the card's nvidia-smi line: the replicas share one
              card and take turns on its stream.
 3e. serve_disagg — disaggregated serving and the SDC ledger on the card:
@@ -207,8 +213,8 @@ one JSON line; any failure raises and exits non-zero:
              page_checksum that leaves out the sidecar keys (c). Then
              the serve_slo command greedy over a float32 pool, warm, in
              turns: 1 and 2 replicas against --disaggregate 1:1 (1, 2,
-             1:1, 1:1, 2, 1), and the ledger off against --scrub 0 and
-             --scrub 4 (off, 0, 4, 4, 0, off), with wall_tokens_per_s
+             1:1), and the ledger off against --scrub 0 and --scrub 4
+             (off, 0, 4), with wall_tokens_per_s
              and decode_step_ms beside the card's nvidia-smi line.
 3f. decode — KV-cached greedy and beam decoding (models/decode.py) on
              seq2seq_s / synthmt at full width (d 512, 8 layers, 8 heads,
@@ -440,12 +446,12 @@ one JSON line; any failure raises and exits non-zero:
              (convolutions and GEMMs, BatchNorm, pooling and reductions,
              elementwise and casts, optimizer, other) and by kernel. (d) image_cli:
              ``python -m ddlbench_tpu_torch.cli -b imagenet -f single -m
-             resnet50 -e 1 --steps-per-epoch 20`` in-process: its train,
+             resnet50 -e 1 --steps-per-epoch 10`` in-process: its train,
              epoch, valid and summary lines and the result line, every
              logged loss finite. (e) image_bench: tools/bench's headline
-             record (resnet50/imagenet, B 128, 30 steps, 5 warm-up, median
-             of 3), then image_models: one short bench row (B 32, 3 warm-up
-             and 5 steps) for each of resnet18, resnet152, vgg11, vgg16
+             record (resnet50/imagenet, B 128, 30 steps, 5 warm-up, one
+             loop: --repeats 1), then image_models: one short bench row
+             (B 32, 3 warm-up and 5 steps) for each of resnet18, vgg11
              and mobilenetv2 on imagenet.
 13. real_data — on-disk images, which run no port kernel either (the
              native loader is host C++ built by g++ from
@@ -569,7 +575,7 @@ one JSON line; any failure raises and exits non-zero:
              (T 1 024 in two 512-token shards); ep: transformer_moe_s at
              capacity factor 8 = E (no drops) and aux weight 0; fsdp:
              transformer_s; float32 (one compared step) and bfloat16 (one
-             compared step and 3 timed ones), "auto" attention, the fused
+             compared step and 2 timed ones), "auto" attention, the fused
              head, SGD, a global batch of 8 rows. (a) rank 0 holds the
              step against single's on the same rows: float32, the loss
              within 1e-5 relative and each leaf's update within 1e-4
@@ -596,6 +602,51 @@ one JSON line; any failure raises and exits non-zero:
              statistic within 1e-9 relative (IMAGE_F64_RTOL). Losses, ms
              a step and global tokens/s per cell; the two ranks' losses
              equal.
+22. serve_tp — tensor-parallel serving: servebench's serve command
+             (transformer_s at full width, closed loop, 16 requests) at
+             --serve-tp 1 and 2, over a float32 and an int8 pool, the
+             paged counters zeroed before each run. At tp 2 one replica
+             is two Megatron shards walked in one process on the one
+             card, each attending its 4 heads (B7, B8 and their int8
+             branches on the shard's contiguous pool slice): every
+             request completed, no paged call on the plain path, both
+             kernels of the pool's type launched and none of the other
+             type, float32 launches exactly twice tp 1's, the float32
+             streams bitwise tp 1's and two of them held by the
+             teacher-forced check, the pool's bytes tp 1's and the int8
+             pool a quarter of the float32 one, serve_tp in the row;
+             the int8 streams at tp 2 held to the float32 ones of the
+             same width as serve_levers holds int8 (each first flip
+             within the int8 noise, through tp-2 engines), and that
+             noise on every stream's tokens within INT8_TP_NOISE_RATIO
+             of tp 1's; tokens/s of tp 2 beside tp 1's (not a scaling
+             figure: the host walks both shards on one card).
+23-24. tpp_train, tp_train — tensor parallelism in training, in the
+             world-2 shared-card spawn of 19-21 (a spawn's start-up costs
+             tens of seconds): tpp (-f gpipe --tp-size 2: 2 stages x 2
+             shards, each rank walking fill-drain over its two stages on
+             the card, micro-batch 2 x 2 microbatches of 1 024 tokens,
+             the unfused head) and tp (-f tp: the batch of 4 rows
+             replicated, Megatron-sliced blocks, every other leaf
+             gathered on use, the fused head), transformer_s at full
+             width (each shard 4 heads of dh 64), float32 (one compared
+             step; tp also one update) and bfloat16 (one compared step
+             and 2 timed ones). (a) rank 0 holds the step against -f
+             gpipe at 2 stages (tpp) or single (tp) on the same rows, alone
+             on the card: float32, the loss within 1e-5 relative and each
+             gradient leaf (whole: the shards' slices gathered) within
+             1e-5 relative L2, and tp's update too: the momentum buffer
+             within 1e-5, every parameter after the step (its gathered
+             parts and Megatron slices whole) within 1e-5, and the step
+             the parameters took (after minus before) within 4e-4, ten
+             times the new weights' float32 rounding;
+             bfloat16, the sharded cells' bars. (c) every rank's launches
+             exactly what the steps imply (tpp: pipe_expected's, B4-B6
+             none; tp: B1-B3 8 and B4-B6 1 a step), no attention call on
+             the plain path; the ranks' losses equal. tp's resnet18 /
+             cifar10 step in float64 at 4 rows against single's within
+             1e-9 relative. Host-staged gloo on one card: ms a step and
+             tokens/s are not scaling figures.
 
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
@@ -603,8 +654,9 @@ float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
 plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
 train's, moe_train's, lstm_train's, every dp_train rank's, pipe_train's
-and every sp_train, ep_train and fsdp_train rank's, the flash forward's
-moe_decode's too), the card's name and power
+and every sp_train, ep_train, fsdp_train, tpp_train and tp_train rank's,
+the flash forward's moe_decode's too; serve_tp's tp-2 runs add to the four
+paged rows), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
 Without a CUDA device, or away from the repository, it exits non-zero and
 prints no result.
@@ -674,6 +726,8 @@ SLO_TRAFFIC = [
     "--seed", "0"]
 SLO_DEADLINES = ["--deadline-slack", "64", "--retry", "2:8"]
 SLO_SAMPLE = ["--sample", "temperature:0.8,top-k:40"]
+# the same sampler's (temperature, top-k, seed: SLO_TRAFFIC's --seed)
+SLO_DRAW = (0.8, 40, 0)
 SLO_ARGS = SLO_TRAFFIC + SLO_DEADLINES + SLO_SAMPLE
 SLO_GREEDY_ARGS = SLO_TRAFFIC + SLO_DEADLINES
 # (b)'s eviction run: a pool of 20 pages evicts on this traffic; without
@@ -809,9 +863,11 @@ IMAGE_F64_RTOL = 1e-9
 IMAGE_FLOOR = 1e-3
 IMAGE_B, IMAGE_STEPS, IMAGE_WARMUP = 128, 10, 2
 IMAGE_CLI_ARGS = ["-b", "imagenet", "-f", "single", "-m", "resnet50", "-e",
-                  "1", "--steps-per-epoch", "20"]
-IMAGE_SHORT_ARCHS = ("resnet18", "resnet152", "vgg11", "vgg16",
-                     "mobilenetv2")
+                  "1", "--steps-per-epoch", "10"]
+# tools/bench's headline record, one timed loop of its 30 steps (its
+# default is the median of 3: the script's time is shared)
+HEADLINE_ARGS = ["--repeats", "1"]
+IMAGE_SHORT_ARCHS = ("resnet18", "vgg11", "mobilenetv2")
 IMAGE_SHORT_ARGS = ["--benchmark", "imagenet", "--batch-size", "32",
                     "--warmup", "3", "--steps", "5", "--repeats", "1"]
 # real data (phase 13): the main path's batch and store (steps of train,
@@ -1499,9 +1555,8 @@ def lever_followup(server, reqs, clock):
 def serve_logits(torch, engine, toks):
     """The float32 logits [T, V] at every position of ``toks`` through
     ``engine``'s model and pools (one unchunked prefill at position 0 over
-    pages 1.., the paged chunk kernel reading back what it wrote)."""
-    from ddlbench_tpu_torch.models.layers import ServeLayer
-
+    pages 1.., the paged chunk kernel reading back what it wrote; at tp >
+    1 on every shard, the engine's own walk)."""
     page, T = engine.page, len(toks)
     npl = -(-T // page)
     dev = engine.device
@@ -1510,23 +1565,22 @@ def serve_logits(torch, engine, toks):
     h = torch.zeros((1, npl * page), dtype=torch.int32, device=dev)
     h[0, :T] = torch.tensor(toks, dtype=torch.int32)
     with torch.no_grad():
-        for layer, pool in zip(engine.model.layers, engine.pools):
-            h = (layer.serve_prefill(pool, table, h, 0, npl, page)
-                 if isinstance(layer, ServeLayer) else layer(h))
+        h = engine._walk(engine.model.layers, engine.pools, table, h,
+                         "serve_prefill", 0, npl)
     return h[0, :T].float()
 
 
-def divergences(torch, model, dev, reqs, toks_a, toks_b):
+def divergences(torch, model, dev, reqs, toks_a, toks_b, tp=1):
     """Where an int8 stream first leaves its float32 stream, the two
     tokens' logit gap through the float32 serving path on the shared
     prefix, and the int8 pool's perturbation of that position's logits
     (the largest |int8 - float32| over the vocabulary, both through the
-    serving path). A flip is within the int8 noise when the gap is at
-    most twice that perturbation."""
+    serving path at tensor-parallel width ``tp``). A flip is within the
+    int8 noise when the gap is at most twice that perturbation."""
     from ddlbench_tpu_torch.config import ServeConfig
     from ddlbench_tpu_torch.serve.engine import ServeEngine
 
-    engines = {kv: ServeEngine(model, ServeConfig(kv_dtype=kv), dev)
+    engines = {kv: ServeEngine(model, ServeConfig(kv_dtype=kv, tp=tp), dev)
                for kv in ("float32", "int8")}
     out = {}
     for rid, want in toks_a.items():
@@ -1546,6 +1600,21 @@ def divergences(torch, model, dev, reqs, toks_a, toks_b):
                     "int8_gap": (z8[a] - z8[b]).item(),
                     "within_noise": gap <= 2 * noise}
     return out
+
+
+def int8_noise(torch, model, dev, seqs, tp):
+    """The int8 pool's perturbation of the logits on each token list of
+    ``seqs`` (by rid): the largest |int8 - float32| over every position
+    and the vocabulary, both through the serving path at tensor-parallel
+    width ``tp``."""
+    from ddlbench_tpu_torch.config import ServeConfig
+    from ddlbench_tpu_torch.serve.engine import ServeEngine
+
+    f32, i8 = (ServeEngine(model, ServeConfig(kv_dtype=kv, tp=tp), dev)
+               for kv in ("float32", "int8"))
+    return {rid: (serve_logits(torch, i8, toks)
+                  - serve_logits(torch, f32, toks)).abs().max().item()
+            for rid, toks in seqs.items()}
 
 
 def phase_serve_levers(torch, pd, dev):
@@ -1674,15 +1743,15 @@ def phase_serve_levers(torch, pd, dev):
 def slo_run(model, dev, kv, trace_dir, extra=(), argv=SLO_ARGS):
     """servebench's SLO command (``argv``) over a ``kv`` pool on ``dev``,
     traced into a new file of ``trace_dir``. Returns (row, server, trace
-    path, {rid: tokens})."""
+    path, {rid: tokens}, the requests)."""
     from ddlbench_tpu_torch.tools import servebench
 
     path = str(Path(trace_dir) / f"slo_{len(os.listdir(trace_dir))}.json")
     args = servebench.build_parser().parse_args(
         argv + ["--kv-dtype", kv, "--trace", path] + list(extra))
-    (rec, server, _), = servebench.run(args, model, dev)
+    (rec, server, reqs), = servebench.run(args, model, dev)
     return rec, server, path, {f["rid"]: f["tokens"]
-                               for f in server.finished}
+                               for f in server.finished}, reqs
 
 
 def slo_row_diff(card, cpu):
@@ -1752,6 +1821,49 @@ def first_forks(card, cpu):
     return out
 
 
+def int8_fork_margins(torch, card_model, cpu_model, dev, reqs, card,
+                      cpu):
+    """ROADMAP C.9: at the first token where each int8 stream of the card
+    leaves the CPU's, teacher-forced on the shared prefix through the
+    serving path: the card's int8 logits' top-2 margin and the two
+    tokens' gap in them, the int8 pool's own perturbation of the card's
+    logits (the largest |int8 - float32| over the vocabulary) and the
+    card's int8 logits' distance from the CPU's (the largest |card -
+    CPU|). A fork lies inside the int8 noise when the card's int8 logits
+    differ from the CPU's by no more than the int8 pool perturbs them:
+    the card then computes the CPU's int8 function, and the sampled draw
+    fell on a boundary that noise of that size moves; the sampler's own
+    draw (SLO_DRAW, the token's counter-based uniform) from each side's
+    logits is replayed to see whether it gives that side's token."""
+    from ddlbench_tpu_torch.config import ServeConfig
+    from ddlbench_tpu_torch.serve.engine import ServeEngine, sample_token
+
+    engines = {(where, kv): ServeEngine(model, ServeConfig(kv_dtype=kv), d)
+               for where, model, d in (("card", card_model, dev),
+                                       ("cpu", cpu_model,
+                                        torch.device("cpu")))
+               for kv in ("float32", "int8") if (where, kv) != ("cpu",
+                                                                "float32")}
+    out = {}
+    for rid, i in first_forks(card, cpu).items():
+        toks = reqs[rid].prompt.tolist() + cpu[rid][:i]
+        z8, z32, z8_cpu = (serve_logits(torch, engines[key], toks)[-1].cpu()
+                           for key in (("card", "int8"), ("card", "float32"),
+                                       ("cpu", "int8")))
+        top = z8.topk(2).values
+        a, b = card[rid][i], cpu[rid][i]
+        noise = (z8 - z32).abs().max().item()
+        dist = (z8 - z8_cpu).abs().max().item()
+        draws = [sample_token(z.double().numpy(), *SLO_DRAW, rid, i)
+                 for z in (z8, z8_cpu)]
+        out[rid] = {"index": i, "card_top2_margin": (top[0] - top[1]).item(),
+                    "forked_tokens_gap": (z8[a] - z8[b]).item(),
+                    "int8_logit_noise": noise, "card_vs_cpu_int8": dist,
+                    "within_noise": dist <= noise,
+                    "draws_give_each_sides_token": draws == [a, b]}
+    return out
+
+
 def slo_faults(model, dev, trace_dir, cpu_rec):
     """(f): planted faults, each run on the card over a float32 pool and
     each required to fail its check: the sampler keyed by engine step in
@@ -1788,17 +1900,17 @@ def slo_faults(model, dev, trace_dir, cpu_rec):
                                  len(a.out), a.req.tier, rep)
 
     def caught_b():
-        _, _, _, base = slo_run(model, dev, "float32", trace_dir)
-        _, server, _, ev = slo_run(model, dev, "float32", trace_dir,
+        _, _, _, base, _ = slo_run(model, dev, "float32", trace_dir)
+        _, server, _, ev, _ = slo_run(model, dev, "float32", trace_dir,
                                    argv=SLO_EVICT_ARGS)
         return not slo_regenerates(base, ev, server)
 
     def caught_a():
-        rec, _, _, _ = slo_run(model, dev, "float32", trace_dir)
+        rec, _, _, _, _ = slo_run(model, dev, "float32", trace_dir)
         return bool(slo_row_diff(rec, cpu_rec))
 
     def caught_c():
-        rec, server, _, _ = slo_run(model, dev, "float32", trace_dir)
+        rec, server, _, _, _ = slo_run(model, dev, "float32", trace_dir)
         return rec["timeouts"] > 0 and not slo_conserved(rec, server)
 
     out = {}
@@ -1846,7 +1958,8 @@ def phase_serve_slo(torch, pd, dev):
         for kv in ("float32", "int8"):
             for fn in kernels:
                 fn.launches = fn.launches_int8 = fn.plain_launches = 0
-            rec, server, path, toks = slo_run(card_model, dev, kv, tmp)
+            rec, server, path, toks, reqs = slo_run(card_model, dev, kv,
+                                                    tmp)
             launches = {
                 "paged_attention": pd.paged_attention.launches,
                 "paged_chunk_attention": pd.paged_chunk_attention.launches,
@@ -1863,10 +1976,11 @@ def phase_serve_slo(torch, pd, dev):
                 and launches[f"paged_attention{other}"] == 0
                 and launches[f"paged_chunk_attention{other}"] == 0
                 and launches["plain_launches"] == 0)
-            _, _, _, toks2 = slo_run(card_model, dev, kv, tmp)
-            rec_ev, server_ev, _, toks_ev = slo_run(
+            _, _, _, toks2, _ = slo_run(card_model, dev, kv, tmp)
+            rec_ev, server_ev, _, toks_ev, _ = slo_run(
                 card_model, dev, kv, tmp, argv=SLO_EVICT_ARGS)
-            cpu_rec, cpu_server, _, cpu_toks = slo_run(cpu_model, cpu, kv,
+            cpu_rec, cpu_server, _, cpu_toks, _ = slo_run(cpu_model, cpu,
+                                                          kv,
                                                        tmp)
             cpu_rows[kv] = cpu_rec
             diff = slo_row_diff(rec, cpu_rec)
@@ -1883,6 +1997,10 @@ def phase_serve_slo(torch, pd, dev):
                                                              server_ev))
             checks[f"{kv}_d_decomposition_exact"] = decomp_ok
             forks = first_forks(toks, cpu_toks)
+            if kv == "int8":
+                # C.9, measured: only the forked steps are read
+                pools["int8_forks"] = int8_fork_margins(
+                    torch, card_model, cpu_model, dev, reqs, toks, cpu_toks)
             pools[kv] = {
                 "launches": launches, "row_diff_vs_cpu": diff,
                 "row": {k: rec.get(k) for k in SLO_ROW_KEYS},
@@ -1895,10 +2013,10 @@ def phase_serve_slo(torch, pd, dev):
                 "streams_forked_vs_cpu": len(forks),
                 "first_fork_index": min(forks.values()) if forks else None}
         # the command sampled against greedy over a float32 pool, in
-        # turns (greedy, sampled, sampled, greedy), all warm
+        # turns (greedy, sampled), both warm
         turns = {"sampled": [], "greedy": []}
-        for name in ("greedy", "sampled", "sampled", "greedy"):
-            rec, _, _, _ = slo_run(
+        for name in ("greedy", "sampled"):
+            rec, _, _, _, _ = slo_run(
                 card_model, dev, "float32", tmp,
                 argv=SLO_ARGS if name == "sampled" else SLO_GREEDY_ARGS)
             turns[name].append({k: rec.get(k) for k in (
@@ -2199,15 +2317,15 @@ def phase_serve_fleet(torch, pd, dev):
                                 "pool_bytes": pool_bytes}}
     faults = fleet_faults(card_model, dev,
                           cpu_rows[("float32", "i_kill_stall")])
-    # 1 against 2 replicas on the card, warm, in turns (1, 2, 2, 1): the
+    # 1 against 2 replicas on the card, warm, in turns (1, 2): the
     # serve_slo command greedy over a float32 pool
     turns = {"1": [], "2": []}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
         slo_run(card_model, dev, "float32", tmp, argv=SLO_GREEDY_ARGS)
-        for n in ("1", "2", "2", "1"):
-            rec, _, _, _ = slo_run(card_model, dev, "float32", tmp,
-                                   extra=["--replicas", n],
-                                   argv=SLO_GREEDY_ARGS)
+        for n in ("1", "2"):
+            rec, _, _, _, _ = slo_run(card_model, dev, "float32", tmp,
+                                      extra=["--replicas", n],
+                                      argv=SLO_GREEDY_ARGS)
             turns[n].append({k: rec.get(k) for k in (
                 "wall_s", "wall_tokens_per_s", "decode_step_ms",
                 "prefill_chunk_ms", "output_tokens", "duration",
@@ -2554,13 +2672,12 @@ def phase_serve_disagg(torch, pd, dev):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_disagg_") as tmp:
         slo_run(card_model, dev, "float32", tmp, argv=SLO_GREEDY_ARGS)
         for group, opts, order in (
-                ("layout", layouts, ("1", "2", "1:1", "1:1", "2", "1")),
-                ("integrity", ledger, ("off", "scrub_0", "scrub_4",
-                                       "scrub_4", "scrub_0", "off"))):
+                ("layout", layouts, ("1", "2", "1:1")),
+                ("integrity", ledger, ("off", "scrub_0", "scrub_4"))):
             for n in order:
-                rec, server, _, _ = slo_run(card_model, dev, "float32", tmp,
-                                            extra=opts[n],
-                                            argv=SLO_GREEDY_ARGS)
+                rec, server, _, _, _ = slo_run(card_model, dev, "float32",
+                                               tmp, extra=opts[n],
+                                               argv=SLO_GREEDY_ARGS)
                 ledgers = [e.integrity for e in server.engines
                            + server.retired if e.integrity is not None]
                 turns[group][n].append({
@@ -4591,7 +4708,7 @@ def phase_image(torch, dev):
     torch.cuda.empty_cache()
     emit({"phase": "image_cli", **image_cli(torch)})
     torch.cuda.empty_cache()
-    headline = image_bench(torch, [])
+    headline = image_bench(torch, HEADLINE_ARGS)
     emit({"phase": "image_bench", "headline": headline})
     rows = [image_bench(torch, ["--arch", arch] + IMAGE_SHORT_ARGS)
             for arch in IMAGE_SHORT_ARCHS]
@@ -5877,7 +5994,7 @@ SHARD_MOE = ("transformer_moe_s", "synthtext")
 SHARD_IMAGE = ("resnet50", "imagenet")
 SHARD_ROWS = 8  # the global batch of every token row (4 a rank under ep/fsdp)
 SHARD_IMAGE_ROWS = 4  # resnet50's float64 global batch (2 a rank)
-SHARD_TIMED = 3  # timed bfloat16 steps after the compared one
+SHARD_TIMED = 2  # timed bfloat16 steps after the compared one
 SHARD_LR = 0.01
 SHARD_CUT = 2  # sp (b): transformer_s cut to its first 2 blocks,
 SHARD_CUT_ROWS, SHARD_CUT_T = 1, 256  # one 256-token row
@@ -5887,9 +6004,8 @@ SHARD_COUNTERS = tuple(FLASH_KERNELS) + tuple(FX_KERNELS)
 # shard_token_cell). The gradient, not the update: an SGD update measured
 # as parameters after minus before carries the float32 rounding of the
 # new parameters, a floor of about one ulp of the weight against lr x
-# grad, and single (torch.optim) and the sharded strategies
-# (common.flat_optimizer) round it differently from equal gradients
-# (vs_single's "optimizer_rounding" measures that floor). float32:
+# grad. (Every strategy, single included, now updates by one formula,
+# common.flat_optimizer; tp_train compares the update too.) float32:
 # the loss within SHARD_F32_LOSS relative and each leaf's gradient
 # within SHARD_F32_GRAD relative L2, only the order of the sums
 # differing (a misrouted gradient is O(1)); bfloat16: the loss within
@@ -5910,7 +6026,7 @@ SHARD_CPU_UPDATE = 1e-3
 def shard_cfg(strategy, world, arch, bench, dtype, rows, **kw):
     from ddlbench_tpu_torch.config import RunConfig
 
-    per = rows if strategy in ("sp", "single") else rows // world
+    per = rows if strategy in ("sp", "single", "tp") else rows // world
     return RunConfig(benchmark=bench, arch=arch, strategy=strategy,
                      num_devices=world, batch_size=per, compute_dtype=dtype,
                      attention_backend="auto", seed=0, optimizer="sgd",
@@ -5990,40 +6106,6 @@ def single_grads(torch, single, batch):
     return ce.item(), {n: g.detach().clone() for n, g in zip(names, grads)}
 
 
-def optimizer_rounding(torch, single, s_grads, grads, lr):
-    """The float32 floor of an update comparison, from single's
-    parameters: the worst leaf's relative L2 distance (and the leaf)
-    between the update common.flat_optimizer (the sharded strategies')
-    makes and the one torch.optim (single's) makes, on single's gradients
-    for both ("same_gradients") and on the sharded step's ``grads`` and
-    single's ``s_grads`` respectively ("own_gradients": what comparing
-    the two train steps' updates would measure)."""
-    from ddlbench_tpu_torch.parallel.common import (flat_optimizer,
-                                                    make_optimizer)
-
-    before = named_of(single)
-    names = list(before)
-    init, update = flat_optimizer(single.cfg)
-
-    def flat_update(gs):
-        ps = [before[n].clone() for n in names]
-        new, _ = update(ps, [gs[n].float() for n in names], init(ps), lr)
-        return {n: t - before[n] for n, t in zip(names, new)}
-
-    qs = [torch.nn.Parameter(before[n].clone()) for n in names]
-    opt = make_optimizer(single.cfg, qs)
-    for q, n in zip(qs, names):
-        q.grad = s_grads[n].float().clone()
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
-    torch_update = {n: q.detach() - before[n] for n, q in zip(names, qs)}
-    return {"same_gradients": worst_update(torch, flat_update(s_grads),
-                                           torch_update),
-            "own_gradients": worst_update(torch, flat_update(grads),
-                                          torch_update)}
-
-
 def routing_of(torch, strategy):
     """Each MoE block's routing in its last forward: (the experts, one
     [S] tensor a block, and how many tokens the router's own argmax
@@ -6085,9 +6167,6 @@ def vs_single(torch, comm, model, dtype, rows, batch, loss, grads,
     rec["worst_grad_rel_l2"], rec["worst_grad_leaf"] = worst_update(
         torch, grads, s_grads)
     if dtype == "float32":
-        # reported, not a bar: why (a) compares gradients
-        rec["optimizer_rounding"] = optimizer_rounding(
-            torch, single, s_grads, grads, SHARD_LR)
         del single
         torch.cuda.empty_cache()
         rec["ok"] = (rec["loss_rel"] <= SHARD_F32_LOSS
@@ -6253,7 +6332,9 @@ def fsdp_image_f64(torch, comm):
 
 def sharded_shared_rank(comm):
     """A rank of the world-2 shared-card run: the sp, ep and fsdp token
-    cells, fsdp's float64 resnet50 step, and sp's (b)."""
+    cells, fsdp's float64 resnet50 step, sp's (b), then tpp's and tp's
+    cells and tp's float64 image step (phases 23-24, in the same spawn:
+    a spawn's start-up costs tens of seconds)."""
     import torch
 
     T = 1024
@@ -6267,6 +6348,13 @@ def sharded_shared_rank(comm):
     t0 = time.perf_counter()
     out["b_card_vs_cpu"] = sp_card_vs_cpu(torch, comm)
     out["b_s"] = time.perf_counter() - t0
+    for strategy in ("tpp", "tp"):
+        t0 = time.perf_counter()
+        out[strategy] = tp_token_cell(torch, comm, strategy)
+        out[f"{strategy}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["tp_image"] = tp_image_f64(torch, comm)
+    out["tp_image_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6363,6 +6451,407 @@ def phase_sharded(torch):
         failed += [f"{strategy}:{k}" for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"sharded-strategy checks failed: {failed}")
+    for name, n in tp_lines(shared).items():
+        launches[name] += n
+    return launches
+
+
+# ---- 22-24: tensor parallelism (serve_tp, tpp_train, tp_train) ----------
+TP = 2  # the tensor-parallel width of every tp phase
+# serve_tp: servebench's serve command at tp 1 and tp 2 over each pool
+SERVE_TP_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--policies",
+                 "continuous", "--arrival", "closed", "--requests", "16",
+                 "--seed", "0", "--wall-clock"]
+# tpp_train: 2 stages x tp 2, micro-batch 2 x 2 microbatches (global 4
+# rows of 1 024 tokens), the unfused head (the reference's tpp scope)
+TPP_STAGES, TPP_MB, TPP_M = 2, 2, 2
+TP_ROWS = 4  # tp_train's global batch, replicated on both ranks
+TP_TIMED = 2  # timed bfloat16 steps after the compared one
+# The bars, stated before the first run: float32 loss, every gradient
+# leaf (and tp's update) within TP_F32_REL relative (L2 for a leaf) of
+# -f gpipe at 2 stages (tpp) or single (tp) on the same rows, only the
+# order of the sums differing; bfloat16 as the sharded cells' (a): the
+# loss within SHARD_BF16_LOSS and each leaf within SHARD_BF16_FLOOR or
+# twice the reference strategy's own bfloat16 distance to its float32
+# gradient, whichever is larger. tp's float64 image step (every leaf
+# gathered on use, BatchNorm over the replicated batch) against single's
+# within IMAGE_F64_RTOL.
+TP_F32_REL = 1e-5
+# tp's parameters after its float32 step, every leaf whole, against
+# single's: within TP_F32_REL relative L2, and the step itself (after
+# minus before) within TP_PARAM_STEP_REL: the new weights' float32
+# rounding puts a floor of 4.04e-5 under it at this lr (PERF.md §6, a
+# probe on the card), a dropped or misplaced update reads 1 or more
+TP_PARAM_STEP_REL = 4e-4
+TP_IMAGE = ("resnet18", "cifar10")
+# serve_tp's int8 streams at tp 2, stated before the first run: every
+# first flip from the float32 streams of the same width within the int8
+# noise through tp-2 engines (serve_levers' rule), and that noise on
+# every stream's tokens at most INT8_TP_NOISE_RATIO times tp 1's on the
+# same tokens. On the CPU (transformer_s, 4 streams) tp 2 over tp 1
+# reads 0.93-1.02, and a 2 % scale error on half the shard writes
+# 1.41-1.70.
+INT8_TP_NOISE_RATIO = 1.25
+TP_IMAGE_ROWS = 4
+
+
+def tp_whole_grads(torch, comm, grads):
+    """tpp's per-rank gradients (a Megatron-sliced leaf's is its
+    shard's) whole, by "<layer>.<name>": the slices all-gathered and put
+    back together (models/transformer.tp_merge_layer_params)."""
+    from ddlbench_tpu_torch.models.transformer import (TP_SLICED_KEYS,
+                                                       tp_merge_layer_params)
+
+    layers = {}
+    for name, g in grads.items():
+        i, key = name.split(".", 1)
+        layers.setdefault(int(i), {})[key] = g
+    out = {}
+    for i, named in sorted(layers.items()):
+        if "wqkv" in named and "w1" in named:  # a dense (sliced) block
+            parts = {k: comm.all_gather(named[k].contiguous()).view(
+                comm.world, *named[k].shape) for k in TP_SLICED_KEYS}
+            named = tp_merge_layer_params(
+                [{k: t[r] for k, t in parts.items()}
+                 for r in range(comm.world)],
+                {k: v for k, v in named.items() if k not in TP_SLICED_KEYS})
+        out.update({f"{i}.{k}": v.detach().clone() for k, v in
+                    named.items()})
+    return out
+
+
+def tpp_cfg(dtype, tp):
+    from ddlbench_tpu_torch.config import RunConfig
+
+    return RunConfig(benchmark=SHARD_TOKEN[1], arch=SHARD_TOKEN[0],
+                     strategy="gpipe", num_devices=TPP_STAGES * tp,
+                     num_stages=TPP_STAGES, tp_size=tp,
+                     micro_batch_size=TPP_MB, num_microbatches=TPP_M,
+                     compute_dtype=dtype, seed=0, optimizer="sgd",
+                     fused_head_loss=False, attention_backend="auto")
+
+
+def tp_bar(rec, dtype, grads, want, own_bf16=None):
+    """(a)'s record: the loss and the worst gradient leaf against the
+    reference strategy's, ok under dtype's bar (above)."""
+    import torch
+
+    rec["worst_grad_rel_l2"], rec["worst_grad_leaf"] = worst_update(
+        torch, grads, want)
+    if dtype == "float32":
+        rec["ok"] = (rec["loss_rel"] <= TP_F32_REL
+                     and rec["worst_grad_rel_l2"] <= TP_F32_REL)
+        return rec
+    rec["reference_bf16_vs_f32_worst_grad_rel_l2"] = own_bf16
+    rec["grad_bar"] = max(SHARD_BF16_FLOOR, 2 * own_bf16)
+    rec["ok"] = (rec["loss_rel"] <= SHARD_BF16_LOSS
+                 and rec["worst_grad_rel_l2"] <= rec["grad_bar"])
+    return rec
+
+
+def tp_token_cell(torch, comm, strategy):
+    """tpp's or tp's token cell on this rank, float32 then bfloat16: the
+    counters zeroed, the compared step (the forward and backward without
+    the update, gradients gathered whole), tp's float32 update, the
+    timed bfloat16 steps; on rank 0, (a) against -f gpipe at 2 stages
+    (tpp) or single (tp) on the same rows, each alone on the card."""
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    out, ref = {}, None
+    rows = TPP_MB * TPP_M if strategy == "tpp" else TP_ROWS
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = (tpp_cfg(dtype, TP) if strategy == "tpp" else
+               shard_cfg("tp", comm.world, *SHARD_TOKEN, dtype, rows))
+        batches = shard_batches(torch, cfg, rows,
+                                1 if dtype == "float32" else 1 + TP_TIMED,
+                                comm.device)
+        card = comm.device.type == "cuda"
+        strat = make_strategy(cfg, comm.device, comm, shared_card=card)
+        counters = dp_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        plain0 = fa.flash_attention.plain_launches
+        m, grads = strat.reduced_grads(*batches[0])
+        loss = m["loss"].item()
+        grads = (tp_whole_grads(torch, comm, grads) if strategy == "tpp"
+                 else {k: v.detach().clone() for k, v in
+                       strat.whole_grads(grads).items()})
+        rec = {"loss": loss}
+        if strategy == "tp" and dtype == "float32":
+            # the update as the momentum buffer (lr x it is the step) and
+            # as what reached the parameters the rank holds, its gathered
+            # parts and its Megatron slices: every leaf whole before and
+            # after
+            before = {k: v.clone() for k, v in strat.named_params().items()}
+            strat.train_step(*batches[0], SHARD_LR)
+            update = {k: v.clone() for k, v in
+                      strat.whole_grads(strat.opt["m"]).items()}
+            after = {k: v.clone() for k, v in strat.named_params().items()}
+        ms = []
+        for x, y in batches[1:]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            strat.train_step(x, y, SHARD_LR)["loss"].item()
+            ms.append(1e3 * (time.perf_counter() - t1))
+        rec["launches"] = {n: fn.launches for n, fn in counters.items()}
+        rec["plain_launches"] = fa.flash_attention.plain_launches - plain0
+        steps = 1 + len(ms) + (strategy == "tp" and dtype == "float32")
+        if strategy == "tpp":
+            want = pipe_expected(strat, "fill-drain", steps)
+            want.update({n: 0 for n in FX_KERNELS})  # the unfused head
+        else:
+            want = {**{n: LAYERS * steps for n in FLASH_KERNELS},
+                    **{n: steps for n in FX_KERNELS}}
+        rec["launches_expected"] = want
+        if ms:
+            rec["timed_ms_per_step"] = sum(ms) / len(ms)
+            rec["global_tokens_per_s"] = (rows * 1024 * 1e3
+                                          / rec["timed_ms_per_step"])
+        if strategy == "tp":
+            rec["param_elements"] = sum(strat.param_counts().values())
+        del strat
+        torch.cuda.empty_cache()
+        rec["run_s"] = time.perf_counter() - t0
+        if comm.rank == 0:
+            t0 = time.perf_counter()
+            if strategy == "tpp":
+                base = make_strategy(tpp_cfg(dtype, 1), comm.device,
+                                     shared_card=card)
+                bm, bgrads = base.reduced_grads(*batches[0])
+                b_loss = bm["loss"].item()
+            else:
+                base = make_strategy(shard_cfg("single", 1, *SHARD_TOKEN,
+                                               dtype, rows), comm.device)
+                b_loss, bgrads = single_grads(torch, base, batches[0])
+            bgrads = {k: v.detach().clone() for k, v in bgrads.items()}
+            a = {"loss_reference": b_loss,
+                 "loss_rel": abs(loss - b_loss) / abs(b_loss)}
+            own = (None if dtype == "float32"
+                   else worst_update(torch, bgrads, ref)[0])
+            a = tp_bar(a, dtype, grads, bgrads, own)
+            if strategy == "tp" and dtype == "float32":
+                names = [f"{i}.{n}" for i, layer in
+                         enumerate(base.model.layers)
+                         for n, _ in layer.named_parameters()]
+                b_before = {n: p.detach().clone() for n, p in
+                            zip(names, base.model.parameters())}
+                base.train_step(*batches[0], SHARD_LR)
+                b_after = dict(zip(names, base.model.parameters()))
+                a["worst_update_rel_l2"], a["worst_update_leaf"] = \
+                    worst_update(torch, update,
+                                 dict(zip(names, base.opt["m"])))
+                a["worst_param_step_rel_l2"], a["worst_param_step_leaf"] = \
+                    worst_update(torch,
+                                 {k: after[k] - before[k] for k in names},
+                                 {k: b_after[k].detach() - b_before[k]
+                                  for k in names})
+                a["worst_param_rel_l2"], a["worst_param_leaf"] = \
+                    worst_update(torch, after, {k: b_after[k].detach()
+                                                for k in names})
+                a["ok"] = (a["ok"] and a["worst_update_rel_l2"] <= TP_F32_REL
+                           and a["worst_param_step_rel_l2"]
+                           <= TP_PARAM_STEP_REL
+                           and a["worst_param_rel_l2"] <= TP_F32_REL)
+            if dtype == "float32":
+                ref = bgrads
+            rec["vs_reference"] = a
+            rec["reference_s"] = time.perf_counter() - t0
+            del base
+        out[dtype] = rec
+        del grads, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_image_f64(torch, comm):
+    """TP_IMAGE under tp in float64 on TP_IMAGE_ROWS rows (every leaf
+    gathered on use): the loss, the gradient whole and the running
+    statistics against single's on the same rows (rank 0 compares)."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.parallel.sharded import TPStrategy
+
+    dev = comm.device
+    cfg = shard_cfg("tp", comm.world, *TP_IMAGE, "float32", TP_IMAGE_ROWS)
+
+    def model64():
+        return get_model(*TP_IMAGE, seed=0).to(dev, torch.float64).to(
+            memory_format=torch.channels_last)
+
+    x, y = shard_batches(torch, cfg, TP_IMAGE_ROWS, 1, dev)[0]
+    x = x.to(torch.float64).contiguous(memory_format=torch.channels_last)
+    strat = TPStrategy(model64(), cfg, comm)
+    strat.compute_dtype = torch.float64  # the model's own type
+    strat.init()
+    m, grads = strat.reduced_grads(x, y)
+    whole = strat.whole_grads(grads)
+    names = [f"{i}.{n}" for i, layer in enumerate(model64().layers)
+             for n, _ in layer.named_parameters()]
+    got = (m["loss"].item(), [whole[n].cpu() for n in names],
+           [b.detach().double().cpu() for b in strat.model.buffers()])
+    del strat, grads, whole
+    torch.cuda.empty_cache()
+    if comm.rank:
+        return None
+    single_cfg = dataclasses.replace(cfg, strategy="single", num_devices=1)
+    rec = f64_agreement(got, image_step(torch, model64(), x, y, single_cfg,
+                                        None))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tp_lines(shared):
+    """Phases 23-24 from the world-2 shared-card ranks' tpp and tp cells:
+    emits tpp_train and tp_train and returns their B1-B6 launches."""
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    failed = []
+    for strategy, phase in (("tpp", "tpp_train"), ("tp", "tp_train")):
+        checks, per_rank = {}, {}
+        for r in shared:
+            for dtype, rec in r[strategy].items():
+                who = f"rank{r['rank']}_{dtype}"
+                checks[f"c_{who}"] = (rec["plain_launches"] == 0 and
+                                      rec["launches"]
+                                      == rec["launches_expected"])
+                per_rank[who] = rec["launches"]
+                for n in SHARD_COUNTERS:
+                    launches[n] += rec["launches"][n]
+                if "vs_reference" in rec:
+                    checks[f"a_{who}"] = rec["vs_reference"]["ok"]
+        r0 = shared[0][strategy]
+        checks["same_losses_on_both_ranks"] = all(
+            shared[1][strategy][d]["loss"] == r0[d]["loss"] for d in r0)
+        line = {"phase": phase, "model": SHARD_TOKEN, "world": TP,
+                "shared_card": True, "card": card_line(),
+                "reference": ("-f gpipe, 2 stages" if strategy == "tpp"
+                              else "-f single"),
+                "cells": {d: {k: v for k, v in rec.items()
+                              if k not in ("launches",)}
+                          for d, rec in r0.items()},
+                "launches": per_rank,
+                "seconds": shared[0][f"{strategy}_s"]}
+        if strategy == "tpp":
+            line.update(stages=TPP_STAGES, micro_batch=TPP_MB,
+                        microbatches=TPP_M)
+        else:
+            line["global_batch"] = TP_ROWS
+            line["image_float64"] = {
+                "model": TP_IMAGE, "global_batch": TP_IMAGE_ROWS,
+                "seconds": shared[0]["tp_image_s"],
+                **shared[0]["tp_image"]}
+            checks["a_image_float64"] = shared[0]["tp_image"]["ok"]
+        line["checks"] = checks
+        emit(line)
+        failed += [f"{strategy}:{k}" for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"tensor-parallel checks failed: {failed}")
+    return launches
+
+
+def phase_serve_tp(torch, pd, dev):
+    """Phase 22: servebench's serve command on transformer_s at tp 1 and
+    tp 2 (one replica of two Megatron shards on the one card), over a
+    float32 and an int8 pool, the counters zeroed before each run: every
+    request completed; at tp 2 no paged call on the plain path and both
+    kernels of the pool's type launched (twice tp 1's launches: each
+    shard attends its 4 heads), none of the other type; the float32
+    streams bitwise tp 1's, two of them held by the teacher-forced check;
+    the int8 pool a quarter of the float32 pool's bytes at tp 2 as at
+    tp 1; the int8 streams at tp 2 against the float32 ones, each first
+    flip within the int8 noise, that noise within INT8_TP_NOISE_RATIO of
+    tp 1's. Tokens/s of tp 2 beside tp 1 (host-walked shards on one card:
+    not a scaling figure). Returns the tp 2 runs' launches."""
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.tools import servebench
+
+    t0 = time.perf_counter()
+    model = get_model("transformer_s", "synthtext", seed=0).to(dev)
+    kernels = (pd.paged_attention, pd.paged_chunk_attention)
+    runs, checks = {}, {}
+    launches = {n: 0 for n in KERNELS}
+    for kv in ("float32", "int8"):
+        for tp in (1, TP):
+            for fn in kernels:
+                fn.launches = fn.launches_int8 = fn.plain_launches = 0
+            argv = SERVE_TP_ARGS + ["--kv-dtype", kv, "--serve-tp", str(tp)]
+            args = servebench.build_parser().parse_args(argv)
+            (rec, server, reqs), = servebench.run(args, model, dev)
+            got = {"paged_attention": pd.paged_attention.launches,
+                   "paged_chunk_attention": pd.paged_chunk_attention.launches,
+                   "paged_attention_int8": pd.paged_attention.launches_int8,
+                   "paged_chunk_attention_int8":
+                       pd.paged_chunk_attention.launches_int8}
+            runs[(kv, tp)] = {
+                "rec": rec, "launches": got,
+                "streams": {f["rid"]: f["tokens"] for f in server.finished},
+                "server": server if tp == TP and kv == "float32" else None,
+                "reqs": reqs}
+            if tp == TP:
+                for n in KERNELS:
+                    launches[n] += got[n]
+    for kv in ("float32", "int8"):
+        one, two = runs[(kv, 1)], runs[(kv, TP)]
+        mine, other = (("_int8", "") if kv == "int8" else ("", "_int8"))
+        checks[f"{kv}_completed"] = all(
+            r["rec"]["completed"] == 16 for r in (one, two))
+        checks[f"{kv}_launches"] = (
+            two["rec"]["plain_launches"] == 0
+            and two["launches"][f"paged_attention{mine}"] > 0
+            and two["launches"][f"paged_chunk_attention{mine}"] > 0
+            and two["launches"][f"paged_attention{other}"] == 0
+            and two["launches"][f"paged_chunk_attention{other}"] == 0)
+        checks[f"{kv}_serve_tp_in_row"] = two["rec"].get("serve_tp") == TP
+        checks[f"{kv}_pool_bytes_as_tp1"] = (two["rec"]["pool_bytes"]
+                                             == one["rec"]["pool_bytes"])
+    f32 = runs[("float32", TP)]
+    checks["float32_launches_twice_tp1"] = all(
+        f32["launches"][n] == 2 * runs[("float32", 1)]["launches"][n]
+        for n in ("paged_attention", "paged_chunk_attention"))
+    checks["float32_streams_bitwise_tp1"] = (
+        f32["streams"] == runs[("float32", 1)]["streams"])
+    checks["int8_pool_quarter"] = (
+        4 * runs[("int8", TP)]["rec"]["pool_bytes"]
+        == f32["rec"]["pool_bytes"])
+    gap = teacher_forced_check(torch, model, f32["server"], f32["reqs"], dev)
+    # int8 at tp 2 (INT8_TP_NOISE_RATIO's note): its streams against the
+    # float32 ones of the same width, as serve_levers holds int8
+    i8, want = runs[("int8", TP)]["streams"], f32["streams"]
+    total = sum(len(t) for t in want.values())
+    agree = sum(x == y for r, t in want.items() for x, y in zip(t, i8[r]))
+    flips = divergences(torch, model, dev, f32["reqs"], want, i8, tp=TP)
+    checks["int8_first_flips_within_noise"] = all(
+        f["within_noise"] for f in flips.values())
+    seqs = {r: f32["reqs"][r].prompt.tolist() + t for r, t in want.items()}
+    noise = {tp: int8_noise(torch, model, dev, seqs, tp) for tp in (1, TP)}
+    ratio = {r: noise[TP][r] / noise[1][r] for r in seqs}
+    checks["int8_noise_as_tp1"] = max(ratio.values()) <= INT8_TP_NOISE_RATIO
+    int8_same = sum(i8[r] == runs[("int8", 1)]["streams"][r] for r in i8)
+    emit({"phase": "serve_tp", "argv": SERVE_TP_ARGS, "tp": TP,
+          "card": card_line(), "checks": checks,
+          "teacher_forced_max_gap": gap,
+          "int8_tp2": {"digits_vs_float32": agree / total,
+                       "digits_agree": agree, "digits_total": total,
+                       "digits_gate": DIGITS_GATE_INT8,
+                       "digits_gate_met": agree / total >= DIGITS_GATE_INT8,
+                       "first_flips": flips,
+                       "logit_noise_tp1": noise[1],
+                       "logit_noise_tp2": noise[TP],
+                       "noise_ratio_max": max(ratio.values()),
+                       "noise_ratio_bar": INT8_TP_NOISE_RATIO,
+                       "streams_equal_tp1": int8_same},
+          "rows": {f"{kv}_tp{tp}": {k: r["rec"].get(k) for k in (
+              "completed", "pool_bytes", "wall_tokens_per_s",
+              "decode_step_ms", "prefill_chunk_ms", "serve_tp")}
+              for (kv, tp), r in runs.items()},
+          "launches": {f"{kv}_tp{tp}": r["launches"]
+                       for (kv, tp), r in runs.items()},
+          "seconds": time.perf_counter() - t0})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"serve_tp checks failed: {failed}")
     return launches
 
 def main() -> int:
@@ -6420,7 +6909,7 @@ def main() -> int:
     keys = ("value", "input_stall_ms_per_epoch", "stall_frac",
             "step_time_p50_ms", "step_time_p95_ms", "run_seconds",
             "peak_memory_gib", "prefetch_depth")
-    inline = image_bench(torch, ["--prefetch-depth", "0"])
+    inline = image_bench(torch, HEADLINE_ARGS + ["--prefetch-depth", "0"])
     emit({"phase": "image_bench_prefetch", "note": "tools/bench's headline "
           "record at prefetch depth 2 (phase 12's) and at 0",
           "depth_2": {k: headline[k] for k in keys},
@@ -6432,6 +6921,8 @@ def main() -> int:
     for name, n in phase_pipe_train(torch, fa, fx, dev).items():
         train_launches[name] += n
     phase_pipe_image(torch, dev)
+    for name, n in phase_serve_tp(torch, pd, dev).items():
+        launches[name] += n
     for name, n in phase_sharded(torch).items():
         train_launches[name] += n
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})

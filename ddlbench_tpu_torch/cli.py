@@ -41,13 +41,18 @@ summary.
         -f ep -g 2 -e 1 --steps-per-epoch 20
     python -m ddlbench_tpu_torch.cli -b imagenet -m resnet50 -f fsdp -g 2 \
         -e 1 --steps-per-epoch 20
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f tp \
+        -g 2 -e 1 --steps-per-epoch 20
 
 run the sharded one-program strategies on ``-g`` ranks in the same way:
 ``sp`` splits every sequence over the ranks (ring attention; token and
 seq2seq benchmarks), ``ep`` splits the batch and every MoE block's
 experts (MoE arches), ``fsdp`` splits the batch and every parameter and
-its optimizer state (ZeRO-3; not MoE arches). Their learning rate is
-not scaled by the world (the reference scales only dp's).
+its optimizer state (ZeRO-3; not MoE arches), ``tp`` replicates the
+batch and slices every transformer block Megatron's way, every other
+parameter split and gathered on use (parallel/sharded.py). Their
+learning rate is not scaled by the world (the reference scales only
+dp's).
 
     python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f gpipe \
         -g 4 -e 1 --steps-per-epoch 20 --pipe-schedule zero-bubble
@@ -62,10 +67,14 @@ batch), ``--virtual-stages``, ``--pipe-schedule`` (gpipe: fill-drain,
 1f1b, interleaved, zero-bubble, zero-bubble-h2 with ``--zb-h2-stash``,
 searched with ``--sched-search-budget`` and ``--sched-search-seed``),
 pipedream's ``--update-interval`` and ``--plan-bounds``. gpipe prints the
-reference's schedule-advisor lines first. ``--dp-replicas``,
-``--stage-replication``, ``--tp-size``, ``--pipe-costs profile`` and
-``--schedule-trace`` are the reference's flags with its defaults; away
-from them the run is refused, naming the ROADMAP item (A.7b, A.8).
+reference's schedule-advisor lines first. ``-f gpipe --tp-size N`` (token
+and seq2seq benchmarks, fill-drain, ``-g`` = stages x N) runs tpp: one
+process a tensor-parallel shard, each walking every stage, the
+transformer blocks Megatron-sliced (parallel/tpp.py; the unfused CE
+head). ``--dp-replicas``, ``--stage-replication``, ``--pipe-costs
+profile`` and ``--schedule-trace`` are the reference's flags with its
+defaults; away from them the run is refused, naming the ROADMAP item
+(A.7b, A.8).
 
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 25, seed 1, bfloat16) and the knobs the loop reads (``-e -p
@@ -79,8 +88,8 @@ the reference's defaults);
 ``--device`` stands in for ``--platform``; ``--momentum`` and
 ``--weight-decay`` override the per-workload defaults. Every other flag
 of the reference is refused by name (an error naming it), never ignored;
-so are ``-f tp`` (ROADMAP A.7b) and the arches the port does not build
-(RunConfig.validate, models/zoo.py).
+so are the arches the port does not build (RunConfig.validate,
+models/zoo.py).
 """
 
 from __future__ import annotations
@@ -89,12 +98,11 @@ import argparse
 import json
 import sys
 
-from ddlbench_tpu_torch.config import (ATTENTION_BACKENDS, DATASETS,
-                                      RANK_STRATEGIES, RunConfig)
+from ddlbench_tpu_torch.config import ATTENTION_BACKENDS, DATASETS, RunConfig
 from ddlbench_tpu_torch.models.zoo import MODEL_NAMES
 from ddlbench_tpu_torch.partition.schedule import PIPE_SCHEDULES
 
-# the reference's strategies: tp raises NotImplementedError
+# the reference's strategies
 STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
 
 # the reference's flags the port does not carry
@@ -127,7 +135,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-b", "--benchmark", default="mnist",
                    choices=sorted(DATASETS))
     p.add_argument("-f", "--framework", default="single", choices=STRATEGIES,
-                   help="strategy (all but tp are ported)")
+                   help="strategy")
     p.add_argument("-g", "--devices", type=int, default=1,
                    help="ranks of -f dp/sp/ep/fsdp, one process and one "
                         "card each; "
@@ -305,14 +313,14 @@ def main(argv=None) -> int:
     from ddlbench_tpu_torch import distributed
     from ddlbench_tpu_torch.device import resolve_device
 
-    ranks = cfg.strategy in RANK_STRATEGIES
+    ranks = cfg.spawned_ranks()
     if ranks:
-        distributed.check_world(args.device or "cuda", cfg.num_devices)
+        distributed.check_world(args.device or "cuda", ranks)
     device = resolve_device(args.device)
     print("run manifest: " + json.dumps(vars(args)), flush=True)
     if ranks:
-        result = distributed.spawn(_train_rank, cfg.num_devices,
-                                   device.type, args=(cfg, args.jsonl))[0]
+        result = distributed.spawn(_train_rank, ranks, device.type,
+                                   args=(cfg, args.jsonl))[0]
     else:
         result = _train_rank(None, cfg, args.jsonl, device)
     print("result: " + json.dumps(result), flush=True)

@@ -117,10 +117,12 @@ DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
 
 # the strategies the port's training path runs
 PORTED_STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "ep",
-                     "fsdp")
+                     "fsdp", "tp")
 PIPELINE_STRATEGIES = ("gpipe", "pipedream")
-# the strategies whose ranks are processes of a group (distributed.spawn)
-RANK_STRATEGIES = ("dp", "sp", "ep", "fsdp")
+# the strategies whose ranks are processes of a group (distributed.spawn);
+# a gpipe with tp_size > 1 spawns one rank per shard too
+# (RunConfig.spawned_ranks)
+RANK_STRATEGIES = ("dp", "sp", "ep", "fsdp", "tp")
 # the one-apply strategies that accumulate gradients and take remat_layers
 ONE_APPLY_STRATEGIES = ("single", "dp", "tp", "fsdp")
 
@@ -130,22 +132,11 @@ _WIRE_DTYPES = {"f32": "float32", "float32": "float32",
 
 
 # (field, default, what it is, the ROADMAP item it waits on) for every
-# ServeConfig knob the port keeps for schema parity but does not implement
-# yet
-_NOT_PORTED = (
-    ("tp", 1, "tensor-parallel serving (tp > 1)",
-     "A.7b: a replica needs tp devices"),
-)
-
-
-# (field, default, what it is, the ROADMAP item it waits on) for every
 # pipeline knob of the reference the port keeps for schema parity but does
 # not implement yet
 _PIPE_NOT_PORTED = (
     ("dp_replicas", 1, "hybrid PP x DP (dp_replicas > 1)", "A.7b"),
     ("stage_replication", None, "the hetero pipeline (stage_replication)",
-     "A.7b"),
-    ("tp_size", 1, "composed tensor x pipeline parallelism (tp_size > 1)",
      "A.7b"),
     ("pipe_costs", "unit", "cost-weighted timetables (pipe_costs)",
      "A.8: the costs come from the auto-partition profile"),
@@ -239,8 +230,8 @@ class ServeConfig:
     # background scrub budget: verify up to this many stamped pages per
     # step, round-robin (0 = off; > 0 requires integrity)
     scrub: int = 0
-    # knobs of the reference config the port does not implement yet:
-    # validate() raises NotImplementedError when one leaves its default
+    # tensor-parallel width of ONE replica (serve/engine.py: Megatron
+    # shards sharing one page table)
     tp: int = 1
 
     def npg_max(self) -> int:
@@ -273,11 +264,6 @@ class ServeConfig:
             raise ValueError(
                 "max_batch, page, max_len, replicas, and tp must be "
                 "positive")
-        for name, default, what, item in _NOT_PORTED:
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"{what} ({name}={getattr(self, name)!r}) is not ported "
-                    f"to the PyTorch serving path yet (ROADMAP {item})")
         if self.prefill_chunk < 0 or self.token_budget < 0:
             raise ValueError(
                 "prefill_chunk and token_budget must be >= 0")
@@ -609,6 +595,18 @@ class RunConfig:
         chunks = self.num_microbatches or max(1, global_b // mb)
         return int(mb), int(chunks)
 
+    def spawned_ranks(self) -> int:
+        """How many rank processes the run spawns (distributed.spawn):
+        ``num_devices`` for the rank strategies, ``tp_size`` for a gpipe
+        with tp_size > 1 (one process a shard, each walking every
+        stage: parallel/tpp.py), 0 for the strategies that run in one
+        process."""
+        if self.strategy in RANK_STRATEGIES:
+            return self.num_devices
+        if self.strategy == "gpipe" and self.tp_size > 1:
+            return self.tp_size
+        return 0
+
     def global_batch(self) -> int:
         """The step's batch (the reference's rule): batch_size (or the
         default for the benchmark) rows per micro-step and device,
@@ -628,10 +626,6 @@ class RunConfig:
     def validate(self) -> None:
         if self.benchmark not in DATASETS:
             raise ValueError(f"unknown benchmark {self.benchmark!r}")
-        if self.strategy == "tp":
-            raise NotImplementedError(
-                "strategy 'tp' is not ported to the PyTorch training path "
-                "yet (ROADMAP A.7b (tensor parallelism))")
         if self.strategy not in PORTED_STRATEGIES:
             raise NotImplementedError(
                 f"strategy {self.strategy!r} is not ported to the PyTorch "
@@ -715,6 +709,26 @@ class RunConfig:
                     f"tp_size ({self.tp_size}) must equal "
                     f"num_devices ({self.num_devices})"
                 )
+        if self.tp_size < 1:
+            raise ValueError("tp_size must be >= 1")
+        if self.tp_size > 1:
+            if self.strategy != "gpipe":
+                raise ValueError(
+                    "tp_size > 1 (composed tensor x pipeline parallelism) "
+                    "runs on the gpipe strategy (parallel/tpp.py)")
+            if self.dataset().kind not in ("tokens", "seq2seq"):
+                raise ValueError(
+                    "tp_size > 1 requires a token or seq2seq benchmark "
+                    "(transformer blocks are what gets Megatron-sliced)")
+            if self.virtual_stages > 1:
+                raise ValueError(
+                    "tp_size > 1 with the interleaved schedule is not "
+                    "supported")
+            if self.pipe_schedule != "fill-drain":
+                raise ValueError(
+                    "tp_size > 1 composes with the fill-drain schedule "
+                    "(parallel/tpp.py); event-mode schedules are scoped "
+                    "to the 2-D data x stage mesh")
         if self.virtual_stages < 1:
             raise ValueError("virtual_stages must be >= 1")
         if self.pipe_schedule not in PIPE_SCHEDULES:
@@ -794,11 +808,12 @@ class RunConfig:
                 "training path yet (ROADMAP A.6b: the reference routes "
                 "over the global batch, which needs cross-rank capacity "
                 "positions and a global aux mean)")
-        if self.strategy == "fsdp" and self.remat_layers:
+        if self.strategy in ("fsdp", "tp") and self.remat_layers:
             raise NotImplementedError(
-                "remat_layers under fsdp is not ported to the PyTorch "
-                "training path yet: the recomputation would gather each "
-                "layer a third time under fsdp's saved-tensor hooks")
+                f"remat_layers under {self.strategy} is not ported to the "
+                "PyTorch training path yet (ROADMAP A.7b): the "
+                "recomputation would gather each layer a third time under "
+                "the saved-tensor hooks of its gather on use")
 
     def _validate_dp(self) -> None:
         """The reference's dp gates, worded as it words them, then the
@@ -811,6 +826,11 @@ class RunConfig:
         if self.comm_buckets < 1:
             raise ValueError("comm_buckets must be >= 1")
         if self.dp_shard_update and self.strategy == "gpipe":
+            if self.tp_size > 1:
+                raise ValueError(
+                    "dp_shard_update on gpipe (hybrid PP x ZeRO-1) is "
+                    "scoped to the 2-D data x stage mesh; tp_size > 1 "
+                    "keeps the replicated update")
             raise NotImplementedError(
                 "dp_shard_update on gpipe (hybrid PP x ZeRO-1) is not "
                 "ported to the PyTorch training path yet (ROADMAP A.7b: it "

@@ -38,11 +38,16 @@ state list (``init_model``'s second output: BatchNorm's running ``mean``
 and ``var``, of every BatchNorm, a composite layer's nodes' too) into the
 port's buffers the same way.
 
-``from_jax_opt_state(optimizer, model, opt_np)`` carries the reference's
+``from_jax_opt_state(opt, model, opt_np)`` carries the reference's
 optimizer state (``TrainState.opt``: SGD ``{"m"}``, Adam ``{"m", "v",
 "step"}``, each m/v a per-layer param list like the params) into the
-``torch.optim`` state of ``model``'s parameters, so a run can resume the
-port from a JAX TrainState mid-run.
+single strategy's state of ``model``'s parameters (the same keys,
+parallel/common.flat_optimizer), so a run can resume the port from a JAX
+TrainState mid-run.
+
+``tp_shard_params(params_np, rank, n)`` gives a tensor-parallel shard's
+part of the reference's weights, the dense blocks split by the port's
+copy of the reference's splitter, for a model sliced to that shard.
 
 The sharded strategies take the model's whole weights when they start
 (parallel/ep.py, parallel/sharded.py: convert first, then build the
@@ -175,6 +180,23 @@ def to_fsdp_shards(strategy, params_np: List[Dict]):
     return strategy
 
 
+def tp_shard_params(params_np: List[Dict], rank: int, n: int) -> List[Dict]:
+    """Tensor-parallel shard ``rank`` of ``n`` of the reference's
+    parameters (one nested dict of arrays per layer): each dense block
+    split by the port's copy of the reference's splitter
+    (models/transformer.tp_split_layer_params) into the shard's slices
+    and the leaves kept whole, every other layer whole. Load the result
+    with :func:`from_jax_params` into a model whose blocks hold that
+    shard (models/transformer.slice_block)."""
+    from ddlbench_tpu_torch.models.transformer import tp_split_layer_params
+
+    out = []
+    for tree in params_np:
+        shards, repl = tp_split_layer_params(tree, n)
+        out.append({**repl, **shards[rank]} if shards[rank] else tree)
+    return out
+
+
 @torch.no_grad()
 def from_jax_state(model: LayerModel, states_np: List[Dict]) -> LayerModel:
     """Copy the reference's per-layer state list ``states_np`` (BatchNorm
@@ -185,28 +207,21 @@ def from_jax_state(model: LayerModel, states_np: List[Dict]) -> LayerModel:
     return model
 
 
-def from_jax_opt_state(optimizer: torch.optim.Optimizer, model: LayerModel,
-                       opt_np: Mapping) -> torch.optim.Optimizer:
-    """Set ``optimizer``'s state for ``model``'s parameters from the
-    reference's optimizer state ``opt_np`` (numpy leaves): SGD ``{"m"}``
-    becomes ``momentum_buffer``; Adam ``{"m", "v", "step"}`` becomes
-    ``exp_avg``, ``exp_avg_sq`` and ``step``. Returns the optimizer."""
-    if isinstance(optimizer, torch.optim.SGD):
-        if set(opt_np) != {"m"}:
-            raise ValueError(f"SGD state must be {{'m'}}, got {set(opt_np)}")
-        for _, p, m in list(_pairs(model, opt_np["m"])):
-            optimizer.state[p] = {"momentum_buffer": _tensor_like(m, p)}
-    elif isinstance(optimizer, torch.optim.Adam):
-        if set(opt_np) != {"m", "v", "step"}:
-            raise ValueError("Adam state must be {'m', 'v', 'step'}, got "
-                             f"{set(opt_np)}")
-        step = float(np.asarray(opt_np["step"]))
-        v_by_name = {n: v for n, _, v in _pairs(model, opt_np["v"])}
-        for name, p, m in list(_pairs(model, opt_np["m"])):
-            optimizer.state[p] = {
-                "step": torch.tensor(step, dtype=torch.float32),
-                "exp_avg": _tensor_like(m, p),
-                "exp_avg_sq": _tensor_like(v_by_name[name], p)}
-    else:
-        raise TypeError(f"no reference state for {type(optimizer).__name__}")
-    return optimizer
+def from_jax_opt_state(opt: dict, model: LayerModel,
+                       opt_np: Mapping) -> dict:
+    """Set a single-strategy optimizer state ``opt``
+    (parallel/common.flat_optimizer's: ``m`` and for Adam ``v``, one
+    tensor per ``model.parameters()``, and ``step``) from the reference's
+    optimizer state ``opt_np`` (numpy leaves, the same keys), in place.
+    Returns ``opt``."""
+    want = {"m", "v", "step"} if "v" in opt else {"m"}
+    if set(opt_np) != want:
+        raise ValueError(f"the optimizer state must be {sorted(want)}, got "
+                         f"{sorted(opt_np)}")
+    index = {id(p): i for i, p in enumerate(model.parameters())}
+    for key in sorted(want - {"step"}):
+        for _, p, arr in list(_pairs(model, opt_np[key])):
+            opt[key][index[id(p)]] = _tensor_like(arr, p)
+    if "step" in want:
+        opt["step"] = int(np.asarray(opt_np["step"]))
+    return opt

@@ -34,8 +34,12 @@ Collectives are not autograd-aware on their own, so every rank must
 reach the same wrappers in the same order, forward and backward: each
 is one node that every rank's graph holds, whatever the rank computes
 with its output. :class:`AxisContext` is the model's switch into a
-sharded mode (models/transformer.sequence_parallel,
-models/moe.expert_parallel).
+sharded mode (models/transformer.sequence_parallel and
+tensor_parallel, models/moe.expert_parallel). Tensor parallelism's two
+are Megatron's: :func:`sum_forward` (the sum over the ranks forward, the
+identity backward: after a row-parallel projection) and
+:func:`sum_backward` (the identity forward, the sum backward: where a
+replicated activation enters a column-parallel one).
 """
 
 from __future__ import annotations
@@ -125,6 +129,27 @@ def stage_devices(device: str, num_stages: int,
     return [torch.device("cuda", s) for s in range(num_stages)]
 
 
+def tp_stage_devices(device: str, num_stages: int, tp: int, rank: int,
+                     shared_card: bool = False) -> List[torch.device]:
+    """The stage devices of tensor-parallel rank ``rank`` of ``tp`` in a
+    pipeline of ``num_stages`` stages (tpp): stage s on ``cuda:(s * tp +
+    rank)``, a stage's shards on adjacent cards as the reference's mesh
+    lays its 'model' axis innermost; raises, naming the count, where the
+    machine has fewer than ``num_stages * tp`` cards. ``shared_card=True``
+    puts every stage of every rank on ``cuda:0``; ``cpu`` gives the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cpu" or shared_card:
+        return stage_devices(device, num_stages, shared_card)
+    need = num_stages * tp
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < need:
+        raise RuntimeError(
+            f"{num_stages} pipeline stages x tp {tp} need {need} CUDA "
+            f"device(s) (one shard of a stage a card); this machine has "
+            f"{have} (--device cpu runs them on the CPU)")
+    return [torch.device("cuda", s * tp + rank) for s in range(num_stages)]
+
+
 def check_world(device: str, world: int, shared_card: bool = False) -> None:
     """Raise before any process starts where ``world`` ranks cannot run on
     ``device``."""
@@ -176,10 +201,18 @@ class Comm:
 
     def _run(self, name: str, fn: Callable, *tensors: torch.Tensor):
         """Run ``fn`` on ``tensors`` (the last one receives the result),
-        through pinned host copies where ``name`` is staged."""
+        through pinned host copies where ``name`` is staged, and through
+        the rank's own card where NCCL gets tensors of another (a later
+        pipeline stage's under tpp: NCCL runs on the card its group was
+        bound to)."""
         if self.group is None:
             raise RuntimeError(f"{name}: this Comm describes a world of "
                                f"{self.world} and runs no collective")
+        if self.backend == "nccl" and tensors[0].device != self.device:
+            moved = [t.to(self.device) for t in tensors]
+            fn(*moved)
+            tensors[-1].copy_(moved[-1])
+            return tensors[-1]
         if name not in self.staged or tensors[0].device.type != "cuda":
             fn(*tensors)
             return tensors[-1]
@@ -229,25 +262,72 @@ class Comm:
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, comm, on_backward):
+    def forward(ctx, t, comm, on_backward, replicated):
         ctx.comm, ctx.on_backward, ctx.shape = comm, on_backward, t.shape
+        ctx.replicated = replicated
         return comm.all_gather(t)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.on_backward is not None:
             ctx.on_backward()
-        shard = ctx.comm.reduce_scatter(g.contiguous())
-        return shard.view(ctx.shape), None, None
+        if ctx.replicated:
+            n, r = ctx.comm.world, ctx.comm.rank
+            shard = g.reshape(n, -1)[r]
+        else:
+            shard = ctx.comm.reduce_scatter(g.contiguous())
+        return shard.view(ctx.shape), None, None, None
 
 
 def all_gather_grad(t: torch.Tensor, comm: "Comm",
-                    on_backward: Optional[Callable] = None) -> torch.Tensor:
+                    on_backward: Optional[Callable] = None,
+                    replicated: bool = False) -> torch.Tensor:
     """:meth:`Comm.all_gather` (the ranks' flat ``t`` in rank order),
     differentiable: the backward reduce-scatters the gradient, so each
     rank gets the sum over the ranks of its own ``t``'s part, then calls
-    ``on_backward`` (fsdp drops a layer's re-gathered weights there)."""
-    return _AllGather.apply(t, comm, on_backward)
+    ``on_backward`` (fsdp drops a layer's re-gathered weights there).
+    ``replicated``: every rank computed the same gradient (the batch is
+    replicated: the tp strategy), so the backward takes the rank's own
+    part of it and sends nothing."""
+    return _AllGather.apply(t, comm, on_backward, replicated)
+
+
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        return comm.all_reduce(t.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm):
+        ctx.comm = comm
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g.contiguous().clone()), None
+
+
+def sum_forward(t: torch.Tensor, comm: "Comm") -> torch.Tensor:
+    """The sum of ``t`` over ``comm``'s ranks; the backward passes the
+    gradient through unchanged (Megatron's reduction after a
+    row-parallel matmul: each rank's partial product gets the whole
+    output's gradient)."""
+    return t if comm.world == 1 else _SumForward.apply(t, comm)
+
+
+def sum_backward(t: torch.Tensor, comm: "Comm") -> torch.Tensor:
+    """``t`` unchanged; the backward sums its gradient over ``comm``'s
+    ranks (Megatron's copy into a column-parallel branch: each rank's
+    slice contributes part of the replicated input's gradient). With it
+    the replicated parameters before the branch get their whole
+    gradient on every rank, so nothing else sums them."""
+    return t if comm.world == 1 else _SumBackward.apply(t, comm)
 
 
 class AxisContext:

@@ -49,19 +49,35 @@ offsets and combine exactly through their logsumexps (the reference's
 flash ring), or, under the ``"xla"`` backend, through the reference's
 float32 online-softmax einsum ring. A causal rank r runs r + 1 blocks,
 so B1-B3 launch n(n+1)/2 times per layer over the ranks.
+
+Tensor parallelism is Megatron's slicing (the reference's
+``tensor_parallel`` and ``tp_split_layer_params``): a shard of a dense
+block holds its contiguous group of heads (a column slice of ``wqkv`` out
+of each of q | k | v, and the matching row slice of ``wo``) and its slice
+of the MLP's columns (``w1``/``b1`` columns, ``w2`` rows); LayerNorms and
+``b2`` stay whole. Whether a block is sliced is read from the parameters
+it holds, as the reference reads it: a block the splitter leaves whole
+(an MoE block) computes the whole result and sums nothing. A sliced
+block's two row-parallel products are summed in the compute dtype, after
+the matmul and before the residual and ``b2``: over the ranks of the
+active :class:`tensor_parallel` context (one shard a rank: tpp and the
+``tp`` strategy, through distributed.sum_forward, the replicated inputs
+entering through sum_backward), or, for the serving engine's shards in
+one process (the serve ops' ``shards``), in shard order.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ddlbench_tpu_torch.config import ATTENTION_BACKENDS
-from ddlbench_tpu_torch.distributed import AxisContext, all_gather_grad
+from ddlbench_tpu_torch.distributed import (AxisContext, all_gather_grad,
+                                            sum_backward, sum_forward)
 from ddlbench_tpu_torch.models.layers import (DecodeLayer, LayerModel,
                                               ServeLayer)
 from ddlbench_tpu_torch.ops import flash_attention as fa
@@ -77,6 +93,7 @@ from ddlbench_tpu_torch.ops.paged_decode import (paged_attention_auto,
                                                  paged_table_chunk_write,
                                                  paged_table_span_write,
                                                  paged_table_write,
+                                                 pool_shard,
                                                  serve_pool_init)
 
 LN_EPS = 1e-5
@@ -123,6 +140,105 @@ class sequence_parallel(AxisContext):
     ``comm`` (distributed.Comm): the embedding reads this rank's
     positions and attention runs the ring (module docstring; the
     reference's ``sequence_parallel`` axis context)."""
+
+
+class tensor_parallel(AxisContext):
+    """While active, a Megatron-sliced block sums its row-parallel
+    products over the ranks of ``comm``, each rank holding one shard
+    (module docstring; the reference's ``tensor_parallel`` axis
+    context)."""
+
+
+# the dense block's leaves sliced per shard; everything else (LN scales
+# and biases, b2, embeddings, heads, MoE blocks) stays whole
+TP_SLICED_KEYS = ("wqkv", "wo", "w1", "b1", "w2")
+
+
+def tp_split_layer_params(p, n: int):
+    """Split one layer's parameters ({name: array}: the reference's nested
+    dict of numpy arrays, or the port's named tensors) n ways: returns
+    ``(shards, repl)``, ``shards[s]`` shard s's sliced leaves and ``repl``
+    the rest, kept whole. A layer that is not a dense block (no wqkv, wo,
+    w1 and w2 at its top level) comes back whole, ``shards[s] == {}``.
+    The reference's splitter, for both packages' arrays."""
+    if not (isinstance(p, dict) and {"wqkv", "wo", "w1", "w2"} <= set(p)):
+        return [{} for _ in range(n)], p
+    d = p["wo"].shape[1]
+    f = p["w1"].shape[1]
+    if d % n or f % n:
+        raise ValueError(
+            f"tensor parallelism: d_model={d} / mlp width={f} not divisible "
+            f"by tp_size={n}")
+    dl, fl = d // n, f // n
+    shards = [{
+        # the same head group out of each of the q | k | v blocks, so the
+        # shard's qkv still splits into thirds
+        "wqkv": p["wqkv"].reshape(d, 3, d)[:, :, s * dl:(s + 1) * dl]
+                .reshape(d, 3 * dl),
+        "wo": p["wo"][s * dl:(s + 1) * dl, :],
+        "w1": p["w1"][:, s * fl:(s + 1) * fl],
+        "b1": p["b1"][s * fl:(s + 1) * fl],
+        "w2": p["w2"][s * fl:(s + 1) * fl, :],
+    } for s in range(n)]
+    repl = {k: v for k, v in p.items() if k not in TP_SLICED_KEYS}
+    return shards, repl
+
+
+def tp_merge_layer_params(shards, repl) -> dict:
+    """Inverse of :func:`tp_split_layer_params` on tensors: the layer's
+    whole parameters from its shards' slices and the rest."""
+    out = dict(repl)
+    if not shards[0]:
+        return out
+    d, w = shards[0]["wqkv"].shape
+    out["wqkv"] = torch.cat([s["wqkv"].reshape(d, 3, w // 3)
+                             for s in shards], 2).reshape(d, -1)
+    for key, dim in (("wo", 0), ("w1", 1), ("b1", 0), ("w2", 0)):
+        out[key] = torch.cat([s[key] for s in shards], dim)
+    return out
+
+
+def slice_block(block: nn.Module, rank: int, n: int) -> bool:
+    """Replace a dense block's sliced parameters by shard ``rank`` of
+    ``n``'s slices, in place; returns whether the block was sliced (a
+    layer the splitter leaves whole is left as it is)."""
+    named = dict(block.named_parameters())
+    shards, _ = tp_split_layer_params(
+        {k: v.detach() for k, v in named.items()}, n)
+    if not shards[0]:
+        return False
+    if n > 1 and getattr(block, "n_heads", 0) % n:
+        raise ValueError(f"tensor parallelism: n_heads={block.n_heads} not "
+                         f"divisible by tp_size={n}")
+    for key, t in shards[rank].items():
+        setattr(block, key, nn.Parameter(t.contiguous().clone()))
+    return True
+
+
+def _tp_enter(h: torch.Tensor) -> torch.Tensor:
+    """A replicated activation entering a sliced branch: its gradient is
+    summed over the active tensor_parallel ranks."""
+    comm = tensor_parallel.current()
+    return h if comm is None else sum_backward(h, comm)
+
+
+def _tp_sum(t: torch.Tensor) -> torch.Tensor:
+    """A sliced block's row-parallel product summed over the active
+    tensor_parallel ranks."""
+    comm = tensor_parallel.current()
+    if comm is None:
+        raise RuntimeError(
+            "a Megatron-sliced block runs inside tensor_parallel (one shard "
+            "a rank) or on the serving engine's shards")
+    return sum_forward(t, comm)
+
+
+def _sum_shards(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The shards' partial products summed in shard order."""
+    out = parts[0]
+    for t in parts[1:]:
+        out = out + t
+    return out
 
 
 def shard_positions(pos_table: torch.Tensor, T: int):
@@ -324,18 +440,32 @@ class AttentionBlock(DecodeLayer):
         self.wo = _normal(gen, d, d)
         self.ln2 = LayerNorm(d)
 
-    def _qkv_heads(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def _qkv_heads(self, x: torch.Tensor,
+                   p: Optional[dict] = None) -> List[torch.Tensor]:
         """q, k, v as [B, H, T, dh] from contiguous thirds of ln1(x) @
-        wqkv."""
+        wqkv: the block's own wqkv, or serving shard ``p``'s slice. H is
+        the number of heads that wqkv holds (n_heads / tp for a slice);
+        a sliced block's own input enters through the rank sum of its
+        gradient."""
         B, T, d = x.shape
-        qkv = self.ln1(x) @ self.wqkv.to(x.dtype)
-        return [t.reshape(B, T, self.n_heads, self.dh).transpose(1, 2)
-                for t in qkv.split(d, dim=-1)]
+        wqkv = self.wqkv if p is None else p["wqkv"]
+        h = self.ln1(x)
+        if p is None and wqkv.shape[1] < 3 * d:
+            h = _tp_enter(h)
+        qkv = h @ wqkv.to(x.dtype)
+        w = qkv.shape[-1] // 3
+        return [t.reshape(B, T, w // self.dh, self.dh).transpose(1, 2)
+                for t in qkv.split(w, dim=-1)]
 
     def _proj(self, o2: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """Output projection + residual of the attention sublayer; ``o2``
-        is the [B, T, d] attention output."""
-        return x + o2 @ self.wo.to(x.dtype)
+        is the [B, T, H * dh] attention output of the block's heads. A
+        row slice of wo sums its product over the tensor_parallel
+        ranks."""
+        proj = o2 @ self.wo.to(x.dtype)
+        if self.wo.shape[0] < x.shape[-1]:
+            proj = _tp_sum(proj)
+        return x + proj
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, d = x.shape
@@ -344,7 +474,7 @@ class AttentionBlock(DecodeLayer):
             o = ring_attention(q, k, v, self.prefix_len)
         else:
             o = causal_attention(q, k, v, prefix_len=self.prefix_len)
-        x = self._proj(o.transpose(1, 2).reshape(B, T, d), x)
+        x = self._proj(o.transpose(1, 2).reshape(B, T, -1), x)
         return self.mlp(x)
 
     # -- the cached-decode protocol (models/decode.py) ---------------------
@@ -358,7 +488,7 @@ class AttentionBlock(DecodeLayer):
         q, k, v = self._qkv_heads(x)
         record(k, v)
         o = causal_attention(q, k, v, start, start, self.prefix_len)
-        return self.mlp(self._proj(o.transpose(1, 2).reshape(B, T, d), x))
+        return self.mlp(self._proj(o.transpose(1, 2).reshape(B, T, -1), x))
 
     def init_cache(self, batch, max_len, dtype, device):
         shape = (batch, self.n_heads, max_len, self.dh)
@@ -423,71 +553,116 @@ class AttentionBlock(DecodeLayer):
 
 class TransformerBlock(AttentionBlock, ServeLayer):
     """Pre-LN block: x + attn(ln1(x)), then x + mlp(ln2(x)) + b2 (the
-    dense GELU MLP, 4x), with the serving ops (causal-LM only)."""
+    dense GELU MLP, 4x), with the serving ops (causal-LM only). The
+    serving ops take the engine's tensor-parallel ``shards`` (one dict of
+    :data:`TP_SLICED_KEYS` slices a shard, the pool's per-slot tensors
+    stacked on a leading [tp] axis): each shard writes and attends its
+    heads in its slice of the pool, and the shards' row-parallel products
+    are summed in shard order."""
 
     def __init__(self, d_model: int, n_heads: int, gen: torch.Generator,
                  mlp_ratio: int = 4, prefix_len: int = 0):
         super().__init__(d_model, n_heads, gen, prefix_len)
         d, f = d_model, mlp_ratio * d_model
+        self.mlp_width = f
         self.w1 = _normal(gen, d, f)
         self.b1 = nn.Parameter(torch.zeros(f))
         self.w2 = _normal(gen, f, d)
         self.b2 = nn.Parameter(torch.zeros(d))
 
-    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+    def _mlp_part(self, x: torch.Tensor,
+                  p: Optional[dict] = None) -> torch.Tensor:
+        """gelu(ln2(x) @ w1 + b1) @ w2 over the block's MLP columns, or
+        serving shard ``p``'s: a partial product where they are a
+        slice."""
+        w1, b1, w2 = ((self.w1, self.b1, self.w2) if p is None
+                      else (p["w1"], p["b1"], p["w2"]))
         h = self.ln2(x)
-        h = F.gelu(h @ self.w1.to(x.dtype) + self.b1.to(x.dtype),
-                   approximate="tanh")
-        return x + h @ self.w2.to(x.dtype) + self.b2.to(x.dtype)
+        if p is None and w1.shape[1] < self.mlp_width:
+            h = _tp_enter(h)
+        h = F.gelu(h @ w1.to(x.dtype) + b1.to(x.dtype), approximate="tanh")
+        return h @ w2.to(x.dtype)
+
+    def mlp(self, x: torch.Tensor) -> torch.Tensor:
+        proj = self._mlp_part(x)
+        if self.w1.shape[1] < self.mlp_width:
+            proj = _tp_sum(proj)
+        return x + proj + self.b2.to(x.dtype)
 
     mlp_one = mlp
 
     # -- the serving protocol (serve/engine.py) ----------------------------
 
-    def pool_init(self, n_pages, page, dtype, device):
-        return serve_pool_init(n_pages, page, self.n_heads, self.dh, dtype,
-                               device)
+    def pool_init(self, n_pages, page, dtype, device, tp: int = 1):
+        """The layer's pool; at ``tp`` > 1 each shard's [n_pages, page,
+        n_heads / tp, dh] slice stacked on a leading [tp] axis."""
+        if tp == 1:
+            return serve_pool_init(n_pages, page, self.n_heads, self.dh,
+                                   dtype, device)
+        return serve_pool_init(n_pages, page, self.n_heads // tp, self.dh,
+                               dtype, device, shards=tp)
 
-    def serve_prefill(self, pool, table, x, start, npl, page):
+    def _serve(self, x, pool, shards, attend):
+        """The block over a serving pass: ``attend(p, pool)`` writes a
+        shard's K/V and returns its attention output [B, T, H * dh] (p
+        None: the block's own parameters and whole pool)."""
+        if shards is None:
+            return self.mlp(self._proj(attend(None, pool), x))
+        x = x + _sum_shards([attend(p, pool_shard(pool, s))
+                             @ p["wo"].to(x.dtype)
+                             for s, p in enumerate(shards)])
+        return (x + _sum_shards([self._mlp_part(x, p) for p in shards])
+                + self.b2.to(x.dtype))
+
+    def serve_prefill(self, pool, table, x, start, npl, page, shards=None):
         """Write the page-aligned chunk's K/V through the shared table,
         then attend the chunk queries against the live pages."""
-        B, C, d = x.shape
-        q, k, v = self._qkv_heads(x)  # [B, H, C, dh]
-        cache = {**pool, "table": table}
-        paged_table_chunk_write(cache, k.transpose(1, 2), v.transpose(1, 2),
-                                start, page)
-        o = paged_chunk_attention_auto(q.contiguous(), cache, start, npl,
-                                       page)
-        x = self._proj(o.transpose(1, 2).reshape(B, C, d), x)
-        return self.mlp(x)
+        B, C, _ = x.shape
 
-    def serve_decode(self, pool, table, x, pos, npl, page):
+        def attend(p, pool):
+            q, k, v = self._qkv_heads(x, p)  # [B, H, C, dh]
+            cache = {**pool, "table": table}
+            paged_table_chunk_write(cache, k.transpose(1, 2),
+                                    v.transpose(1, 2), start, page)
+            o = paged_chunk_attention_auto(q.contiguous(), cache, start, npl,
+                                           page)
+            return o.transpose(1, 2).reshape(B, C, -1)
+
+        return self._serve(x, pool, shards, attend)
+
+    def serve_decode(self, pool, table, x, pos, npl, page, shards=None):
         """Write each row's token K/V at its own position through the
         table, then single-query attention over the live pages."""
-        B, _, d = x.shape
-        q, k, v = self._qkv_heads(x)  # [B, H, 1, dh]
-        cache = {**pool, "table": table}
-        paged_table_write(cache, k.transpose(1, 2), v.transpose(1, 2), pos,
-                          page)
-        o = paged_attention_auto(q[:, :, 0].contiguous(), cache, pos, npl,
-                                 page)
-        x = self._proj(o.reshape(B, 1, d), x)
-        return self.mlp(x)
+        B = x.shape[0]
 
-    def serve_verify(self, pool, table, x, pos0, npl, page):
+        def attend(p, pool):
+            q, k, v = self._qkv_heads(x, p)  # [B, H, 1, dh]
+            cache = {**pool, "table": table}
+            paged_table_write(cache, k.transpose(1, 2), v.transpose(1, 2),
+                              pos, page)
+            o = paged_attention_auto(q[:, :, 0].contiguous(), cache, pos,
+                                     npl, page)
+            return o.reshape(B, 1, -1)
+
+        return self._serve(x, pool, shards, attend)
+
+    def serve_verify(self, pool, table, x, pos0, npl, page, shards=None):
         """The speculative verify pass: write the W-token span's K/V at
         page-unaligned per-row positions [pos0, pos0 + W), then attend all
         W queries causally at their absolute positions (the chunk kernel
         with per-row starts)."""
-        B, W, d = x.shape
-        q, k, v = self._qkv_heads(x)  # [B, H, W, dh]
-        cache = {**pool, "table": table}
-        paged_table_span_write(cache, k.transpose(1, 2), v.transpose(1, 2),
-                               pos0, page)
-        o = paged_chunk_attention_auto(q.contiguous(), cache, pos0, npl,
-                                       page)
-        x = self._proj(o.transpose(1, 2).reshape(B, W, d), x)
-        return self.mlp(x)
+        B, W, _ = x.shape
+
+        def attend(p, pool):
+            q, k, v = self._qkv_heads(x, p)  # [B, H, W, dh]
+            cache = {**pool, "table": table}
+            paged_table_span_write(cache, k.transpose(1, 2),
+                                   v.transpose(1, 2), pos0, page)
+            o = paged_chunk_attention_auto(q.contiguous(), cache, pos0, npl,
+                                           page)
+            return o.transpose(1, 2).reshape(B, W, -1)
+
+        return self._serve(x, pool, shards, attend)
 
 
 class LMHead(nn.Module):

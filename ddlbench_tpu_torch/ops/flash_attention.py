@@ -182,11 +182,12 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention")
-    code = lib.ddl_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B * H, Tq, k.shape[2], dh, q_offset, k_offset,
-        prefix_len, 1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the operands' card
+        code = lib.ddl_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B * H, Tq, k.shape[2], dh, q_offset, k_offset,
+            prefix_len, 1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -216,11 +217,13 @@ def flash_dq(q, k, v, do, lse, delta, q_offset: int = 0, k_offset: int = 0,
     B, H, Tq, dh = q.shape
     dq = torch.empty_like(q)
     lib = _build.library("flash_attention")
-    code = lib.ddl_flash_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, Tq,
-        k.shape[2], dh, q_offset, k_offset, prefix_len, 1.0 / math.sqrt(dh),
-        _DTYPE_CODE[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the operands' card
+        code = lib.ddl_flash_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B * H, Tq,
+            k.shape[2], dh, q_offset, k_offset, prefix_len,
+            1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "flash_dq")
     flash_dq.launches += 1
     return dq
@@ -241,12 +244,13 @@ def flash_dkv(q, k, v, do, lse, delta, q_offset: int = 0, k_offset: int = 0,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _build.library("flash_attention")
-    code = lib.ddl_flash_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B * H, Tq, k.shape[2], dh, q_offset, k_offset, prefix_len,
-        1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the operands' card
+        code = lib.ddl_flash_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B * H, Tq, k.shape[2], dh, q_offset, k_offset, prefix_len,
+            1.0 / math.sqrt(dh), _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "flash_dkv")
     flash_dkv.launches += 1
     return dk, dv

@@ -178,10 +178,11 @@ def fxent_fwd(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
     lse, gold, zsum = (torch.empty(N, **f32) for _ in range(3))
     amax = torch.empty(N, dtype=torch.int32, device=h.device)
     lib = _build.library("fused_xent")
-    code = lib.ddl_fxent_fwd(
-        h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
-        gold.data_ptr(), zsum.data_ptr(), amax.data_ptr(), N, D, w.shape[1],
-        _DTYPE_CODE[h.dtype], _stream(h))
+    with torch.cuda.device(h.device):  # the operands' card
+        code = lib.ddl_fxent_fwd(
+            h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+            gold.data_ptr(), zsum.data_ptr(), amax.data_ptr(), N, D,
+            w.shape[1], _DTYPE_CODE[h.dtype], _stream(h))
     _build.check(lib, code, "fxent_fwd")
     fxent_fwd.launches += 1
     return lse, gold, zsum, amax
@@ -199,10 +200,11 @@ def _bwd(name: str, h, w, labels, lse, coef, out_like):
                          f"coef {tuple(coef.shape)} [3]")
     out = torch.empty_like(out_like, memory_format=torch.contiguous_format)
     lib = _build.library("fused_xent")
-    code = getattr(lib, f"ddl_{name}")(
-        h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
-        coef.data_ptr(), out.data_ptr(), h.shape[0], h.shape[1], w.shape[1],
-        _DTYPE_CODE[h.dtype], _stream(h))
+    with torch.cuda.device(h.device):  # the operands' card
+        code = getattr(lib, f"ddl_{name}")(
+            h.data_ptr(), w.data_ptr(), lab.data_ptr(), lse.data_ptr(),
+            coef.data_ptr(), out.data_ptr(), h.shape[0], h.shape[1],
+            w.shape[1], _DTYPE_CODE[h.dtype], _stream(h))
     _build.check(lib, code, name)
     return out
 

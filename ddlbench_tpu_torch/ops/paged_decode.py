@@ -74,8 +74,12 @@ BEAM_CACHE_DTYPES = (torch.float32, torch.bfloat16)
 KV_QMAX = 127.0
 # pool dtype codes of the C launchers
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the per-slot tensors of a pool (what a page copy moves)
-_SLOT_KEYS = ("pool_k", "pool_v", "scale_k", "scale_v")
+# the per-slot tensors of a pool (what a page copy moves) and their rank
+# on one pool: [n_pages, page, H, dh] payload, [n_pages, page] scales. A
+# stacked pool (serve_pool_init's ``shards``) and rows fetched from one
+# have one more, the shard axis, first
+_SLOT_NDIM = {"pool_k": 4, "pool_v": 4, "scale_k": 2, "scale_v": 2}
+_SLOT_KEYS = tuple(_SLOT_NDIM)
 # the one head dim the kernels are built for (every transformer variant's)
 KERNEL_DH = 64
 
@@ -88,28 +92,54 @@ def pool_quantized(pool: Pool) -> bool:
 
 
 def serve_pool_init(n_pages: int, page: int, n_heads: int, dh: int,
-                    dtype: torch.dtype, device: torch.device) -> Pool:
+                    dtype: torch.dtype, device: torch.device,
+                    shards: int = 0) -> Pool:
     """A shared K/V pool of ``n_pages`` free-list-managed slots, zeroed
     (slot 0 is the scratch page — serve/allocator.py never hands it
     out). ``dtype`` float32 or bfloat16, or int8 for the quantised layout:
     the int8 payload plus zeroed scale sidecars (an unwritten position
-    dequantises to exactly 0)."""
+    dequantises to exactly 0). ``shards`` > 0 stacks that many such pools
+    on a leading axis (a tensor-parallel replica's shards, each with its
+    ``n_heads`` heads; :func:`pool_shard` views shard s's)."""
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"serve pool dtype {dtype} must be float32, "
                          "bfloat16 or int8")
-    shape = (n_pages, page, n_heads, dh)
+    lead = (shards,) if shards else ()
+    shape = lead + (n_pages, page, n_heads, dh)
     pool = {"pool_k": torch.zeros(shape, dtype=dtype, device=device),
             "pool_v": torch.zeros(shape, dtype=dtype, device=device)}
     if dtype == torch.int8:
         for name in ("scale_k", "scale_v"):
-            pool[name] = torch.zeros(n_pages, page, device=device)
+            pool[name] = torch.zeros(lead + (n_pages, page), device=device)
     return pool
+
+
+def pool_shard(pool: Pool, s: int) -> Pool:
+    """Shard ``s``'s pool of a stacked one (:func:`serve_pool_init`'s
+    ``shards``): a contiguous view of each per-slot tensor; the layer's
+    ``kv_seed`` and rounding table are every shard's."""
+    return {k: (v[s] if k in _SLOT_KEYS else v) for k, v in pool.items()}
+
+
+def slot_axis(key: str, t) -> int:
+    """The slot (page) axis of per-slot tensor ``key`` of a pool, or of
+    rows fetched from one (torch or numpy): 0, or 1 where the tensor's
+    rank shows a stacked pool's leading shard axis."""
+    return t.ndim - _SLOT_NDIM[key]
+
+
+def slot_index(key: str, t, idx) -> tuple:
+    """``t[slot_index(key, t, idx)]`` reads or assigns slot(s) ``idx``'s
+    rows of per-slot tensor ``key`` (every shard's on a stacked pool)."""
+    return (slice(None),) * slot_axis(key, t) + (idx,)
 
 
 def pool_page_bytes(pool: Pool) -> int:
     """K/V payload bytes per page slot of ``pool`` (the scale sidecars
-    excluded, so an int8 pool is exactly a quarter of a float32 one)."""
-    return sum(pool[n].element_size() * pool[n][0].numel()
+    excluded, so an int8 pool is exactly a quarter of a float32 one); a
+    stacked pool's shards' slices sum to the whole page."""
+    return sum(pool[n].element_size() * pool[n].numel()
+               // pool[n].shape[slot_axis(n, pool[n])]
                for n in ("pool_k", "pool_v"))
 
 
@@ -282,11 +312,13 @@ def paged_table_span_write(cache: Pool, k: torch.Tensor, v: torch.Tensor,
 def serve_page_copy(pool: Pool, src: int, dst: int) -> Pool:
     """Copy-on-write: copy pool slot ``src`` into slot ``dst`` in place,
     in every per-slot tensor — the payload and, on an int8 pool, the scale
-    sidecars, so the copy dequantises bit-identically to its source. The
-    layer's ``kv_seed`` and rounding table are not per-slot and stay."""
+    sidecars, so the copy dequantises bit-identically to its source; on
+    every shard of a stacked pool. The layer's ``kv_seed`` and rounding
+    table are not per-slot and stay."""
     for name in _SLOT_KEYS:
         if name in pool:
-            pool[name][dst] = pool[name][src]
+            t = pool[name]
+            t[slot_index(name, t, dst)] = t[slot_index(name, t, src)]
     return pool
 
 
@@ -558,12 +590,14 @@ def paged_attention(q: torch.Tensor, cache: Pool,
     out = torch.empty_like(q)
     table = cache["table"]
     lib = _build.library("paged_attention")
-    code = lib.ddl_paged_decode(
-        q.data_ptr(), cache["pool_k"].data_ptr(), cache["pool_v"].data_ptr(),
-        *_scale_ptrs(cache), table.data_ptr(), posv.data_ptr(),
-        out.data_ptr(), rows, H, dh, page, npages_live, table.shape[1],
-        1.0 / math.sqrt(dh), _DTYPE_CODE[cache["pool_k"].dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the operands' card
+        code = lib.ddl_paged_decode(
+            q.data_ptr(), cache["pool_k"].data_ptr(),
+            cache["pool_v"].data_ptr(),
+            *_scale_ptrs(cache), table.data_ptr(), posv.data_ptr(),
+            out.data_ptr(), rows, H, dh, page, npages_live, table.shape[1],
+            1.0 / math.sqrt(dh), _DTYPE_CODE[cache["pool_k"].dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_attention")
     _count(paged_attention, cache)
     return out
@@ -586,12 +620,14 @@ def paged_chunk_attention(q: torch.Tensor, cache: Pool,
     out = torch.empty_like(q)
     table = cache["table"]
     lib = _build.library("paged_attention")
-    code = lib.ddl_paged_chunk(
-        q.data_ptr(), cache["pool_k"].data_ptr(), cache["pool_v"].data_ptr(),
-        *_scale_ptrs(cache), table.data_ptr(), startv.data_ptr(),
-        out.data_ptr(), rows, H, C, dh, page, npages_live, table.shape[1],
-        1.0 / math.sqrt(dh), _DTYPE_CODE[cache["pool_k"].dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):  # the operands' card
+        code = lib.ddl_paged_chunk(
+            q.data_ptr(), cache["pool_k"].data_ptr(),
+            cache["pool_v"].data_ptr(),
+            *_scale_ptrs(cache), table.data_ptr(), startv.data_ptr(),
+            out.data_ptr(), rows, H, C, dh, page, npages_live, table.shape[1],
+            1.0 / math.sqrt(dh), _DTYPE_CODE[cache["pool_k"].dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, code, "paged_chunk_attention")
     _count(paged_chunk_attention, cache)
     return out

@@ -1,7 +1,8 @@
 """Strategy factory of the port (``ddlbench_tpu/parallel/api.py``
 ``make_strategy``), for the strategies it carries: ``single``, ``dp``,
-``gpipe`` (fill-drain, or an event schedule of the timetable runtime),
-``pipedream``, ``sp``, ``ep`` and ``fsdp``."""
+``gpipe`` (fill-drain, or an event schedule of the timetable runtime, or
+with ``tp_size`` > 1 tpp's Megatron-sliced stages), ``pipedream``,
+``sp``, ``ep``, ``fsdp`` and ``tp``."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 
 from ddlbench_tpu_torch.config import (PIPELINE_STRATEGIES, RANK_STRATEGIES,
                                       RunConfig)
-from ddlbench_tpu_torch.distributed import Comm, stage_devices
+from ddlbench_tpu_torch.distributed import (Comm, stage_devices,
+                                            tp_stage_devices)
 from ddlbench_tpu_torch.models.branchy import BRANCHY_ARCHS
 from ddlbench_tpu_torch.models.transformer import set_attention_backend
 from ddlbench_tpu_torch.models.zoo import get_model
@@ -20,16 +22,17 @@ from ddlbench_tpu_torch.parallel.ep import EPStrategy
 from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
 from ddlbench_tpu_torch.parallel.pipedream import PipeDreamStrategy
 from ddlbench_tpu_torch.parallel.pipeline_rt import ScheduledPipelineStrategy
-from ddlbench_tpu_torch.parallel.sharded import FSDPStrategy
+from ddlbench_tpu_torch.parallel.sharded import FSDPStrategy, TPStrategy
 from ddlbench_tpu_torch.parallel.single import SingleStrategy
 from ddlbench_tpu_torch.parallel.sp import SPStrategy
+from ddlbench_tpu_torch.parallel.tpp import TPGPipeStrategy
 from ddlbench_tpu_torch.partition.schedule import (recommend_schedule,
                                                    recommend_virtual_stages)
 
 Strategy = Union[SingleStrategy, DPStrategy, GPipeStrategy, SPStrategy,
-                 EPStrategy, FSDPStrategy]
+                 EPStrategy, FSDPStrategy, TPStrategy]
 RANK_CLASSES = {"dp": DPStrategy, "sp": SPStrategy, "ep": EPStrategy,
-                "fsdp": FSDPStrategy}
+                "fsdp": FSDPStrategy, "tp": TPStrategy}
 
 
 def schedule_advice(cfg: RunConfig, num_layers: int) -> str:
@@ -50,10 +53,11 @@ def schedule_advice(cfg: RunConfig, num_layers: int) -> str:
 
 
 def _pipeline(cfg: RunConfig, model, device: torch.device,
-              shared_card: bool) -> GPipeStrategy:
+              shared_card: bool, comm: Optional[Comm]) -> GPipeStrategy:
     """A gpipe or pipedream strategy over ``cfg``'s stages on ``device``
     (distributed.stage_devices), split at ``cfg.plan_bounds`` when set,
-    else at the balanced default split."""
+    else at the balanced default split; with ``tp_size`` > 1 rank
+    ``comm``'s shard of tpp (distributed.tp_stage_devices)."""
     if cfg.arch in BRANCHY_ARCHS:
         raise NotImplementedError(
             f"{cfg.arch} under a pipeline needs the reference's "
@@ -68,14 +72,21 @@ def _pipeline(cfg: RunConfig, model, device: torch.device,
                 f"model's layer count ({cfg.arch} has "
                 f"{len(model.layers)} layers)")
         bounds = [int(b) for b in cfg.plan_bounds]
-    if cfg.strategy == "gpipe":
+    if cfg.strategy == "gpipe" and (comm is None or comm.rank == 0):
         print(schedule_advice(cfg, len(model.layers)), flush=True)
-    devices = stage_devices(str(device), cfg.resolved_stages(), shared_card)
+    if cfg.tp_size > 1:
+        devices = tp_stage_devices(str(device), cfg.resolved_stages(),
+                                   cfg.tp_size, comm.rank, shared_card)
+    else:
+        devices = stage_devices(str(device), cfg.resolved_stages(),
+                                shared_card)
     # on the first stage's device until the strategy has read the layers'
     # shapes and split them; it then moves each chunk to its own
     model = model.to(devices[0])
     if devices[0].type == "cuda" and cfg.dataset().kind == "image":
         model = model.to(memory_format=torch.channels_last)
+    if cfg.tp_size > 1:
+        return TPGPipeStrategy(model, cfg, devices, comm, stage_bounds=bounds)
     if cfg.strategy == "pipedream":
         cls = PipeDreamStrategy
     elif cfg.pipe_schedule != "fill-drain":
@@ -93,15 +104,17 @@ def make_strategy(cfg: RunConfig, device: torch.device,
     from ``cfg.seed`` on ``device``, and return its strategy with fresh
     optimizer state. On the card an image model's convolution kernels are
     channels_last, the layout cuDNN runs fastest, as the data's images
-    are. ``dp``, ``sp``, ``ep`` and ``fsdp`` run on the rank ``comm``
-    (distributed.spawn gives each rank its own), whose world must be
-    ``cfg.num_devices``; rank 0's weights are broadcast to the others.
+    are. ``dp``, ``sp``, ``ep``, ``fsdp`` and ``tp`` run on the rank
+    ``comm`` (distributed.spawn gives each rank its own), whose world must
+    be ``cfg.num_devices``; rank 0's weights are broadcast to the others.
+    A gpipe with ``tp_size`` > 1 runs shard ``comm.rank`` of ``tp_size``
+    (every rank builds the same weights from ``cfg.seed``).
     ``gpipe`` and ``pipedream`` run
     their stages on ``cfg.resolved_stages()`` devices of ``device``'s
     type: one card each, or with ``shared_card`` every stage on one card
     (distributed.stage_devices); the model's chunks are moved there."""
     cfg.validate()
-    if cfg.strategy in RANK_STRATEGIES and comm is None:
+    if cfg.spawned_ranks() and comm is None:
         raise ValueError(f"strategy {cfg.strategy!r} runs on a rank of a "
                          "process group: pass its Comm (distributed.spawn "
                          "makes them)")
@@ -109,7 +122,7 @@ def make_strategy(cfg: RunConfig, device: torch.device,
     model = get_model(cfg.arch, cfg.benchmark, seed=cfg.seed,
                       moe_capacity_factor=cfg.moe_capacity_factor)
     if cfg.strategy in PIPELINE_STRATEGIES:
-        strategy = _pipeline(cfg, model, device, shared_card)
+        strategy = _pipeline(cfg, model, device, shared_card, comm)
         strategy.init()
         return strategy
     model = model.to(device)

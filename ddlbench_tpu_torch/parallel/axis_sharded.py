@@ -164,9 +164,7 @@ class AxisShardedStrategy:
         top-1 over valid labels}, equal on every rank."""
         metrics, grads = self.reduced_grads(x, y)
         with torch.no_grad():
-            new, self.opt = self._opt_update(self.params, grads, self.opt,
-                                             lr)
-            torch._foreach_copy_(self.params, new)
+            self._opt_update(self.params, grads, self.opt, lr)
         return metrics
 
     def eval_step(self, x: torch.Tensor,

@@ -7,13 +7,11 @@ chunk's fused-head loss and eval sums (``fused_chunk_loss_sums``,
 (the fused LM head or the full logits, plus the MoE router's aux losses,
 which each MoE block records on its forward: models/moe.py), the
 single-apply ``loss_and_grads``, ``eval_metrics`` (fused and logits),
-``make_optimizer`` as ``torch.optim.SGD`` / ``torch.optim.Adam``, whose
-update rules the reference reimplements (``tests/test_optimizers.py`` pins
-them equal), the step-decay learning rate (``step_decay_lr``) and ``cast_input``;
-and the data-parallel pieces: the flat-vector layout of dp's collectives
+the step-decay learning rate (``step_decay_lr``) and ``cast_input``;
+the data-parallel pieces: the flat-vector layout of dp's collectives
 (``FlatMeta`` .. ``from_device_major``), the int8 wire's quantisation, the
-gradual warmup, and ``flat_optimizer``, the reference's update formulas on
-tensors.
+gradual warmup; and ``flat_optimizer``, the reference's ``make_optimizer``
+update formulas on tensors, which every strategy runs.
 
 The model is applied on compute-dtype casts of its float32 parameters
 (models/layers.apply_slice) and of a floating-point input (images); the
@@ -375,25 +373,6 @@ def eval_metrics(model: LayerModel, cfg: RunConfig, x: torch.Tensor,
                 "correct5": correct_topk(logits, y), "count": count}
 
 
-def make_optimizer(cfg: RunConfig,
-                   params: List[torch.nn.Parameter]) -> torch.optim.Optimizer:
-    """cfg.resolved_optimizer() over ``params``, torch semantics:
-
-    * "sgd": buf = mu*buf + (grad + wd*p); p -= lr*buf;
-    * "adam": L2 weight decay (added to the gradient), betas and eps from
-      cfg.
-
-    The learning rate is set per step (SingleStrategy.train_step)."""
-    name = cfg.resolved_optimizer()
-    lr, wd = cfg.resolved_lr(), cfg.resolved_weight_decay()
-    if name == "sgd":
-        return torch.optim.SGD(params, lr=lr, momentum=cfg.resolved_momentum(),
-                               weight_decay=wd)
-    return torch.optim.Adam(params, lr=lr,
-                            betas=(cfg.adam_beta1, cfg.adam_beta2),
-                            eps=cfg.adam_eps, weight_decay=wd)
-
-
 # ---- the flat-vector layout of dp's explicit collectives -------------------
 #
 # The port of the reference's FlatMeta machinery (parallel/common.py
@@ -711,8 +690,9 @@ def flat_optimizer(cfg: RunConfig):
     run over the whole list at once (``torch._foreach_*``: a few launches
     for every leaf). ``init(like)`` returns the state of tensors like
     those (``m``, and for adam ``v`` and the shared ``step``);
-    ``update(params, grads, state, lr)`` takes lists of tensors and
-    returns (new params, new state)."""
+    ``update(params, grads, state, lr)`` takes lists of tensors, updates
+    ``params`` (through detached views) and ``state`` in place and returns
+    (the views, the state); ``grads`` stay as they are."""
     name = cfg.resolved_optimizer()
     mom, wd = cfg.resolved_momentum(), cfg.resolved_weight_decay()
     b1, b2, eps = cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps
@@ -725,36 +705,41 @@ def flat_optimizer(cfg: RunConfig):
         return state
 
     def decayed(params, grads):
-        grads = list(grads)
-        if wd:  # g + wd * p
-            grads = torch._foreach_add(grads, torch._foreach_mul(params, wd))
-        return grads
+        if not wd:
+            return list(grads)
+        g = torch._foreach_mul(params, wd)  # wd * p + g: g + wd * p
+        torch._foreach_add_(g, list(grads))
+        return g
 
     def sgd(params, grads, state, lr):
-        params = list(params)
-        m2 = torch._foreach_add(torch._foreach_mul(state["m"], mom),
-                                decayed(params, grads))
-        new_p = torch._foreach_sub(params, torch._foreach_mul(m2, lr))
-        return new_p, {"m": m2}
+        params, m = [p.detach() for p in params], state["m"]
+        torch._foreach_mul_(m, mom)
+        torch._foreach_add_(m, decayed(params, grads))
+        torch._foreach_sub_(params, torch._foreach_mul(m, lr))
+        return params, state
 
     def adam(params, grads, state, lr):
-        params = list(params)
-        step = state["step"] + 1
-        stepf = torch.tensor(float(step), dtype=torch.float32)
+        params = [p.detach() for p in params]
+        m, v = state["m"], state["v"]
+        state["step"] += 1
+        stepf = torch.tensor(float(state["step"]), dtype=torch.float32)
         bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** stepf
         bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** stepf
         # float32 scalars, exact as Python floats
         rate, root_bc2 = (lr / bc1).item(), torch.sqrt(bc2).item()
         g = decayed(params, grads)
-        m2 = torch._foreach_add(torch._foreach_mul(state["m"], b1),
-                                torch._foreach_mul(g, 1.0 - b1))
-        v2 = torch._foreach_add(
-            torch._foreach_mul(state["v"], b2),
-            torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
-        denom = torch._foreach_add(
-            torch._foreach_div(torch._foreach_sqrt(v2), root_bc2), eps)
-        step_ = torch._foreach_div(torch._foreach_mul(m2, rate), denom)
-        return (torch._foreach_sub(params, step_),
-                {"m": m2, "v": v2, "step": step})
+        torch._foreach_mul_(m, b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - b1))
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1.0 - b2)
+        torch._foreach_mul_(v, b2)
+        torch._foreach_add_(v, g2)
+        denom = torch._foreach_sqrt(v)  # sqrt(v) / sqrt(bc2) + eps
+        torch._foreach_div_(denom, root_bc2)
+        torch._foreach_add_(denom, eps)
+        step = torch._foreach_mul(m, rate)
+        torch._foreach_div_(step, denom)
+        torch._foreach_sub_(params, step)
+        return params, state
 
     return init, (sgd if name == "sgd" else adam)

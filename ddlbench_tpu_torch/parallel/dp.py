@@ -279,14 +279,13 @@ class DPStrategy:
         all-gathered back."""
         ps = [self._state_slice(p) for p in self.params]
         gs = [self._state_slice(g) for g in grads]
-        new_s, self.opt = self._opt_update(ps, gs, self.opt, lr)
+        self._opt_update(ps, gs, self.opt, lr)  # ps: views of the leaves
         n = self.comm.world
         with torch.no_grad():
-            for p, s in zip(self.params, new_s):
+            for p, s in zip(self.params, ps):
                 v = to_ref_layout(p)
                 d = leaf_spec_dim(tuple(v.shape), n)
-                if d is None:
-                    v.copy_(s)
+                if d is None:  # the whole leaf, updated in place
                     continue
                 parts = self.comm.all_gather(s.contiguous()).view(n, *s.shape)
                 v.copy_(torch.cat(parts.unbind(0), dim=d))
@@ -321,8 +320,7 @@ class DPStrategy:
             if self.flat is None:
                 self._update_slices(unpack_flat(gred, self.meta), lr)
             else:
-                (self.flat,), self.opt = self._opt_update(
-                    [self.flat], [gred], self.opt, lr)
+                self._opt_update([self.flat], [gred], self.opt, lr)
                 if not self.shard_update:
                     self._load(unpack_flat(self.flat, self.meta))
                 elif not self.overlap:

@@ -250,15 +250,35 @@ class GPipeStrategy:
         if not params:
             return
         with torch.no_grad():
-            new, self.opt[c] = self._opt_update(
-                [p.detach() for p in params], list(grads), self.opt[c], lr)
-            torch._foreach_copy_([p.detach() for p in params], list(new))
+            self._opt_update([p.detach() for p in params], list(grads),
+                             self.opt[c], lr)
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    lr: float) -> Dict[str, torch.Tensor]:
         """One fill-drain step on the global batch (x, y) at ``lr``;
         returns {"loss": the unsmoothed CE, "accuracy": top-1 over valid
         labels}."""
+        metrics = self._forward_backward(x, y)
+        for c in range(self.num_chunks):
+            self._update(c, self._grads(c), lr)
+        return metrics
+
+    def reduced_grads(self, x: torch.Tensor, y: torch.Tensor):
+        """The step's forward and backward on the global batch (x, y),
+        without the update: (metrics, {"<layer>.<name>": gradient})."""
+        metrics = self._forward_backward(x, y)
+        grads = {}
+        for c in range(self.num_chunks):
+            for i in range(self.bounds[c], self.bounds[c + 1]):
+                for n, p in self.model.layers[i].named_parameters():
+                    grads[f"{i}.{n}"] = (torch.zeros_like(p) if p.grad is None
+                                         else p.grad)
+        return metrics, grads
+
+    def _forward_backward(self, x: torch.Tensor, y: torch.Tensor
+                          ) -> Dict[str, torch.Tensor]:
+        """The fill-drain forward and backward, the parameters' gradients
+        left in ``.grad``."""
         xs, ys = self.shard_batch(x, y)
         self.model.train()
         M, C = self.num_microbatches, self.num_chunks
@@ -293,8 +313,6 @@ class GPipeStrategy:
         else:
             last = self.chunk_device(C - 1)
             torch.stack([p.to(last) for p in parts]).sum().div(M).backward()
-        for c in range(C):
-            self._update(c, self._grads(c), lr)
         valid = sum((t >= 0).sum() for t in ys)
         return {"loss": ce_acc.detach() / M,
                 "accuracy": correct.float() / valid.clamp(min=1).float()}

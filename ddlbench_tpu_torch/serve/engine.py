@@ -1,16 +1,17 @@
 """Continuous-batching serving engine over the paged KV pool (PyTorch port).
 
-The port of ``ddlbench_tpu/serve/engine.py`` at tp = 1: float32, bfloat16
-and int8 pools, the continuous policy and the static baseline, the
-cross-request prefix cache, self-drafting speculative verify, sampling,
-deadlines with shedding and timeouts, SLO tiers, request-lifecycle tracing
-and the flight recorder, the SDC checksum ledger with quarantine and
-scrub, page shipping between engines (serve/handoff.py builds the
-disaggregated server on it), and the replicated fleet over them
-(:class:`ReplicatedServer`: least-loaded dispatch, live resize, replica
-kill and stall, the heartbeat drain). The scheduler is the reference's,
-line for line, so both engines make the same decisions on the same traffic
-and — with the same weights — emit the same token streams.
+The port of ``ddlbench_tpu/serve/engine.py``: float32, bfloat16 and int8
+pools, tensor-parallel replicas (``cfg.tp``), the continuous policy and
+the static baseline, the cross-request prefix cache, self-drafting
+speculative verify, sampling, deadlines with shedding and timeouts, SLO
+tiers, request-lifecycle tracing and the flight recorder, the SDC
+checksum ledger with quarantine and scrub, page shipping between engines
+(serve/handoff.py builds the disaggregated server on it), and the
+replicated fleet over them (:class:`ReplicatedServer`: least-loaded
+dispatch, live resize, replica kill and stall, the heartbeat drain).
+The scheduler is the reference's, line for line, so both engines make
+the same decisions on the same traffic and — with the same weights —
+emit the same token streams.
 
 Structure (host schedules, device computes):
 
@@ -24,11 +25,26 @@ Structure (host schedules, device computes):
   the scratch slot) and a ``[1, prefill_chunk]`` page-aligned prefill
   chunk. Each walks only ``npl`` live pages; PyTorch runs them eagerly, and
   the pools are updated in place (the reference donates them to jit).
+* Tensor parallelism (``cfg.tp`` > 1): a tp group is ONE replica. Each
+  dense block's parameters are split by Megatron's slicing
+  (models/transformer.tp_split_layer_params, the splitter training
+  uses), and its pool holds each shard's [n_pages, page, H/tp, dh] slice
+  stacked on a leading [tp] axis (the page axis moves to 1, as in the
+  reference; ops/paged_decode.slot_axis reads it from the rank). The
+  engine walks its shards in one process on its one device: each shard
+  writes and attends its heads (the paged kernels on the shard's
+  contiguous pool slice) and the row-parallel products are
+  summed in shard order; embeddings and the LM head run once. The page
+  table, the allocator and every scheduler decision stay per engine, so
+  a tp group schedules exactly as a tp = 1 replica does. The reference
+  asks for tp devices; here one device holds every shard.
 * Int8 pools (``cfg.kv_dtype``) quantise at the page write with the
   reference's counter-based stochastic rounding: each layer's pool carries
   ``kv_seed`` = the layer's index in ``model.layers`` (the embedding is 0)
   and a table of its rounding uniforms for every position a write can
-  name, computed once here (ops/paged_decode.kv_u_table).
+  name, computed once here (ops/paged_decode.kv_u_table); at tp > 1
+  every shard rounds its own head slice with the layer's key, drawn over
+  the shard's [H/tp, dh] shape, as the reference's shards do.
 * Prefix caching (``cfg.prefix_cache``; serve/prefix.py): fully prefilled
   prompt pages are registered as their chunk completes, and an admission
   BINDS the resident pages of its longest cached prefix and prefills only
@@ -107,11 +123,12 @@ import torch
 
 from ddlbench_tpu_torch.config import ServeConfig
 from ddlbench_tpu_torch.models.layers import LayerModel, ServeLayer
+from ddlbench_tpu_torch.models.transformer import tp_split_layer_params
 from ddlbench_tpu_torch.ops.paged_decode import (kv_u_table,
                                                  pool_checksum_keys,
                                                  pool_page_bytes,
                                                  pool_quantized,
-                                                 serve_page_copy)
+                                                 serve_page_copy, slot_index)
 from ddlbench_tpu_torch.serve.allocator import PageAllocator
 from ddlbench_tpu_torch.serve.draft import NgramDrafter
 from ddlbench_tpu_torch.serve.integrity import (PageLedger, host_rows,
@@ -255,21 +272,33 @@ class ServeEngine:
         width = max(cfg.resolved_prefill_chunk(),
                     self._spec[1] + 1 if self._spec else 1)
         self.n_write_pos = self.npg_max * self.page + width
+        # tensor parallelism: each dense block's shards (None for a layer
+        # left whole); its pool is stacked on a leading [tp] axis
+        self.tp = cfg.tp
+        self._shards: List[Optional[List[dict]]] = [
+            self._split(layer) for layer in model.layers]
         # one pool per serving layer that keeps K/V (None elsewhere)
         self.pools: List[Optional[dict]] = []
         self.bytes_per_page = 0  # K/V payload bytes per slot, summed
         for li, layer in enumerate(model.layers):
-            pool = (layer.pool_init(cfg.pool_pages, cfg.page, dtype, device)
-                    if isinstance(layer, ServeLayer) else None)
+            pool = None
+            if isinstance(layer, ServeLayer):
+                pool = (layer.pool_init(cfg.pool_pages, cfg.page, dtype,
+                                        device)
+                        if self._shards[li] is None else
+                        layer.pool_init(cfg.pool_pages, cfg.page, dtype,
+                                        device, tp=cfg.tp))
             if pool is not None:
                 if pool_quantized(pool):
                     # the layer's counter seed for the write-boundary
                     # rounding — its index in model.layers, as in the
-                    # reference — and the uniforms of every position
-                    _, _, H, dh = pool["pool_k"].shape
+                    # reference — and the uniforms of every position,
+                    # over one shard's heads at tp > 1
+                    H, dh = pool["pool_k"].shape[-2:]
                     pool["kv_seed"] = li
                     pool["kv_u"] = kv_u_table(li, self.n_write_pos, H, dh,
                                               device)
+                # at tp > 1 the shards' slices sum to the whole page
                 self.bytes_per_page += pool_page_bytes(pool)
             self.pools.append(pool)
         # trailing pointwise layers (the LM head) run on the ONE chunk
@@ -375,14 +404,31 @@ class ServeEngine:
                                        "prefill_s": 0.0, "sample_s": 0.0,
                                        "sampled": 0, "ledger_s": 0.0}
 
+    def _split(self, layer) -> Optional[List[dict]]:
+        """A dense serving block's tp shards (contiguous copies of its
+        sliced leaves), or None at tp 1 and for a layer left whole."""
+        if self.tp == 1 or not isinstance(layer, ServeLayer):
+            return None
+        shards, _ = tp_split_layer_params(
+            {k: p.detach() for k, p in layer.named_parameters()}, self.tp)
+        if not shards[0]:
+            return None
+        if layer.n_heads % self.tp:
+            raise ValueError(f"ServeConfig.tp={self.tp}: n_heads="
+                             f"{layer.n_heads} not divisible by tp")
+        return [{k: t.contiguous() for k, t in sh.items()} for sh in shards]
+
     # -- model passes --------------------------------------------------------
 
     def _walk(self, layers, pools, table, h, op: str, *op_args):
-        for layer, pool in zip(layers, pools):
-            if isinstance(layer, ServeLayer):
-                h = getattr(layer, op)(pool, table, h, *op_args, self.page)
-            else:  # pointwise (the LM head)
+        for li, (layer, pool) in enumerate(zip(layers, pools)):
+            if not isinstance(layer, ServeLayer):  # pointwise (the LM head)
                 h = layer(h)
+            elif self._shards[li] is None:
+                h = getattr(layer, op)(pool, table, h, *op_args, self.page)
+            else:
+                h = getattr(layer, op)(pool, table, h, *op_args, self.page,
+                                       shards=self._shards[li])
         return h
 
     @torch.no_grad()
@@ -456,8 +502,9 @@ class ServeEngine:
         (ops/paged_decode.pool_checksum_keys)."""
         t0 = time.perf_counter()
         pool = self.pools[li]
-        crc = page_checksum({k: host_rows(pool[k][slot])
-                             for k in pool_checksum_keys(pool)})
+        crc = page_checksum({
+            k: host_rows(pool[k][slot_index(k, pool[k], slot)])
+            for k in pool_checksum_keys(pool)})
         self.wall["ledger_s"] += time.perf_counter() - t0
         return crc
 
@@ -1530,10 +1577,11 @@ class ServeEngine:
                                                                   Any]]]:
         """Device-to-host copy of the given pool slots: payload and scale
         sidecar rows (bfloat16 as its int16 bytes), one dict per serving
-        layer (None for layers with no pool). The layer's ``kv_seed`` and
-        rounding table never ship: they are the layer's own and the same
-        on every engine of the model, which is what makes re-quantisation
-        after a decode-fleet failover bitwise."""
+        layer (None for layers with no pool); at tp > 1 the [tp, ...]
+        stacked rows, so the whole head width ships. The layer's
+        ``kv_seed`` and rounding table never ship: they are the layer's
+        own and the same on every engine of the model, which is what
+        makes re-quantisation after a decode-fleet failover bitwise."""
         out: List[Optional[Dict[str, Any]]] = []
         for pool in self.pools:
             if pool is None:
@@ -1541,7 +1589,7 @@ class ServeEngine:
                 continue
             idx = torch.tensor(slots, dtype=torch.long,
                                device=pool["pool_k"].device)
-            out.append({k: host_rows(pool[k][idx])
+            out.append({k: host_rows(pool[k][slot_index(k, pool[k], idx)])
                         for k in pool_checksum_keys(pool)})
         return out
 
@@ -1560,7 +1608,7 @@ class ServeEngine:
             for k, v in rows.items():
                 dst = pool[k]
                 t = torch.from_numpy(np.ascontiguousarray(v)).to(dst.device)
-                pool[k][idx] = t.view(dst.dtype)
+                dst[slot_index(k, dst, idx)] = t.view(dst.dtype)
 
     def extract_request(self, rid: int) -> Optional[Dict[str, Any]]:
         """Pop an in-flight DECODE-state request off this engine for

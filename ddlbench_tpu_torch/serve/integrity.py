@@ -53,7 +53,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ddlbench_tpu_torch.ops.paged_decode import pool_checksum_keys
+from ddlbench_tpu_torch.ops.paged_decode import (pool_checksum_keys,
+                                                 slot_axis, slot_index)
 
 try:  # hardware crc32c when the wheel is present; stdlib crc32 otherwise
     from crc32c import crc32c as _crc32c  # type: ignore
@@ -95,15 +96,18 @@ def ship_checksums(pages: List[Optional[Dict[str, np.ndarray]]]
                    ) -> List[Optional[List[int]]]:
     """Per-(layer, page) checksums of a handoff ship's fetched rows: the
     words a local per-slot fetch would ledger, so an import can stamp its
-    destination slots straight from the ship."""
+    destination slots straight from the ship. A tensor-parallel engine's
+    rows are [tp, pages, ...]: a page's word covers every shard's
+    slice."""
     out: List[Optional[List[int]]] = []
     for per_layer in pages:
         if per_layer is None:  # layers with no pool ship nothing
             out.append(None)
             continue
-        keys = sorted(per_layer)
-        n = per_layer[keys[0]].shape[0]
-        out.append([page_checksum({k: per_layer[k][p] for k in keys})
+        k0 = sorted(per_layer)[0]
+        n = per_layer[k0].shape[slot_axis(k0, per_layer[k0])]
+        out.append([page_checksum({k: v[slot_index(k, v, p)]
+                                   for k, v in per_layer.items()})
                     for p in range(n)])
     return out
 
@@ -206,18 +210,23 @@ def flip_pool_bit(engine, layer: int, slot: int,
                   bit: int = 0) -> Dict[str, int]:
     """Flip ONE bit of pool tensor ``key`` inside ``slot``'s rows of layer
     ``layer``, in place on the device: a uint8 view of the slot's
-    contiguous rows has one byte xor-ed. ``key`` None picks the first
-    checksum-domain key (payload); pass ``"scale_k"`` to corrupt the int8
-    sidecar. Returns a record of what flipped."""
+    contiguous rows has one byte xor-ed (at tp > 1 the byte counts over
+    the shards' rows in shard order, as the reference's [tp, ...] fetch
+    lays them out). ``key`` None picks the first checksum-domain key
+    (payload); pass ``"scale_k"`` to corrupt the int8 sidecar. Returns a
+    record of what flipped."""
     pool = engine.pools[layer]
     if pool is None:
         raise ValueError(
             f"layer {layer} owns no KV pool (valid: {pool_layers(engine)})")
     if key is None:
         key = pool_checksum_keys(pool)[0]
-    flat = pool[key][slot].view(torch.uint8).reshape(-1)
-    byte = int(index) % flat.numel()
-    flat[byte:byte + 1].bitwise_xor_(1 << (bit % 8))
+    shards = ([pool[key]] if slot_axis(key, pool[key]) == 0
+              else list(pool[key]))
+    flats = [t[slot].view(torch.uint8).reshape(-1) for t in shards]
+    per = flats[0].numel()
+    byte = int(index) % (per * len(flats))
+    flats[byte // per][byte % per:byte % per + 1].bitwise_xor_(1 << (bit % 8))
     return {"layer": int(layer), "slot": int(slot), "key": key,
             "byte": byte, "bit": bit % 8}
 

@@ -64,9 +64,12 @@ bytes; the row gains ``disaggregate``, ``prefill_replicas``,
 arms the page-checksum ledger (serve/integrity.py) and scrubs N stamped
 pages a step (0 = boundary checks only; the row gains ``scrub`` and the
 ``sdc_*`` counters, all 0 on clean traffic). With ``--autoscale`` a
-disaggregated server gets one controller per fleet. The reference's
-``--serve-tp``, ``--paged-kernel`` and ``--audit`` wait for later slices
-and fail naming their ROADMAP item.
+disaggregated server gets one controller per fleet. ``--serve-tp N``
+runs every replica as a tensor-parallel group of N shards
+(serve/engine.py: Megatron-sliced blocks, each shard's heads in its
+slice of the pool, all shards on the one device); the row gains
+``serve_tp`` when N > 1. The reference's ``--paged-kernel`` and
+``--audit`` wait for later slices and fail naming their ROADMAP item.
 
 Time is VIRTUAL: one unit = one model pass (a [max_batch, 1] decode step or
 one prefill chunk), so every virtual-time number is reproducible under a
@@ -277,6 +280,8 @@ def check_args(args: argparse.Namespace, perr) -> None:
     if args.shape and args.arrival != "poisson":
         perr("--shape modulates the poisson arrival process; pass "
              "--arrival poisson")
+    if args.serve_tp < 1:
+        perr("--serve-tp must be >= 1")
     if disagg:
         if [s.strip() for s in args.policies.split(",")
                 if s.strip()] != ["continuous"]:
@@ -509,7 +514,6 @@ def run_closed_loop(server, reqs, concurrency: int, resizes=None,
 
 # the reference's flags that wait for a later slice -> the ROADMAP item
 NOT_PORTED_FLAGS = {
-    "--serve-tp": "A.7b: a tp > 1 replica needs tp devices",
     "--paged-kernel": "A.8: the Pallas kernels' math formulations",
     "--audit": "A.8: telemetry/audit.py",
 }
@@ -541,6 +545,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--token-budget", type=int, default=0,
                    help="tokens one step may pack (0 = max_batch + 2 "
                         "prefill chunks)")
+    p.add_argument("--serve-tp", type=int, default=1, metavar="N",
+                   help="tensor-parallel width of ONE replica: N "
+                        "Megatron shards share one page table, each "
+                        "holding its heads' slice of the pool (all on "
+                        "the one device); default 1")
     p.add_argument("--replicas", type=int, default=1,
                    help="independent serving replicas (least-loaded "
                         "dispatch); all of them share the one card and "
@@ -731,7 +740,7 @@ def run(args: argparse.Namespace, model: LayerModel,
         token_budget=args.token_budget,
         prefill_chunk=(args.page if args.prefill_chunk is None
                        else args.prefill_chunk),
-        replicas=replicas0, heartbeat=args.heartbeat,
+        replicas=replicas0, tp=args.serve_tp, heartbeat=args.heartbeat,
         temperature=temperature, top_k=top_k, sample_seed=args.seed,
         trace=bool(args.trace),
         slo_ttft=args.slo_ttft, slo_itl=args.slo_itl,
@@ -878,6 +887,9 @@ def run(args: argparse.Namespace, model: LayerModel,
                and (chaos or k not in _CHAOS_FIELDS)
                and (disagg or k not in _DISAGG_FIELDS)
                and (sdc or k not in _SDC_FIELDS)},
+            # --serve-tp only (plain rows keep the pinned schema): the
+            # tp-group width every replica runs at
+            **({"serve_tp": cfg.tp} if args.serve_tp > 1 else {}),
             # --disaggregate only: the fleet split
             **({"disaggregate": args.disaggregate,
                 "prefill_replicas": disagg[0],

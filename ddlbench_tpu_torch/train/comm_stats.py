@@ -97,8 +97,23 @@ def comm_stats(strategy) -> Dict[str, float]:
             T = M * V + S - 1
             out["physical_boundary_bytes"] = (
                 2.0 * T * (S - 1) * strategy._act_size * itemsize)
+    elif name == "TPGPipeStrategy":
+        # the reference's logical accounting: the boundaries as gpipe's,
+        # and each stage's replicated leaves' gradient all-reduce over the
+        # tp group (the port sums the activations' gradients instead:
+        # parallel/tpp.py; the same bytes)
+        itemsize = torch.empty((), dtype=strategy.compute_dtype
+                               ).element_size()
+        M, mb = strategy.num_microbatches, strategy.mb
+        bounds, shapes = strategy.bounds, strategy.shapes
+        out["boundary_bytes"] = sum(
+            2.0 * M * mb * math.prod(shapes[bounds[s]]) * itemsize
+            for s in range(1, strategy.num_stages))
+        out["allreduce_bytes"] = sum(
+            _ring_allreduce_bytes(4.0 * n, strategy.tp)
+            for n in strategy._rp_lens)
     elif name not in ("SingleStrategy", "SPStrategy", "EPStrategy",
-                      "FSDPStrategy"):
+                      "FSDPStrategy", "TPStrategy"):
         raise NotImplementedError(f"comm_stats of {name} is not ported")
     out["total_bytes"] = (out["boundary_bytes"] + out["allreduce_bytes"]
                           + out["reduce_scatter_bytes"]

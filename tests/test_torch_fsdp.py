@@ -18,7 +18,8 @@ float32:
   statistics reduce in another order on each side);
 * each rank holds 1/n of every layer's packed parameters, padded to the
   world, and the optimizer state of that shard only;
-* an MoE arch is refused naming ROADMAP A.6b, ``tp`` naming A.7b.
+* an MoE arch is refused naming ROADMAP A.6b, ``remat_layers`` under
+  ``tp`` naming A.7b (tests/test_torch_tp.py holds ``tp`` itself).
 """
 
 import torch_threads  # noqa: F401  (first: the test process's threads)
@@ -96,7 +97,7 @@ def test_fsdp_refusals():
                   arch="transformer_moe_s").validate()
     with pytest.raises(NotImplementedError, match=r"A\.7b"):
         RunConfig(strategy="tp", num_devices=2, benchmark="synthtext",
-                  arch="transformer_s").validate()
+                  arch="transformer_s", remat_layers=True).validate()
     with pytest.raises(NotImplementedError, match="remat_layers"):
         RunConfig(strategy="fsdp", num_devices=2, benchmark="synthtext",
                   arch="transformer_s", remat_layers=True).validate()

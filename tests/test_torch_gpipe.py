@@ -164,7 +164,7 @@ def test_plan_bounds_set_the_split_and_name_their_error(capsys):
 REFUSED = [
     (dict(dp_replicas=2, num_devices=4), "A.7b"),
     (dict(stage_replication=(1, 1)), "A.7b"),
-    (dict(tp_size=2, num_devices=4, benchmark="synthtext",
+    (dict(tp_size=2, dp_replicas=2, num_devices=8, benchmark="synthtext",
           arch="transformer_t"), "A.7b"),
     (dict(dp_shard_update=True), "A.7b"),
     (dict(pipe_costs="profile"), "A.8"),
@@ -193,7 +193,7 @@ def test_branchy_arches_are_refused_under_a_pipeline(arch):
 @pytest.mark.parametrize("argv,item", [
     (["--dp-replicas", "2", "-g", "4"], "A.7b"),
     (["--stage-replication", "1,1"], "A.7b"),
-    (["--tp-size", "2", "-g", "4"], "A.7b"),
+    (["--tp-size", "2", "--dp-replicas", "2", "-g", "8"], "A.7b"),
     (["--pipe-costs", "profile"], "A.8"),
     (["--schedule-trace", "t.json"], "A.8")])
 def test_cli_refuses_unported_pipeline_flags(argv, item):

@@ -426,12 +426,13 @@ def test_remat_layers_refused_for_moe():
 
 @pytest.mark.parametrize("name,value,match", [
     ("param_dtype", "bfloat16", "parameters are float32"),
-    ("tp_size", 2, "ROADMAP A.7b")])
+    ("dp_replicas", 2, "ROADMAP A.7b")])
 def test_schema_only_fields_refuse_what_the_port_does_not_do(name, value,
                                                              match):
-    """param_dtype and tp_size carry the reference's defaults; any other
-    value is refused, not silently ignored (remat_stages, once refused
-    here, acts on the pipelines: tests/test_torch_gpipe.py)."""
+    """param_dtype and dp_replicas carry the reference's defaults; any
+    other value is refused, not silently ignored (remat_stages, once
+    refused here, acts on the pipelines: tests/test_torch_gpipe.py;
+    tp_size, once refused here, runs tpp: tests/test_torch_tpp.py)."""
     assert getattr(RunConfig(), name) == getattr(JaxRunConfig(), name)
     RunConfig(benchmark="synthtext", arch="transformer_moe_s",
               **{name: getattr(JaxRunConfig(), name)}).validate()

@@ -185,8 +185,12 @@ def test_servebench_without_gpu_or_cpu_flag_raises(monkeypatch):
     dict(tp=2), dict(replicas=4, tp=2),
 ])
 def test_unported_serve_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        ServeConfig(**knob).validate()
+    """tp > 1, once refused here naming ROADMAP A.7, is ported: the
+    config validates (tests/test_torch_serve_tp.py holds the tp groups'
+    streams); tp 0 stays refused."""
+    ServeConfig(**knob).validate()
+    with pytest.raises(ValueError, match="positive"):
+        ServeConfig(**{**knob, "tp": 0}).validate()
 
 
 @pytest.mark.parametrize("knob,error", [

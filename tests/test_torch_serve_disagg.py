@@ -2,8 +2,9 @@
 the page shipping of serve/engine.py, the per-fleet controllers of
 serve/autoscaler.py and servebench/servechaos ``--disaggregate``) held
 against the JAX reference on the CPU: the counterparts of tests/
-test_serve_disagg.py (its two tp cases aside: tp > 1 is ROADMAP A.7) and
-of tests/test_autoscale.py's per-fleet controller pin.
+test_serve_disagg.py (its two tp cases are
+tests/test_torch_serve_tp.py's) and of tests/test_autoscale.py's
+per-fleet controller pin.
 
 With the reference's weights carried over (convert.from_jax_params), a
 P:D server of the port keeps the reference's records on the same traffic,

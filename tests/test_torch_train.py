@@ -1,7 +1,7 @@
 """The port's token-training slice held against the JAX reference.
 
 ``ddlbench_tpu_torch``'s SingleStrategy (models/layers.apply_model on cast
-params, parallel/common.py's loss and torch.optim) against
+params, parallel/common.py's loss and update formulas) against
 ``ddlbench_tpu.parallel.single.SingleStrategy`` on the tiny LM of
 tests/tiny_models.py (transformer_t, T 32, vocab 64), from the same weights
 (convert.from_jax_params) and the same numpy batches, through the
@@ -283,7 +283,7 @@ def test_synthetic_tokens():
     dict(anomaly_policy="skip"), dict(loss_scale="dynamic"),
     dict(strategy="fsdp", num_devices=2, arch="transformer_moe_t"),
     dict(strategy="dp", num_devices=2, arch="transformer_moe_t"),
-    dict(strategy="tp", num_devices=2),
+    dict(strategy="tp", num_devices=2, remat_layers=True),
 ])
 def test_unported_train_knobs_raise(knob):
     with pytest.raises(NotImplementedError):
