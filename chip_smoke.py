@@ -451,7 +451,7 @@ one JSON line; any failure raises and exits non-zero:
              logged loss finite. (e) image_bench: tools/bench's headline
              record (resnet50/imagenet, B 128, 30 steps, 5 warm-up, one
              loop: --repeats 1), then image_models: one short bench row
-             (B 32, 3 warm-up and 5 steps) for each of resnet18, vgg11
+             (B 32, 2 warm-up and 3 steps) for each of resnet18, vgg11
              and mobilenetv2 on imagenet.
 13. real_data — on-disk images, which run no port kernel either (the
              native loader is host C++ built by g++ from
@@ -494,7 +494,7 @@ one JSON line; any failure raises and exits non-zero:
              rejected: AvgPool excluding the padding (nasnet), densenet's
              concat in the wrong order, resnext's grouped kernel with its
              group axes swapped; then a short bench row for each (B 32,
-             bf16, channels_last, 3 warm-up and 5 steps): images/s, step
+             bf16, channels_last, 2 warm-up and 3 steps): images/s, step
              p50/p95, peak memory.
 15. dp_train — data parallel (parallel/dp.py) on the one card: ranks are
              processes (distributed.spawn), spawned after the build, at
@@ -556,7 +556,19 @@ one JSON line; any failure raises and exits non-zero:
              the card (pipedream_replay, written apart from the engine:
              weight versions per microbatch, per-microbatch momentum SGD),
              the parameters' change within 1e-3 relative L2. (e) tokens/s
-             of each row beside the nvidia-smi line.
+             of each row beside the nvidia-smi line. Then hetero_train:
+             --stage-replication 2,1 (parallel/hetero.py: one process
+             over three "devices" of the card, stage 0's two replicas
+             each running half of every microbatch's rows), gpipe at mb
+             4 x M 8 and pipedream at the global 32 (mb 4 x M 8), bf16,
+             three steps each: each kernel's launches what every
+             replica's events imply (hetero_expected), none on the plain
+             path; tokens/s beside the nvidia-smi line; float32 on
+             transformer_s cut to 2 blocks and 256 tokens (mb 2 x M 2):
+             the plan's step against the uniform 2-stage gpipe's on the
+             card (every update within 1e-4 relative L2) and against the
+             same plan's step on the CPU (the loss within 1e-5, every
+             update within 1e-3), gpipe and pipedream.
 18. pipe_image — resnet50 / imagenet on four stages of the one card. (a)
              gpipe's step in float64 at mb 2 x M 2 on the card against the
              same step on the CPU: the loss, every gradient leaf and every
@@ -565,6 +577,13 @@ one JSON line; any failure raises and exits non-zero:
              mb 24 x M 12 and pipedream at the global 128 (mb 16 x M 8),
              bf16, three steps each: (c) pipedream's first two against the
              replay, as in 17; (e) images/s beside the nvidia-smi line.
+             Then packed_chain: inception and nasnet / cifar10 under
+             gpipe at 2 stages of the card, each split over its
+             node-granular packed chain (models/branchy.py, every node a
+             layer, the tensors crossing a cut packed into one
+             boundary), one float64 step at mb 2 x M 2 on the card
+             against the same step on the CPU: the loss, every gradient
+             leaf and running statistic within 1e-9.
 19-21. sp_train, ep_train, fsdp_train — the sharded one-program
              strategies (parallel/sp.py, ep.py, sharded.py) through
              make_strategy on spawned ranks: world 2 on the one card over
@@ -647,14 +666,38 @@ one JSON line; any failure raises and exits non-zero:
              cifar10 step in float64 at 4 rows against single's within
              1e-9 relative. Host-staged gloo on one card: ms a step and
              tokens/s are not scaling figures.
+25. hybrid_train — hybrid PP x DP in the same world-2 spawn: -g 4 as
+             --dp-replicas 2 x 2 stages, every rank one replica walking
+             its two stages on the card, transformer_s at full width,
+             micro-batch 2 x 2 microbatches a replica (a global batch of
+             8 rows), bf16, "auto" attention, the fused head, through
+             make_strategy: fill-drain, 1f1b, pipedream and gpipe
+             --dp-shard-update --comm-buckets 2 (hybrid PP x ZeRO-1),
+             three steps each (the first a warm-up): (c) every rank's
+             launches what its events imply (pipe_expected), none on the
+             plain path, the ranks' losses equal; ms a step and tokens/s
+             beside the nvidia-smi line; ZeRO-1's optimizer bytes a rank
+             half of every chunk's padded row and half the replicated
+             engine's within the pads. (a) float32, transformer_s cut to
+             2 blocks and 256 tokens: each runtime's step on the card
+             against the same step of the same ranks on the CPU (the
+             loss within 1e-5, every update within 1e-3); (b) ZeRO-1's
+             step against the replicated hybrid's on the card (every
+             update within 1e-6); resnet18 / cifar10 in float64, the
+             fill-drain hybrid's step on the card against the CPU's: the
+             loss, every replica-averaged gradient and every averaged
+             running statistic within 1e-9. Host-staged gloo on one
+             card: the rows price the schedules' work and the wire, not
+             scaling.
 
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
 float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
 plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
-train's, moe_train's, lstm_train's, every dp_train rank's, pipe_train's
-and every sp_train, ep_train, fsdp_train, tpp_train and tp_train rank's,
+train's, moe_train's, lstm_train's, every dp_train rank's, pipe_train's,
+hetero_train's and every sp_train, ep_train, fsdp_train, tpp_train,
+tp_train and hybrid_train rank's,
 the flash forward's moe_decode's too; serve_tp's tp-2 runs add to the four
 paged rows), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
@@ -869,7 +912,7 @@ IMAGE_CLI_ARGS = ["-b", "imagenet", "-f", "single", "-m", "resnet50", "-e",
 HEADLINE_ARGS = ["--repeats", "1"]
 IMAGE_SHORT_ARCHS = ("resnet18", "vgg11", "mobilenetv2")
 IMAGE_SHORT_ARGS = ["--benchmark", "imagenet", "--batch-size", "32",
-                    "--warmup", "3", "--steps", "5", "--repeats", "1"]
+                    "--warmup", "2", "--steps", "3", "--repeats", "1"]
 # real data (phase 13): the main path's batch and store (steps of train,
 # of test), the CLI's arguments (the store's directory added), the
 # augmentation check's batch and (epoch, step) keys, the accumulation
@@ -5904,7 +5947,197 @@ def phase_pipe_train(torch, fa, fx, dev):
         raise AssertionError(f"pipeline checks failed: {failed}")
     gc.collect()
     torch.cuda.empty_cache()
+    for name, n in pipe_hetero(torch, fa, fx, dev).items():
+        launches[name] += n
     return launches
+
+
+# hetero_train: --stage-replication 2,1 (parallel/hetero.py), one
+# process over three "devices" of the one card. The float32 checks run
+# transformer_s cut to HYB_CUT blocks on HYB_CUT_T tokens, mb 2 x M 2:
+# the plan's step against the uniform 2-stage gpipe's at the same global
+# batch on the card (every leaf's update within HET_UNIFORM_REL: only the
+# sums' split differs, a replica's GEMMs over half the rows; measured
+# 1.55e-5 on the H100, the card's own distance to the CPU's step
+# 1.66e-5), and against the same plan's step on the CPU (the loss within
+# SHARD_F32_LOSS, every update within SHARD_CPU_UPDATE)
+HET_REPL = (2, 1)
+HET_RUNS = (("gpipe", {"micro_batch_size": 4, "num_microbatches": 8}),
+            ("pipedream", {"batch_size": 32, "micro_batch_size": 4}))
+HET_UNIFORM_REL = 1e-4
+
+
+def hetero_expected(strategy, steps):
+    """B1-B6 launches of ``steps`` hetero steps: every replica of a stage
+    runs its stage's events on its rows (fill-drain with remat or
+    pipedream alike: a forward, a recompute and a backward of each block
+    a microbatch; the head's forward twice, dh and dW once)."""
+    from ddlbench_tpu_torch.models.transformer import AttentionBlock
+
+    blocks = sum(r * sum(isinstance(m, AttentionBlock)
+                         for layer in strategy.chunk_layers(s)
+                         for m in layer.modules())
+                 for s, r in enumerate(strategy.repl))
+    last = strategy.repl[-1]
+    n = strategy.num_microbatches * steps
+    return {"flash_fwd": 2 * n * blocks, "flash_dq": n * blocks,
+            "flash_dkv": n * blocks, "fxent_fwd": 2 * n * last,
+            "fxent_dh": n * last, "fxent_dw": n * last}
+
+
+def het_cut_step(torch, strategy, dev, repl):
+    """One float32 step of the cut transformer_s (``repl``: a replication
+    plan, or None for the uniform 2-stage gpipe) on ``dev``: (loss,
+    update)."""
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.distributed import stage_devices
+    from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
+    from ddlbench_tpu_torch.parallel.hetero import (HeteroGPipeStrategy,
+                                                    HeteroPipeDreamStrategy)
+
+    n = sum(repl) if repl else 2
+    cfg = RunConfig(benchmark=SHARD_TOKEN[1], arch=SHARD_TOKEN[0],
+                    strategy=strategy, num_devices=n,
+                    stage_replication=repl, micro_batch_size=2,
+                    num_microbatches=2, batch_size=4, compute_dtype="float32",
+                    seed=0, optimizer="sgd", attention_backend="auto")
+    devs = stage_devices(str(dev.type), n, dev.type == "cuda")
+    cls = (GPipeStrategy if repl is None else HeteroPipeDreamStrategy
+           if strategy == "pipedream" else HeteroGPipeStrategy)
+    s = cls(hyb_cut_model().to(devs[0]), cfg, devs)
+    s.init()
+    x, y = shard_batches(torch, cfg, 4, 1, dev, seed=7)[0]
+    return hyb_update(torch, s, (x[:, :HYB_CUT_T], y[:, :HYB_CUT_T]),
+                      SHARD_LR)
+
+
+def pipe_hetero(torch, fa, fx, dev):
+    """hetero_train (module docstring, 17): the plan's bfloat16 main path
+    through make_strategy for gpipe and pipedream, the counters zeroed
+    before each and read after; then the float32 cut checks. Returns the
+    B1-B6 launches of the main-path runs."""
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    t_start = time.perf_counter()
+    launches = {n: 0 for n in PIPE_COUNTERS}
+    rows, checks = {}, {}
+    card = card_line()
+    for strategy, kw in HET_RUNS:
+        cfg = RunConfig(benchmark=PIPE_TOKEN[1], arch=PIPE_TOKEN[0],
+                        strategy=strategy, num_devices=sum(HET_REPL),
+                        stage_replication=HET_REPL, compute_dtype="bfloat16",
+                        seed=0, **kw)
+        s = make_strategy(cfg, dev, shared_card=dev.type == "cuda")
+        B = cfg.global_batch()
+        data = make_synthetic(cfg.dataset(), B, dev, seed=0)
+        batches = [data.batch(1, i) for i in range(1 + PIPE_TIMED)]
+        counters, plain0 = pipe_counted(fa, fx)
+        dt, losses = pipe_timed(torch, s, batches, cfg.resolved_lr())
+        got = {n: fn.launches for n, fn in counters.items()}
+        want = hetero_expected(s, 1 + PIPE_TIMED)
+        plain = fa.flash_attention.plain_launches - plain0
+        checks[f"d_launches_{strategy}"] = got == want and plain == 0
+        for n in PIPE_COUNTERS:
+            launches[n] += got[n]
+        rows[strategy] = {"tokens_per_sec": PIPE_TIMED * B * 1024 / dt,
+                          "ms_per_step": 1e3 * dt / PIPE_TIMED,
+                          "losses": losses, "global_batch": B,
+                          "microbatch": s.mb,
+                          "microbatches": s.num_microbatches,
+                          "bounds": s.bounds, "launches": got,
+                          "launches_expected": want, "card": card}
+        del s, data, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    f32 = {}
+    for strategy in ("gpipe", "pipedream"):
+        lc, uc = het_cut_step(torch, strategy, dev, HET_REPL)
+        lp, up = het_cut_step(torch, strategy, torch.device("cpu"),
+                              HET_REPL)
+        r = {"loss_card": lc, "loss_cpu": lp,
+             "loss_rel": abs(lc - lp) / abs(lp)}
+        r["worst_update_rel_l2"], r["worst_update_leaf"] = worst_update(
+            torch, uc, up)
+        r["ok"] = (r["loss_rel"] <= SHARD_F32_LOSS
+                   and r["worst_update_rel_l2"] <= SHARD_CPU_UPDATE)
+        if strategy == "gpipe":
+            lu, uu = het_cut_step(torch, "gpipe", dev, None)
+            r["uniform"] = {"loss": lu, "loss_rel": abs(lc - lu) / abs(lu),
+                            "worst_update_rel_l2": worst_update(
+                                torch, uc, uu)[0]}
+            r["ok"] = (r["ok"] and r["uniform"]["loss_rel"]
+                       <= HET_UNIFORM_REL and
+                       r["uniform"]["worst_update_rel_l2"]
+                       <= HET_UNIFORM_REL)
+        checks[f"a_{strategy}_f32"] = r["ok"]
+        f32[strategy] = r
+    emit({"phase": "hetero_train", "model": PIPE_TOKEN[0],
+          "benchmark": PIPE_TOKEN[1], "stage_replication": HET_REPL,
+          "shared_card": True, "dtype": "bfloat16", "rows": rows,
+          "a_f32": f32, "a_cut": {"blocks": HYB_CUT, "tokens": HYB_CUT_T},
+          "checks": checks, "seconds": time.perf_counter() - t_start})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"hetero checks failed: {failed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+PACKED_ARCHS = ("inception", "nasnet")
+PACKED_BENCH = "cifar10"
+
+
+def packed_f64_step(torch, arch, dev):
+    """``arch`` / cifar10 under gpipe at 2 stages (its packed chain, built
+    by make_strategy) in float64 at mb 2 x M 2 from seed 0's weights, one
+    step: (loss, every chunk's gradient, the running statistics)."""
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    cfg = RunConfig(benchmark=PACKED_BENCH, arch=arch, strategy="gpipe",
+                    num_devices=2, micro_batch_size=2, num_microbatches=2,
+                    compute_dtype="float32", seed=0)
+    s = make_strategy(cfg, dev, shared_card=dev.type == "cuda")
+    s.model.double()
+    s.compute_dtype = torch.float64
+    s.init()
+    rec = recording_updates(s)
+    x, y = make_synthetic(cfg.dataset(), 4, torch.device("cpu"),
+                          seed=0).batch(0, 0)
+    x = x.double()
+    if dev.type == "cuda":
+        x = x.to(dev).contiguous(memory_format=torch.channels_last)
+    loss = float(s.train_step(x, y.to(dev), cfg.resolved_lr())["loss"])
+    return (loss, [g for c in sorted(rec) for g in rec[c]],
+            [b.detach().double().cpu() for b in s.model.buffers()],
+            len(s.model.layers), s.bounds)
+
+
+def pipe_packed(torch, dev):
+    """packed_chain (module docstring, 18): inception and nasnet under
+    gpipe at 2 stages of the one card, their node-granular packed
+    chains: the float64 step against the CPU's."""
+    t_start = time.perf_counter()
+    out, checks = {}, {}
+    for arch in PACKED_ARCHS:
+        got = packed_f64_step(torch, arch, dev)
+        cpu = packed_f64_step(torch, arch, torch.device("cpu"))
+        out[arch] = {**f64_agreement(got[:3], cpu[:3]), "layers": got[3],
+                     "bounds": got[4]}
+        checks[f"a_{arch}_float64"] = out[arch]["ok"]
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "packed_chain", "benchmark": PACKED_BENCH, "stages": 2,
+          "micro_batch": 2, "microbatches": 2, "shared_card": True,
+          "archs": out, "checks": checks,
+          "seconds": time.perf_counter() - t_start})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"packed-chain checks failed: {failed}")
 
 
 def pipe_f64_step(torch, dev):
@@ -5986,6 +6219,7 @@ def phase_pipe_image(torch, dev):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"pipeline image checks failed: {failed}")
+    pipe_packed(torch, dev)
 
 
 # ---- 19-21: the sharded one-program strategies (sp, ep, fsdp) ----------
@@ -6355,6 +6589,9 @@ def sharded_shared_rank(comm):
     t0 = time.perf_counter()
     out["tp_image"] = tp_image_f64(torch, comm)
     out["tp_image_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["hybrid"] = hybrid_cell(torch, comm)
+    out["hybrid_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6452,6 +6689,8 @@ def phase_sharded(torch):
     if failed:
         raise AssertionError(f"sharded-strategy checks failed: {failed}")
     for name, n in tp_lines(shared).items():
+        launches[name] += n
+    for name, n in hybrid_line(shared).items():
         launches[name] += n
     return launches
 
@@ -6701,6 +6940,264 @@ def tp_image_f64(torch, comm):
                                         None))
     torch.cuda.empty_cache()
     return rec
+
+
+# ---- 25: hybrid PP x DP (hybrid_train) ------------------------------------
+HYB_S, HYB_R = 2, 2  # stages, replicas (-g 4 as --dp-replicas 2 x 2 stages)
+HYB_MB, HYB_M = 2, 2  # a replica's micro-batch and microbatches
+HYB_ROWS = HYB_MB * HYB_M * HYB_R  # the global batch
+HYB_TIMED = 2  # timed bfloat16 steps after a warm-up one
+HYB_BUCKETS = 2  # ZeRO-1's --comm-buckets
+HYB_RUNS = (("fill_drain", "gpipe", {}),
+            ("1f1b", "gpipe", {"pipe_schedule": "1f1b"}),
+            ("pipedream", "pipedream",
+             {"batch_size": HYB_MB * HYB_M, "micro_batch_size": HYB_MB,
+              "num_microbatches": None}),
+            ("zero1", "gpipe", {"dp_shard_update": True,
+                                "comm_buckets": HYB_BUCKETS}))
+# the float32 checks: transformer_s at full width cut to its first
+# HYB_CUT blocks on HYB_CUT_T tokens (the CPU steps stay short); (a) the
+# card's step against the same step of the same gloo ranks on the CPU
+# (the kernels' plain versions there): the loss within SHARD_F32_LOSS,
+# every leaf's update within SHARD_CPU_UPDATE relative L2; (b) ZeRO-1's
+# step against the replicated hybrid's on the card: every leaf's update
+# within HYB_ZERO1_REL (only where the sums' slices fall differs)
+HYB_CUT, HYB_CUT_T = 2, 256
+HYB_ZERO1_REL = 1e-6
+HYB_IMAGE = ("resnet18", "cifar10")  # the float64 BatchNorm row
+
+
+def hyb_cfg(strategy, dtype, arch=None, bench=None, **kw):
+    from ddlbench_tpu_torch.config import RunConfig
+
+    base = dict(benchmark=bench or SHARD_TOKEN[1],
+                arch=arch or SHARD_TOKEN[0], strategy=strategy,
+                num_devices=HYB_S * HYB_R, dp_replicas=HYB_R,
+                num_stages=HYB_S, micro_batch_size=HYB_MB,
+                num_microbatches=HYB_M, compute_dtype=dtype, seed=0,
+                optimizer="sgd", attention_backend="auto")
+    base.update(kw)
+    return RunConfig(**base)
+
+
+def hyb_engine(torch, comm, model, cfg, dtype):
+    """A hybrid strategy of ``cfg``'s runtime on ``model`` (moved to this
+    rank's stage devices), replica comm.rank, initialised."""
+    from ddlbench_tpu_torch.distributed import hybrid_stage_devices
+    from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
+    from ddlbench_tpu_torch.parallel.pipedream import PipeDreamStrategy
+    from ddlbench_tpu_torch.parallel.pipeline_rt import (
+        ScheduledPipelineStrategy)
+
+    devs = hybrid_stage_devices(str(comm.device.type), HYB_S, HYB_R,
+                                comm.rank, comm.device.type == "cuda")
+    cls = (PipeDreamStrategy if cfg.strategy == "pipedream" else
+           ScheduledPipelineStrategy if cfg.pipe_schedule != "fill-drain"
+           else GPipeStrategy)
+    s = cls(model.to(devs[0]), cfg, devs, dp_comm=comm)
+    s.compute_dtype = getattr(torch, dtype)
+    s.init()
+    return s
+
+
+def hyb_cut_model():
+    from ddlbench_tpu_torch.models.layers import LayerModel
+    from ddlbench_tpu_torch.models.zoo import get_model
+
+    full = get_model(*SHARD_TOKEN, seed=0)
+    return LayerModel(full.name, list(full.layers[:1 + HYB_CUT])
+                      + [full.layers[-1]], full.in_shape, full.num_classes)
+
+
+def hyb_update(torch, strat, batch, lr):
+    """One train step: (loss, {"<layer>.<name>": update} on the host),
+    the parameters read current (ZeRO-1's gathered first)."""
+    sync = getattr(strat, "sync_params", lambda: None)
+    sync()
+    before = {f"{i}.{n}": p.detach().double().cpu().clone()
+              for i, layer in enumerate(strat.model.layers)
+              for n, p in layer.named_parameters()}
+    loss = float(strat.train_step(*batch, lr)["loss"])
+    sync()
+    return loss, {f"{i}.{n}": p.detach().double().cpu() - before[f"{i}.{n}"]
+                  for i, layer in enumerate(strat.model.layers)
+                  for n, p in layer.named_parameters()}
+
+
+def hyb_cut_steps(torch, comm):
+    """The float32 cut steps of every runtime on this rank's device:
+    {run: (loss, update)}."""
+    out = {}
+    for key, strategy, kw in HYB_RUNS:
+        cfg = hyb_cfg(strategy, "float32", **kw)
+        x, y = shard_batches(torch, cfg, HYB_ROWS, 1, comm.device,
+                             seed=7)[0]
+        strat = hyb_engine(torch, comm, hyb_cut_model(), cfg, "float32")
+        out[key] = hyb_update(torch, strat, (x[:, :HYB_CUT_T],
+                                             y[:, :HYB_CUT_T]), SHARD_LR)
+        del strat
+        torch.cuda.empty_cache()
+    return out
+
+
+def hyb_image_f64(torch, comm):
+    """resnet18 / cifar10 fill-drain hybrid in float64 on this rank's
+    device: (loss, every chunk's replica-averaged gradient as applied,
+    the running statistics after the step's averaging)."""
+    from ddlbench_tpu_torch.models.zoo import get_model
+
+    cfg = hyb_cfg("gpipe", "float32", *HYB_IMAGE)
+    model = get_model(*HYB_IMAGE, seed=0).double()
+    if comm.device.type == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    x, y = shard_batches(torch, cfg, HYB_ROWS, 1, comm.device)[0]
+    x = x.double()
+    if comm.device.type == "cuda":
+        x = x.contiguous(memory_format=torch.channels_last)
+    strat = hyb_engine(torch, comm, model, cfg, "float64")
+    rec = recording_updates(strat)
+    loss = float(strat.train_step(x, y, cfg.resolved_lr())["loss"])
+    return (loss, [g for c in sorted(rec) for g in rec[c]],
+            [b.detach().double().cpu() for b in strat.model.buffers()])
+
+
+def hybrid_cell(torch, comm):
+    """Phase 25 on this rank (in the world-2 shared-card spawn): the
+    bfloat16 main path of every hybrid runtime through make_strategy
+    (the counters zeroed before each and read after, timed steps, the
+    optimizer bytes), then the float32 cut steps and resnet18's float64
+    step on the card and on the CPU over the same gloo group (rank 0
+    compares)."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    card = comm.device.type == "cuda"
+    out = {"runs": {}}
+    for key, strategy, kw in HYB_RUNS:
+        t0 = time.perf_counter()
+        cfg = hyb_cfg(strategy, "bfloat16", **kw)
+        batches = shard_batches(torch, cfg, HYB_ROWS, 1 + HYB_TIMED,
+                                comm.device)
+        strat = make_strategy(cfg, comm.device, comm, shared_card=card)
+        counters = dp_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        plain0 = fa.flash_attention.plain_launches
+        losses, ms = [], []
+        for i, (x, y) in enumerate(batches):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            losses.append(float(strat.train_step(x, y, SHARD_LR)["loss"]))
+            if i:
+                ms.append(1e3 * (time.perf_counter() - t1))
+        rec = {"launches": {n: fn.launches for n, fn in counters.items()},
+               "plain_launches": fa.flash_attention.plain_launches - plain0,
+               "launches_expected": pipe_expected(
+                   strat, "pipedream" if strategy == "pipedream"
+                   else strat.cfg.pipe_schedule, len(batches)),
+               "losses": losses, "bounds": strat.bounds,
+               "ms_per_step": sum(ms) / len(ms),
+               "opt_bytes": strat.opt_state_bytes(),
+               "row_padded": [m.padded for m in strat._row_meta]
+               if strat.pipe_shard else None,
+               "chunk_elements": [sum(p.numel() for p in
+                                      strat.chunk_params(c))
+                                  for c in range(strat.num_chunks)]}
+        rec["global_tokens_per_s"] = (HYB_ROWS * 1024 * 1e3
+                                      / rec["ms_per_step"])
+        rec["run_s"] = time.perf_counter() - t0
+        out["runs"][key] = rec
+        del strat, batches
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cut_card = hyb_cut_steps(torch, comm)
+    img_card = hyb_image_f64(torch, comm)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // comm.world))
+    try:
+        cpu = dataclasses.replace(comm, device=torch.device("cpu"),
+                                  staged=frozenset())
+        cut_cpu = hyb_cut_steps(torch, cpu)
+        img_cpu = hyb_image_f64(torch, cpu)
+    finally:
+        torch.set_num_threads(threads)
+    out["checks_s"] = time.perf_counter() - t0
+    if comm.rank:
+        return out
+    a = {}
+    for key in cut_card:
+        (lc, uc), (lp, up) = cut_card[key], cut_cpu[key]
+        r = {"loss_card": lc, "loss_cpu": lp,
+             "loss_rel": abs(lc - lp) / abs(lp)}
+        r["worst_update_rel_l2"], r["worst_update_leaf"] = worst_update(
+            torch, uc, up)
+        r["ok"] = (r["loss_rel"] <= SHARD_F32_LOSS
+                   and r["worst_update_rel_l2"] <= SHARD_CPU_UPDATE)
+        a[key] = r
+    b = {"worst_update_rel_l2": worst_update(
+        torch, cut_card["zero1"][1], cut_card["fill_drain"][1])[0],
+        "loss_rel": abs(cut_card["zero1"][0] - cut_card["fill_drain"][0])
+        / abs(cut_card["fill_drain"][0])}
+    b["ok"] = (b["worst_update_rel_l2"] <= HYB_ZERO1_REL
+               and b["loss_rel"] <= HYB_ZERO1_REL)
+    out.update(a_card_vs_cpu_f32=a, b_zero1_vs_replicated_f32=b,
+               image_float64=f64_agreement(img_card, img_cpu))
+    return out
+
+
+def hybrid_line(shared):
+    """Phase 25's line from the ranks' hybrid cells: emits hybrid_train
+    and returns the B1-B6 launches of every rank's main-path runs."""
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    checks, per_rank = {}, {}
+    for r in shared:
+        for key, rec in r["hybrid"]["runs"].items():
+            who = f"rank{r['rank']}_{key}"
+            checks[f"c_{who}"] = (rec["plain_launches"] == 0 and
+                                  rec["launches"] == rec["launches_expected"])
+            per_rank[who] = rec["launches"]
+            for n in SHARD_COUNTERS:
+                launches[n] += rec["launches"][n]
+    r0 = shared[0]["hybrid"]
+    for key in r0["runs"]:
+        checks[f"same_losses_{key}"] = (
+            shared[1]["hybrid"]["runs"][key]["losses"]
+            == r0["runs"][key]["losses"])
+    for key, rec in r0["a_card_vs_cpu_f32"].items():
+        checks[f"a_{key}"] = rec["ok"]
+    checks["b_zero1_vs_replicated"] = r0["b_zero1_vs_replicated_f32"]["ok"]
+    checks["image_float64"] = r0["image_float64"]["ok"]
+    rep, z = r0["runs"]["fill_drain"], r0["runs"]["zero1"]
+    # each rank holds half of every chunk's padded row of momentum (SGD)
+    half = sum(4 * p // HYB_R for p in z["row_padded"])
+    checks["zero1_opt_bytes_half"] = (
+        z["opt_bytes"] == half
+        and 0 <= HYB_R * z["opt_bytes"] - rep["opt_bytes"]
+        <= 4 * HYB_R * HYB_BUCKETS * len(z["row_padded"]))
+    emit({"phase": "hybrid_train", "model": SHARD_TOKEN,
+          "stages": HYB_S, "replicas": HYB_R, "micro_batch": HYB_MB,
+          "microbatches": HYB_M, "global_batch": HYB_ROWS,
+          "shared_card": True, "card": card_line(), "dtype": "bfloat16",
+          "runs": {k: {kk: v for kk, v in rec.items() if kk != "launches"}
+                   for k, rec in r0["runs"].items()},
+          "launches": per_rank,
+          "zero1_opt_bytes": z["opt_bytes"],
+          "replicated_opt_bytes": rep["opt_bytes"],
+          "a_card_vs_cpu_f32": r0["a_card_vs_cpu_f32"],
+          "a_cut": {"blocks": HYB_CUT, "tokens": HYB_CUT_T},
+          "b_zero1_vs_replicated_f32": r0["b_zero1_vs_replicated_f32"],
+          "image_float64": {"model": HYB_IMAGE, "global_batch": HYB_ROWS,
+                            **r0["image_float64"]},
+          "checks": checks,
+          "seconds": {"checks": r0["checks_s"],
+                      "runs": {k: rec["run_s"]
+                               for k, rec in r0["runs"].items()}}})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"hybrid checks failed: {failed}")
+    return launches
 
 
 def tp_lines(shared):

@@ -181,11 +181,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--schedule-trace", default=None, metavar="PATH",
                    help="measured-bubble advice (ROADMAP A.8)")
     p.add_argument("--dp-replicas", type=int, default=1,
-                   help="hybrid PP x DP (ROADMAP A.7b)")
+                   help="hybrid PP x DP: replicas of every stage, one rank "
+                        "each (-g = replicas x stages; with --tp-size > 1 "
+                        "refused: ROADMAP A.7b)")
     p.add_argument("--tp-size", type=int, default=1,
-                   help="tensor x pipeline parallelism (ROADMAP A.7b)")
-    p.add_argument("--stage-replication", default=None,
-                   help="uneven hybrid PP x DP (ROADMAP A.7b)")
+                   help="tensor x pipeline parallelism (gpipe, fill-drain)")
+    p.add_argument("--stage-replication", default=None, metavar="R0,R1,...",
+                   help="replicas per stage (-g = their sum): uniform runs "
+                        "the hybrid, uneven the hetero pipeline")
     p.add_argument("--update-interval", type=int, default=1,
                    help="pipedream macrobatch: microbatches per update")
     p.add_argument("--plan-bounds", default=None, metavar="0,K,...,L",
@@ -314,13 +317,17 @@ def main(argv=None) -> int:
     from ddlbench_tpu_torch.device import resolve_device
 
     ranks = cfg.spawned_ranks()
+    # a hybrid pipeline's replica holds its stages' cards
+    # (distributed.hybrid_stage_devices): its group on the first
+    stride = (cfg.resolved_stages() if ranks and cfg.tp_size == 1
+              and cfg.strategy in ("gpipe", "pipedream") else 1)
     if ranks:
-        distributed.check_world(args.device or "cuda", ranks)
+        distributed.check_world(args.device or "cuda", ranks, stride=stride)
     device = resolve_device(args.device)
     print("run manifest: " + json.dumps(vars(args)), flush=True)
     if ranks:
         result = distributed.spawn(_train_rank, ranks, device.type,
-                                   args=(cfg, args.jsonl))[0]
+                                   args=(cfg, args.jsonl), stride=stride)[0]
     else:
         result = _train_rank(None, cfg, args.jsonl, device)
     print("result: " + json.dumps(result), flush=True)

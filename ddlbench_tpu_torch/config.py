@@ -120,8 +120,8 @@ PORTED_STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "ep",
                      "fsdp", "tp")
 PIPELINE_STRATEGIES = ("gpipe", "pipedream")
 # the strategies whose ranks are processes of a group (distributed.spawn);
-# a gpipe with tp_size > 1 spawns one rank per shard too
-# (RunConfig.spawned_ranks)
+# a gpipe with tp_size > 1 spawns one rank per shard too, and a uniform
+# hybrid pipeline one a replica (RunConfig.spawned_ranks)
 RANK_STRATEGIES = ("dp", "sp", "ep", "fsdp", "tp")
 # the one-apply strategies that accumulate gradients and take remat_layers
 ONE_APPLY_STRATEGIES = ("single", "dp", "tp", "fsdp")
@@ -135,9 +135,6 @@ _WIRE_DTYPES = {"f32": "float32", "float32": "float32",
 # pipeline knob of the reference the port keeps for schema parity but does
 # not implement yet
 _PIPE_NOT_PORTED = (
-    ("dp_replicas", 1, "hybrid PP x DP (dp_replicas > 1)", "A.7b"),
-    ("stage_replication", None, "the hetero pipeline (stage_replication)",
-     "A.7b"),
     ("pipe_costs", "unit", "cost-weighted timetables (pipe_costs)",
      "A.8: the costs come from the auto-partition profile"),
     ("pipe_cost_vectors", None,
@@ -421,9 +418,14 @@ class RunConfig:
     # PipeDream's macrobatch (update_interval microbatches' gradients
     # averaged per update) and explicit per-chunk stage bounds
     # (plan_bounds: stages x virtual_stages + 1 layer indices from 0).
-    # dp_replicas, stage_replication, tp_size, pipe_costs,
-    # pipe_cost_vectors and schedule_trace are the reference's too;
-    # validate() refuses them away from their defaults
+    # dp_replicas: hybrid PP x DP, that many replicas of every stage, one
+    # rank each (parallel/gpipe.py; with dp_shard_update on gpipe the
+    # rows and optimizer state stay 1/dp a rank: hybrid PP x ZeRO-1);
+    # stage_replication: replicas per stage, uniform (the hybrid at
+    # micro_batch_size // r) or uneven (parallel/hetero.py). tp_size > 1
+    # is tpp (parallel/tpp.py). pipe_costs, pipe_cost_vectors and
+    # schedule_trace are the reference's too; validate() refuses them
+    # away from their defaults
     num_stages: Optional[int] = None
     dp_replicas: int = 1
     stage_replication: Optional[Tuple[int, ...]] = None
@@ -555,6 +557,16 @@ class RunConfig:
         return (self.dp_explicit_collectives() and self.dp_shard_update
                 and self.comm_buckets > 1)
 
+    def pipe_shard_engine(self) -> bool:
+        """True when the gpipe-family runtime composes with the ZeRO-1
+        shard axis (hybrid PP x ZeRO-1: --dp-shard-update on -f gpipe):
+        each chunk's packed parameter row and its optimizer state stay
+        device-major and 1/dp_replicas a rank between steps, each bucket
+        is all-gathered before the chunk's first forward and
+        reduce-scattered after the backward, and one sharded update runs
+        a step (parallel/gpipe.py)."""
+        return self.strategy == "gpipe" and self.dp_shard_update
+
     def resolved_stages(self) -> int:
         """The pipeline's stages: num_stages, else num_devices //
         (dp_replicas x tp_size)."""
@@ -599,12 +611,21 @@ class RunConfig:
         """How many rank processes the run spawns (distributed.spawn):
         ``num_devices`` for the rank strategies, ``tp_size`` for a gpipe
         with tp_size > 1 (one process a shard, each walking every
-        stage: parallel/tpp.py), 0 for the strategies that run in one
-        process."""
+        stage: parallel/tpp.py), the replica count of a uniform hybrid
+        pipeline (``dp_replicas``, or a uniform ``stage_replication``'s
+        factor: one process a replica, each walking its own stages), 0
+        for the strategies that run in one process (an uneven
+        ``stage_replication`` among them: parallel/hetero.py)."""
         if self.strategy in RANK_STRATEGIES:
             return self.num_devices
         if self.strategy == "gpipe" and self.tp_size > 1:
             return self.tp_size
+        if self.strategy in PIPELINE_STRATEGIES:
+            repl = tuple(self.stage_replication or ())
+            if repl and len(set(repl)) == 1 and repl[0] > 1:
+                return repl[0]
+            if not repl and self.dp_replicas > 1:
+                return self.dp_replicas
         return 0
 
     def global_batch(self) -> int:
@@ -613,10 +634,14 @@ class RunConfig:
         grad_accum_steps micro-steps per step on single/dp/fsdp; ``dp``,
         ``fsdp`` and ``ep`` take num_devices devices' rows, ``sp`` shards
         the sequence, not the batch; a pipeline's is micro_batch_size x
-        num_microbatches."""
+        num_microbatches x dp_replicas, or with stage_replication
+        micro_batch_size x num_microbatches (the replicas split each
+        microbatch's rows)."""
         mb, chunks = self.resolved_batches()
         if self.strategy in PIPELINE_STRATEGIES:
-            return mb * chunks
+            if self.stage_replication:
+                return mb * chunks
+            return mb * chunks * max(1, self.dp_replicas)
         accum = (self.grad_accum_steps
                  if self.strategy in ONE_APPLY_STRATEGIES else 1)
         devices = (self.num_devices if self.strategy in ("dp", "fsdp", "ep")
@@ -693,6 +718,12 @@ class RunConfig:
                 raise NotImplementedError(
                     f"{what} ({name}={getattr(self, name)!r}) is not ported "
                     f"to the PyTorch training path yet (ROADMAP {item})")
+        if self.dp_replicas > 1 and self.tp_size > 1:
+            raise NotImplementedError(
+                f"3-D parallelism (dp_replicas={self.dp_replicas} with "
+                f"tp_size={self.tp_size}: data x stage x model) is not "
+                "ported to the PyTorch training path yet (ROADMAP A.7b: it "
+                "needs dp x tp ranks)")
         if self.remat_layers and self.strategy not in ONE_APPLY_STRATEGIES:
             raise ValueError(
                 f"remat_layers applies to the one-apply strategies "
@@ -700,7 +731,38 @@ class RunConfig:
                 f"strategies checkpoint per (microbatch, stage) via "
                 f"remat_stages, and sp/ep bound activation memory by "
                 f"sharding the sequence/experts instead")
-        if self.strategy in PIPELINE_STRATEGIES:
+        if self.dp_replicas < 1:
+            raise ValueError("dp_replicas must be >= 1")
+        if self.stage_replication is not None:
+            repl = tuple(self.stage_replication)
+            if self.strategy not in PIPELINE_STRATEGIES:
+                raise ValueError(
+                    "stage_replication applies to the pipeline strategies")
+            if not repl or any(r < 1 for r in repl):
+                raise ValueError("stage_replication factors must be >= 1")
+            if self.dp_replicas > 1:
+                raise ValueError(
+                    "stage_replication and dp_replicas are mutually "
+                    "exclusive (the tuple already encodes replication)")
+            if sum(repl) != self.num_devices:
+                raise ValueError(
+                    f"stage_replication {repl} sums to {sum(repl)}; "
+                    f"num_devices is {self.num_devices}")
+            if self.num_stages is not None and self.num_stages != len(repl):
+                raise ValueError(
+                    f"num_stages ({self.num_stages}) != "
+                    f"len(stage_replication) ({len(repl)})")
+            mb, _ = self.resolved_batches()
+            bad = [s for s, r in enumerate(repl) if mb % r]
+            if bad:
+                raise ValueError(
+                    f"micro-batch {mb} must be divisible by every "
+                    f"replication factor; stages {bad} of {repl} are not")
+            if self.virtual_stages > 1:
+                raise ValueError(
+                    "stage_replication and virtual_stages (interleaved "
+                    "schedule) are mutually exclusive")
+        elif self.strategy in PIPELINE_STRATEGIES:
             s = self.resolved_stages()
             if s * max(1, self.dp_replicas) * max(1, self.tp_size) \
                     != self.num_devices:
@@ -720,6 +782,11 @@ class RunConfig:
                 raise ValueError(
                     "tp_size > 1 requires a token or seq2seq benchmark "
                     "(transformer blocks are what gets Megatron-sliced)")
+            if self.stage_replication is not None:
+                raise ValueError(
+                    "tp_size > 1 composes with uniform pipeline stages "
+                    "(plus dp_replicas for 3-D parallelism); "
+                    "stage_replication must stay default")
             if self.virtual_stages > 1:
                 raise ValueError(
                     "tp_size > 1 with the interleaved schedule is not "
@@ -741,6 +808,11 @@ class RunConfig:
                 f"gpipe strategy's schedule runtime "
                 f"(parallel/pipeline_rt.py); pipedream is the ASYNC "
                 f"1F1B engine and {self.strategy!r} has no pipeline")
+        if self.pipe_schedule != "fill-drain" and \
+                self.stage_replication is not None:
+            raise ValueError(
+                "stage_replication (hetero pipeline) executes the "
+                "fill-drain schedule only")
         if self.zb_h2_stash < 0:
             raise ValueError("zb_h2_stash must be >= 0")
         if self.sched_search_budget < 0:
@@ -748,7 +820,11 @@ class RunConfig:
         if self.update_interval < 1:
             raise ValueError("update_interval must be >= 1")
         if self.update_interval > 1:
-            if self.strategy != "pipedream":
+            # uniform stage_replication tuples run as dp_replicas and are
+            # macrobatch-compatible; only uneven plans conflict
+            uneven = (self.stage_replication
+                      and len(set(self.stage_replication)) > 1)
+            if self.strategy != "pipedream" or uneven:
                 raise ValueError(
                     "update_interval > 1 (PipeDream macrobatch) requires the "
                     "uniform pipedream strategy")
@@ -825,28 +901,30 @@ class RunConfig:
         self.resolved_allreduce_dtype()  # raises on unknown values
         if self.comm_buckets < 1:
             raise ValueError("comm_buckets must be >= 1")
-        if self.dp_shard_update and self.strategy == "gpipe":
-            if self.tp_size > 1:
-                raise ValueError(
-                    "dp_shard_update on gpipe (hybrid PP x ZeRO-1) is "
-                    "scoped to the 2-D data x stage mesh; tp_size > 1 "
-                    "keeps the replicated update")
-            raise NotImplementedError(
-                "dp_shard_update on gpipe (hybrid PP x ZeRO-1) is not "
-                "ported to the PyTorch training path yet (ROADMAP A.7b: it "
-                "needs dp_replicas > 1)")
-        if self.comm_buckets > 1 and self.strategy != "dp":
+        if self.comm_buckets > 1 and self.strategy != "dp" and \
+                not self.pipe_shard_engine():
             raise ValueError(
                 "comm_buckets > 1 (bucketed gradient collectives) applies "
                 "to the dp strategy's explicit collective engine (-f dp; "
                 "combine with --dp-shard-update for the fully overlapped "
                 "just-in-time all-gather) or to -f gpipe with "
                 "--dp-shard-update (hybrid PP x ZeRO-1 bucket count)")
-        if self.dp_shard_update and self.strategy != "dp":
+        if self.dp_shard_update and self.strategy not in ("dp", "gpipe"):
             raise ValueError(
                 "dp_shard_update (sharded weight update) applies to the dp "
                 "strategy or to -f gpipe (hybrid PP x ZeRO-1 over the pipe "
                 "mesh's 'data' axis; fsdp already shards everything)")
+        if self.pipe_shard_engine():
+            if self.tp_size > 1:
+                raise ValueError(
+                    "dp_shard_update on gpipe (hybrid PP x ZeRO-1) is "
+                    "scoped to the 2-D data x stage mesh; tp_size > 1 "
+                    "keeps the replicated update")
+            if self.stage_replication is not None:
+                raise ValueError(
+                    "dp_shard_update on gpipe needs the uniform 2-D mesh; "
+                    "stage_replication (hetero pipeline) keeps the "
+                    "replicated update")
         if self.dp_shard_update and self.shard_opt_state:
             raise ValueError(
                 "dp_shard_update supersedes shard_opt_state: the explicit "

@@ -33,6 +33,13 @@ into contiguous groups). The port
 flattens VGG's map in the reference's (H, W, C) order, so the
 classifier's first dense rows need no reordering.
 
+``load_packed_rows(chunks, rows)`` puts the pipelines' packed stage rows
+(the reference's ``[S, L]`` / ``[V, S, L]`` parameter matrix, each row a
+chunk's leaves in its order and layout) back into each chunk's
+parameters; ``load_hetero_rows`` does it for the hetero pipelines from
+the reference's ``[N, L]`` device rows, and ``zero1_plain_rows`` turns
+its hybrid PP x ZeRO-1 device-major padded rows into plain ones.
+
 ``from_jax_state(model, states_np)`` copies the reference's per-layer
 state list (``init_model``'s second output: BatchNorm's running ``mean``
 and ``var``, of every BatchNorm, a composite layer's nodes' too) into the
@@ -225,3 +232,56 @@ def from_jax_opt_state(opt: dict, model: LayerModel,
     if "step" in want:
         opt["step"] = int(np.asarray(opt_np["step"]))
     return opt
+
+
+def load_packed_rows(chunks, rows) -> None:
+    """Each chunk's parameters (``chunks``: a list of layer lists) from its
+    row of the reference's packed stage matrix (``rows``: [C, L] or [V,
+    S, L], row c = chunk c, each holding the chunk's parameters in the
+    reference's leaf order and layout, zero-padded; numpy), in place:
+    the inverse of the pipelines' ``materialize_params``."""
+    from ddlbench_tpu_torch.parallel.common import (from_ref_layout,
+                                                    ref_param_order,
+                                                    to_ref_layout)
+
+    rows = np.asarray(rows).reshape(len(chunks), -1)
+    for layers, row in zip(chunks, rows):
+        params, _ = ref_param_order(LayerModel("chunk", list(layers), (1,),
+                                               1))
+        off = 0
+        with torch.no_grad():
+            for p in params:
+                n = p.numel()
+                flat = torch.from_numpy(np.array(row[off:off + n]))
+                p.copy_(from_ref_layout(flat.view(to_ref_layout(p).shape)))
+                off += n
+        if off > row.size:
+            raise ValueError(f"a row of {row.size} elements for {off} "
+                             "parameters")
+
+
+def load_hetero_rows(strategy, rows_np) -> None:
+    """The hetero pipelines' parameters (parallel/hetero.py) from the
+    reference's [N, L] device rows (row d = its stage's packed row; a
+    stage's replicas hold one row), in place: each stage's first device
+    row into its replica 0, then ``strategy.init()`` copies replica 0
+    into the others (and starts a fresh optimizer state)."""
+    rows_np = np.asarray(rows_np)
+    load_packed_rows([strategy.replicas[s][0]
+                      for s in range(strategy.num_stages)],
+                     rows_np[strategy._offsets[:-1]])
+    strategy.init()
+
+
+def zero1_plain_rows(rows_np, length: int, world: int,
+                     buckets: int = 1) -> np.ndarray:
+    """The reference's hybrid PP x ZeRO-1 parameter rows ([.., L_pad]:
+    device-major over ``world`` replicas in ``buckets`` stretches of its
+    ``row_flat_meta(length, world, buckets)``) as the plain [.., length]
+    rows :func:`load_packed_rows` takes."""
+    from ddlbench_tpu_torch.parallel.common import (device_major_perm,
+                                                    row_flat_meta)
+
+    meta = row_flat_meta(length, world, buckets)
+    _, inv = device_major_perm(meta, world)
+    return np.take(np.asarray(rows_np), inv, axis=-1)[..., :length]

@@ -13,9 +13,11 @@ calls (parallel/dp.py).
 Backends and devices:
 
 * ``cpu``: gloo, every rank on the CPU (the tests);
-* ``cuda``: NCCL, rank r on ``cuda:r``; a world larger than the machine's
-  card count is an error naming the count, never a silent fall back to
-  gloo or the CPU;
+* ``cuda``: NCCL, rank r on ``cuda:r`` (a hybrid pipeline's replica on
+  the first of its stages' cards, ``cuda:(r * S)``:
+  :func:`hybrid_stage_devices`); a world larger than the machine's card
+  count is an error naming the count, never a silent fall back to gloo
+  or the CPU;
 * ``cuda`` with ``shared_card=True``: gloo, every rank on ``cuda:0``. NCCL
   refuses two ranks on one card, so this is how one card runs a world of
   2 (chip_smoke.py). It exists only for a caller that asks for it; the CLI
@@ -76,10 +78,12 @@ def local_batch_slice(global_batch: int, rank: int, world: int) -> slice:
 
 
 def rank_device(device: str, rank: int, world: int,
-                shared_card: bool = False) -> torch.device:
-    """The device of rank ``rank``: the CPU, ``cuda:rank``, or ``cuda:0``
-    for every rank of a shared card. Raises where the machine lacks the
-    cards (module docstring)."""
+                shared_card: bool = False, stride: int = 1) -> torch.device:
+    """The device of rank ``rank``: the CPU, ``cuda:(rank * stride)``, or
+    ``cuda:0`` for every rank of a shared card. ``stride`` is the cards a
+    rank holds (a hybrid pipeline's replica holds its S stages' cards,
+    :func:`hybrid_stage_devices`; its group is bound to the first).
+    Raises where the machine lacks the cards (module docstring)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         if shared_card:
@@ -90,15 +94,16 @@ def rank_device(device: str, rank: int, world: int,
     have = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if shared_card and have:
         return torch.device("cuda", 0)
-    if have < world or not have:
-        need = 1 if shared_card else world
+    if have < world * stride or not have:
+        need = 1 if shared_card else world * stride
         raise RuntimeError(
-            f"-g {world} needs {need} CUDA device(s) ("
+            f"-g {world * stride} needs {need} CUDA device(s) ("
             + ("gloo, every rank on one card" if shared_card
-               else "NCCL, one rank a card")
+               else "NCCL, one rank a card" if stride == 1
+               else f"NCCL, one rank {stride} cards")
             + f"); this machine has {have} (--device cpu runs the ranks "
             "on the CPU)")
-    return torch.device("cuda", rank)
+    return torch.device("cuda", rank * stride)
 
 
 def stage_devices(device: str, num_stages: int,
@@ -150,12 +155,37 @@ def tp_stage_devices(device: str, num_stages: int, tp: int, rank: int,
     return [torch.device("cuda", s * tp + rank) for s in range(num_stages)]
 
 
-def check_world(device: str, world: int, shared_card: bool = False) -> None:
-    """Raise before any process starts where ``world`` ranks cannot run on
-    ``device``."""
+def hybrid_stage_devices(device: str, num_stages: int, replicas: int,
+                         rank: int, shared_card: bool = False
+                         ) -> List[torch.device]:
+    """The stage devices of replica ``rank`` of ``replicas`` in a hybrid
+    pipeline of ``num_stages`` stages (hybrid PP x DP): stage s on
+    ``cuda:(rank * num_stages + s)``, the reference's ``('data',
+    'stage')`` mesh with the data axis outer; raises, naming the count,
+    where the machine has fewer than ``replicas * num_stages`` cards.
+    ``shared_card=True`` puts every stage of every replica on ``cuda:0``;
+    ``cpu`` gives the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cpu" or shared_card:
+        return stage_devices(device, num_stages, shared_card)
+    need = num_stages * replicas
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < need:
+        raise RuntimeError(
+            f"{num_stages} pipeline stages x {replicas} replicas need "
+            f"{need} CUDA device(s) (one stage of a replica a card); this "
+            f"machine has {have} (--device cpu runs them on the CPU)")
+    return [torch.device("cuda", rank * num_stages + s)
+            for s in range(num_stages)]
+
+
+def check_world(device: str, world: int, shared_card: bool = False,
+                stride: int = 1) -> None:
+    """Raise before any process starts where ``world`` ranks of
+    ``stride`` cards each cannot run on ``device``."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
-    rank_device(device, world - 1, world, shared_card)
+    rank_device(device, world - 1, world, shared_card, stride)
 
 
 def _reduce_scatter(out, inp, op, group):
@@ -400,10 +430,11 @@ def all_to_all_experts(x: torch.Tensor, comm: "Comm",
 
 
 def init_rank(rank: int, world: int, init_file: str, device: str,
-              shared_card: bool = False) -> Comm:
+              shared_card: bool = False, stride: int = 1) -> Comm:
     """Join the default process group as ``rank`` of ``world`` through the
-    rendezvous file ``init_file`` and return the rank's Comm."""
-    dev = rank_device(device, rank, world, shared_card)
+    rendezvous file ``init_file`` and return the rank's Comm, bound to
+    its first card (:func:`rank_device`)."""
+    dev = rank_device(device, rank, world, shared_card, stride)
     if dev.type == "cuda":
         from ddlbench_tpu_torch.device import resolve_device
 
@@ -421,9 +452,10 @@ def init_rank(rank: int, world: int, init_file: str, device: str,
 
 
 def _rank_main(fn, rank, world, init_file, device, shared_card, results,
-               args):
+               args, stride=1):
     try:
-        comm = init_rank(rank, world, init_file, device, shared_card)
+        comm = init_rank(rank, world, init_file, device, shared_card,
+                         stride)
         try:
             out = fn(comm, *args)
         finally:
@@ -434,19 +466,22 @@ def _rank_main(fn, rank, world, init_file, device, shared_card, results,
 
 
 def spawn(fn: Callable, world: int, device: str = "cuda", *,
-          shared_card: bool = False, args: Sequence = ()) -> List[Any]:
+          shared_card: bool = False, args: Sequence = (),
+          stride: int = 1) -> List[Any]:
     """Run ``fn(comm, *args)`` on ``world`` ranks, each a process of its own
     (spawn start method), and return their results in rank order. ``fn``
-    and ``args`` are pickled by import path (a module-level function).
+    and ``args`` are pickled by import path (a module-level function);
+    rank r's group is bound to ``cuda:(r * stride)`` on the card.
     Raises with every failed rank's traceback, or where a rank died without
     a word."""
-    check_world(device, world, shared_card)
+    check_world(device, world, shared_card, stride)
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="ddlb_rdv_") as tmp:
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, os.path.join(tmp, "rdv"),
-                                   device, shared_card, results, tuple(args)))
+                                   device, shared_card, results, tuple(args),
+                                   stride))
                  for r in range(world)]
         for p in procs:
             p.start()

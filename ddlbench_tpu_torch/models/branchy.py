@@ -10,15 +10,20 @@ positions (where exactly one tensor crosses the cut) and wraps each span
 in a :class:`Composite` layer, so the strategies see a flat chain; a
 composite's parameters are named ``<k>.<name>`` after the span's k-th
 node, which is how the reference's per-span list of parameter dicts maps
-onto them (convert.py). The packed multi-tensor chain the reference's
-pipeline partitioner uses is not ported: the pipelines refuse these
-arches (ROADMAP A.7b).
+onto them (convert.py). Under a manual pipeline the reference splits at
+node granularity instead: :func:`to_packed_chain` cuts the DAG at any
+positions, every tensor crossing a cut flattened and concatenated into
+one [B, N] boundary (the crossing order of :func:`crossing_ids`: sorted
+ids, -1 for the input), which the next :class:`PackedSpan` unpacks, so
+a pipeline's single-activation boundaries carry nasnet's two crossing
+tensors and inception's fan-outs (parallel/api.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Sequence, Tuple
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -136,6 +141,93 @@ def to_chain(model: DagModel) -> LayerModel:
     return LayerModel(model.name, [Composite(model, a, b)
                                    for a, b in block_spans(model)],
                       model.in_shape, model.num_classes)
+
+
+def crossing_ids(model: DagModel, p: int) -> List[int]:
+    """Ids whose output crosses the cut before node ``p`` (read by some
+    node >= p), sorted; -1 is the model's input."""
+    n = len(model.layers)
+    return sorted({pid for j in range(p, n) for pid in model.inputs[j]
+                   if pid < p})
+
+
+def _nchw(shape: Shape) -> Shape:
+    """A reference shape, (H, W, C) or (features,), as the port's
+    per-example tensor shape."""
+    return (shape[2], shape[0], shape[1]) if len(shape) == 3 else shape
+
+
+class PackedSpan(ImageLayer):
+    """DAG span [start, end) reading a packed boundary (module
+    docstring): its input is the model's input (start 0) or the [B, N]
+    concatenation of the crossing tensors ``in_ids`` (each flattened in
+    the port's layout); its output the [B, N'] concatenation of the
+    tensors crossing its end, or the last node's output for the last
+    span. Parameters are named ``<k>.<name>`` after the span's k-th
+    node, as :class:`Composite`'s."""
+
+    def __init__(self, model: DagModel, start: int, end: int,
+                 in_ids: Sequence[int], out_ids: Optional[Sequence[int]]):
+        n = len(model.layers)
+
+        def shape_of(i):
+            return model.in_shape if i < 0 else model.layers[i].out_shape
+
+        out_shape = (shape_of(end - 1) if out_ids is None else
+                     (sum(math.prod(shape_of(i)) for i in out_ids),))
+        super().__init__(f"{model.name}_span{start}_{end}", out_shape)
+        self.start, self.end, self.n = start, end, n
+        self.in_ids = list(in_ids)
+        self.out_ids = None if out_ids is None else list(out_ids)
+        self.in_shapes = [tuple(shape_of(i)) for i in self.in_ids]
+        self.inputs = model.inputs[start:end]
+        self.combine = model.combine[start:end]
+        self.nodes = list(model.layers[start:end])
+        for k, node in enumerate(self.nodes):
+            self.add_module(str(k), node)
+        # the geometry the flat boundary hides from the FLOP estimate
+        # (parallel/packing.py): one number for a one-node span
+        per_node = tuple(math.prod(shape_of(i)[:-1])
+                         if len(shape_of(i)) > 1 else 1
+                         for i in range(start, end))
+        self.cost_spatial = per_node[0] if len(per_node) == 1 else per_node
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B = x.shape[0]
+        env = {}
+        if self.start == 0:
+            env[-1] = x
+        else:
+            off = 0
+            for pid, shape in zip(self.in_ids, self.in_shapes):
+                size = math.prod(shape)
+                env[pid] = x[:, off:off + size].reshape(B, *_nchw(shape))
+                off += size
+        for k, (preds, how) in enumerate(zip(self.inputs, self.combine)):
+            env[self.start + k] = self._modules[str(k)](
+                combine([env[p] for p in preds], how))
+        if self.out_ids is None:
+            return env[self.end - 1]
+        return torch.cat([env[i].reshape(B, -1) for i in self.out_ids],
+                         dim=1)
+
+
+def to_packed_chain(model: DagModel, cuts: Sequence[int]) -> LayerModel:
+    """The DAG as a chain cut at ``cuts`` (node positions strictly inside
+    (0, n), any of them, not only articulation positions), one
+    :class:`PackedSpan` a span: len(cuts) + 1 layers, named after the
+    reference's (``<name>_packed``)."""
+    n = len(model.layers)
+    cuts = sorted(set(int(c) for c in cuts))
+    if not all(0 < c < n for c in cuts):
+        raise ValueError(f"cuts {cuts} outside (0, {n})")
+    bounds = [0, *cuts, n]
+    spans = [PackedSpan(model, a, b,
+                        crossing_ids(model, a) if a > 0 else [-1],
+                        crossing_ids(model, b) if b < n else None)
+             for a, b in zip(bounds[:-1], bounds[1:])]
+    return LayerModel(f"{model.name}_packed", spans, model.in_shape,
+                      model.num_classes)
 
 
 # ---- inception ------------------------------------------------------------

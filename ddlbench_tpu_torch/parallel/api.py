@@ -2,24 +2,30 @@
 ``make_strategy``), for the strategies it carries: ``single``, ``dp``,
 ``gpipe`` (fill-drain, or an event schedule of the timetable runtime, or
 with ``tp_size`` > 1 tpp's Megatron-sliced stages), ``pipedream``,
-``sp``, ``ep``, ``fsdp`` and ``tp``."""
+``sp``, ``ep``, ``fsdp`` and ``tp``; a pipeline with ``dp_replicas`` > 1
+is one replica of the hybrid, an uneven ``stage_replication`` the hetero
+strategies (parallel/hetero.py), a branchy arch under a manual pipeline
+the node-granular packed chain (models/branchy.py)."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Union
 
 import torch
 
 from ddlbench_tpu_torch.config import (PIPELINE_STRATEGIES, RANK_STRATEGIES,
                                       RunConfig)
-from ddlbench_tpu_torch.distributed import (Comm, stage_devices,
-                                            tp_stage_devices)
-from ddlbench_tpu_torch.models.branchy import BRANCHY_ARCHS
+from ddlbench_tpu_torch.distributed import (Comm, hybrid_stage_devices,
+                                            stage_devices, tp_stage_devices)
+from ddlbench_tpu_torch.models.branchy import get_dag, to_packed_chain
 from ddlbench_tpu_torch.models.transformer import set_attention_backend
 from ddlbench_tpu_torch.models.zoo import get_model
 from ddlbench_tpu_torch.parallel.dp import DPStrategy
 from ddlbench_tpu_torch.parallel.ep import EPStrategy
 from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
+from ddlbench_tpu_torch.parallel.hetero import (HeteroGPipeStrategy,
+                                                HeteroPipeDreamStrategy)
 from ddlbench_tpu_torch.parallel.pipedream import PipeDreamStrategy
 from ddlbench_tpu_torch.parallel.pipeline_rt import ScheduledPipelineStrategy
 from ddlbench_tpu_torch.parallel.sharded import FSDPStrategy, TPStrategy
@@ -56,14 +62,15 @@ def _pipeline(cfg: RunConfig, model, device: torch.device,
               shared_card: bool, comm: Optional[Comm]) -> GPipeStrategy:
     """A gpipe or pipedream strategy over ``cfg``'s stages on ``device``
     (distributed.stage_devices), split at ``cfg.plan_bounds`` when set,
-    else at the balanced default split; with ``tp_size`` > 1 rank
-    ``comm``'s shard of tpp (distributed.tp_stage_devices)."""
-    if cfg.arch in BRANCHY_ARCHS:
-        raise NotImplementedError(
-            f"{cfg.arch} under a pipeline needs the reference's "
-            "node-granular packed chain (models/branchy.py to_packed_chain) "
-            "for its stage split, which is not ported to the PyTorch "
-            "training path yet (ROADMAP A.7b)")
+    else at the balanced default split (a branchy arch's over its
+    node-granular packed chain, the reference's manual-pipeline form);
+    with ``tp_size`` > 1 rank ``comm``'s shard of tpp
+    (distributed.tp_stage_devices); with ``dp_replicas`` > 1 replica
+    ``comm.rank`` of the hybrid (distributed.hybrid_stage_devices). A
+    uniform ``stage_replication`` (r, ..., r) runs as that hybrid at
+    ``dp_replicas`` r and micro_batch_size // r (the global batch stays
+    M x micro_batch_size); an uneven one runs the hetero strategies in
+    this process over sum(r) devices."""
     bounds = None
     if cfg.plan_bounds is not None:
         if cfg.plan_bounds[-1] != len(model.layers):
@@ -72,11 +79,42 @@ def _pipeline(cfg: RunConfig, model, device: torch.device,
                 f"model's layer count ({cfg.arch} has "
                 f"{len(model.layers)} layers)")
         bounds = [int(b) for b in cfg.plan_bounds]
-    if cfg.strategy == "gpipe" and (comm is None or comm.rank == 0):
+    rank0 = comm is None or comm.rank == 0
+    if bounds is None:
+        spec = cfg.dataset()
+        dag = get_dag(cfg.arch, spec.image_size, spec.num_classes,
+                      seed=cfg.seed)
+        if dag is not None:
+            model = to_packed_chain(dag, range(1, len(dag.layers)))
+            if rank0:
+                print(f"branchy arch: node-granular packed chain "
+                      f"({len(model.layers)} layers) for the stage split",
+                      flush=True)
+    repl = tuple(cfg.stage_replication or ())
+    if repl and len(set(repl)) == 1:
+        mb, chunks = cfg.resolved_batches()
+        cfg = dataclasses.replace(cfg, stage_replication=None,
+                                  dp_replicas=repl[0], num_stages=len(repl),
+                                  micro_batch_size=mb // repl[0],
+                                  num_microbatches=chunks)
+        repl = ()
+    if cfg.strategy == "gpipe" and rank0:
         print(schedule_advice(cfg, len(model.layers)), flush=True)
+    if repl:
+        devices = stage_devices(str(device), sum(repl), shared_card)
+        model = model.to(devices[0])
+        if devices[0].type == "cuda" and cfg.dataset().kind == "image":
+            model = model.to(memory_format=torch.channels_last)
+        cls = (HeteroPipeDreamStrategy if cfg.strategy == "pipedream"
+               else HeteroGPipeStrategy)
+        return cls(model, cfg, devices, stage_bounds=bounds)
     if cfg.tp_size > 1:
         devices = tp_stage_devices(str(device), cfg.resolved_stages(),
                                    cfg.tp_size, comm.rank, shared_card)
+    elif cfg.dp_replicas > 1:
+        devices = hybrid_stage_devices(str(device), cfg.resolved_stages(),
+                                       cfg.dp_replicas, comm.rank,
+                                       shared_card)
     else:
         devices = stage_devices(str(device), cfg.resolved_stages(),
                                 shared_card)
@@ -93,7 +131,8 @@ def _pipeline(cfg: RunConfig, model, device: torch.device,
         cls = ScheduledPipelineStrategy
     else:
         cls = GPipeStrategy
-    return cls(model, cfg, devices, stage_bounds=bounds)
+    return cls(model, cfg, devices, stage_bounds=bounds,
+               dp_comm=comm if cfg.dp_replicas > 1 else None)
 
 
 def make_strategy(cfg: RunConfig, device: torch.device,
@@ -108,7 +147,8 @@ def make_strategy(cfg: RunConfig, device: torch.device,
     ``comm`` (distributed.spawn gives each rank its own), whose world must
     be ``cfg.num_devices``; rank 0's weights are broadcast to the others.
     A gpipe with ``tp_size`` > 1 runs shard ``comm.rank`` of ``tp_size``
-    (every rank builds the same weights from ``cfg.seed``).
+    (every rank builds the same weights from ``cfg.seed``); a hybrid
+    pipeline (``cfg.spawned_ranks()`` replicas) replica ``comm.rank``.
     ``gpipe`` and ``pipedream`` run
     their stages on ``cfg.resolved_stages()`` devices of ``device``'s
     type: one card each, or with ``shared_card`` every stage on one card

@@ -575,6 +575,29 @@ def shard_bucket_slice(shard: torch.Tensor, meta: FlatMeta, world: int,
     return shard[o:o + meta.bucket_padded[b] // world]
 
 
+def row_flat_meta(length: int, world: int, buckets: int = 1) -> FlatMeta:
+    """The FlatMeta of an already packed row of ``length`` elements (one
+    pipeline chunk's parameters in the reference's leaf order, hybrid
+    PP x ZeRO-1: parallel/gpipe.py) sharded 1/world a rank in ``buckets``
+    contiguous pieces (the reference's ``row_flat_meta``). The row has no
+    leaves to align to: the buckets are near-equal stretches of
+    world-sized units, each a multiple of ``world`` long, the last
+    padded, which is all :func:`to_device_major` and the per-bucket
+    reduce-scatter and all-gather need. ``shapes`` and ``sizes`` are
+    empty and ``bucket_leaves`` is (0, 0) a bucket."""
+    units = -(-max(1, length) // world)
+    buckets = max(1, min(buckets, units))
+    base, rem = divmod(units, buckets)
+    padded, offsets, off = [], [], 0
+    for b in range(buckets):
+        u = base + (1 if b < rem else 0)
+        padded.append(u * world)
+        offsets.append(off)
+        off += u * world
+    return FlatMeta((), (), int(length), int(off), ((0, 0),) * buckets,
+                    tuple(padded), tuple(offsets))
+
+
 def device_major_perm(meta: FlatMeta, world: int):
     """Index permutation ``p`` (numpy int64) with ``flat[p] ==
     to_device_major(flat)``, and its inverse."""

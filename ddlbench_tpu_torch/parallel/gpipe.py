@@ -34,6 +34,31 @@ A train step:
 
 Eval runs the same fill-drain forward in eval mode (the reference's
 eval step): the loss is the mean of the microbatches' means.
+
+Hybrid PP x DP (``dp_replicas`` R > 1: the reference's ``('data',
+'stage')`` mesh): one process a replica (distributed.spawn; rank d's
+stage s on ``cuda:(d*S + s)``, distributed.hybrid_stage_devices), each
+walking its own pipeline, joined by the replica group ``dp_comm``:
+
+* the global batch is [M*mb*R] rows; microbatch m of replica d is rows
+  ``[m*R*mb + d*mb, m*R*mb + (d+1)*mb)``, the reference's reshape to
+  [M, R*mb] with the second axis sharded (:meth:`shard_batch`);
+* after the backward each chunk's gradient is summed over the replicas
+  and divided by R (the event schedules divide the sum by R, then by
+  M); the loss is averaged over the replicas, ``correct`` and the valid
+  count summed, and BatchNorm's running statistics averaged over them
+  at the step's end (the reference's sync of the state rows);
+* with ``dp_shard_update`` (hybrid PP x ZeRO-1, gpipe and the event
+  schedules) each chunk's parameters, packed in the reference's leaf
+  order and layout into one row (common.row_flat_meta: ``comm_buckets``
+  stretches, padded), and their optimizer state stay device-major and
+  1/R a rank between steps: each bucket is all-gathered into the
+  chunk's parameters before its first forward of a step, each bucket of
+  the summed gradient row is reduce-scattered after the backward, the
+  shard divided by R then M, and one sharded update runs
+  (:meth:`_shard_update`). The parameters the model holds are stale
+  between an update and the next gather; :meth:`sync_params` gathers
+  them (eval and :meth:`materialize_params` call it).
 :class:`ScheduledPipelineStrategy` (parallel/pipeline_rt.py) and
 :class:`PipeDreamStrategy` (parallel/pipedream.py) subclass this one for
 their train steps.
@@ -48,12 +73,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ddlbench_tpu_torch.config import RunConfig
-from ddlbench_tpu_torch.models.layers import LayerModel, apply_chunk
+from ddlbench_tpu_torch.distributed import Comm
+from ddlbench_tpu_torch.models.layers import (BatchNorm, LayerModel,
+                                              apply_chunk)
 from ddlbench_tpu_torch.models.moe import MoEBlock
 from ddlbench_tpu_torch.parallel.common import (
     cast_input, correct_and_count, correct_topk, cross_entropy_loss,
-    flat_optimizer, fused_chunk_eval_sums, fused_chunk_loss_sums,
-    head_fusable, ref_param_order, to_ref_layout)
+    flat_optimizer, from_ref_layout, fused_chunk_eval_sums,
+    fused_chunk_loss_sums, head_fusable, ref_param_order, row_flat_meta,
+    to_ref_layout)
 from ddlbench_tpu_torch.parallel.packing import (balanced_stage_bounds,
                                                  layer_flop_costs,
                                                  model_shapes)
@@ -68,16 +96,56 @@ def chunk_aux(layers: Sequence[torch.nn.Module]) -> Optional[torch.Tensor]:
     return sum(aux) if aux else None
 
 
+def bn_layers(layers: Sequence[torch.nn.Module]) -> List[BatchNorm]:
+    """The BatchNorm modules of ``layers``, in order."""
+    return [m for layer in layers for m in layer.modules()
+            if isinstance(m, BatchNorm)]
+
+
+def sum_over(comm: Optional[Comm], tensors: Sequence[torch.Tensor],
+             div: int = 1) -> None:
+    """In place: each of ``tensors`` (one device, one type) summed over
+    ``comm``'s ranks in one all-reduce of their concatenation, then
+    divided by ``div`` (a no-op without a group)."""
+    if comm is None or not tensors:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    comm.all_reduce(flat)
+    if div != 1:
+        flat /= div
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+
+
+def mean_over(comm: Comm, tensors: Sequence[torch.Tensor]) -> None:
+    """In place: ``tensors`` averaged over ``comm``'s ranks (the sum, then
+    / world)."""
+    sum_over(comm, tensors, comm.world)
+
+
 class GPipeStrategy:
     """strategy='gpipe': fill-drain over S stages (V chunks each) on
     ``devices`` (one per stage; distributed.stage_devices). The model's
-    chunk layers are moved to their devices here."""
+    chunk layers are moved to their devices here. With ``dp_replicas`` R
+    > 1 this is replica ``dp_comm.rank`` of R (module docstring)."""
 
     def __init__(self, model: LayerModel, cfg: RunConfig,
                  devices: Sequence[torch.device],
-                 stage_bounds: Optional[Sequence[int]] = None):
+                 stage_bounds: Optional[Sequence[int]] = None,
+                 dp_comm: Optional[Comm] = None):
         self.model = model
         self.cfg = cfg
+        self.dp = max(1, cfg.dp_replicas)
+        if (dp_comm.world if dp_comm is not None else 1) != self.dp:
+            raise ValueError(
+                f"dp_replicas={self.dp} needs a replica group of {self.dp} "
+                "ranks (distributed.spawn)")
+        self.dp_comm = dp_comm
+        if dp_comm is not None:
+            self.comm = dp_comm  # rank 0 prints (train/loop.py)
+        self.pipe_shard = cfg.pipe_shard_engine()
         self.num_stages = S = cfg.resolved_stages()
         self.vstages = V = max(1, cfg.virtual_stages)
         self.num_chunks = C = S * V
@@ -112,6 +180,27 @@ class GPipeStrategy:
             S, self.num_microbatches, V)
         self._opt_init, self._opt_update = flat_optimizer(cfg)
         self.opt: Optional[List[dict]] = None
+        # ZeRO-1: each chunk's parameters in the reference's leaf order
+        # (its row), the rows' metas, this rank's shards
+        self._ref_params: List[List[torch.nn.Parameter]] = []
+        self._row_meta = []
+        if self.pipe_shard:
+            self._ref_params = [ref_param_order(LayerModel(
+                "chunk", list(self.chunk_layers(c)), (1,), 1))[0]
+                for c in range(C)]
+            self._row_meta = [row_flat_meta(
+                sum(p.numel() for p in ps), self.dp,
+                max(1, cfg.comm_buckets)) for ps in self._ref_params]
+        self._shards: Optional[List[torch.Tensor]] = None
+        self._stale = [False] * C
+        if dp_comm is not None and self.dp > 1:
+            # one set of starting weights and statistics: rank 0's
+            for c in range(C):
+                for t in (self.chunk_params(c) + [
+                        b for layer in self.chunk_layers(c)
+                        for b in layer.buffers()]):
+                    with torch.no_grad():
+                        dp_comm.broadcast(t.data)
 
     # -- layout --------------------------------------------------------------
 
@@ -127,14 +216,152 @@ class GPipeStrategy:
 
     @property
     def world_size(self) -> int:
-        return len(self.devices)
+        return len(self.devices) * self.dp
 
     def init(self) -> None:
         """Fresh optimizer state, one per chunk, for the current
-        parameters."""
-        self.opt = [self._opt_init([p.detach() for p in
-                                    self.chunk_params(c)])
-                    for c in range(self.num_chunks)]
+        parameters (ZeRO-1: this rank's shard of each chunk's row, cut
+        from the parameters, and its state)."""
+        if not self.pipe_shard:
+            self.opt = [self._opt_init([p.detach() for p in
+                                        self.chunk_params(c)])
+                        for c in range(self.num_chunks)]
+            return
+        self._shards = [self._own_shard(c, self._pack_row(
+            c, [p.detach() for p in self._ref_params[c]]))
+            for c in range(self.num_chunks)]
+        self._stale = [False] * self.num_chunks
+        self.opt = [self._opt_init([sh]) for sh in self._shards]
+
+    # -- hybrid PP x ZeRO-1 --------------------------------------------------
+
+    def _rank(self) -> int:
+        return self.dp_comm.rank if self.dp_comm is not None else 0
+
+    def _pack_row(self, c: int, leaves: Sequence[torch.Tensor]
+                  ) -> torch.Tensor:
+        """Chunk c's leaves (the reference's order) raveled in its layout
+        into one padded row (float32, float64 for a float64 model)."""
+        meta = self._row_meta[c]
+        dev = self.chunk_device(c)
+        dtype = torch.promote_types(leaves[0].dtype, torch.float32) \
+            if leaves else torch.float32
+        row = torch.zeros(meta.padded, dtype=dtype, device=dev)
+        off = 0
+        for t in leaves:
+            n = t.numel()
+            row[off:off + n] = to_ref_layout(t).reshape(-1).to(dtype)
+            off += n
+        return row
+
+    def _own_shard(self, c: int, row: torch.Tensor) -> torch.Tensor:
+        """This rank's device-major shard of a plain padded row: its 1/R
+        slice of each bucket, concatenated."""
+        meta, r = self._row_meta[c], self._rank()
+        parts = []
+        for o, bp in zip(meta.bucket_offsets, meta.bucket_padded):
+            bl = bp // self.dp
+            parts.append(row[o + r * bl:o + (r + 1) * bl])
+        return torch.cat(parts).clone()
+
+    def _gather(self, c: int) -> None:
+        """ZeRO-1: chunk c's buckets all-gathered from the ranks' shards
+        into its parameters (a no-op when they are current)."""
+        if not self._stale[c]:
+            return
+        meta, shard = self._row_meta[c], self._shards[c]
+        parts = []
+        for o, bp in zip(meta.bucket_offsets, meta.bucket_padded):
+            piece = shard[o // self.dp:(o + bp) // self.dp]
+            parts.append(piece if self.dp_comm is None
+                         else self.dp_comm.all_gather(piece))
+        row = torch.cat(parts)
+        off = 0
+        with torch.no_grad():
+            for p in self._ref_params[c]:
+                n = p.numel()
+                ref_shape = to_ref_layout(p).shape
+                p.copy_(from_ref_layout(row[off:off + n].view(ref_shape)))
+                off += n
+        self._stale[c] = False
+
+    def sync_params(self) -> None:
+        """The model's parameters current: every stale chunk gathered
+        (ZeRO-1; a no-op otherwise)."""
+        if self.pipe_shard:
+            for c in range(self.num_chunks):
+                self._gather(c)
+
+    def _shard_update(self, c: int, grads: Sequence[torch.Tensor],
+                      lr: float, div: int) -> None:
+        """ZeRO-1: chunk c's summed gradient (chunk_params order) packed
+        into its row, each bucket reduce-scattered over the replicas, the
+        shard divided by R then ``div``, and the sharded update."""
+        params = self.chunk_params(c)
+        if not params:
+            return
+        by_id = {id(p): g for p, g in zip(params, grads)}
+        row = self._pack_row(c, [by_id[id(p)] for p in self._ref_params[c]])
+        meta = self._row_meta[c]
+        parts = []
+        for o, bp in zip(meta.bucket_offsets, meta.bucket_padded):
+            piece = row[o:o + bp]
+            parts.append(piece if self.dp_comm is None
+                         else self.dp_comm.reduce_scatter(piece))
+        g = torch.cat(parts) / self.dp
+        if div != 1:
+            g = g / div
+        with torch.no_grad():
+            self._opt_update([self._shards[c]], [g], self.opt[c], lr)
+        self._stale[c] = True
+
+    def opt_state_bytes(self) -> int:
+        """This rank's optimizer-state bytes (every tensor of every
+        chunk's state)."""
+        return sum(t.numel() * t.element_size() for st in self.opt
+                   for v in st.values() if isinstance(v, list) for t in v)
+
+    # -- the replicas' reductions ------------------------------------------
+
+    def _finish_step(self, grads: Sequence[Sequence[torch.Tensor]],
+                     lr: float, div: int = 1) -> None:
+        """The step's end: each chunk's summed gradient reduced over the
+        replicas (the sum / R, or ZeRO-1's reduce-scatter), divided by
+        ``div`` and applied; BatchNorm's running statistics averaged
+        over the replicas."""
+        for c in range(self.num_chunks):
+            g = list(grads[c])
+            if self.pipe_shard:
+                self._shard_update(c, g, lr, div)
+                continue
+            if self.dp > 1:
+                mean_over(self.dp_comm, g)
+            if div != 1:
+                g = [t / div for t in g]
+            self._update(c, g, lr)
+        self._sync_stats()
+
+    def _sync_stats(self) -> None:
+        """BatchNorm's running statistics averaged over the replicas."""
+        if self.dp_comm is None or self.dp == 1:
+            return
+        for c in range(self.num_chunks):
+            bns = bn_layers(self.chunk_layers(c))
+            mean_over(self.dp_comm, [t for bn in bns
+                                     for t in (bn.mean, bn.var)])
+
+    def _replica_metrics(self, loss: torch.Tensor, correct: torch.Tensor,
+                         valid: torch.Tensor, correct5=None):
+        """(the loss averaged over the replicas, correct, valid[,
+        correct5] summed over them)."""
+        if self.dp_comm is None or self.dp == 1:
+            return loss, correct, valid, correct5
+        loss = self.dp_comm.all_reduce(loss.reshape(1).clone())[0] / self.dp
+        ints = [correct, valid] + ([] if correct5 is None else [correct5])
+        ints = self.dp_comm.all_reduce(torch.stack(
+            [t.to(torch.int64) for t in ints]))
+        return (loss, ints[0], ints[1],
+                None if correct5 is None else ints[2])
 
     def materialize_params(self) -> torch.Tensor:
         """The reference's packed stage-parameter matrix, on the CPU in
@@ -142,6 +369,7 @@ class GPipeStrategy:
         reference's leaf order and layout (parallel/common.py
         ``ref_param_order``), zero-padded to the longest row; [S, L] at
         V 1, [V, S, L] (row [v, s] = chunk v*S + s) above."""
+        self.sync_params()
         rows = []
         for c in range(self.num_chunks):
             sub = LayerModel("chunk", list(self.chunk_layers(c)), (1,), 1)
@@ -158,15 +386,22 @@ class GPipeStrategy:
 
     def shard_batch(self, x: torch.Tensor, y: torch.Tensor
                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-        """Global batch [M*mb, ...] -> M microbatches of mb contiguous rows:
-        inputs on chunk 0's device, labels on the last chunk's."""
-        M, mb = self.num_microbatches, self.mb
-        if x.shape[0] != M * mb:
+        """Global batch [M*mb*R, ...] -> this replica's M microbatches of
+        mb rows: microbatch m is rows [m*R*mb + d*mb, m*R*mb + (d+1)*mb)
+        for replica d (the reference's [M, R*mb] layout, its second axis
+        sharded; contiguous blocks of mb at R 1); inputs on chunk 0's
+        device, labels on the last chunk's."""
+        M, mb, R = self.num_microbatches, self.mb, self.dp
+        if x.shape[0] != M * mb * R:
             raise ValueError(f"batch of {x.shape[0]} rows; the pipeline "
-                             f"takes {M} microbatches of {mb}")
+                             f"takes {M} microbatches of {mb}"
+                             + (f" on each of {R} replicas" if R > 1
+                                else ""))
         last = self.chunk_device(self.num_chunks - 1)
-        xs = [t for t in x.to(self.chunk_device(0)).split(mb)]
-        ys = [t for t in y.to(last).split(mb)]
+        d = self._rank()
+        xs = [t[d * mb:(d + 1) * mb]
+              for t in x.to(self.chunk_device(0)).split(R * mb)]
+        ys = [t[d * mb:(d + 1) * mb] for t in y.to(last).split(R * mb)]
         return xs, ys
 
     # -- one chunk -----------------------------------------------------------
@@ -259,13 +494,15 @@ class GPipeStrategy:
         returns {"loss": the unsmoothed CE, "accuracy": top-1 over valid
         labels}."""
         metrics = self._forward_backward(x, y)
-        for c in range(self.num_chunks):
-            self._update(c, self._grads(c), lr)
+        self._finish_step([self._grads(c) for c in range(self.num_chunks)],
+                          lr)
         return metrics
 
     def reduced_grads(self, x: torch.Tensor, y: torch.Tensor):
         """The step's forward and backward on the global batch (x, y),
-        without the update: (metrics, {"<layer>.<name>": gradient})."""
+        without the update: (metrics, {"<layer>.<name>": gradient}), the
+        gradient this rank's (its replica's share at R > 1: the sum over
+        the replicas / R is the step's)."""
         metrics = self._forward_backward(x, y)
         grads = {}
         for c in range(self.num_chunks):
@@ -293,6 +530,7 @@ class GPipeStrategy:
         ce_acc = correct = None
         with torch.no_grad() if remat else contextlib.nullcontext():
             for c, m in order:
+                self._gather(c)
                 xin = xs[m] if c == 0 else acts.pop((c - 1, m))
                 if remat:
                     stash[(c, m)] = xin
@@ -314,7 +552,9 @@ class GPipeStrategy:
             last = self.chunk_device(C - 1)
             torch.stack([p.to(last) for p in parts]).sum().div(M).backward()
         valid = sum((t >= 0).sum() for t in ys)
-        return {"loss": ce_acc.detach() / M,
+        loss, correct, valid, _ = self._replica_metrics(
+            ce_acc.detach() / M, correct, valid)
+        return {"loss": loss,
                 "accuracy": correct.float() / valid.clamp(min=1).float()}
 
     def _remat_backward(self, order, stash, ys) -> None:
@@ -356,6 +596,7 @@ class GPipeStrategy:
         """The fill-drain forward in eval mode: {loss (the mean of the
         microbatches' mean CEs), correct, correct5, count}."""
         xs, ys = self.shard_batch(x, y)
+        self.sync_params()
         self.model.eval()
         M, C = self.num_microbatches, self.num_chunks
         acts: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -374,5 +615,7 @@ class GPipeStrategy:
                 correct5 = (out["correct5"] if correct5 is None
                             else correct5 + out["correct5"])
         count = sum((t >= 0).sum() for t in ys)
-        return {"loss": loss / M, "correct": correct, "correct5": correct5,
+        loss, correct, count, correct5 = self._replica_metrics(
+            loss / M, correct, count, correct5)
+        return {"loss": loss, "correct": correct, "correct5": correct5,
                 "count": count}

@@ -4,9 +4,10 @@
 The reference packs each stage's parameters into one row of a sharded
 matrix because its pipeline is one SPMD program; the port's pipelines run
 each chunk's layers as they are, on their own device, so only the split
-itself is ported: the analytic per-layer FLOP estimate and the exact
-min-max DP over it. The per-example boundary shapes the estimate reads
-(the reference's ``init_model`` shapes) come from :func:`model_shapes`.
+itself is ported: the analytic per-layer FLOP estimate (with the packed
+spans' stated geometry) and the exact min-max DP over it. The
+per-example boundary shapes the estimate reads (the reference's
+``init_model`` shapes) come from :func:`model_shapes`.
 """
 
 from __future__ import annotations
@@ -92,10 +93,21 @@ def layer_flop_costs(model: LayerModel,
                      shapes: Sequence[Tuple[int, ...]]) -> List[float]:
     """Analytic per-layer FLOP estimate for load balancing: 2 x the
     layer's parameter count x its output's spatial size (the product of
-    all but the last output dimension; 1 for a vector), at least 1."""
+    all but the last output dimension; 1 for a vector), at least 1. A
+    layer whose flat output hides its geometry (a packed span of a
+    branchy DAG, models/branchy.py) states it as ``cost_spatial``: one
+    number, or one per node, whose costs are then summed node by node
+    (``nodes``), as the reference's packed spans advertise theirs."""
     costs = []
     for layer, out_shape in zip(model.layers, shapes[1:]):
+        spatial = getattr(layer, "cost_spatial", None)
+        if isinstance(spatial, (list, tuple)):
+            costs.append(sum(
+                max(1.0, 2.0 * sum(p.numel() for p in node.parameters())
+                    * s) for node, s in zip(layer.nodes, spatial)))
+            continue
         n_params = sum(p.numel() for p in layer.parameters())
-        spatial = math.prod(out_shape[:-1]) if len(out_shape) > 1 else 1
+        if spatial is None:
+            spatial = math.prod(out_shape[:-1]) if len(out_shape) > 1 else 1
         costs.append(max(1.0, 2.0 * n_params * spatial))
     return costs

@@ -30,6 +30,17 @@ The last chunk's loss per microbatch is its mean over valid labels
 losses); each other chunk's backward is seeded with the cotangent its
 successor sent and moe_aux_weight for its own router losses. Eval is
 gpipe's fill-drain.
+
+With ``dp_replicas`` R > 1 each replica walks this timetable on its
+rows of every microbatch (gpipe's hybrid layout, parallel/gpipe.py), and
+the gradient of every backward event is SUMMED over the replicas (the
+reference's psum over 'data', PipeDream's per-stage DDP) before that
+chunk's update or its macrobatch accumulation. At the step's end the
+parameters, BatchNorm's running statistics and the optimizer's float
+state are averaged over the replicas and its integer state (Adam's step
+count) takes their max, as the reference's end-of-step pmean and pmax
+do; the reported loss is the replicas' mean, ``correct`` and the valid
+count their sums.
 """
 
 from __future__ import annotations
@@ -38,7 +49,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
+from ddlbench_tpu_torch.parallel.gpipe import (GPipeStrategy, mean_over,
+                                               sum_over)
 from ddlbench_tpu_torch.parallel.pipeline_rt import _grad
 
 
@@ -114,6 +126,7 @@ class PipeDreamStrategy(GPipeStrategy):
                     bwd_q[(c - 1, b)] = self._send(gx, c - 1)
                 gp = [g.to(torch.promote_types(g.dtype, torch.float32))
                       for g in gp]
+                sum_over(self.dp_comm, gp)
                 if K == 1:
                     self._update(c, gp, lr)
                     continue
@@ -122,9 +135,30 @@ class PipeDreamStrategy(GPipeStrategy):
                 if (b + 1) % K == 0:
                     self._update(c, [g / K for g in g_acc[c]], lr)
                     g_acc[c] = None
+        if self.dp > 1:
+            self._sync_replicas()
         valid = sum((t >= 0).sum() for t in ys)
-        return {"loss": loss_acc / M,
+        loss, correct, valid, _ = self._replica_metrics(loss_acc / M,
+                                                        correct, valid)
+        return {"loss": loss,
                 "accuracy": correct.float() / valid.clamp(min=1).float()}
+
+    def _sync_replicas(self) -> None:
+        """The step's end at R > 1: each chunk's parameters, BatchNorm
+        statistics and float optimizer state averaged over the replicas
+        (their integer state, Adam's step, is one Python count every
+        replica advanced alike: its max is itself)."""
+        with torch.no_grad():
+            for c in range(self.num_chunks):
+                floats = [p.data for p in self.chunk_params(c)] + [
+                    t for k, v in self.opt[c].items() if isinstance(v, list)
+                    for t in v]
+                by_type: Dict[torch.dtype, list] = {}
+                for t in floats:
+                    by_type.setdefault(t.dtype, []).append(t)
+                for ts in by_type.values():
+                    mean_over(self.dp_comm, ts)
+        self._sync_stats()
 
     def _backward(self, c: int, b: int, xs, ys, stash_p, stash_x, bwd_q,
                   nslot: int):

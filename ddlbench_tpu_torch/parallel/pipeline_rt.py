@@ -33,6 +33,11 @@ carries the stashed row cotangent through the rest of the chunk.
 Every microbatch runs at the step's weights; at the end each chunk's
 summed gradient is divided by M and one optimizer update runs
 (parallel/common.py ``flat_optimizer``). Eval is gpipe's fill-drain.
+With ``dp_replicas`` R > 1 the summed gradient is reduced over the
+replicas first, then divided by R and by M in that order (the sum / R
+replicated, or ZeRO-1's reduce-scatter / R under ``dp_shard_update``,
+whose buckets are all-gathered before each chunk's first F event), as
+gpipe's hybrid does (parallel/gpipe.py).
 """
 
 from __future__ import annotations
@@ -159,6 +164,7 @@ class ScheduledPipelineStrategy(GPipeStrategy):
             first, last = c == 0, c == C - 1
             labels = ys[m] if last else None
             if kind == EVENT_FWD:
+                self._gather(c)
                 xin = xs[m] if first else xst[(c, m)]
                 with torch.no_grad():
                     out = self._chunk_obj(c, xin, labels)
@@ -187,10 +193,11 @@ class ScheduledPipelineStrategy(GPipeStrategy):
                                                zip(gp, g_acc[c])])
             if not first:
                 xst.pop((c, m))
-        for c in range(C):
-            self._update(c, [g / M for g in g_acc[c]], lr)
+        self._finish_step(g_acc, lr, div=M)
         valid = sum((t >= 0).sum() for t in ys)
-        return {"loss": ce_acc / M,
+        loss, correct, valid, _ = self._replica_metrics(ce_acc / M, correct,
+                                                        valid)
+        return {"loss": loss,
                 "accuracy": correct.float() / valid.clamp(min=1).float()}
 
     def _b_event(self, c: int, m: int, x_st: torch.Tensor,

@@ -34,8 +34,10 @@ r)``, or every one on a shared card):
   (rank 0, as the reference's one process prints it once).
 
 Every rank builds the whole model from ``cfg.seed`` before it slices,
-so the ranks start from one set of weights. ``dp_replicas`` > 1 (3-D
-parallelism) is refused by RunConfig (ROADMAP A.7b: hybrid PP x DP).
+so the ranks start from one set of weights. ``dp_replicas`` > 1 with
+``tp_size`` > 1 (3-D parallelism) is refused by RunConfig (ROADMAP A.7b:
+it needs dp x tp ranks); hybrid PP x DP alone runs on gpipe's replicas
+(parallel/gpipe.py).
 """
 
 from __future__ import annotations

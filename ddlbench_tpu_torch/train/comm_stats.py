@@ -26,7 +26,23 @@ counterpart of PipeDream's RuntimeStats):
   microbatch (``_act_size``) over each of the S-1 links, forward and
   back, on each of the M*V + S - 1 ticks. The port's pipelines ship only
   the real boundaries; the figure is the reference's, kept for the line's
-  parity.
+  parity;
+* the hybrid pipelines (``dp_replicas`` R > 1): each replica's
+  boundaries (x R), plus each step's ring all-reduce of every chunk's
+  float32 gradient over the replicas (pipedream: once a microbatch,
+  ``allreduce`` x M); under ZeRO-1 (``dp_shard_update`` on gpipe) that
+  all-reduce splits into its reduce-scatter, ``(R-1)/R x`` the gradient
+  bytes, and the next step's all-gather of the parameters, as much
+  again, with ``physical_*`` twins over the padded rows the port ships
+  (its own rows, one a chunk: common.row_flat_meta) and
+  ``comm_buckets``;
+* the hetero pipelines (uneven ``stage_replication``): the logical
+  boundary bytes (each activation across its boundary once forward,
+  once back: the replicas split the rows, so no factor), and each
+  stage's ring all-reduce of its float32 gradient over its replicas
+  once a step (pipedream: a microbatch). The reference's
+  ``physical_*`` figures price its flat-axis conveyor and masked rings,
+  kept for parity; the port moves only the rows a replica reads.
 """
 
 from __future__ import annotations
@@ -84,19 +100,56 @@ def comm_stats(strategy) -> Dict[str, float]:
                   "PipeDreamStrategy"):
         itemsize = torch.empty((), dtype=strategy.compute_dtype
                                ).element_size()
-        M, mb = strategy.num_microbatches, strategy.mb
+        M, mb, dp = strategy.num_microbatches, strategy.mb, strategy.dp
         bounds, shapes = strategy.bounds, strategy.shapes
         S = strategy.num_stages
         boundary = 0.0
         for s in range(1, S):
             act = mb * math.prod(shapes[bounds[s]]) * itemsize
             boundary += 2.0 * M * act  # activation fwd + gradient bwd
-        out["boundary_bytes"] = boundary
+        out["boundary_bytes"] = boundary * dp  # a replica's column each
         if name == "GPipeStrategy":
             V = strategy.num_chunks // S
             T = M * V + S - 1
             out["physical_boundary_bytes"] = (
-                2.0 * T * (S - 1) * strategy._act_size * itemsize)
+                2.0 * T * (S - 1) * dp * strategy._act_size * itemsize)
+        if dp > 1:
+            p_lens = [sum(p.numel() for p in strategy.chunk_params(c))
+                      for c in range(strategy.num_chunks)]
+            grad_bytes = 4.0 * sum(p_lens)
+            if strategy.pipe_shard:
+                metas = strategy._row_meta
+                padded = 4.0 * sum(m.padded for m in metas)
+                out["reduce_scatter_bytes"] = (dp - 1) / dp * grad_bytes
+                out["all_gather_bytes"] = (dp - 1) / dp * grad_bytes
+                out["physical_reduce_scatter_bytes"] = (dp - 1) / dp * padded
+                out["physical_all_gather_bytes"] = (dp - 1) / dp * padded
+                out["comm_buckets"] = float(metas[0].num_buckets)
+            else:
+                syncs = M if name == "PipeDreamStrategy" else 1
+                out["allreduce_bytes"] = _ring_allreduce_bytes(
+                    grad_bytes, dp) * syncs
+    elif name in ("HeteroGPipeStrategy", "HeteroPipeDreamStrategy"):
+        itemsize = torch.empty((), dtype=strategy.compute_dtype
+                               ).element_size()
+        M, mb = strategy.num_microbatches, strategy.mb
+        bounds, shapes = strategy.bounds, strategy.shapes
+        S = strategy.num_stages
+        out["boundary_bytes"] = sum(
+            2.0 * M * mb * math.prod(shapes[bounds[s]]) * itemsize
+            for s in range(1, S))
+        per_sync = sum(_ring_allreduce_bytes(4.0 * strategy._p_lens[s], r)
+                       for s, r in enumerate(strategy.repl))
+        asynch = name == "HeteroPipeDreamStrategy"
+        out["allreduce_bytes"] = per_sync * (M if asynch else 1)
+        N, R = strategy.N, strategy._R
+        buf = float(strategy._act_size) * itemsize
+        ticks = 2 * M + 2 * S - 2 if asynch else M + S - 1
+        n_ring = sum(r for r in strategy.repl if r > 1)
+        out["physical_conveyor_bytes"] = 2.0 * ticks * R * (N - 1) * buf
+        out["physical_allreduce_bytes"] = float(
+            (max(strategy.repl) - 1) * (ticks if asynch else 1) * n_ring
+        ) * 4.0 * max(strategy._p_lens)
     elif name == "TPGPipeStrategy":
         # the reference's logical accounting: the boundaries as gpipe's,
         # and each stage's replicated leaves' gradient all-reduce over the

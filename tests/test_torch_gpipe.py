@@ -160,13 +160,19 @@ def test_plan_bounds_set_the_split_and_name_their_error(capsys):
 
 
 # each knob the port keeps with the reference's default and refuses away
-# from it, and the ROADMAP item the refusal names
+# from it, and the ROADMAP item the refusal names (dp_replicas,
+# stage_replication and gpipe's dp_shard_update run since the hybrid
+# pipelines: tests/test_torch_hybrid.py, test_torch_hetero.py; what
+# stays of A.7b is 3-D tpp and remat_layers under fsdp and tp)
 REFUSED = [
-    (dict(dp_replicas=2, num_devices=4), "A.7b"),
-    (dict(stage_replication=(1, 1)), "A.7b"),
+    (dict(tp_size=2, dp_replicas=2, num_devices=8, num_stages=2,
+          benchmark="synthtext", arch="transformer_t"), "A.7b"),
+    (dict(strategy="fsdp", remat_layers=True, benchmark="synthtext",
+          arch="transformer_t"), "A.7b"),
     (dict(tp_size=2, dp_replicas=2, num_devices=8, benchmark="synthtext",
           arch="transformer_t"), "A.7b"),
-    (dict(dp_shard_update=True), "A.7b"),
+    (dict(strategy="tp", remat_layers=True, benchmark="synthtext",
+          arch="transformer_t"), "A.7b"),
     (dict(pipe_costs="profile"), "A.8"),
     (dict(pipe_cost_vectors=((1, 1), (1, 1), (1, 1)),
           pipe_schedule="1f1b"), "A.8"),
@@ -184,15 +190,20 @@ def test_unported_pipeline_knobs_name_their_item(kw, item):
 
 @pytest.mark.parametrize("arch", ["inception", "nasnet"])
 def test_branchy_arches_are_refused_under_a_pipeline(arch):
+    """Refused until the packed chain was ported; a manual pipeline now
+    splits the arch's node-granular packed chain, every node a layer
+    (tests/test_torch_packed_chain.py holds it to the reference)."""
     cfg = RunConfig(benchmark="cifar10", arch=arch, strategy="pipedream",
                     num_devices=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7b"):
-        make_strategy(cfg, torch.device("cpu"))
+    s = make_strategy(cfg, torch.device("cpu"))
+    assert s.model.name == f"{arch}_packed" and len(s.bounds) == 3
+    assert all(len(list(layer.children())) == 1 for layer in s.model.layers)
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--dp-replicas", "2", "-g", "4"], "A.7b"),
-    (["--stage-replication", "1,1"], "A.7b"),
+    (["--dp-replicas", "2", "--tp-size", "2", "-g", "8", "--stages", "2"],
+     "A.7b"),
+    (["--tp-size", "2", "--dp-replicas", "4", "-g", "8"], "A.7b"),
     (["--tp-size", "2", "--dp-replicas", "2", "-g", "8"], "A.7b"),
     (["--pipe-costs", "profile"], "A.8"),
     (["--schedule-trace", "t.json"], "A.8")])

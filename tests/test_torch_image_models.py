@@ -221,8 +221,9 @@ def test_cli_refuses_unported_flags_by_name(capsys, argv):
                                    "transformer_moe_s", "-b", "synthtext"],
                                   ["-f", "fsdp", "-g", "2", "-m",
                                    "transformer_moe_s", "-b", "synthtext"],
-                                  ["-f", "pipedream", "-g", "2", "-m",
-                                   "nasnet", "-b", "cifar10"]])
+                                  ["-f", "gpipe", "-g", "8", "--tp-size",
+                                   "2", "--dp-replicas", "2", "-m",
+                                   "transformer_t", "-b", "synthtext"]])
 def test_cli_refuses_unported_runs(argv):
     with pytest.raises(NotImplementedError):
         cli.main(argv + ["--device", "cpu"])

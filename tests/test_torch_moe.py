@@ -429,16 +429,20 @@ def test_remat_layers_refused_for_moe():
     ("dp_replicas", 2, "ROADMAP A.7b")])
 def test_schema_only_fields_refuse_what_the_port_does_not_do(name, value,
                                                              match):
-    """param_dtype and dp_replicas carry the reference's defaults; any
-    other value is refused, not silently ignored (remat_stages, once
-    refused here, acts on the pipelines: tests/test_torch_gpipe.py;
-    tp_size, once refused here, runs tpp: tests/test_torch_tpp.py)."""
+    """param_dtype and dp_replicas carry the reference's defaults; a
+    value the port does not run is refused, not silently ignored
+    (remat_stages, once refused here, acts on the pipelines:
+    tests/test_torch_gpipe.py; tp_size, once refused here, runs tpp:
+    tests/test_torch_tpp.py; dp_replicas runs the hybrid pipelines,
+    tests/test_torch_hybrid.py, and stays refused with tp_size > 1)."""
     assert getattr(RunConfig(), name) == getattr(JaxRunConfig(), name)
     RunConfig(benchmark="synthtext", arch="transformer_moe_s",
               **{name: getattr(JaxRunConfig(), name)}).validate()
+    extra = ({"strategy": "gpipe", "tp_size": 2, "num_devices": 8}
+             if name == "dp_replicas" else {})
     with pytest.raises(NotImplementedError, match=match):
         RunConfig(benchmark="synthtext", arch="transformer_moe_s",
-                  **{name: value}).validate()
+                  **{name: value}, **extra).validate()
 
 
 def test_moe_has_no_serving_ops():

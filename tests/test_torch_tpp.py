@@ -82,7 +82,12 @@ def _rel(got, want):
 def test_tpp_matches_reference_trajectory(ranks):
     from ddlbench_tpu.parallel.api import make_strategy
 
-    with mock.patch.dict(jconfig.DATASETS, {"tinylm": TINY_LM}):
+    import ddlbench_tpu.models.transformer as jtr
+
+    # make_strategy sets the reference's process-wide attention backend:
+    # kept to this block, so the reference's own tests see their default
+    with mock.patch.dict(jconfig.DATASETS, {"tinylm": TINY_LM}), \
+            mock.patch.object(jtr, "_ATTENTION_BACKEND", ["auto"]):
         cfg_ref = JaxRunConfig(num_devices=2, num_stages=2, **BASE)
         cfg_tpp = JaxRunConfig(num_devices=4, num_stages=2, tp_size=2,
                                **BASE)

@@ -241,13 +241,18 @@ def cli_pair(argv, tmp_path, capsys):
 
     import ddlbench_tpu.cli as jcli
     import ddlbench_tpu.config as jconfig
+    import ddlbench_tpu.models.transformer as jtr
     import ddlbench_tpu_torch.config as tconfig
     from ddlbench_tpu_torch import cli
 
     jsets, tsets = datasets()
     out = []
+    # the reference's CLI sets its process-wide attention backend
+    # (--attention-backend): kept to this call, so the reference's own
+    # tests that run later in the process see their default
     with mock.patch.dict(jconfig.DATASETS, jsets), \
-            mock.patch.dict(tconfig.DATASETS, tsets):
+            mock.patch.dict(tconfig.DATASETS, tsets), \
+            mock.patch.object(jtr, "_ATTENTION_BACKEND", ["auto"]):
         for tag, main, extra in (("ref", jcli.main, ["--platform", "cpu"]),
                                  ("port", cli.main, ["--device", "cpu"])):
             path = tmp_path / f"{tag}.jsonl"
