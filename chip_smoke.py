@@ -246,8 +246,9 @@ one JSON line; any failure raises and exits non-zero:
              and 12 kv-dtype rows, none erred or skipped, no plain call,
              each paged kernel launched over float and int8 pools
              (counted apart from (a)). Reported: one warm paged beam
-             run (float32) under torch.profiler: the device's busy share,
-             launches and top kernels.
+             run (float32, the prompt and 32 decoded positions) under
+             torch.profiler: the device's busy share, launches and top
+             kernels.
              (e) mtacc at its defaults (seq2seq_t trained 400 steps on
              the card): the gate passes. (f) The engine's greedy streams
              on transformer_s (4 requests, 32 new tokens each, a float32
@@ -564,7 +565,7 @@ one JSON line; any failure raises and exits non-zero:
              three steps each: each kernel's launches what every
              replica's events imply (hetero_expected), none on the plain
              path; tokens/s beside the nvidia-smi line; float32 on
-             transformer_s cut to 2 blocks and 256 tokens (mb 2 x M 2):
+             transformer_s cut to 2 blocks and 128 tokens (mb 2 x M 2):
              the plan's step against the uniform 2-stage gpipe's on the
              card (every update within 1e-4 relative L2) and against the
              same plan's step on the CPU (the loss within 1e-5, every
@@ -587,14 +588,15 @@ one JSON line; any failure raises and exits non-zero:
 19-21. sp_train, ep_train, fsdp_train — the sharded one-program
              strategies (parallel/sp.py, ep.py, sharded.py) through
              make_strategy on spawned ranks: world 2 on the one card over
-             gloo (sp's K/V all-gather, ep's all_to_all, fsdp's
+             gloo (ranks 0-1 of a world-4 spawn whose four ranks first run
+             26; sp's K/V all-gather, ep's all_to_all, fsdp's
              reduce-scatter and all-gather staged through pinned host
              memory), then sp at
              NCCL world 1. sp: transformer_s / synthtext at full width
              (T 1 024 in two 512-token shards); ep: transformer_moe_s at
              capacity factor 8 = E (no drops) and aux weight 0; fsdp:
              transformer_s; float32 (one compared step) and bfloat16 (one
-             compared step and 2 timed ones), "auto" attention, the fused
+             compared step and 1 timed one), "auto" attention, the fused
              head, SGD, a global batch of 8 rows. (a) rank 0 holds the
              step against single's on the same rows: float32, the loss
              within 1e-5 relative and each leaf's update within 1e-4
@@ -641,7 +643,7 @@ one JSON line; any failure raises and exits non-zero:
              of tp 1's; tokens/s of tp 2 beside tp 1's (not a scaling
              figure: the host walks both shards on one card).
 23-24. tpp_train, tp_train — tensor parallelism in training, in the
-             world-2 shared-card spawn of 19-21 (a spawn's start-up costs
+             world-2 subgroup of 19-21's spawn (a spawn's start-up costs
              tens of seconds): tpp (-f gpipe --tp-size 2: 2 stages x 2
              shards, each rank walking fill-drain over its two stages on
              the card, micro-batch 2 x 2 microbatches of 1 024 tokens,
@@ -650,7 +652,7 @@ one JSON line; any failure raises and exits non-zero:
              gathered on use, the fused head), transformer_s at full
              width (each shard 4 heads of dh 64), float32 (one compared
              step; tp also one update) and bfloat16 (one compared step
-             and 2 timed ones). (a) rank 0 holds the step against -f
+             and 1 timed one). (a) rank 0 holds the step against -f
              gpipe at 2 stages (tpp) or single (tp) on the same rows, alone
              on the card: float32, the loss within 1e-5 relative and each
              gradient leaf (whole: the shards' slices gathered) within
@@ -673,13 +675,13 @@ one JSON line; any failure raises and exits non-zero:
              8 rows), bf16, "auto" attention, the fused head, through
              make_strategy: fill-drain, 1f1b, pipedream and gpipe
              --dp-shard-update --comm-buckets 2 (hybrid PP x ZeRO-1),
-             three steps each (the first a warm-up): (c) every rank's
+             two steps each (the first a warm-up): (c) every rank's
              launches what its events imply (pipe_expected), none on the
              plain path, the ranks' losses equal; ms a step and tokens/s
              beside the nvidia-smi line; ZeRO-1's optimizer bytes a rank
              half of every chunk's padded row and half the replicated
              engine's within the pads. (a) float32, transformer_s cut to
-             2 blocks and 256 tokens: each runtime's step on the card
+             2 blocks and 128 tokens: each runtime's step on the card
              against the same step of the same ranks on the CPU (the
              loss within 1e-5, every update within 1e-3); (b) ZeRO-1's
              step against the replicated hybrid's on the card (every
@@ -689,6 +691,54 @@ one JSON line; any failure raises and exits non-zero:
              running statistic within 1e-9. Host-staged gloo on one
              card: the rows price the schedules' work and the wire, not
              scaling.
+26. tpp3d_train — 3-D tpp (-g 8 as --dp-replicas 2 x 2 stages x
+             --tp-size 2: the reference's ('data', 'stage', 'model')
+             mesh), first in the sharded spawn, which runs at world 4 on
+             the shared card for it: rank d * 2 + t is shard t of replica
+             d (its tp and data groups made by make_strategy), walking
+             fill-drain over its two stages, transformer_s at full width
+             and depth, micro-batch 2 x 2 microbatches a replica (8 rows
+             of 1 024), the unfused head; float32 (one compared step) and
+             bfloat16 (one compared step and 1 timed one). (a) on rank 0:
+             the compared step's gradient (summed over the replicas / 2,
+             the shards' slices gathered) against 2-D tpp's (-f gpipe
+             --tp-size 2 at micro-batch 4, ranks 0-1) on the same rows,
+             at tpp_train's bars; (b) every rank's float32 step on
+             transformer_s cut to 2 blocks and 128 tokens on the card
+             against the same step of the same four ranks on the CPU (the
+             plain versions): the loss within 1e-5, its update within 1e-4
+             relative L2; (c) every rank's launches what its fill-drain
+             events imply (pipe_expected, B4-B6 none), none on the plain
+             path; the four ranks' losses equal; ms a step and tokens/s
+             beside the nvidia-smi line, peak memory a rank.
+27. remat_train — remat_layers under fsdp and tp on ranks 0-1: one
+             float32 step of each on 8 rows of transformer_s with remat
+             off, then on, from the same weights: the loss within 1e-5
+             and every leaf's update within 1e-5 relative L2 (bitwise
+             equality reported), (c) B1 launches twice a layer with remat
+             (the recompute; B2-B6 unchanged), none on the plain path,
+             fsdp's re-gathers the same (every block and the head, once:
+             the recompute runs on the backward's gather), and each
+             step's peak memory (printed, not gated); resnet50 / imagenet
+             in float64 at 4 rows, fsdp (sync-BN, beside fsdp_train's
+             image row) and single on rank 0, with remat against
+             without: every gradient leaf within 1e-12 and the running
+             statistics bitwise (the recompute updates none).
+28. moe_dp, moe_fsdp — transformer_moe_s at full width (8 experts) at
+             capacity factor 1.25 and aux weight 0.01, float32, 8 rows,
+             routed over the global batch (models/moe.global_routing): the
+             replicated dp engine in dp_train's world-2 spawn, fsdp on the
+             sharded spawn's ranks 0-1, the fused head. One compared step
+             (by the ranks' own routers) and one update, against single
+             on the same rows pinned to the ranks' routing (gathered): the
+             loss within 1e-5, every gradient leaf within 1e-4 and every
+             update within 4e-4 relative L2, the dropped tokens summed
+             over the ranks equal to single's and more than none; (c)
+             B1-B3 8 and B4-B6 1 a step on every rank, none on the plain
+             path; single's own router flips against the pinned routing
+             reported, and the update step's ms beside single's on the
+             same rows (printed, not gated: each rank's expert buffer
+             holds the global capacity).
 
 Then it prints the script's wall time from the build on, the kernels table
 (one JSON object: the paged kernels over
@@ -697,7 +747,8 @@ int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
 plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
 train's, moe_train's, lstm_train's, every dp_train rank's, pipe_train's,
 hetero_train's and every sp_train, ep_train, fsdp_train, tpp_train,
-tp_train and hybrid_train rank's,
+tp_train, hybrid_train, tpp3d_train, remat_train, moe_dp and moe_fsdp
+rank's,
 the flash forward's moe_decode's too; serve_tp's tp-2 runs add to the four
 paged rows), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
@@ -2753,6 +2804,9 @@ DECODE_LOGIT_TOL = 1e-3
 # shared with every later phase)
 DECODE_BENCH_ARGS = ["--chunk-prefill", "--kv-dtype",
                      "float32,bfloat16,int8", "--repeats", "1"]
+# the paged beam profile's decoded positions (each a step like the
+# others; the profiler's parse grows with the launches)
+DECODE_PROFILE_NEW = 32
 # (f): the engine's requests on transformer_s, prompt lengths and new
 # tokens each
 ORACLE_PROMPTS, ORACLE_NEW = (17, 64, 100, 33), 32
@@ -2890,10 +2944,13 @@ def device_kernels(prof):
 
 
 def decode_profile(torch, dec, model, src, T, beam):
-    """Where a paged beam run's time goes (float32 cache, warm): the
-    device's busy share of its wall time under torch.profiler, its
-    launches, and the device time of the top kernels."""
+    """Where a paged beam run's time goes (float32 cache, warm; the prompt
+    and DECODE_PROFILE_NEW positions of the ``T``): the device's busy
+    share of its wall time under torch.profiler, its launches, and the
+    device time of the top kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    T = min(T, src.shape[1] + DECODE_PROFILE_NEW)
 
     def run():
         dec.beam_search_decode(model, src, T, beam=beam, paged=True)
@@ -5441,13 +5498,14 @@ def nccl_world1(fn):
 
 
 def dp_shared_rank(comm):
-    """A rank of the world-2 shared-card run: dp_train's engines and
-    dp_image's float64 check."""
+    """A rank of the world-2 shared-card run: dp_train's engines,
+    dp_image's float64 check and moe_dp (phase 28)."""
     import torch
 
     return {"rank": comm.rank, "comm": comm.record(),
             "train": dp_engines(torch, comm),
-            "image_f64": dp_image_f64(torch, comm)}
+            "image_f64": dp_image_f64(torch, comm),
+            "moe": moe_global_cell(torch, comm, "dp")}
 
 
 def single_ref_update_losses(torch, cfg, batches, lr, dev):
@@ -5546,10 +5604,10 @@ def dp_nccl_rank(comm):
 
 
 def phase_dp(torch):
-    """Phases 15-16 (module docstring): the world-2 shared-card ranks,
-    then the world-1 NCCL rank in this process. Emits dp_train and
-    dp_image and returns the B1-B6 launches of every rank's main-path
-    steps."""
+    """Phases 15-16 and moe_dp (28; module docstring): the world-2
+    shared-card ranks, then the world-1 NCCL rank in this process. Emits
+    dp_train, dp_image and moe_dp and returns the B1-B6 launches of
+    every rank's main-path steps."""
     from ddlbench_tpu_torch import distributed
 
     gc.collect()
@@ -5625,6 +5683,8 @@ def phase_dp(torch):
     failed = [k for k, v in {**checks, **image_checks}.items() if not v]
     if failed:
         raise AssertionError(f"data-parallel checks failed: {failed}")
+    for name, n in moe_line([r["moe"] for r in shared], "dp").items():
+        launches[name] += n
     return launches
 
 
@@ -6228,7 +6288,7 @@ SHARD_MOE = ("transformer_moe_s", "synthtext")
 SHARD_IMAGE = ("resnet50", "imagenet")
 SHARD_ROWS = 8  # the global batch of every token row (4 a rank under ep/fsdp)
 SHARD_IMAGE_ROWS = 4  # resnet50's float64 global batch (2 a rank)
-SHARD_TIMED = 2  # timed bfloat16 steps after the compared one
+SHARD_TIMED = 1  # timed bfloat16 steps after the compared one
 SHARD_LR = 0.01
 SHARD_CUT = 2  # sp (b): transformer_s cut to its first 2 blocks,
 SHARD_CUT_ROWS, SHARD_CUT_T = 1, 256  # one 256-token row
@@ -6261,10 +6321,11 @@ def shard_cfg(strategy, world, arch, bench, dtype, rows, **kw):
     from ddlbench_tpu_torch.config import RunConfig
 
     per = rows if strategy in ("sp", "single", "tp") else rows // world
-    return RunConfig(benchmark=bench, arch=arch, strategy=strategy,
-                     num_devices=world, batch_size=per, compute_dtype=dtype,
-                     attention_backend="auto", seed=0, optimizer="sgd",
-                     moe_aux_weight=0.0, moe_capacity_factor=8.0, **kw)
+    base = dict(benchmark=bench, arch=arch, strategy=strategy,
+                num_devices=world, batch_size=per, compute_dtype=dtype,
+                attention_backend="auto", seed=0, optimizer="sgd",
+                moe_aux_weight=0.0, moe_capacity_factor=8.0)
+    return RunConfig(**{**base, **kw})
 
 
 def shard_batches(torch, cfg, rows, n, dev, seed=0):
@@ -6292,11 +6353,17 @@ def named_of(strategy):
             for n, p in layer.named_parameters()}
 
 
-def update_of(torch, strategy, batch, lr):
-    """One train step's (loss, {name: update}) on ``batch``."""
+def update_of(torch, strategy, batch, lr, ms=None):
+    """One train step's (loss, {name: update}) on ``batch``; its wall ms,
+    the card synchronised before, appended to ``ms`` where given."""
     before = named_of(strategy)
+    if ms is not None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
     m = strategy.train_step(*batch, lr)
     loss = m["loss"].item()
+    if ms is not None:
+        ms.append(1e3 * (time.perf_counter() - t0))
     after = named_of(strategy)
     return loss, {k: after[k] - before[k] for k in before}
 
@@ -6547,32 +6614,61 @@ def fsdp_image_f64(torch, comm):
     strat = FSDPStrategy(model64(), cfg, comm)
     strat.compute_dtype = torch.float64  # the model's own type
     strat.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     loss, grads = grads_of(torch, strat, (x, y))
+    peak = torch.cuda.max_memory_allocated()
     names = [f"{i}.{n}" for i, layer in enumerate(strat.model.layers)
              for n, _ in layer.named_parameters()]
     got = (loss, [grads[n].cpu() for n in names],
            [b.detach().double().cpu() for b in strat.model.buffers()])
     del strat, grads
     torch.cuda.empty_cache()
+    # phase 27: the same step with remat_layers against this one
+    remat = remat_image_f64(torch, comm, FSDPStrategy, cfg, x, y, model64,
+                            got)
     if comm.rank:
         return None
     single_cfg = dataclasses.replace(cfg, strategy="single", num_devices=1,
                                      batch_size=SHARD_IMAGE_ROWS)
-    rec = f64_agreement(got, image_step(torch, model64(), x, y, single_cfg,
-                                        None))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single = image_step(torch, model64(), x, y, single_cfg, None)
+    peak_single = torch.cuda.max_memory_allocated()
+    rec = f64_agreement(got, single)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    single_remat = image_step(torch, model64(), x, y, dataclasses.replace(
+        single_cfg, remat_layers=True), None)
+    rec.update(remat=remat, peak_bytes=peak, peak_bytes_single=peak_single,
+               single_remat=remat_f64_record(
+                   single_remat, single, torch.cuda.max_memory_allocated()))
     torch.cuda.empty_cache()
     return rec
 
 
-def sharded_shared_rank(comm):
-    """A rank of the world-2 shared-card run: the sp, ep and fsdp token
-    cells, fsdp's float64 resnet50 step, sp's (b), then tpp's and tp's
-    cells and tp's float64 image step (phases 23-24, in the same spawn:
-    a spawn's start-up costs tens of seconds)."""
+def sharded_shared_rank(comm4):
+    """A rank of the world-4 shared-card run: 3-D tpp on all four ranks
+    (phase 26), then on the subgroup of ranks 0-1 (world 2; ranks 2-3
+    are done) the sp, ep and fsdp token cells, fsdp's float64 resnet50
+    step (with phase 27's remat rows), sp's (b), tpp's and tp's cells and
+    tp's float64 image step (phases 23-24), the hybrid (25), the remat
+    token rows (27) and moe_fsdp (28), all in one spawn: a spawn's
+    start-up costs tens of seconds."""
     import torch
 
+    from ddlbench_tpu_torch import distributed
+
     T = 1024
-    out = {"rank": comm.rank, "comm": comm.record()}
+    comm = distributed.subgroup(comm4, [0, 1])
+    out = {"rank": comm4.rank, "comm4": comm4.record(),
+           "comm": None if comm is None else comm.record()}
+    t0 = time.perf_counter()
+    out["tpp3d"] = tpp3d_cell(torch, comm4, comm)
+    out["tpp3d_s"] = time.perf_counter() - t0
+    if comm is None:
+        return out
     for strategy, model in (("sp", SHARD_TOKEN), ("ep", SHARD_MOE),
                             ("fsdp", SHARD_TOKEN)):
         out[strategy] = shard_token_cell(torch, comm, strategy, model, T)
@@ -6592,6 +6688,10 @@ def sharded_shared_rank(comm):
     t0 = time.perf_counter()
     out["hybrid"] = hybrid_cell(torch, comm)
     out["hybrid_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["remat"] = {s: remat_cell(torch, comm, s) for s in ("fsdp", "tp")}
+    out["remat_s"] = time.perf_counter() - t0
+    out["moe_fsdp"] = moe_global_cell(torch, comm, "fsdp")
     return out
 
 
@@ -6615,17 +6715,20 @@ def shard_expected(strategy, rank, dtype):
 
 
 def phase_sharded(torch):
-    """Phases 19-21 (module docstring): the world-2 shared-card ranks (sp's
-    (b) among them), then sp at NCCL world 1 in this process. Emits
-    sp_train, ep_train and fsdp_train and returns the B1-B6 launches of
-    every rank's main-path steps."""
+    """Phases 19-21 and 23-28 (module docstring): the world-4 shared-card
+    ranks (3-D tpp on all four, the world-2 cells on ranks 0-1, sp's (b)
+    among them), then sp at NCCL world 1 in this process. Emits
+    sp_train, ep_train, fsdp_train, tpp_train, tp_train, hybrid_train,
+    tpp3d_train, remat_train and moe_fsdp, and returns the B1-B6
+    launches of every rank's main-path steps."""
     from ddlbench_tpu_torch import distributed
 
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    shared = distributed.spawn(sharded_shared_rank, 2, "cuda",
-                               shared_card=True)
+    shared4 = distributed.spawn(sharded_shared_rank, T3_WORLD, "cuda",
+                                shared_card=True)
+    shared = shared4[:2]  # the world-2 subgroup's ranks
     t1 = time.perf_counter()
     nccl = nccl_world1(sharded_nccl_rank)
     t2 = time.perf_counter()
@@ -6692,6 +6795,10 @@ def phase_sharded(torch):
         launches[name] += n
     for name, n in hybrid_line(shared).items():
         launches[name] += n
+    for lines in (tpp3d_line(shared4), remat_line(shared),
+                  moe_line([r["moe_fsdp"] for r in shared], "fsdp")):
+        for name, n in lines.items():
+            launches[name] += n
     return launches
 
 
@@ -6705,7 +6812,7 @@ SERVE_TP_ARGS = ["-m", "transformer_s", "-b", "synthtext", "--policies",
 # rows of 1 024 tokens), the unfused head (the reference's tpp scope)
 TPP_STAGES, TPP_MB, TPP_M = 2, 2, 2
 TP_ROWS = 4  # tp_train's global batch, replicated on both ranks
-TP_TIMED = 2  # timed bfloat16 steps after the compared one
+TP_TIMED = 1  # timed bfloat16 steps after the compared one
 # The bars, stated before the first run: float32 loss, every gradient
 # leaf (and tp's update) within TP_F32_REL relative (L2 for a leaf) of
 # -f gpipe at 2 stages (tpp) or single (tp) on the same rows, only the
@@ -6946,7 +7053,7 @@ def tp_image_f64(torch, comm):
 HYB_S, HYB_R = 2, 2  # stages, replicas (-g 4 as --dp-replicas 2 x 2 stages)
 HYB_MB, HYB_M = 2, 2  # a replica's micro-batch and microbatches
 HYB_ROWS = HYB_MB * HYB_M * HYB_R  # the global batch
-HYB_TIMED = 2  # timed bfloat16 steps after a warm-up one
+HYB_TIMED = 1  # timed bfloat16 steps after a warm-up one
 HYB_BUCKETS = 2  # ZeRO-1's --comm-buckets
 HYB_RUNS = (("fill_drain", "gpipe", {}),
             ("1f1b", "gpipe", {"pipe_schedule": "1f1b"}),
@@ -6962,7 +7069,7 @@ HYB_RUNS = (("fill_drain", "gpipe", {}),
 # every leaf's update within SHARD_CPU_UPDATE relative L2; (b) ZeRO-1's
 # step against the replicated hybrid's on the card: every leaf's update
 # within HYB_ZERO1_REL (only where the sums' slices fall differs)
-HYB_CUT, HYB_CUT_T = 2, 256
+HYB_CUT, HYB_CUT_T = 2, 128
 HYB_ZERO1_REL = 1e-6
 HYB_IMAGE = ("resnet18", "cifar10")  # the float64 BatchNorm row
 
@@ -7127,7 +7234,7 @@ def hybrid_cell(torch, comm):
     if comm.rank:
         return out
     a = {}
-    for key in cut_card:
+    for key in cut_cpu:
         (lc, uc), (lp, up) = cut_card[key], cut_cpu[key]
         r = {"loss_card": lc, "loss_cpu": lp,
              "loss_rel": abs(lc - lp) / abs(lp)}
@@ -7245,6 +7352,480 @@ def tp_lines(shared):
         failed += [f"{strategy}:{k}" for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"tensor-parallel checks failed: {failed}")
+    return launches
+
+
+# ---- 26-28: 3-D tpp, remat_layers under fsdp and tp, MoE under dp/fsdp --
+#
+# tpp3d_train: -g 8 as --dp-replicas 2 x 2 stages x --tp-size 2 (the
+# reference's ('data', 'stage', 'model') mesh), a rank a shard of a
+# replica, all four in the sharded phases' spawn (distributed.spawn at
+# world 4 on the shared card: its world-2 cells run on the subgroup of
+# ranks 0-1), micro-batch 2 x 2 microbatches a replica (8 rows of 1 024)
+T3_R = 2
+T3_WORLD = T3_R * TP
+T3_ROWS = TPP_MB * TPP_M * T3_R
+T3_TIMED = 1  # timed bfloat16 steps after the compared one
+# remat: each strategy's float32 step on SHARD_ROWS rows with
+# remat_layers on against off (the same weights and rows): the loss within
+# SHARD_F32_LOSS and every leaf's update within TP_F32_REL (the recompute
+# runs the forward's own kernels again, so bitwise equality is expected
+# and reported); resnet50's float64 step (single, and fsdp's image row)
+# with remat against without: every gradient leaf within REMAT_F64_REL
+# (relative L2, the IMAGE_FLOOR of its kind) and the running statistics
+# bitwise (updated by the first forward only)
+REMAT_F64_REL = 1e-12
+# moe_dp, moe_fsdp: transformer_moe_s at full width (8 experts) at the
+# reference's capacity factor 1.25 (tokens drop) and aux weight 0.01,
+# float32, SHARD_ROWS rows: one compared step (routed by each rank's own
+# router over the global batch) and one update against single on the same
+# rows pinned to the ranks' routing (gathered), so the two compute one
+# function: the loss within SHARD_F32_LOSS, every gradient leaf within
+# SHARD_F32_GRAD, every leaf's update within TP_PARAM_STEP_REL (the new
+# weights' rounding, as tp's), the dropped tokens of the ranks summed
+# equal to single's, and more than none
+MOE_CF, MOE_AUX = 1.25, 0.01
+
+
+def tpp3d_cfg(dtype, replicas=T3_R, mb=TPP_MB):
+    """3-D tpp's config (2-D at ``replicas`` 1: the same global batch at
+    micro-batch ``mb`` = TPP_MB x T3_R)."""
+    from ddlbench_tpu_torch.config import RunConfig
+
+    return RunConfig(benchmark=SHARD_TOKEN[1], arch=SHARD_TOKEN[0],
+                     strategy="gpipe",
+                     num_devices=TPP_STAGES * TP * replicas,
+                     num_stages=TPP_STAGES, tp_size=TP,
+                     dp_replicas=replicas, micro_batch_size=mb,
+                     num_microbatches=TPP_M, compute_dtype=dtype, seed=0,
+                     optimizer="sgd", fused_head_loss=False,
+                     attention_backend="auto")
+
+
+def tpp_step_grads(torch, strat, batch):
+    """A tpp step's forward and backward (3-D or 2-D) without the update:
+    (the loss, every leaf's gradient whole: summed over the replicas and
+    divided by R as the step applies it, the shards' slices gathered)."""
+    from ddlbench_tpu_torch.parallel.gpipe import mean_over
+
+    m, grads = strat.reduced_grads(*batch)
+    if strat.dp > 1:
+        for c in range(strat.num_chunks):
+            mean_over(strat.dp_comm, [p.grad for p in strat.chunk_params(c)
+                                      if p.grad is not None])
+    return m["loss"].item(), tp_whole_grads(torch, strat.tp_comm, grads)
+
+
+def tpp3d_cut_step(torch, comm):
+    """The float32 3-D step on transformer_s cut to HYB_CUT blocks and
+    HYB_CUT_T tokens on this rank's device (the CPU's through the same
+    gloo groups): (loss, this rank's update)."""
+    from ddlbench_tpu_torch.distributed import (tpp3d_comms,
+                                                tpp3d_stage_devices)
+    from ddlbench_tpu_torch.parallel.tpp import TPGPipeStrategy
+
+    cfg = tpp3d_cfg("float32")
+    tp_comm, dp_comm = tpp3d_comms(comm, T3_R, TP)
+    devs = tpp3d_stage_devices(comm.device.type, TPP_STAGES, TP, T3_R,
+                               comm.rank, comm.device.type == "cuda")
+    strat = TPGPipeStrategy(hyb_cut_model().to(devs[0]), cfg, devs,
+                            tp_comm, dp_comm=dp_comm)
+    strat.init()
+    x, y = shard_batches(torch, cfg, T3_ROWS, 1, comm.device, seed=7)[0]
+    return hyb_update(torch, strat, (x[:, :HYB_CUT_T], y[:, :HYB_CUT_T]),
+                      SHARD_LR)
+
+
+def tpp3d_cell(torch, comm, comm2):
+    """Phase 26 on this rank of the world-4 spawn (``comm2``: the world-2
+    subgroup of ranks 0-1, None on ranks 2-3): float32 then bfloat16
+    through make_strategy (the counters zeroed before and read after the
+    compared step and the timed steps), the compared step's gradient
+    whole against 2-D tpp's on the same global batch (ranks 0-1, rank 0
+    compares), then the float32 cut step on the card and on the CPU over
+    the same gloo groups (each rank compares its own)."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    card = comm.device.type == "cuda"
+    out, ref2d = {}, None
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cfg = tpp3d_cfg(dtype)
+        batches = shard_batches(torch, cfg, T3_ROWS,
+                                1 if dtype == "float32" else 1 + T3_TIMED,
+                                comm.device)
+        strat = make_strategy(cfg, comm.device, comm, shared_card=card)
+        counters = dp_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        plain0 = fa.flash_attention.plain_launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = tpp_step_grads(torch, strat, batches[0])
+        ms = []
+        for x, y in batches[1:]:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            strat.train_step(x, y, SHARD_LR)["loss"].item()
+            ms.append(1e3 * (time.perf_counter() - t1))
+        want = pipe_expected(strat, "fill-drain", 1 + len(ms))
+        want.update({n: 0 for n in FX_KERNELS})  # the unfused head
+        rec = {"loss": loss, "tp_rank": strat.tp_comm.rank,
+               "dp_rank": strat.dp_comm.rank,
+               "launches": {n: fn.launches for n, fn in counters.items()},
+               "plain_launches": fa.flash_attention.plain_launches - plain0,
+               "launches_expected": want,
+               "peak_bytes": torch.cuda.max_memory_allocated()}
+        if ms:
+            rec["timed_ms_per_step"] = sum(ms) / len(ms)
+            rec["global_tokens_per_s"] = (T3_ROWS * 1024 * 1e3
+                                          / rec["timed_ms_per_step"])
+        del strat
+        torch.cuda.empty_cache()
+        if comm2 is not None:
+            base = make_strategy(tpp3d_cfg(dtype, 1, TPP_MB * T3_R),
+                                 comm2.device, comm2, shared_card=card)
+            b_loss, bgrads = tpp_step_grads(torch, base, batches[0])
+            del base
+            torch.cuda.empty_cache()
+            if comm2.rank == 0:
+                a = {"loss_2d": b_loss,
+                     "loss_rel": abs(loss - b_loss) / abs(b_loss)}
+                own = (None if dtype == "float32"
+                       else worst_update(torch, bgrads, ref2d)[0])
+                rec["vs_2d"] = tp_bar(a, dtype, grads, bgrads, own)
+                if dtype == "float32":
+                    ref2d = bgrads
+        rec["run_s"] = time.perf_counter() - t0
+        out[dtype] = rec
+        del grads, batches
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    card_step = tpp3d_cut_step(torch, comm)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // comm.world))
+    try:
+        cpu_step = tpp3d_cut_step(torch, dataclasses.replace(
+            comm, device=torch.device("cpu"), staged=frozenset()))
+    finally:
+        torch.set_num_threads(threads)
+    a = {"loss_card": card_step[0], "loss_cpu": cpu_step[0],
+         "loss_rel": abs(card_step[0] - cpu_step[0]) / abs(cpu_step[0])}
+    a["worst_update_rel_l2"], a["worst_update_leaf"] = worst_update(
+        torch, card_step[1], cpu_step[1])
+    a["ok"] = (a["loss_rel"] <= SHARD_F32_LOSS
+               and a["worst_update_rel_l2"] <= SHARD_F32_GRAD)
+    out["a_card_vs_cpu_f32"] = a
+    out["checks_s"] = time.perf_counter() - t0
+    return out
+
+
+def tpp3d_line(shared4):
+    """Phase 26's line from every rank's tpp3d cell: emits tpp3d_train and
+    returns the B1-B6 launches of every rank's main-path steps."""
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    checks, per_rank = {}, {}
+    for r in shared4:
+        cell = r["tpp3d"]
+        for dtype in ("float32", "bfloat16"):
+            rec = cell[dtype]
+            who = f"rank{r['rank']}_{dtype}"
+            checks[f"c_{who}"] = (rec["plain_launches"] == 0 and
+                                  rec["launches"] == rec["launches_expected"])
+            per_rank[who] = rec["launches"]
+            for n in SHARD_COUNTERS:
+                launches[n] += rec["launches"][n]
+            if "vs_2d" in rec:
+                checks[f"a_vs_2d_{dtype}"] = rec["vs_2d"]["ok"]
+        checks[f"b_card_vs_cpu_rank{r['rank']}"] = cell[
+            "a_card_vs_cpu_f32"]["ok"]
+    r0 = shared4[0]["tpp3d"]
+    checks["same_losses_on_every_rank"] = all(
+        r["tpp3d"][d]["loss"] == r0[d]["loss"] for r in shared4
+        for d in ("float32", "bfloat16"))
+    emit({"phase": "tpp3d_train", "model": SHARD_TOKEN,
+          "mesh": {"data": T3_R, "stage": TPP_STAGES, "model": TP},
+          "micro_batch": TPP_MB, "microbatches": TPP_M,
+          "global_batch": T3_ROWS, "shared_card": True, "card": card_line(),
+          "reference": "2-D tpp (-f gpipe --tp-size 2, micro-batch "
+                       f"{TPP_MB * T3_R}) on the same rows",
+          "cells": {d: {k: v for k, v in r0[d].items() if k != "launches"}
+                    for d in ("float32", "bfloat16")},
+          "launches": per_rank,
+          "b_card_vs_cpu_f32": {f"rank{r['rank']}": r["tpp3d"][
+              "a_card_vs_cpu_f32"] for r in shared4},
+          "b_cut": {"blocks": HYB_CUT, "tokens": HYB_CUT_T},
+          "checks": checks,
+          "seconds": {"cells": {d: r0[d]["run_s"]
+                                for d in ("float32", "bfloat16")},
+                      "checks": r0["checks_s"]}})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"3-D tpp checks failed: {failed}")
+    return launches
+
+
+def remat_expected(remat):
+    """B1-B6 launches of one float32 step of fsdp or tp: B1-B3 once per
+    attention layer, B1 again per layer under remat (its recompute; the
+    fused head is not recomputed), B4-B6 once."""
+    return {"flash_fwd": LAYERS * (2 if remat else 1), "flash_dq": LAYERS,
+            "flash_dkv": LAYERS, **{n: 1 for n in FX_KERNELS}}
+
+
+def remat_cell(torch, comm, strategy):
+    """Phase 27's token rows on this rank of the world-2 subgroup: one
+    float32 step of ``strategy`` (fsdp or tp) on SHARD_ROWS rows with
+    remat_layers off, then on, from the same weights: the loss, every
+    leaf's update whole, the launches, fsdp's re-gathers and the peak
+    device memory of the step; rank 0 compares on against off."""
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    runs = {}
+    batch = shard_batches(torch, shard_cfg(strategy, comm.world,
+                                           *SHARD_TOKEN, "float32",
+                                           SHARD_ROWS),
+                          SHARD_ROWS, 1, comm.device)[0]
+    for remat in (False, True):
+        cfg = shard_cfg(strategy, comm.world, *SHARD_TOKEN, "float32",
+                        SHARD_ROWS, remat_layers=remat)
+        strat = make_strategy(cfg, comm.device, comm)
+        before = named_of(strat)
+        counters = dp_counters()
+        for fn in counters.values():
+            fn.launches = 0
+        plain0 = fa.flash_attention.plain_launches
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss = strat.train_step(*batch, SHARD_LR)["loss"].item()
+        peak = torch.cuda.max_memory_allocated()
+        rec = {"loss": loss,
+               "launches": {n: fn.launches for n, fn in counters.items()},
+               "plain_launches": fa.flash_attention.plain_launches - plain0,
+               "launches_expected": remat_expected(remat),
+               "peak_bytes": peak, "peak_over_start_bytes": peak - start,
+               "regathers": getattr(strat, "regathers", None)}
+        after = named_of(strat)
+        runs[remat] = (rec, {k: after[k] - before[k] for k in before})
+        del strat, before, after
+        torch.cuda.empty_cache()
+    out = {"off": runs[False][0], "on": runs[True][0]}
+    if comm.rank == 0:
+        (off, u_off), (on, u_on) = runs[False], runs[True]
+        a = {"loss_rel": abs(on["loss"] - off["loss"]) / abs(off["loss"]),
+             "bitwise": on["loss"] == off["loss"] and all(
+                 torch.equal(u_on[k], u_off[k]) for k in u_off)}
+        a["worst_update_rel_l2"], a["worst_update_leaf"] = worst_update(
+            torch, u_on, u_off)
+        a["ok"] = (a["loss_rel"] <= SHARD_F32_LOSS
+                   and a["worst_update_rel_l2"] <= TP_F32_REL)
+        out["on_vs_off"] = a
+    return out
+
+
+def remat_image_f64(torch, comm, strat_cls, cfg, x, y, model64, off):
+    """resnet50's float64 step under ``strat_cls`` (fsdp) with remat on,
+    from the same weights and rows as ``off`` (its step without remat:
+    loss, gradient leaves, running statistics): (the record on rank 0,
+    the peak bytes of each step)."""
+    import dataclasses
+
+    strat = strat_cls(model64(), dataclasses.replace(cfg, remat_layers=True),
+                      comm)
+    strat.compute_dtype = torch.float64
+    strat.init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = grads_of(torch, strat, (x, y))
+    peak = torch.cuda.max_memory_allocated()
+    names = [f"{i}.{n}" for i, layer in enumerate(strat.model.layers)
+             for n, _ in layer.named_parameters()]
+    on = (loss, [grads[n].cpu() for n in names],
+          [b.detach().double().cpu() for b in strat.model.buffers()])
+    del strat, grads
+    torch.cuda.empty_cache()
+    return remat_f64_record(on, off, peak)
+
+
+def remat_f64_record(on, off, peak_on):
+    rec = {"loss_rel": abs(on[0] - off[0]) / abs(off[0]),
+           "worst_grad_rel_l2": worst_leaf(on[1], off[1]),
+           "stats_bitwise": all(a.equal(b) for a, b in zip(on[2], off[2])),
+           "peak_bytes_remat": peak_on}
+    rec["ok"] = (rec["loss_rel"] <= REMAT_F64_REL
+                 and rec["worst_grad_rel_l2"] <= REMAT_F64_REL
+                 and rec["stats_bitwise"])
+    return rec
+
+
+def remat_line(shared):
+    """Phase 27's line from the world-2 ranks' remat cells and fsdp's
+    image row: emits remat_train and returns the B1-B6 launches."""
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    checks, per_rank = {}, {}
+    for r in shared:
+        for strategy in ("fsdp", "tp"):
+            for key in ("off", "on"):
+                rec = r["remat"][strategy][key]
+                who = f"rank{r['rank']}_{strategy}_{key}"
+                checks[f"c_{who}"] = (rec["plain_launches"] == 0 and
+                                      rec["launches"]
+                                      == rec["launches_expected"])
+                per_rank[who] = rec["launches"]
+                for n in SHARD_COUNTERS:
+                    launches[n] += rec["launches"][n]
+            fsdp = r["remat"]["fsdp"]
+            checks[f"regathers_rank{r['rank']}"] = (
+                fsdp["on"]["regathers"] == fsdp["off"]["regathers"]
+                == LAYERS + 1)
+    r0 = shared[0]
+    for strategy in ("fsdp", "tp"):
+        checks[f"a_{strategy}_on_vs_off"] = r0["remat"][strategy][
+            "on_vs_off"]["ok"]
+    img = r0["fsdp_image"]
+    checks["image_fsdp_remat"] = img["remat"]["ok"]
+    checks["image_single_remat"] = img["single_remat"]["ok"]
+    emit({"phase": "remat_train", "model": SHARD_TOKEN, "world": 2,
+          "global_batch": SHARD_ROWS, "dtype": "float32",
+          "shared_card": True, "card": card_line(),
+          "rows": {s: {k: {kk: v for kk, v in rec.items()
+                           if kk != "launches"} if isinstance(rec, dict)
+                       else rec for k, rec in r0["remat"][s].items()}
+                   for s in ("fsdp", "tp")},
+          "launches": per_rank,
+          "image_float64": {"model": SHARD_IMAGE,
+                            "global_batch": SHARD_IMAGE_ROWS,
+                            "fsdp_remat_vs_fsdp": img["remat"],
+                            "single_remat_vs_single": img["single_remat"],
+                            "peak_bytes_fsdp": img["peak_bytes"],
+                            "peak_bytes_single": img["peak_bytes_single"]},
+          "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"remat checks failed: {failed}")
+    return launches
+
+
+def moe_cfg(strategy, world):
+    return shard_cfg(strategy, world, *SHARD_MOE, "float32", SHARD_ROWS,
+                     moe_capacity_factor=MOE_CF, moe_aux_weight=MOE_AUX)
+
+
+def moe_named_grads(torch, strat, batch):
+    """dp's (replicated engine) or fsdp's step without the update on the
+    global batch: (loss, every leaf's reduced gradient whole)."""
+    from ddlbench_tpu_torch.parallel.common import unpack_flat
+
+    if hasattr(strat, "shards"):
+        return grads_of(torch, strat, batch)
+    m, gred = strat.reduced_grads(*batch)
+    by_id = {id(p): g for p, g in zip(strat.params,
+                                      unpack_flat(gred, strat.meta))}
+    return m["loss"].item(), {
+        f"{i}.{n}": by_id[id(p)].reshape(p.shape).detach().clone()
+        for i, layer in enumerate(strat.model.layers)
+        for n, p in layer.named_parameters()}
+
+
+def moe_drops(model):
+    """Each MoE block's dropped tokens in its last forward."""
+    from ddlbench_tpu_torch.models.moe import moe_blocks
+
+    return [int((~b.last_route.keep).sum()) for b in moe_blocks(model)]
+
+
+def moe_global_cell(torch, comm, strategy):
+    """Phase 28 on this rank (dp: the dp phase's world-2 spawn; fsdp: the
+    sharded spawn's world-2 subgroup): the compared step (routes by the
+    ranks' own routers over the global batch) and one update on the same
+    rows, the counters zeroed before and read after; rank 0 holds both
+    against single on the rows pinned to the ranks' routing."""
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    t0 = time.perf_counter()
+    cfg = moe_cfg(strategy, comm.world)
+    batch = shard_batches(torch, cfg, SHARD_ROWS, 1, comm.device)[0]
+    strat = make_strategy(cfg, comm.device, comm)
+    counters = dp_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    plain0 = fa.flash_attention.plain_launches
+    loss, grads = moe_named_grads(torch, strat, batch)
+    experts = routing_of(torch, strat)[0]
+    drops = moe_drops(strat.model)
+    step_ms = []
+    u_loss, update = update_of(torch, strat, batch, SHARD_LR, step_ms)
+    rec = {"loss": loss, "drops": drops, "ms_per_step": step_ms[0],
+           "launches": {n: fn.launches for n, fn in counters.items()},
+           "plain_launches": fa.flash_attention.plain_launches - plain0,
+           "launches_expected": {**{n: 2 * LAYERS for n in FLASH_KERNELS},
+                                 **{n: 2 for n in FX_KERNELS}}}
+    whole = [comm.all_gather(e) for e in experts]
+    total_drops = comm.all_reduce(torch.tensor(
+        drops, dtype=torch.int64, device=comm.device)).tolist()
+    del strat
+    torch.cuda.empty_cache()
+    if comm.rank == 0:
+        single = make_strategy(moe_cfg("single", 1), comm.device)
+        with pinned_experts(torch, whole):
+            s_loss, s_grads = single_grads(torch, single, batch)
+        s_drops = moe_drops(single.model)
+        flips = routing_of(torch, single)[1]
+        with pinned_experts(torch, whole):
+            _, s_update = update_of(torch, single, batch, SHARD_LR,
+                                    step_ms)
+        a = {"loss_single": s_loss,
+             "loss_rel": abs(loss - s_loss) / abs(s_loss),
+             "drops_ranks": total_drops, "drops_single": s_drops,
+             "capacity": math.ceil(MOE_CF * SHARD_ROWS
+                                   * cfg.dataset().image_size[0] / 8),
+             "single_own_router_flips": flips,
+             "single_ms_per_step": step_ms[1]}
+        a["worst_grad_rel_l2"], a["worst_grad_leaf"] = worst_update(
+            torch, grads, s_grads)
+        a["worst_update_rel_l2"], a["worst_update_leaf"] = worst_update(
+            torch, update, s_update)
+        a["ok"] = (a["loss_rel"] <= SHARD_F32_LOSS
+                   and a["worst_grad_rel_l2"] <= SHARD_F32_GRAD
+                   and a["worst_update_rel_l2"] <= TP_PARAM_STEP_REL
+                   and total_drops == s_drops and sum(s_drops) > 0)
+        rec["vs_single"] = a
+        del single
+        torch.cuda.empty_cache()
+    rec["run_s"] = time.perf_counter() - t0
+    return rec
+
+
+def moe_line(ranks, strategy):
+    """Phase 28's line (moe_dp or moe_fsdp) from the world-2 ranks' MoE
+    cells: emits it and returns the B1-B6 launches."""
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    checks, per_rank = {}, {}
+    for i, rec in enumerate(ranks):
+        checks[f"c_rank{i}"] = (rec["plain_launches"] == 0 and
+                                rec["launches"] == rec["launches_expected"])
+        per_rank[f"rank{i}"] = rec["launches"]
+        for n in SHARD_COUNTERS:
+            launches[n] += rec["launches"][n]
+    r0 = ranks[0]
+    checks["a_vs_single"] = r0["vs_single"]["ok"]
+    checks["same_losses_on_both_ranks"] = all(
+        r["loss"] == r0["loss"] for r in ranks)
+    emit({"phase": f"moe_{strategy}", "model": SHARD_MOE, "world": 2,
+          "global_batch": SHARD_ROWS, "dtype": "float32",
+          "capacity_factor": MOE_CF, "aux_weight": MOE_AUX,
+          "shared_card": True, "card": card_line(),
+          "cell": {k: v for k, v in r0.items() if k != "launches"},
+          "launches": per_rank, "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"moe_{strategy} checks failed: {failed}")
     return launches
 
 

@@ -71,10 +71,10 @@ reference's schedule-advisor lines first. ``-f gpipe --tp-size N`` (token
 and seq2seq benchmarks, fill-drain, ``-g`` = stages x N) runs tpp: one
 process a tensor-parallel shard, each walking every stage, the
 transformer blocks Megatron-sliced (parallel/tpp.py; the unfused CE
-head). ``--dp-replicas``, ``--stage-replication``, ``--pipe-costs
-profile`` and ``--schedule-trace`` are the reference's flags with its
-defaults; away from them the run is refused, naming the ROADMAP item
-(A.7b, A.8).
+head); with ``--dp-replicas R`` as well (``-g`` = R x stages x N) 3-D
+tpp, one process a shard of a replica. ``--pipe-costs profile`` and
+``--schedule-trace`` are the reference's flags with its defaults; away
+from them the run is refused, naming the ROADMAP item (A.8).
 
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 25, seed 1, bfloat16) and the knobs the loop reads (``-e -p
@@ -182,8 +182,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="measured-bubble advice (ROADMAP A.8)")
     p.add_argument("--dp-replicas", type=int, default=1,
                    help="hybrid PP x DP: replicas of every stage, one rank "
-                        "each (-g = replicas x stages; with --tp-size > 1 "
-                        "refused: ROADMAP A.7b)")
+                        "each (-g = replicas x stages; with --tp-size N "
+                        "3-D tpp, -g = replicas x stages x N)")
     p.add_argument("--tp-size", type=int, default=1,
                    help="tensor x pipeline parallelism (gpipe, fill-drain)")
     p.add_argument("--stage-replication", default=None, metavar="R0,R1,...",
@@ -318,16 +318,21 @@ def main(argv=None) -> int:
 
     ranks = cfg.spawned_ranks()
     # a hybrid pipeline's replica holds its stages' cards
-    # (distributed.hybrid_stage_devices): its group on the first
-    stride = (cfg.resolved_stages() if ranks and cfg.tp_size == 1
-              and cfg.strategy in ("gpipe", "pipedream") else 1)
+    # (distributed.hybrid_stage_devices), a tpp rank its stages' of one
+    # shard (tp_stage_devices, tpp3d_stage_devices): its group on the
+    # first
+    pipe = ranks and cfg.strategy in ("gpipe", "pipedream")
+    stride = cfg.resolved_stages() if pipe else 1
+    tp = cfg.tp_size if pipe else 1
     if ranks:
-        distributed.check_world(args.device or "cuda", ranks, stride=stride)
+        distributed.check_world(args.device or "cuda", ranks, stride=stride,
+                                tp=tp)
     device = resolve_device(args.device)
     print("run manifest: " + json.dumps(vars(args)), flush=True)
     if ranks:
         result = distributed.spawn(_train_rank, ranks, device.type,
-                                   args=(cfg, args.jsonl), stride=stride)[0]
+                                   args=(cfg, args.jsonl), stride=stride,
+                                   tp=tp)[0]
     else:
         result = _train_rank(None, cfg, args.jsonl, device)
     print("result: " + json.dumps(result), flush=True)

@@ -115,9 +115,9 @@ DEFAULT_BATCH: Mapping[str, Mapping[str, Any]] = {
     "ep": {"synthtext": 8, "longctx": 1, "longctx32k": 1},
 }
 
-# the strategies the port's training path runs
-PORTED_STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "ep",
-                     "fsdp", "tp")
+# the reference's strategies, every one of which the port runs
+STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "ep", "fsdp",
+              "tp")
 PIPELINE_STRATEGIES = ("gpipe", "pipedream")
 # the strategies whose ranks are processes of a group (distributed.spawn);
 # a gpipe with tp_size > 1 spawns one rank per shard too, and a uniform
@@ -161,8 +161,8 @@ _TRAIN_NOT_PORTED = (
     ("inject", (), "fault injection and preemption"),
     ("activation_log_dir", None, "activation logging"),
     ("elastic_slices", None,
-     "the elastic world-invariant reduction (ROADMAP A.8: it needs "
-     "train/reshard.py and checkpoints)"),
+     "the elastic world-invariant reduction (it needs train/reshard.py "
+     "and checkpoints)"),
 )
 
 
@@ -609,9 +609,10 @@ class RunConfig:
 
     def spawned_ranks(self) -> int:
         """How many rank processes the run spawns (distributed.spawn):
-        ``num_devices`` for the rank strategies, ``tp_size`` for a gpipe
-        with tp_size > 1 (one process a shard, each walking every
-        stage: parallel/tpp.py), the replica count of a uniform hybrid
+        ``num_devices`` for the rank strategies, ``tp_size`` x
+        ``dp_replicas`` for a gpipe with tp_size > 1 (one process a
+        shard of a replica, each walking every stage: parallel/tpp.py),
+        the replica count of a uniform hybrid
         pipeline (``dp_replicas``, or a uniform ``stage_replication``'s
         factor: one process a replica, each walking its own stages), 0
         for the strategies that run in one process (an uneven
@@ -619,7 +620,7 @@ class RunConfig:
         if self.strategy in RANK_STRATEGIES:
             return self.num_devices
         if self.strategy == "gpipe" and self.tp_size > 1:
-            return self.tp_size
+            return self.tp_size * max(1, self.dp_replicas)
         if self.strategy in PIPELINE_STRATEGIES:
             repl = tuple(self.stage_replication or ())
             if repl and len(set(repl)) == 1 and repl[0] > 1:
@@ -651,10 +652,8 @@ class RunConfig:
     def validate(self) -> None:
         if self.benchmark not in DATASETS:
             raise ValueError(f"unknown benchmark {self.benchmark!r}")
-        if self.strategy not in PORTED_STRATEGIES:
-            raise NotImplementedError(
-                f"strategy {self.strategy!r} is not ported to the PyTorch "
-                f"training path yet (only {', '.join(PORTED_STRATEGIES)})")
+        if self.strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {self.strategy!r}")
         if self.strategy == "single" and self.num_devices != 1:
             raise ValueError("single strategy uses exactly 1 device")
         if self.num_devices < 1:
@@ -667,7 +666,7 @@ class RunConfig:
             if getattr(self, name) != default:
                 raise NotImplementedError(
                     f"{what} ({name}={getattr(self, name)!r}) is not ported "
-                    "to the PyTorch training path yet")
+                    "to the PyTorch training path yet (ROADMAP A.8)")
         if self.grad_accum_steps < 1:
             raise ValueError("grad_accum_steps must be >= 1")
         if self.prefetch_depth < 0:
@@ -675,7 +674,7 @@ class RunConfig:
         if self.anomaly_policy is not None or self.loss_scale is not None:
             raise NotImplementedError(
                 "the stability guard (anomaly_policy / loss_scale) is not "
-                "ported to the PyTorch training path yet")
+                "ported to the PyTorch training path yet (ROADMAP A.8)")
         if self.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={self.param_dtype!r}: parameters are float32 "
@@ -703,11 +702,6 @@ class RunConfig:
         self._validate_pipeline()
         if self.lr_step_epochs < 1:
             raise ValueError("lr_step_epochs must be >= 1")
-        if self.remat_layers and self.dataset().kind == "image":
-            raise NotImplementedError(
-                "per-layer remat (remat_layers) of the image models is not "
-                "ported: torch.utils.checkpoint's recomputation would "
-                "update BatchNorm's running statistics a second time")
 
     def _validate_pipeline(self) -> None:
         """The reference's pipeline gates, worded as it words them, after
@@ -718,12 +712,6 @@ class RunConfig:
                 raise NotImplementedError(
                     f"{what} ({name}={getattr(self, name)!r}) is not ported "
                     f"to the PyTorch training path yet (ROADMAP {item})")
-        if self.dp_replicas > 1 and self.tp_size > 1:
-            raise NotImplementedError(
-                f"3-D parallelism (dp_replicas={self.dp_replicas} with "
-                f"tp_size={self.tp_size}: data x stage x model) is not "
-                "ported to the PyTorch training path yet (ROADMAP A.7b: it "
-                "needs dp x tp ranks)")
         if self.remat_layers and self.strategy not in ONE_APPLY_STRATEGIES:
             raise ValueError(
                 f"remat_layers applies to the one-apply strategies "
@@ -865,8 +853,7 @@ class RunConfig:
                     f"divisible by stages ({s})")
 
     def _validate_sharded(self) -> None:
-        """The reference's sp and ep gates, worded as it words them, then
-        the port's own refusals under fsdp."""
+        """The reference's sp and ep gates, worded as it words them."""
         if self.strategy == "sp" and self.dataset().kind not in ("tokens",
                                                                  "seq2seq"):
             raise ValueError("sp (sequence parallelism) requires a token or "
@@ -878,22 +865,9 @@ class RunConfig:
             if "moe" not in self.arch:
                 raise ValueError("ep (expert parallelism) requires an MoE "
                                  "arch")
-        if self.strategy == "fsdp" and "moe" in self.arch:
-            raise NotImplementedError(
-                f"{self.arch} under fsdp is not ported to the PyTorch "
-                "training path yet (ROADMAP A.6b: the reference routes "
-                "over the global batch, which needs cross-rank capacity "
-                "positions and a global aux mean)")
-        if self.strategy in ("fsdp", "tp") and self.remat_layers:
-            raise NotImplementedError(
-                f"remat_layers under {self.strategy} is not ported to the "
-                "PyTorch training path yet (ROADMAP A.7b): the "
-                "recomputation would gather each layer a third time under "
-                "the saved-tensor hooks of its gather on use")
 
     def _validate_dp(self) -> None:
-        """The reference's dp gates, worded as it words them, then the
-        port's own refusal of MoE archs under dp."""
+        """The reference's dp gates, worded as it words them."""
         if self.shard_opt_state and self.strategy != "dp":
             raise ValueError(
                 "shard_opt_state (ZeRO-1) applies to the dp strategy "
@@ -952,9 +926,3 @@ class RunConfig:
                     "remat_layers is incompatible with the explicit dp "
                     "collective engine (checkpointed traces cannot carry "
                     "the shard_map axis context); use replicated dp")
-        if self.strategy == "dp" and "moe" in self.arch:
-            raise NotImplementedError(
-                f"{self.arch} under dp is not ported to the PyTorch "
-                "training path yet (ROADMAP A.6b: the reference routes "
-                "over the global batch, which needs cross-rank capacity "
-                "positions and a global aux mean)")

@@ -240,24 +240,47 @@ def load_packed_rows(chunks, rows) -> None:
     S, L], row c = chunk c, each holding the chunk's parameters in the
     reference's leaf order and layout, zero-padded; numpy), in place:
     the inverse of the pipelines' ``materialize_params``."""
-    from ddlbench_tpu_torch.parallel.common import (from_ref_layout,
-                                                    ref_param_order,
-                                                    to_ref_layout)
+    from ddlbench_tpu_torch.parallel.common import ref_param_order
 
     rows = np.asarray(rows).reshape(len(chunks), -1)
     for layers, row in zip(chunks, rows):
         params, _ = ref_param_order(LayerModel("chunk", list(layers), (1,),
                                                1))
-        off = 0
-        with torch.no_grad():
-            for p in params:
-                n = p.numel()
-                flat = torch.from_numpy(np.array(row[off:off + n]))
-                p.copy_(from_ref_layout(flat.view(to_ref_layout(p).shape)))
-                off += n
-        if off > row.size:
-            raise ValueError(f"a row of {row.size} elements for {off} "
-                             "parameters")
+        _load_row(params, row)
+
+
+def _load_row(leaves, row) -> None:
+    """``leaves`` (port tensors, in the row's order) from a packed row in
+    the reference's layout, in place."""
+    from ddlbench_tpu_torch.parallel.common import (from_ref_layout,
+                                                    to_ref_layout)
+
+    off = 0
+    with torch.no_grad():
+        for p in leaves:
+            n = p.numel()
+            flat = torch.from_numpy(np.array(row[off:off + n]))
+            p.copy_(from_ref_layout(flat.view(to_ref_layout(p).shape)))
+            off += n
+    if off > row.size:
+        raise ValueError(f"a row of {row.size} elements for {off} "
+                         "parameters")
+
+
+def load_tpp_rows(strategy, sliced_np, repl_np) -> None:
+    """A tpp rank's parameters (parallel/tpp.py, 3-D or not) from the
+    reference's two packed matrices, in place: ``sliced_np`` [S, tp,
+    L_sl] (row [s, t]: shard t's sliced leaves of stage s), whose row of
+    this rank's shard it takes, and ``repl_np`` [S, L_rp] (each stage's
+    replicated leaves); each in the reference's leaf order, zero-padded.
+    The inverse of the strategy's ``materialize_params``; call
+    ``strategy.init()`` after it for a fresh optimizer state."""
+    sliced_np, repl_np = np.asarray(sliced_np), np.asarray(repl_np)
+    t = strategy.tp_comm.rank
+    for c in range(strategy.num_chunks):
+        sliced, repl = strategy._rows(c)
+        _load_row(sliced, sliced_np[c, t])
+        _load_row(repl, repl_np[c])
 
 
 def load_hetero_rows(strategy, rows_np) -> None:

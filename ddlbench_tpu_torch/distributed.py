@@ -15,9 +15,10 @@ Backends and devices:
 * ``cpu``: gloo, every rank on the CPU (the tests);
 * ``cuda``: NCCL, rank r on ``cuda:r`` (a hybrid pipeline's replica on
   the first of its stages' cards, ``cuda:(r * S)``:
-  :func:`hybrid_stage_devices`); a world larger than the machine's card
-  count is an error naming the count, never a silent fall back to gloo
-  or the CPU;
+  :func:`hybrid_stage_devices`; a 3-D tpp rank on its first stage's
+  card, :func:`tpp3d_stage_devices`); a world larger than the machine's
+  card count is an error naming the count, never a silent fall back to
+  gloo or the CPU;
 * ``cuda`` with ``shared_card=True``: gloo, every rank on ``cuda:0``. NCCL
   refuses two ranks on one card, so this is how one card runs a world of
   2 (chip_smoke.py). It exists only for a caller that asks for it; the CLI
@@ -37,7 +38,10 @@ reach the same wrappers in the same order, forward and backward: each
 is one node that every rank's graph holds, whatever the rank computes
 with its output. :class:`AxisContext` is the model's switch into a
 sharded mode (models/transformer.sequence_parallel and
-tensor_parallel, models/moe.expert_parallel). Tensor parallelism's two
+tensor_parallel, models/moe.expert_parallel and global_routing). 3-D
+tpp's ranks hold two sub-Comms each (:func:`tpp3d_comms`, over
+:func:`subgroup`): the tensor-parallel group of their replica and the
+data group of their shard index. Tensor parallelism's two
 are Megatron's: :func:`sum_forward` (the sum over the ranks forward, the
 identity backward: after a row-parallel projection) and
 :func:`sum_backward` (the identity forward, the sum backward: where a
@@ -78,12 +82,17 @@ def local_batch_slice(global_batch: int, rank: int, world: int) -> slice:
 
 
 def rank_device(device: str, rank: int, world: int,
-                shared_card: bool = False, stride: int = 1) -> torch.device:
+                shared_card: bool = False, stride: int = 1,
+                tp: int = 1) -> torch.device:
     """The device of rank ``rank``: the CPU, ``cuda:(rank * stride)``, or
     ``cuda:0`` for every rank of a shared card. ``stride`` is the cards a
     rank holds (a hybrid pipeline's replica holds its S stages' cards,
-    :func:`hybrid_stage_devices`; its group is bound to the first).
-    Raises where the machine lacks the cards (module docstring)."""
+    :func:`hybrid_stage_devices`; its group is bound to the first). With
+    ``tp`` > 1 the ranks come in tensor-parallel groups of ``tp`` whose
+    ranks' stages interleave (tpp, :func:`tp_stage_devices`, and 3-D tpp,
+    :func:`tpp3d_stage_devices`): rank ``d * tp + t`` on ``cuda:(d *
+    stride * tp + t)``. Raises where the machine lacks the cards (module
+    docstring)."""
     dev = torch.device(device)
     if dev.type == "cpu":
         if shared_card:
@@ -103,7 +112,7 @@ def rank_device(device: str, rank: int, world: int,
                else f"NCCL, one rank {stride} cards")
             + f"); this machine has {have} (--device cpu runs the ranks "
             "on the CPU)")
-    return torch.device("cuda", rank * stride)
+    return torch.device("cuda", (rank // tp) * stride * tp + rank % tp)
 
 
 def stage_devices(device: str, num_stages: int,
@@ -179,13 +188,40 @@ def hybrid_stage_devices(device: str, num_stages: int, replicas: int,
             for s in range(num_stages)]
 
 
+def tpp3d_stage_devices(device: str, num_stages: int, tp: int,
+                        replicas: int, rank: int, shared_card: bool = False
+                        ) -> List[torch.device]:
+    """The stage devices of rank ``rank`` = ``d * tp + t`` (replica d of
+    ``replicas``, shard t of ``tp``) in 3-D tpp over ``num_stages``
+    stages: stage s on ``cuda:(d * num_stages * tp + s * tp + t)``, the
+    reference's ``('data', 'stage', 'model')`` mesh with the data axis
+    outer and the model axis inner; raises, naming the count, where the
+    machine has fewer than ``replicas * num_stages * tp`` cards.
+    ``shared_card=True`` puts every stage of every rank on ``cuda:0``;
+    ``cpu`` gives the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cpu" or shared_card:
+        return stage_devices(device, num_stages, shared_card)
+    need = replicas * num_stages * tp
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < need:
+        raise RuntimeError(
+            f"{replicas} replicas x {num_stages} pipeline stages x tp {tp} "
+            f"need {need} CUDA device(s) (one shard of a stage of a replica "
+            f"a card); this machine has {have} (--device cpu runs them on "
+            "the CPU)")
+    d, t = divmod(rank, tp)
+    return [torch.device("cuda", d * num_stages * tp + s * tp + t)
+            for s in range(num_stages)]
+
+
 def check_world(device: str, world: int, shared_card: bool = False,
-                stride: int = 1) -> None:
+                stride: int = 1, tp: int = 1) -> None:
     """Raise before any process starts where ``world`` ranks of
     ``stride`` cards each cannot run on ``device``."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
-    rank_device(device, world - 1, world, shared_card, stride)
+    rank_device(device, world - 1, world, shared_card, stride, tp)
 
 
 def _reduce_scatter(out, inp, op, group):
@@ -288,6 +324,38 @@ class Comm:
         out = torch.empty_like(t)
         return self._run("all_to_all", lambda x, o: dist.all_to_all_single(
             o, x, group=self.group), t, out)
+
+
+def subgroup(comm: Comm, ranks: Sequence[int]) -> Optional[Comm]:
+    """A Comm over ``ranks`` of ``comm``'s group, on the rank's device and
+    backend; None on a rank outside it. Every rank of ``comm``'s group
+    calls this for every subgroup, in the same order (``new_group``
+    requires it)."""
+    ranks = list(ranks)
+    group = dist.new_group(ranks)
+    if comm.rank not in ranks:
+        return None
+    return dataclasses.replace(comm, group=group,
+                               rank=ranks.index(comm.rank),
+                               world=len(ranks))
+
+
+def tpp3d_comms(comm: Comm, replicas: int, tp: int):
+    """3-D tpp's two groups of rank ``comm.rank`` = ``d * tp + t`` of a
+    world of ``replicas * tp``: (its tensor-parallel group, the ``tp``
+    shards of replica d; its data group, shard t of every replica). Every
+    rank makes every group, the tp groups first, in one order."""
+    if comm.world != replicas * tp:
+        raise ValueError(f"a world of {comm.world} ranks for {replicas} "
+                         f"replicas x tp {tp}")
+    tp_comm = dp_comm = None
+    for d in range(replicas):
+        got = subgroup(comm, [d * tp + t for t in range(tp)])
+        tp_comm = got or tp_comm
+    for t in range(tp):
+        got = subgroup(comm, [d * tp + t for d in range(replicas)])
+        dp_comm = got or dp_comm
+    return tp_comm, dp_comm
 
 
 class _AllGather(torch.autograd.Function):
@@ -430,11 +498,12 @@ def all_to_all_experts(x: torch.Tensor, comm: "Comm",
 
 
 def init_rank(rank: int, world: int, init_file: str, device: str,
-              shared_card: bool = False, stride: int = 1) -> Comm:
+              shared_card: bool = False, stride: int = 1,
+              tp: int = 1) -> Comm:
     """Join the default process group as ``rank`` of ``world`` through the
     rendezvous file ``init_file`` and return the rank's Comm, bound to
     its first card (:func:`rank_device`)."""
-    dev = rank_device(device, rank, world, shared_card, stride)
+    dev = rank_device(device, rank, world, shared_card, stride, tp)
     if dev.type == "cuda":
         from ddlbench_tpu_torch.device import resolve_device
 
@@ -452,10 +521,10 @@ def init_rank(rank: int, world: int, init_file: str, device: str,
 
 
 def _rank_main(fn, rank, world, init_file, device, shared_card, results,
-               args, stride=1):
+               args, stride=1, tp=1):
     try:
         comm = init_rank(rank, world, init_file, device, shared_card,
-                         stride)
+                         stride, tp)
         try:
             out = fn(comm, *args)
         finally:
@@ -467,21 +536,22 @@ def _rank_main(fn, rank, world, init_file, device, shared_card, results,
 
 def spawn(fn: Callable, world: int, device: str = "cuda", *,
           shared_card: bool = False, args: Sequence = (),
-          stride: int = 1) -> List[Any]:
+          stride: int = 1, tp: int = 1) -> List[Any]:
     """Run ``fn(comm, *args)`` on ``world`` ranks, each a process of its own
     (spawn start method), and return their results in rank order. ``fn``
     and ``args`` are pickled by import path (a module-level function);
-    rank r's group is bound to ``cuda:(r * stride)`` on the card.
+    rank r's group is bound to ``cuda:(r * stride)`` on the card (tpp's,
+    ``tp`` > 1: :func:`rank_device`).
     Raises with every failed rank's traceback, or where a rank died without
     a word."""
-    check_world(device, world, shared_card, stride)
+    check_world(device, world, shared_card, stride, tp)
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="ddlb_rdv_") as tmp:
         results = ctx.Queue()
         procs = [ctx.Process(target=_rank_main,
                              args=(fn, r, world, os.path.join(tmp, "rdv"),
                                    device, shared_card, results, tuple(args),
-                                   stride))
+                                   stride, tp))
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -67,6 +67,8 @@ stashed), and recompute a chunk for its backward inside
 statistics, as the first forward did, and leaves its running statistics
 as that forward left them. ``torch.utils.checkpoint`` would update them a
 second time; the reference's recompute is functional and discards them.
+Per-layer remat (``remat_layers``: :func:`remat_call`, under single,
+dp, fsdp and tp) recomputes inside the same context.
 """
 
 from __future__ import annotations
@@ -77,7 +79,6 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 BN_MOMENTUM = 0.1  # torch's default BatchNorm momentum, as the reference's
 BN_EPS = 1e-5
@@ -216,22 +217,68 @@ def apply_slice(layers: Sequence[nn.Module], x: torch.Tensor,
     in the compute dtype. The casts are inside autograd, so gradients land
     on the float32 master parameters; buffers (BatchNorm's running
     statistics) are the layer's own, never cast. With ``remat`` each layer
-    runs under ``torch.utils.checkpoint`` (non-reentrant): the backward
-    recomputes the layer instead of keeping its interior activations. A
-    layer with BatchNorm refuses remat: the recomputation would update its
-    running statistics a second time."""
-    if remat and any(isinstance(m, BatchNorm) for layer in layers
-                     for m in layer.modules()):
-        raise NotImplementedError(
-            "per-layer remat of a layer with BatchNorm is not ported: the "
-            "recomputation would update the running statistics twice")
+    runs through :func:`remat_call` (the reference's ``jax.checkpoint``
+    a layer): the backward recomputes the layer, casts included, instead
+    of keeping its interior activations, and BatchNorm's running
+    statistics are updated by the first forward only."""
     if not remat:
         return apply_chunk(layers, x, compute_dtype)
     for layer in layers:
-        x = checkpoint(_call, layer,
-                       _cast(dict(layer.named_parameters()), compute_dtype),
-                       x, use_reentrant=False)
+        names = [n for n, _ in layer.named_parameters()]
+
+        def run(x, ts, layer=layer, names=names):
+            return _call(layer, _cast(dict(zip(names, ts)), compute_dtype),
+                         x)
+
+        x = remat_call(run, x, [p for _, p in layer.named_parameters()])
     return x
+
+
+class _Remat(torch.autograd.Function):
+    """:func:`remat_call`'s node: the forward runs ``run`` without a graph
+    and saves its input (and the tensors, unless ``first`` fetches the
+    first one again); the backward recomputes ``run`` inside
+    :class:`frozen_batch_stats` and backpropagates through it."""
+
+    @staticmethod
+    def forward(ctx, run, first, x, *tensors):
+        ctx.run, ctx.first = run, first
+        ctx.save_for_backward(x, *(tensors[1:] if first else tensors))
+        return run(x, list(tensors))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *saved = ctx.saved_tensors
+        tensors = ([ctx.first()] if ctx.first else []) + saved
+        needs = ctx.needs_input_grad[2:]
+        x = x.detach().requires_grad_(needs[0])
+        tensors = [t.detach().requires_grad_(n)
+                   for t, n in zip(tensors, needs[1:])]
+        with torch.enable_grad(), frozen_batch_stats():
+            y = ctx.run(x, tensors)
+        inputs = [t for t, n in zip([x] + tensors, needs) if n]
+        got = iter(torch.autograd.grad(y, inputs, g, allow_unused=True)
+                   if inputs else ())
+        return (None, None) + tuple(
+            (next(got) if n else None) for n in needs)
+
+
+def remat_call(run, x: torch.Tensor, tensors, first=None) -> torch.Tensor:
+    """``run(x, tensors)`` (one layer: a tensor from a tensor) without
+    keeping its interior for the backward: the backward runs it again on
+    the saved ``x`` and ``tensors`` and backpropagates through that run.
+    The recompute runs inside :class:`frozen_batch_stats`, so BatchNorm
+    normalises with the same batch statistics (the same batch) and its
+    running statistics keep what the first forward left, as the
+    reference's functional ``jax.checkpoint`` does. ``first``, when
+    given, is called in the backward for ``tensors[0]`` instead of
+    saving it (fsdp's re-gather of the layer's weights, which its
+    backward gathers once anyway). A layer taking integer input (token
+    ids: an embedding, whose backward reads only the ids) runs as it is:
+    a recompute would keep nothing less."""
+    if not x.is_floating_point():
+        return run(x, list(tensors))
+    return _Remat.apply(run, first, x, *tensors)
 
 
 def _cast(params: dict, compute_dtype: Optional[torch.dtype]) -> dict:
@@ -435,8 +482,10 @@ class _SyncBatchNormCuda(torch.autograd.Function):
     tensors for all-reduce, not for all-gather), combined into the global
     mean and inverse std with the running statistics updated in place
     (``batch_norm_gather_stats_with_counts``: the unbiased variance over
-    the global count), and ``batch_norm_elemt``; the backward reduces each
-    rank's (sum dy, sum dy (x - mean)), all-reduces them and runs
+    the global count; none given, none updated: a recompute inside
+    :class:`frozen_batch_stats`), and ``batch_norm_elemt``; the backward
+    reduces each rank's (sum dy, sum dy (x - mean)), all-reduces them and
+    runs
     ``batch_norm_backward_elemt``. The weight and bias gradients stay the
     rank's own sums: dp reduces them with every other gradient."""
 
@@ -455,7 +504,7 @@ class _SyncBatchNormCuda(torch.autograd.Function):
         counts = table[:, 2 * c]
         mean, invstd = torch.batch_norm_gather_stats_with_counts(
             x, table[:, :c], table[:, c:2 * c], running_mean, running_var,
-            BN_MOMENTUM, BN_EPS, counts.to(running_mean.dtype))
+            BN_MOMENTUM, BN_EPS, counts.to(mean.dtype))
         ctx.save_for_backward(x, weight, mean, invstd,
                               counts.to(torch.int32))
         ctx.comm = comm
@@ -496,9 +545,11 @@ class BatchNorm(nn.Module):
         comm = batch_parallel.current() if self.training else None
         dtype = self.mean.dtype  # the weights take the statistics' type
         if comm is not None and x.is_cuda:
-            return _SyncBatchNormCuda.apply(x, self.scale.to(dtype),
-                                            self.bias.to(dtype), self.mean,
-                                            self.var, comm)
+            frozen = frozen_batch_stats.depth > 0
+            return _SyncBatchNormCuda.apply(
+                x, self.scale.to(dtype), self.bias.to(dtype),
+                None if frozen else self.mean, None if frozen else self.var,
+                comm)
         if comm is not None:
             return self.sync_forward(x, comm)
         if self.training and frozen_batch_stats.depth:
@@ -521,12 +572,13 @@ class BatchNorm(nn.Module):
         mean, mean2 = _SyncBatchStats.apply(x, comm, dtype)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         n = (x.numel() // x.shape[1]) * comm.world
-        with torch.no_grad():
-            unbiased = var * (n / max(1, n - 1))
-            self.mean.copy_((1 - BN_MOMENTUM) * self.mean
-                            + BN_MOMENTUM * mean)
-            self.var.copy_((1 - BN_MOMENTUM) * self.var
-                           + BN_MOMENTUM * unbiased)
+        if not frozen_batch_stats.depth:
+            with torch.no_grad():
+                unbiased = var * (n / max(1, n - 1))
+                self.mean.copy_((1 - BN_MOMENTUM) * self.mean
+                                + BN_MOMENTUM * mean)
+                self.var.copy_((1 - BN_MOMENTUM) * self.var
+                               + BN_MOMENTUM * unbiased)
         inv = torch.rsqrt(var + BN_EPS) * self.scale
         shift = self.bias - mean * inv
         shape = [1] * x.dim()

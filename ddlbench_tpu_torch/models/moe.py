@@ -39,6 +39,17 @@ trace-time collector does. A checkpointed forward would record twice, so
 RunConfig refuses ``remat_layers`` with an MoE arch, as the reference
 does.
 
+Replicated dp and fsdp (parallel/dp.py, parallel/sharded.py) run the
+blocks inside :class:`global_routing`, on the rank's rows of the
+global batch: the reference routes over the global batch there, so the
+capacity is ``max(1, ceil(cf * S_global / E))``, a token's place in its
+expert's queue counts every token of the lower ranks first, and the aux
+loss is the global batch's (:func:`switch_route`): the step equals
+single's on the global batch, dropped tokens included. The [E, C, d]
+buffer keeps the global capacity; the slots of other ranks' tokens are
+empty rows. With gradient accumulation each micro-step's global
+micro-batch is the unit, as the reference's.
+
 Expert parallelism (parallel/ep.py) runs the same blocks inside
 :class:`expert_parallel`, which carries the rank's Comm: each rank's
 ``Experts`` hold its E/n experts (``E`` is the router's width), the
@@ -66,7 +77,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ddlbench_tpu_torch.distributed import AxisContext, all_to_all_experts
+from ddlbench_tpu_torch.distributed import (AxisContext, all_to_all_experts,
+                                            sum_forward)
 from ddlbench_tpu_torch.models.layers import LayerModel
 from ddlbench_tpu_torch.models.transformer import (AttentionBlock, Embed,
                                                    LMHead, TransformerBlock,
@@ -85,6 +97,13 @@ class expert_parallel(AxisContext):
     """While active, the MoE blocks run expert-parallel on the rank of
     ``comm`` (distributed.Comm; module docstring; the reference's
     ``expert_parallel`` axis context)."""
+
+
+class global_routing(AxisContext):
+    """While active, the MoE blocks route over the global batch of the
+    data-parallel ranks of ``comm`` (the rank's rows contiguous, after
+    the lower ranks': distributed.local_batch_slice), as the reference's
+    replicated dp and fsdp route under GSPMD (module docstring)."""
 
 
 class Route(NamedTuple):
@@ -110,15 +129,34 @@ def capacity(capacity_factor: float, tokens: int, n_experts: int) -> int:
     return max(1, math.ceil(capacity_factor * tokens / n_experts))
 
 
-def switch_route(gate_logits: torch.Tensor, cap: int) -> Route:
+def switch_route(gate_logits: torch.Tensor, cap: int, comm=None) -> Route:
     """Top-1 Switch routing over [S, E] router logits with ``cap`` slots
     an expert (module docstring). The running counts are taken along
-    the contiguous axis of the [E, S] one-hot, where a scan is fast."""
+    the contiguous axis of the [E, S] one-hot, where a scan is fast.
+
+    With ``comm`` (:class:`global_routing`) the S tokens are this rank's
+    part of the global batch of ``comm.world`` ranks: every rank's
+    per-expert counts are gathered ([world, E]), a token's place in its
+    expert's queue counts the lower ranks' tokens first, and the aux loss
+    is the global batch's, ``E * sum_e f_e * P_e`` with the global
+    fraction ``f_e`` (no gradient) and the global mean probability
+    ``P_e`` summed over the ranks forward and passed through backward
+    (distributed.sum_forward), so its gradient reaches this rank's
+    probabilities at 1 / S_global; the ranks' aux gradients sum to the
+    global aux's."""
     S, E = gate_logits.shape
     probs, expert, gate = top1_gate(gate_logits)
     onehot = F.one_hot(expert, E).t().contiguous()  # [E, S]
-    aux = E * (onehot.float().mean(1) * probs.mean(0)).sum()
     pos1 = onehot.cumsum(1).gather(0, expert[None])[0]
+    if comm is None:
+        aux = E * (onehot.float().mean(1) * probs.mean(0)).sum()
+    else:
+        counts = comm.all_gather(onehot.sum(1)).view(comm.world, E)
+        pos1 = pos1 + counts[:comm.rank].sum(0)[expert]
+        total = S * comm.world
+        frac = counts.sum(0).float() / total
+        mean_prob = sum_forward(probs.sum(0), comm) / total
+        aux = E * (frac * mean_prob).sum()
     return Route(expert, pos1 - 1, pos1 <= cap, gate, probs, aux)
 
 
@@ -172,11 +210,14 @@ def moe_mlp(x: torch.Tensor, gate_w: torch.Tensor, experts: Experts,
     docstring): returns (y [B, T, d], the route)."""
     B, T, d = x.shape
     S, E = B * T, gate_w.shape[1]
-    C = capacity(capacity_factor, S, E)
+    routing = global_routing.current()
+    C = capacity(capacity_factor, S * (routing.world if routing else 1), E)
     xf = x.reshape(S, d)
-    route = switch_route(xf.float() @ gate_w.float(), C)
-    # each token's (expert, slot) row of the [E * C, d] buffer; a dropped
-    # token's is E * C, the zero row
+    route = switch_route(xf.float() @ gate_w.float(), C, routing)
+    # each token's (expert, slot) row of the [E * C, d] buffer (under
+    # global_routing a slot of the global queue: the slots of other ranks'
+    # tokens stay empty rows here); a dropped token's is E * C, the zero
+    # row
     flat = torch.where(route.keep, route.expert * C + route.slot, E * C)
     # the token of each (expert, slot): S (the zero row) where it is
     # empty; dropped tokens all land on the spare entry E * C

@@ -1,7 +1,8 @@
 """Strategy factory of the port (``ddlbench_tpu/parallel/api.py``
 ``make_strategy``), for the strategies it carries: ``single``, ``dp``,
 ``gpipe`` (fill-drain, or an event schedule of the timetable runtime, or
-with ``tp_size`` > 1 tpp's Megatron-sliced stages), ``pipedream``,
+with ``tp_size`` > 1 tpp's Megatron-sliced stages, 3-D with
+``dp_replicas`` > 1), ``pipedream``,
 ``sp``, ``ep``, ``fsdp`` and ``tp``; a pipeline with ``dp_replicas`` > 1
 is one replica of the hybrid, an uneven ``stage_replication`` the hetero
 strategies (parallel/hetero.py), a branchy arch under a manual pipeline
@@ -17,7 +18,8 @@ import torch
 from ddlbench_tpu_torch.config import (PIPELINE_STRATEGIES, RANK_STRATEGIES,
                                       RunConfig)
 from ddlbench_tpu_torch.distributed import (Comm, hybrid_stage_devices,
-                                            stage_devices, tp_stage_devices)
+                                            stage_devices, tp_stage_devices,
+                                            tpp3d_comms, tpp3d_stage_devices)
 from ddlbench_tpu_torch.models.branchy import get_dag, to_packed_chain
 from ddlbench_tpu_torch.models.transformer import set_attention_backend
 from ddlbench_tpu_torch.models.zoo import get_model
@@ -65,7 +67,10 @@ def _pipeline(cfg: RunConfig, model, device: torch.device,
     else at the balanced default split (a branchy arch's over its
     node-granular packed chain, the reference's manual-pipeline form);
     with ``tp_size`` > 1 rank ``comm``'s shard of tpp
-    (distributed.tp_stage_devices); with ``dp_replicas`` > 1 replica
+    (distributed.tp_stage_devices), and with ``dp_replicas`` > 1 as well
+    rank ``comm.rank`` = d * tp + t of 3-D tpp, its tp and data groups
+    made here (distributed.tpp3d_comms, tpp3d_stage_devices); with only
+    ``dp_replicas`` > 1 replica
     ``comm.rank`` of the hybrid (distributed.hybrid_stage_devices). A
     uniform ``stage_replication`` (r, ..., r) runs as that hybrid at
     ``dp_replicas`` r and micro_batch_size // r (the global batch stays
@@ -108,7 +113,13 @@ def _pipeline(cfg: RunConfig, model, device: torch.device,
         cls = (HeteroPipeDreamStrategy if cfg.strategy == "pipedream"
                else HeteroGPipeStrategy)
         return cls(model, cfg, devices, stage_bounds=bounds)
-    if cfg.tp_size > 1:
+    tp_comm, dp_comm = comm, None
+    if cfg.tp_size > 1 and cfg.dp_replicas > 1:
+        tp_comm, dp_comm = tpp3d_comms(comm, cfg.dp_replicas, cfg.tp_size)
+        devices = tpp3d_stage_devices(str(device), cfg.resolved_stages(),
+                                      cfg.tp_size, cfg.dp_replicas,
+                                      comm.rank, shared_card)
+    elif cfg.tp_size > 1:
         devices = tp_stage_devices(str(device), cfg.resolved_stages(),
                                    cfg.tp_size, comm.rank, shared_card)
     elif cfg.dp_replicas > 1:
@@ -124,7 +135,8 @@ def _pipeline(cfg: RunConfig, model, device: torch.device,
     if devices[0].type == "cuda" and cfg.dataset().kind == "image":
         model = model.to(memory_format=torch.channels_last)
     if cfg.tp_size > 1:
-        return TPGPipeStrategy(model, cfg, devices, comm, stage_bounds=bounds)
+        return TPGPipeStrategy(model, cfg, devices, tp_comm,
+                               stage_bounds=bounds, dp_comm=dp_comm)
     if cfg.strategy == "pipedream":
         cls = PipeDreamStrategy
     elif cfg.pipe_schedule != "fill-drain":
@@ -147,7 +159,8 @@ def make_strategy(cfg: RunConfig, device: torch.device,
     ``comm`` (distributed.spawn gives each rank its own), whose world must
     be ``cfg.num_devices``; rank 0's weights are broadcast to the others.
     A gpipe with ``tp_size`` > 1 runs shard ``comm.rank`` of ``tp_size``
-    (every rank builds the same weights from ``cfg.seed``); a hybrid
+    (every rank builds the same weights from ``cfg.seed``), with
+    ``dp_replicas`` > 1 as well rank ``comm.rank`` of 3-D tpp; a hybrid
     pipeline (``cfg.spawned_ranks()`` replicas) replica ``comm.rank``.
     ``gpipe`` and ``pipedream`` run
     their stages on ``cfg.resolved_stages()`` devices of ``device``'s

@@ -253,20 +253,25 @@ def logits_eval_sums(logits: torch.Tensor, y: torch.Tensor):
 def reduce_loss_sums(comm, obj_sum: torch.Tensor, ce_sum: torch.Tensor,
                      correct: torch.Tensor, valid: torch.Tensor,
                      aux: Sequence[torch.Tensor] = (),
-                     aux_weight: float = 0.0):
+                     aux_weight: float = 0.0, aux_global: bool = False):
     """The reference's ``fwd_local`` reductions over ``comm``'s ranks:
     (this rank's part of the objective, the global CE, global correct,
     global count). ``count`` is all-reduced before the backward; the
     rank differentiates its objective sum over it plus ``aux_weight`` x
     its MoE aux sum over the world, so the ranks' gradients sum to those
-    of ``psum(obj) / count + aux_weight x psum(aux) / n``. The CE is the
-    all-reduced sum over the count (no gradient)."""
+    of ``psum(obj) / count + aux_weight x psum(aux) / n``. With
+    ``aux_global`` the aux losses are the global batch's (the MoE blocks
+    routed under models/moe.global_routing: each rank's gradient of them
+    is its own tokens' part), so they enter whole and the ranks'
+    gradients sum to the global objective's. The CE is the all-reduced
+    sum over the count (no gradient)."""
     counts = comm.all_reduce(
         torch.stack([correct.to(torch.int64), valid.to(torch.int64)]))
     denom = counts[1].float().clamp(min=1.0)
     obj = obj_sum / denom
     if aux:
-        obj = obj + aux_weight * sum(aux) / comm.world
+        obj = obj + aux_weight * sum(aux) / (1 if aux_global
+                                             else comm.world)
     ce = comm.all_reduce(ce_sum.detach().to(
         torch.promote_types(ce_sum.dtype, torch.float32)).clone()) / denom
     return obj, ce, counts[0], counts[1]

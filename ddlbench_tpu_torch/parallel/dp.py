@@ -40,6 +40,16 @@ backward (no hook overlaps a collective with the backward):
   reference's threefry bits, ops/threefry.py), the collective in int8,
   and dequantisation; ``qstep`` counts steps in the optimizer state.
 
+An MoE arch (the replicated engine only: the explicit ones refuse it,
+as the reference does) routes over the global batch
+(models/moe.global_routing): the capacity, each token's place in its
+expert's queue and the aux loss are the global batch's (or the global
+micro-batch's under accumulation), and each rank adds ``moe_aux_weight``
+x that aux to its objective whole (common.reduce_loss_sums,
+``aux_global``): its gradient reaches the rank's own tokens only, so the
+summed gradients are the global objective's, single's on the global
+batch.
+
 Every engine's update is the same elementwise arithmetic and only the
 collectives differ, so the f32 sharded and overlapped engines equal the
 replicated one bit for bit wherever their collectives sum in the same
@@ -55,6 +65,7 @@ import torch
 from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.distributed import Comm, local_batch_slice
 from ddlbench_tpu_torch.models.layers import LayerModel, batch_parallel
+from ddlbench_tpu_torch.models.moe import aux_losses, global_routing
 from ddlbench_tpu_torch.ops import threefry
 from ddlbench_tpu_torch.parallel.common import (
     _micro_batch, bucket_slice, flat_optimizer, local_eval_sums,
@@ -241,9 +252,11 @@ class DPStrategy:
     def _micro_step(self, x, y, qkey):
         """One micro-step: (global ce, global correct, global valid, the
         reduced gradient of the rows' sum over the global valid count)."""
+        sums = local_loss_sums(self.model, self.cfg, x, y,
+                               self.compute_dtype, self.smoothing)
         obj, ce, correct, valid = reduce_loss_sums(
-            self.comm, *local_loss_sums(self.model, self.cfg, x, y,
-                                        self.compute_dtype, self.smoothing))
+            self.comm, *sums, aux=aux_losses(self.model),
+            aux_weight=self.cfg.moe_aux_weight, aux_global=True)
         grads = torch.autograd.grad(obj, self.params)
         gred = self._reduce(pack_flat(grads, self.meta), qkey)
         return ce, correct, valid, gred
@@ -303,7 +316,7 @@ class DPStrategy:
                 self.opt["qstep"]), self.comm.rank)
         if self.overlap:
             self._gather_params()
-        with batch_parallel(self.comm):
+        with batch_parallel(self.comm), global_routing(self.comm):
             ce, correct, valid, gred = self._grads(x, y, qkey)
         return {"loss": ce.detach(),
                 "accuracy": correct.float() / valid.clamp(min=1).float()}, \
@@ -335,5 +348,7 @@ class DPStrategy:
         batch: each rank's rows' sums, all-reduced."""
         self.materialize_params()
         x, y = self._local_rows(x, y)
-        return reduce_eval_sums(self.comm, *local_eval_sums(
-            self.model, self.cfg, x, y, self.compute_dtype))
+        with global_routing(self.comm):
+            sums = local_eval_sums(self.model, self.cfg, x, y,
+                                   self.compute_dtype)
+        return reduce_eval_sums(self.comm, *sums)

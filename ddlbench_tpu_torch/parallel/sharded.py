@@ -36,8 +36,24 @@ which is the same on every rank: the graphs are alike. The model's
 weights are broadcast from rank 0 when the strategy first takes them
 (:meth:`FSDPStrategy.init`), which keeps a copy of the initial shards so
 that a later ``init`` (the loop's warm-up restores the start) restarts
-from them. An MoE arch is refused by RunConfig (ROADMAP A.6b), and so is
-``remat_layers``.
+from them.
+
+``remat_layers`` (the reference's ``jax.checkpoint`` a layer) runs each
+layer through models/layers.remat_call: the forward gathers the layer
+and keeps neither the gathered vector nor the layer's interior, only
+its input; the backward's one re-gather of the layer (above) serves the
+recompute, whose gradient of the gathered vector goes back through the
+forward's gather node (the reduce-scatter). A step gathers each layer
+as often as without remat (:attr:`FSDPStrategy.regathers` counts the
+backward's), and BatchNorm's running statistics take the first
+forward's update only.
+
+An MoE arch routes over the global batch (models/moe.global_routing:
+the capacity, each token's place in its expert's queue and the aux
+loss are the global batch's, as the reference's GSPMD program routes);
+each rank's aux term is the global aux whose gradient reaches its own
+tokens' probabilities, so the ranks' gradients sum to the global
+objective's (common.reduce_loss_sums, ``aux_global``).
 
 The reference's tp is single's step under GSPMD with the batch
 replicated and every parameter sharded on its last divisible dimension
@@ -63,7 +79,11 @@ each leaf as the reference's shard does:
 * the loss is single's on the whole batch (an MoE arch routes it as
   single does), the update the reference's formulas on the rank's
   leaves; BatchNorm normalises with the whole batch's statistics on
-  every rank, as single's does.
+  every rank, as single's does;
+* ``remat_layers`` as fsdp's (above), the rank's own leaves saved as
+  they are; the recompute runs the layer's row-parallel sums again, and
+  only the recompute's graph is backpropagated (the first forward keeps
+  none), so no gradient is summed twice.
 """
 
 from __future__ import annotations
@@ -80,8 +100,8 @@ from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.distributed import (Comm, all_gather_grad,
                                             local_batch_slice)
 from ddlbench_tpu_torch.models.layers import (LayerModel, batch_parallel,
-                                             call_layer)
-from ddlbench_tpu_torch.models.moe import aux_losses
+                                             call_layer, remat_call)
+from ddlbench_tpu_torch.models.moe import aux_losses, global_routing
 from ddlbench_tpu_torch.models.transformer import (TP_SLICED_KEYS,
                                                    slice_block,
                                                    tensor_parallel,
@@ -253,24 +273,58 @@ class FSDPStrategy:
         return cast, self._views(i, cast)
 
     def _run(self, i: int, x: torch.Tensor, method: str = "forward"):
+        if self.cfg.remat_layers and method == "forward":
+            return self._remat_run(i, x)
         if not self.lengths[i]:  # no parameters: nothing to gather
             return call_layer(self.model.layers[i], None, x, method)
         cast, params = self._layer_params(i)
         with self._hooks(i, cast):
             return call_layer(self.model.layers[i], params, x, method)
 
+    def _remat_tensors(self, i: int):
+        """Layer i's differentiable inputs for remat_call and the map from
+        them to its parameters: the gathered vector (none for a layer
+        without parameters)."""
+        if not self.lengths[i]:
+            return [], lambda ts: None
+        cast, _ = FSDPStrategy._layer_params(self, i)
+        return [cast], lambda ts: self._views(i, ts[0])
+
+    def _remat_run(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Layer i under ``remat_layers`` (models/layers.remat_call): the
+        forward gathers the layer and keeps nothing of it or of its
+        interior; the backward recomputes the layer on its one re-gather
+        (:meth:`_regather`, the gather a backward without remat makes),
+        so a step gathers no layer more often than without. The
+        recompute's
+        gradient of the gathered vector goes back through the forward's
+        gather node, which reduce-scatters it and drops the re-gather."""
+        tensors, params_of = self._remat_tensors(i)
+        layer = self.model.layers[i]
+        first = ((lambda: self._regather(i)) if self.lengths[i] else None)
+        return remat_call(
+            lambda x, ts: call_layer(layer, params_of(ts), x), x, tensors,
+            first)
+
     # -- how the rank's part of the batch is taken and its sums reduced -----
 
     def _context(self):
-        """The context the step runs in."""
-        return batch_parallel(self.comm)
+        """The context the step runs in: sync-BN and the MoE blocks'
+        global routing over the ranks."""
+        stack = contextlib.ExitStack()
+        stack.enter_context(batch_parallel(self.comm))
+        stack.enter_context(global_routing(self.comm))
+        return stack
 
     def _local(self, x: torch.Tensor, y: torch.Tensor):
         rows = local_batch_slice(x.shape[0], self.comm.rank, self.comm.world)
         return x[rows], y[rows]
 
     def _reduce(self, sums):
-        return reduce_loss_sums(self.comm, *sums)
+        return reduce_loss_sums(self.comm, *sums,
+                                aux=aux_losses(self.model),
+                                aux_weight=self.cfg.moe_aux_weight,
+                                aux_global=True)
 
     def _reduce_eval(self, sums):
         return reduce_eval_sums(self.comm, *sums)
@@ -564,9 +618,28 @@ class TPStrategy(FSDPStrategy):
         return cast, params
 
     def _run(self, i: int, x: torch.Tensor, method: str = "forward"):
+        if self.cfg.remat_layers and method == "forward":
+            return self._remat_run(i, x)
         cast, params = self._layer_params(i)
         with self._hooks(i, cast):
             return call_layer(self.model.layers[i], params, x, method)
+
+    def _remat_tensors(self, i: int):
+        """The gathered vector (where the layer has one) and the rank's own
+        leaves (float32 masters, cast inside the recompute)."""
+        names = self.local[i]
+        layer = self.model.layers[i]
+        gathered, _ = super()._remat_tensors(i)
+        local = [layer.get_parameter(n) for n in names]
+
+        def params_of(ts):
+            out = {n: t.to(self.compute_dtype)
+                   for n, t in zip(names, ts[len(gathered):])}
+            if gathered:
+                out.update(self._views(i, ts[0]))
+            return out
+
+        return gathered + local, params_of
 
     def _context(self):
         return tensor_parallel(self.comm)

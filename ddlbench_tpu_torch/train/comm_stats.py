@@ -42,7 +42,13 @@ counterpart of PipeDream's RuntimeStats):
   stage's ring all-reduce of its float32 gradient over its replicas
   once a step (pipedream: a microbatch). The reference's
   ``physical_*`` figures price its flat-axis conveyor and masked rings,
-  kept for parity; the port moves only the rows a replica reads.
+  kept for parity; the port moves only the rows a replica reads;
+* tpp and 3-D tpp (``tp_size`` T, ``dp_replicas`` R >= 1): each
+  replica's boundaries (x R), each stage's sliced rows' float32
+  gradient all-reduced over the R replicas (T of them) and its
+  replicated leaves' over R x T, and ``tp_psum_payload_bytes``, one
+  row-parallel sum's payload (a microbatch's block output), with the
+  rows' sizes (``tp_grad_sliced_row_bytes``, ``tp_grad_repl_row_bytes``).
 """
 
 from __future__ import annotations
@@ -151,20 +157,29 @@ def comm_stats(strategy) -> Dict[str, float]:
             (max(strategy.repl) - 1) * (ticks if asynch else 1) * n_ring
         ) * 4.0 * max(strategy._p_lens)
     elif name == "TPGPipeStrategy":
-        # the reference's logical accounting: the boundaries as gpipe's,
-        # and each stage's replicated leaves' gradient all-reduce over the
-        # tp group (the port sums the activations' gradients instead:
-        # parallel/tpp.py; the same bytes)
+        # the reference's logical accounting: each replica's boundaries as
+        # gpipe's, each stage's sliced rows' gradient all-reduce over the
+        # replicas (one a shard) and its replicated leaves' over replicas
+        # x shards (the port sums the activations' gradients over the
+        # shards instead: parallel/tpp.py; the same bytes); and the
+        # payload of one row-parallel sum, one microbatch's block output
         itemsize = torch.empty((), dtype=strategy.compute_dtype
                                ).element_size()
         M, mb = strategy.num_microbatches, strategy.mb
+        dp, tp = strategy.dp, strategy.tp
         bounds, shapes = strategy.bounds, strategy.shapes
-        out["boundary_bytes"] = sum(
+        out["boundary_bytes"] = dp * sum(
             2.0 * M * mb * math.prod(shapes[bounds[s]]) * itemsize
             for s in range(1, strategy.num_stages))
         out["allreduce_bytes"] = sum(
-            _ring_allreduce_bytes(4.0 * n, strategy.tp)
-            for n in strategy._rp_lens)
+            tp * _ring_allreduce_bytes(4.0 * sl, dp)
+            + _ring_allreduce_bytes(4.0 * rp, dp * tp)
+            for sl, rp in zip(strategy._sl_lens, strategy._rp_lens))
+        out["tp_psum_payload_bytes"] = (float(mb) * math.prod(shapes[1])
+                                        * itemsize)
+        out["tp_grad_sliced_row_bytes"] = 4.0 * max(max(strategy._sl_lens),
+                                                    1)
+        out["tp_grad_repl_row_bytes"] = 4.0 * max(max(strategy._rp_lens), 1)
     elif name not in ("SingleStrategy", "SPStrategy", "EPStrategy",
                       "FSDPStrategy", "TPStrategy"):
         raise NotImplementedError(f"comm_stats of {name} is not ported")

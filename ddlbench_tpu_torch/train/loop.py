@@ -72,8 +72,15 @@ def _device_of(strategy: Strategy) -> torch.device:
 
 
 def _rank(strategy: Strategy) -> int:
+    """The strategy's rank in the whole run (rank 0 prints): 3-D tpp's
+    is its replica's (``comm``, the data group) times tp plus its
+    shard's (``tp_comm``)."""
     comm = getattr(strategy, "comm", None)
-    return comm.rank if comm is not None else 0
+    rank = comm.rank if comm is not None else 0
+    tp_comm = getattr(strategy, "tp_comm", None)
+    if tp_comm is not None and tp_comm is not comm:
+        rank = rank * tp_comm.world + tp_comm.rank
+    return rank
 
 
 def scaled_lr(cfg: RunConfig, world: int) -> Tuple[float, int]:

@@ -18,8 +18,10 @@ float32:
   statistics reduce in another order on each side);
 * each rank holds 1/n of every layer's packed parameters, padded to the
   world, and the optimizer state of that shard only;
-* an MoE arch is refused naming ROADMAP A.6b, ``remat_layers`` under
-  ``tp`` naming A.7b (tests/test_torch_tp.py holds ``tp`` itself).
+* an MoE arch and ``remat_layers`` under fsdp and tp validate (they run
+  in tests/test_torch_moe_dp.py and test_torch_remat_sharded.py), and
+  ``remat_layers`` with an MoE arch stays refused
+  (tests/test_torch_tp.py holds ``tp`` itself).
 """
 
 import torch_threads  # noqa: F401  (first: the test process's threads)
@@ -30,6 +32,7 @@ import numpy as np
 
 import pytest
 
+from ddlbench_tpu.config import RunConfig as JaxRunConfig
 from ddlbench_tpu.parallel.sharded import FSDPStrategy as JaxFSDP
 from torch_dp_ranks import RankPool, build_model
 from torch_shard_ref import compare_step
@@ -92,15 +95,21 @@ def test_fsdp_shard_bytes(ranks, model, world):
 
 
 def test_fsdp_refusals():
-    with pytest.raises(NotImplementedError, match="A.6b"):
+    """MoE archs under fsdp (ROADMAP A.6b) and remat_layers under fsdp
+    and tp (A.7b) were refused until they were ported
+    (tests/test_torch_moe_dp.py, test_torch_remat_sharded.py): they
+    validate now, as the reference's do; the reference's own refusal of
+    remat_layers with an MoE arch stays, worded as the port words it."""
+    for kw in (dict(strategy="fsdp", arch="transformer_moe_s"),
+               dict(strategy="tp", arch="transformer_s", remat_layers=True),
+               dict(strategy="fsdp", arch="transformer_s",
+                    remat_layers=True)):
+        for cls in (RunConfig, JaxRunConfig):
+            cls(num_devices=2, benchmark="synthtext", **kw).validate()
+    with pytest.raises(ValueError, match="remat_layers is incompatible "
+                                         "with MoE"):
         RunConfig(strategy="fsdp", num_devices=2, benchmark="synthtext",
-                  arch="transformer_moe_s").validate()
-    with pytest.raises(NotImplementedError, match=r"A\.7b"):
-        RunConfig(strategy="tp", num_devices=2, benchmark="synthtext",
-                  arch="transformer_s", remat_layers=True).validate()
-    with pytest.raises(NotImplementedError, match="remat_layers"):
-        RunConfig(strategy="fsdp", num_devices=2, benchmark="synthtext",
-                  arch="transformer_s", remat_layers=True).validate()
+                  arch="transformer_moe_s", remat_layers=True).validate()
 
 
 @pytest.mark.parametrize("strategy", ["sp", "ep", "fsdp"])

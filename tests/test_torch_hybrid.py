@@ -27,7 +27,8 @@ M x mb x 2 rows:
   half the replicated (within each chunk's pad), and the shard's
   gradient divided by R then M in that order;
 * uniform ``stage_replication`` (2, 2) routing to the hybrid at mb // 2;
-* the reference's validation errors and 3-D tpp's refusal.
+* the reference's validation errors; 3-D tpp's configs validate
+  (tests/test_torch_tpp3d.py runs them).
 """
 
 import torch_threads  # noqa: F401  (first: the test process's threads)
@@ -398,11 +399,20 @@ def test_hybrid_gates_worded_as_the_reference(kw, err, match):
     dict(dp_replicas=2, tp_size=2, num_devices=8, num_stages=2),
     dict(dp_replicas=4, tp_size=2, num_devices=8)])
 def test_3d_tpp_stays_refused(kw):
-    cfg = RunConfig(strategy="gpipe", benchmark="synthtext",
-                    arch="transformer_t", micro_batch_size=2,
-                    num_microbatches=2, **kw)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A\.7b"):
-        cfg.validate()
+    """3-D tpp was refused until it was ported (tests/test_torch_tpp3d.py):
+    it now validates as the reference does, spawns a rank a shard of a
+    replica and takes the reference's global batch, M x mb x R."""
+    base = dict(strategy="gpipe", benchmark="synthtext",
+                arch="transformer_t", micro_batch_size=2,
+                num_microbatches=2, **kw)
+    cfg = RunConfig(**base)
+    cfg.validate()
+    jcfg = JaxRunConfig(**base)
+    jcfg.validate()
+    assert cfg.spawned_ranks() == kw["dp_replicas"] * kw["tp_size"]
+    assert cfg.global_batch() == jcfg.global_batch() == 2 * 2 * kw[
+        "dp_replicas"]
+    assert cfg.resolved_stages() == jcfg.resolved_stages()
 
 
 @pytest.mark.parametrize("kw,ranks_,batch", [

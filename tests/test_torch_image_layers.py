@@ -338,12 +338,28 @@ def test_a_vanishing_map_raises():
 
 
 def test_remat_over_batchnorm_raises():
-    """torch.utils.checkpoint would recompute BatchNorm and update its
-    running statistics twice: a layer with BatchNorm refuses remat."""
-    layer = tl.ConvBN("c", (8, 8, 3), 4, gen=_gen())
-    with pytest.raises(NotImplementedError, match="running statistics"):
-        apply_slice([layer], torch.randn(1, 3, 8, 8), None, remat=True)
-    assert torch.equal(layer.bn.mean, torch.zeros(4))
+    """Once refused (torch.utils.checkpoint would recompute BatchNorm and
+    update its running statistics twice), remat over a layer with
+    BatchNorm now recomputes with the statistics frozen: the output,
+    the gradients and the running statistics after the backward equal
+    the run without remat's, the statistics bitwise (updated once)."""
+    x = torch.randn(2, 3, 8, 8)
+    runs = []
+    for remat in (False, True):
+        layer = tl.ConvBN("c", (8, 8, 3), 4, gen=_gen())
+        xin = x.clone().requires_grad_()
+        y = apply_slice([layer], xin, None, remat=remat)
+        y.square().sum().backward()
+        runs.append((y.detach(), xin.grad,
+                     [p.grad for p in layer.parameters()],
+                     layer.bn.mean.clone(), layer.bn.var.clone()))
+    (y0, dx0, g0, m0, v0), (y1, dx1, g1, m1, v1) = runs
+    assert not torch.equal(m0, torch.zeros(4))
+    assert torch.equal(m1, m0) and torch.equal(v1, v0)
+    torch.testing.assert_close(y1, y0, rtol=0, atol=0)
+    torch.testing.assert_close(dx1, dx0, rtol=1e-6, atol=1e-7)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
 
 
 def test_bf16_batchnorm_takes_f32_weights_and_stats():

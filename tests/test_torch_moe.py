@@ -434,15 +434,24 @@ def test_schema_only_fields_refuse_what_the_port_does_not_do(name, value,
     (remat_stages, once refused here, acts on the pipelines:
     tests/test_torch_gpipe.py; tp_size, once refused here, runs tpp:
     tests/test_torch_tpp.py; dp_replicas runs the hybrid pipelines,
-    tests/test_torch_hybrid.py, and stays refused with tp_size > 1)."""
+    tests/test_torch_hybrid.py, and with tp_size > 1, once refused
+    naming ROADMAP A.7b, 3-D tpp: tests/test_torch_tpp3d.py, so its row
+    now validates as the reference's does)."""
     assert getattr(RunConfig(), name) == getattr(JaxRunConfig(), name)
     RunConfig(benchmark="synthtext", arch="transformer_moe_s",
               **{name: getattr(JaxRunConfig(), name)}).validate()
     extra = ({"strategy": "gpipe", "tp_size": 2, "num_devices": 8}
              if name == "dp_replicas" else {})
+    cfg = RunConfig(benchmark="synthtext", arch="transformer_moe_s",
+                    **{name: value}, **extra)
+    if name == "dp_replicas":
+        cfg.validate()
+        JaxRunConfig(benchmark="synthtext", arch="transformer_moe_s",
+                     **{name: value}, **extra).validate()
+        assert cfg.spawned_ranks() == 4
+        return
     with pytest.raises(NotImplementedError, match=match):
-        RunConfig(benchmark="synthtext", arch="transformer_moe_s",
-                  **{name: value}, **extra).validate()
+        cfg.validate()
 
 
 def test_moe_has_no_serving_ops():

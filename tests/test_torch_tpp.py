@@ -19,8 +19,8 @@ its two stages on the CPU:
   leaves equal on both ranks;
 * the reference's ``tp_size`` gates (tests/test_tpp.py
   ``test_tp_size_config_validation``) and the port's: fill-drain only,
-  no interleaving, no ``dp_shard_update``, and ``dp_replicas`` > 1
-  refused naming ROADMAP A.7b;
+  no interleaving, no ``dp_shard_update``; ``dp_replicas`` > 1 (3-D
+  tpp, tests/test_torch_tpp3d.py) validates;
 * ``-f gpipe --tp-size 2 -g 4 --device cpu`` through the CLI: the
   reference's note on the fused head once, rank 0's lines, a finite
   eval loss.
@@ -158,7 +158,7 @@ def test_tpp_gradients_match_port_gpipe(ranks):
     "shard_update", "dp_replicas"])
 def test_tp_size_gates(case):
     """The reference's gates (tests/test_tpp.py:67), worded as it words
-    them, then the port's refusal of 3-D parallelism."""
+    them; 3-D parallelism validates."""
     kw = dict(strategy="gpipe", benchmark="synthtext", arch="transformer_t",
               num_devices=4, tp_size=2, num_stages=2, micro_batch_size=2,
               num_microbatches=2)
@@ -168,7 +168,7 @@ def test_tp_size_gates(case):
             "schedule": (ValueError, "fill-drain"),
             "interleaved": (ValueError, "interleaved"),
             "shard_update": (ValueError, "tp_size > 1 keeps the replicated"),
-            "dp_replicas": (NotImplementedError, r"A\.7b")}
+            "dp_replicas": None}
     kw.update({"valid": {},
                "pipedream": dict(strategy="pipedream", micro_batch_size=None,
                                  num_microbatches=None),
@@ -182,6 +182,10 @@ def test_tp_size_gates(case):
     if case == "valid":
         cfg.validate()
         assert cfg.spawned_ranks() == 2 and cfg.global_batch() == 4
+        return
+    if case == "dp_replicas":  # 3-D tpp, tests/test_torch_tpp3d.py
+        cfg.validate()
+        assert cfg.spawned_ranks() == 4 and cfg.global_batch() == 8
         return
     err, match = want[case]
     with pytest.raises(err, match=match):

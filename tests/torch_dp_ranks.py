@@ -82,25 +82,12 @@ class RankPool:
         self._tmp.cleanup()
 
 
-def _subgroup(comm, ranks):
-    """A Comm over ``ranks`` of ``comm``'s group (every rank of the group
-    calls this, as ``new_group`` requires); None on a rank outside it."""
-    import dataclasses
-
-    group = torch.distributed.new_group(list(ranks))
-    if comm.rank not in ranks:
-        return None
-    return dataclasses.replace(comm, group=group,
-                               rank=list(ranks).index(comm.rank),
-                               world=len(ranks))
-
-
 def _serve(rank, world, init_file, tasks, results):
     torch.set_num_threads(1)
     from ddlbench_tpu_torch import distributed
 
     comm = distributed.init_rank(rank, world, init_file, "cpu")
-    comms = {world: comm, 2: _subgroup(comm, [0, 1])}
+    comms = {world: comm, 2: distributed.subgroup(comm, [0, 1])}
     assert "jax" not in sys.modules, "a dp rank imported jax"
     while True:
         task = tasks.get()

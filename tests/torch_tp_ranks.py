@@ -114,3 +114,71 @@ def tp_grads(comm, model: str, cfg: dict, batch: tuple, params=None,
             "grads": {k: v.numpy().copy()
                       for k, v in strat.whole_grads(grads).items()},
             "counts": strat.param_counts()}
+
+
+def _tpp_rows(strat, tensors_of) -> dict:
+    """The rank's rows of the reference's two packed matrices built from
+    ``tensors_of(p)`` for each parameter p (its value or its gradient),
+    as numpy: {"sliced": [S, L_sl], "repl": [S, L_rp]} (unpadded rows
+    zero-padded to the longest)."""
+    from ddlbench_tpu_torch.parallel.common import to_ref_layout
+
+    out = {}
+    for k, key in enumerate(("sliced", "repl")):
+        rows = []
+        for c in range(strat.num_chunks):
+            leaves = strat._rows(c)[k]
+            rows.append(np.concatenate(
+                [to_ref_layout(tensors_of(p)).detach().double().reshape(-1)
+                 .numpy() for p in leaves]) if leaves else np.zeros(0))
+        L = max(max(r.size for r in rows), 1)
+        out[key] = np.stack([np.pad(r, (0, L - r.size)) for r in rows])
+    return out
+
+
+def tpp3d(comm, cfg: dict, p0: dict, batches: list, lr: float,
+          grad_batch=None, layout_rows: int = 0) -> dict:
+    """3-D tpp (or 2-D at dp_replicas 1) through make_strategy on this
+    rank, from the reference's packed matrices ``p0`` ({"sliced": [S,
+    tp, L_sl], "repl": [S, L_rp]}, convert.load_tpp_rows): the step's
+    gradient rows on ``grad_batch`` (summed over the replicas / R, as
+    the step applies them), each step's loss and accuracy and the rows
+    after it, the eval step on the first batch, and with
+    ``layout_rows`` the global row index of every row of each of the
+    rank's microbatches (shard_batch)."""
+    from ddlbench_tpu_torch.convert import load_tpp_rows
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.parallel.gpipe import mean_over
+
+    strat = make_strategy(RunConfig(strategy="gpipe", **cfg), CPU, comm)
+    load_tpp_rows(strat, p0["sliced"], p0["repl"])
+    strat.init()
+    out = {"rank": comm.rank, "tp_rank": strat.tp_comm.rank,
+           "dp_rank": 0 if strat.dp_comm is None else strat.dp_comm.rank,
+           "bounds": list(strat.bounds), "losses": [], "accuracy": [],
+           "params": [], "p0": _tpp_rows(strat, lambda p: p)}
+    if layout_rows:
+        ids = torch.arange(layout_rows)[:, None].expand(layout_rows, 4)
+        xs, ys = strat.shard_batch(ids, ids)
+        out["layout"] = [t[:, 0].tolist() for t in xs]
+        out["layout_labels"] = [t[:, 0].tolist() for t in ys]
+    if grad_batch is not None:
+        m, _ = strat.reduced_grads(*(torch.from_numpy(np.array(t)).long()
+                                     for t in grad_batch))
+        for c in range(strat.num_chunks):
+            grads = [p.grad for p in strat.chunk_params(c)]
+            if strat.dp > 1:
+                mean_over(strat.dp_comm, grads)
+        out["grad_loss"] = float(m["loss"])
+        out["grads"] = _tpp_rows(strat, lambda p: p.grad)
+    for x, y in batches:
+        m = strat.train_step(torch.from_numpy(np.array(x)).long(),
+                             torch.from_numpy(np.array(y)).long(), lr)
+        out["losses"].append(float(m["loss"]))
+        out["accuracy"].append(float(m["accuracy"]))
+        out["params"].append(_tpp_rows(strat, lambda p: p))
+    if batches:
+        ev = strat.eval_step(*(torch.from_numpy(np.array(t)).long()
+                               for t in batches[0]))
+        out["eval"] = {k: float(v) for k, v in ev.items()}
+    return out
