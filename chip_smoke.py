@@ -570,6 +570,33 @@ one JSON line; any failure raises and exits non-zero:
              card (every update within 1e-4 relative L2) and against the
              same plan's step on the CPU (the loss within 1e-5, every
              update within 1e-3), gpipe and pipedream.
+17b. plan_train — profile -> partition -> plan (profiler/profile.py,
+             partition/optimizer.py and its C++ core, partition/planner.py,
+             profiler/actlog.py) on transformer_s / synthtext at full
+             width, seed 0. (a) profile_model at pipe_train's micro-batch
+             (4 x 1 024) in "flops" mode on the card equals, node for node,
+             the same call on the CPU; in "time" mode on the card (CUDA
+             events, 2 warm-ups and 5 samples a node) every block's
+             forward and backward time > 0 and B1-B3 launched exactly what
+             the samples imply (none on the plain path); the nodes' sum
+             printed beside a timed float32 single step of the same rows.
+             (b) --auto-partition --pipe-schedule 1f1b --pipe-costs profile
+             on four stages of the card through make_strategy: the plan,
+             the executed bounds and the cost vectors printed, bf16 steps
+             (one warm-up, two timed) beside the default balanced split's
+             unit-cost 1f1b in the same process, the plan's launches what
+             its events imply; its float32 step at the same bounds and
+             vectors, cut to mb 2 x M 4 on 128 tokens, against the CPU's
+             (the loss within 1e-5, every update within 1e-3 relative
+             L2). (c) --plan auto at world 4 in flops mode with the H100
+             HardwareModel (hbm_bytes printed beside the card's
+             total_memory): the winner and every candidate printed; a
+             winner that runs in one process runs here, one that spawns
+             ranks runs in the sharded spawn (25b). (d) one float32
+             activation capture under single (train/loop's logger) on the
+             card and on the CPU, 2 rows x 128 tokens: equal keys, every
+             array within 1e-3 of the CPU array's largest magnitude, B1-B3
+             one launch a block.
 18. pipe_image — resnet50 / imagenet on four stages of the one card. (a)
              gpipe's step in float64 at mb 2 x M 2 on the card against the
              same step on the CPU: the loss, every gradient leaf and every
@@ -691,6 +718,14 @@ one JSON line; any failure raises and exits non-zero:
              running statistic within 1e-9. Host-staged gloo on one
              card: the rows price the schedules' work and the wire, not
              scaling.
+25b. plan_auto_train — the --plan auto winner of 17b (c) when it spawns
+             ranks (its replicas), in the sharded spawn after tpp3d: rank
+             0 solves and broadcasts the rewrite (planner.resolve_auto_plan)
+             to all four ranks, the ranks the plan spawns build it through
+             make_strategy and run one warm-up and two timed bf16 steps of
+             pipe_train's 32 rows: every rank's resolved config equals the
+             main process's solve, its launches what its events imply,
+             none on the plain path, finite losses equal on the ranks.
 26. tpp3d_train — 3-D tpp (-g 8 as --dp-replicas 2 x 2 stages x
              --tp-size 2: the reference's ('data', 'stage', 'model')
              mesh), first in the sharded spawn, which runs at world 4 on
@@ -760,6 +795,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import itertools
 import json
 import math
@@ -6146,6 +6182,397 @@ def pipe_hetero(torch, fa, fx, dev):
     return launches
 
 
+# ---- 17b: profile -> partition -> plan (plan_train) ------------------------
+PLAN_MB = 4  # pipe_train's gpipe micro-batch: 4 x 1 024 tokens a profile
+PLAN_REPEATS = 5  # timed samples a node (after profile.py's 2 warm-ups)
+PLAN_WARMUP = 2
+# (b)'s float32 card-vs-CPU step at the plan's bounds and cost vectors,
+# cut in depth: mb 2 x M 4 on HYB_CUT_T tokens (the bars: SHARD_F32_LOSS,
+# SHARD_CPU_UPDATE)
+PLAN_CUT_MB, PLAN_CUT_M = 2, 4
+# (d): one float32 capture of 2 rows x HYB_CUT_T tokens; every activation
+# and gradient within this share of the CPU array's largest magnitude
+PLAN_ACT_ROWS = 2
+ACT_F32_TOL = 1e-3
+def plan_cfg(**kw):
+    """transformer_s / synthtext on PIPE_S stages of the one card, seed 0."""
+    from ddlbench_tpu_torch.config import RunConfig
+
+    return RunConfig(benchmark=PIPE_TOKEN[1], arch=PIPE_TOKEN[0],
+                     strategy="gpipe", num_devices=PIPE_S, seed=0, **kw)
+
+
+def counted(fa, fx, fn):
+    """(fn(), the B1-B6 launches it made, its plain attention calls)."""
+    counters, plain0 = pipe_counted(fa, fx)
+    out = fn()
+    return (out, {n: c.launches for n, c in counters.items()},
+            fa.flash_attention.plain_launches - plain0)
+
+
+def plan_profile(torch, fa, fx, dev):
+    """(a): the flops profile on the card and on the CPU (equal, node for
+    node), the time profile on the card (its launches, every block's fwd
+    and bwd > 0), and a single float32 step of the same rows timed."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.profiler.profile import profile_model
+
+    model = get_model(*PIPE_TOKEN, seed=0)
+    g_cpu = profile_model(model, PLAN_MB, mode="flops")
+    model = model.to(dev)
+    g_card = profile_model(model, PLAN_MB, mode="flops")
+    nodes = lambda g: [dataclasses.asdict(n) for n in g.topological_sort()]
+    t0 = time.perf_counter()
+    g_time, got, plain = counted(fa, fx, lambda: profile_model(
+        model, PLAN_MB, mode="time", repeats=PLAN_REPEATS))
+    time_s = time.perf_counter() - t0
+    del model
+    torch.cuda.empty_cache()
+    calls = PLAN_WARMUP + PLAN_REPEATS
+    want = {n: 0 for n in PIPE_COUNTERS}
+    want.update(flash_fwd=2 * calls * LAYERS, flash_dq=calls * LAYERS,
+                flash_dkv=calls * LAYERS)
+    blocks = [n for n in g_time.topological_sort()
+              if n.node_desc.startswith("block")]
+    cfg = RunConfig(benchmark=PIPE_TOKEN[1], arch=PIPE_TOKEN[0],
+                    batch_size=PLAN_MB, compute_dtype="float32", seed=0)
+    single = make_strategy(cfg, dev)
+    x, y = make_synthetic(cfg.dataset(), PLAN_MB, dev, seed=0).batch(1, 0)
+    single.train_step(x, y, cfg.resolved_lr())
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(3):
+        single.train_step(x, y, cfg.resolved_lr())
+    torch.cuda.synchronize()
+    single_ms = 1e3 * (time.perf_counter() - t1) / 3
+    del single
+    torch.cuda.empty_cache()
+    total = sum(n.forward_compute_time + n.backward_compute_time
+                for n in g_time.nodes.values())
+    rec = {"micro_batch": PLAN_MB, "dtype": "float32",
+           "flops_graph_nodes": len(g_card.nodes),
+           "flops_ms": {n.node_desc: [n.forward_compute_time,
+                                      n.backward_compute_time]
+                        for n in g_card.topological_sort()},
+           "time_ms": {n.node_desc: [n.forward_compute_time,
+                                     n.backward_compute_time]
+                       for n in g_time.topological_sort()},
+           "time_sum_ms": total, "single_f32_step_ms": single_ms,
+           "time_sum_over_step": total / single_ms,
+           "time_profile_s": time_s, "repeats": PLAN_REPEATS,
+           "launches": got, "launches_expected": want,
+           "plain_launches": plain}
+    checks = {"a_flops_card_equals_cpu": (nodes(g_card) == nodes(g_cpu)
+                                          and str(g_card) == str(g_cpu)),
+              "a_time_blocks_positive": bool(blocks) and all(
+                  n.forward_compute_time > 0 and n.backward_compute_time > 0
+                  for n in blocks),
+              "a_launches": got == want and plain == 0}
+    return rec, checks, got
+
+
+def plan_cut_step(torch, part, dev):
+    """(b)'s float32 step of the plan's bounds and cost vectors, cut to
+    PLAN_CUT_MB x PLAN_CUT_M rows of HYB_CUT_T tokens, on ``dev``: (loss,
+    update)."""
+    from ddlbench_tpu_torch.parallel.api import AutoPartition, make_strategy
+
+    cfg = part.cfg.replace(compute_dtype="float32", optimizer="sgd",
+                           micro_batch_size=PLAN_CUT_MB,
+                           num_microbatches=PLAN_CUT_M)
+    s = make_strategy(cfg, dev, shared_card=dev.type == "cuda",
+                      partition=AutoPartition(cfg, part.bounds, part.graph,
+                                              part.cuts))
+    rows = PLAN_CUT_MB * PLAN_CUT_M
+    x, y = shard_batches(torch, cfg, rows, 1, dev, seed=7)[0]
+    return hyb_update(torch, s, (x[:, :HYB_CUT_T], y[:, :HYB_CUT_T]),
+                      SHARD_LR)
+
+
+def plan_execute(torch, fa, fx, dev):
+    """(b): --auto-partition --pipe-schedule 1f1b --pipe-costs profile on
+    PIPE_S stages of the card through make_strategy, bf16 steps timed in
+    turns with the default balanced split's unit-cost 1f1b; its launches
+    (counted), then the float32 cut step against the CPU's."""
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import auto_partition, make_strategy
+
+    cfg = plan_cfg(auto_partition=True, pipe_schedule="1f1b",
+                   pipe_costs="profile", compute_dtype="bfloat16")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        part = auto_partition(cfg, dev)
+        planned = make_strategy(cfg, dev, shared_card=dev.type == "cuda",
+                                partition=part)
+        balanced = pipe_strategy(torch, PIPE_TOKEN[0], PIPE_TOKEN[1], "gpipe",
+                                 dev, pipe_schedule="1f1b")
+    lines = out.getvalue().splitlines()
+    print(out.getvalue(), end="", flush=True)
+    B, lr = cfg.global_batch(), cfg.resolved_lr()
+    data = make_synthetic(cfg.dataset(), B, dev, seed=0)
+    batches = [data.batch(1, i) for i in range(1 + PIPE_TIMED)]
+    dt_bal, loss_bal = pipe_timed(torch, balanced, batches, lr)
+    (dt, losses), got, plain = counted(
+        fa, fx, lambda: pipe_timed(torch, planned, batches, lr))
+    want = pipe_expected(planned, "1f1b" if planned._fused_bw
+                         else "zero-bubble", 1 + PIPE_TIMED)
+    rec = {"plan_lines": [ln for ln in lines
+                          if ln.startswith("auto-partition")],
+           "executed_bounds": planned.bounds,
+           "cost_vectors": part.cfg.pipe_cost_vectors,
+           "stage_replication": part.cfg.stage_replication,
+           "dp_replicas": part.cfg.dp_replicas,
+           "balanced_bounds": balanced.bounds, "global_batch": B,
+           "ms_per_step": 1e3 * dt / PIPE_TIMED,
+           "balanced_ms_per_step": 1e3 * dt_bal / PIPE_TIMED,
+           "losses": losses, "balanced_losses": loss_bal,
+           "launches": got, "launches_expected": want,
+           "plain_launches": plain, "card": card_line()}
+    del planned, balanced, data, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    lc, uc = plan_cut_step(torch, part, dev)
+    lp, up = plan_cut_step(torch, part, torch.device("cpu"))
+    r = {"loss_card": lc, "loss_cpu": lp, "loss_rel": abs(lc - lp) / abs(lp),
+         "rows": PLAN_CUT_MB * PLAN_CUT_M, "tokens": HYB_CUT_T}
+    r["worst_update_rel_l2"], r["worst_update_leaf"] = worst_update(
+        torch, uc, up)
+    r["ok"] = (r["loss_rel"] <= SHARD_F32_LOSS
+               and r["worst_update_rel_l2"] <= SHARD_CPU_UPDATE)
+    rec["b_card_vs_cpu_f32"] = r
+    checks = {"b_launches": got == want and plain == 0,
+              "b_bounds_executed": planned_bounds_ok(rec, part),
+              "b_card_vs_cpu_f32": r["ok"]}
+    torch.cuda.empty_cache()
+    return rec, checks, got
+
+
+def planned_bounds_ok(rec, part) -> bool:
+    """The strategy runs the plan's bounds, weighted by its vectors."""
+    return (list(rec["executed_bounds"]) == list(part.bounds)
+            and rec["cost_vectors"] is not None
+            and rec["plan_lines"] != [])
+
+
+def plan_auto_solve():
+    """(c): --plan auto at world PIPE_S in flops mode with the H100
+    HardwareModel: (record, rewrite)."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.partition.planner import plan_for_config
+
+    cfg = plan_cfg(plan="auto", compute_dtype="bfloat16")
+    plan, rewrite, _ = plan_for_config(cfg)
+    resolved = cfg.replace(**rewrite)
+    resolved.validate()
+    rec = {"hardware": dataclasses.asdict(cfg.hardware),
+           "winner": plan.winner.as_record(), "reason": plan.reason,
+           "candidates": [c.as_record() for c in plan.candidates],
+           "rewrite": {k: list(v) if isinstance(v, tuple) else v
+                       for k, v in rewrite.items()},
+           "ranks": resolved.spawned_ranks()}
+    return rec, rewrite
+
+
+def plan_auto_steps(torch, fa, fx, cfg, dev, comm=None):
+    """One warm-up and PIPE_TIMED timed bf16 steps of the resolved --plan
+    auto config through make_strategy (on ``comm``'s ranks when the plan
+    spawns them), the counters zeroed before and read after."""
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    s = make_strategy(cfg, dev, comm, shared_card=dev.type == "cuda")
+    rows = cfg.global_batch()
+    batches = shard_batches(torch, cfg, rows, 1 + PIPE_TIMED, dev)
+    (dt, losses), got, plain = counted(
+        fa, fx, lambda: pipe_timed(torch, s, batches, SHARD_LR))
+    want = (pipe_expected(s, "1f1b" if getattr(s, "_fused_bw", True)
+                          else "zero-bubble", 1 + PIPE_TIMED)
+            if cfg.strategy == "gpipe" else None)
+    rec = {"ms_per_step": 1e3 * dt / PIPE_TIMED, "losses": losses,
+           "global_batch": rows, "bounds": getattr(s, "bounds", None),
+           "launches": got, "launches_expected": want,
+           "plain_launches": plain}
+    del s, batches
+    torch.cuda.empty_cache()
+    return rec
+
+
+def plan_actlog(torch, fa, fx, dev):
+    """(d): one float32 capture of the activation logger under single on
+    transformer_s, on the card (its launches counted) and on the CPU."""
+    import tempfile
+
+    import numpy as np
+
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.train.loop import activation_logger
+
+    arrays = {}
+    with tempfile.TemporaryDirectory(prefix="ddlb_actlog_") as tmp:
+        for where in ("card", "cpu"):
+            d = dev if where == "card" else torch.device("cpu")
+            cfg = RunConfig(benchmark=PIPE_TOKEN[1], arch=PIPE_TOKEN[0],
+                            batch_size=PLAN_ACT_ROWS, compute_dtype="float32",
+                            seed=0, activation_log_dir=f"{tmp}/{where}")
+            s = make_strategy(cfg, d)
+            logger = activation_logger(cfg, s, 0)
+            x, y = shard_batches(torch, cfg, PLAN_ACT_ROWS, 1, d, seed=3)[0]
+            x, y = x[:, :HYB_CUT_T], y[:, :HYB_CUT_T]
+            path, got, plain = counted(fa, fx,
+                                       lambda: logger.log(1, 0, x, y))
+            if where == "card":
+                launches, plain_card = got, plain
+            with np.load(path) as f:
+                arrays[where] = {k: f[k] for k in f.files}
+            del s
+            torch.cuda.empty_cache()
+    card, cpu = arrays["card"], arrays["cpu"]
+    worst = max((float(np.abs(card[k] - cpu[k]).max())
+                 / max(float(np.abs(cpu[k]).max()), 1e-30), k)
+                for k in cpu)
+    want = {n: 0 for n in PIPE_COUNTERS}
+    want.update(flash_fwd=LAYERS, flash_dq=LAYERS, flash_dkv=LAYERS)
+    rec = {"keys": len(cpu), "rows": PLAN_ACT_ROWS, "tokens": HYB_CUT_T,
+           "worst_rel_to_max": worst[0], "worst_key": worst[1],
+           "tol": ACT_F32_TOL, "loss_card": float(card["loss"]),
+           "loss_cpu": float(cpu["loss"]), "launches": launches,
+           "launches_expected": want, "plain_launches": plain_card}
+    checks = {"d_keys_equal": sorted(card) == sorted(cpu),
+              "d_card_vs_cpu": worst[0] <= ACT_F32_TOL,
+              "d_launches": launches == want and plain_card == 0}
+    return rec, checks, launches
+
+
+def phase_plan_train(torch, fa, fx, dev):
+    """Phase 17b (module docstring): profile -> partition -> plan on the
+    card. Returns (the B1-B6 launches of its main-path runs: the time
+    profile, the executed plan's steps, the activation capture, and the
+    --plan auto winner's steps when it runs in this process; (c)'s
+    rewrite, which the sharded spawn's ranks must arrive at)."""
+    t_start = time.perf_counter()
+    launches = {n: 0 for n in PIPE_COUNTERS}
+    line = {"phase": "plan_train", "model": PIPE_TOKEN[0],
+            "benchmark": PIPE_TOKEN[1], "stages": PIPE_S,
+            "shared_card": True, "card": card_line(),
+            "hbm_bytes_model": None, "total_memory": torch.cuda
+            .get_device_properties(dev).total_memory}
+    checks, seconds = {}, {}
+    for key, fn in (("a_profile", plan_profile), ("b_plan", plan_execute),
+                    ("d_actlog", plan_actlog)):
+        t0 = time.perf_counter()
+        rec, ch, got = fn(torch, fa, fx, dev)
+        seconds[key] = time.perf_counter() - t0
+        line[key] = rec
+        checks.update(ch)
+        for n in PIPE_COUNTERS:
+            launches[n] += got[n]
+    t0 = time.perf_counter()
+    rec, rewrite = plan_auto_solve()
+    line["hbm_bytes_model"] = rec["hardware"]["hbm_bytes"]
+    if rec["ranks"] == 0:
+        cfg = plan_cfg(plan="auto", compute_dtype="bfloat16").replace(
+            **rewrite)
+        rec["run"] = plan_auto_steps(torch, fa, fx, cfg, dev)
+        checks["c_launches"] = (rec["run"]["plain_launches"] == 0 and (
+            rec["run"]["launches_expected"] is None
+            or rec["run"]["launches"] == rec["run"]["launches_expected"]))
+        for n in PIPE_COUNTERS:
+            launches[n] += rec["run"]["launches"][n]
+    else:
+        rec["run"] = "on the sharded spawn's ranks: plan_auto_train"
+    seconds["c_plan_auto"] = time.perf_counter() - t0
+    line["c_plan_auto"] = rec
+    line["checks"] = checks
+    line["seconds"] = {**seconds, "total": time.perf_counter() - t_start}
+    emit(line)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"plan checks failed: {failed}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec["rewrite"]
+
+
+def plan_auto_cell(torch, comm2, comm4):
+    """The --plan auto winner on the sharded spawn's ranks (phase 25b):
+    rank 0 solves and broadcasts (planner.resolve_auto_plan), and the
+    ranks the plan spawns run its steps. Only the rank count where the
+    plan runs in one process (phase 17b ran it)."""
+    import dataclasses
+
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.ops import fused_xent as fx
+    from ddlbench_tpu_torch.partition.planner import resolve_auto_plan
+
+    t0 = time.perf_counter()
+    cfg = plan_cfg(plan="auto", compute_dtype="bfloat16")
+    with contextlib.redirect_stdout(io.StringIO()):
+        resolved = resolve_auto_plan(cfg, comm=comm4)
+    ranks = resolved.spawned_ranks()
+    comm = {2: comm2, comm4.world: comm4}.get(ranks)
+    if ranks == 0 or comm is None:
+        return {"ranks": ranks, "rewrite_strategy": resolved.strategy}
+    rec = plan_auto_steps(torch, fa, fx, resolved, comm.device, comm)
+    rec.update(ranks=ranks, strategy=resolved.strategy,
+               config={k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in dataclasses.asdict(resolved).items()
+                       if k in PLAN_REWRITE_KEYS},
+               seconds=time.perf_counter() - t0)
+    return rec
+
+
+# the fields of planner._rewrite_fields, compared rank against solver
+PLAN_REWRITE_KEYS = ("plan", "auto_partition", "plan_bounds", "num_stages",
+                     "dp_replicas", "tp_size", "dp_shard_update",
+                     "batch_size", "micro_batch_size", "num_microbatches",
+                     "pipe_schedule", "strategy")
+
+
+def plan_auto_line(shared4, rewrite):
+    """Phase 25b's line from the ranks' --plan auto cells (each rank's
+    config held to ``rewrite``, phase 17b's solve): emits plan_auto_train
+    and returns the B1-B6 launches of every rank's steps (none where the
+    plan ran in one process)."""
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    cells = [r.get("plan_auto") for r in shared4]
+    runs = [c for c in cells if c and "launches" in c]
+    if not runs:
+        return launches
+    checks = {}
+    for r, c in zip(shared4, cells):
+        if not (c and "launches" in c):
+            continue
+        who = f"rank{r['rank']}"
+        checks[f"c_launches_{who}"] = (c["plain_launches"] == 0 and (
+            c["launches_expected"] is None
+            or c["launches"] == c["launches_expected"]))
+        checks[f"c_same_plan_{who}"] = c["config"] == {
+            k: v for k, v in rewrite.items() if k in PLAN_REWRITE_KEYS}
+        checks[f"c_finite_{who}"] = all(math.isfinite(v)
+                                        for v in c["losses"])
+        for n in SHARD_COUNTERS:
+            launches[n] += c["launches"][n]
+    checks["c_same_losses"] = all(c["losses"] == runs[0]["losses"]
+                                  for c in runs)
+    emit({"phase": "plan_auto_train", "model": PIPE_TOKEN[0],
+          "shared_card": True, "card": card_line(), "dtype": "bfloat16",
+          "ranks": runs[0]["ranks"], "config": runs[0]["config"],
+          "rank0": {k: v for k, v in runs[0].items() if k != "config"},
+          "launches": {f"rank{i}": c["launches"]
+                       for i, c in enumerate(cells) if c and "launches" in c},
+          "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"plan auto checks failed: {failed}")
+    return launches
+
+
 PACKED_ARCHS = ("inception", "nasnet")
 PACKED_BENCH = "cifar10"
 
@@ -6650,8 +7077,9 @@ def fsdp_image_f64(torch, comm):
 
 def sharded_shared_rank(comm4):
     """A rank of the world-4 shared-card run: 3-D tpp on all four ranks
-    (phase 26), then on the subgroup of ranks 0-1 (world 2; ranks 2-3
-    are done) the sp, ep and fsdp token cells, fsdp's float64 resnet50
+    (phase 26), the --plan auto winner on the ranks it spawns (25b: the
+    plan solved on rank 0 and broadcast to all four), then on the
+    subgroup of ranks 0-1 (world 2; ranks 2-3 are done) the sp, ep and fsdp token cells, fsdp's float64 resnet50
     step (with phase 27's remat rows), sp's (b), tpp's and tp's cells and
     tp's float64 image step (phases 23-24), the hybrid (25), the remat
     token rows (27) and moe_fsdp (28), all in one spawn: a spawn's
@@ -6667,6 +7095,7 @@ def sharded_shared_rank(comm4):
     t0 = time.perf_counter()
     out["tpp3d"] = tpp3d_cell(torch, comm4, comm)
     out["tpp3d_s"] = time.perf_counter() - t0
+    out["plan_auto"] = plan_auto_cell(torch, comm, comm4)
     if comm is None:
         return out
     for strategy, model in (("sp", SHARD_TOKEN), ("ep", SHARD_MOE),
@@ -6714,12 +7143,14 @@ def shard_expected(strategy, rank, dtype):
             **{n: steps for n in FX_KERNELS}}
 
 
-def phase_sharded(torch):
+def phase_sharded(torch, plan_rewrite):
     """Phases 19-21 and 23-28 (module docstring): the world-4 shared-card
     ranks (3-D tpp on all four, the world-2 cells on ranks 0-1, sp's (b)
     among them), then sp at NCCL world 1 in this process. Emits
     sp_train, ep_train, fsdp_train, tpp_train, tp_train, hybrid_train,
-    tpp3d_train, remat_train and moe_fsdp, and returns the B1-B6
+    tpp3d_train, plan_auto_train (its ranks held to ``plan_rewrite``,
+    phase 17b's --plan auto solve), remat_train and moe_fsdp, and returns
+    the B1-B6
     launches of every rank's main-path steps."""
     from ddlbench_tpu_torch import distributed
 
@@ -6795,7 +7226,8 @@ def phase_sharded(torch):
         launches[name] += n
     for name, n in hybrid_line(shared).items():
         launches[name] += n
-    for lines in (tpp3d_line(shared4), remat_line(shared),
+    for lines in (tpp3d_line(shared4), plan_auto_line(shared4, plan_rewrite),
+                  remat_line(shared),
                   moe_line([r["moe_fsdp"] for r in shared], "fsdp")):
         for name, n in lines.items():
             launches[name] += n
@@ -7998,10 +8430,13 @@ def main() -> int:
         train_launches[name] += n
     for name, n in phase_pipe_train(torch, fa, fx, dev).items():
         train_launches[name] += n
+    plan_launches, plan_rewrite = phase_plan_train(torch, fa, fx, dev)
+    for name, n in plan_launches.items():
+        train_launches[name] += n
     phase_pipe_image(torch, dev)
     for name, n in phase_serve_tp(torch, pd, dev).items():
         launches[name] += n
-    for name, n in phase_sharded(torch).items():
+    for name, n in phase_sharded(torch, plan_rewrite).items():
         train_launches[name] += n
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
 

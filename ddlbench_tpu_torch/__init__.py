@@ -7,6 +7,8 @@ the token-training path (data/synthetic, parallel/{common,single,api},
 tools/{lmbench,timing}), KV-cached greedy and beam decoding
 (models/decode, tools/{decodebench,mtacc}) and image training
 (models/{resnet,vgg,mobilenetv2}, train/{loop,metrics}, cli, tools/bench),
+the parallel strategies (parallel/), and profile -> partition -> plan
+(graph, profiler, partition/{optimizer,native,planner}, tools/graphtool),
 with hand-written
 Hopper kernels for the paged attention, the flash attention (forward, dQ,
 dK/dV) and the fused LM head that the reference runs as Pallas TPU

@@ -72,9 +72,28 @@ and seq2seq benchmarks, fill-drain, ``-g`` = stages x N) runs tpp: one
 process a tensor-parallel shard, each walking every stage, the
 transformer blocks Megatron-sliced (parallel/tpp.py; the unfused CE
 head); with ``--dp-replicas R`` as well (``-g`` = R x stages x N) 3-D
-tpp, one process a shard of a replica. ``--pipe-costs profile`` and
-``--schedule-trace`` are the reference's flags with its defaults; away
-from them the run is refused, naming the ROADMAP item (A.8).
+tpp, one process a shard of a replica. ``--schedule-trace`` is the
+reference's flag with its default; away from it the run is refused,
+naming the ROADMAP item (A.8).
+
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f gpipe \
+        -g 4 -e 1 --steps-per-epoch 20 --auto-partition \
+        --pipe-schedule 1f1b --pipe-costs profile
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s -f gpipe \
+        -g 4 -e 1 --steps-per-epoch 20 --plan auto
+
+``--auto-partition`` profiles the model (``--profile-mode flops``:
+FLOPs over the card's peak, or ``time``: timed on the card) and runs the
+hierarchical partitioner's plan ("auto-partition: executing plan ...";
+a uniform plan's replicas are ranks of the hybrid, an uneven plan runs
+the hetero strategies in one process), with ``--pipe-costs profile``
+on a timetable weighted by the plan's per-chunk costs. ``--plan auto``
+(-f gpipe, the mix flags unset) solves the dp/pp/tp mix, split and
+schedule under ``--hbm-gb`` per card and runs the winner ("plan auto:
+executing pp=..."). Both are solved here, once, before any rank starts.
+``--log-activations-dir D`` writes the first ``--log-activations-steps``
+steps' activations and gradients every ``--log-activations-freq``
+epochs (single, dp, sp).
 
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 25, seed 1, bfloat16) and the knobs the loop reads (``-e -p
@@ -98,7 +117,8 @@ import argparse
 import json
 import sys
 
-from ddlbench_tpu_torch.config import ATTENTION_BACKENDS, DATASETS, RunConfig
+from ddlbench_tpu_torch.config import (ATTENTION_BACKENDS, DATASETS,
+                                      HardwareModel, RunConfig)
 from ddlbench_tpu_torch.models.zoo import MODEL_NAMES
 from ddlbench_tpu_torch.partition.schedule import PIPE_SCHEDULES
 
@@ -107,15 +127,13 @@ STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
 
 # the reference's flags the port does not carry
 NOT_PORTED_FLAGS = (
-    ("--auto-partition",), ("--plan",), ("--hbm-gb",),
-    ("--profile-mode",), ("--trace-dir",), ("--xla-trace-steps",),
+    ("--trace-dir",), ("--xla-trace-steps",),
     ("--trace",), ("--trace-capacity",), ("--audit",), ("--checkpoint-dir",),
     ("--resume",), ("--checkpoint-every-steps",), ("--keep-checkpoints",),
     ("--elastic-resume",), ("--elastic-slices",), ("--inject",),
     ("--anomaly-policy",), ("--anomaly-budget",), ("--loss-scale",),
     ("--grad-spike-factor",), ("--nan-policy",), ("--hang-timeout-s",),
-    ("--log-activations-dir",), ("--log-activations-freq",),
-    ("--log-activations-steps",), ("--platform",),
+    ("--platform",),
 )
 
 
@@ -177,7 +195,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sched-search-seed", type=int, default=0,
                    help="searched schedule's rng seed")
     p.add_argument("--pipe-costs", default="unit", choices=("unit", "profile"),
-                   help="timetable cost model (profile: ROADMAP A.8)")
+                   help="timetable cost model of the event schedules: "
+                        "unit = F=B=W half-ticks; profile = per-chunk "
+                        "F/B/W cost vectors summed from the "
+                        "--auto-partition profile over the chosen bounds")
     p.add_argument("--schedule-trace", default=None, metavar="PATH",
                    help="measured-bubble advice (ROADMAP A.8)")
     p.add_argument("--dp-replicas", type=int, default=1,
@@ -194,6 +215,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plan-bounds", default=None, metavar="0,K,...,L",
                    help="explicit per-chunk layer bounds of a pipeline "
                         "(stages x virtual-stages + 1 ints from 0)")
+    p.add_argument("--auto-partition", action="store_true",
+                   help="profile + hierarchical partitioner choose stage "
+                        "bounds and replication (gpipe, pipedream)")
+    p.add_argument("--plan", default="manual", choices=("manual", "auto"),
+                   help="auto = solve the dp/pp/tp mix + stage split + "
+                        "schedule from the profile under the per-card "
+                        "memory cap and run the winner; pass -f gpipe and "
+                        "leave the mix flags unset")
+    p.add_argument("--hbm-gb", type=float, default=None, metavar="G",
+                   help="per-card memory budget in GiB for the planner / "
+                        "auto-partition feasibility gates (default: the "
+                        "HardwareModel's 80 GB H100 figure)")
+    p.add_argument("--profile-mode", default="flops",
+                   choices=("flops", "time"))
+    p.add_argument("--log-activations-dir", default=None,
+                   help="write per-layer activations and their loss "
+                        "gradients as npz files here")
+    p.add_argument("--log-activations-freq", type=int, default=1,
+                   help="log every N epochs")
+    p.add_argument("--log-activations-steps", type=int, default=1,
+                   help="log the first N steps of a logged epoch")
     p.add_argument("--steps-per-epoch", type=int, default=None)
     p.add_argument("--grad-accum-steps", type=int, default=1,
                    help="micro-steps of --batch-size rows per update")
@@ -287,12 +329,21 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
                            if args.stage_replication else None),
         update_interval=args.update_interval,
         plan_bounds=(tuple(int(b) for b in args.plan_bounds.split(","))
-                     if args.plan_bounds else None))
+                     if args.plan_bounds else None),
+        auto_partition=args.auto_partition, plan=args.plan,
+        profile_mode=args.profile_mode,
+        hardware=(HardwareModel(hbm_bytes=args.hbm_gb * 1024**3)
+                  if args.hbm_gb is not None else HardwareModel()),
+        activation_log_dir=args.log_activations_dir,
+        activation_log_freq=args.log_activations_freq,
+        activation_log_steps=args.log_activations_steps)
 
 
-def _train_rank(comm, cfg: RunConfig, jsonl: str, device=None) -> dict:
+def _train_rank(comm, cfg: RunConfig, jsonl: str, device=None,
+                partition=None) -> dict:
     """The run of :func:`main` on ``device``, or on rank ``comm`` (a
-    spawned process): its strategy, the loop, its summary (rank 0's is
+    spawned process): its strategy (at the auto-partition plan
+    ``partition`` when given), the loop, its summary (rank 0's is
     printed)."""
     from ddlbench_tpu_torch.parallel.api import make_strategy
     from ddlbench_tpu_torch.train.loop import run_benchmark
@@ -303,7 +354,8 @@ def _train_rank(comm, cfg: RunConfig, jsonl: str, device=None) -> dict:
     logger = MetricLogger(cfg.epochs, cfg.log_interval, jsonl_path=jsonl,
                           device=device, rank=comm.rank if comm else 0)
     try:
-        return run_benchmark(cfg, make_strategy(cfg, device, comm), logger)
+        return run_benchmark(cfg, make_strategy(cfg, device, comm,
+                                                partition=partition), logger)
     finally:
         logger.close()
 
@@ -315,26 +367,35 @@ def main(argv=None) -> int:
 
     from ddlbench_tpu_torch import distributed
     from ddlbench_tpu_torch.device import resolve_device
+    from ddlbench_tpu_torch.train.loop import prepare_run
 
-    ranks = cfg.spawned_ranks()
-    # a hybrid pipeline's replica holds its stages' cards
-    # (distributed.hybrid_stage_devices), a tpp rank its stages' of one
-    # shard (tp_stage_devices, tpp3d_stage_devices): its group on the
-    # first
-    pipe = ranks and cfg.strategy in ("gpipe", "pipedream")
-    stride = cfg.resolved_stages() if pipe else 1
-    tp = cfg.tp_size if pipe else 1
-    if ranks:
-        distributed.check_world(args.device or "cuda", ranks, stride=stride,
-                                tp=tp)
+    def world(cfg):
+        # a hybrid pipeline's replica holds its stages' cards
+        # (distributed.hybrid_stage_devices), a tpp rank its stages' of
+        # one shard (tp_stage_devices, tpp3d_stage_devices): its group on
+        # the first
+        ranks = cfg.spawned_ranks()
+        pipe = ranks and cfg.strategy in ("gpipe", "pipedream")
+        stride = cfg.resolved_stages() if pipe else 1
+        tp = cfg.tp_size if pipe else 1
+        if ranks:
+            distributed.check_world(args.device or "cuda", ranks,
+                                    stride=stride, tp=tp)
+        return ranks, stride, tp
+
+    world(cfg)
     device = resolve_device(args.device)
     print("run manifest: " + json.dumps(vars(args)), flush=True)
+    # --plan auto and --auto-partition decide how many ranks run: solved
+    # here, once, and handed to every rank
+    cfg, partition = prepare_run(cfg, device)
+    ranks, stride, tp = world(cfg)
     if ranks:
         result = distributed.spawn(_train_rank, ranks, device.type,
-                                   args=(cfg, args.jsonl), stride=stride,
-                                   tp=tp)[0]
+                                   args=(cfg, args.jsonl, None, partition),
+                                   stride=stride, tp=tp)[0]
     else:
-        result = _train_rank(None, cfg, args.jsonl, device)
+        result = _train_rank(None, cfg, args.jsonl, device, partition)
     print("result: " + json.dumps(result), flush=True)
     return 0
 

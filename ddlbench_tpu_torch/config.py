@@ -19,7 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping, Optional, Tuple
 
-from ddlbench_tpu_torch.partition.schedule import PIPE_SCHEDULES
+from ddlbench_tpu_torch.partition.schedule import (PIPE_SCHEDULES,
+                                                   normalize_costs)
 
 
 # the stream kinds beside "image": token streams (next-token LM) and
@@ -135,22 +136,16 @@ _WIRE_DTYPES = {"f32": "float32", "float32": "float32",
 # pipeline knob of the reference the port keeps for schema parity but does
 # not implement yet
 _PIPE_NOT_PORTED = (
-    ("pipe_costs", "unit", "cost-weighted timetables (pipe_costs)",
-     "A.8: the costs come from the auto-partition profile"),
-    ("pipe_cost_vectors", None,
-     "cost-weighted timetables (pipe_cost_vectors)",
-     "A.8: the costs come from the auto-partition profile"),
     ("schedule_trace", None,
      "measured-bubble schedule advice (schedule_trace)",
-     "A.8: it feeds the auto-partition advisor"),
+     "A.8, traces group: it reads an earlier run's --trace JSON through "
+     "telemetry/bubble.py"),
 )
 
 
 # (field, default, what it is) for every RunConfig knob of the reference's
 # training loop the port keeps for schema parity but does not implement
 _TRAIN_NOT_PORTED = (
-    ("plan", "manual", "the --plan auto solver"),
-    ("auto_partition", False, "auto-partition"),
     ("trace", None, "step-level tracing"),
     ("trace_dir", None, "profiler trace capture"),
     ("audit", None, "the compiled-program audit"),
@@ -159,7 +154,6 @@ _TRAIN_NOT_PORTED = (
     ("checkpoint_every_steps", None, "step-granular checkpoints"),
     ("hang_timeout_s", None, "the hang watchdog"),
     ("inject", (), "fault injection and preemption"),
-    ("activation_log_dir", None, "activation logging"),
     ("elastic_slices", None,
      "the elastic world-invariant reduction (it needs train/reshard.py "
      "and checkpoints)"),
@@ -347,6 +341,41 @@ class ServeConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HardwareModel:
+    """Bandwidth/memory constants feeding the partitioner's and the
+    planner's cost models (partition/optimizer.py, partition/planner.py),
+    under the reference's field names so a test can pass its values by
+    name.
+
+    The defaults are datasheet values of one NVIDIA H100 SXM5 80GB
+    (700 W), not measurements:
+
+    * ``ici_bandwidth``: NVLink 4, 900 GB/s bidirectional per GPU, so
+      450 GB/s each way (the level inside one host, the reference's ICI);
+    * ``dcn_bandwidth``: the node's network, one 400 Gb/s NDR InfiniBand
+      port per GPU as in a DGX H100 (50 GB/s; the level across hosts);
+    * ``hbm_bytes``: 80 GB of HBM3;
+    * ``peak_flops``: dense bfloat16 tensor-core peak, 989 TFLOP/s;
+    * ``hbm_bandwidth``: 3.35 TB/s.
+    """
+
+    ici_bandwidth: float = 4.5e11
+    dcn_bandwidth: float = 5.0e10
+    hbm_bytes: float = 80e9
+    peak_flops: float = 9.89e14
+    hbm_bandwidth: float = 3.35e12
+
+    def levels(self, num_hosts: int, chips_per_host: int):
+        """Hierarchical (bandwidth, machines-per-group) levels, fastest
+        first: NVLink inside a host, then the network across hosts (the
+        reference's ICI then DCN)."""
+        levels = [(self.ici_bandwidth, chips_per_host)]
+        if num_hosts > 1:
+            levels.append((self.dcn_bandwidth, num_hosts))
+        return levels
+
+
+@dataclasses.dataclass(frozen=True)
 class RunConfig:
     """One training run = dataset x strategy x model, with the fields the
     port's training loop reads (the reference's names and defaults).
@@ -366,6 +395,9 @@ class RunConfig:
     # ranks of a dp run, stages of a pipeline (the reference's chips: gpus
     # x nodes)
     num_devices: int = 1
+    # hosts the devices span (the partitioner's second level); > 1 is the
+    # multi-node launch, which validate() refuses
+    num_hosts: int = 1
     # the training protocol (the reference's EPOCHS=3, LOGINTER=25)
     epochs: int = 3
     log_interval: int = 25
@@ -423,9 +455,11 @@ class RunConfig:
     # rows and optimizer state stay 1/dp a rank: hybrid PP x ZeRO-1);
     # stage_replication: replicas per stage, uniform (the hybrid at
     # micro_batch_size // r) or uneven (parallel/hetero.py). tp_size > 1
-    # is tpp (parallel/tpp.py). pipe_costs, pipe_cost_vectors and
-    # schedule_trace are the reference's too; validate() refuses them
-    # away from their defaults
+    # is tpp (parallel/tpp.py). pipe_costs "profile": the event
+    # schedules' timetables weighted by per-chunk cost vectors
+    # (pipe_cost_vectors, half-ticks) that auto-partition sums from its
+    # profile over the chosen bounds. schedule_trace is the reference's
+    # too; validate() refuses it away from its default
     num_stages: Optional[int] = None
     dp_replicas: int = 1
     stage_replication: Optional[Tuple[int, ...]] = None
@@ -483,10 +517,27 @@ class RunConfig:
     # the stability guard (not ported; validate() refuses both)
     anomaly_policy: Optional[str] = None
     loss_scale: Optional[Any] = None
+    # profile -> partition -> plan (profiler/profile.py,
+    # partition/optimizer.py, partition/planner.py): auto_partition
+    # profiles the model and runs the hierarchical partitioner's stage
+    # bounds and replication (gpipe, pipedream); profile_mode "flops"
+    # counts each layer's FLOPs over hardware.peak_flops, "time" times it
+    # on the device; plan "auto" solves the dp/pp/tp mix, the split and
+    # the schedule and rewrites this config onto the winner
+    # (planner.resolve_auto_plan)
+    auto_partition: bool = False
+    profile_mode: str = "flops"
+    plan: str = "manual"
+    hardware: HardwareModel = dataclasses.field(
+        default_factory=HardwareModel)
+    # activation/gradient logging (profiler/actlog.py): every
+    # activation_log_freq epochs the first activation_log_steps steps'
+    # per-layer activations and loss gradients as npz files here
+    activation_log_dir: Optional[str] = None
+    activation_log_freq: int = 1
+    activation_log_steps: int = 1
     # knobs of the reference's training loop the port does not implement
     # yet: validate() raises NotImplementedError when one leaves its default
-    plan: str = "manual"
-    auto_partition: bool = False
     trace: Optional[str] = None
     trace_dir: Optional[str] = None
     audit: Optional[str] = None
@@ -495,11 +546,13 @@ class RunConfig:
     checkpoint_every_steps: Optional[int] = None
     hang_timeout_s: Optional[float] = None
     inject: Tuple[str, ...] = ()
-    activation_log_dir: Optional[str] = None
     elastic_slices: Optional[int] = None
 
     def dataset(self) -> DatasetSpec:
         return DATASETS[self.benchmark]
+
+    def replace(self, **kw: Any) -> "RunConfig":
+        return dataclasses.replace(self, **kw)
 
     def resolved_optimizer(self) -> str:
         if self.optimizer is not None:
@@ -660,6 +713,17 @@ class RunConfig:
             raise ValueError("num_devices must be >= 1")
         if self.warmup_epochs < 0:
             raise ValueError("warmup_epochs must be >= 0")
+        if self.num_hosts != 1:
+            raise NotImplementedError(
+                f"num_hosts={self.num_hosts}: the multi-node launch is not "
+                "ported to the PyTorch training path yet (ROADMAP A.8); "
+                "the partitioner's two-level DP is "
+                "(partition/optimizer.partition_hierarchical)")
+        if self.profile_mode not in ("flops", "time"):
+            raise ValueError(f"unknown profile mode {self.profile_mode!r}")
+        if self.activation_log_freq < 1 or self.activation_log_steps < 1:
+            raise ValueError(
+                "activation_log_freq and activation_log_steps must be >= 1")
         self._validate_dp()
         self._validate_sharded()
         for name, default, what in _TRAIN_NOT_PORTED:
@@ -826,11 +890,16 @@ class RunConfig:
             raise ValueError(
                 "grad_accum_steps > 1 is supported on single/dp/tp/fsdp "
                 "(pipeline strategies already micro-batch)")
+        self._validate_plan()
         if self.plan_bounds is not None:
             if self.strategy not in PIPELINE_STRATEGIES:
                 raise ValueError(
                     "plan_bounds (explicit stage bounds) applies to the "
                     "pipeline strategies")
+            if self.auto_partition:
+                raise ValueError(
+                    "--auto-partition solves the stage bounds; "
+                    "--plan-bounds pins them — pick one")
             pb = tuple(int(x) for x in self.plan_bounds)
             chunks_n = self.resolved_stages() * max(1, self.virtual_stages)
             if len(pb) != chunks_n + 1:
@@ -851,6 +920,79 @@ class RunConfig:
                 raise ValueError(
                     f"interleaved schedule needs num_microbatches ({chunks}) "
                     f"divisible by stages ({s})")
+        self._validate_costs()
+
+    def _validate_plan(self) -> None:
+        """The reference's --plan gates, worded as it words them."""
+        if self.plan not in ("manual", "auto"):
+            raise ValueError(
+                f"unknown plan mode {self.plan!r} (choose manual or auto)")
+        if self.plan != "auto":
+            return
+        if self.strategy != "gpipe":
+            raise ValueError(
+                "--plan auto solves the dp/pp/tp mix from the gpipe "
+                "batch grammar (micro-batch x microbatches = the "
+                "global batch the plan preserves); pass -f gpipe — "
+                "the winner may rewrite the strategy to dp/tp/single")
+        if self.auto_partition:
+            raise ValueError(
+                "--plan auto supersedes --auto-partition (it solves "
+                "the stage split AND the mix); drop one")
+        owned = (
+            ("--stages", self.num_stages, None),
+            ("--dp-replicas", self.dp_replicas, 1),
+            ("--tp-size", self.tp_size, 1),
+            ("--stage-replication", self.stage_replication, None),
+            ("--virtual-stages", self.virtual_stages, 1),
+            ("--pipe-schedule", self.pipe_schedule, "fill-drain"),
+            ("--pipe-costs", self.pipe_costs, "unit"),
+            ("pipe_cost_vectors", self.pipe_cost_vectors, None),
+            ("--plan-bounds", self.plan_bounds, None),
+            ("--dp-shard-update", self.dp_shard_update, False),
+            ("--update-interval", self.update_interval, 1),
+        )
+        clash = [name for name, val, dflt in owned if val != dflt]
+        if clash:
+            raise ValueError(
+                f"--plan auto owns the parallelism mix; leave "
+                f"{', '.join(clash)} unset (the planner chooses them)")
+
+    def _validate_costs(self) -> None:
+        """The reference's cost-weighted timetable gates."""
+        if self.pipe_costs not in ("unit", "profile"):
+            raise ValueError(
+                f"unknown pipe_costs {self.pipe_costs!r} (choose unit or "
+                f"profile)")
+        if self.pipe_costs == "profile":
+            if self.strategy != "gpipe":
+                raise ValueError(
+                    "pipe_costs='profile' (cost-weighted timetables) "
+                    "applies to -f gpipe's schedule runtime")
+            if not self.auto_partition:
+                raise ValueError(
+                    "pipe_costs='profile' needs --auto-partition (the "
+                    "profile graph is where the per-chunk costs come from)")
+            if self.pipe_schedule == "fill-drain":
+                raise ValueError(
+                    "pipe_costs='profile' needs an event schedule "
+                    "(--pipe-schedule 1f1b/interleaved/zero-bubble/"
+                    "zero-bubble-h2/searched); the fill-drain autodiff "
+                    "scan executes the unit timetable by construction")
+        if self.pipe_cost_vectors is not None:
+            if self.strategy != "gpipe":
+                raise ValueError(
+                    "pipe_cost_vectors applies to -f gpipe's schedule "
+                    "runtime")
+            if self.pipe_schedule == "fill-drain":
+                raise ValueError(
+                    "cost-weighted timetables execute on the EVENT "
+                    "schedules (1f1b/interleaved/zero-bubble/"
+                    "zero-bubble-h2/searched); the fill-drain autodiff "
+                    "scan is lockstep by construction")
+            normalize_costs(  # raises on malformed vectors
+                self.pipe_cost_vectors,
+                self.resolved_stages() * self.virtual_stages)
 
     def _validate_sharded(self) -> None:
         """The reference's sp and ep gates, worded as it words them."""

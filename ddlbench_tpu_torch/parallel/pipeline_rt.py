@@ -6,7 +6,10 @@ searched`` on -f gpipe.
 The reference scans the timetable's half-ticks in one SPMD program; the
 port walks the same table's events (partition/schedule.py
 ``Timetable.event_times``) in order of their start half-tick, on the
-chunks' devices (parallel/gpipe.py). Three events:
+chunks' devices (parallel/gpipe.py). The table is built at
+``cfg.pipe_cost_vectors``, the per-chunk (f, b, w) half-tick costs that
+--auto-partition with ``pipe_costs="profile"`` sums from its profile
+(unit costs when None). Three events:
 
 * F(c, m): chunk c's forward of microbatch m, its input stashed, its
   output shipped to chunk c+1 (the last chunk adds its CE and count to
@@ -94,6 +97,7 @@ class ScheduledPipelineStrategy(GPipeStrategy):
     def _timetable(self) -> Timetable:
         return make_timetable(self.schedule, self.num_stages,
                               self.num_microbatches, self.vstages,
+                              costs=self.cfg.pipe_cost_vectors,
                               stash=self.cfg.zb_h2_stash,
                               search_budget=self.cfg.sched_search_budget,
                               search_seed=self.cfg.sched_search_seed)

@@ -35,9 +35,16 @@ Batches come through the prefetcher (data/prefetch.py), ``prefetch_depth``
 ahead of the step on a producer thread (0: inline). The input stall is
 the time the loop waited for a batch; per step the loop records the wall
 time of its body, the wait excluded, for the p50/p95 fields (between
-syncs, the host's dispatch time, as in the reference). Plans,
-auto-partition, tracing, checkpoints, the watchdog, the guard and
-preemption are not ported: RunConfig.validate refuses their knobs.
+syncs, the host's dispatch time, as in the reference).
+
+``--plan auto`` and ``--auto-partition`` are resolved before the data
+stream is built (:func:`prepare_run`); on on-disk data the loader's
+fetch cost is measured on a throwaway source and priced into the plan
+(per microbatch), the plan's probe only where it is solved. With
+``activation_log_dir`` the loop logs the first steps' activations and
+gradients (profiler/actlog.py) under single, dp and sp, before the step.
+Tracing, checkpoints, the watchdog, the guard and preemption are not
+ported: RunConfig.validate refuses their knobs.
 """
 
 from __future__ import annotations
@@ -48,11 +55,12 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
-from ddlbench_tpu_torch.config import RunConfig
+from ddlbench_tpu_torch.config import PIPELINE_STRATEGIES, RunConfig
 from ddlbench_tpu_torch.data.prefetch import Prefetcher
 from ddlbench_tpu_torch.data.synthetic import make_synthetic
 from ddlbench_tpu_torch.device import resolve_device
-from ddlbench_tpu_torch.parallel.api import make_strategy
+from ddlbench_tpu_torch.parallel.api import (AutoPartition, auto_partition,
+                                             make_strategy)
 from ddlbench_tpu_torch.parallel.common import (gradual_warmup_lr,
                                                 step_decay_lr)
 from ddlbench_tpu_torch.parallel.dp import DPStrategy
@@ -146,6 +154,70 @@ def make_data(cfg: RunConfig, device: torch.device, verbose: bool = True):
                       augment=cfg.augment)
 
 
+def _probe_input_ms(cfg: RunConfig, device: torch.device,
+                    what: str) -> float:
+    """The on-disk loader's fetch cost per microbatch, measured on a
+    throwaway source (so the run's stream stays unconsumed) and scaled
+    from the global batch to the profile's microbatch units."""
+    from ddlbench_tpu_torch.profiler.profile import measure_input_ms
+
+    probe = make_data(cfg, device, verbose=False)
+    try:
+        global_ms = measure_input_ms(probe)
+    finally:
+        getattr(probe, "close", lambda: None)()
+    mb, _ = cfg.resolved_batches()
+    ms = global_ms * mb / cfg.global_batch()
+    print(f"{what}: measured input cost {global_ms:.2f} ms/global-batch "
+          f"({ms:.3f} ms/microbatch)", flush=True)
+    return ms
+
+
+def prepare_run(cfg: RunConfig, device: torch.device
+                ) -> Tuple[RunConfig, Optional[AutoPartition]]:
+    """Resolve ``--plan auto`` (partition/planner.py) and
+    ``--auto-partition`` (parallel/api.auto_partition) once, in this
+    process, before any rank starts: returns the config the run executes
+    and the auto-partition plan (None without one). The rewritten mix
+    decides how many ranks run, and every rank gets the same plan."""
+    if cfg.plan == "auto":
+        from ddlbench_tpu_torch.partition.planner import resolve_auto_plan
+
+        cfg = resolve_auto_plan(
+            cfg, input_time_ms=0.0 if cfg.synthetic else (
+                lambda: _probe_input_ms(cfg, device, "plan auto")),
+            device=device)
+    partition = None
+    if cfg.auto_partition and cfg.strategy in PIPELINE_STRATEGIES:
+        input_ms = (0.0 if cfg.synthetic
+                    else _probe_input_ms(cfg, device, "auto-partition"))
+        partition = auto_partition(cfg, device, input_ms)
+        cfg = partition.cfg
+    return cfg, partition
+
+
+def activation_logger(cfg: RunConfig, strategy: Strategy, rank: int):
+    """profiler/actlog.py's logger for ``cfg.activation_log_dir`` under a
+    strategy that holds the whole model (single, dp, sp), else None (rank
+    0 says the others are skipped). Every rank gets one (dp's overlapped
+    engine gathers its parameters with a collective); rank 0 writes."""
+    if not cfg.activation_log_dir:
+        return None
+    if cfg.strategy not in ("single", "dp", "sp"):
+        if rank == 0:
+            print("activation logging unsupported for this strategy "
+                  "(packed or absent per-layer params); skipped",
+                  flush=True)
+        return None
+    from ddlbench_tpu_torch.profiler.actlog import ActivationLogger
+
+    return ActivationLogger(
+        cfg.activation_log_dir, strategy.model,
+        getattr(torch, cfg.compute_dtype), cfg.activation_log_freq,
+        cfg.activation_log_steps, moe_aux_weight=cfg.moe_aux_weight,
+        label_smoothing=cfg.resolved_label_smoothing(), write=rank == 0)
+
+
 def _warmup(strategy: Strategy, cfg: RunConfig, data, lr: float,
             steps: int) -> float:
     """Run ``steps`` train steps on the batch (0, 0) of ``data``, or of the
@@ -192,7 +264,7 @@ def evaluate(strategy: Strategy, prefetch: Prefetcher,
 
 def _epoch(cfg: RunConfig, strategy: Strategy, prefetch: Prefetcher,
            logger: MetricLogger, epoch: int, base_lr: float, B: int,
-           warmup_world: int = 1):
+           warmup_world: int = 1, actlog=None):
     """One training epoch and its validation; returns (the steps' body
     seconds, the validation accuracy)."""
     lr = step_decay_lr(base_lr, epoch - 1, cfg.lr_step_epochs,
@@ -204,6 +276,13 @@ def _epoch(cfg: RunConfig, strategy: Strategy, prefetch: Prefetcher,
     with prefetch.stream(epoch, train=True) as stream:
         steps = stream.steps
         for step, (x, y) in enumerate(stream):
+            if actlog is not None and actlog.should_log(epoch, step):
+                materialize = getattr(strategy, "materialize_params", None)
+                if materialize is not None:
+                    materialize()  # dp's sharded parameters, gathered
+                path = actlog.log(epoch, step, x, y)
+                if path:
+                    print(f"activations logged: {path}", flush=True)
             t1 = time.perf_counter()
             step_lr = (gradual_warmup_lr(lr, warmup_world, epoch - 1, step,
                                          steps, cfg.warmup_epochs)
@@ -240,11 +319,14 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[Strategy] = None,
                   device: Optional[str] = None) -> Dict[str, Any]:
     """Run the benchmark protocol for ``cfg`` and return the summary dict
     (MetricLogger.summary). The strategy is built on ``device`` (cuda
-    unless "cpu" is asked for) when none is given; a dp strategy comes
-    built, on its rank (distributed.spawn)."""
+    unless "cpu" is asked for) when none is given, after
+    :func:`prepare_run`; a dp strategy comes built, on its rank
+    (distributed.spawn), with the config it was built for."""
     cfg.validate()
     if strategy is None:
-        strategy = make_strategy(cfg, resolve_device(device))
+        dev = resolve_device(device)
+        cfg, partition = prepare_run(cfg, dev)
+        strategy = make_strategy(cfg, dev, partition=partition)
     dev = _device_of(strategy)
     rank = _rank(strategy)
     B = cfg.global_batch()
@@ -255,6 +337,7 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[Strategy] = None,
     if rank == 0:
         print(comm_line(comm_stats(strategy)), flush=True)
     data = make_data(cfg, dev, verbose=rank == 0)
+    actlog = activation_logger(cfg, strategy, rank)
     try:
         warmup_s = (_warmup(strategy, cfg, data, base_lr, warmup_steps)
                     if warmup_steps > 0 else None)
@@ -262,7 +345,7 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[Strategy] = None,
         all_steps, accuracy = [], 0.0
         for epoch in range(1, cfg.epochs + 1):
             s, accuracy = _epoch(cfg, strategy, prefetch, logger, epoch,
-                                 base_lr, B, warmup_world)
+                                 base_lr, B, warmup_world, actlog)
             all_steps += s
     finally:
         getattr(data, "close", lambda: None)()

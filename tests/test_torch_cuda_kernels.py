@@ -843,3 +843,43 @@ def test_zero_bubble_splits_the_head_kernels_on_the_card(dev):
     assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-4)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=1e-4,
                                atol=1e-6)
+
+
+def test_flops_profile_is_one_graph_with_the_kernels_on_and_off(dev):
+    """profiler/profile.py's flops count runs on the meta device through
+    the plain attention path: transformer_s on the card, whose attention
+    operands the flash kernels take, gives the CPU's graph under every
+    backend."""
+    from ddlbench_tpu_torch.models.transformer import set_attention_backend
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.profiler.profile import profile_model
+
+    model = get_model("transformer_s", "synthtext", seed=0)
+    want = str(profile_model(model, 2, mode="flops"))
+    model = model.to(dev)
+    try:
+        for backend in ("flash", "xla", "auto"):
+            set_attention_backend(backend)
+            assert str(profile_model(model, 2, mode="flops")) == want
+    finally:
+        set_attention_backend("auto")
+
+
+def test_time_profile_runs_the_flash_kernels(dev):
+    """A time profile on the card times every block through the flash
+    kernels (forward, then forward + backward) and leaves the model's
+    parameters as they were."""
+    from ddlbench_tpu_torch.models.zoo import get_model
+    from ddlbench_tpu_torch.profiler.profile import profile_model
+
+    model = get_model("transformer_s", "synthtext", seed=0).to(dev)
+    before = [p.detach().clone() for p in model.parameters()]
+    f0, q0 = fa.flash_fwd.launches, fa.flash_dq.launches
+    g = profile_model(model, 1, mode="time", repeats=2)
+    assert fa.flash_fwd.launches - f0 == 2 * 4 * 8
+    assert fa.flash_dq.launches - q0 == 4 * 8
+    blocks = [n for n in g.nodes.values() if n.node_desc.startswith("block")]
+    assert len(blocks) == 8 and all(
+        n.forward_compute_time > 0 and n.backward_compute_time > 0
+        for n in blocks)
+    assert all(torch.equal(a, b) for a, b in zip(before, model.parameters()))

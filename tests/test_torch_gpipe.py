@@ -165,8 +165,12 @@ def test_plan_bounds_set_the_split_and_name_their_error(capsys):
 # pipelines: tests/test_torch_hybrid.py, test_torch_hetero.py). The
 # A.7b rows were refused until 3-D tpp and remat_layers under fsdp and
 # tp were ported (tests/test_torch_tpp3d.py,
-# test_torch_remat_sharded.py): they now validate
+# test_torch_remat_sharded.py): they now validate. So do the A.8 rows of
+# the cost-weighted timetables since --auto-partition was ported
+# (tests/test_torch_planner.py), given the flags their gates ask for;
+# schedule_trace stays refused (A.8's traces group)
 LIFTED = ("A.7b",)
+LIFTED_KNOBS = ("pipe_costs", "pipe_cost_vectors")
 REFUSED = [
     (dict(tp_size=2, dp_replicas=2, num_devices=8, num_stages=2,
           benchmark="synthtext", arch="transformer_t"), "A.7b"),
@@ -176,8 +180,9 @@ REFUSED = [
           arch="transformer_t"), "A.7b"),
     (dict(strategy="tp", remat_layers=True, benchmark="synthtext",
           arch="transformer_t"), "A.7b"),
-    (dict(pipe_costs="profile"), "A.8"),
-    (dict(pipe_cost_vectors=((1, 1), (1, 1), (1, 1)),
+    (dict(pipe_costs="profile", auto_partition=True,
+          pipe_schedule="1f1b"), "A.8"),
+    (dict(pipe_cost_vectors=((1, 1), (1, 2), (1, 2)),
           pipe_schedule="1f1b"), "A.8"),
     (dict(schedule_trace="t.json"), "A.8"),
 ]
@@ -187,7 +192,7 @@ REFUSED = [
 def test_unported_pipeline_knobs_name_their_item(kw, item):
     base = dict(benchmark="mnist", strategy="gpipe", num_devices=2)
     base.update(kw)
-    if item in LIFTED:
+    if item in LIFTED or set(kw) & set(LIFTED_KNOBS):
         RunConfig(**base).validate()
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -211,10 +216,16 @@ def test_branchy_arches_are_refused_under_a_pipeline(arch):
      "A.7b"),
     (["--tp-size", "2", "--dp-replicas", "4", "-g", "8"], "A.7b"),
     (["--tp-size", "2", "--dp-replicas", "2", "-g", "8"], "A.7b"),
-    (["--pipe-costs", "profile"], "A.8"),
+    (["--pipe-costs", "profile", "--auto-partition", "--pipe-schedule",
+      "1f1b"], "A.8"),
     (["--schedule-trace", "t.json"], "A.8")])
 def test_cli_refuses_unported_pipeline_flags(argv, item):
     argv = ["-f", "gpipe", "-g", "2", "--device", "cpu"] + argv
+    if "--pipe-costs" in argv:  # ported: --auto-partition's cost vectors
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        cfg.validate()
+        assert cfg.pipe_costs == "profile" and cfg.auto_partition
+        return
     if item in LIFTED:  # 3-D tpp on a token benchmark: a rank a shard
         cfg = cli.config_from_args(cli.build_parser().parse_args(
             argv + ["-b", "synthtext", "-m", "transformer_t"]))
