@@ -596,7 +596,27 @@ one JSON line; any failure raises and exits non-zero:
              activation capture under single (train/loop's logger) on the
              card and on the CPU, 2 rows x 128 tokens: equal keys, every
              array within 1e-3 of the CPU array's largest magnitude, B1-B3
-             one launch a block.
+             one launch a block. (e) (b)'s --auto-partition with
+             --checkpoint-dir D, then the same with --resume: the second
+             prints "reusing persisted plan", profiles nothing (no graph)
+             and executes (b)'s bounds and cost vectors.
+17c. ckpt_train — checkpoints and resume (train/checkpoint.py) through
+             train/loop.run_benchmark on transformer_s / synthtext at full
+             width, bf16, single, the fused head, seed 0, 2 epochs of 4
+             steps at the default batch (16 x 1 024): run A
+             uninterrupted; run B the same with --checkpoint-dir,
+             --checkpoint-every-steps 2 and --keep-checkpoints 2; one byte of B's newest
+             checkpoint's state/train_state.pt flipped; run C --resume:
+             latest_valid skips it with the "checksum mismatch" line and
+             resumes mid-epoch from epoch_2_step_1. Checks: B's losses
+             equal A's; C's remaining per-step losses, its validation
+             records and its final train state equal A's bit for bit (no
+             kernel of the path accumulates in a varying order: B1-B6
+             have no atomics); every train step of A, B and C launched
+             B1-B3 8 times and B4-B6 once, every eval step B1 8 times
+             (the head's eval is plain torch), none on the plain path. Prints the saves' and the
+             restore's seconds and the checkpoint's bytes beside the
+             nvidia-smi line.
 18. pipe_image — resnet50 / imagenet on four stages of the one card. (a)
              gpipe's step in float64 at mb 2 x M 2 on the card against the
              same step on the CPU: the loss, every gradient leaf and every
@@ -726,6 +746,22 @@ one JSON line; any failure raises and exits non-zero:
              pipe_train's 32 rows: every rank's resolved config equals the
              main process's solve, its launches what its events imply,
              none on the plain path, finite losses equal on the ranks.
+25c. elastic_train — the elastic dp ZeRO-1 engine (parallel/dp.py
+             --elastic-slices 4 --comm-buckets 2, float32, "auto"
+             attention, the fused head) on transformer_s at full width
+             cut to 2 blocks, 4 rows of 1 024 (one a slice), 2 epochs of
+             2 steps, through run_benchmark in the sharded spawn: two
+             epochs uninterrupted and one epoch checkpointed at world 4 on
+             all four ranks, then --resume --elastic-resume at world 2 on
+             ranks 0-1. Checks: the resumed losses, validation records and
+             materialised parameters equal the uninterrupted world-4
+             run's bit for bit; the "resharding checkpoint from world 4 to
+             2" and "lr world-scaling pinned to the launch world (4)"
+             lines; every train step on a rank launched B1-B3 2 times and
+             B4-B6 once a slice it holds, every eval step B1 2 times a
+             slice, none on the plain path; the elastic step's
+             ms beside the non-elastic ZeRO-1 step's at world 4 (the
+             same rows and model; host-staged gloo on one card).
 26. tpp3d_train — 3-D tpp (-g 8 as --dp-replicas 2 x 2 stages x
              --tp-size 2: the reference's ('data', 'stage', 'model')
              mesh), first in the sharded spawn, which runs at world 4 on
@@ -781,9 +817,9 @@ float pools and over int8 pools, the flash and the fused-head kernels; the
 int8 rows' launches are serve_levers (b)'s, the float decode row's serve's
 plus decode (a)'s and moe_decode's; the flash and fused-head rows' are
 train's, moe_train's, lstm_train's, every dp_train rank's, pipe_train's,
-hetero_train's and every sp_train, ep_train, fsdp_train, tpp_train,
-tp_train, hybrid_train, tpp3d_train, remat_train, moe_dp and moe_fsdp
-rank's,
+hetero_train's, plan_train's, ckpt_train's and every sp_train, ep_train,
+fsdp_train, tpp_train, tp_train, hybrid_train, elastic_train,
+tpp3d_train, remat_train, moe_dp and moe_fsdp rank's,
 the flash forward's moe_decode's too; serve_tp's tp-2 runs add to the four
 paged rows), the card's name and power
 limit as nvidia-smi reports them, and, last, the device record.
@@ -6449,6 +6485,36 @@ def plan_actlog(torch, fa, fx, dev):
     return rec, checks, launches
 
 
+def plan_persist(dev):
+    """(e): (b)'s --auto-partition with a checkpoint directory, then the
+    same with --resume: the persisted plan reused, nothing profiled."""
+    import tempfile
+
+    from ddlbench_tpu_torch.parallel.api import auto_partition
+
+    cfg = plan_cfg(auto_partition=True, pipe_schedule="1f1b",
+                   pipe_costs="profile", compute_dtype="bfloat16")
+    with tempfile.TemporaryDirectory(prefix="ddlb_plan_") as tmp:
+        cfg = cfg.replace(checkpoint_dir=tmp)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            first = auto_partition(cfg, dev)
+            mark = len(out.getvalue())
+            again = auto_partition(cfg.replace(resume=True), dev)
+        second = out.getvalue()[mark:]
+    rec = {"first_bounds": first.bounds, "resumed_bounds": again.bounds,
+           "cost_vectors": first.cfg.pipe_cost_vectors,
+           "resumed_lines": [ln for ln in second.splitlines()
+                             if ln.startswith("auto-partition")]}
+    checks = {"e_reused": "reusing persisted plan" in second
+              and "executing plan" not in second,
+              "e_not_profiled": again.graph is None,
+              "e_same_plan": (first.bounds == again.bounds
+                              and first.cfg.pipe_cost_vectors
+                              == again.cfg.pipe_cost_vectors)}
+    return rec, checks
+
+
 def phase_plan_train(torch, fa, fx, dev):
     """Phase 17b (module docstring): profile -> partition -> plan on the
     card. Returns (the B1-B6 launches of its main-path runs: the time
@@ -6488,6 +6554,10 @@ def phase_plan_train(torch, fa, fx, dev):
         rec["run"] = "on the sharded spawn's ranks: plan_auto_train"
     seconds["c_plan_auto"] = time.perf_counter() - t0
     line["c_plan_auto"] = rec
+    t0 = time.perf_counter()
+    line["e_persist"], ch = plan_persist(dev)
+    checks.update(ch)
+    seconds["e_persist"] = time.perf_counter() - t0
     line["checks"] = checks
     line["seconds"] = {**seconds, "total": time.perf_counter() - t_start}
     emit(line)
@@ -6497,6 +6567,330 @@ def phase_plan_train(torch, fa, fx, dev):
     gc.collect()
     torch.cuda.empty_cache()
     return launches, rec["rewrite"]
+
+
+# ---- 17c: checkpoints and resume (ckpt_train) -----------------------------
+CKPT_EPOCHS, CKPT_STEPS, CKPT_EVERY = 2, 4, 2
+CKPT_KEEP = 2  # B keeps epoch_2_step_1 and epoch_2 (~0.5 GB each)
+
+
+def ckpt_cfg(**kw):
+    """ckpt_train's run: transformer_s / synthtext at full width, bf16,
+    single, the fused head, seed 0."""
+    from ddlbench_tpu_torch.config import RunConfig
+
+    return RunConfig(benchmark="synthtext", arch="transformer_s",
+                     compute_dtype="bfloat16", epochs=CKPT_EPOCHS,
+                     steps_per_epoch=CKPT_STEPS, log_interval=1, seed=0,
+                     **kw)
+
+
+def counted_run(torch, fa, fx, strategy, cfg, warmup_steps=1):
+    """run_benchmark of ``cfg`` on ``strategy``, the B1-B6 counters zeroed
+    before and read after, each train and eval step's launches and each
+    train step's loss recorded: (the result, its text, {"train", "eval":
+    per-call launches, "losses"}, the run's launches, its plain attention
+    calls)."""
+    from ddlbench_tpu_torch.train.loop import run_benchmark
+
+    counters, plain0 = pipe_counted(fa, fx)
+    calls = {"train": [], "eval": [], "losses": []}
+
+    def counting(kind, step):
+        def inner(*args):
+            before = {n: c.launches for n, c in counters.items()}
+            m = step(*args)
+            calls[kind].append({n: c.launches - before[n]
+                                for n, c in counters.items()})
+            if kind == "train":
+                calls["losses"].append(float(m["loss"]))
+            return m
+        return inner
+
+    strategy.train_step = counting("train", strategy.train_step)
+    strategy.eval_step = counting("eval", strategy.eval_step)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = run_benchmark(cfg, strategy, warmup_steps=warmup_steps)
+    calls["losses"] = calls["losses"][warmup_steps:]
+    return (result, out.getvalue(), calls,
+            {n: c.launches for n, c in counters.items()},
+            fa.flash_attention.plain_launches - plain0)
+
+
+def launches_as_expected(calls, layers, per_call=1) -> bool:
+    """Every train call launched B1-B3 ``layers`` times and B4-B6 once,
+    every eval call B1 ``layers`` times (the fused head's eval is plain
+    torch in both packages: chunked logits, no kernel), ``per_call``
+    times over (an elastic rank's slices)."""
+    train = {n: per_call * (layers if n in FLASH_KERNELS else 1)
+             for n in PIPE_COUNTERS}
+    evals = {n: per_call * layers if n == "flash_fwd" else 0
+             for n in PIPE_COUNTERS}
+    return (bool(calls["train"]) and bool(calls["eval"])
+            and all(c == train for c in calls["train"])
+            and all(c == evals for c in calls["eval"]))
+
+
+def flip_byte(path: str) -> None:
+    """One byte in the middle of ``path`` inverted in place."""
+    with open(path, "rb+") as f:
+        f.seek(os.path.getsize(path) // 2)
+        b = f.read(1)
+        f.seek(-1, 1)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def ckpt_leaves(strategy):
+    """The strategy's checkpoint tree's leaves (parallel/state.py)."""
+    from ddlbench_tpu_torch.parallel.state import tree_leaves
+
+    return tree_leaves(strategy.checkpoint_state())
+
+
+def phase_ckpt_train(torch, fa, fx, dev):
+    """Phase 17c (module docstring): run A uninterrupted, run B
+    checkpointed, B's newest checkpoint corrupted, run C resumed. Returns
+    the B1-B6 launches of the three runs."""
+    import tempfile
+
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+    from ddlbench_tpu_torch.train.checkpoint import STATE_FILE
+
+    t_start = time.perf_counter()
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="ddlb_ckpt_") as tmp:
+        d = os.path.join(tmp, "ck")
+        for name, cfg in (("A", ckpt_cfg()),
+                          ("B", ckpt_cfg(checkpoint_dir=d,
+                                         checkpoint_every_steps=CKPT_EVERY,
+                                         keep_checkpoints=CKPT_KEEP)),
+                          ("C", ckpt_cfg(checkpoint_dir=d,
+                                         checkpoint_every_steps=CKPT_EVERY,
+                                         keep_checkpoints=CKPT_KEEP,
+                                         resume=True))):
+            if name == "C":
+                state = os.path.join(d, "epoch_2", STATE_FILE)
+                state_bytes = os.path.getsize(state)
+                dir_bytes = sum(os.path.getsize(os.path.join(r, f))
+                                for r, _, fs in os.walk(os.path.join(
+                                    d, "epoch_2")) for f in fs)
+                flip_byte(state)
+            t0 = time.perf_counter()
+            s = make_strategy(cfg, dev)
+            result, text, calls, got, plain = counted_run(
+                torch, fa, fx, s, cfg)
+            runs[name] = {"result": result, "text": text, "calls": calls,
+                          "launches": got, "plain": plain,
+                          "leaves": [t.clone() for t in ckpt_leaves(s)],
+                          "seconds": time.perf_counter() - t0}
+            del s
+            gc.collect()
+            torch.cuda.empty_cache()
+    A, B, C = runs["A"], runs["B"], runs["C"]
+    resumed = [ln for ln in C["text"].splitlines()
+               if ln.startswith(("checkpoint:", "resumed from", "resume:"))]
+    # C resumes after epoch 2's step 1: its steps are A's last two
+    tail = A["calls"]["losses"][CKPT_STEPS + CKPT_EVERY:]
+    diff = max(float((a.float() - c.float()).abs().max())
+               for a, c in zip(A["leaves"], C["leaves"])
+               if a.is_floating_point())
+    checks = {
+        "skipped_corrupt": ("checkpoint: skipping epoch_2: checksum "
+                            "mismatch on state/train_state.pt (corrupt?)"
+                            in C["text"]),
+        "resumed_mid_epoch": "epoch 2 step 1 (mid-epoch)" in C["text"],
+        "b_losses_equal_a": B["calls"]["losses"] == A["calls"]["losses"],
+        "c_losses_bitwise": C["calls"]["losses"] == tail and bool(tail),
+        "c_valid_bitwise": (C["result"]["valid_history"]
+                            == A["result"]["valid_history"]),
+        "c_state_bitwise": (len(A["leaves"]) == len(C["leaves"]) and all(
+            torch.equal(a, c) for a, c in zip(A["leaves"], C["leaves"]))),
+        "launches": all(launches_as_expected(r["calls"], LAYERS)
+                        and r["plain"] == 0 for r in runs.values()),
+    }
+    line = {"phase": "ckpt_train", "model": "transformer_s",
+            "benchmark": "synthtext", "dtype": "bfloat16",
+            "strategy": "single", "epochs": CKPT_EPOCHS,
+            "steps_per_epoch": CKPT_STEPS,
+            "checkpoint_every_steps": CKPT_EVERY,
+            "global_batch": ckpt_cfg().global_batch(), "card": card_line(),
+            "resume_lines": resumed,
+            "a_losses": A["calls"]["losses"], "c_losses": C["calls"]["losses"],
+            "valid": A["result"]["valid_history"],
+            "max_abs_state_diff": diff,
+            "save_s": B["result"]["checkpoint"]["save_s"],
+            "restore_s": C["result"]["checkpoint"]["restore_s"],
+            "state_bytes": state_bytes, "checkpoint_bytes": dir_bytes,
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "plain_launches": {k: r["plain"] for k, r in runs.items()},
+            "run_seconds": {k: r["seconds"] for k, r in runs.items()},
+            "checks": checks, "seconds": time.perf_counter() - t_start}
+    emit(line)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"ckpt_train checks failed: {failed}")
+    total = {n: 0 for n in PIPE_COUNTERS}
+    for r in runs.values():
+        for n in PIPE_COUNTERS:
+            total[n] += r["launches"][n]
+    return total
+
+
+# ---- 25c: the elastic dp engine across world sizes (elastic_train) --------
+ELASTIC_CUT = 2  # transformer_s's blocks kept
+ELASTIC_ARCH = "transformer_s_elastic"
+ELASTIC_SLICES, ELASTIC_ROWS, ELASTIC_STEPS = 4, 4, 2
+
+
+def elastic_cfg(world, **kw):
+    """elastic_train's run at ``world`` ranks: dp ZeRO-1, f32,
+    --elastic-slices 4 --comm-buckets 2, transformer_s cut to
+    ELASTIC_CUT blocks (registered here as ELASTIC_ARCH)."""
+    from ddlbench_tpu_torch.config import RunConfig
+    from ddlbench_tpu_torch.models import transformer
+
+    transformer._VARIANTS.setdefault(ELASTIC_ARCH, dict(
+        transformer._VARIANTS["transformer_s"], n_layers=ELASTIC_CUT))
+    base = dict(benchmark="synthtext", arch=ELASTIC_ARCH, strategy="dp",
+                num_devices=world, dp_shard_update=True,
+                elastic_slices=ELASTIC_SLICES, comm_buckets=2,
+                compute_dtype="float32", batch_size=ELASTIC_ROWS // world,
+                epochs=2, steps_per_epoch=ELASTIC_STEPS, log_interval=1,
+                seed=0, optimizer="sgd")
+    base.update(kw)
+    return RunConfig(**base)
+
+
+def elastic_run(torch, comm, cfg):
+    from ddlbench_tpu_torch.ops import flash_attention as fa
+    from ddlbench_tpu_torch.ops import fused_xent as fx
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    s = make_strategy(cfg, comm.device, comm, shared_card=True)
+    t0 = time.perf_counter()
+    result, text, calls, got, plain = counted_run(torch, fa, fx, s, cfg,
+                                                  warmup_steps=0)
+    # numpy: a rank's result crosses the process boundary by value
+    params = [p.detach().cpu().numpy().copy()
+              for p in s.materialize_params().parameters()]
+    return {"result": result, "text": text, "calls": calls,
+            "launches": got, "plain": plain, "params": params,
+            "seconds": time.perf_counter() - t0}
+
+
+def zero1_step_ms(torch, comm, elastic):
+    """ms a step (after a warm-up one) of the elastic cell's model and
+    rows at this world, with --elastic-slices or plain ZeRO-1."""
+    from ddlbench_tpu_torch.data.synthetic import make_synthetic
+    from ddlbench_tpu_torch.parallel.api import make_strategy
+
+    cfg = elastic_cfg(comm.world) if elastic else elastic_cfg(
+        comm.world, elastic_slices=None)
+    s = make_strategy(cfg, comm.device, comm, shared_card=True)
+    data = make_synthetic(cfg.dataset(), cfg.global_batch(), comm.device,
+                          seed=0)
+    x, y = data.batch(1, 0)
+    s.train_step(x, y, 0.01)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        s.train_step(x, y, 0.01)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / 3
+
+
+def elastic_save_cell(torch, comm4, ckpt_dir):
+    """World 4, every rank: the uninterrupted two epochs, one epoch
+    checkpointed under ``ckpt_dir``, and the elastic and plain ZeRO-1
+    step times."""
+    t0 = time.perf_counter()
+    full = elastic_run(torch, comm4, elastic_cfg(comm4.world))
+    saved = elastic_run(torch, comm4, elastic_cfg(
+        comm4.world, epochs=1, checkpoint_dir=ckpt_dir))
+    out = {"full": {k: v for k, v in full.items() if k != "result"},
+           "valid": full["result"]["valid_history"],
+           "save_s": saved["result"]["checkpoint"]["save_s"],
+           "saved_launches": saved["launches"], "saved_plain": saved["plain"],
+           "saved_calls": saved["calls"],
+           "ms_elastic": zero1_step_ms(torch, comm4, True),
+           "ms_zero1": zero1_step_ms(torch, comm4, False)}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def elastic_resume_cell(torch, comm, ckpt_dir):
+    """World 2 (ranks 0-1): the second epoch resumed from the world-4
+    checkpoint with --elastic-resume."""
+    got = elastic_run(torch, comm, elastic_cfg(
+        comm.world, checkpoint_dir=ckpt_dir, resume=True,
+        elastic_resume=True))
+    got["valid"] = got["result"]["valid_history"]
+    got["restore_s"] = got["result"]["checkpoint"]["restore_s"]
+    del got["result"]
+    return got
+
+
+def elastic_line(shared4):
+    """Phase 25c's line from the ranks' cells; returns the B1-B6 launches
+    of every rank's runs."""
+    launches = {n: 0 for n in SHARD_COUNTERS}
+    saved = [r["elastic_save"] for r in shared4]
+    resumed = [r["elastic_resume"] for r in shared4[:2]]
+    full = saved[0]["full"]
+    checks = {}
+    for i, r in enumerate(resumed):
+        checks[f"losses_bitwise_rank{i}"] = (
+            r["calls"]["losses"] == full["calls"]["losses"][ELASTIC_STEPS:]
+            and bool(r["calls"]["losses"]))
+        checks[f"valid_bitwise_rank{i}"] = r["valid"] == saved[0]["valid"]
+        checks[f"params_bitwise_rank{i}"] = (
+            len(r["params"]) == len(full["params"]) and all(
+                bool((a == b).all()) for a, b in zip(r["params"],
+                                                     full["params"])))
+    text = resumed[0]["text"]
+    checks["reshard_line"] = ("elastic resume: resharding checkpoint from "
+                              "world 4 to 2" in text)
+    checks["lr_pin_line"] = ("elastic resume: lr world-scaling pinned to "
+                             "the launch world (4)" in text)
+    runs = ([(f"w4_rank{i}_full", s["full"]["calls"], s["full"]["plain"], 1)
+             for i, s in enumerate(saved)]
+            + [(f"w4_rank{i}_saved", s["saved_calls"], s["saved_plain"], 1)
+               for i, s in enumerate(saved)]
+            + [(f"w2_rank{i}", r["calls"], r["plain"], 2)
+               for i, r in enumerate(resumed)])
+    for who, calls, plain, per in runs:
+        checks[f"launches_{who}"] = (
+            launches_as_expected(calls, ELASTIC_CUT, per) and plain == 0)
+    for s in saved:
+        for n in SHARD_COUNTERS:
+            launches[n] += s["full"]["launches"][n] + s["saved_launches"][n]
+    for r in resumed:
+        for n in SHARD_COUNTERS:
+            launches[n] += r["launches"][n]
+    emit({"phase": "elastic_train", "model": ["transformer_s",
+                                              f"{ELASTIC_CUT} blocks"],
+          "dtype": "float32", "elastic_slices": ELASTIC_SLICES,
+          "comm_buckets": 2, "global_batch": ELASTIC_ROWS,
+          "shared_card": True, "card": card_line(),
+          "losses_world4": full["calls"]["losses"],
+          "losses_resumed_world2": resumed[0]["calls"]["losses"],
+          "valid": saved[0]["valid"],
+          "resume_lines": [ln for ln in text.splitlines()
+                           if ln.startswith(("elastic resume", "resumed"))],
+          "save_s": saved[0]["save_s"],
+          "restore_s": resumed[0]["restore_s"],
+          "ms_per_step_world4": {"elastic": saved[0]["ms_elastic"],
+                                 "zero1": saved[0]["ms_zero1"]},
+          "launches": {"world4": [s["full"]["launches"] for s in saved],
+                       "world2": [r["launches"] for r in resumed]},
+          "seconds": {"world4_rank0": saved[0]["seconds"],
+                      "world2_rank0": resumed[0]["seconds"]},
+          "checks": checks})
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"elastic_train checks failed: {failed}")
+    return launches
 
 
 def plan_auto_cell(torch, comm2, comm4):
@@ -7075,11 +7469,13 @@ def fsdp_image_f64(torch, comm):
     return rec
 
 
-def sharded_shared_rank(comm4):
+def sharded_shared_rank(comm4, ckpt_dir):
     """A rank of the world-4 shared-card run: 3-D tpp on all four ranks
     (phase 26), the --plan auto winner on the ranks it spawns (25b: the
-    plan solved on rank 0 and broadcast to all four), then on the
-    subgroup of ranks 0-1 (world 2; ranks 2-3 are done) the sp, ep and fsdp token cells, fsdp's float64 resnet50
+    plan solved on rank 0 and broadcast to all four), elastic_train's
+    world-4 runs (25c, checkpointed under ``ckpt_dir``), then on the
+    subgroup of ranks 0-1 (world 2; ranks 2-3 are done) elastic_train's
+    resume, the sp, ep and fsdp token cells, fsdp's float64 resnet50
     step (with phase 27's remat rows), sp's (b), tpp's and tp's cells and
     tp's float64 image step (phases 23-24), the hybrid (25), the remat
     token rows (27) and moe_fsdp (28), all in one spawn: a spawn's
@@ -7096,8 +7492,14 @@ def sharded_shared_rank(comm4):
     out["tpp3d"] = tpp3d_cell(torch, comm4, comm)
     out["tpp3d_s"] = time.perf_counter() - t0
     out["plan_auto"] = plan_auto_cell(torch, comm, comm4)
+    t0 = time.perf_counter()
+    out["elastic_save"] = elastic_save_cell(torch, comm4, ckpt_dir)
+    out["elastic_save_s"] = time.perf_counter() - t0
     if comm is None:
         return out
+    t0 = time.perf_counter()
+    out["elastic_resume"] = elastic_resume_cell(torch, comm, ckpt_dir)
+    out["elastic_resume_s"] = time.perf_counter() - t0
     for strategy, model in (("sp", SHARD_TOKEN), ("ep", SHARD_MOE),
                             ("fsdp", SHARD_TOKEN)):
         out[strategy] = shard_token_cell(torch, comm, strategy, model, T)
@@ -7149,16 +7551,20 @@ def phase_sharded(torch, plan_rewrite):
     among them), then sp at NCCL world 1 in this process. Emits
     sp_train, ep_train, fsdp_train, tpp_train, tp_train, hybrid_train,
     tpp3d_train, plan_auto_train (its ranks held to ``plan_rewrite``,
-    phase 17b's --plan auto solve), remat_train and moe_fsdp, and returns
+    phase 17b's --plan auto solve), elastic_train, remat_train and
+    moe_fsdp, and returns
     the B1-B6
     launches of every rank's main-path steps."""
     from ddlbench_tpu_torch import distributed
 
+    import tempfile
+
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    shared4 = distributed.spawn(sharded_shared_rank, T3_WORLD, "cuda",
-                                shared_card=True)
+    with tempfile.TemporaryDirectory(prefix="ddlb_elastic_") as ckpt_dir:
+        shared4 = distributed.spawn(sharded_shared_rank, T3_WORLD, "cuda",
+                                    shared_card=True, args=(ckpt_dir,))
     shared = shared4[:2]  # the world-2 subgroup's ranks
     t1 = time.perf_counter()
     nccl = nccl_world1(sharded_nccl_rank)
@@ -7227,7 +7633,7 @@ def phase_sharded(torch, plan_rewrite):
     for name, n in hybrid_line(shared).items():
         launches[name] += n
     for lines in (tpp3d_line(shared4), plan_auto_line(shared4, plan_rewrite),
-                  remat_line(shared),
+                  elastic_line(shared4), remat_line(shared),
                   moe_line([r["moe_fsdp"] for r in shared], "fsdp")):
         for name, n in lines.items():
             launches[name] += n
@@ -8432,6 +8838,8 @@ def main() -> int:
         train_launches[name] += n
     plan_launches, plan_rewrite = phase_plan_train(torch, fa, fx, dev)
     for name, n in plan_launches.items():
+        train_launches[name] += n
+    for name, n in phase_ckpt_train(torch, fa, fx, dev).items():
         train_launches[name] += n
     phase_pipe_image(torch, dev)
     for name, n in phase_serve_tp(torch, pd, dev).items():

@@ -95,6 +95,20 @@ executing pp=..."). Both are solved here, once, before any rank starts.
 steps' activations and gradients every ``--log-activations-freq``
 epochs (single, dp, sp).
 
+    python -m ddlbench_tpu_torch.cli -b synthtext -m transformer_s \
+        -e 2 --steps-per-epoch 20 --checkpoint-dir D \
+        --checkpoint-every-steps 5 --keep-checkpoints 3 --resume
+
+commits a checkpoint under ``--checkpoint-dir`` after every epoch and
+every ``--checkpoint-every-steps`` steps (train/checkpoint.py: atomic,
+manifest-verified), keeps the newest ``--keep-checkpoints``, and with
+``--resume`` continues from the newest valid one ("resumed from D epoch
+N", a validation of the restored state, then the next epoch; a step
+checkpoint resumes mid-epoch), on every strategy. ``-f dp
+--dp-shard-update --elastic-slices E`` reduces in E world-invariant
+slices, and ``--elastic-resume`` reshards a checkpoint saved at another
+world (train/reshard.py) instead of refusing it.
+
 The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 25, seed 1, bfloat16) and the knobs the loop reads (``-e -p
 --batch-size --steps-per-epoch --grad-accum-steps --lr --optimizer
@@ -102,8 +116,8 @@ The reference's defaults (mnist, single, resnet18, 3 epochs, log interval
 ``--label-smoothing --attention-backend --no-fused-head-loss
 --remat-layers --moe-aux-weight --moe-capacity-factor`` and the dp knobs
 ``-g --dp-shard-update --allreduce-dtype --comm-buckets
---shard-opt-state --warmup-epochs`` and the pipeline flags above, with
-the reference's defaults);
+--shard-opt-state --warmup-epochs`` and the pipeline and checkpoint
+flags above, with the reference's defaults);
 ``--device`` stands in for ``--platform``; ``--momentum`` and
 ``--weight-decay`` override the per-workload defaults. Every other flag
 of the reference is refused by name (an error naming it), never ignored;
@@ -128,9 +142,7 @@ STRATEGIES = ("single", "dp", "gpipe", "pipedream", "sp", "tp", "fsdp", "ep")
 # the reference's flags the port does not carry
 NOT_PORTED_FLAGS = (
     ("--trace-dir",), ("--xla-trace-steps",),
-    ("--trace",), ("--trace-capacity",), ("--audit",), ("--checkpoint-dir",),
-    ("--resume",), ("--checkpoint-every-steps",), ("--keep-checkpoints",),
-    ("--elastic-resume",), ("--elastic-slices",), ("--inject",),
+    ("--trace",), ("--trace-capacity",), ("--audit",), ("--inject",),
     ("--anomaly-policy",), ("--anomaly-budget",), ("--loss-scale",),
     ("--grad-spike-factor",), ("--nan-policy",), ("--hang-timeout-s",),
     ("--platform",),
@@ -282,6 +294,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--warmup-epochs", type=int, default=0,
                    help="gradual lr warmup epochs (Horovod ImageNet parity: "
                         "base lr -> base*world over this many epochs)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save a checkpoint per epoch here (torch.save, "
+                        "atomic commit protocol)")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the newest VALID checkpoint in "
+                        "--checkpoint-dir (torn/corrupt ones are skipped); "
+                        "an empty dir warns and starts fresh")
+    p.add_argument("--checkpoint-every-steps", type=int, default=None,
+                   metavar="K",
+                   help="also commit a mid-epoch checkpoint every K steps "
+                        "(full resume state: bitwise mid-epoch resume)")
+    p.add_argument("--keep-checkpoints", type=int, default=None, metavar="N",
+                   help="retain only the newest N committed checkpoints "
+                        "(older ones + stale .tmp dirs are GC'd)")
+    p.add_argument("--elastic-resume", action="store_true",
+                   help="topology-portable resume (train/reshard.py): when "
+                        "the checkpoint's recorded world shape mismatches "
+                        "the current one, reshard the ZeRO-1 flat state "
+                        "between world sizes (pure permutation, f32 "
+                        "bitwise) instead of raising CheckpointShapeError; "
+                        "lr world-scaling stays pinned to the launch world")
+    p.add_argument("--elastic-slices", type=int, default=None, metavar="E",
+                   help="world-invariant reduction order for -f dp "
+                        "--dp-shard-update: gradients computed in E fixed "
+                        "slices of the global batch and reduced over a "
+                        "canonical balanced tree (+ butterfly allreduce), "
+                        "so a run checkpointed at world N resumes at world "
+                        "M with BITWISE-identical f32 trajectories (E a "
+                        "power of two divisible by every world it runs on)")
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--jsonl", default=None,
                    help="also write the metric records here, one JSON "
@@ -336,7 +377,12 @@ def config_from_args(args: argparse.Namespace) -> RunConfig:
                   if args.hbm_gb is not None else HardwareModel()),
         activation_log_dir=args.log_activations_dir,
         activation_log_freq=args.log_activations_freq,
-        activation_log_steps=args.log_activations_steps)
+        activation_log_steps=args.log_activations_steps,
+        checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+        checkpoint_every_steps=args.checkpoint_every_steps,
+        keep_checkpoints=args.keep_checkpoints,
+        elastic_resume=args.elastic_resume,
+        elastic_slices=args.elastic_slices)
 
 
 def _train_rank(comm, cfg: RunConfig, jsonl: str, device=None,

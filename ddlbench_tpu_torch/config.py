@@ -149,14 +149,8 @@ _TRAIN_NOT_PORTED = (
     ("trace", None, "step-level tracing"),
     ("trace_dir", None, "profiler trace capture"),
     ("audit", None, "the compiled-program audit"),
-    ("checkpoint_dir", None, "checkpoints"),
-    ("resume", False, "resume from a checkpoint"),
-    ("checkpoint_every_steps", None, "step-granular checkpoints"),
     ("hang_timeout_s", None, "the hang watchdog"),
     ("inject", (), "fault injection and preemption"),
-    ("elastic_slices", None,
-     "the elastic world-invariant reduction (it needs train/reshard.py "
-     "and checkpoints)"),
 )
 
 
@@ -536,17 +530,26 @@ class RunConfig:
     activation_log_dir: Optional[str] = None
     activation_log_freq: int = 1
     activation_log_steps: int = 1
+    # checkpoints (train/checkpoint.py): a commit per epoch under
+    # checkpoint_dir, and every checkpoint_every_steps steps; resume from
+    # the newest valid one; keep only the newest keep_checkpoints
+    checkpoint_dir: Optional[str] = None
+    resume: bool = False
+    checkpoint_every_steps: Optional[int] = None
+    keep_checkpoints: Optional[int] = None
+    # topology-portable resume (train/reshard.py): a checkpoint saved at
+    # another world is resharded instead of refused
+    elastic_resume: bool = False
+    # dp ZeRO-1's world-invariant reduction over E slices of the global
+    # batch (parallel/dp.py), so a resharded run replays bitwise
+    elastic_slices: Optional[int] = None
     # knobs of the reference's training loop the port does not implement
     # yet: validate() raises NotImplementedError when one leaves its default
     trace: Optional[str] = None
     trace_dir: Optional[str] = None
     audit: Optional[str] = None
-    checkpoint_dir: Optional[str] = None
-    resume: bool = False
-    checkpoint_every_steps: Optional[int] = None
     hang_timeout_s: Optional[float] = None
     inject: Tuple[str, ...] = ()
-    elastic_slices: Optional[int] = None
 
     def dataset(self) -> DatasetSpec:
         return DATASETS[self.benchmark]
@@ -726,6 +729,7 @@ class RunConfig:
                 "activation_log_freq and activation_log_steps must be >= 1")
         self._validate_dp()
         self._validate_sharded()
+        self._validate_checkpoints()
         for name, default, what in _TRAIN_NOT_PORTED:
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -766,6 +770,56 @@ class RunConfig:
         self._validate_pipeline()
         if self.lr_step_epochs < 1:
             raise ValueError("lr_step_epochs must be >= 1")
+
+    def _validate_checkpoints(self) -> None:
+        """The reference's checkpoint and elastic gates, worded as it
+        words them."""
+        if self.checkpoint_every_steps is not None:
+            if self.checkpoint_every_steps < 1:
+                raise ValueError("checkpoint_every_steps must be >= 1")
+            if self.checkpoint_dir is None:
+                raise ValueError(
+                    "checkpoint_every_steps needs --checkpoint-dir for the "
+                    "checkpoint location")
+        if self.keep_checkpoints is not None and self.keep_checkpoints < 1:
+            raise ValueError(
+                "keep_checkpoints must be >= 1 (the newest checkpoint is "
+                "never dropped)")
+        if self.elastic_resume and self.checkpoint_dir is None:
+            raise ValueError(
+                "elastic_resume resharding needs --checkpoint-dir (there "
+                "is no checkpoint to reshard without one)")
+        if self.elastic_slices is None:
+            return
+        E = self.elastic_slices
+        if E < 1 or (E & (E - 1)):
+            raise ValueError(
+                f"elastic_slices must be a positive power of two (the "
+                f"canonical balanced reduction tree over E leaves must "
+                f"decompose at any world cut); got {E}")
+        if self.strategy != "dp" or not self.dp_shard_update:
+            raise ValueError(
+                "elastic_slices (world-invariant reduction order) runs "
+                "on the dp ZeRO-1 engine (-f dp --dp-shard-update)")
+        w = self.num_devices
+        if w & (w - 1) or E % w:
+            raise ValueError(
+                f"elastic_slices ({E}) needs a power-of-two device "
+                f"count dividing it (got {w}): device boundaries must "
+                f"align with subtrees of the canonical reduction tree")
+        if self.global_batch() % E:
+            raise ValueError(
+                f"global batch ({self.global_batch()}) must divide "
+                f"into elastic_slices ({E}) equal slices")
+        if self.grad_accum_steps > 1:
+            raise ValueError(
+                "elastic_slices already slices the global batch; "
+                "grad_accum_steps > 1 is not composed with it")
+        if self.resolved_allreduce_dtype() != "float32":
+            raise ValueError(
+                "elastic_slices is the exact-replay mode: quantized "
+                "wire dtypes fold device indices into their rounding "
+                "streams and can never be world-invariant (use f32)")
 
     def _validate_pipeline(self) -> None:
         """The reference's pipeline gates, worded as it words them, after

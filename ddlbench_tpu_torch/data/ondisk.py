@@ -215,6 +215,13 @@ class OnDiskData:
             labels = mask_source_labels(labels, self.spec.src_len)
         return ids[:, :-1], labels
 
+    def skip(self, n: int, train: bool = True) -> None:
+        """The stream's next ``n`` batches read and dropped, neither
+        uploaded nor augmented (a mid-epoch resume's fast-forward,
+        data/prefetch.py)."""
+        for _ in range(n):
+            self.raw(train)
+
     def batch(self, epoch: int, step: int,
               train: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.spec.kind in STREAM_KINDS:

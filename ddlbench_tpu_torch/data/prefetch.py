@@ -18,6 +18,13 @@ records the batch's tensors as used on that stream, so the step never
 reads a batch before its upload is done and the allocator never hands its
 memory to the side stream while the step still reads it.
 
+A stream may start at an interior step (``start_step``: the mid-epoch
+resume of train/checkpoint.py's step checkpoints) and serves steps
+[start_step, steps): a random-access source jumps straight there; a
+sequential one (``stateful_stream``: the on-disk stores) is fast-forwarded
+first, its earlier batches read and dropped (its ``skip`` where it has
+one), so its reader stands where an uninterrupted epoch's would.
+
 ``stall_s`` is the time the consumer spent blocked: on the queue, or in
 the inline fetch at depth 0. An exception in the producer is re-raised in
 the consumer, chained (a producer that dies without delivering one is
@@ -58,9 +65,12 @@ class EpochStream:
     closing is idempotent and happens when the epoch is exhausted."""
 
     def __init__(self, data, epoch: int, steps: int, train: bool,
-                 depth: int):
+                 depth: int, start_step: int = 0):
         self._data, self._epoch, self.steps = data, epoch, steps
         self._train = train
+        self._start = start_step
+        self._ff_pending = (start_step if getattr(data, "stateful_stream",
+                                                  False) else 0)
         self._served = 0
         self.stall_s = 0.0
         self._queue: Optional[queue.Queue] = None
@@ -81,6 +91,17 @@ class EpochStream:
         batch = self._data.batch(self._epoch, step, train=self._train)
         return Fetched(batch, None)
 
+    def _fast_forward(self) -> None:
+        """A sequential source's batches before the start step, read and
+        dropped."""
+        skip = getattr(self._data, "skip", None)
+        if skip is not None:
+            skip(self._ff_pending, train=self._train)
+        else:
+            for step in range(self._ff_pending):
+                self._data.batch(self._epoch, step, train=self._train)
+        self._ff_pending = 0
+
     def _put(self, item) -> bool:
         """A bounded put that polls the stop flag, so a producer never
         blocks against a consumer that gave up."""
@@ -100,7 +121,9 @@ class EpochStream:
                 # tensors (the normalisation table) were made by
                 side = torch.cuda.Stream(self._cuda)
                 side.wait_stream(torch.cuda.current_stream(self._cuda))
-            for step in range(self.steps):
+            if self._ff_pending:
+                self._fast_forward()
+            for step in range(self._start, self.steps):
                 if self._stop.is_set():
                     return
                 if side is None:
@@ -122,12 +145,14 @@ class EpochStream:
         return self
 
     def __next__(self):
-        if self._served >= self.steps:
+        if self._start + self._served >= self.steps:
             self.close()
             raise StopIteration
         t0 = time.perf_counter()
         if self._queue is None:
-            item = self._fetch(self._served)
+            if self._ff_pending:
+                self._fast_forward()
+            item = self._fetch(self._start + self._served)
         else:
             step, item = self._get_or_fail()
             if step == _ERROR:
@@ -211,7 +236,12 @@ class Prefetcher:
             raise ValueError("prefetch depth must be >= 0")
         self.data, self.depth = data, depth
 
-    def stream(self, epoch: int, train: bool = True) -> EpochStream:
-        return EpochStream(self.data, epoch,
-                           self.data.steps_per_epoch(train=train), train,
-                           self.depth)
+    def stream(self, epoch: int, train: bool = True,
+               start_step: int = 0) -> EpochStream:
+        """Epoch ``epoch``'s stream, serving steps [start_step, steps)."""
+        steps = self.data.steps_per_epoch(train=train)
+        if not 0 <= start_step <= steps:
+            raise ValueError(
+                f"start_step {start_step} outside epoch of {steps} steps")
+        return EpochStream(self.data, epoch, steps, train, self.depth,
+                           start_step=start_step)

@@ -315,6 +315,34 @@ class Comm:
         return self._run("all_gather", lambda x, o: _all_gather(
             o, x, self.group), t.reshape(-1), out)
 
+    def exchange(self, t: torch.Tensor, peer: int) -> torch.Tensor:
+        """``t`` sent to rank ``peer`` of the group and that rank's ``t``
+        received (one send and one receive, posted together), through
+        pinned host copies where the collectives are staged."""
+        if self.group is None:
+            raise RuntimeError(f"exchange: this Comm describes a world of "
+                               f"{self.world} and runs no collective")
+        t = t.contiguous()
+        src = t
+        if self.staged and t.device.type == "cuda":
+            src = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            src.copy_(t)
+        elif self.backend == "nccl" and t.device != self.device:
+            src = t.to(self.device)
+        buf = torch.empty_like(src)
+        g = dist.get_global_rank(self.group, peer)
+        for req in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, src, g, self.group),
+                dist.P2POp(dist.irecv, buf, g, self.group)]):
+            req.wait()
+        return buf.to(t.device)
+
+    def barrier(self) -> None:
+        """Every rank of the group here before any leaves (a one-element
+        all-reduce, on the backend and card the group runs on)."""
+        if self.group is not None and self.world > 1:
+            self.all_reduce(torch.zeros(1, device=self.device))
+
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
         """``t``'s dim 0 in world equal blocks, block j sent to rank j;
         block i of the result came from rank i."""
@@ -356,6 +384,24 @@ def tpp3d_comms(comm: Comm, replicas: int, tp: int):
         got = subgroup(comm, [d * tp + t for d in range(replicas)])
         dp_comm = got or dp_comm
     return tp_comm, dp_comm
+
+
+def butterfly_sum(t: torch.Tensor, comm: "Comm") -> torch.Tensor:
+    """The sum of ``t`` over the ranks by recursive doubling: log2(world)
+    rounds, in round r each rank adds its partner's (rank XOR r) partial
+    to its own, the add on the rank's own device. IEEE addition is
+    commutative, so every rank lands on the same bits, and the sum is the
+    balanced binary tree over the ranks in rank order whatever the
+    backend's own reduction order (dp's ``elastic_slices``). The world
+    must be a power of two."""
+    n = comm.world
+    if n & (n - 1):
+        raise ValueError(f"butterfly_sum needs a power-of-two world, got {n}")
+    r = 1
+    while r < n:
+        t = t + comm.exchange(t, comm.rank ^ r)
+        r <<= 1
+    return t
 
 
 class _AllGather(torch.autograd.Function):

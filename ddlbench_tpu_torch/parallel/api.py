@@ -21,6 +21,8 @@ plan's per-chunk costs."""
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import List, Optional, Union
 
 import torch
@@ -73,17 +75,149 @@ def schedule_advice(cfg: RunConfig, num_layers: int) -> str:
             f"{sched}")
 
 
+# The persisted auto-partition plan (the reference's partition.json): the
+# stage bounds and the config fields the plan rewrote, kept beside the
+# checkpoints, so a --resume runs the plan the checkpoint was trained
+# under instead of a re-profile's (a "time" profile may pick other bounds,
+# and the restore would then not fit).
+_PLAN_FILE = "partition.json"
+
+
+def _plan_path(cfg: RunConfig) -> Optional[str]:
+    return (os.path.join(cfg.checkpoint_dir, _PLAN_FILE)
+            if cfg.checkpoint_dir else None)
+
+
+def _plan_key(cfg: RunConfig) -> dict:
+    """The fields a persisted plan must match to be reused (taken from the
+    config before the plan rewrites it): model, topology, batch grammar,
+    virtual stages, schedule, cost model and plan mode."""
+    mb, chunks = cfg.resolved_batches()
+    return {"arch": cfg.arch, "benchmark": cfg.benchmark,
+            "strategy": cfg.strategy, "num_devices": cfg.num_devices,
+            "num_hosts": cfg.num_hosts, "micro_batch_size": mb,
+            "num_microbatches": chunks, "virtual_stages": cfg.virtual_stages,
+            "pipe_schedule": cfg.pipe_schedule,
+            "pipe_costs": cfg.pipe_costs, "plan": cfg.plan}
+
+
+def _plan_fingerprint(cfg: RunConfig) -> dict:
+    """How the plan's costs and gates were priced: the profile mode and
+    the hardware constants (``--hbm-gb`` rides them). Shared with the
+    ``--plan auto`` record (partition/planner.py)."""
+    return {"profile_mode": cfg.profile_mode,
+            "hardware": dataclasses.asdict(cfg.hardware)}
+
+
+def _stale_pre_plan_key(old_key, key: dict) -> bool:
+    """A key written before the plan-mode field existed that otherwise
+    names this run: invalidated loudly, and overwritten (not foreign)."""
+    return (isinstance(old_key, dict) and "plan" not in old_key
+            and {**old_key, "plan": key.get("plan")} == key)
+
+
+def _load_plan(cfg: RunConfig, key: dict):
+    """(the persisted plan or None, keep_existing): ``keep_existing``
+    marks a readable plan of another configuration (perhaps a flag typo),
+    which this run's re-profile must not overwrite."""
+    path = _plan_path(cfg)
+    if not (cfg.resume and path and os.path.exists(path)):
+        return None, False
+    try:
+        with open(path) as f:
+            plan = json.load(f)
+    except (json.JSONDecodeError, OSError) as e:
+        print(f"auto-partition: ignoring unreadable plan {path} ({e}); "
+              f"re-profiling", flush=True)
+        return None, False
+    pkey = plan.get("key")
+    if _stale_pre_plan_key(pkey, key):
+        print(f"auto-partition: persisted plan {path} predates the "
+              f"--plan mode field; invalidating (re-profiling and "
+              f"re-writing)", flush=True)
+        return None, False
+    if pkey != key:
+        print(f"auto-partition: persisted plan {path} was computed for "
+              f"{plan.get('key')}, run is {key}; re-profiling (the "
+              f"existing plan file is kept)", flush=True)
+        return None, True
+    if plan.get("fingerprint") != _plan_fingerprint(cfg):
+        print(f"auto-partition: persisted plan {path} was solved under a "
+              f"different cost model ({plan.get('fingerprint')}); "
+              f"re-profiling and re-writing", flush=True)
+        return None, False
+    return plan, False
+
+
+def _backup_foreign_plan(path: str, key: dict) -> None:
+    """Keep a backup of another configuration's plan before a fresh run
+    writes its own there (``partition.json.bak``, then ``.bak1``, ...)."""
+    if not os.path.exists(path):
+        return
+    try:
+        with open(path) as f:
+            old_key = json.load(f).get("key")
+    except (json.JSONDecodeError, OSError):
+        old_key = None
+    if _stale_pre_plan_key(old_key, key):
+        return
+    if old_key != key:
+        bak = path + ".bak"
+        n = 1
+        while os.path.exists(bak):  # never clobber an earlier backup
+            bak = f"{path}.bak{n}"
+            n += 1
+        os.replace(path, bak)
+        print(f"auto-partition: existing plan {path} belongs to a "
+              f"different configuration ({old_key}); backed up to {bak}",
+              flush=True)
+
+
+def _write_json_atomic(path: str, payload: dict) -> None:
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, path)
+
+
+def _save_plan(key: dict, cfg: RunConfig, graph_bounds) -> None:
+    """Persist the plan (atomically: a truncated file would break every
+    later --resume)."""
+    path = _plan_path(cfg)
+    if path is None:
+        return
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    _backup_foreign_plan(path, key)
+    repl = cfg.stage_replication
+    _write_json_atomic(path, {
+        "key": key,
+        "fingerprint": _plan_fingerprint(cfg),
+        "graph_bounds": [int(b) for b in graph_bounds],
+        "num_stages": cfg.num_stages,
+        "dp_replicas": cfg.dp_replicas,
+        "stage_replication": list(repl) if repl else None,
+        "micro_batch_size": cfg.micro_batch_size,
+        "num_microbatches": cfg.num_microbatches,
+        "virtual_stages": cfg.virtual_stages,
+        "pipe_schedule": cfg.pipe_schedule,
+        "pipe_costs": cfg.pipe_costs,
+        "pipe_cost_vectors": ([list(v) for v in cfg.pipe_cost_vectors]
+                              if cfg.pipe_cost_vectors else None),
+    })
+
+
 @dataclasses.dataclass
 class AutoPartition:
     """An --auto-partition plan, ready to build: ``cfg`` carries the
     plan's stages, replication, batch split and cost vectors; ``bounds``
     are the chunk bounds over the model the strategy runs (the chain's
     layers, or the packed chain's spans of a branchy arch, cut at the
-    DAG nodes ``cuts``); ``graph`` is the profile the DP solved over."""
+    DAG nodes ``cuts``); ``graph`` is the profile the DP solved over
+    (None for a persisted plan reused without profiling)."""
 
     cfg: RunConfig
     bounds: List[int]
-    graph: Graph
+    graph: Optional[Graph]
     cuts: Optional[List[int]] = None
 
 
@@ -92,7 +226,62 @@ def auto_partition(cfg: RunConfig, device: torch.device,
     """Profile -> partition -> plan: the reference's PipeDream phases 1-3
     (its ``make_strategy`` auto-partition branch). ``input_time_ms``: the
     measured per-microbatch data-loading cost, priced into the stage of
-    layer 0. A "time" profile runs on ``device``."""
+    layer 0. A "time" profile runs on ``device``. With ``checkpoint_dir``
+    the plan persists there (``partition.json``) and a ``resume`` of the
+    same configuration reuses it without profiling ("reusing persisted
+    plan"; ``graph`` is then None)."""
+    cfg.validate()
+    set_attention_backend(cfg.attention_backend)
+    spec = cfg.dataset()
+    branchy = get_dag(cfg.arch, spec.image_size, spec.num_classes,
+                      seed=cfg.seed) is not None
+    key = _plan_key(cfg)  # before the plan rewrites the config
+    persisted, keep_existing = _load_plan(cfg, key)
+    graph = None
+    if persisted is not None:
+        try:
+            bounds = [int(b) for b in persisted["graph_bounds"]]
+            repl = persisted.get("stage_replication")
+            vectors = persisted.get("pipe_cost_vectors")
+            reused = cfg.replace(
+                num_stages=persisted["num_stages"],
+                dp_replicas=persisted["dp_replicas"],
+                stage_replication=tuple(repl) if repl else None,
+                micro_batch_size=persisted["micro_batch_size"],
+                num_microbatches=persisted["num_microbatches"],
+                virtual_stages=persisted.get("virtual_stages", 1),
+                pipe_cost_vectors=(tuple(tuple(int(x) for x in v)
+                                         for v in vectors)
+                                   if vectors else None))
+            reused.validate()
+            cfg = reused
+            print(f"auto-partition: reusing persisted plan "
+                  f"({_plan_path(cfg)}, bounds={bounds})", flush=True)
+        except (KeyError, TypeError, ValueError) as e:
+            # schema drift, a hand edit, a combination no longer valid:
+            # solve again, as with no plan at all
+            persisted = None
+            print(f"auto-partition: persisted plan not applicable "
+                  f"({e!r}); re-profiling", flush=True)
+    if persisted is None:
+        cfg, bounds, graph = _solve_partition(cfg, device, input_time_ms)
+        if not keep_existing:
+            _save_plan(key, cfg, bounds)
+    cfg.validate()
+    cuts = None
+    if branchy:
+        # the chosen node cuts run as one packed span per chunk
+        cuts, bounds = list(bounds[1:-1]), list(range(len(bounds)))
+        print(f"auto-partition: packed-boundary chain, {len(bounds) - 1} "
+              f"spans", flush=True)
+    return AutoPartition(cfg, bounds, graph, cuts)
+
+
+def _solve_partition(cfg: RunConfig, device: torch.device,
+                     input_time_ms: float):
+    """(the planned config, its bounds over the profile graph's nodes,
+    the graph): the profile, the partition and the plan of
+    :func:`auto_partition`."""
     from ddlbench_tpu_torch.partition.optimizer import (
         partition_hierarchical, partition_interleaved,
         stage_bounds_from_graph)
@@ -104,8 +293,6 @@ def auto_partition(cfg: RunConfig, device: torch.device,
                                                      profile_dag,
                                                      profile_model)
 
-    cfg.validate()
-    set_attention_backend(cfg.attention_backend)
     mb, chunks = cfg.resolved_batches()
     spec = cfg.dataset()
     dag = get_dag(cfg.arch, spec.image_size, spec.num_classes,
@@ -209,14 +396,7 @@ def auto_partition(cfg: RunConfig, device: torch.device,
                   f"quantization cap — the timetable underweights "
                   f"the most expensive chunks (profile is more "
                   f"uneven than the grid can express)", flush=True)
-    cfg.validate()
-    cuts = None
-    if branchy:
-        # the chosen node cuts run as one packed span per chunk
-        cuts, bounds = list(bounds[1:-1]), list(range(len(bounds)))
-        print(f"auto-partition: packed-boundary chain, {len(bounds) - 1} "
-              f"spans", flush=True)
-    return AutoPartition(cfg, bounds, graph, cuts)
+    return cfg, bounds, graph
 
 
 def _pipeline(cfg: RunConfig, model, device: torch.device,

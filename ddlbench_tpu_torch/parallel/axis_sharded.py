@@ -35,6 +35,7 @@ from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.distributed import Comm
 from ddlbench_tpu_torch.models.layers import LayerModel
 from ddlbench_tpu_torch.models.moe import aux_losses
+from ddlbench_tpu_torch.parallel import state
 from ddlbench_tpu_torch.parallel.common import (flat_optimizer,
                                                 local_eval_sums,
                                                 local_loss_sums,
@@ -129,6 +130,26 @@ class AxisShardedStrategy:
         return {n: (self._gather_sharded(n, p.detach())
                     if self._is_sharded(n) else p.detach())
                 for n, p in self._named()}
+
+    def checkpoint_state(self) -> dict:
+        """The train state (parallel/state.py): the parameters in the
+        port's layout and order, each sharded one's rank parts stacked,
+        its optimizer state alike, the BatchNorm statistics (collectives
+        every rank calls)."""
+        sharded = [self._is_sharded(n) for n, _ in self._named()]
+        return {"params": state.rank_parts(self.comm, self.params, sharded),
+                "model_state": state.leaves_ref(
+                    state.ref_buffers(self.model.layers)),
+                "opt": state.opt_rank_parts(self.comm, self.opt, sharded)}
+
+    def load_checkpoint_state(self, saved: dict) -> None:
+        """The inverse of :meth:`checkpoint_state`, in place."""
+        sharded = [self._is_sharded(n) for n, _ in self._named()]
+        state.load_rank_parts(self.comm, self.params, saved["params"],
+                              sharded)
+        state.load_leaves_ref(state.ref_buffers(self.model.layers),
+                              saved["model_state"])
+        state.load_opt_rank_parts(self.comm, self.opt, saved["opt"], sharded)
 
     # -- the step ------------------------------------------------------------
 

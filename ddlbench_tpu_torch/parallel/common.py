@@ -568,8 +568,15 @@ def unpack_flat(flat: torch.Tensor, meta: FlatMeta) -> List[torch.Tensor]:
 
 
 def bucket_content_lengths(meta: FlatMeta) -> List[int]:
-    """Each bucket's unpadded element count."""
-    return [int(sum(meta.sizes[l0:l1])) for l0, l1 in meta.bucket_leaves]
+    """Each bucket's unpadded element count: a leaf-aligned meta's leaf
+    sizes summed; a row meta (:func:`row_flat_meta`, no leaves) tiles the
+    row [0, length), so a bucket holds its overlap with that range. In
+    both ``flat = concat_b(logical[c_b:c_b + len_b] + zeros(pad_b))``,
+    the invariant train/reshard.py permutes through."""
+    if meta.sizes:
+        return [int(sum(meta.sizes[l0:l1])) for l0, l1 in meta.bucket_leaves]
+    return [max(0, min(meta.length, off + bp) - off)
+            for off, bp in zip(meta.bucket_offsets, meta.bucket_padded)]
 
 
 def shard_bucket_slice(shard: torch.Tensor, meta: FlatMeta, world: int,
@@ -606,13 +613,11 @@ def row_flat_meta(length: int, world: int, buckets: int = 1) -> FlatMeta:
 def device_major_perm(meta: FlatMeta, world: int):
     """Index permutation ``p`` (numpy int64) with ``flat[p] ==
     to_device_major(flat)``, and its inverse."""
-    idx = []
-    for d in range(world):
-        for b in range(meta.num_buckets):
-            o = meta.bucket_offsets[b]
-            bl = meta.bucket_padded[b] // world
-            idx.extend(range(o + d * bl, o + (d + 1) * bl))
-    perm = np.asarray(idx, np.int64)
+    parts = [np.arange(o + d * (bp // world), o + (d + 1) * (bp // world),
+                       dtype=np.int64)
+             for d in range(world)
+             for o, bp in zip(meta.bucket_offsets, meta.bucket_padded)]
+    perm = np.concatenate(parts) if parts else np.zeros(0, np.int64)
     inv = np.empty_like(perm)
     inv[perm] = np.arange(perm.size, dtype=np.int64)
     return perm, inv

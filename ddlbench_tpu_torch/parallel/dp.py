@@ -53,7 +53,28 @@ batch.
 Every engine's update is the same elementwise arithmetic and only the
 collectives differ, so the f32 sharded and overlapped engines equal the
 replicated one bit for bit wherever their collectives sum in the same
-order (any two ranks do). ``elastic_slices`` is refused (ROADMAP A.8).
+order (any two ranks do).
+
+``elastic_slices`` E (the reference's world-invariant numerics, on the
+ZeRO-1 engines, f32 wire, no BatchNorm): the gradients are taken in E
+fixed contiguous slices of the global batch, E/world a rank, each
+slice's objective its sum over the global valid count (an integer
+all-reduce, exact in any order); a rank stacks its slices' packed
+gradients and CE sums and folds them pairwise, then a recursive-doubling
+butterfly (distributed.butterfly_sum) sums across the ranks. The two
+halves make one balanced binary tree over the E slices whose shape
+depends on E alone, so the losses, the gradient and the update are the
+same bits at any world that divides E: a run saved at world N and resumed
+at world M (train/reshard.py) replays the uninterrupted one. Each rank
+then takes its device-major shard of the full reduced vector. Eval sums
+its slices on the same tree. It is an exact-replay mode, not a fast
+path: the butterfly ships log2(world) whole vectors.
+
+The train state for checkpoints (:meth:`DPStrategy.checkpoint_state`,
+parallel/state.py) is the reference's: the parameters per leaf (the
+overlapped engine's as the device-major flat vector), and the optimizer
+state per leaf, or under ZeRO-1 as the flat vector, the ranks' shards
+concatenated.
 """
 
 from __future__ import annotations
@@ -63,15 +84,18 @@ from typing import Dict, List, Optional
 import torch
 
 from ddlbench_tpu_torch.config import RunConfig
-from ddlbench_tpu_torch.distributed import Comm, local_batch_slice
+from ddlbench_tpu_torch.distributed import (Comm, butterfly_sum,
+                                            local_batch_slice)
 from ddlbench_tpu_torch.models.layers import LayerModel, batch_parallel
 from ddlbench_tpu_torch.models.moe import aux_losses, global_routing
 from ddlbench_tpu_torch.ops import threefry
+from ddlbench_tpu_torch.parallel import state
 from ddlbench_tpu_torch.parallel.common import (
-    _micro_batch, bucket_slice, flat_optimizer, local_eval_sums,
-    local_loss_sums, model_flat_meta, pack_flat, quantize_int8,
-    reduce_eval_sums, reduce_loss_sums, shard_bucket_slice, sum_safe_qmax,
-    to_ref_layout, unpack_buckets, unpack_flat)
+    _micro_batch, bucket_slice, flat_meta, flat_optimizer, from_ref_layout,
+    local_eval_sums, local_loss_sums, model_flat_meta, pack_flat,
+    quantize_int8, ref_param_order, reduce_eval_sums, reduce_loss_sums,
+    shard_bucket_slice, sum_safe_qmax, to_ref_layout, unpack_buckets,
+    unpack_flat)
 
 WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                "int8": torch.int8}
@@ -112,6 +136,13 @@ class DPStrategy:
         self.overlap = cfg.dp_overlap_engine()
         self.meta, self.params = model_flat_meta(model, comm.world,
                                                  cfg.comm_buckets)
+        self.elastic = cfg.elastic_slices
+        if self.elastic and any(True for _ in model.buffers()):
+            raise NotImplementedError(
+                "elastic_slices (world-invariant reduction order) supports "
+                "stateless (non-BN) models: batch statistics computed over "
+                "per-slice sub-batches cannot be made world-invariant "
+                f"({model.name} carries model state)")
         self.qmax = sum_safe_qmax(comm.world) if self.int8 else None
         self._opt_init, self._opt_update = flat_optimizer(cfg)
         self.opt: Optional[Dict] = None
@@ -136,6 +167,12 @@ class DPStrategy:
         """The packed layout of the explicit engine (None for the
         replicated one, as the reference's GSPMD path has none)."""
         return self.meta if self.explicit else None
+
+    def flat_meta_for_world(self, world: int, buckets: int):
+        """The packed layout this model would have at another world size
+        (train/reshard.py permutes an elastic checkpoint through it)."""
+        _, groups = ref_param_order(self.model)
+        return flat_meta(self.meta.shapes, world, max(1, buckets), groups)
 
     # -- state ---------------------------------------------------------------
 
@@ -182,6 +219,74 @@ class DPStrategy:
                 [self._state_slice(p) for p in self.params])
         if self.int8:
             self.opt["qstep"] = 0
+
+    def checkpoint_state(self) -> dict:
+        """The train state gathered to the reference's global layout
+        (module docstring; collectives every rank calls)."""
+        comm, meta = self.comm, self.meta
+        if self.overlap:
+            params = state.gather_stack(comm, self.flat)
+        else:
+            params = state.leaves_ref(self.params)
+        opt = state.opt_scalars(self.opt)
+        for k in state.OPT_TENSOR_KEYS:
+            if k not in self.opt:
+                continue
+            if self.shard_update:
+                opt[k] = state.gather_stack(comm, self.opt[k][0])
+            elif self.flat is not None:
+                opt[k] = state.leaves_ref(unpack_flat(self.opt[k][0], meta))
+            else:
+                opt[k] = [self._whole_slice(p, s)
+                          for p, s in zip(self.params, self.opt[k])]
+        return {"params": params,
+                "model_state": state.leaves_ref(
+                    state.ref_buffers(self.model.layers)),
+                "opt": opt}
+
+    def load_checkpoint_state(self, saved: dict) -> None:
+        """The inverse of :meth:`checkpoint_state`: each rank takes its
+        part of the flat vectors and its slice of each leaf."""
+        comm, meta = self.comm, self.meta
+        with torch.no_grad():
+            if self.overlap:
+                state.put(self.flat, state.own_part(saved["params"], comm))
+                self._gather_params()
+            else:
+                state.load_leaves_ref(self.params, saved["params"])
+                flat = pack_flat(self.params, meta)
+                if self.shard_update:
+                    self.flat = self._shard_of(flat)
+                elif self.flat is not None:
+                    self.flat = flat
+            state.load_leaves_ref(state.ref_buffers(self.model.layers),
+                                  saved["model_state"])
+            for k in state.OPT_TENSOR_KEYS:
+                if k not in self.opt:
+                    continue
+                if self.shard_update:
+                    state.put(self.opt[k][0],
+                              state.own_part(saved["opt"][k], comm))
+                elif self.flat is not None:
+                    state.put(self.opt[k][0], pack_flat(
+                        [from_ref_layout(t) for t in saved["opt"][k]],
+                        meta))
+                else:
+                    for s, whole in zip(self.opt[k], saved["opt"][k]):
+                        state.put(s, self._state_slice(
+                            from_ref_layout(whole)))
+        state.load_opt_scalars(self.opt, saved["opt"])
+
+    def _whole_slice(self, p: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+        """shard_opt_state: the whole reference-layout leaf of parameter
+        ``p`` from the ranks' slices ``s`` (its state), on the CPU."""
+        d = leaf_spec_dim(tuple(to_ref_layout(p).shape), self.comm.world)
+        if d is None:
+            return state.host(s)
+        parts = state.gather_stack(self.comm, s)
+        if s.dim() == 1:
+            return parts
+        return torch.cat(parts.unbind(0), dim=d)
 
     def _state_slice(self, t: torch.Tensor) -> torch.Tensor:
         """This rank's shard_opt_state slice of leaf ``t`` (reference
@@ -287,6 +392,54 @@ class DPStrategy:
         return (torch.stack(ces) * wks).sum() / total, corr, valid, \
             gsum / total
 
+    def _slices(self, x: torch.Tensor, y: torch.Tensor):
+        """The rank's rows as its E/world contiguous elastic slices."""
+        k_local = self.elastic // self.comm.world
+        return zip(x.chunk(k_local), y.chunk(k_local))
+
+    def _tree_sum(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """The canonical tree over the E slices: the rank's slices folded
+        pairwise, then the butterfly across the ranks."""
+        v = torch.stack(parts)
+        while v.shape[0] > 1:
+            v = v[0::2] + v[1::2]
+        return butterfly_sum(v[0], self.comm)
+
+    def _elastic_grads(self, x, y):
+        """(ce, correct, valid, this rank's shard of the reduced
+        gradient) with every float reduction on the canonical tree."""
+        comm = self.comm
+        denom = comm.all_reduce((y >= 0).sum().to(torch.int64).reshape(1))
+        denom = denom[0].float().clamp(min=1.0)
+        gs, ces, corr, valid = [], [], 0, 0
+        for xk, yk in self._slices(x, y):
+            obj_sum, ce_sum, c, v = local_loss_sums(
+                self.model, self.cfg, xk, yk, self.compute_dtype,
+                self.smoothing)
+            grads = torch.autograd.grad(obj_sum / denom, self.params)
+            gs.append(pack_flat(grads, self.meta))
+            ces.append(ce_sum.detach().float())
+            corr, valid = corr + c, valid + v
+        g_full = self._tree_sum(gs)
+        ce = self._tree_sum(ces) / denom
+        ints = comm.all_reduce(torch.stack([torch.as_tensor(
+            t, device=comm.device).to(torch.int64) for t in (corr, valid)]))
+        return ce, ints[0], ints[1], self._shard_of(g_full)
+
+    def _elastic_eval(self, x, y) -> Dict[str, torch.Tensor]:
+        """The eval sums of the rank's slices on the canonical tree."""
+        ces, ints = [], 0
+        for xk, yk in self._slices(x, y):
+            ce_sum, c, c5, n = local_eval_sums(self.model, self.cfg, xk, yk,
+                                               self.compute_dtype)
+            ces.append(ce_sum.float())
+            ints = ints + torch.stack([t.to(torch.int64)
+                                       for t in (c, c5, n)])
+        ce = self._tree_sum(ces)
+        ints = self.comm.all_reduce(ints)
+        return {"loss": ce / ints[2].clamp(min=1).float(),
+                "correct": ints[0], "correct5": ints[1], "count": ints[2]}
+
     def _update_slices(self, grads: List[torch.Tensor], lr: float) -> None:
         """shard_opt_state's update: this rank's slice of each leaf,
         all-gathered back."""
@@ -316,8 +469,11 @@ class DPStrategy:
                 self.opt["qstep"]), self.comm.rank)
         if self.overlap:
             self._gather_params()
-        with batch_parallel(self.comm), global_routing(self.comm):
-            ce, correct, valid, gred = self._grads(x, y, qkey)
+        if self.elastic:
+            ce, correct, valid, gred = self._elastic_grads(x, y)
+        else:
+            with batch_parallel(self.comm), global_routing(self.comm):
+                ce, correct, valid, gred = self._grads(x, y, qkey)
         return {"loss": ce.detach(),
                 "accuracy": correct.float() / valid.clamp(min=1).float()}, \
             gred
@@ -348,6 +504,8 @@ class DPStrategy:
         batch: each rank's rows' sums, all-reduced."""
         self.materialize_params()
         x, y = self._local_rows(x, y)
+        if self.elastic:
+            return self._elastic_eval(x, y)
         with global_routing(self.comm):
             sums = local_eval_sums(self.model, self.cfg, x, y,
                                    self.compute_dtype)

@@ -77,6 +77,7 @@ from ddlbench_tpu_torch.distributed import Comm
 from ddlbench_tpu_torch.models.layers import (BatchNorm, LayerModel,
                                               apply_chunk)
 from ddlbench_tpu_torch.models.moe import MoEBlock
+from ddlbench_tpu_torch.parallel import state
 from ddlbench_tpu_torch.parallel.common import (
     cast_input, correct_and_count, correct_topk, cross_entropy_loss,
     flat_optimizer, from_ref_layout, fused_chunk_eval_sums,
@@ -383,6 +384,109 @@ class GPipeStrategy:
         if self.vstages > 1:
             mat = mat.reshape(self.vstages, self.num_stages, L)
         return mat
+
+    # -- checkpoints (parallel/state.py) ------------------------------------
+
+    def ref_row_meta(self):
+        """ZeRO-1's row layout as the reference holds it: one
+        ``row_flat_meta`` of the longest chunk row over the replicas (the
+        port keeps one per chunk, of the chunk's own length)."""
+        return row_flat_meta(max(m.length for m in self._row_meta), self.dp,
+                             max(1, self.cfg.comm_buckets))
+
+    def _chunk_order(self, c: int):
+        """(chunk c's parameters in the reference's leaf order, the index
+        of each in ``chunk_params(c)``, which the optimizer state
+        follows)."""
+        params = state.ref_params(self.chunk_layers(c))
+        return params, state.order_of(params, self.chunk_params(c))
+
+    def _stage_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """[C, ...] -> [V, S, ...] when interleaved (row [v, s] = chunk
+        v*S + s), as the reference's stage matrices."""
+        if self.vstages == 1:
+            return t
+        return t.reshape(self.vstages, self.num_stages, *t.shape[1:])
+
+    def _ref_row(self, c: int, dm: torch.Tensor, to_ref: bool):
+        """A device-major ZeRO-1 row of chunk c between the port's layout
+        (its own row meta) and the reference's (:meth:`ref_row_meta`)."""
+        from ddlbench_tpu_torch.train.reshard import relayout_row
+
+        mine, ref = self._row_meta[c], self.ref_row_meta()
+        src, dst = (mine, ref) if to_ref else (ref, mine)
+        return torch.from_numpy(relayout_row(dm.numpy(), src, dst, self.dp))
+
+    def checkpoint_state(self) -> dict:
+        """The reference's pipeline train state (parallel/state.py): the
+        packed stage rows of the parameters, the BatchNorm statistics and
+        the optimizer's ``m``/``v``, and one ``step`` a row; under
+        hybrid ZeRO-1 the rows gathered from the replicas' shards,
+        device-major in the reference's row layout."""
+        C = self.num_chunks
+        opt: dict = {}
+        if self.pipe_shard:
+            def rows(get):
+                return torch.stack([self._ref_row(c, state.gather_stack(
+                    self.dp_comm, get(c)), True) for c in range(C)])
+
+            params = rows(lambda c: self._shards[c])
+            for k in state.OPT_TENSOR_KEYS:
+                if k in self.opt[0]:
+                    opt[k] = rows(lambda c: self.opt[c][k][0])
+        else:
+            orders = [self._chunk_order(c) for c in range(C)]
+            params = state.pack_rows([p for p, _ in orders])
+            for k in state.OPT_TENSOR_KEYS:
+                if k in self.opt[0]:
+                    opt[k] = state.pack_rows([
+                        [self.opt[c][k][i] for i in order]
+                        for c, (_, order) in enumerate(orders)])
+        if "step" in self.opt[0]:
+            opt["step"] = torch.tensor([[st["step"]] for st in self.opt],
+                                       dtype=torch.int32)
+        return {"params": self._stage_rows(params),
+                "model_state": self._stage_rows(state.pack_rows(
+                    [state.ref_buffers(self.chunk_layers(c))
+                     for c in range(C)])),
+                "opt": {k: self._stage_rows(v) for k, v in opt.items()}}
+
+    def load_checkpoint_state(self, saved: dict) -> None:
+        """The inverse of :meth:`checkpoint_state`, in place (ZeRO-1: each
+        replica takes its shard of every row)."""
+        C = self.num_chunks
+
+        def rows(t):  # [V, S, L] -> [C, L]
+            return t.reshape(C, t.shape[-1])
+
+        state.unpack_rows([state.ref_buffers(self.chunk_layers(c))
+                           for c in range(C)], rows(saved["model_state"]))
+        sopt = saved["opt"]
+        if self.pipe_shard:
+            def load(get, mat):
+                mat = rows(mat)
+                for c in range(C):
+                    state.put(get(c), state.own_part(
+                        self._ref_row(c, mat[c], False), self.dp_comm))
+
+            load(lambda c: self._shards[c], saved["params"])
+            for k in state.OPT_TENSOR_KEYS:
+                if k in self.opt[0]:
+                    load(lambda c: self.opt[c][k][0], sopt[k])
+            self._stale = [True] * C
+            self.sync_params()
+        else:
+            orders = [self._chunk_order(c) for c in range(C)]
+            state.unpack_rows([p for p, _ in orders], rows(saved["params"]))
+            for k in state.OPT_TENSOR_KEYS:
+                if k in self.opt[0]:
+                    state.unpack_rows([[self.opt[c][k][i] for i in order]
+                                       for c, (_, order) in
+                                       enumerate(orders)], rows(sopt[k]))
+        if "step" in self.opt[0]:
+            steps = sopt["step"].reshape(C)
+            for st, n in zip(self.opt, steps.tolist()):
+                st["step"] = int(n)
 
     def shard_batch(self, x: torch.Tensor, y: torch.Tensor
                     ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:

@@ -62,6 +62,7 @@ import torch
 
 from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.models.layers import LayerModel, apply_chunk
+from ddlbench_tpu_torch.parallel import state
 from ddlbench_tpu_torch.parallel.common import (
     cast_input, flat_optimizer, fused_chunk_eval_sums, fused_chunk_loss_sums,
     head_fusable, logits_eval_sums, logits_loss_sums, ref_param_order,
@@ -217,6 +218,56 @@ class HeteroGPipeStrategy:
         L = max(max(r.numel() for r in rows), 1)
         return torch.stack([torch.nn.functional.pad(r, (0, L - r.numel()))
                             for r in rows])
+
+    def _devices_rows(self, get) -> List[List[torch.Tensor]]:
+        """``get(s, k)`` for every device row d = (s, k), in device
+        order (the reference's [N, L] rows)."""
+        return [get(s, k) for s, r in enumerate(self.repl)
+                for k in range(r)]
+
+    def _replica_order(self, s: int, k: int):
+        params = state.ref_params(self.replicas[s][k])
+        return params, state.order_of(params, self.replica_params(s, k))
+
+    def checkpoint_state(self) -> dict:
+        """The reference's [N, L] device rows (parallel/state.py): row d
+        is its stage's replica's parameters, BatchNorm statistics and
+        optimizer ``m``/``v``, packed; ``step`` one a row."""
+        rows = state.pack_rows
+        params = rows(self._devices_rows(
+            lambda s, k: self._replica_order(s, k)[0]))
+        opt = {}
+        for key in state.OPT_TENSOR_KEYS:
+            if key in self.opt[0][0]:
+                opt[key] = rows(self._devices_rows(lambda s, k: [
+                    self.opt[s][k][key][i]
+                    for i in self._replica_order(s, k)[1]]))
+        if "step" in self.opt[0][0]:
+            opt["step"] = torch.tensor(self._devices_rows(
+                lambda s, k: [self.opt[s][k]["step"]]), dtype=torch.int32)
+        return {"params": params,
+                "model_state": rows(self._devices_rows(
+                    lambda s, k: state.ref_buffers(self.replicas[s][k]))),
+                "opt": opt}
+
+    def load_checkpoint_state(self, saved: dict) -> None:
+        """The inverse of :meth:`checkpoint_state`, in place."""
+        state.unpack_rows(self._devices_rows(
+            lambda s, k: self._replica_order(s, k)[0]), saved["params"])
+        state.unpack_rows(self._devices_rows(
+            lambda s, k: state.ref_buffers(self.replicas[s][k])),
+            saved["model_state"])
+        sopt = saved["opt"]
+        for key in state.OPT_TENSOR_KEYS:
+            if key in self.opt[0][0]:
+                state.unpack_rows(self._devices_rows(lambda s, k: [
+                    self.opt[s][k][key][i]
+                    for i in self._replica_order(s, k)[1]]), sopt[key])
+        if "step" in self.opt[0][0]:
+            steps = iter(sopt["step"].reshape(-1).tolist())
+            for s, r in enumerate(self.repl):
+                for k in range(r):
+                    self.opt[s][k]["step"] = int(next(steps))
 
     def shard_batch(self, x: torch.Tensor, y: torch.Tensor):
         """Global batch [M*mb, ...] -> (each stage-0 replica's input rows,

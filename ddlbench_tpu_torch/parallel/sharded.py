@@ -109,6 +109,7 @@ from ddlbench_tpu_torch.models.transformer import (TP_SLICED_KEYS,
                                                    tp_split_layer_params)
 from ddlbench_tpu_torch.ops.fused_xent import (fused_linear_xent,
                                               fused_linear_xent_eval)
+from ddlbench_tpu_torch.parallel import state
 from ddlbench_tpu_torch.parallel.common import (_micro_batch, cast_input,
                                                 flat_optimizer, head_fusable,
                                                 logits_eval_sums,
@@ -191,6 +192,25 @@ class FSDPStrategy:
             self._initial = self._take_model()
         self.shards = [s.clone().requires_grad_() for s in self._initial]
         self.opt = self._opt_init([s.detach() for s in self.shards])
+
+    def checkpoint_state(self) -> dict:
+        """The train state (parallel/state.py): every tensor a rank
+        trains (fsdp: each layer's shard of its packed vector, so the
+        concatenation is the whole padded vector; tp: its parts of the
+        gathered leaves and its own leaves) and its optimizer state, the
+        ranks' parts stacked; the BatchNorm statistics (collectives every
+        rank calls)."""
+        return {"params": state.rank_parts(self.comm, self._trainable()),
+                "model_state": state.leaves_ref(
+                    state.ref_buffers(self.model.layers)),
+                "opt": state.opt_rank_parts(self.comm, self.opt)}
+
+    def load_checkpoint_state(self, saved: dict) -> None:
+        """The inverse of :meth:`checkpoint_state`, in place."""
+        state.load_rank_parts(self.comm, self._trainable(), saved["params"])
+        state.load_leaves_ref(state.ref_buffers(self.model.layers),
+                              saved["model_state"])
+        state.load_opt_rank_parts(self.comm, self.opt, saved["opt"])
 
     def param_bytes(self) -> int:
         """The bytes of parameters this rank holds (its shards)."""

@@ -26,6 +26,7 @@ import torch
 
 from ddlbench_tpu_torch.config import RunConfig
 from ddlbench_tpu_torch.models.layers import LayerModel
+from ddlbench_tpu_torch.parallel import state
 from ddlbench_tpu_torch.parallel.common import (eval_metrics,
                                                 flat_optimizer,
                                                 loss_and_grads)
@@ -47,6 +48,26 @@ class SingleStrategy:
         weights come from the model's seed, or convert.from_jax_params)."""
         self.opt = self._opt_init([p.detach()
                                    for p in self.model.parameters()])
+
+    def checkpoint_state(self) -> dict:
+        """The train state in the reference's leaves (parallel/state.py):
+        the parameters and the optimizer's ``m``/``v`` in the reference's
+        leaf order and layout, the BatchNorm statistics, ``step``."""
+        params = state.ref_params(self.model.layers)
+        order = state.order_of(params, list(self.model.parameters()))
+        return {"params": state.leaves_ref(params),
+                "model_state": state.leaves_ref(
+                    state.ref_buffers(self.model.layers)),
+                "opt": state.opt_ref(self.opt, order)}
+
+    def load_checkpoint_state(self, saved: dict) -> None:
+        """The inverse of :meth:`checkpoint_state`, in place."""
+        params = state.ref_params(self.model.layers)
+        state.load_leaves_ref(params, saved["params"])
+        state.load_leaves_ref(state.ref_buffers(self.model.layers),
+                              saved["model_state"])
+        state.load_opt_ref(self.opt, saved["opt"], state.order_of(
+            params, list(self.model.parameters())))
 
     def train_step(self, x: torch.Tensor, y: torch.Tensor,
                    lr: float) -> Dict[str, torch.Tensor]:

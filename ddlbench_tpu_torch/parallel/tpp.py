@@ -77,6 +77,7 @@ from ddlbench_tpu_torch.models.transformer import (TP_SLICED_KEYS,
                                                    slice_block,
                                                    tensor_parallel)
 from ddlbench_tpu_torch.parallel.common import head_fusable
+from ddlbench_tpu_torch.parallel import state
 from ddlbench_tpu_torch.parallel.gpipe import GPipeStrategy
 
 
@@ -154,6 +155,29 @@ class TPGPipeStrategy(GPipeStrategy):
             out[key] = torch.stack([torch.nn.functional.pad(
                 r, (0, L - r.numel())) for r in rows])
         return out
+
+    def checkpoint_state(self) -> dict:
+        """gpipe's packed rows of this shard's parameters and optimizer
+        ``m``/``v`` (sliced and replicated leaves in the reference's
+        order), the tp shards' rows stacked on a new first axis
+        (parallel/state.py; collectives every rank calls)."""
+        saved = super().checkpoint_state()
+        saved["params"] = state.gather_stack(self.tp_comm, saved["params"])
+        for k in state.OPT_TENSOR_KEYS:
+            if k in saved["opt"]:
+                saved["opt"][k] = state.gather_stack(self.tp_comm,
+                                                     saved["opt"][k])
+        return saved
+
+    def load_checkpoint_state(self, saved: dict) -> None:
+        """The inverse of :meth:`checkpoint_state`: this shard's rows."""
+        opt = dict(saved["opt"])
+        for k in state.OPT_TENSOR_KEYS:
+            if k in opt:
+                opt[k] = state.own_part(opt[k], self.tp_comm)
+        super().load_checkpoint_state(dict(
+            saved, params=state.own_part(saved["params"], self.tp_comm),
+            opt=opt))
 
     def _chunk_obj(self, c: int, *args, **kw):
         # the forward's sums, and the backward's through the autograd

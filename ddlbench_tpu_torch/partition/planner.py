@@ -39,16 +39,22 @@ Cost model (one interconnect level: NVLink inside a host):
   in-flight activation stash; candidates over ``hw.hbm_bytes`` are
   infeasible, which is how a tight cap flips the chosen mix.
 
-The reference also persists the decision in ``partition.json`` beside the
-checkpoints and pins an elastic resume to a checkpoint's recorded split;
-both wait for the port's checkpoints (ROADMAP A.8), so
-:func:`resolve_auto_plan` always solves.
+With ``checkpoint_dir`` the decision persists in ``partition.json``
+beside the checkpoints (the ``plan_auto`` record, under the key and
+fingerprint of parallel/api.py's ``--auto-partition`` plan), and a
+``--resume`` of the same configuration reuses it without profiling. A
+``--resume --elastic-resume`` onto a new world pins the stage count (and
+the cuts the earlier run recorded) to the checkpoint's
+(:func:`_elastic_pin`), since the reshard of train/reshard.py covers a
+changed dp count only, and a pinned dp ZeRO-1 checkpoint keeps the
+sharded update even at dp 1 (``force_shard``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ddlbench_tpu_torch.config import HardwareModel, RunConfig
@@ -493,14 +499,16 @@ def solve_plan(graph: Graph, world: int, micro_batch: int,
 
 
 def _rewrite_fields(cfg: RunConfig, winner: Candidate, micro_batch: int,
-                    num_microbatches: int) -> Dict[str, object]:
+                    num_microbatches: int,
+                    force_shard: bool = False) -> Dict[str, object]:
     """The ``cfg.replace`` kwargs that map the winning mix onto the
     port's engines. The rewrite PRESERVES the global batch
     (micro_batch * num_microbatches under the pre-plan gpipe accounting)
     and returns a plan='manual' config — by construction equal to the same
     mix passed explicitly, which is what the bitwise end-to-end pin holds
-    the planner to. (The reference's ``force_shard``, its elastic resume
-    of a ZeRO-1 checkpoint, waits for the port's checkpoints.)"""
+    the planner to. ``force_shard`` (an elastic resume of a ZeRO-1
+    checkpoint) keeps the sharded update at dp 1, so the restore meets
+    the layout it saved."""
     world = cfg.num_devices
     base: Dict[str, object] = dict(
         plan="manual", auto_partition=False, plan_bounds=None,
@@ -530,7 +538,7 @@ def _rewrite_fields(cfg: RunConfig, winner: Candidate, micro_batch: int,
         pipe_schedule=winner.schedule,
         # hybrid PP x ZeRO-1 shard axis (the tpp composition keeps the
         # replicated update; validate scopes the shard to tp_size == 1)
-        dp_shard_update=dp > 1 and tp == 1,
+        dp_shard_update=(dp > 1 or force_shard) and tp == 1,
         plan_bounds=tuple(winner.bounds) if winner.pp > 1 else None)
     return base
 
@@ -584,18 +592,176 @@ def plan_for_config(cfg: RunConfig, input_time_ms: float = 0.0,
                           input_time_ms=input_time_ms)
     del model
     graph = fold_input_node(graph)
+    pin_pp, pin_bounds, force_shard, note = _elastic_pin(cfg)
+    if note:
+        print(f"plan auto: {note}", flush=True)
+    if pin_bounds is not None and pin_bounds[-1] != len(graph.nodes):
+        # the recorded cuts index another profile graph: keep the count
+        # pin only (a split that really moved still fails at the restore)
+        print(f"plan auto: recorded cuts {list(pin_bounds)} do not span "
+              f"this profile's {len(graph.nodes)} nodes; pinning the "
+              f"stage count only", flush=True)
+        pin_bounds = None
     token_model = spec.kind in ("tokens", "seq2seq")
     plan = solve_plan(
         graph, cfg.num_devices, mb, chunks, cfg.hardware,
         optimizer=cfg.resolved_optimizer(), token_model=token_model,
         tp_candidates=(_model_tp_widths(cfg.arch, cfg.num_devices)
                        if token_model else []),
-        remat=cfg.remat_stages, zero1="moe" not in cfg.arch,
-        h2_stash=cfg.zb_h2_stash,
+        remat=cfg.remat_stages, pin_pp=pin_pp, pin_bounds=pin_bounds,
+        zero1="moe" not in cfg.arch, h2_stash=cfg.zb_h2_stash,
         search_budget=cfg.sched_search_budget,
         search_seed=cfg.sched_search_seed)
-    rewrite = _rewrite_fields(cfg, plan.winner, mb, chunks)
+    rewrite = _rewrite_fields(cfg, plan.winner, mb, chunks,
+                              force_shard=force_shard)
     return plan, rewrite, graph
+
+
+def _recorded_bounds(cfg: RunConfig, stages: int
+                     ) -> Optional[Tuple[int, ...]]:
+    """The stage cuts the earlier ``--plan auto`` run recorded in
+    partition.json (its winner's), whatever the key: on an elastic resume
+    the key's num_devices changed, but the split must survive."""
+    from ddlbench_tpu_torch.parallel.api import _plan_path
+
+    path = _plan_path(cfg)
+    if not (path and os.path.exists(path)):
+        return None
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (json.JSONDecodeError, OSError):
+        return None
+    w = (doc.get("plan_auto") or {}).get("winner") or {}
+    b = w.get("bounds")
+    if w.get("pp") == stages and isinstance(b, list) and \
+            len(b) == stages + 1:
+        return tuple(int(x) for x in b)
+    return None
+
+
+def _elastic_pin(cfg: RunConfig
+                 ) -> Tuple[Optional[int], Optional[Tuple[int, ...]],
+                            bool, str]:
+    """(pin_pp, pin_bounds, force_shard, note): a ``--resume
+    --elastic-resume`` onto a new world keeps the checkpoint's recorded
+    stage split (the reshard permutes the dp axis only), so the planner
+    solves constrained to it; the cuts come from the earlier run's
+    partition.json where it is there, else only the count is pinned."""
+    if not (cfg.resume and cfg.elastic_resume and cfg.checkpoint_dir):
+        return None, None, False, ""
+    from ddlbench_tpu_torch.train.checkpoint import (latest_valid,
+                                                     load_logical)
+
+    info = latest_valid(cfg.checkpoint_dir)
+    if info is None:
+        return None, None, False, ""
+    saved = load_logical(info.path)
+    if not saved:
+        return None, None, False, ""
+    kind = saved.get("kind")
+    if kind == "pipe_shard":
+        stages = int(saved["stages"])
+        bounds = _recorded_bounds(cfg, stages)
+        return stages, bounds, True, (
+            f"elastic resume: stage split pinned to the checkpoint's "
+            f"S={stages}"
+            + (f" at the recorded cuts {list(bounds)}" if bounds else "")
+            + f" (world {saved.get('world')} -> {cfg.num_devices}; "
+            f"the dp-axis reshard is a permutation, a new split is not)")
+    if kind == "dp_shard":
+        return 1, None, True, (
+            f"elastic resume: pp=1 pinned to the checkpoint's dp ZeRO-1 "
+            f"layout (world {saved.get('world')} -> {cfg.num_devices})")
+    return None, None, False, ""
+
+
+# ---- the partition.json cache ---------------------------------------------
+
+
+def _load_cached(cfg: RunConfig, key: dict) -> Optional[dict]:
+    """The persisted ``--plan auto`` record of this run's key and cost
+    model, on a ``--resume``; None (with the reason printed) otherwise."""
+    from ddlbench_tpu_torch.parallel.api import (_plan_fingerprint,
+                                                 _plan_path)
+
+    path = _plan_path(cfg)
+    if not (cfg.resume and path and os.path.exists(path)):
+        return None
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (json.JSONDecodeError, OSError) as e:
+        print(f"plan auto: ignoring unreadable plan {path} ({e}); "
+              f"re-solving", flush=True)
+        return None
+    pkey = doc.get("key")
+    if isinstance(pkey, dict) and "plan" not in pkey:
+        print(f"plan auto: persisted plan {path} predates the --plan mode "
+              f"field; invalidating and re-solving", flush=True)
+        return None
+    if pkey != key:
+        print(f"plan auto: persisted plan {path} was solved for {pkey}, "
+              f"run is {key}; re-solving (the existing file is backed up "
+              f"on save)", flush=True)
+        return None
+    rec = doc.get("plan_auto")
+    if not isinstance(rec, dict) or "rewrite" not in rec:
+        print(f"plan auto: persisted plan {path} carries no plan_auto "
+              f"record; re-solving", flush=True)
+        return None
+    if rec.get("fingerprint") != _plan_fingerprint(cfg):
+        print(f"plan auto: persisted plan {path} was priced under a "
+              f"different cost model ({rec.get('fingerprint')}); "
+              f"re-solving", flush=True)
+        return None
+    return doc
+
+
+def _save_cached(cfg: RunConfig, key: dict, plan: PlanResult,
+                 rewrite: Dict[str, object]) -> None:
+    from ddlbench_tpu_torch.parallel.api import (_backup_foreign_plan,
+                                                 _plan_fingerprint,
+                                                 _plan_path,
+                                                 _write_json_atomic)
+
+    path = _plan_path(cfg)
+    if path is None:
+        return
+    os.makedirs(cfg.checkpoint_dir, exist_ok=True)
+    _backup_foreign_plan(path, key)
+    _write_json_atomic(path, {
+        "key": key,
+        "plan_auto": {
+            "fingerprint": _plan_fingerprint(cfg),
+            "winner": plan.winner.as_record(),
+            "candidates": [c.as_record() for c in plan.candidates],
+            "reason": plan.reason,
+            "rewrite": {k: (list(v) if isinstance(v, tuple) else v)
+                        for k, v in rewrite.items()},
+        },
+    })
+
+
+def _cached_rewrite(cfg: RunConfig, key: dict) -> Optional[dict]:
+    """The persisted record's rewrite where it applies (a cached plan
+    whose stage count mismatches an elastic pin is solved again)."""
+    cached = _load_cached(cfg, key)
+    if cached is None:
+        return None
+    rec = cached["plan_auto"]
+    w = rec.get("winner", {})
+    pin_pp, _, _, _ = _elastic_pin(cfg)
+    if pin_pp is not None and w.get("pp") != pin_pp:
+        print(f"plan auto: persisted plan's stage count {w.get('pp')} "
+              f"mismatches the checkpoint's pinned {pin_pp}; re-solving",
+              flush=True)
+        return None
+    print(f"plan auto: reusing persisted plan (pp={w.get('pp')} "
+          f"dp={w.get('dp')} tp={w.get('tp')} @{w.get('schedule')}, "
+          f"{len(rec.get('candidates', []))} candidates considered)",
+          flush=True)
+    return rec["rewrite"]
 
 
 def _apply_rewrite(cfg: RunConfig, rewrite: Dict[str, object]) -> RunConfig:
@@ -633,20 +799,27 @@ def resolve_auto_plan(cfg: RunConfig, input_time_ms=0.0, device=None,
         return cfg
     cfg.validate()
     if comm is None or comm.rank == 0:
-        if callable(input_time_ms):
-            input_time_ms = input_time_ms()
-        plan, rewrite, _ = plan_for_config(cfg, input_time_ms=input_time_ms,
-                                           device=device)
-        w = plan.winner
-        print(f"plan auto: {plan.reason}", flush=True)
-        print(f"plan auto: executing pp={w.pp} dp={w.dp} tp={w.tp} "
-              f"@{w.schedule} (bounds="
-              f"{list(w.bounds) if w.bounds else None}, predicted "
-              f"{w.step_time_ms:.3f} ms/step, peak "
-              f"{w.peak_bytes_per_chip / 2**30:.3f} GiB/chip; "
-              f"{len(plan.candidates)} candidates considered)", flush=True)
-        rewrite = {k: (list(v) if isinstance(v, tuple) else v)
-                   for k, v in rewrite.items()}
+        from ddlbench_tpu_torch.parallel.api import _plan_key
+
+        key = _plan_key(cfg)
+        rewrite = _cached_rewrite(cfg, key)
+        if rewrite is None:
+            if callable(input_time_ms):
+                input_time_ms = input_time_ms()
+            plan, rewrite, _ = plan_for_config(
+                cfg, input_time_ms=input_time_ms, device=device)
+            _save_cached(cfg, key, plan, rewrite)
+            w = plan.winner
+            print(f"plan auto: {plan.reason}", flush=True)
+            print(f"plan auto: executing pp={w.pp} dp={w.dp} tp={w.tp} "
+                  f"@{w.schedule} (bounds="
+                  f"{list(w.bounds) if w.bounds else None}, predicted "
+                  f"{w.step_time_ms:.3f} ms/step, peak "
+                  f"{w.peak_bytes_per_chip / 2**30:.3f} GiB/chip; "
+                  f"{len(plan.candidates)} candidates considered)",
+                  flush=True)
+            rewrite = {k: (list(v) if isinstance(v, tuple) else v)
+                       for k, v in rewrite.items()}
     else:
         rewrite = None
     if comm is not None and comm.world > 1:

@@ -43,13 +43,31 @@ fetch cost is measured on a throwaway source and priced into the plan
 (per microbatch), the plan's probe only where it is solved. With
 ``activation_log_dir`` the loop logs the first steps' activations and
 gradients (profiler/actlog.py) under single, dp and sp, before the step.
-Tracing, checkpoints, the watchdog, the guard and preemption are not
-ported: RunConfig.validate refuses their knobs.
+
+With ``checkpoint_dir`` the loop commits the strategy's train state
+(its ``checkpoint_state``, parallel/state.py) after every epoch's
+validation and every ``checkpoint_every_steps`` steps inside an epoch
+(train/checkpoint.py), with ``logical.json`` (train/reshard.py) on every
+commit and the newest ``keep_checkpoints`` kept (the current resume
+target never dropped). Every rank gathers, rank 0 writes, and every rank
+passes a barrier before the gather and after the rename. With
+``resume`` it restores, after the warm-up, the newest valid checkpoint
+(none: "starting fresh"): a world-size mismatch is resharded under
+``elastic_resume`` or refused by name, the lr's world scaling stays
+pinned to the launch world the checkpoint recorded, the metric logger's
+counters come back, an epoch checkpoint is validated again before
+training goes on, and a step checkpoint resumes inside its epoch (the
+batches are (epoch, step)-addressed; a sequential on-disk stream is
+fast-forwarded). Tracing, the watchdog, the guard, preemption and fault
+injection are not ported: RunConfig.validate refuses their knobs.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import math
+import os
 import time
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -262,20 +280,178 @@ def evaluate(strategy: Strategy, prefetch: Prefetcher,
             "top5": int(correct5) / n if n else None}
 
 
+class Checkpoints:
+    """The loop's checkpoint bookkeeping (module docstring): the global
+    step, the retention pin (the current resume target), the logical
+    metadata of every commit, and the save and restore seconds."""
+
+    def __init__(self, cfg: RunConfig, strategy: Strategy,
+                 logger: MetricLogger, rank: int, lr_world: int):
+        self.cfg, self.strategy, self.logger = cfg, strategy, logger
+        self.rank, self.lr_world = rank, lr_world
+        self.global_step = 0
+        self.pin: Optional[str] = None
+        self.logical: Optional[Dict[str, Any]] = None
+        self.save_s: list = []
+        self.restore_s: Optional[float] = None
+
+    def _say(self, line: str) -> None:
+        if self.rank == 0:
+            print(line, flush=True)
+
+    def barrier(self) -> None:
+        """Every rank of the run here: the strategy's groups in turn (3-D
+        tpp's tp group, then its data group, which together order every
+        rank after rank 0)."""
+        seen = []
+        for name in ("tp_comm", "dp_comm", "comm"):
+            comm = getattr(self.strategy, name, None)
+            if comm is not None and all(comm is not c for c in seen):
+                seen.append(comm)
+                comm.barrier()
+
+    def commit(self, epoch: int, step: Optional[int] = None) -> str:
+        """Commit the strategy's state as of epoch ``epoch`` (and interior
+        step ``step``): every rank gathers, rank 0 writes. Returns the
+        path."""
+        from ddlbench_tpu_torch.train import reshard
+        from ddlbench_tpu_torch.train.checkpoint import (checkpoint_name,
+                                                         save_checkpoint)
+
+        t0 = time.perf_counter()
+        self.barrier()
+        tree = self.strategy.checkpoint_state()
+        if self.logical is None:
+            self.logical = reshard.logical_meta(self.strategy, self.cfg, tree,
+                                                self.lr_world)
+        path = os.path.join(os.path.abspath(self.cfg.checkpoint_dir),
+                            checkpoint_name(epoch, step))
+        if self.rank == 0:
+            path = save_checkpoint(
+                self.cfg.checkpoint_dir, epoch, tree, step=step,
+                global_step=self.global_step,
+                logger_state=self.logger.state_dict(), seed=self.cfg.seed,
+                keep=self.cfg.keep_checkpoints, pin=self.pin,
+                logical=self.logical)
+        self.barrier()
+        self.pin = path
+        self.save_s.append(time.perf_counter() - t0)
+        return path
+
+    def resume(self, data, prefetch: Prefetcher) -> Tuple[int, int]:
+        """Restore the newest valid checkpoint (module docstring) and
+        return (the epoch, the step in it) the run goes on from; (1, 0)
+        where there is none."""
+        from ddlbench_tpu_torch.parallel.state import check_payload
+        from ddlbench_tpu_torch.train import reshard
+        from ddlbench_tpu_torch.train.checkpoint import (latest_valid,
+                                                         load_logical,
+                                                         load_state)
+
+        cfg, strategy = self.cfg, self.strategy
+        quiet = (contextlib.nullcontext() if self.rank == 0
+                 else contextlib.redirect_stdout(io.StringIO()))
+        with quiet:
+            info = latest_valid(cfg.checkpoint_dir)
+        if info is None:
+            self._say(f"resume: no valid checkpoint under "
+                      f"{cfg.checkpoint_dir}; starting fresh")
+            return 1, 0
+        t0 = time.perf_counter()
+        current = strategy.checkpoint_state()
+        saved_logical = load_logical(info.path)
+        cur_logical = reshard.logical_meta(strategy, cfg, current,
+                                           self.lr_world)
+        with quiet:
+            decision = reshard.compare(saved_logical, cur_logical,
+                                       cfg.elastic_resume)
+        restored = load_state(info.path)
+        if decision == "reshard":
+            self._say(f"elastic resume: resharding checkpoint from world "
+                      f"{saved_logical['world']} to {cur_logical['world']} "
+                      f"(buckets {saved_logical.get('buckets')} -> "
+                      f"{cur_logical.get('buckets')})")
+            restored = reshard.elastic_restore(restored, saved_logical,
+                                               strategy)
+        check_payload(restored, current)
+        strategy.load_checkpoint_state(restored)
+        self.restore_s = time.perf_counter() - t0
+        if saved_logical is not None:
+            if saved_logical.get("global_batch") != cfg.global_batch():
+                self._say(f"resume: WARNING checkpoint was written at global "
+                          f"batch {saved_logical.get('global_batch')}, run "
+                          f"uses {cfg.global_batch()} — the (epoch, "
+                          f"step)-addressed data streams will not match the "
+                          f"original trajectory")
+            saved_lr_world = saved_logical.get("lr_world")
+            if saved_lr_world and saved_lr_world != self.lr_world:
+                # the run's hyperparameters were fixed at launch: a
+                # reshaped fleet replays the same schedule
+                self.lr_world = saved_lr_world
+                self._say(f"elastic resume: lr world-scaling pinned to the "
+                          f"launch world ({self.lr_world})")
+            if saved_logical.get("elastic_slices") != cfg.elastic_slices:
+                self._say(f"resume: WARNING checkpoint recorded "
+                          f"--elastic-slices "
+                          f"{saved_logical.get('elastic_slices')}, run uses "
+                          f"{cfg.elastic_slices} — reduction orders differ, "
+                          f"the trajectory will not be bitwise")
+        self.pin = info.path
+        meta = info.meta
+        if meta.get("seed") is not None and meta["seed"] != cfg.seed:
+            self._say(f"resume: WARNING checkpoint was written with seed "
+                      f"{meta['seed']}, run uses seed {cfg.seed} — the "
+                      f"(epoch, step)-addressed data/RNG streams will not "
+                      f"match the original trajectory")
+        if meta.get("logger"):
+            self.logger.load_state_dict(meta["logger"])
+        steps = data.steps_per_epoch(train=True)
+        start_epoch, resume_step = info.epoch + 1, 0
+        if info.mid_epoch:
+            # the data's position is the step index: the next step of the
+            # epoch, or the next epoch where the step was its last
+            start_epoch, resume_step = info.epoch, info.step + 1
+            if resume_step >= steps:
+                start_epoch, resume_step = info.epoch + 1, 0
+            self._say(f"resumed from {cfg.checkpoint_dir} epoch "
+                      f"{info.epoch} step {info.step} (mid-epoch)")
+        else:
+            self._say(f"resumed from {cfg.checkpoint_dir} epoch "
+                      f"{info.epoch}")
+        self.global_step = (meta["global_step"]
+                            if meta.get("global_step") is not None
+                            else (start_epoch - 1) * steps + resume_step)
+        if not info.mid_epoch:
+            # validate the restored state before training goes on (the
+            # reference's main_with_runtime.py:374-376); a mid-epoch
+            # resume validates at its epoch's end
+            val = evaluate(strategy, prefetch, info.epoch)
+            self.logger.valid_epoch(info.epoch, val["loss"],
+                                    val["accuracy"], top5=val["top5"])
+        return start_epoch, resume_step
+
+    def record(self) -> Dict[str, Any]:
+        """The run's checkpoint seconds for the summary."""
+        return {"saves": len(self.save_s), "save_s": list(self.save_s),
+                "restore_s": self.restore_s}
+
+
 def _epoch(cfg: RunConfig, strategy: Strategy, prefetch: Prefetcher,
            logger: MetricLogger, epoch: int, base_lr: float, B: int,
-           warmup_world: int = 1, actlog=None):
-    """One training epoch and its validation; returns (the steps' body
+           warmup_world: int, actlog, ckpt: Checkpoints, start_step: int):
+    """One training epoch from step ``start_step`` and its validation,
+    with ``ckpt``'s step and epoch commits; returns (the steps' body
     seconds, the validation accuracy)."""
     lr = step_decay_lr(base_lr, epoch - 1, cfg.lr_step_epochs,
                        cfg.lr_step_gamma)
     warming = cfg.warmup_epochs and epoch - 1 < cfg.warmup_epochs
+    every = cfg.checkpoint_every_steps
     tick = time.perf_counter()
     interval_tick, interval_samples = tick, 0
     loss_sum, interval_steps, step_s = None, 0, []
-    with prefetch.stream(epoch, train=True) as stream:
+    with prefetch.stream(epoch, train=True, start_step=start_step) as stream:
         steps = stream.steps
-        for step, (x, y) in enumerate(stream):
+        for step, (x, y) in enumerate(stream, start=start_step):
             if actlog is not None and actlog.should_log(epoch, step):
                 materialize = getattr(strategy, "materialize_params", None)
                 if materialize is not None:
@@ -288,6 +464,7 @@ def _epoch(cfg: RunConfig, strategy: Strategy, prefetch: Prefetcher,
                                          steps, cfg.warmup_epochs)
                        if warming else lr)
             m = strategy.train_step(x, y, step_lr)
+            ckpt.global_step += 1
             loss_sum = m["loss"] if loss_sum is None else loss_sum + m["loss"]
             interval_steps += 1
             interval_samples += B
@@ -304,12 +481,17 @@ def _epoch(cfg: RunConfig, strategy: Strategy, prefetch: Prefetcher,
                 interval_tick, interval_samples = now, 0
                 loss_sum, interval_steps = None, 0
             step_s.append(time.perf_counter() - t1)
+            if every and (step + 1) % every == 0 and step != steps - 1:
+                ckpt.commit(epoch, step)  # the epoch's own commit covers
+                #                           its last step
     epoch_time = time.perf_counter() - tick
-    logger.epoch_done(epoch, steps * B / epoch_time, epoch_time,
-                      input_stall_ms=stream.stall_ms,
+    logger.epoch_done(epoch, (steps - start_step) * B / epoch_time,
+                      epoch_time, input_stall_ms=stream.stall_ms,
                       step_ms=latency_summary(step_s))
     val = evaluate(strategy, prefetch, epoch)
     logger.valid_epoch(epoch, val["loss"], val["accuracy"], top5=val["top5"])
+    if cfg.checkpoint_dir:
+        ckpt.commit(epoch)
     return step_s, val["accuracy"]
 
 
@@ -332,8 +514,9 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[Strategy] = None,
     B = cfg.global_batch()
     logger = logger or MetricLogger(cfg.epochs, cfg.log_interval,
                                     device=dev, rank=rank)
-    base_lr, warmup_world = scaled_lr(
-        cfg, getattr(strategy, "world_size", 1))
+    ckpt = Checkpoints(cfg, strategy, logger, rank,
+                       getattr(strategy, "world_size", 1))
+    base_lr, warmup_world = scaled_lr(cfg, ckpt.lr_world)
     if rank == 0:
         print(comm_line(comm_stats(strategy)), flush=True)
     data = make_data(cfg, dev, verbose=rank == 0)
@@ -342,10 +525,18 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[Strategy] = None,
         warmup_s = (_warmup(strategy, cfg, data, base_lr, warmup_steps)
                     if warmup_steps > 0 else None)
         prefetch = Prefetcher(data, depth=cfg.prefetch_depth)
-        all_steps, accuracy = [], 0.0
-        for epoch in range(1, cfg.epochs + 1):
-            s, accuracy = _epoch(cfg, strategy, prefetch, logger, epoch,
-                                 base_lr, B, warmup_world, actlog)
+        start_epoch, start_step = 1, 0
+        if cfg.checkpoint_dir and cfg.resume:
+            start_epoch, start_step = ckpt.resume(data, prefetch)
+            base_lr, warmup_world = scaled_lr(cfg, ckpt.lr_world)
+        all_steps = []
+        accuracy = (logger.valid_history[-1]["accuracy"]
+                    if logger.valid_history else 0.0)
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            s, accuracy = _epoch(
+                cfg, strategy, prefetch, logger, epoch, base_lr, B,
+                warmup_world, actlog, ckpt,
+                start_step if epoch == start_epoch else 0)
             all_steps += s
     finally:
         getattr(data, "close", lambda: None)()
@@ -353,4 +544,7 @@ def run_benchmark(cfg: RunConfig, strategy: Optional[Strategy] = None,
     step_time = latency_summary(all_steps)
     if warmup_s is not None:
         step_time["warmup_compile_s"] = warmup_s
-    return logger.summary(accuracy, step_time=step_time)
+    result = logger.summary(accuracy, step_time=step_time)
+    if cfg.checkpoint_dir:
+        result["checkpoint"] = ckpt.record()
+    return result

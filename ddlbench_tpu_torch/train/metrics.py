@@ -170,6 +170,23 @@ class MetricLogger:
                    "(average)", record)
         return result
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The counters a checkpoint carries (``resume.json``), so a
+        resumed run's summary covers the whole run."""
+        return {
+            "epoch_throughputs": list(self.epoch_throughputs),
+            "epoch_times": list(self.epoch_times),
+            "epoch_stall_ms": list(self.epoch_stall_ms),
+            "valid_history": [dict(h) for h in self.valid_history],
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.epoch_throughputs = list(state.get("epoch_throughputs", []))
+        self.epoch_times = list(state.get("epoch_times", []))
+        self.epoch_stall_ms = list(state.get("epoch_stall_ms", []))
+        self.valid_history = [dict(h)
+                              for h in state.get("valid_history", [])]
+
     def close(self) -> None:
         if self._jsonl:
             self._jsonl.close()

@@ -205,15 +205,17 @@ def test_cli_covers_every_reference_flag():
 
 # --auto-partition, --hbm-gb and --plan were refused here until the
 # profile -> partition -> plan loop was ported (tests/test_torch_planner.py
-# runs them); their rows now name flags the port still lacks
-@pytest.mark.parametrize("argv", [["--elastic-slices", "2"],
+# runs them), and --elastic-slices, --checkpoint-dir, --elastic-resume and
+# --resume until checkpoints were (tests/test_torch_resume.py,
+# test_torch_elastic.py); their rows now name flags the port still lacks
+@pytest.mark.parametrize("argv", [["--hang-timeout-s", "60"],
                                   ["--audit", "a.json"],
                                   ["--inject", "kill@1:1"],
-                                  ["--checkpoint-dir", "d"],
+                                  ["--anomaly-policy", "skip"],
                                   ["--platform", "cpu"],
                                   ["--trace", "t.json"],
-                                  ["--elastic-resume"],
-                                  ["--resume"]])
+                                  ["--trace-dir", "d"],
+                                  ["--loss-scale", "dynamic"]])
 def test_cli_refuses_unported_flags_by_name(capsys, argv):
     with pytest.raises(SystemExit):
         cli.main(argv + ["--device", "cpu"])
@@ -317,10 +319,20 @@ LOOP_KNOBS = {"synthetic": False, "plan": "auto", "auto_partition": True,
               "warmup_epochs": 2, "elastic_slices": 2}
 # knobs once refused here that now validate: synthetic=False on a token
 # benchmark (on-disk token and text data), warmup_epochs (the dp
-# strategy's gradual warmup), and plan, auto_partition and
+# strategy's gradual warmup), plan, auto_partition and
 # activation_log_dir (the profile -> partition -> plan loop and the
-# activation logger)
+# activation logger), and checkpoint_dir, resume, checkpoint_every_steps
+# and elastic_slices (checkpoints and the elastic dp engine)
 NOW_PORTED = {"synthetic": dict(benchmark="synthtext", arch="transformer_t"),
+              "checkpoint_dir": dict(benchmark="cifar10", arch="resnet18"),
+              "resume": dict(benchmark="cifar10", arch="resnet18",
+                             checkpoint_dir="d"),
+              "checkpoint_every_steps": dict(benchmark="cifar10",
+                                             arch="resnet18",
+                                             checkpoint_dir="d"),
+              "elastic_slices": dict(benchmark="synthtext",
+                                     arch="transformer_t", strategy="dp",
+                                     num_devices=2, dp_shard_update=True),
               "warmup_epochs": dict(benchmark="cifar10", arch="resnet18",
                                     strategy="dp", num_devices=2),
               "plan": dict(benchmark="cifar10", arch="resnet18",

@@ -278,8 +278,12 @@ def test_synthetic_tokens():
 
 
 @pytest.mark.parametrize("knob", [
-    dict(strategy="dp", num_devices=2, elastic_slices=2),
-    dict(checkpoint_dir="d"),
+    # elastic_slices and checkpoint_dir run since checkpoints were
+    # ported (tests/test_torch_elastic.py, test_torch_resume.py); the same
+    # configs with a knob the port still refuses
+    dict(strategy="dp", num_devices=2, dp_shard_update=True,
+         elastic_slices=2, audit="a.json"),
+    dict(checkpoint_dir="d", trace_dir="d"),
     dict(anomaly_policy="skip"), dict(loss_scale="dynamic"),
     # MoE under fsdp and dp and remat_layers under tp run since they were
     # ported; the same configs with a knob of ROADMAP A.8
